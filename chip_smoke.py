@@ -8,16 +8,30 @@ Run from the repository root on a host with one CUDA card. Phases:
 1. card: its name and power limit (nvidia-smi); TF32 off for f32 phases;
 2. build: the CUDA kernels from ``opticalflowfromdepth_torch/csrc`` (one
    nvcc per source, in parallel) and the first Triton launch;
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes RAFT-basic gives it at Sintel size (440x1024 padded), with the
-   tolerance stated, plus the edge cases; times with CUDA events;
-4. end-to-end parity: RAFT-basic on one 128x256 pair, 6 iterations, f32,
-   on the card (kernels) against the CPU (plain versions), same weights;
-5. the main path: full-width RAFT-basic (bf16, fused correlation, 24
+3. each kernel against its plain PyTorch version on the card, with the
+   tolerance stated, plus the edge cases; times with CUDA events:
+   [3a] the fused lookup and [3b] instance norm at the shapes RAFT-basic
+   serving gives them at Sintel size (440x1024 padded); [3c] the lookup's
+   backward and [3d] instance norm's gradient at the training shapes
+   (batch 8, 368x496);
+4. serving parity: RAFT-basic on one 128x256 pair, 6 iterations, f32, on
+   the card (kernels) against the CPU (plain versions), same weights;
+5. the serving path: full-width RAFT-basic (bf16, fused correlation, 24
    iterations, seeded random weights) serving 3 pairs of 436x1024 through
    ``InputPadder`` and ``raft_infer_fn``, with the launch counts checked
    (24 lookups and 15 instance norms per pair) and a profile of one pair;
-6. a ``{"kernels": [...]}`` line, the card line, and last the line
+6. train-step parity: one f32 step of RAFT-basic with the classifier,
+   64x96, batch 2, on the card against the CPU, same weights and batch;
+7. the training path: seeded npz shards at 384x512 -> ``AugmentedShards``
+   (crop 368x496) -> ``Loader`` (batch 8) -> ``TrainRunner`` over
+   ``make_train_step`` (RAFT-basic bf16, fused correlation, 12
+   iterations, frozen classifier): one warm-up step, 5 timed steps with
+   the launch counts checked (12 lookups, 12 lookup backwards and 15
+   instance norms per step), a profile of one step, then the ``latest``
+   and weights checkpoints, the weights served by the serving model;
+8. a learning check: 30 steps on one fixed batch at 184x248, batch 4;
+   the loss must fall;
+9. a ``{"kernels": [...]}`` line, the card line, and last the line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -31,12 +45,14 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16, data sheet
 SINTEL = (436, 1024)
+TRAIN_CROP, TRAIN_BATCH, TRAIN_ITERS = (368, 496), 8, 12
 
 
 def fail(msg: str) -> None:
@@ -101,6 +117,22 @@ def valid_taps(coords, meta, radius: int) -> int:
     return total
 
 
+def corr_inputs(gen, b, h, w, dtype, spread, shift=0.0, c=256, levels=4):
+    """Seeded f1 ``[B, N, C]``, packed f2cat and coordinates around the
+    identity grid (+- spread px, moved by shift) on the card."""
+    import torch
+    from opticalflowfromdepth_torch.ops import fused_corr as fc
+    f1 = torch.randn(b, h, w, c, generator=gen).cuda()
+    f2 = torch.randn(b, h, w, c, generator=gen).cuda()
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    base = torch.stack([xx, yy], -1).float()[None].repeat(b, 1, 1, 1)
+    coords = base + (torch.rand(b, h, w, 2, generator=gen) * 2 - 1) \
+        * spread + shift
+    f2cat = fc.corr_levels_cat(f2, levels, dtype)
+    return (f1.to(dtype).reshape(b, h * w, c), f2cat,
+            coords.reshape(b, h * w, 2).cuda())
+
+
 def fused_corr_phase(gen):
     import torch
     from opticalflowfromdepth_torch.ops import fused_corr as fc
@@ -108,19 +140,9 @@ def fused_corr_phase(gen):
     print("[3a] fused correlation lookup: CUDA kernel vs plain", flush=True)
     h8, w8 = (SINTEL[0] + 4) // 8, SINTEL[1] // 8      # 55 x 128
     c, levels, radius = 256, 4, 4
-    dev = "cuda"
 
     def inputs(b, h, w, dtype, spread, shift=0.0):
-        f1 = torch.randn(b, h, w, c, generator=gen).to(dev)
-        f2 = torch.randn(b, h, w, c, generator=gen).to(dev)
-        yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w),
-                                indexing="ij")
-        base = torch.stack([xx, yy], -1).float()[None].repeat(b, 1, 1, 1)
-        coords = base + (torch.rand(b, h, w, 2, generator=gen) * 2 - 1) \
-            * spread + shift
-        f2cat = fc.corr_levels_cat(f2, levels, dtype)
-        return (f1.to(dtype).reshape(b, h * w, c), f2cat,
-                coords.reshape(b, h * w, 2).to(dev))
+        return corr_inputs(gen, b, h, w, dtype, spread, shift, c, levels)
 
     worst = 0.0
     for dtype, rtol, atol in ((torch.float32, 0.0, 1e-4),
@@ -233,8 +255,122 @@ def instance_norm_phase(gen):
                 bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
 
 
+def fused_corr_bwd_phase(gen):
+    import torch
+    from opticalflowfromdepth_torch.ops import fused_corr as fc
+
+    print("[3c] fused lookup backward: CUDA kernel vs plain", flush=True)
+    h8, w8 = TRAIN_CROP[0] // 8, TRAIN_CROP[1] // 8     # 46 x 62
+    c, levels, radius = 256, 4, 4
+    k2 = (2 * radius + 1) ** 2
+
+    def inputs(b, h, w, dtype, spread, shift=0.0):
+        f1, f2cat, coords = corr_inputs(gen, b, h, w, dtype, spread, shift,
+                                        c, levels)
+        g = torch.randn(b, h * w, levels * k2, generator=gen).cuda()
+        return g.to(dtype), f1, f2cat, coords
+
+    worst = 0.0
+    # f32: the kernel sums df2cat with atomics, in an order that changes
+    # from run to run, and the plain version with a matmul: 1e-4. bf16:
+    # both round the same f32 sums once, so they may be one bf16 step
+    # (2^-7 relative) apart.
+    for dtype, rtol, atol in ((torch.float32, 0.0, 1e-4),
+                              (torch.bfloat16, 2 ** -7, 1e-3)):
+        for label, (b, h, w, spread, shift) in (
+                (f"train {h8}x{w8} B={TRAIN_BATCH}",
+                 (TRAIN_BATCH, h8, w8, 20.0, 0.0)),
+                ("ragged N=63", (1, 7, 9, 6.0, 0.0)),
+                ("far out of range", (1, h8, w8, 0.0, 1e4))):
+            g, f1, f2cat, coords = inputs(b, h, w, dtype, spread, shift)
+            got = fc.fused_corr_lookup_cat_bwd(g, f1, f2cat, coords, h, w,
+                                               levels, radius)
+            torch.cuda.synchronize()
+            ref = fc.fused_corr_lookup_cat_bwd_plain(g, f1, f2cat, coords, h,
+                                                     w, levels, radius)
+            for name, x, r, like in zip(("df1", "df2cat"), got, ref,
+                                        (f1, f2cat)):
+                if x.shape != like.shape or x.dtype != like.dtype:
+                    fail(f"lookup backward {label} {name}: {x.shape}/"
+                         f"{x.dtype}, want {like.shape}/{like.dtype}")
+                if shift:
+                    if torch.count_nonzero(x):
+                        fail(f"lookup backward: {name} of out-of-range "
+                             "lookups is not all 0")
+                    continue
+                err = float((x.float() - r.float()).abs().max())
+                check(f"{label} {dtype} {name} (|d| <= {atol:g} + "
+                      f"{rtol:g}|ref|)", max_rel_excess(x, r, rtol, atol),
+                      1.0)
+                print(f"    max abs diff {err:.3e}", flush=True)
+                if label.startswith("train") and dtype == torch.bfloat16:
+                    worst = max(worst, err)
+            if shift:
+                print(f"  {label} {dtype}: df1 and df2cat exactly 0",
+                      flush=True)
+
+    # timing at the training shape and dtype (bf16, batch 8)
+    g, f1, f2cat, coords = inputs(TRAIN_BATCH, h8, w8, torch.bfloat16, 20.0)
+    meta = fc.cat_meta(h8, w8, levels)
+    ms = cuda_ms(lambda: fc.fused_corr_lookup_cat_bwd(
+        g, f1, f2cat, coords, h8, w8, levels, radius))
+    plain_ms = cuda_ms(lambda: fc.fused_corr_lookup_cat_bwd_plain(
+        g, f1, f2cat, coords, h8, w8, levels, radius), reps=5)
+    n = TRAIN_BATCH * h8 * w8
+    taps = valid_taps(coords, meta, radius)
+    # g, f1, f2cat read once, df1 written once (bf16); the f32 df2cat
+    # scratch written once
+    nbytes = (g.numel() + f1.numel() + f2cat.numel() + f1.numel()) * 2 \
+        + f2cat.numel() * 4 + coords.numel() * 4
+    ops = 4 * c * taps + 8 * n * levels * (2 * radius + 2) ** 2
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOP_PER_S \
+        else "operations"
+    print(f"  bf16 [{TRAIN_BATCH},{h8 * w8},{c}] x R={f2cat.shape[1]}: kernel "
+          f"{ms * 1e3:.1f} us (with the scratch's zeroing and cast), plain "
+          f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP, "
+          f"{taps} in-range taps)", flush=True)
+    return dict(name="fused_corr_lookup_bwd", route="cuda",
+                source="opticalflowfromdepth_torch/csrc/fused_corr.cu",
+                replaces="opticalflowfromdepth_tpu/ops/fused_corr.py:171",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def instance_norm_grad_phase(gen):
+    import torch
+    from opticalflowfromdepth_torch.ops import instance_norm as inorm
+
+    print("[3d] instance norm gradient: Triton forward + closed form vs "
+          "autograd through the plain version", flush=True)
+    hh, ww = TRAIN_CROP
+    shapes = ((2 * TRAIN_BATCH, 64, hh // 2, ww // 2),
+              (2 * TRAIN_BATCH, 96, hh // 4, ww // 4),
+              (2 * TRAIN_BATCH, 128, hh // 8, ww // 8))
+    for shape in shapes:
+        x32 = (torch.randn(*shape, generator=gen) * 3 + 0.5).cuda()
+        g32 = torch.randn(*shape, generator=gen).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            for relu in (False, True):
+                grads = []
+                for fn in (inorm.instance_norm, inorm.instance_norm_plain):
+                    x = x32.to(dtype).clone().requires_grad_()
+                    fn(x, 1e-5, relu)[0].backward(g32.to(dtype))
+                    grads.append(x.grad)
+                torch.cuda.synchronize()
+                if grads[0].dtype != dtype:
+                    fail(f"instance norm grad dtype {grads[0].dtype}")
+                # f32: the closed form and autograd through E[x^2]-E[x]^2
+                # sum in other orders; bf16: each rounds once
+                rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 \
+                    else (2 ** -7, 1e-3)
+                check(f"{list(shape)} {dtype} relu={relu} dx",
+                      max_rel_excess(grads[0], grads[1], rtol, atol), 1.0)
+
+
 # --------------------------------------------------------------------------
-# phases 4 and 5: the model
+# phases 4 and 5: the serving model
 # --------------------------------------------------------------------------
 
 def e2e_parity_phase():
@@ -291,6 +427,7 @@ def main_path_phase():
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     fused_corr_lookup_cat.launches = 0
+    fused_corr_lookup_cat.bwd_launches = 0
     instance_norm.launches = 0
     times = []
     for i1, i2 in pairs[1:]:
@@ -301,30 +438,34 @@ def main_path_phase():
             fail(f"main path flow {flow.shape}, finite="
                  f"{bool(np.isfinite(flow).all())}")
     launches = {"fused_corr_lookup": fused_corr_lookup_cat.launches,
+                "fused_corr_lookup_bwd": fused_corr_lookup_cat.bwd_launches,
                 "instance_norm": instance_norm.launches}
     n = len(times)
     print(f"  launches over {n} pairs: {launches}", flush=True)
-    if launches != {"fused_corr_lookup": iters * n, "instance_norm": 15 * n}:
-        fail(f"launch counts {launches}, want {iters * n} and {15 * n}")
+    want = {"fused_corr_lookup": iters * n, "fused_corr_lookup_bwd": 0,
+            "instance_norm": 15 * n}
+    if launches != want:
+        fail(f"serving launch counts {launches}, want {want}")
     print(f"  ms per pair: {[round(x, 3) for x in times]} (mean "
           f"{sum(times) / n:.3f}); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
-    profile_pair(serve, pairs[1], sum(times) / n)
+    profile(lambda: serve(*pairs[1]), sum(times) / n, "pair")
     return launches
 
 
-def profile_pair(serve, pair, pair_ms: float) -> None:
-    """Device time by kernel over one more pair, and the busy share of an
-    unprofiled pair's time (the profiler's own start-up inflates its wall
-    clock, so that is not the denominator)."""
+def profile(run, unprofiled_ms: float, what: str) -> None:
+    """Device time by kernel over one more ``run()``, and the busy share of
+    an unprofiled run's time (the profiler's own start-up inflates its
+    wall clock, so that is not the denominator)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        serve(*pair)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        run()
         torch.cuda.synchronize()
 
     def dev_us(e):      # the attribute's name changed across torch versions
@@ -336,13 +477,277 @@ def profile_pair(serve, pair, pair_ms: float) -> None:
                    if str(getattr(e, "device_type", "")).endswith("CUDA")
                    and dev_us(e) > 0), key=lambda e: -dev_us(e))
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
-    print(f"  profile of one pair: device busy {busy_ms:.3f} ms against "
-          f"{pair_ms:.3f} ms per unprofiled pair (busy "
-          f"{100 * busy_ms / pair_ms:.1f}%, idle "
-          f"{100 - 100 * busy_ms / pair_ms:.1f}%)", flush=True)
+    print(f"  profile of one {what}: device busy {busy_ms:.3f} ms against "
+          f"{unprofiled_ms:.3f} ms per unprofiled {what} (busy "
+          f"{100 * busy_ms / unprofiled_ms:.1f}%, idle "
+          f"{100 - 100 * busy_ms / unprofiled_ms:.1f}%)", flush=True)
     for e in rows[:16]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}", flush=True)
+    host = sorted((e for e in prof.key_averages()
+                   if not str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)
+    print(f"  host time by op (self, profiled {what}):", flush=True)
+    for e in host[:8]:
+        print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phases 6, 7 and 8: training
+# --------------------------------------------------------------------------
+
+def seeded_classifier(seed: int, dtype):
+    """The frozen classifier: the reference's random init from ``seed``."""
+    import math
+
+    import torch
+    from opticalflowfromdepth_torch.models.classifier import Classifier
+    from opticalflowfromdepth_torch.models.layers import init_weights_
+    gen = torch.Generator().manual_seed(seed)
+    cls = Classifier(dtype=dtype)
+    init_weights_(cls, gen)
+    with torch.no_grad():
+        lin = cls.classify[cls.linear_key]
+        bound = 1.0 / math.sqrt(lin.in_features)
+        lin.weight.uniform_(-bound, bound, generator=gen)
+        lin.bias.uniform_(-bound, bound, generator=gen)
+    return cls
+
+
+def train_parity_phase():
+    import copy
+
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.data.loader import to_device
+    from opticalflowfromdepth_torch.train import raft_train as rt
+
+    print("[6] train step, RAFT-basic 64x96, batch 2, 2 iters, f32, "
+          "classifier on: card vs CPU", flush=True)
+    cfg = rt.RAFTTrainConfig(iters=2, batch_size=2, image_size=(64, 96),
+                             mixed_precision=False, add_classifier=True,
+                             num_steps=100)
+    cls = seeded_classifier(6, torch.float32)
+    rng = np.random.default_rng(7)
+    batch = dict(
+        image1=rng.uniform(0, 255, (2, 64, 96, 3)).astype(np.float32),
+        image2=rng.uniform(0, 255, (2, 64, 96, 3)).astype(np.float32),
+        flow=rng.normal(0, 3, (2, 64, 96, 2)).astype(np.float32),
+        valid=np.ones((2, 64, 96), np.float32),
+        label=np.eye(4, dtype=np.float32)[[0, 2]])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = rt.init_state(cfg, seed=8, device=dev)
+        step = rt.make_train_step(cfg, copy.deepcopy(cls), device=dev)
+        state, m = step(state, to_device(batch, dev),
+                        torch.Generator(device=dev).manual_seed(0))
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.cpu() for k, v in state.model.state_dict().items()})
+    # metrics: f32 on both sides (TF32 off), cuDNN and the CPU sum in
+    # other orders; parameters: one Adam step moves each by at most the
+    # learning rate (1e-5 at step 0), 2e-4 is RAFT's tolerance
+    worst = max(abs(out["cuda"][0][k] - v) / max(abs(v), 1e-6)
+                for k, v in out["cpu"][0].items())
+    print(f"  total_loss CPU {out['cpu'][0]['total_loss']:.6f}, card "
+          f"{out['cuda'][0]['total_loss']:.6f}", flush=True)
+    check("loss and metrics, relative", worst, 1e-4)
+    check("every parameter and statistic after the update",
+          max(float((out["cuda"][1][k].float() - v.float()).abs().max())
+              for k, v in out["cpu"][1].items()), 2e-4)
+
+
+def write_shards(root: str, n: int, h: int, w: int, seed: int) -> None:
+    """Seeded npz shards with the synthesis writer's keys and dtypes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def img():
+        return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+    def depth():
+        return rng.uniform(1.0, 90.0, (h, w)).astype(np.float16)
+
+    def flow():
+        return rng.normal(0.0, 4.0, (h, w, 2)).astype(np.float16)
+
+    for i in range(n):
+        np.savez_compressed(
+            os.path.join(root, f"img{i}_g{i % 5}_a{i % 12}.npz"),
+            img0_1=img(), depth0_1=depth(), img1_1=img(), depth1_1=depth(),
+            flow_1=flow(), back_flow_1=flow(),
+            img0_2=img(), depth0_2=depth(), img1_2=img(), depth1_2=depth(),
+            flow_2=flow(), back_flow_2=flow(), label=np.int32(i % 8))
+
+
+def train_path_phase(tmp: str):
+    import math
+
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.data.datasets import AugmentedShards
+    from opticalflowfromdepth_torch.data.loader import Loader
+    from opticalflowfromdepth_torch.eval.cli import load_state_dict
+    from opticalflowfromdepth_torch.eval.infer import raft_infer_fn
+    from opticalflowfromdepth_torch.models.raft import RAFT
+    from opticalflowfromdepth_torch.ops.fused_corr import \
+        fused_corr_lookup_cat
+    from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
+    from opticalflowfromdepth_torch.train import raft_train as rt
+    from opticalflowfromdepth_torch.train.runner import (RunnerConfig,
+                                                          TrainRunner)
+    from opticalflowfromdepth_torch.train.state import load_checkpoint
+
+    b, (ch, cw), iters = TRAIN_BATCH, TRAIN_CROP, TRAIN_ITERS
+    print(f"[7] training path: RAFT-basic bf16, fused corr, {iters} iters, "
+          f"classifier on, batch {b} of {ch}x{cw} crops from 384x512 "
+          "shards", flush=True)
+    shards = os.path.join(tmp, "shards")
+    os.makedirs(shards)
+    t = time.perf_counter()
+    write_shards(shards, 8, 384, 512, seed=3)
+    print(f"  wrote 8 shards in {time.perf_counter() - t:.1f} s", flush=True)
+    loader = Loader(AugmentedShards(shards, crop_size=TRAIN_CROP, seed=0),
+                    batch_size=b, num_workers=4, seed=0)
+    cfg = rt.RAFTTrainConfig(batch_size=b, image_size=TRAIN_CROP,
+                             iters=iters, mixed_precision=True,
+                             corr_impl="fused", add_classifier=True)
+    step = rt.make_train_step(cfg, seeded_classifier(4, torch.bfloat16))
+    losses, stamps = [], []
+
+    def recorded_step(state, batch, gen):
+        state, m = step(state, batch, gen)
+        losses.append(float(m["total_loss"]))        # waits for the card
+        stamps.append(time.perf_counter())
+        return state, m
+
+    rcfg = RunnerConfig(log_dir=os.path.join(tmp, "run"), num_steps=1,
+                        val_freq=10 ** 9, save_ckpt_freq=8,
+                        save_latest_freq=8)
+    runner = TrainRunner(rcfg, rt.init_state(cfg, seed=0), recorded_step,
+                         loader, seed=0)
+    t = time.perf_counter()
+    runner.run()                                        # warm-up step
+    torch.cuda.synchronize()
+    print(f"  warm-up step {(time.perf_counter() - t) * 1e3:.1f} ms",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    fused_corr_lookup_cat.launches = 0
+    fused_corr_lookup_cat.bwd_launches = 0
+    instance_norm.launches = 0
+    timed = 5
+    rcfg.num_steps = 1 + timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"fused_corr_lookup": fused_corr_lookup_cat.launches,
+                "fused_corr_lookup_bwd": fused_corr_lookup_cat.bwd_launches,
+                "instance_norm": instance_norm.launches}
+    print(f"  launches over {timed} steps: {launches}", flush=True)
+    want = {"fused_corr_lookup": iters * timed,
+            "fused_corr_lookup_bwd": iters * timed,
+            "instance_norm": 15 * timed}
+    if launches != want:
+        fail(f"training launch counts {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training loss not finite: {losses}")
+    per_step = [(y - x) * 1e3 for x, y in zip(stamps[-timed - 1:-1],
+                                               stamps[-timed:])]
+    step_ms = total_ms / timed
+    print(f"  losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"  ms per step: {step_ms:.3f} over {timed} steps (host clock, "
+          f"synchronized; steps 3-6 between loss reads: "
+          f"{[round(x, 3) for x in per_step[1:]]}); "
+          f"{b * 1e3 / step_ms:.3f} pairs/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+
+    def one_more_step():
+        rcfg.num_steps += 1
+        runner.run()
+    profile(one_more_step, step_ms, "step")
+
+    # the input pipeline alone: batches from a fresh loader, no training
+    it = iter(Loader(AugmentedShards(shards, crop_size=TRAIN_CROP, seed=1),
+                     batch_size=b, num_workers=4, seed=1))
+    next(it)
+    t = time.perf_counter()
+    for _ in range(4):
+        next(it)
+    print(f"  the loader alone (4 threads, batch {b}): "
+          f"{(time.perf_counter() - t) * 1e3 / 4:.1f} ms per batch",
+          flush=True)
+    it.close()
+
+    rcfg.num_steps = 8                                 # saves at step 8
+    runner.run()
+    ckpt = os.path.join(rcfg.log_dir, "checkpoints")
+    resumed = load_checkpoint(os.path.join(ckpt, "latest.pth"),
+                              rt.init_state(cfg, seed=1))
+    if resumed.step != 8:
+        fail(f"latest checkpoint holds step {resumed.step}, want 8")
+    serve = RAFT(corr_impl="fused", dtype=torch.bfloat16)
+    serve.load_state_dict(load_state_dict(
+        os.path.join(ckpt, "step_8_weights.pth")), strict=True)
+    rng = np.random.default_rng(9)
+    pair = [rng.uniform(0, 255, (1, ch, cw, 3)).astype(np.float32)
+            for _ in range(2)]
+    flow = raft_infer_fn(serve, iters=24, device="cuda")(*pair)
+    if flow.shape != (1, ch, cw, 2) or not np.isfinite(flow).all():
+        fail(f"served flow from the trained weights {flow.shape}, finite="
+             f"{bool(np.isfinite(flow).all())}")
+    print(f"  latest (step 8) resumed; step_8_weights served one pair "
+          f"through the serving model: |flow| max "
+          f"{np.abs(flow).max():.3f} px", flush=True)
+    runner.batches.close()             # stops the loader's thread
+    return launches
+
+
+def learning_phase():
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from opticalflowfromdepth_torch.data.loader import to_device
+    from opticalflowfromdepth_torch.train import raft_train as rt
+
+    b, (h, w), n = 4, (184, 248), 30
+    print(f"[8] learning check: {n} steps on one fixed batch of {b} "
+          f"{h}x{w} pairs (smooth images, image2 shifted by a known "
+          "integer flow)", flush=True)
+    rng = np.random.default_rng(11)
+    big = F.interpolate(torch.from_numpy(
+        rng.uniform(0, 255, (b, 3, 24, 32)).astype(np.float32)),
+        size=(h + 16, w + 16), mode="bilinear", align_corners=False)
+    shifts = rng.integers(-6, 7, (b, 2))
+    img2 = torch.stack([big[i, :, 8 + dy:8 + dy + h, 8 + dx:8 + dx + w]
+                        for i, (dx, dy) in enumerate(shifts)])
+    flow = np.broadcast_to(-shifts[:, None, None, :].astype(np.float32),
+                           (b, h, w, 2))
+    batch = to_device(dict(
+        image1=big[:, :, 8:8 + h, 8:8 + w].permute(0, 2, 3, 1).numpy(),
+        image2=img2.permute(0, 2, 3, 1).numpy(), flow=flow,
+        valid=np.ones((b, h, w), np.float32),
+        label=np.eye(4, dtype=np.float32)[np.zeros(b, int)]), "cuda")
+    # num_steps 30: the OneCycle warm-up ends at step floor(0.05 * 130) = 6
+    cfg = rt.RAFTTrainConfig(batch_size=b, image_size=(h, w),
+                             iters=TRAIN_ITERS, num_steps=n, lr=4e-4)
+    state = rt.init_state(cfg, seed=2)
+    step = rt.make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses = []
+    for _ in range(n):
+        state, m = step(state, batch, gen)
+        losses.append(float(m["total_loss"]))
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"  losses {[round(x, 3) for x in losses]}", flush=True)
+    print(f"  mean loss of steps 1-5 {first:.4f}, of steps {n - 4}-{n} "
+          f"{last:.4f}", flush=True)
+    if not last < first:
+        fail(f"the loss did not fall: {first:.4f} -> {last:.4f}")
 
 
 def main() -> None:
@@ -381,10 +786,16 @@ def main() -> None:
           f"{time.perf_counter() - t:.1f} s", flush=True)
 
     gen = torch.Generator().manual_seed(0)
-    kernels = [fused_corr_phase(gen), instance_norm_phase(gen)]
+    kernels = [fused_corr_phase(gen), instance_norm_phase(gen),
+               fused_corr_bwd_phase(gen)]
+    instance_norm_grad_phase(gen)
     e2e_parity_phase()
-    launches = main_path_phase()
-    for k in kernels:
+    main_path_phase()
+    train_parity_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = train_path_phase(tmp)
+    learning_phase()
+    for k in kernels:          # launches on slice 2's main path, training
         k["launches"] = launches[k["name"]]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

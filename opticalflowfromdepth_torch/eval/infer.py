@@ -8,16 +8,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-
-def _resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; a CUDA device with no card raises
-    (the port never carries on on the CPU unless asked to)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' was asked for but no CUDA device "
-                           "is available; pass device='cpu' to run the "
-                           "plain PyTorch path on the CPU")
-    return device
+from ..utils.device import resolve_device
 
 
 def raft_infer_fn(model, iters: int = 24, with_low_res: bool = False,
@@ -28,7 +19,7 @@ def raft_infer_fn(model, iters: int = 24, with_low_res: bool = False,
     and returns NHWC f32 numpy flow ``[B, H, W, 2]``; with
     ``with_low_res`` the pair (1/8-res flow, flow) for warm starts.
     ``model`` is moved to ``device`` and put in eval mode."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     model = model.to(device).eval()
 
     def _nchw(a) -> torch.Tensor:

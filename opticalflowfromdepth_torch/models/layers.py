@@ -1,11 +1,13 @@
-"""Residual encoders shared by RAFT (port of
-``opticalflowfromdepth_tpu/models/layers.py``), inference only.
+"""Residual encoders shared by RAFT and the classifier (port of
+``opticalflowfromdepth_tpu/models/layers.py``).
 
 NCHW ``nn.Module``s whose ``state_dict`` keys are those of the reference's
 torch models (``adjusted_RAFT/core/extractor.py``), so its released
 ``.pth`` files load with ``strict=True``. Parameters stay f32; ``dtype``
 is the compute dtype and each layer casts at the call, as the flax
-modules do. BatchNorm always uses its running statistics.
+modules do. ``train`` is passed down explicitly, as in the flax modules:
+it makes BatchNorm use (and update) batch statistics and turns on the
+encoder's dropout, whose mask comes from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -44,17 +46,41 @@ class InstanceNorm(nn.Module):
         super().__init__()
         self.eps = eps
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                relu: bool = False) -> torch.Tensor:
         return instance_norm(x, self.eps, relu)[0]
 
 
-class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d in eval mode (running statistics), computed in f32 and
-    cast back to the input dtype, as flax's BatchNorm with a compute dtype."""
+class NoNorm(nn.Module):
+    """norm_fn 'none'."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, False, 0.0, self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return x
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` with a compute dtype:
+    statistics and normalization in f32, the result cast back to the input
+    dtype. With ``train`` it normalizes with the biased batch statistics
+    (``E[x^2] - E[x]^2``, clamped at 0) and updates the running ones as
+    ``0.9 * old + 0.1 * batch``, the variance with the *biased* batch
+    variance (``nn.BatchNorm2d`` would use the unbiased one)."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
         return y.to(x.dtype)
 
 
@@ -65,15 +91,28 @@ def make_norm(norm_fn: str, planes: int) -> nn.Module:
     if norm_fn == "instance":
         return InstanceNorm()
     if norm_fn == "none":
-        return nn.Identity()
+        return NoNorm()
     raise ValueError(f"unsupported norm_fn {norm_fn!r}")
 
 
-def _norm_relu(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def _norm_relu(norm: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
     """norm -> relu, fused into the instance-norm kernel when possible."""
     if isinstance(norm, InstanceNorm):
         return norm(x, relu=True)
-    return torch.relu(norm(x))
+    return torch.relu(norm(x, train))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` in training: keep each value with
+    probability ``1 - rate`` and scale it by ``1 / (1 - rate)``. The mask
+    is drawn from ``generator`` on its own device."""
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    return torch.where(u.to(x.device) < keep, x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ResidualBlock(nn.Module):
@@ -94,11 +133,11 @@ class ResidualBlock(nn.Module):
             self.downsample = nn.Sequential(
                 Conv(in_planes, planes, 1, stride, dtype=dtype), self.norm3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _norm_relu(self.norm1, self.conv1(x))
-        y = _norm_relu(self.norm2, self.conv2(y))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = _norm_relu(self.norm1, self.conv1(x), train)
+        y = _norm_relu(self.norm2, self.conv2(y), train)
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.norm3(self.downsample[0](x), train)
         return torch.relu(x + y)
 
 
@@ -122,21 +161,25 @@ class BottleneckBlock(nn.Module):
             self.downsample = nn.Sequential(
                 Conv(in_planes, planes, 1, stride, dtype=dtype), self.norm4)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _norm_relu(self.norm1, self.conv1(x))
-        y = _norm_relu(self.norm2, self.conv2(y))
-        y = _norm_relu(self.norm3, self.conv3(y))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = _norm_relu(self.norm1, self.conv1(x), train)
+        y = _norm_relu(self.norm2, self.conv2(y), train)
+        y = _norm_relu(self.norm3, self.conv3(y), train)
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = self.norm4(self.downsample[0](x), train)
         return torch.relu(x + y)
 
 
 class _Encoder(nn.Module):
-    """Stem conv + norm, three stages of two blocks, 1x1 output conv."""
+    """Stem conv + norm, three stages of two blocks, 1x1 output conv, and
+    dropout on the output in training when ``dropout > 0``. ``in_dim`` is
+    3 for images and 2 for the classifier's flow input."""
 
-    def __init__(self, block, dims, output_dim: int, norm_fn: str, dtype):
+    def __init__(self, block, dims, output_dim: int, norm_fn: str, dtype,
+                 dropout: float = 0.0, in_dim: int = 3):
         super().__init__()
-        self.conv1 = Conv(3, dims[0], 7, 2, dtype=dtype)
+        self.dropout = dropout
+        self.conv1 = Conv(in_dim, dims[0], 7, 2, dtype=dtype)
         self.norm1 = make_norm(norm_fn, dims[0])
         cin = dims[0]
         for i, (dim, stride) in enumerate(zip(dims, (1, 2, 2))):
@@ -146,28 +189,34 @@ class _Encoder(nn.Module):
             cin = dim
         self.conv2 = Conv(cin, output_dim, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _norm_relu(self.norm1, self.conv1(x))
-        x = self.layer3(self.layer2(self.layer1(x)))
-        return self.conv2(x)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = _norm_relu(self.norm1, self.conv1(x), train)
+        for layer in (self.layer1, self.layer2, self.layer3):
+            for blk in layer:
+                x = blk(x, train)
+        x = self.conv2(x)
+        if train and self.dropout > 0:
+            x = dropout(x, self.dropout, generator)
+        return x
 
 
 class BasicEncoder(_Encoder):
     """Six residual blocks to 1/8 resolution (`extractor.py:118-192`)."""
 
     def __init__(self, output_dim: int = 128, norm_fn: str = "batch",
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout: float = 0.0, in_dim: int = 3):
         super().__init__(ResidualBlock, (64, 96, 128), output_dim, norm_fn,
-                         dtype)
+                         dtype, dropout, in_dim)
 
 
 class SmallEncoder(_Encoder):
     """Bottleneck variant (`extractor.py:195-267`)."""
 
     def __init__(self, output_dim: int = 128, norm_fn: str = "batch",
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout: float = 0.0, in_dim: int = 3):
         super().__init__(BottleneckBlock, (32, 64, 96), output_dim, norm_fn,
-                         dtype)
+                         dtype, dropout, in_dim)
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator,

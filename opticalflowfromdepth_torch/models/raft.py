@@ -1,12 +1,12 @@
-"""Adjusted RAFT, inference only (port of
-``opticalflowfromdepth_tpu/models/raft.py``).
+"""Adjusted RAFT (port of ``opticalflowfromdepth_tpu/models/raft.py``).
 
 NCHW modules with the reference's ``state_dict`` names
 (``adjusted_RAFT/core/raft.py``, ``update.py``). Images are ``[B, 3, H, W]``
 in [0, 255]; flows are ``[B, 2, H, W]``. ``dtype`` is the compute dtype of
 the encoders and the update block (parameters stay f32); correlation
 features and the flow arithmetic stay f32, and in ``test_mode`` the final
-upsample runs once, in f32.
+upsample runs once, in f32. ``train`` turns on the context encoder's batch
+statistics and the encoders' dropout.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ..core.geometry import pixel_grid
 from ..ops.correlation import CorrPyramid, on_demand_corr
@@ -180,21 +181,29 @@ class SmallUpdateBlock(nn.Module):
 
 
 class RAFT(nn.Module):
-    """Adjusted RAFT (`raft.py:86-144`), evaluation mode.
+    """Adjusted RAFT (`raft.py:86-144`).
 
     ``corr_impl`` picks the correlation: ``"fused"`` (packed pyramid built
-    once, one fused lookup per iteration: the CUDA kernel on the card),
+    once, one fused lookup per iteration: the CUDA kernels on the card),
     ``"pyramid"`` (dense volume, plain PyTorch) or ``"alternate"``
-    (on-demand lookup, plain PyTorch). ``generator`` seeds a random init.
+    (on-demand lookup, plain PyTorch). ``dropout`` is the encoders' output
+    dropout in training. ``remat="full"`` recomputes each GRU iteration in
+    the backward (``torch.utils.checkpoint``) instead of keeping its
+    activations. ``generator`` seeds a random init.
     """
 
     def __init__(self, small: bool = False, corr_levels: int = 4,
                  corr_impl: str = "pyramid", dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0, remat: str = "none"):
         super().__init__()
         if corr_impl not in ("pyramid", "fused", "alternate"):
             raise ValueError(f"RAFT.corr_impl must be pyramid/fused/alternate,"
                              f" got {corr_impl!r}")
+        if remat not in ("none", "full"):
+            raise ValueError(f"RAFT.remat must be none/full (the JAX "
+                             f"package's 'dots' is not ported), got {remat!r}")
+        self.remat = remat
         self.small = small
         self.corr_levels = corr_levels
         self.corr_radius = 3 if small else 4
@@ -204,9 +213,11 @@ class RAFT(nn.Module):
         self.context_dim = 64 if small else 128
         corr_planes = corr_levels * (2 * self.corr_radius + 1) ** 2
         enc = SmallEncoder if small else BasicEncoder
-        self.fnet = enc(128 if small else 256, "instance", dtype=dtype)
+        self.fnet = enc(128 if small else 256, "instance", dtype=dtype,
+                        dropout=dropout)
         self.cnet = enc(self.hidden_dim + self.context_dim,
-                        "none" if small else "batch", dtype=dtype)
+                        "none" if small else "batch", dtype=dtype,
+                        dropout=dropout)
         block = SmallUpdateBlock if small else BasicUpdateBlock
         self.update_block = block(corr_planes, self.hidden_dim, dtype)
         if generator is not None:
@@ -241,19 +252,24 @@ class RAFT(nn.Module):
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
-                test_mode: bool = False
+                test_mode: bool = False, train: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Union[Tuple[torch.Tensor, torch.Tensor],
                            List[torch.Tensor]]:
         """Per-iteration upsampled flows ``[B, 2, H, W]`` in the compute
         dtype; with ``test_mode`` the pair (1/8-res flow, final upsampled
-        flow), both f32."""
+        flow), both f32. ``train`` (default: the module's training flag)
+        uses and updates the batch statistics and applies dropout, drawn
+        from ``generator``."""
+        train = self.training if train is None else train
         dt = self.dtype
         image1 = (2.0 * (image1 / 255.0) - 1.0).to(dt)
         image2 = (2.0 * (image2 / 255.0) - 1.0).to(dt)
 
-        fmaps = self.fnet(torch.cat([image1, image2], dim=0)).float()
+        fmaps = self.fnet(torch.cat([image1, image2], dim=0), train,
+                          generator).float()
         fmap1, fmap2 = fmaps.chunk(2, dim=0)
-        cnet = self.cnet(image1)
+        cnet = self.cnet(image1, train, generator)
         net, inp = torch.split(cnet, [self.hidden_dim, self.context_dim],
                                dim=1)
         net = torch.tanh(net)
@@ -266,14 +282,21 @@ class RAFT(nn.Module):
             coords1 = coords1 + flow_init
         corr_fn = self._corr_fn(fmap1, fmap2)
 
+        def step(net, coords1):
+            corr = corr_fn(coords1).to(dt)
+            flow = (coords1 - coords0).to(dt)
+            net, up_mask, delta = self.update_block(net, inp, corr, flow)
+            return net, up_mask, coords1 + delta.float()
+
         flow_ups = []
         mask = None
         for _ in range(iters):
             coords1 = coords1.detach()                       # `raft.py:123`
-            corr = corr_fn(coords1).to(dt)
-            flow = (coords1 - coords0).to(dt)
-            net, up_mask, delta = self.update_block(net, inp, corr, flow)
-            coords1 = coords1 + delta.float()
+            if self.remat == "full" and torch.is_grad_enabled():
+                net, up_mask, coords1 = torch.utils.checkpoint.checkpoint(
+                    step, net, coords1, use_reentrant=False)
+            else:
+                net, up_mask, coords1 = step(net, coords1)
             if test_mode:
                 mask = None if up_mask is None else up_mask.float()
             elif up_mask is None:

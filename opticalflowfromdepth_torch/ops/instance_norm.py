@@ -1,11 +1,16 @@
-"""InstanceNorm2d(affine=False), optionally fused with ReLU (port of
-``opticalflowfromdepth_tpu/ops/instance_norm.py``, forward only).
+"""InstanceNorm2d(affine=False), optionally fused with ReLU, with its
+backward (port of ``opticalflowfromdepth_tpu/ops/instance_norm.py``).
 
-On a CUDA tensor :func:`instance_norm` launches the Triton kernel below;
-on a CPU tensor it runs the plain PyTorch version. Both follow the TPU
-kernel ``_in_kernel``: f32 sum and sum of squares, variance clamped at 0,
-normalize in f32, then cast to the input dtype. They also return the f32
-per-(sample, channel) mean and rstd, which a backward needs.
+:func:`instance_norm` is a ``torch.autograd.Function``. On a CUDA tensor
+its forward launches the Triton kernel below; on a CPU tensor it runs the
+plain PyTorch version. Both follow the TPU kernel ``_in_kernel``: f32 sum
+and sum of squares, variance clamped at 0, normalize in f32, then cast to
+the input dtype. They also return the f32 per-(sample, channel) mean and
+rstd, which the backward uses.
+
+The backward is the closed form of the JAX package's ``_in_bwd``, in
+plain PyTorch on both devices: the JAX package computes it in XLA,
+outside any Pallas kernel, so there is no TPU kernel to port for it.
 
 The Triton kernel replaces ``ops/instance_norm.py:_in_kernel``. It is
 bound by bytes: it reads the map twice (statistics, then normalize) and
@@ -85,9 +90,6 @@ def _instance_norm_triton(x: torch.Tensor, eps: float, relu: bool):
                                        torch.float16):
         raise ValueError(f"instance_norm takes NCHW f32/bf16/f16, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("instance_norm has no CUDA backward yet; call it "
-                           "under torch.no_grad/inference_mode")
     kernel, next_pow2 = _triton_kernel()
     b, c, h, w = x.shape
     n = h * w
@@ -104,15 +106,46 @@ def _instance_norm_triton(x: torch.Tensor, eps: float, relu: bool):
     return y, mean, rstd
 
 
+def instance_norm_bwd(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                      rstd: torch.Tensor, y_relu=None) -> torch.Tensor:
+    """Closed-form backward (``_in_bwd``): with the ReLU gate applied to
+    ``g`` first (``y_relu`` is the forward's output when it had a ReLU),
+    ``dx = rstd * (g - mean(g) - yhat * mean(g * yhat))`` in f32, where
+    ``yhat`` is the normalized ``x`` before the ReLU; cast to x's dtype."""
+    g = g.float()
+    if y_relu is not None:
+        g = torch.where(y_relu > 0, g, torch.zeros((), device=g.device))
+    yhat = (x.float() - mean) * rstd
+    g_mean = g.mean(dim=(2, 3), keepdim=True)
+    gy_mean = (g * yhat).mean(dim=(2, 3), keepdim=True)
+    return (rstd * (g - g_mean - yhat * gy_mean)).to(x.dtype)
+
+
+class _InstanceNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, eps, relu):
+        if x.device.type == "cpu":
+            y, mean, rstd = instance_norm_plain(x, eps, relu)
+        else:
+            y, mean, rstd = _instance_norm_triton(x, eps, relu)
+        ctx.save_for_backward(x, mean, rstd, y if relu else None)
+        ctx.mark_non_differentiable(mean, rstd)
+        return y, mean, rstd
+
+    @staticmethod
+    def backward(ctx, g, _g_mean, _g_rstd):
+        x, mean, rstd, y = ctx.saved_tensors
+        return instance_norm_bwd(g, x, mean, rstd, y), None, None
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """InstanceNorm2d(affine=False) over (H, W) of NCHW ``x``, optional
-    fused ReLU -> ``(y, mean, rstd)``. CPU tensors take the plain version;
-    CUDA tensors launch the Triton kernel (``instance_norm.launches``
-    counts those launches)."""
-    if x.device.type == "cpu":
-        return instance_norm_plain(x, eps, relu)
-    return _instance_norm_triton(x, eps, relu)
+    fused ReLU -> ``(y, mean, rstd)``; differentiable in ``x`` through
+    ``y``. CPU tensors take the plain version; CUDA tensors launch the
+    Triton kernel (``instance_norm.launches`` counts those launches)."""
+    return _InstanceNorm.apply(x, eps, relu)
 
 
 instance_norm.launches = 0

@@ -1,14 +1,16 @@
-"""Carry the JAX package's RAFT variables into the port's ``state_dict``.
+"""Carry the JAX package's RAFT and classifier variables into the port's
+``state_dict``s.
 
-The inverse of ``opticalflowfromdepth_tpu/tools/port_torch_weights.py:
-port_raft``: the flax ``params`` and ``batch_stats`` (nested dicts of
-arrays) become a torch ``state_dict`` with the reference's key names,
-which the port's :class:`~opticalflowfromdepth_torch.models.raft.RAFT`
-loads with ``strict=True``. Every flax leaf must be used exactly once.
+The inverses of ``opticalflowfromdepth_tpu/tools/port_torch_weights.py:
+port_raft`` and ``port_classifier``: the flax ``params`` and
+``batch_stats`` (nested dicts of arrays) become a torch ``state_dict``
+with the reference's key names, which the port's ``RAFT`` and
+``Classifier`` load with ``strict=True``. Every flax leaf must be used
+exactly once.
 
 Layout transforms: conv kernels ``[kh, kw, I, O]`` -> ``[O, I, kh, kw]``;
-BatchNorm scale/bias -> weight/bias, batch_stats mean/var -> running
-statistics. The reference registers a strided block's skip norm twice
+dense kernels ``[I, O]`` -> ``[O, I]``; BatchNorm scale/bias ->
+weight/bias, batch_stats mean/var -> running statistics. The reference registers a strided block's skip norm twice
 (``norm3`` and ``downsample.1``), so those tensors appear under both keys.
 """
 
@@ -85,11 +87,9 @@ def _raft_pairs(small: bool) -> Iterator[tuple]:
         yield ("conv", f"{ub}/Conv_1", f"{ub}.mask.0")
 
 
-def raft_state_dict_from_flax(params: Mapping,
-                              batch_stats: Optional[Mapping] = None,
-                              small: bool = False
-                              ) -> "OrderedDict[str, torch.Tensor]":
-    """JAX RAFT ``params`` / ``batch_stats`` -> the port's ``state_dict``."""
+def _state_dict_from_flax(pairs: Iterator[tuple], params: Mapping,
+                          batch_stats: Optional[Mapping]
+                          ) -> "OrderedDict[str, torch.Tensor]":
     p = _flatten(params)
     s = _flatten(batch_stats or {})
 
@@ -101,11 +101,15 @@ def raft_state_dict_from_flax(params: Mapping,
         return torch.from_numpy(np.array(tree.pop(key), np.float32))
 
     sd: "OrderedDict[str, Any]" = OrderedDict()
-    for kind, dst, src, *alias in _raft_pairs(small):
+    for kind, dst, src, *alias in pairs:
         if kind == "conv":
             sd[f"{src}.weight"] = take(p, dst, "Conv_0", "kernel").permute(
                 3, 2, 0, 1).contiguous()
             sd[f"{src}.bias"] = take(p, dst, "Conv_0", "bias")
+            continue
+        if kind == "dense":
+            sd[f"{src}.weight"] = take(p, dst, "kernel").t().contiguous()
+            sd[f"{src}.bias"] = take(p, dst, "bias")
             continue
         bn = {"weight": take(p, dst, "scale"), "bias": take(p, dst, "bias"),
               "running_mean": take(s, dst, "mean"),
@@ -119,3 +123,25 @@ def raft_state_dict_from_flax(params: Mapping,
         raise ValueError(f"{len(left)} flax leaves were not used, e.g. "
                          f"{left[:6]}")
     return sd
+
+
+def raft_state_dict_from_flax(params: Mapping,
+                              batch_stats: Optional[Mapping] = None,
+                              small: bool = False
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX RAFT ``params`` / ``batch_stats`` -> the port's ``state_dict``."""
+    return _state_dict_from_flax(_raft_pairs(small), params, batch_stats)
+
+
+def classifier_state_dict_from_flax(params: Mapping,
+                                    batch_stats: Optional[Mapping] = None,
+                                    use_small: bool = False,
+                                    use_dropout_in_classify: bool = False
+                                    ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``Classifier`` ``params`` / ``batch_stats`` -> the port's
+    ``state_dict`` (``port_classifier``'s inverse)."""
+    def pairs():
+        yield from _encoder_pairs("encoder", "encoder", "batch", use_small)
+        yield ("dense", "Dense_0",
+               f"classify.{4 if use_dropout_in_classify else 3}")
+    return _state_dict_from_flax(pairs(), params, batch_stats)

@@ -1,4 +1,5 @@
-"""The port's Hopper kernels against their plain versions, on the card.
+"""The port's Hopper kernels against their plain versions, on the card,
+forward and backward, and one training step card against CPU.
 
 Marked ``cuda``: they skip on a host without a CUDA device. On the card
 they run without the JAX test setup:
@@ -49,13 +50,110 @@ def test_fused_corr_kernel_matches_plain(card, dtype, atol, levels, radius,
                                rtol=atol)
 
 
-def test_fused_corr_kernel_refuses_gradients(card):
+def _valid_rows(h, w, levels):
+    rows = []
+    for (hl, wl, hp, off) in fc.cat_meta(h, w, levels):
+        for x in range(wl):
+            rows.extend(off + x * hp + y for y in range(hl))
+    return rows
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("levels,radius,h,w", [(4, 4, 12, 16), (2, 3, 7, 9)])
+def test_fused_corr_bwd_kernel_matches_plain(card, dtype, atol, levels,
+                                             radius, h, w):
+    """Through autograd: the backward kernel against the plain backward.
+    f32: the kernel sums df2cat with atomics in a varying order, 1e-4;
+    bf16: both round the f32 sums to bf16 once."""
+    g = torch.Generator().manual_seed(4)
+    b, c = 2, 64
+    f1 = torch.randn(b, h * w, c, generator=g).to(card, dtype)
+    f2 = torch.randn(b, h, w, c, generator=g).to(card)
+    coords = (torch.rand(b, h * w, 2, generator=g) * 30 - 8).to(card)
+    f2cat = fc.corr_levels_cat(f2, levels, dtype)
+    k2 = (2 * radius + 1) ** 2
+    gout = torch.randn(b, h * w, levels * k2, generator=g).to(card, dtype)
+    f1.requires_grad_()
+    f2cat.requires_grad_()
+    before = fc.fused_corr_lookup_cat.bwd_launches
+    out = fc.fused_corr_lookup_cat(f1, f2cat, coords, h, w, levels, radius)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert fc.fused_corr_lookup_cat.bwd_launches == before + 1
+    ref1, ref2 = fc.fused_corr_lookup_cat_bwd_plain(
+        gout, f1.detach(), f2cat.detach(), coords, h, w, levels, radius)
+    assert f1.grad.dtype == f2cat.grad.dtype == dtype
+    np.testing.assert_allclose(f1.grad.float().cpu().numpy(),
+                               ref1.float().cpu().numpy(), atol=atol,
+                               rtol=atol)
+    np.testing.assert_allclose(f2cat.grad.float().cpu().numpy(),
+                               ref2.float().cpu().numpy(), atol=atol,
+                               rtol=atol)
+    pad = sorted(set(range(f2cat.shape[1])) - set(_valid_rows(h, w, levels)))
+    assert torch.count_nonzero(f2cat.grad[:, pad]) == 0
+
+
+def test_fused_corr_bwd_kernel_far_out_of_range_is_zero(card):
     f1 = torch.randn(1, 48, 32, device=card, requires_grad=True)
     f2cat = fc.corr_levels_cat(torch.randn(1, 6, 8, 32, device=card), 4,
-                               torch.float32)
-    coords = torch.zeros(1, 48, 2, device=card)
-    with pytest.raises(RuntimeError, match="backward"):
-        fc.fused_corr_lookup_cat(f1, f2cat, coords, 6, 8)
+                               torch.float32).requires_grad_()
+    coords = torch.full((1, 48, 2), 1e4, device=card)
+    fc.fused_corr_lookup_cat(f1, f2cat, coords, 6, 8).sum().backward()
+    assert torch.count_nonzero(f1.grad) == 0
+    assert torch.count_nonzero(f2cat.grad) == 0
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_instance_norm_grad_on_card_matches_cpu(card, relu):
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 24, 37, 53, generator=g) * 3 + 1
+    gy = torch.randn(x.shape, generator=g)
+    grads = []
+    for dev in ("cpu", card):
+        xd = x.detach().to(dev).requires_grad_()
+        inorm.instance_norm(xd, 1e-5, relu)[0].backward(gy.to(dev))
+        grads.append(xd.grad.cpu().numpy())
+    np.testing.assert_allclose(grads[1], grads[0], atol=1e-5, rtol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """RAFT-basic, one f32 step of the training recipe (classifier on), on
+    the card (kernels) and on the CPU (plain versions), same weights."""
+    import copy
+
+    from opticalflowfromdepth_torch.data.loader import to_device
+    from opticalflowfromdepth_torch.models.classifier import Classifier
+    from opticalflowfromdepth_torch.models.layers import init_weights_
+    from opticalflowfromdepth_torch.train import raft_train as rt
+
+    cfg = rt.RAFTTrainConfig(iters=2, batch_size=2, image_size=(64, 96),
+                             mixed_precision=False, add_classifier=True,
+                             num_steps=100)
+    gen = torch.Generator().manual_seed(6)
+    cls = Classifier()
+    init_weights_(cls, gen)
+    rng = np.random.default_rng(7)
+    batch = dict(
+        image1=rng.uniform(0, 255, (2, 64, 96, 3)).astype(np.float32),
+        image2=rng.uniform(0, 255, (2, 64, 96, 3)).astype(np.float32),
+        flow=rng.normal(0, 3, (2, 64, 96, 2)).astype(np.float32),
+        valid=np.ones((2, 64, 96), np.float32),
+        label=np.eye(4, dtype=np.float32)[[0, 2]])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = rt.init_state(cfg, seed=8, device=dev)
+        step = rt.make_train_step(cfg, copy.deepcopy(cls), device=dev)
+        state, m = step(state, to_device(batch, dev),
+                        torch.Generator(device=dev).manual_seed(0))
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.cpu() for k, v in state.model.state_dict().items()})
+    for k, v in out["cpu"][0].items():
+        np.testing.assert_allclose(out["cuda"][0][k], v, rtol=1e-4,
+                                   err_msg=k)
+    for k, v in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][k].float().numpy(),
+                                   v.float().numpy(), atol=2e-4, err_msg=k)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

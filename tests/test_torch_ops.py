@@ -1,14 +1,16 @@
 """The port's ops on the CPU against the JAX package's functions.
 
 Same numpy inputs (from a seed) go through the JAX function (Pallas
-kernels in interpret mode) and the port's plain PyTorch version. The
-CUDA/Triton kernels themselves run only on the card (``chip_smoke.py``);
-here their wrappers must refuse tensors that are not on the CPU.
+kernels in interpret mode) and the port's plain PyTorch version, forward
+and backward. The CUDA/Triton kernels themselves run only on the card
+(``chip_smoke.py``, ``tests/test_torch_cuda.py``); here their wrappers
+must refuse tensors that are not on the CPU.
 """
 
 import ast
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,6 +99,75 @@ def test_fused_corr_bf16_plain_matches_jax():
                                atol=2e-2, rtol=2e-2)
 
 
+def _valid_rows(h, w, levels):
+    """Indices of the packed rows that hold a real y (not the padding)."""
+    rows = []
+    for (hl, wl, hp, off) in tfused.cat_meta(h, w, levels):
+        for x in range(wl):
+            rows.extend(off + x * hp + y for y in range(hl))
+    return np.asarray(rows)
+
+
+@pytest.mark.parametrize("levels,radius,h,w", [(4, 4, 12, 16), (2, 3, 6, 9)])
+def test_fused_corr_bwd_plain_matches_jax_kernel(levels, radius, h, w):
+    """Against the Pallas backward (interpret mode). The JAX kernel also
+    writes gradients into the padded rows of each level, which its caller
+    slices off; the window form never touches them, so only the valid
+    rows are compared (the port's padded rows are exactly 0)."""
+    f1, f2, coords = _corr_inputs(h=h, w=w, seed=5)
+    b, c = f1.shape[0], f1.shape[-1]
+    k2 = (2 * radius + 1) ** 2
+    g = np.random.default_rng(6).normal(
+        0, 1, (b, h * w, levels * k2)).astype(np.float32)
+    f1f = f1.reshape(b, h * w, c)
+    cf = coords.reshape(b, h * w, 2)
+    f2cat = jfused.corr_levels_cat(jnp.asarray(f2), levels, jnp.float32)
+    ref1, ref2, _ = jfused._cat_bwd(h, w, levels, radius, 64, True,
+                                    (jnp.asarray(f1f), f2cat, jnp.asarray(cf)),
+                                    jnp.asarray(g))
+    got1, got2 = tfused.fused_corr_lookup_cat_bwd_plain(
+        _t(g), _t(f1f), _t(np.array(f2cat)), _t(cf), h, w, levels, radius)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(ref1), atol=5e-5,
+                               rtol=5e-5)
+    valid = _valid_rows(h, w, levels)
+    np.testing.assert_allclose(got2.numpy()[:, valid],
+                               np.asarray(ref2)[:, valid], atol=5e-5,
+                               rtol=5e-5)
+    pad = np.setdiff1d(np.arange(got2.shape[1]), valid)
+    assert pad.size and torch.count_nonzero(got2[:, pad]) == 0
+
+
+def test_fused_corr_autograd_matches_corr_pyramid_vjp():
+    """The lookup's gradients through ``corr_levels_cat`` against
+    ``jax.vjp`` of the dense ``CorrPyramid`` (5e-5, as
+    ``tests/test_fused_corr.py``)."""
+    f1, f2, coords = _corr_inputs(b=2, h=10, w=12, c=16, seed=3)
+    g = np.random.default_rng(8).normal(0, 1, (2, 10, 12, 4 * 81)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda a, b: jcorr.CorrPyramid(a, b, 4, 4)(
+        jnp.asarray(coords)), jnp.asarray(f1), jnp.asarray(f2))
+    ref1, ref2 = vjp(jnp.asarray(g))
+    t1, t2 = _t(f1).requires_grad_(), _t(f2).requires_grad_()
+    out = tfused.fused_corr_lookup(t1, t2, _t(coords), 4, 4, torch.float32)
+    out.backward(_t(g))
+    np.testing.assert_allclose(t1.grad.numpy(), np.asarray(ref1), atol=5e-5,
+                               rtol=5e-4)
+    np.testing.assert_allclose(t2.grad.numpy(), np.asarray(ref2), atol=5e-5,
+                               rtol=5e-4)
+
+
+def test_fused_corr_bwd_far_out_of_range_is_zero():
+    f1, f2, coords = _corr_inputs(spread=0.0)
+    b, h, w, c = f1.shape
+    g = torch.ones(b, h * w, 4 * 81)
+    f2cat = tfused.corr_levels_cat(_t(f2), 4, torch.float32)
+    for shift in (1e4, -1e4):
+        df1, df2 = tfused.fused_corr_lookup_cat_bwd_plain(
+            g, _t(f1).reshape(b, h * w, c), f2cat,
+            _t(coords + shift).reshape(b, h * w, 2), h, w)
+        assert torch.count_nonzero(df1) == 0 and torch.count_nonzero(df2) == 0
+
+
 def test_fused_corr_wrapper_refuses_non_cpu_tensors():
     """A tensor that is not on the CPU never reaches the plain version."""
     f1 = torch.empty(1, 48, 32, device="meta")
@@ -105,7 +176,12 @@ def test_fused_corr_wrapper_refuses_non_cpu_tensors():
     coords = torch.empty(1, 48, 2, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfused.fused_corr_lookup_cat(f1, f2cat, coords, 6, 8, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfused.fused_corr_lookup_cat_bwd(torch.empty(1, 48, 324,
+                                                     device="meta"),
+                                         f1, f2cat, coords, 6, 8, 4, 4)
     assert tfused.fused_corr_lookup_cat.launches == 0
+    assert tfused.fused_corr_lookup_cat.bwd_launches == 0
 
 
 # --------------------------------------------------------------------------
@@ -168,6 +244,21 @@ def test_instance_norm_bf16_normalizes_in_f32():
     ref = torch.relu((x.float() - mean) * rstd)
     np.testing.assert_allclose(y.float().numpy(), ref.numpy(),
                                rtol=2 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_instance_norm_grad_matches_jax_in_bwd(relu):
+    """The autograd backward against the JAX package's ``_in_bwd``."""
+    rng = np.random.default_rng(2)
+    x = rng.normal(0.5, 3, (2, 9, 7, 24)).astype(np.float32)   # NHWC
+    g = rng.normal(0, 1, x.shape).astype(np.float32)
+    _, res = jin._in_fwd(jnp.asarray(x), 1e-5, relu)
+    (ref,) = jin._in_bwd(1e-5, relu, res, jnp.asarray(g))
+    xt = _t(x.transpose(0, 3, 1, 2)).requires_grad_()
+    y, _, _ = tin.instance_norm(xt, 1e-5, relu)
+    y.backward(_t(g.transpose(0, 3, 1, 2)))
+    np.testing.assert_allclose(xt.grad.numpy().transpose(0, 2, 3, 1),
+                               np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
 def test_instance_norm_refuses_non_cpu_tensors():

@@ -1,4 +1,5 @@
-"""The port's RAFT on the CPU against the JAX RAFT, same weights.
+"""The port's RAFT and classifier on the CPU against the JAX ones, same
+weights, in evaluation and in training mode.
 
 JAX variables are made by ``RAFT.init`` (batch statistics perturbed away
 from 0/1), carried into the port by ``raft_state_dict_from_flax`` and
@@ -15,10 +16,15 @@ import pytest
 import torch
 from flax import traverse_util
 
+from opticalflowfromdepth_tpu.models.classifier import Classifier as JCls
 from opticalflowfromdepth_tpu.models.raft import RAFT as JRAFT
-from opticalflowfromdepth_tpu.tools.port_torch_weights import port_raft
+from opticalflowfromdepth_tpu.tools.port_torch_weights import (
+    port_classifier, port_raft)
+from opticalflowfromdepth_torch.models.classifier import Classifier as TCls
+from opticalflowfromdepth_torch.models.layers import BasicEncoder
 from opticalflowfromdepth_torch.models.raft import RAFT as TRAFT
-from opticalflowfromdepth_torch.weights import raft_state_dict_from_flax
+from opticalflowfromdepth_torch.weights import (
+    classifier_state_dict_from_flax, raft_state_dict_from_flax)
 
 torch.set_num_threads(2)
 H, W, ITERS = 64, 96, 3
@@ -154,3 +160,134 @@ def test_raft_per_iteration_flows_match_jax(small):
     assert len(got) == len(refs) == ITERS
     for i, (g, r) in enumerate(zip(got, refs)):
         _close(_nhwc(g), r, f"pred[{i}]")
+
+
+# --------------------------------------------------------------------------
+# training mode and the classifier
+# --------------------------------------------------------------------------
+
+def test_raft_train_mode_and_batch_stats_match_jax():
+    """train=True: batch statistics in the context encoder (and their
+    running update with flax's momentum and biased variance)."""
+    i1, i2 = _images(seed=6, b=2)
+    v = _variables(False)
+    refs, new_state = jax.jit(functools.partial(
+        JRAFT(corr_impl="fused").apply, iters=ITERS, train=True,
+        mutable=["batch_stats"]))(v, jnp.asarray(i1), jnp.asarray(i2))
+    model = _port(False, "fused")
+    got = model(_nchw(i1), _nchw(i2), iters=ITERS, train=True)
+    assert len(got) == len(refs) == ITERS
+    for i, (g, r) in enumerate(zip(got, refs)):
+        _close(_nhwc(g), r, f"train pred[{i}]")
+    want = raft_state_dict_from_flax(v["params"], new_state["batch_stats"])
+    sd = model.state_dict()
+    stats = [k for k in sd if "running" in k]
+    assert stats
+    for k in stats:
+        np.testing.assert_allclose(sd[k].numpy(), want[k].numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+    assert not np.allclose(sd["cnet.norm1.running_var"].numpy(),
+                           _port(False, "fused").state_dict()[
+                               "cnet.norm1.running_var"].numpy())
+
+
+def test_encoder_dropout_draws_from_the_generator():
+    enc = BasicEncoder(32, "instance", dropout=0.5)
+    x = torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        plain = enc(x)
+        a, b = (enc(x, True, torch.Generator().manual_seed(1))
+                for _ in range(2))
+    assert torch.equal(a, b)                   # same seed, same mask
+    zero = a == 0
+    assert 0.3 < zero.float().mean() < 0.7
+    torch.testing.assert_close(a[~zero], 2 * plain[~zero])
+    with pytest.raises(ValueError, match="Generator"):
+        enc(x, True)
+
+
+@functools.lru_cache(maxsize=None)
+def _cls_variables(dropout_in_head: bool):
+    model = JCls(dropout=0.0, use_dropout_in_classify=dropout_in_head)
+    v = jax.jit(functools.partial(model.init, train=False))(
+        jax.random.PRNGKey(3), jnp.zeros((1, 32, 48, 2), jnp.float32))
+    v = jax.tree_util.tree_map(np.asarray, v)
+    rng = np.random.default_rng(12)
+    flat = traverse_util.flatten_dict(v["batch_stats"])
+    for k, a in flat.items():
+        flat[k] = (rng.normal(0, 0.1, a.shape) if k[-1] == "mean"
+                   else rng.uniform(0.5, 1.5, a.shape)).astype(np.float32)
+    return dict(v, batch_stats=traverse_util.unflatten_dict(flat))
+
+
+@pytest.mark.parametrize("dropout_in_head", [False, True])
+def test_classifier_state_dict_round_trip_is_a_bijection(dropout_in_head):
+    v = _cls_variables(dropout_in_head)
+    sd = classifier_state_dict_from_flax(
+        v["params"], v["batch_stats"],
+        use_dropout_in_classify=dropout_in_head)
+    TCls(use_dropout_in_classify=dropout_in_head).load_state_dict(
+        sd, strict=True)
+    assert f"classify.{4 if dropout_in_head else 3}.weight" in sd
+    params, stats = port_classifier(
+        sd, use_dropout_in_classify=dropout_in_head)
+    for got, want in ((params, v["params"]), (stats, v["batch_stats"])):
+        want = traverse_util.flatten_dict(want)
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_classifier_matches_jax(train):
+    """Logits (and, in training, the BatchNorm running statistics) on a
+    flow map; dropout 0 so both sides draw nothing."""
+    v = _cls_variables(False)
+    flow = np.random.default_rng(13).normal(0, 4, (2, 32, 48, 2)).astype(
+        np.float32)
+    jm = JCls(dropout=0.0)
+    model = TCls(dropout=0.0)
+    model.load_state_dict(classifier_state_dict_from_flax(
+        v["params"], v["batch_stats"]), strict=True)
+    got = model(_nchw(flow), train=train)
+    if train:
+        ref, new = jm.apply(v, jnp.asarray(flow), train=True,
+                            mutable=["batch_stats"])
+        want = classifier_state_dict_from_flax(v["params"],
+                                               new["batch_stats"])
+        for k, t in model.state_dict().items():
+            if "running" in k:
+                np.testing.assert_allclose(t.numpy(), want[k].numpy(),
+                                           rtol=1e-5, atol=1e-5, err_msg=k)
+    else:
+        ref = jm.apply(v, jnp.asarray(flow), train=False)
+    assert got.shape == (2, 4) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_remat_full_gives_the_same_flows_and_gradients():
+    """remat="full" recomputes each GRU iteration in the backward: the
+    flows and every gradient equal those without it. "dots" and
+    blocked supervision are not ported and raise."""
+    i1, i2 = (_nchw(x) for x in _images(seed=7, b=2))
+    sd = _port(False, "fused").state_dict()
+    out = []
+    for remat in ("none", "full"):
+        model = TRAFT(corr_impl="fused", remat=remat)
+        model.load_state_dict(sd)
+        flows = model(i1, i2, iters=2, train=True)
+        sum(f.abs().mean() for f in flows).backward()
+        out.append(([f.detach() for f in flows],
+                    {n: p.grad for n, p in model.named_parameters()}))
+    for a, b in zip(out[0][0], out[1][0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    for n, g in out[0][1].items():
+        torch.testing.assert_close(out[1][1][n], g, rtol=1e-5, atol=1e-7,
+                                   msg=n)
+    with pytest.raises(ValueError, match="dots"):
+        TRAFT(remat="dots")
+    from opticalflowfromdepth_torch.train.raft_train import (RAFTTrainConfig,
+                                                             build_model)
+    with pytest.raises(ValueError, match="blocked_supervision"):
+        build_model(RAFTTrainConfig(blocked_supervision=True))
