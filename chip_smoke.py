@@ -148,7 +148,10 @@ def fused_corr_phase(gen):
     for dtype, rtol, atol in ((torch.float32, 0.0, 1e-4),
                               (torch.bfloat16, 2e-2, 2e-2)):
         for label, (b, h, w, spread, shift) in (
-                ("main 55x128", (1, h8, w8, 20.0, 0.0)),
+                ("serving 55x128", (1, h8, w8, 20.0, 0.0)),
+                (f"train {TRAIN_CROP[0] // 8}x{TRAIN_CROP[1] // 8} "
+                 f"B={TRAIN_BATCH}", (TRAIN_BATCH, TRAIN_CROP[0] // 8,
+                                      TRAIN_CROP[1] // 8, 20.0, 0.0)),
                 ("ragged N=63", (2, 7, 9, 6.0, 0.0)),
                 ("far out of range", (1, h8, w8, 0.0, 1e4))):
             f1, f2cat, coords = inputs(b, h, w, dtype, spread, shift)
@@ -169,28 +172,14 @@ def fused_corr_phase(gen):
             check(f"{label} {dtype} (|d| <= {atol:g} + {rtol:g}|ref|)",
                   max_rel_excess(got, ref, rtol, atol), 1.0)
             print(f"    max abs diff {err:.3e}", flush=True)
-            if label.startswith("main"):
+            if label.startswith("train"):
                 worst = max(worst, err)
 
-    # timing at the main-path shape and dtype (bf16, one pair)
-    f1, f2cat, coords = inputs(1, h8, w8, torch.bfloat16, 20.0)
-    meta = fc.cat_meta(h8, w8, levels)
-    ms = cuda_ms(lambda: fc.fused_corr_lookup_cat(f1, f2cat, coords, h8, w8,
-                                                  levels, radius))
-    plain_ms = cuda_ms(lambda: fc.fused_corr_lookup_cat_plain(
-        f1, f2cat, coords, h8, w8, levels, radius), reps=5)
-    n = h8 * w8
-    k2 = (2 * radius + 1) ** 2
-    nbytes = (f1.numel() + f2cat.numel() + n * levels * k2) * 2 \
-        + coords.numel() * 4
-    ops = 2 * c * valid_taps(coords, meta, radius) + 10 * n * levels * k2
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S) * 1e3
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOP_PER_S \
-        else "operations"
-    print(f"  bf16 [1,{n},{c}] x R={f2cat.shape[1]}: kernel {ms * 1e3:.1f} us,"
-          f" plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)",
-          flush=True)
+    # serving shape (one pair) printed; training shape (batch 8, the
+    # shape of the launches counted on this slice's main path) recorded
+    fused_corr_timing(gen, 1, h8, w8, "serving")
+    ms, plain_ms, bound_ms, bound_by = fused_corr_timing(
+        gen, TRAIN_BATCH, TRAIN_CROP[0] // 8, TRAIN_CROP[1] // 8, "training")
     return dict(name="fused_corr_lookup", route="cuda",
                 source="opticalflowfromdepth_torch/csrc/fused_corr.cu",
                 replaces="opticalflowfromdepth_tpu/ops/fused_corr.py:140",
@@ -198,17 +187,45 @@ def fused_corr_phase(gen):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def fused_corr_timing(gen, b, h8, w8, what):
+    """Kernel, plain and bound times of one bf16 lookup at ``[b, h8*w8]``."""
+    import torch
+    from opticalflowfromdepth_torch.ops import fused_corr as fc
+    c, levels, radius = 256, 4, 4
+    f1, f2cat, coords = corr_inputs(gen, b, h8, w8, torch.bfloat16, 20.0)
+    meta = fc.cat_meta(h8, w8, levels)
+    ms = cuda_ms(lambda: fc.fused_corr_lookup_cat(f1, f2cat, coords, h8, w8,
+                                                  levels, radius))
+    plain_ms = cuda_ms(lambda: fc.fused_corr_lookup_cat_plain(
+        f1, f2cat, coords, h8, w8, levels, radius), reps=5)
+    n = b * h8 * w8
+    k2 = (2 * radius + 1) ** 2
+    nbytes = (f1.numel() + f2cat.numel() + n * levels * k2) * 2 \
+        + coords.numel() * 4
+    ops = 2 * c * valid_taps(coords, meta, radius) + 10 * n * levels * k2
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOP_PER_S \
+        else "operations"
+    print(f"  {what}: bf16 [{b},{h8 * w8},{c}] x R={f2cat.shape[1]}: kernel "
+          f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e9:.3f} GFLOP)", flush=True)
+    return ms, plain_ms, bound_ms, bound_by
+
+
 FNET_SHAPES = ((2, 64, 220, 512), (2, 96, 110, 256), (2, 128, 55, 128))
+TRAIN_FNET_SHAPES = tuple(
+    (2 * TRAIN_BATCH, c, TRAIN_CROP[0] // s, TRAIN_CROP[1] // s)
+    for c, s in ((64, 2), (96, 4), (128, 8)))
 
 
 def instance_norm_phase(gen):
     import torch
-    import torch.nn.functional as F
     from opticalflowfromdepth_torch.ops import instance_norm as inorm
 
     print("[3b] instance norm: Triton kernel vs plain", flush=True)
     worst = 0.0
-    for shape in FNET_SHAPES:
+    for shape in FNET_SHAPES + TRAIN_FNET_SHAPES:
         x32 = (torch.randn(*shape, generator=gen) * 3 + 0.5).cuda()
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
@@ -227,32 +244,49 @@ def instance_norm_phase(gen):
                 check(f"{tag} y", max_rel_excess(y, yr, rtol, atol), 1.0)
                 check(f"{tag} mean", float((m - mr).abs().max()), 1e-5)
                 check(f"{tag} rstd", max_rel_excess(r, rr, 1e-5, 0.0), 1.0)
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 and shape in TRAIN_FNET_SHAPES:
                     worst = max(worst, float((y.float() - yr.float())
                                              .abs().max()))
 
-    # one fnet forward at Sintel size: each shape 5 times, bf16, relu
-    ms = plain_ms = lib_ms = bound_ms = 0.0
-    for shape in FNET_SHAPES:
-        x = torch.randn(*shape, generator=gen).cuda().to(torch.bfloat16)
-        k_ms = cuda_ms(lambda: inorm.instance_norm(x, 1e-5, True))
-        p_ms = cuda_ms(lambda: inorm.instance_norm_plain(x, 1e-5, True))
-        l_ms = cuda_ms(lambda: F.relu(F.instance_norm(x, eps=1e-5)))
-        b_ms = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
-        print(f"  bf16 {list(shape)}: kernel {k_ms * 1e3:.1f} us, plain "
-              f"{p_ms * 1e3:.1f} us, F.instance_norm+relu {l_ms * 1e3:.1f} "
-              f"us, bound {b_ms * 1e3:.2f} us (bytes)", flush=True)
-        ms += 5 * k_ms
-        plain_ms += 5 * p_ms
-        lib_ms += 5 * l_ms
-        bound_ms += 5 * b_ms
-    print(f"  15 calls of one fnet forward: kernel {ms * 1e3:.1f} us, "
-          f"bound {bound_ms * 1e3:.1f} us", flush=True)
+    # one fnet forward (each shape 5 times, bf16, relu): serving (Sintel,
+    # the stacked pair) printed; training (batch 8 of 368x496, the stacked
+    # pairs: the shapes of the launches counted on this slice's main path)
+    # recorded
+    instance_norm_timing(gen, FNET_SHAPES, "serving")
+    ms, plain_ms, lib_ms, bound_ms = instance_norm_timing(
+        gen, TRAIN_FNET_SHAPES, "training")
     return dict(name="instance_norm", route="triton",
                 source="opticalflowfromdepth_torch/ops/instance_norm.py",
                 replaces="opticalflowfromdepth_tpu/ops/instance_norm.py:44",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+
+
+def instance_norm_timing(gen, shapes, what):
+    """Kernel, plain, library and bound times of the 15 instance norms of
+    one fnet forward (each shape 5 times), bf16 with ReLU."""
+    import torch
+    import torch.nn.functional as F
+    from opticalflowfromdepth_torch.ops import instance_norm as inorm
+    ms = plain_ms = lib_ms = bound_ms = 0.0
+    for shape in shapes:
+        x = torch.randn(*shape, generator=gen).cuda().to(torch.bfloat16)
+        k_ms = cuda_ms(lambda: inorm.instance_norm(x, 1e-5, True))
+        p_ms = cuda_ms(lambda: inorm.instance_norm_plain(x, 1e-5, True))
+        l_ms = cuda_ms(lambda: F.relu(F.instance_norm(x, eps=1e-5)))
+        b_ms = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+        print(f"  {what}: bf16 {list(shape)}: kernel {k_ms * 1e3:.1f} us, "
+              f"plain {p_ms * 1e3:.1f} us, F.instance_norm+relu "
+              f"{l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us (bytes)",
+              flush=True)
+        ms += 5 * k_ms
+        plain_ms += 5 * p_ms
+        lib_ms += 5 * l_ms
+        bound_ms += 5 * b_ms
+    print(f"  {what}: 15 calls of one fnet forward: kernel {ms * 1e3:.1f} us,"
+          f" plain {plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, "
+          f"bound {bound_ms * 1e3:.1f} us", flush=True)
+    return ms, plain_ms, lib_ms, bound_ms
 
 
 def fused_corr_bwd_phase(gen):
@@ -318,10 +352,13 @@ def fused_corr_bwd_phase(gen):
         g, f1, f2cat, coords, h8, w8, levels, radius), reps=5)
     n = TRAIN_BATCH * h8 * w8
     taps = valid_taps(coords, meta, radius)
-    # g, f1, f2cat read once, df1 written once (bf16); the f32 df2cat
-    # scratch written once
-    nbytes = (g.numel() + f1.numel() + f2cat.numel() + f1.numel()) * 2 \
-        + f2cat.numel() * 4 + coords.numel() * 4
+    # what the function must move: g, f1, f2cat and coords read once, df1
+    # and df2cat written once in their inputs' dtypes. The f32 scratch
+    # that the atomics design sums into (and its zeroing and cast) is a
+    # cost of this kernel, not of the function, and is reported apart.
+    nbytes = (g.numel() + f1.numel() + f2cat.numel() + f1.numel()
+              + f2cat.numel()) * g.element_size() + coords.numel() * 4
+    scratch = f2cat.numel() * (4 - f2cat.element_size())
     ops = 4 * c * taps + 8 * n * levels * (2 * radius + 2) ** 2
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOP_PER_S \
@@ -330,7 +367,9 @@ def fused_corr_bwd_phase(gen):
           f"{ms * 1e3:.1f} us (with the scratch's zeroing and cast), plain "
           f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
           f"({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP, "
-          f"{taps} in-range taps)", flush=True)
+          f"{taps} in-range taps); the f32 scratch adds "
+          f"{scratch / 1e6:.2f} MB more than a {f2cat.dtype} df2cat",
+          flush=True)
     return dict(name="fused_corr_lookup_bwd", route="cuda",
                 source="opticalflowfromdepth_torch/csrc/fused_corr.cu",
                 replaces="opticalflowfromdepth_tpu/ops/fused_corr.py:171",
@@ -344,11 +383,7 @@ def instance_norm_grad_phase(gen):
 
     print("[3d] instance norm gradient: Triton forward + closed form vs "
           "autograd through the plain version", flush=True)
-    hh, ww = TRAIN_CROP
-    shapes = ((2 * TRAIN_BATCH, 64, hh // 2, ww // 2),
-              (2 * TRAIN_BATCH, 96, hh // 4, ww // 4),
-              (2 * TRAIN_BATCH, 128, hh // 8, ww // 8))
-    for shape in shapes:
+    for shape in TRAIN_FNET_SHAPES:
         x32 = (torch.randn(*shape, generator=gen) * 3 + 0.5).cuda()
         g32 = torch.randn(*shape, generator=gen).cuda()
         for dtype in (torch.float32, torch.bfloat16):
@@ -540,22 +575,59 @@ def train_parity_phase():
     out = {}
     for dev in ("cpu", "cuda"):
         state = rt.init_state(cfg, seed=8, device=dev)
+        grads = {}
+        adam_step = state.optimizer.step
+
+        def step_keeping_grads(state=state, grads=grads, adam_step=adam_step):
+            grads.update({n: p.grad.to("cpu", copy=True) for n, p
+                          in state.model.named_parameters()})
+            return adam_step()
+        state.optimizer.step = step_keeping_grads
         step = rt.make_train_step(cfg, copy.deepcopy(cls), device=dev)
         state, m = step(state, to_device(batch, dev),
                         torch.Generator(device=dev).manual_seed(0))
-        out[dev] = ({k: float(v) for k, v in m.items()},
+        out[dev] = ({k: float(v) for k, v in m.items()}, grads,
                     {k: v.cpu() for k, v in state.model.state_dict().items()})
+    (m_cpu, g_cpu, p_cpu), (m_card, g_card, p_card) = out["cpu"], out["cuda"]
     # metrics: f32 on both sides (TF32 off), cuDNN and the CPU sum in
-    # other orders; parameters: one Adam step moves each by at most the
-    # learning rate (1e-5 at step 0), 2e-4 is RAFT's tolerance
-    worst = max(abs(out["cuda"][0][k] - v) / max(abs(v), 1e-6)
-                for k, v in out["cpu"][0].items())
-    print(f"  total_loss CPU {out['cpu'][0]['total_loss']:.6f}, card "
-          f"{out['cuda'][0]['total_loss']:.6f}", flush=True)
+    # other orders
+    worst = max(abs(m_card[k] - v) / max(abs(v), 1e-6)
+                for k, v in m_cpu.items())
+    print(f"  total_loss CPU {m_cpu['total_loss']:.6f}, card "
+          f"{m_card['total_loss']:.6f}", flush=True)
     check("loss and metrics, relative", worst, 1e-4)
+    # the raw gradients, before the clip. This step amplifies f32 rounding
+    # (the context encoder's training-mode BatchNorm over 2 samples): two
+    # runs on the CPU alone differ by 4.4e-5 of the global norm in the
+    # largest element and by 4.8e-4 of fnet's norm. So every gradient
+    # within 2e-4 of the global norm, and fnet's, which reach it only
+    # through the lookup's backward kernel and instance norm's backward,
+    # within 1e-2 of their norm, which must not be 0 (a missing or zero
+    # backward is 1).
+    norm = float(torch.sqrt(sum((g ** 2).sum() for g in g_cpu.values())))
+    rel = {}
+    for part in ("fnet.", "cnet.", "update_block."):
+        keys = [k for k in g_cpu if k.startswith(part)]
+        n_part = float(torch.sqrt(sum((g_cpu[k] ** 2).sum() for k in keys)))
+        e_part = float(torch.sqrt(sum(((g_card[k] - g_cpu[k]) ** 2).sum()
+                                      for k in keys)))
+        rel[part] = (n_part, e_part / max(n_part, 1e-30))
+    print(f"  gradient global norm CPU {norm:.6f}, largest "
+          f"{max(float(g.abs().max()) for g in g_cpu.values()):.6f}; "
+          "norm and |card - CPU| / |CPU| by module: "
+          + ", ".join(f"{k[:-1]} {n:.4e} {r:.3e}" for k, (n, r) in rel.items()),
+          flush=True)
+    if not rel["fnet."][0] > 0:
+        fail("the feature encoder got no gradient on the CPU")
+    check("every raw gradient, / global norm",
+          max(float((g_card[k] - g).abs().max()) for k, g in g_cpu.items())
+          / norm, 2e-4)
+    check("fnet gradients, |card - CPU| / |CPU|", rel["fnet."][1], 1e-2)
+    # one Adam step moves each parameter by about the learning rate (1e-5
+    # at step 0), so this holds the update, not the gradient
     check("every parameter and statistic after the update",
-          max(float((out["cuda"][1][k].float() - v.float()).abs().max())
-              for k, v in out["cpu"][1].items()), 2e-4)
+          max(float((p_card[k].float() - v.float()).abs().max())
+              for k, v in p_cpu.items()), 2e-4)
 
 
 def write_shards(root: str, n: int, h: int, w: int, seed: int) -> None:

@@ -50,7 +50,8 @@ class RAFTTrainConfig:
     min_classify_loss_weight: float = 0.0
     # "none" or "full" (models/raft.py:RAFT.remat); "dots" is not ported
     remat: str = "none"
-    # the JAX scan's unroll factor: no counterpart in an eager loop
+    # the JAX scan's unroll factor; the eager loop runs one iteration at a
+    # time, so only 1 is accepted
     unroll: int = 1
     # "fused": the CUDA lookup and its backward on the card
     corr_impl: str = "fused"
@@ -63,6 +64,9 @@ def build_model(cfg: RAFTTrainConfig,
     if cfg.blocked_supervision:
         raise ValueError("blocked_supervision is not ported; the port "
                          "supervises at full resolution")
+    if cfg.unroll != 1:
+        raise ValueError(f"unroll={cfg.unroll} is not ported; the GRU loop "
+                         "runs one iteration at a time (unroll=1)")
     dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
     return RAFT(small=cfg.small, dropout=cfg.dropout, dtype=dtype,
                 remat=cfg.remat, corr_impl=cfg.corr_impl,

@@ -151,9 +151,9 @@ def test_fused_corr_autograd_matches_corr_pyramid_vjp():
     out = tfused.fused_corr_lookup(t1, t2, _t(coords), 4, 4, torch.float32)
     out.backward(_t(g))
     np.testing.assert_allclose(t1.grad.numpy(), np.asarray(ref1), atol=5e-5,
-                               rtol=5e-4)
+                               rtol=5e-5)
     np.testing.assert_allclose(t2.grad.numpy(), np.asarray(ref2), atol=5e-5,
-                               rtol=5e-4)
+                               rtol=5e-5)
 
 
 def test_fused_corr_bwd_far_out_of_range_is_zero():

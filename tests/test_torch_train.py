@@ -366,6 +366,13 @@ def test_train_runner_from_shards(tmp_path):
     assert again.run().step == 3
 
 
+@pytest.mark.parametrize("option", [dict(blocked_supervision=True),
+                                    dict(unroll=2), dict(remat="dots")])
+def test_unported_options_raise(option):
+    with pytest.raises(ValueError, match="not ported"):
+        trt.build_model(_small_cfg(**option))
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default is taken")
