@@ -13,7 +13,13 @@ Run from the repository root on a host with one CUDA card. Phases:
    [3a] the fused lookup and [3b] instance norm at the shapes RAFT-basic
    serving gives them at Sintel size (440x1024 padded); [3c] the lookup's
    backward and [3d] instance norm's gradient at the training shapes
-   (batch 8, 368x496);
+   (batch 8, 368x496); [3e] the flash streaming-softmax kernel at
+   GMFlow's Sintel shape classes (window attention [8, 1792, 128] with
+   and without the Swin mask, global matching and global propagation
+   [1, 7168, 128] with a 2-wide payload, the refinement's windows
+   [128, 448, 128]), ragged lengths, extreme logits, bf16 and f32
+   operands and the LSE, timed against its bound, the plain version and
+   ``F.scaled_dot_product_attention``;
 4. serving parity: RAFT-basic on one 128x256 pair, 6 iterations, f32, on
    the card (kernels) against the CPU (plain versions), same weights;
 5. the serving path: full-width RAFT-basic (bf16, fused correlation, 24
@@ -31,7 +37,14 @@ Run from the repository root on a host with one CUDA card. Phases:
    and weights checkpoints, the weights served by the serving model;
 8. a learning check: 30 steps on one fixed batch at 184x248, batch 4;
    the loss must fall;
-9. a ``{"kernels": [...]}`` line, the card line, and last the line
+9. GMFlow card vs CPU: 1-scale and refine, f32, 64x96, seeded weights;
+10. GMFlow serving: full width (bf16, seeded weights) through
+   ``InputPadder(padding_factor=16)`` and ``gmflow_infer_fn``, 3 pairs of
+   436x1024 after a warm-up pair, with the launch counts checked (14
+   flash, 15 instance norms, 0 lookups per pair) and a profile of one
+   pair; one bidirectional pair with the occlusion check (15 flash); one
+   refine pair (padding factor 32, 26 flash);
+11. a ``{"kernels": [...]}`` line, the card line, and last the line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -51,6 +64,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16, data sheet
+# exponentials: 16 special-function results per clock per SM (Hopper
+# white paper), 132 SMs, 1.98 GHz boost clock (H100 SXM data sheet)
+SFU_PER_S = 16 * 132 * 1.98e9
 SINTEL = (436, 1024)
 TRAIN_CROP, TRAIN_BATCH, TRAIN_ITERS = (368, 496), 8, 12
 
@@ -402,6 +418,151 @@ def instance_norm_grad_phase(gen):
                     else (2 ** -7, 1e-3)
                 check(f"{list(shape)} {dtype} relu={relu} dx",
                       max_rel_excess(grads[0], grads[1], rtol, atol), 1.0)
+
+
+def flash_inputs(gen, b, lq, lk, c, d, dtype, payload="normal", mult=1.0):
+    """Seeded q, k (in ``dtype``) and v on the card. ``payload``: "normal"
+    (attention values), "grid" (the matching grid of a 56x128 map) or
+    "flow" (a flow in [-60, 60] px), the last two f32 as the model passes
+    them."""
+    import torch
+    q = (torch.randn(b, lq, c, generator=gen) * mult).to(dtype).cuda()
+    k = (torch.randn(b, lk, c, generator=gen) * mult).to(dtype).cuda()
+    if payload == "grid":
+        t = torch.arange(lk)
+        v = torch.stack([t % 128, t // 128], -1).float()[None].repeat(b, 1, 1)
+    elif payload == "flow":
+        v = torch.rand(b, lk, 2, generator=gen) * 120 - 60
+    else:
+        v = torch.randn(b, lk, d, generator=gen).to(dtype)
+    return q, k, v.cuda()
+
+
+# GMFlow's flash calls at Sintel size (436x1024 padded to 448x1024): name,
+# (B, L, C, D, payload, swin), calls per 1-scale pair
+H8, W8 = 448 // 8, 1024 // 8
+FLASH_SHAPES = (
+    ("window", (8, H8 * W8 // 4, 128, 128, "normal", None), 6),
+    ("window+swin", (8, H8 * W8 // 4, 128, 128, "normal",
+                     (2, H8 // 2, W8 // 2, H8 // 4, W8 // 4)), 6),
+    ("matching", (1, H8 * W8, 128, 2, "grid", None), 1),
+    ("propagation", (1, H8 * W8, 128, 2, "flow", None), 1),
+    ("refine window", (128, 448, 128, 128, "normal", None), 0),
+    ("refine window+swin", (128, 448, 128, 128, "normal",
+                            (8, 14, 32, 7, 16)), 0),
+)
+
+
+def flash_compare(fl, what, q, k, v, swin) -> float:
+    """The kernel against the plain version on one input, out and LSE;
+    returns the out's max abs diff. Tolerance: f32, the sums run in another
+    order, 1e-4 of max|v|; bf16, ``bf16_tolerance`` row by row (two bf16
+    steps of the row's largest ``pi_i |v_i|``). Two planted faults must
+    exceed it: the output scaled by 0.98, and the last 64 keys left out of
+    P . V but kept in the denominator (their v zeroed)."""
+    import torch
+    got, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fl.flash_softmax_matmul_plain(q, k, v, swin=swin,
+                                                 with_lse=True)
+    if got.shape != ref.shape or got.dtype != torch.float32 \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"flash {what}: {got.shape}/{got.dtype}, finite="
+             f"{bool(torch.isfinite(got).all())}")
+    if q.dtype == torch.float32:
+        tol = 1e-4 * float(v.abs().max())
+        rule = f"|d| <= {tol:.3e}, 1e-4 max|v|"
+    else:
+        tol = fl.bf16_tolerance(q, k, v, swin=swin)
+        rule = (f"|d| <= 2^-6 max pi|v| + 2^-16 sum pi|v| + 1e-6, row by "
+                f"row: {float(tol.min()):.3e}..{float(tol.max()):.3e}")
+    v_cut = v.clone()
+    v_cut[:, -fl.KERNEL_BLOCK_K:] = 0
+    faults = [(got * 0.98 - ref).abs(),
+              (fl.flash_softmax_matmul(q, k, v_cut, swin=swin) - ref).abs()]
+    ratios = [float((f / tol).max()) for f in faults]
+    err = float((got - ref).abs().max())
+    check(f"{what} out, {rule}; max |d| {err:.3e}; |d| / tolerance",
+          float(((got - ref).abs() / tol).max()), 1.0)
+    print(f"    planted faults, |d| / tolerance (each must exceed 1): out "
+          f"x 0.98 {ratios[0]:.2f}, last key tile left out of P.V "
+          f"{ratios[1]:.2f}", flush=True)
+    if not min(ratios) > 1.0:
+        fail(f"flash {what}: a planted fault passes the tolerance {ratios}")
+    # the row max enters the LSE whole: with extreme logits it is ~1e3, and
+    # the scores' last-bit differences are ~1e-7 of it
+    check(f"{what} lse (|d| <= 1e-4 + 1e-6|ref|, max |d| "
+          f"{float((lse - ref_lse).abs().max()):.3e})",
+          max_rel_excess(lse, ref_lse, 1e-6, 1e-4), 1.0)
+    return err
+
+
+def flash_phase(gen):
+    import torch
+    from opticalflowfromdepth_torch.ops import flash as fl
+
+    print("[3e] flash streaming softmax: CUDA kernel vs plain", flush=True)
+    worst = 0.0
+    sintel = {name for name, _, _ in FLASH_SHAPES}
+    cases = [(name, args) for name, args, _ in FLASH_SHAPES] + [
+        ("ragged 100x100", (2, 100, 64, 16, "normal", None)),
+        ("extreme logits", (1, 256, 32, 2, "flow", None))]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (b, l, c, d, payload, swin) in cases:
+            q, k, v = flash_inputs(gen, b, l, l, c, d, dtype, payload,
+                                   30.0 if name == "extreme logits" else 1.0)
+            err = flash_compare(fl, f"{name} {dtype} [{b},{l},{c}]x"
+                                f"[{b},{l},{d}]", q, k, v, swin)
+            if dtype == torch.bfloat16 and name in sintel:
+                worst = max(worst, err)
+        # ragged keys (Lk = 63 < one 64-key tile) with Lq = 100
+        q, _, _ = flash_inputs(gen, 2, 100, 100, 64, 16, dtype)
+        _, k, v = flash_inputs(gen, 2, 63, 63, 64, 16, dtype)
+        flash_compare(fl, f"ragged Lq=100 Lk=63 {dtype}", q, k, v, None)
+
+    # times at the serving shapes and dtype (bf16): per call, and the 14
+    # calls of one 1-scale pair (the launches this record counts)
+    import torch.nn.functional as F
+    pair = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    flops = exps = nbytes = 0.0
+    for name, (b, l, c, d, payload, swin), n in FLASH_SHAPES:
+        q, k, v = flash_inputs(gen, b, l, l, c, d, torch.bfloat16, payload)
+        ms = cuda_ms(lambda: fl.flash_softmax_matmul(q, k, v, swin=swin))
+        plain_ms = cuda_ms(lambda: fl.flash_softmax_matmul_plain(
+            q, k, v, swin=swin), reps=3, warm=1)
+        vb = v.to(torch.bfloat16)
+        mask = None if swin is None else fl.swin_mask_dense(
+            l, swin, b, "cuda").to(torch.bfloat16)[:, None]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], vb[:, None], attn_mask=mask))
+        f, e = 2.0 * b * l * l * (c + d), float(b * l * l)
+        by = (q.numel() + k.numel() + vb.numel()) * 2 + b * l * d * 4
+        t_ops = max(f / BF16_FLOP_PER_S, e / SFU_PER_S)
+        bound_ms = max(t_ops, by / HBM_BYTES_PER_S) * 1e3
+        bound_by = "operations" if t_ops >= by / HBM_BYTES_PER_S \
+            else "bytes"
+        print(f"  {name} bf16 [{b},{l},{c}]x[{b},{l},{d}]: kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, SDPA "
+              f"{lib_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}: {f / 1e9:.2f} GFLOP, {e / 1e6:.1f} M exp, "
+              f"{by / 1e6:.2f} MB); {n} per 1-scale pair", flush=True)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", bound_ms)):
+            pair[key] += n * val
+        flops, exps, nbytes = flops + n * f, exps + n * e, nbytes + n * by
+    t_ops = max(flops / BF16_FLOP_PER_S, exps / SFU_PER_S)
+    bound_by = "operations" if t_ops >= nbytes / HBM_BYTES_PER_S \
+        else "bytes"
+    print(f"  the 14 calls of one 1-scale pair: kernel "
+          f"{pair['ms'] * 1e3:.1f} us, plain {pair['plain_ms'] * 1e3:.1f} "
+          f"us, SDPA {pair['library_ms'] * 1e3:.1f} us, bound "
+          f"{pair['bound_ms'] * 1e3:.1f} us ({bound_by}: "
+          f"{flops / 1e9:.1f} GFLOP, {exps / 1e6:.1f} M exp, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    return dict(name="flash", route="cuda",
+                source="opticalflowfromdepth_torch/csrc/flash.cu",
+                replaces="opticalflowfromdepth_tpu/ops/flash.py:40",
+                max_abs_err=worst, bound_by=bound_by, **pair)
 
 
 # --------------------------------------------------------------------------
@@ -822,6 +983,178 @@ def learning_phase():
         fail(f"the loss did not fall: {first:.4f} -> {last:.4f}")
 
 
+# --------------------------------------------------------------------------
+# phases 9 and 10: GMFlow serving
+# --------------------------------------------------------------------------
+
+GMFLOW_RECIPES = {1: ((2,), (-1,), (-1,)), 2: ((2, 8), (-1, 4), (-1, 1))}
+
+
+def gmflow_parity_phase():
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from opticalflowfromdepth_torch.eval.infer import gmflow_infer_fn
+    from opticalflowfromdepth_torch.models.gmflow import GMFlow
+
+    print("[9] GMFlow 64x96, f32: card vs CPU", flush=True)
+    rng = np.random.default_rng(12)
+    low = torch.from_numpy(rng.uniform(0, 255, (2, 3, 8, 12)).astype(
+        np.float32))
+    imgs = F.interpolate(low, size=(64, 96), mode="bilinear",
+                         align_corners=False).permute(0, 2, 3, 1).numpy()
+    i1, i2 = imgs[:1], imgs[1:]
+    for ns in (1, 2):
+        model = GMFlow(num_scales=ns, upsample_factor=8 if ns == 1 else 4,
+                       generator=torch.Generator().manual_seed(13))
+        sp, cr, pr = GMFLOW_RECIPES[ns]
+        on_cpu = gmflow_infer_fn(copy.deepcopy(model), sp, cr, pr,
+                                 device="cpu")
+        cpu = on_cpu(i1, i2)
+        # the model's own response on the CPU to input noise of 1e-4 gray
+        # levels, the size of f32 rounding
+        nudge = np.abs(on_cpu(i1 + 1e-4 * rng.standard_normal(i1.shape)
+                              .astype(np.float32), i2) - cpu)
+        gpu = gmflow_infer_fn(model, sp, cr, pr, device="cuda")(i1, i2)
+        d = np.abs(gpu - cpu)
+        what = "1-scale" if ns == 1 else "refine"
+        print(f"  {what}: |flow| max {np.abs(cpu).max():.3f} px; the CPU "
+              f"against itself with the nudged image (a reading, not a "
+              f"limit): max {nudge.max():.3e}, 99th percentile "
+              f"{np.quantile(nudge, 0.99):.3e}, median "
+              f"{np.median(nudge):.3e} px", flush=True)
+        # f32 both sides (TF32 off). 1 scale: the 2e-2 px of the CPU tests
+        # against the JAX model (tests/test_torch_gmflow.py). Refine: its
+        # local matching amplifies f32 rounding (the nudge reading above:
+        # 0.434 px max, 9.0e-2 px at the 99th percentile on an H100), so the
+        # max is held to a fixed 0.6 px, the 99th percentile to 0.2 px and
+        # the median to 1e-2 px; the card read 0.209 px, 8.2e-2 px and
+        # 2.3e-3 px.
+        check(f"{what} flow card vs CPU (px)", float(d.max()),
+              2e-2 if ns == 1 else 0.6)
+        if ns == 2:
+            check("  99th percentile (px)", float(np.quantile(d, 0.99)), 0.2)
+        check("  median (px)", float(np.median(d)), 1e-2)
+
+
+def gmflow_serving_phase():
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.eval.infer import gmflow_infer_fn
+    from opticalflowfromdepth_torch.eval.occlusion import \
+        forward_backward_consistency_check
+    from opticalflowfromdepth_torch.eval.padder import InputPadder
+    from opticalflowfromdepth_torch.models.gmflow import GMFlow
+    from opticalflowfromdepth_torch.ops.flash import flash_softmax_matmul
+    from opticalflowfromdepth_torch.ops.fused_corr import \
+        fused_corr_lookup_cat
+    from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
+
+    print(f"[10] GMFlow serving: bf16, 1 scale, 3 pairs of {SINTEL[0]}x"
+          f"{SINTEL[1]} (padding factor 16)", flush=True)
+    rng = np.random.default_rng(14)
+    pairs = [[rng.uniform(0, 255, (1,) + SINTEL + (3,)).astype(np.float32)
+              for _ in range(2)] for _ in range(4)]
+
+    def counts():
+        return {"flash": flash_softmax_matmul.launches,
+                "instance_norm": instance_norm.launches,
+                "fused_corr_lookup": fused_corr_lookup_cat.launches,
+                "fused_corr_lookup_bwd": fused_corr_lookup_cat.bwd_launches}
+
+    def zero():
+        flash_softmax_matmul.launches = 0
+        instance_norm.launches = 0
+        fused_corr_lookup_cat.launches = 0
+        fused_corr_lookup_cat.bwd_launches = 0
+
+    def want(flash, n):
+        return {"flash": flash * n, "instance_norm": 15 * n,
+                "fused_corr_lookup": 0, "fused_corr_lookup_bwd": 0}
+
+    def server(num_scales, bidir, factor):
+        sp, cr, pr = GMFLOW_RECIPES[num_scales]
+        model = GMFlow(num_scales=num_scales,
+                       upsample_factor=8 if num_scales == 1 else 4,
+                       dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(15))
+        infer = gmflow_infer_fn(model, sp, cr, pr, pred_bidir_flow=bidir,
+                                device="cuda")
+        padder = InputPadder(pairs[0][0].shape, padding_factor=factor)
+
+        def serve(i1, i2):
+            a, b = padder.pad(i1, i2)
+            return padder.unpad(infer(a, b))
+        return serve
+
+    def check_flow(flow, rows, what):
+        if flow.shape != (rows,) + SINTEL + (2,) \
+                or not np.isfinite(flow).all():
+            fail(f"{what} flow {flow.shape}, finite="
+                 f"{bool(np.isfinite(flow).all())}")
+
+    serve = server(1, False, 16)
+    t = time.perf_counter()
+    serve(*pairs[0])                                   # warm-up pair
+    print(f"  warm-up pair {(time.perf_counter() - t) * 1e3:.1f} ms",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    times = []
+    for i1, i2 in pairs[1:]:
+        t = time.perf_counter()
+        flow = serve(i1, i2)
+        times.append((time.perf_counter() - t) * 1e3)
+        check_flow(flow, 1, "serving")
+    launches = counts()
+    n = len(times)
+    print(f"  launches over {n} pairs: {launches}", flush=True)
+    if launches != want(14, n):
+        fail(f"GMFlow serving launch counts {launches}, want {want(14, n)}")
+    print(f"  ms per pair: {[round(x, 3) for x in times]} (mean "
+          f"{sum(times) / n:.3f}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; |flow| "
+          f"max {np.abs(flow).max():.3f} px", flush=True)
+    profile(lambda: serve(*pairs[1]), sum(times) / n, "pair")
+
+    print("  one bidirectional pair with the occlusion check", flush=True)
+    serve = server(1, True, 16)
+    serve(*pairs[0])                                   # warm-up
+    zero()
+    t = time.perf_counter()
+    flow = serve(*pairs[1])
+    ms = (time.perf_counter() - t) * 1e3
+    got = counts()
+    check_flow(flow, 2, "bidirectional")
+    occ = forward_backward_consistency_check(
+        *(torch.from_numpy(np.ascontiguousarray(f[None])).cuda()
+          for f in flow))
+    if any(o.shape != (1,) + SINTEL for o in occ):
+        fail(f"occlusion masks {[tuple(o.shape) for o in occ]}")
+    print(f"  {ms:.3f} ms; launches {got}; occluded fraction fwd "
+          f"{float(occ[0].mean()):.4f}, bwd {float(occ[1].mean()):.4f}",
+          flush=True)
+    if got != want(15, 1):
+        fail(f"bidirectional launch counts {got}, want {want(15, 1)}")
+
+    print("  one refine pair (2 scales, padding factor 32)", flush=True)
+    serve = server(2, False, 32)
+    serve(*pairs[0])                                   # warm-up
+    zero()
+    t = time.perf_counter()
+    flow = serve(*pairs[1])
+    ms = (time.perf_counter() - t) * 1e3
+    got = counts()
+    check_flow(flow, 1, "refine")
+    print(f"  {ms:.3f} ms; launches {got}; |flow| max "
+          f"{np.abs(flow).max():.3f} px", flush=True)
+    if got != want(26, 1):
+        fail(f"refine launch counts {got}, want {want(26, 1)}")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -843,7 +1176,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.perf_counter()
-    logs = _build.build(["fused_corr"])
+    logs = _build.build(["fused_corr", "flash"])
     print(f"[2] nvcc build {time.perf_counter() - t:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -861,6 +1194,7 @@ def main() -> None:
     kernels = [fused_corr_phase(gen), instance_norm_phase(gen),
                fused_corr_bwd_phase(gen)]
     instance_norm_grad_phase(gen)
+    flash = flash_phase(gen)
     e2e_parity_phase()
     main_path_phase()
     train_parity_phase()
@@ -869,6 +1203,10 @@ def main() -> None:
     learning_phase()
     for k in kernels:          # launches on slice 2's main path, training
         k["launches"] = launches[k["name"]]
+    gmflow_parity_phase()
+    # flash's launches on slice 3's main path, GMFlow serving
+    flash["launches"] = gmflow_serving_phase()["flash"]
+    kernels.append(flash)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -1,5 +1,5 @@
-"""Residual encoders shared by RAFT and the classifier (port of
-``opticalflowfromdepth_tpu/models/layers.py``).
+"""Convolutions, norms and the residual encoders shared by RAFT and the
+classifier (port of ``opticalflowfromdepth_tpu/models/layers.py``).
 
 NCHW ``nn.Module``s whose ``state_dict`` keys are those of the reference's
 torch models (``adjusted_RAFT/core/extractor.py``), so its released
@@ -23,19 +23,23 @@ from ..ops.instance_norm import instance_norm
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv2d`` with SAME-style padding that runs in ``dtype``."""
+    """``nn.Conv2d`` with SAME-style padding (scaled by ``dilation``) that
+    runs in ``dtype``; ``bias=False`` for the GMFlow backbone's convs."""
 
     def __init__(self, cin: int, cout: int, kernel=3, stride: int = 1,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bias: bool = True, dilation: int = 1):
         kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         super().__init__(cin, cout, (kh, kw), stride=stride,
-                         padding=((kh - 1) // 2, (kw - 1) // 2))
+                         padding=((kh - 1) // 2 * dilation,
+                                  (kw - 1) // 2 * dilation),
+                         dilation=dilation, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        self.stride, self.padding)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                        self.padding, self.dilation)
 
 
 class InstanceNorm(nn.Module):
@@ -233,10 +237,12 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
                 if he_normal:
                     std = math.sqrt(2.0 / (m.out_channels * kh * kw))
                     m.weight.normal_(0.0, std, generator=generator)
-                    m.bias.zero_()
+                    if m.bias is not None:
+                        m.bias.zero_()
                     continue
                 bound = 1.0 / math.sqrt(m.in_channels * kh * kw)
                 m.weight.uniform_(-bound, bound, generator=generator)
-                m.bias.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()

@@ -1,17 +1,18 @@
-"""Carry the JAX package's RAFT and classifier variables into the port's
-``state_dict``s.
+"""Carry the JAX package's RAFT, classifier and GMFlow variables into the
+port's ``state_dict``s.
 
 The inverses of ``opticalflowfromdepth_tpu/tools/port_torch_weights.py:
-port_raft`` and ``port_classifier``: the flax ``params`` and
-``batch_stats`` (nested dicts of arrays) become a torch ``state_dict``
-with the reference's key names, which the port's ``RAFT`` and
-``Classifier`` load with ``strict=True``. Every flax leaf must be used
-exactly once.
+port_raft``, ``port_classifier`` and ``port_gmflow``: the flax ``params``
+and ``batch_stats`` (nested dicts of arrays) become a torch ``state_dict``
+with the reference's key names, which the port's ``RAFT``,
+``Classifier`` and ``GMFlow`` load with ``strict=True``. Every flax leaf
+must be used exactly once.
 
 Layout transforms: conv kernels ``[kh, kw, I, O]`` -> ``[O, I, kh, kw]``;
-dense kernels ``[I, O]`` -> ``[O, I]``; BatchNorm scale/bias ->
-weight/bias, batch_stats mean/var -> running statistics. The reference registers a strided block's skip norm twice
-(``norm3`` and ``downsample.1``), so those tensors appear under both keys.
+dense kernels ``[I, O]`` -> ``[O, I]``; BatchNorm and LayerNorm
+scale/bias -> weight/bias, batch_stats mean/var -> running statistics.
+The reference registers a strided block's skip norm twice (``norm3`` and
+``downsample.1``), so those tensors appear under both keys.
 """
 
 from __future__ import annotations
@@ -102,13 +103,22 @@ def _state_dict_from_flax(pairs: Iterator[tuple], params: Mapping,
 
     sd: "OrderedDict[str, Any]" = OrderedDict()
     for kind, dst, src, *alias in pairs:
-        if kind == "conv":
+        if kind in ("conv", "conv_nobias"):
             sd[f"{src}.weight"] = take(p, dst, "Conv_0", "kernel").permute(
                 3, 2, 0, 1).contiguous()
-            sd[f"{src}.bias"] = take(p, dst, "Conv_0", "bias")
+            if kind == "conv":
+                sd[f"{src}.bias"] = take(p, dst, "Conv_0", "bias")
             continue
-        if kind == "dense":
+        if kind == "kernel":                    # a bare conv kernel param
+            sd[src] = take(p, dst).permute(3, 2, 0, 1).contiguous()
+            continue
+        if kind in ("dense", "dense_nobias"):
             sd[f"{src}.weight"] = take(p, dst, "kernel").t().contiguous()
+            if kind == "dense":
+                sd[f"{src}.bias"] = take(p, dst, "bias")
+            continue
+        if kind == "ln":
+            sd[f"{src}.weight"] = take(p, dst, "scale")
             sd[f"{src}.bias"] = take(p, dst, "bias")
             continue
         bn = {"weight": take(p, dst, "scale"), "bias": take(p, dst, "bias"),
@@ -145,3 +155,42 @@ def classifier_state_dict_from_flax(params: Mapping,
         yield ("dense", "Dense_0",
                f"classify.{4 if use_dropout_in_classify else 3}")
     return _state_dict_from_flax(pairs(), params, batch_stats)
+
+
+def _gmflow_pairs(num_scales: int) -> Iterator[tuple]:
+    """``port_gmflow``'s map, flax path -> torch prefix."""
+    yield ("conv_nobias", "backbone/Conv_0", "backbone.conv1")
+    for i in range(6):
+        layer, sub = 1 + i // 2, i % 2
+        tsrc, tdst = f"backbone.layer{layer}.{sub}", f"backbone/_ResBlock_{i}"
+        yield ("conv_nobias", f"{tdst}/Conv_0", f"{tsrc}.conv1")
+        yield ("conv_nobias", f"{tdst}/Conv_1", f"{tsrc}.conv2")
+        if sub == 0 and layer > 1:              # in_planes != planes
+            yield ("conv", f"{tdst}/Conv_2", f"{tsrc}.downsample.0")
+    yield ("conv", "backbone/Conv_1", "backbone.conv2")
+    if num_scales > 1:
+        yield ("kernel", "backbone/trident_kernel",
+               "backbone.trident_conv.weight")
+    for i in range(6):
+        for attn in ("self_attn", "cross_attn_ffn"):
+            src = f"transformer.layers.{i}.{attn}"
+            dst = f"transformer/block_{i}/{attn}"
+            for proj in ("q_proj", "k_proj", "v_proj", "merge"):
+                yield ("dense_nobias", f"{dst}/{proj}", f"{src}.{proj}")
+            yield ("ln", f"{dst}/norm1", f"{src}.norm1")
+            if attn == "cross_attn_ffn":
+                yield ("dense_nobias", f"{dst}/Dense_0", f"{src}.mlp.0")
+                yield ("dense_nobias", f"{dst}/Dense_1", f"{src}.mlp.2")
+                yield ("ln", f"{dst}/norm2", f"{src}.norm2")
+    yield ("dense", "feature_flow_attn/q_proj", "feature_flow_attn.q_proj")
+    yield ("dense", "feature_flow_attn/k_proj", "feature_flow_attn.k_proj")
+    yield ("conv", "Conv_0", "upsampler.0")
+    yield ("conv", "Conv_1", "upsampler.2")
+
+
+def gmflow_state_dict_from_flax(params: Mapping, num_scales: int = 1
+                                ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``GMFlow`` ``params`` (6 transformer blocks) -> the port's
+    ``state_dict`` (``port_gmflow``'s inverse; GMFlow has no batch
+    statistics)."""
+    return _state_dict_from_flax(_gmflow_pairs(num_scales), params, None)

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from opticalflowfromdepth_torch.models.gmflow import GMFlow
 from opticalflowfromdepth_torch.models.raft import RAFT
+from opticalflowfromdepth_torch.ops import flash as fl
 from opticalflowfromdepth_torch.ops import fused_corr as fc
 from opticalflowfromdepth_torch.ops import instance_norm as inorm
 
@@ -204,3 +206,89 @@ def test_raft_small_on_card_matches_cpu(card):
         model.to(card)
         lr_c, up_c = model(i1.to(card), i2.to(card), iters=4, test_mode=True)
     np.testing.assert_allclose(up_c.cpu().numpy(), up.numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,c,d,swin", [
+    (8, 24, 24, 128, 128, (2, 4, 6, 2, 3)),      # [2B] windows, shifted
+    (2, 100, 63, 64, 16, None),                  # ragged
+    (1, 300, 300, 128, 2, None),                 # matching payload
+    (2, 130, 70, 32, 48, None)])                 # ragged, narrow
+def test_flash_kernel_matches_plain(card, dtype, b, lq, lk, c, d, swin):
+    """The CUDA kernel against the plain version with the kernel's key
+    blocks, out and LSE. f32: sums in another order, 1e-4 of max|v|.
+    bf16: ``bf16_tolerance`` row by row (a P whose f32 value differs in the
+    last bits may round to the neighbouring bf16 value: two bf16 steps of
+    the row's largest ``pi_i |v_i|``), which the output scaled by 0.98
+    does not meet."""
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn(b, lq, c, generator=g).to(card, dtype)
+    k = torch.randn(b, lk, c, generator=g).to(card, dtype)
+    v = (torch.randn(b, lk, d, generator=g) * (30 if d == 2 else 1)).to(card)
+    before = fl.flash_softmax_matmul.launches
+    out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
+    torch.cuda.synchronize()
+    assert fl.flash_softmax_matmul.launches == before + 1
+    ref, ref_lse = fl.flash_softmax_matmul_plain(q, k, v, swin=swin,
+                                                 with_lse=True)
+    assert out.dtype == torch.float32 and out.shape == (b, lq, d)
+    tol = 1e-4 * float(v.abs().max()) if dtype == torch.float32 \
+        else fl.bf16_tolerance(q, k, v, swin=swin)
+    assert float(((out - ref).abs() / tol).max()) <= 1.0
+    assert float(((out * 0.98 - ref).abs() / tol).max()) > 1.0
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(),
+                               atol=1e-4, rtol=1e-5)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(card):
+    q = torch.randn(2, 32, 24, device=card)
+    with pytest.raises(ValueError, match="C % 16"):
+        fl.flash_softmax_matmul(q, q, torch.randn(2, 32, 2, device=card))
+    q = torch.randn(2, 32, 256, device=card)
+    with pytest.raises(ValueError, match="C <= 128"):
+        fl.flash_softmax_matmul(q, q, torch.randn(2, 32, 2, device=card))
+    q = torch.randn(2, 32, 64, device=card)
+    with pytest.raises(ValueError, match="D % 16"):
+        fl.flash_softmax_matmul(q, q, torch.randn(2, 32, 256, device=card))
+    q = torch.randn(2, 32, 32, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        fl.flash_softmax_matmul(q, q, q)
+
+
+@pytest.mark.parametrize("num_scales", [1, 2])
+def test_gmflow_on_card_matches_cpu(card, num_scales):
+    """f32, 64x96, the same weights: the kernels on the card against the
+    plain versions on the CPU (the port's CPU tests hold those to the JAX
+    model). 1 scale: 2e-2 px, as test_torch_gmflow.py. Refine, whose local
+    matching amplifies f32 rounding: the limits of ``chip_smoke.py`` [9],
+    0.6 px max, 0.2 px at the 99th percentile, 1e-2 px median. The CPU
+    model's own response to input noise of 1e-4 gray levels is printed
+    beside the readings (run with ``-s``)."""
+    recipe = {1: ((2,), (-1,), (-1,)), 2: ((2, 8), (-1, 4), (-1, 1))}
+    model = GMFlow(num_scales=num_scales,
+                   upsample_factor=8 if num_scales == 1 else 4,
+                   generator=torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    low = torch.rand(2, 3, 8, 12, generator=g) * 255
+    i1, i2 = torch.nn.functional.interpolate(
+        low, size=(64, 96), mode="bilinear", align_corners=False).chunk(2)
+    with torch.inference_mode():
+        cpu = model(i1, i2, *recipe[num_scales], training=False)
+        nudged = model(i1 + 1e-4 * torch.randn(i1.shape, generator=g), i2,
+                       *recipe[num_scales], training=False)
+        model.to(card)
+        before = fl.flash_softmax_matmul.launches
+        gpu = model(i1.to(card), i2.to(card), *recipe[num_scales],
+                    training=False)
+        assert fl.flash_softmax_matmul.launches - before == \
+            (14 if num_scales == 1 else 26)
+    d = (gpu["flow_preds"][-1].cpu() - cpu["flow_preds"][-1]).abs()
+    own = (nudged["flow_preds"][-1] - cpu["flow_preds"][-1]).abs()
+    p99 = float(torch.quantile(d.flatten(), 0.99))
+    print(f"GMFlow {num_scales} scale(s) card vs CPU: max {float(d.max()):.4e}"
+          f", 99th percentile {p99:.4e}, median {float(d.median()):.4e} px; "
+          f"the CPU under the nudge: max {float(own.max()):.4e}, median "
+          f"{float(own.median()):.4e} px")
+    assert float(d.median()) <= 1e-2
+    assert float(d.max()) <= (2e-2 if num_scales == 1 else 0.6)
+    assert num_scales == 1 or p99 <= 0.2
