@@ -19,7 +19,14 @@ Run from the repository root on a host with one CUDA card. Phases:
    [1, 7168, 128] with a 2-wide payload, the refinement's windows
    [128, 448, 128]), ragged lengths, extreme logits, bf16 and f32
    operands and the LSE, timed against its bound, the plain version and
-   ``F.scaled_dot_product_attention``;
+   ``F.scaled_dot_product_attention``; [3f] the two flash backward
+   kernels (dq; dk and dv) at GMFlow's training shape classes (batch 16
+   of 368x560: windows [128, 805, 128] with and without the Swin mask,
+   matching and propagation [16, 3220, 128] with a 2-wide payload),
+   ragged lengths, extreme logits, bf16 and f32, with two planted faults
+   that must fail the tolerance, the autograd Function against a dense
+   softmax, timed against their bounds, the plain version and SDPA's
+   backward;
 4. serving parity: RAFT-basic on one 128x256 pair, 6 iterations, f32, on
    the card (kernels) against the CPU (plain versions), same weights;
 5. the serving path: full-width RAFT-basic (bf16, fused correlation, 24
@@ -44,7 +51,18 @@ Run from the repository root on a host with one CUDA card. Phases:
    flash, 15 instance norms, 0 lookups per pair) and a profile of one
    pair; one bidirectional pair with the occlusion check (15 flash); one
    refine pair (padding factor 32, 26 flash);
-11. a ``{"kernels": [...]}`` line, the card line, and last the line
+11. GMFlow train-step parity: one f32 step with the classifier, 64x96,
+   batch 2, 1 scale and refine, on the card against the CPU;
+12. the GMFlow training path: seeded npz shards at 384x576 ->
+   ``AugmentedShards`` (crop 368x560) -> ``Loader`` (batch 16) ->
+   ``TrainRunner`` over ``gmflow_train.make_train_step`` (full width,
+   bf16, 1 scale, frozen classifier): one warm-up step, 5 timed steps
+   with the launch counts checked (14 flash forwards, 14 dq, 14 dk/dv, 15
+   instance norms, 0 lookups per step), a profile of one step, the
+   ``latest`` and weights checkpoints served by ``gmflow_infer_fn``, a
+   batch with a NaN skipped, and 30 steps on one fixed batch that must
+   lower the loss;
+13. a ``{"kernels": [...]}`` line, the card line, and last the line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -69,6 +87,9 @@ BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16, data sheet
 SFU_PER_S = 16 * 132 * 1.98e9
 SINTEL = (436, 1024)
 TRAIN_CROP, TRAIN_BATCH, TRAIN_ITERS = (368, 496), 8, 12
+# GMFlow's training recipe (`adjusted_gmflow/main.py`): batch 16 of
+# 368x560 crops, so 46x70 tokens at 1/8 and Swin windows of 23x35
+GM_CROP, GM_BATCH = (368, 560), 16
 
 
 def fail(msg: str) -> None:
@@ -420,17 +441,19 @@ def instance_norm_grad_phase(gen):
                       max_rel_excess(grads[0], grads[1], rtol, atol), 1.0)
 
 
-def flash_inputs(gen, b, lq, lk, c, d, dtype, payload="normal", mult=1.0):
+def flash_inputs(gen, b, lq, lk, c, d, dtype, payload="normal", mult=1.0,
+                 grid_w=128):
     """Seeded q, k (in ``dtype``) and v on the card. ``payload``: "normal"
-    (attention values), "grid" (the matching grid of a 56x128 map) or
-    "flow" (a flow in [-60, 60] px), the last two f32 as the model passes
-    them."""
+    (attention values), "grid" (the matching grid of a map ``grid_w``
+    wide) or "flow" (a flow in [-60, 60] px), the last two f32 as the
+    model passes them."""
     import torch
     q = (torch.randn(b, lq, c, generator=gen) * mult).to(dtype).cuda()
     k = (torch.randn(b, lk, c, generator=gen) * mult).to(dtype).cuda()
     if payload == "grid":
         t = torch.arange(lk)
-        v = torch.stack([t % 128, t // 128], -1).float()[None].repeat(b, 1, 1)
+        v = torch.stack([t % grid_w, t // grid_w], -1).float()[None].repeat(
+            b, 1, 1)
     elif payload == "flow":
         v = torch.rand(b, lk, 2, generator=gen) * 120 - 60
     else:
@@ -565,6 +588,221 @@ def flash_phase(gen):
                 max_abs_err=worst, bound_by=bound_by, **pair)
 
 
+# GMFlow's flash calls in one training step (batch 16 of 368x560, so
+# 46x70 tokens; windows of 23x35, shifted by 11 and 17): name, (B, L, C,
+# D, payload, swin), calls per step
+GH8, GW8 = GM_CROP[0] // 8, GM_CROP[1] // 8
+FLASH_TRAIN_SHAPES = (
+    ("window", (8 * GM_BATCH, GH8 * GW8 // 4, 128, 128, "normal", None), 6),
+    ("window+swin", (8 * GM_BATCH, GH8 * GW8 // 4, 128, 128, "normal",
+                     (2, GH8 // 2, GW8 // 2, GH8 // 4, GW8 // 4)), 6),
+    ("matching", (GM_BATCH, GH8 * GW8, 128, 2, "grid", None), 1),
+    ("propagation", (GM_BATCH, GH8 * GW8, 128, 2, "flow", None), 1),
+)
+
+
+def flash_bwd_compare(fl, fb, what, q, k, v, g, swin) -> float:
+    """The two backward kernels against the plain backward on one input,
+    from the forward kernel's out and LSE; returns the largest max abs
+    diff of dq, dk, dv. Tolerance: f32, the sums run in another order,
+    1e-4 of each gradient's max |ref|; bf16, ``bwd_bf16_tolerance`` row by
+    row (dq) and key by key (dk, dv). Two planted faults must exceed it:
+    dq scaled by 0.98, and dk and dv with the first 64-query tile left out
+    of the kernel's sweep (its LSE set to 1e30, so its p is 0)."""
+    import torch
+    out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
+    got = fb.flash_backward(q, k, v, out, lse, g, swin=swin)
+    torch.cuda.synchronize()
+    ref = fb.flash_backward_plain(q, k, v, out, lse, g, swin=swin)
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        if x.shape != r.shape or x.dtype != torch.float32 \
+                or not bool(torch.isfinite(x).all()):
+            fail(f"flash backward {what} {name}: {x.shape}/{x.dtype}, "
+                 f"finite={bool(torch.isfinite(x).all())}")
+    if q.dtype == torch.float32:
+        tols = [1e-4 * float(r.abs().max()) for r in ref]
+        rule = "|d| <= 1e-4 max|ref|"
+    else:
+        tols = fb.bwd_bf16_tolerance(q, k, v, out, lse, g, swin=swin)
+        rule = "bwd_bf16_tolerance, row by row"
+    ratios = [float(((x - r).abs() / t).max())
+              for x, r, t in zip(got, ref, tols)]
+    errs = [float((x - r).abs().max()) for x, r in zip(got, ref)]
+    lse_cut = lse.clone()
+    lse_cut[:, :64] = 1e30
+    cut = fb.flash_backward(q, k, v, out, lse_cut, g, swin=swin)
+    faults = [float(((got[0] * 0.98 - ref[0]).abs() / tols[0]).max())] + [
+        float(((cut[i] - ref[i]).abs() / tols[i]).max()) for i in (1, 2)]
+    check(f"{what} ({rule}; max |d| dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv "
+          f"{errs[2]:.3e}); |d| / tolerance dq {ratios[0]:.3f}, dk "
+          f"{ratios[1]:.3f}, dv", ratios[2], 1.0)
+    check("  dq and dk |d| / tolerance", max(ratios[:2]), 1.0)
+    print(f"    planted faults, |d| / tolerance (each must exceed 1): dq x "
+          f"0.98 {faults[0]:.2f}, first query tile left out: dk "
+          f"{faults[1]:.2f}, dv {faults[2]:.2f}", flush=True)
+    if not min(faults) > 1.0:
+        fail(f"flash backward {what}: a planted fault passes {faults}")
+    return max(errs)
+
+
+def flash_bwd_phase(gen):
+    import torch
+    import torch.nn.functional as F
+    from opticalflowfromdepth_torch.ops import flash as fl
+    from opticalflowfromdepth_torch.ops import flash_bwd as fb
+
+    print("[3f] flash backward: CUDA kernels (dq; dk and dv) vs plain",
+          flush=True)
+    worst = 0.0
+    shapes = {name for name, _, _ in FLASH_TRAIN_SHAPES}
+    cases = [(name, args) for name, args, _ in FLASH_TRAIN_SHAPES] + [
+        ("ragged 200x300 D=2", (1, (200, 300), 64, 2, "flow", None)),
+        ("extreme logits", (1, 256, 32, 2, "flow", None))]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (b, l, c, d, payload, swin) in cases:
+            lq, lk = l if isinstance(l, tuple) else (l, l)
+            q, _, _ = flash_inputs(gen, b, lq, lq, c, d, dtype, payload,
+                                   30.0 if name == "extreme logits" else 1.0)
+            _, k, v = flash_inputs(gen, b, lk, lk, c, d, dtype, payload,
+                                   30.0 if name == "extreme logits" else 1.0,
+                                   grid_w=GW8)
+            g = torch.randn(b, lq, d, generator=gen).cuda()
+            err = flash_bwd_compare(fl, fb, f"{name} {dtype} [{b},{lq},{c}]"
+                                    f"x[{b},{lk},{d}]", q, k, v, g, swin)
+            if dtype == torch.bfloat16 and name in shapes:
+                worst = max(worst, err)
+            del q, k, v, g
+            torch.cuda.empty_cache()
+        # ragged Lq = 100 against Lk = 63 (less than one key tile), D = 16
+        q, _, _ = flash_inputs(gen, 2, 100, 100, 64, 16, dtype)
+        _, k, v = flash_inputs(gen, 2, 63, 63, 64, 16, dtype)
+        flash_bwd_compare(fl, fb, f"ragged Lq=100 Lk=63 D=16 {dtype}", q, k,
+                          v, torch.randn(2, 100, 16, generator=gen).cuda(),
+                          None)
+
+    # the autograd Function in f32 against autograd through a dense softmax
+    x = [torch.randn(s, generator=gen).cuda()
+         for s in ((8, 24, 32), (8, 24, 32), (8, 24, 32), (8, 24, 32))]
+    swin = (2, 4, 6, 2, 3)
+    ours = [t.clone().requires_grad_() for t in x[:3]]
+    dense = [t.clone().requires_grad_() for t in x[:3]]
+    before = (fb.flash_backward.launches_dq, fb.flash_backward.launches_dkv)
+    fl.flash_softmax_matmul(*ours, swin=swin).backward(x[3])
+    torch.cuda.synchronize()
+    if (fb.flash_backward.launches_dq - before[0],
+            fb.flash_backward.launches_dkv - before[1]) != (1, 1):
+        fail("the flash Function's backward did not launch both kernels once")
+    s = torch.matmul(dense[0], dense[1].transpose(1, 2)) * 32 ** -0.5
+    (torch.softmax(s + fl.swin_mask_dense(24, swin, 8, "cuda"), -1)
+     @ dense[2]).backward(x[3])
+    check("the Function's f32 gradients vs autograd through a dense "
+          "softmax, Swin [8, 24, 32] (|d| / max|ref|)",
+          max(float((a.grad - r.grad).abs().max() / r.grad.abs().max())
+              for a, r in zip(ours, dense)), 2e-5)
+
+    # times at the training shapes and dtype (bf16): per launch, and the
+    # 14 + 14 launches of one step (the launches these records count)
+    fn_dq, fn_dkv = fb._kernel_fns()
+    step = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    ops=0.0, exps=0.0, bytes=0.0) for k in ("dq", "dkv")}
+    for name, (b, l, c, d, payload, swin), n in FLASH_TRAIN_SHAPES:
+        q, k, v = flash_inputs(gen, b, l, l, c, d, torch.bfloat16, payload,
+                               grid_w=GW8)
+        g = torch.randn(b, l, d, generator=gen).cuda()
+        out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
+        # the wrapper's operands, then each kernel launched alone
+        delta = (g * out).sum(-1)
+        vb, gb = v.to(q.dtype).contiguous(), g.to(q.dtype).contiguous()
+        dq = torch.empty(b, l, c, device="cuda")
+        dk, dv = torch.empty(b, l, c, device="cuda"), torch.empty(
+            b, l, d, device="cuda")
+        ins = (q.data_ptr(), k.data_ptr(), vb.data_ptr(), gb.data_ptr(),
+               lse.data_ptr(), delta.data_ptr())
+        sw = swin if swin is not None else (0, 0, 0, 0, 0)
+        dims = (b, l, l, c, d, c ** -0.5, *sw, 1)
+        stream = torch.cuda.current_stream().cuda_stream
+        t_dq = cuda_ms(lambda: fn_dq(*ins, dq.data_ptr(), *dims, stream))
+        t_dkv = cuda_ms(lambda: fn_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
+                                       *dims, stream))
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(dq).all() & torch.isfinite(dk).all()):
+            fail(f"flash backward timing {name}: non-finite gradients")
+        t_wrap = cuda_ms(lambda: fb.flash_backward(q, k, v, out, lse, g,
+                                                   swin=swin), reps=10)
+        t_plain = cuda_ms(lambda: fb.flash_backward_plain(
+            q, k, v, out, lse, g, swin=swin), reps=3, warm=1)
+        # SDPA's backward at the same shapes (Swin mask as attn_mask),
+        # asked for each kernel's outputs
+        qs, ks, vs = (t[:, None].detach().requires_grad_()
+                      for t in (q, k, vb))
+        mask = None if swin is None else fl.swin_mask_dense(
+            l, swin, b, "cuda").to(torch.bfloat16)[:, None]
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        go = gb[:, None]
+        lib_dq = cuda_ms(lambda: torch.autograd.grad(
+            o, (qs,), go, retain_graph=True), reps=10)
+        lib_dkv = cuda_ms(lambda: torch.autograd.grad(
+            o, (ks, vs), go, retain_graph=True), reps=10)
+        # the work each kernel's function needs: dq recomputes S and dP and
+        # takes dS . K; dk/dv recomputes S and dP and takes P^T . G and
+        # dS^T . Q. Each reads q, k, v, g (bf16), lse and delta (f32) once
+        # and writes its gradients once in their inputs' dtypes.
+        pairs = float(b * l * l)
+        rd = (q.numel() + k.numel() + vb.numel() + gb.numel()) * 2 + 2 * b * l * 4
+        work = {"dq": (2 * pairs * (2 * c + d), rd + q.numel() * 2),
+                "dkv": (2 * pairs * (2 * c + 2 * d),
+                        rd + k.numel() * 2 + v.numel() * v.element_size())}
+        times = {"dq": (t_dq, lib_dq), "dkv": (t_dkv, lib_dkv)}
+        line = []
+        for key, (ops, by) in work.items():
+            t_ops = max(ops / BF16_FLOP_PER_S, pairs / SFU_PER_S)
+            bound = max(t_ops, by / HBM_BYTES_PER_S) * 1e3
+            rec = step[key]
+            for field, val in (("ms", times[key][0]), ("plain_ms", t_plain),
+                               ("library_ms", times[key][1]),
+                               ("bound_ms", bound), ("ops", ops),
+                               ("exps", pairs), ("bytes", by)):
+                rec[field] += n * val
+            line.append(f"{key} {times[key][0] * 1e3:.1f} us (bound "
+                        f"{bound * 1e3:.2f} us, SDPA for its outputs "
+                        f"{times[key][1] * 1e3:.1f} us)")
+        whole_ops = 2 * pairs * (3 * c + 2 * d)
+        whole_by = (q.numel() + k.numel() + vb.numel() + gb.numel()) * 2 \
+            + (out.numel() + lse.numel()) * 4 + (q.numel() + k.numel()) * 2 \
+            + v.numel() * v.element_size()
+        whole = max(whole_ops / BF16_FLOP_PER_S, pairs / SFU_PER_S,
+                    whole_by / HBM_BYTES_PER_S) * 1e3
+        print(f"  {name} bf16 [{b},{l},{c}]x[{b},{l},{d}]: "
+              + "; ".join(line) + f"; the wrapper (delta, casts, both) "
+              f"{t_wrap * 1e3:.1f} us, the whole backward's bound "
+              f"{whole * 1e3:.2f} us ({whole_ops / 1e9:.2f} GFLOP); plain "
+              f"{t_plain * 1e3:.1f} us; {n} per step", flush=True)
+        del q, k, v, g, out, lse, qs, ks, vs, o, mask, dq, dk, dv
+        torch.cuda.empty_cache()
+    records = []
+    for key, kernel, line_no in (("dq", "_bwd_dq_kernel", 64),
+                                 ("dkv", "_bwd_dkv_kernel", 99)):
+        rec = step[key]
+        t_ops = max(rec["ops"] / BF16_FLOP_PER_S, rec["exps"] / SFU_PER_S)
+        bound_by = "operations" if t_ops >= rec["bytes"] / HBM_BYTES_PER_S \
+            else "bytes"
+        print(f"  the 14 {key} launches of one step: kernel "
+              f"{rec['ms'] * 1e3:.1f} us, plain (the whole backward) "
+              f"{rec['plain_ms'] * 1e3:.1f} us, SDPA "
+              f"{rec['library_ms'] * 1e3:.1f} us, bound "
+              f"{rec['bound_ms'] * 1e3:.1f} us ({bound_by}: "
+              f"{rec['ops'] / 1e9:.1f} GFLOP, {rec['exps'] / 1e6:.1f} M exp, "
+              f"{rec['bytes'] / 1e6:.1f} MB) [{kernel}]", flush=True)
+        records.append(dict(
+            name=f"flash_bwd_{key}", route="cuda",
+            source="opticalflowfromdepth_torch/csrc/flash_bwd.cu",
+            replaces=f"opticalflowfromdepth_tpu/ops/flash_bwd.py:{line_no}",
+            max_abs_err=worst, ms=rec["ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=bound_by,
+            library_ms=rec["library_ms"]))
+    return records
+
+
 # --------------------------------------------------------------------------
 # phases 4 and 5: the serving model
 # --------------------------------------------------------------------------
@@ -592,15 +830,46 @@ def e2e_parity_phase():
     check("flow_up card vs CPU (px)", err, 1e-2)
 
 
+def launch_counts():
+    """Every kernel wrapper's launch count, under the kernels line's
+    names."""
+    from opticalflowfromdepth_torch.ops.flash import flash_softmax_matmul
+    from opticalflowfromdepth_torch.ops.flash_bwd import flash_backward
+    from opticalflowfromdepth_torch.ops.fused_corr import \
+        fused_corr_lookup_cat
+    from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
+    return {"fused_corr_lookup": fused_corr_lookup_cat.launches,
+            "fused_corr_lookup_bwd": fused_corr_lookup_cat.bwd_launches,
+            "instance_norm": instance_norm.launches,
+            "flash": flash_softmax_matmul.launches,
+            "flash_bwd_dq": flash_backward.launches_dq,
+            "flash_bwd_dkv": flash_backward.launches_dkv}
+
+
+def zero_launch_counts() -> None:
+    from opticalflowfromdepth_torch.ops.flash import flash_softmax_matmul
+    from opticalflowfromdepth_torch.ops.flash_bwd import flash_backward
+    from opticalflowfromdepth_torch.ops.fused_corr import \
+        fused_corr_lookup_cat
+    from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
+    fused_corr_lookup_cat.launches = fused_corr_lookup_cat.bwd_launches = 0
+    instance_norm.launches = flash_softmax_matmul.launches = 0
+    flash_backward.launches_dq = flash_backward.launches_dkv = 0
+
+
+def want_launches(**counts):
+    """The counts a path must show: those named, every other kernel 0."""
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(counts)
+    return want
+
+
 def main_path_phase():
     import numpy as np
     import torch
     from opticalflowfromdepth_torch.eval.infer import raft_infer_fn
     from opticalflowfromdepth_torch.eval.padder import InputPadder
     from opticalflowfromdepth_torch.models.raft import RAFT
-    from opticalflowfromdepth_torch.ops.fused_corr import \
-        fused_corr_lookup_cat
-    from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
 
     print("[5] main path: RAFT-basic bf16, fused corr, 24 iters, 3 pairs of "
           f"{SINTEL[0]}x{SINTEL[1]}", flush=True)
@@ -622,9 +891,7 @@ def main_path_phase():
     print(f"  warm-up pair {(time.perf_counter() - t) * 1e3:.1f} ms",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
-    fused_corr_lookup_cat.launches = 0
-    fused_corr_lookup_cat.bwd_launches = 0
-    instance_norm.launches = 0
+    zero_launch_counts()
     times = []
     for i1, i2 in pairs[1:]:
         t = time.perf_counter()
@@ -633,13 +900,10 @@ def main_path_phase():
         if flow.shape != (1,) + SINTEL + (2,) or not np.isfinite(flow).all():
             fail(f"main path flow {flow.shape}, finite="
                  f"{bool(np.isfinite(flow).all())}")
-    launches = {"fused_corr_lookup": fused_corr_lookup_cat.launches,
-                "fused_corr_lookup_bwd": fused_corr_lookup_cat.bwd_launches,
-                "instance_norm": instance_norm.launches}
+    launches = launch_counts()
     n = len(times)
     print(f"  launches over {n} pairs: {launches}", flush=True)
-    want = {"fused_corr_lookup": iters * n, "fused_corr_lookup_bwd": 0,
-            "instance_norm": 15 * n}
+    want = want_launches(fused_corr_lookup=iters * n, instance_norm=15 * n)
     if launches != want:
         fail(f"serving launch counts {launches}, want {want}")
     print(f"  ms per pair: {[round(x, 3) for x in times]} (mean "
@@ -653,7 +917,7 @@ def main_path_phase():
 def profile(run, unprofiled_ms: float, what: str) -> None:
     """Device time by kernel over one more ``run()``, and the busy share of
     an unprofiled run's time (the profiler's own start-up inflates its
-    wall clock, so that is not the denominator)."""
+    wall clock, so that is not the denominator); returns the busy ms."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -668,9 +932,12 @@ def profile(run, unprofiled_ms: float, what: str) -> None:
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0))
 
-    # device-side events only: a CPU op's row repeats its kernels' time
+    # device-side events only: a CPU op's row repeats its kernels' time,
+    # and so does a user annotation's range on the device (the optimizer's
+    # `Optimizer.step#AdamW.step`)
     rows = sorted((e for e in prof.key_averages()
                    if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False)
                    and dev_us(e) > 0), key=lambda e: -dev_us(e))
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
     print(f"  profile of one {what}: device busy {busy_ms:.3f} ms against "
@@ -688,6 +955,7 @@ def profile(run, unprofiled_ms: float, what: str) -> None:
     for e in host[:8]:
         print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}", flush=True)
+    return busy_ms
 
 
 # --------------------------------------------------------------------------
@@ -695,20 +963,13 @@ def profile(run, unprofiled_ms: float, what: str) -> None:
 # --------------------------------------------------------------------------
 
 def seeded_classifier(seed: int, dtype):
-    """The frozen classifier: the reference's random init from ``seed``."""
-    import math
-
+    """The frozen classifier: the reference's random init from ``seed``
+    (its linear head included)."""
     import torch
     from opticalflowfromdepth_torch.models.classifier import Classifier
     from opticalflowfromdepth_torch.models.layers import init_weights_
-    gen = torch.Generator().manual_seed(seed)
     cls = Classifier(dtype=dtype)
-    init_weights_(cls, gen)
-    with torch.no_grad():
-        lin = cls.classify[cls.linear_key]
-        bound = 1.0 / math.sqrt(lin.in_features)
-        lin.weight.uniform_(-bound, bound, generator=gen)
-        lin.bias.uniform_(-bound, bound, generator=gen)
+    init_weights_(cls, torch.Generator().manual_seed(seed))
     return cls
 
 
@@ -824,9 +1085,6 @@ def train_path_phase(tmp: str):
     from opticalflowfromdepth_torch.eval.cli import load_state_dict
     from opticalflowfromdepth_torch.eval.infer import raft_infer_fn
     from opticalflowfromdepth_torch.models.raft import RAFT
-    from opticalflowfromdepth_torch.ops.fused_corr import \
-        fused_corr_lookup_cat
-    from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
     from opticalflowfromdepth_torch.train import raft_train as rt
     from opticalflowfromdepth_torch.train.runner import (RunnerConfig,
                                                           TrainRunner)
@@ -867,9 +1125,7 @@ def train_path_phase(tmp: str):
           flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    fused_corr_lookup_cat.launches = 0
-    fused_corr_lookup_cat.bwd_launches = 0
-    instance_norm.launches = 0
+    zero_launch_counts()
     timed = 5
     rcfg.num_steps = 1 + timed
     torch.cuda.synchronize()
@@ -877,13 +1133,11 @@ def train_path_phase(tmp: str):
     runner.run()
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"fused_corr_lookup": fused_corr_lookup_cat.launches,
-                "fused_corr_lookup_bwd": fused_corr_lookup_cat.bwd_launches,
-                "instance_norm": instance_norm.launches}
+    launches = launch_counts()
     print(f"  launches over {timed} steps: {launches}", flush=True)
-    want = {"fused_corr_lookup": iters * timed,
-            "fused_corr_lookup_bwd": iters * timed,
-            "instance_norm": 15 * timed}
+    want = want_launches(fused_corr_lookup=iters * timed,
+                         fused_corr_lookup_bwd=iters * timed,
+                         instance_norm=15 * timed)
     if launches != want:
         fail(f"training launch counts {launches}, want {want}")
     if not all(math.isfinite(x) for x in losses):
@@ -995,17 +1249,12 @@ def gmflow_parity_phase():
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from opticalflowfromdepth_torch.eval.infer import gmflow_infer_fn
     from opticalflowfromdepth_torch.models.gmflow import GMFlow
 
     print("[9] GMFlow 64x96, f32: card vs CPU", flush=True)
     rng = np.random.default_rng(12)
-    low = torch.from_numpy(rng.uniform(0, 255, (2, 3, 8, 12)).astype(
-        np.float32))
-    imgs = F.interpolate(low, size=(64, 96), mode="bilinear",
-                         align_corners=False).permute(0, 2, 3, 1).numpy()
-    i1, i2 = imgs[:1], imgs[1:]
+    i1, i2 = smooth_pairs(rng, 1, 64, 96)
     for ns in (1, 2):
         model = GMFlow(num_scales=ns, upsample_factor=8 if ns == 1 else 4,
                        generator=torch.Generator().manual_seed(13))
@@ -1047,10 +1296,6 @@ def gmflow_serving_phase():
         forward_backward_consistency_check
     from opticalflowfromdepth_torch.eval.padder import InputPadder
     from opticalflowfromdepth_torch.models.gmflow import GMFlow
-    from opticalflowfromdepth_torch.ops.flash import flash_softmax_matmul
-    from opticalflowfromdepth_torch.ops.fused_corr import \
-        fused_corr_lookup_cat
-    from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
 
     print(f"[10] GMFlow serving: bf16, 1 scale, 3 pairs of {SINTEL[0]}x"
           f"{SINTEL[1]} (padding factor 16)", flush=True)
@@ -1058,21 +1303,8 @@ def gmflow_serving_phase():
     pairs = [[rng.uniform(0, 255, (1,) + SINTEL + (3,)).astype(np.float32)
               for _ in range(2)] for _ in range(4)]
 
-    def counts():
-        return {"flash": flash_softmax_matmul.launches,
-                "instance_norm": instance_norm.launches,
-                "fused_corr_lookup": fused_corr_lookup_cat.launches,
-                "fused_corr_lookup_bwd": fused_corr_lookup_cat.bwd_launches}
-
-    def zero():
-        flash_softmax_matmul.launches = 0
-        instance_norm.launches = 0
-        fused_corr_lookup_cat.launches = 0
-        fused_corr_lookup_cat.bwd_launches = 0
-
     def want(flash, n):
-        return {"flash": flash * n, "instance_norm": 15 * n,
-                "fused_corr_lookup": 0, "fused_corr_lookup_bwd": 0}
+        return want_launches(flash=flash * n, instance_norm=15 * n)
 
     def server(num_scales, bidir, factor):
         sp, cr, pr = GMFLOW_RECIPES[num_scales]
@@ -1101,14 +1333,14 @@ def gmflow_serving_phase():
     print(f"  warm-up pair {(time.perf_counter() - t) * 1e3:.1f} ms",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
-    zero()
+    zero_launch_counts()
     times = []
     for i1, i2 in pairs[1:]:
         t = time.perf_counter()
         flow = serve(i1, i2)
         times.append((time.perf_counter() - t) * 1e3)
         check_flow(flow, 1, "serving")
-    launches = counts()
+    launches = launch_counts()
     n = len(times)
     print(f"  launches over {n} pairs: {launches}", flush=True)
     if launches != want(14, n):
@@ -1122,11 +1354,11 @@ def gmflow_serving_phase():
     print("  one bidirectional pair with the occlusion check", flush=True)
     serve = server(1, True, 16)
     serve(*pairs[0])                                   # warm-up
-    zero()
+    zero_launch_counts()
     t = time.perf_counter()
     flow = serve(*pairs[1])
     ms = (time.perf_counter() - t) * 1e3
-    got = counts()
+    got = launch_counts()
     check_flow(flow, 2, "bidirectional")
     occ = forward_backward_consistency_check(
         *(torch.from_numpy(np.ascontiguousarray(f[None])).cuda()
@@ -1142,17 +1374,321 @@ def gmflow_serving_phase():
     print("  one refine pair (2 scales, padding factor 32)", flush=True)
     serve = server(2, False, 32)
     serve(*pairs[0])                                   # warm-up
-    zero()
+    zero_launch_counts()
     t = time.perf_counter()
     flow = serve(*pairs[1])
     ms = (time.perf_counter() - t) * 1e3
-    got = counts()
+    got = launch_counts()
     check_flow(flow, 1, "refine")
     print(f"  {ms:.3f} ms; launches {got}; |flow| max "
           f"{np.abs(flow).max():.3f} px", flush=True)
     if got != want(26, 1):
         fail(f"refine launch counts {got}, want {want(26, 1)}")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phases 11 and 12: GMFlow training
+# --------------------------------------------------------------------------
+
+GM_REFINE = dict(num_scales=2, upsample_factor=4, attn_splits_list=(2, 8),
+                 corr_radius_list=(-1, 4), prop_radius_list=(-1, 1))
+
+
+def smooth_pairs(rng, b, h, w):
+    """``b`` pairs of smooth images (bilinear upsampled 8x12 noise) in
+    [0, 255], NHWC numpy: random-noise images make matching ambiguous and
+    amplify f32 rounding."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    low = torch.from_numpy(rng.uniform(0, 255, (2 * b, 3, 8, 12)).astype(
+        np.float32))
+    img = F.interpolate(low, size=(h, w), mode="bilinear",
+                        align_corners=False).permute(0, 2, 3, 1).numpy()
+    return np.ascontiguousarray(img[:b]), np.ascontiguousarray(img[b:])
+
+
+def gmflow_train_parity_phase():
+    import copy
+
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.data.loader import to_device
+    from opticalflowfromdepth_torch.train import gmflow_train as gt
+
+    print("[11] GMFlow train step, 64x96, batch 2, f32, classifier on: card "
+          "vs CPU", flush=True)
+    rng = np.random.default_rng(16)
+    i1, i2 = smooth_pairs(rng, 2, 64, 96)
+    batch = dict(image1=i1, image2=i2,
+                 flow=rng.normal(0, 3, (2, 64, 96, 2)).astype(np.float32),
+                 valid=np.ones((2, 64, 96), np.float32),
+                 label=np.eye(4, dtype=np.float32)[[0, 2]])
+    cls = seeded_classifier(6, torch.float32)
+    for extra, what in (({}, "1 scale"), (GM_REFINE, "refine")):
+        cfg = gt.GMFlowTrainConfig(batch_size=2, image_size=(64, 96),
+                                   mixed_precision=False, add_classifier=True,
+                                   num_steps=100, **extra)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            state = gt.init_state(cfg, seed=8, device=dev)
+            grads = {}
+            adam_step = state.optimizer.step
+
+            def step_keeping_grads(state=state, grads=grads,
+                                   adam_step=adam_step):
+                grads.update({n: p.grad.to("cpu", copy=True) for n, p
+                              in state.model.named_parameters()})
+                return adam_step()
+            state.optimizer.step = step_keeping_grads
+            step = gt.make_train_step(cfg, copy.deepcopy(cls), device=dev)
+            state, m = step(state, to_device(batch, dev))
+            out[dev] = ({k: float(v) for k, v in m.items()}, grads,
+                        {k: v.cpu() for k, v in
+                         state.model.state_dict().items()})
+        (m_cpu, g_cpu, p_cpu), (m_card, g_card, p_card) = out["cpu"], \
+            out["cuda"]
+        # f32 on both sides (TF32 off). Metrics: 1e-4 relative (refine
+        # 5e-4: its local matching amplifies f32 rounding, and the CPU
+        # tests against the JAX step measured 1.4e-4); the accuracy and
+        # outlier rates count pixels, and a pixel within rounding of a
+        # threshold may count on the other side: two pixels allowed
+        rel = 1e-4 if what == "1 scale" else 5e-4
+        worst = max(abs(m_card[k] - v) / (max(abs(v), 1e-6) * rel
+                                          + (2 / 12288 if "px_" in k else 0))
+                    for k, v in m_cpu.items())
+        print(f"  {what}: total_loss CPU {m_cpu['total_loss']:.6f}, card "
+              f"{m_card['total_loss']:.6f}", flush=True)
+        check(f"{what} loss and metrics, |d| / limit ({rel:g} relative, "
+              "2 pixels for the rates)", worst, 1.0)
+        # the raw gradients before the clip: 2e-4 of the global norm, the
+        # backbone's first conv 1e-3 (the port's CPU step alone at 1 and
+        # 4 threads differs there by 9.5e-5 / 4.95e-4 of the norm, 1 scale
+        # / refine: the 15 instance norms' backward amplifies rounding)
+        norm = float(torch.sqrt(sum((g ** 2).sum() for g in g_cpu.values())))
+        parts = {}
+        for part in ("backbone.", "transformer.", "feature_flow_attn.",
+                     "upsampler."):
+            keys = [k for k in g_cpu if k.startswith(part)]
+            n_part = float(torch.sqrt(sum((g_cpu[k] ** 2).sum()
+                                          for k in keys)))
+            e_part = float(torch.sqrt(sum(((g_card[k] - g_cpu[k]) ** 2).sum()
+                                          for k in keys)))
+            parts[part] = (n_part, e_part / max(n_part, 1e-30))
+        print(f"  {what}: gradient global norm CPU {norm:.4f}; norm and "
+              "|card - CPU| / |CPU| by module: " + ", ".join(
+                  f"{k[:-1]} {n:.4e} {r:.3e}" for k, (n, r) in parts.items()),
+              flush=True)
+        if not all(n > 0 for n, _ in parts.values()):
+            fail(f"GMFlow {what}: a module got no gradient on the CPU")
+        excess = max(float((g_card[k] - g).abs().max()) / norm
+                     / (1e-3 if k == "backbone.conv1.weight" else 2e-4)
+                     for k, g in g_cpu.items())
+        check(f"{what} every raw gradient, |d| / (2e-4 of the global norm; "
+              "1e-3 for backbone.conv1)", excess, 1.0)
+        check(f"{what} every parameter after the update",
+              max(float((p_card[k].float() - v.float()).abs().max())
+                  for k, v in p_cpu.items()), 2e-4)
+
+
+def gmflow_train_path_phase(tmp: str):
+    import math
+
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.data.datasets import AugmentedShards
+    from opticalflowfromdepth_torch.data.loader import Loader, to_device
+    from opticalflowfromdepth_torch.eval.cli import load_state_dict
+    from opticalflowfromdepth_torch.eval.infer import gmflow_infer_fn
+    from opticalflowfromdepth_torch.models.gmflow import GMFlow
+    from opticalflowfromdepth_torch.train import gmflow_train as gt
+    from opticalflowfromdepth_torch.train.runner import (RunnerConfig,
+                                                          TrainRunner)
+    from opticalflowfromdepth_torch.train.state import load_checkpoint
+
+    b, (ch, cw) = GM_BATCH, GM_CROP
+    print(f"[12] GMFlow training path: full width (128 channels, 6 blocks, "
+          f"FFN x4), bf16, 1 scale, classifier on, batch {b} of {ch}x{cw} "
+          "crops from 384x576 shards", flush=True)
+    shards = os.path.join(tmp, "gmflow_shards")
+    os.makedirs(shards)
+    t = time.perf_counter()
+    write_shards(shards, 16, 384, 576, seed=5)
+    print(f"  wrote 16 shards in {time.perf_counter() - t:.1f} s", flush=True)
+    loader = Loader(AugmentedShards(shards, crop_size=GM_CROP, seed=0),
+                    batch_size=b, num_workers=4, seed=0)
+    cfg = gt.GMFlowTrainConfig(batch_size=b, image_size=GM_CROP,
+                               mixed_precision=True, add_classifier=True)
+    step = gt.make_train_step(cfg, seeded_classifier(4, torch.bfloat16))
+    losses, stamps = [], []
+
+    def recorded_step(state, batch, gen):
+        state, m = step(state, batch, gen)
+        losses.append(float(m["total_loss"]))        # waits for the card
+        stamps.append(time.perf_counter())
+        return state, m
+
+    rcfg = RunnerConfig(log_dir=os.path.join(tmp, "gmflow_run"), num_steps=1,
+                        val_freq=10 ** 9, save_ckpt_freq=8,
+                        save_latest_freq=8)
+    runner = TrainRunner(rcfg, gt.init_state(cfg, seed=0), recorded_step,
+                         loader, infer_fn_factory=gt.infer_fn_factory(cfg),
+                         seed=0)
+    t = time.perf_counter()
+    runner.run()                                        # warm-up step
+    torch.cuda.synchronize()
+    print(f"  warm-up step {(time.perf_counter() - t) * 1e3:.1f} ms",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    timed = 5
+    rcfg.num_steps = 1 + timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    print(f"  launches over {timed} steps: {launches}", flush=True)
+    want = want_launches(flash=14 * timed, flash_bwd_dq=14 * timed,
+                         flash_bwd_dkv=14 * timed, instance_norm=15 * timed)
+    if launches != want:
+        fail(f"GMFlow training launch counts {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"GMFlow training loss not finite: {losses}")
+    per_step = [(y - x) * 1e3 for x, y in zip(stamps[-timed - 1:-1],
+                                               stamps[-timed:])]
+    step_ms = total_ms / timed
+    print(f"  losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"  ms per step: {step_ms:.3f} over {timed} steps (host clock, "
+          f"synchronized; steps 3-6 between loss reads: "
+          f"{[round(x, 3) for x in per_step[1:]]}); "
+          f"{b * 1e3 / step_ms:.3f} pairs/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+
+    def one_more_step():
+        rcfg.num_steps += 1
+        runner.run()
+    busy_ms = profile(one_more_step, step_ms, "step")
+
+    # the input pipeline alone: batches from a fresh loader, no training
+    it = iter(Loader(AugmentedShards(shards, crop_size=GM_CROP, seed=1),
+                     batch_size=b, num_workers=4, seed=1))
+    next(it)
+    t = time.perf_counter()
+    for _ in range(4):
+        next(it)
+    print(f"  the loader alone (4 threads, batch {b}): "
+          f"{(time.perf_counter() - t) * 1e3 / 4:.1f} ms per batch",
+          flush=True)
+    it.close()
+
+    rcfg.num_steps = 8                                 # saves at step 8
+    runner.run()
+    ckpt = os.path.join(rcfg.log_dir, "checkpoints")
+    resumed = load_checkpoint(os.path.join(ckpt, "latest.pth"),
+                              gt.init_state(cfg, seed=1))
+    if resumed.step != 8:
+        fail(f"latest checkpoint holds step {resumed.step}, want 8")
+    serve = GMFlow(dtype=torch.bfloat16)
+    serve.load_state_dict(load_state_dict(
+        os.path.join(ckpt, "step_8_weights.pth")), strict=True)
+    rng = np.random.default_rng(17)
+    pair = [rng.uniform(0, 255, (1, ch, cw, 3)).astype(np.float32)
+            for _ in range(2)]
+    flow = gmflow_infer_fn(serve, cfg.attn_splits_list, cfg.corr_radius_list,
+                           cfg.prop_radius_list, device="cuda")(*pair)
+    trained = runner.infer_fn_factory(runner.state)(*pair)
+    if flow.shape != (1, ch, cw, 2) or not np.isfinite(flow).all() \
+            or not np.array_equal(flow, trained):
+        fail(f"served flow from the trained weights {flow.shape}, finite="
+             f"{bool(np.isfinite(flow).all())}, the same as the runner's "
+             f"infer_fn_factory: {np.array_equal(flow, trained)}")
+    print(f"  latest (step 8) resumed; step_8_weights served one pair "
+          f"through gmflow_infer_fn, the same flow as the runner's "
+          f"infer_fn_factory: |flow| max {np.abs(flow).max():.3f} px",
+          flush=True)
+
+    # the step alone, on a batch already on the card: what a step costs
+    # without the input pipeline
+    state = runner.state
+    batch = to_device(next(runner.batches), "cuda")
+    step(state, batch, None)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        state, _ = step(state, batch, None)
+    torch.cuda.synchronize()
+    alone_ms = (time.perf_counter() - t) * 1e3 / 3
+    print(f"  the step alone on a batch already on the card: {alone_ms:.3f} "
+          f"ms per step over 3 ({b * 1e3 / alone_ms:.3f} pairs/s); the "
+          f"profiled step's device busy time is {100 * busy_ms / alone_ms:.1f}"
+          "% of it", flush=True)
+
+    # a batch whose target holds a NaN: the step is skipped
+    bad = to_device(next(runner.batches), "cuda")
+    bad["flow"][0, 0, 0, 0] = float("nan")
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    moments = [v["exp_avg"].clone()
+               for v in state.optimizer.adamw.state.values()]
+    n0, c0 = state.step, state.optimizer.count
+    state, m = step(state, bad, None)
+    same = all(torch.equal(v, before[k])
+               for k, v in state.model.state_dict().items()) and all(
+        torch.equal(v["exp_avg"], mo) for v, mo in
+        zip(state.optimizer.adamw.state.values(), moments))
+    print(f"  NaN batch: total_loss {float(m['total_loss'])}, skipped_nan "
+          f"{float(m['skipped_nan'])}, step {n0} -> {state.step}, "
+          f"parameters and moments unchanged: {same}", flush=True)
+    if not (float(m["skipped_nan"]) == 1.0 and same and state.step == n0
+            and state.optimizer.count == c0):
+        fail("the NaN batch was not skipped")
+    runner.batches.close()             # stops the loader's thread
+    return launches
+
+
+def gmflow_learning_phase():
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from opticalflowfromdepth_torch.data.loader import to_device
+    from opticalflowfromdepth_torch.train import gmflow_train as gt
+
+    b, (h, w), n = 4, (192, 288), 30
+    print(f"[12] GMFlow learning check: {n} steps on one fixed batch of {b} "
+          f"{h}x{w} pairs (smooth images, image2 shifted by a known "
+          "integer flow), bf16", flush=True)
+    rng = np.random.default_rng(18)
+    big = F.interpolate(torch.from_numpy(
+        rng.uniform(0, 255, (b, 3, 24, 36)).astype(np.float32)),
+        size=(h + 16, w + 16), mode="bilinear", align_corners=False)
+    shifts = rng.integers(-6, 7, (b, 2))
+    img2 = torch.stack([big[i, :, 8 + dy:8 + dy + h, 8 + dx:8 + dx + w]
+                        for i, (dx, dy) in enumerate(shifts)])
+    flow = np.broadcast_to(-shifts[:, None, None, :].astype(np.float32),
+                           (b, h, w, 2))
+    batch = to_device(dict(
+        image1=big[:, :, 8:8 + h, 8:8 + w].permute(0, 2, 3, 1).numpy(),
+        image2=img2.permute(0, 2, 3, 1).numpy(), flow=flow,
+        valid=np.ones((b, h, w), np.float32),
+        label=np.eye(4, dtype=np.float32)[np.zeros(b, int)]), "cuda")
+    # num_steps 30: the OneCycle warm-up ends at step floor(0.05 * 130) = 6
+    cfg = gt.GMFlowTrainConfig(batch_size=b, image_size=(h, w), num_steps=n)
+    state = gt.init_state(cfg, seed=2)
+    step = gt.make_train_step(cfg)
+    losses = []
+    for _ in range(n):
+        state, m = step(state, batch)
+        losses.append(float(m["total_loss"]))
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"  losses {[round(x, 3) for x in losses]}", flush=True)
+    print(f"  mean loss of steps 1-5 {first:.4f}, of steps {n - 4}-{n} "
+          f"{last:.4f}", flush=True)
+    if not last < first:
+        fail(f"the GMFlow loss did not fall: {first:.4f} -> {last:.4f}")
 
 
 def main() -> None:
@@ -1176,7 +1712,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.perf_counter()
-    logs = _build.build(["fused_corr", "flash"])
+    logs = _build.build(["fused_corr", "flash", "flash_bwd"])
     print(f"[2] nvcc build {time.perf_counter() - t:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1195,6 +1731,7 @@ def main() -> None:
                fused_corr_bwd_phase(gen)]
     instance_norm_grad_phase(gen)
     flash = flash_phase(gen)
+    flash_bwd = flash_bwd_phase(gen)
     e2e_parity_phase()
     main_path_phase()
     train_parity_phase()
@@ -1207,6 +1744,13 @@ def main() -> None:
     # flash's launches on slice 3's main path, GMFlow serving
     flash["launches"] = gmflow_serving_phase()["flash"]
     kernels.append(flash)
+    gmflow_train_parity_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = gmflow_train_path_phase(tmp)
+    gmflow_learning_phase()
+    for k in flash_bwd:        # launches on slice 4's main path
+        k["launches"] = launches[k["name"]]
+    kernels.extend(flash_bwd)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -1,0 +1,808 @@
+// Flash (streaming-softmax) attention backward, for Hopper (sm_90a).
+//
+// Replaces the two TPU kernels of opticalflowfromdepth_tpu/ops/flash_bwd.py
+// (launched by flash_backward): _bwd_dq_kernel and _bwd_dkv_kernel. Given
+// q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], the output gradient g
+// [B, Lq, D], the forward's lse [B, Lq] and delta = rowsum(g * out) [B, Lq]
+// (both f32), with s = q . k^T * scale [- 100 across Swin regions] [key
+// padding -1e30] recomputed per tile:
+//   p = exp(s - lse),  dp = g . v^T,  ds = p * (dp - delta)
+//   dq = ds . k * scale            (ofd_flash_bwd_dq)
+//   dk = ds^T . q * scale, dv = p^T . g      (ofd_flash_bwd_dkv)
+// all three f32. The TPU's two passes are kept, so nothing needs atomics
+// and every gradient is bit-reproducible:
+//   dq: one block per (batch entry, 64-query tile) sweeps the key tiles;
+//   dk/dv: one block per (batch entry, 64-key tile) sweeps the query tiles.
+// Padded query rows get p = 0 (they add nothing to dk and dv, as the TPU
+// kernels' s_eff = -1e30); padded keys get s = -1e30 (p = 0); every load
+// is bounds-checked, so Lq and Lk need no padding copy. The Swin mask is
+// the forward's analytic one (window id = batch index mod K^2, batches
+// ordered [b, wy, wx]), from a per-tile region table in shared memory.
+//
+// What bounds it on this card: at GMFlow's widths (C = 128, D = 128 or 2)
+// the products, 2 * B * Lq * Lk * (3C + 2D) operations over both kernels
+// (each recomputes S; dq adds dP and dS . K, dk/dv add dP, P^T . G and
+// dS^T . Q), over the bf16 tensor cores, and the B * Lq * Lk exponentials
+// of each pass over the special-function units; the bytes (q, k, v, g,
+// lse, delta read, dq, dk, dv written) are ~1000x less. So, as the
+// forward, it keeps the [Lq, Lk] tiles out of device memory and feeds the
+// tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate):
+//
+// bf16 operands: 4 warps a block, each owning 16 rows of the output.
+//   dq: Q and G tiles staged once in shared memory; per 64-key tile K and
+//   V staged (rows padded by 8 bf16, so fragment loads hit 32 distinct
+//   banks); S = Q K^T and dP = G V^T on the tensor cores, then p and ds
+//   per element in registers; ds rounded to bf16 (as the TPU kernel) and
+//   its accumulator fragments used directly as the A fragments of
+//   dq += dS . K, so dS never leaves registers.
+//   dk/dv: K and V of the block's 64 keys staged once; per 32-query tile
+//   Q, G, lse, delta staged; the transposed tiles S^T = K Q^T and dP^T =
+//   V G^T computed directly (the warp's 16 keys as rows), so P^T (bf16)
+//   and dS^T (bf16) are A fragments of dv += P^T . G and dk += dS^T . Q.
+//   Query tiles of 32 keep the live accumulators at 16 + 16 (S^T, dP^T)
+//   beside dk's 64 and dv's 64 registers.
+//   D == 2 (the matching grid and the propagated flow): dP and dv on the
+//   CUDA cores in f32 per lane (the tensor-core path would waste 63/64 of
+//   its work on padding D), dv reduced over the quad at the end.
+//
+// f32 operands (f32 models, the card-vs-CPU parity runs): f32 FMA on the
+// CUDA cores, no TF32: one thread per output row (64 a block), its row's
+// accumulators in shared memory, the other side's tiles read by every
+// thread at the same address (broadcast).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define NEG_INF (-1e30f)
+#define WARPS 4
+#define ROWS 64       // output rows per block (16 per warp), bf16 path
+#define BK 64         // keys per tile of the dq sweep
+#define QT 32         // queries per tile of the dk/dv sweep
+#define PAD 8         // bf16 elements appended to each shared row
+#define CMAX 128
+#define DMAX 128
+#define F32_ROWS 64   // output rows (= threads) per block, f32 path
+#define F32_T 32      // other-side rows per tile, f32 path
+
+typedef __nv_bfloat16 bf16;
+
+struct Swin {
+  int k, wh, ww, sh, sw;  // k == 0: no mask
+};
+
+// (y region, x region) of a token of window (last_y, last_x)
+__device__ __forceinline__ int swin_region(const Swin& s, bool last_y,
+                                           bool last_x, int idx) {
+  const bool y = last_y && (idx / s.ww >= s.wh - s.sh);
+  const bool x = last_x && (idx % s.ww >= s.ww - s.sw);
+  return (int)y * 2 + (int)x;
+}
+
+// The window of batch entry b: whether it is in the last window row /
+// column; only such windows hold more than one region.
+__device__ __forceinline__ bool swin_window(const Swin& s, int b, bool* ly,
+                                            bool* lx) {
+  *ly = *lx = false;
+  if (!s.k) return false;
+  const int win = b % (s.k * s.k);
+  *ly = win / s.k == s.k - 1;
+  *lx = win % s.k == s.k - 1;
+  return *ly || *lx;
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> bf16x2 (round to nearest even), `lo` in the low half
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t load_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Copy rows [r0, r0 + n) of a [L, W] bf16 matrix (W % 8 == 0) into an
+// [n, W + PAD] shared tile with 16-byte vectors; rows >= L are zero.
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           int r0, int n, int L, int W) {
+  const int vecs = W / 8;
+  const int stride = W + PAD;
+  for (int i = threadIdx.x; i < n * vecs; i += WARPS * 32) {
+    const int r = i / vecs, c = (i - r * vecs) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < L)
+      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * W + c);
+    *reinterpret_cast<uint4*>(dst + r * stride + c) = val;
+  }
+}
+
+// Rows [r0, r0 + n) of a [L, 2] bf16 payload as float2; rows >= L are 0.
+__device__ __forceinline__ void stage_pairs(float2* dst, const bf16* src,
+                                            int r0, int n, int L) {
+  for (int r = threadIdx.x; r < n; r += WARPS * 32) {
+    float2 val = make_float2(0.f, 0.f);
+    if (r0 + r < L)
+      val = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(src + (r0 + r) * 2LL));
+    dst[r] = val;
+  }
+}
+
+// A fragment (16 rows x 16 columns, k-step kk) of a shared [.., stride]
+// tile whose row `row0` is the warp's first row
+__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile,
+                                       int stride, int row0, int kk, int g,
+                                       int t) {
+  const bf16* p = tile + (row0 + g) * stride + kk * 16 + 2 * t;
+  a[0] = load_u32(p);
+  a[1] = load_u32(p + 8 * stride);
+  a[2] = load_u32(p + 8);
+  a[3] = load_u32(p + 8 * stride + 8);
+}
+
+// ---------------------------------------------------------------------------
+// dq, bf16 operands
+// ---------------------------------------------------------------------------
+
+template <bool PAYLOAD2>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ g,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int Lq, int Lk, int C, int D, float scale, Swin sw) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cs = C + PAD, dst = D + PAD;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);                 // [ROWS][cs]
+  bf16* Ks = Qs + ROWS * cs;                                // [BK][cs]
+  bf16* Gs = Ks + BK * cs;                                  // [ROWS][dst]
+  bf16* Vs = Gs + ROWS * dst;                               // [BK][dst]
+  float2* V2 = reinterpret_cast<float2*>(Gs);               // [BK] (D == 2)
+  __shared__ int kreg_s[BK];          // Swin region of each key of the tile
+
+  const int b = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const int rows[2] = {q0 + warp * 16 + gi, q0 + warp * 16 + gi + 8};
+  const bf16* qb = q + (long long)b * Lq * C;
+  const bf16* kb = k + (long long)b * Lk * C;
+  const bf16* vb = v + (long long)b * Lk * D;
+  const bf16* gb = g + (long long)b * Lq * D;
+
+  bool last_y, last_x;
+  const bool masked = swin_window(sw, b, &last_y, &last_x);
+  int qreg[2] = {0, 0};
+  float lse_r[2], delta_r[2];
+  float2 g2[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = rows[r] < Lq;
+    lse_r[r] = ok ? lse[(long long)b * Lq + rows[r]] : 0.f;
+    delta_r[r] = ok ? delta[(long long)b * Lq + rows[r]] : 0.f;
+    if (masked) qreg[r] = swin_region(sw, last_y, last_x, rows[r]);
+    if (PAYLOAD2 && ok)
+      g2[r] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          gb + (long long)rows[r] * 2));
+  }
+  stage_rows(Qs, qb, q0, ROWS, Lq, C);
+  if (!PAYLOAD2) stage_rows(Gs, gb, q0, ROWS, Lq, D);
+
+  float acc[CMAX / 8][4];
+#pragma unroll
+  for (int i = 0; i < CMAX / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
+    __syncthreads();  // the previous tile is consumed (and Q, G staged)
+    stage_rows(Ks, kb, k0, BK, Lk, C);
+    if (PAYLOAD2)
+      stage_pairs(V2, vb, k0, BK, Lk);
+    else
+      stage_rows(Vs, vb, k0, BK, Lk, D);
+    if (masked)
+      for (int r = threadIdx.x; r < BK; r += WARPS * 32)
+        kreg_s[r] = swin_region(sw, last_y, last_x, k0 + r);
+    __syncthreads();
+
+    // S = Q K^T and dP = G V^T: 16 rows x 64 keys per warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < CMAX / 16; ++kk) {
+      if (kk * 16 < C) {
+        uint32_t a[4];
+        load_a(a, Qs, cs, warp * 16, kk, gi, t);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const bf16* kr = Ks + (nt * 8 + gi) * cs + kk * 16 + 2 * t;
+          mma_bf16(s[nt], a, load_u32(kr), load_u32(kr + 8));
+        }
+      }
+    }
+    if (PAYLOAD2) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 vv = V2[nt * 8 + 2 * t + (e & 1)];
+          const float2 gg = g2[e >> 1];
+          dp[nt][e] = fmaf(gg.x, vv.x, gg.y * vv.y);
+        }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
+        if (kk * 16 < D) {
+          uint32_t a[4];
+          load_a(a, Gs, dst, warp * 16, kk, gi, t);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const bf16* vr = Vs + (nt * 8 + gi) * dst + kk * 16 + 2 * t;
+            mma_bf16(dp[nt], a, load_u32(vr), load_u32(vr + 8));
+          }
+        }
+      }
+    }
+
+    // p = exp(s - lse) with the scale, the Swin mask and the key padding;
+    // ds = p (dp - delta), kept in s
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = nt * 8 + 2 * t + (e & 1), r = e >> 1;
+        float x = s[nt][e] * scale;
+        if (masked && kreg_s[kl] != qreg[r]) x = x - 100.f;
+        if (k0 + kl >= Lk) x = NEG_INF;
+        const float p = rows[r] < Lq ? expf(x - lse_r[r]) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - delta_r[r]);
+      }
+    }
+
+    // dq += dS . K: dS's accumulator fragments (rounded to bf16) are the A
+    // fragments; K's rows 2t, 2t+1 (+8) of each 16-key step the B ones
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      const uint32_t a[4] = {pack_f32(s[2 * ks][0], s[2 * ks][1]),
+                             pack_f32(s[2 * ks][2], s[2 * ks][3]),
+                             pack_f32(s[2 * ks + 1][0], s[2 * ks + 1][1]),
+                             pack_f32(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+      const bf16* kr = Ks + (ks * 16 + 2 * t) * cs + gi;
+#pragma unroll
+      for (int nt = 0; nt < CMAX / 8; ++nt) {
+        if (nt * 8 < C) {
+          const bf16* p = kr + nt * 8;
+          mma_bf16(acc[nt], a, pack_bf16(p[0], p[cs]),
+                   pack_bf16(p[8 * cs], p[9 * cs]));
+        }
+      }
+    }
+  }
+
+  float* dqb = dq + (long long)b * Lq * C;
+#pragma unroll
+  for (int nt = 0; nt < CMAX / 8; ++nt) {
+    if (nt * 8 < C) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (rows[r] < Lq)
+          *reinterpret_cast<float2*>(dqb + (long long)rows[r] * C + nt * 8 +
+                                     2 * t) =
+              make_float2(acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk and dv, bf16 operands
+// ---------------------------------------------------------------------------
+
+template <bool PAYLOAD2>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ g,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int Lq, int Lk, int C, int D,
+                   float scale, Swin sw) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cs = C + PAD, dst = D + PAD;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);                 // [ROWS][cs]
+  bf16* Qs = Ks + ROWS * cs;                                // [QT][cs]
+  bf16* Vs = Qs + QT * cs;                                  // [ROWS][dst]
+  bf16* Gs = Vs + ROWS * dst;                               // [QT][dst]
+  float2* G2 = reinterpret_cast<float2*>(Vs);               // [QT] (D == 2)
+  __shared__ float lse_s[QT], delta_s[QT];
+  __shared__ int qreg_s[QT];
+
+  const int b = blockIdx.y, k0 = blockIdx.x * ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const int rows[2] = {k0 + warp * 16 + gi, k0 + warp * 16 + gi + 8};
+  const bf16* qb = q + (long long)b * Lq * C;
+  const bf16* kb = k + (long long)b * Lk * C;
+  const bf16* vb = v + (long long)b * Lk * D;
+  const bf16* gb = g + (long long)b * Lq * D;
+
+  bool last_y, last_x;
+  const bool masked = swin_window(sw, b, &last_y, &last_x);
+  int kreg[2] = {0, 0};
+  float2 v2[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (masked) kreg[r] = swin_region(sw, last_y, last_x, rows[r]);
+    if (PAYLOAD2 && rows[r] < Lk)
+      v2[r] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          vb + (long long)rows[r] * 2));
+  }
+  stage_rows(Ks, kb, k0, ROWS, Lk, C);
+  if (!PAYLOAD2) stage_rows(Vs, vb, k0, ROWS, Lk, D);
+
+  constexpr int DT = PAYLOAD2 ? 1 : DMAX / 8;
+  float dka[CMAX / 8][4], dva[DT][4];
+#pragma unroll
+  for (int i = 0; i < CMAX / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[i][e] = 0.f;
+
+  for (int q0 = 0; q0 < Lq; q0 += QT) {
+    __syncthreads();  // the previous tile is consumed (and K, V staged)
+    stage_rows(Qs, qb, q0, QT, Lq, C);
+    if (PAYLOAD2)
+      stage_pairs(G2, gb, q0, QT, Lq);
+    else
+      stage_rows(Gs, gb, q0, QT, Lq, D);
+    for (int r = threadIdx.x; r < QT; r += WARPS * 32) {
+      const bool ok = q0 + r < Lq;
+      lse_s[r] = ok ? lse[(long long)b * Lq + q0 + r] : 0.f;
+      delta_s[r] = ok ? delta[(long long)b * Lq + q0 + r] : 0.f;
+      if (masked) qreg_s[r] = swin_region(sw, last_y, last_x, q0 + r);
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V G^T: 16 keys x 32 queries per warp
+    float s[QT / 8][4], dp[QT / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < CMAX / 16; ++kk) {
+      if (kk * 16 < C) {
+        uint32_t a[4];
+        load_a(a, Ks, cs, warp * 16, kk, gi, t);
+#pragma unroll
+        for (int nt = 0; nt < QT / 8; ++nt) {
+          const bf16* qr = Qs + (nt * 8 + gi) * cs + kk * 16 + 2 * t;
+          mma_bf16(s[nt], a, load_u32(qr), load_u32(qr + 8));
+        }
+      }
+    }
+    if (PAYLOAD2) {
+#pragma unroll
+      for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 gg = G2[nt * 8 + 2 * t + (e & 1)];
+          const float2 vv = v2[e >> 1];
+          dp[nt][e] = fmaf(gg.x, vv.x, gg.y * vv.y);
+        }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
+        if (kk * 16 < D) {
+          uint32_t a[4];
+          load_a(a, Vs, dst, warp * 16, kk, gi, t);
+#pragma unroll
+          for (int nt = 0; nt < QT / 8; ++nt) {
+            const bf16* gr = Gs + (nt * 8 + gi) * dst + kk * 16 + 2 * t;
+            mma_bf16(dp[nt], a, load_u32(gr), load_u32(gr + 8));
+          }
+        }
+      }
+    }
+
+    // p^T in s, ds^T in dp
+#pragma unroll
+    for (int nt = 0; nt < QT / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = nt * 8 + 2 * t + (e & 1), r = e >> 1;
+        float x = s[nt][e] * scale;
+        if (masked && qreg_s[ql] != kreg[r]) x = x - 100.f;
+        if (rows[r] >= Lk) x = NEG_INF;
+        const float p = q0 + ql < Lq ? expf(x - lse_s[ql]) : 0.f;
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - delta_s[ql]);
+      }
+    }
+
+    // dv += P^T . G and dk += dS^T . Q, P^T and dS^T rounded to bf16
+#pragma unroll
+    for (int ks = 0; ks < QT / 16; ++ks) {
+      if (PAYLOAD2) {
+        // dva[0] = {key row 0 d0, d1, key row 1 d0, d1}, own queries only
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pb =
+                __bfloat162float(__float2bfloat16(s[2 * ks + h][e]));
+            const float2 gg = G2[(2 * ks + h) * 8 + 2 * t + (e & 1)];
+            const int r = e >> 1;
+            dva[0][2 * r] = fmaf(pb, gg.x, dva[0][2 * r]);
+            dva[0][2 * r + 1] = fmaf(pb, gg.y, dva[0][2 * r + 1]);
+          }
+      } else {
+        const uint32_t a[4] = {pack_f32(s[2 * ks][0], s[2 * ks][1]),
+                               pack_f32(s[2 * ks][2], s[2 * ks][3]),
+                               pack_f32(s[2 * ks + 1][0], s[2 * ks + 1][1]),
+                               pack_f32(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+        const bf16* gr = Gs + (ks * 16 + 2 * t) * dst + gi;
+#pragma unroll
+        for (int nt = 0; nt < DT; ++nt) {
+          if (nt * 8 < D) {
+            const bf16* p = gr + nt * 8;
+            mma_bf16(dva[nt], a, pack_bf16(p[0], p[dst]),
+                     pack_bf16(p[8 * dst], p[9 * dst]));
+          }
+        }
+      }
+      const uint32_t a[4] = {pack_f32(dp[2 * ks][0], dp[2 * ks][1]),
+                             pack_f32(dp[2 * ks][2], dp[2 * ks][3]),
+                             pack_f32(dp[2 * ks + 1][0], dp[2 * ks + 1][1]),
+                             pack_f32(dp[2 * ks + 1][2], dp[2 * ks + 1][3])};
+      const bf16* qr = Qs + (ks * 16 + 2 * t) * cs + gi;
+#pragma unroll
+      for (int nt = 0; nt < CMAX / 8; ++nt) {
+        if (nt * 8 < C) {
+          const bf16* p = qr + nt * 8;
+          mma_bf16(dka[nt], a, pack_bf16(p[0], p[cs]),
+                   pack_bf16(p[8 * cs], p[9 * cs]));
+        }
+      }
+    }
+  }
+
+  float* dkb = dk + (long long)b * Lk * C;
+  float* dvb = dv + (long long)b * Lk * D;
+#pragma unroll
+  for (int nt = 0; nt < CMAX / 8; ++nt) {
+    if (nt * 8 < C) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (rows[r] < Lk)
+          *reinterpret_cast<float2*>(dkb + (long long)rows[r] * C + nt * 8 +
+                                     2 * t) =
+              make_float2(dka[nt][2 * r] * scale, dka[nt][2 * r + 1] * scale);
+    }
+  }
+  if (PAYLOAD2) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dva[0][e] += __shfl_xor_sync(0xffffffffu, dva[0][e], 1);
+      dva[0][e] += __shfl_xor_sync(0xffffffffu, dva[0][e], 2);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (rows[r] < Lk)
+          *reinterpret_cast<float2*>(dvb + (long long)rows[r] * 2) =
+              make_float2(dva[0][2 * r], dva[0][2 * r + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < DT; ++nt) {
+      if (nt * 8 < D) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (rows[r] < Lk)
+            *reinterpret_cast<float2*>(dvb + (long long)rows[r] * D +
+                                       nt * 8 + 2 * t) =
+                make_float2(dva[nt][2 * r], dva[nt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 operands: one thread per output row
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(F32_ROWS)
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ g,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int Lq, int Lk, int C, int D, float scale, Swin sw) {
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                              // [F32_ROWS][C + 1]
+  float* Gs = Qs + F32_ROWS * (C + 1);          // [F32_ROWS][D + 1]
+  float* As = Gs + F32_ROWS * (D + 1);          // [F32_ROWS][C + 1] dq sums
+  float* Ks = As + F32_ROWS * (C + 1);          // [F32_T][C]
+  float* Vs = Ks + F32_T * C;                   // [F32_T][D]
+  __shared__ int kreg_s[F32_T];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int q0 = blockIdx.x * F32_ROWS, row = q0 + tid;
+  const float* qb = q + (long long)b * Lq * C;
+  const float* kb = k + (long long)b * Lk * C;
+  const float* vb = v + (long long)b * Lk * D;
+  const float* gb = g + (long long)b * Lq * D;
+
+  for (int i = tid; i < F32_ROWS * C; i += F32_ROWS) {
+    const int r = i / C, c = i - r * C;
+    Qs[r * (C + 1) + c] = q0 + r < Lq ? qb[(long long)(q0 + r) * C + c] : 0.f;
+    As[r * (C + 1) + c] = 0.f;
+  }
+  for (int i = tid; i < F32_ROWS * D; i += F32_ROWS) {
+    const int r = i / D, c = i - r * D;
+    Gs[r * (D + 1) + c] = q0 + r < Lq ? gb[(long long)(q0 + r) * D + c] : 0.f;
+  }
+  const bool ok = row < Lq;
+  const float lse_r = ok ? lse[(long long)b * Lq + row] : 0.f;
+  const float delta_r = ok ? delta[(long long)b * Lq + row] : 0.f;
+  bool last_y, last_x;
+  const bool masked = swin_window(sw, b, &last_y, &last_x);
+  const int qreg = masked ? swin_region(sw, last_y, last_x, row) : 0;
+  const float* qr = Qs + tid * (C + 1);
+  const float* gr = Gs + tid * (D + 1);
+  float* acc = As + tid * (C + 1);
+
+  for (int k0 = 0; k0 < Lk; k0 += F32_T) {
+    __syncthreads();
+    for (int i = tid; i < F32_T * C; i += F32_ROWS)
+      Ks[i] = k0 + i / C < Lk ? kb[(long long)k0 * C + i] : 0.f;
+    for (int i = tid; i < F32_T * D; i += F32_ROWS)
+      Vs[i] = k0 + i / D < Lk ? vb[(long long)k0 * D + i] : 0.f;
+    if (masked && tid < F32_T)
+      kreg_s[tid] = swin_region(sw, last_y, last_x, k0 + tid);
+    __syncthreads();
+
+    float s[F32_T];
+#pragma unroll
+    for (int j = 0; j < F32_T; ++j) s[j] = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float qv = qr[c];
+#pragma unroll
+      for (int j = 0; j < F32_T; ++j) s[j] = fmaf(qv, Ks[j * C + c], s[j]);
+    }
+    float dp[F32_T];
+#pragma unroll
+    for (int j = 0; j < F32_T; ++j) dp[j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float gv = gr[d];
+#pragma unroll
+      for (int j = 0; j < F32_T; ++j) dp[j] = fmaf(gv, Vs[j * D + d], dp[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < F32_T; ++j) {
+      float x = s[j] * scale;
+      if (masked && kreg_s[j] != qreg) x = x - 100.f;
+      if (k0 + j >= Lk) x = NEG_INF;
+      const float p = ok ? expf(x - lse_r) : 0.f;
+      s[j] = p * (dp[j] - delta_r);
+    }
+    for (int c = 0; c < C; ++c) {
+      float a = acc[c];
+#pragma unroll
+      for (int j = 0; j < F32_T; ++j) a = fmaf(s[j], Ks[j * C + c], a);
+      acc[c] = a;
+    }
+  }
+  if (ok) {
+    float* out = dq + ((long long)b * Lq + row) * C;
+    for (int c = 0; c < C; ++c) out[c] = acc[c] * scale;
+  }
+}
+
+__global__ void __launch_bounds__(F32_ROWS)
+flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ g,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, int Lq, int Lk, int C, int D,
+                  float scale, Swin sw) {
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;                              // [F32_ROWS][C + 1]
+  float* Vs = Ks + F32_ROWS * (C + 1);          // [F32_ROWS][D + 1]
+  float* DK = Vs + F32_ROWS * (D + 1);          // [F32_ROWS][C + 1] sums
+  float* DV = DK + F32_ROWS * (C + 1);          // [F32_ROWS][D + 1] sums
+  float* Qs = DV + F32_ROWS * (D + 1);          // [F32_T][C]
+  float* Gs = Qs + F32_T * C;                   // [F32_T][D]
+  __shared__ float lse_s[F32_T], delta_s[F32_T];
+  __shared__ int qreg_s[F32_T];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int k0 = blockIdx.x * F32_ROWS, row = k0 + tid;
+  const float* qb = q + (long long)b * Lq * C;
+  const float* kb = k + (long long)b * Lk * C;
+  const float* vb = v + (long long)b * Lk * D;
+  const float* gb = g + (long long)b * Lq * D;
+
+  for (int i = tid; i < F32_ROWS * C; i += F32_ROWS) {
+    const int r = i / C, c = i - r * C;
+    Ks[r * (C + 1) + c] = k0 + r < Lk ? kb[(long long)(k0 + r) * C + c] : 0.f;
+    DK[r * (C + 1) + c] = 0.f;
+  }
+  for (int i = tid; i < F32_ROWS * D; i += F32_ROWS) {
+    const int r = i / D, c = i - r * D;
+    Vs[r * (D + 1) + c] = k0 + r < Lk ? vb[(long long)(k0 + r) * D + c] : 0.f;
+    DV[r * (D + 1) + c] = 0.f;
+  }
+  bool last_y, last_x;
+  const bool masked = swin_window(sw, b, &last_y, &last_x);
+  const int kreg = masked ? swin_region(sw, last_y, last_x, row) : 0;
+  const float* kr = Ks + tid * (C + 1);
+  const float* vr = Vs + tid * (D + 1);
+  float* dka = DK + tid * (C + 1);
+  float* dva = DV + tid * (D + 1);
+
+  for (int q0 = 0; q0 < Lq; q0 += F32_T) {
+    __syncthreads();
+    for (int i = tid; i < F32_T * C; i += F32_ROWS)
+      Qs[i] = q0 + i / C < Lq ? qb[(long long)q0 * C + i] : 0.f;
+    for (int i = tid; i < F32_T * D; i += F32_ROWS)
+      Gs[i] = q0 + i / D < Lq ? gb[(long long)q0 * D + i] : 0.f;
+    if (tid < F32_T) {
+      const bool ok = q0 + tid < Lq;
+      lse_s[tid] = ok ? lse[(long long)b * Lq + q0 + tid] : 0.f;
+      delta_s[tid] = ok ? delta[(long long)b * Lq + q0 + tid] : 0.f;
+      if (masked) qreg_s[tid] = swin_region(sw, last_y, last_x, q0 + tid);
+    }
+    __syncthreads();
+
+    float s[F32_T];
+#pragma unroll
+    for (int j = 0; j < F32_T; ++j) s[j] = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float kv = kr[c];
+#pragma unroll
+      for (int j = 0; j < F32_T; ++j) s[j] = fmaf(Qs[j * C + c], kv, s[j]);
+    }
+    float dp[F32_T];
+#pragma unroll
+    for (int j = 0; j < F32_T; ++j) dp[j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float vv = vr[d];
+#pragma unroll
+      for (int j = 0; j < F32_T; ++j) dp[j] = fmaf(Gs[j * D + d], vv, dp[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < F32_T; ++j) {
+      float x = s[j] * scale;
+      if (masked && qreg_s[j] != kreg) x = x - 100.f;
+      if (row >= Lk) x = NEG_INF;
+      const float p = q0 + j < Lq ? expf(x - lse_s[j]) : 0.f;
+      s[j] = p;
+      dp[j] = p * (dp[j] - delta_s[j]);
+    }
+    for (int d = 0; d < D; ++d) {
+      float a = dva[d];
+#pragma unroll
+      for (int j = 0; j < F32_T; ++j) a = fmaf(s[j], Gs[j * D + d], a);
+      dva[d] = a;
+    }
+    for (int c = 0; c < C; ++c) {
+      float a = dka[c];
+#pragma unroll
+      for (int j = 0; j < F32_T; ++j) a = fmaf(dp[j], Qs[j * C + c], a);
+      dka[c] = a;
+    }
+  }
+  if (row < Lk) {
+    float* outk = dk + ((long long)b * Lk + row) * C;
+    float* outv = dv + ((long long)b * Lk + row) * D;
+    for (int c = 0; c < C; ++c) outk[c] = dka[c] * scale;
+    for (int d = 0; d < D; ++d) outv[d] = dva[d];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+template <typename K>
+static int launch(K kern, dim3 grid, int threads, size_t smem,
+                  cudaStream_t st, void** args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const cudaError_t e = cudaLaunchKernel((const void*)kern, grid, dim3(threads),
+                                         args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+static bool valid(int B, int Lq, int Lk, int C, int D, int swin_k) {
+  return B >= 1 && B <= 65535 && Lq >= 1 && Lk >= 1 && C >= 16 &&
+         C <= CMAX && C % 16 == 0 &&
+         (D == 2 || (D % 16 == 0 && D >= 16 && D <= DMAX)) && swin_k >= 0;
+}
+
+// q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], g [B, Lq, D]: all bf16 or all
+// f32, contiguous, 16-byte aligned; lse and delta [B, Lq] f32; dq [B, Lq, C]
+// f32. swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the
+// forward's. Takes C % 16 == 0, C <= 128, and D == 2 or D % 16 == 0,
+// D <= 128. Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* g, const void* lse,
+                                const void* delta, void* dq, int B, int Lq,
+                                int Lk, int C, int D, float scale, int swin_k,
+                                int wh, int ww, int sh, int swd, int is_bf16,
+                                void* stream) {
+  if (!valid(B, Lq, Lk, C, D, swin_k)) return (int)cudaErrorInvalidValue;
+  Swin sw{swin_k, wh, ww, sh, swd};
+  void* args[] = {(void*)&q,  (void*)&k,  (void*)&v, (void*)&g,
+                  (void*)&lse, (void*)&delta, (void*)&dq, (void*)&Lq,
+                  (void*)&Lk, (void*)&C,  (void*)&D, (void*)&scale,
+                  (void*)&sw};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!is_bf16) {
+    const size_t smem = sizeof(float) * ((size_t)F32_ROWS * (2 * (C + 1) +
+                                                             (D + 1)) +
+                                         (size_t)F32_T * (C + D));
+    const dim3 grid((unsigned)((Lq + F32_ROWS - 1) / F32_ROWS), (unsigned)B);
+    return launch(flash_bwd_dq_f32, grid, F32_ROWS, smem, st, args);
+  }
+  const dim3 grid((unsigned)((Lq + ROWS - 1) / ROWS), (unsigned)B);
+  const size_t tiles = (size_t)(ROWS + BK) * (C + PAD) * sizeof(bf16);
+  if (D == 2)
+    return launch(flash_bwd_dq_bf16<true>, grid, WARPS * 32,
+                  tiles + BK * sizeof(float2), st, args);
+  return launch(flash_bwd_dq_bf16<false>, grid, WARPS * 32,
+                tiles + (size_t)(ROWS + BK) * (D + PAD) * sizeof(bf16), st,
+                args);
+}
+
+// As ofd_flash_bwd_dq; dk [B, Lk, C] and dv [B, Lk, D] f32.
+extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* g, const void* lse,
+                                 const void* delta, void* dk, void* dv, int B,
+                                 int Lq, int Lk, int C, int D, float scale,
+                                 int swin_k, int wh, int ww, int sh, int swd,
+                                 int is_bf16, void* stream) {
+  if (!valid(B, Lq, Lk, C, D, swin_k)) return (int)cudaErrorInvalidValue;
+  Swin sw{swin_k, wh, ww, sh, swd};
+  void* args[] = {(void*)&q,  (void*)&k,     (void*)&v,  (void*)&g,
+                  (void*)&lse, (void*)&delta, (void*)&dk, (void*)&dv,
+                  (void*)&Lq, (void*)&Lk,    (void*)&C,  (void*)&D,
+                  (void*)&scale, (void*)&sw};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!is_bf16) {
+    const size_t smem = sizeof(float) * ((size_t)F32_ROWS * (2 * (C + 1) +
+                                                             2 * (D + 1)) +
+                                         (size_t)F32_T * (C + D));
+    const dim3 grid((unsigned)((Lk + F32_ROWS - 1) / F32_ROWS), (unsigned)B);
+    return launch(flash_bwd_dkv_f32, grid, F32_ROWS, smem, st, args);
+  }
+  const dim3 grid((unsigned)((Lk + ROWS - 1) / ROWS), (unsigned)B);
+  const size_t tiles = (size_t)(ROWS + QT) * (C + PAD) * sizeof(bf16);
+  if (D == 2)
+    return launch(flash_bwd_dkv_bf16<true>, grid, WARPS * 32,
+                  tiles + QT * sizeof(float2), st, args);
+  return launch(flash_bwd_dkv_bf16<false>, grid, WARPS * 32,
+                tiles + (size_t)(ROWS + QT) * (D + PAD) * sizeof(bf16), st,
+                args);
+}

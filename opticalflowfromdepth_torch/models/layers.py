@@ -228,11 +228,17 @@ def init_weights_(module: nn.Module, generator: torch.Generator,
     """Random init from ``generator``, as the reference initializes:
     encoders (``he_normal``) get He-normal fan-out conv kernels
     (`extractor.py:150-157`) and zero biases; other convs (the update
-    block) torch's default U(+-1/sqrt(fan_in)) for kernel and bias.
-    BatchNorm gets scale 1, shift 0, running mean 0 and variance 1."""
+    block) torch's default U(+-1/sqrt(fan_in)) for kernel and bias, and so
+    does every ``nn.Linear`` (the classifier's head). BatchNorm gets scale
+    1, shift 0, running mean 0 and variance 1."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, nn.Linear):
+                bound = 1.0 / math.sqrt(m.in_features)
+                m.weight.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, nn.Conv2d):
                 kh, kw = m.kernel_size
                 if he_normal:
                     std = math.sqrt(2.0 / (m.out_channels * kh * kw))

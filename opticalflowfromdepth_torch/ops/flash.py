@@ -14,9 +14,12 @@ casts every operand to bf16; v is cast here, so an f32 flow payload is
 rounded exactly as the TPU kernel rounds it) or f32 (f32 models keep f32
 operands, as the JAX dense path on the CPU does). The output is f32.
 
-Only the forward is ported: on the card a call whose inputs require grad
-raises (the two backward kernels are slice 4). The TPU kernel's optional
-dense ``bias`` operand is not ported: no caller passes one.
+A call whose inputs require grad goes through an autograd Function, as
+the JAX package's ``custom_vjp``: its forward also emits the LSE and saves
+q, k, v, the f32 output and the LSE; its backward is
+``ops.flash_bwd.flash_backward`` (the two backward kernels on the card,
+their plain version on the CPU). The TPU kernel's optional dense ``bias``
+operand is not ported: no caller passes one.
 """
 
 from __future__ import annotations
@@ -149,25 +152,32 @@ def _check_shapes(q, k, v, swin):
                              f"q {tuple(q.shape)}, k {tuple(k.shape)}")
 
 
-def _flash_cuda(q, k, v, scale, swin, with_lse):
-    tensors = (q, k, v)
+def check_kernel_operands(q, k, v, tensors, what: str) -> None:
+    """What the forward and the backward kernels take: every tensor on
+    one CUDA device, q/k both bf16 or both f32, C % 16 == 0 up to 128, D
+    == 2 or a multiple of 16 up to 128, B <= 65535, L >= 1; raises
+    otherwise."""
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
-        raise ValueError("flash_softmax_matmul: q, k and v must all lie on "
-                         "the CPU or all on one CUDA device, got "
+        raise ValueError(f"{what}: the tensors must all lie on the CPU or "
+                         f"all on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("flash backward is not ported (slice 4)")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype:
-        raise ValueError(f"flash kernel takes q/k both bf16 or both f32, got "
+        raise ValueError(f"{what} takes q/k both bf16 or both f32, got "
                          f"{q.dtype}/{k.dtype}")
     b, lq, c = q.shape
     lk, d = v.shape[1], v.shape[2]
     if c % 16 or not 16 <= c <= 128 \
             or not (d == 2 or (d % 16 == 0 and 16 <= d <= 128)) \
             or b > 65535 or lq < 1 or lk < 1:
-        raise ValueError(f"flash kernel takes C % 16 == 0, C <= 128, D == 2 "
-                         f"or D % 16 == 0 <= 128, B <= 65535, L >= 1; got "
-                         f"B={b}, Lq={lq}, Lk={lk}, C={c}, D={d}")
+        raise ValueError(f"{what} takes C % 16 == 0, C <= 128, D == 2 or D "
+                         f"% 16 == 0 <= 128, B <= 65535, L >= 1; got B={b}, "
+                         f"Lq={lq}, Lk={lk}, C={c}, D={d}")
+
+
+def _flash_cuda(q, k, v, scale, swin, with_lse):
+    check_kernel_operands(q, k, v, (q, k, v), "flash kernel")
+    b, lq, c = q.shape
+    lk, d = v.shape[1], v.shape[2]
     qc, kc, vc = q.contiguous(), k.contiguous(), v.to(q.dtype).contiguous()
     if any(t.data_ptr() % 16 for t in (qc, kc, vc)):
         raise ValueError("flash kernel needs 16-byte aligned q, k and v")
@@ -200,13 +210,44 @@ def flash_softmax_matmul(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take :func:`flash_softmax_matmul_plain`; CUDA tensors
     launch the kernel (``flash_softmax_matmul.launches`` counts those
     launches), which takes bf16 or f32 q/k, C % 16 == 0 up to 128 (GMFlow's
-    width), and D == 2 or a multiple of 16 up to 128."""
+    width), and D == 2 or a multiple of 16 up to 128. Differentiable in q,
+    k and v (not in ``lse``); the gradients come back in their dtypes."""
     _check_shapes(q, k, v, swin)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[2])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out, lse = _FlashFunction.apply(q, k, v, float(scale), swin)
+        return (out, lse) if with_lse else out
+    return _forward(q, k, v, scale, swin, with_lse)
+
+
+def _forward(q, k, v, scale, swin, with_lse):
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_softmax_matmul_plain(q, k, v, scale, swin, with_lse)
     return _flash_cuda(q, k, v, scale, swin, with_lse)
+
+
+class _FlashFunction(torch.autograd.Function):
+    """The forward with its LSE; the backward from the saved f32 output and
+    LSE (`flash.py:_flash_vjp_fwd/_flash_vjp_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, swin):
+        out, lse = _forward(q, k, v, scale, swin, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.swin = scale, swin
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        from .flash_bwd import flash_backward
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g, ctx.scale, ctx.swin)
+        need = ctx.needs_input_grad
+        return (dq.to(q.dtype) if need[0] else None,
+                dk.to(k.dtype) if need[1] else None,
+                dv.to(v.dtype) if need[2] else None, None, None)
 
 
 flash_softmax_matmul.launches = 0

@@ -62,7 +62,7 @@ def _models(seed=3):
     gen = torch.Generator().manual_seed(seed)
     model = TRAFT(corr_impl="fused", generator=gen)
     cls = TCls()
-    init_weights_(cls, gen)
+    init_weights_(cls.encoder, gen)           # the head is drawn below
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         cls.classify["3"].weight.uniform_(-0.1, 0.1, generator=gen)
