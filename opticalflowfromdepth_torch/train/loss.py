@@ -6,8 +6,10 @@ predictions with valid and max-flow masking (`adjusted_RAFT/train.py:
 51-76`), with the same metric names as the JAX package: the EPE and both
 the accuracy (``kpx_acc``, epe < k) and the outlier rate (``kpx_out``,
 epe > k). :func:`classifier_loss` is the cross-entropy of the frozen
-classifier on the final prediction (`train.py:196-203`). Flows are NCHW
-``[B, 2, H, W]``; every result is an f32 0-d tensor.
+classifier on the final prediction (`train.py:196-203`).
+:func:`epe_metric` and :func:`fl_all_metric` are the eval metrics (EPE
+and KITTI Fl-all over valid pixels). Flows are NCHW ``[B, 2, H, W]``;
+every result is an f32 0-d tensor.
 """
 
 from __future__ import annotations
@@ -59,3 +61,31 @@ def classifier_loss(logits: torch.Tensor, label_onehot: torch.Tensor
     """CrossEntropyLoss over soft or one-hot targets (`train.py:168,199`)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.mean(torch.sum(label_onehot * logp, dim=-1))
+
+
+def _valid_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` where valid > 0.5, over ``max(sum(valid), 1)``."""
+    denom = torch.clamp(valid.float().sum(), min=1.0)
+    return torch.where(valid > 0.5, x.float(),
+                       torch.zeros((), device=x.device)).sum() / denom
+
+
+def epe_metric(flow_pred: torch.Tensor, flow_gt: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """Mean end-point error over valid pixels (eval metric); flows ``[B,
+    2, H, W]``, valid ``[B, H, W]``."""
+    epe = torch.sqrt(torch.sum((flow_pred.float() - flow_gt.float()) ** 2,
+                               dim=1))
+    return _valid_mean(epe, valid)
+
+
+def fl_all_metric(flow_pred: torch.Tensor, flow_gt: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """KITTI Fl-all: 100 * mean(epe > 3 and epe / |gt| > 0.05) over valid
+    pixels (`adjusted_RAFT/evaluate.py:152-191`); flows ``[B, 2, H, W]``,
+    valid ``[B, H, W]``."""
+    flow_gt = flow_gt.float()
+    epe = torch.sqrt(torch.sum((flow_pred.float() - flow_gt) ** 2, dim=1))
+    mag = torch.sqrt(torch.sum(flow_gt ** 2, dim=1))
+    out = (epe > 3.0) & (epe / torch.clamp(mag, min=1e-9) > 0.05)
+    return 100.0 * _valid_mean(out, valid)

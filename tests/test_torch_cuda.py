@@ -1,5 +1,6 @@
 """The port's Hopper kernels against their plain versions, on the card,
-forward and backward, and one training step of each model card against
+forward and backward (the 3x3 conv's Function also against autograd
+through ``F.conv2d``), and one training step of each model card against
 CPU.
 
 Marked ``cuda``: they skip on a host without a CUDA device. On the card
@@ -14,6 +15,7 @@ import torch
 
 from opticalflowfromdepth_torch.models.gmflow import GMFlow
 from opticalflowfromdepth_torch.models.raft import RAFT
+from opticalflowfromdepth_torch.ops import conv2d as cv
 from opticalflowfromdepth_torch.ops import flash as fl
 from opticalflowfromdepth_torch.ops import flash_bwd as fb
 from opticalflowfromdepth_torch.ops import fused_corr as fc
@@ -409,3 +411,71 @@ def test_gmflow_train_step_on_card_matches_cpu(card):
     for k, v in out["cpu"][2].items():
         np.testing.assert_allclose(out["cuda"][2][k].float().numpy(),
                                    v.float().numpy(), atol=2e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,co,offset", [
+    (1, 33, 17, 8, 8, 0),       # the JAX tests' ragged case
+    (2, 20, 40, 3, 2, 0),       # C, CO % 8 != 0: loads element by element
+    (1, 48, 32, 72, 70, 0),     # two C chunks, two CO tiles, ragged
+    (2, 24, 40, 64, 64, 0),
+    (2, 18, 20, 16, 24, 1)])    # x, w past a 16-byte boundary: element loads
+def test_conv3x3_kernel_matches_plain(card, dtype, b, h, w, c, co, offset):
+    """Within ``ops/conv2d.py:tolerance`` (another summation order of the
+    same exact products; in bf16 one step of the output), which the (2, 2)
+    tap left out fails."""
+    g_ = torch.Generator().manual_seed(11)
+    x = torch.randn(b * h * w * c + offset, generator=g_).to(card, dtype)
+    wt = (torch.randn(9 * c * co + offset, generator=g_)
+          / (3 * c ** 0.5)).to(card, dtype)
+    x, wt = x[offset:].view(b, h, w, c), wt[offset:].view(3, 3, c, co)
+    assert bool(x.data_ptr() % 16 and wt.data_ptr() % 16) == bool(offset)
+    before = cv.conv3x3_s1.launches
+    got = cv.conv3x3_s1(x, wt)
+    torch.cuda.synchronize()
+    assert cv.conv3x3_s1.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, w, co)
+    ref = cv.conv3x3_s1_plain(x, wt).float()
+    tol = cv.tolerance(x, wt)
+    assert float(((got.float() - ref).abs() / tol).max()) <= 1.0
+    w_cut = wt.clone()
+    w_cut[2, 2] = 0
+    assert float(((cv.conv3x3_s1(x, w_cut).float() - ref).abs() / tol)
+                 .max()) > 1.0
+
+
+def test_conv3x3_function_matches_conv2d_autograd(card):
+    """f32 (TF32 off): the Function's dx (the kernel) and dw (nine f32
+    products) against autograd through ``F.conv2d`` within 1e-3 of each
+    gradient's max (cuDNN's f32 weight gradient read 2.0e-4 of it from the
+    plain version's at [32,184,280,64]->64, chip_smoke.py [3g]) and against
+    autograd through the plain version within 1e-5."""
+    import torch.nn.functional as F
+    g_ = torch.Generator().manual_seed(12)
+    x = torch.randn(2, 24, 40, 16, generator=g_).to(card)
+    wt = (torch.randn(3, 3, 16, 24, generator=g_) / 12).to(card)
+    gout = torch.randn(2, 24, 40, 24, generator=g_).to(card)
+    ours = [x.clone().requires_grad_(), wt.clone().requires_grad_()]
+    cv.conv3x3_s1(*ours).backward(gout)
+    for fn, limit in ((lambda a, b_: F.conv2d(
+            a.permute(0, 3, 1, 2), b_.permute(3, 2, 0, 1),
+            padding=1).permute(0, 2, 3, 1), 1e-3),
+                      (cv.conv3x3_s1_plain, 1e-5)):
+        ref = [x.clone().requires_grad_(), wt.clone().requires_grad_()]
+        fn(*ref).backward(gout)
+        for a, r in zip(ours, ref):
+            assert float((a.grad - r.grad).abs().max()) <= \
+                limit * float(r.grad.abs().max())
+
+
+def test_conv3x3_kernel_refuses_what_it_does_not_take(card):
+    x = torch.randn(1, 8, 8, 16, device=card)
+    wt = torch.randn(3, 3, 16, 8, device=card)
+    with pytest.raises(ValueError, match="both bf16 or both f32"):
+        cv.conv3x3_s1(x, wt.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="both bf16 or both f32"):
+        cv.conv3x3_s1(x.half(), wt.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cv.conv3x3_s1(x.transpose(1, 2), wt)
+    with pytest.raises(ValueError, match="CPU or both on one CUDA"):
+        cv.conv3x3_s1(x, wt.cpu())
