@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions and is compiled on
 first use into ``build/kernels/<name>-<hash>.so`` beside the package (the
-hash covers the source and the flags, so a stale library never loads),
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags,
+so a stale library never loads),
 then opened with ``ctypes``. Several sources build in parallel, one
 ``nvcc`` process each. A failed build raises: nothing falls back.
 """
@@ -33,10 +34,15 @@ def _nvcc() -> str:
 
 
 def _paths(name: str) -> Tuple[pathlib.Path, pathlib.Path]:
+    """The source and its library's path, whose hash covers the source,
+    every shared header ``csrc/*.cuh`` (any source may include any of
+    them) and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:12]
-    return src, BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

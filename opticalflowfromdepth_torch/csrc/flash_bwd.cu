@@ -11,39 +11,73 @@
 //   dk = ds^T . q * scale, dv = p^T . g      (ofd_flash_bwd_dkv)
 // all three f32. The TPU's two passes are kept, so nothing needs atomics
 // and every gradient is bit-reproducible:
-//   dq: one block per (batch entry, 64-query tile) sweeps the key tiles;
-//   dk/dv: one block per (batch entry, 64-key tile) sweeps the query tiles.
+//   dq: one block per (batch entry, query tile) sweeps the key tiles;
+//   dk/dv: one block per (batch entry, key tile) sweeps the query tiles.
 // Padded query rows get p = 0 (they add nothing to dk and dv, as the TPU
-// kernels' s_eff = -1e30); padded keys get s = -1e30 (p = 0); every load
-// is bounds-checked, so Lq and Lk need no padding copy. The Swin mask is
+// kernels' s_eff = -1e30); padded keys get s = -1e30 (p = 0); loads past
+// Lq or Lk read zeros, so Lq and Lk need no padding copy. The Swin mask is
 // the forward's analytic one (window id = batch index mod K^2, batches
-// ordered [b, wy, wx]), from a per-tile region table in shared memory.
+// ordered [b, wy, wx]), the regions computed per row and per column.
 //
 // What bounds it on this card: at GMFlow's widths (C = 128, D = 128 or 2)
 // the products, 2 * B * Lq * Lk * (3C + 2D) operations over both kernels
 // (each recomputes S; dq adds dP and dS . K, dk/dv add dP, P^T . G and
 // dS^T . Q), over the bf16 tensor cores, and the B * Lq * Lk exponentials
 // of each pass over the special-function units; the bytes (q, k, v, g,
-// lse, delta read, dq, dk, dv written) are ~1000x less. So, as the
-// forward, it keeps the [Lq, Lk] tiles out of device memory and feeds the
-// tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate):
+// lse, delta read, dq, dk, dv written) are ~1000x less. So each kernel
+// keeps the [Lq, Lk] tiles out of device memory, and three routes feed it:
 //
-// bf16 operands: 4 warps a block, each owning 16 rows of the output.
-//   dq: Q and G tiles staged once in shared memory; per 64-key tile K and
-//   V staged (rows padded by 8 bf16, so fragment loads hit 32 distinct
-//   banks); S = Q K^T and dP = G V^T on the tensor cores, then p and ds
-//   per element in registers; ds rounded to bf16 (as the TPU kernel) and
-//   its accumulator fragments used directly as the A fragments of
-//   dq += dS . K, so dS never leaves registers.
+// bf16 at C = 128 and D = 128 or 2 (every GMFlow call): the wgmma route,
+// namespace sm90. One block of two warpgroups (256 threads) per (batch
+// entry, 128 rows of the output side), 64 rows each. The resident side (K
+// and V for dk/dv; Q and G for dq) is loaded once by TMA; the other side
+// streams in 64-row tiles through a 2-stage ring under mbarriers (full:
+// the TMA bytes and the loading warp's 32 cp.async arrivals; empty: every
+// thread). TMA boxes of [64 rows][64 columns] land 128-byte swizzled, as
+// wgmma's descriptors read them, and zero-fill the rows past L. Per tile
+// a warpgroup computes S^T = K Q^T and dP^T = V G^T (dk/dv) or S = Q K^T
+// and dP = G V^T (dq) with wgmma m64n64k16, A and B from shared memory,
+// both K-major; then p, ds, the mask and the bf16 rounding in registers
+// (each 16-column step rounded into its A fragment once final; exp as
+// ex2.approx, within the tolerance's allowance for exp); then dV += P^T G
+// and dK += dS^T Q (dk/dv) or dQ += dS K (dq) with wgmma m64n128k16, A the
+// fragments in registers, B the same ring tile read MN-major through the
+// transpose bit. What it does about the mma.sync route's limits:
+//   (1) only wgmma reaches the full tensor-core rate: every C- and D-wide
+//       product is a wgmma;
+//   (2) no B fragment is built from 16-bit shared loads: wgmma reads both
+//       layouts of the swizzled tiles itself;
+//   (3) no synchronous staging: TMA keeps the next tile in flight while a
+//       tile is computed, and the two warpgroups take turns (named
+//       barriers) to issue their first products, so that one's
+//       exponentials overlap the other's products; warpgroup 1's first
+//       warp refills a stage once both have released it;
+//   (4) registers: no producer warpgroup, so the launch gives each thread
+//       up to 255 (dK's and dV's 64 x 128 f32 accumulators take 64 + 64,
+//       S^T and dP^T 32 + 32). With a producer warpgroup (384 threads)
+//       ptxas compiled the consumers within the launch's 168 registers
+//       whatever setmaxnreg asked, and dk/dv spilled (PERF.md, section 6).
+// Registers (ptxas): dk/dv 232 at D = 128, 150 at D = 2; dq 186 and 148;
+// no spills. Shared memory a block: 134,144 bytes at D = 128 (K, V or Q, G
+// resident; two ring stages), 70,656 at D = 2; one block per SM. At D = 2
+// (the matching grid and the propagated flow) the payload rows are 4
+// bytes, below TMA's 16-byte box: the loading warp copies them into the
+// ring with cp.async (as lse and delta, whose tiles start at unaligned
+// b * L), and dP and dv run on the CUDA cores in f32 (the tensor cores
+// would waste 63/64 of their work on padding D).
+//
+// Other bf16 widths (C % 16 == 0, C <= 128; D = 2 or D % 16 == 0): the
+// mma.sync route, mma.sync m16n8k16 with 4 warps a block, each owning 16
+// rows of the output; synchronous staging through registers, shared rows
+// padded by 8 bf16. No GMFlow call takes it.
+//   dq: Q and G tiles staged once; per 64-key tile K and V staged; S = Q
+//   K^T and dP = G V^T, then p and ds per element in registers; ds rounded
+//   to bf16 and its accumulator fragments used directly as the A
+//   fragments of dq += dS . K, so dS never leaves registers.
 //   dk/dv: K and V of the block's 64 keys staged once; per 32-query tile
-//   Q, G, lse, delta staged; the transposed tiles S^T = K Q^T and dP^T =
-//   V G^T computed directly (the warp's 16 keys as rows), so P^T (bf16)
-//   and dS^T (bf16) are A fragments of dv += P^T . G and dk += dS^T . Q.
-//   Query tiles of 32 keep the live accumulators at 16 + 16 (S^T, dP^T)
-//   beside dk's 64 and dv's 64 registers.
-//   D == 2 (the matching grid and the propagated flow): dP and dv on the
-//   CUDA cores in f32 per lane (the tensor-core path would waste 63/64 of
-//   its work on padding D), dv reduced over the quad at the end.
+//   Q, G, lse, delta staged; S^T = K Q^T and dP^T = V G^T computed
+//   directly, so P^T (bf16) and dS^T (bf16) are A fragments of dv += P^T .
+//   G and dk += dS^T . Q. D == 2: dP and dv on the CUDA cores.
 //
 // f32 operands (f32 models, the card-vs-CPU parity runs): f32 FMA on the
 // CUDA cores, no TF32: one thread per output row (64 a block), its row's
@@ -53,6 +87,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 #define NEG_INF (-1e30f)
 #define WARPS 4
@@ -527,6 +563,577 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 operands at C = 128 and D = 128 or 2: the wgmma route
+// ---------------------------------------------------------------------------
+
+namespace sm90 {
+
+using namespace hopper;
+
+constexpr int WG = 2;                     // warpgroups a block
+constexpr int THREADS = WG * 128;
+constexpr int TILE = 64;  // rows per warpgroup and per ring tile
+constexpr int STAGES = 2;
+constexpr int PANEL = 64 * 64;            // bf16 of a [64 rows][64] panel
+constexpr uint32_t PANEL_BYTES = PANEL * 2;
+constexpr int LOADER = 4;  // the warp that refills the ring: warpgroup 1's
+                           // first, as warpgroup 1 takes its turns second
+
+// One block's shared memory. The resident side (64 rows per warpgroup;
+// the C-wide operand in two 64-column panels, and the D-wide one when D =
+// 128) is loaded once; the streamed side goes through a ring of STAGES
+// tiles of 64 rows: the C-wide operand, the D-wide one (two panels, or 64
+// bf16 pairs when D = 2) and, for dk/dv, lse and delta.
+// Every panel is a TMA box in the 128-byte swizzle that wgmma reads; the
+// pairs, lse and delta are rows of 4 bytes, whose tiles start wherever
+// b * L puts them (TMA wants 16-byte aligned boxes), so the loading warp
+// copies them itself.
+template <bool P2>
+struct Smem {
+  alignas(1024) bf16 rc[WG * 2][PANEL];
+  alignas(1024) bf16 rd[P2 ? 1 : WG * 2][P2 ? 8 : PANEL];
+  alignas(1024) bf16 sc[STAGES][2][PANEL];
+  alignas(1024) bf16 sd[STAGES][P2 ? 1 : 2][P2 ? 2 * TILE : PANEL];
+  float lse[STAGES][TILE], delta[STAGES][TILE];
+  uint64_t res_full, full[STAGES], empty[STAGES];
+};
+
+template <bool P2>
+constexpr size_t smem_bytes() {
+  return sizeof(Smem<P2>) + 1024;  // + the slack to align the base to 1 KB
+}
+
+template <bool P2>
+__device__ __forceinline__ Smem<P2>& shared_storage() {
+  extern __shared__ unsigned char smem_raw[];
+  return *reinterpret_cast<Smem<P2>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+}
+
+template <bool P2>
+__device__ __forceinline__ void init_barriers(Smem<P2>& sm) {
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.res_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 32);         // every loading lane arrives
+      mbar_init(&sm.empty[s], THREADS);   // every thread arrives
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// acc[64 x 64] = A . B^T over C = 128 (eight k16 steps): A the warpgroup's
+// resident [64][128] rows at `a`, B the ring's [64][128] rows at `b`, both
+// K-major. Within a 128-byte swizzle atom a k16 step is 32 bytes on.
+__device__ __forceinline__ void product_c128(float (&acc)[32], const bf16* a,
+                                             const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int off = (kk >> 2) * PANEL + (kk & 3) * 16;
+    wgmma_m64n64_ss(acc, desc_sw128(a + off, 16, 1024),
+                    desc_sw128(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc[64 x 128] += F . B: F the bf16 A fragments of a [64][64] tile (four
+// k16 steps), B the ring's [64][128] rows read MN-major, 16 rows a step.
+__device__ __forceinline__ void product_rs(float (&acc)[64],
+                                           const uint32_t (&f)[16],
+                                           const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n128_rs_tb(acc, &f[4 * kk],
+                        desc_sw128(b + kk * 16 * 64, PANEL_BYTES, 1024));
+}
+
+// Columns 16kk..16kk+15 of a 64-column accumulator (d[4j + e]: row g + 8
+// (e >> 1), column 8j + 2t + (e & 1)) rounded to bf16 as the A fragment of
+// k16 step kk.
+__device__ __forceinline__ void to_a_frag(const float (&d)[32],
+                                          uint32_t (&f)[16], int kk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[4 * kk + i] = pack_f32(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// The 2-bit Swin regions of the 16 columns c0 + 8j + 2t + e (j < 8, e < 2)
+// of a 64-column accumulator, bit pair 2j + e; idx % ww carried along
+// instead of divided per column.
+__device__ __forceinline__ uint32_t col_regions(const Swin& s, bool last_y,
+                                                bool last_x, int c0, int t) {
+  const int ylim = (s.wh - s.sh) * s.ww, xlim = s.ww - s.sw;
+  int m = (c0 + 2 * t) % s.ww;
+  uint32_t regs = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      int mx = m + e;
+      if (mx >= s.ww) mx -= s.ww;
+      const uint32_t r = (uint32_t)(last_y && c0 + 8 * j + 2 * t + e >= ylim)
+                             * 2u + (uint32_t)(last_x && mx >= xlim);
+      regs |= r << (2 * (2 * j + e));
+    }
+    m += 8;
+    while (m >= s.ww) m -= s.ww;
+  }
+  return regs;
+}
+
+// The two warpgroups take turns to issue a tile's first products (named
+// barriers 1 and 2, 256 threads: one side waits, the other arrives), so
+// that one's exponentials run while the other's products do.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG * 128) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(WG * 128)
+               : "memory");
+}
+
+__device__ __forceinline__ bool other_region(uint32_t cregs, int j, int e,
+                                             int row_region) {
+  return ((cregs >> (2 * (2 * j + (e & 1)))) & 3u) != (uint32_t)row_region;
+}
+
+// The loads of one block. Thread 0 issues the resident tiles' TMA loads
+// once. The loading warp fills ring stages: its lane 0 issues the TMA
+// loads of a tile's panels; its 32 lanes copy the tile's 4-byte rows (lse
+// and delta for dk/dv, the bf16 pairs at D = 2; zeros past Ls) with
+// cp.async, each lane's arrival on the stage's barrier made when its
+// copies land; the barrier also waits for the TMA bytes.
+template <bool P2, bool DKV>
+struct Loads {
+  const CUtensorMap *rc, *rd, *sc, *sd;  // resident, then streamed, maps
+  const uint32_t* pairs;
+  const float *lse, *delta;
+  int b, r0, Ls;  // batch entry, first resident row, streamed length
+
+  __device__ __forceinline__ void resident(Smem<P2>& sm) const {
+    mbar_expect_tx(&sm.res_full, (P2 ? 1 : 2) * WG * 2 * PANEL_BYTES);
+    for (int w = 0; w < WG; ++w)
+      for (int p = 0; p < 2; ++p) {
+        tma_load_3d(sm.rc[w * 2 + p], rc, &sm.res_full, p * 64,
+                    r0 + w * TILE, b);
+        if constexpr (!P2)
+          tma_load_3d(sm.rd[w * 2 + p], rd, &sm.res_full, p * 64,
+                      r0 + w * TILE, b);
+      }
+  }
+
+  __device__ __forceinline__ void stage(Smem<P2>& sm, int it,
+                                        int lane) const {
+    const int s = it % STAGES, s0 = it * TILE;
+    if (lane == 0) {
+      mbar_expect_tx_only(&sm.full[s], (P2 ? 2 : 4) * PANEL_BYTES);
+      for (int p = 0; p < 2; ++p) {
+        tma_load_3d(sm.sc[s][p], sc, &sm.full[s], p * 64, s0, b);
+        if constexpr (!P2)
+          tma_load_3d(sm.sd[s][p], sd, &sm.full[s], p * 64, s0, b);
+      }
+    }
+    __syncwarp();  // the bytes are expected before any lane can arrive
+    const long long base = (long long)b * Ls + s0;
+#pragma unroll
+    for (int i = lane; i < TILE; i += 32) {
+      const long long at = s0 + i < Ls ? base + i : 0;  // row, or zeros
+      const uint32_t n = s0 + i < Ls ? 4 : 0;
+      if constexpr (P2) cp_async_4(&sm.sd[s][0][2 * i], pairs + at, n);
+      if constexpr (DKV) {
+        cp_async_4(&sm.lse[s][i], lse + at, n);
+        cp_async_4(&sm.delta[s][i], delta + at, n);
+      }
+    }
+    cp_async_arrive(&sm.full[s]);
+  }
+
+  // the resident tiles and the first ring stages, before the sweep
+  __device__ __forceinline__ void start(Smem<P2>& sm, int n_tiles) const {
+    if (threadIdx.x == 0) resident(sm);
+    if (threadIdx.x / 32 == LOADER)
+      for (int it = 0; it < STAGES && it < n_tiles; ++it)
+        stage(sm, it, threadIdx.x & 31);
+  }
+
+  // after tile `it` is released: once every thread has released it, the
+  // loading warp refills its stage with tile it + STAGES
+  __device__ __forceinline__ void refill(Smem<P2>& sm, int it,
+                                         int n_tiles) const {
+    if (threadIdx.x / 32 == LOADER && it + STAGES < n_tiles) {
+      mbar_wait(&sm.empty[it % STAGES], (it / STAGES) & 1);
+      stage(sm, it + STAGES, threadIdx.x & 31);
+    }
+  }
+};
+
+// dk/dv: one block per (batch entry, 128 keys), 64 keys per warpgroup;
+// the query side streams. tm_q, tm_k and (at D = 128) tm_v and tm_g are
+// 3-D maps of [B, L, 128] in [1, 64, 64] boxes; at D = 2 the pairs of v
+// and g are read from the pointers.
+template <bool P2>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_g,
+                    const bf16* __restrict__ v, const bf16* __restrict__ g,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int Lq, int Lk, float scale,
+                    Swin sw) {
+  Smem<P2>& sm = shared_storage<P2>();
+  const int b = blockIdx.y, k0 = blockIdx.x * WG * TILE;
+  const int n_tiles = (Lq + TILE - 1) / TILE;
+  const int wg = threadIdx.x / 128;
+  init_barriers(sm);
+  const Loads<P2, true> loads{&tm_k, &tm_v, &tm_q, &tm_g,
+                              reinterpret_cast<const uint32_t*>(g), lse,
+                              delta, b, k0, Lq};
+  loads.start(sm, n_tiles);
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int row0 = k0 + wg * TILE + warp * 16 + gq;  // keys row0, row0 + 8
+  const bool idle = k0 + wg * TILE >= Lk;
+  bool last_y, last_x;
+  const bool masked = swin_window(sw, b, &last_y, &last_x);
+  int kreg[2] = {0, 0};
+  bool kok[2];
+  float2 v2[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = row0 + 8 * r;
+    kok[r] = key < Lk;
+    if (masked) kreg[r] = swin_region(sw, last_y, last_x, key);
+    if (P2 && kok[r])
+      v2[r] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          v + ((long long)b * Lk + key) * 2));
+  }
+  float dka[64], dva[P2 ? 4 : 64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (P2 ? 4 : 64); ++i) dva[i] = 0.f;
+  const bf16* kres = sm.rc[wg * 2];
+  const bf16* vres = sm.rd[P2 ? 0 : wg * 2];
+  mbar_wait(&sm.res_full, 0);
+  if (wg == 1) turn_pass(1);  // warpgroup 0 goes first
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, q0 = it * TILE;
+    mbar_wait(&sm.full[s], (it / STAGES) & 1);
+    // S^T = K Q^T and dP^T = V G^T: 64 keys x 64 queries
+    const bool pass = wg == 0 || it + 1 < n_tiles;  // matched by a wait
+    turn_wait(wg);
+    if (idle) {
+      if (pass) turn_pass(wg);
+    } else {
+      float st[32], dpt[32];
+      wgmma_fence();
+      product_c128(st, kres, sm.sc[s][0]);
+      if constexpr (!P2) product_c128(dpt, vres, sm.sd[s][0]);
+      wgmma_commit();
+      if (pass) turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(st);
+      if constexpr (!P2) fence_regs(dpt);
+
+      // p^T into st, ds^T into dpt; at D = 2, dP^T and dv on the CUDA
+      // cores from the pairs
+      const uint32_t cregs =
+          masked ? col_regions(sw, last_y, last_x, q0, t) : 0u;
+      const float2* lse2 = reinterpret_cast<const float2*>(sm.lse[s]);
+      const float2* del2 = reinterpret_cast<const float2*>(sm.delta[s]);
+      const __nv_bfloat162* g2 =
+          reinterpret_cast<const __nv_bfloat162*>(sm.sd[s][0]);
+      uint32_t pa[16], da[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 l = lse2[c >> 1], dl = del2[c >> 1];
+        float2 gp[2];
+        if constexpr (P2) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            gp[e] = q0 + c + e < Lq ? __bfloat1622float2(g2[c + e])
+                                    : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ce = e & 1, r = e >> 1, i = 4 * j + e;
+          const bool qok = q0 + c + ce < Lq;
+          float x = st[i] * scale;
+          if (masked && other_region(cregs, j, e, kreg[r])) x = x - 100.f;
+          if (!kok[r]) x = NEG_INF;
+          const float p = qok ? __expf(x - (ce ? l.y : l.x)) : 0.f;
+          float dp;
+          if constexpr (P2) {
+            dp = fmaf(gp[ce].x, v2[r].x, gp[ce].y * v2[r].y);
+            const float pb = __bfloat162float(__float2bfloat16(p));
+            dva[2 * r] = fmaf(pb, gp[ce].x, dva[2 * r]);
+            dva[2 * r + 1] = fmaf(pb, gp[ce].y, dva[2 * r + 1]);
+          } else {
+            dp = dpt[i];
+          }
+          st[i] = p;
+          dpt[i] = qok ? p * (dp - (ce ? dl.y : dl.x)) : 0.f;
+        }
+        if (j & 1) {  // a k16 step done: round it into its fragments
+          to_a_frag(dpt, da, j >> 1);
+          if constexpr (!P2) to_a_frag(st, pa, j >> 1);
+        }
+      }
+
+      // dv += P^T G and dk += dS^T Q, P^T and dS^T rounded to bf16 in
+      // registers, G and Q the same ring tiles read MN-major
+      wgmma_fence();
+      if constexpr (!P2) product_rs(dva, pa, sm.sd[s][0]);
+      product_rs(dka, da, sm.sc[s][0]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dka);
+      if constexpr (!P2) fence_regs(dva);
+    }
+    mbar_arrive(&sm.empty[s]);
+    loads.refill(sm, it, n_tiles);
+  }
+
+  if (!idle) {
+    if constexpr (P2) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dva[e] += __shfl_xor_sync(0xffffffffu, dva[e], 1);
+        dva[e] += __shfl_xor_sync(0xffffffffu, dva[e], 2);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!kok[r]) continue;
+      const long long row = (long long)b * Lk + row0 + 8 * r;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(dk + row * 128 + 8 * j + 2 * t) =
+            make_float2(dka[4 * j + 2 * r] * scale,
+                        dka[4 * j + 2 * r + 1] * scale);
+      if constexpr (P2) {
+        if (t == 0)
+          *reinterpret_cast<float2*>(dv + row * 2) =
+              make_float2(dva[2 * r], dva[2 * r + 1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(dv + row * 128 + 8 * j + 2 * t) =
+              make_float2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dq: one block per (batch entry, 128 queries), 64 queries per
+// warpgroup; the key side streams. The maps as for flash_bwd_dkv_wgmma;
+// each thread reads lse, delta and (at D = 2) g's pair for its two rows
+// itself.
+template <bool P2>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_g,
+                   const bf16* __restrict__ v, const bf16* __restrict__ g,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   int Lq, int Lk, float scale, Swin sw) {
+  Smem<P2>& sm = shared_storage<P2>();
+  const int b = blockIdx.y, q0 = blockIdx.x * WG * TILE;
+  const int n_tiles = (Lk + TILE - 1) / TILE;
+  const int wg = threadIdx.x / 128;
+  init_barriers(sm);
+  const Loads<P2, false> loads{&tm_q, &tm_g, &tm_k, &tm_v,
+                               reinterpret_cast<const uint32_t*>(v), nullptr,
+                               nullptr, b, q0, Lk};
+  loads.start(sm, n_tiles);
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int row0 = q0 + wg * TILE + warp * 16 + gq;  // rows row0, row0 + 8
+  const bool idle = q0 + wg * TILE >= Lq;
+  bool last_y, last_x;
+  const bool masked = swin_window(sw, b, &last_y, &last_x);
+  int qreg[2] = {0, 0};
+  bool qok[2];
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  float2 g2[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    qok[r] = row < Lq;
+    if (masked) qreg[r] = swin_region(sw, last_y, last_x, row);
+    if (qok[r]) {
+      lse_r[r] = lse[(long long)b * Lq + row];
+      delta_r[r] = delta[(long long)b * Lq + row];
+      if (P2)
+        g2[r] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            g + ((long long)b * Lq + row) * 2));
+    }
+  }
+  float dqa[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dqa[i] = 0.f;
+  const bf16* qres = sm.rc[wg * 2];
+  const bf16* gres = sm.rd[P2 ? 0 : wg * 2];
+  mbar_wait(&sm.res_full, 0);
+  if (wg == 1) turn_pass(1);  // warpgroup 0 goes first
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, k0 = it * TILE;
+    mbar_wait(&sm.full[s], (it / STAGES) & 1);
+    // S = Q K^T and dP = G V^T: 64 queries x 64 keys
+    const bool pass = wg == 0 || it + 1 < n_tiles;  // matched by a wait
+    turn_wait(wg);
+    if (idle) {
+      if (pass) turn_pass(wg);
+    } else {
+      float sa[32], dp[32];
+      wgmma_fence();
+      product_c128(sa, qres, sm.sc[s][0]);
+      if constexpr (!P2) product_c128(dp, gres, sm.sd[s][0]);
+      wgmma_commit();
+      if (pass) turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(sa);
+      if constexpr (!P2) fence_regs(dp);
+
+      // ds = p (dp - delta) into sa
+      const uint32_t cregs =
+          masked ? col_regions(sw, last_y, last_x, k0, t) : 0u;
+      const __nv_bfloat162* v2 =
+          reinterpret_cast<const __nv_bfloat162*>(sm.sd[s][0]);
+      uint32_t da[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        float2 vp[2];
+        if constexpr (P2) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            vp[e] = k0 + c + e < Lk ? __bfloat1622float2(v2[c + e])
+                                    : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ce = e & 1, r = e >> 1, i = 4 * j + e;
+          float x = sa[i] * scale;
+          if (masked && other_region(cregs, j, e, qreg[r])) x = x - 100.f;
+          if (k0 + c + ce >= Lk) x = NEG_INF;
+          const float p = qok[r] ? __expf(x - lse_r[r]) : 0.f;
+          float dpv;
+          if constexpr (P2)
+            dpv = fmaf(g2[r].x, vp[ce].x, g2[r].y * vp[ce].y);
+          else
+            dpv = dp[i];
+          sa[i] = qok[r] ? p * (dpv - delta_r[r]) : 0.f;
+        }
+        if (j & 1) to_a_frag(sa, da, j >> 1);
+      }
+
+      // dq += dS K: dS rounded to bf16 in registers, K the ring tile
+      // read MN-major
+      wgmma_fence();
+      product_rs(dqa, da, sm.sc[s][0]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+    }
+    mbar_arrive(&sm.empty[s]);
+    loads.refill(sm, it, n_tiles);
+  }
+
+  if (!idle) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!qok[r]) continue;
+      const long long row = (long long)b * Lq + row0 + 8 * r;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(dq + row * 128 + 8 * j + 2 * t) =
+            make_float2(dqa[4 * j + 2 * r] * scale,
+                        dqa[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// The widths this route takes: GMFlow's (C = 128; D = 128, or 2 for the
+// matching grid and the propagated flow), with B * L within TMA's int32
+// coordinates.
+static bool takes(int B, int Lq, int Lk, int C, int D) {
+  return C == 128 && (D == 128 || D == 2) &&
+         (long long)B * (Lq > Lk ? Lq : Lk) < (1ll << 31);
+}
+
+// The 3-D maps of q and k and, at D = 128, of v and g ([B, L, 128] bf16
+// in [1, 64, 64] boxes); at D = 2 the maps of v and g are copies of k's
+// and q's that the kernels do not read.
+static int tensor_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+                       const void* v, const void* g, int B, int Lq, int Lk,
+                       int D) {
+  int e;
+  if ((e = tensor_map_bf16_3d(&m[0], q, 128, Lq, B, TILE))) return e;
+  if ((e = tensor_map_bf16_3d(&m[1], k, 128, Lk, B, TILE))) return e;
+  if (D == 2) {
+    m[2] = m[1];
+    m[3] = m[0];
+    return 0;
+  }
+  if ((e = tensor_map_bf16_3d(&m[2], v, 128, Lk, B, TILE))) return e;
+  return tensor_map_bf16_3d(&m[3], g, 128, Lq, B, TILE);
+}
+
+template <bool P2>
+static int launch_dkv(const void* q, const void* k, const void* v,
+                      const void* g, const void* lse, const void* delta,
+                      void* dk, void* dv, int B, int Lq, int Lk, float scale,
+                      Swin sw, cudaStream_t st) {
+  CUtensorMap m[4];
+  int e;
+  if ((e = tensor_maps(m, q, k, v, g, B, Lq, Lk, P2 ? 2 : 128))) return e;
+  const size_t smem = smem_bytes<P2>();
+  if ((e = (int)cudaFuncSetAttribute(
+           flash_bwd_dkv_wgmma<P2>,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return e;
+  const dim3 grid((unsigned)((Lk + WG * TILE - 1) / (WG * TILE)),
+                  (unsigned)B);
+  flash_bwd_dkv_wgmma<P2><<<grid, THREADS, smem, st>>>(
+      m[0], m[1], m[2], m[3], (const bf16*)v, (const bf16*)g,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, Lq, Lk,
+      scale, sw);
+  return (int)cudaGetLastError();
+}
+
+template <bool P2>
+static int launch_dq(const void* q, const void* k, const void* v,
+                     const void* g, const void* lse, const void* delta,
+                     void* dq, int B, int Lq, int Lk, float scale, Swin sw,
+                     cudaStream_t st) {
+  CUtensorMap m[4];
+  int e;
+  if ((e = tensor_maps(m, q, k, v, g, B, Lq, Lk, P2 ? 2 : 128))) return e;
+  const size_t smem = smem_bytes<P2>();
+  if ((e = (int)cudaFuncSetAttribute(
+           flash_bwd_dq_wgmma<P2>,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return e;
+  const dim3 grid((unsigned)((Lq + WG * TILE - 1) / (WG * TILE)),
+                  (unsigned)B);
+  flash_bwd_dq_wgmma<P2><<<grid, THREADS, smem, st>>>(
+      m[0], m[1], m[2], m[3], (const bf16*)v, (const bf16*)g,
+      (const float*)lse, (const float*)delta, (float*)dq, Lq, Lk, scale, sw);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+
+// ---------------------------------------------------------------------------
 // f32 operands: one thread per output row
 // ---------------------------------------------------------------------------
 
@@ -766,6 +1373,11 @@ extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
     const dim3 grid((unsigned)((Lq + F32_ROWS - 1) / F32_ROWS), (unsigned)B);
     return launch(flash_bwd_dq_f32, grid, F32_ROWS, smem, st, args);
   }
+  if (sm90::takes(B, Lq, Lk, C, D))
+    return D == 2 ? sm90::launch_dq<true>(q, k, v, g, lse, delta, dq, B, Lq,
+                                          Lk, scale, sw, st)
+                  : sm90::launch_dq<false>(q, k, v, g, lse, delta, dq, B, Lq,
+                                           Lk, scale, sw, st);
   const dim3 grid((unsigned)((Lq + ROWS - 1) / ROWS), (unsigned)B);
   const size_t tiles = (size_t)(ROWS + BK) * (C + PAD) * sizeof(bf16);
   if (D == 2)
@@ -797,6 +1409,11 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
     const dim3 grid((unsigned)((Lk + F32_ROWS - 1) / F32_ROWS), (unsigned)B);
     return launch(flash_bwd_dkv_f32, grid, F32_ROWS, smem, st, args);
   }
+  if (sm90::takes(B, Lq, Lk, C, D))
+    return D == 2 ? sm90::launch_dkv<true>(q, k, v, g, lse, delta, dk, dv, B,
+                                           Lq, Lk, scale, sw, st)
+                  : sm90::launch_dkv<false>(q, k, v, g, lse, delta, dk, dv, B,
+                                            Lq, Lk, scale, sw, st);
   const dim3 grid((unsigned)((Lk + ROWS - 1) / ROWS), (unsigned)B);
   const size_t tiles = (size_t)(ROWS + QT) * (C + PAD) * sizeof(bf16);
   if (D == 2)

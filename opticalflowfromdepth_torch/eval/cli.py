@@ -88,6 +88,9 @@ def main(argv=None) -> dict:
     p.add_argument("--submission", choices=("sintel", "kitti"), default=None)
     p.add_argument("--warm_start", action="store_true")
     args = p.parse_args(argv)
+    if args.warm_start and args.model != "raft":
+        p.error("--warm_start starts each Sintel frame from the previous "
+                "pair's low-res flow, which only RAFT returns")
 
     import torch
 
@@ -115,7 +118,7 @@ def main(argv=None) -> dict:
                      prop_radius_list=args.prop_radius_list,
                      device=args.device)
         infer_fn = gmflow_infer_fn(model, **lists)
-        warm_fn = infer_fn
+        warm_fn = infer_fn          # the Sintel writer takes its one output
         if args.pred_bidir_flow:
             infer_fn = gmflow_infer_fn(model, pred_bidir_flow=True, **lists)
 

@@ -8,9 +8,12 @@
   * :func:`create_sintel_submission` (`adjusted_RAFT/evaluate.py:19-50`);
   * :func:`create_kitti_submission` (`adjusted_RAFT/evaluate.py:53-74`).
 
-The Sintel writer takes an infer function that returns ``(low-res flow,
-flow)`` and, with ``warm_start``, takes a ``flow_init`` keyword: RAFT's
-``raft_infer_fn(with_low_res=True)``. The KITTI writer takes either kind.
+Both writers take an infer function that returns the flow, or a tuple
+whose last entry is the flow. With ``warm_start`` the Sintel writer needs
+``(low-res flow, flow)`` and a ``flow_init`` keyword, as RAFT's
+``raft_infer_fn(with_low_res=True)`` gives, and refuses a function
+without the low-res flow. (The JAX writer unpacks ``(low-res flow,
+flow)`` always, so it fails on GMFlow's single output.)
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ def create_sintel_submission(infer_fn: Callable, root: str = "datasets",
     """Writes ``<output_path>/<clean|final>/<scene>/frame%04d.flo``, one per
     pair of the test split (`evaluate.py:19-50`). With ``warm_start``
     every frame of a scene after the first starts from the forward-splat
-    of the previous pair's low-res flow."""
+    of the previous pair's low-res flow; a function that returns no
+    low-res flow raises ``ValueError``."""
     for dstype in ("clean", "final"):
         ds = D.MpiSintel(split="test", dstype=dstype, root=f"{root}/Sintel")
         flow_prev, sequence_prev = None, None
@@ -69,10 +73,16 @@ def create_sintel_submission(infer_fn: Callable, root: str = "datasets",
             kwargs = {}
             if warm_start and flow_prev is not None:
                 kwargs["flow_init"] = flow_prev[None]
-            flow_low, flow = infer_fn(im1, im2, **kwargs)
+            out = infer_fn(im1, im2, **kwargs)
+            if warm_start and not (isinstance(out, tuple) and len(out) == 2):
+                raise ValueError(
+                    "warm_start needs an infer function that returns (low-res "
+                    "flow, flow), as raft_infer_fn(with_low_res=True) does; "
+                    "this one returns no low-res flow")
+            flow = out[-1] if isinstance(out, tuple) else out
             flow = padder.unpad(np.asarray(flow))[0]
             if warm_start:
-                flow_prev = forward_interpolate(np.asarray(flow_low)[0])
+                flow_prev = forward_interpolate(np.asarray(out[0])[0])
             out_dir = os.path.join(output_path, dstype, sequence)
             os.makedirs(out_dir, exist_ok=True)
             frame_io.write_flo(

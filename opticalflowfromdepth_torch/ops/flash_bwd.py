@@ -14,8 +14,11 @@ CUDA tensors launch the two hand-written kernels of ``csrc/flash_bwd.cu``
 (dq: one block per (batch, query tile) sweeping the key tiles; dk and dv:
 one block per (batch, key tile) sweeping the query tiles; no atomics, so
 every gradient is bit-reproducible); CPU tensors take
-:func:`flash_backward_plain`. Nothing falls back: a CUDA input the kernels
-do not take raises.
+:func:`flash_backward_plain`. The C entry points pick the route: bf16 at
+C = 128 with D = 128 or 2 (GMFlow's widths) the ``wgmma`` route (TMA, a
+ring of tiles, two warpgroups); other bf16 widths the ``mma.sync``
+route; f32 the CUDA-core kernels. Nothing falls back: a CUDA input that
+no route takes raises.
 
 The operand dtype is q's, as in the forward: bf16 rounds what the TPU
 kernels round (q, k, v, g to bf16, ``p`` to bf16 before ``p^T g`` and

@@ -301,12 +301,22 @@ def test_gmflow_on_card_matches_cpu(card, num_scales):
     assert num_scales == 1 or p99 <= 0.2
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,lq,lk,c,d,swin", [
+# bf16 at C = 128 with D = 128 or 2 takes the wgmma route (64-row tiles,
+# 128 rows a block), other widths the mma.sync route
+FLASH_BWD_CASES = [
     (8, 24, 24, 128, 128, (2, 4, 6, 2, 3)),      # [2B] windows, shifted
-    (2, 100, 63, 64, 16, None),                  # ragged
+    (2, 100, 63, 64, 16, None),                  # ragged (mma.sync)
     (2, 300, 300, 128, 2, None),                 # matching payload
-    (2, 130, 70, 32, 48, None)])                 # ragged, narrow
+    (2, 130, 70, 32, 48, None),                  # ragged, narrow (mma.sync)
+    (1, 65, 129, 128, 128, None),                # a tile + 1 row
+    (2, 127, 63, 128, 128, None),                # a tile - 1 row
+    (1, 129, 65, 128, 2, None),
+    (2, 63, 127, 128, 2, None),
+    (8, 130, 130, 128, 128, (2, 10, 13, 5, 6))]  # region edge inside tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,c,d,swin", FLASH_BWD_CASES)
 def test_flash_bwd_kernels_match_plain(card, dtype, b, lq, lk, c, d, swin):
     """Through the autograd Function: the two backward kernels against the
     plain backward on the forward kernel's residuals. f32: sums in another
@@ -337,6 +347,26 @@ def test_flash_bwd_kernels_match_plain(card, dtype, b, lq, lk, c, d, swin):
         step = 2 ** -8 * r.abs() if dtype == torch.bfloat16 else 0.0
         assert float(((x - r).abs() / (tol + step)).max()) <= 1.0
     assert float(((ref[0] * 0.98 - ref[0]).abs() / tols[0]).max()) > 1.0
+
+
+@pytest.mark.parametrize("b,lq,lk,c,d,swin", [
+    (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),   # wgmma route
+    (2, 129, 65, 128, 2, None),                   # wgmma route, D = 2
+    (2, 100, 63, 64, 16, None)])                  # mma.sync route
+def test_flash_bwd_kernels_bit_reproducible(card, b, lq, lk, c, d, swin):
+    """No atomics: two launches on the same bf16 inputs give the same
+    bits."""
+    g_ = torch.Generator().manual_seed(11)
+    q, k = (torch.randn(b, n, c, generator=g_).to(card, torch.bfloat16)
+            for n in (lq, lk))
+    v = torch.randn(b, lk, d, generator=g_).to(card, torch.bfloat16)
+    gout = torch.randn(b, lq, d, generator=g_).to(card)
+    out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
+    first = fb.flash_backward(q, k, v, out, lse, gout, swin=swin)
+    second = fb.flash_backward(q, k, v, out, lse, gout, swin=swin)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert all(bool(torch.isfinite(x).all()) for x in first)
 
 
 def test_flash_function_f32_grads_on_card_match_dense(card):

@@ -528,6 +528,39 @@ def test_sintel_submission_equal_to_jax(bench_root, tmp_path, warm_start):
     assert calls == [False, warm_start, False] * 2
 
 
+def test_sintel_submission_takes_a_single_output(bench_root, tmp_path):
+    """GMFlow's infer function returns the flow alone: the writer takes
+    it as the flow, and writes the same files as for ``(low-res, flow)``
+    with the same flow."""
+    tsub.create_sintel_submission(numpy_infer, root=bench_root,
+                                  output_path=str(tmp_path / "one"))
+    tsub.create_sintel_submission(numpy_infer_low, root=bench_root,
+                                  output_path=str(tmp_path / "two"))
+    names = _same_tree(str(tmp_path / "one"), str(tmp_path / "two"))
+    assert len(names) == 6
+    for n in names:
+        assert (tmp_path / "one" / n).read_bytes() == (tmp_path / "two" / n
+                                                       ).read_bytes(), n
+
+
+def test_sintel_submission_refuses_warm_start_without_low_res(bench_root,
+                                                              tmp_path):
+    with pytest.raises(ValueError, match="no low-res flow"):
+        tsub.create_sintel_submission(numpy_infer, root=bench_root,
+                                      output_path=str(tmp_path / "t"),
+                                      warm_start=True)
+
+
+def test_jax_sintel_submission_fails_on_a_single_output(bench_root,
+                                                        tmp_path):
+    """The known difference: the JAX writer unpacks ``(low-res flow,
+    flow)`` from every call, so a single-output function (GMFlow's) makes
+    it raise on the same tree."""
+    with pytest.raises(ValueError, match="unpack"):
+        jsub.create_sintel_submission(numpy_infer, root=bench_root,
+                                      output_path=str(tmp_path / "j"))
+
+
 def test_kitti_submission_equal_to_jax(bench_root, tmp_path):
     """The same file names and, decoded, the same 16-bit values (the two
     PNG encoders compress differently)."""
@@ -640,6 +673,24 @@ def test_cli_val_and_submission_gmflow(bench_root, tmp_path, capsys):
                                                       "000001_10.png"]
     assert tio.read_png(str(tmp_path / "kitti/000000_10.png")).shape == \
         KITTI_HW + (3,)
+
+
+def test_cli_gmflow_sintel_submission(bench_root, tmp_path):
+    """``--submission sintel --model gmflow`` writes the ``.flo`` files;
+    ``--warm_start`` without RAFT's low-res flow is refused."""
+    ckpt = tmp_path / "gmflow.pth"
+    torch.save(GMFlow(generator=torch.Generator().manual_seed(1)).state_dict(),
+               ckpt)
+    base = ["--model", "gmflow", "--ckpt", str(ckpt), "--device", "cpu",
+            "--padding_factor", "16", "--data_root", bench_root,
+            "--submission", "sintel", "--output_path", str(tmp_path / "s")]
+    cli.main(base)
+    names = _same_tree(str(tmp_path / "s"), str(tmp_path / "s"))
+    assert len(names) == 6 and all(n.endswith(".flo") for n in names)
+    flo = tio.read_flo(str(tmp_path / "s/final/alley_9/frame0002.flo"))
+    assert flo.shape == SINTEL_HW + (2,) and np.isfinite(flo).all()
+    with pytest.raises(SystemExit):
+        cli.main(base + ["--warm_start"])
 
 
 def test_cli_asks_for_the_card_by_default(bench_root, tmp_path, monkeypatch):

@@ -326,3 +326,28 @@ def test_port_imports_no_jax():
             bad += [f"{f.relative_to(REPO)}: {n}" for n in names
                     if n.split(".")[0] in banned]
     assert len(files) > 15 and not bad, bad
+
+
+# --------------------------------------------------------------------------
+# the kernels' build cache
+# --------------------------------------------------------------------------
+
+def test_build_cache_key_covers_the_headers(tmp_path, monkeypatch):
+    """A library is named by the hash of its source, every shared header
+    ``csrc/*.cuh`` and the flags: editing a header (or adding one) names
+    another library, so a stale build never loads."""
+    from opticalflowfromdepth_torch import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("#define A 1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    src, first = _build._paths("k")
+    assert src == tmp_path / "k.cu" and first.name.startswith("k-")
+    assert _build._paths("k")[1] == first
+    (tmp_path / "h.cuh").write_text("#define A 2\n")
+    second = _build._paths("k")[1]
+    (tmp_path / "other.cuh").write_text("\n")
+    third = _build._paths("k")[1]
+    assert len({first, second, third}) == 3
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build._paths("k")[1] not in {first, second, third}
