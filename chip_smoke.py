@@ -13,16 +13,25 @@ Run from the repository root on a host with one CUDA card. Phases:
    [3a] the fused lookup and [3b] instance norm at the shapes RAFT-basic
    serving gives them at Sintel size (440x1024 padded), the lookup also at
    KITTI's 47x156 (376x1248 padded); [3c] the lookup's
-   backward and [3d] instance norm's gradient at the training shapes
-   (batch 8, 368x496; where the Triton and the plain forward fall on
-   opposite sides of the ReLU, |g| rstd allowed on top); [3e] the flash streaming-softmax kernel at
+   backward at the training shape (batch 8, 368x496), ragged N (63, 65),
+   levels pooled to nothing and far out-of-range queries, f32 (CUDA-core
+   route) and bf16 (tensor-core route), with two launches that must give
+   the same bits and two planted faults (df2cat x 0.98, the first query
+   tile left out) that must fail the tolerance; [3d] instance norm's
+   gradient at the training shapes (where the Triton and the plain
+   forward fall on opposite sides of the ReLU, |g| rstd allowed on top);
+   [3e] the flash streaming-softmax kernel at
    GMFlow's Sintel shape classes (window attention [8, 1792, 128] with
    and without the Swin mask, global matching and global propagation
    [1, 7168, 128] with a 2-wide payload, the refinement's windows
    [128, 448, 128]) and at KITTI's (384x1248 padded: windows [8, 1872,
    128], shifted 12 and 39, matching and propagation [1, 7488, 128]),
-   ragged lengths, extreme logits, bf16 and f32
-   operands and the LSE, timed against its bound, the plain version and
+   ragged lengths, extreme logits, the wgmma route's edges (a 64-row tile
+   + 1 and - 1, D = 128 and 2, a Swin region edge inside a key tile),
+   bf16 and f32 operands and the LSE, two launches that must give the
+   same bits, each case's route, blocks and waves printed, timed at the
+   serving and the training shape classes against its bound (TFLOP/s,
+   share of the bound), the plain version (serving) and
    ``F.scaled_dot_product_attention``; [3f] the two flash backward
    kernels (dq; dk and dv) at GMFlow's training shape classes (batch 16
    of 368x560: windows [128, 805, 128] with and without the Swin mask,
@@ -369,28 +378,42 @@ def fused_corr_bwd_phase(gen):
     c, levels, radius = 256, 4, 4
     k2 = (2 * radius + 1) ** 2
 
-    def inputs(b, h, w, dtype, spread, shift=0.0):
-        f1, f2cat, coords = corr_inputs(gen, b, h, w, dtype, spread, shift,
+    def inputs(b, h, w, dtype, spread, shift=0.0, draw=gen):
+        f1, f2cat, coords = corr_inputs(draw, b, h, w, dtype, spread, shift,
                                         c, levels)
-        g = torch.randn(b, h * w, levels * k2, generator=gen).cuda()
+        g = torch.randn(b, h * w, levels * k2, generator=draw).cuda()
         return g.to(dtype), f1, f2cat, coords
 
     worst = 0.0
-    # f32: the kernel sums df2cat with atomics, in an order that changes
-    # from run to run, and the plain version with a matmul: 1e-4. bf16:
-    # both round the same f32 sums once, so they may be one bf16 step
-    # (2^-7 relative) apart.
+    # f32 (the CUDA-core route): the kernel sums in its own fixed order,
+    # the plain version with a matmul: 1e-4. bf16 (C = 256: the tensor-core
+    # route, d_corr split into bf16 hi + lo; the plain version repeats the
+    # split): the same f32 sums in another order, each rounded to bf16
+    # once, so they may be one bf16 step (2^-7 relative) apart. Two
+    # launches on the same inputs must give the same bits (no atomics).
+    # The edge cases (N = 65, one over a 64-query tile; 3x40, whose levels
+    # 2 and 3 pool to nothing) draw from a generator of their own, so the
+    # other cases and the later phases keep their draws.
+    edge_gen = torch.Generator().manual_seed(64)
     for dtype, rtol, atol in ((torch.float32, 0.0, 1e-4),
                               (torch.bfloat16, 2 ** -7, 1e-3)):
-        for label, (b, h, w, spread, shift) in (
+        for label, (b, h, w, spread, shift), draw in (
                 (f"train {h8}x{w8} B={TRAIN_BATCH}",
-                 (TRAIN_BATCH, h8, w8, 20.0, 0.0)),
-                ("ragged N=63", (1, 7, 9, 6.0, 0.0)),
-                ("far out of range", (1, h8, w8, 0.0, 1e4))):
-            g, f1, f2cat, coords = inputs(b, h, w, dtype, spread, shift)
+                 (TRAIN_BATCH, h8, w8, 20.0, 0.0), gen),
+                ("ragged N=63", (1, 7, 9, 6.0, 0.0), gen),
+                ("far out of range", (1, h8, w8, 0.0, 1e4), gen),
+                ("ragged N=65", (1, 5, 13, 6.0, 0.0), edge_gen),
+                ("levels pooled to nothing 3x40", (2, 3, 40, 6.0, 0.0),
+                 edge_gen)):
+            g, f1, f2cat, coords = inputs(b, h, w, dtype, spread, shift, draw)
             got = fc.fused_corr_lookup_cat_bwd(g, f1, f2cat, coords, h, w,
                                                levels, radius)
+            again = fc.fused_corr_lookup_cat_bwd(g, f1, f2cat, coords, h, w,
+                                                 levels, radius)
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"lookup backward {label} {dtype}: two launches on the "
+                     "same inputs differ")
             ref = fc.fused_corr_lookup_cat_bwd_plain(g, f1, f2cat, coords, h,
                                                      w, levels, radius)
             for name, x, r, like in zip(("df1", "df2cat"), got, ref,
@@ -410,9 +433,29 @@ def fused_corr_bwd_phase(gen):
                 print(f"    max abs diff {err:.3e}", flush=True)
                 if label.startswith("train") and dtype == torch.bfloat16:
                     worst = max(worst, err)
+            pad = padded_rows(fc.cat_meta(h, w, levels))
+            if torch.count_nonzero(got[1][:, pad]):
+                fail(f"lookup backward {label}: padded rows of df2cat not 0")
             if shift:
                 print(f"  {label} {dtype}: df1 and df2cat exactly 0",
                       flush=True)
+            if label.startswith("train"):
+                # planted faults: df2cat x 0.98, and the first query tile's
+                # contribution left out (its cotangent zeroed)
+                g_cut = g.clone()
+                g_cut[0, :fc.KERNEL_TILE] = 0
+                cut = fc.fused_corr_lookup_cat_bwd(g_cut, f1, f2cat, coords,
+                                                   h, w, levels, radius)
+                faults = [max_rel_excess(got[1].float() * 0.98, ref[1],
+                                         rtol, atol),
+                          max_rel_excess(cut[1], ref[1], rtol, atol)]
+                print(f"    planted faults, |d| / tolerance (each must "
+                      f"exceed 1): df2cat x 0.98 {faults[0]:.2f}, the first "
+                      f"query tile left out {faults[1]:.2f}; padded rows 0; "
+                      f"two launches bit-equal ({fc.bwd_route(dtype, c)})",
+                      flush=True)
+                if not min(faults) > 1.0:
+                    fail(f"lookup backward: a planted fault passes {faults}")
 
     # timing at the training shape and dtype (bf16, batch 8)
     g, f1, f2cat, coords = inputs(TRAIN_BATCH, h8, w8, torch.bfloat16, 20.0)
@@ -424,28 +467,41 @@ def fused_corr_bwd_phase(gen):
     n = TRAIN_BATCH * h8 * w8
     taps = valid_taps(coords, meta, radius)
     # what the function must move: g, f1, f2cat and coords read once, df1
-    # and df2cat written once in their inputs' dtypes. The f32 scratch
-    # that the atomics design sums into (and its zeroing and cast) is a
-    # cost of this kernel, not of the function, and is reported apart.
+    # and df2cat written once in their inputs' dtypes. Its operations: the
+    # in-range taps' products (the window form), and the transposed
+    # bilinear stages. The kernel's own traffic beyond that: its tap
+    # scratch, written once and read by both product passes.
     nbytes = (g.numel() + f1.numel() + f2cat.numel() + f1.numel()
               + f2cat.numel()) * g.element_size() + coords.numel() * 4
-    scratch = f2cat.numel() * (4 - f2cat.element_size())
+    npad = -(-h8 * w8 // 128) * 128
+    scratch = TRAIN_BATCH * levels * npad * ((2 * radius + 2) ** 2 * 4 + 8)
     ops = 4 * c * taps + 8 * n * levels * (2 * radius + 2) ** 2
+    dense = 2 * 2 * 2 * TRAIN_BATCH * h8 * w8 * f2cat.shape[1] * c
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOP_PER_S \
         else "operations"
     print(f"  bf16 [{TRAIN_BATCH},{h8 * w8},{c}] x R={f2cat.shape[1]}: kernel "
-          f"{ms * 1e3:.1f} us (with the scratch's zeroing and cast), plain "
+          f"{ms * 1e3:.1f} us (three passes; the dense products, hi and lo, "
+          f"{dense / 1e9:.1f} GFLOP: {dense / ms / 1e9:.1f} TFLOP/s), plain "
           f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
           f"({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP, "
-          f"{taps} in-range taps); the f32 scratch adds "
-          f"{scratch / 1e6:.2f} MB more than a {f2cat.dtype} df2cat",
+          f"{taps} in-range taps); it moves {nbytes / 1e6:.2f} MB of inputs "
+          f"and outputs and writes {scratch / 1e6:.2f} MB of tap scratch, "
+          f"read once by df1's pass and once per row block by df2cat's",
           flush=True)
     return dict(name="fused_corr_lookup_bwd", route="cuda",
                 source="opticalflowfromdepth_torch/csrc/fused_corr.cu",
                 replaces="opticalflowfromdepth_tpu/ops/fused_corr.py:171",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def padded_rows(meta):
+    """The packed rows that pad a level's y to hp (not a real row)."""
+    import torch
+    rows = [off + x * hp + y for (hl, wl, hp, off) in meta
+            for x in range(wl) for y in range(hl, hp)]
+    return torch.tensor(rows, dtype=torch.long, device="cuda")
 
 
 def instance_norm_grad_phase(gen):
@@ -549,9 +605,12 @@ def flash_compare(fl, what, q, k, v, swin) -> float:
     order, 1e-4 of max|v|; bf16, ``bf16_tolerance`` row by row (two bf16
     steps of the row's largest ``pi_i |v_i|``). Two planted faults must
     exceed it: the output scaled by 0.98, and the last 64 keys left out of
-    P . V but kept in the denominator (their v zeroed)."""
+    P . V but kept in the denominator (their v zeroed). A second launch on
+    the same inputs must give the same bits."""
     import torch
     got, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
+    again, again_lse = fl.flash_softmax_matmul(q, k, v, swin=swin,
+                                               with_lse=True)
     torch.cuda.synchronize()
     ref, ref_lse = fl.flash_softmax_matmul_plain(q, k, v, swin=swin,
                                                  with_lse=True)
@@ -559,6 +618,8 @@ def flash_compare(fl, what, q, k, v, swin) -> float:
             or not bool(torch.isfinite(got).all()):
         fail(f"flash {what}: {got.shape}/{got.dtype}, finite="
              f"{bool(torch.isfinite(got).all())}")
+    if not (torch.equal(got, again) and torch.equal(lse, again_lse)):
+        fail(f"flash {what}: two launches on the same inputs differ")
     if q.dtype == torch.float32:
         tol = 1e-4 * float(v.abs().max())
         rule = f"|d| <= {tol:.3e}, 1e-4 max|v|"
@@ -576,7 +637,7 @@ def flash_compare(fl, what, q, k, v, swin) -> float:
           float(((got - ref).abs() / tol).max()), 1.0)
     print(f"    planted faults, |d| / tolerance (each must exceed 1): out "
           f"x 0.98 {ratios[0]:.2f}, last key tile left out of P.V "
-          f"{ratios[1]:.2f}", flush=True)
+          f"{ratios[1]:.2f}; two launches bit-equal", flush=True)
     if not min(ratios) > 1.0:
         fail(f"flash {what}: a planted fault passes the tolerance {ratios}")
     # the row max enters the LSE whole: with extreme logits it is ~1e3, and
@@ -608,24 +669,80 @@ def flash_phase(gen):
                                    30.0 if name == "extreme logits" else 1.0,
                                    KW8 if kitti else W8)
             err = flash_compare(fl, f"{name} {dtype} [{b},{l},{c}]x"
-                                f"[{b},{l},{d}]", q, k, v, swin)
+                                f"[{b},{l},{d}]{plan_tag(fl, q, k, v)}", q,
+                                k, v, swin)
             if dtype == torch.bfloat16 and name in sintel:
                 worst = max(worst, err)
         # ragged keys (Lk = 63 < one 64-key tile) with Lq = 100
         q, _, _ = flash_inputs(gen, 2, 100, 100, 64, 16, dtype)
         _, k, v = flash_inputs(gen, 2, 63, 63, 64, 16, dtype)
         flash_compare(fl, f"ragged Lq=100 Lk=63 {dtype}", q, k, v, None)
+    # the wgmma route's edges: lengths of a 64-row tile + 1 and - 1, D = 128
+    # and 2, a Swin region edge inside a key tile (window 10x13 shifted 5
+    # and 6: rows from 65 on, columns 7-12 of each window row), the
+    # training windows' shape (its last key tile ragged), blocks of three
+    # warpgroups with one idle; drawn from a
+    # generator of their own, so the cases above keep their draws
+    edge_gen = torch.Generator().manual_seed(62)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (b, (lq, lk), d, payload, swin) in (
+                ("ragged 65x129", (1, (65, 129), 128, "normal", None)),
+                ("ragged 127x63", (2, (127, 63), 128, "normal", None)),
+                ("ragged 129x65 D=2", (1, (129, 65), 2, "flow", None)),
+                ("ragged 63x127 D=2", (2, (63, 127), 2, "flow", None)),
+                ("swin edge inside a tile", (8, (130, 130), 128, "normal",
+                                             (2, 10, 13, 5, 6))),
+                ("train window+swin", (8, (805, 805), 128, "normal",
+                                       (2, GH8 // 2, GW8 // 2, GH8 // 4,
+                                        GW8 // 4))),
+                # enough blocks for three warpgroups a block, the third
+                # idle (Lq = 100 < 128)
+                ("three warpgroups 264x100", (264, (100, 100), 128, "normal",
+                                              None))):
+            q, _, _ = flash_inputs(edge_gen, b, lq, lq, 128, d, dtype,
+                                   payload)
+            _, k, v = flash_inputs(edge_gen, b, lk, lk, 128, d, dtype,
+                                   payload)
+            flash_compare(fl, f"{name} {dtype} [{b},{lq},128]x[{b},{lk},"
+                          f"{d}]{plan_tag(fl, q, k, v)}", q, k, v, swin)
 
     # times at the serving shapes and dtype (bf16): per call, and the 14
-    # calls of one 1-scale pair (the launches this record counts)
+    # calls of one 1-scale pair (the launches this record counts); then at
+    # the training shapes, per call and the 14 calls of one step
+    pair, _ = flash_timing(fl, gen, FLASH_SHAPES, W8, "1-scale pair",
+                           plain=True)
+    flash_timing(fl, torch.Generator().manual_seed(63), FLASH_TRAIN_SHAPES,
+                 GW8, "training step", plain=False)
+    return dict(name="flash", route="cuda",
+                source="opticalflowfromdepth_torch/csrc/flash.cu",
+                replaces="opticalflowfromdepth_tpu/ops/flash.py:40",
+                max_abs_err=worst, **pair)
+
+
+def plan_tag(fl, q, k, v) -> str:
+    """The kernel's route for these operands, with its blocks and waves."""
+    import torch
+    p = fl.kernel_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                       v.shape[2], q.dtype == torch.bfloat16)
+    return (f" ({p['route']}, {p['warpgroups']} warpgroup(s) a block, "
+            f"{p['blocks']} blocks, {p['per_sm']} a SM, {p['waves']} "
+            f"wave(s))")
+
+
+def flash_timing(fl, gen, shapes, grid_w, what, plain):
+    """Kernel, SDPA and bound times of each bf16 shape class, its TFLOP/s
+    and share of the bound, and the totals over the calls of ``what``
+    (``plain``: the plain version timed too)."""
+    import torch
     import torch.nn.functional as F
-    pair = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     flops = exps = nbytes = 0.0
-    for name, (b, l, c, d, payload, swin), n in FLASH_SHAPES:
-        q, k, v = flash_inputs(gen, b, l, l, c, d, torch.bfloat16, payload)
+    for name, (b, l, c, d, payload, swin), n in shapes:
+        q, k, v = flash_inputs(gen, b, l, l, c, d, torch.bfloat16, payload,
+                               grid_w=grid_w)
         ms = cuda_ms(lambda: fl.flash_softmax_matmul(q, k, v, swin=swin))
         plain_ms = cuda_ms(lambda: fl.flash_softmax_matmul_plain(
-            q, k, v, swin=swin), reps=3, warm=1)
+            q, k, v, swin=swin), reps=3, warm=1) if plain else 0.0
         vb = v.to(torch.bfloat16)
         mask = None if swin is None else fl.swin_mask_dense(
             l, swin, b, "cuda").to(torch.bfloat16)[:, None]
@@ -637,28 +754,33 @@ def flash_phase(gen):
         bound_ms = max(t_ops, by / HBM_BYTES_PER_S) * 1e3
         bound_by = "operations" if t_ops >= by / HBM_BYTES_PER_S \
             else "bytes"
-        print(f"  {name} bf16 [{b},{l},{c}]x[{b},{l},{d}]: kernel "
-              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, SDPA "
-              f"{lib_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by}: {f / 1e9:.2f} GFLOP, {e / 1e6:.1f} M exp, "
-              f"{by / 1e6:.2f} MB); {n} per 1-scale pair", flush=True)
+        print(f"  {what}: {name} bf16 [{b},{l},{c}]x[{b},{l},{d}]"
+              f"{plan_tag(fl, q, k, v)}: kernel {ms * 1e3:.1f} us "
+              f"({f / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of its "
+              f"bound), " + (f"plain {plain_ms * 1e3:.1f} us, " if plain
+                             else "") + f"SDPA {lib_ms * 1e3:.1f} us, bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}: {f / 1e9:.2f} GFLOP, "
+              f"{e / 1e6:.1f} M exp, {by / 1e6:.2f} MB); {n} per "
+              f"{what.split()[-1]}", flush=True)
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("library_ms", lib_ms), ("bound_ms", bound_ms)):
-            pair[key] += n * val
+            total[key] += n * val
         flops, exps, nbytes = flops + n * f, exps + n * e, nbytes + n * by
+        del q, k, v, vb, mask
+        torch.cuda.empty_cache()
     t_ops = max(flops / BF16_FLOP_PER_S, exps / SFU_PER_S)
     bound_by = "operations" if t_ops >= nbytes / HBM_BYTES_PER_S \
         else "bytes"
-    print(f"  the 14 calls of one 1-scale pair: kernel "
-          f"{pair['ms'] * 1e3:.1f} us, plain {pair['plain_ms'] * 1e3:.1f} "
-          f"us, SDPA {pair['library_ms'] * 1e3:.1f} us, bound "
-          f"{pair['bound_ms'] * 1e3:.1f} us ({bound_by}: "
+    calls = sum(n for _, _, n in shapes)
+    print(f"  the {calls} calls of one {what}: kernel "
+          f"{total['ms'] * 1e3:.1f} us ({flops / total['ms'] / 1e9:.1f} "
+          f"TFLOP/s, {total['bound_ms'] / total['ms']:.3f} of the bound), "
+          + (f"plain {total['plain_ms'] * 1e3:.1f} us, " if plain else "")
+          + f"SDPA {total['library_ms'] * 1e3:.1f} us, bound "
+          f"{total['bound_ms'] * 1e3:.1f} us ({bound_by}: "
           f"{flops / 1e9:.1f} GFLOP, {exps / 1e6:.1f} M exp, "
           f"{nbytes / 1e6:.1f} MB)", flush=True)
-    return dict(name="flash", route="cuda",
-                source="opticalflowfromdepth_torch/csrc/flash.cu",
-                replaces="opticalflowfromdepth_tpu/ops/flash.py:40",
-                max_abs_err=worst, bound_by=bound_by, **pair)
+    return dict(total, bound_by=bound_by), calls
 
 
 # GMFlow's flash calls in one training step (batch 16 of 368x560, so
@@ -2298,7 +2420,8 @@ def main() -> None:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1][:48]  # the mangled kernel name
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line \
+                    or "Performance" in line:
                 print(f"  {name}: {entry}: {line.strip()}", flush=True)
     import triton
     from opticalflowfromdepth_torch.ops.instance_norm import instance_norm

@@ -19,26 +19,57 @@
 // What bounds it on this card: at GMFlow's shapes (C = 128) the two
 // products, 2 * B * Lq * Lk * (C + D) operations, over the bf16 tensor
 // cores, and the B * Lq * Lk exponentials over the special-function
-// units; the bytes (q, k, v once, out once) are ~1000x less. So the
-// design keeps the [Lq, Lk] scores out of device memory entirely and
-// feeds the tensor cores:
+// units; the bytes (q, k, v once, out once) are ~1000x less. So every
+// route keeps the [Lq, Lk] scores out of device memory, and three feed it:
 //
-// bf16 operands (the serving path): one block of 4 warps per (batch
-// entry, 64-query tile); each warp owns 16 query rows, whose Q fragments
-// stay in registers for the whole key sweep. Per 64-key tile, K (and V)
-// are staged in shared memory (rows padded by 8 bf16, so the fragment
-// loads hit 32 distinct banks); S = Q K^T with mma.sync m16n8k16 (bf16 in,
-// f32 accumulate); the scale, the Swin mask and the key padding; the
-// running max and denominator per row, reduced over the 4 lanes that share
-// a row with shuffles. As in the TPU kernel the unnormalized P is rounded
-// to bf16 before P . V (and the denominator sums the unrounded P).
-//   D % 16 == 0: P . V on the tensor cores too; S's accumulator fragments
-//     are P's A fragments, so P never leaves registers.
-//   D == 2 (the matching grid and the propagated flow): P . V on the CUDA
-//     cores in f32, each lane summing its own keys, reduced over the quad
-//     at the end (the tensor-core path would waste 63/64 of its work on
-//     the padding of D to 128, as the TPU kernel pads its lanes).
-//   Every load is bounds-checked, so Lq and Lk need no padding copy.
+// bf16 at C = 128 and D = 128 or 2 (every GMFlow call): the wgmma route,
+// namespace sm90. A block holds warpgroups of 64 queries each: at D = 128
+// three where the blocks then fill every SM twice, else two; at D = 2 one,
+// whose small blocks fit four a SM (batch-1 matching: 112 blocks of 64
+// queries, against 56 of 128, for 132 SMs). Q
+// is resident, loaded once by TMA; K and V stream in tiles of 64 keys
+// through a 2-stage ring under mbarriers (full: the TMA bytes and the
+// loading warp's 32 cp.async arrivals; empty: every thread). TMA boxes of
+// [64 rows][64 columns] land 128-byte swizzled, as wgmma's descriptors
+// read them, and zero-fill the rows past L, so Lq and Lk need no padding
+// copy. Per tile a warpgroup computes S = Q K^T with wgmma m64n64k16, both
+// operands from shared memory, K-major; then the online softmax in
+// registers, in base 2: log2(e) is folded into the scale (and into the
+// Swin mask's -100), and p = ex2.approx(x - m), which differs from expf
+// in the last bits of p only, inside ops/flash.py:bf16_tolerance's
+// allowance for another exp (ops/flash.py:flash_softmax_matmul_plain with
+// exp2=True repeats the base-2 form); the Swin mask is applied only where
+// a column's region differs from a row's, the key padding only in the
+// last tile. P is rounded to bf16 straight into the A fragments, as the
+// TPU kernel rounds it per 64-key block (the denominator sums the
+// unrounded P), and O += P V is wgmma m64n128k16, A from registers, V read
+// MN-major through the transpose bit. Two warpgroups of a block take
+// turns (named barriers) to issue their S products, so that one's
+// exponentials overlap the other's products; three run free (pipelining S
+// of tile j with P V of tile j - 1 inside a warpgroup measured slower:
+// PERF.md, PR 7); there is no producer
+// warpgroup (PERF.md, section 6: setmaxnreg did not raise ptxas's
+// budget). At D = 2 (the matching grid and the propagated flow) V's rows
+// are 4 bytes, below TMA's 16-byte box: the loading warp copies them into
+// the ring with cp.async, counted on the stage's barrier, and P . V runs
+// on the CUDA cores in f32 (the tensor cores would waste 63/64 of their
+// work on padding D). What it does about the
+// mma.sync route's limits: every C- and D-wide product is a wgmma; no B
+// fragment is built from 16-bit shared loads; no synchronous staging.
+// Its limits: a warpgroup's S, softmax and P . V follow each other, and
+// the key sweep is not split, so batch-1 matching fills 112 of 132 SMs.
+//
+// Other bf16 widths (C % 16 == 0, C <= 128; D = 2 or D % 16 == 0): the
+// mma.sync route, one block of 4 warps per (batch entry, 64-query tile);
+// each warp owns 16 query rows, whose Q fragments stay in registers for
+// the whole key sweep. Per 64-key tile, K (and V) are staged in shared
+// memory (rows padded by 8 bf16, so the fragment loads hit 32 distinct
+// banks); S = Q K^T with mma.sync m16n8k16 (bf16 in, f32 accumulate); the
+// scale, the Swin mask and the key padding; the running max and
+// denominator per row, reduced over the 4 lanes that share a row with
+// shuffles; P rounded to bf16 as above. D % 16 == 0: P . V on the tensor
+// cores too, S's accumulator fragments being P's A fragments; D == 2: P .
+// V on the CUDA cores in f32. No GMFlow call takes it.
 //
 // f32 operands (f32 models, the card-vs-CPU parity runs): f32 FMA on the
 // CUDA cores, no TF32: one thread per query row (64 a block), the query
@@ -52,51 +83,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NEG_INF (-1e30f)
-#define BQ 64         // query rows per block (bf16 path)
-#define BK 64         // keys per tile (bf16 path)
+#include "flash_common.cuh"
+
+#define BQ 64         // query rows per block (mma.sync route)
+#define BK 64         // keys per tile (both bf16 routes)
 #define WARPS 4
 #define PAD 8         // bf16 elements appended to each shared row
 #define F32_BQ 64     // query rows (= threads) per block (f32 path)
 #define F32_BK 32     // keys per tile (f32 path)
-
-typedef __nv_bfloat16 bf16;
-
-struct Swin {
-  int k, wh, ww, sh, sw;  // k == 0: no mask
-};
-
-// (y region, x region) of a token of window (last_y, last_x)
-__device__ __forceinline__ int swin_region(const Swin& s, bool last_y,
-                                           bool last_x, int idx) {
-  const bool y = last_y && (idx / s.ww >= s.wh - s.sh);
-  const bool x = last_x && (idx % s.ww >= s.ww - s.sw);
-  return (int)y * 2 + (int)x;
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2, `lo` in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // Copy rows [r0, r0 + BK) of a [L, W] bf16 matrix into a [BK, W + PAD]
 // shared tile with 16-byte vectors; rows >= L are zero.
@@ -432,6 +426,391 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 operands at C = 128 and D = 128 or 2: the wgmma route
+// ---------------------------------------------------------------------------
+
+namespace sm90 {
+
+constexpr int STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// One block's shared memory: Q resident (two 64-column panels a
+// warpgroup), K and V streamed through a ring of STAGES tiles of 64 keys
+// (V as two panels, or as 64 bf16 pairs when D = 2, which the loading
+// warp copies with cp.async: rows of 4 bytes start wherever b * Lk puts
+// them, and TMA wants 16-byte aligned boxes).
+template <int WGS, bool P2>
+struct FwdSmem {
+  alignas(1024) bf16 q[WGS * 2][PANEL];
+  alignas(1024) bf16 k[STAGES][2][PANEL];
+  alignas(1024) bf16 v[STAGES][P2 ? 1 : 2][P2 ? 2 * TILE : PANEL];
+  uint64_t q_full, full[STAGES], empty[STAGES];
+};
+
+template <int WGS, bool P2>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(FwdSmem<WGS, P2>) + 1024;  // + the slack to align to 1 KB
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The loads of one block. Thread 0 issues Q's TMA loads once. The loading
+// warp (the first of the last warpgroup, which takes its turns second)
+// fills ring stages: lane 0 issues the TMA loads of K's (and V's) panels;
+// at D = 2 the 32 lanes copy V's pairs with cp.async (zeros past Lk), each
+// lane's arrival on the stage's barrier made when its copies land.
+template <int WGS, bool P2>
+struct FwdLoads {
+  const CUtensorMap *q, *k, *v;
+  const uint32_t* pairs;
+  int b, q0, Lk;
+  static constexpr int LOADER = (WGS - 1) * 4;
+
+  __device__ __forceinline__ void stage(FwdSmem<WGS, P2>& sm, int it,
+                                        int lane) const {
+    const int s = it % STAGES, k0 = it * TILE;
+    if (lane == 0) {
+      mbar_expect_tx_only(&sm.full[s], (P2 ? 2 : 4) * PANEL_BYTES);
+      for (int p = 0; p < 2; ++p) {
+        tma_load_3d(sm.k[s][p], k, &sm.full[s], p * 64, k0, b);
+        if constexpr (!P2) tma_load_3d(sm.v[s][p], v, &sm.full[s], p * 64, k0, b);
+      }
+    }
+    __syncwarp();  // the bytes are expected before any lane can arrive
+    if constexpr (P2) {
+#pragma unroll
+      for (int i = lane; i < TILE; i += 32) {
+        const bool ok = k0 + i < Lk;
+        cp_async_4(&sm.v[s][0][2 * i], pairs + (ok ? (long long)b * Lk + k0 + i : 0),
+                   ok ? 4 : 0);
+      }
+    }
+    cp_async_arrive(&sm.full[s]);
+  }
+
+  __device__ __forceinline__ void start(FwdSmem<WGS, P2>& sm,
+                                        int n_tiles) const {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.q_full, WGS * 2 * PANEL_BYTES);
+      for (int w = 0; w < WGS; ++w)
+        for (int p = 0; p < 2; ++p)
+          tma_load_3d(sm.q[w * 2 + p], q, &sm.q_full, p * 64, q0 + w * TILE, b);
+    }
+    if (threadIdx.x / 32 == LOADER)
+      for (int it = 0; it < STAGES && it < n_tiles; ++it)
+        stage(sm, it, threadIdx.x & 31);
+  }
+
+  // after tile `it` is released: once every thread has released it, the
+  // loading warp refills its stage with tile it + STAGES
+  __device__ __forceinline__ void refill(FwdSmem<WGS, P2>& sm, int it,
+                                         int n_tiles) const {
+    if (threadIdx.x / 32 == LOADER && it + STAGES < n_tiles) {
+      mbar_wait(&sm.empty[it % STAGES], (it / STAGES) & 1);
+      stage(sm, it + STAGES, threadIdx.x & 31);
+    }
+  }
+};
+
+// One block per (batch entry, 64 * WGS queries), 64 queries per
+// warpgroup; the keys stream. tm_q, tm_k and (at D = 128) tm_v are 3-D
+// maps of [B, L, 128] in [1, 64, 64] boxes; at D = 2 v's pairs are read
+// from the pointer. scale2 = scale * log2(e): the scores, the Swin mask's
+// -100 and the running max are kept in base 2, so p = ex2(x - m).
+template <int WGS, bool P2>
+__global__ void __launch_bounds__(WGS * 128, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const bf16* __restrict__ v, float* __restrict__ out,
+                float* __restrict__ lse, int Lq, int Lk, float scale2,
+                Swin sw) {
+  extern __shared__ unsigned char smem_raw[];
+  FwdSmem<WGS, P2>& sm = *reinterpret_cast<FwdSmem<WGS, P2>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const int b = blockIdx.y, q0 = blockIdx.x * WGS * TILE;
+  const int n_tiles = (Lk + TILE - 1) / TILE;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 32);          // every loading lane arrives
+      mbar_init(&sm.empty[s], WGS * 128);  // every thread arrives
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const FwdLoads<WGS, P2> loads{&tm_q, &tm_k, &tm_v,
+                                reinterpret_cast<const uint32_t*>(v), b, q0,
+                                Lk};
+  loads.start(sm, n_tiles);
+
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int row0 = q0 + wg * TILE + warp * 16 + gq;  // rows row0, row0 + 8
+  const bool idle = q0 + wg * TILE >= Lq;
+  bool last_y, last_x;
+  const bool masked = swin_window(sw, b, &last_y, &last_x);
+  int qreg[2] = {0, 0};
+  uint32_t same[2] = {0u, 0u};  // the row's region in every 2-bit field
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (masked) qreg[r] = swin_region(sw, last_y, last_x, row0 + 8 * r);
+    same[r] = (uint32_t)qreg[r] * 0x55555555u;
+  }
+  const float swin_pen = 100.f * LOG2E;
+
+  float o[P2 ? 4 : 64];
+#pragma unroll
+  for (int i = 0; i < (P2 ? 4 : 64); ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};  // this lane's share of each row's denominator
+  const bf16* qres = sm.q[wg * 2];
+
+  // A tile's base-2 scores in sa -> p = ex2(x - m) in sa, with the Swin
+  // mask only where a column's region differs from a row's and the key
+  // padding only in the last tile; the running max updated, each row's
+  // rescale of what came before in alpha, this lane's sum of p in ls.
+  auto softmax_tile = [&](float (&sa)[32], int k0, float (&alpha)[2],
+                          float (&ls)[2]) {
+    const uint32_t cregs =
+        masked ? col_regions(sw, last_y, last_x, k0, t) : 0u;
+    const bool swin_tile = masked && (cregs != same[0] || cregs != same[1]);
+    const bool tail = k0 + TILE > Lk;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, i = 4 * j + e;
+        float x = sa[i] * scale2;
+        if (swin_tile && other_region(cregs, j, e, qreg[r])) x -= swin_pen;
+        if (tail && k0 + 8 * j + 2 * t + (e & 1) >= Lk) x = NEG_INF;
+        sa[i] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      alpha[r] = ex2(m[r] - mn);
+      m[r] = mn;
+      ls[r] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = ex2(sa[i] - m[(i >> 1) & 1]);
+      sa[i] = p;
+      ls[(i >> 1) & 1] += p;
+    }
+  };
+  // D = 2: O += P V on the CUDA cores in f32, P rounded to bf16; this
+  // lane's keys only (o = {row 0 d0, d1, row 1 d0, d1}), summed over the
+  // quad at the end
+  auto pv_cuda = [&](const float (&p)[32], int stage) {
+    const __nv_bfloat162* v2 =
+        reinterpret_cast<const __nv_bfloat162*>(sm.v[stage][0]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float2 vv = __bfloat1622float2(v2[8 * j + 2 * t + (e & 1)]);
+        const float pb = __bfloat162float(__float2bfloat16(p[4 * j + e]));
+        o[2 * r] = fmaf(pb, vv.x, o[2 * r]);
+        o[2 * r + 1] = fmaf(pb, vv.y, o[2 * r + 1]);
+      }
+    }
+  };
+
+  // The sweep. Per tile: S (wgmma), the softmax (CUDA cores and the
+  // special-function units), then P . V; the other warpgroup's products
+  // run while this one's exponentials do.
+  mbar_wait(&sm.q_full, 0);
+  if (WGS == 2 && wg == 1) turn_pass(1);  // warpgroup 0 goes first
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(&sm.full[s], (it / STAGES) & 1);
+    const bool pass = wg == 0 || it + 1 < n_tiles;  // matched by a wait
+    if (WGS == 2) turn_wait(wg);
+    if (idle) {
+      if (WGS == 2 && pass) turn_pass(wg);
+    } else {
+      float sa[32];
+      wgmma_fence();
+      product_c128(sa, qres, sm.k[s][0]);  // S = Q K^T, 64 x 64
+      wgmma_commit();
+      if (WGS == 2 && pass) turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(sa);
+      float alpha[2], ls[2];
+      softmax_tile(sa, it * TILE, alpha, ls);
+#pragma unroll
+      for (int i = 0; i < (P2 ? 4 : 64); ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+      if constexpr (P2) {
+        pv_cuda(sa, s);
+      } else {
+        // O += P V: P rounded to bf16 into the A fragments, V the ring
+        // tile read MN-major
+        uint32_t pa[16];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) to_a_frag(sa, pa, kk);
+        wgmma_fence();
+        product_rs(o, pa, sm.v[s][0]);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
+    }
+    mbar_arrive(&sm.empty[s]);
+    loads.refill(sm, it, n_tiles);
+  }
+
+  if (idle) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if constexpr (P2) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o[e] += __shfl_xor_sync(0xffffffffu, o[e], 1);
+      o[e] += __shfl_xor_sync(0xffffffffu, o[e], 2);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Lq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    const long long at = (long long)b * Lq + row;
+    if constexpr (P2) {
+      if (t == 0)
+        *reinterpret_cast<float2*>(out + at * 2) =
+            make_float2(o[2 * r] / den, o[2 * r + 1] / den);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(out + at * 128 + 8 * j + 2 * t) =
+            make_float2(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+    }
+    if (lse != nullptr && t == 0) lse[at] = m[r] * LN2 + logf(den);
+  }
+}
+
+// The widths this route takes: GMFlow's (C = 128; D = 128, or 2 for the
+// matching grid and the propagated flow), with B * L within TMA's int32
+// coordinates.
+static bool takes(int B, int Lq, int Lk, int C, int D) {
+  return C == 128 && (D == 128 || D == 2) &&
+         (long long)B * (Lq > Lk ? Lq : Lk) < (1ll << 31);
+}
+
+// Blocks of this instantiation that fit an SM (its shared-memory limit
+// set first); looked up once per device.
+template <int WGS, bool P2>
+static int occupancy(int dev, int* per_sm) {
+  static int cached[16] = {0};
+  if (dev >= 0 && dev < 16 && cached[dev] > 0) {
+    *per_sm = cached[dev];
+    return 0;
+  }
+  const size_t smem = fwd_smem_bytes<WGS, P2>();
+  int e = (int)cudaFuncSetAttribute(
+      flash_fwd_wgmma<WGS, P2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e) return e;
+  if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           per_sm, flash_fwd_wgmma<WGS, P2>, WGS * 128, smem)))
+    return e;
+  if (*per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (dev >= 0 && dev < 16) cached[dev] = *per_sm;
+  return 0;
+}
+
+// The query tile. D = 2: one warpgroup (64 queries) a block, whose small
+// blocks fit up to four a SM. D = 128: three warpgroups (192 queries,
+// sharing the key stream) where such blocks fill every SM at least twice
+// (the training and refinement windows), else two (128 queries, taking
+// turns), which leave fewer SMs idle on small batches (the serving
+// windows: 80 blocks of three against 112 of two for 132 SMs). plan =
+// {warpgroups a block, blocks, blocks per SM, waves}.
+template <bool P2>
+static int choose(int B, int Lq, int* plan) {
+  int dev, sms, per_sm, e;
+  if ((e = (int)cudaGetDevice(&dev))) return e;
+  if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev)))
+    return e;
+  const auto blocks = [&](int wgs) {
+    return (long long)B * ((Lq + wgs * TILE - 1) / (wgs * TILE));
+  };
+  int wgs;
+  if constexpr (P2) {
+    wgs = 1;
+    e = occupancy<1, true>(dev, &per_sm);
+  } else {
+    wgs = blocks(3) >= 2ll * sms ? 3 : 2;
+    e = wgs == 3 ? occupancy<3, false>(dev, &per_sm)
+                 : occupancy<2, false>(dev, &per_sm);
+  }
+  if (e) return e;
+  const long long n = blocks(wgs);
+  plan[0] = wgs;
+  plan[1] = (int)n;
+  plan[2] = per_sm;
+  plan[3] = (int)((n + (long long)per_sm * sms - 1) / ((long long)per_sm * sms));
+  return 0;
+}
+
+template <int WGS, bool P2>
+static int launch(const CUtensorMap (&m)[3], const void* v, void* out,
+                  void* lse, int B, int Lq, int Lk, float scale, Swin sw,
+                  cudaStream_t st) {
+  const dim3 grid((unsigned)((Lq + WGS * TILE - 1) / (WGS * TILE)),
+                  (unsigned)B);
+  flash_fwd_wgmma<WGS, P2><<<grid, WGS * 128, fwd_smem_bytes<WGS, P2>(),
+                             st>>>(m[0], m[1], m[2], (const bf16*)v,
+                                   (float*)out, (float*)lse, Lq, Lk,
+                                   scale * LOG2E, sw);
+  return (int)cudaGetLastError();
+}
+
+template <bool P2>
+static int forward(const void* q, const void* k, const void* v, void* out,
+                   void* lse, int B, int Lq, int Lk, float scale, Swin sw,
+                   cudaStream_t st) {
+  int plan[4], e;
+  if ((e = choose<P2>(B, Lq, plan))) return e;  // also sets the smem limits
+  CUtensorMap m[3];
+  if ((e = tensor_map_bf16_3d(&m[0], q, 128, Lq, B, TILE))) return e;
+  if ((e = tensor_map_bf16_3d(&m[1], k, 128, Lk, B, TILE))) return e;
+  if (P2)
+    m[2] = m[1];  // not read: v's pairs come from the pointer
+  else if ((e = tensor_map_bf16_3d(&m[2], v, 128, Lk, B, TILE)))
+    return e;
+  if constexpr (P2)
+    return launch<1, true>(m, v, out, lse, B, Lq, Lk, scale, sw, st);
+  else
+    return plan[0] == 3
+               ? launch<3, false>(m, v, out, lse, B, Lq, Lk, scale, sw, st)
+               : launch<2, false>(m, v, out, lse, B, Lq, Lk, scale, sw, st);
+}
+
+}  // namespace sm90
+
 template <int CMAX, int DMAX, bool PAYLOAD2>
 static int launch_bf16(const void* q, const void* k, const void* v, void* out,
                        void* lse, int B, int Lq, int Lk, int C, int D,
@@ -457,7 +836,9 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the TPU
 // kernel's `swin`. Takes C % 16 == 0, C <= 128, and D == 2 or D % 16 == 0,
 // D <= 128: GMFlow's widths (wider ones need their own instantiations).
-// Returns cudaGetLastError() after the launch (0 on success).
+// bf16 at C = 128 and D = 128 or 2 takes the wgmma route, other bf16
+// widths the mma.sync route, f32 the CUDA-core kernel. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int Lq, int Lk,
                              int C, int D, float scale, int swin_k, int wh,
@@ -485,8 +866,56 @@ extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
         (float*)lse, Lq, Lk, C, D, scale, sw);
     return (int)cudaGetLastError();
   }
+  if (sm90::takes(B, Lq, Lk, C, D))
+    return D == 2 ? sm90::forward<true>(q, k, v, out, lse, B, Lq, Lk, scale,
+                                        sw, st)
+                  : sm90::forward<false>(q, k, v, out, lse, B, Lq, Lk, scale,
+                                         sw, st);
   return D == 2 ? launch_bf16<128, 16, true>(q, k, v, out, lse, B, Lq, Lk, C,
                                             D, scale, sw, st)
                 : launch_bf16<128, 128, false>(q, k, v, out, lse, B, Lq, Lk,
                                                C, D, scale, sw, st);
+}
+
+// What ofd_flash_fwd would launch for these operands: plan = {route (0
+// f32, 1 mma.sync, 2 wgmma), warpgroups a block, blocks, blocks per SM,
+// waves over the card's SMs}. Returns a cudaError_t (0 on success).
+extern "C" int ofd_flash_fwd_plan(int B, int Lq, int Lk, int C, int D,
+                                  int is_bf16, int* plan) {
+  if (is_bf16 && sm90::takes(B, Lq, Lk, C, D)) {
+    plan[0] = 2;
+    return D == 2 ? sm90::choose<true>(B, Lq, plan + 1)
+                  : sm90::choose<false>(B, Lq, plan + 1);
+  }
+  int dev, sms, per_sm = 0, e;
+  if ((e = (int)cudaGetDevice(&dev))) return e;
+  if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev)))
+    return e;
+  const int rows = is_bf16 ? BQ : F32_BQ;
+  const long long n = (long long)B * ((Lq + rows - 1) / rows);
+  if (is_bf16) {
+    const size_t smem = (size_t)BK * (C + PAD) * sizeof(bf16) +
+                        (D == 2 ? BK * sizeof(float2)
+                                : (size_t)BK * (D + PAD) * sizeof(bf16));
+    e = D == 2 ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &per_sm, flash_fwd_bf16<128, 16, true>, WARPS * 32, smem)
+               : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &per_sm, flash_fwd_bf16<128, 128, false>, WARPS * 32,
+                     smem);
+  } else {
+    const size_t smem = sizeof(float) * ((size_t)F32_BQ * (C + 1) +
+                                         (size_t)F32_BK * (C + D) +
+                                         (size_t)F32_BQ * (D + 1));
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, flash_fwd_f32, F32_BQ, smem);
+  }
+  if (e) return e;
+  if (per_sm < 1) per_sm = 1;
+  plan[0] = is_bf16 ? 1 : 0;
+  plan[1] = 1;
+  plan[2] = (int)n;
+  plan[3] = per_sm;
+  plan[4] = (int)((n + (long long)per_sm * sms - 1) / ((long long)per_sm * sms));
+  return 0;
 }

@@ -88,9 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
-
-#define NEG_INF (-1e30f)
+#include "flash_common.cuh"
 #define WARPS 4
 #define ROWS 64       // output rows per block (16 per warp), bf16 path
 #define BK 64         // keys per tile of the dq sweep
@@ -100,56 +98,6 @@
 #define DMAX 128
 #define F32_ROWS 64   // output rows (= threads) per block, f32 path
 #define F32_T 32      // other-side rows per tile, f32 path
-
-typedef __nv_bfloat16 bf16;
-
-struct Swin {
-  int k, wh, ww, sh, sw;  // k == 0: no mask
-};
-
-// (y region, x region) of a token of window (last_y, last_x)
-__device__ __forceinline__ int swin_region(const Swin& s, bool last_y,
-                                           bool last_x, int idx) {
-  const bool y = last_y && (idx / s.ww >= s.wh - s.sh);
-  const bool x = last_x && (idx % s.ww >= s.ww - s.sw);
-  return (int)y * 2 + (int)x;
-}
-
-// The window of batch entry b: whether it is in the last window row /
-// column; only such windows hold more than one region.
-__device__ __forceinline__ bool swin_window(const Swin& s, int b, bool* ly,
-                                            bool* lx) {
-  *ly = *lx = false;
-  if (!s.k) return false;
-  const int win = b % (s.k * s.k);
-  *ly = win / s.k == s.k - 1;
-  *lx = win % s.k == s.k - 1;
-  return *ly || *lx;
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2 (round to nearest even), `lo` in the low half
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // Copy rows [r0, r0 + n) of a [L, W] bf16 matrix (W % 8 == 0) into an
 // [n, W + PAD] shared tile with 16-byte vectors; rows >= L are zero.
@@ -572,10 +520,7 @@ using namespace hopper;
 
 constexpr int WG = 2;                     // warpgroups a block
 constexpr int THREADS = WG * 128;
-constexpr int TILE = 64;  // rows per warpgroup and per ring tile
 constexpr int STAGES = 2;
-constexpr int PANEL = 64 * 64;            // bf16 of a [64 rows][64] panel
-constexpr uint32_t PANEL_BYTES = PANEL * 2;
 constexpr int LOADER = 4;  // the warp that refills the ring: warpgroup 1's
                            // first, as warpgroup 1 takes its turns second
 
@@ -621,81 +566,6 @@ __device__ __forceinline__ void init_barriers(Smem<P2>& sm) {
     mbar_fence_init();
   }
   __syncthreads();
-}
-
-// acc[64 x 64] = A . B^T over C = 128 (eight k16 steps): A the warpgroup's
-// resident [64][128] rows at `a`, B the ring's [64][128] rows at `b`, both
-// K-major. Within a 128-byte swizzle atom a k16 step is 32 bytes on.
-__device__ __forceinline__ void product_c128(float (&acc)[32], const bf16* a,
-                                             const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const int off = (kk >> 2) * PANEL + (kk & 3) * 16;
-    wgmma_m64n64_ss(acc, desc_sw128(a + off, 16, 1024),
-                    desc_sw128(b + off, 16, 1024), kk > 0);
-  }
-}
-
-// acc[64 x 128] += F . B: F the bf16 A fragments of a [64][64] tile (four
-// k16 steps), B the ring's [64][128] rows read MN-major, 16 rows a step.
-__device__ __forceinline__ void product_rs(float (&acc)[64],
-                                           const uint32_t (&f)[16],
-                                           const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64n128_rs_tb(acc, &f[4 * kk],
-                        desc_sw128(b + kk * 16 * 64, PANEL_BYTES, 1024));
-}
-
-// Columns 16kk..16kk+15 of a 64-column accumulator (d[4j + e]: row g + 8
-// (e >> 1), column 8j + 2t + (e & 1)) rounded to bf16 as the A fragment of
-// k16 step kk.
-__device__ __forceinline__ void to_a_frag(const float (&d)[32],
-                                          uint32_t (&f)[16], int kk) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[4 * kk + i] = pack_f32(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
-}
-
-// The 2-bit Swin regions of the 16 columns c0 + 8j + 2t + e (j < 8, e < 2)
-// of a 64-column accumulator, bit pair 2j + e; idx % ww carried along
-// instead of divided per column.
-__device__ __forceinline__ uint32_t col_regions(const Swin& s, bool last_y,
-                                                bool last_x, int c0, int t) {
-  const int ylim = (s.wh - s.sh) * s.ww, xlim = s.ww - s.sw;
-  int m = (c0 + 2 * t) % s.ww;
-  uint32_t regs = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      int mx = m + e;
-      if (mx >= s.ww) mx -= s.ww;
-      const uint32_t r = (uint32_t)(last_y && c0 + 8 * j + 2 * t + e >= ylim)
-                             * 2u + (uint32_t)(last_x && mx >= xlim);
-      regs |= r << (2 * (2 * j + e));
-    }
-    m += 8;
-    while (m >= s.ww) m -= s.ww;
-  }
-  return regs;
-}
-
-// The two warpgroups take turns to issue a tile's first products (named
-// barriers 1 and 2, 256 threads: one side waits, the other arrives), so
-// that one's exponentials run while the other's products do.
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG * 128) : "memory");
-}
-
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(WG * 128)
-               : "memory");
-}
-
-__device__ __forceinline__ bool other_region(uint32_t cregs, int j, int e,
-                                             int row_region) {
-  return ((cregs >> (2 * (2 * j + (e & 1)))) & 3u) != (uint32_t)row_region;
 }
 
 // The loads of one block. Thread 0 issues the resident tiles' TMA loads

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks in raw PTX, for the kernels of this
-// directory: mbarriers, TMA tile loads, 4-byte cp.async copies counted on
-// an mbarrier, wgmma shared-memory descriptors and instructions, and the
+// directory: mbarriers, TMA tile loads, bulk copies, 4-byte cp.async
+// copies counted on an mbarrier, wgmma shared-memory descriptors and instructions, and the
 // host-side tensor-map encoder.
 //
 // cuTensorMapEncodeTiled is a driver function; it is reached through the
@@ -97,6 +97,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory in one bulk transfer, completion counted in
+// bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Copy 4 bytes from global to shared memory asynchronously; nbytes 0
 // writes zeros instead (src is then not read).
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src,
@@ -147,6 +159,14 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The same for wgmma's A fragments in registers: read asynchronously, they
+// must keep their registers until the wgmma that reads them is waited for.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64]^T, bf16 in, f32 accumulate; A

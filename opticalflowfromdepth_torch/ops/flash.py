@@ -29,12 +29,14 @@ import functools
 import math
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import _build
 
 NEG_INF = -1e30
-KERNEL_BLOCK_K = 64          # keys per tile of csrc/flash.cu's bf16 path
+KERNEL_BLOCK_K = 64          # keys per tile of csrc/flash.cu's bf16 routes
+LOG2E = 1.4426950408889634
 
 Swin = Tuple[int, int, int, int, int]
 
@@ -60,7 +62,8 @@ def flash_softmax_matmul_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, scale: Optional[float] = None,
                                swin: Optional[Swin] = None,
                                with_lse: bool = False,
-                               block_k: Optional[int] = KERNEL_BLOCK_K
+                               block_k: Optional[int] = KERNEL_BLOCK_K,
+                               exp2: bool = False
                                ) -> Union[torch.Tensor,
                                           Tuple[torch.Tensor, torch.Tensor]]:
     """Plain PyTorch version with the kernel's arithmetic: scores
@@ -72,15 +75,22 @@ def flash_softmax_matmul_plain(q: torch.Tensor, k: torch.Tensor,
     it (relative to the running max of the blocks swept so far, so
     ``block_k`` chooses which kernel's rounding is repeated; None: one
     block). In f32 nothing is rounded and the blocks do not matter.
+    ``exp2=True`` repeats the base-2 form of the kernel's wgmma route
+    (bf16, C = 128): the scores times ``scale * log2(e)`` (rounded to f32),
+    the Swin mask's -100 times ``log2(e)``, the running max in base 2 and
+    ``p = 2^(x - m)``; the LSE is then ``m ln 2 + log(den)``.
     Returns out ``[B, Lq, D]`` f32 (and the LSE ``[B, Lq]`` f32)."""
     b, lq, c = q.shape
     lk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(c)
     bf16 = q.dtype == torch.bfloat16
-    s = torch.matmul(q.float(), k.to(q.dtype).float().transpose(1, 2)) * scale
+    base = LOG2E if exp2 else 1.0
+    s = torch.matmul(q.float(), k.to(q.dtype).float().transpose(1, 2)) \
+        * float(np.float32(scale) * np.float32(base))
     if swin is not None:
-        s = s + swin_mask_dense(lk, swin, b, q.device)
+        s = s + swin_mask_dense(lk, swin, b, q.device) * base
+    exp = torch.exp2 if exp2 else torch.exp
     vf = v.to(q.dtype).float()
     step = lk if block_k is None or not bf16 else block_k
     m = torch.full((b, lq, 1), NEG_INF, device=q.device)
@@ -89,8 +99,8 @@ def flash_softmax_matmul_plain(q: torch.Tensor, k: torch.Tensor,
     for k0 in range(0, lk, step):
         sb = s[:, :, k0:k0 + step]
         m_new = torch.maximum(m, sb.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(sb - m_new)
+        alpha = exp(m - m_new)
+        p = exp(sb - m_new)
         den = den * alpha + p.sum(-1, keepdim=True)
         if bf16:
             p = p.to(torch.bfloat16).float()
@@ -99,7 +109,8 @@ def flash_softmax_matmul_plain(q: torch.Tensor, k: torch.Tensor,
     den = torch.clamp(den, min=1e-30)
     out = acc / den
     if with_lse:
-        return out, (m + torch.log(den))[..., 0]
+        return out, (m * (math.log(2.0) if exp2 else 1.0)
+                     + torch.log(den))[..., 0]
     return out
 
 
@@ -134,6 +145,28 @@ def _kernel_fn():
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_fn():
+    fn = _build.load("flash").ofd_flash_fwd_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_plan(b: int, lq: int, lk: int, c: int, d: int,
+                bf16: bool) -> dict:
+    """What the forward kernel launches for these operands on the current
+    CUDA device: its route ("wgmma", "mma.sync" or "f32"), warpgroups a
+    block, blocks, blocks resident per SM and waves over the SMs."""
+    plan = (ctypes.c_int * 5)()
+    err = _plan_fn()(b, lq, lk, c, d, int(bf16), plan)
+    if err:
+        raise RuntimeError(f"flash kernel plan failed: CUDA error {err}")
+    return dict(route=("f32", "mma.sync", "wgmma")[plan[0]],
+                warpgroups=plan[1], blocks=plan[2], per_sm=plan[3],
+                waves=plan[4])
 
 
 def _check_shapes(q, k, v, swin):

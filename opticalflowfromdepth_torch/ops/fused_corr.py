@@ -7,9 +7,14 @@ multiple of 8, see :func:`cat_meta`). ``fused_corr_lookup_cat`` then
 answers one GRU iteration's lookup from it. It is a
 ``torch.autograd.Function``: on CUDA tensors its forward and its backward
 launch the hand-written kernels in ``csrc/fused_corr.cu``; on CPU tensors
-they run the plain PyTorch versions below, which compute the same window
+they run the plain PyTorch versions below. The forward computes the window
 form (dot products at the integer neighbours, then the bilinear
-combination, and the transpose of both). Nothing falls back: a CUDA input
+combination). The backward forms the dense ``d_corr`` and takes its two
+products, as the TPU kernel does, without atomics (every launch on the
+same inputs gives the same bits): bf16 at C = 128 or 256 on the tensor
+cores with ``d_corr`` split into bf16 hi + lo, everything else on the CUDA
+cores in f32 (:func:`bwd_route`); the plain backward repeats the route's
+arithmetic. Nothing falls back: a CUDA input
 that a kernel cannot take raises. Coordinates get no gradient, by
 contract (RAFT detaches them before every lookup).
 """
@@ -103,25 +108,73 @@ def fused_corr_lookup_cat_plain(f1: torch.Tensor, f2cat: torch.Tensor,
     return torch.cat(outs, dim=-1).to(f1.dtype)
 
 
+KERNEL_TILE = 64      # rows of the backward kernels' tiles (both sides)
+
+
+def bwd_route(dtype, c: int) -> str:
+    """Which route of the backward kernel takes these operands: bf16 at C
+    = 128 or 256 the tensor cores ("tensor_cores": ``d_corr`` split into
+    bf16 hi + lo), everything else the CUDA cores in f32."""
+    return "tensor_cores" if dtype == torch.bfloat16 and c in (128, 256) \
+        else "cuda_cores"
+
+
+def level_tiles(meta) -> List[Tuple[int, int]]:
+    """The backward kernels' row tiles: the packed rows cut level by level
+    into tiles of ``KERNEL_TILE`` (a level's last tile may be short), as
+    ``(first row, rows)``."""
+    tiles = []
+    for (hl, wl, hp, off) in meta:
+        if hl > 0 and wl > 0:
+            n = wl * hp
+            tiles += [(off + t, min(KERNEL_TILE, n - t))
+                      for t in range(0, n, KERNEL_TILE)]
+    return tiles
+
+
+def _split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (bf16 hi, bf16 rounding of what is left), both as f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
 def fused_corr_lookup_cat_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
                                     f2cat: torch.Tensor, coords: torch.Tensor,
                                     h2: int, w2: int, num_levels: int = 4,
-                                    radius: int = 4
+                                    radius: int = 4,
+                                    d_corr_rounding: str = "route"
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernel: the cotangent ``g``
     ``[B, N, L*(2r+1)^2]`` of the lookup -> ``(df1 in f1's dtype, df2cat in
     f2cat's dtype)``. ``g`` goes back through the x-stage, then the
-    y-stage, to the ``(2r+2)^2`` integer taps; the in-range taps are
-    scattered into a dense ``d_corr [B, N, R]``; then ``df1 = d_corr @
-    f2cat / sqrt(C)`` and ``df2cat = d_corr^T @ f1 / sqrt(C)``, all in f32.
-    The padded rows of each level get exactly 0."""
+    y-stage, to the ``(2r+2)^2`` integer taps; the in-range taps, times
+    ``s = 1/sqrt(C)``, are scattered into a dense ``d_corr [B, N, R]``
+    (each tap of a query and level lands on its own row); then ``df1 =
+    d_corr @ f2cat`` and ``df2cat = d_corr^T @ f1``, in f32. The padded
+    rows of each level get exactly 0.
+
+    ``d_corr_rounding``: "route" (default) repeats the arithmetic of the
+    kernel's route for these operands (:func:`bwd_route`); "none" keeps
+    ``d_corr`` in f32 (one matmul each, the CUDA-core route's numbers);
+    "hi_lo" splits it into bf16 hi + lo and sums both products in f32 tile
+    by tile in the kernel's order (df1 over :func:`level_tiles`, df2cat
+    over query tiles of ``KERNEL_TILE``), the tensor-core route's numbers;
+    "bf16" rounds it to bf16 once (not a route: the rounding that the
+    split exists to avoid)."""
     b, n, c = f1.shape
     k = 2 * radius + 1
     k1 = k + 1
+    s = 1.0 / (c ** 0.5)
+    meta = cat_meta(h2, w2, num_levels)
+    if d_corr_rounding == "route":
+        d_corr_rounding = "hi_lo" if bwd_route(f1.dtype, c) == \
+            "tensor_cores" else "none"
+    if d_corr_rounding not in ("none", "hi_lo", "bf16"):
+        raise ValueError(f"d_corr_rounding={d_corr_rounding!r}")
     gf = g.float().reshape(b, n, num_levels, k, k)           # (kx, ky)
     d = torch.arange(k1, dtype=torch.float32, device=f1.device) - radius
     d_corr = torch.zeros(b, n, f2cat.shape[1], device=f1.device)
-    for li, (hl, wl, hp, off) in enumerate(cat_meta(h2, w2, num_levels)):
+    for li, (hl, wl, hp, off) in enumerate(meta):
         if hl == 0 or wl == 0:
             continue
         cl = coords.float() * (1.0 / 2.0 ** li)
@@ -140,14 +193,29 @@ def fused_corr_lookup_cat_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
         ys = y0[..., None] + d
         inb = (((xs >= 0) & (xs < wl))[..., :, None]
                & ((ys >= 0) & (ys < hl))[..., None, :])
-        dots = torch.where(inb, dots, torch.zeros((), device=f1.device))
+        dots = torch.where(inb, dots * s, torch.zeros((), device=f1.device))
         xi = xs.clamp(0, wl - 1).long()
         yi = ys.clamp(0, hl - 1).long()
         idx = off + xi[..., :, None] * hp + yi[..., None, :]
         d_corr.scatter_add_(2, idx.reshape(b, n, -1), dots.reshape(b, n, -1))
-    s = 1.0 / (c ** 0.5)
-    df1 = torch.matmul(d_corr, f2cat.float()) * s
-    df2 = torch.matmul(d_corr.transpose(1, 2), f1.float()) * s
+    f1f, f2f = f1.float(), f2cat.float()
+    if d_corr_rounding == "hi_lo":
+        hi, lo = _split(d_corr)
+        df1 = torch.zeros(b, n, c, device=f1.device)
+        for r0, rows in level_tiles(meta):
+            t = slice(r0, r0 + rows)
+            df1 = df1 + torch.matmul(hi[:, :, t], f2f[:, t])
+            df1 = df1 + torch.matmul(lo[:, :, t], f2f[:, t])
+        df2 = torch.zeros(b, f2cat.shape[1], c, device=f1.device)
+        for q0 in range(0, n, KERNEL_TILE):
+            t = slice(q0, q0 + KERNEL_TILE)
+            df2 = df2 + torch.matmul(hi[:, t].transpose(1, 2), f1f[:, t])
+            df2 = df2 + torch.matmul(lo[:, t].transpose(1, 2), f1f[:, t])
+    else:
+        if d_corr_rounding == "bf16":
+            d_corr = d_corr.to(torch.bfloat16).float()
+        df1 = torch.matmul(d_corr, f2f)
+        df2 = torch.matmul(d_corr.transpose(1, 2), f1f)
     return df1.to(f1.dtype), df2.to(f2cat.dtype)
 
 
@@ -159,7 +227,7 @@ def _kernel_fns():
                                  ctypes.c_float, ctypes.c_int,
                                  ctypes.c_void_p]
     fwd.argtypes = [ctypes.c_void_p] * 4 + tail
-    bwd.argtypes = [ctypes.c_void_p] * 6 + tail
+    bwd.argtypes = [ctypes.c_void_p] * 9 + tail
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -222,17 +290,24 @@ def _lookup_bwd_cuda(g, f1, f2cat, coords, meta, radius):
                          f"{g.device}, want {(b, n, len(meta) * k * k)} on "
                          f"{f1.device}")
     gc = g.to(f1.dtype).contiguous()
-    df1 = torch.empty_like(f1)
-    # f32 scratch for the atomics, cast to f2cat's dtype after
-    df2 = torch.zeros(f2cat.shape, dtype=torch.float32, device=f1.device)
+    df1, df2 = torch.empty_like(f1), torch.empty_like(f2cat)
+    # the kernels' scratch: per (query, level) the window origin and the
+    # tap gradients (queries padded to 128), and the row table
+    npad = _ceil(max(n, 1), 128) * 128
+    dev = f1.device
+    dtap = torch.empty(b, len(meta), npad, (k + 1) ** 2, device=dev)
+    orig = torch.empty(b, len(meta), npad, 2, dtype=torch.int32, device=dev)
+    tab = torch.empty(max(1, len(level_tiles(meta))) * KERNEL_TILE,
+                      dtype=torch.int32, device=dev)
     err = _kernel_fns()[1](gc.data_ptr(), f1.data_ptr(), f2cat.data_ptr(),
                            cc.data_ptr(), df1.data_ptr(), df2.data_ptr(),
+                           dtap.data_ptr(), orig.data_ptr(), tab.data_ptr(),
                            *_launch_tail(f1, f2cat, meta, flat, radius))
     if err:
         raise RuntimeError(f"fused_corr backward kernel launch failed: CUDA "
                            f"error {err}")
     fused_corr_lookup_cat.bwd_launches += 1
-    return df1, df2.to(f2cat.dtype)
+    return df1, df2
 
 
 def _on_cpu(*tensors) -> bool:

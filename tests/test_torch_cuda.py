@@ -70,8 +70,8 @@ def _valid_rows(h, w, levels):
 def test_fused_corr_bwd_kernel_matches_plain(card, dtype, atol, levels,
                                              radius, h, w):
     """Through autograd: the backward kernel against the plain backward.
-    f32: the kernel sums df2cat with atomics in a varying order, 1e-4;
-    bf16: both round the f32 sums to bf16 once."""
+    f32: the kernel sums in its own fixed order, the plain version with a
+    matmul, 1e-4; bf16: both round the f32 sums to bf16 once."""
     g = torch.Generator().manual_seed(4)
     b, c = 2, 64
     f1 = torch.randn(b, h * w, c, generator=g).to(card, dtype)
@@ -108,6 +108,34 @@ def test_fused_corr_bwd_kernel_far_out_of_range_is_zero(card):
     fc.fused_corr_lookup_cat(f1, f2cat, coords, 6, 8).sum().backward()
     assert torch.count_nonzero(f1.grad) == 0
     assert torch.count_nonzero(f2cat.grad) == 0
+
+
+@pytest.mark.parametrize("dtype,c,h,w", [
+    (torch.bfloat16, 256, 46, 62),     # tensor cores, RAFT-basic's width
+    (torch.bfloat16, 128, 13, 5),      # tensor cores, N = 65
+    (torch.bfloat16, 64, 7, 9),        # CUDA cores, N = 63, level 3 pooled
+    (torch.float32, 256, 12, 16)])     # CUDA cores
+def test_fused_corr_bwd_kernel_bit_reproducible(card, dtype, c, h, w):
+    """No atomics: two launches on the same inputs give the same bits, on
+    both routes; within the tolerance of chip_smoke.py [3c] of the plain
+    version, which repeats the route's arithmetic."""
+    g_ = torch.Generator().manual_seed(13)
+    b = 2
+    f1 = torch.randn(b, h * w, c, generator=g_).to(card, dtype)
+    f2cat = fc.corr_levels_cat(torch.randn(b, h, w, c, generator=g_).to(
+        card), 4, dtype)
+    coords = (torch.rand(b, h * w, 2, generator=g_) * (w + 16) - 8).to(card)
+    gout = torch.randn(b, h * w, 4 * 81, generator=g_).to(card, dtype)
+    first = fc.fused_corr_lookup_cat_bwd(gout, f1, f2cat, coords, h, w)
+    second = fc.fused_corr_lookup_cat_bwd(gout, f1, f2cat, coords, h, w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    ref = fc.fused_corr_lookup_cat_bwd_plain(gout, f1, f2cat, coords, h, w)
+    rtol, atol = (0.0, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-3)
+    for x, r in zip(first, ref):
+        assert x.dtype == dtype
+        d = (x.float() - r.float()).abs()
+        assert float((d / (atol + rtol * r.float().abs())).max()) <= 1.0
 
 
 @pytest.mark.parametrize("relu", [False, True])
@@ -214,12 +242,24 @@ def test_raft_small_on_card_matches_cpu(card):
     np.testing.assert_allclose(up_c.cpu().numpy(), up.numpy(), atol=1e-3)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,lq,lk,c,d,swin", [
+# bf16 at C = 128 with D = 128 or 2 takes the forward's wgmma route
+# (64-key tiles, 64 queries a warpgroup, three warpgroups a block once
+# such blocks fill every SM twice), other widths the mma.sync route
+FLASH_FWD_CASES = [
     (8, 24, 24, 128, 128, (2, 4, 6, 2, 3)),      # [2B] windows, shifted
-    (2, 100, 63, 64, 16, None),                  # ragged
+    (2, 100, 63, 64, 16, None),                  # ragged (mma.sync)
     (1, 300, 300, 128, 2, None),                 # matching payload
-    (2, 130, 70, 32, 48, None)])                 # ragged, narrow
+    (2, 130, 70, 32, 48, None),                  # ragged, narrow (mma.sync)
+    (1, 65, 129, 128, 128, None),                # a tile + 1 row
+    (2, 127, 63, 128, 128, None),                # a tile - 1 row
+    (1, 129, 65, 128, 2, None),
+    (2, 63, 127, 128, 2, None),
+    (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),  # region edge inside tiles
+    (264, 100, 100, 128, 128, None)]             # 3 warpgroups, 1 idle
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,c,d,swin", FLASH_FWD_CASES)
 def test_flash_kernel_matches_plain(card, dtype, b, lq, lk, c, d, swin):
     """The CUDA kernel against the plain version with the kernel's key
     blocks, out and LSE. f32: sums in another order, 1e-4 of max|v|.
@@ -244,6 +284,24 @@ def test_flash_kernel_matches_plain(card, dtype, b, lq, lk, c, d, swin):
     assert float(((out * 0.98 - ref).abs() / tol).max()) > 1.0
     np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(),
                                atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,lq,lk,c,d,swin", [
+    (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),   # wgmma route
+    (2, 129, 65, 128, 2, None),                   # wgmma route, D = 2
+    (2, 100, 63, 64, 16, None)])                  # mma.sync route
+def test_flash_kernel_bit_reproducible(card, b, lq, lk, c, d, swin):
+    """Two launches on the same bf16 inputs give the same bits, out and
+    LSE."""
+    g_ = torch.Generator().manual_seed(14)
+    q, k = (torch.randn(b, n, c, generator=g_).to(card, torch.bfloat16)
+            for n in (lq, lk))
+    v = torch.randn(b, lk, d, generator=g_).to(card, torch.bfloat16)
+    first = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
+    second = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert all(bool(torch.isfinite(x).all()) for x in first)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(card):

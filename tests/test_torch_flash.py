@@ -72,6 +72,28 @@ def test_plain_matches_jax_interpret_bf16(case):
         assert np.abs(got.numpy() - want).mean() < 1e-5 * np.abs(v).max()
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_base2_form_matches_jax_interpret_bf16(case):
+    """The wgmma route's base-2 softmax (``exp2=True``: log2(e) folded into
+    the scale and the Swin mask, p = 2^(x - m)) with its 64-key blocks,
+    against the TPU kernel with the same blocks: within ``bf16_tolerance``
+    row by row, and the LSE to 1e-5."""
+    b, lq, lk, c, d, mult, vscale, swin = CASES[case]
+    q, k, v = _inputs(2, b, lq, lk, c, d, mult, vscale)
+    want, want_lse = _flash_forward(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v), block_q=64, block_k=tf.KERNEL_BLOCK_K,
+        interpret=True, swin=swin, with_lse=True)
+    got, lse = tf.flash_softmax_matmul_plain(
+        _bf16(q), _bf16(k), torch.from_numpy(v), swin=swin, with_lse=True,
+        exp2=True)
+    tol = tf.bf16_tolerance(_bf16(q), _bf16(k), torch.from_numpy(v),
+                            swin=swin).numpy()
+    assert (np.abs(got.numpy() - np.asarray(want)) / tol).max() <= 1.0
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5,
+                               rtol=1e-6)
+
+
 def test_sharp_softmax_flow_payload_mirrors_jax_rounding():
     """Global propagation passes the f32 flow as v; the TPU kernel rounds it
     (and P) to bf16. With a sharp softmax over L=1024 the JAX kernel's
