@@ -7,18 +7,27 @@ Run from the repository root on a host with one CUDA card. Phases:
 
 1. card: its name and power limit (nvidia-smi); TF32 off for f32 phases;
 2. build: the CUDA kernels from ``opticalflowfromdepth_torch/csrc`` (one
-   nvcc per source, in parallel) and the first Triton launch;
+   nvcc per source, in parallel), with ptxas's registers and spills;
 3. each kernel against its plain PyTorch version on the card, with the
    tolerance stated, plus the edge cases; times with CUDA events:
    [3a] the fused lookup and [3b] instance norm at the shapes RAFT-basic
-   serving gives them at Sintel size (440x1024 padded), the lookup also at
-   KITTI's 47x156 (376x1248 padded); [3c] the lookup's
+   serving gives them at Sintel size (440x1024 padded) and its training
+   (batch 8, 368x496), the lookup also at KITTI's 47x156 (376x1248
+   padded), and on its tensor-core route (bf16, C = 256 or 128) smooth
+   flow, a ragged tile edge, boxes that overflow (per-query path), levels
+   pooled to nothing, each with its share of the per-query path, two
+   launches bit-equal and a planted fault (a column of a tile's box left
+   out), timed with smooth and with i.i.d. +- 20 px coordinates;
+   instance norm also at GMFlow's backbone shapes and every plan class
+   (cluster of 1 and 8, several rows a block, a ragged last slice, rows
+   streamed twice, f16, data off the 16-byte grid), two launches
+   bit-equal; [3c] the lookup's
    backward at the training shape (batch 8, 368x496), ragged N (63, 65),
    levels pooled to nothing and far out-of-range queries, f32 (CUDA-core
    route) and bf16 (tensor-core route), with two launches that must give
    the same bits and two planted faults (df2cat x 0.98, the first query
    tile left out) that must fail the tolerance; [3d] instance norm's
-   gradient at the training shapes (where the Triton and the plain
+   gradient at the training shapes (where the kernel's and the plain
    forward fall on opposite sides of the ReLU, |g| rstd allowed on top);
    [3e] the flash streaming-softmax kernel at
    GMFlow's Sintel shape classes (window attention [8, 1792, 128] with
@@ -148,6 +157,33 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of ``fn`` per call, without the host's launch time:
+    ``reps`` calls captured in one CUDA graph (after three warm-up calls),
+    the mean of three replays."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def check(name: str, err: float, tol: float) -> None:
     print(f"  {name}: max diff {err:.3e} (tolerance {tol:g})", flush=True)
     if not err <= tol:
@@ -260,6 +296,7 @@ def fused_corr_phase(gen):
     fused_corr_timing(gen, 1, h8, w8, "serving")
     ms, plain_ms, bound_ms, bound_by = fused_corr_timing(
         gen, TRAIN_BATCH, TRAIN_CROP[0] // 8, TRAIN_CROP[1] // 8, "training")
+    fused_corr_tile_cases(h8, w8)
     return dict(name="fused_corr_lookup", route="cuda",
                 source="opticalflowfromdepth_torch/csrc/fused_corr.cu",
                 replaces="opticalflowfromdepth_tpu/ops/fused_corr.py:140",
@@ -267,15 +304,142 @@ def fused_corr_phase(gen):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def fused_corr_timing(gen, b, h8, w8, what):
-    """Kernel, plain and bound times of one bf16 lookup at ``[b, h8*w8]``."""
+def smooth_corr_inputs(gen, b, h, w, dtype, c=256, levels=4, amp=20.0):
+    """As :func:`corr_inputs`, with coordinates the identity grid plus a
+    smooth flow: a seeded coarse 3x4 field of +- amp px upsampled
+    bilinearly, with one discontinuity (the columns right of 0.55 w moved
+    10 px further in x)."""
+    import torch
+    import torch.nn.functional as F
+    f1, f2cat, coords = corr_inputs(gen, b, h, w, dtype, 0.0, c=c,
+                                    levels=levels)
+    coarse = (torch.rand(b, 2, 3, 4, generator=gen) * 2 - 1) * amp
+    flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                         align_corners=True)
+    flow[:, 0, :, int(0.55 * w):] += 10.0
+    return f1, f2cat, coords + flow.permute(0, 2, 3, 1).reshape(
+        b, h * w, 2).cuda()
+
+
+def box_reads(plans, c: int):
+    """What the tensor-core route reads by TMA for these plans: chunks a
+    tile (over the levels) and MB of rows (every box column in rows of
+    hb rounded up to 8, as the kernel's boxes)."""
+    chunks = rows = 0
+    for p in plans:
+        if p is not None:
+            hb8 = (p["hb"] + 7) // 8 * 8
+            cpc = 64 // hb8.clamp(min=1)
+            chunks += int(((p["bw"] + cpc - 1) // cpc)[hb8 > 0].sum())
+            rows += int((p["bw"] * hb8).sum())
+    return chunks / plans[0]["hb"].numel(), rows * c * 2 / 1e6
+
+
+def slow_share(fc, f1, f2cat, coords, h, w, levels=4, radius=4):
+    """One launch; the share of (query, level) pairs that took the
+    per-query path, checked against ``tile_plan``'s count."""
+    out, n_slow = fc.fused_corr_lookup_cat_slow_count(f1, f2cat, coords, h,
+                                                      w, levels, radius)
+    planned = sum(int(p["slow"].sum()) for p in
+                  fc.tile_plan(coords, h, w, levels, radius) if p)
+    if fc.route(f1.dtype, f1.shape[2]) == "tensor_cores" \
+            and n_slow != planned:
+        fail(f"lookup: the kernel sent {n_slow} (query, level) pairs down "
+             f"the per-query path, tile_plan {planned}")
+    return out, n_slow / (f1.shape[0] * f1.shape[1] * levels)
+
+
+def fused_corr_tile_cases(h8, w8):
+    """The tensor-core route's own cases, drawn from a generator of their
+    own (the inputs of every later phase stay as they were): smooth flow
+    at the serving and training shapes, a ragged tile edge, boxes that
+    overflow (+- 40 px i.i.d.), levels pooled to nothing, C = 128; each
+    with the share of (query, level) pairs on the per-query path. Then
+    two launches bit-equal, a planted fault (one column of a tile's box
+    left out) that must fail the tolerance, and the times of the smooth
+    case beside today's i.i.d. +- 20 px one."""
+    import torch
+    from opticalflowfromdepth_torch.ops import fused_corr as fc
+    levels, radius = 4, 4
+    rtol, atol = 2e-2, 2e-2                 # [3a]'s bf16 tolerance
+    tgen = torch.Generator().manual_seed(88)
+    th, tw = TRAIN_CROP[0] // 8, TRAIN_CROP[1] // 8
+    kept = {}
+    for label, (b, h, w, kind, c) in (
+            ("smooth serving 55x128", (1, h8, w8, "smooth", 256)),
+            (f"smooth train {th}x{tw} B={TRAIN_BATCH}",
+             (TRAIN_BATCH, th, tw, "smooth", 256)),
+            ("ragged tile edge 13x21", (2, 13, 21, "smooth", 256)),
+            ("box overflow +-40 px", (1, h8, w8, 40.0, 256)),
+            ("levels pooled to nothing 5x6", (2, 5, 6, 3.0, 256)),
+            ("C=128 smooth 46x62", (2, th, tw, "smooth", 128))):
+        if kind == "smooth":
+            f1, f2cat, coords = smooth_corr_inputs(tgen, b, h, w,
+                                                   torch.bfloat16, c)
+        else:
+            f1, f2cat, coords = corr_inputs(tgen, b, h, w, torch.bfloat16,
+                                            kind, c=c)
+        got, share = slow_share(fc, f1, f2cat, coords, h, w)
+        torch.cuda.synchronize()
+        ref = fc.fused_corr_lookup_cat_plain(f1, f2cat, coords, h, w,
+                                             levels, radius)
+        check(f"{label} bf16 C={c} (|d| <= {atol:g} + {rtol:g}|ref|; "
+              f"per-query path {share:.4f} of (query, level) pairs)",
+              max_rel_excess(got, ref, rtol, atol), 1.0)
+        kept[label] = (f1, f2cat, coords, h, w, got, ref)
+
+    f1, f2cat, coords, h, w, got, ref = kept[
+        f"smooth train {th}x{tw} B={TRAIN_BATCH}"]
+    again = fc.fused_corr_lookup_cat(f1, f2cat, coords, h, w, levels, radius)
+    if not torch.equal(got, again):
+        fail("lookup: two launches on the same inputs differ")
+    # the planted fault: the middle column of batch entry 0's first tile's
+    # level-0 box left out (its rows zeroed), read at that tile's queries
+    plan = fc.tile_plan(coords, h, w, levels, radius)[0]
+    hl, wl, hp, off = fc.cat_meta(h, w, levels)[0]
+    col = int(plan["x0"][0, 0]) + int(plan["bw"][0, 0]) // 2
+    cut = f2cat.clone()
+    cut[0, off + col * hp: off + (col + 1) * hp] = 0
+    q = fc.query_tiles(h * w, w)[0]
+    q = q[q >= 0].cuda()
+    k2 = (2 * radius + 1) ** 2
+    faulty = fc.fused_corr_lookup_cat(f1, cut, coords, h, w, levels,
+                                      radius)[0, q, :k2]
+    fault = max_rel_excess(faulty, ref[0, q, :k2], rtol, atol)
+    print(f"  two launches bit-equal; planted fault (column {col} of a "
+          f"tile's level-0 box left out), |d| / tolerance (must exceed 1): "
+          f"{fault:.2f}", flush=True)
+    if not fault > 1.0:
+        fail(f"lookup: the planted fault passes the tolerance ({fault:.2f})")
+
+    for what, b, h, w in (("serving", 1, h8, w8),
+                          ("training", TRAIN_BATCH, th, tw)):
+        for kind in ("smooth", "i.i.d. +-20 px"):
+            if kind == "smooth":
+                inp = smooth_corr_inputs(tgen, b, h, w, torch.bfloat16)
+            else:
+                inp = corr_inputs(tgen, b, h, w, torch.bfloat16, 20.0)
+            _, share = slow_share(fc, *inp, h, w)
+            chunks, mb = box_reads(fc.tile_plan(inp[2], h, w), 256)
+            print(f"  {what} {kind}: per-query path {share:.4f} of (query, "
+                  f"level) pairs; the boxes {chunks:.1f} chunks of 64 rows "
+                  f"a tile, {mb:.1f} MB of rows read", flush=True)
+            fused_corr_timing(None, b, h, w, f"{what} {kind}", inp)
+
+
+def fused_corr_timing(gen, b, h8, w8, what, inputs=None):
+    """Kernel, plain and bound times of one bf16 lookup at ``[b, h8*w8]``
+    (i.i.d. +- 20 px coordinates from ``gen`` unless ``inputs`` given)."""
     import torch
     from opticalflowfromdepth_torch.ops import fused_corr as fc
     c, levels, radius = 256, 4, 4
-    f1, f2cat, coords = corr_inputs(gen, b, h8, w8, torch.bfloat16, 20.0)
+    f1, f2cat, coords = inputs or corr_inputs(gen, b, h8, w8, torch.bfloat16,
+                                              20.0)
     meta = fc.cat_meta(h8, w8, levels)
-    ms = cuda_ms(lambda: fc.fused_corr_lookup_cat(f1, f2cat, coords, h8, w8,
-                                                  levels, radius))
+    ms = graph_ms(lambda: fc.fused_corr_lookup_cat(f1, f2cat, coords, h8, w8,
+                                                   levels, radius))
+    host_ms = cuda_ms(lambda: fc.fused_corr_lookup_cat(
+        f1, f2cat, coords, h8, w8, levels, radius))
     plain_ms = cuda_ms(lambda: fc.fused_corr_lookup_cat_plain(
         f1, f2cat, coords, h8, w8, levels, radius), reps=5)
     n = b * h8 * w8
@@ -287,7 +451,8 @@ def fused_corr_timing(gen, b, h8, w8, what):
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOP_PER_S \
         else "operations"
     print(f"  {what}: bf16 [{b},{h8 * w8},{c}] x R={f2cat.shape[1]}: kernel "
-          f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+          f"{ms * 1e3:.1f} us on the device ({host_ms * 1e3:.1f} us a call "
+          f"launched from the host), plain {plain_ms * 1e3:.1f} us, bound "
           f"{bound_ms * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
           f"{ops / 1e9:.3f} GFLOP)", flush=True)
     return ms, plain_ms, bound_ms, bound_by
@@ -297,49 +462,115 @@ FNET_SHAPES = ((2, 64, 220, 512), (2, 96, 110, 256), (2, 128, 55, 128))
 TRAIN_FNET_SHAPES = tuple(
     (2 * TRAIN_BATCH, c, TRAIN_CROP[0] // s, TRAIN_CROP[1] // s)
     for c, s in ((64, 2), (96, 4), (128, 8)))
+# GMFlow's backbone: the stacked pair at 448x1024 (Sintel padded to 16)
+# and its training batch of 16 of 368x560
+GM_FNET_SHAPES = ((2, 64, 224, 512), (2, 96, 112, 256), (2, 128, 56, 128))
+GM_TRAIN_FNET_SHAPES = tuple(
+    (2 * GM_BATCH, c, GM_CROP[0] // s, GM_CROP[1] // s)
+    for c, s in ((64, 2), (96, 4), (128, 8)))
+
+
+def instance_norm_compare(tag, x, relu, rtol, atol):
+    """The kernel against the plain version on ``x``: y within ``atol +
+    rtol |ref|``, mean within 1e-5, rstd within 1e-5 relative; returns
+    (y, max |d| of y)."""
+    import torch
+    from opticalflowfromdepth_torch.ops import instance_norm as inorm
+    y, m, r = inorm.instance_norm(x, 1e-5, relu)
+    torch.cuda.synchronize()
+    yr, mr, rr = inorm.instance_norm_plain(x, 1e-5, relu)
+    if y.dtype != x.dtype or m.dtype != torch.float32:
+        fail(f"instance norm dtypes {y.dtype}/{m.dtype}")
+    check(f"{tag} y", max_rel_excess(y, yr, rtol, atol), 1.0)
+    check(f"{tag} mean", float((m - mr).abs().max()), 1e-5)
+    check(f"{tag} rstd", max_rel_excess(r, rr, 1e-5, 0.0), 1.0)
+    return y, float((y.float() - yr.float()).abs().max())
 
 
 def instance_norm_phase(gen):
     import torch
     from opticalflowfromdepth_torch.ops import instance_norm as inorm
 
-    print("[3b] instance norm: Triton kernel vs plain", flush=True)
+    print("[3b] instance norm: CUDA kernel vs plain", flush=True)
     worst = 0.0
     for shape in FNET_SHAPES + TRAIN_FNET_SHAPES:
         x32 = (torch.randn(*shape, generator=gen) * 3 + 0.5).cuda()
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
             for relu in (False, True):
-                y, m, r = inorm.instance_norm(x, 1e-5, relu)
-                torch.cuda.synchronize()
-                yr, mr, rr = inorm.instance_norm_plain(x, 1e-5, relu)
-                if y.dtype != dtype or m.dtype != torch.float32:
-                    fail(f"instance norm dtypes {y.dtype}/{m.dtype}")
-                tag = f"{list(shape)} {dtype} relu={relu}"
                 # f32: sums in another order, so 1e-4; bf16: the kernel and
                 # the plain version each round the f32 value once, so the
                 # two may land one bf16 step (2^-7 relative) apart
                 rtol, atol = (0.0, 1e-4) if dtype == torch.float32 \
                     else (2 ** -7, 1e-3)
-                check(f"{tag} y", max_rel_excess(y, yr, rtol, atol), 1.0)
-                check(f"{tag} mean", float((m - mr).abs().max()), 1e-5)
-                check(f"{tag} rstd", max_rel_excess(r, rr, 1e-5, 0.0), 1.0)
+                _, err = instance_norm_compare(
+                    f"{list(shape)} {dtype} relu={relu} "
+                    f"{in_plan_tag(inorm, x)}", x, relu, rtol, atol)
                 if dtype == torch.bfloat16 and shape in TRAIN_FNET_SHAPES:
-                    worst = max(worst, float((y.float() - yr.float())
-                                             .abs().max()))
+                    worst = max(worst, err)
+
+    # every plan class and GMFlow's shapes, from a generator of their own
+    # (the inputs of every later phase stay as they were)
+    igen = torch.Generator().manual_seed(15)
+    cases = [("row shorter than a block's slice, odd n", (3, 5, 1, 37)),
+             ("row not a multiple of the slice", (1, 2, 211, 307)),
+             ("rows streamed twice (too long for the cluster)",
+              (1, 3, 1024, 1024))]
+    cases += [("GMFlow serving", s) for s in GM_FNET_SHAPES]
+    cases += [("GMFlow training", s) for s in GM_TRAIN_FNET_SHAPES]
+    for label, shape in cases:
+        x32 = (torch.randn(*shape, generator=igen) * 3 + 0.5).cuda()
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            if dtype == torch.float16 and label.startswith("GMFlow t"):
+                continue
+            x = x32.to(dtype)
+            # f16: one step of its 10-bit mantissa, as bf16's above
+            rtol, atol = {torch.float32: (0.0, 1e-4),
+                          torch.bfloat16: (2 ** -7, 1e-3),
+                          torch.float16: (2 ** -10, 1e-3)}[dtype]
+            instance_norm_compare(f"{label} {list(shape)} {dtype} "
+                                  f"{in_plan_tag(inorm, x)}", x, True, rtol,
+                                  atol)
+    # a tensor whose data starts off the 16-byte grid
+    shape = (2, 64, 55, 128)
+    buf = torch.empty(2 * 64 * 55 * 128 + 8, dtype=torch.bfloat16,
+                      device="cuda")
+    x = buf[1:1 + 2 * 64 * 55 * 128].view(shape)
+    x.copy_(torch.randn(*shape, generator=igen))
+    if x.data_ptr() % 16 == 0:
+        fail("instance norm: the unaligned case is aligned")
+    instance_norm_compare(f"unaligned data {list(x.shape)} bf16", x, True,
+                          2 ** -7, 1e-3)
+    x = (torch.randn(*TRAIN_FNET_SHAPES[0], generator=igen)).cuda().to(
+        torch.bfloat16)
+    first = inorm.instance_norm(x, 1e-5, True)
+    second = inorm.instance_norm(x, 1e-5, True)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail("instance norm: two launches on the same inputs differ")
+    print("  two launches bit-equal", flush=True)
 
     # one fnet forward (each shape 5 times, bf16, relu): serving (Sintel,
     # the stacked pair) printed; training (batch 8 of 368x496, the stacked
     # pairs: the shapes of the launches counted on this slice's main path)
-    # recorded
+    # recorded; GMFlow's backbone at its serving and training shapes
     instance_norm_timing(gen, FNET_SHAPES, "serving")
     ms, plain_ms, lib_ms, bound_ms = instance_norm_timing(
         gen, TRAIN_FNET_SHAPES, "training")
-    return dict(name="instance_norm", route="triton",
-                source="opticalflowfromdepth_torch/ops/instance_norm.py",
+    instance_norm_timing(igen, GM_FNET_SHAPES, "GMFlow serving")
+    instance_norm_timing(igen, GM_TRAIN_FNET_SHAPES, "GMFlow training")
+    return dict(name="instance_norm", route="cuda",
+                source="opticalflowfromdepth_torch/csrc/instance_norm.cu",
                 replaces="opticalflowfromdepth_tpu/ops/instance_norm.py:44",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+
+
+def in_plan_tag(inorm, x) -> str:
+    b, c, h, w = x.shape
+    p = inorm.plan(b * c, h * w, x.element_size())
+    return (f"(cluster {p['cluster']}, {p['rows_per_block']} rows a block, "
+            f"slice {p['slice']}, {'resident' if p['resident'] else 'streamed'}"
+            f", {p['blocks']} blocks)")
 
 
 def instance_norm_timing(gen, shapes, what):
@@ -351,21 +582,24 @@ def instance_norm_timing(gen, shapes, what):
     ms = plain_ms = lib_ms = bound_ms = 0.0
     for shape in shapes:
         x = torch.randn(*shape, generator=gen).cuda().to(torch.bfloat16)
-        k_ms = cuda_ms(lambda: inorm.instance_norm(x, 1e-5, True))
+        k_ms = graph_ms(lambda: inorm.instance_norm(x, 1e-5, True))
+        h_ms = cuda_ms(lambda: inorm.instance_norm(x, 1e-5, True))
         p_ms = cuda_ms(lambda: inorm.instance_norm_plain(x, 1e-5, True))
-        l_ms = cuda_ms(lambda: F.relu(F.instance_norm(x, eps=1e-5)))
+        l_ms = graph_ms(lambda: F.relu(F.instance_norm(x, eps=1e-5)))
         b_ms = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
-        print(f"  {what}: bf16 {list(shape)}: kernel {k_ms * 1e3:.1f} us, "
-              f"plain {p_ms * 1e3:.1f} us, F.instance_norm+relu "
-              f"{l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us (bytes)",
-              flush=True)
+        print(f"  {what}: bf16 {list(shape)} {in_plan_tag(inorm, x)}: kernel "
+              f"{k_ms * 1e3:.1f} us ({b_ms / k_ms:.2f} of the bound; "
+              f"{h_ms * 1e3:.1f} us a call launched from the host), plain "
+              f"{p_ms * 1e3:.1f} us, F.instance_norm+relu {l_ms * 1e3:.1f} "
+              f"us, bound {b_ms * 1e3:.2f} us (bytes)", flush=True)
         ms += 5 * k_ms
         plain_ms += 5 * p_ms
         lib_ms += 5 * l_ms
         bound_ms += 5 * b_ms
     print(f"  {what}: 15 calls of one fnet forward: kernel {ms * 1e3:.1f} us,"
           f" plain {plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, "
-          f"bound {bound_ms * 1e3:.1f} us", flush=True)
+          f"bound {bound_ms * 1e3:.1f} us ({bound_ms / ms:.2f} of the bound)",
+          flush=True)
     return ms, plain_ms, lib_ms, bound_ms
 
 
@@ -452,7 +686,7 @@ def fused_corr_bwd_phase(gen):
                 print(f"    planted faults, |d| / tolerance (each must "
                       f"exceed 1): df2cat x 0.98 {faults[0]:.2f}, the first "
                       f"query tile left out {faults[1]:.2f}; padded rows 0; "
-                      f"two launches bit-equal ({fc.bwd_route(dtype, c)})",
+                      f"two launches bit-equal ({fc.route(dtype, c)})",
                       flush=True)
                 if not min(faults) > 1.0:
                     fail(f"lookup backward: a planted fault passes {faults}")
@@ -508,7 +742,7 @@ def instance_norm_grad_phase(gen):
     import torch
     from opticalflowfromdepth_torch.ops import instance_norm as inorm
 
-    print("[3d] instance norm gradient: Triton forward + closed form vs "
+    print("[3d] instance norm gradient: kernel forward + closed form vs "
           "autograd through the plain version", flush=True)
     for shape in TRAIN_FNET_SHAPES:
         x32 = (torch.randn(*shape, generator=gen) * 3 + 0.5).cuda()
@@ -532,7 +766,7 @@ def instance_norm_grad_phase(gen):
                     else (2 ** -7, 1e-3)
                 tol = atol + rtol * grads[1].float().abs()
                 # ReLU ties: where the pre-activation lies within rounding
-                # of 0, the Triton forward and the plain one can fall on
+                # of 0, the kernel's forward and the plain one can fall on
                 # opposite sides of the ReLU, and the backward masks g by
                 # each one's own output, so dx there differs by |g| rstd
                 # (every other dx by |g| rstd / (H W), inside the
@@ -1286,6 +1520,11 @@ def main_path_phase():
     return launches
 
 
+# name stems of the kernels in opticalflowfromdepth_torch/csrc
+PORT_KERNELS = ("corr_fwd_tiles", "fused_corr_fwd_kernel", "corr_bwd_",
+                "instance_norm_fwd", "flash_fwd_", "flash_bwd_", "conv3x3_")
+
+
 def profile(run, unprofiled_ms: float, what: str) -> None:
     """Device time by kernel over one more ``run()``, and the busy share of
     an unprofiled run's time (the profiler's own start-up inflates its
@@ -1319,6 +1558,11 @@ def profile(run, unprofiled_ms: float, what: str) -> None:
     for e in rows[:16]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}", flush=True)
+    # the port's own kernels below those rows
+    for e in rows[16:]:
+        if any(k in e.key for k in PORT_KERNELS):
+            print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
+                  f"{e.key[:90]} (the port's)", flush=True)
     host = sorted((e for e in prof.key_averages()
                    if not str(getattr(e, "device_type", "")).endswith("CUDA")
                    and e.self_cpu_time_total > 0),
@@ -2413,7 +2657,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.perf_counter()
-    logs = _build.build(["fused_corr", "flash", "flash_bwd", "conv3x3"])
+    logs = _build.build(["fused_corr", "flash", "flash_bwd", "conv3x3",
+                         "instance_norm"])
     print(f"[2] nvcc build {time.perf_counter() - t:.1f} s", flush=True)
     for name, log in logs.items():
         entry = ""
@@ -2423,14 +2668,6 @@ def main() -> None:
             elif "registers" in line or "spill" in line \
                     or "Performance" in line:
                 print(f"  {name}: {entry}: {line.strip()}", flush=True)
-    import triton
-    from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
-    t = time.perf_counter()
-    instance_norm(torch.ones(1, 1, 4, 4, device="cuda"))
-    torch.cuda.synchronize()
-    print(f"  triton {triton.__version__} first launch "
-          f"{time.perf_counter() - t:.1f} s", flush=True)
-
     gen = torch.Generator().manual_seed(0)
     seconds = {}
 

@@ -6,8 +6,9 @@ is tested against). This package imports ``torch`` and never JAX.
 Layers mirror the JAX package:
   core/     geometry helpers
   ops/      correlation, sampling, and the hand-written Hopper kernels
-            (``fused_corr`` forward and backward in CUDA C++,
-            ``instance_norm`` in Triton), as autograd Functions
+            (``fused_corr`` forward and backward, ``instance_norm``,
+            flash attention forward and backward, the 3x3 conv; CUDA
+            C++ in ``csrc/``), as autograd Functions
   models/   RAFT, its encoders and the classifier (NCHW ``nn.Module``s)
   train/    losses, optimizer and schedule, checkpoints, the RAFT train
             step and the runner

@@ -10,22 +10,49 @@
 // levels in VMEM (35.5 GFLOP per lookup at Sintel size). A Hopper block
 // has 227 KB of shared memory, not the ~15 MB that needs, so this kernel
 // uses the window form instead (equal by linearity, as the reference's
-// alt_cuda_corr): per query and level it takes the dot products of f1[q]
-// with the f2 rows at the (2r+2)^2 integer neighbours of the centre,
-// then combines them with the bilinear weights. That is ~1.4 GFLOP per
-// lookup, so the kernel is bound by bytes: f1 and the output once from
-// device memory, and f2cat (5 MB at Sintel size) re-read from L2.
+// alt_cuda_corr): per query and level the dot products of f1[q] with the
+// f2 rows at the (2r+2)^2 integer neighbours of the centre, then the
+// bilinear combination (y first, then x: the TPU kernel's stage order).
+// f2cat keeps the packed layout of cat_meta: per level, x-major rows with
+// y padded to hp, so a column's rows are contiguous. Accumulation is f32;
+// the output is written in f1's dtype.
 //
-// Layout: one warp per query; each lane holds 8 channels of f1[q] per
-// 256-channel chunk in registers (16-byte loads), reduces each dot with
-// warp shuffles, and lane 0 parks the dots in shared memory for the
-// bilinear combination. f2cat keeps the packed layout of cat_meta: per
-// level, x-major rows with y padded to hp, so the K+1 y-neighbours of one
-// column are contiguous rows. Accumulation is f32; the output is written
-// in f1's dtype.
+// bf16 at C = 128 or 256 (RAFT-basic's 256), the tensor-core route: one
+// block of one warpgroup per (8x8 query tile of the query image, batch
+// entry, level). Neighbouring queries' windows overlap almost entirely
+// (the coordinates are the pixel grid plus a smooth flow), so the block
+// reads the union of its windows once instead of 64 x (2r+2)^2 rows:
+//   1. the tile's window origins reduce to a box of columns [X0, X0 + bw)
+//      and rows [Y0, Y0 + hb) clipped to the level, each side at most 64
+//      (where the windows spread wider, the box is placed on their mean
+//      centre); a query whose clipped window lies inside the box takes
+//      the tile path, any other the per-query path below;
+//   2. the box streams through a 2-stage ring under mbarriers in chunks
+//      of 64 rows: 64 / hb8 whole columns each (hb rounded up to 8), one
+//      TMA box of hb8 rows per column and 64-channel panel, 128-byte
+//      swizzled; each chunk is one product f1_tile . rows^T on wgmma
+//      (m64n64k16, f1 in registers as the A fragments, the rows K-major),
+//      and a chunk's stage is refilled as soon as its products are done;
+//   3. every accumulator element that falls in its query's window is that
+//      tap's dot (times 1/sqrt(C)) in a shared dots[query][tap] table:
+//      each tap has exactly one owner, so there are no atomics;
+//   4. the queries whose windows overflow the box take the per-query path
+//      in the same block (one warp each: the tap rows one by one, warp-
+//      shuffle reductions), then all 64 combine bilinearly.
+// What bounds it: not bytes (f2cat stays in L2) nor the products (~2
+// MFLOP a chunk) but each block's serial steps: the set-up, one chunk
+// after another, the bilinear pass. Blocks per (tile, level) keep
+// enough of them in flight (448 at the serving shape, 1536 in training).
+// Every launch on the same inputs gives the same bits (fixed orders, no
+// atomics on floats).
+//
+// f32, and bf16 at other widths (C % 8 == 0 up to 512), the CUDA-core
+// route: one warp per query walks every level's taps as the per-query
+// path does, f1[q] in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <climits>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -66,6 +93,75 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// The window origin of a query at level l: the first integer tap (ix0,
+// iy0) and the bilinear fractions. The centre is clamped before the int
+// conversion (defined for any coordinate); a centre clamped this way
+// still has no tap inside the level.
+__device__ __forceinline__ void window_at(float cx, float cy, int l, int hl,
+                                          int wl, int radius, int* ix0,
+                                          int* iy0, float* fx, float* fy) {
+  const float s = 1.0f / (float)(1 << l);
+  const float x = cx * s, y = cy * s;
+  const float x0 = floorf(x), y0 = floorf(y);
+  *fx = x - x0;
+  *fy = y - y0;
+  *ix0 = (int)fminf(fmaxf(x0, -radius - 2.f), (float)(wl + radius)) - radius;
+  *iy0 = (int)fminf(fmaxf(y0, -radius - 2.f), (float)(hl + radius)) - radius;
+}
+
+// The lane's channels of one f1 row: 8 per 256-channel chunk, zeros past C.
+template <typename T>
+__device__ __forceinline__ void load_f1_row(const T* f1q, int C, int lane,
+                                            float (&f1r)[MAX_CHUNKS][VEC]) {
+#pragma unroll
+  for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
+    const int c = (ch * 32 + lane) * VEC;
+    if (c < C) {
+      load8(f1q + c, f1r[ch]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) f1r[ch][i] = 0.f;
+    }
+  }
+}
+
+// One warp: the (2r+2)^2 dot products of a query's window at one level,
+// tap by tap, each reduced with warp shuffles and times `scale`, 0 outside
+// the level; lane 0 writes dq[t]. f2l is the level's first packed row.
+template <typename T>
+__device__ __forceinline__ void window_dots(
+    const float (&f1r)[MAX_CHUNKS][VEC], const T* __restrict__ f2l, int C,
+    int hl, int wl, int hp, int ix0, int iy0, int K1, float scale, float* dq,
+    int lane) {
+  const int taps = K1 * K1;
+#pragma unroll 4
+  for (int t = 0; t < taps; ++t) {
+    const int xx = ix0 + t / K1;
+    const int yy = iy0 + t % K1;
+    float d = 0.f;
+    if (xx >= 0 && xx < wl && yy >= 0 && yy < hl) {  // uniform branch
+      const T* row = f2l + ((long long)xx * hp + yy) * C;
+      float acc = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
+        const int c = (ch * 32 + lane) * VEC;
+        if (c < C) {
+          float v[VEC];
+          load8(row + c, v);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc = fmaf(f1r[ch][i], v[i], acc);
+        }
+      }
+#pragma unroll
+      for (int m = 16; m; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+      d = acc * scale;
+    }
+    if (lane == 0) dq[t] = d;
+  }
+}
+
+// The CUDA-core route (f32, and bf16 at widths other than 128 and 256):
+// one warp per query, every level.
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 fused_corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2cat,
@@ -80,20 +176,9 @@ fused_corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2cat,
   const int b = (int)(q / N);
   const int K = 2 * radius + 1;
   const int K1 = K + 1;
-  const int taps = K1 * K1;
 
   float f1r[MAX_CHUNKS][VEC];
-  const T* f1q = f1 + q * C;
-#pragma unroll
-  for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
-    const int c = (ch * 32 + lane) * VEC;
-    if (c < C) {
-      load8(f1q + c, f1r[ch]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) f1r[ch][i] = 0.f;
-    }
-  }
+  load_f1_row(f1 + q * C, C, lane, f1r);
   const float cx = coords[2 * q];
   const float cy = coords[2 * q + 1];
   const T* f2b = f2cat + (long long)b * R * C;
@@ -102,47 +187,16 @@ fused_corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2cat,
 
   for (int l = 0; l < L; ++l) {
     const int hl = meta.hl[l], wl = meta.wl[l], hp = meta.hp[l];
-    const int off = meta.off[l];
     T* o = outq + l * K * K;
     if (hl == 0 || wl == 0) {  // level pooled away: zero lookups
       for (int t = lane; t < K * K; t += 32) store1(o + t, 0.f);
       continue;
     }
-    const float s = 1.0f / (float)(1 << l);
-    const float x = cx * s, y = cy * s;
-    const float x0 = floorf(x), y0 = floorf(y);
-    const float fx = x - x0, fy = y - y0;
-    // Clamp before the int conversion (defined for any coordinate); a
-    // centre clamped this way still has no tap inside the level.
-    const int ix0 =
-        (int)fminf(fmaxf(x0, -radius - 2.f), (float)(wl + radius)) - radius;
-    const int iy0 =
-        (int)fminf(fmaxf(y0, -radius - 2.f), (float)(hl + radius)) - radius;
-
-#pragma unroll 4
-    for (int t = 0; t < taps; ++t) {
-      const int xx = ix0 + t / K1;
-      const int yy = iy0 + t % K1;
-      float d = 0.f;
-      if (xx >= 0 && xx < wl && yy >= 0 && yy < hl) {  // uniform branch
-        const T* row = f2b + ((long long)off + (long long)xx * hp + yy) * C;
-        float acc = 0.f;
-#pragma unroll
-        for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
-          const int c = (ch * 32 + lane) * VEC;
-          if (c < C) {
-            float v[VEC];
-            load8(row + c, v);
-#pragma unroll
-            for (int i = 0; i < VEC; ++i) acc = fmaf(f1r[ch][i], v[i], acc);
-          }
-        }
-#pragma unroll
-        for (int m = 16; m; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-        d = acc * scale;
-      }
-      if (lane == 0) dq[t] = d;
-    }
+    int ix0, iy0;
+    float fx, fy;
+    window_at(cx, cy, l, hl, wl, radius, &ix0, &iy0, &fx, &fy);
+    window_dots(f1r, f2b + (long long)meta.off[l] * C, C, hl, wl, hp, ix0,
+                iy0, K1, scale, dq, lane);
     __syncwarp();
     // y first, then x: the TPU kernel's stage order
     for (int t = lane; t < K * K; t += 32) {
@@ -911,19 +965,362 @@ extern "C" int ofd_fused_corr_bwd(const void* g, const void* f1,
   return (int)cudaGetLastError();
 }
 
+namespace fwd_sm90 {
+
+using namespace hopper;
+
+constexpr int QT = 8;          // the query tile's side in the query image
+constexpr int Q = QT * QT;     // queries a block, the wgmma M
+constexpr int ROWS = 64;       // f2cat rows a chunk, the wgmma N
+constexpr int BOX = 64;        // the box's most columns and rows
+constexpr int THREADS = 128;   // one warpgroup
+constexpr int TAPS_MAX = 100;  // (2r + 2)^2 at r <= 4
+constexpr int PANEL = 64 * 64; // bf16 of a [64 rows][64] panel
+
+template <int NP>
+struct Smem {
+  alignas(1024) bf16 f2[2][NP][PANEL];  // the ring of chunks
+  float dots[Q * TAPS_MAX];
+  float fx[Q], fy[Q];
+  int n[Q];            // the query's index, -1 outside the query image
+  int ox[Q], oy[Q];    // its window origin at the level
+  int fast[Q];         // 1: the tile path
+  int slow[Q];         // the per-query path's queries, in query order
+  int red[2][4];
+  uint64_t full[2];    // a chunk's TMA boxes have landed in the stage
+};
+
+// f2cat [B, R, C] in boxes of 64 channels x 8 m rows, m = 1..8: chunk
+// columns of hb8 = 8 m rows come in one box a panel
+struct RowMaps {
+  CUtensorMap m[8];
+};
+
+// The placement of the box along one axis from the reduced windows
+// (r: min start, max end, sum of start + end, count): their span if it
+// fits BOX, else BOX placed on their mean centre within the span.
+__device__ __forceinline__ void place(const int (&r)[4], int* start,
+                                      int* len) {
+  if (r[3] == 0) {
+    *start = *len = 0;
+  } else if (r[1] - r[0] <= BOX) {
+    *start = r[0];
+    *len = r[1] - r[0];
+  } else {
+    const int centre = r[2] / (2 * r[3]);
+    *start = min(max(centre - BOX / 2, r[0]), r[1] - BOX);
+    *len = BOX;
+  }
+}
+
+// Block (query tile, batch entry, level); level-major, so the heaviest
+// level's blocks go first. The query image is wq queries wide, the tile
+// grid tiles_x tiles wide and `tiles` tiles in all. Each thread keeps the
+// level's chunk layout for its accumulator columns in registers, so the
+// chunk loop reads no layout from shared memory.
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 2)
+corr_fwd_tiles(const bf16* __restrict__ f1, const bf16* __restrict__ f2cat,
+               const float* __restrict__ coords, bf16* __restrict__ out,
+               const __grid_constant__ RowMaps maps, int B, int N, int R,
+               int L, int wq, int tiles_x, int tiles, Meta meta, int radius,
+               float scale, int* n_slow_total) {
+  constexpr int C = NP * 64;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-aligned by an offset (so the accesses stay in the shared space)
+  Smem<NP>& sm = *reinterpret_cast<Smem<NP>*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  int bid = blockIdx.x;
+  const int l = bid / (B * tiles);
+  bid -= l * B * tiles;
+  const int b = bid / tiles, tile = bid - b * tiles;
+  const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int K = 2 * radius + 1, K1 = K + 1, taps = K1 * K1, KK = K * K;
+  const int hl = meta.hl[l], wl = meta.wl[l], hp = meta.hp[l];
+  const long long ostride = (long long)L * KK;
+  if (tid == 0) {
+    mbar_init(&sm.full[0], 1);
+    mbar_init(&sm.full[1], 1);
+    mbar_fence_init();
+  }
+
+  // the tile's queries and their windows clipped to the level
+  int xs = 0, xe = 0, ys = 0, ye = 0;
+  if (tid < Q) {
+    const int qx = tx * QT + (tid & (QT - 1));
+    const int n = (ty * QT + tid / QT) * wq + qx;
+    const bool ok = qx < wq && n < N;
+    sm.n[tid] = ok ? n : -1;
+    if (ok && hl > 0 && wl > 0) {
+      const long long qi = (long long)b * N + n;
+      int ix0, iy0;
+      float fx, fy;
+      window_at(coords[2 * qi], coords[2 * qi + 1], l, hl, wl, radius, &ix0,
+                &iy0, &fx, &fy);
+      sm.ox[tid] = ix0;
+      sm.oy[tid] = iy0;
+      sm.fx[tid] = fx;
+      sm.fy[tid] = fy;
+      xs = max(ix0, 0);
+      xe = min(ix0 + K1, wl);
+      ys = max(iy0, 0);
+      ye = min(iy0 + K1, hl);
+      if (xs >= xe || ys >= ye) xs = xe = ys = ye = 0;  // nothing in range
+    }
+  }
+  if (hl == 0 || wl == 0) {  // level pooled away: zero lookups
+    __syncthreads();
+    for (int i = tid; i < Q * KK; i += THREADS) {
+      const int n = sm.n[i / KK];
+      if (n >= 0)
+        out[((long long)b * N + n) * ostride + l * KK + i % KK] =
+            __float2bfloat16(0.f);
+    }
+    return;
+  }
+  const bool live = ye > ys;
+
+  // min start, max end, sum of start + end and count over the queries on
+  auto reduce = [&](bool on, int a, int e, int (&r)[4]) {
+    if (tid < Q) {
+      const int v0 = __reduce_min_sync(0xffffffffu, on ? a : INT_MAX);
+      const int v1 = __reduce_max_sync(0xffffffffu, on ? e : INT_MIN);
+      const int v2 = __reduce_add_sync(0xffffffffu, on ? a + e : 0);
+      const int v3 = __reduce_add_sync(0xffffffffu, on ? 1 : 0);
+      if (lane == 0) {
+        sm.red[warp][0] = v0;
+        sm.red[warp][1] = v1;
+        sm.red[warp][2] = v2;
+        sm.red[warp][3] = v3;
+      }
+    }
+    __syncthreads();
+    r[0] = min(sm.red[0][0], sm.red[1][0]);
+    r[1] = max(sm.red[0][1], sm.red[1][1]);
+    r[2] = sm.red[0][2] + sm.red[1][2];
+    r[3] = sm.red[0][3] + sm.red[1][3];
+    __syncthreads();
+  };
+  int r[4], Y0, hb, X0, bw;
+  reduce(live, ys, ye, r);
+  place(r, &Y0, &hb);
+  const bool fit_y = live && ys >= Y0 && ye <= Y0 + hb;
+  reduce(fit_y, xs, xe, r);
+  place(r, &X0, &bw);
+  const bool fast = fit_y && xs >= X0 && xe <= X0 + bw;
+  // a chunk: cpc whole columns of hb8 rows (hb rounded up to 8)
+  const int hb8 = (hb + 7) & ~7;
+  const int cpc = hb > 0 ? ROWS / hb8 : 0;
+  const int nch = cpc > 0 ? (bw + cpc - 1) / cpc : 0;
+
+  // the per-query path's queries, compacted in query order
+  const bool slow = live && !fast;
+  unsigned mask = 0;
+  if (tid < Q) {
+    sm.fast[tid] = fast;
+    mask = __ballot_sync(0xffffffffu, slow);
+    if (lane == 0) sm.red[warp][0] = __popc(mask);
+  }
+  float4* d4 = reinterpret_cast<float4*>(sm.dots);
+  for (int i = tid; i < Q * taps / 4; i += THREADS)
+    d4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  const int n_slow = sm.red[0][0] + sm.red[1][0];
+  if (slow)
+    sm.slow[(warp ? sm.red[0][0] : 0) + __popc(mask & ((1u << lane) - 1))] =
+        tid;
+  if (tid == 0 && n_slow_total && n_slow) atomicAdd(n_slow_total, n_slow);
+
+  // chunk row r holds column X0 + j * cpc + r / hb8, row Y0 + r % hb8
+  // (the rows past Y0 + hb are other rows, never read). This thread's
+  // accumulator columns are chunk rows 8 jn + 2 t + e: their column
+  // offsets in the chunk (-1: not a box row) and their y.
+  const int ql = warp * 16 + (lane >> 2), t = lane & 3;
+  int ccol[16], cy[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    const int rw = 8 * (c >> 1) + 2 * t + (c & 1);
+    const int col = hb8 ? rw / hb8 : 0, y = rw - col * hb8;
+    ccol[c] = col < cpc && y < hb ? col : -1;
+    cy[c] = Y0 + y;
+  }
+
+  // chunk j: one TMA box of hb8 rows per column and 64-channel panel into
+  // stage j % 2 (128-byte swizzled, as the wgmma descriptors read it)
+  const int row0 = meta.off[l] + Y0;
+  auto load_chunk = [&](int j) {
+    if (tid != 0 || j >= nch) return;
+    const int s = j & 1, xc = X0 + j * cpc;
+    const int cols = min(cpc, X0 + bw - xc);
+    mbar_expect_tx(&sm.full[s], (uint32_t)(cols * NP * hb8 * 128));
+    for (int c = 0; c < cols; ++c)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        tma_load_3d(sm.f2[s][p] + c * hb8 * 64, &maps.m[hb8 / 8 - 1],
+                    &sm.full[s], p * 64, row0 + (xc + c) * hp, b);
+  };
+
+  if (nch > 0) {
+    // f1's tile as the wgmma A fragments (rows ql, ql + 8; zeros outside
+    // the query image)
+    uint32_t a[NP * 16];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int n = sm.n[ql + 8 * rr];
+      const bf16* row = f1 + ((long long)b * N + (n < 0 ? 0 : n)) * C + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < NP * 4; ++kk)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          a[4 * kk + 2 * half + rr] =
+              n < 0 ? 0u
+                    : *reinterpret_cast<const uint32_t*>(row + 16 * kk +
+                                                         8 * half);
+    }
+    load_chunk(0);
+    load_chunk(1);
+    bool on[2];
+    int ox[2], oy[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      on[rr] = sm.fast[ql + 8 * rr];
+      ox[rr] = sm.ox[ql + 8 * rr];
+      oy[rr] = sm.oy[ql + 8 * rr];
+    }
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int j = 0; j < nch; ++j) {
+      mbar_wait(&sm.full[j & 1], (j >> 1) & 1);
+      const bf16* st = sm.f2[j & 1][0];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NP * 4; ++kk)
+        wgmma_m64n64_rs(acc, &a[4 * kk],
+                        desc_sw128(st + (kk >> 2) * PANEL + (kk & 3) * 16, 16,
+                                   1024),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(a);
+      // the warpgroup's products have read stage j % 2 (a wgmma starts
+      // only once all four warps have reached it, so every warp is past
+      // its wait for chunk j): chunk j + 2 may land there now
+      load_chunk(j + 2);
+      // acc[4 jn + 2 rr + e]: query ql + 8 rr, chunk row 8 jn + 2 t + e
+      const int xc = X0 + j * cpc;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        if (!on[rr]) continue;
+        float* dq = sm.dots + (ql + 8 * rr) * taps;
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const int x = xc + ccol[c];
+          const int dx = x - ox[rr], dy = cy[c] - oy[rr];
+          if (ccol[c] >= 0 && x < X0 + bw && (unsigned)dx < (unsigned)K1 &&
+              (unsigned)dy < (unsigned)K1)
+            dq[dx * K1 + dy] = acc[4 * (c >> 1) + 2 * rr + (c & 1)] * scale;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the per-query path: one warp a query
+  for (int i = warp; i < n_slow; i += THREADS / 32) {
+    const int q = sm.slow[i];
+    float f1r[MAX_CHUNKS][VEC];
+    load_f1_row(f1 + ((long long)b * N + sm.n[q]) * C, C, lane, f1r);
+    window_dots(f1r, f2cat + ((long long)b * R + meta.off[l]) * C, C, hl,
+                wl, hp, sm.ox[q], sm.oy[q], K1, scale,
+                sm.dots + q * taps, lane);
+  }
+  __syncthreads();
+
+  // y first, then x (the TPU kernel's stage order); a thread a (query,
+  // kx) writes the K outputs of that window column (q = i / K exactly as
+  // (i * ceil(2^22 / K)) >> 22 for i < Q * K)
+  const unsigned inv_k = ((1u << 22) + K - 1) / K;
+  for (int i = tid; i < Q * K; i += THREADS) {
+    const int q = (int)(((unsigned)i * inv_k) >> 22), kx = i - q * K;
+    const int n = sm.n[q];
+    if (n < 0) continue;
+    const float* d0 = sm.dots + q * taps + kx * K1;
+    const float* d1 = d0 + K1;
+    const float fx = sm.fx[q], fy = sm.fy[q];
+    bf16* o = out + ((long long)b * N + n) * ostride + l * KK + kx * K;
+#pragma unroll
+    for (int ky = 0; ky < 9; ++ky)
+      if (ky < K)
+        o[ky] = __float2bfloat16(
+            (1.f - fx) * ((1.f - fy) * d0[ky] + fy * d0[ky + 1]) +
+            fx * ((1.f - fy) * d1[ky] + fy * d1[ky + 1]));
+  }
+}
+
+template <int NP>
+static int launch(const void* f1, const void* f2cat, const void* coords,
+                  void* out, int B, int N, int R, int L, int wq,
+                  const Meta& meta, int radius, float scale, int* n_slow,
+                  cudaStream_t st) {
+  const size_t smem = sizeof(Smem<NP>) + 1024;
+  static bool allowed = false;  // the shared memory attribute is set
+  int e;
+  if (!allowed) {  // and the most shared memory a SM can give, for two
+    if ((e = (int)cudaFuncSetAttribute(
+             corr_fwd_tiles<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem)) ||
+        (e = (int)cudaFuncSetAttribute(
+             corr_fwd_tiles<NP>,
+             cudaFuncAttributePreferredSharedMemoryCarveout,
+             cudaSharedmemCarveoutMaxShared)))
+      return e;
+    allowed = true;
+  }
+  RowMaps maps;
+  for (int m = 0; m < 8; ++m)
+    if ((e = tensor_map_bf16_3d(&maps.m[m], f2cat, NP * 64, R, B, 8 * (m + 1))))
+      return e;
+  const int tiles_x = (wq + QT - 1) / QT;
+  const int hq = (N + wq - 1) / wq;
+  const int tiles = tiles_x * ((hq + QT - 1) / QT);
+  const long long blocks = (long long)L * B * tiles;
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  corr_fwd_tiles<NP><<<(unsigned)blocks, THREADS, smem, st>>>(
+      (const bf16*)f1, (const bf16*)f2cat, (const float*)coords, (bf16*)out,
+      maps, B, N, R, L, wq, tiles_x, tiles, meta, radius, scale, n_slow);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwd_sm90
+
 // meta: 4*L host ints (hl, wl, hp, row_offset) per level, as cat_meta.
+// wq: the query image's width (queries n = y * wq + x), which sets the
+// tensor-core route's query tiles. n_slow: null, or an int on the card to
+// which the tensor-core route adds the count of (query, level) pairs that
+// took its per-query path. bf16 at C = 128
+// or 256 takes the tensor-core route, everything else the CUDA-core one.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ofd_fused_corr_fwd(const void* f1, const void* f2cat,
                                   const void* coords, void* out, int B, int N,
                                   int C, int R, int L, const int* meta,
                                   int radius, float scale, int is_bf16,
+                                  int wq, int* n_slow,
                                   void* stream) {
   Meta m;
-  if (!unpack_meta(L, C, radius, meta, &m)) return (int)cudaErrorInvalidValue;
+  if (!unpack_meta(L, C, radius, meta, &m) || wq < 1)
+    return (int)cudaErrorInvalidValue;
   const long long total = (long long)B * N;
   if (total == 0) return 0;
-  const dim3 grid((unsigned)((total + WARPS - 1) / WARPS));
   cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16 && (C == 128 || C == 256))
+    return C == 256 ? fwd_sm90::launch<4>(f1, f2cat, coords, out, B, N, R, L,
+                                          wq, m, radius, scale, n_slow, st)
+                    : fwd_sm90::launch<2>(f1, f2cat, coords, out, B, N, R, L,
+                                          wq, m, radius, scale, n_slow, st);
+  const dim3 grid((unsigned)((total + WARPS - 1) / WARPS));
   if (is_bf16) {
     fused_corr_fwd_kernel<__nv_bfloat16><<<grid, WARPS * 32, 0, st>>>(
         (const __nv_bfloat16*)f1, (const __nv_bfloat16*)f2cat,

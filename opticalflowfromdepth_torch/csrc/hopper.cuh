@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX, for the kernels of this
 // directory: mbarriers, TMA tile loads, bulk copies, 4-byte cp.async
-// copies counted on an mbarrier, wgmma shared-memory descriptors and instructions, and the
-// host-side tensor-map encoder.
+// copies counted on an mbarrier, the async-proxy fence, wgmma shared-memory
+// descriptors and instructions, and the host-side tensor-map encoder.
 //
 // cuTensorMapEncodeTiled is a driver function; it is reached through the
 // runtime's cudaGetDriverEntryPoint, so a library built from these sources
@@ -127,6 +127,13 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// Order this thread's generic-proxy accesses of shared memory (plain
+// loads and stores) before later async-proxy ones (bulk copies, TMA,
+// wgmma operand reads), and the other way round.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand whose
 // tile starts at `p` (the swizzle atoms 1024-byte aligned). K-major (the
 // reduction dimension contiguous, 64 bf16 per 128-byte row): lbo unused
@@ -187,6 +194,28 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64]^T, bf16 in, f32 accumulate; A
+// from registers (the m16n8k16 A-fragment layout, warp w holding rows
+// 16w..), B in shared memory K-major. accumulate == 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
+                                                const uint32_t* a,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // d[64 x 128] += A[64 x 16] . B[16 x 128], bf16 in, f32 accumulate; A from

@@ -44,7 +44,7 @@ class Conv(nn.Conv2d):
 
 class InstanceNorm(nn.Module):
     """InstanceNorm2d(affine=False, eps=1e-5), no parameters; backed by
-    ``ops.instance_norm`` (the Triton kernel on the card)."""
+    ``ops.instance_norm`` (the CUDA kernel on the card)."""
 
     def __init__(self, eps: float = 1e-5):
         super().__init__()

@@ -7,14 +7,17 @@ multiple of 8, see :func:`cat_meta`). ``fused_corr_lookup_cat`` then
 answers one GRU iteration's lookup from it. It is a
 ``torch.autograd.Function``: on CUDA tensors its forward and its backward
 launch the hand-written kernels in ``csrc/fused_corr.cu``; on CPU tensors
-they run the plain PyTorch versions below. The forward computes the window
-form (dot products at the integer neighbours, then the bilinear
-combination). The backward forms the dense ``d_corr`` and takes its two
-products, as the TPU kernel does, without atomics (every launch on the
-same inputs gives the same bits): bf16 at C = 128 or 256 on the tensor
-cores with ``d_corr`` split into bf16 hi + lo, everything else on the CUDA
-cores in f32 (:func:`bwd_route`); the plain backward repeats the route's
-arithmetic. Nothing falls back: a CUDA input
+they run the plain PyTorch versions below. Both kernels take bf16 at C =
+128 or 256 on the tensor cores and everything else on the CUDA cores in
+f32 (:func:`route`). The forward computes the window form (dot products
+at the integer neighbours, then the bilinear combination); on the tensor
+cores per 8x8 query tile and level, from the box of rows its windows
+cover (:func:`tile_plan` repeats the kernel's plan), the queries whose
+windows overflow the box one by one. The backward forms the dense
+``d_corr`` and takes its two products, as the TPU kernel does, without
+atomics (every launch on the same inputs gives the same bits), on the
+tensor cores with ``d_corr`` split into bf16 hi + lo; the plain backward
+repeats the route's arithmetic. Nothing falls back: a CUDA input
 that a kernel cannot take raises. Coordinates get no gradient, by
 contract (RAFT detaches them before every lookup).
 """
@@ -109,12 +112,92 @@ def fused_corr_lookup_cat_plain(f1: torch.Tensor, f2cat: torch.Tensor,
 
 
 KERNEL_TILE = 64      # rows of the backward kernels' tiles (both sides)
+QUERY_TILE = 8        # the forward's query tiles: 8x8 of the query image
+BOX = 64              # the forward's box: at most 64 columns and 64 rows
 
 
-def bwd_route(dtype, c: int) -> str:
-    """Which route of the backward kernel takes these operands: bf16 at C
-    = 128 or 256 the tensor cores ("tensor_cores": ``d_corr`` split into
-    bf16 hi + lo), everything else the CUDA cores in f32."""
+def window_origins(coords: torch.Tensor, level: int, hl: int, wl: int,
+                   radius: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' window of each query at ``level``: its first integer
+    tap ``(ix0, iy0)`` (int64) from f32 coordinates ``[..., 2]``; the
+    centre is clamped before the conversion, so a centre far out of range
+    still has no tap in the level."""
+    c = torch.floor(coords.float() * (1.0 / 2.0 ** level))
+    ix0 = c[..., 0].clamp(-radius - 2.0, float(wl + radius)).long() - radius
+    iy0 = c[..., 1].clamp(-radius - 2.0, float(hl + radius)).long() - radius
+    return ix0, iy0
+
+
+def query_width(n: int, h2: int, w2: int) -> int:
+    """The width of the query image the forward tiles: the map's, when
+    the queries are its pixels (RAFT's lookups), else one tile's."""
+    return w2 if w2 > 0 and n == h2 * w2 else QUERY_TILE
+
+
+def query_tiles(n: int, wq: int) -> torch.Tensor:
+    """The forward's 8x8 query tiles of an image ``wq`` queries wide
+    holding ``n`` (query ``y * wq + x``): ``[tiles, 64]`` query indices,
+    row-major in the tile, -1 outside the image."""
+    tx = _ceil(wq, QUERY_TILE)
+    t = torch.arange(tx * _ceil(_ceil(max(n, 1), wq), QUERY_TILE))[:, None]
+    s = torch.arange(QUERY_TILE * QUERY_TILE)
+    qx = (t % tx) * QUERY_TILE + s % QUERY_TILE
+    q = ((t // tx) * QUERY_TILE + s // QUERY_TILE) * wq + qx
+    return torch.where((qx < wq) & (q < n), q, torch.full_like(q, -1))
+
+
+def _place(on: torch.Tensor, start: torch.Tensor, end: torch.Tensor):
+    """The box along one axis over the windows ``[start, end)`` that are
+    ``on`` (``[..., 64]``): their span if at most BOX, else BOX placed on
+    their mean centre within the span; ``(start, length)``."""
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(on, start, big).amin(-1)
+    hi = torch.where(on, end, -big).amax(-1)
+    cnt = on.sum(-1)
+    centre = torch.where(on, start + end, 0).sum(-1) // (2 * cnt).clamp(min=1)
+    wide = hi - lo > BOX
+    box0 = torch.minimum(torch.maximum(centre - BOX // 2, lo), hi - BOX)
+    b0 = torch.where(cnt == 0, 0, torch.where(wide, box0, lo))
+    n = torch.where(cnt == 0, 0, torch.where(wide, BOX, hi - lo))
+    return b0, n
+
+
+def tile_plan(coords: torch.Tensor, h2: int, w2: int, num_levels: int = 4,
+              radius: int = 4) -> List[dict]:
+    """The tensor-core forward's plan, as the kernel makes it: per level,
+    for every (batch entry, query tile) the box of columns ``[x0, x0 +
+    bw)`` and rows ``[y0, y0 + hb)`` (``[B, tiles]``), and per query of
+    the tile (``[B, tiles, 64]``) whether its window has a tap in the level
+    (``live``) and whether it takes the tile path (``fast``: the window
+    clipped to the level lies inside the box) or the per-query path
+    (``live`` and not ``fast``). ``None`` for a level pooled away."""
+    b, n, _ = coords.shape
+    q = query_tiles(n, query_width(n, h2, w2)).to(coords.device)
+    ok = q >= 0
+    cq = coords.float()[:, q.clamp(min=0)]                 # [B, T, 64, 2]
+    k1 = 2 * radius + 2
+    plans = []
+    for li, (hl, wl, _hp, _off) in enumerate(cat_meta(h2, w2, num_levels)):
+        if hl == 0 or wl == 0:
+            plans.append(None)
+            continue
+        ix0, iy0 = window_origins(cq, li, hl, wl, radius)
+        xs, xe = ix0.clamp(min=0), (ix0 + k1).clamp(max=wl)
+        ys, ye = iy0.clamp(min=0), (iy0 + k1).clamp(max=hl)
+        live = ok & (xs < xe) & (ys < ye)
+        y0, hb = _place(live, ys, ye)
+        fit_y = live & (ys >= y0[..., None]) & (ye <= (y0 + hb)[..., None])
+        x0, bw = _place(fit_y, xs, xe)
+        fast = fit_y & (xs >= x0[..., None]) & (xe <= (x0 + bw)[..., None])
+        plans.append(dict(x0=x0, bw=bw, y0=y0, hb=hb, live=live, fast=fast,
+                          slow=live & ~fast))
+    return plans
+
+
+def route(dtype, c: int) -> str:
+    """Which route of the kernels takes these operands: bf16 at C = 128
+    or 256 the tensor cores ("tensor_cores"; the backward splits
+    ``d_corr`` into bf16 hi + lo), everything else the CUDA cores in f32."""
     return "tensor_cores" if dtype == torch.bfloat16 and c in (128, 256) \
         else "cuda_cores"
 
@@ -154,7 +237,7 @@ def fused_corr_lookup_cat_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
     rows of each level get exactly 0.
 
     ``d_corr_rounding``: "route" (default) repeats the arithmetic of the
-    kernel's route for these operands (:func:`bwd_route`); "none" keeps
+    kernel's route for these operands (:func:`route`); "none" keeps
     ``d_corr`` in f32 (one matmul each, the CUDA-core route's numbers);
     "hi_lo" splits it into bf16 hi + lo and sums both products in f32 tile
     by tile in the kernel's order (df1 over :func:`level_tiles`, df2cat
@@ -167,7 +250,7 @@ def fused_corr_lookup_cat_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
     s = 1.0 / (c ** 0.5)
     meta = cat_meta(h2, w2, num_levels)
     if d_corr_rounding == "route":
-        d_corr_rounding = "hi_lo" if bwd_route(f1.dtype, c) == \
+        d_corr_rounding = "hi_lo" if route(f1.dtype, c) == \
             "tensor_cores" else "none"
     if d_corr_rounding not in ("none", "hi_lo", "bf16"):
         raise ValueError(f"d_corr_rounding={d_corr_rounding!r}")
@@ -224,10 +307,13 @@ def _kernel_fns():
     lib = _build.load("fused_corr")
     fwd, bwd = lib.ofd_fused_corr_fwd, lib.ofd_fused_corr_bwd
     tail = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                                 ctypes.c_float, ctypes.c_int,
-                                 ctypes.c_void_p]
-    fwd.argtypes = [ctypes.c_void_p] * 4 + tail
-    bwd.argtypes = [ctypes.c_void_p] * 9 + tail
+                                 ctypes.c_float, ctypes.c_int]
+    # the forward also takes the query image's width and the per-query
+    # path's counter
+    fwd.argtypes = [ctypes.c_void_p] * 4 + tail + [ctypes.c_int,
+                                                   ctypes.c_void_p,
+                                                   ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 9 + tail + [ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -260,12 +346,17 @@ def _check_cuda(f1, f2cat, coords, meta, radius):
 def _launch_tail(f1, f2cat, meta, flat, radius):
     b, n, c = f1.shape
     return (b, n, c, f2cat.shape[1], len(meta), flat, radius,
-            1.0 / (c ** 0.5), int(f1.dtype == torch.bfloat16),
-            torch.cuda.current_stream(f1.device).cuda_stream)
+            1.0 / (c ** 0.5), int(f1.dtype == torch.bfloat16))
 
 
-def _lookup_cuda(f1, f2cat, coords, meta, radius):
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _lookup_cuda(f1, f2cat, coords, h2, w2, num_levels, radius,
+                 n_slow=None):
     f1, f2cat = f1.contiguous(), f2cat.contiguous()
+    meta = cat_meta(h2, w2, num_levels)
     cc, flat = _check_cuda(f1, f2cat, coords, meta, radius)
     b, n, _ = f1.shape
     k = 2 * radius + 1
@@ -273,7 +364,10 @@ def _lookup_cuda(f1, f2cat, coords, meta, radius):
                       device=f1.device)
     err = _kernel_fns()[0](f1.data_ptr(), f2cat.data_ptr(), cc.data_ptr(),
                            out.data_ptr(),
-                           *_launch_tail(f1, f2cat, meta, flat, radius))
+                           *_launch_tail(f1, f2cat, meta, flat, radius),
+                           query_width(n, h2, w2),
+                           0 if n_slow is None else n_slow.data_ptr(),
+                           _stream(f1))
     if err:
         raise RuntimeError(f"fused_corr kernel launch failed: CUDA error {err}")
     fused_corr_lookup_cat.launches += 1
@@ -302,7 +396,8 @@ def _lookup_bwd_cuda(g, f1, f2cat, coords, meta, radius):
     err = _kernel_fns()[1](gc.data_ptr(), f1.data_ptr(), f2cat.data_ptr(),
                            cc.data_ptr(), df1.data_ptr(), df2.data_ptr(),
                            dtap.data_ptr(), orig.data_ptr(), tab.data_ptr(),
-                           *_launch_tail(f1, f2cat, meta, flat, radius))
+                           *_launch_tail(f1, f2cat, meta, flat, radius),
+                           _stream(f1))
     if err:
         raise RuntimeError(f"fused_corr backward kernel launch failed: CUDA "
                            f"error {err}")
@@ -340,8 +435,7 @@ class _FusedLookup(torch.autograd.Function):
         if _on_cpu(f1, f2cat, coords):
             return fused_corr_lookup_cat_plain(f1, f2cat, coords, h2, w2,
                                                num_levels, radius)
-        return _lookup_cuda(f1, f2cat, coords,
-                            cat_meta(h2, w2, num_levels), radius)
+        return _lookup_cuda(f1, f2cat, coords, h2, w2, num_levels, radius)
 
     @staticmethod
     def backward(ctx, g):
@@ -376,6 +470,18 @@ def fused_corr_lookup_cat(f1: torch.Tensor, f2cat: torch.Tensor,
 
 fused_corr_lookup_cat.launches = 0
 fused_corr_lookup_cat.bwd_launches = 0
+
+
+def fused_corr_lookup_cat_slow_count(f1: torch.Tensor, f2cat: torch.Tensor,
+                                     coords: torch.Tensor, h2: int, w2: int,
+                                     num_levels: int = 4, radius: int = 4
+                                     ) -> Tuple[torch.Tensor, int]:
+    """One forward launch on CUDA tensors (counted in ``.launches``), and
+    the number of (query, level) pairs that took the tensor-core route's
+    per-query path (0 on the CUDA-core route)."""
+    count = torch.zeros(1, dtype=torch.int32, device=f1.device)
+    out = _lookup_cuda(f1, f2cat, coords, h2, w2, num_levels, radius, count)
+    return out, int(count.item())
 
 
 def fused_corr_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,

@@ -2,29 +2,35 @@
 backward (port of ``opticalflowfromdepth_tpu/ops/instance_norm.py``).
 
 :func:`instance_norm` is a ``torch.autograd.Function``. On a CUDA tensor
-its forward launches the Triton kernel below; on a CPU tensor it runs the
-plain PyTorch version. Both follow the TPU kernel ``_in_kernel``: f32 sum
-and sum of squares, variance clamped at 0, normalize in f32, then cast to
-the input dtype. They also return the f32 per-(sample, channel) mean and
-rstd, which the backward uses.
+its forward launches the kernel in ``csrc/instance_norm.cu``; on a CPU
+tensor it runs the plain PyTorch version. Both follow the TPU kernel
+``_in_kernel``: f32 sum and sum of squares, variance clamped at 0,
+normalize in f32, then cast to the input dtype. They also return the f32
+per-(sample, channel) mean and rstd, which the backward uses.
 
 The backward is the closed form of the JAX package's ``_in_bwd``, in
 plain PyTorch on both devices: the JAX package computes it in XLA,
 outside any Pallas kernel, so there is no TPU kernel to port for it.
 
-The Triton kernel replaces ``ops/instance_norm.py:_in_kernel``. It is
-bound by bytes: it reads the map twice (statistics, then normalize) and
-writes it once. One program owns one (sample, channel) row of H*W
-contiguous NCHW values; a loop inside the program takes the place of the
-TPU's sequential (phase, tile) grid.
+The kernel replaces ``ops/instance_norm.py:_in_kernel``. It is bound by
+bytes and reads each row from device memory once: every block holds its
+part of the rows in shared memory between the statistics and the
+normalisation, and long rows are split across a thread block cluster
+whose blocks add their partial sums through distributed shared memory.
+:func:`plan` picks, per shape, the cluster size, each block's slice and
+how many short rows a block takes; :func:`split_sum_plain` repeats its
+partition of the sums.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Tuple
 
 import torch
+
+from .. import _build
 
 
 def instance_norm_plain(x: torch.Tensor, eps: float = 1e-5,
@@ -44,64 +50,132 @@ def instance_norm_plain(x: torch.Tensor, eps: float = 1e-5,
     return y.to(x.dtype), mean, rstd
 
 
+SLICE_BYTES = 64 * 1024    # what a block aims to hold on chip
+SMEM_CAP = 64 * 1024       # the most a block holds on chip at once
+MIN_BLOCKS = 132           # a block a SM on the H100's 132
+MAX_ROWS = 8               # whole rows a block at most
+CLUSTERS = (1, 2, 4, 8)    # portable thread block cluster sizes
+
+
+def plan(rows: int, n: int, itemsize: int) -> dict:
+    """How the kernel cuts ``rows`` rows of ``n`` values of ``itemsize``
+    bytes: ``cluster`` blocks a row of ``slice`` values each (the last
+    block takes the rest), or with a cluster of 1 ``rows_per_block``
+    whole rows a block; ``piece``: the values a block holds in shared
+    memory at once, its whole part where that fits under ``SMEM_CAP``
+    (``resident``: x read once), else streamed twice; ``blocks``."""
+    row_bytes = n * itemsize
+    if 2 * row_bytes <= SLICE_BYTES:                  # short rows
+        cluster, slice_ = 1, n
+        k = max(1, min(MAX_ROWS, SLICE_BYTES // max(row_bytes, 1),
+                       rows // MIN_BLOCKS))
+        part = k * n
+    else:
+        cluster = next((c for c in CLUSTERS
+                        if _ceil(n, c) * itemsize <= SLICE_BYTES),
+                       CLUSTERS[-1])
+        while cluster < CLUSTERS[-1] and rows * cluster < MIN_BLOCKS:
+            cluster *= 2
+        slice_ = _ceil(_ceil(n, cluster), 8) * 8
+        while cluster > 1 and (cluster - 1) * slice_ >= n:
+            cluster //= 2
+            slice_ = _ceil(_ceil(n, cluster), 8) * 8
+        if cluster == 1:
+            slice_ = n
+        k, part = 1, slice_
+    piece = max(1, min(part, SMEM_CAP // itemsize))
+    blocks = _ceil(rows, k) if cluster == 1 else rows * cluster
+    return dict(cluster=cluster, slice=slice_, rows_per_block=k,
+                piece=piece, resident=piece >= part, blocks=blocks)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_sum_plain(x: torch.Tensor, p: dict, eps: float = 1e-5,
+                    relu: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version with the kernel's partition of the sums: each
+    block's f32 partial sums over its part of the row (its pieces in
+    order), added in the cluster's rank order; then the same statistics
+    and normalisation. Within a block the kernel sums in another order
+    (per thread, then a tree), so the two agree to f32 rounding."""
+    b, c, h, w = x.shape
+    n = h * w
+    xf = x.float().reshape(b * c, n)
+    sums = torch.zeros(b * c)
+    sqs = torch.zeros(b * c)
+    step = n if p["cluster"] == 1 else p["slice"]
+    for start in range(0, n, step):          # the blocks, in rank order
+        part_s = torch.zeros(b * c)
+        part_q = torch.zeros(b * c)
+        for ps in range(start, min(n, start + step), p["piece"]):
+            v = xf[:, ps:min(n, start + step, ps + p["piece"])]
+            part_s = part_s + v.sum(1)
+            part_q = part_q + (v * v).sum(1)
+        sums = sums + part_s
+        sqs = sqs + part_q
+    inv_n = torch.tensor(1.0 / n, dtype=torch.float32)
+    mean = sums * inv_n
+    var = torch.clamp(sqs * inv_n - mean * mean, min=0.0)
+    rstd = 1.0 / torch.sqrt(var + eps)
+    y = (xf - mean[:, None]) * rstd[:, None]
+    if relu:
+        y = torch.relu(y)
+    return (y.to(x.dtype).reshape(x.shape), mean.reshape(b, c, 1, 1),
+            rstd.reshape(b, c, 1, 1))
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 @functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _in_fwd_kernel(x_ptr, y_ptr, mean_ptr, rstd_ptr, n, inv_n, eps,
-                       RELU: tl.constexpr, BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        base = row.to(tl.int64) * n
-        offs = tl.arange(0, BLOCK)
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK], dtype=tl.float32)
-        for start in range(0, n, BLOCK):
-            m = start + offs < n
-            v = tl.load(x_ptr + base + start + offs, mask=m,
-                        other=0.0).to(tl.float32)
-            acc += v
-            acc2 += v * v
-        mean = tl.sum(acc, axis=0) * inv_n
-        var = tl.maximum(tl.sum(acc2, axis=0) * inv_n - mean * mean, 0.0)
-        rstd = 1.0 / tl.sqrt(var + eps)
-        for start in range(0, n, BLOCK):
-            m = start + offs < n
-            v = tl.load(x_ptr + base + start + offs, mask=m,
-                        other=0.0).to(tl.float32)
-            y = (v - mean) * rstd
-            if RELU:
-                y = tl.maximum(y, 0.0)
-            tl.store(y_ptr + base + start + offs,
-                     y.to(y_ptr.dtype.element_ty), mask=m)
-        tl.store(mean_ptr + row, mean)
-        tl.store(rstd_ptr + row, rstd)
-
-    return _in_fwd_kernel, triton.next_power_of_2
+def _plan_args(rows: int, n: int, itemsize: int) -> Tuple[int, ...]:
+    """The kernel's plan arguments for a shape (cached: the models call the
+    same few shapes over and over)."""
+    p = plan(rows, n, itemsize)
+    return p["cluster"], p["slice"], p["rows_per_block"], p["piece"]
 
 
-def _instance_norm_triton(x: torch.Tensor, eps: float, relu: bool):
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    fn = _build.load("instance_norm").ofd_instance_norm_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _instance_norm_cuda(x: torch.Tensor, eps: float, relu: bool):
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm: tensor on {x.device}; the kernel "
                          "takes CUDA tensors (CPU tensors take the plain "
                          "version)")
-    if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16,
-                                       torch.float16):
+    if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"instance_norm takes NCHW f32/bf16/f16, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    kernel, next_pow2 = _triton_kernel()
     b, c, h, w = x.shape
     n = h * w
     xc = x.contiguous()
+    if xc.data_ptr() % 16:       # the kernel's 16-byte loads and stores
+        xc = xc.clone()
     y = torch.empty_like(xc)
     mean = torch.empty(b, c, 1, 1, dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     if b * c and n:
-        block = min(4096, max(128, next_pow2(n)))
         with torch.cuda.device(x.device):
-            kernel[(b * c,)](xc, y, mean, rstd, n, 1.0 / n, float(eps),
-                             RELU=bool(relu), BLOCK=block, num_warps=8)
+            err = _kernel_fn()(
+                xc.data_ptr(), y.data_ptr(), mean.data_ptr(),
+                rstd.data_ptr(), b * c, n, _DTYPES[x.dtype],
+                *_plan_args(b * c, n, x.element_size()), 1.0 / n,
+                float(eps), int(relu),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"instance_norm kernel launch failed: CUDA "
+                               f"error {err}")
         instance_norm.launches += 1
     return y, mean, rstd
 
@@ -128,7 +202,7 @@ class _InstanceNorm(torch.autograd.Function):
         if x.device.type == "cpu":
             y, mean, rstd = instance_norm_plain(x, eps, relu)
         else:
-            y, mean, rstd = _instance_norm_triton(x, eps, relu)
+            y, mean, rstd = _instance_norm_cuda(x, eps, relu)
         ctx.save_for_backward(x, mean, rstd, y if relu else None)
         ctx.mark_non_differentiable(mean, rstd)
         return y, mean, rstd
@@ -144,7 +218,7 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False
     """InstanceNorm2d(affine=False) over (H, W) of NCHW ``x``, optional
     fused ReLU -> ``(y, mean, rstd)``; differentiable in ``x`` through
     ``y``. CPU tensors take the plain version; CUDA tensors launch the
-    Triton kernel (``instance_norm.launches`` counts those launches)."""
+    kernel (``instance_norm.launches`` counts those launches)."""
     return _InstanceNorm.apply(x, eps, relu)
 
 

@@ -130,7 +130,7 @@ def test_f32_d_corr_matches_jax_kernel(case):
     (torch.bfloat16, 64, "cuda_cores"), (torch.float32, 256, "cuda_cores")])
 def test_route_follows_dtype_and_width(dtype, c, route):
     """The plain version's default repeats the route the kernel takes."""
-    assert tfused.bwd_route(dtype, c) == route
+    assert tfused.route(dtype, c) == route
     f1, f2cat, coords, g = _inputs(1, 6, 8, c, 4, 3.0)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
     args = (t(g), t(f1), t(f2cat), torch.from_numpy(coords), 6, 8)

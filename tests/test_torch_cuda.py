@@ -138,6 +138,94 @@ def test_fused_corr_bwd_kernel_bit_reproducible(card, dtype, c, h, w):
         assert float((d / (atol + rtol * r.float().abs())).max()) <= 1.0
 
 
+def _smooth_coords(g, b, h, w):
+    """The grid plus a coarse 3x4 field of +- 20 px upsampled bilinearly,
+    the columns right of 0.55 w moved 10 px further (chip_smoke.py)."""
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    base = torch.stack([xx, yy], -1).float()[None].repeat(b, 1, 1, 1)
+    coarse = (torch.rand(b, 2, 3, 4, generator=g) * 2 - 1) * 20
+    flow = torch.nn.functional.interpolate(coarse, size=(h, w),
+                                           mode="bilinear",
+                                           align_corners=True)
+    flow[:, 0, :, int(0.55 * w):] += 10.0
+    return (base + flow.permute(0, 2, 3, 1)).reshape(b, h * w, 2)
+
+
+@pytest.mark.parametrize("c,b,h,w,spread", [
+    (256, 2, 23, 31, None),     # smooth flow, ragged tiles at both edges
+    (256, 2, 5, 6, 3.0),        # level 3 pooled to nothing
+    (128, 1, 9, 80, 40.0),      # boxes overflow: the per-query path
+    (256, 1, 9, 80, 1e4)])      # every window out of range
+def test_fused_corr_tile_route_matches_plain(card, c, b, h, w, spread):
+    """The tensor-core route of the forward (bf16, C = 128 or 256) within
+    chip_smoke.py [3a]'s bf16 tolerance of the plain version; the kernel's
+    count of the per-query path's pairs equals tile_plan's; two launches
+    give the same bits."""
+    g = torch.Generator().manual_seed(21)
+    f1 = torch.randn(b, h * w, c, generator=g).to(card, torch.bfloat16)
+    f2cat = fc.corr_levels_cat(torch.randn(b, h, w, c, generator=g).to(card),
+                               4, torch.bfloat16)
+    if spread is None:
+        coords = _smooth_coords(g, b, h, w)
+    else:
+        yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w),
+                                indexing="ij")
+        coords = torch.stack([xx, yy], -1).float().reshape(1, h * w, 2) + (
+            torch.rand(b, h * w, 2, generator=g) * 2 - 1) * spread
+    coords = coords.to(card)
+    got, n_slow = fc.fused_corr_lookup_cat_slow_count(f1, f2cat, coords, h,
+                                                      w)
+    again = fc.fused_corr_lookup_cat(f1, f2cat, coords, h, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    planned = sum(int(p["slow"].sum()) for p in
+                  fc.tile_plan(coords, h, w) if p)
+    assert n_slow == planned and (planned > 0) == (spread == 40.0)
+    ref = fc.fused_corr_lookup_cat_plain(f1, f2cat, coords, h, w)
+    d = (got.float() - ref.float()).abs()
+    assert float((d / (2e-2 + 2e-2 * ref.float().abs())).max()) <= 1.0
+    if spread == 1e4:
+        assert torch.count_nonzero(got) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [
+    (3, 5, 1, 37),              # short odd rows, several a block
+    (1, 2, 211, 307),           # a cluster of 8, the last slice ragged
+    (2, 96, 110, 256),          # a cluster of 1 (bf16) or 2 (f32)
+    (1, 3, 1024, 1024)])        # rows streamed through shared memory twice
+def test_instance_norm_kernel_plan_classes(card, dtype, shape):
+    """Every plan class within chip_smoke.py [3b]'s tolerances (f16: one
+    step of its 10-bit mantissa); two launches give the same bits."""
+    g = torch.Generator().manual_seed(2)
+    x = (torch.randn(*shape, generator=g) * 3 + 0.5).to(card, dtype)
+    first = inorm.instance_norm(x, 1e-5, True)
+    second = inorm.instance_norm(x, 1e-5, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+    y, m, r = first
+    yr, mr, rr = inorm.instance_norm_plain(x, 1e-5, True)
+    rtol, atol = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2 ** -7, 1e-3),
+                  torch.float16: (2 ** -10, 1e-3)}[dtype]
+    d = (y.float() - yr.float()).abs()
+    assert float((d / (atol + rtol * yr.float().abs())).max()) <= 1.0
+    np.testing.assert_allclose(m.cpu().numpy(), mr.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(r.cpu().numpy(), rr.cpu().numpy(), rtol=1e-5)
+
+
+def test_instance_norm_kernel_takes_unaligned_data(card):
+    buf = torch.empty(2 * 64 * 55 * 128 + 8, dtype=torch.bfloat16,
+                      device=card)
+    x = buf[1:1 + 2 * 64 * 55 * 128].view(2, 64, 55, 128)
+    x.copy_(torch.randn(x.shape, generator=torch.Generator().manual_seed(3)))
+    assert x.data_ptr() % 16
+    y, m, r = inorm.instance_norm(x, 1e-5, False)
+    yr, _, _ = inorm.instance_norm_plain(x, 1e-5, False)
+    d = (y.float() - yr.float()).abs()
+    assert float((d / (1e-3 + 2 ** -7 * yr.float().abs())).max()) <= 1.0
+
+
 @pytest.mark.parametrize("relu", [False, True])
 def test_instance_norm_grad_on_card_matches_cpu(card, relu):
     g = torch.Generator().manual_seed(5)

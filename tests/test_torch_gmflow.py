@@ -104,7 +104,7 @@ def test_position_and_window_utilities_match_jax():
 
 @pytest.mark.parametrize("num_scales", [1, 2])
 def test_cnn_encoder_matches_jax(num_scales):
-    """Bias-free convs and instance norms (the Triton kernel's plain
+    """Bias-free convs and instance norms (the CUDA kernel's plain
     version here), the trident conv with two scales: 2e-4."""
     _, v = _jax(num_scales)
     x = np.concatenate(J.normalize_img(*(jnp.asarray(a)

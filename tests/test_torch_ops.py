@@ -2,7 +2,7 @@
 
 Same numpy inputs (from a seed) go through the JAX function (Pallas
 kernels in interpret mode) and the port's plain PyTorch version, forward
-and backward. The CUDA/Triton kernels themselves run only on the card
+and backward. The CUDA kernels themselves run only on the card
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``); here their wrappers
 must refuse tensors that are not on the CPU.
 """
