@@ -54,11 +54,19 @@ Run from the repository root on a host with one CUDA card. Phases:
    version and SDPA's backward; [3g] (run after [12]) the 3x3 conv at
    RAFT-basic's stride-1 shapes at Sintel serving, the ragged [1, 33, 17,
    8] -> 8 and GMFlow's training
-   [32, 184, 280, 64] -> 64, bf16 and f32, with two planted faults (the
-   (2, 2) tap left out, the last halo row of each band zero) that must
-   fail the tolerance, the autograd Function against autograd through
-   ``F.conv2d`` and the plain version, timed against its bound, the plain
-   version and ``F.conv2d`` (cuDNN);
+   [32, 184, 280, 64] -> 64, bf16 and f32, each shape's route and plan
+   (``ops/conv2d.py:plan``; every bf16 shape must take the wgmma route)
+   and ptxas's registers and spills for the wgmma kernel, two launches
+   that must give the same bits, planted faults (the (2, 2) tap left
+   out, the last halo row of each band zero, each band's top-left halo
+   pixel read wrong, and where a shape has two CO tiles or more the last
+   tap's weights of the second one channel off) that must fail the
+   tolerance, the autograd Function against autograd through
+   ``F.conv2d`` and the plain version, device times (one CUDA graph)
+   beside a call launched from the host, against its bound, the plain
+   version and ``F.conv2d`` (cuDNN), the ``mma.sync`` route at
+   GMFlow's and fnet's first layers, and the backward's dx launch at
+   GMFlow's against cuDNN's input gradient;
 4. serving parity: RAFT-basic on one 128x256 pair, 6 iterations, f32, on
    the card (kernels) against the CPU (plain versions), same weights;
 5. the serving path: full-width RAFT-basic (bf16, fused correlation, 24
@@ -1279,13 +1287,21 @@ CONV_SHAPES = (
 )
 
 
-def conv_phase(gen):
+def conv_phase(gen, log=""):
     import torch
     import torch.nn.functional as F
     from opticalflowfromdepth_torch.ops import conv2d as cv
 
     print("[3g] 3x3 conv: CUDA kernel vs plain (f32 with TF32 off)",
           flush=True)
+    entry = ""
+    for line in log.splitlines():   # ptxas on the wgmma route's kernels
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif ("conv3x3_wgmma" in entry and ("registers" in line
+                                            or "spill" in line)) \
+                or ("conv3x3_wgmma" in line and "Performance" in line):
+            print(f"  ptxas, wgmma route: {line.strip()}", flush=True)
     th = cv.KERNEL_TILE_H
     # inputs drawn on the card (the largest is 105 M values), seeded from
     # the phase's generator
@@ -1295,13 +1311,35 @@ def conv_phase(gen):
     def randn(*shape):
         return torch.randn(*shape, generator=cg, device="cuda")
 
+    def ratio(f, ref, tol):
+        return float(((f.float() - ref).abs() / tol).max())
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for name, (b, h, w_, c, co) in CONV_SHAPES:
             x = randn(b, h, w_, c).to(dtype)
             w = (randn(3, 3, c, co) / (3 * c ** 0.5)).to(dtype)
+            p = cv.plan(b, h, w_, c, co, dtype, x.data_ptr() % 16 == 0,
+                        w.data_ptr() % 16 == 0, sms)
+            print(f"  {name} {dtype} [{b},{h},{w_},{c}]->{co}: route "
+                  f"{p.route}, tile {p.tile[0]}x{p.tile[1]}, N {p.n} x "
+                  f"{p.n_cot} CO tiles, weights "
+                  f"{'resident' if p.resident else 'per chunk'}, ring "
+                  f"{p.stages}, {p.smem} bytes of shared memory a block, "
+                  f"grid {p.grid}", flush=True)
+            if dtype == torch.bfloat16 and c % 8 == 0 and p.route != "wgmma":
+                fail(f"conv {name}: bf16 at C % 8 == 0 with aligned "
+                     f"pointers took the {p.route} route")
             got = cv.conv3x3_s1(x, w)
+            again = cv.conv3x3_s1(x, w)
             torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int16 if dtype ==
+                                        torch.bfloat16 else torch.int32),
+                               again.view(torch.int16 if dtype ==
+                                          torch.bfloat16 else torch.int32)):
+                fail(f"conv {name} {dtype}: two launches differ")
+            del again
             # ops/conv2d.py:tolerance: another summation order of the same
             # exact products, and in bf16 one step of the output
             ref, tol = cv.conv3x3_s1_plain(x, w).float(), cv.tolerance(x, w)
@@ -1310,31 +1348,48 @@ def conv_phase(gen):
                 fail(f"conv {name}: {got.shape}/{got.dtype}, finite="
                      f"{bool(torch.isfinite(got).all())}")
             d = (got.float() - ref).abs()
-            # the planted faults: the (2, 2) tap left out, and the last
-            # halo row of each band of KERNEL_TILE_H rows read as zero
-            # (the first row of the next band, seen from the band's last
-            # output row)
+            # the planted faults: the (2, 2) tap left out; the last halo
+            # row of each band of KERNEL_TILE_H rows read as zero (the
+            # first row of the next band, seen from the band's last output
+            # row); each band's top-left halo pixel read wrong (the
+            # padding at the image's corner read as the corner pixel, TMA's
+            # zero fill missed; inside the image read as zero); where the
+            # plan has two CO tiles or more, the last tap's weights of the
+            # second read one input channel off
             w_cut = w.clone()
             w_cut[2, 2] = 0
             x_cut = x.clone()
             x_cut[:, th::th] = 0
             halo = got.clone()
             halo[:, th - 1::th] = cv.conv3x3_s1(x_cut, w)[:, th - 1::th]
-            ratios = [float(((f.float() - ref).abs() / tol).max())
-                      for f in (cv.conv3x3_s1(x, w_cut), halo)]
+            corner = got.float()
+            corner[:, 0, 0] += x[:, 0, 0].float() @ w[0, 0].float()
+            inner = x[:, th - 1:h - 1:th, th - 1:w_ - 1:th].float()
+            corner[:, th::th, th::th] -= inner @ w[0, 0].float()
+            faults = {"tap (2,2) left out": cv.conv3x3_s1(x, w_cut),
+                      "last halo row of each band zero": halo,
+                      "top-left halo pixel of each band read wrong":
+                          corner.to(dtype)}
+            if p.n_cot >= 2:
+                w_off = w.clone()
+                w_off[2, 2, :, p.n:2 * p.n] = w[2, 2, :, p.n:2 * p.n].roll(
+                    1, 0)
+                faults["last tap of the second CO tile one channel off"] = \
+                    cv.conv3x3_s1(x, w_off)
+            ratios = {k: ratio(f, ref, tol) for k, f in faults.items()}
             err = float(d.max())
             check(f"{name} {dtype} [{b},{h},{w_},{c}]->{co} (|d| <= 2^-16 "
                   f"sum|x.w|{' + 2^-7|ref|' if dtype == torch.bfloat16 else ''}"
-                  f"; max |d| {err:.3e}); |d| / tolerance",
-                  float((d / tol).max()), 1.0)
-            print(f"    planted faults, |d| / tolerance (each must exceed 1): "
-                  f"tap (2,2) left out {ratios[0]:.2f}, last halo row of "
-                  f"each band zero {ratios[1]:.2f}", flush=True)
-            if not min(ratios) > 1.0:
+                  f"; max |d| {err:.3e}; two launches bit-equal); |d| / "
+                  f"tolerance", float((d / tol).max()), 1.0)
+            print("    planted faults, |d| / tolerance (each must exceed 1): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in ratios.items()),
+                  flush=True)
+            if not min(ratios.values()) > 1.0:
                 fail(f"conv {name} {dtype}: a planted fault passes {ratios}")
             if dtype == torch.bfloat16 and name.startswith("gmflow"):
                 worst = err
-            del x, w, got, ref, tol, d, w_cut, x_cut, halo
+            del x, w, got, ref, tol, d, w_cut, x_cut, halo, corner, faults
             torch.cuda.empty_cache()
 
     # the Function (kernel forward, kernel dx, f32 dw products) against
@@ -1374,27 +1429,50 @@ def conv_phase(gen):
     del x, w, g, ours
     torch.cuda.empty_cache()
 
-    # times, bf16: every shape; the record holds GMFlow's training shape
+    # times, bf16: every shape, device time (one CUDA graph of 20 calls)
+    # beside a call launched from the host; at GMFlow's layer1 and fnet's
+    # the mma.sync route (the kernel for the bf16 inputs the wgmma route
+    # does not take) in the same run; at GMFlow's the backward's dx launch
+    # beside cuDNN's input gradient. The record holds GMFlow's training
+    # shape.
     times = {}
     for name, (b, h, w_, c, co) in CONV_SHAPES:
         x = randn(b, h, w_, c).to(torch.bfloat16)
         w = (randn(3, 3, c, co) / (3 * c ** 0.5)).to(torch.bfloat16)
-        ms = cuda_ms(lambda: cv.conv3x3_s1(x, w))
+        ms = graph_ms(lambda: cv.conv3x3_s1(x, w))
+        host_ms = cuda_ms(lambda: cv.conv3x3_s1(x, w))
         plain_ms = cuda_ms(lambda: cv.conv3x3_s1_plain(x, w), reps=5)
         xc = x.permute(0, 3, 1, 2)                  # NCHW view, channels_last
         wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        lib_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1))
+        lib_ms = graph_ms(lambda: F.conv2d(xc, wc, padding=1))
         ops = 2.0 * b * h * w_ * 9 * c * co
         nbytes = (x.numel() + b * h * w_ * co + w.numel()) * 2
         bound_by = "operations" if ops / BF16_FLOP_PER_S >= \
             nbytes / HBM_BYTES_PER_S else "bytes"
         bound_ms = max(ops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        print(f"  {name} bf16 [{b},{h},{w_},{c}]->{co}: kernel "
-              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, F.conv2d "
-              f"(cuDNN, channels_last) {lib_ms * 1e3:.1f} us, bound "
+        p = cv.plan(b, h, w_, c, co, torch.bfloat16, sms=sms)
+        extra = ""
+        if name in ("gmflow train layer1", "fnet layer1"):
+            old_ms = graph_ms(lambda: cv._conv_cuda(x, w, route="mma_sync"))
+            extra += f", the mma.sync route {old_ms * 1e3:.1f} us"
+        if name == "gmflow train layer1":
+            g = randn(b, h, w_, co).to(torch.bfloat16)
+            w_rot = w.flip(0, 1).transpose(2, 3).contiguous()
+            dx_ms = graph_ms(lambda: cv.conv3x3_s1(g, w_rot))
+            gc = g.permute(0, 3, 1, 2)
+            lib_dx_ms = graph_ms(lambda: torch.nn.grad.conv2d_input(
+                xc.shape, wc, gc, padding=1))
+            extra += (f"; dx launch {dx_ms * 1e3:.1f} us, cuDNN's input "
+                      f"gradient {lib_dx_ms * 1e3:.1f} us")
+            del g, w_rot, gc
+        print(f"  {name} bf16 [{b},{h},{w_},{c}]->{co} ({p.route}, N "
+              f"{p.n} x {p.n_cot}, grid {p.grid[0]}): kernel "
+              f"{ms * 1e3:.1f} us (device; a call from the host "
+              f"{host_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, "
+              f"F.conv2d (cuDNN, channels_last) {lib_ms * 1e3:.1f} us, bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}: {ops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB); {ops / ms / 1e9:.1f} TFLOP/s",
-              flush=True)
+              f"{nbytes / 1e6:.2f} MB); {ops / ms / 1e9:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.3f} of the bound{extra}", flush=True)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=lib_ms)
         del x, w, xc, wc
@@ -2665,9 +2743,10 @@ def main() -> None:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1][:48]  # the mangled kernel name
-            elif "registers" in line or "spill" in line \
-                    or "Performance" in line:
+            elif "registers" in line or "spill" in line:
                 print(f"  {name}: {entry}: {line.strip()}", flush=True)
+            elif "Performance" in line:  # names its kernel, before its entry
+                print(f"  {name}: {line.strip()}", flush=True)
     gen = torch.Generator().manual_seed(0)
     seconds = {}
 
@@ -2705,7 +2784,7 @@ def main() -> None:
     # run after the paths of slices 1-4, so that they meet the process as
     # before it (its f32 backward leaves PyTorch's cuBLAS workspaces for
     # the autograd thread allocated)
-    conv = timed("3g", conv_phase, gen)
+    conv = timed("3g", conv_phase, gen, logs.get("conv3x3", ""))
     with tempfile.TemporaryDirectory() as tmp:
         launches = timed("13", eval_phase, tmp)
     # the conv's launches on slice 5's main path, evaluation: 0, as in the

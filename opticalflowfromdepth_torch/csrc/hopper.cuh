@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in raw PTX, for the kernels of this
-// directory: mbarriers, TMA tile loads, bulk copies, 4-byte cp.async
-// copies counted on an mbarrier, the async-proxy fence, wgmma shared-memory
-// descriptors and instructions, and the host-side tensor-map encoder.
+// directory: mbarriers, TMA tile loads (3-D and 4-D), bulk copies, 4-byte
+// cp.async copies counted on an mbarrier, the async-proxy fence, wgmma
+// shared-memory descriptors and instructions, and the host-side
+// tensor-map encoders.
 //
 // cuTensorMapEncodeTiled is a driver function; it is reached through the
 // runtime's cudaGetDriverEntryPoint, so a library built from these sources
@@ -97,6 +98,49 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA: one tile of a 4-D tensor map (coordinates innermost first, signed:
+// a box may start before the tensor) into shared memory, completion
+// counted in bytes on `bar`. Elements outside the tensor are zero-filled
+// and counted too.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA: one box of shared memory into a 4-D tensor map at the given
+// coordinates; elements outside the tensor are not written. Tracked by
+// this thread's bulk groups: bulk_commit, then bulk_wait_read<N> (the
+// shared memory may be written again) or bulk_wait<N> (the writes done).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
 // global to shared memory in one bulk transfer, completion counted in
 // bytes on `bar`.
@@ -117,6 +161,21 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(nbytes)
                : "memory");
+}
+
+// Copy 16 bytes (both addresses 16-byte aligned) from global to shared
+// memory asynchronously; nbytes 0 writes zeros instead (src is then not
+// read). cp_async_wait_all waits for this thread's copies.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            uint32_t nbytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(nbytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Arrive on `bar` once this thread's earlier cp.async copies have landed
@@ -145,6 +204,31 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
          ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
          (1ull << 62);
+}
+
+// The same K-major descriptor (lbo unused, sbo = 1024) for an operand
+// whose first row starts anywhere on the 128-byte grid of a 128-byte-
+// swizzled region (rows of 128 bytes, the pattern 1024-byte aligned), at
+// the shared address `addr`. The base offset (bits 49-51) stays 0: the
+// H100 swizzles the address of row r (addr + 128 r) itself, as TMA wrote
+// it (with the start's row in the pattern as the base offset, wgmma read
+// the wrong pieces there).
+__device__ __forceinline__ uint64_t desc_sw128_at(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Four 8x8 bf16 matrices from the mma fragment layout (r[j]: row g, columns
+// 2t and 2t + 1 of matrix j, as bf16x2) into shared memory transposed: lane
+// 8j + i gives the address of the stored row i of matrix j, which receives
+// column i of the fragment (16 bytes).
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr,
+                                                  const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -249,6 +333,40 @@ __device__ __forceinline__ void wgmma_m64n128_rs_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 144] += A[64 x 16] . B[16 x 144], bf16 in, f32 accumulate; A and
+// B in shared memory, A MN-major (read through the transpose bit:
+// desc_sw128), B K-major (desc_sw128_at).
+__device__ __forceinline__ void wgmma_m64n144_ss_ta(float (&d)[72],
+                                                    uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71}, %72, %73, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
@@ -294,6 +412,30 @@ static int tensor_map_bf16_3d(CUtensorMap* map, const void* base,
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
          dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A dense 4-D bf16 tensor, dims[0] contiguous (dims[0] * 2 a multiple of
+// 16 bytes), cut into boxes of box[0..3] elements, box[0] * 2 <= 128
+// bytes a row, 128-byte swizzled: row r of a box (all dimensions but the
+// first, innermost first) lands at byte 128 r, its 16-byte chunks XORed
+// with r & 7. Elements outside the tensor load as zeros. Returns a
+// cudaError_t.
+static int tensor_map_bf16_4d(CUtensorMap* map, const void* base,
+                              const uint64_t (&dims)[4],
+                              const uint32_t (&box)[4]) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                 dims[0] * dims[1] * dims[2] * 2};
+  const cuuint32_t b[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), d,
+         strides, b, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -5,10 +5,11 @@
 C, CO]`` (HWIO), zero padding of one pixel, products accumulated in f32,
 the output in x's dtype. It is a ``torch.autograd.Function``: on CUDA
 tensors the forward launches the hand-written kernel in
-``csrc/conv3x3.cu``; on CPU tensors it runs :func:`conv3x3_s1_plain`, the
-TPU kernel's arithmetic (nine shifted ``[B*H*W, C] x [C, CO]`` products in
-f32 over the zero-padded input). Nothing falls back: a CUDA input that
-the kernel does not take raises.
+``csrc/conv3x3.cu`` on the route :func:`plan` picks from the shapes,
+the dtype and the pointers' alignment; on CPU tensors it runs
+:func:`conv3x3_s1_plain`, the TPU kernel's arithmetic (nine shifted
+``[B*H*W, C] x [C, CO]`` products in f32 over the zero-padded input).
+Nothing falls back: a CUDA input that the kernel does not take raises.
 
 The backward is the JAX package's ``_bwd``, which it computes in XLA, not
 Pallas: ``g`` cast to x's dtype; ``dx`` the same convolution of ``g``
@@ -22,13 +23,86 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 
-KERNEL_TILE_H = 16   # output rows per block of the kernel (a band)
+KERNEL_TILE_H = 16   # output rows per tile of every route (a band)
+
+# The wgmma route's shared memory (csrc/conv3x3.cu, namespace conv_sm90):
+# 1 KB of alignment slack, a ring of two haloed bands (18 x 18 pixels x 64
+# channels, 41,472 bytes, each stage rounded up to 1 KB), the weights of
+# one CO tile of 64 channels in slabs of 8 KB (one tap x 64 input
+# channels: every slab where they fit, else a ring of 12 streamed
+# through), the two warpgroups' output tiles (144 positions x 128 bytes
+# each), the rings' barriers; at most 227 KB a block on the H100.
+SMEM_CAP = 232448
+BAND_STAGE_BYTES = 41984
+RING_STAGES = 2
+SLAB_RING = 12
+WGMMA_M = 64                        # output channels a CO tile
+H100_SMS = 132
+
+
+class ConvPlan(NamedTuple):
+    """How the kernel runs one call: ``route`` (``"wgmma"``, ``"mma_sync"``
+    or ``"f32"``), the output ``tile`` (rows, columns), ``n`` output
+    channels a CO tile and ``n_cot`` CO tiles, whether the weights stay
+    ``resident`` in shared memory for a block's life (else they stream
+    through a ring of slabs), the band ring's ``stages``, the shared
+    memory ``smem`` a block takes, and the ``grid`` (blocks along x,
+    y)."""
+    route: str
+    tile: Tuple[int, int]
+    n: int
+    n_cot: int
+    resident: bool
+    stages: int
+    smem: int
+    grid: Tuple[int, int]
+
+
+def wgmma_smem(c: int, resident: bool) -> int:
+    """Shared memory of a wgmma-route block at C = c, with every slab of
+    the weights resident or a ring of ``SLAB_RING``."""
+    slabs = 9 * -(-c // 64) if resident else SLAB_RING
+    barriers = 2 * (RING_STAGES + (0 if resident else SLAB_RING)) * 8
+    return 1024 + RING_STAGES * BAND_STAGE_BYTES + slabs * 64 * 128 \
+        + 2 * 144 * 64 * 2 + barriers
+
+
+def plan(b: int, h: int, w: int, c: int, co: int, dtype: torch.dtype,
+         x_aligned: bool = True, w_aligned: bool = True,
+         sms: int = H100_SMS) -> ConvPlan:
+    """The kernel's route and parameters for x ``[b, h, w, c]`` and w ``[3,
+    3, c, co]`` of ``dtype``; pure host arithmetic.
+
+    bf16 with C % 8 == 0 and both pointers 16-byte aligned takes the wgmma
+    route: persistent blocks (one an SM, ``sms`` of them at most) over
+    (CO tile of 64, image, 16 x 16 tile) items; the CO tile's weights stay
+    resident where all of C fits beside the ring (C <= 64), else they
+    stream through a ring of slabs. The other bf16 inputs take the
+    mma.sync route (64 output channels a block), f32 the f32 route
+    (32)."""
+    tiles = -(-h // KERNEL_TILE_H) * -(-w // KERNEL_TILE_H)
+    tile = (KERNEL_TILE_H, KERNEL_TILE_H)
+    if dtype == torch.bfloat16 and c % 8 == 0 and x_aligned and w_aligned:
+        n_cot = -(-co // WGMMA_M)
+        resident = wgmma_smem(c, True) <= SMEM_CAP
+        return ConvPlan("wgmma", tile, WGMMA_M, n_cot, resident,
+                        RING_STAGES, wgmma_smem(c, resident),
+                        (min(n_cot * b * tiles, sms), 1))
+    if dtype == torch.bfloat16:
+        n_cot = -(-co // 64)
+        return ConvPlan("mma_sync", tile, 64, n_cot, False, 1,
+                        (18 * 18 * 40 + 9 * 32 * 72) * 2,
+                        (tiles * n_cot, b))
+    n_cot = -(-co // 32)
+    return ConvPlan("f32", tile, 32, n_cot, False, 1,
+                    (18 * 18 * 17 + 9 * 16 * 32) * 4, (tiles * n_cot, b))
 
 
 def conv3x3_s1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -76,16 +150,28 @@ def conv3x3_s1_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, c, -1)
 
 
+ROUTES = {"f32": 0, "mma_sync": 1, "wgmma": 2}   # the C function's codes
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = _build.load("conv3x3").ofd_conv3x3_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _conv_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _conv_cuda(x: torch.Tensor, w: torch.Tensor,
+               route: str = None) -> torch.Tensor:
+    """The kernel on the route :func:`plan` picks; ``route="mma_sync"``
+    forces that route on bf16 inputs (to time it beside the wgmma
+    route)."""
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise ValueError(f"conv3x3_s1 kernel takes x and w both bf16 or both "
                          f"f32, got {x.dtype}/{w.dtype}")
@@ -98,9 +184,21 @@ def _conv_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     co = w.shape[-1]
     if b > 65535:
         raise ValueError(f"conv3x3_s1 kernel takes B <= 65535, got B={b}")
+    p = plan(b, h, wd, c, co, x.dtype, x.data_ptr() % 16 == 0,
+             w.data_ptr() % 16 == 0, _sms(x.device.index))
+    if route is not None:
+        if route != "mma_sync" or x.dtype != torch.bfloat16:
+            raise ValueError(f"conv3x3_s1: route {route!r} is not forced "
+                             f"on {x.dtype}")
+        p = p._replace(route=route)
+    if p.route == "wgmma" and co % 8:
+        # the wgmma route copies w's rows in 16-byte pieces (TMA, cp.async):
+        # output channels padded with zeros to a multiple of 8
+        w = F.pad(w, (0, -co % 8))
     y = torch.empty(b, h, wd, co, dtype=x.dtype, device=x.device)
     err = _kernel_fn()(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, c,
-                       co, int(x.dtype == torch.bfloat16),
+                       co, w.shape[-1], ROUTES[p.route], int(p.resident),
+                       p.grid[0],
                        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err}")

@@ -5,8 +5,12 @@ held to on the card) against JAX's Pallas kernel in interpret mode and
 its XLA path, at ``tests/test_conv2d.py``'s shapes; the autograd
 Function's gradients against JAX's custom VJP; the shared tolerance,
 which must admit another summation order and refuse two planted faults;
-and the wrapper's refusals.
+the wrapper's refusals; and ``plan``, the host arithmetic that picks the
+kernel's route and parameters.
 """
+
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -161,3 +165,67 @@ def test_kernel_wrapper_refuses_dtypes_and_strides():
         cv._conv_cuda(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="contiguous"):
         cv._conv_cuda(x, w.transpose(2, 3))
+
+
+def _conv_shapes():
+    """``chip_smoke.py``'s ``CONV_SHAPES`` (the script imports only the
+    standard library at its top)."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.CONV_SHAPES
+
+
+CONV_SHAPES = _conv_shapes()
+
+
+@pytest.mark.parametrize("name,shape", CONV_SHAPES,
+                         ids=[s[0] for s in CONV_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plan_route_of_every_conv_shape(name, shape, dtype):
+    """Every shape the card's smoke test runs takes the wgmma route in
+    bf16 (C % 8 == 0, aligned pointers) and the f32 route in f32, within
+    227 KB of shared memory, its CO tiles covering CO with none empty."""
+    b, h, w, c, co = shape
+    p = cv.plan(b, h, w, c, co, dtype)
+    assert p.route == ("wgmma" if dtype == torch.bfloat16 else "f32")
+    assert p.smem <= cv.SMEM_CAP and p.tile == (16, 16)
+    assert p.n % 8 == 0 and p.n * p.n_cot >= co > p.n * (p.n_cot - 1)
+    tiles = -(-h // 16) * -(-w // 16)
+    if p.route == "wgmma":
+        assert p.n == cv.WGMMA_M and p.stages == 2
+        assert p.resident == (c <= 64)
+        assert p.grid == (min(p.n_cot * b * tiles, cv.H100_SMS), 1)
+    else:
+        assert p.grid == (tiles * p.n_cot, b)
+
+
+@pytest.mark.parametrize("c,x_aligned,w_aligned", [
+    (3, True, True),      # C % 8 != 0 (tests/test_torch_cuda.py's C = 3)
+    (16, False, True),    # x past a 16-byte boundary
+    (16, True, False)])   # w past it
+def test_plan_takes_mma_sync_where_wgmma_does_not(c, x_aligned, w_aligned):
+    p = cv.plan(2, 18, 20, c, 24, torch.bfloat16, x_aligned, w_aligned)
+    assert p.route == "mma_sync" and not p.resident
+    assert (p.n, p.n_cot, p.grid) == (64, 1, (4, 2))
+    assert p.smem <= cv.SMEM_CAP
+
+
+@pytest.mark.parametrize("c", [8, 16, 64, 72, 96, 128, 200, 256, 512, 1024])
+def test_plan_resident_weights_exactly_where_they_fit(c):
+    """For every CO the wgmma route's weights stay resident exactly where
+    nine taps x C rounded up to 64 x 64 output channels x 2 bytes fit in
+    227 KB beside the ring of two bands and the two output tiles (C <=
+    64); else one 64-channel chunk's are staged at a time. Either way the
+    block fits; CO tiles of 64 cover CO, none empty."""
+    for co in (1, 2, 7, 8, 24, 40, 64, 65, 96, 126, 128, 200, 256, 300):
+        p = cv.plan(1, 40, 40, c, co, torch.bfloat16, sms=8)
+        assert p.route == "wgmma", (c, co)
+        chunks = -(-c // 64)
+        fits = 1024 + 2 * cv.BAND_STAGE_BYTES + 9 * chunks * 64 * 64 * 2 \
+            + 2 * 144 * 64 * 2 + 32 <= cv.SMEM_CAP
+        assert p.resident == fits == (c <= 64), (c, co)
+        assert p.smem == cv.wgmma_smem(c, p.resident) <= cv.SMEM_CAP
+        assert p.n == 64 and p.n * p.n_cot >= co > p.n * (p.n_cot - 1)
+        assert p.grid == (min(p.n_cot * 9, 8), 1)

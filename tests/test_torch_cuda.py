@@ -620,6 +620,56 @@ def test_conv3x3_kernel_matches_plain(card, dtype, b, h, w, c, co, offset):
                  .max()) > 1.0
 
 
+@pytest.mark.parametrize("b,h,w,c,co", [
+    (1, 20, 37, 64, 64),     # W not a multiple of the 16-pixel tile
+    (2, 1, 40, 16, 32),      # H = 1: all band rows but one are padding
+    (1, 24, 24, 8, 16),      # C = 8: one k16 step, the box past C zero
+    (1, 20, 36, 96, 96),     # C = 96: a partial second channel box
+    (1, 16, 40, 256, 126),   # C = 256: the weights streamed in slabs
+    (1, 20, 30, 64, 2),      # CO = 2: y element by element
+    (1, 18, 33, 64, 126),    # CO = 126: two CO tiles, the last ragged
+    (3, 17, 19, 32, 40),     # B > 1, ragged both ways
+    (8, 64, 96, 64, 128)])   # 384 items: 3 a block, CO tiles change
+def test_conv3x3_wgmma_route_matches_plain(card, b, h, w, c, co):
+    """bf16 on the wgmma route within ``ops/conv2d.py:tolerance``; two
+    launches give the same bits; the centre tap left out (at H = 1 the
+    (2, 2) tap reads only padding), and the padding at each image's
+    top-left corner read as the corner pixel (TMA's zero fill missed),
+    fail it."""
+    g_ = torch.Generator().manual_seed(13)
+    x = torch.randn(b, h, w, c, generator=g_).to(card, torch.bfloat16)
+    wt = (torch.randn(3, 3, c, co, generator=g_)
+          / (3 * c ** 0.5)).to(card, torch.bfloat16)
+    assert cv.plan(b, h, w, c, co, torch.bfloat16).route == "wgmma"
+    got = cv.conv3x3_s1(x, wt)
+    again = cv.conv3x3_s1(x, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    ref = cv.conv3x3_s1_plain(x, wt).float()
+    tol = cv.tolerance(x, wt)
+    assert float(((got.float() - ref).abs() / tol).max()) <= 1.0
+    w_cut = wt.clone()
+    w_cut[1, 1] = 0
+    corner = got.float()
+    corner[:, 0, 0] += x[:, 0, 0].float() @ wt[0, 0].float()
+    for fault in (cv.conv3x3_s1(x, w_cut).float(),
+                  corner.to(torch.bfloat16).float()):
+        assert float(((fault - ref).abs() / tol).max()) > 1.0
+
+
+def test_conv3x3_mma_sync_route_matches_plain(card):
+    """The mma.sync kernel, forced on inputs the wgmma route takes (as
+    chip_smoke.py times it), within the same tolerance."""
+    g_ = torch.Generator().manual_seed(14)
+    x = torch.randn(2, 24, 40, 64, generator=g_).to(card, torch.bfloat16)
+    wt = (torch.randn(3, 3, 64, 64, generator=g_) / 24).to(card,
+                                                          torch.bfloat16)
+    got = cv._conv_cuda(x, wt, route="mma_sync")
+    ref = cv.conv3x3_s1_plain(x, wt).float()
+    assert float(((got.float() - ref).abs() / cv.tolerance(x, wt)).max()) \
+        <= 1.0
+
+
 def test_conv3x3_function_matches_conv2d_autograd(card):
     """f32 (TF32 off): the Function's dx (the kernel) and dw (nine f32
     products) against autograd through ``F.conv2d`` within 1e-3 of each
