@@ -114,7 +114,30 @@ Run from the repository root on a host with one CUDA card. Phases:
    per pass (RAFT 24 lookups and 15 instance norms, GMFlow 14 flash and 15
    instance norms, 0 conv); (d) the submission files, their unpadded
    shapes and flows, and the warm start's ``flow_init``;
-14. a ``{"kernels": [...]}`` line (seven kernels), the card line, and last
+3h. (after [13]) the forward warp (``csrc/forward_warp.cu``) against its
+   plain version, bit for bit (out, valid and collision) at B = 1 and 15,
+   C = 7, 6, 4 and 2, at 384x512 and 33x17, with zero flow, an integer
+   translation (a permutation), i.i.d. +-20 px, a rotation about a pivot
+   off the image (border clamping), every pixel onto 4 targets, constant
+   depth (raster-order ties) and depths >= 1000 (collisions); two
+   launches bit-equal; a planted fault (the tie-break reversed) that must
+   fail; device times (one CUDA graph) beside a call from the host at
+   [15, 6, 384, 512] against its bound, the plain version and its
+   z-buffer pass alone (``scatter_reduce`` amin);
+14. synthesis card vs CPU: ``synthesize_sample_packed`` at 96x128 (depth
+   and disparity), same image, depth and draws, 20 warp launches an
+   image; at most 0.5% of the pixels beyond 1 gray level / one f16 step;
+15. the synthesis path: ``synth.cli.main`` at 384x512, 1 epoch, on a fake
+   ReDWeb tree (4 procedural 480x640 JPEGs with 8-bit closeness PNGs) and
+   a DIML tree (one PNG pair with a 16-bit disparity); checked: 20 warp
+   launches an image and no other kernel, ``forward_warp_plain`` never
+   called, 61 files an image, each file's keys, dtypes and shapes, labels
+   that follow ``AUGMENT_SCHEDULE``, finite flows; images per second and
+   ms per image (synthesis by CUDA events, device->host, write), one
+   image's synthesis alone and its profile; then the shards through
+   ``AugmentedShards`` (crop 368x496) and ``Loader`` into 3 RAFT-basic
+   training steps (bf16, fused correlation) with a finite loss;
+16. a ``{"kernels": [...]}`` line (eight kernels), the card line, and last
    the line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -130,6 +153,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
@@ -1518,6 +1542,7 @@ def launch_counts():
     from opticalflowfromdepth_torch.ops.flash_bwd import flash_backward
     from opticalflowfromdepth_torch.ops.fused_corr import \
         fused_corr_lookup_cat
+    from opticalflowfromdepth_torch.ops.forward_warp import forward_warp
     from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
     return {"fused_corr_lookup": fused_corr_lookup_cat.launches,
             "fused_corr_lookup_bwd": fused_corr_lookup_cat.bwd_launches,
@@ -1525,7 +1550,8 @@ def launch_counts():
             "flash": flash_softmax_matmul.launches,
             "flash_bwd_dq": flash_backward.launches_dq,
             "flash_bwd_dkv": flash_backward.launches_dkv,
-            "conv3x3": conv3x3_s1.launches}
+            "conv3x3": conv3x3_s1.launches,
+            "forward_warp": forward_warp.launches}
 
 
 def zero_launch_counts() -> None:
@@ -1534,11 +1560,12 @@ def zero_launch_counts() -> None:
     from opticalflowfromdepth_torch.ops.flash_bwd import flash_backward
     from opticalflowfromdepth_torch.ops.fused_corr import \
         fused_corr_lookup_cat
+    from opticalflowfromdepth_torch.ops.forward_warp import forward_warp
     from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
     fused_corr_lookup_cat.launches = fused_corr_lookup_cat.bwd_launches = 0
     instance_norm.launches = flash_softmax_matmul.launches = 0
     flash_backward.launches_dq = flash_backward.launches_dkv = 0
-    conv3x3_s1.launches = 0
+    conv3x3_s1.launches = forward_warp.launches = 0
 
 
 def want_launches(**counts):
@@ -1600,7 +1627,8 @@ def main_path_phase():
 
 # name stems of the kernels in opticalflowfromdepth_torch/csrc
 PORT_KERNELS = ("corr_fwd_tiles", "fused_corr_fwd_kernel", "corr_bwd_",
-                "instance_norm_fwd", "flash_fwd_", "flash_bwd_", "conv3x3_")
+                "instance_norm_fwd", "flash_fwd_", "flash_bwd_", "conv3x3_",
+                "zbuffer_kernel", "gather_kernel")
 
 
 def profile(run, unprofiled_ms: float, what: str) -> None:
@@ -2714,6 +2742,496 @@ def eval_phase(tmp: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phases 3h, 14 and 15: the synthesis engine
+# --------------------------------------------------------------------------
+
+SYNTH = (384, 512)                 # the synthesis CLI's default size
+WARP_CASES = ("zero", "translation", "i.i.d. +-20 px",
+              "rotation off the image", "four targets", "constant depth",
+              "collisions")
+
+
+def warp_inputs(gen, b, c, h, w, case):
+    """Seeded obj [B, C, H, W], flow [B, 2, H, W] and depth [B, 1, H, W],
+    made on the generator's device, for one of ``WARP_CASES``."""
+    import math
+
+    import torch
+    dev = gen.device
+    obj = torch.randn(b, c, h, w, generator=gen, device=dev)
+    depth = torch.rand(b, 1, h, w, generator=gen, device=dev) * 99 + 1
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    if case == "zero":
+        flow = torch.zeros(b, 2, h, w, device=dev)
+    elif case == "translation":         # a permutation of the kept part
+        flow = torch.stack([torch.full((h, w), 7.0, device=dev),
+                            torch.full((h, w), -3.0, device=dev)])
+    elif case == "rotation off the image":
+        # 25 degrees about a pivot right of and above the image: whole
+        # regions clamp onto the border column and row
+        cx, cy, t = 1.9 * w, -0.7 * h, math.radians(25.0)
+        x1 = (xx - cx) * math.cos(t) - (yy - cy) * math.sin(t) + cx
+        y1 = (xx - cx) * math.sin(t) + (yy - cy) * math.cos(t) + cy
+        flow = torch.stack([x1 - xx, y1 - yy])
+    elif case == "four targets":        # every pixel onto one of 4
+        flow = torch.stack([(xx % 2) * (w // 2) - xx,
+                            (yy % 2) * (h // 2) - yy])
+    else:
+        flow = (torch.rand(b, 2, h, w, generator=gen, device=dev) * 2 - 1) \
+            * 20
+    flow = flow.expand(b, 2, h, w).contiguous()
+    if case == "constant depth":        # raster-order ties everywhere
+        depth.fill_(42.0)
+        flow = flow.round()
+    elif case == "collisions":          # depths >= 1000: hit, no write
+        depth[torch.rand(depth.shape, generator=gen, device=dev) < 0.4] = \
+            1000.0
+        depth[torch.rand(depth.shape, generator=gen, device=dev) < 0.1] = \
+            5000.0
+    return obj, flow, depth
+
+
+def reversed_tie_inputs(obj, flow, depth):
+    """The planted fault's inputs: the sources in reverse raster order
+    with flows that keep each one's target (x + (t + 0.5 - x) is exact),
+    so the kernel's smallest index is the largest of the original ones:
+    the tie-break reversed."""
+    import torch
+    b, c, h, w = obj.shape
+    n = h * w
+    yy, xx = torch.meshgrid(torch.arange(h, device=obj.device),
+                            torch.arange(w, device=obj.device),
+                            indexing="ij")
+    p0 = torch.stack([xx, yy]).float()
+    tx = torch.clamp(p0[0] + flow[:, 0], 0, w - 1).floor()
+    ty = torch.clamp(p0[1] + flow[:, 1], 0, h - 1).floor()
+    rev = lambda t: t.reshape(*t.shape[:2], n).flip(-1).reshape(t.shape)
+    tgt = rev(torch.stack([tx, ty], 1)) + 0.5
+    return rev(obj), (tgt - p0).contiguous(), rev(depth)
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def forward_warp_phase():
+    import torch
+    from opticalflowfromdepth_torch.ops import forward_warp as fw
+
+    print("[3h] forward warp: CUDA kernel vs plain, bit for bit", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    n_cases = 0
+    for (h, w) in (SYNTH, (33, 17)):
+        for b in (1, 15):
+            for c in (7, 6, 4, 2):
+                for case in WARP_CASES:
+                    obj, flow, depth = warp_inputs(gen, b, c, h, w, case)
+                    before = fw.forward_warp.launches
+                    got = fw.forward_warp(obj, flow, depth)
+                    torch.cuda.synchronize()
+                    if fw.forward_warp.launches != before + 1:
+                        fail(f"forward warp [{b},{c},{h},{w}] {case}: the "
+                             "wrapper did not launch its kernel")
+                    ref = fw.forward_warp_plain(obj, flow, depth)
+                    for g, r, what in zip(got, ref, ("out", "valid",
+                                                     "collision")):
+                        if not same_bits(g, r):
+                            fail(f"forward warp [{b},{c},{h},{w}] {case}: "
+                                 f"{what} differs from the plain version in "
+                                 f"{int((g != r).sum())} values")
+                    if case == "translation":   # (7, -3): away from the
+                        # rows and columns that clamping piles up, a shift
+                        if not torch.equal(got[0][..., 1:h - 3, 7:w - 1],
+                                           obj[..., 4:, 0:w - 8]) or \
+                                int(got[1].sum()) != b * (h - 3) * (w - 7):
+                            fail(f"forward warp [{b},{c},{h},{w}]: the "
+                                 "translation is not a permutation")
+                    if case == "four targets" and int(got[1].sum()) != 4 * b:
+                        fail("forward warp: four targets, valid "
+                             f"{int(got[1].sum())}")
+                    if case == "collisions" and not got[2].any():
+                        fail("forward warp: no collision marked")
+                    n_cases += 1
+    print(f"  {n_cases} cases ({len(WARP_CASES)} flows at B = 1 and 15, C = "
+          f"7, 6, 4 and 2, {SYNTH[0]}x{SYNTH[1]} and 33x17): out, valid and "
+          "collision bit-equal to the plain version", flush=True)
+
+    b, c, (h, w) = 15, 6, SYNTH
+    inputs = {case: warp_inputs(gen, b, c, h, w, case)
+              for case in ("i.i.d. +-20 px", "rotation off the image",
+                           "four targets", "constant depth")}
+    first = fw.forward_warp(*inputs["i.i.d. +-20 px"])
+    again = fw.forward_warp(*inputs["i.i.d. +-20 px"])
+    if not all(same_bits(x, y) for x, y in zip(first, again)):
+        fail("forward warp: two launches on the same inputs differ")
+    ties = inputs["constant depth"]
+    ref = fw.forward_warp_plain(*ties)
+    faulty = fw.forward_warp(*reversed_tie_inputs(*ties))
+    n_bad = int((faulty[0] != ref[0]).any(1).sum())
+    print(f"  two launches bit-equal; planted fault (the tie-break "
+          f"reversed: the largest source index wins) changes {n_bad} of "
+          f"{b * h * w} targets (must fail)", flush=True)
+    if not all(same_bits(x, y) for x, y in zip(faulty[1:], ref[1:])) or \
+            n_bad == 0:
+        fail("forward warp: the planted tie-break fault is not caught")
+
+    times = {}
+    for case, args in inputs.items():
+        if case == "constant depth":
+            continue
+        obj, flow, depth = args
+        ms = graph_ms(lambda: fw.forward_warp(obj, flow, depth))
+        host_ms = cuda_ms(lambda: fw.forward_warp(obj, flow, depth))
+        plain_ms = cuda_ms(lambda: fw.forward_warp_plain(obj, flow, depth),
+                           reps=5)
+        # the plain version's z-buffer pass alone: one scatter_reduce amin
+        n, dev = h * w, flow.device
+        p1 = torch.stack(torch.meshgrid(
+            torch.arange(w, device=dev, dtype=torch.float32),
+            torch.arange(h, device=dev, dtype=torch.float32),
+            indexing="xy"))[None] + flow
+        idx = (torch.arange(b, device=dev)[:, None] * n
+               + (p1[:, 1].clamp(0, h - 1).long() * w
+                  + p1[:, 0].clamp(0, w - 1).long()).reshape(b, n)
+               ).reshape(-1)
+        key = ((fw._sortable_u32(depth.reshape(b, n)) << 31)
+               | torch.arange(n, device=dev)).reshape(-1)
+        zbuf = torch.empty(b * n, dtype=torch.int64, device=dev)
+        scatter_ms = graph_ms(lambda: zbuf.fill_(fw._EMPTY).scatter_reduce_(
+            0, idx, key, "amin"))
+        nbytes = b * n * 4 * ((c + 3) + (c + 2))   # inputs once, outputs once
+        # the two passes' own traffic: pass 1 reads flow and depth and
+        # reads and writes the z-buffer, pass 2 reads the z-buffer, gathers
+        # C + 1 channels and writes C + 2; the z-buffer's fill beside it
+        own = b * n * (4 * 3 + 8 + 8 + 8 + 4 * (c + 1) + 4 * (c + 2))
+        fill = b * n * 8
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  [{b},{c},{h},{w}] {case}: kernel {ms * 1e3:.1f} us "
+              f"(device, one CUDA graph; a call from the host "
+              f"{host_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, its "
+              f"z-buffer pass alone (scatter_reduce amin) "
+              f"{scatter_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
+              f"(bytes: {nbytes / 1e6:.1f} MB, inputs and outputs once), "
+              f"{bound_ms / ms:.3f} of it; the two passes' own traffic "
+              f"{own / 1e6:.1f} MB, {own / HBM_BYTES_PER_S * 1e6:.2f} us "
+              f"({own / HBM_BYTES_PER_S / ms * 1e3:.3f} of the kernel's "
+              f"time), the z-buffer's fill {fill / 1e6:.1f} MB more",
+              flush=True)
+        times[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by="bytes", library_ms=None)
+        del idx, key, zbuf, p1
+    del inputs
+    torch.cuda.empty_cache()
+    return dict(name="forward_warp", route="cuda",
+                source="opticalflowfromdepth_torch/csrc/forward_warp.cu",
+                replaces="opticalflowfromdepth_tpu/ops/forward_warp.py:42",
+                max_abs_err=0.0, **times["i.i.d. +-20 px"])
+
+
+def synth_source(seed: int, h: int, w: int, stereo: bool = False):
+    """A smooth procedural image [3, H, W] in [0, 255] and its depth
+    (through smooth_closer) or disparity [1, H, W], f32 numpy."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.clip(np.stack([np.sin(xx / (w / 9) + c + seed)
+                            * np.cos(yy / (h / 7)) * 90 + 120
+                            for c in range(3)])
+                  + r.uniform(0, 20, (3, h, w)), 0, 255).astype(np.float32)
+    if stereo:
+        dep = 30 + 25 * np.sin(xx / (w / 6)) * np.cos(yy / (h / 5))
+    else:
+        dep = 1.0 / (255.0 - np.clip(120 + 60 * np.sin(xx / (w / 5) + seed)
+                                     * np.cos(yy / (h / 4)), 0, 240))
+    return img, dep[None].astype(np.float32)
+
+
+def synth_parity_phase():
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.ops import forward_warp as fw
+    from opticalflowfromdepth_torch.synth import pipeline as sp
+
+    h, w = 96, 128
+    print(f"[14] synthesis {h}x{w}: card vs CPU (synthesize_sample_packed, "
+          "same image, depth and draws)", flush=True)
+    torch.set_num_threads(os.cpu_count() or 1)
+    for stereo in (False, True):
+        img, dep = synth_source(5, h, w, stereo)
+        draws = sp.draw_sample(torch.Generator().manual_seed(7), h, w)
+        cpu = sp.synthesize_sample_packed(torch.from_numpy(img),
+                                          torch.from_numpy(dep), draws,
+                                          stereo)
+        before = fw.forward_warp.launches
+        gpu = sp.synthesize_sample_packed(torch.from_numpy(img).cuda(),
+                                          torch.from_numpy(dep).cuda(),
+                                          draws, stereo)
+        torch.cuda.synchronize()
+        launches = fw.forward_warp.launches - before
+        if launches != sp.warps_per_image():
+            fail(f"synthesis on the card launched the warp {launches} "
+                 f"times, want {sp.warps_per_image()}")
+        worst = 0.0
+        parts = []
+        for k, ref in cpu.items():
+            got = gpu[k].cpu()
+            if got.shape != ref.shape or got.dtype != ref.dtype:
+                fail(f"synthesis card vs CPU: {k} {got.shape} {got.dtype}, "
+                     f"want {ref.shape} {ref.dtype}")
+            g, r = got.float().numpy(), ref.float().numpy()
+            # u8: 1 gray level; f16: one f16 step (1e-3 + 1e-3 |x|)
+            tol = 1.0 if got.dtype == torch.uint8 else 1e-3 + 1e-3 * abs(r)
+            bad = ~(np.abs(g - r) <= tol)
+            share = float(bad.reshape(-1, h * w).any(0).mean()) \
+                if bad.ndim > 1 else float(bad.mean())
+            worst = max(worst, share)
+            parts.append(f"{k} {100 * share:.3f}% (max |d| "
+                         f"{np.abs(g - r).max():.4g})")
+        print(f"  {'DIML (disparity)' if stereo else 'ReDWeb (depth)'}: "
+              f"{launches} warp launches; pixels beyond the tolerance: "
+              + ", ".join(parts), flush=True)
+        # the warp truncates its targets, so an f32 rounding of a flow
+        # (cos/sin on the card) can move a pixel: at most 0.5% of them
+        check("  share of pixels beyond 1 gray level / one f16 step",
+              worst, 0.005)
+
+
+def write_synth_trees(root: str, h: int = 480, w: int = 640) -> dict:
+    """A fake ReDWeb tree of 4 procedural images (JPEG + 8-bit PNG
+    closeness, by Pillow) and a DIML tree of one (PNG pair + 16-bit
+    disparity by the port's ``write_png16``); their list files."""
+    import numpy as np
+    from PIL import Image
+    from opticalflowfromdepth_torch.data.frame_io import write_png16
+    lists = {}
+    red = os.path.join(root, "ReDWeb")
+    os.makedirs(os.path.join(red, "Imgs"))
+    os.makedirs(os.path.join(red, "RDs"))
+    for i in range(4):
+        img, _ = synth_source(20 + i, h, w)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        close = np.clip(120 + 60 * np.sin(xx / 53 + i) * np.cos(yy / 41)
+                        + 30 * np.sin(xx / 11), 0, 255).astype(np.uint8)
+        Image.fromarray(np.moveaxis(img, 0, -1).astype(np.uint8)).save(
+            os.path.join(red, "Imgs", f"r{i}.jpg"), quality=90)
+        Image.fromarray(close).save(os.path.join(red, "RDs", f"r{i}.png"))
+    lists["ReDWeb"] = os.path.join(root, "ReDWeb_list.txt")
+    with open(lists["ReDWeb"], "w") as f:
+        f.write("".join(f"r{i}.jpg\n" for i in range(4)))
+    diml = os.path.join(root, "DIML", "train", "LR")
+    for sub in ("outleft", "outright", "disparity"):
+        os.makedirs(os.path.join(diml, sub))
+    left, disp = synth_source(30, h, w, stereo=True)
+    right, _ = synth_source(31, h, w)
+    for sub, im in (("outleft", left), ("outright", right)):
+        Image.fromarray(np.moveaxis(im, 0, -1).astype(np.uint8)).save(
+            os.path.join(diml, sub, "d0.png"))
+    # 16-bit disparity in the dataset's units (x 255/63 when read)
+    write_png16(os.path.join(diml, "disparity", "d0.png"),
+                np.round(disp[0] * 255 / 63 * 4).astype(np.uint16))
+    lists["DIML"] = os.path.join(root, "DIML_list.txt")
+    with open(lists["DIML"], "w") as f:
+        f.write("d0.png\n")
+    return lists
+
+
+SHARD_KEYS = {"img0_1", "img1_1", "depth0_1", "depth1_1", "flow_1",
+              "back_flow_1", "img0_2", "img1_2", "depth0_2", "depth1_2",
+              "flow_2", "back_flow_2", "label"}
+
+
+def check_shard(path: str, schedule) -> None:
+    """One shard file's keys, dtypes, shapes, label and finite flows."""
+    import numpy as np
+    h, w = SYNTH
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    name = os.path.basename(path)
+    if name.endswith("_group.npz"):
+        if data["group"].shape != (44, h, w) or \
+                data["group"].dtype != np.float16:
+            fail(f"{name}: group {data['group'].shape}")
+        return
+    if set(data) != SHARD_KEYS:
+        fail(f"{name}: keys {sorted(data)}")
+    a = int(name.rsplit("_a", 1)[1].split(".")[0])
+    if int(data["label"]) != schedule[a]:
+        fail(f"{name}: label {int(data['label'])}, want {schedule[a]}")
+    for k, v in data.items():
+        want = ((np.uint8, (h, w, 3)) if k.startswith("img") else
+                (np.float16, (h, w)) if k.startswith("depth") else
+                (np.float16, (h, w, 2)) if "flow" in k else
+                (np.int32, ()))
+        if v.dtype != want[0] or v.shape != want[1]:
+            fail(f"{name}: {k} {v.dtype} {v.shape}, want {want}")
+        if "flow" in k and not np.isfinite(v).all():
+            fail(f"{name}: {k} not finite")
+
+
+def synth_path_phase(tmp: str):
+    import math
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.data.datasets import AugmentedShards
+    from opticalflowfromdepth_torch.data.loader import Loader, to_device
+    from opticalflowfromdepth_torch.data.source import SOURCES, _resize_chw
+    from opticalflowfromdepth_torch.ops import forward_warp as fw
+    from opticalflowfromdepth_torch.synth import cli
+    from opticalflowfromdepth_torch.synth import pipeline as sp
+    from opticalflowfromdepth_torch.train import raft_train as rt
+
+    h, w = SYNTH
+    print(f"[15] synthesis path: synth.cli at {h}x{w} from fake ReDWeb (4 "
+          "images) and DIML (1) trees of 480x640, 1 epoch; the shards "
+          "through AugmentedShards into RAFT-basic training", flush=True)
+    lists = write_synth_trees(tmp)
+    out = os.path.join(tmp, "shards")
+    plain_calls = [0]
+    real_plain = fw.forward_warp_plain
+
+    def counting_plain(*args):
+        plain_calls[0] += 1
+        return real_plain(*args)
+
+    fw.forward_warp_plain = counting_plain    # the card path must not call it
+    zero_launch_counts()
+    results = {}
+    try:
+        for dataset, n_img in (("ReDWeb", 4), ("DIML", 1)):
+            before = launch_counts()["forward_warp"]
+            results[dataset] = cli.main([
+                "--dataset", dataset,
+                "--data_root", os.path.join(tmp, dataset),
+                "--list_file", lists[dataset], "--out", out,
+                "--epochs", "1", "--height", str(h), "--width", str(w)])
+            got = launch_counts()["forward_warp"] - before
+            if got != n_img * sp.warps_per_image():
+                fail(f"{dataset}: {got} warp launches for {n_img} images, "
+                     f"want {n_img * sp.warps_per_image()}")
+    finally:
+        fw.forward_warp_plain = real_plain
+    launches = launch_counts()
+    if launches != want_launches(forward_warp=5 * sp.warps_per_image()):
+        fail(f"synthesis launch counts {launches}")
+    if plain_calls[0]:
+        fail(f"the card's synthesis ran forward_warp_plain {plain_calls[0]} "
+             "times")
+    print(f"  launches over 5 images: {launches} ({sp.warps_per_image()} an "
+          "image; forward_warp_plain never called)", flush=True)
+
+    files = sorted(os.path.join(out, f) for f in os.listdir(out))
+    stems = {}
+    for f in files:
+        stem = os.path.basename(f).rsplit("_g", 1)[0] \
+            if "_group" not in f else os.path.basename(f)[:-10]
+        stems[stem] = stems.get(stem, 0) + 1
+    if len(stems) != 5 or set(stems.values()) != {61}:
+        fail(f"files per image: {stems}")
+    t = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda f: check_shard(f, sp.AUGMENT_SCHEDULE), files))
+    print(f"  {len(files)} files, 61 an image: keys, dtypes, shapes, labels "
+          f"(AUGMENT_SCHEDULE) and finite flows checked in "
+          f"{time.perf_counter() - t:.1f} s; "
+          f"{sum(os.path.getsize(f) for f in files) / 2 ** 20:.0f} MiB",
+          flush=True)
+    for dataset, r in results.items():
+        n = r["images"]
+        print(f"  {dataset}: {n} images in {r['seconds']:.3f} s (host "
+              f"clock), {n / r['seconds']:.3f} images/s; ms per image: "
+              f"synthesis {np.mean(r['synth_ms']):.3f} (device, CUDA "
+              f"events; {[round(x, 3) for x in r['synth_ms']]}), "
+              f"device->host {np.mean(r['d2h_ms']):.3f} (host clock, "
+              f"overlapping the next image), write "
+              f"{r['write_s'] * 1e3 / n:.3f} (the writer's 4 threads, "
+              f"summed), of which the CLI waited "
+              f"{r['write_wait_s'] * 1e3 / n:.3f}", flush=True)
+
+    # one image at full size, alone: host clock, then a profile
+    src = SOURCES["ReDWeb"](os.path.join(tmp, "ReDWeb"), lists["ReDWeb"])[0]
+    img = torch.from_numpy(_resize_chw(src.img0, (h, w))).cuda()
+    dep = torch.from_numpy(_resize_chw(src.depth_or_disp, (h, w))).cuda()
+    draws = sp.draw_sample(torch.Generator().manual_seed(12345), h, w)
+
+    def one_image():
+        return sp.synthesize_sample_packed(img, dep, draws)
+    one_image()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        one_image()
+    torch.cuda.synchronize()
+    image_ms = (time.perf_counter() - t) * 1e3 / 3
+    torch.cuda.reset_peak_memory_stats()
+    # the CLI overlaps an image's copy and write with the next image's
+    # synthesis only if the synthesis never waits for the card
+    def waits(run):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return [str(x.message) for x in seen     # not the mode's own note
+                if "synchroniz" in str(x.message).lower()
+                and "prototype" not in str(x.message)]
+    if not waits(lambda: dep.sum().item()):     # the detector sees one
+        fail("the synchronization detector missed a .item()")
+    syncs = waits(one_image)
+    torch.cuda.synchronize()
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):     # the ATen ops an image takes
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            CountOps.n += 1
+            return func(*args, **(kwargs or {}))
+    with CountOps():
+        one_image()
+    torch.cuda.synchronize()
+    print(f"  one image's synthesis alone: {image_ms:.3f} ms (host clock, "
+          f"synchronized, mean of 3); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"{CountOps.n} ATen ops dispatched; {len(syncs)} waits for the "
+          "card while enqueuing it", flush=True)
+    if syncs:
+        fail(f"one image's synthesis waits for the card: {syncs[:3]}")
+    profile(one_image, image_ms, "image")
+
+    # the shards into training: AugmentedShards -> Loader -> 3 RAFT steps
+    b, (ch, cw), iters = TRAIN_BATCH, TRAIN_CROP, TRAIN_ITERS
+    loader = Loader(AugmentedShards(out, crop_size=TRAIN_CROP, seed=0),
+                    batch_size=b, num_workers=4, seed=0)
+    cfg = rt.RAFTTrainConfig(batch_size=b, image_size=TRAIN_CROP,
+                             iters=iters, mixed_precision=True,
+                             corr_impl="fused", add_classifier=True)
+    step = rt.make_train_step(cfg, seeded_classifier(4, torch.bfloat16))
+    state = rt.init_state(cfg, seed=0)
+    tgen = torch.Generator(device="cuda").manual_seed(0)
+    losses = []
+    batches = iter(loader)
+    for _ in range(3):
+        batch = to_device(next(batches), "cuda")
+        state, m = step(state, batch, tgen)
+        losses.append(float(m["total_loss"]))
+    batches.close()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training on synthesized shards: loss {losses}")
+    print(f"  3 RAFT-basic steps (bf16, fused correlation, batch {b} of "
+          f"{ch}x{cw} crops) on the synthesized shards: losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2736,7 +3254,7 @@ def main() -> None:
 
     t = time.perf_counter()
     logs = _build.build(["fused_corr", "flash", "flash_bwd", "conv3x3",
-                         "instance_norm"])
+                         "instance_norm", "forward_warp"])
     print(f"[2] nvcc build {time.perf_counter() - t:.1f} s", flush=True)
     for name, log in logs.items():
         entry = ""
@@ -2791,6 +3309,14 @@ def main() -> None:
     # JAX package no model calls it (checked on every path above)
     conv["launches"] = launches[conv["name"]]
     kernels.append(conv)
+    # slice 10: the synthesis engine, after every earlier path
+    warp = timed("3h", forward_warp_phase)
+    timed("14", synth_parity_phase)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = timed("15", synth_path_phase, tmp)
+    # the warp's launches on slice 10's main path, the synthesis CLI
+    warp["launches"] = launches[warp["name"]]
+    kernels.append(warp)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -5,8 +5,9 @@
   * ``.pfm`` read (`frame_utils.py:67-99`);
   * KITTI 16-bit PNG flow ``(uv * 64 + 2^15, valid)`` read and write
     (`frame_utils.py:102-114`) through the PNG codec below;
-  * KITTI 16-bit disparity (Pillow's ``I;16``), images (Pillow), and
-    ``read_gen``'s extension dispatch (`frame_utils.py:117-131`).
+  * KITTI 16-bit disparity (Pillow's ``I;16``), images and 8-bit gray
+    maps (Pillow), and ``read_gen``'s extension dispatch
+    (`frame_utils.py:117-131`).
 
 The JAX package reads and writes KITTI PNGs with cv2, which the port
 does not depend on, and Pillow reads a 48-bit RGB PNG as 8-bit RGB (it
@@ -15,7 +16,7 @@ codec in numpy and ``zlib``: 8- and 16-bit gray and RGB, not interlaced,
 all five row filters (None, Sub and Up vectorised over each row; Average
 and Paeth loop over the pixels of a row, vectorised over a pixel's bytes
 and over the rows of a run of such rows). The writer emits 16-bit
-big-endian RGB with filter 0.
+big-endian RGB or gray with filter 0.
 
 The channel order follows the JAX package's: it reads BGR with cv2 and
 reverses it, and writes the reverse, so the file's R, G and B hold (u, v,
@@ -41,6 +42,16 @@ def read_image(path: str) -> np.ndarray:
     from PIL import Image
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), np.float32)
+
+
+def read_gray8(path: str) -> np.ndarray:
+    """8-bit gray image (an RGB file through Pillow's luma) -> [H, W]
+    float32 in [0, 255]."""
+    from PIL import Image
+    with Image.open(path) as im:
+        if im.mode != "L":
+            im = im.convert("L")
+        return np.asarray(im, np.float32)
 
 
 def read_flo(path: str) -> np.ndarray:
@@ -190,21 +201,27 @@ def _png_chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png16(path: str, img: np.ndarray) -> None:
-    """``[H, W, 3]`` uint16 -> a 16-bit big-endian RGB PNG, row filter 0,
-    the channels in the file's order, compressed at zlib level 1 (cv2's
-    default for PNG: the flows' low bytes barely compress, and level 6
-    takes several times longer for a few percent)."""
+    """``[H, W, 3]`` uint16 -> a 16-bit big-endian RGB PNG (``[H, W]`` ->
+    16-bit gray), row filter 0, the channels in the file's order,
+    compressed at zlib level 1 (cv2's default for PNG: the flows' low
+    bytes barely compress, and level 6 takes several times longer for a
+    few percent)."""
     img = np.asarray(img)
-    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint16:
-        raise ValueError(f"write_png16 takes [H, W, 3] uint16, got "
-                         f"{img.shape} {img.dtype}")
-    h, w = img.shape[:2]
-    rows = np.zeros((h, 1 + 6 * w), np.uint8)
-    rows[:, 1:] = img.astype(">u2").view(np.uint8).reshape(h, 6 * w)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[2] not in (1, 3) \
+            or img.dtype != np.uint16:
+        raise ValueError(f"write_png16 takes [H, W, 3] or [H, W] uint16, "
+                         f"got {img.shape} {img.dtype}")
+    h, w, channels = img.shape
+    rows = np.zeros((h, 1 + 2 * channels * w), np.uint8)
+    rows[:, 1:] = img.astype(">u2").view(np.uint8).reshape(
+        h, 2 * channels * w)
     with open(path, "wb") as f:
         f.write(PNG_SIGNATURE
-                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 2,
-                                                  0, 0, 0))
+                + _png_chunk(b"IHDR", struct.pack(
+                    ">IIBBBBB", w, h, 16, 2 if channels == 3 else 0, 0, 0,
+                    0))
                 + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
                 + _png_chunk(b"IEND", b""))
 

@@ -1,7 +1,7 @@
 """The port's Hopper kernels against their plain versions, on the card,
 forward and backward (the 3x3 conv's Function also against autograd
-through ``F.conv2d``), and one training step of each model card against
-CPU.
+through ``F.conv2d``; the forward warp bit for bit), one training step of
+each model card against CPU, and the synthesis card against CPU.
 
 Marked ``cuda``: they skip on a host without a CUDA device. On the card
 they run without the JAX test setup:
@@ -18,8 +18,10 @@ from opticalflowfromdepth_torch.models.raft import RAFT
 from opticalflowfromdepth_torch.ops import conv2d as cv
 from opticalflowfromdepth_torch.ops import flash as fl
 from opticalflowfromdepth_torch.ops import flash_bwd as fb
+from opticalflowfromdepth_torch.ops import forward_warp as fw
 from opticalflowfromdepth_torch.ops import fused_corr as fc
 from opticalflowfromdepth_torch.ops import instance_norm as inorm
+from opticalflowfromdepth_torch.synth import pipeline as sp
 
 pytestmark = pytest.mark.cuda
 
@@ -705,3 +707,127 @@ def test_conv3x3_kernel_refuses_what_it_does_not_take(card):
         cv.conv3x3_s1(x.transpose(1, 2), wt)
     with pytest.raises(ValueError, match="CPU or both on one CUDA"):
         cv.conv3x3_s1(x, wt.cpu())
+
+
+# --------------------------------------------------------------------------
+# the forward warp and the synthesis
+# --------------------------------------------------------------------------
+
+WARP_CASES = ("zero", "translation", "iid", "rotation off the image",
+              "four targets", "constant depth", "collisions")
+
+
+def _warp_inputs(b, c, h, w, case, seed=0):
+    """CPU obj [B, C, H, W], flow [B, 2, H, W], depth [B, 1, H, W] for the
+    edge cases of ``chip_smoke.py`` [3h]."""
+    r = np.random.default_rng(seed)
+    obj = r.normal(size=(b, c, h, w)).astype(np.float32)
+    depth = r.uniform(1, 100, (b, 1, h, w)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    flow = r.uniform(-20, 20, (b, 2, h, w)).astype(np.float32)
+    if case == "zero":
+        flow[:] = 0
+    elif case == "translation":
+        flow[:, 0], flow[:, 1] = 7.0, -3.0
+    elif case == "rotation off the image":
+        cx, cy, t = 1.9 * w, -0.7 * h, np.radians(25.0)
+        flow[:, 0] = (xx - cx) * np.cos(t) - (yy - cy) * np.sin(t) + cx - xx
+        flow[:, 1] = (xx - cx) * np.sin(t) + (yy - cy) * np.cos(t) + cy - yy
+    elif case == "four targets":
+        flow[:, 0] = (xx % 2) * (w // 2) - xx
+        flow[:, 1] = (yy % 2) * (h // 2) - yy
+    elif case == "constant depth":
+        depth[:] = 42.0
+        flow = np.round(flow)
+    elif case == "collisions":
+        depth[r.uniform(size=depth.shape) < 0.4] = 1000.0
+        depth[r.uniform(size=depth.shape) < 0.1] = -0.0
+    return tuple(torch.from_numpy(a) for a in (obj, flow, depth))
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("case", WARP_CASES)
+@pytest.mark.parametrize("b,c,h,w", [(1, 7, 33, 17), (3, 6, 64, 96),
+                                     (15, 2, 24, 32)])
+def test_forward_warp_kernel_matches_plain(card, case, b, c, h, w):
+    """Bit for bit: out, valid and collision against the plain version on
+    the card and on the CPU."""
+    args = _warp_inputs(b, c, h, w, case)
+    before = fw.forward_warp.launches
+    got = fw.forward_warp(*(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert fw.forward_warp.launches == before + 1
+    ref = fw.forward_warp_plain(*(a.to(card) for a in args))
+    cpu = fw.forward_warp_plain(*args)
+    for g, r, c_ in zip(got, ref, cpu):
+        assert _same_bits(g, r) and _same_bits(g.cpu(), c_)
+
+
+def test_forward_warp_kernel_bit_reproducible_and_catches_a_reversed_tie(card):
+    """Two launches give the same bits; the kernel on inputs whose sources
+    are in reverse raster order (their targets kept) is the kernel with
+    its tie-break reversed, and that must differ from the plain version
+    at constant depth."""
+    obj, flow, depth = (a.to(card) for a in _warp_inputs(
+        15, 6, 48, 64, "constant depth"))
+    first = fw.forward_warp(obj, flow, depth)
+    assert all(_same_bits(x, y) for x, y in
+               zip(first, fw.forward_warp(obj, flow, depth)))
+    b, c, h, w = obj.shape
+    p0 = torch.stack(torch.meshgrid(
+        torch.arange(w, device=card, dtype=torch.float32),
+        torch.arange(h, device=card, dtype=torch.float32), indexing="xy"))
+    tgt = torch.stack([torch.clamp(p0[0] + flow[:, 0], 0, w - 1).floor(),
+                       torch.clamp(p0[1] + flow[:, 1], 0, h - 1).floor()], 1)
+
+    def rev(t):
+        return t.reshape(*t.shape[:2], h * w).flip(-1).reshape(t.shape)
+    faulty = fw.forward_warp(rev(obj), (rev(tgt) + 0.5 - p0).contiguous(),
+                             rev(depth))
+    assert _same_bits(faulty[1], first[1])
+    assert not _same_bits(faulty[0], first[0])
+
+
+def test_forward_warp_kernel_refuses_what_it_does_not_take(card):
+    obj, flow, depth = (a.to(card) for a in _warp_inputs(1, 3, 8, 8, "iid"))
+    with pytest.raises(ValueError, match="f32"):
+        fw.forward_warp(obj.half(), flow, depth)
+    with pytest.raises(ValueError, match="forward_warp: obj"):
+        fw.forward_warp(obj, flow[:, :1], depth)
+    with pytest.raises(ValueError, match="one device"):
+        fw.forward_warp(obj, flow, depth.cpu())
+
+
+def test_synthesis_on_card_matches_cpu(card):
+    """``synthesize_sample_packed`` at 48x64, same image, depth and draws:
+    20 warp launches; at most 0.5% of the pixels beyond 1 gray level or
+    one f16 step (the warp truncates its targets)."""
+    h, w = 48, 64
+    r = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.clip(np.stack([np.sin(xx / 7 + c) * np.cos(yy / 5) * 90 + 120
+                            for c in range(3)])
+                  + r.uniform(0, 20, (3, h, w)), 0, 255).astype(np.float32)
+    dep = (1.0 / (255.0 - np.clip(120 + 60 * np.sin(xx / 13)
+                                  * np.cos(yy / 9), 0, 240)))[None]
+    img, dep = torch.from_numpy(img), torch.from_numpy(dep.astype(np.float32))
+    draws = sp.draw_sample(torch.Generator().manual_seed(3), h, w)
+    cpu = sp.synthesize_sample_packed(img, dep, draws)
+    before = fw.forward_warp.launches
+    gpu = sp.synthesize_sample_packed(img.to(card), dep.to(card), draws)
+    torch.cuda.synchronize()
+    assert fw.forward_warp.launches - before == sp.warps_per_image() == 20
+    for k, ref in cpu.items():
+        got = gpu[k].cpu()
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        g, r_ = got.float().numpy(), ref.float().numpy()
+        tol = 1.0 if ref.dtype == torch.uint8 else 1e-3 + 1e-3 * np.abs(r_)
+        bad = ~(np.abs(g - r_) <= tol)
+        share = float(bad.reshape(-1, h * w).any(0).mean()) \
+            if bad.ndim > 1 else float(bad.mean())
+        print(f"{k}: {100 * share:.3f}% of pixels beyond the tolerance")
+        assert share <= 0.005, k

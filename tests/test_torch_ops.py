@@ -326,6 +326,13 @@ def test_port_imports_no_jax():
             bad += [f"{f.relative_to(REPO)}: {n}" for n in names
                     if n.split(".")[0] in banned]
     assert len(files) > 15 and not bad, bad
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    synthesis = [f"opticalflowfromdepth_torch/{m}.py" for m in (
+        "core/geometry", "core/rng", "core/camera", "core/convert",
+        "core/depth_utils", "core/special_flow", "ops/forward_warp",
+        "ops/inpaint", "synth/pipeline", "synth/writer", "synth/cli",
+        "data/source", "data/frame_io")]
+    assert set(synthesis) <= scanned, set(synthesis) - scanned
 
 
 # --------------------------------------------------------------------------
