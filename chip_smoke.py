@@ -17,16 +17,22 @@ Run from the repository root on a host with one CUDA card. Phases:
    flow, a ragged tile edge, boxes that overflow (per-query path), levels
    pooled to nothing, each with its share of the per-query path, two
    launches bit-equal and a planted fault (a column of a tile's box left
-   out), timed with smooth and with i.i.d. +- 20 px coordinates;
+   out), timed with smooth and with i.i.d. +- 20 px coordinates; the
+   lookup also at RAFT-small's radius 3 and C = 128 (batch 4 of 12x16,
+   the convergence tool's shape, and a ragged 11x19), bf16 on the
+   tensor-core route and f32 on the CUDA-core route, each with two
+   launches bit-equal and the planted fault;
    instance norm also at GMFlow's backbone shapes and every plan class
    (cluster of 1 and 8, several rows a block, a ragged last slice, rows
    streamed twice, f16, data off the 16-byte grid), two launches
-   bit-equal; [3c] the lookup's
+   bit-equal, and RAFT-small's SmallEncoder maps (stacked batch of 4 of
+   96x128); [3c] the lookup's
    backward at the training shape (batch 8, 368x496), ragged N (63, 65),
    levels pooled to nothing and far out-of-range queries, f32 (CUDA-core
    route) and bf16 (tensor-core route), with two launches that must give
    the same bits and two planted faults (df2cat x 0.98, the first query
-   tile left out) that must fail the tolerance; [3d] instance norm's
+   tile left out) that must fail the tolerance, and RAFT-small's radius-3
+   cases on both routes with the same checks; [3d] instance norm's
    gradient at the training shapes (where the kernel's and the plain
    forward fall on opposite sides of the ReLU, |g| rstd allowed on top);
    [3e] the flash streaming-softmax kernel at
@@ -134,10 +140,23 @@ Run from the repository root on a host with one CUDA card. Phases:
    called, 61 files an image, each file's keys, dtypes and shapes, labels
    that follow ``AUGMENT_SCHEDULE``, finite flows; images per second and
    ms per image (synthesis by CUDA events, device->host, write), one
-   image's synthesis alone and its profile; then the shards through
-   ``AugmentedShards`` (crop 368x496) and ``Loader`` into 3 RAFT-basic
-   training steps (bf16, fused correlation) with a finite loss;
-16. a ``{"kernels": [...]}`` line (eight kernels), the card line, and last
+   image's synthesis alone and its profile; then the shards (one
+   directory per dataset, kept for [16]) through ``AugmentedShards``
+   (crop 368x496) and ``Loader`` into 3 RAFT-basic training steps (bf16,
+   fused correlation) with a finite loss;
+16. the training CLI: ``train.cli.main`` at its defaults (RAFT-basic,
+   batch 8 of 368x496, 12 iterations, bf16) on [15]'s ReDWeb and DIML
+   shards, ``--stage mixed`` (re-augmented), ``--add_classifier
+   --classifier_ckpt`` a seeded classifier saved as a ``.pth``: a warm-up
+   step, then 5 steps with exact launch counts (12 lookups, 12 lookup
+   backwards, 15 instance norms a step) and no plain version called; ms a
+   step, the step alone on a resident batch, the loader alone (ms a
+   batch); ``latest``, the weights, ``args.json`` and the ``_parameters``
+   sidecar; ``--resume`` for 2 more steps, the step's weights served by
+   ``raft_infer_fn``; then ``--model gmflow`` (full width, batch 16 of
+   368x560), 2 steps with 14 + 14 + 14 flash launches and 15 instance
+   norms a step;
+17. a ``{"kernels": [...]}`` line (eight kernels), the card line, and last
    the line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -329,6 +348,7 @@ def fused_corr_phase(gen):
     ms, plain_ms, bound_ms, bound_by = fused_corr_timing(
         gen, TRAIN_BATCH, TRAIN_CROP[0] // 8, TRAIN_CROP[1] // 8, "training")
     fused_corr_tile_cases(h8, w8)
+    small_lookup_cases()
     return dict(name="fused_corr_lookup", route="cuda",
                 source="opticalflowfromdepth_torch/csrc/fused_corr.cu",
                 replaces="opticalflowfromdepth_tpu/ops/fused_corr.py:140",
@@ -459,6 +479,69 @@ def fused_corr_tile_cases(h8, w8):
             fused_corr_timing(None, b, h, w, f"{what} {kind}", inp)
 
 
+# RAFT-small's lookup (`models/raft.py`: corr_radius 3, fnet of 128
+# channels) at the convergence check's shape: batch 4 of 96x128 crops, so
+# 12x16 at 1/8; and a ragged N
+SMALL_LOOKUPS = (("RAFT-small 12x16 B=4", (4, 12, 16)),
+                 ("RAFT-small ragged 11x19 B=3", (3, 11, 19)))
+
+
+def small_lookup_inputs(gen, b, h, w, dtype, kind):
+    if kind == "smooth":
+        return smooth_corr_inputs(gen, b, h, w, dtype, c=128, amp=8.0)
+    return corr_inputs(gen, b, h, w, dtype, 6.0, c=128)
+
+
+def small_lookup_cases():
+    """[3a] at radius 3, C = 128, 4 levels (drawn from a generator of their
+    own): bf16 on the tensor-core route and f32 on the CUDA-core route,
+    smooth and i.i.d. +- 6 px coordinates, each within [3a]'s tolerance of
+    its dtype, two launches bit-equal, the planted fault (a column of a
+    tile's level-0 box left out) failing it."""
+    import torch
+    from opticalflowfromdepth_torch.ops import fused_corr as fc
+    levels, radius = 4, 3
+    k2 = (2 * radius + 1) ** 2
+    sgen = torch.Generator().manual_seed(303)
+    for dtype, rtol, atol in ((torch.bfloat16, 2e-2, 2e-2),
+                              (torch.float32, 0.0, 1e-4)):
+        for label, (b, h, w) in SMALL_LOOKUPS:
+            for kind in ("smooth", "i.i.d. +-6 px"):
+                f1, f2cat, coords = small_lookup_inputs(sgen, b, h, w, dtype,
+                                                        kind)
+                got, share = slow_share(fc, f1, f2cat, coords, h, w, levels,
+                                        radius)
+                again = fc.fused_corr_lookup_cat(f1, f2cat, coords, h, w,
+                                                 levels, radius)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"lookup r=3 {label}: two launches differ")
+                ref = fc.fused_corr_lookup_cat_plain(f1, f2cat, coords, h, w,
+                                                     levels, radius)
+                if got.shape != ref.shape or got.shape[2] != levels * k2:
+                    fail(f"lookup r=3 {label}: {got.shape} vs {ref.shape}")
+                check(f"{label} r=3 C=128 {kind} {dtype} "
+                      f"({fc.route(dtype, 128)}; |d| <= {atol:g} + "
+                      f"{rtol:g}|ref|; per-query path {share:.4f})",
+                      max_rel_excess(got, ref, rtol, atol), 1.0)
+                plan = fc.tile_plan(coords, h, w, levels, radius)[0]
+                hl, wl, hp, off = fc.cat_meta(h, w, levels)[0]
+                col = int(plan["x0"][0, 0]) + int(plan["bw"][0, 0]) // 2
+                cut = f2cat.clone()
+                cut[0, off + col * hp: off + (col + 1) * hp] = 0
+                q = fc.query_tiles(h * w, w)[0]
+                q = q[q >= 0].cuda()
+                faulty = fc.fused_corr_lookup_cat(
+                    f1, cut, coords, h, w, levels, radius)[0, q, :k2]
+                fault = max_rel_excess(faulty, ref[0, q, :k2], rtol, atol)
+                print(f"    two launches bit-equal; planted fault (column "
+                      f"{col} of a tile's level-0 box left out) {fault:.2f} "
+                      "(must exceed 1)", flush=True)
+                if not fault > 1.0:
+                    fail(f"lookup r=3 {label}: the planted fault passes "
+                         f"({fault:.2f})")
+
+
 def fused_corr_timing(gen, b, h8, w8, what, inputs=None):
     """Kernel, plain and bound times of one bf16 lookup at ``[b, h8*w8]``
     (i.i.d. +- 20 px coordinates from ``gen`` unless ``inputs`` given)."""
@@ -500,6 +583,11 @@ GM_FNET_SHAPES = ((2, 64, 224, 512), (2, 96, 112, 256), (2, 128, 56, 128))
 GM_TRAIN_FNET_SHAPES = tuple(
     (2 * GM_BATCH, c, GM_CROP[0] // s, GM_CROP[1] // s)
     for c, s in ((64, 2), (96, 4), (128, 8)))
+# RAFT-small's SmallEncoder (its bottlenecks norm planes / 4 channels)
+# on the stacked pairs of the convergence check's batch of 4 of 96x128
+SMALL_FNET_SHAPES = ((8, 32, 48, 64), (8, 8, 48, 64), (8, 16, 48, 64),
+                     (8, 16, 24, 32), (8, 64, 24, 32), (8, 24, 24, 32),
+                     (8, 24, 12, 16), (8, 96, 12, 16))
 
 
 def instance_norm_compare(tag, x, relu, rtol, atol):
@@ -580,6 +668,18 @@ def instance_norm_phase(gen):
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
         fail("instance norm: two launches on the same inputs differ")
     print("  two launches bit-equal", flush=True)
+    # RAFT-small's SmallEncoder maps at the convergence check's shape (the
+    # stacked pair of a batch of 4 of 96x128), a generator of their own
+    sgen = torch.Generator().manual_seed(96)
+    for shape in SMALL_FNET_SHAPES:
+        x32 = (torch.randn(*shape, generator=sgen) * 3 + 0.5).cuda()
+        for dtype, rtol, atol in ((torch.float32, 0.0, 1e-4),
+                                  (torch.bfloat16, 2 ** -7, 1e-3)):
+            for relu in (False, True):
+                instance_norm_compare(
+                    f"RAFT-small {list(shape)} {dtype} relu={relu} "
+                    f"{in_plan_tag(inorm, x32.to(dtype))}", x32.to(dtype),
+                    relu, rtol, atol)
 
     # one fnet forward (each shape 5 times, bf16, relu): serving (Sintel,
     # the stacked pair) printed; training (batch 8 of 368x496, the stacked
@@ -723,6 +823,8 @@ def fused_corr_bwd_phase(gen):
                 if not min(faults) > 1.0:
                     fail(f"lookup backward: a planted fault passes {faults}")
 
+    small_lookup_bwd_cases()
+
     # timing at the training shape and dtype (bf16, batch 8)
     g, f1, f2cat, coords = inputs(TRAIN_BATCH, h8, w8, torch.bfloat16, 20.0)
     meta = fc.cat_meta(h8, w8, levels)
@@ -760,6 +862,62 @@ def fused_corr_bwd_phase(gen):
                 replaces="opticalflowfromdepth_tpu/ops/fused_corr.py:171",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def small_lookup_bwd_cases():
+    """[3c] at RAFT-small's radius 3, C = 128 (drawn from a generator of
+    their own): f32 (CUDA-core route) and bf16 (tensor-core route) within
+    [3c]'s tolerances, two launches bit-equal, padded rows 0, and the
+    planted faults (df2cat x 0.98, the first query tile left out) failing
+    them."""
+    import torch
+    from opticalflowfromdepth_torch.ops import fused_corr as fc
+    levels, radius = 4, 3
+    k2 = (2 * radius + 1) ** 2
+    sgen = torch.Generator().manual_seed(304)
+    for dtype, rtol, atol in ((torch.float32, 0.0, 1e-4),
+                              (torch.bfloat16, 2 ** -7, 1e-3)):
+        for label, (b, h, w) in SMALL_LOOKUPS:
+            f1, f2cat, coords = small_lookup_inputs(sgen, b, h, w, dtype,
+                                                    "i.i.d.")
+            g = torch.randn(b, h * w, levels * k2, generator=sgen).cuda(
+            ).to(dtype)
+            got = fc.fused_corr_lookup_cat_bwd(g, f1, f2cat, coords, h, w,
+                                               levels, radius)
+            again = fc.fused_corr_lookup_cat_bwd(g, f1, f2cat, coords, h, w,
+                                                 levels, radius)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"lookup backward r=3 {label} {dtype}: two launches "
+                     "differ")
+            ref = fc.fused_corr_lookup_cat_bwd_plain(g, f1, f2cat, coords, h,
+                                                     w, levels, radius)
+            for name, x, r, like in zip(("df1", "df2cat"), got, ref,
+                                        (f1, f2cat)):
+                if x.shape != like.shape or x.dtype != like.dtype:
+                    fail(f"lookup backward r=3 {label} {name}: {x.shape}/"
+                         f"{x.dtype}, want {like.shape}/{like.dtype}")
+                check(f"{label} r=3 C=128 {dtype} {name} "
+                      f"({fc.route(dtype, 128)}; |d| <= {atol:g} + "
+                      f"{rtol:g}|ref|)", max_rel_excess(x, r, rtol, atol),
+                      1.0)
+            if torch.count_nonzero(got[1][:, padded_rows(
+                    fc.cat_meta(h, w, levels))]):
+                fail(f"lookup backward r=3 {label}: padded rows not 0")
+            g_cut = g.clone()
+            g_cut[0, :fc.KERNEL_TILE] = 0
+            cut = fc.fused_corr_lookup_cat_bwd(g_cut, f1, f2cat, coords, h,
+                                               w, levels, radius)
+            faults = [max_rel_excess(got[1].float() * 0.98, ref[1], rtol,
+                                     atol),
+                      max_rel_excess(cut[1], ref[1], rtol, atol)]
+            print(f"    planted faults (each must exceed 1): df2cat x 0.98 "
+                  f"{faults[0]:.2f}, the first query tile left out "
+                  f"{faults[1]:.2f}; padded rows 0; two launches bit-equal",
+                  flush=True)
+            if not min(faults) > 1.0:
+                fail(f"lookup backward r=3 {label}: a planted fault passes "
+                     f"{faults}")
 
 
 def padded_rows(meta):
@@ -3079,7 +3237,8 @@ def synth_path_phase(tmp: str):
 
     import numpy as np
     import torch
-    from opticalflowfromdepth_torch.data.datasets import AugmentedShards
+    from opticalflowfromdepth_torch.data.datasets import (AugmentedShards,
+                                                         ConcatDataset)
     from opticalflowfromdepth_torch.data.loader import Loader, to_device
     from opticalflowfromdepth_torch.data.source import SOURCES, _resize_chw
     from opticalflowfromdepth_torch.ops import forward_warp as fw
@@ -3092,7 +3251,7 @@ def synth_path_phase(tmp: str):
           "images) and DIML (1) trees of 480x640, 1 epoch; the shards "
           "through AugmentedShards into RAFT-basic training", flush=True)
     lists = write_synth_trees(tmp)
-    out = os.path.join(tmp, "shards")
+    outs = {d: os.path.join(tmp, "shards", d) for d in ("ReDWeb", "DIML")}
     plain_calls = [0]
     real_plain = fw.forward_warp_plain
 
@@ -3109,7 +3268,7 @@ def synth_path_phase(tmp: str):
             results[dataset] = cli.main([
                 "--dataset", dataset,
                 "--data_root", os.path.join(tmp, dataset),
-                "--list_file", lists[dataset], "--out", out,
+                "--list_file", lists[dataset], "--out", outs[dataset],
                 "--epochs", "1", "--height", str(h), "--width", str(w)])
             got = launch_counts()["forward_warp"] - before
             if got != n_img * sp.warps_per_image():
@@ -3126,7 +3285,8 @@ def synth_path_phase(tmp: str):
     print(f"  launches over 5 images: {launches} ({sp.warps_per_image()} an "
           "image; forward_warp_plain never called)", flush=True)
 
-    files = sorted(os.path.join(out, f) for f in os.listdir(out))
+    files = sorted(os.path.join(out, f) for out in outs.values()
+                   for f in os.listdir(out))
     stems = {}
     for f in files:
         stem = os.path.basename(f).rsplit("_g", 1)[0] \
@@ -3209,7 +3369,9 @@ def synth_path_phase(tmp: str):
 
     # the shards into training: AugmentedShards -> Loader -> 3 RAFT steps
     b, (ch, cw), iters = TRAIN_BATCH, TRAIN_CROP, TRAIN_ITERS
-    loader = Loader(AugmentedShards(out, crop_size=TRAIN_CROP, seed=0),
+    loader = Loader(ConcatDataset([AugmentedShards(o, crop_size=TRAIN_CROP,
+                                                   seed=0)
+                                   for o in outs.values()]),
                     batch_size=b, num_workers=4, seed=0)
     cfg = rt.RAFTTrainConfig(batch_size=b, image_size=TRAIN_CROP,
                              iters=iters, mixed_precision=True,
@@ -3229,7 +3391,207 @@ def synth_path_phase(tmp: str):
     print(f"  3 RAFT-basic steps (bf16, fused correlation, batch {b} of "
           f"{ch}x{cw} crops) on the synthesized shards: losses "
           f"{[round(x, 4) for x in losses]}", flush=True)
-    return launches
+    return launches, outs
+
+
+# --------------------------------------------------------------------------
+# phase 16: the training CLI
+# --------------------------------------------------------------------------
+
+PLAIN_VERSIONS = (("fused_corr", "fused_corr_lookup_cat_plain"),
+                  ("fused_corr", "fused_corr_lookup_cat_bwd_plain"),
+                  ("instance_norm", "instance_norm_plain"),
+                  ("flash", "flash_softmax_matmul_plain"),
+                  ("flash_bwd", "flash_backward_plain"),
+                  ("conv2d", "conv3x3_s1_plain"),
+                  ("forward_warp", "forward_warp_plain"))
+
+
+class PlainCalls:
+    """Counts the calls of every kernel's plain version while it is
+    entered (a path on the card must make none)."""
+
+    def __enter__(self):
+        import importlib
+        self.calls = {}
+        self.saved = []
+        for mod, name in PLAIN_VERSIONS:
+            m = importlib.import_module(f"opticalflowfromdepth_torch.ops."
+                                        f"{mod}")
+            real = getattr(m, name)
+            self.saved.append((m, name, real))
+            self.calls[name] = 0
+
+            def counting(*args, _real=real, _name=name, **kw):
+                self.calls[_name] += 1
+                return _real(*args, **kw)
+            setattr(m, name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, real in self.saved:
+            setattr(m, name, real)
+
+    def check(self, what: str) -> None:
+        if any(self.calls.values()):
+            fail(f"{what}: plain versions called {self.calls}")
+
+
+def train_cli_phase(tmp: str, outs: dict) -> None:
+    import math
+
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.data.datasets import fetch_train_dataset
+    from opticalflowfromdepth_torch.data.loader import Loader
+    from opticalflowfromdepth_torch.eval.cli import load_state_dict
+    from opticalflowfromdepth_torch.eval.infer import raft_infer_fn
+    from opticalflowfromdepth_torch.models.raft import RAFT
+    from opticalflowfromdepth_torch.train import cli
+    from opticalflowfromdepth_torch.train import raft_train as rt
+    from opticalflowfromdepth_torch.train.state import save_weights
+
+    b, (ch, cw), iters = TRAIN_BATCH, TRAIN_CROP, TRAIN_ITERS
+    print(f"[16] training CLI: train.cli --model raft --stage mixed on "
+          f"[15]'s ReDWeb and DIML shards (re-augmented), the frozen "
+          f"classifier from a .pth; the defaults: RAFT-basic, batch {b} of "
+          f"{ch}x{cw}, {iters} iters, bf16", flush=True)
+    ckpt = save_weights(tmp, seeded_classifier(4, torch.float32),
+                        "classifier")
+    log_dir = os.path.join(tmp, "cli_run")
+    common = ["--stage", "mixed", "--redweb_shards", outs["ReDWeb"],
+              "--diml_shards", outs["DIML"], "--add_classifier",
+              "--classifier_ckpt", ckpt]
+    record = {"stamps": [], "losses": []}
+    real_make = rt.make_train_step
+
+    def recording_make(cfg, classifier=None, device="cuda"):
+        step = real_make(cfg, classifier, device)
+        record.update(step=step, cfg=cfg)
+
+        def recorded(state, batch, gen):
+            state, m = step(state, batch, gen)
+            record["losses"].append(float(m["total_loss"]))   # waits
+            record["stamps"].append(time.perf_counter())
+            if len(record["stamps"]) == 1:          # after the warm-up step
+                zero_launch_counts()
+            record.update(batch=batch, gen=gen)
+            return state, m
+        return recorded
+
+    timed = 5
+    rt.make_train_step = recording_make
+    try:
+        with PlainCalls() as plain:
+            zero_launch_counts()
+            state = cli.main(common + [
+                "--model", "raft", "--log_dir", log_dir,
+                "--num_steps", str(1 + timed), "--save_latest_freq",
+                str(1 + timed), "--save_ckpt_freq", str(1 + timed)])
+            torch.cuda.synchronize()
+            launches = launch_counts()
+    finally:
+        rt.make_train_step = real_make
+    plain.check("the training CLI (RAFT)")
+    want = want_launches(fused_corr_lookup=iters * timed,
+                         fused_corr_lookup_bwd=iters * timed,
+                         instance_norm=15 * timed)
+    if launches != want:
+        fail(f"training CLI launch counts {launches}, want {want}")
+    losses = record["losses"]
+    if state.step != 1 + timed or not all(map(math.isfinite, losses)):
+        fail(f"training CLI: step {state.step}, losses {losses}")
+    stamps = record["stamps"]
+    per_step = [(y - x) * 1e3 for x, y in zip(stamps, stamps[1:])]
+    step_ms = (stamps[-1] - stamps[0]) * 1e3 / timed
+    print(f"  launches over the {timed} steps after the warm-up: "
+          f"{launches}; plain versions called 0 times", flush=True)
+    print(f"  losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"  ms per step (host clock, loss read each step): {step_ms:.3f} "
+          f"over {timed} steps ({[round(x, 3) for x in per_step]}); "
+          f"{b * 1e3 / step_ms:.3f} pairs/s", flush=True)
+    for f in ("args.json", "checkpoints/latest.pth",
+              f"checkpoints/step_{1 + timed}_weights.pth"):
+        if not os.path.exists(os.path.join(log_dir, f)):
+            fail(f"training CLI wrote no {f}")
+    if not any(f.endswith("_parameters") for f in os.listdir(log_dir)):
+        fail("training CLI wrote no _parameters sidecar")
+
+    # the step alone, on the last batch (resident)
+    step, batch, gen = record["step"], record["batch"], record["gen"]
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(timed):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    alone_ms = (time.perf_counter() - t) * 1e3 / timed
+    # the input pipeline alone: the mixed stage re-augmented, 4 threads
+    ds = fetch_train_dataset("mixed", TRAIN_CROP, shards_root={
+        "redweb": outs["ReDWeb"], "diml": outs["DIML"]}, seed=1)
+    it = iter(Loader(ds, batch_size=b, num_workers=4, seed=1))
+    next(it)
+    t = time.perf_counter()
+    for _ in range(4):
+        host = next(it)
+    loader_ms = (time.perf_counter() - t) * 1e3 / 4
+    it.close()
+    t = time.perf_counter()
+    for i in range(4):
+        ds[i]
+    sample_ms = (time.perf_counter() - t) * 1e3 / 4
+    if host["image1"].shape != (b, ch, cw, 3) or not all(
+            np.isfinite(host[k]).all() for k in ("flow", "valid")):
+        fail(f"re-augmented batch {host['image1'].shape}")
+    print(f"  the step alone on a resident batch: {alone_ms:.3f} ms; the "
+          f"loader alone (mixed, re-augmented, 4 threads, batch {b}): "
+          f"{loader_ms:.1f} ms per batch; one sample on this thread "
+          f"{sample_ms:.1f} ms", flush=True)
+
+    # --resume for 2 more steps, then the weights served
+    state = cli.main(common + [
+        "--model", "raft", "--log_dir", log_dir, "--num_steps",
+        str(3 + timed), "--save_latest_freq", "2", "--save_ckpt_freq", "2",
+        "--resume", os.path.join(log_dir, "checkpoints", "latest.pth")])
+    if state.step != 3 + timed:
+        fail(f"training CLI --resume ended at step {state.step}")
+    serve = RAFT(corr_impl="fused", dtype=torch.bfloat16)
+    serve.load_state_dict(load_state_dict(os.path.join(
+        log_dir, "checkpoints", f"step_{3 + timed}_weights.pth")),
+        strict=True)
+    rng = np.random.default_rng(16)
+    pair = [rng.uniform(0, 255, (1, ch, cw, 3)).astype(np.float32)
+            for _ in range(2)]
+    flow = raft_infer_fn(serve, iters=24, device="cuda")(*pair)
+    if flow.shape != (1, ch, cw, 2) or not np.isfinite(flow).all():
+        fail(f"served flow from the CLI's weights {flow.shape}")
+    print(f"  --resume from latest (step {1 + timed}) to step {state.step}; "
+          f"step_{state.step}_weights served one pair: |flow| max "
+          f"{np.abs(flow).max():.3f} px", flush=True)
+
+    # --model gmflow at full width: 2 steps
+    gb = GM_BATCH
+    with PlainCalls() as plain:
+        zero_launch_counts()
+        t = time.perf_counter()
+        state = cli.main(common + [
+            "--model", "gmflow", "--batch_size", str(gb), "--log_dir",
+            os.path.join(tmp, "cli_gmflow"), "--num_steps", "2",
+            "--save_latest_freq", "2", "--save_ckpt_freq", "2"])
+        torch.cuda.synchronize()
+        gm_s = time.perf_counter() - t
+        launches = launch_counts()
+    plain.check("the training CLI (GMFlow)")
+    want = want_launches(flash=28, flash_bwd_dq=28, flash_bwd_dkv=28,
+                         instance_norm=30)
+    if launches != want or state.step != 2:
+        fail(f"training CLI (GMFlow) launch counts {launches}, want {want}; "
+             f"step {state.step}")
+    print(f"  --model gmflow (full width, batch {gb} of {GM_CROP[0]}x"
+          f"{GM_CROP[1]}, bf16): 2 steps in {gm_s:.1f} s with model set-up "
+          f"(host clock); launches {launches} (14 + 14 + 14 flash and 15 "
+          f"instance norms a step); plain versions called 0 times",
+          flush=True)
 
 
 def main() -> None:
@@ -3313,7 +3675,9 @@ def main() -> None:
     warp = timed("3h", forward_warp_phase)
     timed("14", synth_parity_phase)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = timed("15", synth_path_phase, tmp)
+        launches, outs = timed("15", synth_path_phase, tmp)
+        # slice 11: the training CLI on [15]'s shards
+        timed("16", train_cli_phase, tmp, outs)
     # the warp's launches on slice 10's main path, the synthesis CLI
     warp["launches"] = launches[warp["name"]]
     kernels.append(warp)

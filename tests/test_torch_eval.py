@@ -370,11 +370,16 @@ def test_dataset_equal_to_jax(bench_root, name):
 
 def test_datasets_refuse_augmentation_and_partial_occlusions(bench_root,
                                                              tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        tds.MpiSintel(aug_params={"crop_size": (8, 8)},
-                      root=f"{bench_root}/Sintel")
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        tds.KITTI(aug_params={}, root=f"{bench_root}/KITTI")
+    # augmentation is ported: the augmented datasets return crops
+    sintel_aug = tds.MpiSintel(aug_params={"crop_size": (8, 8)},
+                               root=f"{bench_root}/Sintel")
+    kitti_aug = tds.KITTI(aug_params={"crop_size": (8, 8)},
+                          root=f"{bench_root}/KITTI")
+    for ds in (sintel_aug, kitti_aug):
+        sample = ds[0]
+        assert sample["image1"].shape == (8, 8, 3)
+        assert sample["flow"].shape == (8, 8, 2)
+        assert sample["valid"].shape == (8, 8)
     sintel = tmp_path / "Sintel/training"
     for sub in ("clean/s", "flow/s", "occlusions/s"):
         (sintel / sub).mkdir(parents=True)
