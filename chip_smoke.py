@@ -125,10 +125,14 @@ Run from the repository root on a host with one CUDA card. Phases:
    C = 7, 6, 4 and 2, at 384x512 and 33x17, with zero flow, an integer
    translation (a permutation), i.i.d. +-20 px, a rotation about a pivot
    off the image (border clamping), every pixel onto 4 targets, constant
-   depth (raster-order ties) and depths >= 1000 (collisions); two
-   launches bit-equal; a planted fault (the tie-break reversed) that must
-   fail; device times (one CUDA graph) beside a call from the host at
-   [15, 6, 384, 512] against its bound, the plain version and its
+   depth (raster-order ties) and depths >= 1000 (collisions); ptxas's
+   registers and spills of the kernel; two launches bit-equal, and two
+   launches back to back on other
+   inputs each bit-equal; two planted faults that must fail (the
+   tie-break reversed; each group of equal targets keeping its largest
+   key); device times (one CUDA graph) beside a call from the host at
+   [15, 6, 384, 512] and [1, 6, 384, 512], against the bound (and each
+   case's share of it), the plain version and its
    z-buffer pass alone (``scatter_reduce`` amin);
 14. synthesis card vs CPU: ``synthesize_sample_packed`` at 96x128 (depth
    and disparity), same image, depth and draws, 20 warp launches an
@@ -140,7 +144,9 @@ Run from the repository root on a host with one CUDA card. Phases:
    called, 61 files an image, each file's keys, dtypes and shapes, labels
    that follow ``AUGMENT_SCHEDULE``, finite flows; images per second and
    ms per image (synthesis by CUDA events, device->host, write), one
-   image's synthesis alone and its profile; then the shards (one
+   image's synthesis alone and its profile, that image's 20 warps
+   recorded and replayed one by one (device time summed, beside the
+   bound); then the shards (one
    directory per dataset, kept for [16]) through ``AugmentedShards``
    (crop 368x496) and ``Loader`` into 3 RAFT-basic training steps (bf16,
    fused correlation) with a finite loss;
@@ -1786,7 +1792,7 @@ def main_path_phase():
 # name stems of the kernels in opticalflowfromdepth_torch/csrc
 PORT_KERNELS = ("corr_fwd_tiles", "fused_corr_fwd_kernel", "corr_bwd_",
                 "instance_norm_fwd", "flash_fwd_", "flash_bwd_", "conv3x3_",
-                "zbuffer_kernel", "gather_kernel")
+                "warp_kernel")
 
 
 def profile(run, unprofiled_ms: float, what: str) -> None:
@@ -2977,11 +2983,21 @@ def same_bits(a, b) -> bool:
                                               b.contiguous().view(torch.int32))
 
 
-def forward_warp_phase():
+def warp_bound_ms(b, c, h, w) -> float:
+    """The warp's bound: its inputs read once (obj, flow, depth: C + 3
+    planes) and its outputs written once (out, valid, collision: C + 2),
+    f32, at the card's memory rate."""
+    return b * h * w * 4 * ((c + 3) + (c + 2)) / HBM_BYTES_PER_S * 1e3
+
+
+def forward_warp_phase(log: str = ""):
     import torch
     from opticalflowfromdepth_torch.ops import forward_warp as fw
 
     print("[3h] forward warp: CUDA kernel vs plain, bit for bit", flush=True)
+    for line in log.splitlines():     # ptxas -v of the kernel
+        if "registers" in line or "spill" in line:
+            print(f"  warp_kernel: {line.strip()}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(31)
     n_cases = 0
     for (h, w) in (SYNTH, (33, 17)):
@@ -3019,27 +3035,50 @@ def forward_warp_phase():
           f"7, 6, 4 and 2, {SYNTH[0]}x{SYNTH[1]} and 33x17): out, valid and "
           "collision bit-equal to the plain version", flush=True)
 
-    b, c, (h, w) = 15, 6, SYNTH
-    inputs = {case: warp_inputs(gen, b, c, h, w, case)
+    c, (h, w) = 6, SYNTH
+    inputs = {(b, case): warp_inputs(gen, b, c, h, w, case)
+              for b in (15, 1)
               for case in ("i.i.d. +-20 px", "rotation off the image",
                            "four targets", "constant depth")}
-    first = fw.forward_warp(*inputs["i.i.d. +-20 px"])
-    again = fw.forward_warp(*inputs["i.i.d. +-20 px"])
+    first = fw.forward_warp(*inputs[15, "i.i.d. +-20 px"])
+    again = fw.forward_warp(*inputs[15, "i.i.d. +-20 px"])
     if not all(same_bits(x, y) for x, y in zip(first, again)):
         fail("forward warp: two launches on the same inputs differ")
-    ties = inputs["constant depth"]
+    # back to back on other inputs: each launch resets its own z-buffer
+    pair = [fw.forward_warp(*inputs[15, case]) for case in
+            ("rotation off the image", "four targets")]
+    for got, case in zip(pair, ("rotation off the image", "four targets")):
+        if not all(same_bits(x, y) for x, y in
+                   zip(got, fw.forward_warp_plain(*inputs[15, case]))):
+            fail(f"forward warp: {case} launched right after another "
+                 "input differs from the plain version")
+    ties = inputs[15, "constant depth"]
     ref = fw.forward_warp_plain(*ties)
     faulty = fw.forward_warp(*reversed_tie_inputs(*ties))
     n_bad = int((faulty[0] != ref[0]).any(1).sum())
-    print(f"  two launches bit-equal; planted fault (the tie-break "
-          f"reversed: the largest source index wins) changes {n_bad} of "
-          f"{b * h * w} targets (must fail)", flush=True)
+    print(f"  two launches bit-equal, and two launches back to back on other "
+          f"inputs each bit-equal; planted fault (the tie-break reversed: "
+          f"the largest source index wins) changes {n_bad} of {15 * h * w} "
+          "targets (must fail)", flush=True)
     if not all(same_bits(x, y) for x, y in zip(faulty[1:], ref[1:])) or \
             n_bad == 0:
         fail("forward warp: the planted tie-break fault is not caught")
+    # the grouping's planted fault: each group of equal targets keeps its
+    # largest key
+    changed = {}
+    for case in ("constant depth", "four targets", "rotation off the image"):
+        args = inputs[15, case]
+        bad = fw._forward_warp_cuda(*args, plant_fault=True)[0]
+        changed[case] = int((bad != fw.forward_warp_plain(*args)[0])
+                            .any(1).sum())
+    print(f"  planted fault (a group's largest key wins) changes "
+          f"{changed} targets (each must fail)", flush=True)
+    if not all(changed.values()):
+        fail(f"forward warp: the grouping's planted fault is not caught "
+             f"{changed}")
 
     times = {}
-    for case, args in inputs.items():
+    for (b, case), args in inputs.items():
         if case == "constant depth":
             continue
         obj, flow, depth = args
@@ -3062,33 +3101,23 @@ def forward_warp_phase():
         zbuf = torch.empty(b * n, dtype=torch.int64, device=dev)
         scatter_ms = graph_ms(lambda: zbuf.fill_(fw._EMPTY).scatter_reduce_(
             0, idx, key, "amin"))
-        nbytes = b * n * 4 * ((c + 3) + (c + 2))   # inputs once, outputs once
-        # the two passes' own traffic: pass 1 reads flow and depth and
-        # reads and writes the z-buffer, pass 2 reads the z-buffer, gathers
-        # C + 1 channels and writes C + 2; the z-buffer's fill beside it
-        own = b * n * (4 * 3 + 8 + 8 + 8 + 4 * (c + 1) + 4 * (c + 2))
-        fill = b * n * 8
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = warp_bound_ms(b, c, h, w)
         print(f"  [{b},{c},{h},{w}] {case}: kernel {ms * 1e3:.1f} us "
               f"(device, one CUDA graph; a call from the host "
-              f"{host_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, its "
-              f"z-buffer pass alone (scatter_reduce amin) "
+              f"{host_ms * 1e3:.1f} us), plain {plain_ms * 1e3:.1f} us, "
+              f"its z-buffer pass alone (scatter_reduce amin) "
               f"{scatter_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
-              f"(bytes: {nbytes / 1e6:.1f} MB, inputs and outputs once), "
-              f"{bound_ms / ms:.3f} of it; the two passes' own traffic "
-              f"{own / 1e6:.1f} MB, {own / HBM_BYTES_PER_S * 1e6:.2f} us "
-              f"({own / HBM_BYTES_PER_S / ms * 1e3:.3f} of the kernel's "
-              f"time), the z-buffer's fill {fill / 1e6:.1f} MB more",
-              flush=True)
-        times[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by="bytes", library_ms=None)
+              f"(bytes: {bound_ms * HBM_BYTES_PER_S / 1e9:.1f} MB, inputs "
+              f"and outputs once), {bound_ms / ms:.3f} of it", flush=True)
+        times[b, case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by="bytes", library_ms=None)
         del idx, key, zbuf, p1
     del inputs
     torch.cuda.empty_cache()
     return dict(name="forward_warp", route="cuda",
                 source="opticalflowfromdepth_torch/csrc/forward_warp.cu",
                 replaces="opticalflowfromdepth_tpu/ops/forward_warp.py:42",
-                max_abs_err=0.0, **times["i.i.d. +-20 px"])
+                max_abs_err=0.0, **times[15, "i.i.d. +-20 px"])
 
 
 def synth_source(seed: int, h: int, w: int, stereo: bool = False):
@@ -3366,6 +3395,46 @@ def synth_path_phase(tmp: str):
     if syncs:
         fail(f"one image's synthesis waits for the card: {syncs[:3]}")
     profile(one_image, image_ms, "image")
+
+    # the image's warps, recorded from one more image and replayed one by
+    # one: device time summed, beside the bound
+    recorded = []
+    launch = fw._forward_warp_cuda
+
+    def recording(obj, flow, depth, **kw):
+        recorded.append(tuple(t.contiguous().clone()
+                              for t in (obj, flow, depth)))
+        return launch(obj, flow, depth, **kw)
+
+    fw._forward_warp_cuda = recording
+    try:
+        one_image()
+    finally:
+        fw._forward_warp_cuda = launch
+    torch.cuda.synchronize()
+    if len(recorded) != sp.warps_per_image():
+        fail(f"one image recorded {len(recorded)} warps, want "
+             f"{sp.warps_per_image()}")
+    for args in recorded:
+        if not all(same_bits(x, y) for x, y in
+                   zip(fw.forward_warp(*args), fw.forward_warp_plain(*args))):
+            fail(f"forward warp {tuple(args[0].shape)} of the image differs "
+                 "from the plain version")
+    warp_ms = [graph_ms(lambda: fw.forward_warp(*args)) for args in recorded]
+    bound_ms = sum(warp_bound_ms(*args[0].shape) for args in recorded)
+    shapes = {}
+    for args in recorded:
+        shapes[tuple(args[0].shape)] = shapes.get(tuple(args[0].shape), 0) + 1
+    print(f"  the image's {len(recorded)} warps ({shapes}), each bit-equal to "
+          f"the plain version, replayed one by one (device time, one CUDA "
+          f"graph each), summed: kernel {sum(warp_ms) * 1e3:.1f} us; bound "
+          f"{bound_ms * 1e3:.1f} us ({bound_ms / sum(warp_ms):.3f} of it); "
+          f"B = 1: "
+          f"{sum(t for t, a in zip(warp_ms, recorded) if len(a[0]) == 1) * 1e3:.1f}"
+          f" us, B = 15: "
+          f"{sum(t for t, a in zip(warp_ms, recorded) if len(a[0]) > 1) * 1e3:.1f}"
+          " us", flush=True)
+    del recorded
 
     # the shards into training: AugmentedShards -> Loader -> 3 RAFT steps
     b, (ch, cw), iters = TRAIN_BATCH, TRAIN_CROP, TRAIN_ITERS
@@ -3672,7 +3741,7 @@ def main() -> None:
     conv["launches"] = launches[conv["name"]]
     kernels.append(conv)
     # slice 10: the synthesis engine, after every earlier path
-    warp = timed("3h", forward_warp_phase)
+    warp = timed("3h", forward_warp_phase, logs.get("forward_warp", ""))
     timed("14", synth_parity_phase)
     with tempfile.TemporaryDirectory() as tmp:
         launches, outs = timed("15", synth_path_phase, tmp)

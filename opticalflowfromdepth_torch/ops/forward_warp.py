@@ -21,9 +21,13 @@ the plain version agree bit for bit.
 the JAX package computes the warp with a 3-key ``lax.sort`` and a scatter
 of each run's head (``ops/forward_warp.py:42``), which the card has no
 reason to repeat. It replaces the reference's L0 CUDA kernel
-``alt_cuda/fw_cuda``. Its two passes move bytes: one thread a source
-pixel ``atomicMin``s its key into a u64 z-buffer; one thread a target
-pixel decodes the winner and gathers its channels and depth.
+``alt_cuda/fw_cuda``. It is one cooperative launch of persistent blocks
+(:func:`plan`): the z-buffer's reset, the z-test (a pixel a thread a
+step; where neighbouring lanes of a warp share a target, the warp takes
+each target's minimum key first and one ``atomicMin`` issues for it) and
+a gather of each winner's channels, ``VEC`` adjacent targets a thread
+with vector loads and stores, the winner's depth taken from its key;
+grid syncs between the three.
 """
 
 from __future__ import annotations
@@ -39,6 +43,10 @@ from ..core.geometry import pixel_grid
 
 ZBUF_INIT = 1000.0  # `fw_cuda.cpp:58`: the z-buffer's initial depth
 _EMPTY = torch.iinfo(torch.int64).max
+
+THREADS = 256       # csrc/forward_warp.cu:kThreads
+VEC = 2             # csrc/forward_warp.cu:kVec, adjacent targets a thread
+BLOCKS_PER_SM = 6   # csrc/forward_warp.cu:kBlocksPerSm (its launch bounds)
 
 
 def _sortable_u32(depth: torch.Tensor) -> torch.Tensor:
@@ -81,17 +89,44 @@ def forward_warp_plain(obj: torch.Tensor, flow: torch.Tensor,
             collision.float().reshape(b, 1, h, w))
 
 
+def plan(b: int, h: int, w: int, sms: int, vec: int = VEC,
+         blocks_per_sm: int = BLOCKS_PER_SM) -> int:
+    """The persistent blocks of THREADS for one call on a card of ``sms``
+    SMs: a thread a unit of ``vec`` targets (the reset and the gather;
+    the z-test takes a pixel a thread a step) while the blocks fit
+    ``blocks_per_sm`` a SM (a cooperative launch must have every block
+    resident: the grid syncs wait for all of them), then each thread
+    takes more steps. The defaults are the kernel's;
+    ``tools/warp_variants.py`` plans its variants with their own."""
+    units = -(-b * h * w // vec)
+    return max(1, min(sms * blocks_per_sm, -(-units // THREADS)))
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = _build.load("forward_warp").ofd_forward_warp
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bind(lib: ctypes.CDLL):
+    """The typed entry point ``ofd_forward_warp`` of a build of
+    ``csrc/forward_warp.cu``."""
+    fn = lib.ofd_forward_warp
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    return bind(_build.load("forward_warp"))
+
+
 def _forward_warp_cuda(obj: torch.Tensor, flow: torch.Tensor,
-                       depth: torch.Tensor):
+                       depth: torch.Tensor, plant_fault: bool = False):
+    """The kernel. ``plant_fault`` makes each group of equal targets keep
+    its largest key (a fault that a check must catch); no path passes
+    it."""
     if obj.device.type != "cuda":
         raise ValueError(f"forward_warp: tensor on {obj.device}; the kernel "
                          "takes CUDA tensors (CPU tensors take the plain "
@@ -103,20 +138,21 @@ def _forward_warp_cuda(obj: torch.Tensor, flow: torch.Tensor,
     if any(t.dtype != torch.float32 for t in (obj, flow, depth)) \
             or any(t.device != obj.device for t in (flow, depth)):
         raise ValueError("forward_warp takes f32 tensors on one device")
-    if h * w >= 2 ** 31:
-        raise ValueError(f"forward_warp: {h}x{w} has over 2^31 pixels")
+    if b * h * w >= 2 ** 31:
+        raise ValueError(f"forward_warp: {b}x{h}x{w} has over 2^31 pixels")
     obj, flow, depth = (t.contiguous() for t in (obj, flow, depth))
     out = torch.empty_like(obj)
     valid = torch.empty_like(depth)
     collision = torch.empty_like(depth)
     zbuf = torch.empty(b * h * w, dtype=torch.int64, device=obj.device)
+    ptrs = [t.data_ptr() for t in (obj, flow, depth, zbuf, out, valid,
+                                   collision)]
     if b * h * w:
+        stream = torch.cuda.current_stream(obj.device).cuda_stream
         with torch.cuda.device(obj.device):
-            err = _kernel_fn()(
-                obj.data_ptr(), flow.data_ptr(), depth.data_ptr(),
-                zbuf.data_ptr(), out.data_ptr(), valid.data_ptr(),
-                collision.data_ptr(), b, c, h, w,
-                torch.cuda.current_stream(obj.device).cuda_stream)
+            err = _kernel_fn()(*ptrs, b, c, h, w,
+                               plan(b, h, w, _sm_count(obj.device.index)),
+                               int(plant_fault), stream)
         if err:
             raise RuntimeError(f"forward_warp kernel launch failed: CUDA "
                                f"error {err}")

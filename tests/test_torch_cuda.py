@@ -742,6 +742,10 @@ def _warp_inputs(b, c, h, w, case, seed=0):
     elif case == "collisions":
         depth[r.uniform(size=depth.shape) < 0.4] = 1000.0
         depth[r.uniform(size=depth.shape) < 0.1] = -0.0
+    elif case == "signed zeros":        # -0.0 wins over +0.0
+        depth = np.where(r.uniform(size=depth.shape) < 0.5, -0.0,
+                         0.0).astype(np.float32)
+        flow = np.round(flow / 5)
     return tuple(torch.from_numpy(a) for a in (obj, flow, depth))
 
 
@@ -765,6 +769,60 @@ def test_forward_warp_kernel_matches_plain(card, case, b, c, h, w):
     cpu = fw.forward_warp_plain(*args)
     for g, r, c_ in zip(got, ref, cpu):
         assert _same_bits(g, r) and _same_bits(g.cpu(), c_)
+
+
+@pytest.mark.parametrize("case", WARP_CASES + ("signed zeros",))
+@pytest.mark.parametrize("b,c,h,w", [(1, 7, 384, 512), (15, 6, 384, 512),
+                                     (1, 4, 33, 17), (15, 2, 33, 17)])
+def test_forward_warp_kernel_matches_plain_at_the_synthesis_sizes(
+        card, case, b, c, h, w):
+    """Bit for bit at the synthesis path's batches and size (B = 1 and
+    15, 384x512) and at a ragged 33x17 whose images straddle warps: border
+    clamping, 4 targets, equal depths, depths >= 1000, -0.0 against
+    +0.0."""
+    args = tuple(a.to(card) for a in _warp_inputs(b, c, h, w, case, seed=1))
+    got = fw.forward_warp(*args)
+    ref = fw.forward_warp_plain(*args)
+    for g, r in zip(got, ref):
+        assert _same_bits(g, r)
+
+
+def test_forward_warp_kernel_back_to_back_launches_are_each_exact(card):
+    """Launches on other inputs right after one another (no sync between):
+    each resets its own z-buffer, so each is the plain version's."""
+    cases = ("rotation off the image", "iid", "four targets", "collisions")
+    args = [tuple(a.to(card) for a in _warp_inputs(15, 6, 96, 128, case))
+            for case in cases]
+    got = [fw.forward_warp(*a) for a in args]
+    for g, a in zip(got, args):
+        assert all(_same_bits(x, y) for x, y in
+                   zip(g, fw.forward_warp_plain(*a)))
+
+
+@pytest.mark.parametrize("case", ["four targets", "rotation off the image",
+                                  "constant depth"])
+def test_forward_warp_kernel_planted_fault_is_caught(card, case):
+    """Each group of lanes on one target keeping its largest key (the
+    grouping's planted fault) changes the result where sources pile up."""
+    args = tuple(a.to(card) for a in _warp_inputs(1, 6, 384, 512, case))
+    bad = fw._forward_warp_cuda(*args, plant_fault=True)
+    assert not _same_bits(bad[0], fw.forward_warp_plain(*args)[0])
+
+
+@pytest.mark.parametrize("case", ["iid", "rotation off the image"])
+def test_forward_warp_kernel_exact_on_offset_views(card, case):
+    """Flow and depth one float past an aligned address (contiguous views
+    into larger buffers) give the same bits as aligned copies."""
+    obj, flow, depth = (a.to(card) for a in _warp_inputs(2, 6, 48, 64, case))
+    views = []
+    for t in (flow, depth):
+        buf = torch.empty(t.numel() + 1, device=card)
+        views.append(buf[1:].view(t.shape))
+        views[-1].copy_(t)
+    assert all(v.is_contiguous() and v.data_ptr() % 8 for v in views)
+    got = fw.forward_warp(obj, *views)
+    assert all(_same_bits(x, y) for x, y in
+               zip(got, fw.forward_warp_plain(obj, flow, depth)))
 
 
 def test_forward_warp_kernel_bit_reproducible_and_catches_a_reversed_tie(card):

@@ -8,10 +8,13 @@ raster scan, ties, zero flow, the permutation, flip against the generic
 warp), plus the edges the card's kernel is held to in ``chip_smoke.py``
 [3h]: a rotation about an off-image pivot, every pixel onto 4 targets,
 -0.0 against +0.0, depths >= 1000, batches; and ``concat_flow`` and
-``back_flow``.
+``back_flow``. Then the kernel's host side: ``plan``, and the variants
+of the kernel that ``tools/warp_variants.py`` builds.
 """
 
 import math
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -225,3 +228,78 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert tfw.forward_warp.launches == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfw._forward_warp_cuda(obj, flow, depth)
+
+
+# --------------------------------------------------------------------------
+# the kernel's host-side plan and its warp grouping (the kernel itself runs
+# only on the card: tests/test_torch_cuda.py)
+# --------------------------------------------------------------------------
+
+def _csrc_constant(name):
+    src = (pathlib.Path(tfw.__file__).resolve().parent.parent / "csrc"
+           / "forward_warp.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_plan_constants_are_the_kernels():
+    assert _csrc_constant("kThreads") == tfw.THREADS
+    assert _csrc_constant("kVec") == tfw.VEC
+    assert _csrc_constant("kBlocksPerSm") == tfw.BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("vec,bps", [(None, None), (1, 6), (4, 2)])
+@pytest.mark.parametrize("b,h,w", [(15, 384, 512), (1, 384, 512),
+                                   (1, 33, 17), (15, 33, 17), (2, 6, 7),
+                                   (1, 1, 1)])
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_plan_keeps_every_block_resident_and_warps_in_step(b, h, w, sms, vec,
+                                                           bps):
+    """The kernel's constants and two of ``tools/warp_variants.py``'s: at
+    most ``bps`` blocks a SM (a cooperative launch must have them all
+    resident), a thread a unit of ``vec`` targets until they are reached
+    and no block without a unit; the z-test's loop, a pixel a thread a
+    step while a warp's first pixel is in range, visits every pixel once,
+    and every lane of a warp takes the same number of steps (its shuffles
+    name the whole warp)."""
+    vec, bps = vec or tfw.VEC, bps or tfw.BLOCKS_PER_SM
+    units = -(-b * h * w // vec)
+    blocks = tfw.plan(b, h, w, sms, vec, bps)
+    if (vec, bps) == (tfw.VEC, tfw.BLOCKS_PER_SM):
+        assert blocks == tfw.plan(b, h, w, sms)
+    assert 1 <= blocks <= sms * bps
+    assert blocks * tfw.THREADS >= min(units, sms * bps * tfw.THREADS)
+    assert (blocks - 1) * tfw.THREADS < units
+    stride = blocks * tfw.THREADS
+    first = np.arange(stride)
+    end = -(-b * h * w // 32) * 32
+    steps = np.maximum(0, -(-(end - first) // stride))
+    assert (steps.reshape(-1, 32) == steps.reshape(-1, 32)[:, :1]).all()
+    visited = np.concatenate([np.arange(f, end, stride) for f in first])
+    assert np.array_equal(np.sort(visited), np.arange(end))
+
+
+@pytest.mark.parametrize("name", ["vec1_bps6", "vec4_bps2_p0",
+                                  "vec2_bps4_p01", "vec2_bps6_pl4"])
+def test_warp_variants_change_only_their_constants_and_cut(name):
+    """``tools/warp_variants.py``'s sources: the kernel's with kVec,
+    kBlocksPerSm and kPlanes set, and a cut variant returns right after the grid sync
+    that ends its last phase."""
+    from opticalflowfromdepth_torch.tools import warp_variants as wv
+    src = (pathlib.Path(tfw.__file__).resolve().parent.parent / "csrc"
+           / "forward_warp.cu").read_text()
+    got = wv.variant_source(src, name)
+    vec, bps = (int(x) for x in re.findall(r"\d", name)[:2])
+    assert re.search(rf"constexpr int kVec = {vec};", got)
+    assert re.search(rf"constexpr int kBlocksPerSm = {bps};", got)
+    planes = re.search(r"_pl(\d)", name)
+    assert re.search(r"constexpr int kPlanes = "
+                     + (planes.group(1) if planes
+                        else str(_csrc_constant("kPlanes"))) + ";", got)
+    cut = re.search(r"_(p0|p01)$", name)
+    if not cut:
+        assert len(got.splitlines()) == len(src.splitlines())
+        return
+    phase = got.split("grid.sync();\n    return;\n")
+    assert len(phase) == 2 and phase[0].count("grid.sync();") == \
+        (1 if cut.group(1) == "p0" else 2) - 1
+    assert ("phase 1: the z-test" in phase[0]) == (cut.group(1) == "p01")
