@@ -162,8 +162,36 @@ Run from the repository root on a host with one CUDA card. Phases:
    ``raft_infer_fn``; then ``--model gmflow`` (full width, batch 16 of
    368x560), 2 steps with 14 + 14 + 14 flash launches and 15 instance
    norms a step;
-17. a ``{"kernels": [...]}`` line (eight kernels), the card line, and last
-   the line ``{"ok": true, "device": {...}}``.
+3i. (after [16]) the sequence-parallel ring (``parallel.sequence``) on
+   the card: ``ring_softmax_matmul`` over ``LocalRing(n)``, n = 1, 2 and
+   4, f32 (the flash kernels' f32 routes), at GMFlow's serving matching
+   shape [1, 7168, 128] x [1, 7168, 2], its training one [16, 3220, 128] x
+   [16, 3220, 2] and a ragged L = 1001 (D = 2 and 128): forward and
+   backward against the same ring with the plain versions and against
+   one unsharded f32 flash call and its gradients (1e-4 of max|v| for the
+   output, of max|ref| for each gradient), exact launch counts (n^2
+   forward, n^2 dq, n^2 dk/dv), two rings bit-equal, a planted fault (a
+   merge without a step's LSE correction) that must fail; times of the
+   ring and of the f32 kernels at one step's shape against their bounds at
+   the f32 CUDA-core peak, the plain ring, and SDPA in f32;
+17. data parallelism over NCCL at world size 1: ``init_distributed()``
+   from an environment set in-process, ``make_mesh()``, two RAFT-basic
+   steps at [7]'s shape (batch norm live, ``add_noise``) and two GMFlow
+   steps at [12]'s, whose parameters must equal bit for bit those of the
+   same steps with no process group (cuDNN deterministic); then the group
+   is destroyed;
+18. sequence-parallel GMFlow, ``model_parallel = 2`` over
+   ``ProcessMesh.local(2)``: at f32 64x96 the forward at splits 1 and 2
+   against the unsharded model (JAX's 5e-3 px + 1e-3 relative) and one
+   step's raw gradients ([11]'s 2e-4 of the global norm); then the
+   reference's recipe at full width (bf16, batch 16 of 368x560, 1 scale,
+   classifier on): a warm-up step and 3 timed steps on a resident batch
+   with exact launch counts (32 flash forwards, 32 dq, 32 dk/dv, 15
+   instance norms a step), no plain version called, host ms beside [12]'s
+   step alone, peak memory, a profile of one step;
+19. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
+   [18]'s launches too), the card line, and last the line ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the package beside this file, it exits non-zero and
@@ -2533,7 +2561,7 @@ def gmflow_train_path_phase(tmp: str):
             and state.optimizer.count == c0):
         fail("the NaN batch was not skipped")
     runner.batches.close()             # stops the loader's thread
-    return launches
+    return launches, alone_ms
 
 
 def gmflow_learning_phase():
@@ -3534,8 +3562,8 @@ def train_cli_phase(tmp: str, outs: dict) -> None:
     record = {"stamps": [], "losses": []}
     real_make = rt.make_train_step
 
-    def recording_make(cfg, classifier=None, device="cuda"):
-        step = real_make(cfg, classifier, device)
+    def recording_make(cfg, classifier=None, device="cuda", mesh=None):
+        step = real_make(cfg, classifier, device, mesh)
         record.update(step=step, cfg=cfg)
 
         def recorded(state, batch, gen):
@@ -3663,6 +3691,434 @@ def train_cli_phase(tmp: str, outs: dict) -> None:
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# phases 3i, 17 and 18: the parallel layer
+# --------------------------------------------------------------------------
+
+# f32 on the CUDA cores (no tensor cores): the H100 SXM data sheet's 67
+# TFLOP/s, the peak of the flash kernels' f32 routes, which the ring runs
+FP32_FLOP_PER_S = 67e12
+# [3i]'s shapes: name, (B, L, C, D, payload, grid width)
+RING_SHAPES = (
+    ("serving matching", (1, H8 * W8, 128, 2, "grid", W8)),
+    ("training matching", (GM_BATCH, GH8 * GW8, 128, 2, "grid", GW8)),
+    ("ragged L=1001", (2, 1001, 128, 2, "flow", 128)),
+    ("ragged L=1001 D=128", (2, 1001, 128, 128, "normal", 128)),
+)
+
+
+def ring_fwd_bwd(fn, q, k, v, g, group):
+    """``fn(q, k, v, group)`` forward and backward from ``g``: (out, [dq,
+    dk, dv])."""
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = fn(qq, kk, vv, group)
+    out.backward(g)
+    return out.detach(), [t.grad for t in (qq, kk, vv)]
+
+
+def f32_work(b, lq, lk, c, d):
+    """Operations (forward, dq, dk/dv), exponentials and bytes (forward,
+    dq, dk/dv) of one f32 flash call on [B, Lq, C] x [B, Lk, C | D]: the
+    forward S and P.V; dq S, dP and dS.K; dk/dv S, dP, P^T.G and dS^T.Q.
+    Each reads its inputs once (f32; the backward q, k, v, g, lse and
+    delta) and writes its outputs once."""
+    pairs = float(b * lq * lk)
+    ins = 4 * (b * lq * c + b * lk * c + b * lk * d)
+    ops = (2 * pairs * (c + d), 2 * pairs * (2 * c + d),
+           2 * pairs * (2 * c + 2 * d))
+    by = (ins + 4 * b * lq * (d + 1),
+          ins + 4 * b * lq * (d + 2) + 4 * b * lq * c,
+          ins + 4 * b * lq * (d + 2) + 4 * b * lk * (c + d))
+    return ops, pairs, by
+
+
+def f32_bound_ms(ops, exps, by):
+    t_ops = max(ops / FP32_FLOP_PER_S, exps / SFU_PER_S)
+    t_by = by / HBM_BYTES_PER_S
+    return max(t_ops, t_by) * 1e3, ("operations" if t_ops >= t_by
+                                    else "bytes")
+
+
+def ring_phase(gen):
+    import torch
+    import torch.nn.functional as F
+    from opticalflowfromdepth_torch.ops import flash as fl
+    from opticalflowfromdepth_torch.ops import flash_bwd as fb
+    from opticalflowfromdepth_torch.parallel import sequence as sq
+
+    print("[3i] the sequence-parallel ring on the card: ring_softmax_matmul "
+          "over LocalRing(n), n = 1, 2, 4, f32 (the flash kernels' f32 "
+          "routes), forward and backward", flush=True)
+    fn_dq, fn_dkv = fb._kernel_fns()
+    stream = torch.cuda.current_stream().cuda_stream
+    merge = sq.merge_step
+
+    def faulty_merge(out, lse, out_s, lse_s):
+        # the step's output taken without its LSE correction
+        new_out, new = merge(out, lse, out_s, lse_s)
+        return new_out + out_s * (1 - torch.exp(lse_s - new))[..., None], new
+
+    times = {}
+    for name, (b, l, c, d, payload, grid_w) in RING_SHAPES:
+        q, k, v = flash_inputs(gen, b, l, l, c, d, torch.float32, payload,
+                               grid_w=grid_w)
+        v = v.float()
+        g = torch.randn(b, l, d, generator=gen).cuda()
+        dense = ring_fwd_bwd(lambda a, bb, cc, _: fl.flash_softmax_matmul(
+            a, bb, cc), q, k, v, g, None)
+        tol = [1e-4 * float(v.abs().max())] + [
+            1e-4 * float(t.abs().max()) for t in dense[1]]
+        for n in (1, 2, 4):
+            ring = sq.LocalRing(n)
+            what = f"{name} [{b},{l},{c}]x[{b},{l},{d}] n={n}"
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            got = ring_fwd_bwd(sq.ring_softmax_matmul, q, k, v, g, ring)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            want = want_launches(flash=n * n, flash_bwd_dq=n * n,
+                                 flash_bwd_dkv=n * n)
+            if launches != want:
+                fail(f"[3i] {what}: launches {launches}, want {want}")
+            again = ring_fwd_bwd(sq.ring_softmax_matmul, q, k, v, g, ring)
+            if not all(torch.equal(a, r) for a, r in
+                       zip([got[0]] + got[1], [again[0]] + again[1])):
+                fail(f"[3i] {what}: two rings on the same inputs differ")
+            plain = ring_fwd_bwd(sq.ring_softmax_matmul_plain, q, k, v, g,
+                                 ring)
+            for ref, against in ((plain, "the plain ring"),
+                                 (dense, "one unsharded f32 flash call")):
+                ratios = [float((a - r).abs().max()) / t for a, r, t in zip(
+                    [got[0]] + got[1], [ref[0]] + ref[1], tol)]
+                check(f"{what} vs {against}: |d| / tolerance (1e-4 of "
+                      f"max|v| for out, of max|ref| for dq, dk, dv) out "
+                      f"{ratios[0]:.3f}, dq {ratios[1]:.3f}, dk "
+                      f"{ratios[2]:.3f}, dv", ratios[3], 1.0)
+                check("  out, dq and dk |d| / tolerance", max(ratios[:3]),
+                      1.0)
+            if n > 1:
+                sq.merge_step = faulty_merge
+                try:
+                    bad = sq.ring_softmax_matmul(q, k, v, ring)
+                finally:
+                    sq.merge_step = merge
+                ratio = float((bad - dense[0]).abs().max()) / tol[0]
+                print(f"    planted fault, a merge without the step's LSE "
+                      f"correction: |d| / tolerance {ratio:.2f} (must "
+                      f"exceed 1); two rings bit-equal; launches {n * n} "
+                      f"forward, {n * n} dq, {n * n} dk/dv", flush=True)
+                if not ratio > 1.0:
+                    fail(f"[3i] {what}: the planted merge fault passes")
+            del got, again, plain
+            # times: the ring alone, forward and forward + backward
+            t_f = cuda_ms(lambda: sq.ring_softmax_matmul(q, k, v, ring),
+                          reps=3, warm=1)
+            t_fb = cuda_ms(lambda: ring_fwd_bwd(sq.ring_softmax_matmul, q, k,
+                                                v, g, ring), reps=3, warm=1)
+            t_pfb = cuda_ms(lambda: ring_fwd_bwd(sq.ring_softmax_matmul_plain,
+                                                 q, k, v, g, ring),
+                            reps=2, warm=1)
+            # one step's kernels alone at the step's shape (the longest
+            # slices), each launched from its C entry point
+            lq = -(-l // n)
+            qs, ks, vs, gs = (t[:, :lq].contiguous() for t in (q, k, v, g))
+            out, lse = fl.flash_softmax_matmul(qs, ks, vs, with_lse=True)
+            delta = (gs * out).sum(-1)
+            dq = torch.empty_like(qs)
+            dk, dv = torch.empty_like(ks), torch.empty_like(vs)
+            ins = (qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), gs.data_ptr(),
+                   lse.data_ptr(), delta.data_ptr())
+            dims = (b, lq, lq, c, d, c ** -0.5, 0, 0, 0, 0, 0, 0)
+            k_f = cuda_ms(lambda: fl.flash_softmax_matmul(qs, ks, vs,
+                                                          with_lse=True),
+                          reps=3, warm=1)
+            k_dq = cuda_ms(lambda: fn_dq(*ins, dq.data_ptr(), *dims, stream),
+                           reps=3, warm=1)
+            k_dkv = cuda_ms(lambda: fn_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
+                                           *dims, stream), reps=3, warm=1)
+            ops, exps, by = f32_work(b, lq, lq, c, d)
+            bounds = [f32_bound_ms(o, exps, x) for o, x in zip(ops, by)]
+            line = "; ".join(
+                f"{kn} {t * 1e3:.1f} us ({o / t / 1e9:.2f} TFLOP/s, "
+                f"{bd / t:.4f} of its bound {bd * 1e3:.1f} us, {bb})"
+                for kn, t, o, (bd, bb) in zip(("forward", "dq", "dk/dv"),
+                                              (k_f, k_dq, k_dkv), ops,
+                                              bounds))
+            blocks = fl.kernel_plan(b, lq, lq, c, d, False)["blocks"]
+            print(f"    the f32 kernels at one step's shape [{b},{lq},{c}]"
+                  f"x[{b},{lq},{d}] (forward {blocks} blocks): {line}",
+                  flush=True)
+            ring_ops = [o * n * n for o in f32_work(b, l / n, l / n, c, d)[0]]
+            t_b = max(t_fb - t_f, 1e-6)
+            print(f"    the ring: forward {t_f:.3f} ms, forward + backward "
+                  f"{t_fb:.3f} ms (backward {t_b:.3f} ms; "
+                  f"{ring_ops[0] / t_f / 1e9:.2f} and "
+                  f"{(ring_ops[1] + ring_ops[2]) / t_b / 1e9:.2f} "
+                  f"TFLOP/s); the plain ring forward + backward "
+                  f"{t_pfb:.3f} ms", flush=True)
+            times[(name, n)] = dict(fwd=t_f, fb=t_fb, plain_fb=t_pfb,
+                                    k_fwd=k_f, k_dq=k_dq, k_dkv=k_dkv)
+            del qs, ks, vs, gs, out, lse, delta, dq, dk, dv
+            torch.cuda.empty_cache()
+        # the library call for the whole f32 forward and its gradients
+        qs, ks, vs = (t[:, None].detach().clone().requires_grad_()
+                      for t in (q, k, v))
+        lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs),
+                        reps=3, warm=1)
+
+        def lib_fb():
+            F.scaled_dot_product_attention(qs, ks, vs).backward(g[:, None])
+        lib_fb_ms = cuda_ms(lib_fb, reps=3, warm=1)
+        ops, exps, by = f32_work(b, l, l, c, d)
+        print(f"  {name}: SDPA f32 (the library call) forward {lib_f:.3f} "
+              f"ms, forward + backward {lib_fb_ms:.3f} ms; unsharded f32 "
+              f"bounds at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s: forward "
+              f"{f32_bound_ms(ops[0], exps, by[0])[0]:.3f} ms, dq "
+              f"{f32_bound_ms(ops[1], exps, by[1])[0]:.3f}, dk/dv "
+              f"{f32_bound_ms(ops[2], exps, by[2])[0]:.3f} ({ops[0] / 1e9:.1f}"
+              f", {ops[1] / 1e9:.1f}, {ops[2] / 1e9:.1f} GFLOP)", flush=True)
+        del q, k, v, g, dense, qs, ks, vs
+        torch.cuda.empty_cache()
+    return times
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def smooth_batch(seed, b, h, w):
+    """A resident training batch on the card: ``b`` smooth image pairs, a
+    noisy target, 90% valid, one-hot labels."""
+    import numpy as np
+    from opticalflowfromdepth_torch.data.loader import to_device
+    rng = np.random.default_rng(seed)
+    i1, i2 = smooth_pairs(rng, b, h, w)
+    return to_device(dict(
+        image1=i1, image2=i2,
+        flow=rng.normal(0, 3, (b, h, w, 2)).astype(np.float32),
+        valid=(rng.uniform(size=(b, h, w)) > 0.1).astype(np.float32),
+        label=np.eye(4, dtype=np.float32)[rng.integers(0, 4, b)]), "cuda")
+
+
+def data_parallel_phase():
+    import torch
+    import torch.distributed as dist
+    from opticalflowfromdepth_torch.parallel import mesh as pm
+    from opticalflowfromdepth_torch.train import gmflow_train as gt
+    from opticalflowfromdepth_torch.train import raft_train as rt
+
+    print(f"[17] data parallelism over NCCL at world size 1: 2 RAFT-basic "
+          f"steps ([7]'s shape: batch {TRAIN_BATCH} of {TRAIN_CROP[0]}x"
+          f"{TRAIN_CROP[1]}, {TRAIN_ITERS} iters, bf16, classifier, batch "
+          f"norm live, add_noise) and 2 GMFlow steps ([12]'s: batch "
+          f"{GM_BATCH} of {GM_CROP[0]}x{GM_CROP[1]}, bf16, classifier) "
+          "through init_distributed() / make_mesh(), against the same steps "
+          "with no process group: the parameters bit for bit", flush=True)
+    raft_cfg = rt.RAFTTrainConfig(batch_size=TRAIN_BATCH,
+                                  image_size=TRAIN_CROP, iters=TRAIN_ITERS,
+                                  mixed_precision=True, corr_impl="fused",
+                                  add_classifier=True, add_noise=True)
+    gm_cfg = gt.GMFlowTrainConfig(batch_size=GM_BATCH, image_size=GM_CROP,
+                                  mixed_precision=True, add_classifier=True)
+    batches = {"raft": [smooth_batch(s, TRAIN_BATCH, *TRAIN_CROP)
+                        for s in (20, 21)],
+               "gmflow": [smooth_batch(s, GM_BATCH, *GM_CROP)
+                          for s in (22, 23)]}
+
+    def run(module, cfg, key, mesh):
+        state = module.init_state(cfg, seed=0, mesh=mesh)
+        step = module.make_train_step(cfg, seeded_classifier(
+            4, torch.bfloat16), mesh=mesh)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        losses = []
+        for b in batches[key]:
+            state, m = step(state, b, gen)
+            losses.append(float(m["total_loss"]))
+        return ({k: v.clone() for k, v in state.model.state_dict().items()},
+                losses)
+
+    deterministic = torch.backends.cudnn.deterministic
+    # cuDNN's own algorithms may add in another order from run to run;
+    # every kernel of the port is deterministic
+    torch.backends.cudnn.deterministic = True
+    saved = {k: os.environ.get(k) for k in pm.ENV + ("LOCAL_RANK",)}
+    try:
+        ref = {"raft": run(rt, raft_cfg, "raft", None),
+               "gmflow": run(gt, gm_cfg, "gmflow", None)}
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(
+            free_port()), RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        device = pm.init_distributed()
+        mesh = pm.make_mesh()
+        print(f"  init_distributed() -> {device}, backend "
+              f"{dist.get_backend()}, world {dist.get_world_size()}; mesh "
+              f"data {mesh.data_rank}/{mesh.data_world}, model_parallel "
+              f"{mesh.model_parallel}, distributed {mesh.distributed}",
+              flush=True)
+        if not (dist.get_backend() == "nccl" and mesh.distributed
+                and device == torch.device("cuda", 0)):
+            fail("[17] init_distributed did not join NCCL on cuda:0")
+        zero_launch_counts()
+        got = {"raft": run(rt, raft_cfg, "raft", mesh)}
+        launches = launch_counts()
+        want = want_launches(fused_corr_lookup=2 * TRAIN_ITERS,
+                             fused_corr_lookup_bwd=2 * TRAIN_ITERS,
+                             instance_norm=30)
+        if launches != want:
+            fail(f"[17] RAFT launches {launches}, want {want}")
+        got["gmflow"] = run(gt, gm_cfg, "gmflow", mesh)
+        for key in ("raft", "gmflow"):
+            (p_ref, l_ref), (p_dp, l_dp) = ref[key], got[key]
+            same = [k for k in p_ref if torch.equal(p_ref[k], p_dp[k])]
+            print(f"  {key}: losses without a group {l_ref}, over NCCL "
+                  f"{l_dp}; {len(same)} of {len(p_ref)} parameters and "
+                  "buffers bit-equal", flush=True)
+            if len(same) != len(p_ref):
+                again = run(rt if key == "raft" else gt,
+                            raft_cfg if key == "raft" else gm_cfg, key, None)
+                repeat = all(torch.equal(again[0][k], p_ref[k])
+                             for k in p_ref)
+                fail(f"[17] {key}: the data-parallel steps differ from the "
+                     f"steps without a group (the latter repeat bit for "
+                     f"bit: {repeat})")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.backends.cudnn.deterministic = deterministic
+    print("  process group destroyed", flush=True)
+
+
+def sequence_parallel_phase(alone_12: float):
+    import copy
+
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.data.loader import to_device
+    from opticalflowfromdepth_torch.models.gmflow import GMFlow
+    from opticalflowfromdepth_torch.parallel.mesh import ProcessMesh
+    from opticalflowfromdepth_torch.parallel.sequence import LocalRing
+    from opticalflowfromdepth_torch.train import gmflow_train as gt
+
+    print("[18] sequence-parallel GMFlow: model_parallel = 2 over "
+          "LocalRing(2) (the ring for matching and propagation, and at "
+          "splits 1 full attention, f32; the windows split in two)",
+          flush=True)
+    rng = np.random.default_rng(19)
+    i1, i2 = smooth_pairs(rng, 2, 64, 96)
+    imgs = [torch.from_numpy(a).permute(0, 3, 1, 2).cuda() for a in (i1, i2)]
+    for splits in (1, 2):
+        out = []
+        for group in (None, LocalRing(2)):
+            model = GMFlow(generator=torch.Generator().manual_seed(3),
+                           group=group).cuda().eval()
+            with torch.no_grad():
+                out.append(model(*imgs, (splits,), (-1,), (-1,),
+                                 training=False)["flow_preds"][-1])
+        check(f"f32 64x96 forward, splits {splits}, LocalRing(2) vs "
+              f"unsharded: |d| / (5e-3 px + 1e-3 |ref|), JAX's tolerance "
+              f"(max |d| {float((out[1] - out[0]).abs().max()):.3e} px)",
+              max_rel_excess(out[1], out[0], 1e-3, 5e-3), 1.0)
+
+    # one f32 step's raw gradients, sharded and not
+    batch = to_device(dict(
+        image1=i1, image2=i2,
+        flow=rng.normal(0, 3, (2, 64, 96, 2)).astype(np.float32),
+        valid=np.ones((2, 64, 96), np.float32),
+        label=np.eye(4, dtype=np.float32)[[0, 2]]), "cuda")
+    cls = seeded_classifier(6, torch.float32)
+    res = []
+    for mp, mesh in ((1, None), (2, ProcessMesh.local(2))):
+        cfg = gt.GMFlowTrainConfig(batch_size=2, image_size=(64, 96),
+                                   mixed_precision=False, add_classifier=True,
+                                   num_steps=100, model_parallel=mp)
+        state = gt.init_state(cfg, seed=8, mesh=mesh)
+        grads = {}
+        adam_step = state.optimizer.step
+
+        def keep(state=state, grads=grads, adam_step=adam_step):
+            grads.update({n: p.grad.clone() for n, p
+                          in state.model.named_parameters()})
+            return adam_step()
+        state.optimizer.step = keep
+        state, m = gt.make_train_step(cfg, copy.deepcopy(cls))(state, batch)
+        res.append(({k: float(v) for k, v in m.items()}, grads))
+    (m_ref, g_ref), (m_sp, g_sp) = res
+    print("  f32 step metrics, unsharded / LocalRing(2): " + ", ".join(
+        f"{k} {v:.6f} / {m_sp[k]:.6f}" for k, v in sorted(m_ref.items())),
+        flush=True)
+    worst = max(abs(m_sp[k] - v) / (max(abs(v), 1e-6) * 1e-4
+                                    + (2 / 12288 if "px_" in k else 0))
+                for k, v in m_ref.items())
+    check("f32 step, splits 2: loss and metrics, |d| / limit (1e-4 "
+          "relative, 2 pixels for the rates)", worst, 1.0)
+    norm = float(torch.sqrt(sum((g ** 2).sum() for g in g_ref.values())))
+    excess = max(float((g_sp[k] - g).abs().max()) / norm
+                 / (1e-3 if k == "backbone.conv1.weight" else 2e-4)
+                 for k, g in g_ref.items())
+    check(f"f32 step, splits 2: every raw gradient, |d| / ([11]'s 2e-4 of "
+          f"the global norm {norm:.4f}; 1e-3 for backbone.conv1)", excess,
+          1.0)
+
+    # full width: the reference's recipe
+    b = GM_BATCH
+    cfg = gt.GMFlowTrainConfig(batch_size=b, image_size=GM_CROP,
+                               mixed_precision=True, add_classifier=True,
+                               model_parallel=2)
+    state = gt.init_state(cfg, seed=0, mesh=ProcessMesh.local(2))
+    step = gt.make_train_step(cfg, seeded_classifier(4, torch.bfloat16))
+    batch = smooth_batch(24, b, *GM_CROP)
+    t = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    print(f"  full width (128 channels, 6 blocks, FFN x4, 1 scale), bf16, "
+          f"classifier on, batch {b} of {GM_CROP[0]}x{GM_CROP[1]}, "
+          f"model_parallel 2: warm-up step {(time.perf_counter() - t) * 1e3:.1f}"
+          f" ms, loss {float(m['total_loss']):.4f}", flush=True)
+    timed = 3
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    losses = []
+    with PlainCalls() as plain:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(timed):
+            state, m = step(state, batch)
+            losses.append(m["total_loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3 / timed
+    plain.check("[18]")
+    launches = launch_counts()
+    print(f"  launches over {timed} steps: {launches}", flush=True)
+    # a step: 12 window calls, each split in two (24), and two rings of 4
+    # steps (matching, propagation): 32 flash forwards, 32 dq, 32 dk/dv
+    want = want_launches(flash=32 * timed, flash_bwd_dq=32 * timed,
+                         flash_bwd_dkv=32 * timed, instance_norm=15 * timed)
+    if launches != want:
+        fail(f"[18] launch counts {launches}, want {want}")
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not all(
+            bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        fail(f"[18] losses {losses} or parameters not finite")
+    print(f"  losses {[round(x, 4) for x in losses]}; plain versions called "
+          f"0 times", flush=True)
+    print(f"  ms per step: {step_ms:.3f} over {timed} steps on a batch "
+          f"already on the card (host clock, synchronized; both ranks' "
+          f"work run in turn on one card, not a multi-GPU time), "
+          f"{b * 1e3 / step_ms:.3f} pairs/s; [12]'s step alone "
+          f"{alone_12:.3f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    profile(lambda: step(state, batch), step_ms, "step")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3725,7 +4181,7 @@ def main() -> None:
     kernels.append(flash)
     timed("11", gmflow_train_parity_phase)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = timed("12", gmflow_train_path_phase, tmp)
+        launches, alone_12 = timed("12", gmflow_train_path_phase, tmp)
     timed("12 learning", gmflow_learning_phase)
     for k in flash_bwd:        # launches on slice 4's main path
         k["launches"] = launches[k["name"]]
@@ -3750,6 +4206,15 @@ def main() -> None:
     # the warp's launches on slice 10's main path, the synthesis CLI
     warp["launches"] = launches[warp["name"]]
     kernels.append(warp)
+    # slice 6 of the roadmap: the ring on the card, data parallelism over
+    # NCCL, and sequence-parallel GMFlow training, after every earlier path
+    timed("3i", ring_phase, torch.Generator().manual_seed(64))
+    timed("17", data_parallel_phase)
+    launches = timed("18", sequence_parallel_phase, alone_12)
+    # the flash rows gain the launches of [18]'s path
+    for k in kernels:
+        if k["name"] in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
+            k["launches"] += launches[k["name"]]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -7,8 +7,10 @@ loader.py``).
   GIL) and a bounded prefetch queue. Each rank reads indices
   ``rank::world_size`` of every epoch's permutation, the
   DistributedSampler equivalent (epoch-seeded like ``set_epoch``). Rank
-  and world size come from ``torch.distributed`` when it is initialized,
-  else from the arguments, else 0 and 1.
+  and world size are the arguments (a ``parallel.mesh.ProcessMesh``'s
+  data rank and data world: under model parallelism the processes of a
+  model group read the same batch), else ``torch.distributed``'s when it
+  is initialized, else 0 and 1.
 * :func:`to_device`: the NHWC numpy batch -> the NCHW tensors the train
   step takes, copied from pinned host memory.
 """
@@ -31,6 +33,8 @@ def collate(samples) -> Dict[str, np.ndarray]:
 
 
 def _rank_and_world(rank: Optional[int], world: Optional[int]):
+    if rank is not None and world is not None:
+        return rank, world
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()

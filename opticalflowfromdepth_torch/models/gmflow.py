@@ -18,8 +18,13 @@ for matching; bf16 q/k with the f32 flow, rounded by the kernel, for
 propagation); in f32 they stay f32, as on the JAX dense path. Parameters
 stay f32; each layer casts at the call.
 
-Not ported: the mesh / ring (sequence-parallel) arguments of the JAX
-modules (multi-GPU is a later slice).
+Sequence parallelism (the JAX modules' ``mesh`` / ``model_axis``): with
+a ``group`` of more than one rank (a process group or a
+``parallel.sequence.LocalRing``), global matching, full attention and
+global flow propagation run as the ring of ``parallel.sequence`` with
+their operands in f32 (the JAX casts; so the flash kernels' f32 routes,
+whatever the model's dtype), and the Swin windows split over the group
+where ``window_shards`` allows. Every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ from ..core.geometry import pixel_grid
 from ..ops.flash import flash_softmax_matmul
 from ..ops.instance_norm import instance_norm
 from ..ops.sampling import flow_warp, resize_bilinear_align_corners
+from ..parallel.sequence import (group_size, ring_softmax_matmul,
+                                 sharded_global_matching,
+                                 sharded_window_attention, window_shards)
 from .layers import Conv, InstanceNorm, init_weights_
 from .raft import convex_upsample
 
@@ -227,9 +235,11 @@ def _full_attention(q: torch.Tensor, k: torch.Tensor,
 
 def _split_window_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, num_splits: int,
-                            with_shift: bool, h: int, w: int) -> torch.Tensor:
+                            with_shift: bool, h: int, w: int,
+                            group=None) -> torch.Tensor:
     """Swin window attention; `transformer.py:46-105`. The windows are the
-    batch of one flash call; with a shift, the kernel generates the mask."""
+    batch of one flash call (with a shift, the kernel generates the mask),
+    split over ``group``'s ranks where ``window_shards`` allows."""
     b, _, c = q.shape
     wh, ww = h // num_splits, w // num_splits
     q, k, v = (t.reshape(b, h, w, c) for t in (q, k, v))
@@ -239,7 +249,11 @@ def _split_window_attention(q: torch.Tensor, k: torch.Tensor,
     qs, ks, vs = (split_feature(t, num_splits).reshape(-1, wh * ww, c)
                   for t in (q, k, v))
     swin = (num_splits, wh, ww, wh // 2, ww // 2) if with_shift else None
-    out = flash_softmax_matmul(qs, ks, vs, swin=swin).to(vs.dtype)
+    if window_shards(group, b, qs.shape[0], with_shift):
+        out = sharded_window_attention(qs, ks, vs, group, swin)
+    else:
+        out = flash_softmax_matmul(qs, ks, vs, swin=swin)
+    out = out.to(vs.dtype)
     out = merge_splits(out.reshape(-1, wh, ww, c), num_splits)
     if with_shift:
         out = torch.roll(out, (wh // 2, ww // 2), (1, 2))
@@ -252,10 +266,11 @@ class TransformerLayer(nn.Module):
 
     def __init__(self, d_model: int = 128, no_ffn: bool = False,
                  ffn_dim_expansion: int = 4, with_shift: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, group=None):
         super().__init__()
         self.with_shift = with_shift
         self.dtype = dtype
+        self.group = group
         self.q_proj = nn.Linear(d_model, d_model, bias=False)
         self.k_proj = nn.Linear(d_model, d_model, bias=False)
         self.v_proj = nn.Linear(d_model, d_model, bias=False)
@@ -277,7 +292,11 @@ class TransformerLayer(nn.Module):
         v = _linear(self.v_proj, target, dt)
         if attn_num_splits > 1:
             message = _split_window_attention(q, k, v, attn_num_splits,
-                                              self.with_shift, h, w)
+                                              self.with_shift, h, w,
+                                              self.group)
+        elif group_size(self.group) > 1:
+            message = ring_softmax_matmul(q.float(), k.float(), v.float(),
+                                          self.group).to(v.dtype)
         else:
             message = _full_attention(q, k, v)
         message = _layer_norm(self.norm1, _linear(self.merge, message, dt))
@@ -293,13 +312,13 @@ class TransformerBlock(nn.Module):
     `transformer.py:188-241`."""
 
     def __init__(self, d_model: int = 128, ffn_dim_expansion: int = 4,
-                 with_shift: bool = False, dtype=torch.float32):
+                 with_shift: bool = False, dtype=torch.float32, group=None):
         super().__init__()
         self.self_attn = TransformerLayer(d_model, True, ffn_dim_expansion,
-                                          with_shift, dtype)
+                                          with_shift, dtype, group)
         self.cross_attn_ffn = TransformerLayer(d_model, False,
                                                ffn_dim_expansion, with_shift,
-                                               dtype)
+                                               dtype, group)
 
     def forward(self, source, target, h, w, attn_num_splits):
         source = self.self_attn(source, source, h, w, attn_num_splits)
@@ -311,10 +330,12 @@ class FeatureTransformer(nn.Module):
     odd ones with shifted windows; `transformer.py:244-322`."""
 
     def __init__(self, num_layers: int = 6, d_model: int = 128,
-                 ffn_dim_expansion: int = 4, dtype=torch.float32):
+                 ffn_dim_expansion: int = 4, dtype=torch.float32,
+                 group=None):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerBlock(d_model, ffn_dim_expansion, i % 2 == 1, dtype)
+            TransformerBlock(d_model, ffn_dim_expansion, i % 2 == 1, dtype,
+                             group)
             for i in range(num_layers))
 
     def forward(self, feature0: torch.Tensor, feature1: torch.Tensor,
@@ -336,9 +357,11 @@ class FeatureFlowAttention(nn.Module):
     """Flow propagation, query and key from feature0, value the flow;
     `transformer.py:325-409`."""
 
-    def __init__(self, in_channels: int = 128, dtype=torch.float32):
+    def __init__(self, in_channels: int = 128, dtype=torch.float32,
+                 group=None):
         super().__init__()
         self.dtype = dtype
+        self.group = group
         self.q_proj = nn.Linear(in_channels, in_channels)
         self.k_proj = nn.Linear(in_channels, in_channels)
 
@@ -354,7 +377,12 @@ class FeatureFlowAttention(nn.Module):
             # the reference's quirk (`transformer.py:357-364`): the key is a
             # projection of the query; the local branch projects feature0
             key = _linear(self.k_proj, query, dt)
-            out = flash_softmax_matmul(query, key, flow.reshape(b, h * w, 2))
+            value = flow.reshape(b, h * w, 2)
+            if group_size(self.group) > 1:
+                out = ring_softmax_matmul(query.float(), key.float(),
+                                          value.float(), self.group)
+            else:
+                out = flash_softmax_matmul(query, key, value)
             return out.reshape(b, h, w, 2)
 
         r = local_window_radius
@@ -380,12 +408,20 @@ class FeatureFlowAttention(nn.Module):
 def global_correlation_softmax(feature0: torch.Tensor,
                                feature1: torch.Tensor,
                                pred_bidir_flow: bool = False,
-                               dtype=None) -> Tuple[torch.Tensor, None]:
+                               dtype=None, group=None
+                               ) -> Tuple[torch.Tensor, None]:
     """Global matching, ``softmax(f0 f1^T / sqrt(C)) @ grid - grid``
     (`matching.py:7-36`) as one flash call per direction, with the
-    features in ``dtype`` (default: theirs). Returns (flow ``[B, H, W,
-    2]`` f32, or ``[2B, ...]`` bidirectional, and None: the probabilities
-    never exist)."""
+    features in ``dtype`` (default: theirs); with a ``group`` of several
+    ranks, the f32 ring of ``sharded_global_matching``. Returns (flow
+    ``[B, H, W, 2]`` f32, or ``[2B, ...]`` bidirectional, and None: the
+    probabilities never exist)."""
+    if group_size(group) > 1:
+        flow = sharded_global_matching(feature0, feature1, group)[0]
+        if pred_bidir_flow:
+            flow = torch.cat([flow, sharded_global_matching(
+                feature1, feature0, group)[0]], dim=0)
+        return flow, None
     b, h, w, c = feature0.shape
     dt = feature0.dtype if dtype is None else dtype
     f0 = feature0.reshape(b, h * w, c).to(dt)
@@ -458,23 +494,27 @@ class GMFlow(nn.Module):
     8], [-1, 4], [-1, 1] with refinement) and returns
     ``{"flow_preds": [...]}`` of NCHW f32 flows at full resolution, the
     last one convex-upsampled (``[2B, ...]`` with ``pred_bidir_flow``).
-    ``generator`` draws random weights (the reference's init scheme)."""
+    ``generator`` draws random weights (the reference's init scheme).
+    ``group``: the model group that matching, full attention, propagation
+    and the windows are split over (module docstring); None: unsharded."""
 
     def __init__(self, num_scales: int = 1, upsample_factor: int = 8,
                  feature_channels: int = 128,
                  num_transformer_layers: int = 6,
                  ffn_dim_expansion: int = 4, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, group=None):
         super().__init__()
         self.num_scales = num_scales
         self.upsample_factor = upsample_factor
         self.feature_channels = feature_channels
         self.dtype = dtype
+        self.group = group
         self.backbone = CNNEncoder(feature_channels, num_scales, dtype)
         self.transformer = FeatureTransformer(
             num_transformer_layers, feature_channels, ffn_dim_expansion,
-            dtype)
-        self.feature_flow_attn = FeatureFlowAttention(feature_channels, dtype)
+            dtype, group)
+        self.feature_flow_attn = FeatureFlowAttention(feature_channels, dtype,
+                                                      group)
         self.upsampler = nn.Sequential(
             Conv(2 + feature_channels, 256, 3, dtype=dtype), nn.ReLU(),
             Conv(256, upsample_factor ** 2 * 9, 1, dtype=dtype))
@@ -527,7 +567,8 @@ class GMFlow(nn.Module):
 
             if corr_radius == -1:
                 flow_pred = global_correlation_softmax(
-                    feature0, feature1, pred_bidir_flow, dtype=dt)[0]
+                    feature0, feature1, pred_bidir_flow, dtype=dt,
+                    group=self.group)[0]
             else:
                 flow_pred = local_correlation_softmax(feature0, feature1,
                                                       corr_radius)[0]

@@ -16,10 +16,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.instance_norm import instance_norm
+from ..parallel.mesh import all_reduce_sum
 
 
 class Conv(nn.Conv2d):
@@ -68,14 +70,25 @@ class BatchNorm(nn.BatchNorm2d):
     dtype. With ``train`` it normalizes with the biased batch statistics
     (``E[x^2] - E[x]^2``, clamped at 0) and updates the running ones as
     ``0.9 * old + 0.1 * batch``, the variance with the *biased* batch
-    variance (``nn.BatchNorm2d`` would use the unbiased one)."""
+    variance (``nn.BatchNorm2d`` would use the unbiased one).
+
+    ``group`` (a process group, None by default): the batch statistics
+    are those of the whole batch over the group's ranks (each rank's mean
+    and mean square averaged by a differentiable all-reduce; the ranks'
+    batches are equal), as the JAX model computes them on its global
+    batch."""
+
+    group = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
             mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            msq = (xf * xf).mean(dim=(0, 2, 3))
+            if self.group is not None:
+                both = all_reduce_sum(torch.stack([mean, msq]), self.group)
+                mean, msq = both / dist.get_world_size(self.group)
+            var = torch.clamp(msq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)

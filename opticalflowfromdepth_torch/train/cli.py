@@ -21,14 +21,26 @@ files under the reference's names (the classifier's as
 ``train/classifier_train.py`` writes it, or the reference's released
 ``.pth``); ``--resume`` takes this CLI's ``checkpoints/latest.pth``.
 ``--device`` is ``cuda`` unless ``cpu`` is asked for; without a card
-``cuda`` raises. The CLI is one process on one card: training over
-several cards is not ported yet.
+``cuda`` raises.
+
+Data parallelism: one process per card, started by ``torchrun`` (or
+anything that sets ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
+``WORLD_SIZE`` and ``LOCAL_RANK``), each on ``cuda:LOCAL_RANK``::
+
+    torchrun --nproc_per_node 4 -m opticalflowfromdepth_torch.train.cli ...
+
+``--batch_size`` is the whole batch, split over the processes; the
+gradients, the metrics and RAFT's batch statistics are the whole batch's.
+Like the JAX CLI it has no model parallelism (``train.gmflow_train``
+takes it through a mesh).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import torch.distributed as dist
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -85,19 +97,31 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Trains as the arguments ask; returns the final ``TrainState``."""
     args = build_argparser().parse_args(argv)
+    from ..parallel.mesh import init_distributed, make_mesh
 
+    joined = not dist.is_initialized()
+    device = init_distributed(args.device)
+    joined = joined and dist.is_initialized()
+    try:
+        return _train(args, device, make_mesh())
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh):
+    """``main`` on ``device`` within ``mesh`` (data parallel only)."""
     from ..data.datasets import fetch_train_dataset
     from ..data.loader import Loader
     from ..eval import validators as V
     from ..eval.cli import load_state_dict
     from ..eval.infer import raft_infer_fn
-    from ..utils.device import resolve_device
     from ..utils.logging import save_args
     from .optim import one_cycle_schedule
     from .runner import RunnerConfig, TrainRunner
 
-    device = resolve_device(args.device)
-    save_args(args.log_dir, args)
+    if mesh.rank == 0:
+        save_args(args.log_dir, args)
 
     mixed_precision = not args.no_mixed_precision
     shards = {}
@@ -156,15 +180,16 @@ def main(argv=None):
         schedule = one_cycle_schedule(cfg.lr, cfg.num_steps + 100,
                                       anneal_strategy="cos")
         infer_fn_factory = gmflow_factory(cfg, device)
-    state = init_state(cfg, seed=args.seed, device=device)
-    step_fn = make_train_step(cfg, classifier, device=device)
+    state = init_state(cfg, seed=args.seed, device=device, mesh=mesh)
+    step_fn = make_train_step(cfg, classifier, device=device, mesh=mesh)
 
     # `{num_params}_parameters` sidecar (`adjusted_gmflow/main.py:226-228`):
     # the model's size at a glance, next to args.json
     num_params = sum(p.numel() for p in state.model.parameters())
-    open(os.path.join(args.log_dir, f"{num_params}_parameters"),
-         "w").close()
-    print(f"model parameters: {num_params}")
+    if mesh.rank == 0:
+        open(os.path.join(args.log_dir, f"{num_params}_parameters"),
+             "w").close()
+        print(f"model parameters: {num_params}")
 
     if args.restore_weights:
         state.model.load_state_dict(load_state_dict(args.restore_weights),
@@ -176,7 +201,9 @@ def main(argv=None):
                                   data_root=args.data_root,
                                   seed=args.seed)
     loader = Loader(dataset, batch_size=args.batch_size,
-                    num_workers=args.num_workers, seed=args.seed)
+                    num_workers=args.num_workers, seed=args.seed,
+                    process_index=mesh.data_rank,
+                    process_count=mesh.data_world)
 
     validators = {}
     for name in args.val:

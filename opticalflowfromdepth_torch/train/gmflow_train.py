@@ -12,8 +12,16 @@ parameters, the Adam moments and the step count as they were.
 
 Every softmax of the model goes through ``ops.flash.flash_softmax_matmul``
 and its autograd Function: on the card the forward kernel and the two
-backward kernels, on the CPU their plain versions. Sequence parallelism
-(``model_parallel > 1``) is not ported.
+backward kernels, on the CPU their plain versions.
+
+Parallelism comes from a ``parallel.mesh.ProcessMesh`` (the JAX
+``mesh``): ``model_parallel > 1`` splits matching, full attention,
+propagation and the Swin windows over its model group (a process group,
+or a ``LocalRing`` run in turn), and raises without one of that size. A
+mesh made over a process group (``make_mesh``) makes the step data
+parallel: the gradients are averaged over the world before the clip, the
+logged metrics are the whole batch's, and the NaN skip is decided on the
+whole batch's loss, so every rank skips or none does.
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ import torch
 from ..eval.infer import gmflow_infer_fn
 from ..models.classifier import Classifier
 from ..models.gmflow import GMFlow
+from ..parallel.mesh import ProcessMesh, all_reduce_mean_
 from ..utils.device import resolve_device
-from .loss import classifier_loss, sequence_loss
+from .loss import (classifier_loss, global_metrics, sequence_loss,
+                   supervised_mask)
 from .optim import make_optimizer
 # the classifier weight's schedule (`main.py:465-470`) is RAFT's
 from .raft_train import classify_weight_at
@@ -53,7 +63,9 @@ class GMFlowTrainConfig:
     corr_radius_list: Tuple[int, ...] = (-1,)
     prop_radius_list: Tuple[int, ...] = (-1,)
     mixed_precision: bool = True
-    # sequence parallelism over several cards: not ported (multi-GPU)
+    # sequence parallelism: > 1 splits the token axis of matching,
+    # attention and propagation over the mesh's model group, which must
+    # have this many ranks (build_model / init_state take the mesh)
     model_parallel: int = 1
     # classifier-regularizer schedule (`main.py:125-128`)
     add_classifier: bool = False
@@ -64,25 +76,36 @@ class GMFlowTrainConfig:
 
 
 def build_model(cfg: GMFlowTrainConfig,
-                generator: Optional[torch.Generator] = None) -> GMFlow:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[ProcessMesh] = None) -> GMFlow:
+    """The model of ``cfg``; with ``model_parallel > 1`` split over the
+    model group of ``mesh``, which must have that many ranks."""
+    group = None
     if cfg.model_parallel > 1:
-        raise ValueError(f"model_parallel={cfg.model_parallel} is not ported; "
-                         "sequence-parallel GMFlow needs the multi-GPU port")
+        have = 1 if mesh is None else mesh.model_parallel
+        if have != cfg.model_parallel:
+            raise ValueError(
+                f"model_parallel={cfg.model_parallel} over a model group of "
+                f"{have} rank(s) is not ported: pass a mesh whose model "
+                f"group has {cfg.model_parallel} (parallel.mesh.make_mesh "
+                f"over a process group, or ProcessMesh.local)")
+        group = mesh.model_group
     dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
     return GMFlow(num_scales=cfg.num_scales,
                   upsample_factor=cfg.upsample_factor,
                   feature_channels=cfg.feature_channels,
                   num_transformer_layers=cfg.num_transformer_layers,
                   ffn_dim_expansion=cfg.ffn_dim_expansion, dtype=dtype,
-                  generator=generator)
+                  generator=generator, group=group)
 
 
-def init_state(cfg: GMFlowTrainConfig, seed: int = 0,
-               device="cuda") -> TrainState:
-    """A model with the reference's random init drawn from ``seed``, on
-    ``device``, and its optimizer at step 0 (AdamW + OneCycle-cosine,
-    ``wdecay``, clip ``grad_clip``; `cli.py:149-150` of the JAX package)."""
-    model = build_model(cfg, torch.Generator().manual_seed(seed))
+def init_state(cfg: GMFlowTrainConfig, seed: int = 0, device="cuda",
+               mesh: Optional[ProcessMesh] = None) -> TrainState:
+    """A model with the reference's random init drawn from ``seed`` (the
+    same on every rank), on ``device``, and its optimizer at step 0
+    (AdamW + OneCycle-cosine, ``wdecay``, clip ``grad_clip``; `cli.py:
+    149-150` of the JAX package)."""
+    model = build_model(cfg, torch.Generator().manual_seed(seed), mesh)
     model = model.to(resolve_device(device))
     opt = make_optimizer(model.parameters(), cfg.lr, cfg.num_steps,
                          cfg.wdecay, clip=cfg.grad_clip,
@@ -91,8 +114,8 @@ def init_state(cfg: GMFlowTrainConfig, seed: int = 0,
 
 
 def make_train_step(cfg: GMFlowTrainConfig,
-                    classifier: Optional[Classifier] = None, device="cuda"
-                    ) -> Callable:
+                    classifier: Optional[Classifier] = None, device="cuda",
+                    mesh: Optional[ProcessMesh] = None) -> Callable:
     """Returns ``train_step(state, batch, generator) -> (state,
     metrics)``; it updates ``state`` in place. ``generator`` is taken for
     the runner's signature and not drawn from: the GMFlow recipe has no
@@ -102,6 +125,8 @@ def make_train_step(cfg: GMFlowTrainConfig,
     them. The metrics are 0-d tensors on the device, ``skipped_nan`` among
     them (1.0 when the step was skipped). ``classifier`` is frozen: its
     weights get no gradient, and the flow gets the gradient of its loss.
+    With a ``mesh`` made over a process group the step is data parallel
+    (module docstring): ``batch`` is this rank's part of the batch.
 
     The NaN skip reads the loss on the host (one sync per step, after the
     backward has been queued): with ``Optimizer.step`` not called, nothing
@@ -113,6 +138,7 @@ def make_train_step(cfg: GMFlowTrainConfig,
     device = resolve_device(device)
     if classifier is not None:
         classifier = classifier.to(device).eval().requires_grad_(False)
+    data_parallel = mesh is not None and mesh.distributed
     recipe = dict(attn_splits_list=tuple(cfg.attn_splits_list),
                   corr_radius_list=tuple(cfg.corr_radius_list),
                   prop_radius_list=tuple(cfg.prop_radius_list))
@@ -134,6 +160,10 @@ def make_train_step(cfg: GMFlowTrainConfig,
 
         state.optimizer.zero_grad()
         loss.backward()
+        if data_parallel:
+            all_reduce_mean_(state.optimizer.grads())
+            metrics = global_metrics(metrics, supervised_mask(
+                batch["flow"], batch["valid"]).sum())
         ok = bool(torch.isfinite(metrics["total_loss"]))
         if ok:
             state.optimizer.step()

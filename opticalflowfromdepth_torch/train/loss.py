@@ -9,7 +9,8 @@ epe > k). :func:`classifier_loss` is the cross-entropy of the frozen
 classifier on the final prediction (`train.py:196-203`).
 :func:`epe_metric` and :func:`fl_all_metric` are the eval metrics (EPE
 and KITTI Fl-all over valid pixels). Flows are NCHW ``[B, 2, H, W]``;
-every result is an f32 0-d tensor.
+every result is an f32 0-d tensor. :func:`global_metrics` turns one
+process's metrics into the whole batch's under data parallelism.
 """
 
 from __future__ import annotations
@@ -17,8 +18,20 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 MAX_FLOW = 400.0  # `train.py:46`
+# the metrics that are means over the supervised pixels
+MASKED = ("epe", "1px_acc", "3px_acc", "5px_acc", "1px_out", "3px_out",
+          "5px_out")
+
+
+def supervised_mask(flow_gt: torch.Tensor, valid: torch.Tensor,
+                    max_flow: float = MAX_FLOW) -> torch.Tensor:
+    """``[B, H, W]``: the pixels the loss supervises (valid >= 0.5 and
+    |flow| < max_flow)."""
+    mag = torch.sqrt(torch.sum(flow_gt.float() ** 2, dim=1))
+    return (valid >= 0.5) & (mag < max_flow)
 
 
 def sequence_loss(flow_preds: Sequence[torch.Tensor], flow_gt: torch.Tensor,
@@ -29,8 +42,7 @@ def sequence_loss(flow_preds: Sequence[torch.Tensor], flow_gt: torch.Tensor,
     valid ``[B, H, W]`` (>= 0.5 means supervised)."""
     n = len(flow_preds)
     flow_gt = flow_gt.float()
-    mag = torch.sqrt(torch.sum(flow_gt ** 2, dim=1))
-    mask = (valid >= 0.5) & (mag < max_flow)                 # [B, H, W]
+    mask = supervised_mask(flow_gt, valid, max_flow)         # [B, H, W]
     maskf = mask[:, None].float()
 
     flow_loss = torch.zeros((), device=flow_gt.device)
@@ -54,6 +66,24 @@ def sequence_loss(flow_preds: Sequence[torch.Tensor], flow_gt: torch.Tensor,
     for k in (1, 3, 5):
         metrics[f"{k}px_out"] = masked_mean((epe_map > k).float())
     return flow_loss, metrics
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor], supervised: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+    """This process's metrics -> the whole batch's, over the world (one
+    all-reduce): the :data:`MASKED` ones as their sums over the summed
+    count of supervised pixels (``supervised``, this process's count), the
+    rest (the losses, means over equal batches) as means."""
+    keys = sorted(metrics)
+    count = supervised.float()
+    vals = torch.stack([metrics[k].float() * torch.clamp(count, min=1.0)
+                        if k in MASKED else metrics[k].float()
+                        for k in keys] + [count])
+    dist.all_reduce(vals)
+    world = dist.get_world_size()
+    total = torch.clamp(vals[-1], min=1.0)
+    return {k: vals[i] / total if k in MASKED else vals[i] / world
+            for i, k in enumerate(keys)}
 
 
 def classifier_loss(logits: torch.Tensor, label_onehot: torch.Tensor

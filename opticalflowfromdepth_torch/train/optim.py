@@ -83,13 +83,18 @@ class Optimizer:
             self.params, lr=schedule(0), betas=(0.9, 0.999), eps=epsilon,
             weight_decay=weight_decay)
 
+    def grads(self) -> List[torch.Tensor]:
+        """Every parameter's ``.grad``, a zero one made where there is none
+        (optax updates every leaf)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in self.params]
+
     def step(self) -> torch.Tensor:
         """One update from the parameters' ``.grad``; returns the gradient
         norm before clipping."""
-        for p in self.params:           # optax updates every leaf
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
+        grads = self.grads()
         norm = clip_by_global_norm_(grads, self.clip)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)

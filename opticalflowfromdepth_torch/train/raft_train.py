@@ -9,6 +9,14 @@ weight (`train.py:196-203`), a global-norm clip and AdamW with the
 OneCycle-linear schedule. ``freeze_bn`` makes the context encoder's
 BatchNorm use its running statistics (`train.py:152-153`). Where JAX
 takes a key, the step takes a ``torch.Generator`` (noise and dropout).
+
+A ``parallel.mesh.ProcessMesh`` made over a process group makes the step
+data parallel, each rank on its part of the batch, and the step what the
+JAX one computes on the whole batch: the gradients averaged over the
+world before the clip, the logged metrics the whole batch's, the batch
+norm's statistics the whole batch's (``models.layers.BatchNorm.group``),
+and the noise each rank adds its rows of the noise drawn for the whole
+batch (every rank's generator is seeded alike).
 """
 
 from __future__ import annotations
@@ -19,9 +27,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..models.classifier import Classifier
+from ..models.layers import BatchNorm
 from ..models.raft import RAFT
+from ..parallel.mesh import ProcessMesh, all_reduce_mean_
 from ..utils.device import resolve_device
-from .loss import classifier_loss, sequence_loss
+from .loss import (classifier_loss, global_metrics, sequence_loss,
+                   supervised_mask)
 from .optim import make_optimizer
 from .state import TrainState
 
@@ -60,24 +71,36 @@ class RAFTTrainConfig:
 
 
 def build_model(cfg: RAFTTrainConfig,
-                generator: Optional[torch.Generator] = None) -> RAFT:
+                generator: Optional[torch.Generator] = None,
+                mesh: Optional[ProcessMesh] = None) -> RAFT:
+    """The model of ``cfg``; with a ``mesh`` made over a process group its
+    batch norms take the whole batch's statistics."""
     if cfg.blocked_supervision:
         raise ValueError("blocked_supervision is not ported; the port "
                          "supervises at full resolution")
     if cfg.unroll != 1:
         raise ValueError(f"unroll={cfg.unroll} is not ported; the GRU loop "
                          "runs one iteration at a time (unroll=1)")
+    if cfg.dropout > 0 and mesh is not None and mesh.data_world > 1:
+        raise ValueError("dropout with data parallelism is not ported: each "
+                         "rank would draw its own mask, not its rows of the "
+                         "whole batch's")
     dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
-    return RAFT(small=cfg.small, dropout=cfg.dropout, dtype=dtype,
-                remat=cfg.remat, corr_impl=cfg.corr_impl,
-                generator=generator)
+    model = RAFT(small=cfg.small, dropout=cfg.dropout, dtype=dtype,
+                 remat=cfg.remat, corr_impl=cfg.corr_impl,
+                 generator=generator)
+    if mesh is not None and mesh.distributed:
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.group = torch.distributed.group.WORLD
+    return model
 
 
-def init_state(cfg: RAFTTrainConfig, seed: int = 0,
-               device="cuda") -> TrainState:
-    """A model with the reference's random init drawn from ``seed``, on
-    ``device``, and its optimizer at step 0."""
-    model = build_model(cfg, torch.Generator().manual_seed(seed))
+def init_state(cfg: RAFTTrainConfig, seed: int = 0, device="cuda",
+               mesh: Optional[ProcessMesh] = None) -> TrainState:
+    """A model with the reference's random init drawn from ``seed`` (the
+    same on every rank), on ``device``, and its optimizer at step 0."""
+    model = build_model(cfg, torch.Generator().manual_seed(seed), mesh)
     model = model.to(resolve_device(device))
     opt = make_optimizer(model.parameters(), cfg.lr, cfg.num_steps,
                          cfg.wdecay, cfg.epsilon, cfg.clip,
@@ -95,8 +118,8 @@ def classify_weight_at(cfg: RAFTTrainConfig, step: int) -> float:
 
 
 def make_train_step(cfg: RAFTTrainConfig,
-                    classifier: Optional[Classifier] = None, device="cuda"
-                    ) -> Callable:
+                    classifier: Optional[Classifier] = None, device="cuda",
+                    mesh: Optional[ProcessMesh] = None) -> Callable:
     """Returns ``train_step(state, batch, generator) -> (state,
     metrics)``; it updates ``state`` in place.
 
@@ -104,10 +127,16 @@ def make_train_step(cfg: RAFTTrainConfig,
     (0..255), flow ``[B, 2, H, W]``, valid ``[B, H, W]``, label ``[B, 4]``
     (``data.loader.to_device`` makes them). The metrics are 0-d tensors
     on the device. ``classifier`` is frozen: its weights get no gradient,
-    and the flow gets the gradient of its loss."""
+    and the flow gets the gradient of its loss. With a ``mesh`` made over
+    a process group the step is data parallel (module docstring):
+    ``batch`` is this rank's part of the batch, and ``state`` comes from
+    ``init_state`` with the same mesh."""
     device = resolve_device(device)
     if classifier is not None:
         classifier = classifier.to(device).eval().requires_grad_(False)
+    data_parallel = mesh is not None and mesh.distributed
+    rank, world = (mesh.data_rank, mesh.data_world) if data_parallel \
+        else (0, 1)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator
@@ -116,8 +145,11 @@ def make_train_step(cfg: RAFTTrainConfig,
         if cfg.add_noise:
             gdev = generator.device
             stdv = torch.rand((), generator=generator, device=gdev) * 5.0
-            noise = [torch.randn(image1.shape, generator=generator,
-                                 device=gdev) for _ in range(2)]
+            b = image1.shape[0]
+            whole = (b * world,) + tuple(image1.shape[1:])
+            noise = [torch.randn(whole, generator=generator,
+                                 device=gdev)[rank * b:(rank + 1) * b]
+                     for _ in range(2)]
             image1 = torch.clamp(image1 + (stdv * noise[0]).to(device),
                                  0.0, 255.0)
             image2 = torch.clamp(image2 + (stdv * noise[1]).to(device),
@@ -136,6 +168,10 @@ def make_train_step(cfg: RAFTTrainConfig,
 
         state.optimizer.zero_grad()
         loss.backward()
+        if data_parallel:
+            all_reduce_mean_(state.optimizer.grads())
+            metrics = global_metrics(metrics, supervised_mask(
+                batch["flow"], batch["valid"]).sum())
         state.optimizer.step()
         state.step += 1
         return state, metrics

@@ -13,7 +13,13 @@ The shared skeleton of the reference's trainers
   ``save_latest_freq`` (`main.py:502-518`), and resume from ``latest``
   (`main.py:236-253`).
 
-Rank comes from ``torch.distributed`` when it is initialized, else 0.
+The global rank (``torch.distributed``'s when it is initialized, else 0)
+decides who writes logs and checkpoints: rank 0 alone. It is not the data
+rank: under model parallelism every process of a model group has data
+rank 0, and all of them would write the same files. Every rank trains and
+validates (a model group's ranks must run the same collectives); pass
+``device`` as ``parallel.mesh.init_distributed`` returns it
+(``cuda:LOCAL_RANK``).
 """
 
 from __future__ import annotations
