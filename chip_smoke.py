@@ -6,8 +6,9 @@
 Run from the repository root on a host with one CUDA card. Phases:
 
 1. card: its name and power limit (nvidia-smi); TF32 off for f32 phases;
-2. build: the CUDA kernels from ``opticalflowfromdepth_torch/csrc`` (one
-   nvcc per source, in parallel), with ptxas's registers and spills;
+2. build: the host npz codec ``csrc/shardio.cc`` (g++, zlib), then the
+   CUDA kernels from ``opticalflowfromdepth_torch/csrc`` (one nvcc per
+   source, in parallel), with ptxas's registers and spills;
 3. each kernel against its plain PyTorch version on the card, with the
    tolerance stated, plus the edge cases; times with CUDA events:
    [3a] the fused lookup and [3b] instance norm at the shapes RAFT-basic
@@ -86,8 +87,10 @@ Run from the repository root on a host with one CUDA card. Phases:
    ``make_train_step`` (RAFT-basic bf16, fused correlation, 12
    iterations, frozen classifier): one warm-up step, 5 timed steps with
    the launch counts checked (12 lookups, 12 lookup backwards and 15
-   instance norms per step), a profile of one step, then the ``latest``
-   and weights checkpoints, the weights served by the serving model;
+   instance norms per step) and a ``utils.profiling.StepTimer`` around
+   them, a profile of one step, then the ``latest`` and weights
+   checkpoints, the weights served by the serving model, and a
+   ``utils.profiling.trace`` of one more step (read in [19]);
 8. a learning check: 30 steps on one fixed batch at 184x248, batch 4;
    the loss must fall;
 9. GMFlow card vs CPU: 1-scale and refine, f32, 64x96, seeded weights;
@@ -139,9 +142,13 @@ Run from the repository root on a host with one CUDA card. Phases:
    image; at most 0.5% of the pixels beyond 1 gray level / one f16 step;
 15. the synthesis path: ``synth.cli.main`` at 384x512, 1 epoch, on a fake
    ReDWeb tree (4 procedural 480x640 JPEGs with 8-bit closeness PNGs) and
-   a DIML tree (one PNG pair with a 16-bit disparity); checked: 20 warp
+   a DIML tree (one PNG pair with a 16-bit disparity), written by the
+   default (native) writer; checked: 20 warp
    launches an image and no other kernel, ``forward_warp_plain`` never
-   called, 61 files an image, each file's keys, dtypes and shapes, labels
+   called, the writer's blobs fewer than its entries; the same 5 images
+   through ``ShardWriter(use_native=False)``, every file of the two trees
+   holding equal arrays, images/s, write s and wait s for both; 61 files
+   an image, each file's keys, dtypes and shapes, labels
    that follow ``AUGMENT_SCHEDULE``, finite flows; images per second and
    ms per image (synthesis by CUDA events, device->host, write), one
    image's synthesis alone and its profile, that image's 20 warps
@@ -189,7 +196,15 @@ Run from the repository root on a host with one CUDA card. Phases:
    with exact launch counts (32 flash forwards, 32 dq, 32 dk/dv, 15
    instance norms a step), no plain version called, host ms beside [12]'s
    step alone, peak memory, a profile of one step;
-19. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
+19. the host's data plane and the last modules: g++'s and the codec's
+   zlib versions and its build time; [12]'s loader alone (batch 16, 4
+   threads) through the codec and through ``np.load`` on [12]'s shards,
+   in turns, beside [16]'s ms per step; ``sparse_bilateral_filtering`` at
+   480x640 on the card against the CPU (equal at every pixel), with ms;
+   [7]'s ``StepTimer`` against its own host clock (within 5%) and its
+   trace of one step (one non-empty Chrome trace with the card's kernels
+   and the annotation);
+20. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
    [18]'s launches too), the card line, and last the line ``{"ok": true,
    "device": {...}}``.
 
@@ -2003,6 +2018,7 @@ def train_path_phase(tmp: str):
     from opticalflowfromdepth_torch.train.runner import (RunnerConfig,
                                                           TrainRunner)
     from opticalflowfromdepth_torch.train.state import load_checkpoint
+    from opticalflowfromdepth_torch.utils import profiling as prof
 
     b, (ch, cw), iters = TRAIN_BATCH, TRAIN_CROP, TRAIN_ITERS
     print(f"[7] training path: RAFT-basic bf16, fused corr, {iters} iters, "
@@ -2020,11 +2036,14 @@ def train_path_phase(tmp: str):
                              corr_impl="fused", add_classifier=True)
     step = rt.make_train_step(cfg, seeded_classifier(4, torch.bfloat16))
     losses, stamps = [], []
+    timer = []          # utils.profiling.StepTimer over the timed steps
 
     def recorded_step(state, batch, gen):
         state, m = step(state, batch, gen)
         losses.append(float(m["total_loss"]))        # waits for the card
         stamps.append(time.perf_counter())
+        for tm in timer:
+            tm.tick(m["total_loss"])                 # fences on the card
         return state, m
 
     rcfg = RunnerConfig(log_dir=os.path.join(tmp, "run"), num_steps=1,
@@ -2043,10 +2062,13 @@ def train_path_phase(tmp: str):
     timed = 5
     rcfg.num_steps = 1 + timed
     torch.cuda.synchronize()
+    timer.append(prof.StepTimer(frames_per_step=b, warmup=0))
     t0 = time.perf_counter()
+    timer[0].start()
     runner.run()
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
+    timed_steps = timer.pop().summary()
     launches = launch_counts()
     print(f"  launches over {timed} steps: {launches}", flush=True)
     want = want_launches(fused_corr_lookup=iters * timed,
@@ -2104,8 +2126,26 @@ def train_path_phase(tmp: str):
     print(f"  latest (step 8) resumed; step_8_weights served one pair "
           f"through the serving model: |flow| max "
           f"{np.abs(flow).max():.3f} px", flush=True)
+
+    # utils.profiling: a trace of one more step (read in [19])
+    log_dir = os.path.join(tmp, "trace")
+    with prof.trace(log_dir):
+        with prof.annotate("ofd_train_step"):
+            rcfg.num_steps += 1
+            runner.run()
+        torch.cuda.synchronize()
     runner.batches.close()             # stops the loader's thread
-    return launches
+    traces = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    profiling = {"timer": timed_steps, "host_ms": step_ms,
+                 "trace_bytes": os.path.getsize(traces[0]),
+                 "trace_events": len(events),
+                 "annotated": sum(e.get("name") == "ofd_train_step"
+                                  for e in events),
+                 "kernels": sum(e.get("cat") == "kernel" for e in events),
+                 "traces": len(traces)}
+    return launches, profiling
 
 
 def learning_phase():
@@ -3289,7 +3329,9 @@ def check_shard(path: str, schedule) -> None:
 
 
 def synth_path_phase(tmp: str):
+    import functools
     import math
+    import shutil
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -3299,8 +3341,10 @@ def synth_path_phase(tmp: str):
     from opticalflowfromdepth_torch.data.loader import Loader, to_device
     from opticalflowfromdepth_torch.data.source import SOURCES, _resize_chw
     from opticalflowfromdepth_torch.ops import forward_warp as fw
+    from opticalflowfromdepth_torch.data import native_io
     from opticalflowfromdepth_torch.synth import cli
     from opticalflowfromdepth_torch.synth import pipeline as sp
+    from opticalflowfromdepth_torch.synth import writer as sw
     from opticalflowfromdepth_torch.train import raft_train as rt
 
     h, w = SYNTH
@@ -3317,6 +3361,13 @@ def synth_path_phase(tmp: str):
         return real_plain(*args)
 
     fw.forward_warp_plain = counting_plain    # the card path must not call it
+    real_writer = sw.ShardWriter
+    writers = []
+
+    def recording_writer(*args, **kw):        # the CLI's default writer
+        writers.append(real_writer(*args, **kw))
+        return writers[-1]
+    sw.ShardWriter = recording_writer
     zero_launch_counts()
     results = {}
     try:
@@ -3333,7 +3384,14 @@ def synth_path_phase(tmp: str):
                      f"want {n_img * sp.warps_per_image()}")
     finally:
         fw.forward_warp_plain = real_plain
+        sw.ShardWriter = real_writer
     launches = launch_counts()
+    if len(writers) != 2 or any(wr.enc is None or wr.enc.blobs >=
+                                wr.enc.entries for wr in writers):
+        fail("[15] the CLI did not write through the native encoder")
+    print(f"  the CLI's writers: the native encoder, blobs / entries "
+          f"{[(wr.enc.blobs, wr.enc.entries) for wr in writers]}",
+          flush=True)
     if launches != want_launches(forward_warp=5 * sp.warps_per_image()):
         fail(f"synthesis launch counts {launches}")
     if plain_calls[0]:
@@ -3341,6 +3399,52 @@ def synth_path_phase(tmp: str):
              "times")
     print(f"  launches over 5 images: {launches} ({sp.warps_per_image()} an "
           "image; forward_warp_plain never called)", flush=True)
+
+    # the same 5 images through the Python writer (use_native=False), after
+    # the counts were read: each file of the two trees must hold equal arrays
+    outs_py = {d: os.path.join(tmp, "shards_py", d) for d in outs}
+    results_py = {}
+    sw.ShardWriter = functools.partial(real_writer, use_native=False)
+    try:
+        for dataset in outs:
+            results_py[dataset] = cli.main([
+                "--dataset", dataset,
+                "--data_root", os.path.join(tmp, dataset),
+                "--list_file", lists[dataset], "--out", outs_py[dataset],
+                "--epochs", "1", "--height", str(h), "--width", str(w)])
+    finally:
+        sw.ShardWriter = real_writer
+    t = time.perf_counter()
+    pairs = [(os.path.join(outs[d], f), os.path.join(outs_py[d], f))
+             for d in outs for f in sorted(os.listdir(outs[d]))]
+    if sorted(os.path.basename(b) for _, b in pairs) != sorted(
+            f for d in outs_py.values() for f in os.listdir(d)):
+        fail("[15] the native and the Python writers wrote other files")
+
+    def same_file(pair):
+        a = native_io.load_npz(pair[0])      # the codec on the native tree,
+        with np.load(pair[1]) as z:          # numpy on the Python one
+            b = {k: z[k] for k in z.files}
+        return sorted(a) == sorted(b) and all(
+            a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            and np.array_equal(a[k], b[k]) for k in a)
+    with ThreadPoolExecutor(8) as pool:
+        differ = [p[0] for p, ok in zip(pairs, pool.map(same_file, pairs))
+                  if not ok]
+    if differ:
+        fail(f"[15] native and Python shards differ: {differ[:3]}")
+    print(f"  the same 5 images through the Python writer (use_native="
+          f"False): {len(pairs)} files, each holding arrays equal to the "
+          f"native writer's (dtype, shape, values; checked in "
+          f"{time.perf_counter() - t:.1f} s)", flush=True)
+    for label, res in (("native", results), ("python", results_py)):
+        for dataset, r in res.items():
+            n = r["images"]
+            print(f"  writer {label}, {dataset}: {n / r['seconds']:.3f} "
+                  f"images/s; write {r['write_s'] / n:.3f} s an image (its "
+                  f"4 threads, summed), the CLI waited "
+                  f"{r['write_wait_s'] / n:.3f} s an image", flush=True)
+    shutil.rmtree(os.path.join(tmp, "shards_py"))
 
     files = sorted(os.path.join(out, f) for out in outs.values()
                    for f in os.listdir(out))
@@ -3688,6 +3792,128 @@ def train_cli_phase(tmp: str, outs: dict) -> None:
           f"{GM_CROP[1]}, bf16): 2 steps in {gm_s:.1f} s with model set-up "
           f"(host clock); launches {launches} (14 + 14 + 14 flash and 15 "
           f"instance norms a step); plain versions called 0 times",
+          flush=True)
+    return {"step_ms": step_ms, "loader_ms": loader_ms, "alone_ms": alone_ms}
+
+
+# --------------------------------------------------------------------------
+# phase 19: the host's data plane, the bilateral filter, profiling
+# --------------------------------------------------------------------------
+
+def bilateral_depth(h: int, w: int, seed: int):
+    """A smooth depth with two steps, 5% spikes and 3% zeros (holes)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    d = 10 + 3 * np.sin(xx / 37) * np.cos(yy / 29)
+    d[:, w // 2:] += 40
+    d[h // 2:, : w // 3] = 5.0
+    d += rng.uniform(0, 0.5, (h, w))
+    d[rng.random((h, w)) < 0.05] *= 3
+    d[rng.random((h, w)) < 0.03] = 0.0
+    return d.astype(np.float32)
+
+
+def host_data_phase(shards_12: str, cli_16: dict, profiling_7: dict,
+                    codec_s: float, card: str) -> None:
+    import ctypes
+    import types
+
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.data import datasets as dsm
+    from opticalflowfromdepth_torch.data import native_io
+    from opticalflowfromdepth_torch.data.loader import Loader
+    from opticalflowfromdepth_torch.ops.bilateral import (
+        sparse_bilateral_filtering)
+
+    print(f"[19] the host's data plane, the bilateral filter, profiling "
+          f"({card})", flush=True)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    zlib_version = native_io._lib().zlibVersion
+    zlib_version.restype = ctypes.c_char_p    # the zlib the codec linked
+    print(f"  the codec (csrc/shardio.cc): {gxx.splitlines()[0]}; zlib "
+          f"{zlib_version().decode()}; built in {codec_s:.2f} s (g++ -O3, "
+          "at [2]; nan: built before)", flush=True)
+
+    # [12]'s loader alone through the codec and through np.load, in turns
+    def np_load(path):
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+
+    def loader_ms(decoder: str) -> float:
+        real = dsm.native_io
+        if decoder == "np.load":
+            dsm.native_io = types.SimpleNamespace(load_npz=np_load)
+        try:
+            it = iter(Loader(dsm.AugmentedShards(shards_12,
+                                                 crop_size=GM_CROP, seed=1),
+                             batch_size=GM_BATCH, num_workers=4, seed=1))
+            next(it)
+            t = time.perf_counter()
+            for _ in range(4):
+                batch = next(it)
+            ms = (time.perf_counter() - t) * 1e3 / 4
+            it.close()
+        finally:
+            dsm.native_io = real
+        if batch["image1"].shape != (GM_BATCH,) + GM_CROP + (3,):
+            fail(f"[19] loader batch {batch['image1'].shape}")
+        return ms
+    times = {"codec": [], "np.load": []}
+    for decoder in ("codec", "np.load", "np.load", "codec"):
+        times[decoder].append(loader_ms(decoder))
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"  [12]'s loader alone (16 shards of 384x576, deflated by "
+          f"np.savez_compressed; batch {GM_BATCH} of {GM_CROP[0]}x"
+          f"{GM_CROP[1]}, 4 threads), ms per batch: through the codec "
+          f"{mean['codec']:.1f} ({[round(x, 1) for x in times['codec']]}), "
+          f"through np.load {mean['np.load']:.1f} "
+          f"({[round(x, 1) for x in times['np.load']]}): "
+          f"{mean['codec'] / mean['np.load']:.3f}x; beside [16]: "
+          f"{cli_16['step_ms']:.3f} ms per step, its loader alone "
+          f"{cli_16['loader_ms']:.1f} ms a batch of {TRAIN_BATCH} "
+          f"(re-augmented, through the codec), the step alone "
+          f"{cli_16['alone_ms']:.3f} ms", flush=True)
+
+    # the bilateral filter: the card against the CPU at 480x640, exact
+    h, w = 480, 640
+    depth = torch.from_numpy(bilateral_depth(h, w, seed=19))
+    t = time.perf_counter()
+    want = sparse_bilateral_filtering(depth)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    dev = depth.cuda()
+    card_ms = cuda_ms(lambda: sparse_bilateral_filtering(dev), reps=10)
+    got = sparse_bilateral_filtering(dev).cpu()
+    changed = int((want != depth).sum())
+    differ = int((got != want).sum())
+    if differ or changed < 1000:
+        fail(f"[19] bilateral filter: {differ} pixels of the card's differ "
+             f"from the CPU's; {changed} changed")
+    print(f"  sparse_bilateral_filtering (5, 5) at {h}x{w}: the card's "
+          f"output equal to the CPU's at every pixel ({changed} pixels "
+          f"filtered); {card_ms:.3f} ms on the card (CUDA events, mean of "
+          f"10), {cpu_ms:.1f} ms on the CPU (host clock, one call)",
+          flush=True)
+
+    # utils.profiling around [7]
+    s = profiling_7["timer"]
+    host = profiling_7["host_ms"]
+    if s.get("steps_timed") != 5 or abs(s["mean_ms"] - host) > 0.05 * host:
+        fail(f"[19] StepTimer {s} against [7]'s {host:.3f} ms per step")
+    print(f"  StepTimer over [7]'s 5 steps (fenced on the loss): mean "
+          f"{s['mean_ms']:.3f} ms, p50 {s['p50_ms']:.3f}, p90 "
+          f"{s['p90_ms']:.3f}, {s['frames_per_s']:.3f} pairs/s; [7]'s own "
+          f"host clock {host:.3f} ms per step "
+          f"({s['mean_ms'] / host:.4f}x)", flush=True)
+    if (profiling_7["traces"] != 1 or profiling_7["trace_bytes"] == 0
+            or profiling_7["annotated"] < 1 or profiling_7["kernels"] == 0):
+        fail(f"[19] trace of one [7] step: {profiling_7}")
+    print(f"  trace of one [7] step: one Chrome trace of "
+          f"{profiling_7['trace_bytes']} bytes, {profiling_7['trace_events']}"
+          f" events, {profiling_7['kernels']} of them kernels on the card, "
+          f"the annotation 'ofd_train_step' {profiling_7['annotated']}x",
           flush=True)
 
 
@@ -4140,9 +4366,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.perf_counter()
+    codec_built = bool(_build.build(["shardio"]))   # {} if built before
+    codec_s = time.perf_counter() - t if codec_built else float("nan")
+    t = time.perf_counter()
     logs = _build.build(["fused_corr", "flash", "flash_bwd", "conv3x3",
                          "instance_norm", "forward_warp"])
-    print(f"[2] nvcc build {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"[2] g++ build of the npz codec {codec_s:.2f} s; nvcc build "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
     for name, log in logs.items():
         entry = ""
         for line in log.splitlines():
@@ -4171,7 +4401,7 @@ def main() -> None:
     timed("5", main_path_phase)
     timed("6", train_parity_phase)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = timed("7", train_path_phase, tmp)
+        launches, profiling_7 = timed("7", train_path_phase, tmp)
     timed("8", learning_phase)
     for k in kernels:          # launches on slice 2's main path, training
         k["launches"] = launches[k["name"]]
@@ -4180,8 +4410,8 @@ def main() -> None:
     flash["launches"] = timed("10", gmflow_serving_phase)["flash"]
     kernels.append(flash)
     timed("11", gmflow_train_parity_phase)
-    with tempfile.TemporaryDirectory() as tmp:
-        launches, alone_12 = timed("12", gmflow_train_path_phase, tmp)
+    tmp_12 = tempfile.TemporaryDirectory()     # its shards, read in [19]
+    launches, alone_12 = timed("12", gmflow_train_path_phase, tmp_12.name)
     timed("12 learning", gmflow_learning_phase)
     for k in flash_bwd:        # launches on slice 4's main path
         k["launches"] = launches[k["name"]]
@@ -4202,7 +4432,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         launches, outs = timed("15", synth_path_phase, tmp)
         # slice 11: the training CLI on [15]'s shards
-        timed("16", train_cli_phase, tmp, outs)
+        cli_16 = timed("16", train_cli_phase, tmp, outs)
     # the warp's launches on slice 10's main path, the synthesis CLI
     warp["launches"] = launches[warp["name"]]
     kernels.append(warp)
@@ -4215,6 +4445,11 @@ def main() -> None:
     for k in kernels:
         if k["name"] in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
             k["launches"] += launches[k["name"]]
+    # slice 8: the npz codec under the loaders, the bilateral filter and
+    # profiling (no kernel of their own)
+    timed("19", host_data_phase, os.path.join(tmp_12.name, "gmflow_shards"),
+          cli_16, profiling_7, codec_s, card)
+    tmp_12.cleanup()
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -1,11 +1,19 @@
-"""Build the CUDA C++ sources in ``csrc/`` with ``nvcc`` and load them.
+"""Build the C++ sources in ``csrc/`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` exports plain C functions and is compiled on
-first use into ``build/kernels/<name>-<hash>.so`` beside the package (the
-hash covers the source, the shared headers ``csrc/*.cuh`` and the flags,
-so a stale library never loads),
-then opened with ``ctypes``. Several sources build in parallel, one
-``nvcc`` process each. A failed build raises: nothing falls back.
+Two routes, by the source's suffix; each source exports plain C functions:
+
+- ``csrc/<name>.cu``, CUDA C++ for the card: ``nvcc`` into
+  ``build/kernels/<name>-<hash>.so`` (the hash covers the source, the
+  shared headers ``csrc/*.cuh`` and the flags);
+- ``csrc/<name>.cc``, C++ for the host (the npz codec): ``g++`` with zlib
+  and threads into ``build/native/<name>-<hash>.so`` (the hash covers the
+  source and the flags).
+
+``build/`` sits beside the package; a stale library never loads. Every
+build writes a temporary file and moves it into place, so processes that
+build the same source at once do not see each other's half-written file.
+Several sources build in parallel, one compiler process each. A failed
+build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,12 +25,16 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
+NATIVE_DIR = BUILD_DIR.parent / "native"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+GXX_LIBS = ("-lz", "-lpthread")
 
 
 def _nvcc() -> str:
@@ -33,10 +45,23 @@ def _nvcc() -> str:
     return path
 
 
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: the host C++ sources need a C++17 "
+                           "compiler and zlib's header")
+    return path
+
+
 def _paths(name: str) -> Tuple[pathlib.Path, pathlib.Path]:
     """The source and its library's path, whose hash covers the source,
-    every shared header ``csrc/*.cuh`` (any source may include any of
-    them) and the flags."""
+    the flags and, for a ``.cu``, every shared header ``csrc/*.cuh`` (any
+    CUDA source may include any of them)."""
+    src = CSRC / f"{name}.cc"
+    if src.exists():
+        h = hashlib.sha256(src.read_bytes())
+        h.update(" ".join(GXX_FLAGS + GXX_LIBS).encode())
+        return src, NATIVE_DIR / f"{name}-{h.hexdigest()[:12]}.so"
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
@@ -45,27 +70,34 @@ def _paths(name: str) -> Tuple[pathlib.Path, pathlib.Path]:
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+def _command(src: pathlib.Path, out: pathlib.Path) -> list:
+    if src.suffix == ".cc":
+        return [_gxx(), *GXX_FLAGS, "-o", str(out), str(src), *GXX_LIBS]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile every named source that is not built yet, all at once.
 
-    Returns the compiler's output (``-Xptxas -v``: registers, shared
-    memory, spills) for each source that was compiled."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    Returns the compiler's output (for a ``.cu``, ``-Xptxas -v``:
+    registers, shared memory, spills) for each source that was compiled."""
     procs = {}
     for name in names:
         src, lib = _paths(name)
         if lib.exists():
             continue
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(
+            f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, lib)
+            _command(src, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), src, tmp, lib)
     logs = {}
-    for name, (proc, tmp, lib) in procs.items():
+    for name, (proc, src, tmp, lib) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+            raise RuntimeError(f"{proc.args[0]} failed for csrc/{src.name}:"
+                               f"\n{out}")
         os.replace(tmp, lib)
         logs[name] = out
     return logs
@@ -73,6 +105,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cc``, built first if
+    needed."""
     build((name,))
     return ctypes.CDLL(str(_paths(name)[1]))

@@ -18,8 +18,9 @@ validators and submissions read them without augmentation
 The shards are the synthesis writer's npz files (``{stem}_g{g}_a{a}.npz``
 with the keys ``img0_1 img1_1 depth0_1 depth1_1 flow_1 back_flow_1``, the
 same with ``_2``, and ``label``; ``{stem}_group.npz`` with ``group``),
-read with ``np.load``. Every reader draws from its generators in the JAX
-reader's order, so the same generators give the same samples.
+decoded by the port's npz codec (``data/native_io.py``), as the JAX
+readers decode through theirs. Every reader draws from its generators in
+the JAX reader's order, so the same generators give the same samples.
 
 As in the JAX package, an augmentor built from ``aug_params`` draws from
 an unseeded ``np.random.default_rng()``: ``seed`` seeds the shard readers'
@@ -33,12 +34,11 @@ import glob
 import os
 import os.path as osp
 import warnings
-import zipfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import frame_io
+from . import frame_io, native_io
 from .augmentor import FlowAugmentor, SparseFlowAugmentor
 
 NUM_CLASSES = 4  # {none, flip, rotate, shear}; `dataloader.py:11`
@@ -310,12 +310,8 @@ def dequantize_flow(arr: np.ndarray) -> np.ndarray:
     return arr.astype(np.float32)
 
 
-def _load_npz(path: str) -> Dict[str, np.ndarray]:
-    with np.load(path) as z:
-        return {k: z[k] for k in z.files}
-
-
-_UNREADABLE = (OSError, ValueError, EOFError, KeyError, zipfile.BadZipFile)
+# a shard the codec cannot decode (IOError) or without the key read
+_UNREADABLE = (OSError, KeyError)
 
 
 def _flip_crop(rng, h_flip_prob, v_flip_prob, crop_size, img1, img2, flow,
@@ -384,7 +380,7 @@ class AugmentedShards:
         for off in range(len(self.files)):
             path = self.files[(index + off) % len(self.files)]
             try:
-                return _load_npz(path)
+                return native_io.load_npz(path)
             except _UNREADABLE:
                 continue
         raise RuntimeError(f"all shards unreadable under {self.root}")
@@ -474,7 +470,7 @@ class DepthToFlowShards:
         for off in range(len(self.files)):
             path = self.files[(index + off) % len(self.files)]
             try:
-                return _load_npz(path)["group"]
+                return native_io.load_npz(path)["group"]
             except _UNREADABLE:
                 continue
         raise RuntimeError(f"all group shards unreadable under {self.root}")

@@ -13,9 +13,11 @@ and one ``{stem}_group.npz`` with the 44-channel group tensor
 (`preprocess.py:437-447`): 61 files an image. The port's
 ``data.datasets.AugmentedShards`` reads them.
 
-:class:`ShardWriter` compresses on a thread pool, one job a file (zlib
-releases the GIL). The JAX package's native encoder
-(``native/shardio.cc``) is not ported.
+:class:`ShardWriter` writes through the port's npz codec
+(``data/native_io.py:ShardEncoder``): each distinct array of an image is
+deflated (u8) or stored (f16) once on C++ threads, however many files
+hold it. With ``use_native=False`` a Python pool writes the files with
+``zipfile`` instead, one job a file.
 """
 
 from __future__ import annotations
@@ -186,53 +188,96 @@ def write_sample_packed(out_dir: str, stem: str,
 
 
 class ShardWriter:
-    """Writes packed samples on a pool of ``workers`` threads, one job a
-    file, so the 61 files of an image compress in parallel (deflate level
-    1). ``submit`` returns once at most ``BACKLOG`` earlier images are
-    still being written (so host memory stays bounded); ``drain`` waits
-    for every job and returns the count of files. ``write_s``: the
-    seconds the jobs took, summed over the threads; ``wait_s``: the
-    seconds the caller spent waiting for them (in ``submit`` and
-    ``drain``)."""
+    """Writes packed samples with ``workers`` threads. ``submit`` queues an
+    image's 61 files; ``drain`` waits for every file and returns the count
+    of files (a second ``drain`` returns it again; ``submit`` after it
+    raises). ``write_s``: the seconds the threads spent writing, summed
+    over them; ``wait_s``: the seconds the caller waited for them (in
+    ``submit`` and ``drain``).
+
+    ``use_native`` (the default): one :class:`~..data.native_io.
+    ShardEncoder` (deflate level 1; f16 and f32 stored unless
+    ``store_floats`` is off), which reads the host arrays in place until
+    it is drained. ``submit`` drains it first when the image would make
+    more than ``BACKLOG`` pending, so at most that many images' arrays stay
+    referenced (the JAX writer's rule).
+    ``use_native=False``: a Python pool of ``zipfile`` jobs, one a file;
+    ``submit`` returns once at most ``BACKLOG`` earlier images are still
+    being written."""
 
     BACKLOG = 2      # images whose files may still be in flight
 
     def __init__(self, out_dir: str, workers: int = 4,
-                 flow_int16: bool = False, store_floats: bool = True):
-        from concurrent.futures import ThreadPoolExecutor
+                 flow_int16: bool = False, store_floats: bool = True,
+                 use_native: bool = True):
         self.out_dir = out_dir
         self.flow_int16 = flow_int16
         self.store_floats = store_floats
-        self.pool = ThreadPoolExecutor(max_workers=workers)
-        self.images: List[list] = []     # each submitted image's jobs
+        self.enc = None
+        self.pool = None
+        if use_native:
+            from ..data.native_io import ShardEncoder
+            self.enc = ShardEncoder(threads=workers, level=1,
+                                    store_floats=store_floats)
+        else:
+            from concurrent.futures import ThreadPoolExecutor
+            self.pool = ThreadPoolExecutor(max_workers=workers)
+        self.images: List[list] = []     # each pending image's jobs
+        self.pending = 0                 # images queued in the encoder
         self.files = 0
-        self.write_s = 0.0
         self.wait_s = 0.0
+        self._py_write_s = 0.0
         self._lock = threading.Lock()
+        self._drained = False
+
+    @property
+    def write_s(self) -> float:
+        return self.enc.busy_s if self.enc is not None else self._py_write_s
 
     def _job(self, path, entries) -> None:
         t = time.perf_counter()
         _savez_fast(path, 1, self.store_floats, **dict(entries))
         with self._lock:
-            self.write_s += time.perf_counter() - t
+            self._py_write_s += time.perf_counter() - t
 
     def _wait(self, keep: int) -> None:
         t = time.perf_counter()
-        while len(self.images) > keep:
-            for f in self.images.pop(0):
-                f.result()
+        if self.enc is not None:
+            if self.pending > keep:
+                self.enc.drain()
+                self.pending = 0
+        else:
+            while len(self.images) > keep:
+                for f in self.images.pop(0):
+                    f.result()
         self.wait_s += time.perf_counter() - t
 
     def submit(self, stem: str, sample: Dict[str, np.ndarray]) -> None:
-        self._wait(self.BACKLOG)
+        if self._drained:
+            raise RuntimeError("ShardWriter.submit after drain")
+        self._wait(self.BACKLOG - 1 if self.enc is not None
+                   else self.BACKLOG)
         os.makedirs(self.out_dir, exist_ok=True)
+        plan = sample_plan(self.out_dir, stem, sample, self.flow_int16)
+        if self.enc is not None:
+            for path, entries in plan:
+                self.enc.file(path, entries)
+                self.files += 1
+            self.pending += 1
+            return
         jobs = [self.pool.submit(self._job, path, entries)
-                for path, entries in sample_plan(self.out_dir, stem, sample,
-                                                 self.flow_int16)]
+                for path, entries in plan]
         self.files += len(jobs)
         self.images.append(jobs)
 
     def drain(self) -> int:
-        self._wait(0)
-        self.pool.shutdown()
+        if not self._drained:
+            self._drained = True
+            try:
+                self._wait(0)
+            finally:
+                if self.enc is not None:
+                    self.enc.close()
+                else:
+                    self.pool.shutdown()
         return self.files

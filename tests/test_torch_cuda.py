@@ -1,7 +1,8 @@
 """The port's Hopper kernels against their plain versions, on the card,
 forward and backward (the 3x3 conv's Function also against autograd
 through ``F.conv2d``; the forward warp bit for bit), one training step of
-each model card against CPU, and the synthesis card against CPU.
+each model card against CPU, the synthesis card against CPU, and the
+bilateral filter and the profiling helpers on the card.
 
 Marked ``cuda``: they skip on a host without a CUDA device. On the card
 they run without the JAX test setup:
@@ -889,3 +890,62 @@ def test_synthesis_on_card_matches_cpu(card):
             if bad.ndim > 1 else float(bad.mean())
         print(f"{k}: {100 * share:.3f}% of pixels beyond the tolerance")
         assert share <= 0.005, k
+
+
+@pytest.mark.parametrize("filter_sizes", [(5, 5), (7,)])
+def test_bilateral_filter_on_card_equals_cpu(card, filter_sizes):
+    """``sparse_bilateral_filtering`` at 96x128 with steps, spikes and
+    holes: the card's output equal to the CPU's at every pixel (the
+    cumulative sums are added tap by tap in f32 on both)."""
+    from opticalflowfromdepth_torch.ops.bilateral import (
+        sparse_bilateral_filtering)
+    r = np.random.default_rng(1)
+    yy, xx = np.mgrid[0:96, 0:128].astype(np.float32)
+    d = 10 + 3 * np.sin(xx / 7) * np.cos(yy / 5)
+    d[:, 64:] += 40
+    d *= np.where(r.random(d.shape) < 0.05, 3.0, 1.0)
+    d[r.random(d.shape) < 0.03] = 0.0
+    depth = torch.from_numpy(d.astype(np.float32))
+    want = sparse_bilateral_filtering(depth, filter_sizes)
+    got = sparse_bilateral_filtering(depth.to(card), filter_sizes).cpu()
+    assert (want != depth).sum() > 1000
+    assert torch.equal(got, want)
+
+
+def test_step_timer_fences_on_card_tensors(card):
+    """``tick`` on a CUDA tensor waits for the card: a step of queued
+    matmuls is timed whole, not as its enqueue."""
+    from opticalflowfromdepth_torch.utils.profiling import StepTimer
+    x = torch.randn(4096, 4096, device=card)
+    t = StepTimer(warmup=1)
+    t.start()
+    for _ in range(3):
+        y = x
+        for _ in range(8):
+            y = y @ x
+        t.tick(y)
+    s = t.summary()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(8):
+        y = y @ x
+    end.record()
+    torch.cuda.synchronize()
+    assert s["steps_timed"] == 2 and s["mean_ms"] >= 0.8 * start.elapsed_time(
+        end)
+
+
+def test_trace_records_card_kernels(card, tmp_path):
+    import json
+    import os
+    from opticalflowfromdepth_torch.utils.profiling import annotate, trace
+    x = torch.randn(512, 512, device=card)
+    with trace(str(tmp_path)):
+        with annotate("card_matmul"):
+            (x @ x).sum().item()
+    (path,) = [os.path.join(tmp_path, f) for f in os.listdir(tmp_path)]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert any(e.get("name") == "card_matmul" for e in events)
