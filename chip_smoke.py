@@ -53,12 +53,18 @@ Run from the repository root on a host with one CUDA card. Phases:
    of 368x560: windows [128, 805, 128] with and without the Swin mask,
    matching and propagation [16, 3220, 128] with a 2-wide payload),
    ragged lengths (a row over and a row short of the wgmma route's 64-row
-   tiles), a Swin region edge inside a tile, extreme logits, bf16 and f32,
-   both routes (wgmma at C = 128, mma.sync at C = 64 and 32), with two
-   planted faults that must fail the tolerance and two launches that must
-   give the same bits, the autograd Function against a dense softmax,
-   timed against their bounds (TFLOP/s, share of the bound), the plain
-   version and SDPA's backward; [3g] (run after [12]) the 3x3 conv at
+   tiles), a Swin region edge inside a tile, extreme logits, split sweeps
+   (B = 1, L = 2000 at D = 2; L = 1001 at D = 128), bf16 and f32, every
+   route (wgmma and, in f32, tf32x3 at C = 128; mma.sync and the f32
+   CUDA-core route at C = 64 and 32), with two planted faults that must
+   fail the tolerance (three where the tf32x3 route splits a sweep: its
+   reduction leaving the last partial out), what hi-only TF32 products
+   would give (for information), and two launches that must give the same
+   bits, the autograd Function against a dense softmax, timed in bf16 and
+   in f32 (the 14 + 14 launches of a training step each) against their
+   bounds (TFLOP/s, share of the bound; f32 at the split-TF32 and at the
+   CUDA cores' f32 peak), the plain version and SDPA's backward; [3g]
+   (run after [12]) the 3x3 conv at
    RAFT-basic's stride-1 shapes at Sintel serving, the ragged [1, 33, 17,
    8] -> 8 and GMFlow's training
    [32, 184, 280, 64] -> 64, bf16 and f32, each shape's route and plan
@@ -179,8 +185,11 @@ Run from the repository root on a host with one CUDA card. Phases:
    output, of max|ref| for each gradient), exact launch counts (n^2
    forward, n^2 dq, n^2 dk/dv), two rings bit-equal, a planted fault (a
    merge without a step's LSE correction) that must fail; times of the
-   ring and of the f32 kernels at one step's shape against their bounds at
-   the f32 CUDA-core peak, the plain ring, and SDPA in f32;
+   ring and of the f32 kernels at one step's shape against their bounds
+   (the backward's at the split-TF32 and at the f32 CUDA-core peak), the
+   backward kernels before (the CUDA-core route) in the same run, the
+   plain ring, and SDPA in f32 (forward, forward + backward, the backward
+   alone);
 17. data parallelism over NCCL at world size 1: ``init_distributed()``
    from an environment set in-process, ``make_mesh()``, two RAFT-basic
    steps at [7]'s shape (batch norm live, ``add_noise``) and two GMFlow
@@ -229,6 +238,12 @@ BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16, data sheet
 # exponentials: 16 special-function results per clock per SM (Hopper
 # white paper), 132 SMs, 1.98 GHz boost clock (H100 SXM data sheet)
 SFU_PER_S = 16 * 132 * 1.98e9
+TF32_FLOP_PER_S = 495e12           # H100 SXM dense TF32, data sheet
+# f32 on the CUDA cores (no tensor cores): the data sheet's 67 TFLOP/s, the
+# peak of the flash kernels' CUDA-core f32 routes; and f32 products in
+# split TF32 (the tf32x3 route), three TF32 products for each
+FP32_FLOP_PER_S = 67e12
+TF32X3_FLOP_PER_S = TF32_FLOP_PER_S / 3
 SINTEL = (436, 1024)
 TRAIN_CROP, TRAIN_BATCH, TRAIN_ITERS = (368, 496), 8, 12
 # GMFlow's training recipe (`adjusted_gmflow/main.py`): batch 16 of
@@ -288,6 +303,17 @@ def check(name: str, err: float, tol: float) -> None:
     print(f"  {name}: max diff {err:.3e} (tolerance {tol:g})", flush=True)
     if not err <= tol:
         fail(f"{name}: max diff {err:.3e} > {tol:g}")
+
+
+def bound_ms(ops: float, exps: float, nbytes: float, flop_per_s: float):
+    """The least time, in ms, this card could take for a kernel's work,
+    and what sets it: ``ops`` operations at ``flop_per_s`` or ``exps``
+    exponentials at the special-function units' rate ("operations"),
+    against ``nbytes`` at the memory's rate ("bytes")."""
+    t_ops = max(ops / flop_per_s, exps / SFU_PER_S)
+    t_by = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_by) * 1e3, ("operations" if t_ops >= t_by
+                                    else "bytes")
 
 
 def max_rel_excess(got, ref, rtol: float, atol: float) -> float:
@@ -1269,15 +1295,40 @@ FLASH_TRAIN_SHAPES = (
 )
 
 
+def dropping_last_partial(fb):
+    """A context in which every split sweep's reduction leaves its last
+    partial sum out (a planted fault of the tf32x3 route)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        real = fb._kernel_fns
+        fn_dq, fn_dkv, fn_reduce = real()
+
+        def reduce_all_but_last(part, out, n, splits, mult, stream):
+            return fn_reduce(part, out, n, splits - 1, mult, stream)
+        fb._kernel_fns = lambda: (fn_dq, fn_dkv, reduce_all_but_last)
+        try:
+            yield
+        finally:
+            fb._kernel_fns = real
+    return ctx()
+
+
 def flash_bwd_compare(fl, fb, what, q, k, v, g, swin) -> float:
     """The two backward kernels against the plain backward on one input,
     from the forward kernel's out and LSE; returns the largest max abs
-    diff of dq, dk, dv. Tolerance: f32, the sums run in another order,
+    diff of dq, dk, dv. Tolerance: f32, the sums run in another order and
+    (tf32x3 route) the split-TF32 products drop ~2^-21 of each term,
     1e-4 of each gradient's max |ref|; bf16, ``bwd_bf16_tolerance`` row by
     row (dq) and key by key (dk, dv). Two planted faults must exceed it:
     dq scaled by 0.98, and dk and dv with the first 64-query tile left out
-    of the kernel's sweep (its LSE set to 1e30, so its p is 0). A second
-    launch on the same inputs must give the same bits (no atomics)."""
+    of the kernel's sweep (its LSE set to 1e30, so its p is 0); where the
+    tf32x3 route splits a sweep, a third: its reduction leaving the last
+    partial sum out. A second launch on the same inputs must give the same
+    bits (no atomics). On the tf32x3 route it also prints, for
+    information, how far hi-only TF32 products would lie
+    (``flash_backward_tf32(terms=1)``)."""
     import torch
     out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
     got = fb.flash_backward(q, k, v, out, lse, g, swin=swin)
@@ -1316,6 +1367,27 @@ def flash_bwd_compare(fl, fb, what, q, k, v, g, swin) -> float:
           flush=True)
     if not min(faults) > 1.0:
         fail(f"flash backward {what}: a planted fault passes {faults}")
+    p = fb.plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2],
+                q.dtype)
+    if p.route == "tf32x3":
+        hi = fb.flash_backward_tf32(q, k, v, out, lse, g, swin=swin, terms=1)
+        hi_ratio = max(float(((x - r).abs() / t).max())
+                       for x, r, t in zip(hi, ref, tols))
+        line = (f"    for information, hi-only TF32 products (plain, terms=1)"
+                f": |d| / tolerance {hi_ratio:.2f}; splits dq "
+                f"{p.splits_dq}, dk/dv {p.splits_dkv}")
+        if max(p.splits_dq, p.splits_dkv) > 1:
+            with dropping_last_partial(fb):
+                bad = fb.flash_backward(q, k, v, out, lse, g, swin=swin)
+            split = [i for i, n in ((0, p.splits_dq), (1, p.splits_dkv),
+                                    (2, p.splits_dkv)) if n > 1]
+            drop = min(float(((bad[i] - ref[i]).abs() / tols[i]).max())
+                       for i in split)
+            line += (f"; planted fault, the last partial left out of the "
+                     f"reduction: |d| / tolerance {drop:.2f} (must exceed 1)")
+            if not drop > 1.0:
+                fail(f"flash backward {what}: the dropped partial passes")
+        print(line, flush=True)
     return max(errs)
 
 
@@ -1345,7 +1417,9 @@ def flash_bwd_phase(gen):
         ("ragged 129x65 D=2", (1, (129, 65), 128, 2, "flow", None)),
         ("ragged 63x127 D=2", (2, (63, 127), 128, 2, "flow", None)),
         ("swin edge inside a tile", (8, 130, 128, 128, "normal",
-                                     (2, 10, 13, 5, 6)))]
+                                     (2, 10, 13, 5, 6))),
+        ("split sweep B=1 L=2000 D=2", (1, 2000, 128, 2, "flow", None)),
+        ("split sweep L=1001", (2, 1001, 128, 128, "normal", None))]
     for dtype in (torch.float32, torch.bfloat16):
         for name, (b, l, c, d, payload, swin) in cases + edges:
             lq, lk = l if isinstance(l, tuple) else (l, l)
@@ -1357,8 +1431,7 @@ def flash_bwd_phase(gen):
                                    30.0 if name == "extreme logits" else 1.0,
                                    grid_w=GW8)
             g = torch.randn(b, lq, d, generator=draw).cuda()
-            route = "f32" if dtype == torch.float32 else (
-                "wgmma" if c == 128 and d in (2, 128) else "mma.sync")
+            route = fb.plan(b, lq, lk, c, d, dtype).route
             err = flash_bwd_compare(fl, fb, f"{name} {dtype} [{b},{lq},{c}]"
                                     f"x[{b},{lk},{d}] ({route})", q, k, v, g,
                                     swin)
@@ -1393,30 +1466,39 @@ def flash_bwd_phase(gen):
           max(float((a.grad - r.grad).abs().max() / r.grad.abs().max())
               for a, r in zip(ours, dense)), 2e-5)
 
-    # times at the training shapes and dtype (bf16): per launch, and the
-    # 14 + 14 launches of one step (the launches these records count)
-    fn_dq, fn_dkv = fb._kernel_fns()
-    step = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                    ops=0.0, exps=0.0, bytes=0.0) for k in ("dq", "dkv")}
+    # times at the training shapes: bf16 (every GMFlow training step; the
+    # kernels line) and f32 (an f32 GMFlow step, --no_mixed_precision: the
+    # tf32x3 route)
+    records = flash_bwd_timing(fl, fb, F, gen, torch.bfloat16)
+    flash_bwd_timing(fl, fb, F, gen, torch.float32)
+    for rec in records:
+        rec["max_abs_err"] = worst
+    return records
+
+
+def flash_bwd_timing(fl, fb, F, gen, dtype):
+    """Each backward kernel launched alone at the training shapes (per
+    launch, and the 14 + 14 launches of one step), against its bound,
+    the plain backward and SDPA's backward asked for its outputs; returns
+    the kernels line's records of the step (bf16). In f32 each bound is
+    printed twice: at the split-TF32 peak (the tf32x3 route) and at the
+    CUDA cores' f32 peak (the route before it)."""
+    import torch
+    bf16 = dtype == torch.bfloat16
+    esize = 2 if bf16 else 4
+    peaks = ((BF16_FLOP_PER_S, "bf16"),) if bf16 else (
+        (TF32X3_FLOP_PER_S, "split TF32"), (FP32_FLOP_PER_S, "f32"))
+    step = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0,
+                    exps=0.0, bytes=0.0) for k in ("dq", "dkv")}
+    lib_whole = 0.0
     for name, (b, l, c, d, payload, swin), n in FLASH_TRAIN_SHAPES:
-        q, k, v = flash_inputs(gen, b, l, l, c, d, torch.bfloat16, payload,
+        q, k, v = flash_inputs(gen, b, l, l, c, d, dtype, payload,
                                grid_w=GW8)
         g = torch.randn(b, l, d, generator=gen).cuda()
         out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
-        # the wrapper's operands, then each kernel launched alone
-        delta = (g * out).sum(-1)
-        vb, gb = v.to(q.dtype).contiguous(), g.to(q.dtype).contiguous()
-        dq = torch.empty(b, l, c, device="cuda")
-        dk, dv = torch.empty(b, l, c, device="cuda"), torch.empty(
-            b, l, d, device="cuda")
-        ins = (q.data_ptr(), k.data_ptr(), vb.data_ptr(), gb.data_ptr(),
-               lse.data_ptr(), delta.data_ptr())
-        sw = swin if swin is not None else (0, 0, 0, 0, 0)
-        dims = (b, l, l, c, d, c ** -0.5, *sw, 1)
-        stream = torch.cuda.current_stream().cuda_stream
-        t_dq = cuda_ms(lambda: fn_dq(*ins, dq.data_ptr(), *dims, stream))
-        t_dkv = cuda_ms(lambda: fn_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
-                                       *dims, stream))
+        (dq, dk, dv), launch_dq, launch_dkv, plan = fb.launchers(
+            q, k, v, out, lse, g, swin=swin)
+        t_dq, t_dkv = cuda_ms(launch_dq), cuda_ms(launch_dkv)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(dq).all() & torch.isfinite(dk).all()):
             fail(f"flash backward timing {name}: non-finite gradients")
@@ -1424,79 +1506,84 @@ def flash_bwd_phase(gen):
                                                    swin=swin), reps=10)
         t_plain = cuda_ms(lambda: fb.flash_backward_plain(
             q, k, v, out, lse, g, swin=swin), reps=3, warm=1)
-        # SDPA's backward at the same shapes (Swin mask as attn_mask),
-        # asked for each kernel's outputs
+        # SDPA's backward at the same shapes and dtype (Swin mask as
+        # attn_mask), asked for each kernel's outputs and for all three
+        vb, gb = v.to(dtype), g.to(dtype)
         qs, ks, vs = (t[:, None].detach().requires_grad_()
                       for t in (q, k, vb))
         mask = None if swin is None else fl.swin_mask_dense(
-            l, swin, b, "cuda").to(torch.bfloat16)[:, None]
+            l, swin, b, "cuda").to(dtype)[:, None]
         o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
         go = gb[:, None]
         lib_dq = cuda_ms(lambda: torch.autograd.grad(
             o, (qs,), go, retain_graph=True), reps=10)
         lib_dkv = cuda_ms(lambda: torch.autograd.grad(
             o, (ks, vs), go, retain_graph=True), reps=10)
+        lib_all = cuda_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), go, retain_graph=True), reps=10)
+        lib_whole += n * lib_all
         # the work each kernel's function needs: dq recomputes S and dP and
         # takes dS . K; dk/dv recomputes S and dP and takes P^T . G and
-        # dS^T . Q. Each reads q, k, v, g (bf16), lse and delta (f32) once
-        # and writes its gradients once in their inputs' dtypes.
+        # dS^T . Q. Each reads q, k, v, g (in the operand dtype), lse and
+        # delta (f32) once and writes its gradients once (f32).
         pairs = float(b * l * l)
-        rd = (q.numel() + k.numel() + vb.numel() + gb.numel()) * 2 + 2 * b * l * 4
-        work = {"dq": (2 * pairs * (2 * c + d), rd + q.numel() * 2),
+        rd = (q.numel() + k.numel() + vb.numel() + gb.numel()) * esize \
+            + 2 * b * l * 4
+        work = {"dq": (2 * pairs * (2 * c + d), rd + q.numel() * 4),
                 "dkv": (2 * pairs * (2 * c + 2 * d),
-                        rd + k.numel() * 2 + v.numel() * v.element_size())}
+                        rd + k.numel() * 4 + v.numel() * 4)}
         times = {"dq": (t_dq, lib_dq), "dkv": (t_dkv, lib_dkv)}
         line = []
         for key, (ops, by) in work.items():
-            t_ops = max(ops / BF16_FLOP_PER_S, pairs / SFU_PER_S)
-            bound = max(t_ops, by / HBM_BYTES_PER_S) * 1e3
             rec = step[key]
             for field, val in (("ms", times[key][0]), ("plain_ms", t_plain),
-                               ("library_ms", times[key][1]),
-                               ("bound_ms", bound), ("ops", ops),
+                               ("library_ms", times[key][1]), ("ops", ops),
                                ("exps", pairs), ("bytes", by)):
                 rec[field] += n * val
+            shares = [(bound_ms(ops, pairs, by, peak)[0], what)
+                      for peak, what in peaks]
+            bounds = ", ".join(f"{bd / times[key][0]:.3f} of its {what} "
+                               f"bound {bd * 1e3:.2f} us"
+                               for bd, what in shares)
             line.append(f"{key} {times[key][0] * 1e3:.1f} us, "
-                        f"{ops / times[key][0] / 1e9:.1f} TFLOP/s, "
-                        f"{bound / times[key][0]:.3f} of its bound (bound "
-                        f"{bound * 1e3:.2f} us, SDPA for its outputs "
-                        f"{times[key][1] * 1e3:.1f} us)")
-        whole_ops = 2 * pairs * (3 * c + 2 * d)
-        whole_by = (q.numel() + k.numel() + vb.numel() + gb.numel()) * 2 \
-            + (out.numel() + lse.numel()) * 4 + (q.numel() + k.numel()) * 2 \
-            + v.numel() * v.element_size()
-        whole = max(whole_ops / BF16_FLOP_PER_S, pairs / SFU_PER_S,
-                    whole_by / HBM_BYTES_PER_S) * 1e3
-        print(f"  {name} bf16 [{b},{l},{c}]x[{b},{l},{d}]: "
-              + "; ".join(line) + f"; the wrapper (delta, casts, both) "
-              f"{t_wrap * 1e3:.1f} us, the whole backward's bound "
-              f"{whole * 1e3:.2f} us ({whole_ops / 1e9:.2f} GFLOP); plain "
-              f"{t_plain * 1e3:.1f} us; {n} per step", flush=True)
+                        f"{ops / times[key][0] / 1e9:.1f} TFLOP/s, {bounds} "
+                        f"(SDPA for its outputs {times[key][1] * 1e3:.1f} us)")
+        splits = f", splits {plan.splits_dq}/{plan.splits_dkv}" \
+            if plan.route == "tf32x3" else ""
+        print(f"  {name} {dtype} [{b},{l},{c}]x[{b},{l},{d}] ({plan.route}"
+              f"{splits}): " + "; ".join(line) + f"; the wrapper (delta, "
+              f"casts, both) {t_wrap * 1e3:.1f} us, SDPA's whole backward "
+              f"{lib_all * 1e3:.1f} us; plain {t_plain * 1e3:.1f} us; {n} "
+              f"per step", flush=True)
         del q, k, v, g, out, lse, qs, ks, vs, o, mask, dq, dk, dv
         torch.cuda.empty_cache()
     records = []
     for key, kernel, line_no in (("dq", "_bwd_dq_kernel", 64),
                                  ("dkv", "_bwd_dkv_kernel", 99)):
         rec = step[key]
-        t_ops = max(rec["ops"] / BF16_FLOP_PER_S, rec["exps"] / SFU_PER_S)
-        bound_by = "operations" if t_ops >= rec["bytes"] / HBM_BYTES_PER_S \
-            else "bytes"
-        print(f"  the 14 {key} launches of one step: kernel "
+        bounds = [bound_ms(rec["ops"], rec["exps"], rec["bytes"], peak)
+                  for peak, _ in peaks]
+        shares = ", ".join(f"{bd / rec['ms']:.3f} of the {what} bound "
+                           f"{bd * 1e3:.1f} us ({by})"
+                           for (bd, by), (_, what) in zip(bounds, peaks))
+        print(f"  the 14 {key} launches of one {dtype} step: kernel "
               f"{rec['ms'] * 1e3:.1f} us ({rec['ops'] / rec['ms'] / 1e9:.1f} "
-              f"TFLOP/s, {rec['bound_ms'] / rec['ms']:.3f} of the bound), "
-              f"plain (the whole backward) "
-              f"{rec['plain_ms'] * 1e3:.1f} us, SDPA "
-              f"{rec['library_ms'] * 1e3:.1f} us, bound "
-              f"{rec['bound_ms'] * 1e3:.1f} us ({bound_by}: "
-              f"{rec['ops'] / 1e9:.1f} GFLOP, {rec['exps'] / 1e6:.1f} M exp, "
+              f"TFLOP/s, {shares}), plain (the whole backward) "
+              f"{rec['plain_ms'] * 1e3:.1f} us, SDPA for its outputs "
+              f"{rec['library_ms'] * 1e3:.1f} us ({rec['ops'] / 1e9:.1f} "
+              f"GFLOP, {rec['exps'] / 1e6:.1f} M exp, "
               f"{rec['bytes'] / 1e6:.1f} MB) [{kernel}]", flush=True)
         records.append(dict(
             name=f"flash_bwd_{key}", route="cuda",
             source="opticalflowfromdepth_torch/csrc/flash_bwd.cu",
             replaces=f"opticalflowfromdepth_tpu/ops/flash_bwd.py:{line_no}",
-            max_abs_err=worst, ms=rec["ms"], plain_ms=rec["plain_ms"],
-            bound_ms=rec["bound_ms"], bound_by=bound_by,
+            max_abs_err=0.0, ms=rec["ms"], plain_ms=rec["plain_ms"],
+            bound_ms=bounds[0][0], bound_by=bounds[0][1],
             library_ms=rec["library_ms"]))
+    print(f"  one {dtype} step's 14 + 14 launches: "
+          f"{(step['dq']['ms'] + step['dkv']['ms']) * 1e3:.1f} us; SDPA's "
+          f"whole backward at the same 14 calls {lib_whole * 1e3:.1f} us",
+          flush=True)
     return records
 
 
@@ -3921,9 +4008,6 @@ def host_data_phase(shards_12: str, cli_16: dict, profiling_7: dict,
 # phases 3i, 17 and 18: the parallel layer
 # --------------------------------------------------------------------------
 
-# f32 on the CUDA cores (no tensor cores): the H100 SXM data sheet's 67
-# TFLOP/s, the peak of the flash kernels' f32 routes, which the ring runs
-FP32_FLOP_PER_S = 67e12
 # [3i]'s shapes: name, (B, L, C, D, payload, grid width)
 RING_SHAPES = (
     ("serving matching", (1, H8 * W8, 128, 2, "grid", W8)),
@@ -3958,13 +4042,6 @@ def f32_work(b, lq, lk, c, d):
     return ops, pairs, by
 
 
-def f32_bound_ms(ops, exps, by):
-    t_ops = max(ops / FP32_FLOP_PER_S, exps / SFU_PER_S)
-    t_by = by / HBM_BYTES_PER_S
-    return max(t_ops, t_by) * 1e3, ("operations" if t_ops >= t_by
-                                    else "bytes")
-
-
 def ring_phase(gen):
     import torch
     import torch.nn.functional as F
@@ -3975,8 +4052,6 @@ def ring_phase(gen):
     print("[3i] the sequence-parallel ring on the card: ring_softmax_matmul "
           "over LocalRing(n), n = 1, 2, 4, f32 (the flash kernels' f32 "
           "routes), forward and backward", flush=True)
-    fn_dq, fn_dkv = fb._kernel_fns()
-    stream = torch.cuda.current_stream().cuda_stream
     merge = sq.merge_step
 
     def faulty_merge(out, lse, out_s, lse_s):
@@ -4045,35 +4120,43 @@ def ring_phase(gen):
                                                  q, k, v, g, ring),
                             reps=2, warm=1)
             # one step's kernels alone at the step's shape (the longest
-            # slices), each launched from its C entry point
+            # slices), each launched without the wrapper's casts; the
+            # backward also on the CUDA-core route it had before (tf32x3)
             lq = -(-l // n)
             qs, ks, vs, gs = (t[:, :lq].contiguous() for t in (q, k, v, g))
             out, lse = fl.flash_softmax_matmul(qs, ks, vs, with_lse=True)
-            delta = (gs * out).sum(-1)
-            dq = torch.empty_like(qs)
-            dk, dv = torch.empty_like(ks), torch.empty_like(vs)
-            ins = (qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), gs.data_ptr(),
-                   lse.data_ptr(), delta.data_ptr())
-            dims = (b, lq, lq, c, d, c ** -0.5, 0, 0, 0, 0, 0, 0)
+            _, launch_dq, launch_dkv, plan = fb.launchers(qs, ks, vs, out,
+                                                          lse, gs)
+            _, old_dq, old_dkv, _ = fb.launchers(qs, ks, vs, out, lse, gs,
+                                                 route="f32")
             k_f = cuda_ms(lambda: fl.flash_softmax_matmul(qs, ks, vs,
                                                           with_lse=True),
                           reps=3, warm=1)
-            k_dq = cuda_ms(lambda: fn_dq(*ins, dq.data_ptr(), *dims, stream),
-                           reps=3, warm=1)
-            k_dkv = cuda_ms(lambda: fn_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
-                                           *dims, stream), reps=3, warm=1)
+            k_dq = cuda_ms(launch_dq, reps=3, warm=1)
+            k_dkv = cuda_ms(launch_dkv, reps=3, warm=1)
+            o_dq = cuda_ms(old_dq, reps=2, warm=1)
+            o_dkv = cuda_ms(old_dkv, reps=2, warm=1)
             ops, exps, by = f32_work(b, lq, lq, c, d)
-            bounds = [f32_bound_ms(o, exps, x) for o, x in zip(ops, by)]
-            line = "; ".join(
-                f"{kn} {t * 1e3:.1f} us ({o / t / 1e9:.2f} TFLOP/s, "
-                f"{bd / t:.4f} of its bound {bd * 1e3:.1f} us, {bb})"
-                for kn, t, o, (bd, bb) in zip(("forward", "dq", "dk/dv"),
-                                              (k_f, k_dq, k_dkv), ops,
-                                              bounds))
+            fwd_bound = bound_ms(ops[0], exps, by[0], FP32_FLOP_PER_S)
+            line = [f"forward {k_f * 1e3:.1f} us ({ops[0] / k_f / 1e9:.2f} "
+                    f"TFLOP/s, {fwd_bound[0] / k_f:.4f} of its f32 bound "
+                    f"{fwd_bound[0] * 1e3:.1f} us, {fwd_bound[1]})"]
+            for kn, t, t_old, o, x in (("dq", k_dq, o_dq, ops[1], by[1]),
+                                       ("dk/dv", k_dkv, o_dkv, ops[2],
+                                        by[2])):
+                b3, b1 = (bound_ms(o, exps, x, peak) for peak in
+                          (TF32X3_FLOP_PER_S, FP32_FLOP_PER_S))
+                line.append(
+                    f"{kn} {t * 1e3:.1f} us ({o / t / 1e9:.2f} TFLOP/s, "
+                    f"{b3[0] / t:.4f} of its split-TF32 bound "
+                    f"{b3[0] * 1e3:.1f} us, {b1[0] / t:.4f} of its f32 "
+                    f"bound {b1[0] * 1e3:.1f} us, {b1[1]}; before, the "
+                    f"CUDA-core route: {t_old * 1e3:.1f} us)")
             blocks = fl.kernel_plan(b, lq, lq, c, d, False)["blocks"]
             print(f"    the f32 kernels at one step's shape [{b},{lq},{c}]"
-                  f"x[{b},{lq},{d}] (forward {blocks} blocks): {line}",
-                  flush=True)
+                  f"x[{b},{lq},{d}] (forward {blocks} blocks; backward "
+                  f"{plan.route}, splits dq {plan.splits_dq}, dk/dv "
+                  f"{plan.splits_dkv}): " + "; ".join(line), flush=True)
             ring_ops = [o * n * n for o in f32_work(b, l / n, l / n, c, d)[0]]
             t_b = max(t_fb - t_f, 1e-6)
             print(f"    the ring: forward {t_f:.3f} ms, forward + backward "
@@ -4083,8 +4166,9 @@ def ring_phase(gen):
                   f"TFLOP/s); the plain ring forward + backward "
                   f"{t_pfb:.3f} ms", flush=True)
             times[(name, n)] = dict(fwd=t_f, fb=t_fb, plain_fb=t_pfb,
-                                    k_fwd=k_f, k_dq=k_dq, k_dkv=k_dkv)
-            del qs, ks, vs, gs, out, lse, delta, dq, dk, dv
+                                    k_fwd=k_f, k_dq=k_dq, k_dkv=k_dkv,
+                                    old_dq=o_dq, old_dkv=o_dkv)
+            del qs, ks, vs, gs, out, lse
             torch.cuda.empty_cache()
         # the library call for the whole f32 forward and its gradients
         qs, ks, vs = (t[:, None].detach().clone().requires_grad_()
@@ -4095,15 +4179,27 @@ def ring_phase(gen):
         def lib_fb():
             F.scaled_dot_product_attention(qs, ks, vs).backward(g[:, None])
         lib_fb_ms = cuda_ms(lib_fb, reps=3, warm=1)
+        o = F.scaled_dot_product_attention(qs, ks, vs)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), g[:, None], retain_graph=True), reps=3, warm=1)
+        whole = times[(name, 1)]
         ops, exps, by = f32_work(b, l, l, c, d)
         print(f"  {name}: SDPA f32 (the library call) forward {lib_f:.3f} "
-              f"ms, forward + backward {lib_fb_ms:.3f} ms; unsharded f32 "
+              f"ms, forward + backward {lib_fb_ms:.3f} ms, the backward "
+              f"alone {lib_b:.3f} ms; the kernels' dq + dk/dv "
+              f"{whole['k_dq'] + whole['k_dkv']:.3f} ms (before: "
+              f"{whole['old_dq'] + whole['old_dkv']:.3f} ms); unsharded f32 "
               f"bounds at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s: forward "
-              f"{f32_bound_ms(ops[0], exps, by[0])[0]:.3f} ms, dq "
-              f"{f32_bound_ms(ops[1], exps, by[1])[0]:.3f}, dk/dv "
-              f"{f32_bound_ms(ops[2], exps, by[2])[0]:.3f} ({ops[0] / 1e9:.1f}"
-              f", {ops[1] / 1e9:.1f}, {ops[2] / 1e9:.1f} GFLOP)", flush=True)
-        del q, k, v, g, dense, qs, ks, vs
+              f"{bound_ms(ops[0], exps, by[0], FP32_FLOP_PER_S)[0]:.3f} ms, "
+              f"dq {bound_ms(ops[1], exps, by[1], FP32_FLOP_PER_S)[0]:.3f}, "
+              f"dk/dv {bound_ms(ops[2], exps, by[2], FP32_FLOP_PER_S)[0]:.3f}"
+              f"; at {TF32X3_FLOP_PER_S / 1e12:.0f} (split TF32): dq "
+              f"{bound_ms(ops[1], exps, by[1], TF32X3_FLOP_PER_S)[0]:.3f}, "
+              f"dk/dv "
+              f"{bound_ms(ops[2], exps, by[2], TF32X3_FLOP_PER_S)[0]:.3f} "
+              f"({ops[0] / 1e9:.1f}, {ops[1] / 1e9:.1f}, {ops[2] / 1e9:.1f} "
+              f"GFLOP)", flush=True)
+        del q, k, v, g, dense, qs, ks, vs, o
         torch.cuda.empty_cache()
     return times
 

@@ -22,10 +22,11 @@
 // What bounds it on this card: at GMFlow's widths (C = 128, D = 128 or 2)
 // the products, 2 * B * Lq * Lk * (3C + 2D) operations over both kernels
 // (each recomputes S; dq adds dP and dS . K, dk/dv add dP, P^T . G and
-// dS^T . Q), over the bf16 tensor cores, and the B * Lq * Lk exponentials
-// of each pass over the special-function units; the bytes (q, k, v, g,
-// lse, delta read, dq, dk, dv written) are ~1000x less. So each kernel
-// keeps the [Lq, Lk] tiles out of device memory, and three routes feed it:
+// dS^T . Q), over the tensor cores, and the B * Lq * Lk exponentials of
+// each pass over the special-function units; the bytes (q, k, v, g, lse,
+// delta read, dq, dk, dv written) are ~1000x less. So each kernel keeps
+// the [Lq, Lk] tiles out of device memory, and four routes feed it (the
+// caller, ops/flash_bwd.py:plan, names the route):
 //
 // bf16 at C = 128 and D = 128 or 2 (every GMFlow call): the wgmma route,
 // namespace sm90. One block of two warpgroups (256 threads) per (batch
@@ -79,10 +80,40 @@
 //   directly, so P^T (bf16) and dS^T (bf16) are A fragments of dv += P^T .
 //   G and dk += dS^T . Q. D == 2: dP and dv on the CUDA cores.
 //
-// f32 operands (f32 models, the card-vs-CPU parity runs): f32 FMA on the
-// CUDA cores, no TF32: one thread per output row (64 a block), its row's
-// accumulators in shared memory, the other side's tiles read by every
-// thread at the same address (broadcast).
+// f32 at C = 128 and D = 128 or 2 (every sequence-parallel ring step, and
+// every flash call of an f32 GMFlow): the tf32x3 route, namespace tf32x3.
+// Each C- and D-wide product runs on the tensor cores in split TF32: an
+// operand x is split in registers into hi = x rounded to TF32 (ties away)
+// and lo = x - hi (exact in f32; the tensor cores read its top 10 mantissa
+// bits), and a b is summed as a_lo b_hi + a_hi b_lo + a_hi b_hi with
+// mma.sync m16n8k8, accumulated in f32 (the lo * lo term and the bits of
+// lo that the cores drop are ~2^-21 of |a||b|). One warp owns 16 output
+// rows and keeps them in registers; the block's resident rows (Q and G
+// for dq, K and V for dk/dv: 64 rows at D = 2, 128 at D = 128) and a
+// 2-stage ring of the other side's tiles (64 rows at D = 2, 32 at D = 128;
+// with lse and delta for dk/dv) come in by 16-byte cp.async, rows past L
+// zero-filled. Shared rows are 132 floats: every fragment load, of a row
+// (S = Q K^T) or of a column (dS . K), hits 32 banks. dS's accumulator
+// fragments are the A fragments of the next product (its keys relabelled
+// within each k8 step), so P and dS stay in registers; exponentials as
+// ex2.approx on log2(e)-scaled scores; at D = 2, dP and dv on the CUDA
+// cores in f32. Where the card would hold less than one wave of resident
+// blocks, the other side's sweep is split (plan's splits): each split
+// writes f32 partial sums to a scratch, and a second launch sums them in
+// split order, so no atomics and the same bits every launch. Why not
+// wgmma: its tf32 operands are read K-major only, so the products over
+// the key or query axis (dS . K, dS^T . Q, P^T . G) would need transposed
+// copies, and hi and lo pieces of each, in shared memory: four times a
+// stage's bytes, past 227 KB at 64-row tiles. mma.sync loads every
+// fragment from one row-major copy and splits it in registers.
+// Registers (ptxas): dq 181 at D = 2, 183 at D = 128; dk/dv 184 and 239;
+// no spills. Shared memory a block: dq 102,400 / 202,752 bytes, dk/dv
+// 103,424 / 203,264: two blocks an SM at D = 2, one at D = 128.
+//
+// Other f32 widths (C % 16 == 0, C <= 128; D = 2 or D % 16 == 0): f32 FMA
+// on the CUDA cores, no TF32: one thread per output row (64 a block), its
+// row's accumulators in shared memory, the other side's tiles read by
+// every thread at the same address (broadcast).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1004,6 +1035,529 @@ static int launch_dq(const void* q, const void* k, const void* v,
 }  // namespace sm90
 
 // ---------------------------------------------------------------------------
+// f32 operands at C = 128 and D = 128 or 2: the tf32x3 route
+// ---------------------------------------------------------------------------
+
+namespace tf32x3 {
+
+using namespace hopper;
+
+constexpr int W = 128;        // C, and D where D = 128
+constexpr int STR = W + 4;    // floats a shared row: conflict-free fragments
+constexpr int STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The block of each width: warps (16 output rows each), the resident rows,
+// the streamed rows a ring stage and their 8-wide tiles of S.
+template <bool P2>
+struct Cfg {
+  static constexpr int NW = P2 ? 4 : 8;
+  static constexpr int THREADS = NW * 32;
+  static constexpr int BROWS = NW * 16;
+  static constexpr int TILE = P2 ? 64 : 32;
+  static constexpr int NT = TILE / 8;
+  // floats: the resident rows (the C-wide side, and the D-wide one at D =
+  // 128), then a ring stage (the streamed C-wide tile, the D-wide tile or
+  // its pairs (PAY), and for dk/dv lse and delta)
+  static constexpr int RES = BROWS * STR * (P2 ? 1 : 2);
+  static constexpr int PAY = P2 ? 2 * TILE : TILE * STR;
+  static constexpr int STAGE_DQ = TILE * STR + PAY;
+  static constexpr int STAGE_DKV = STAGE_DQ + 2 * TILE;
+  static constexpr size_t SMEM_DQ = sizeof(float) * (RES + STAGES * STAGE_DQ);
+  static constexpr size_t SMEM_DKV =
+      sizeof(float) * (RES + STAGES * STAGE_DKV);
+};
+
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src,
+                                           uint32_t nbytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(nbytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + n) of a [L, 128] f32 matrix into [n][STR] shared rows;
+// rows past L are zeros.
+template <int T>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int n, int L) {
+  for (int i = threadIdx.x; i < n * 32; i += T) {
+    const int r = i >> 5, c = (i & 31) * 4;
+    const bool ok = r0 + r < L;
+    cp_async_16(dst + r * STR + c, ok ? src + (long long)(r0 + r) * W + c : src,
+                ok ? 16u : 0u);
+  }
+}
+
+// Rows [r0, r0 + n) of a [L, E] f32 matrix, E = 1 or 2 (lse and delta,
+// the D = 2 payloads), packed; rows past L are zeros.
+template <int T, int E>
+__device__ __forceinline__ void load_small(float* dst, const float* src,
+                                           int r0, int n, int L) {
+  for (int i = threadIdx.x; i < n; i += T) {
+    const bool ok = r0 + i < L;
+    const float* at = ok ? src + (long long)(r0 + i) * E : src;
+    if constexpr (E == 2)
+      cp_async_8(dst + 2 * i, at, ok ? 8u : 0u);
+    else
+      cp_async_4(dst + i, at, ok ? 4u : 0u);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x = hi + lo: hi rounded to TF32 (to nearest, ties away from zero: its
+// low 13 bits cleared), lo = x - hi exactly (the tensor cores read lo's
+// top 10 mantissa bits).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in split TF32, the small products first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// acc[16 x 8NT] = A . B^T over the 128 columns: a the warp's first row of
+// a [.][STR] resident tile, b the first of the ring tile's 8NT rows. Per
+// k8 step the A fragment holds rows g, g + 8 at columns t, t + 4 and the
+// B fragment row 8n + g at the same columns.
+template <int NT>
+__device__ __forceinline__ void prod_rows(float (&acc)[NT][4], const float* a,
+                                          const float* b, int gq, int t) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < W / 8; ++kk) {
+    const float* ap = a + gq * STR + kk * 8 + t;
+    uint32_t ah[4], al[4];
+    split(ap[0], ah[0], al[0]);
+    split(ap[8 * STR], ah[1], al[1]);
+    split(ap[4], ah[2], al[2]);
+    split(ap[8 * STR + 4], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* bp = b + (8 * n + gq) * STR + kk * 8 + t;
+      uint32_t bh0, bl0, bh1, bl1;
+      split(bp[0], bh0, bl0);
+      split(bp[4], bh1, bl1);
+      mma3(acc[n], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// acc[16 x 128] += P . B: P[16 x 8NK] in accumulator fragments (rows g, g
+// + 8; columns 8j + 2t, 2t + 1), B the ring tile's 8NK rows. Within k8
+// step j the A fragment's column t is P's column 8j + 2t and t + 4 is 8j
+// + 2t + 1; B's rows follow the same order.
+template <int NK>
+__device__ __forceinline__ void prod_pb(float (&acc)[W / 8][4],
+                                        const float (&p)[NK][4],
+                                        const float* b, int gq, int t) {
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    uint32_t ah[4], al[4];
+    split(p[j][0], ah[0], al[0]);
+    split(p[j][2], ah[1], al[1]);
+    split(p[j][1], ah[2], al[2]);
+    split(p[j][3], ah[3], al[3]);
+    const float* bp = b + (8 * j + 2 * t) * STR + gq;
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split(bp[8 * n], bh0, bl0);
+      split(bp[STR + 8 * n], bh1, bl1);
+      mma3(acc[n], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// rows row0 and row0 + 8 of a [16 x 128] accumulator, times mult, into a
+// [., 128] f32 matrix at `out` (rows at or past L skipped)
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&acc)[W / 8][4],
+                                           int row0, int L, int t,
+                                           float mult) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row0 + 8 * r >= L) continue;
+    float* o = out + (long long)(row0 + 8 * r) * W + 2 * t;
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+      *reinterpret_cast<float2*>(o + 8 * n) =
+          make_float2(acc[n][2 * r] * mult, acc[n][2 * r + 1] * mult);
+  }
+}
+
+// dq: one block per (BROWS queries, split of the key tiles, batch entry).
+// The block's Q (and G at D = 128) rows are resident; the key tiles
+// [split * per, split * per + per) stream. With one split the block
+// writes dq = scale * sum; with more, its partial sum (unscaled) into
+// dq[split] of a [splits, B, Lq, 128] scratch.
+template <bool P2>
+__global__ void __launch_bounds__(Cfg<P2>::THREADS, P2 ? 2 : 1)
+flash_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ g,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int Lq, int Lk, float scale, Swin sw, int per) {
+  using K = Cfg<P2>;
+  constexpr int TILE = K::TILE, NT = K::NT, T = K::THREADS;
+  constexpr int SF = K::STAGE_DQ;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                              // [BROWS][STR]
+  float* gs = fsm + K::BROWS * STR;             // [BROWS][STR] (D = 128)
+  float* ring = fsm + K::RES;                   // STAGES x SF
+  const int b = blockIdx.z, split_i = blockIdx.y, q0 = blockIdx.x * K::BROWS;
+  const int all = (Lk + TILE - 1) / TILE;
+  const int first = split_i * per;
+  const int n_tiles = min(all, first + per) - first;
+  const float* kb = k + (long long)b * Lk * W;
+  const float* vb = v + (long long)b * Lk * (P2 ? 2 : W);
+
+  auto load_tile = [&](int it) {
+    float* st = ring + (it % STAGES) * SF;
+    const int k0 = (first + it) * TILE;
+    load_rows<T>(st, kb, k0, TILE, Lk);
+    if constexpr (P2)
+      load_small<T, 2>(st + TILE * STR, vb, k0, TILE, Lk);
+    else
+      load_rows<T>(st + TILE * STR, vb, k0, TILE, Lk);
+  };
+  load_rows<T>(qs, q + (long long)b * Lq * W, q0, K::BROWS, Lq);
+  if constexpr (!P2)
+    load_rows<T>(gs, g + (long long)b * Lq * W, q0, K::BROWS, Lq);
+  load_tile(0);
+  cp_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + gq;             // rows row0, row0 + 8
+  const bool idle = q0 + warp * 16 >= Lq;
+  bool last_y, last_x;
+  const bool masked = swin_window(sw, b, &last_y, &last_x);
+  int qreg[2] = {0, 0};
+  bool qok[2];
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  float2 g2[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    qok[r] = row < Lq;
+    if (masked) qreg[r] = swin_region(sw, last_y, last_x, row);
+    if (qok[r]) {
+      lse2[r] = lse[(long long)b * Lq + row] * LOG2E;
+      dl[r] = delta[(long long)b * Lq + row];
+      if (P2)
+        g2[r] = *reinterpret_cast<const float2*>(g + ((long long)b * Lq + row)
+                                                 * 2);
+    }
+  }
+  const float scale2 = scale * LOG2E, mask2 = 100.f * LOG2E;
+  float acc[W / 8][4];
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_tile(it + 1);
+    cp_commit();
+    cp_wait<1>();       // tile it (and the resident rows) landed
+    __syncthreads();
+    const float* st = ring + (it % STAGES) * SF;
+    if (!idle) {
+      const int k0 = (first + it) * TILE;
+      // S = Q K^T and (D = 128) dP = G V^T: 16 queries x TILE keys
+      float s[NT][4], dp[P2 ? 1 : NT][4];
+      prod_rows<NT>(s, qs + warp * 16 * STR, st, gq, t);
+      if constexpr (!P2)
+        prod_rows<NT>(dp, gs + warp * 16 * STR, st + TILE * STR, gq, t);
+      // ds = p (dp - delta) into s
+      const uint32_t cregs =
+          masked ? sm90::col_regions(sw, last_y, last_x, k0, t) : 0u;
+      const float2* vp = reinterpret_cast<const float2*>(st + TILE * STR);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ce = e & 1, r = e >> 1, kl = 8 * j + 2 * t + ce;
+          float x = fmaf(s[j][e], scale2, -lse2[r]);
+          if (masked && sm90::other_region(cregs, j, e, qreg[r])) x -= mask2;
+          const float p = qok[r] && k0 + kl < Lk ? ex2(x) : 0.f;
+          float dpv;
+          if constexpr (P2)
+            dpv = fmaf(g2[r].x, vp[kl].x, g2[r].y * vp[kl].y);
+          else
+            dpv = dp[j][e];
+          s[j][e] = p * (dpv - dl[r]);
+        }
+      }
+      // dq += dS K
+      prod_pb<NT>(acc, s, st, gq, t);
+    }
+    __syncthreads();    // the stage is consumed before it is refilled
+  }
+  if (idle) return;
+  const bool whole = gridDim.y == 1;
+  store_rows(dq + (long long)(split_i * gridDim.z + b) * Lq * W, acc, row0, Lq,
+             t, whole ? scale : 1.f);
+}
+
+// dk and dv: one block per (BROWS keys, split of the query tiles, batch
+// entry). The block's K (and V at D = 128) rows are resident; the query
+// tiles stream with their lse and delta. With one split the block writes
+// dk = scale * sum and dv; with more, its partial sums (unscaled) into
+// dk[split] and dv[split] of [splits, B, Lk, 128 | D] scratches.
+template <bool P2>
+__global__ void __launch_bounds__(Cfg<P2>::THREADS, P2 ? 2 : 1)
+flash_bwd_dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ g,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int Lq, int Lk, float scale,
+                   Swin sw, int per) {
+  using K = Cfg<P2>;
+  constexpr int TILE = K::TILE, NT = K::NT, T = K::THREADS;
+  constexpr int SF = K::STAGE_DKV, PAY = K::PAY;   // PAY: the D-wide tile
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm;                              // [BROWS][STR]
+  float* vs = fsm + K::BROWS * STR;             // [BROWS][STR] (D = 128)
+  float* ring = fsm + K::RES;
+  const int b = blockIdx.z, split_i = blockIdx.y, k0 = blockIdx.x * K::BROWS;
+  const int all = (Lq + TILE - 1) / TILE;
+  const int first = split_i * per;
+  const int n_tiles = min(all, first + per) - first;
+  const float* qb = q + (long long)b * Lq * W;
+  const float* gb = g + (long long)b * Lq * (P2 ? 2 : W);
+  const float* lb = lse + (long long)b * Lq;
+  const float* db = delta + (long long)b * Lq;
+
+  auto load_tile = [&](int it) {
+    float* st = ring + (it % STAGES) * SF;
+    const int q0 = (first + it) * TILE;
+    load_rows<T>(st, qb, q0, TILE, Lq);
+    if constexpr (P2)
+      load_small<T, 2>(st + TILE * STR, gb, q0, TILE, Lq);
+    else
+      load_rows<T>(st + TILE * STR, gb, q0, TILE, Lq);
+    load_small<T, 1>(st + TILE * STR + PAY, lb, q0, TILE, Lq);
+    load_small<T, 1>(st + TILE * STR + PAY + TILE, db, q0, TILE, Lq);
+  };
+  load_rows<T>(ks, k + (long long)b * Lk * W, k0, K::BROWS, Lk);
+  if constexpr (!P2)
+    load_rows<T>(vs, v + (long long)b * Lk * W, k0, K::BROWS, Lk);
+  load_tile(0);
+  cp_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int row0 = k0 + warp * 16 + gq;             // keys row0, row0 + 8
+  const bool idle = k0 + warp * 16 >= Lk;
+  bool last_y, last_x;
+  const bool masked = swin_window(sw, b, &last_y, &last_x);
+  int kreg[2] = {0, 0};
+  bool kok[2];
+  float2 v2[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = row0 + 8 * r;
+    kok[r] = key < Lk;
+    if (masked) kreg[r] = swin_region(sw, last_y, last_x, key);
+    if (P2 && kok[r])
+      v2[r] = *reinterpret_cast<const float2*>(v + ((long long)b * Lk + key)
+                                               * 2);
+  }
+  const float scale2 = scale * LOG2E, mask2 = 100.f * LOG2E;
+  float dka[W / 8][4], dva[P2 ? 1 : W / 8][4];
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (P2 ? 1 : W / 8); ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[i][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_tile(it + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const float* st = ring + (it % STAGES) * SF;
+    if (!idle) {
+      const int q0 = (first + it) * TILE;
+      const float* gt = st + TILE * STR;
+      const float2* lse_2 = reinterpret_cast<const float2*>(gt + PAY);
+      const float2* del_2 = reinterpret_cast<const float2*>(gt + PAY + TILE);
+      // S^T = K Q^T and (D = 128) dP^T = V G^T: 16 keys x TILE queries
+      float st_[NT][4], dpt[NT][4];
+      prod_rows<NT>(st_, ks + warp * 16 * STR, st, gq, t);
+      if constexpr (!P2)
+        prod_rows<NT>(dpt, vs + warp * 16 * STR, gt, gq, t);
+      // p^T into st_ (D = 128), ds^T into dpt; at D = 2, dP^T and dv on
+      // the CUDA cores from the pairs
+      const uint32_t cregs =
+          masked ? sm90::col_regions(sw, last_y, last_x, q0, t) : 0u;
+      const float2* gp = reinterpret_cast<const float2*>(gt);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 l = lse_2[c >> 1], dl = del_2[c >> 1];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ce = e & 1, r = e >> 1;
+          float x = fmaf(ce ? l.y : l.x, -LOG2E, st_[j][e] * scale2);
+          if (masked && sm90::other_region(cregs, j, e, kreg[r])) x -= mask2;
+          const float p = kok[r] && q0 + c + ce < Lq ? ex2(x) : 0.f;
+          float dp;
+          if constexpr (P2) {
+            const float2 gg = gp[c + ce];
+            dp = fmaf(gg.x, v2[r].x, gg.y * v2[r].y);
+            dva[0][2 * r] = fmaf(p, gg.x, dva[0][2 * r]);
+            dva[0][2 * r + 1] = fmaf(p, gg.y, dva[0][2 * r + 1]);
+          } else {
+            dp = dpt[j][e];
+          }
+          st_[j][e] = p;
+          dpt[j][e] = p * (dp - (ce ? dl.y : dl.x));
+        }
+      }
+      // dv += P^T G (D = 128) and dk += dS^T Q
+      if constexpr (!P2) prod_pb<NT>(dva, st_, gt, gq, t);
+      prod_pb<NT>(dka, dpt, st, gq, t);
+    }
+    __syncthreads();
+  }
+  if (idle) return;
+  const bool whole = gridDim.y == 1;
+  const long long part = (long long)(split_i * gridDim.z + b) * Lk;
+  store_rows(dk + part * W, dka, row0, Lk, t, whole ? scale : 1.f);
+  if constexpr (P2) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dva[0][e] += __shfl_xor_sync(0xffffffffu, dva[0][e], 1);
+      dva[0][e] += __shfl_xor_sync(0xffffffffu, dva[0][e], 2);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (kok[r])
+          *reinterpret_cast<float2*>(dv + (part + row0 + 8 * r) * 2) =
+              make_float2(dva[0][2 * r], dva[0][2 * r + 1]);
+    }
+  } else {
+    store_rows(dv + part * W, dva, row0, Lk, t, 1.f);
+  }
+}
+
+// out[i] = mult * (part[0][i] + part[1][i] + ... + part[splits - 1][i]),
+// summed in that order
+__global__ void __launch_bounds__(256)
+reduce_splits(const float* __restrict__ part, float* __restrict__ out,
+              long long n, int splits, float mult) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n;
+       i += (long long)gridDim.x * 256) {
+    float s = part[i];
+    for (int p = 1; p < splits; ++p) s += part[p * n + i];
+    out[i] = s * mult;
+  }
+}
+
+// The widths this route takes: C = 128 and D = 128 or 2, B * L within
+// int32 rows.
+static bool takes(int B, int Lq, int Lk, int C, int D) {
+  return C == 128 && (D == 128 || D == 2) &&
+         (long long)B * (Lq > Lk ? Lq : Lk) < (1ll << 31);
+}
+
+// The sweep of `L_other` rows cut into `splits` runs of whole tiles: the
+// tiles a split takes, or 0 if `splits` is not the number of runs that
+// length gives (the caller's plan and this route disagree).
+static int tiles_per_split(int L_other, int tile, int splits) {
+  const int all = (L_other + tile - 1) / tile;
+  if (splits < 1 || splits > all) return 0;
+  const int per = (all + splits - 1) / splits;
+  return (all + per - 1) / per == splits ? per : 0;
+}
+
+template <bool P2>
+static int launch_dq(const void* q, const void* k, const void* v,
+                     const void* g, const void* lse, const void* delta,
+                     void* dq, int B, int Lq, int Lk, float scale, Swin sw,
+                     int splits, cudaStream_t st) {
+  using K = Cfg<P2>;
+  const int per = tiles_per_split(Lk, K::TILE, splits);
+  if (!per) return (int)cudaErrorInvalidValue;
+  const size_t smem = K::SMEM_DQ;
+  int e;
+  if ((e = (int)cudaFuncSetAttribute(
+           flash_bwd_dq_tf32<P2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)smem)))
+    return e;
+  const dim3 grid((unsigned)((Lq + K::BROWS - 1) / K::BROWS), (unsigned)splits,
+                  (unsigned)B);
+  flash_bwd_dq_tf32<P2><<<grid, K::THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
+      (const float*)lse, (const float*)delta, (float*)dq, Lq, Lk, scale, sw,
+      per);
+  return (int)cudaGetLastError();
+}
+
+template <bool P2>
+static int launch_dkv(const void* q, const void* k, const void* v,
+                      const void* g, const void* lse, const void* delta,
+                      void* dk, void* dv, int B, int Lq, int Lk, float scale,
+                      Swin sw, int splits, cudaStream_t st) {
+  using K = Cfg<P2>;
+  const int per = tiles_per_split(Lq, K::TILE, splits);
+  if (!per) return (int)cudaErrorInvalidValue;
+  const size_t smem = K::SMEM_DKV;
+  int e;
+  if ((e = (int)cudaFuncSetAttribute(
+           flash_bwd_dkv_tf32<P2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)smem)))
+    return e;
+  const dim3 grid((unsigned)((Lk + K::BROWS - 1) / K::BROWS), (unsigned)splits,
+                  (unsigned)B);
+  flash_bwd_dkv_tf32<P2><<<grid, K::THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, Lq, Lk,
+      scale, sw, per);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32x3
+
+// ---------------------------------------------------------------------------
 // f32 operands: one thread per output row
 // ---------------------------------------------------------------------------
 
@@ -1218,32 +1772,60 @@ static bool valid(int B, int Lq, int Lk, int C, int D, int swin_k) {
          (D == 2 || (D % 16 == 0 && D >= 16 && D <= DMAX)) && swin_k >= 0;
 }
 
+// The routes, as ops/flash_bwd.py:ROUTES names them.
+enum Route { F32 = 0, TF32X3 = 1, MMA_SYNC = 2, WGMMA = 3 };
+
+// Whether `route` takes these operands (bf16 or f32) and widths.
+static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
+                        int D) {
+  switch (route) {
+    case F32: return !is_bf16;
+    case TF32X3: return !is_bf16 && tf32x3::takes(B, Lq, Lk, C, D);
+    case MMA_SYNC: return is_bf16;
+    case WGMMA: return is_bf16 && sm90::takes(B, Lq, Lk, C, D);
+    default: return false;
+  }
+}
+
 // q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], g [B, Lq, D]: all bf16 or all
 // f32, contiguous, 16-byte aligned; lse and delta [B, Lq] f32; dq [B, Lq, C]
 // f32. swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the
 // forward's. Takes C % 16 == 0, C <= 128, and D == 2 or D % 16 == 0,
-// D <= 128. Returns cudaGetLastError() after the launch (0 on success).
+// D <= 128, on the route the caller names (enum Route; the tf32x3 route
+// C = 128 and D = 128 or 2, the wgmma route the same in bf16). splits > 1
+// (the tf32x3 route only) cuts the key sweep into that many runs of whole
+// tiles: dq is then a [splits, B, Lq, C] scratch of unscaled partial
+// sums, for ofd_flash_bwd_reduce. Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* g, const void* lse,
                                 const void* delta, void* dq, int B, int Lq,
                                 int Lk, int C, int D, float scale, int swin_k,
                                 int wh, int ww, int sh, int swd, int is_bf16,
-                                void* stream) {
-  if (!valid(B, Lq, Lk, C, D, swin_k)) return (int)cudaErrorInvalidValue;
+                                int route, int splits, void* stream) {
+  if (!valid(B, Lq, Lk, C, D, swin_k) ||
+      !route_takes(route, is_bf16, B, Lq, Lk, C, D) ||
+      (splits != 1 && route != TF32X3))
+    return (int)cudaErrorInvalidValue;
   Swin sw{swin_k, wh, ww, sh, swd};
   void* args[] = {(void*)&q,  (void*)&k,  (void*)&v, (void*)&g,
                   (void*)&lse, (void*)&delta, (void*)&dq, (void*)&Lq,
                   (void*)&Lk, (void*)&C,  (void*)&D, (void*)&scale,
                   (void*)&sw};
   cudaStream_t st = (cudaStream_t)stream;
-  if (!is_bf16) {
+  if (route == TF32X3)
+    return D == 2 ? tf32x3::launch_dq<true>(q, k, v, g, lse, delta, dq, B,
+                                            Lq, Lk, scale, sw, splits, st)
+                  : tf32x3::launch_dq<false>(q, k, v, g, lse, delta, dq, B,
+                                             Lq, Lk, scale, sw, splits, st);
+  if (route == F32) {
     const size_t smem = sizeof(float) * ((size_t)F32_ROWS * (2 * (C + 1) +
                                                              (D + 1)) +
                                          (size_t)F32_T * (C + D));
     const dim3 grid((unsigned)((Lq + F32_ROWS - 1) / F32_ROWS), (unsigned)B);
     return launch(flash_bwd_dq_f32, grid, F32_ROWS, smem, st, args);
   }
-  if (sm90::takes(B, Lq, Lk, C, D))
+  if (route == WGMMA)
     return D == 2 ? sm90::launch_dq<true>(q, k, v, g, lse, delta, dq, B, Lq,
                                           Lk, scale, sw, st)
                   : sm90::launch_dq<false>(q, k, v, g, lse, delta, dq, B, Lq,
@@ -1258,28 +1840,40 @@ extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
                 args);
 }
 
-// As ofd_flash_bwd_dq; dk [B, Lk, C] and dv [B, Lk, D] f32.
+// As ofd_flash_bwd_dq; dk [B, Lk, C] and dv [B, Lk, D] f32. splits > 1 cuts
+// the query sweep: dk and dv are then [splits, B, Lk, C | D] scratches of
+// unscaled partial sums.
 extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
                                  const void* delta, void* dk, void* dv, int B,
                                  int Lq, int Lk, int C, int D, float scale,
                                  int swin_k, int wh, int ww, int sh, int swd,
-                                 int is_bf16, void* stream) {
-  if (!valid(B, Lq, Lk, C, D, swin_k)) return (int)cudaErrorInvalidValue;
+                                 int is_bf16, int route, int splits,
+                                 void* stream) {
+  if (!valid(B, Lq, Lk, C, D, swin_k) ||
+      !route_takes(route, is_bf16, B, Lq, Lk, C, D) ||
+      (splits != 1 && route != TF32X3))
+    return (int)cudaErrorInvalidValue;
   Swin sw{swin_k, wh, ww, sh, swd};
   void* args[] = {(void*)&q,  (void*)&k,     (void*)&v,  (void*)&g,
                   (void*)&lse, (void*)&delta, (void*)&dk, (void*)&dv,
                   (void*)&Lq, (void*)&Lk,    (void*)&C,  (void*)&D,
                   (void*)&scale, (void*)&sw};
   cudaStream_t st = (cudaStream_t)stream;
-  if (!is_bf16) {
+  if (route == TF32X3)
+    return D == 2 ? tf32x3::launch_dkv<true>(q, k, v, g, lse, delta, dk, dv,
+                                             B, Lq, Lk, scale, sw, splits, st)
+                  : tf32x3::launch_dkv<false>(q, k, v, g, lse, delta, dk, dv,
+                                              B, Lq, Lk, scale, sw, splits,
+                                              st);
+  if (route == F32) {
     const size_t smem = sizeof(float) * ((size_t)F32_ROWS * (2 * (C + 1) +
                                                              2 * (D + 1)) +
                                          (size_t)F32_T * (C + D));
     const dim3 grid((unsigned)((Lk + F32_ROWS - 1) / F32_ROWS), (unsigned)B);
     return launch(flash_bwd_dkv_f32, grid, F32_ROWS, smem, st, args);
   }
-  if (sm90::takes(B, Lq, Lk, C, D))
+  if (route == WGMMA)
     return D == 2 ? sm90::launch_dkv<true>(q, k, v, g, lse, delta, dk, dv, B,
                                            Lq, Lk, scale, sw, st)
                   : sm90::launch_dkv<false>(q, k, v, g, lse, delta, dk, dv, B,
@@ -1292,4 +1886,16 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return launch(flash_bwd_dkv_bf16<false>, grid, WARPS * 32,
                 tiles + (size_t)(ROWS + QT) * (D + PAD) * sizeof(bf16), st,
                 args);
+}
+
+// out [n] = mult * the sum over the `splits` partials of part [splits, n],
+// in split order (the tf32x3 route's split sweeps).
+extern "C" int ofd_flash_bwd_reduce(const void* part, void* out, long long n,
+                                    int splits, float mult, void* stream) {
+  if (n < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n + 255) / 256;
+  tf32x3::reduce_splits<<<(unsigned)(blocks < 1056 ? blocks : 1056), 256, 0,
+                          (cudaStream_t)stream>>>(
+      (const float*)part, (float*)out, n, splits, mult);
+  return (int)cudaGetLastError();
 }

@@ -11,19 +11,24 @@ two-pass flash backward of ``softmax(q k^T * scale [+ Swin]) v``:
     dq = ds k * scale,   dk = ds^T q * scale
 
 CUDA tensors launch the two hand-written kernels of ``csrc/flash_bwd.cu``
-(dq: one block per (batch, query tile) sweeping the key tiles; dk and dv:
-one block per (batch, key tile) sweeping the query tiles; no atomics, so
+(dq: blocks over (batch, query rows) sweeping the key tiles; dk and dv:
+blocks over (batch, key rows) sweeping the query tiles; no atomics, so
 every gradient is bit-reproducible); CPU tensors take
-:func:`flash_backward_plain`. The C entry points pick the route: bf16 at
-C = 128 with D = 128 or 2 (GMFlow's widths) the ``wgmma`` route (TMA, a
-ring of tiles, two warpgroups); other bf16 widths the ``mma.sync``
-route; f32 the CUDA-core kernels. Nothing falls back: a CUDA input that
-no route takes raises.
+:func:`flash_backward_plain`. :func:`plan` picks the route from the dtype
+and widths: bf16 at C = 128 with D = 128 or 2 (GMFlow's widths) the
+``wgmma`` route (TMA, a ring of tiles, two warpgroups); other bf16 widths
+the ``mma.sync`` route; f32 at the same widths (every sequence-parallel
+ring step, every f32 GMFlow call) the ``tf32x3`` route (split-TF32
+``mma.sync`` products, whose sweep it splits where the card would
+otherwise hold less than one wave of blocks, the partial sums reduced in
+a fixed order); other f32 widths the CUDA-core kernels. Nothing falls
+back: a CUDA input that no route takes raises.
 
 The operand dtype is q's, as in the forward: bf16 rounds what the TPU
 kernels round (q, k, v, g to bf16, ``p`` to bf16 before ``p^T g`` and
-``ds`` to bf16 before both of its products), f32 rounds nothing. The
-gradients come back in f32.
+``ds`` to bf16 before both of its products), f32 rounds nothing but what
+the split-TF32 products drop (:func:`flash_backward_tf32` repeats them).
+The gradients come back in f32.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -79,6 +84,61 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.matmul(p.transpose(1, 2), gf)
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(1, 2), qf) * scale
+    return dq, dk, dv
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` -> (hi, lo) as the tf32x3 route splits an operand: hi is
+    x rounded to TF32 (to nearest, ties away from zero: 0x1000 added to
+    its bits, the low 13 cleared), lo = x - hi (exact in f32) as the
+    tensor cores read it (its low 13 bits dropped). hi + lo is x to within
+    2^-21 of |x|."""
+    x = x.float().contiguous()
+    hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor,
+                terms: int = 3) -> torch.Tensor:
+    """``a @ b`` from split-TF32 pieces, in f32: ``a_hi b_hi + a_hi b_lo +
+    a_lo b_hi`` (``terms=3``, the tf32x3 route's products) or ``a_hi b_hi``
+    alone (``terms=1``, plain TF32). Each piece's products are exact in
+    f32; only the order of the sums differs from the kernel's."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    out = torch.matmul(ah, bh)
+    if terms == 3:
+        out = out + (torch.matmul(al, bh) + torch.matmul(ah, bl))
+    return out
+
+
+def flash_backward_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        g: torch.Tensor, scale: Optional[float] = None,
+                        swin: Optional[Swin] = None, terms: int = 3) -> Grads:
+    """The tf32x3 route's arithmetic in plain PyTorch (f32 operands, C =
+    128, D = 128 or 2): as :func:`flash_backward_plain` in f32, but every
+    C- and D-wide product through :func:`matmul_tf32` (``terms`` pieces);
+    at D = 2 ``dp`` and ``dv`` stay plain f32, as the kernels take them on
+    the CUDA cores. ``terms=1`` shows what plain TF32 products would lose."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[2])
+    d = v.shape[2]
+    delta = (g.float() * out.float()).sum(-1, keepdim=True)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = matmul_tf32(qf, kf.transpose(1, 2), terms) * scale
+    if swin is not None:
+        s = s + swin_mask_dense(kf.shape[1], swin, qf.shape[0], qf.device)
+    p = torch.exp(s - lse.float()[..., None])
+    if d == 2:
+        dp = torch.matmul(gf, vf.transpose(1, 2))
+        dv = torch.matmul(p.transpose(1, 2), gf)
+    else:
+        dp = matmul_tf32(gf, vf.transpose(1, 2), terms)
+        dv = matmul_tf32(p.transpose(1, 2), gf, terms)
+    ds = p * (dp - delta)
+    dq = matmul_tf32(ds, kf, terms) * scale
+    dk = matmul_tf32(ds.transpose(1, 2), qf, terms) * scale
     return dq, dk, dv
 
 
@@ -135,23 +195,148 @@ def bwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tol_dq, tol_dk, tol_dv
 
 
+# The routes and their codes in the C entry points (csrc/flash_bwd.cu,
+# enum Route).
+ROUTES = {"f32": 0, "tf32x3": 1, "mma_sync": 2, "wgmma": 3}
+H100_SMS = 132
+SMEM_SM = 233472        # shared memory of an SM that blocks may take
+SMEM_RESERVED = 1024    # the system's share of it for each block
+MAX_SPLITS = 16         # runs of a split sweep at most (its scratch)
+RUN_OVERHEAD = 2        # a block's fixed work (its resident rows, its
+                        # partial sums out and back in), in tiles
+TF32_STRIDE = 132       # floats a shared row of the tf32x3 route
+
+
+class BwdPlan(NamedTuple):
+    """How the two kernels run one call: the ``route``; for the tf32x3
+    route the output rows a block (``rows``), the other side's rows a
+    ring tile (``tile``), each kernel's shared memory a block
+    (``smem``: dq, dk/dv, bytes) and blocks an SM, the runs that each
+    sweep is cut into (``splits_dq`` over the keys, ``splits_dkv`` over
+    the queries; each kernel's grid is (row blocks, splits, B)), and the
+    f32 scratch shapes of the partial sums where a sweep is split (dq
+    ``[splits, B, Lq, C]``, dk ``[splits, B, Lk, C]``, dv ``[splits, B,
+    Lk, D]``; None where not)."""
+    route: str
+    rows: int = 0
+    tile: int = 0
+    smem: Tuple[int, int] = (0, 0)
+    blocks_per_sm: int = 0
+    splits_dq: int = 1
+    splits_dkv: int = 1
+    scratch_dq: Optional[Tuple[int, ...]] = None
+    scratch_dk: Optional[Tuple[int, ...]] = None
+    scratch_dv: Optional[Tuple[int, ...]] = None
+
+
+def tf32_blocks(d: int) -> Tuple[int, int, int]:
+    """The tf32x3 route's block at D = d (``tf32x3::Cfg``): (output rows,
+    streamed rows a tile, blocks an SM by its launch bounds). D = 2: 4
+    warps, 64-row tiles, two blocks an SM; D = 128: 8 warps (dK's and
+    dV's accumulators), 32-row tiles, one."""
+    return (64, 64, 2) if d == 2 else (128, 32, 1)
+
+
+def tf32_smem(d: int, dkv: bool) -> int:
+    """Shared memory of a tf32x3 block (``Cfg::smem_bytes``): the resident
+    rows (the C-wide side, and at D = 128 the D-wide one) and two ring
+    stages (the streamed C-wide tile, its D-wide tile or pairs, and for
+    dk/dv lse and delta), rows of TF32_STRIDE floats."""
+    rows, tile, _ = tf32_blocks(d)
+    res = rows * TF32_STRIDE * (1 if d == 2 else 2)
+    stage = tile * TF32_STRIDE + (2 * tile if d == 2 else tile * TF32_STRIDE)
+    return 4 * (res + 2 * (stage + (2 * tile if dkv else 0)))
+
+
+def split_count(blocks: int, tiles: int, slots: int) -> int:
+    """How many runs to cut a sweep of ``tiles`` tiles into, for ``blocks``
+    blocks (batch entries x row blocks) on a card that holds ``slots`` at
+    once: 1 if the blocks fill the slots; else the count whose waves
+    times a block's work (its run's tiles and RUN_OVERHEAD) is least (the
+    fewest runs among equals), at most MAX_SPLITS, each run whole tiles
+    and none empty."""
+    if blocks >= slots:
+        return 1
+    best, cost = 1, -(-blocks // slots) * (tiles + RUN_OVERHEAD)
+    for s in range(2, min(MAX_SPLITS, tiles) + 1):
+        per = -(-tiles // s)
+        if -(-tiles // per) != s:
+            continue                       # that many runs leave one empty
+        c = -(-blocks * s // slots) * (per + RUN_OVERHEAD)
+        if c < cost:
+            best, cost = s, c
+    return best
+
+
+def plan(b: int, lq: int, lk: int, c: int, d: int,
+         dtype: torch.dtype = torch.float32, sms: int = H100_SMS) -> BwdPlan:
+    """The route and its parameters for q ``[b, lq, c]``, k ``[b, lk, c]``,
+    v ``[b, lk, d]`` of ``dtype``; pure host arithmetic. bf16 at C = 128
+    with D = 128 or 2 takes the wgmma route, other bf16 the mma.sync route;
+    f32 at those widths the tf32x3 route, other f32 the CUDA-core route
+    (the widths within int32 rows, as the C side checks)."""
+    gmflow = c == 128 and d in (2, 128) and b * max(lq, lk) < 2 ** 31
+    if dtype == torch.bfloat16:
+        return BwdPlan("wgmma" if gmflow else "mma_sync")
+    if not gmflow:
+        return BwdPlan("f32")
+    rows, tile, per_sm = tf32_blocks(d)
+    smem = (tf32_smem(d, False), tf32_smem(d, True))
+    per_sm = min(per_sm, SMEM_SM // (max(smem) + SMEM_RESERVED))
+    slots = sms * per_sm
+    s_dq = split_count(b * -(-lq // rows), -(-lk // tile), slots)
+    s_dkv = split_count(b * -(-lk // rows), -(-lq // tile), slots)
+    return BwdPlan(
+        "tf32x3", rows, tile, smem, per_sm, s_dq, s_dkv,
+        (s_dq, b, lq, c) if s_dq > 1 else None,
+        (s_dkv, b, lk, c) if s_dkv > 1 else None,
+        (s_dkv, b, lk, d) if s_dkv > 1 else None)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
+    """The C entry points: the dq sweep, the dk/dv sweep and the reduction
+    of a split sweep's partial sums."""
     lib = _build.load("flash_bwd")
     fns = []
     for name, outputs in (("ofd_flash_bwd_dq", 1), ("ofd_flash_bwd_dkv", 2)):
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * (6 + outputs) + [ctypes.c_int] * 5
-                       + [ctypes.c_float] + [ctypes.c_int] * 6
+                       + [ctypes.c_float] + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns.append(fn)
+    fn = lib.ofd_flash_bwd_reduce
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fns.append(fn)
     return tuple(fns)
 
 
-def _flash_bwd_cuda(q, k, v, out, lse, g, scale, swin) -> Grads:
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"flash backward {what} kernel launch failed: "
+                           f"CUDA error {err}")
+
+
+def launchers(q, k, v, out, lse, g, scale=None, swin=None,
+              route: Optional[str] = None):
+    """The kernels' launches for one call on CUDA tensors, without the
+    counts: ``((dq, dk, dv), launch_dq, launch_dkv, plan)``, each launch
+    filling its outputs (a split sweep's partial sums reduced into them)
+    on the current stream. ``route`` forces another route of the same
+    dtype unsplit (to time it beside the planned one); by default
+    :func:`plan` picks it."""
     check_kernel_operands(q, k, v, (q, k, v, out, lse, g),
                           "flash backward kernels")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[2])
     b, lq, c = q.shape
     lk, d = v.shape[1], v.shape[2]
     if out.shape != (b, lq, d) or lse.shape != (b, lq) \
@@ -159,6 +344,9 @@ def _flash_bwd_cuda(q, k, v, out, lse, g, scale, swin) -> Grads:
         raise ValueError(f"flash_backward: out and g [B, Lq, D], lse [B, Lq];"
                          f" got {tuple(out.shape)}, {tuple(g.shape)}, "
                          f"{tuple(lse.shape)}")
+    p = plan(b, lq, lk, c, d, q.dtype, _sms(q.device.index))
+    if route is not None:
+        p = BwdPlan(route)
     delta = (g.float() * out.float()).sum(-1)
     qc, kc = q.contiguous(), k.contiguous()
     vc, gc = v.to(q.dtype).contiguous(), g.to(q.dtype).contiguous()
@@ -166,26 +354,55 @@ def _flash_bwd_cuda(q, k, v, out, lse, g, scale, swin) -> Grads:
     if any(t.data_ptr() % 16 for t in (qc, kc, vc, gc)):
         raise ValueError("flash backward kernels need 16-byte aligned q, k, "
                          "v and g")
-    dq = torch.empty(b, lq, c, dtype=torch.float32, device=q.device)
-    dk = torch.empty(b, lk, c, dtype=torch.float32, device=q.device)
-    dv = torch.empty(b, lk, d, dtype=torch.float32, device=q.device)
+    dev = q.device
+    dq = torch.empty(b, lq, c, dtype=torch.float32, device=dev)
+    dk = torch.empty(b, lk, c, dtype=torch.float32, device=dev)
+    dv = torch.empty(b, lk, d, dtype=torch.float32, device=dev)
+    parts = [torch.empty(s, dtype=torch.float32, device=dev) if s else None
+             for s in (p.scratch_dq, p.scratch_dk, p.scratch_dv)]
     sw = swin if swin is not None else (0, 0, 0, 0, 0)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    fn_dq, fn_dkv = _kernel_fns()
-    ins = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(),
-           lc.data_ptr(), delta.data_ptr())
-    dims = (b, lq, lk, c, d, float(scale), *sw, int(q.dtype == torch.bfloat16))
-    err = fn_dq(*ins, dq.data_ptr(), *dims, stream)
-    if err:
-        raise RuntimeError(f"flash backward dq kernel launch failed: CUDA "
-                           f"error {err}")
+    dims = (b, lq, lk, c, d, float(scale), *sw,
+            int(q.dtype == torch.bfloat16), ROUTES[p.route])
+    fn_dq, fn_dkv, fn_reduce = _kernel_fns()
+    # the launches hold the operands (delta and any copies live nowhere
+    # else) for as long as they may be called
+    operands = (qc, kc, vc, gc, lc, delta)
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def reduce(part, target, splits, mult):
+        _check(fn_reduce(part.data_ptr(), target.data_ptr(), target.numel(),
+                         splits, float(mult), stream()), "reduction")
+
+    def launch_dq():
+        part = parts[0] if parts[0] is not None else dq
+        _check(fn_dq(*(t.data_ptr() for t in operands), part.data_ptr(),
+                     *dims, p.splits_dq, stream()), "dq")
+        if parts[0] is not None:
+            reduce(part, dq, p.splits_dq, scale)
+
+    def launch_dkv():
+        pk = parts[1] if parts[1] is not None else dk
+        pv = parts[2] if parts[2] is not None else dv
+        _check(fn_dkv(*(t.data_ptr() for t in operands), pk.data_ptr(),
+                      pv.data_ptr(), *dims, p.splits_dkv, stream()),
+               "dk/dv")
+        if parts[1] is not None:
+            reduce(pk, dk, p.splits_dkv, scale)
+            reduce(pv, dv, p.splits_dkv, 1.0)
+
+    return (dq, dk, dv), launch_dq, launch_dkv, p
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, g, scale, swin) -> Grads:
+    grads, launch_dq, launch_dkv, _ = launchers(q, k, v, out, lse, g, scale,
+                                                swin)
+    launch_dq()
     flash_backward.launches_dq += 1
-    err = fn_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *dims, stream)
-    if err:
-        raise RuntimeError(f"flash backward dk/dv kernel launch failed: CUDA "
-                           f"error {err}")
+    launch_dkv()
     flash_backward.launches_dkv += 1
-    return dq, dk, dv
+    return grads
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -195,9 +412,10 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) in f32 of ``flash_softmax_matmul(q, k, v, scale,
     swin)`` for the output gradient ``g`` ``[B, Lq, D]``, from the forward's
     f32 ``out`` and ``lse``. CPU tensors take :func:`flash_backward_plain`;
-    CUDA tensors launch the dq kernel and then the dk/dv kernel
-    (``flash_backward.launches_dq`` and ``.launches_dkv`` count them); they
-    take what the forward kernel takes."""
+    CUDA tensors launch the dq kernel and then the dk/dv kernel on the
+    route :func:`plan` picks (``flash_backward.launches_dq`` and
+    ``.launches_dkv`` count them, a split sweep's reduction included);
+    they take what the forward kernel takes."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[2])
     if all(t.device.type == "cpu" for t in (q, k, v, out, lse, g)):

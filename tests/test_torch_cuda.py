@@ -451,17 +451,22 @@ def test_gmflow_on_card_matches_cpu(card, num_scales):
 
 
 # bf16 at C = 128 with D = 128 or 2 takes the wgmma route (64-row tiles,
-# 128 rows a block), other widths the mma.sync route
+# 128 rows a block), other widths the mma.sync route; f32 at C = 128 with
+# D = 128 or 2 the tf32x3 route (64-row tiles at D = 2, 32 at D = 128;
+# 64 and 128 rows a block), other widths the f32 CUDA-core route
 FLASH_BWD_CASES = [
     (8, 24, 24, 128, 128, (2, 4, 6, 2, 3)),      # [2B] windows, shifted
-    (2, 100, 63, 64, 16, None),                  # ragged (mma.sync)
+    (2, 100, 63, 64, 16, None),                  # ragged (mma.sync, f32)
     (2, 300, 300, 128, 2, None),                 # matching payload
     (2, 130, 70, 32, 48, None),                  # ragged, narrow (mma.sync)
     (1, 65, 129, 128, 128, None),                # a tile + 1 row
     (2, 127, 63, 128, 128, None),                # a tile - 1 row
     (1, 129, 65, 128, 2, None),
     (2, 63, 127, 128, 2, None),
-    (8, 130, 130, 128, 128, (2, 10, 13, 5, 6))]  # region edge inside tiles
+    (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),  # region edge inside tiles
+    (8, 130, 130, 128, 2, (2, 10, 13, 5, 6)),
+    (1, 2000, 2000, 128, 2, None),               # B = 1: split sweeps
+    (2, 1001, 1001, 128, 128, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -498,17 +503,20 @@ def test_flash_bwd_kernels_match_plain(card, dtype, b, lq, lk, c, d, swin):
     assert float(((ref[0] * 0.98 - ref[0]).abs() / tols[0]).max()) > 1.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,lq,lk,c,d,swin", [
-    (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),   # wgmma route
-    (2, 129, 65, 128, 2, None),                   # wgmma route, D = 2
-    (2, 100, 63, 64, 16, None)])                  # mma.sync route
-def test_flash_bwd_kernels_bit_reproducible(card, b, lq, lk, c, d, swin):
-    """No atomics: two launches on the same bf16 inputs give the same
-    bits."""
+    (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),   # wgmma / tf32x3 route
+    (2, 129, 65, 128, 2, None),                   # the same, D = 2
+    (1, 2000, 2000, 128, 2, None),                # split sweeps (f32)
+    (2, 100, 63, 64, 16, None)])                  # mma.sync / f32 route
+def test_flash_bwd_kernels_bit_reproducible(card, dtype, b, lq, lk, c, d,
+                                            swin):
+    """No atomics: two launches on the same inputs give the same bits,
+    split sweeps included (their partials summed in a fixed order)."""
     g_ = torch.Generator().manual_seed(11)
-    q, k = (torch.randn(b, n, c, generator=g_).to(card, torch.bfloat16)
+    q, k = (torch.randn(b, n, c, generator=g_).to(card, dtype)
             for n in (lq, lk))
-    v = torch.randn(b, lk, d, generator=g_).to(card, torch.bfloat16)
+    v = torch.randn(b, lk, d, generator=g_).to(card, dtype)
     gout = torch.randn(b, lq, d, generator=g_).to(card)
     out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
     first = fb.flash_backward(q, k, v, out, lse, gout, swin=swin)
@@ -516,6 +524,67 @@ def test_flash_bwd_kernels_bit_reproducible(card, b, lq, lk, c, d, swin):
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
     assert all(bool(torch.isfinite(x).all()) for x in first)
+
+
+@pytest.mark.parametrize("b,l,d,splits", [(1, 2000, 2, 8),
+                                          (2, 1001, 128, 8)])
+def test_flash_bwd_tf32x3_split_sweep(card, monkeypatch, b, l, d, splits):
+    """f32 at B = 1 or 2 and C = 128 takes the tf32x3 route with split
+    sweeps (the plan's, checked here); within 1e-4 of each gradient's max
+    against the plain backward, and leaving the last partial out of each
+    reduction exceeds that tolerance."""
+    g_ = torch.Generator().manual_seed(12)
+    q, k = (torch.randn(b, l, 128, generator=g_).to(card) for _ in range(2))
+    v = torch.randn(b, l, d, generator=g_).to(card) * (30 if d == 2 else 1)
+    gout = torch.randn(b, l, d, generator=g_).to(card)
+    plan = fb.plan(b, l, l, 128, d, torch.float32)
+    assert (plan.route, plan.splits_dq, plan.splits_dkv) == \
+        ("tf32x3", splits, splits)
+    assert plan.scratch_dq == (splits, b, l, 128)
+    out, lse = fl.flash_softmax_matmul(q, k, v, with_lse=True)
+    ref = fb.flash_backward_plain(q, k, v, out, lse, gout)
+    tols = [1e-4 * float(r.abs().max()) for r in ref]
+    got = fb.flash_backward(q, k, v, out, lse, gout)
+    fn_dq, fn_dkv, fn_reduce = fb._kernel_fns()
+    monkeypatch.setattr(fb, "_kernel_fns", lambda: (
+        fn_dq, fn_dkv,
+        lambda p, o, n, s, m, st: fn_reduce(p, o, n, s - 1, m, st)))
+    bad = fb.flash_backward(q, k, v, out, lse, gout)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    for x, y, r, tol in zip(got, bad, ref, tols):
+        assert float((x - r).abs().max()) <= tol
+        assert float((y - r).abs().max()) > tol
+
+
+def test_flash_bwd_plan_routes_on_card(card):
+    """The wrapper launches the route plan names: tf32x3 for f32 at C =
+    128 and D = 128 or 2, the CUDA-core route for other f32 widths; forcing
+    the other route on the same inputs gives gradients within the same
+    tolerance (both against the plain backward). The launches hold their
+    operands: blocks of delta's size filled with NaN between building
+    and running them change nothing."""
+    g_ = torch.Generator().manual_seed(13)
+    for c, d, route in ((128, 2, "tf32x3"), (128, 128, "tf32x3"),
+                        (64, 16, "f32")):
+        q, k = (torch.randn(2, 130, c, generator=g_).to(card)
+                for _ in range(2))
+        v = torch.randn(2, 130, d, generator=g_).to(card)
+        gout = torch.randn(2, 130, d, generator=g_).to(card)
+        out, lse = fl.flash_softmax_matmul(q, k, v, with_lse=True)
+        ref = fb.flash_backward_plain(q, k, v, out, lse, gout)
+        for forced in (None, "f32"):
+            grads, launch_dq, launch_dkv, plan = fb.launchers(
+                q, k, v, out, lse, gout, route=forced)
+            assert plan.route == (forced or route)
+            junk = [torch.full_like(lse, float("nan")) for _ in range(4)]
+            launch_dq()
+            launch_dkv()
+            torch.cuda.synchronize()
+            del junk
+            for x, r in zip(grads, ref):
+                assert float((x - r).abs().max()) <= \
+                    1e-4 * float(r.abs().max())
 
 
 def test_flash_function_f32_grads_on_card_match_dense(card):
