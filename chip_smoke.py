@@ -44,11 +44,19 @@ Run from the repository root on a host with one CUDA card. Phases:
    128], shifted 12 and 39, matching and propagation [1, 7488, 128]),
    ragged lengths, extreme logits, the wgmma route's edges (a 64-row tile
    + 1 and - 1, D = 128 and 2, a Swin region edge inside a key tile),
-   bf16 and f32 operands and the LSE, two launches that must give the
-   same bits, each case's route, blocks and waves printed, timed at the
-   serving and the training shape classes against its bound (TFLOP/s,
-   share of the bound), the plain version (serving) and
-   ``F.scaled_dot_product_attention``; [3f] the two flash backward
+   bf16 and f32 operands and the LSE (f32 at C = 128 on the tf32x3
+   route: split-TF32 products, the key sweep split at B = 1 and 2 in the
+   cases B = 1, L = 2000, D = 2 and L = 1001, D = 128, whose merge
+   leaving the last run out is a third planted fault that must fail; what
+   hi-only TF32 products would give, for information), two launches that
+   must give the same bits, each case's route, rows a block, blocks,
+   waves and split printed, timed at the serving and the training shape
+   classes against its bound (TFLOP/s, share of the bound), the plain
+   version (serving) and ``F.scaled_dot_product_attention``, in bf16 and
+   in f32 (the serving classes, the 14 calls of an f32 pair and the
+   training matching class, beside the CUDA-core route the f32 calls took
+   before, with bounds at the split-TF32 and the f32 peaks); [3f] the two
+   flash backward
    kernels (dq; dk and dv) at GMFlow's training shape classes (batch 16
    of 368x560: windows [128, 805, 128] with and without the Swin mask,
    matching and propagation [16, 3220, 128] with a 2-wide payload),
@@ -186,10 +194,9 @@ Run from the repository root on a host with one CUDA card. Phases:
    forward, n^2 dq, n^2 dk/dv), two rings bit-equal, a planted fault (a
    merge without a step's LSE correction) that must fail; times of the
    ring and of the f32 kernels at one step's shape against their bounds
-   (the backward's at the split-TF32 and at the f32 CUDA-core peak), the
-   backward kernels before (the CUDA-core route) in the same run, the
-   plain ring, and SDPA in f32 (forward, forward + backward, the backward
-   alone);
+   (at the split-TF32 and at the f32 CUDA-core peak), each kernel before
+   (the CUDA-core route) in the same run, the plain ring, and SDPA in f32
+   (forward, forward + backward, the backward alone);
 17. data parallelism over NCCL at world size 1: ``init_distributed()``
    from an environment set in-process, ``make_mesh()``, two RAFT-basic
    steps at [7]'s shape (batch norm live, ``add_noise``) and two GMFlow
@@ -204,7 +211,8 @@ Run from the repository root on a host with one CUDA card. Phases:
    classifier on): a warm-up step and 3 timed steps on a resident batch
    with exact launch counts (32 flash forwards, 32 dq, 32 dk/dv, 15
    instance norms a step), no plain version called, host ms beside [12]'s
-   step alone, peak memory, a profile of one step;
+   step alone, peak memory, a profile of one step with the f32 forward's
+   device time and share (its tf32x3 kernel and merge);
 19. the host's data plane and the last modules: g++'s and the codec's
    zlib versions and its build time; [12]'s loader alone (batch 16, 4
    threads) through the codec and through ``np.load`` on [12]'s shards,
@@ -214,8 +222,9 @@ Run from the repository root on a host with one CUDA card. Phases:
    trace of one step (one non-empty Chrome trace with the card's kernels
    and the annotation);
 20. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
-   [18]'s launches too), the card line, and last the line ``{"ok": true,
-   "device": {...}}``.
+   [18]'s launches too; the flash row also carries the f32 route's times
+   at an f32 pair, ``f32_ms`` and the rest), the card line, and last the
+   line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the package beside this file, it exits non-zero and
@@ -1098,14 +1107,38 @@ FLASH_KITTI_SHAPES = (
 )
 
 
+def dropping_last_run(fl):
+    """A context in which every split key sweep's merge leaves its last
+    run out (a planted fault of the forward's tf32x3 route)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        real = fl._kernel_fns
+        fn, merge = real()
+
+        def merge_all_but_last(po, pm, out, lse, rows, d, splits, stream):
+            return merge(po, pm, out, lse, rows, d, splits - 1, stream)
+        fl._kernel_fns = lambda: (fn, merge_all_but_last)
+        try:
+            yield
+        finally:
+            fl._kernel_fns = real
+    return ctx()
+
+
 def flash_compare(fl, what, q, k, v, swin) -> float:
     """The kernel against the plain version on one input, out and LSE;
     returns the out's max abs diff. Tolerance: f32, the sums run in another
-    order, 1e-4 of max|v|; bf16, ``bf16_tolerance`` row by row (two bf16
+    order and (tf32x3 route) the split-TF32 products drop ~2^-21 of each
+    term, 1e-4 of max|v|; bf16, ``bf16_tolerance`` row by row (two bf16
     steps of the row's largest ``pi_i |v_i|``). Two planted faults must
     exceed it: the output scaled by 0.98, and the last 64 keys left out of
-    P . V but kept in the denominator (their v zeroed). A second launch on
-    the same inputs must give the same bits."""
+    P . V but kept in the denominator (their v zeroed); where the tf32x3
+    route splits the key sweep, a third: its merge leaving the last run
+    out. A second launch on the same inputs must give the same bits. On
+    the tf32x3 route it also prints, for information, how far hi-only
+    TF32 products would lie (``flash_softmax_matmul_tf32(terms=1)``)."""
     import torch
     got, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
     again, again_lse = fl.flash_softmax_matmul(q, k, v, swin=swin,
@@ -1144,6 +1177,24 @@ def flash_compare(fl, what, q, k, v, swin) -> float:
     check(f"{what} lse (|d| <= 1e-4 + 1e-6|ref|, max |d| "
           f"{float((lse - ref_lse).abs().max()):.3e})",
           max_rel_excess(lse, ref_lse, 1e-6, 1e-4), 1.0)
+    p = fl.plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2],
+                q.dtype)
+    if p.route == "tf32x3":
+        hi, hi_lse = fl.flash_softmax_matmul_tf32(q, k, v, swin=swin,
+                                                  with_lse=True, terms=1)
+        line = (f"    for information, hi-only TF32 products (plain, terms=1)"
+                f": |d| / tolerance out {float(((hi - ref).abs() / tol).max()):.3f}"
+                f", lse {max_rel_excess(hi_lse, ref_lse, 1e-6, 1e-4):.3f}")
+        if p.splits > 1:
+            with dropping_last_run(fl):
+                bad = fl.flash_softmax_matmul(q, k, v, swin=swin)
+            drop = float(((bad - ref).abs() / tol).max())
+            line += (f"; key sweep split in {p.splits}, planted fault, the "
+                     f"last run left out of the merge: |d| / tolerance "
+                     f"{drop:.2f} (must exceed 1)")
+            if not drop > 1.0:
+                fail(f"flash {what}: the dropped run passes the tolerance")
+        print(line, flush=True)
     return err
 
 
@@ -1204,28 +1255,45 @@ def flash_phase(gen):
                                    payload)
             flash_compare(fl, f"{name} {dtype} [{b},{lq},128]x[{b},{lk},"
                           f"{d}]{plan_tag(fl, q, k, v)}", q, k, v, swin)
+    # the tf32x3 route's split key sweeps (as [3f]'s): B = 1 at D = 2, and
+    # two batch entries at D = 128; a generator of their own
+    split_gen = torch.Generator().manual_seed(65)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (b, l, d, payload) in (
+                ("split sweep B=1 L=2000 D=2", (1, 2000, 2, "flow")),
+                ("split sweep L=1001", (2, 1001, 128, "normal"))):
+            q, k, v = flash_inputs(split_gen, b, l, l, 128, d, dtype,
+                                   payload)
+            flash_compare(fl, f"{name} {dtype} [{b},{l},128]x[{b},{l},{d}]"
+                          f"{plan_tag(fl, q, k, v)}", q, k, v, None)
 
     # times at the serving shapes and dtype (bf16): per call, and the 14
     # calls of one 1-scale pair (the launches this record counts); then at
-    # the training shapes, per call and the 14 calls of one step
+    # the training shapes, per call and the 14 calls of one step; then the
+    # f32 route at the serving classes (the 14 calls of an f32 pair) and
+    # the training matching class, beside the CUDA-core route it replaced
     pair, _ = flash_timing(fl, gen, FLASH_SHAPES, W8, "1-scale pair",
                            plain=True)
     flash_timing(fl, torch.Generator().manual_seed(63), FLASH_TRAIN_SHAPES,
                  GW8, "training step", plain=False)
+    f32_pair = flash_f32_timing(fl, torch.Generator().manual_seed(66))
     return dict(name="flash", route="cuda",
                 source="opticalflowfromdepth_torch/csrc/flash.cu",
                 replaces="opticalflowfromdepth_tpu/ops/flash.py:40",
-                max_abs_err=worst, **pair)
+                max_abs_err=worst, **pair,
+                **{f"f32_{k}": v for k, v in f32_pair.items()})
 
 
 def plan_tag(fl, q, k, v) -> str:
-    """The kernel's route for these operands, with its blocks and waves."""
+    """The kernel's route for these operands, with its query rows a block,
+    blocks, waves and the runs of a split key sweep."""
     import torch
     p = fl.kernel_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                        v.shape[2], q.dtype == torch.bfloat16)
-    return (f" ({p['route']}, {p['warpgroups']} warpgroup(s) a block, "
+    return (f" ({p['route']}, {p['rows']} query rows a block, "
             f"{p['blocks']} blocks, {p['per_sm']} a SM, {p['waves']} "
-            f"wave(s))")
+            f"wave(s)" + (f", key sweep split in {p['splits']}"
+                          if p["splits"] > 1 else "") + ")")
 
 
 def flash_timing(fl, gen, shapes, grid_w, what, plain):
@@ -1280,6 +1348,68 @@ def flash_timing(fl, gen, shapes, grid_w, what, plain):
           f"{flops / 1e9:.1f} GFLOP, {exps / 1e6:.1f} M exp, "
           f"{nbytes / 1e6:.1f} MB)", flush=True)
     return dict(total, bound_by=bound_by), calls
+
+
+def flash_f32_timing(fl, gen):
+    """The f32 route at the serving shape classes (and the 14 calls of an
+    f32 1-scale pair) and at the training matching class: the kernel's
+    launch alone (CUDA events), the CUDA-core route it replaced forced in
+    the same run, the plain version (serving), SDPA in f32 (TF32 off), and
+    the bounds at the split-TF32 peak and at the CUDA cores' f32 peak with
+    the share of each. Returns the pair's totals for the kernels line
+    (the bound at the split-TF32 peak, the route's)."""
+    import torch
+    import torch.nn.functional as F
+    shapes = [(f"serving {name}", args, n) for name, args, n in FLASH_SHAPES
+              if n] + [("training matching", FLASH_TRAIN_SHAPES[2][1], 0)]
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 old_ms=0.0)
+    work = [0.0, 0.0, 0.0]
+    for name, (b, l, c, d, payload, swin), n in shapes:
+        q, k, v = flash_inputs(gen, b, l, l, c, d, torch.float32, payload,
+                               grid_w=W8 if n else GW8)
+        v = v.float()
+        _, launch, p = fl.launcher(q, k, v, swin=swin, with_lse=True)
+        _, launch_old, _ = fl.launcher(q, k, v, swin=swin, with_lse=True,
+                                       route="f32")
+        ms = cuda_ms(launch)
+        old_ms = cuda_ms(launch_old, reps=3, warm=1)
+        plain_ms = cuda_ms(lambda: fl.flash_softmax_matmul_plain(
+            q, k, v, swin=swin), reps=3, warm=1) if n else 0.0
+        mask = None if swin is None else fl.swin_mask_dense(
+            l, swin, b, "cuda")[:, None]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None], attn_mask=mask))
+        f, e = 2.0 * b * l * l * (c + d), float(b * l * l)
+        by = 4.0 * (q.numel() + k.numel() + v.numel() + b * l * (d + 1))
+        bounds = [bound_ms(f, e, by, peak) for peak in
+                  (TF32X3_FLOP_PER_S, FP32_FLOP_PER_S)]
+        print(f"  f32 {name} [{b},{l},{c}]x[{b},{l},{d}] ({p.route}, key "
+              f"sweep in {p.splits}): kernel {ms * 1e3:.1f} us "
+              f"({f / ms / 1e9:.1f} TFLOP/s, {bounds[0][0] / ms:.3f} of its "
+              f"split-TF32 bound {bounds[0][0] * 1e3:.1f} us, "
+              f"{bounds[1][0] / ms:.3f} of its f32 bound "
+              f"{bounds[1][0] * 1e3:.1f} us, {bounds[0][1]}); before, the "
+              f"CUDA-core route {old_ms * 1e3:.1f} us; SDPA f32 "
+              f"{lib_ms * 1e3:.1f} us" + (f"; plain {plain_ms * 1e3:.1f} us"
+                                         if n else "")
+              + (f"; {n} per pair" if n else ""), flush=True)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", bounds[0][0]),
+                         ("old_ms", old_ms)):
+            total[key] += n * val
+        work = [w + n * x for w, x in zip(work, (f, e, by))]
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    bound, by = bound_ms(*work, TF32X3_FLOP_PER_S)
+    print(f"  the 14 calls of one f32 1-scale pair: kernel "
+          f"{total['ms'] * 1e3:.1f} us ({bound / total['ms']:.3f} of the "
+          f"split-TF32 bound {bound * 1e3:.1f} us, {by}), before "
+          f"{total['old_ms'] * 1e3:.1f} us, plain "
+          f"{total['plain_ms'] * 1e3:.1f} us, SDPA f32 "
+          f"{total['library_ms'] * 1e3:.1f} us", flush=True)
+    return dict(ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=bound,
+                bound_by=by, library_ms=total["library_ms"])
 
 
 # GMFlow's flash calls in one training step (batch 16 of 368x560, so
@@ -1921,14 +2051,17 @@ def main_path_phase():
 
 # name stems of the kernels in opticalflowfromdepth_torch/csrc
 PORT_KERNELS = ("corr_fwd_tiles", "fused_corr_fwd_kernel", "corr_bwd_",
-                "instance_norm_fwd", "flash_fwd_", "flash_bwd_", "conv3x3_",
-                "warp_kernel")
+                "instance_norm_fwd", "flash_fwd_", "flash_bwd_",
+                "merge_splits", "reduce_splits", "conv3x3_", "warp_kernel")
 
 
-def profile(run, unprofiled_ms: float, what: str) -> None:
+def profile(run, unprofiled_ms: float, what: str, named=None) -> None:
     """Device time by kernel over one more ``run()``, and the busy share of
     an unprofiled run's time (the profiler's own start-up inflates its
-    wall clock, so that is not the denominator); returns the busy ms."""
+    wall clock, so that is not the denominator); returns the busy ms.
+    ``named``: (label, key substrings): those kernels' summed device time,
+    launches and share of the busy time, printed on a line of their
+    own."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -1963,6 +2096,13 @@ def profile(run, unprofiled_ms: float, what: str) -> None:
         if any(k in e.key for k in PORT_KERNELS):
             print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
                   f"{e.key[:90]} (the port's)", flush=True)
+    if named is not None:
+        label, keys = named
+        hits = [e for e in rows if any(k in e.key for k in keys)]
+        ms = sum(dev_us(e) for e in hits) / 1e3
+        print(f"  {label}: {ms:.3f} ms a {what}, "
+              f"{sum(e.count for e in hits)} launches, "
+              f"{100 * ms / busy_ms:.1f}% of the busy time", flush=True)
     host = sorted((e for e in prof.key_averages()
                    if not str(getattr(e, "device_type", "")).endswith("CUDA")
                    and e.self_cpu_time_total > 0),
@@ -4120,28 +4260,28 @@ def ring_phase(gen):
                                                  q, k, v, g, ring),
                             reps=2, warm=1)
             # one step's kernels alone at the step's shape (the longest
-            # slices), each launched without the wrapper's casts; the
-            # backward also on the CUDA-core route it had before (tf32x3)
+            # slices), each launched without the wrapper's casts; each also
+            # on the CUDA-core route it had before (tf32x3)
             lq = -(-l // n)
             qs, ks, vs, gs = (t[:, :lq].contiguous() for t in (q, k, v, g))
-            out, lse = fl.flash_softmax_matmul(qs, ks, vs, with_lse=True)
+            (out, lse), launch_f, fplan = fl.launcher(qs, ks, vs,
+                                                      with_lse=True)
+            _, old_f, _ = fl.launcher(qs, ks, vs, with_lse=True, route="f32")
+            launch_f()
             _, launch_dq, launch_dkv, plan = fb.launchers(qs, ks, vs, out,
                                                           lse, gs)
             _, old_dq, old_dkv, _ = fb.launchers(qs, ks, vs, out, lse, gs,
                                                  route="f32")
-            k_f = cuda_ms(lambda: fl.flash_softmax_matmul(qs, ks, vs,
-                                                          with_lse=True),
-                          reps=3, warm=1)
+            k_f = cuda_ms(launch_f, reps=3, warm=1)
             k_dq = cuda_ms(launch_dq, reps=3, warm=1)
             k_dkv = cuda_ms(launch_dkv, reps=3, warm=1)
+            o_f = cuda_ms(old_f, reps=2, warm=1)
             o_dq = cuda_ms(old_dq, reps=2, warm=1)
             o_dkv = cuda_ms(old_dkv, reps=2, warm=1)
             ops, exps, by = f32_work(b, lq, lq, c, d)
-            fwd_bound = bound_ms(ops[0], exps, by[0], FP32_FLOP_PER_S)
-            line = [f"forward {k_f * 1e3:.1f} us ({ops[0] / k_f / 1e9:.2f} "
-                    f"TFLOP/s, {fwd_bound[0] / k_f:.4f} of its f32 bound "
-                    f"{fwd_bound[0] * 1e3:.1f} us, {fwd_bound[1]})"]
-            for kn, t, t_old, o, x in (("dq", k_dq, o_dq, ops[1], by[1]),
+            line = []
+            for kn, t, t_old, o, x in (("forward", k_f, o_f, ops[0], by[0]),
+                                       ("dq", k_dq, o_dq, ops[1], by[1]),
                                        ("dk/dv", k_dkv, o_dkv, ops[2],
                                         by[2])):
                 b3, b1 = (bound_ms(o, exps, x, peak) for peak in
@@ -4152,11 +4292,11 @@ def ring_phase(gen):
                     f"{b3[0] * 1e3:.1f} us, {b1[0] / t:.4f} of its f32 "
                     f"bound {b1[0] * 1e3:.1f} us, {b1[1]}; before, the "
                     f"CUDA-core route: {t_old * 1e3:.1f} us)")
-            blocks = fl.kernel_plan(b, lq, lq, c, d, False)["blocks"]
             print(f"    the f32 kernels at one step's shape [{b},{lq},{c}]"
-                  f"x[{b},{lq},{d}] (forward {blocks} blocks; backward "
-                  f"{plan.route}, splits dq {plan.splits_dq}, dk/dv "
-                  f"{plan.splits_dkv}): " + "; ".join(line), flush=True)
+                  f"x[{b},{lq},{d}] (forward {fplan.route}, key sweep in "
+                  f"{fplan.splits}; backward {plan.route}, splits dq "
+                  f"{plan.splits_dq}, dk/dv {plan.splits_dkv}): "
+                  + "; ".join(line), flush=True)
             ring_ops = [o * n * n for o in f32_work(b, l / n, l / n, c, d)[0]]
             t_b = max(t_fb - t_f, 1e-6)
             print(f"    the ring: forward {t_f:.3f} ms, forward + backward "
@@ -4167,7 +4307,7 @@ def ring_phase(gen):
                   f"{t_pfb:.3f} ms", flush=True)
             times[(name, n)] = dict(fwd=t_f, fb=t_fb, plain_fb=t_pfb,
                                     k_fwd=k_f, k_dq=k_dq, k_dkv=k_dkv,
-                                    old_dq=o_dq, old_dkv=o_dkv)
+                                    old_fwd=o_f, old_dq=o_dq, old_dkv=o_dkv)
             del qs, ks, vs, gs, out, lse
             torch.cuda.empty_cache()
         # the library call for the whole f32 forward and its gradients
@@ -4186,14 +4326,16 @@ def ring_phase(gen):
         ops, exps, by = f32_work(b, l, l, c, d)
         print(f"  {name}: SDPA f32 (the library call) forward {lib_f:.3f} "
               f"ms, forward + backward {lib_fb_ms:.3f} ms, the backward "
-              f"alone {lib_b:.3f} ms; the kernels' dq + dk/dv "
-              f"{whole['k_dq'] + whole['k_dkv']:.3f} ms (before: "
+              f"alone {lib_b:.3f} ms; the kernels' forward "
+              f"{whole['k_fwd']:.3f} ms (before: {whole['old_fwd']:.3f} ms), "
+              f"dq + dk/dv {whole['k_dq'] + whole['k_dkv']:.3f} ms (before: "
               f"{whole['old_dq'] + whole['old_dkv']:.3f} ms); unsharded f32 "
               f"bounds at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s: forward "
               f"{bound_ms(ops[0], exps, by[0], FP32_FLOP_PER_S)[0]:.3f} ms, "
               f"dq {bound_ms(ops[1], exps, by[1], FP32_FLOP_PER_S)[0]:.3f}, "
               f"dk/dv {bound_ms(ops[2], exps, by[2], FP32_FLOP_PER_S)[0]:.3f}"
-              f"; at {TF32X3_FLOP_PER_S / 1e12:.0f} (split TF32): dq "
+              f"; at {TF32X3_FLOP_PER_S / 1e12:.0f} (split TF32): forward "
+              f"{bound_ms(ops[0], exps, by[0], TF32X3_FLOP_PER_S)[0]:.3f}, dq "
               f"{bound_ms(ops[1], exps, by[1], TF32X3_FLOP_PER_S)[0]:.3f}, "
               f"dk/dv "
               f"{bound_ms(ops[2], exps, by[2], TF32X3_FLOP_PER_S)[0]:.3f} "
@@ -4437,7 +4579,9 @@ def sequence_parallel_phase(alone_12: float):
           f"{alone_12:.3f} ms; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
-    profile(lambda: step(state, batch), step_ms, "step")
+    profile(lambda: step(state, batch), step_ms, "step",
+            named=("the f32 forward (tf32x3 kernel and its merge)",
+                   ("flash_fwd_tf32", "merge_splits")))
     return launches
 
 
@@ -4551,8 +4695,11 @@ def main() -> None:
              "library_ms")
     print(f"seconds per phase: {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
-    print(json.dumps({"kernels": [{k: kern[k] for k in order}
-                                  for kern in kernels]}))
+    # the flash row also carries the f32 route's numbers (f32_*)
+    print(json.dumps({"kernels": [
+        {**{k: kern[k] for k in order},
+         **{k: v for k, v in kern.items() if k.startswith("f32_")}}
+        for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,10 +17,12 @@
 // once into shared memory, and windows with a single region skip it.
 //
 // What bounds it on this card: at GMFlow's shapes (C = 128) the two
-// products, 2 * B * Lq * Lk * (C + D) operations, over the bf16 tensor
-// cores, and the B * Lq * Lk exponentials over the special-function
-// units; the bytes (q, k, v once, out once) are ~1000x less. So every
-// route keeps the [Lq, Lk] scores out of device memory, and three feed it:
+// products, 2 * B * Lq * Lk * (C + D) operations, over the tensor cores
+// (bf16, or f32 in split TF32: three TF32 products each), and the B * Lq *
+// Lk exponentials over the special-function units; the bytes (q, k, v
+// once, out once) are ~1000x less. So every route keeps the [Lq, Lk]
+// scores out of device memory, and four feed it (the caller,
+// ops/flash.py:plan, names the route; the C side checks it again):
 //
 // bf16 at C = 128 and D = 128 or 2 (every GMFlow call): the wgmma route,
 // namespace sm90. A block holds warpgroups of 64 queries each: at D = 128
@@ -71,10 +73,39 @@
 // cores too, S's accumulator fragments being P's A fragments; D == 2: P .
 // V on the CUDA cores in f32. No GMFlow call takes it.
 //
-// f32 operands (f32 models, the card-vs-CPU parity runs): f32 FMA on the
-// CUDA cores, no TF32: one thread per query row (64 a block), the query
-// tile and the row accumulators in shared memory, K and V in 32-key tiles
-// read by every thread at the same address (broadcast).
+// f32 at C = 128 and D = 128 or 2 (every sequence-parallel ring step,
+// whatever the model's dtype, and every flash call of an f32 GMFlow): the
+// tf32x3 route, namespace tf32x3 (the split-TF32 products of tf32x3.cuh,
+// shared with the backward). One warp owns 16 query rows in registers; a
+// block's Q rows are resident in shared rows of 132 floats, K (and V at D
+// = 128; v's pairs at D = 2) stream through a 2-stage cp.async ring, rows
+// past L zero-filled. Per tile S = Q K^T in split TF32 (a_lo b_hi + a_hi
+// b_lo + a_hi b_hi, mma.sync m16n8k8: the lo terms keep it within f32's
+// tolerance, TF32 alone would not be), then the online softmax in
+// registers in base 2, as the wgmma route's (log2(e) in the scale and the
+// Swin mask's -100, ex2.approx, the running max from -1e30, the row's max
+// and sum over its quad by shuffles, the Swin regions once per key tile
+// and no mask in a single-region window, the key padding in the last tile
+// only); then O += P V: at D = 128 in split TF32 too, P's accumulator
+// fragments being the A fragments (each k8 step's keys relabelled); at D
+// = 2 on the CUDA cores in f32, a lane's keys summed over its quad at the
+// end. Where B x row blocks fill less than one wave of the card (batch-1
+// matching, the ring's B = 1 slices) the key sweep is cut into runs of
+// whole tiles (plan's splits, the count from the shape alone): each run
+// writes its f32 partials (the running max m in base 2, the denominator
+// l, the unnormalised O) to a scratch, and a second launch merges them in
+// run order, so no atomics and the same bits every launch. Its limits:
+// every warp splits the tile's K (and V) again, and S, the softmax and P V
+// follow each other within a warp. Why not wgmma: as in the backward, its
+// tf32 operands are read K-major only, so P . V would need V transposed,
+// in hi and lo pieces, in shared memory.
+//
+// Other f32 widths (C % 16 == 0, C <= 128; D = 2 or D % 16 == 0; and the
+// route that GMFlow's widths took before the tf32x3 one, when a caller
+// forces it): f32 FMA on the CUDA cores, no TF32: one thread per query row
+// (64 a block), the query tile and the row accumulators in shared memory,
+// K and V in 32-key tiles read by every thread at the same address
+// (broadcast).
 //
 // Not ported: the TPU kernel's optional dense `bias` operand (no caller
 // passes one).
@@ -84,6 +115,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "tf32x3.cuh"
 
 #define BQ 64         // query rows per block (mma.sync route)
 #define BK 64         // keys per tile (both bf16 routes)
@@ -811,14 +843,339 @@ static int forward(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace sm90
 
+// ---------------------------------------------------------------------------
+// f32 operands at C = 128 and D = 128 or 2: the tf32x3 route
+// ---------------------------------------------------------------------------
+
+namespace tf32x3 {
+
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int MAX_SPLITS = 16;    // runs of a split sweep at most
+constexpr int RUN_OVERHEAD = 2;   // a block's fixed work, in tiles
+
+// The block of each width: warps (16 query rows each), keys a ring tile
+// and their 8-wide tiles of S, blocks an SM (the launch bounds), and the
+// shared memory in floats: Q's resident rows, then a ring stage (the K
+// tile, and V's tile or its pairs, PAY).
+template <bool P2>
+struct FwdCfg {
+  static constexpr int NW = P2 ? 4 : 8;
+  static constexpr int THREADS = NW * 32;
+  static constexpr int BROWS = NW * 16;
+  static constexpr int TILE = P2 ? 64 : 32;
+  static constexpr int NT = TILE / 8;
+  static constexpr int PER_SM = P2 ? 2 : 1;
+  static constexpr int PAY = P2 ? 2 * TILE : TILE * STR;
+  static constexpr int STAGE = TILE * STR + PAY;
+  static constexpr size_t SMEM =
+      sizeof(float) * (BROWS * STR + STAGES * STAGE);
+};
+
+// One block per (BROWS queries, run of the key tiles, batch entry): the
+// key tiles [split * per, split * per + per) stream past the resident Q.
+// With one run the block writes out (and lse); with more, its partials
+// into run `split` of the scratches: out [splits, B, Lq, D] the
+// unnormalised O, lse [splits, B, Lq] as float2 (m in base 2, l).
+template <bool P2>
+__global__ void __launch_bounds__(FwdCfg<P2>::THREADS, FwdCfg<P2>::PER_SM)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out,
+               float* __restrict__ lse, int Lq, int Lk, float scale, Swin sw,
+               int per) {
+  using K = FwdCfg<P2>;
+  constexpr int TILE = K::TILE, NT = K::NT, T = K::THREADS, SF = K::STAGE;
+  constexpr int DW = P2 ? 2 : W;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                              // [BROWS][STR]
+  float* ring = fsm + K::BROWS * STR;           // STAGES x SF
+  const int b = blockIdx.z, split_i = blockIdx.y, q0 = blockIdx.x * K::BROWS;
+  const int all = (Lk + TILE - 1) / TILE;
+  const int first = split_i * per;
+  const int n_tiles = min(all, first + per) - first;
+  const float* kb = k + (long long)b * Lk * W;
+  const float* vb = v + (long long)b * Lk * DW;
+
+  auto load_tile = [&](int it) {
+    float* st = ring + (it % STAGES) * SF;
+    const int k0 = (first + it) * TILE;
+    load_rows<T>(st, kb, k0, TILE, Lk);
+    if constexpr (P2)
+      load_small<T, 2>(st + TILE * STR, vb, k0, TILE, Lk);
+    else
+      load_rows<T>(st + TILE * STR, vb, k0, TILE, Lk);
+  };
+  load_rows<T>(qs, q + (long long)b * Lq * W, q0, K::BROWS, Lq);
+  load_tile(0);
+  cp_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + gq;             // rows row0, row0 + 8
+  const bool idle = q0 + warp * 16 >= Lq;
+  bool last_y, last_x;
+  const bool masked = swin_window(sw, b, &last_y, &last_x);
+  int qreg[2] = {0, 0};
+  uint32_t same[2];             // the row's region in every 2-bit field
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (masked) qreg[r] = swin_region(sw, last_y, last_x, row0 + 8 * r);
+    same[r] = (uint32_t)qreg[r] * 0x55555555u;
+  }
+  const float scale2 = scale * LOG2E, mask2 = 100.f * LOG2E;
+  float o[P2 ? 1 : W / 8][4];
+#pragma unroll
+  for (int i = 0; i < (P2 ? 1 : W / 8); ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};      // this lane's share of each row's denominator
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_tile(it + 1);
+    cp_commit();
+    cp_wait<1>();       // tile it (and Q) landed
+    __syncthreads();
+    const float* st = ring + (it % STAGES) * SF;
+    if (!idle) {
+      const int k0 = (first + it) * TILE;
+      // S = Q K^T: 16 queries x TILE keys
+      float s[NT][4];
+      prod_rows<NT>(s, qs + warp * 16 * STR, st, gq, t);
+      // base-2 scores; the Swin mask only where a column's region differs
+      // from a row's, the key padding only in the last tile
+      const uint32_t cregs =
+          masked ? sm90::col_regions(sw, last_y, last_x, k0, t) : 0u;
+      const bool swin_tile = masked && (cregs != same[0] || cregs != same[1]);
+      const bool tail = k0 + TILE > Lk;
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float x = s[j][e] * scale2;
+          if (swin_tile && sm90::other_region(cregs, j, e, qreg[r]))
+            x -= mask2;
+          if (tail && k0 + 8 * j + 2 * t + (e & 1) >= Lk) x = NEG_INF;
+          s[j][e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+      float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float mn = fmaxf(m[r], mx[r]);
+        alpha[r] = ex2(m[r] - mn);
+        m[r] = mn;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(s[j][e] - m[e >> 1]);
+          s[j][e] = p;
+          ls[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+      for (int i = 0; i < (P2 ? 1 : W / 8); ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] *= alpha[e >> 1];
+      if constexpr (P2) {
+        // O += P V on the CUDA cores in f32, this lane's keys only (o[0] =
+        // {row 0 d0, d1, row 1 d0, d1})
+        const float2* vp = reinterpret_cast<const float2*>(st + TILE * STR);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float2 vv = vp[8 * j + 2 * t + (e & 1)];
+            o[0][2 * r] = fmaf(s[j][e], vv.x, o[0][2 * r]);
+            o[0][2 * r + 1] = fmaf(s[j][e], vv.y, o[0][2 * r + 1]);
+          }
+        }
+      } else {
+        prod_pb<NT>(o, s, st + TILE * STR, gq, t);   // O += P V
+      }
+    }
+    __syncthreads();    // the stage is consumed before it is refilled
+  }
+  if (idle) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if constexpr (P2) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o[0][e] += __shfl_xor_sync(0xffffffffu, o[0][e], 1);
+      o[0][e] += __shfl_xor_sync(0xffffffffu, o[0][e], 2);
+    }
+  }
+  const bool whole = gridDim.y == 1;
+  const long long at = (long long)(split_i * gridDim.z + b) * Lq;  // row 0
+  float den[2] = {1.f, 1.f};
+  if (whole) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) den[r] = fmaxf(l[r], 1e-30f);
+  }
+  if constexpr (P2) {
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < Lq)
+          *reinterpret_cast<float2*>(out + (at + row0 + 8 * r) * 2) =
+              make_float2(o[0][2 * r] / den[r], o[0][2 * r + 1] / den[r]);
+    }
+  } else {
+    if (whole) {
+#pragma unroll
+      for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] /= den[e >> 1];
+    }
+    store_rows(out + at * W, o, row0, Lq, t, 1.f);
+  }
+  if (lse == nullptr || t != 0) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Lq) continue;
+    if (whole)
+      lse[at + row] = m[r] * LN2 + logf(den[r]);
+    else
+      reinterpret_cast<float2*>(lse)[at + row] = make_float2(m[r], l[r]);
+  }
+}
+
+// A split sweep's runs merged, one thread per output element: per row, M
+// = the largest of the runs' m_s, L = sum_s l_s 2^(m_s - M), out = sum_s
+// O_s 2^(m_s - M) / max(L, 1e-30) and lse = M ln 2 + log(max(L, 1e-30)),
+// each sum in run order. part_o [splits, rows, D], part_ml [splits, rows]
+// (m, l); lse may be null.
+__global__ void __launch_bounds__(256)
+merge_splits(const float* __restrict__ part_o,
+             const float2* __restrict__ part_ml, float* __restrict__ out,
+             float* __restrict__ lse, long long rows, int D, int splits) {
+  const long long n = rows * D;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n;
+       i += (long long)gridDim.x * 256) {
+    const long long row = i / D;
+    float mx = NEG_INF;
+    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part_ml[s * rows + row].x);
+    float den = 0.f, acc = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float2 ml = part_ml[s * rows + row];
+      const float w = ex2(ml.x - mx);
+      den += ml.y * w;
+      acc += part_o[s * n + i] * w;
+    }
+    den = fmaxf(den, 1e-30f);
+    out[i] = acc / den;
+    if (lse != nullptr && i == row * D) lse[row] = mx * LN2 + logf(den);
+  }
+}
+
+// How many runs to cut a sweep of `tiles` tiles into, for `blocks` blocks
+// on a card that holds `slots` at once (ops/flash.py:split_count): 1 if
+// the blocks fill the slots; else the count whose waves times a block's
+// work (its run's tiles and RUN_OVERHEAD) is least, the fewest runs among
+// equals, at most MAX_SPLITS, none empty.
+static int split_count(long long blocks, int tiles, long long slots) {
+  if (blocks >= slots) return 1;
+  int best = 1;
+  long long cost = ((blocks + slots - 1) / slots) * (tiles + RUN_OVERHEAD);
+  for (int s = 2; s <= (tiles < MAX_SPLITS ? tiles : MAX_SPLITS); ++s) {
+    const int per = (tiles + s - 1) / s;
+    if ((tiles + per - 1) / per != s) continue;   // a run would be empty
+    const long long c =
+        ((blocks * s + slots - 1) / slots) * (per + RUN_OVERHEAD);
+    if (c < cost) {
+      best = s;
+      cost = c;
+    }
+  }
+  return best;
+}
+
+// Blocks of the route's kernel at this width that fit an SM (its shared
+// memory limit set first).
+template <bool P2>
+static int occupancy(int* per_sm) {
+  using K = FwdCfg<P2>;
+  int e = (int)cudaFuncSetAttribute(
+      flash_fwd_tf32<P2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)K::SMEM);
+  if (e) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, flash_fwd_tf32<P2>, K::THREADS, K::SMEM);
+}
+
+// plan = {rows a block, keys a tile, blocks (all runs), blocks per SM,
+// waves, runs of the key sweep}
+template <bool P2>
+static int choose(int B, int Lq, int Lk, int sms, int* plan) {
+  using K = FwdCfg<P2>;
+  int per_sm, e;
+  if ((e = occupancy<P2>(&per_sm))) return e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long blocks = (long long)B * ((Lq + K::BROWS - 1) / K::BROWS);
+  const long long slots = (long long)sms * per_sm;
+  const int splits = split_count(blocks, (Lk + K::TILE - 1) / K::TILE, slots);
+  const long long n = blocks * splits;
+  plan[0] = K::BROWS;
+  plan[1] = K::TILE;
+  plan[2] = (int)n;
+  plan[3] = per_sm;
+  plan[4] = (int)((n + slots - 1) / slots);
+  plan[5] = splits;
+  return 0;
+}
+
+template <bool P2>
+static int launch(const void* q, const void* k, const void* v, void* out,
+                  void* lse, int B, int Lq, int Lk, float scale, Swin sw,
+                  int splits, cudaStream_t st) {
+  using K = FwdCfg<P2>;
+  const int per = tiles_per_split(Lk, K::TILE, splits);
+  if (!per) return (int)cudaErrorInvalidValue;
+  int e;
+  if ((e = (int)cudaFuncSetAttribute(
+           flash_fwd_tf32<P2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)K::SMEM)))
+    return e;
+  const dim3 grid((unsigned)((Lq + K::BROWS - 1) / K::BROWS),
+                  (unsigned)splits, (unsigned)B);
+  flash_fwd_tf32<P2><<<grid, K::THREADS, K::SMEM, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, Lq, Lk, scale, sw, per);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32x3
+
+static size_t f32_smem(int C, int D) {
+  return sizeof(float) * ((size_t)F32_BQ * (C + 1) + (size_t)F32_BK * (C + D) +
+                          (size_t)F32_BQ * (D + 1));
+}
+
+static size_t bf16_smem(int C, int D) {
+  return (size_t)BK * (C + PAD) * sizeof(bf16) +
+         (D == 2 ? BK * sizeof(float2) : (size_t)BK * (D + PAD) * sizeof(bf16));
+}
+
 template <int CMAX, int DMAX, bool PAYLOAD2>
 static int launch_bf16(const void* q, const void* k, const void* v, void* out,
                        void* lse, int B, int Lq, int Lk, int C, int D,
                        float scale, Swin sw, cudaStream_t st) {
   auto kern = flash_fwd_bf16<CMAX, DMAX, PAYLOAD2>;
-  const size_t smem = (size_t)BK * (C + PAD) * sizeof(bf16) +
-                      (PAYLOAD2 ? BK * sizeof(float2)
-                                : (size_t)BK * (D + PAD) * sizeof(bf16));
+  const size_t smem = bf16_smem(C, D);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -831,29 +1188,50 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// Whether `route` takes these operands (bf16 or f32) and widths.
+static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
+                        int D) {
+  switch (route) {
+    case F32: return !is_bf16;
+    case TF32X3: return !is_bf16 && tf32x3::takes(B, Lq, Lk, C, D);
+    case MMA_SYNC: return is_bf16;
+    case WGMMA: return is_bf16 && sm90::takes(B, Lq, Lk, C, D);
+    default: return false;
+  }
+}
+
 // q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], all bf16 or all f32,
 // contiguous, 16-byte aligned; out [B, Lq, D] f32; lse [B, Lq] f32 or null.
 // swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the TPU
 // kernel's `swin`. Takes C % 16 == 0, C <= 128, and D == 2 or D % 16 == 0,
-// D <= 128: GMFlow's widths (wider ones need their own instantiations).
-// bf16 at C = 128 and D = 128 or 2 takes the wgmma route, other bf16
-// widths the mma.sync route, f32 the CUDA-core kernel. Returns
-// cudaGetLastError() after the launch (0 on success).
+// D <= 128: GMFlow's widths (wider ones need their own instantiations), on
+// the route the caller names (enum Route; ops/flash.py:plan names bf16 at
+// C = 128 and D = 128 or 2 the wgmma route, other bf16 the mma.sync route,
+// f32 at those widths the tf32x3 route, other f32 the CUDA-core route).
+// splits > 1 (the tf32x3 route only) cuts the key sweep into that many
+// runs of whole tiles: out is then a [splits, B, Lq, D] scratch of the
+// runs' unnormalised outputs and lse a [splits, B, Lq] scratch of their
+// (m, l) float2s, for ofd_flash_fwd_merge. Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int Lq, int Lk,
                              int C, int D, float scale, int swin_k, int wh,
-                             int ww, int sh, int swd, int is_bf16,
-                             void* stream) {
+                             int ww, int sh, int swd, int is_bf16, int route,
+                             int splits, void* stream) {
   if (B < 1 || B > 65535 || Lq < 1 || Lk < 1 || C < 16 || C > 128 ||
       C % 16 || !(D == 2 || (D % 16 == 0 && D >= 16 && D <= 128)) ||
-      swin_k < 0)
+      swin_k < 0 || !route_takes(route, is_bf16, B, Lq, Lk, C, D) ||
+      (splits != 1 && route != TF32X3) || (splits > 1 && lse == nullptr))
     return (int)cudaErrorInvalidValue;
   const Swin sw{swin_k, wh, ww, sh, swd};
   cudaStream_t st = (cudaStream_t)stream;
-  if (!is_bf16) {
-    const size_t smem = sizeof(float) * ((size_t)F32_BQ * (C + 1) +
-                                         (size_t)F32_BK * (C + D) +
-                                         (size_t)F32_BQ * (D + 1));
+  if (route == TF32X3)
+    return D == 2 ? tf32x3::launch<true>(q, k, v, out, lse, B, Lq, Lk, scale,
+                                         sw, splits, st)
+                  : tf32x3::launch<false>(q, k, v, out, lse, B, Lq, Lk,
+                                          scale, sw, splits, st);
+  if (route == F32) {
+    const size_t smem = f32_smem(C, D);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -866,7 +1244,7 @@ extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
         (float*)lse, Lq, Lk, C, D, scale, sw);
     return (int)cudaGetLastError();
   }
-  if (sm90::takes(B, Lq, Lk, C, D))
+  if (route == WGMMA)
     return D == 2 ? sm90::forward<true>(q, k, v, out, lse, B, Lq, Lk, scale,
                                         sw, st)
                   : sm90::forward<false>(q, k, v, out, lse, B, Lq, Lk, scale,
@@ -877,45 +1255,65 @@ extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
                                                C, D, scale, sw, st);
 }
 
-// What ofd_flash_fwd would launch for these operands: plan = {route (0
-// f32, 1 mma.sync, 2 wgmma), warpgroups a block, blocks, blocks per SM,
-// waves over the card's SMs}. Returns a cudaError_t (0 on success).
+// out [rows, D] (and lse [rows], or null) from a split sweep's scratches:
+// part_o [splits, rows, D], part_ml [splits, rows] (m, l) float2s, merged
+// in run order (the tf32x3 route). Returns cudaGetLastError().
+extern "C" int ofd_flash_fwd_merge(const void* part_o, const void* part_ml,
+                                   void* out, void* lse, long long rows,
+                                   int D, int splits, void* stream) {
+  if (rows < 1 || D < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  const long long blocks = (rows * D + 255) / 256;
+  tf32x3::merge_splits<<<(unsigned)(blocks < 1056 ? blocks : 1056), 256, 0,
+                         (cudaStream_t)stream>>>(
+      (const float*)part_o, (const float2*)part_ml, (float*)out, (float*)lse,
+      rows, D, splits);
+  return (int)cudaGetLastError();
+}
+
+// What ofd_flash_fwd would launch for these operands on the route C picks
+// by the rule above: plan = {route (enum Route), query rows a block, keys
+// a tile, blocks (every run's), blocks per SM, waves over the card's SMs,
+// runs of the key sweep}. Returns a cudaError_t (0 on success).
 extern "C" int ofd_flash_fwd_plan(int B, int Lq, int Lk, int C, int D,
                                   int is_bf16, int* plan) {
-  if (is_bf16 && sm90::takes(B, Lq, Lk, C, D)) {
-    plan[0] = 2;
-    return D == 2 ? sm90::choose<true>(B, Lq, plan + 1)
-                  : sm90::choose<false>(B, Lq, plan + 1);
-  }
   int dev, sms, per_sm = 0, e;
   if ((e = (int)cudaGetDevice(&dev))) return e;
   if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                        dev)))
     return e;
+  if (!is_bf16 && tf32x3::takes(B, Lq, Lk, C, D)) {
+    plan[0] = TF32X3;
+    return D == 2 ? tf32x3::choose<true>(B, Lq, Lk, sms, plan + 1)
+                  : tf32x3::choose<false>(B, Lq, Lk, sms, plan + 1);
+  }
+  if (is_bf16 && sm90::takes(B, Lq, Lk, C, D)) {
+    int wg[4];   // {warpgroups a block, blocks, blocks per SM, waves}
+    if ((e = D == 2 ? sm90::choose<true>(B, Lq, wg)
+                    : sm90::choose<false>(B, Lq, wg)))
+      return e;
+    const int got[7] = {WGMMA, wg[0] * sm90::TILE, sm90::TILE, wg[1], wg[2],
+                        wg[3], 1};
+    for (int i = 0; i < 7; ++i) plan[i] = got[i];
+    return 0;
+  }
   const int rows = is_bf16 ? BQ : F32_BQ;
   const long long n = (long long)B * ((Lq + rows - 1) / rows);
-  if (is_bf16) {
-    const size_t smem = (size_t)BK * (C + PAD) * sizeof(bf16) +
-                        (D == 2 ? BK * sizeof(float2)
-                                : (size_t)BK * (D + PAD) * sizeof(bf16));
+  if (is_bf16)
     e = D == 2 ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &per_sm, flash_fwd_bf16<128, 16, true>, WARPS * 32, smem)
+                     &per_sm, flash_fwd_bf16<128, 16, true>, WARPS * 32,
+                     bf16_smem(C, D))
                : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                      &per_sm, flash_fwd_bf16<128, 128, false>, WARPS * 32,
-                     smem);
-  } else {
-    const size_t smem = sizeof(float) * ((size_t)F32_BQ * (C + 1) +
-                                         (size_t)F32_BK * (C + D) +
-                                         (size_t)F32_BQ * (D + 1));
+                     bf16_smem(C, D));
+  else
     e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_fwd_f32, F32_BQ, smem);
-  }
+        &per_sm, flash_fwd_f32, F32_BQ, f32_smem(C, D));
   if (e) return e;
   if (per_sm < 1) per_sm = 1;
-  plan[0] = is_bf16 ? 1 : 0;
-  plan[1] = 1;
-  plan[2] = (int)n;
-  plan[3] = per_sm;
-  plan[4] = (int)((n + (long long)per_sm * sms - 1) / ((long long)per_sm * sms));
+  const int got[7] = {
+      is_bf16 ? MMA_SYNC : F32, rows, is_bf16 ? BK : F32_BK, (int)n, per_sm,
+      (int)((n + (long long)per_sm * sms - 1) / ((long long)per_sm * sms)),
+      1};
+  for (int i = 0; i < 7; ++i) plan[i] = got[i];
   return 0;
 }

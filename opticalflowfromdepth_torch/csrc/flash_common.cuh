@@ -1,9 +1,10 @@
 // Pieces shared by the flash kernels of this directory (flash.cu, the
-// forward; flash_bwd.cu, the backward): the analytic Swin mask, the
-// mma.sync helpers of the narrow-width routes, and, in namespace sm90, the
-// tile products, fragment conversions and warpgroup turns of the wgmma
-// routes (C = 128; 64-row tiles of two 128-byte-swizzled 64-column panels,
-// as hopper.cuh's tensor maps lay them out).
+// forward; flash_bwd.cu, the backward): the routes' codes, the analytic
+// Swin mask, the mma.sync helpers of the narrow-width routes, and, in
+// namespace sm90, the tile products, fragment conversions and warpgroup
+// turns of the wgmma routes (C = 128; 64-row tiles of two
+// 128-byte-swizzled 64-column panels, as hopper.cuh's tensor maps lay
+// them out).
 
 #pragma once
 
@@ -18,6 +19,9 @@
 #endif
 
 typedef __nv_bfloat16 bf16;
+
+// The routes of the flash kernels, as ops/flash.py:ROUTES names them.
+enum Route { F32 = 0, TF32X3 = 1, MMA_SYNC = 2, WGMMA = 3 };
 
 struct Swin {
   int k, wh, ww, sh, sw;  // k == 0: no mask

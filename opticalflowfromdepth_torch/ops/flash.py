@@ -6,13 +6,22 @@ v`` for GMFlow's window attention, global matching and global flow
 propagation, optionally with the Swin shifted-window mask generated from
 token indices (``swin=(num_splits, wh, ww, sh, sw)``, batch ordered [b,
 wy, wx]) and the per-row log-sum-exp. CUDA tensors launch the hand-written
-kernel in ``csrc/flash.cu``; CPU tensors take the plain version below.
-Nothing falls back: a CUDA input the kernel does not take raises.
+kernels in ``csrc/flash.cu`` on the route :func:`plan` names; CPU tensors
+take the plain version below. Nothing falls back: a CUDA input no route
+takes raises.
 
 The operand dtype is q's: bf16 (the serving path, as the TPU kernel, which
 casts every operand to bf16; v is cast here, so an f32 flow payload is
 rounded exactly as the TPU kernel rounds it) or f32 (f32 models keep f32
-operands, as the JAX dense path on the CPU does). The output is f32.
+operands, as the JAX dense path on the CPU does; every sequence-parallel
+ring step is f32). The output is f32. The routes: bf16 at GMFlow's widths
+(C = 128, D = 128 or 2) ``wgmma``, other bf16 ``mma_sync``; f32 at
+GMFlow's widths ``tf32x3``, whose products run on the tensor cores in
+split TF32 (three TF32 products for each f32 one, within f32's tolerance:
+:func:`flash_softmax_matmul_tf32` repeats their rounding) and whose key
+sweep is split where its blocks would fill less than one wave of the
+card (the runs' partials merged in a fixed order by a second launch);
+other f32 widths ``f32``, on the CUDA cores.
 
 A call whose inputs require grad goes through an autograd Function, as
 the JAX package's ``custom_vjp``: its forward also emits the LSE and saves
@@ -27,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -137,14 +146,175 @@ def bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             + 2 ** -16 * w.sum(-1, keepdim=True) + 1e-6)
 
 
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` -> (hi, lo) as the tf32x3 route splits an operand: hi is
+    x rounded to TF32 (to nearest, ties away from zero: 0x1000 added to
+    its bits, the low 13 cleared), lo = x - hi (exact in f32) as the
+    tensor cores read it (its low 13 bits dropped). hi + lo is x to within
+    2^-21 of |x|."""
+    x = x.float().contiguous()
+    hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor,
+                terms: int = 3) -> torch.Tensor:
+    """``a @ b`` from split-TF32 pieces, in f32: ``a_hi b_hi + a_hi b_lo +
+    a_lo b_hi`` (``terms=3``, the tf32x3 route's products) or ``a_hi b_hi``
+    alone (``terms=1``, plain TF32). Each piece's products are exact in
+    f32; only the order of the sums differs from the kernels'."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    out = torch.matmul(ah, bh)
+    if terms == 3:
+        out = out + (torch.matmul(al, bh) + torch.matmul(ah, bl))
+    return out
+
+
+def flash_softmax_matmul_tf32(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, scale: Optional[float] = None,
+                              swin: Optional[Swin] = None,
+                              with_lse: bool = False, terms: int = 3
+                              ) -> Union[torch.Tensor,
+                                         Tuple[torch.Tensor, torch.Tensor]]:
+    """The tf32x3 route's arithmetic in plain PyTorch (f32 operands, C =
+    128, D = 128 or 2): S = q k^T through :func:`matmul_tf32` (``terms``
+    pieces), then the base-2 softmax of the wgmma route (the scores times
+    ``scale * log2(e)``, the Swin mask's -100 times ``log2(e)``, ``p =
+    2^(x - m)``) and ``P V`` through :func:`matmul_tf32` at D = 128, in
+    plain f32 at D = 2 (the kernel takes it on the CUDA cores); the LSE is
+    ``m ln 2 + log(den)``. ``terms=1`` shows what plain TF32 products
+    would lose. For tests and readings only: no path calls it."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[2])
+    b = q.shape[0]
+    s = matmul_tf32(q.float(), k.float().transpose(1, 2), terms) \
+        * float(np.float32(scale) * np.float32(LOG2E))
+    if swin is not None:
+        s = s + swin_mask_dense(k.shape[1], swin, b, q.device) * LOG2E
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    den = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    vf = v.float()
+    acc = torch.matmul(p, vf) if v.shape[2] == 2 else matmul_tf32(p, vf,
+                                                                  terms)
+    out = acc / den
+    if with_lse:
+        return out, (m * math.log(2.0) + torch.log(den))[..., 0]
+    return out
+
+
+# The routes and their codes in the C entry points (csrc/flash_common.cuh,
+# enum Route), the forward's and the backward's.
+ROUTES = {"f32": 0, "tf32x3": 1, "mma_sync": 2, "wgmma": 3}
+H100_SMS = 132
+SMEM_SM = 233472        # shared memory of an SM that blocks may take
+SMEM_RESERVED = 1024    # the system's share of it for each block
+MAX_SPLITS = 16         # runs of a split sweep at most (its scratch)
+RUN_OVERHEAD = 2        # a block's fixed work (its resident rows, its
+                        # partial sums out and back in), in tiles
+TF32_STRIDE = 132       # floats a shared row of the tf32x3 routes
+
+
+def gmflow_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
+    """GMFlow's widths, which the wgmma and tf32x3 routes take: C = 128, D
+    = 128 or 2, the rows of every batch entry within int32."""
+    return c == 128 and d in (2, 128) and b * max(lq, lk) < 2 ** 31
+
+
+def split_count(blocks: int, tiles: int, slots: int) -> int:
+    """How many runs to cut a sweep of ``tiles`` tiles into, for ``blocks``
+    blocks (batch entries x row blocks) on a card that holds ``slots`` at
+    once: 1 if the blocks fill the slots; else the count whose waves
+    times a block's work (its run's tiles and RUN_OVERHEAD) is least (the
+    fewest runs among equals), at most MAX_SPLITS, each run whole tiles
+    and none empty."""
+    if blocks >= slots:
+        return 1
+    best, cost = 1, -(-blocks // slots) * (tiles + RUN_OVERHEAD)
+    for s in range(2, min(MAX_SPLITS, tiles) + 1):
+        per = -(-tiles // s)
+        if -(-tiles // per) != s:
+            continue                       # that many runs leave one empty
+        c = -(-blocks * s // slots) * (per + RUN_OVERHEAD)
+        if c < cost:
+            best, cost = s, c
+    return best
+
+
+class FwdPlan(NamedTuple):
+    """How the forward runs one call: the ``route``; for the tf32x3 route
+    the query rows a block (``rows``), keys a ring tile (``tile``), the
+    shared memory a block (``smem``, bytes) and blocks an SM, the runs the
+    key sweep is cut into (``splits``; the grid is (row blocks, splits,
+    B)), and where it is split the f32 scratch shapes of the runs'
+    partials (``scratch_out`` ``[splits, B, Lq, D]``, the unnormalised
+    outputs; ``scratch_ml`` ``[splits, B, Lq, 2]``, each row's running max
+    in base 2 and denominator; None where not)."""
+    route: str
+    rows: int = 0
+    tile: int = 0
+    smem: int = 0
+    blocks_per_sm: int = 0
+    splits: int = 1
+    scratch_out: Optional[Tuple[int, ...]] = None
+    scratch_ml: Optional[Tuple[int, ...]] = None
+
+
+def tf32_blocks(d: int) -> Tuple[int, int, int]:
+    """The forward's tf32x3 block at D = d (``tf32x3::FwdCfg``): (query
+    rows, keys a tile, blocks an SM by its launch bounds). D = 2: 4 warps,
+    64-key tiles, two blocks an SM; D = 128: 8 warps (a tile's V shared
+    by more rows), 32-key tiles, one."""
+    return (64, 64, 2) if d == 2 else (128, 32, 1)
+
+
+def tf32_smem(d: int) -> int:
+    """Shared memory of a forward tf32x3 block (``FwdCfg::SMEM``): Q's
+    resident rows and two ring stages (the K tile, and V's tile or its
+    pairs), rows of TF32_STRIDE floats."""
+    rows, tile, _ = tf32_blocks(d)
+    stage = tile * TF32_STRIDE + (2 * tile if d == 2 else tile * TF32_STRIDE)
+    return 4 * (rows * TF32_STRIDE + 2 * stage)
+
+
+def plan(b: int, lq: int, lk: int, c: int, d: int,
+         dtype: torch.dtype = torch.float32, sms: int = H100_SMS) -> FwdPlan:
+    """The forward's route and its parameters for q ``[b, lq, c]``, k ``[b,
+    lk, c]``, v ``[b, lk, d]`` of ``dtype``; pure host arithmetic. bf16 at
+    GMFlow's widths takes the wgmma route, other bf16 the mma.sync route;
+    f32 at GMFlow's widths the tf32x3 route, other f32 the CUDA-core
+    route."""
+    gmflow = gmflow_widths(b, lq, lk, c, d)
+    if dtype == torch.bfloat16:
+        return FwdPlan("wgmma" if gmflow else "mma_sync")
+    if not gmflow:
+        return FwdPlan("f32")
+    rows, tile, per_sm = tf32_blocks(d)
+    smem = tf32_smem(d)
+    per_sm = min(per_sm, SMEM_SM // (smem + SMEM_RESERVED))
+    splits = split_count(b * -(-lq // rows), -(-lk // tile), sms * per_sm)
+    return FwdPlan("tf32x3", rows, tile, smem, per_sm, splits,
+                   (splits, b, lq, d) if splits > 1 else None,
+                   (splits, b, lq, 2) if splits > 1 else None)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = _build.load("flash").ofd_flash_fwd
+def _kernel_fns():
+    """The C entry points: the forward and the merge of a split sweep's
+    runs."""
+    lib = _build.load("flash")
+    fn = lib.ofd_flash_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    merge = lib.ofd_flash_fwd_merge
+    merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                              ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p]
+    merge.restype = ctypes.c_int
+    return fn, merge
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,18 +325,25 @@ def _plan_fn():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def kernel_plan(b: int, lq: int, lk: int, c: int, d: int,
                 bf16: bool) -> dict:
     """What the forward kernel launches for these operands on the current
-    CUDA device: its route ("wgmma", "mma.sync" or "f32"), warpgroups a
-    block, blocks, blocks resident per SM and waves over the SMs."""
-    plan = (ctypes.c_int * 5)()
-    err = _plan_fn()(b, lq, lk, c, d, int(bf16), plan)
+    CUDA device by the C side's own rule: its route (a key of ROUTES),
+    query rows a block, keys a tile, blocks (every run's), blocks resident
+    per SM, waves over the SMs, and the runs of its key sweep (tf32x3: the
+    split :func:`plan` must name too)."""
+    out = (ctypes.c_int * 7)()
+    err = _plan_fn()(b, lq, lk, c, d, int(bf16), out)
     if err:
         raise RuntimeError(f"flash kernel plan failed: CUDA error {err}")
-    return dict(route=("f32", "mma.sync", "wgmma")[plan[0]],
-                warpgroups=plan[1], blocks=plan[2], per_sm=plan[3],
-                waves=plan[4])
+    route = {code: name for name, code in ROUTES.items()}[out[0]]
+    return dict(route=route, rows=out[1], tile=out[2], blocks=out[3],
+                per_sm=out[4], waves=out[5], splits=out[6])
 
 
 def _check_shapes(q, k, v, swin):
@@ -207,24 +384,62 @@ def check_kernel_operands(q, k, v, tensors, what: str) -> None:
                          f"Lq={lq}, Lk={lk}, C={c}, D={d}")
 
 
-def _flash_cuda(q, k, v, scale, swin, with_lse):
+def _check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"flash {what} launch failed: CUDA error {err}")
+
+
+def launcher(q, k, v, scale=None, swin=None, with_lse=False,
+             route: Optional[str] = None):
+    """The kernel's launch for one call on CUDA tensors, without the
+    count: ``((out, lse), launch, plan)``, the launch filling out (and lse
+    with ``with_lse``, else None) on the current stream, a split sweep's
+    runs merged into them. ``route`` forces another route of the same
+    dtype unsplit (to time it beside the planned one); by default
+    :func:`plan` picks it."""
     check_kernel_operands(q, k, v, (q, k, v), "flash kernel")
     b, lq, c = q.shape
     lk, d = v.shape[1], v.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(c)
+    p = plan(b, lq, lk, c, d, q.dtype, _sms(q.device.index))
+    if route is not None:
+        p = FwdPlan(route)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.to(q.dtype).contiguous()
     if any(t.data_ptr() % 16 for t in (qc, kc, vc)):
         raise ValueError("flash kernel needs 16-byte aligned q, k and v")
-    out = torch.empty(b, lq, d, dtype=torch.float32, device=q.device)
-    lse = torch.empty(b, lq, dtype=torch.float32, device=q.device) \
+    dev = q.device
+    out = torch.empty(b, lq, d, dtype=torch.float32, device=dev)
+    lse = torch.empty(b, lq, dtype=torch.float32, device=dev) \
         if with_lse else None
+    parts = None if p.splits == 1 else tuple(
+        torch.empty(s, dtype=torch.float32, device=dev)
+        for s in (p.scratch_out, p.scratch_ml))
     sw = swin if swin is not None else (0, 0, 0, 0, 0)
-    err = _kernel_fn()(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                       out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-                       b, lq, lk, c, d, float(scale), *sw,
-                       int(q.dtype == torch.bfloat16),
-                       torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
+    dims = (b, lq, lk, c, d, float(scale), *sw,
+            int(q.dtype == torch.bfloat16), ROUTES[p.route], p.splits)
+    fn, merge = _kernel_fns()
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    # the launch holds the operands (any copies live nowhere else) for as
+    # long as it may be called
+    def launch():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        o, l = parts if parts is not None else (out, lse)
+        _check(fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), o.data_ptr(),
+                  ptr(l), *dims, stream), "kernel")
+        if parts is not None:
+            _check(merge(o.data_ptr(), l.data_ptr(), out.data_ptr(), ptr(lse),
+                         b * lq, d, p.splits, stream), "merge")
+
+    return (out, lse), launch, p
+
+
+def _flash_cuda(q, k, v, scale, swin, with_lse):
+    (out, lse), launch, _ = launcher(q, k, v, scale, swin, with_lse)
+    launch()
     flash_softmax_matmul.launches += 1
     return (out, lse) if with_lse else out
 
@@ -241,10 +456,14 @@ def flash_softmax_matmul(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32 with ``with_lse``). ``scale`` defaults to ``1/sqrt(C)``.
 
     CPU tensors take :func:`flash_softmax_matmul_plain`; CUDA tensors
-    launch the kernel (``flash_softmax_matmul.launches`` counts those
-    launches), which takes bf16 or f32 q/k, C % 16 == 0 up to 128 (GMFlow's
-    width), and D == 2 or a multiple of 16 up to 128. Differentiable in q,
-    k and v (not in ``lse``); the gradients come back in their dtypes."""
+    launch the kernel on the route :func:`plan` names
+    (``flash_softmax_matmul.launches`` counts those calls, a split sweep's
+    merge included), which takes bf16 or f32 q/k, C % 16 == 0 up to 128
+    (GMFlow's width), and D == 2 or a multiple of 16 up to 128. f32 at C =
+    128 and D = 128 or 2 runs its products in split TF32 on the tensor
+    cores (within f32's tolerance; :func:`flash_softmax_matmul_tf32`), its
+    key sweep split at small batches. Differentiable in q, k and v (not in
+    ``lse``); the gradients come back in their dtypes."""
     _check_shapes(q, k, v, swin)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[2])

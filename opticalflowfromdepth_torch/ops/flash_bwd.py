@@ -41,7 +41,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
-from .flash import Swin, check_kernel_operands, swin_mask_dense
+# the plan's constants, the split count and the split-TF32 products are
+# the forward's too
+from .flash import (
+    H100_SMS, ROUTES, SMEM_RESERVED, SMEM_SM, TF32_STRIDE, Swin, _sms,
+    check_kernel_operands, gmflow_widths, matmul_tf32, split_count,
+    swin_mask_dense)
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -85,31 +90,6 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(1, 2), qf) * scale
     return dq, dk, dv
-
-
-def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 ``x`` -> (hi, lo) as the tf32x3 route splits an operand: hi is
-    x rounded to TF32 (to nearest, ties away from zero: 0x1000 added to
-    its bits, the low 13 cleared), lo = x - hi (exact in f32) as the
-    tensor cores read it (its low 13 bits dropped). hi + lo is x to within
-    2^-21 of |x|."""
-    x = x.float().contiguous()
-    hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
-    return hi, lo
-
-
-def matmul_tf32(a: torch.Tensor, b: torch.Tensor,
-                terms: int = 3) -> torch.Tensor:
-    """``a @ b`` from split-TF32 pieces, in f32: ``a_hi b_hi + a_hi b_lo +
-    a_lo b_hi`` (``terms=3``, the tf32x3 route's products) or ``a_hi b_hi``
-    alone (``terms=1``, plain TF32). Each piece's products are exact in
-    f32; only the order of the sums differs from the kernel's."""
-    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
-    out = torch.matmul(ah, bh)
-    if terms == 3:
-        out = out + (torch.matmul(al, bh) + torch.matmul(ah, bl))
-    return out
 
 
 def flash_backward_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -195,18 +175,6 @@ def bwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tol_dq, tol_dk, tol_dv
 
 
-# The routes and their codes in the C entry points (csrc/flash_bwd.cu,
-# enum Route).
-ROUTES = {"f32": 0, "tf32x3": 1, "mma_sync": 2, "wgmma": 3}
-H100_SMS = 132
-SMEM_SM = 233472        # shared memory of an SM that blocks may take
-SMEM_RESERVED = 1024    # the system's share of it for each block
-MAX_SPLITS = 16         # runs of a split sweep at most (its scratch)
-RUN_OVERHEAD = 2        # a block's fixed work (its resident rows, its
-                        # partial sums out and back in), in tiles
-TF32_STRIDE = 132       # floats a shared row of the tf32x3 route
-
-
 class BwdPlan(NamedTuple):
     """How the two kernels run one call: the ``route``; for the tf32x3
     route the output rows a block (``rows``), the other side's rows a
@@ -248,26 +216,6 @@ def tf32_smem(d: int, dkv: bool) -> int:
     return 4 * (res + 2 * (stage + (2 * tile if dkv else 0)))
 
 
-def split_count(blocks: int, tiles: int, slots: int) -> int:
-    """How many runs to cut a sweep of ``tiles`` tiles into, for ``blocks``
-    blocks (batch entries x row blocks) on a card that holds ``slots`` at
-    once: 1 if the blocks fill the slots; else the count whose waves
-    times a block's work (its run's tiles and RUN_OVERHEAD) is least (the
-    fewest runs among equals), at most MAX_SPLITS, each run whole tiles
-    and none empty."""
-    if blocks >= slots:
-        return 1
-    best, cost = 1, -(-blocks // slots) * (tiles + RUN_OVERHEAD)
-    for s in range(2, min(MAX_SPLITS, tiles) + 1):
-        per = -(-tiles // s)
-        if -(-tiles // per) != s:
-            continue                       # that many runs leave one empty
-        c = -(-blocks * s // slots) * (per + RUN_OVERHEAD)
-        if c < cost:
-            best, cost = s, c
-    return best
-
-
 def plan(b: int, lq: int, lk: int, c: int, d: int,
          dtype: torch.dtype = torch.float32, sms: int = H100_SMS) -> BwdPlan:
     """The route and its parameters for q ``[b, lq, c]``, k ``[b, lk, c]``,
@@ -275,7 +223,7 @@ def plan(b: int, lq: int, lk: int, c: int, d: int,
     with D = 128 or 2 takes the wgmma route, other bf16 the mma.sync route;
     f32 at those widths the tf32x3 route, other f32 the CUDA-core route
     (the widths within int32 rows, as the C side checks)."""
-    gmflow = c == 128 and d in (2, 128) and b * max(lq, lk) < 2 ** 31
+    gmflow = gmflow_widths(b, lq, lk, c, d)
     if dtype == torch.bfloat16:
         return BwdPlan("wgmma" if gmflow else "mma_sync")
     if not gmflow:
@@ -312,11 +260,6 @@ def _kernel_fns():
     fn.restype = ctypes.c_int
     fns.append(fn)
     return tuple(fns)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(err: int, what: str) -> None:

@@ -335,7 +335,10 @@ def test_raft_small_on_card_matches_cpu(card):
 
 # bf16 at C = 128 with D = 128 or 2 takes the forward's wgmma route
 # (64-key tiles, 64 queries a warpgroup, three warpgroups a block once
-# such blocks fill every SM twice), other widths the mma.sync route
+# such blocks fill every SM twice), other widths the mma.sync route; f32
+# at C = 128 with D = 128 or 2 the tf32x3 route (64 queries and 64-key
+# tiles a block at D = 2, 128 and 32 at D = 128; the key sweep split at
+# small batches), other widths the f32 CUDA-core route
 FLASH_FWD_CASES = [
     (8, 24, 24, 128, 128, (2, 4, 6, 2, 3)),      # [2B] windows, shifted
     (2, 100, 63, 64, 16, None),                  # ragged (mma.sync)
@@ -346,7 +349,9 @@ FLASH_FWD_CASES = [
     (1, 129, 65, 128, 2, None),
     (2, 63, 127, 128, 2, None),
     (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),  # region edge inside tiles
-    (264, 100, 100, 128, 128, None)]             # 3 warpgroups, 1 idle
+    (264, 100, 100, 128, 128, None),             # 3 warpgroups, 1 idle
+    (1, 2000, 2000, 128, 2, None),               # B = 1: split (f32)
+    (2, 1001, 1001, 128, 128, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -377,22 +382,99 @@ def test_flash_kernel_matches_plain(card, dtype, b, lq, lk, c, d, swin):
                                atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,lq,lk,c,d,swin", [
-    (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),   # wgmma route
-    (2, 129, 65, 128, 2, None),                   # wgmma route, D = 2
-    (2, 100, 63, 64, 16, None)])                  # mma.sync route
-def test_flash_kernel_bit_reproducible(card, b, lq, lk, c, d, swin):
-    """Two launches on the same bf16 inputs give the same bits, out and
-    LSE."""
+    (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),   # wgmma / tf32x3 route
+    (2, 129, 65, 128, 2, None),                   # the same, D = 2
+    (1, 2000, 2000, 128, 2, None),                # split sweep (f32)
+    (2, 100, 63, 64, 16, None)])                  # mma.sync / f32 route
+def test_flash_kernel_bit_reproducible(card, dtype, b, lq, lk, c, d, swin):
+    """Two launches on the same inputs give the same bits, out and LSE,
+    split sweeps included (no atomics: the runs merged in a fixed
+    order)."""
     g_ = torch.Generator().manual_seed(14)
-    q, k = (torch.randn(b, n, c, generator=g_).to(card, torch.bfloat16)
+    q, k = (torch.randn(b, n, c, generator=g_).to(card, dtype)
             for n in (lq, lk))
-    v = torch.randn(b, lk, d, generator=g_).to(card, torch.bfloat16)
+    v = torch.randn(b, lk, d, generator=g_).to(card, dtype)
     first = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
     second = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
     assert all(bool(torch.isfinite(x).all()) for x in first)
+
+
+@pytest.mark.parametrize("b,l,d,splits", [(1, 2000, 2, 8),
+                                          (2, 1001, 128, 8),
+                                          (1, 7168, 2, 7)])
+def test_flash_tf32x3_split_sweep(card, monkeypatch, b, l, d, splits):
+    """f32 at small batches and C = 128 takes the tf32x3 route with a split
+    key sweep (the plan's, checked here); within 1e-4 of max|v| of the
+    plain version (the LSE within 1e-4 + 1e-6|ref|), and a merge that
+    leaves the last run out exceeds that tolerance."""
+    g_ = torch.Generator().manual_seed(15)
+    q, k = (torch.randn(b, l, 128, generator=g_).to(card) for _ in range(2))
+    v = torch.randn(b, l, d, generator=g_).to(card) * (30 if d == 2 else 1)
+    plan = fl.plan(b, l, l, 128, d, torch.float32)
+    assert (plan.route, plan.splits) == ("tf32x3", splits)
+    assert plan.scratch_out == (splits, b, l, d)
+    ref, ref_lse = fl.flash_softmax_matmul_plain(q, k, v, with_lse=True)
+    tol = 1e-4 * float(v.abs().max())
+    out, lse = fl.flash_softmax_matmul(q, k, v, with_lse=True)
+    fn, merge = fl._kernel_fns()
+    monkeypatch.setattr(fl, "_kernel_fns", lambda: (
+        fn, lambda po, pm, o, ls, n, dd, s, st: merge(po, pm, o, ls, n, dd,
+                                                      s - 1, st)))
+    bad = fl.flash_softmax_matmul(q, k, v)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= tol
+    assert float(((lse - ref_lse).abs()
+                  / (1e-4 + 1e-6 * ref_lse.abs())).max()) <= 1.0
+    assert float((bad - ref).abs().max()) > tol
+
+
+def test_flash_plan_matches_kernel_plan(card):
+    """The Python plan (route, rows a block, keys a tile, blocks an SM,
+    runs of the key sweep) is what the C side reports it launches."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, lq, lk, c, d in ((16, 3220, 3220, 128, 2), (1, 7168, 7168, 128, 2),
+                            (1, 3584, 3584, 128, 2), (1, 1792, 1792, 128, 2),
+                            (128, 805, 805, 128, 128),
+                            (2, 1001, 1001, 128, 128), (1, 65, 129, 128, 128),
+                            (2, 100, 63, 64, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            p = fl.plan(b, lq, lk, c, d, dtype, sms)
+            k = fl.kernel_plan(b, lq, lk, c, d, dtype == torch.bfloat16)
+            assert k["route"] == p.route
+            if p.route == "tf32x3":
+                assert (k["rows"], k["tile"], k["per_sm"], k["splits"]) == \
+                    (p.rows, p.tile, p.blocks_per_sm, p.splits)
+                assert k["blocks"] == b * -(-lq // p.rows) * p.splits
+            else:
+                assert k["splits"] == 1
+
+
+def test_flash_forced_cuda_core_route_matches_plain(card):
+    """The CUDA-core route that f32 at C = 128 took before the tf32x3 one,
+    forced through ``launcher(route="f32")``, still within 1e-4 of max|v|
+    of the plain version; the planned route gives the tf32x3 plan."""
+    g_ = torch.Generator().manual_seed(16)
+    for d in (2, 128):
+        q, k = (torch.randn(2, 300, 128, generator=g_).to(card)
+                for _ in range(2))
+        v = torch.randn(2, 300, d, generator=g_).to(card)
+        ref, ref_lse = fl.flash_softmax_matmul_plain(q, k, v, with_lse=True)
+        for forced in (None, "f32"):
+            (out, lse), launch, plan = fl.launcher(q, k, v, with_lse=True,
+                                                   route=forced)
+            assert plan.route == (forced or "tf32x3")
+            launch()
+            torch.cuda.synchronize()
+            assert float((out - ref).abs().max()) <= \
+                1e-4 * float(v.abs().max())
+            np.testing.assert_allclose(lse.cpu().numpy(),
+                                       ref_lse.cpu().numpy(), atol=1e-4,
+                                       rtol=1e-6)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(card):

@@ -77,7 +77,7 @@ def test_split_count_and_scratch(shape, splits):
     for n, other in ((s_dq, lk), (s_dkv, lq)):
         tiles = -(-other // tile)
         per = -(-tiles // n)
-        assert 1 <= n <= min(tb.MAX_SPLITS, tiles)
+        assert 1 <= n <= min(tf.MAX_SPLITS, tiles)
         assert -(-tiles // per) == n
 
 
@@ -119,14 +119,14 @@ def test_split_tf32_reconstructs_f32():
     x = torch.from_numpy(np.concatenate([
         rng.normal(size=20000) * 10.0 ** rng.integers(-6, 6, 20000),
         [1.0, -1.0, 1.5, 2 ** -20, 2 ** -90]]).astype(np.float32))
-    hi, lo = tb.split_tf32(x)
+    hi, lo = tf.split_tf32(x)
     low = (hi.view(torch.int32) & 0x1FFF) | (lo.view(torch.int32) & 0x1FFF)
     assert int(low.abs().max()) == 0           # both TF32 bit patterns
     assert float(((hi - x).abs() / x.abs()).max()) <= 2 ** -11
     assert float(((hi + lo - x).abs() / x.abs()).max()) <= 2 ** -21
     # ties away from zero: 1 + 2^-11 (half a TF32 step above 1) rounds up
     tie = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11)], dtype=torch.float32)
-    assert tb.split_tf32(tie)[0].tolist() == [1 + 2 ** -10, -(1 + 2 ** -10)]
+    assert tf.split_tf32(tie)[0].tolist() == [1 + 2 ** -10, -(1 + 2 ** -10)]
 
 
 def _case(seed, b, l, d):

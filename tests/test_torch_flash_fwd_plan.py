@@ -1,0 +1,265 @@
+"""The flash forward's launch plan and the tf32x3 route's arithmetic
+(``ops/flash.py``), on the CPU.
+
+:func:`plan` is host arithmetic: the route by dtype and width, the split
+key sweep, the scratch shapes and the shared memory are checked here for
+the shapes the port's paths pass (GMFlow's training and serving matching
+grids, the sequence-parallel ring's slices, the windows). The route's
+split-TF32 products cannot run here; :func:`flash_softmax_matmul_tf32`
+repeats their rounding in plain PyTorch, and is held against JAX's dense
+f32 oracle, unsplit and as the runs of a split sweep merged the kernel's
+way. Inputs come from numpy seeds.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from opticalflowfromdepth_tpu.models.gmflow import (
+    shift_window_attn_mask, split_feature)
+from opticalflowfromdepth_tpu.ops.flash import flash_softmax_matmul_ref
+from opticalflowfromdepth_torch.ops import flash as tf
+from opticalflowfromdepth_torch.ops import flash_bwd as tb
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("dtype,c,d,route", [
+    (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.bfloat16, 128, 2, "wgmma"),
+    (torch.bfloat16, 64, 16, "mma_sync"),
+    (torch.bfloat16, 128, 16, "mma_sync"),
+    (torch.float32, 128, 128, "tf32x3"),
+    (torch.float32, 128, 2, "tf32x3"),
+    (torch.float32, 64, 16, "f32"),
+    (torch.float32, 128, 64, "f32"),
+    (torch.float32, 32, 2, "f32")])
+def test_route_by_dtype_and_width(dtype, c, d, route):
+    """The forward names the backward's routes for the same operands."""
+    p = tf.plan(2, 300, 300, c, d, dtype)
+    assert p.route == route == tb.plan(2, 300, 300, c, d, dtype).route
+    assert route in tf.ROUTES
+    if route != "tf32x3":       # only the tf32x3 route splits its sweep
+        assert p.splits == 1
+        assert p.scratch_out is p.scratch_ml is None
+
+
+# (B, Lq, Lk, D): the runs the plan cuts the key sweep into on 132 SMs.
+# B = 16 at GMFlow's training grid and its ring slices fills the card;
+# B = 1 (the serving grid, its slices) and small ragged calls split.
+SPLITS = [
+    ((16, 3220, 3220, 2), 1),       # training matching, unsharded
+    ((16, 1610, 1610, 2), 1),       # a step of the ring at n = 2
+    ((16, 805, 805, 2), 1),         # n = 4
+    ((128, 805, 805, 128), 1),      # the training windows, f32
+    ((8, 1792, 1792, 128), 1),      # the serving windows, f32
+    ((1, 7168, 7168, 2), 7),        # serving matching, unsharded
+    ((1, 3584, 3584, 2), 4),        # n = 2
+    ((1, 1792, 1792, 2), 7),        # n = 4
+    ((1, 2000, 2000, 2), 8),
+    ((2, 1001, 1001, 128), 8),
+    ((1, 65, 129, 128), 5),         # ragged: 5 key tiles of 32
+    ((1, 129, 65, 2), 2)]
+
+
+@pytest.mark.parametrize("shape,splits", SPLITS)
+def test_split_count_and_scratch(shape, splits):
+    b, lq, lk, d = shape
+    p = tf.plan(b, lq, lk, 128, d, torch.float32)
+    assert (p.route, p.splits) == ("tf32x3", splits)
+    rows, tile, _ = tf.tf32_blocks(d)
+    assert (p.rows, p.tile) == (rows, tile)
+    assert p.scratch_out == ((splits, b, lq, d) if splits > 1 else None)
+    assert p.scratch_ml == ((splits, b, lq, 2) if splits > 1 else None)
+    # the kernel's own rule (tiles_per_split in csrc/tf32x3.cuh): runs of
+    # ceil(tiles / splits) whole tiles, none empty
+    tiles = -(-lk // tile)
+    per = -(-tiles // splits)
+    assert 1 <= splits <= min(tf.MAX_SPLITS, tiles)
+    assert -(-tiles // per) == splits
+
+
+@pytest.mark.parametrize("b,l", [(1, 64), (1, 1000), (4, 777), (1, 9000),
+                                 (3, 65), (1, 7169), (16, 1610)])
+@pytest.mark.parametrize("d", [2, 128])
+def test_splits_only_below_one_wave_and_never_empty(b, l, d):
+    """The sweep splits only where the blocks hold less than one wave of
+    the card's slots, every split leaves no run empty, and fewer SMs never
+    ask for fewer runs."""
+    p = tf.plan(b, l, l, 128, d, torch.float32)
+    slots = tf.H100_SMS * p.blocks_per_sm
+    blocks = b * -(-l // p.rows)
+    tiles = -(-l // p.tile)
+    if blocks >= slots:
+        assert p.splits == 1
+    per = -(-tiles // p.splits)
+    assert -(-tiles // per) == p.splits
+    small = tf.plan(b, l, l, 128, d, torch.float32, sms=66)
+    assert small.splits <= p.splits
+
+
+@pytest.mark.parametrize("d", [2, 128])
+def test_shared_memory_fits_the_blocks_an_sm(d):
+    p = tf.plan(16, 3220, 3220, 128, d, torch.float32)
+    assert p.smem == tf.tf32_smem(d)
+    assert p.smem <= 232448                    # a block's limit, 227 KB
+    assert p.blocks_per_sm == (2 if d == 2 else 1)
+    assert p.blocks_per_sm * (p.smem + tf.SMEM_RESERVED) <= tf.SMEM_SM
+    # the C side's FwdCfg: 64 rows + 2 stages of 64 keys (D = 2), 128 + 2
+    # x 32 with V's rows (D = 128), rows of 132 floats
+    assert p.smem == (102400 if d == 2 else 135168)
+
+
+def test_split_count_and_tf32_products_are_shared_with_the_backward():
+    """One copy of the split count, the split-TF32 products and the routes'
+    codes: the backward takes the forward's."""
+    assert tb.split_count is tf.split_count
+    assert tb.matmul_tf32 is tf.matmul_tf32
+    assert tb.ROUTES is tf.ROUTES
+
+
+def _jax_ref(q, k, v, bias=None):
+    """JAX's dense f32 oracle and the LSE of its scores."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out = flash_softmax_matmul_ref(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), bias=bias)
+    s = jnp.einsum("blc,bmc->blm", q, k) * scale
+    if bias is not None:
+        s = s + bias
+    return np.asarray(out), np.asarray(jax.nn.logsumexp(s, axis=-1))
+
+
+def _case(seed, b, lq, lk, d, payload):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, lq, 128)).astype(np.float32)
+    k = rng.normal(size=(b, lk, 128)).astype(np.float32)
+    if payload == "grid":          # the matching grid of a map 16 wide
+        t = np.arange(lk)
+        v = np.tile(np.stack([t % 16, t // 16], -1)[None], (b, 1, 1))
+    elif payload == "flow":        # a flow in [-60, 60] px
+        v = rng.uniform(-60, 60, size=(b, lk, 2))
+    else:
+        v = rng.normal(size=(b, lk, d))
+    return q, k, v.astype(np.float32)
+
+
+def _assert_within(out, lse, want, want_lse, v):
+    """The card checks' f32 tolerance: 1e-4 of max|v| for the output,
+    1e-4 + 1e-6|ref| for the LSE."""
+    np.testing.assert_allclose(out, want, rtol=0, atol=1e-4 * np.abs(v).max())
+    np.testing.assert_allclose(lse, want_lse, rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,lq,lk,d,payload", [
+    (2, 150, 150, 2, "grid"), (1, 200, 200, 2, "flow"),
+    (1, 200, 200, 128, "normal"), (2, 65, 129, 128, "normal"),
+    (1, 129, 65, 2, "flow")])
+def test_tf32x3_arithmetic_matches_jax_dense_ref(b, lq, lk, d, payload):
+    """The route's split-TF32 arithmetic (the CPU model) against JAX's
+    dense f32 oracle, within the card checks' tolerance: the matching
+    grid and flow payloads at D = 2, D = 128, ragged lengths."""
+    q, k, v = _case(6, b, lq, lk, d, payload)
+    want, want_lse = _jax_ref(q, k, v)
+    out, lse = tf.flash_softmax_matmul_tf32(
+        *(torch.from_numpy(x) for x in (q, k, v)), with_lse=True)
+    _assert_within(out.numpy(), lse.numpy(), want, want_lse, v)
+
+
+@pytest.mark.parametrize("d", [2, 128])
+def test_tf32x3_arithmetic_with_swin_matches_jax(d):
+    """With the Swin mask, as the JAX side builds it (split windows, the
+    dense shifted-window mask as a bias)."""
+    rng = np.random.default_rng(7)
+    h, w, nk = 8, 12, 2
+    wh, ww = h // nk, w // nk
+    x = rng.normal(size=(2, 2, h, w, 128)).astype(np.float32)
+    qs, ks = (np.array(split_feature(jnp.asarray(t), nk)).reshape(
+        -1, wh * ww, 128) for t in x)
+    vs = rng.normal(size=(qs.shape[0], wh * ww, d)).astype(np.float32) \
+        * (30 if d == 2 else 1)
+    bias = np.tile(np.asarray(shift_window_attn_mask(h, w, wh, ww, wh // 2,
+                                                     ww // 2)), (2, 1, 1))
+    want, want_lse = _jax_ref(qs, ks, vs, jnp.asarray(bias))
+    out, lse = tf.flash_softmax_matmul_tf32(
+        *(torch.from_numpy(t) for t in (qs, ks, vs)),
+        swin=(nk, wh, ww, wh // 2, ww // 2), with_lse=True)
+    _assert_within(out.numpy(), lse.numpy(), want, want_lse, vs)
+
+
+def _split_then_merge(q, k, v, runs, tile):
+    """The split sweep's arithmetic: each run of whole key tiles keeps its
+    base-2 running max m, its denominator l and its unnormalised output
+    (the kernel's partials); the merge takes M = max m, L = sum l 2^(m -
+    M), out = sum O 2^(m - M) / L and lse = M ln 2 + log L, in run order."""
+    tiles = -(-k.shape[1] // tile)
+    per = -(-tiles // runs)
+    scale2 = float(np.float32(1 / math.sqrt(128)) * np.float32(tf.LOG2E))
+    parts = []
+    for r in range(runs):
+        ks = slice(r * per * tile, min((r + 1) * per * tile, k.shape[1]))
+        s = tf.matmul_tf32(q, k[:, ks].transpose(1, 2)) * scale2
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp2(s - m)
+        o = torch.matmul(p, v[:, ks]) if v.shape[2] == 2 \
+            else tf.matmul_tf32(p, v[:, ks])
+        parts.append((m, p.sum(-1, keepdim=True), o))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    den, acc = 0.0, 0.0
+    for m, l, o in parts:
+        wgt = torch.exp2(m - big)
+        den = den + l * wgt
+        acc = acc + o * wgt
+    den = torch.clamp(den, min=1e-30)
+    return acc / den, (big * math.log(2.0) + torch.log(den))[..., 0]
+
+
+@pytest.mark.parametrize("b,l,d", [(1, 2000, 2), (2, 1001, 128),
+                                   (1, 129, 2)])
+def test_split_then_merge_matches_unsplit(b, l, d):
+    """The plan's runs of a split sweep, merged the kernel's way, give the
+    unsplit result (and JAX's) within the card checks' tolerance; leaving
+    the last run out does not."""
+    p = tf.plan(b, l, l, 128, d, torch.float32)
+    assert p.splits > 1
+    q, k, v = _case(8, b, l, l, d, "flow" if d == 2 else "normal")
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = _split_then_merge(tq, tk, tv, p.splits, p.tile)
+    whole, whole_lse = tf.flash_softmax_matmul_tf32(tq, tk, tv,
+                                                    with_lse=True)
+    _assert_within(out.numpy(), lse.numpy(), whole.numpy(),
+                   whole_lse.numpy(), v)
+    want, want_lse = _jax_ref(q, k, v)
+    _assert_within(out.numpy(), lse.numpy(), want, want_lse, v)
+    # the planted fault of chip_smoke.py [3e]: the last run left out
+    per = -(-(-(-l // p.tile)) // p.splits)           # tiles a run
+    keep = (p.splits - 1) * per * p.tile
+    cut, _ = _split_then_merge(tq, tk[:, :keep], tv[:, :keep], p.splits - 1,
+                               p.tile)
+    assert float((cut - whole).abs().max()) > 1e-4 * np.abs(v).max()
+
+
+@pytest.mark.parametrize("d", [2, 128])
+def test_hi_only_tf32_reading(d):
+    """For information (``pytest -s`` prints it): how far hi-only TF32
+    products (``terms=1``) lie from JAX's oracle, against the tolerance;
+    the three-term products lie far closer."""
+    q, k, v = _case(9, 2, 300, 300, d, "grid" if d == 2 else "normal")
+    want, want_lse = _jax_ref(q, k, v)
+    tol = 1e-4 * np.abs(v).max()
+    ratios = []
+    for terms in (3, 1):
+        out, lse = tf.flash_softmax_matmul_tf32(
+            *(torch.from_numpy(x) for x in (q, k, v)), with_lse=True,
+            terms=terms)
+        ratios.append((float(np.abs(out.numpy() - want).max() / tol),
+                       float((np.abs(lse.numpy() - want_lse)
+                              / (1e-4 + 1e-6 * np.abs(want_lse))).max())))
+    print(f"D = {d}: |d| / tolerance, out and LSE: three terms "
+          f"{ratios[0][0]:.4f}, {ratios[0][1]:.4f}; hi only {ratios[1][0]:.3f}"
+          f", {ratios[1][1]:.3f}")
+    assert max(ratios[0]) <= 0.1
+    assert max(ratios[1]) > 10 * max(ratios[0])
