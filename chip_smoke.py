@@ -221,10 +221,47 @@ Run from the repository root on a host with one CUDA card. Phases:
    [7]'s ``StepTimer`` against its own host clock (within 5%) and its
    trace of one step (one non-empty Chrome trace with the card's kernels
    and the annotation);
-20. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
-   [18]'s launches too; the flash row also carries the f32 route's times
-   at an f32 pair, ``f32_ms`` and the rest), the card line, and last the
-   line ``{"ok": true, "device": {...}}``.
+3j. (after [19]) the flash kernels' dense bias and widths: the
+   reference's Swin mask as a dense bias (``shift_window_attn_mask``
+   tiled) at the serving windows [8, 1792, 128] and the training windows
+   [128, 805, 128], bf16 and f32, against the plain version and the
+   in-kernel ``swin=`` call; a random-normal and a -100 block bias at the
+   matching shapes [1, 7168, 128] x D = 2 (f32: the key sweep split) and
+   [16, 3220, 128] x D = 2; every route (wgmma, mma.sync at C = 64 and
+   256, tf32x3 split and unsplit, the CUDA cores) with rows the bias
+   masks whole (-1e30: the mean of v over the real keys), Lk ragged and a
+   multiple of the key tile, bias with ``swin``; two launches bit-equal;
+   planted faults that must fail (the bias's last key column dropped, and
+   on the base-2 routes the bias unscaled by log2(e)); the Function with
+   a bias (its dense backward) card against CPU; widths C in {1, 8, 24,
+   100, 200, 256} x D in {1, 3, 24, 130, 256}, bf16 and f32, forward and
+   backward against the plain versions, two launches bit-equal; the C
+   side's plans (``kernel_plan``) at every padded width, each block
+   within an SM; widths past 256 and a bias of the wrong shape raise;
+   times with a bias at GMFlow's four shape classes (bf16) against the
+   bound (the bias's bytes) and SDPA with the bias as ``attn_mask``; then
+   GMFlow at 256 channels' flash calls (C = 256, the windows' D = 256) at
+   the serving and the training shapes ([21]'s and [22]'s), bf16: the
+   forward at each class and the backward at each training class against
+   the plain versions as [3e] and [3f] hold the 128-channel classes (two
+   launches bit-equal, the planted faults; their largest errors join the
+   flash rows' ``max_abs_err``), then timed against their bounds, the
+   plain versions and SDPA;
+20. GMFlow at ``feature_channels = 256``, f32 64x96, 1 scale: card vs CPU
+   ([9]'s 1-scale limits), 14 flash and 15 instance-norm launches;
+21. GMFlow at 256 channels serving: bf16, 3 pairs of 436x1024 after a
+   warm-up, 14 flash + 15 instance norms a pair, no plain version
+   called, ms a pair, peak memory, a profile of one pair;
+22. GMFlow at 256 channels training: the reference's recipe (bf16, batch
+   16 of 368x560, 1 scale, classifier on) on a resident batch, a warm-up
+   step and 2 steps with 14 + 14 + 14 flash launches and 15 instance
+   norms a step, no plain version called, finite losses, ms a step, peak
+   memory;
+23. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
+   [18]'s, [21]'s and [22]'s launches too; the flash row also carries the
+   f32 route's times at an f32 pair, ``f32_ms`` and the rest, and the
+   dense bias's at GMFlow's four classes, ``bias_ms`` and the rest), the
+   card line, and last the line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the package beside this file, it exits non-zero and
@@ -1284,12 +1321,14 @@ def flash_phase(gen):
                 **{f"f32_{k}": v for k, v in f32_pair.items()})
 
 
-def plan_tag(fl, q, k, v) -> str:
-    """The kernel's route for these operands, with its query rows a block,
-    blocks, waves and the runs of a split key sweep."""
+def plan_tag(fl, q, k, v, bias=None) -> str:
+    """The kernel's route for these operands (with a bias or without), with
+    its query rows a block, blocks, waves and the runs of a split key
+    sweep."""
     import torch
     p = fl.kernel_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                       v.shape[2], q.dtype == torch.bfloat16)
+                       v.shape[2], q.dtype == torch.bfloat16,
+                       bias is not None)
     return (f" ({p['route']}, {p['rows']} query rows a block, "
             f"{p['blocks']} blocks, {p['per_sm']} a SM, {p['waves']} "
             f"wave(s)" + (f", key sweep split in {p['splits']}"
@@ -1606,7 +1645,7 @@ def flash_bwd_phase(gen):
     return records
 
 
-def flash_bwd_timing(fl, fb, F, gen, dtype):
+def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES):
     """Each backward kernel launched alone at the training shapes (per
     launch, and the 14 + 14 launches of one step), against its bound,
     the plain backward and SDPA's backward asked for its outputs; returns
@@ -1621,7 +1660,7 @@ def flash_bwd_timing(fl, fb, F, gen, dtype):
     step = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0,
                     exps=0.0, bytes=0.0) for k in ("dq", "dkv")}
     lib_whole = 0.0
-    for name, (b, l, c, d, payload, swin), n in FLASH_TRAIN_SHAPES:
+    for name, (b, l, c, d, payload, swin), n in shapes:
         q, k, v = flash_inputs(gen, b, l, l, c, d, dtype, payload,
                                grid_w=GW8)
         g = torch.randn(b, l, d, generator=gen).cuda()
@@ -4585,6 +4624,528 @@ def sequence_parallel_phase(alone_12: float):
     return launches
 
 
+# --------------------------------------------------------------------------
+# slice 15: the flash kernels' dense bias and widths up to 256 ([3j]);
+# GMFlow at 256 channels ([20], [21], [22])
+# --------------------------------------------------------------------------
+
+BIAS_WIDTHS_C = (1, 8, 24, 100, 200, 256)
+BIAS_WIDTHS_D = (1, 3, 24, 130, 256)
+# GMFlow's four flash shape classes with a dense [B, L, L] bias: name, (B,
+# L, D, payload), calls of the bias-free shape per 1-scale pair or step
+# GMFlow at feature_channels = 256: its flash calls at Sintel serving (a
+# 1-scale pair) and at the training recipe (a step), as FLASH_SHAPES and
+# FLASH_TRAIN_SHAPES with C = 256 and the windows' D = 256
+FLASH256_SHAPES = tuple(
+    (name, (b, l, 256, 256 if d == 128 else d, payload, swin), n)
+    for name, (b, l, c, d, payload, swin), n in FLASH_SHAPES if n)
+FLASH256_TRAIN_SHAPES = tuple(
+    (name, (b, l, 256, 256 if d == 128 else d, payload, swin), n)
+    for name, (b, l, c, d, payload, swin), n in FLASH_TRAIN_SHAPES)
+BIAS_SHAPES = (
+    ("serving windows", (8, H8 * W8 // 4, 128, "normal"), 12),
+    ("training windows", (8 * GM_BATCH, GH8 * GW8 // 4, 128, "normal"), 12),
+    ("serving matching", (1, H8 * W8, 2, "grid"), 2),
+    ("training matching", (GM_BATCH, GH8 * GW8, 2, "grid"), 2),
+)
+
+
+def flash_tolerance(fl, q, k, v, bias=None, swin=None):
+    """[3e]'s tolerance of the forward kernel against the plain version:
+    f32 1e-4 of max|v|; bf16 ``bf16_tolerance`` row by row (with the
+    bias)."""
+    import torch
+    if q.dtype == torch.float32:
+        return 1e-4 * float(v.abs().max())
+    return fl.bf16_tolerance(q, k, v, swin=swin, bias=bias)
+
+
+def flash_bias_compare(fl, what, q, k, v, bias, swin=None, plant=False,
+                       masked_rows=None) -> float:
+    """The kernel with a dense bias against the plain version with it on
+    the same inputs (out within :func:`flash_tolerance`, the LSE within 1e-4
+    + 1e-6 |ref|), two launches bit-equal; returns the out's max abs diff.
+    ``masked_rows``: rows the bias masks whole (-1e30 on every key), which
+    must hold the mean of v over the real keys and the LSE -1e30 + log(Lk),
+    as JAX's dense oracle. ``plant``: two planted faults must exceed the
+    tolerance: the bias's last key column dropped (zeroed; the case's bias
+    weighs that column +8), and on a base-2 route (wgmma, tf32x3) the bias
+    added to the base-2 scores unscaled by log2(e) (the kernel handed bias
+    / log2(e))."""
+    import math
+
+    import torch
+    got, lse = fl.flash_softmax_matmul(q, k, v, bias=bias, swin=swin,
+                                       with_lse=True)
+    again, again_lse = fl.flash_softmax_matmul(q, k, v, bias=bias, swin=swin,
+                                               with_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fl.flash_softmax_matmul_plain(q, k, v, swin=swin,
+                                                 with_lse=True, bias=bias)
+    if got.shape != ref.shape or got.dtype != torch.float32 \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"flash bias {what}: {got.shape}/{got.dtype}, finite="
+             f"{bool(torch.isfinite(got).all())}")
+    if not (torch.equal(got, again) and torch.equal(lse, again_lse)):
+        fail(f"flash bias {what}: two launches on the same inputs differ")
+    tol = flash_tolerance(fl, q, k, v, bias, swin)
+    err = float((got - ref).abs().max())
+    line = (f"  {what}{plan_tag(fl, q, k, v, bias)}: max |d| {err:.3e}, "
+            f"|d| / tolerance {float(((got - ref).abs() / tol).max()):.3f}, "
+            f"lse {max_rel_excess(lse, ref_lse, 1e-6, 1e-4):.3f}")
+    if masked_rows is not None:
+        b, rows = masked_rows
+        mean = v.to(q.dtype).float()[b].mean(0)
+        t_rows = tol if isinstance(tol, float) else tol[b, rows]
+        dev = float(((got[b, rows] - mean).abs() / t_rows).max())
+        want = -1e30 + math.log(k.shape[1])
+        lse_dev = max_rel_excess(lse[b, rows], torch.full_like(
+            lse[b, rows], want), 1e-6, 1e-4)
+        line += (f"; rows masked whole: |out - mean v| / tolerance "
+                 f"{dev:.3f}, lse {lse_dev:.3f}")
+        if not (dev <= 1.0 and lse_dev <= 1.0):
+            fail(f"flash bias {what}: rows masked whole give {got[b, rows]}"
+                 f" / lse {lse[b, rows]}, want the mean {mean}, {want}")
+    if plant:
+        cut = bias.clone()
+        cut[..., -1] = 0
+        faults = [fl.flash_softmax_matmul(q, k, v, bias=cut, swin=swin)]
+        names = ["the bias's last key column dropped"]
+        route = fl.plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                        v.shape[2], q.dtype).route
+        if route in ("wgmma", "tf32x3"):
+            faults.append(fl.flash_softmax_matmul(
+                q, k, v, bias=bias / fl.LOG2E, swin=swin))
+            names.append("the bias unscaled by log2(e)")
+        ratios = [float(((f - ref).abs() / tol).max()) for f in faults]
+        line += ("; planted faults, |d| / tolerance (each must exceed 1): "
+                 + ", ".join(f"{n} {r:.2f}" for n, r in zip(names, ratios)))
+        if not min(ratios) > 1.0:
+            fail(f"flash bias {what}: a planted fault passes {ratios}")
+    print(line + "; two launches bit-equal", flush=True)
+    check(f"{what}: out |d| / tolerance",
+          float(((got - ref).abs() / tol).max()), 1.0)
+    check(f"{what}: lse |d| / (1e-4 + 1e-6 |ref|)",
+          max_rel_excess(lse, ref_lse, 1e-6, 1e-4), 1.0)
+    return err
+
+
+def flash_width_compare(fl, fb, what, q, k, v, g) -> float:
+    """Forward and backward kernels at a width the tiles need padded,
+    against the plain versions on the unpadded operands: out within
+    :func:`flash_tolerance`, the LSE within 1e-4 + 1e-6 |ref|; dq, dk, dv
+    within [3f]'s tolerance (f32 1e-4 of each gradient's max |ref|, bf16
+    ``bwd_bf16_tolerance``); each twice, bit-equal. Returns |d| /
+    tolerance of out, the LSE, dq, dk and dv."""
+    import torch
+    out, lse = fl.flash_softmax_matmul(q, k, v, with_lse=True)
+    grads = fb.flash_backward(q, k, v, out, lse, g)
+    again = fl.flash_softmax_matmul(q, k, v, with_lse=True)
+    grads_again = fb.flash_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    ref, ref_lse = fl.flash_softmax_matmul_plain(q, k, v, with_lse=True)
+    ref_g = fb.flash_backward_plain(q, k, v, out, lse, g)
+    shapes = [tuple(t.shape) for t in (out,) + tuple(grads)]
+    want = [tuple(t.shape) for t in (ref,) + tuple(ref_g)]
+    if shapes != want or not all(bool(torch.isfinite(t).all())
+                                 for t in (out,) + tuple(grads)):
+        fail(f"flash widths {what}: shapes {shapes}, want {want}, or not "
+             f"finite")
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+            and all(torch.equal(x, y) for x, y in zip(grads, grads_again))):
+        fail(f"flash widths {what}: two launches on the same inputs differ")
+    tol = flash_tolerance(fl, q, k, v)
+    if q.dtype == torch.float32:
+        tols = [1e-4 * float(r.abs().max()) for r in ref_g]
+    else:
+        tols = fb.bwd_bf16_tolerance(q, k, v, out, lse, g)
+    ratios = [float(((out - ref).abs() / tol).max()),
+              max_rel_excess(lse, ref_lse, 1e-6, 1e-4)] + [
+        float(((x - r).abs() / t).max()) for x, r, t in zip(grads, ref_g,
+                                                             tols)]
+    return ratios
+
+
+def flash_bias_width_phase(gen):
+    import torch
+    import torch.nn.functional as F
+    from opticalflowfromdepth_torch.models.gmflow import \
+        shift_window_attn_mask
+    from opticalflowfromdepth_torch.ops import flash as fl
+    from opticalflowfromdepth_torch.ops import flash_bwd as fb
+
+    print("[3j] flash: the dense bias on every forward route and widths up "
+          "to 256 forward and backward, CUDA kernels vs plain", flush=True)
+    # the reference's Swin mask as a dense bias (shift_window_attn_mask,
+    # tiled over the batch), against the in-kernel swin= call and the plain
+    # version: the serving and the training windows
+    for name, (b, hw, ww, l) in (
+            ("serving", (8, (H8 // 2, W8 // 2), (H8 // 4, W8 // 4),
+                         H8 * W8 // 4)),
+            ("training", (8 * GM_BATCH, (GH8 // 2, GW8 // 2),
+                          (GH8 // 4, GW8 // 4), GH8 * GW8 // 4))):
+        swin = (2, hw[0], hw[1], ww[0], ww[1])
+        mask = shift_window_attn_mask(2 * hw[0], 2 * hw[1], hw[0], hw[1],
+                                      ww[0], ww[1], "cuda")
+        bias = mask.repeat(b // 4, 1, 1)
+        if not torch.equal(bias, fl.swin_mask_dense(l, swin, b, "cuda")):
+            fail(f"[3j] {name}: the tiled shift_window_attn_mask is not "
+                 f"swin_mask_dense")
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_inputs(gen, b, l, l, 128, 128, dtype)
+            what = f"{name} windows + Swin as a bias {dtype} [{b},{l},128]"
+            flash_bias_compare(fl, what, q, k, v, bias)
+            got = fl.flash_softmax_matmul(q, k, v, bias=bias)
+            swin_out = fl.flash_softmax_matmul(q, k, v, swin=swin)
+            tol = flash_tolerance(fl, q, k, v, swin=swin)
+            check(f"{what}: against the in-kernel swin= call, |d| / "
+                  f"tolerance", float(((got - swin_out).abs() / tol).max()),
+                  1.0)
+            del q, k, v
+        del bias, mask
+        torch.cuda.empty_cache()
+    # a random-normal bias and a -100 block bias at the matching shapes
+    # (B = 1: the tf32x3 route splits its key sweep; B = 16: unsplit), the
+    # planted faults on the normal bias (its last key column weighed +8)
+    for name, (b, l) in (("serving matching", (1, H8 * W8)),
+                         ("training matching", (GM_BATCH, GH8 * GW8))):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_inputs(gen, b, l, l, 128, 2, dtype, "grid",
+                                   grid_w=W8 if b == 1 else GW8)
+            bias = torch.randn(b, l, l, generator=gen).cuda()
+            bias[..., -1] += 8.0
+            flash_bias_compare(fl, f"{name} normal bias {dtype} [{b},{l},128]"
+                               f"x[{b},{l},2]", q, k, v, bias, plant=True)
+            bias.zero_()
+            bias[:, : l // 2, l // 2:] = -100.0
+            flash_bias_compare(fl, f"{name} -100 block bias {dtype}", q, k, v,
+                               bias)
+            del q, k, v, bias
+            torch.cuda.empty_cache()
+    # every route, with rows the bias masks whole (-1e30), Lk a multiple of
+    # the key tile and ragged, bias with swin, and the planted faults
+    route_gen = torch.Generator().manual_seed(71)
+    for dtype, c, d, b, lq, lk, swin in (
+            (torch.bfloat16, 128, 128, 8, 130, 130, (2, 10, 13, 5, 6)),
+            (torch.bfloat16, 128, 2, 1, 100, 128, None),
+            (torch.bfloat16, 128, 128, 2, 127, 100, None),
+            (torch.bfloat16, 64, 16, 2, 100, 128, None),
+            (torch.bfloat16, 64, 2, 2, 100, 100, None),
+            (torch.bfloat16, 256, 256, 8, 130, 130, (2, 10, 13, 5, 6)),
+            (torch.float32, 128, 2, 1, 2000, 2000, None),      # split sweep
+            (torch.float32, 128, 128, 2, 1001, 1001, None),    # split sweep
+            (torch.float32, 128, 2, 16, 100, 128, None),       # unsplit
+            (torch.float32, 128, 128, 8, 130, 130, (2, 10, 13, 5, 6)),
+            (torch.float32, 64, 16, 2, 100, 100, None),
+            (torch.float32, 64, 2, 2, 100, 128, None),
+            (torch.float32, 256, 256, 8, 130, 130, (2, 10, 13, 5, 6))):
+        q, _, _ = flash_inputs(route_gen, b, lq, lq, c, d, dtype)
+        _, k, v = flash_inputs(route_gen, b, lk, lk, c, d, dtype)
+        bias = torch.randn(b, lq, lk, generator=route_gen).cuda()
+        bias[..., -1] += 8.0
+        rows = [0, lq // 2, lq - 1]
+        bias[b - 1, rows] = -1e30
+        flash_bias_compare(fl, f"route case {dtype} [{b},{lq},{c}]x[{b},{lk},"
+                           f"{d}]" + (f" swin {swin}" if swin else ""), q, k,
+                           v, bias, swin=swin, plant=True,
+                           masked_rows=(b - 1, rows))
+    # the Function with a bias on the card: JAX's dense backward in plain
+    # PyTorch, the same on both devices; the bias's gradient zeros
+    q, k, v = (t.requires_grad_() for t in flash_inputs(
+        route_gen, 2, 100, 100, 64, 16, torch.float32))
+    bias = torch.randn(2, 100, 100, generator=route_gen).cuda() \
+        .requires_grad_()
+    gout = torch.randn(2, 100, 16, generator=route_gen).cuda()
+    grads = torch.autograd.grad(fl.flash_softmax_matmul(q, k, v, bias=bias),
+                                (q, k, v, bias), gout)
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v, bias)]
+    want = torch.autograd.grad(fl.flash_softmax_matmul(*cpu[:3],
+                                                       bias=cpu[3]),
+                               cpu, gout.cpu())
+    check("the Function with a bias: card's gradients vs the CPU's (f32, "
+          "dense recompute), max |d|",
+          max(float((x.cpu() - y).abs().max()) for x, y in
+              zip(grads[:3], want[:3])), 1e-4)
+    if bool(grads[3].any()):
+        fail("[3j] the bias's gradient is not zeros")
+
+    # widths: C x D, bf16 and f32, forward and backward, padded to the
+    # kernels' tiles and sliced back, against the plain versions
+    width_gen = torch.Generator().manual_seed(72)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in BIAS_WIDTHS_C:
+            for d in BIAS_WIDTHS_D:
+                q, _, _ = flash_inputs(width_gen, 2, 150, 150, c, d, dtype)
+                _, k, v = flash_inputs(width_gen, 2, 130, 130, c, d, dtype)
+                g = torch.randn(2, 150, d, generator=width_gen).cuda()
+                bf16 = dtype == torch.bfloat16
+                fp = fl.kernel_plan(2, 150, 130, c, d, bf16)
+                bp = fb.kernel_plan(2, 150, 130, c, d, bf16)
+                r = flash_width_compare(fl, fb, f"C={c} D={d} {dtype}", q, k,
+                                        v, g)
+                worst[(dtype, c, d)] = r
+                cp, dp = fl.padded_widths(c, d)
+                print(f"  widths {dtype} C={c} D={d} (padded {cp}x{dp}; "
+                      + "; ".join(
+                          f"{what} {p['route']}, {p['chunks']} chunk(s), "
+                          f"{p['smem']} B shared, {p['regs']} registers"
+                          for what, p in (("forward", fp),
+                                          ("dq", bp["dq"]),
+                                          ("dk/dv", bp["dkv"])))
+                      + f"): |d| / tolerance out {r[0]:.3f}, lse "
+                      f"{r[1]:.3f}, dq {r[2]:.3f}, dk {r[3]:.3f}, dv "
+                      f"{r[4]:.3f}; two launches bit-equal", flush=True)
+    check("every width, forward and backward, |d| / tolerance",
+          max(max(r) for r in worst.values()), 1.0)
+    # the C side's plans at every padded width the wrappers hand the
+    # kernels (every C, D in 1..256): each block fits an SM
+    largest = {}
+    for bf16 in (True, False):
+        for cp in range(16, 257, 16):
+            for dp in [2] + list(range(16, 257, 16)):
+                plans = [fl.kernel_plan(4, 300, 300, cp, dp, bf16, bias)
+                         for bias in (False, True)]
+                plans += list(fb.kernel_plan(4, 300, 300, cp, dp,
+                                             bf16).values())
+                for p in plans:
+                    if p["per_sm"] < 1 or p["smem"] > 232448:
+                        fail(f"[3j] C={cp} D={dp} bf16={bf16}: a block the "
+                             f"card cannot hold: {p}")
+                    key = (p["route"], bf16)
+                    largest[key] = max(largest.get(key, 0), p["smem"])
+    print("  the C side's plans at every padded width (C 16..256, D 2 or "
+          "16..256, both dtypes, forward with a bias and without, dq, "
+          "dk/dv): every block fits an SM; the largest a route takes, "
+          "bytes: " + ", ".join(f"{r} {'bf16' if b else 'f32'} {n}"
+                                for (r, b), n in sorted(largest.items())),
+          flush=True)
+    # widths past 256 raise, as a bias of another shape does
+    q = torch.randn(1, 8, 257, device="cuda")
+    for call in (lambda: fl.flash_softmax_matmul(q, q, q[..., :8]),
+                 lambda: fl.flash_softmax_matmul(q[..., :8], q[..., :8], q),
+                 lambda: fl.flash_softmax_matmul(
+                     q[..., :8], q[..., :8], q[..., :8],
+                     bias=torch.zeros(1, 8, device="cuda"))):
+        try:
+            call()
+        except ValueError:
+            continue
+        fail("[3j] a width past 256 or a bias of the wrong shape ran")
+
+    # times with a bias at GMFlow's shape classes (bf16), against the
+    # bound (the bias's bytes read once set it) and SDPA with the bias as
+    # its attn_mask (bf16: SDPA takes a float mask in q's dtype)
+    total = dict(ms=0.0, library_ms=0.0, bound_ms=0.0, plain_ms=0.0,
+                 ops=0.0, exps=0.0, bytes=0.0)
+    for name, (b, l, d, payload), n in BIAS_SHAPES:
+        q, k, v = flash_inputs(gen, b, l, l, 128, d, torch.bfloat16, payload,
+                               grid_w=W8 if b == 1 else GW8)
+        bias = torch.randn(b, l, l, generator=gen).cuda()
+        ms = cuda_ms(lambda: fl.flash_softmax_matmul(q, k, v, bias=bias))
+        bare = cuda_ms(lambda: fl.flash_softmax_matmul(q, k, v))
+        plain_ms = cuda_ms(lambda: fl.flash_softmax_matmul_plain(
+            q, k, v, bias=bias), reps=2, warm=1)
+        vb, mb = v.to(torch.bfloat16), bias.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], vb[:, None], attn_mask=mb[:, None],
+            scale=1.0 / 128 ** 0.5), reps=10)
+        f, e = 2.0 * b * l * l * (128 + d), float(b * l * l)
+        by = (q.numel() + k.numel() + vb.numel()) * 2 + b * l * d * 4 \
+            + bias.numel() * 4
+        bound, bound_by = bound_ms(f, e, by, BF16_FLOP_PER_S)
+        print(f"  time with a bias: {name} bf16 [{b},{l},128]x[{b},{l},{d}] "
+              f"+ [{b},{l},{l}] f32{plan_tag(fl, q, k, v, bias)}: kernel "
+              f"{ms * 1e3:.1f} us ({bound / ms:.3f} of its bound "
+              f"{bound * 1e3:.1f} us, {bound_by}: {by / 1e6:.1f} MB, "
+              f"{f / 1e9:.2f} GFLOP); the same call without the bias "
+              f"{bare * 1e3:.1f} us; SDPA with the bias as attn_mask (bf16) "
+              f"{lib_ms * 1e3:.1f} us; plain {plain_ms * 1e3:.1f} us",
+              flush=True)
+        for key, val in (("ms", ms), ("library_ms", lib_ms),
+                         ("bound_ms", bound), ("plain_ms", plain_ms),
+                         ("ops", f), ("exps", e), ("bytes", by)):
+            total[key] += val
+        del q, k, v, vb, mb, bias
+        torch.cuda.empty_cache()
+    bound, bound_by = bound_ms(total["ops"], total["exps"], total["bytes"],
+                               BF16_FLOP_PER_S)
+    print(f"  the four classes with a bias, one call each: kernel "
+          f"{total['ms'] * 1e3:.1f} us ({bound / total['ms']:.3f} of the "
+          f"bound {bound * 1e3:.1f} us, {bound_by}), SDPA with attn_mask "
+          f"{total['library_ms'] * 1e3:.1f} us, plain "
+          f"{total['plain_ms'] * 1e3:.1f} us", flush=True)
+
+    # GMFlow at 256 channels: its flash calls at the serving and the
+    # training shapes (C = 256, windows D = 256: the mma.sync routes, D in
+    # two chunks), forward and backward, as [3e] and [3f] hold the 128
+    # channels' classes (two launches bit-equal, the planted faults); then
+    # against their bounds and SDPA
+    cmp_gen = torch.Generator().manual_seed(76)
+    err_fwd = err_bwd = 0.0
+    for what, shapes, grid_w in (("serving", FLASH256_SHAPES, W8),
+                                 ("training", FLASH256_TRAIN_SHAPES, GW8)):
+        for name, (b, l, c, d, payload, swin), _ in shapes:
+            q, k, v = flash_inputs(cmp_gen, b, l, l, c, d, torch.bfloat16,
+                                   payload, grid_w=grid_w)
+            case = (f"256-channel {what} {name} bf16 [{b},{l},{c}]x"
+                    f"[{b},{l},{d}]")
+            err_fwd = max(err_fwd, flash_compare(
+                fl, case + plan_tag(fl, q, k, v), q, k, v, swin))
+            if what == "training":
+                g = torch.randn(b, l, d, generator=cmp_gen).cuda()
+                route = fb.plan(b, l, l, c, d, torch.bfloat16).route
+                err_bwd = max(err_bwd, flash_bwd_compare(
+                    fl, fb, f"{case} ({route})", q, k, v, g, swin))
+                del g
+            del q, k, v
+            torch.cuda.empty_cache()
+    worst = dict(flash=err_fwd, flash_bwd_dq=err_bwd, flash_bwd_dkv=err_bwd)
+    flash_timing(fl, torch.Generator().manual_seed(73), FLASH256_SHAPES, W8,
+                 "256-channel pair", plain=True)
+    flash_timing(fl, torch.Generator().manual_seed(74),
+                 FLASH256_TRAIN_SHAPES, GW8, "256-channel step", plain=False)
+    flash_bwd_timing(fl, fb, F, torch.Generator().manual_seed(75),
+                     torch.bfloat16, FLASH256_TRAIN_SHAPES)
+    return dict(bias_ms=total["ms"], bias_plain_ms=total["plain_ms"],
+                bias_bound_ms=bound, bias_bound_by=bound_by,
+                bias_library_ms=total["library_ms"]), worst
+
+
+def gmflow256_parity_phase():
+    import copy
+
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.eval.infer import gmflow_infer_fn
+    from opticalflowfromdepth_torch.models.gmflow import GMFlow
+
+    print("[20] GMFlow at 256 channels, 64x96, f32, 1 scale: card vs CPU",
+          flush=True)
+    rng = np.random.default_rng(19)
+    i1, i2 = smooth_pairs(rng, 1, 64, 96)
+    model = GMFlow(feature_channels=256,
+                   generator=torch.Generator().manual_seed(20))
+    sp, cr, pr = GMFLOW_RECIPES[1]
+    cpu = gmflow_infer_fn(copy.deepcopy(model), sp, cr, pr,
+                          device="cpu")(i1, i2)
+    zero_launch_counts()
+    gpu = gmflow_infer_fn(model, sp, cr, pr, device="cuda")(i1, i2)
+    got = launch_counts()
+    if got != want_launches(flash=14, instance_norm=15):
+        fail(f"GMFlow-256 64x96 launch counts {got}")
+    d = np.abs(gpu - cpu)
+    print(f"  |flow| max {np.abs(cpu).max():.3f} px; launches {got}",
+          flush=True)
+    # f32 both sides (TF32 off): [9]'s 1-scale limits
+    check("256-channel flow card vs CPU (px)", float(d.max()), 2e-2)
+    check("  median (px)", float(np.median(d)), 1e-2)
+
+
+def gmflow256_serving_phase():
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.eval.infer import gmflow_infer_fn
+    from opticalflowfromdepth_torch.eval.padder import InputPadder
+    from opticalflowfromdepth_torch.models.gmflow import GMFlow
+
+    print(f"[21] GMFlow at 256 channels serving: bf16, 1 scale, 3 pairs of "
+          f"{SINTEL[0]}x{SINTEL[1]} (padding factor 16)", flush=True)
+    rng = np.random.default_rng(21)
+    pairs = [[rng.uniform(0, 255, (1,) + SINTEL + (3,)).astype(np.float32)
+              for _ in range(2)] for _ in range(4)]
+    model = GMFlow(feature_channels=256, dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(22))
+    infer = gmflow_infer_fn(model, *GMFLOW_RECIPES[1], device="cuda")
+    padder = InputPadder(pairs[0][0].shape, padding_factor=16)
+
+    def serve(i1, i2):
+        a, b = padder.pad(i1, i2)
+        return padder.unpad(infer(a, b))
+    t = time.perf_counter()
+    serve(*pairs[0])                                   # warm-up pair
+    print(f"  warm-up pair {(time.perf_counter() - t) * 1e3:.1f} ms",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    times = []
+    with PlainCalls() as plain:
+        for i1, i2 in pairs[1:]:
+            t = time.perf_counter()
+            flow = serve(i1, i2)
+            times.append((time.perf_counter() - t) * 1e3)
+            if flow.shape != (1,) + SINTEL + (2,) \
+                    or not np.isfinite(flow).all():
+                fail(f"GMFlow-256 serving flow {flow.shape}, finite="
+                     f"{bool(np.isfinite(flow).all())}")
+    plain.check("GMFlow-256 serving")
+    launches = launch_counts()
+    n = len(times)
+    print(f"  launches over {n} pairs: {launches}", flush=True)
+    if launches != want_launches(flash=14 * n, instance_norm=15 * n):
+        fail(f"GMFlow-256 serving launch counts {launches}")
+    print(f"  ms per pair: {[round(x, 3) for x in times]} (mean "
+          f"{sum(times) / n:.3f}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; |flow| "
+          f"max {np.abs(flow).max():.3f} px", flush=True)
+    profile(lambda: serve(*pairs[1]), sum(times) / n, "pair")
+    return launches
+
+
+def gmflow256_train_phase():
+    import math
+
+    import numpy as np
+    import torch
+    from opticalflowfromdepth_torch.data.loader import to_device
+    from opticalflowfromdepth_torch.train import gmflow_train as gt
+
+    b, (h, w) = GM_BATCH, GM_CROP
+    print(f"[22] GMFlow at 256 channels training: 2 steps of the reference "
+          f"recipe (batch {b} of {h}x{w}, bf16, 1 scale, classifier on) on a "
+          "resident batch", flush=True)
+    rng = np.random.default_rng(23)
+    i1, i2 = smooth_pairs(rng, b, h, w)
+    batch = to_device(dict(
+        image1=i1, image2=i2,
+        flow=rng.normal(0, 8, (b, h, w, 2)).astype(np.float32),
+        valid=np.ones((b, h, w), np.float32),
+        label=np.eye(4, dtype=np.float32)[rng.integers(0, 4, b)]), "cuda")
+    cfg = gt.GMFlowTrainConfig(batch_size=b, image_size=GM_CROP,
+                               mixed_precision=True, add_classifier=True,
+                               feature_channels=256)
+    state = gt.init_state(cfg, seed=3)
+    step = gt.make_train_step(cfg, seeded_classifier(4, torch.bfloat16))
+    t = time.perf_counter()
+    state, _ = step(state, batch, None)                 # warm-up step
+    torch.cuda.synchronize()
+    print(f"  warm-up step {(time.perf_counter() - t) * 1e3:.1f} ms",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    losses, times = [], []
+    with PlainCalls() as plain:
+        for _ in range(2):
+            t = time.perf_counter()
+            state, m = step(state, batch, None)
+            losses.append(float(m["total_loss"]))        # waits for the card
+            times.append((time.perf_counter() - t) * 1e3)
+    plain.check("GMFlow-256 training")
+    launches = launch_counts()
+    want = want_launches(flash=28, flash_bwd_dq=28, flash_bwd_dkv=28,
+                         instance_norm=30)
+    print(f"  launches over 2 steps: {launches}; losses "
+          f"{[round(x, 4) for x in losses]}; ms per step "
+          f"{[round(x, 3) for x in times]}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    if launches != want:
+        fail(f"GMFlow-256 training launch counts {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"GMFlow-256 training loss not finite: {losses}")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -4690,15 +5251,31 @@ def main() -> None:
     timed("19", host_data_phase, os.path.join(tmp_12.name, "gmflow_shards"),
           cli_16, profiling_7, codec_s, card)
     tmp_12.cleanup()
+    # slice 15: the flash kernels' dense bias and widths up to 256, then
+    # GMFlow at 256 channels, after every earlier path
+    bias, worst = timed("3j", flash_bias_width_phase,
+                        torch.Generator().manual_seed(70))
+    flash.update(bias)
+    timed("20", gmflow256_parity_phase)
+    served = timed("21", gmflow256_serving_phase)
+    trained = timed("22", gmflow256_train_phase)
+    # the flash rows gain the launches of [21]'s and [22]'s paths, and the
+    # largest error of [3j]'s comparisons at those paths' shapes
+    for k in kernels:
+        if k["name"] in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
+            k["launches"] += served[k["name"]] + trained[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], worst[k["name"]])
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     print(f"seconds per phase: {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
-    # the flash row also carries the f32 route's numbers (f32_*)
+    # the flash row also carries the f32 route's numbers (f32_*) and the
+    # dense bias's (bias_*)
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in order},
-         **{k: v for k, v in kern.items() if k.startswith("f32_")}}
+         **{k: v for k, v in kern.items()
+            if k.startswith(("f32_", "bias_"))}}
         for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,28 @@
 //
 // Replaces the TPU kernel opticalflowfromdepth_tpu/ops/flash.py:
 // _flash_kernel (launched by _flash_forward). Same function:
-//   out = softmax(q . k^T * scale [- 100 across Swin regions]
-//                 [key padding -1e30]) . v,
-// q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], out [B, Lq, D] f32, with an
-// online softmax over key tiles (running max from -1e30, running
-// denominator, f32 accumulator), the output divided by max(l, 1e-30) and
-// optionally lse = m + log(max(l, 1e-30)) [B, Lq] f32.
+//   out = softmax(q . k^T * scale [+ bias] [- 100 across Swin regions]
+//                 [key padding]) . v,
+// q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], out [B, Lq, D] f32, an
+// optional dense f32 bias [B, Lq, Lk], with an online softmax over key
+// tiles (running denominator, f32 accumulator), the output divided by
+// max(l, 1e-30) and optionally lse = m + log(max(l, 1e-30)) [B, Lq] f32.
+// The running max starts at -inf and the key padding is -inf (the TPU
+// kernel: -1e30 both), so a row that the bias masks whole (-1e30 on every
+// key) gives the mean of v over the real keys, as JAX's dense oracle does;
+// exponentials are taken against 0 while a row has met no finite score
+// (flash_common.cuh:max_offset).
+//
+// The bias: every route adds it to its scores where they sit in
+// registers, each lane reading its own accumulator elements (columns 8j +
+// 2t and + 1 of rows g and g + 8: a quad reads whole 32-byte sectors) as
+// one float2 where Lk is even, two floats where it is odd, so no padded
+// copy of the bias is made (flash_common.cuh:bias_pair). With a bias the
+// scores' bound is its bytes, B Lq Lk 4, read once at 3.35 TB/s.
+//
+// Widths: C % 16 == 0 and D == 2 or D % 16 == 0, up to 256 each
+// (ops/flash.py pads other widths with zero columns and slices the output
+// back). Only C = 128, D = 128 or 2 take the wgmma and tf32x3 routes.
 //
 // The Swin shifted-window mask is computed from the global query and key
 // indices, as the TPU kernel does: the window id is the batch index mod
@@ -61,10 +77,13 @@
 // Its limits: a warpgroup's S, softmax and P . V follow each other, and
 // the key sweep is not split, so batch-1 matching fills 112 of 132 SMs.
 //
-// Other bf16 widths (C % 16 == 0, C <= 128; D = 2 or D % 16 == 0): the
-// mma.sync route, one block of 4 warps per (batch entry, 64-query tile);
-// each warp owns 16 query rows, whose Q fragments stay in registers for
-// the whole key sweep. Per 64-key tile, K (and V) are staged in shared
+// Other bf16 widths (C % 16 == 0, C <= 256; D = 2 or D % 16 == 0, D <=
+// 256): the mma.sync route, one block of 4 warps per (batch entry,
+// 64-query tile, chunk of 128 output columns: at D > 128 each chunk's
+// blocks recompute S, which keeps the accumulators at 64 registers); each
+// warp owns 16 query rows, whose Q fragments stay in registers for the
+// whole key sweep at C <= 128 and are loaded from the block's Q rows in
+// shared memory per k-step at C > 128. Per 64-key tile, K (and V) are staged in shared
 // memory (rows padded by 8 bf16, so the fragment loads hit 32 distinct
 // banks); S = Q K^T with mma.sync m16n8k16 (bf16 in, f32 accumulate); the
 // scale, the Swin mask and the key padding; the running max and
@@ -100,15 +119,12 @@
 // tf32 operands are read K-major only, so P . V would need V transposed,
 // in hi and lo pieces, in shared memory.
 //
-// Other f32 widths (C % 16 == 0, C <= 128; D = 2 or D % 16 == 0; and the
-// route that GMFlow's widths took before the tf32x3 one, when a caller
-// forces it): f32 FMA on the CUDA cores, no TF32: one thread per query row
-// (64 a block), the query tile and the row accumulators in shared memory,
-// K and V in 32-key tiles read by every thread at the same address
-// (broadcast).
-//
-// Not ported: the TPU kernel's optional dense `bias` operand (no caller
-// passes one).
+// Other f32 widths (C % 16 == 0; D = 2 or D % 16 == 0; up to 256, where
+// its shared memory is 197 KB; and the route that GMFlow's widths took
+// before the tf32x3 one, when a caller forces it): f32 FMA on the CUDA
+// cores, no TF32: one thread per query row (64 a block), the query tile
+// and the row accumulators in shared memory, K and V in 32-key tiles read
+// by every thread at the same address (broadcast).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,43 +139,63 @@
 #define PAD 8         // bf16 elements appended to each shared row
 #define F32_BQ 64     // query rows (= threads) per block (f32 path)
 #define F32_BK 32     // keys per tile (f32 path)
+// Dynamic shared memory above which a launch must raise the kernel's limit
+// first: the default 48 KB holds the static shared memory too (under 1 KB
+// in these kernels).
+#define SMEM_DEFAULT (48 * 1024 - 1024)
 
-// Copy rows [r0, r0 + BK) of a [L, W] bf16 matrix into a [BK, W + PAD]
-// shared tile with 16-byte vectors; rows >= L are zero.
+// Copy rows [r0, r0 + BK) of the first W columns of a bf16 matrix whose
+// rows are `stride` apart into a [BK, W + PAD] shared tile with 16-byte
+// vectors; rows >= L are zero.
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int r0, int L, int W) {
+                                           int r0, int L, int W, int stride) {
   const int vecs = W / 8;
-  const int stride = W + PAD;
+  const int ld = W + PAD;
   for (int i = threadIdx.x; i < BK * vecs; i += WARPS * 32) {
     const int r = i / vecs, c = (i - r * vecs) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < L)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * W + c);
-    *reinterpret_cast<uint4*>(dst + r * stride + c) = val;
+      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * stride +
+                                            c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
   }
 }
 
-template <int CMAX, int DMAX, bool PAYLOAD2>
+// The mma.sync route. One block per (64 query rows, batch entry, chunk of
+// DMAX output columns: blockIdx.z; each chunk's blocks recompute S).
+// C <= 128 (CMAX 128): Q's A fragments stay in registers for the sweep;
+// C <= 256 (CMAX 256): the block's Q rows wait in shared memory and each
+// k-step loads its fragments, which keeps the registers of C = 128.
+template <int CMAX, int DMAX, bool PAYLOAD2, bool BIAS>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, float* __restrict__ out,
-               float* __restrict__ lse, int Lq, int Lk, int C, int D,
-               float scale, Swin sw) {
+               const bf16* __restrict__ v, const float* __restrict__ bias,
+               float* __restrict__ out, float* __restrict__ lse, int Lq,
+               int Lk, int C, int D, float scale, Swin sw) {
+  constexpr bool QSHARED = CMAX > 128;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);                 // [BK][C + PAD]
-  bf16* Vs = Ks + BK * (C + PAD);                           // [BK][D + PAD]
+  const int d0 = PAYLOAD2 ? 0 : blockIdx.z * DMAX;
+  const int Dc = PAYLOAD2 ? 2 : min(DMAX, D - d0);  // this chunk's columns
+  const int cs = C + PAD, ds = Dc + PAD;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);                 // [BK][cs]
+  bf16* Vs = Ks + BK * cs;                                  // [BK][ds]
   float2* V2 = reinterpret_cast<float2*>(Vs);               // [BK] (D == 2)
+  bf16* Qs = Vs + (PAYLOAD2 ? 4 * BK : BK * ds);            // [BQ][cs]
   __shared__ int kreg_s[BK];          // Swin region of each key of the tile
-  const int cs = C + PAD, ds = D + PAD;
 
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int rows[2] = {blockIdx.x * BQ + warp * 16 + g,
-                       blockIdx.x * BQ + warp * 16 + g + 8};
+  const int q0 = (int)blockIdx.x * BQ;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const bf16* qb = q + (long long)b * Lq * C;
   const bf16* kb = k + (long long)b * Lk * C;
   const bf16* vb = v + (long long)b * Lk * D;
+  const float* brow[2] = {nullptr, nullptr};   // each own row's bias
+  if (BIAS)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (rows[r] < Lq) brow[r] = bias + ((long long)b * Lq + rows[r]) * Lk;
 
   // the Swin window of this batch entry and the region of each own row;
   // only windows in the last row or column hold more than one region
@@ -175,23 +211,29 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool masked = sw.k && (last_y || last_x);
 
   // Q's A fragments (16 rows x 16 channels per k-step), kept for the sweep
+  // (C <= 128), or Q's rows staged once (C > 128; the first tile's
+  // barrier publishes them)
   constexpr int KSTEPS = CMAX / 16;
-  uint32_t qa[KSTEPS][4];
+  uint32_t qa[QSHARED ? 1 : KSTEPS][4];
+  if constexpr (QSHARED) {
+    stage_rows(Qs, qb, q0, Lq, C, C);
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qa[kk][i] = 0u;
-    if (kk * 16 < C) {
-      const int c = kk * 16 + 2 * t;
-      if (rows[0] < Lq) {
-        const bf16* p = qb + (long long)rows[0] * C + c;
-        qa[kk][0] = load_u32(p);
-        qa[kk][2] = load_u32(p + 8);
-      }
-      if (rows[1] < Lq) {
-        const bf16* p = qb + (long long)rows[1] * C + c;
-        qa[kk][1] = load_u32(p);
-        qa[kk][3] = load_u32(p + 8);
+      for (int i = 0; i < 4; ++i) qa[kk][i] = 0u;
+      if (kk * 16 < C) {
+        const int c = kk * 16 + 2 * t;
+        if (rows[0] < Lq) {
+          const bf16* p = qb + (long long)rows[0] * C + c;
+          qa[kk][0] = load_u32(p);
+          qa[kk][2] = load_u32(p + 8);
+        }
+        if (rows[1] < Lq) {
+          const bf16* p = qb + (long long)rows[1] * C + c;
+          qa[kk][1] = load_u32(p);
+          qa[kk][3] = load_u32(p + 8);
+        }
       }
     }
   }
@@ -202,12 +244,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < DTILES; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};
+  float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's share of each row's denominator
 
   for (int k0 = 0; k0 < Lk; k0 += BK) {
     __syncthreads();  // the previous tile is consumed
-    stage_rows(Ks, kb, k0, Lk, C);
+    stage_rows(Ks, kb, k0, Lk, C, C);
     if (PAYLOAD2) {
       for (int r = threadIdx.x; r < BK; r += WARPS * 32) {
         float2 val = make_float2(0.f, 0.f);
@@ -219,7 +261,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         V2[r] = val;
       }
     } else {
-      stage_rows(Vs, vb, k0, Lk, D);
+      stage_rows(Vs, vb + d0, k0, Lk, Dc, D);
     }
     if (masked)
       for (int r = threadIdx.x; r < BK; r += WARPS * 32)
@@ -235,35 +277,53 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
       if (kk * 16 < C) {
+        uint32_t a[4];
+        if constexpr (QSHARED) {
+          const bf16* p = Qs + (warp * 16 + g) * cs + kk * 16 + 2 * t;
+          a[0] = load_u32(p);
+          a[1] = load_u32(p + 8 * cs);
+          a[2] = load_u32(p + 8);
+          a[3] = load_u32(p + 8 * cs + 8);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = qa[kk][i];
+        }
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
           const bf16* kr = Ks + (nt * 8 + g) * cs + kk * 16 + 2 * t;
-          mma_bf16(s[nt], qa[kk], load_u32(kr), load_u32(kr + 8));
+          mma_bf16(s[nt], a, load_u32(kr), load_u32(kr + 8));
         }
       }
     }
 
-    // scale, Swin mask, key padding; the tile's max per row
-    float mx[2] = {NEG_INF, NEG_INF};
+    // scale, bias, Swin mask, key padding; the tile's max per row
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
+      float2 bp[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+      if (BIAS)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (brow[r] != nullptr) bp[r] = bias_pair(brow[r], k0 + nt * 8 + 2 * t, Lk);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kl = nt * 8 + 2 * t + (e & 1);
         float x = s[nt][e] * scale;
+        if (BIAS) x = __fadd_rn(x, (e & 1) ? bp[e >> 1].y : bp[e >> 1].x);
         if (masked && kreg_s[kl] != qreg[e >> 1]) x = x - 100.f;
-        if (k0 + kl >= Lk) x = NEG_INF;
+        if (k0 + kl >= Lk) x = -INFINITY;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
-    float alpha[2];
+    float alpha[2], ms[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float mn = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - mn);
+      ms[r] = max_offset(mn);
+      alpha[r] = expf(m[r] - ms[r]);
       m[r] = mn;
     }
     float ls[2] = {0.f, 0.f};
@@ -271,7 +331,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m[e >> 1]);
+        const float p = expf(s[nt][e] - ms[e >> 1]);
         s[nt][e] = p;
         ls[e >> 1] += p;
       }
@@ -310,7 +370,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const bf16* vr = Vs + (ks * 16 + 2 * t) * ds + g;
 #pragma unroll
         for (int dt = 0; dt < DTILES; ++dt) {
-          if (dt * 8 < D) {
+          if (dt * 8 < Dc) {
             const bf16* p = vr + dt * 8;
             mma_bf16(o[dt], a, pack_bf16(p[0], p[ds]),
                      pack_bf16(p[8 * ds], p[9 * ds]));
@@ -327,7 +387,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
-  float* ob = out + (long long)b * Lq * D;
+  float* ob = out + (long long)b * Lq * D + d0;
   if (PAYLOAD2) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -344,7 +404,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   } else {
 #pragma unroll
     for (int dt = 0; dt < DTILES; ++dt) {
-      if (dt * 8 < D) {
+      if (dt * 8 < Dc) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           if (rows[r] < Lq)
@@ -354,7 +414,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
   }
-  if (lse != nullptr && t == 0) {
+  if (lse != nullptr && t == 0 && blockIdx.z == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (rows[r] < Lq)
@@ -362,11 +422,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <bool BIAS>
 __global__ void __launch_bounds__(F32_BQ)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out,
-              float* __restrict__ lse, int Lq, int Lk, int C, int D,
-              float scale, Swin sw) {
+              const float* __restrict__ v, const float* __restrict__ bias,
+              float* __restrict__ out, float* __restrict__ lse, int Lq,
+              int Lk, int C, int D, float scale, Swin sw) {
   extern __shared__ __align__(16) float fsm[];
   __shared__ int kreg_s[F32_BK];      // Swin region of each key of the tile
   float* Qs = fsm;                           // [F32_BQ][C + 1]
@@ -398,7 +459,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     qreg = swin_region(sw, last_y, last_x, row);
   }
   const bool masked = sw.k && (last_y || last_x);
-  float m = NEG_INF, l = 0.f;
+  const float* brow =
+      BIAS && row < Lq ? bias + ((long long)b * Lq + row) * Lk : nullptr;
+  float m = -INFINITY, l = 0.f;
 
   for (int k0 = 0; k0 < Lk; k0 += F32_BK) {
     __syncthreads();
@@ -422,23 +485,25 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < F32_BK; ++j) s[j] = fmaf(qv, Ks[j * C + c], s[j]);
     }
-    float mx = NEG_INF;
+    float mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < F32_BK; ++j) {
       const int kj = k0 + j;
       float x = s[j] * scale;
+      if (BIAS && brow != nullptr && kj < Lk) x = __fadd_rn(x, __ldg(brow + kj));
       if (masked && kreg_s[j] != qreg) x = x - 100.f;
-      if (kj >= Lk) x = NEG_INF;
+      if (kj >= Lk) x = -INFINITY;
       s[j] = x;
       mx = fmaxf(mx, x);
     }
     const float mn = fmaxf(m, mx);
-    const float alpha = expf(m - mn);
+    const float ms = max_offset(mn);
+    const float alpha = expf(m - ms);
     m = mn;
     float ls = 0.f;
 #pragma unroll
     for (int j = 0; j < F32_BK; ++j) {
-      s[j] = expf(s[j] - mn);
+      s[j] = expf(s[j] - ms);
       ls += s[j];
     }
     l = l * alpha + ls;
@@ -554,15 +619,16 @@ struct FwdLoads {
 // warpgroup; the keys stream. tm_q, tm_k and (at D = 128) tm_v are 3-D
 // maps of [B, L, 128] in [1, 64, 64] boxes; at D = 2 v's pairs are read
 // from the pointer. scale2 = scale * log2(e): the scores, the Swin mask's
-// -100 and the running max are kept in base 2, so p = ex2(x - m).
-template <int WGS, bool P2>
+// -100 and the running max are kept in base 2, so p = ex2(x - m); with
+// a bias, x = s * scale2 + bias * f32(log2(e)), each product rounded.
+template <int WGS, bool P2, bool BIAS>
 __global__ void __launch_bounds__(WGS * 128, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                const bf16* __restrict__ v, float* __restrict__ out,
-                float* __restrict__ lse, int Lq, int Lk, float scale2,
-                Swin sw) {
+                const bf16* __restrict__ v, const float* __restrict__ bias,
+                float* __restrict__ out, float* __restrict__ lse, int Lq,
+                int Lk, float scale2, Swin sw) {
   extern __shared__ unsigned char smem_raw[];
   FwdSmem<WGS, P2>& sm = *reinterpret_cast<FwdSmem<WGS, P2>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -597,49 +663,66 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     same[r] = (uint32_t)qreg[r] * 0x55555555u;
   }
   const float swin_pen = 100.f * LOG2E;
+  const float* brow[2] = {nullptr, nullptr};   // each own row's bias
+  if (BIAS)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < Lq)
+        brow[r] = bias + ((long long)b * Lq + row0 + 8 * r) * Lk;
 
   float o[P2 ? 4 : 64];
 #pragma unroll
   for (int i = 0; i < (P2 ? 4 : 64); ++i) o[i] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};
+  float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's share of each row's denominator
   const bf16* qres = sm.q[wg * 2];
 
-  // A tile's base-2 scores in sa -> p = ex2(x - m) in sa, with the Swin
-  // mask only where a column's region differs from a row's and the key
-  // padding only in the last tile; the running max updated, each row's
-  // rescale of what came before in alpha, this lane's sum of p in ls.
+  // A tile's base-2 scores in sa -> p = ex2(x - m) in sa, with the bias,
+  // the Swin mask only where a column's region differs from a row's and
+  // the key padding only in the last tile; the running max updated, each
+  // row's rescale of what came before in alpha, this lane's sum of p in
+  // ls.
   auto softmax_tile = [&](float (&sa)[32], int k0, float (&alpha)[2],
                           float (&ls)[2]) {
     const uint32_t cregs =
         masked ? col_regions(sw, last_y, last_x, k0, t) : 0u;
     const bool swin_tile = masked && (cregs != same[0] || cregs != same[1]);
     const bool tail = k0 + TILE > Lk;
-    float mx[2] = {NEG_INF, NEG_INF};
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
+      float2 bp[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+      if (BIAS)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (brow[r] != nullptr)
+            bp[r] = bias_pair(brow[r], k0 + 8 * j + 2 * t, Lk);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, i = 4 * j + e;
         float x = sa[i] * scale2;
+        if (BIAS)
+          x = __fadd_rn(x, __fmul_rn((e & 1) ? bp[r].y : bp[r].x, LOG2E));
         if (swin_tile && other_region(cregs, j, e, qreg[r])) x -= swin_pen;
-        if (tail && k0 + 8 * j + 2 * t + (e & 1) >= Lk) x = NEG_INF;
+        if (tail && k0 + 8 * j + 2 * t + (e & 1) >= Lk) x = -INFINITY;
         sa[i] = x;
         mx[r] = fmaxf(mx[r], x);
       }
     }
+    float ms[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float mn = fmaxf(m[r], mx[r]);
-      alpha[r] = ex2(m[r] - mn);
+      ms[r] = max_offset(mn);
+      alpha[r] = ex2(m[r] - ms[r]);
       m[r] = mn;
       ls[r] = 0.f;
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const float p = ex2(sa[i] - m[(i >> 1) & 1]);
+      const float p = ex2(sa[i] - ms[(i >> 1) & 1]);
       sa[i] = p;
       ls[(i >> 1) & 1] += p;
     }
@@ -752,7 +835,7 @@ static bool takes(int B, int Lq, int Lk, int C, int D) {
 
 // Blocks of this instantiation that fit an SM (its shared-memory limit
 // set first); looked up once per device.
-template <int WGS, bool P2>
+template <int WGS, bool P2, bool BIAS>
 static int occupancy(int dev, int* per_sm) {
   static int cached[16] = {0};
   if (dev >= 0 && dev < 16 && cached[dev] > 0) {
@@ -761,11 +844,11 @@ static int occupancy(int dev, int* per_sm) {
   }
   const size_t smem = fwd_smem_bytes<WGS, P2>();
   int e = (int)cudaFuncSetAttribute(
-      flash_fwd_wgmma<WGS, P2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_wgmma<WGS, P2, BIAS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e) return e;
   if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           per_sm, flash_fwd_wgmma<WGS, P2>, WGS * 128, smem)))
+           per_sm, flash_fwd_wgmma<WGS, P2, BIAS>, WGS * 128, smem)))
     return e;
   if (*per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   if (dev >= 0 && dev < 16) cached[dev] = *per_sm;
@@ -777,9 +860,11 @@ static int occupancy(int dev, int* per_sm) {
 // sharing the key stream) where such blocks fill every SM at least twice
 // (the training and refinement windows), else two (128 queries, taking
 // turns), which leave fewer SMs idle on small batches (the serving
-// windows: 80 blocks of three against 112 of two for 132 SMs). plan =
-// {warpgroups a block, blocks, blocks per SM, waves}.
-template <bool P2>
+// windows: 80 blocks of three against 112 of two for 132 SMs). With a
+// bias always two: the bias loads need registers that three warpgroups'
+// cap of 168 may not hold. plan = {warpgroups a block, blocks, blocks per
+// SM, waves}.
+template <bool P2, bool BIAS>
 static int choose(int B, int Lq, int* plan) {
   int dev, sms, per_sm, e;
   if ((e = (int)cudaGetDevice(&dev))) return e;
@@ -792,11 +877,14 @@ static int choose(int B, int Lq, int* plan) {
   int wgs;
   if constexpr (P2) {
     wgs = 1;
-    e = occupancy<1, true>(dev, &per_sm);
+    e = occupancy<1, true, BIAS>(dev, &per_sm);
+  } else if constexpr (BIAS) {
+    wgs = 2;
+    e = occupancy<2, false, true>(dev, &per_sm);
   } else {
     wgs = blocks(3) >= 2ll * sms ? 3 : 2;
-    e = wgs == 3 ? occupancy<3, false>(dev, &per_sm)
-                 : occupancy<2, false>(dev, &per_sm);
+    e = wgs == 3 ? occupancy<3, false, false>(dev, &per_sm)
+                 : occupancy<2, false, false>(dev, &per_sm);
   }
   if (e) return e;
   const long long n = blocks(wgs);
@@ -807,25 +895,25 @@ static int choose(int B, int Lq, int* plan) {
   return 0;
 }
 
-template <int WGS, bool P2>
-static int launch(const CUtensorMap (&m)[3], const void* v, void* out,
-                  void* lse, int B, int Lq, int Lk, float scale, Swin sw,
-                  cudaStream_t st) {
+template <int WGS, bool P2, bool BIAS>
+static int launch(const CUtensorMap (&m)[3], const void* v, const void* bias,
+                  void* out, void* lse, int B, int Lq, int Lk, float scale,
+                  Swin sw, cudaStream_t st) {
   const dim3 grid((unsigned)((Lq + WGS * TILE - 1) / (WGS * TILE)),
                   (unsigned)B);
-  flash_fwd_wgmma<WGS, P2><<<grid, WGS * 128, fwd_smem_bytes<WGS, P2>(),
-                             st>>>(m[0], m[1], m[2], (const bf16*)v,
-                                   (float*)out, (float*)lse, Lq, Lk,
-                                   scale * LOG2E, sw);
+  flash_fwd_wgmma<WGS, P2, BIAS>
+      <<<grid, WGS * 128, fwd_smem_bytes<WGS, P2>(), st>>>(
+          m[0], m[1], m[2], (const bf16*)v, (const float*)bias, (float*)out,
+          (float*)lse, Lq, Lk, scale * LOG2E, sw);
   return (int)cudaGetLastError();
 }
 
-template <bool P2>
-static int forward(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int Lq, int Lk, float scale, Swin sw,
-                   cudaStream_t st) {
+template <bool P2, bool BIAS>
+static int forward(const void* q, const void* k, const void* v,
+                   const void* bias, void* out, void* lse, int B, int Lq,
+                   int Lk, float scale, Swin sw, cudaStream_t st) {
   int plan[4], e;
-  if ((e = choose<P2>(B, Lq, plan))) return e;  // also sets the smem limits
+  if ((e = choose<P2, BIAS>(B, Lq, plan))) return e;  // sets smem limits
   CUtensorMap m[3];
   if ((e = tensor_map_bf16_3d(&m[0], q, 128, Lq, B, TILE))) return e;
   if ((e = tensor_map_bf16_3d(&m[1], k, 128, Lk, B, TILE))) return e;
@@ -834,11 +922,17 @@ static int forward(const void* q, const void* k, const void* v, void* out,
   else if ((e = tensor_map_bf16_3d(&m[2], v, 128, Lk, B, TILE)))
     return e;
   if constexpr (P2)
-    return launch<1, true>(m, v, out, lse, B, Lq, Lk, scale, sw, st);
+    return launch<1, true, BIAS>(m, v, bias, out, lse, B, Lq, Lk, scale, sw,
+                                 st);
+  else if constexpr (BIAS)
+    return launch<2, false, true>(m, v, bias, out, lse, B, Lq, Lk, scale, sw,
+                                  st);
   else
     return plan[0] == 3
-               ? launch<3, false>(m, v, out, lse, B, Lq, Lk, scale, sw, st)
-               : launch<2, false>(m, v, out, lse, B, Lq, Lk, scale, sw, st);
+               ? launch<3, false, false>(m, v, bias, out, lse, B, Lq, Lk,
+                                         scale, sw, st)
+               : launch<2, false, false>(m, v, bias, out, lse, B, Lq, Lk,
+                                         scale, sw, st);
 }
 
 }  // namespace sm90
@@ -875,13 +969,14 @@ struct FwdCfg {
 // key tiles [split * per, split * per + per) stream past the resident Q.
 // With one run the block writes out (and lse); with more, its partials
 // into run `split` of the scratches: out [splits, B, Lq, D] the
-// unnormalised O, lse [splits, B, Lq] as float2 (m in base 2, l).
-template <bool P2>
+// unnormalised O, lse [splits, B, Lq] as float2 (m in base 2, l). Each
+// run adds the bias of its own key tiles.
+template <bool P2, bool BIAS>
 __global__ void __launch_bounds__(FwdCfg<P2>::THREADS, FwdCfg<P2>::PER_SM)
 flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ out,
-               float* __restrict__ lse, int Lq, int Lk, float scale, Swin sw,
-               int per) {
+               const float* __restrict__ v, const float* __restrict__ bias,
+               float* __restrict__ out, float* __restrict__ lse, int Lq,
+               int Lk, float scale, Swin sw, int per) {
   using K = FwdCfg<P2>;
   constexpr int TILE = K::TILE, NT = K::NT, T = K::THREADS, SF = K::STAGE;
   constexpr int DW = P2 ? 2 : W;
@@ -922,12 +1017,18 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
     same[r] = (uint32_t)qreg[r] * 0x55555555u;
   }
   const float scale2 = scale * LOG2E, mask2 = 100.f * LOG2E;
+  const float* brow[2] = {nullptr, nullptr};   // each own row's bias
+  if (BIAS)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < Lq)
+        brow[r] = bias + ((long long)b * Lq + row0 + 8 * r) * Lk;
   float o[P2 ? 1 : W / 8][4];
 #pragma unroll
   for (int i = 0; i < (P2 ? 1 : W / 8); ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};
+  float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};      // this lane's share of each row's denominator
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -941,40 +1042,49 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
       // S = Q K^T: 16 queries x TILE keys
       float s[NT][4];
       prod_rows<NT>(s, qs + warp * 16 * STR, st, gq, t);
-      // base-2 scores; the Swin mask only where a column's region differs
-      // from a row's, the key padding only in the last tile
+      // base-2 scores with the bias; the Swin mask only where a column's
+      // region differs from a row's, the key padding only in the last tile
       const uint32_t cregs =
           masked ? sm90::col_regions(sw, last_y, last_x, k0, t) : 0u;
       const bool swin_tile = masked && (cregs != same[0] || cregs != same[1]);
       const bool tail = k0 + TILE > Lk;
-      float mx[2] = {NEG_INF, NEG_INF};
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
+        float2 bp[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+        if (BIAS)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (brow[r] != nullptr)
+              bp[r] = bias_pair(brow[r], k0 + 8 * j + 2 * t, Lk);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
           float x = s[j][e] * scale2;
+          if (BIAS)
+            x = __fadd_rn(x, __fmul_rn((e & 1) ? bp[r].y : bp[r].x, LOG2E));
           if (swin_tile && sm90::other_region(cregs, j, e, qreg[r]))
             x -= mask2;
-          if (tail && k0 + 8 * j + 2 * t + (e & 1) >= Lk) x = NEG_INF;
+          if (tail && k0 + 8 * j + 2 * t + (e & 1) >= Lk) x = -INFINITY;
           s[j][e] = x;
           mx[r] = fmaxf(mx[r], x);
         }
       }
-      float alpha[2], ls[2] = {0.f, 0.f};
+      float alpha[2], ms[2], ls[2] = {0.f, 0.f};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
         const float mn = fmaxf(m[r], mx[r]);
-        alpha[r] = ex2(m[r] - mn);
+        ms[r] = max_offset(mn);
+        alpha[r] = ex2(m[r] - ms[r]);
         m[r] = mn;
       }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = ex2(s[j][e] - m[e >> 1]);
+          const float p = ex2(s[j][e] - ms[e >> 1]);
           s[j][e] = p;
           ls[e >> 1] += p;
         }
@@ -1067,12 +1177,13 @@ merge_splits(const float* __restrict__ part_o,
   for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n;
        i += (long long)gridDim.x * 256) {
     const long long row = i / D;
-    float mx = NEG_INF;
+    float mx = -INFINITY;
     for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part_ml[s * rows + row].x);
+    const float ms = max_offset(mx);
     float den = 0.f, acc = 0.f;
     for (int s = 0; s < splits; ++s) {
       const float2 ml = part_ml[s * rows + row];
-      const float w = ex2(ml.x - mx);
+      const float w = ex2(ml.x - ms);
       den += ml.y * w;
       acc += part_o[s * n + i] * w;
     }
@@ -1106,24 +1217,24 @@ static int split_count(long long blocks, int tiles, long long slots) {
 
 // Blocks of the route's kernel at this width that fit an SM (its shared
 // memory limit set first).
-template <bool P2>
+template <bool P2, bool BIAS>
 static int occupancy(int* per_sm) {
   using K = FwdCfg<P2>;
   int e = (int)cudaFuncSetAttribute(
-      flash_fwd_tf32<P2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tf32<P2, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)K::SMEM);
   if (e) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, flash_fwd_tf32<P2>, K::THREADS, K::SMEM);
+      per_sm, flash_fwd_tf32<P2, BIAS>, K::THREADS, K::SMEM);
 }
 
 // plan = {rows a block, keys a tile, blocks (all runs), blocks per SM,
 // waves, runs of the key sweep}
-template <bool P2>
+template <bool P2, bool BIAS>
 static int choose(int B, int Lq, int Lk, int sms, int* plan) {
   using K = FwdCfg<P2>;
   int per_sm, e;
-  if ((e = occupancy<P2>(&per_sm))) return e;
+  if ((e = occupancy<P2, BIAS>(&per_sm))) return e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long blocks = (long long)B * ((Lq + K::BROWS - 1) / K::BROWS);
   const long long slots = (long long)sms * per_sm;
@@ -1138,23 +1249,23 @@ static int choose(int B, int Lq, int Lk, int sms, int* plan) {
   return 0;
 }
 
-template <bool P2>
-static int launch(const void* q, const void* k, const void* v, void* out,
-                  void* lse, int B, int Lq, int Lk, float scale, Swin sw,
-                  int splits, cudaStream_t st) {
+template <bool P2, bool BIAS>
+static int launch(const void* q, const void* k, const void* v,
+                  const void* bias, void* out, void* lse, int B, int Lq,
+                  int Lk, float scale, Swin sw, int splits, cudaStream_t st) {
   using K = FwdCfg<P2>;
   const int per = tiles_per_split(Lk, K::TILE, splits);
   if (!per) return (int)cudaErrorInvalidValue;
   int e;
   if ((e = (int)cudaFuncSetAttribute(
-           flash_fwd_tf32<P2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-           (int)K::SMEM)))
+           flash_fwd_tf32<P2, BIAS>,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM)))
     return e;
   const dim3 grid((unsigned)((Lq + K::BROWS - 1) / K::BROWS),
                   (unsigned)splits, (unsigned)B);
-  flash_fwd_tf32<P2><<<grid, K::THREADS, K::SMEM, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out,
-      (float*)lse, Lq, Lk, scale, sw, per);
+  flash_fwd_tf32<P2, BIAS><<<grid, K::THREADS, K::SMEM, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
+      (float*)out, (float*)lse, Lq, Lk, scale, sw, per);
   return (int)cudaGetLastError();
 }
 
@@ -1165,28 +1276,42 @@ static size_t f32_smem(int C, int D) {
                           (size_t)F32_BQ * (D + 1));
 }
 
+// The K tile (and at C > 128 the block's Q rows), and V's tile of a D chunk
+// of at most DCHUNK columns or its 64 pairs
+#define DCHUNK 128
 static size_t bf16_smem(int C, int D) {
-  return (size_t)BK * (C + PAD) * sizeof(bf16) +
-         (D == 2 ? BK * sizeof(float2) : (size_t)BK * (D + PAD) * sizeof(bf16));
+  const size_t rows = (size_t)BK * (C + PAD) * sizeof(bf16);
+  const int dc = D < DCHUNK ? D : DCHUNK;
+  return rows * (C > 128 ? 2 : 1) +
+         (D == 2 ? BK * sizeof(float2) : (size_t)BK * (dc + PAD) * sizeof(bf16));
 }
 
-template <int CMAX, int DMAX, bool PAYLOAD2>
-static int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                       void* lse, int B, int Lq, int Lk, int C, int D,
-                       float scale, Swin sw, cudaStream_t st) {
-  auto kern = flash_fwd_bf16<CMAX, DMAX, PAYLOAD2>;
-  const size_t smem = bf16_smem(C, D);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)((Lq + BQ - 1) / BQ), (unsigned)B);
-  kern<<<grid, WARPS * 32, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (float*)out,
-      (float*)lse, Lq, Lk, C, D, scale, sw);
-  return (int)cudaGetLastError();
+typedef void (*Bf16Kernel)(const bf16*, const bf16*, const bf16*,
+                           const float*, float*, float*, int, int, int, int,
+                           float, Swin);
+typedef void (*F32Kernel)(const float*, const float*, const float*,
+                          const float*, float*, float*, int, int, int, int,
+                          float, Swin);
+
+// The mma.sync instantiation for these widths: CMAX 128 or 256, D = 2 or
+// chunks of DCHUNK columns.
+static Bf16Kernel bf16_kernel(int C, int D, bool bias) {
+  if (bias)
+    return C <= 128 ? (D == 2 ? flash_fwd_bf16<128, 16, true, true>
+                              : flash_fwd_bf16<128, DCHUNK, false, true>)
+                    : (D == 2 ? flash_fwd_bf16<256, 16, true, true>
+                              : flash_fwd_bf16<256, DCHUNK, false, true>);
+  return C <= 128 ? (D == 2 ? flash_fwd_bf16<128, 16, true, false>
+                            : flash_fwd_bf16<128, DCHUNK, false, false>)
+                  : (D == 2 ? flash_fwd_bf16<256, 16, true, false>
+                            : flash_fwd_bf16<256, DCHUNK, false, false>);
 }
+
+static F32Kernel f32_kernel(bool bias) {
+  return bias ? flash_fwd_f32<true> : flash_fwd_f32<false>;
+}
+
+static int d_chunks(int D) { return D == 2 ? 1 : (D + DCHUNK - 1) / DCHUNK; }
 
 // Whether `route` takes these operands (bf16 or f32) and widths.
 static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
@@ -1201,58 +1326,83 @@ static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
 }
 
 // q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], all bf16 or all f32,
-// contiguous, 16-byte aligned; out [B, Lq, D] f32; lse [B, Lq] f32 or null.
+// contiguous, 16-byte aligned; bias [B, Lq, Lk] f32, contiguous, 16-byte
+// aligned, or null (no bias); out [B, Lq, D] f32; lse [B, Lq] f32 or null.
 // swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the TPU
-// kernel's `swin`. Takes C % 16 == 0, C <= 128, and D == 2 or D % 16 == 0,
-// D <= 128: GMFlow's widths (wider ones need their own instantiations), on
-// the route the caller names (enum Route; ops/flash.py:plan names bf16 at
-// C = 128 and D = 128 or 2 the wgmma route, other bf16 the mma.sync route,
-// f32 at those widths the tf32x3 route, other f32 the CUDA-core route).
+// kernel's `swin`. Takes C % 16 == 0, C <= 256, and D == 2 or D % 16 == 0,
+// D <= 256 (ops/flash.py pads other widths with zero columns), on the
+// route the caller names (enum Route; ops/flash.py:plan names bf16 at C =
+// 128 and D = 128 or 2 the wgmma route, other bf16 the mma.sync route, f32
+// at those widths the tf32x3 route, other f32 the CUDA-core route).
 // splits > 1 (the tf32x3 route only) cuts the key sweep into that many
 // runs of whole tiles: out is then a [splits, B, Lq, D] scratch of the
 // runs' unnormalised outputs and lse a [splits, B, Lq] scratch of their
 // (m, l) float2s, for ofd_flash_fwd_merge. Returns cudaGetLastError()
 // after the launch (0 on success).
 extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
-                             void* out, void* lse, int B, int Lq, int Lk,
-                             int C, int D, float scale, int swin_k, int wh,
-                             int ww, int sh, int swd, int is_bf16, int route,
-                             int splits, void* stream) {
-  if (B < 1 || B > 65535 || Lq < 1 || Lk < 1 || C < 16 || C > 128 ||
-      C % 16 || !(D == 2 || (D % 16 == 0 && D >= 16 && D <= 128)) ||
+                             const void* bias, void* out, void* lse, int B,
+                             int Lq, int Lk, int C, int D, float scale,
+                             int swin_k, int wh, int ww, int sh, int swd,
+                             int is_bf16, int route, int splits,
+                             void* stream) {
+  if (B < 1 || B > 65535 || Lq < 1 || Lk < 1 || C < 16 || C > 256 ||
+      C % 16 || !(D == 2 || (D % 16 == 0 && D >= 16 && D <= 256)) ||
       swin_k < 0 || !route_takes(route, is_bf16, B, Lq, Lk, C, D) ||
       (splits != 1 && route != TF32X3) || (splits > 1 && lse == nullptr))
     return (int)cudaErrorInvalidValue;
   const Swin sw{swin_k, wh, ww, sh, swd};
   cudaStream_t st = (cudaStream_t)stream;
-  if (route == TF32X3)
-    return D == 2 ? tf32x3::launch<true>(q, k, v, out, lse, B, Lq, Lk, scale,
-                                         sw, splits, st)
-                  : tf32x3::launch<false>(q, k, v, out, lse, B, Lq, Lk,
-                                          scale, sw, splits, st);
+  const bool has_bias = bias != nullptr;
+  if (route == TF32X3) {
+    if (has_bias)
+      return D == 2 ? tf32x3::launch<true, true>(q, k, v, bias, out, lse, B,
+                                                 Lq, Lk, scale, sw, splits, st)
+                    : tf32x3::launch<false, true>(q, k, v, bias, out, lse, B,
+                                                  Lq, Lk, scale, sw, splits,
+                                                  st);
+    return D == 2 ? tf32x3::launch<true, false>(q, k, v, bias, out, lse, B,
+                                                Lq, Lk, scale, sw, splits, st)
+                  : tf32x3::launch<false, false>(q, k, v, bias, out, lse, B,
+                                                 Lq, Lk, scale, sw, splits, st);
+  }
+  if (route == WGMMA) {
+    if (has_bias)
+      return D == 2 ? sm90::forward<true, true>(q, k, v, bias, out, lse, B,
+                                                Lq, Lk, scale, sw, st)
+                    : sm90::forward<false, true>(q, k, v, bias, out, lse, B,
+                                                 Lq, Lk, scale, sw, st);
+    return D == 2 ? sm90::forward<true, false>(q, k, v, bias, out, lse, B, Lq,
+                                               Lk, scale, sw, st)
+                  : sm90::forward<false, false>(q, k, v, bias, out, lse, B,
+                                                Lq, Lk, scale, sw, st);
+  }
   if (route == F32) {
+    const F32Kernel kern = f32_kernel(has_bias);
     const size_t smem = f32_smem(C, D);
-    if (smem > 48 * 1024) {
+    if (smem > SMEM_DEFAULT) {
       const cudaError_t e = cudaFuncSetAttribute(
-          flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
     const dim3 grid((unsigned)((Lq + F32_BQ - 1) / F32_BQ), (unsigned)B);
-    flash_fwd_f32<<<grid, F32_BQ, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out,
-        (float*)lse, Lq, Lk, C, D, scale, sw);
+    kern<<<grid, F32_BQ, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
+        (float*)out, (float*)lse, Lq, Lk, C, D, scale, sw);
     return (int)cudaGetLastError();
   }
-  if (route == WGMMA)
-    return D == 2 ? sm90::forward<true>(q, k, v, out, lse, B, Lq, Lk, scale,
-                                        sw, st)
-                  : sm90::forward<false>(q, k, v, out, lse, B, Lq, Lk, scale,
-                                         sw, st);
-  return D == 2 ? launch_bf16<128, 16, true>(q, k, v, out, lse, B, Lq, Lk, C,
-                                            D, scale, sw, st)
-                : launch_bf16<128, 128, false>(q, k, v, out, lse, B, Lq, Lk,
-                                               C, D, scale, sw, st);
+  const Bf16Kernel kern = bf16_kernel(C, D, has_bias);
+  const size_t smem = bf16_smem(C, D);
+  if (smem > SMEM_DEFAULT) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)((Lq + BQ - 1) / BQ), (unsigned)B,
+                  (unsigned)d_chunks(D));
+  kern<<<grid, WARPS * 32, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
+      (float*)out, (float*)lse, Lq, Lk, C, D, scale, sw);
+  return (int)cudaGetLastError();
 }
 
 // out [rows, D] (and lse [rows], or null) from a split sweep's scratches:
@@ -1270,50 +1420,110 @@ extern "C" int ofd_flash_fwd_merge(const void* part_o, const void* part_ml,
   return (int)cudaGetLastError();
 }
 
-// What ofd_flash_fwd would launch for these operands on the route C picks
-// by the rule above: plan = {route (enum Route), query rows a block, keys
-// a tile, blocks (every run's), blocks per SM, waves over the card's SMs,
-// runs of the key sweep}. Returns a cudaError_t (0 on success).
+// A forward kernel as it launches: the kernel, its dynamic shared memory
+// and threads a block.
+struct FwdKernel {
+  const void* fn;
+  size_t smem;
+  int threads;
+};
+
+template <bool P2, bool BIAS>
+static FwdKernel tf32_kernel() {
+  using K = tf32x3::FwdCfg<P2>;
+  return {(const void*)tf32x3::flash_fwd_tf32<P2, BIAS>, K::SMEM, K::THREADS};
+}
+
+template <int WGS, bool P2, bool BIAS>
+static FwdKernel wgmma_kernel() {
+  return {(const void*)sm90::flash_fwd_wgmma<WGS, P2, BIAS>,
+          sm90::fwd_smem_bytes<WGS, P2>(), WGS * 128};
+}
+
+static FwdKernel wgmma_kernel(int wgs, bool p2, bool bias) {
+  if (p2)
+    return bias ? wgmma_kernel<1, true, true>() : wgmma_kernel<1, true, false>();
+  if (bias) return wgmma_kernel<2, false, true>();
+  return wgs == 3 ? wgmma_kernel<3, false, false>()
+                  : wgmma_kernel<2, false, false>();
+}
+
+// What ofd_flash_fwd would launch for these operands (padded widths, with
+// a bias or without) on the route C picks by the rule above: plan =
+// {route (enum Route), query rows a block, keys a tile, blocks (every
+// run's and D chunk's), blocks per SM, waves over the card's SMs, runs of
+// the key sweep, D chunks (a grid axis of the mma.sync route; 1
+// elsewhere), dynamic shared memory, static shared memory (bytes), threads
+// a block, registers a thread, local memory a thread (bytes: spills and
+// stack)}. Returns a cudaError_t (0 on success): a block the SM cannot
+// hold fails here.
 extern "C" int ofd_flash_fwd_plan(int B, int Lq, int Lk, int C, int D,
-                                  int is_bf16, int* plan) {
+                                  int is_bf16, int has_bias, int* plan) {
   int dev, sms, per_sm = 0, e;
+  if (B < 1 || Lq < 1 || Lk < 1 || C < 16 || C > 256 || C % 16 ||
+      !(D == 2 || (D % 16 == 0 && D >= 16 && D <= 256)))
+    return (int)cudaErrorInvalidValue;
   if ((e = (int)cudaGetDevice(&dev))) return e;
   if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                        dev)))
     return e;
+  const bool p2 = D == 2, bias = has_bias != 0;
+  FwdKernel kern;
+  int chunks = 1;
   if (!is_bf16 && tf32x3::takes(B, Lq, Lk, C, D)) {
     plan[0] = TF32X3;
-    return D == 2 ? tf32x3::choose<true>(B, Lq, Lk, sms, plan + 1)
-                  : tf32x3::choose<false>(B, Lq, Lk, sms, plan + 1);
-  }
-  if (is_bf16 && sm90::takes(B, Lq, Lk, C, D)) {
+    if (bias)
+      e = p2 ? tf32x3::choose<true, true>(B, Lq, Lk, sms, plan + 1)
+             : tf32x3::choose<false, true>(B, Lq, Lk, sms, plan + 1);
+    else
+      e = p2 ? tf32x3::choose<true, false>(B, Lq, Lk, sms, plan + 1)
+             : tf32x3::choose<false, false>(B, Lq, Lk, sms, plan + 1);
+    if (e) return e;
+    kern = p2 ? (bias ? tf32_kernel<true, true>() : tf32_kernel<true, false>())
+              : (bias ? tf32_kernel<false, true>()
+                      : tf32_kernel<false, false>());
+  } else if (is_bf16 && sm90::takes(B, Lq, Lk, C, D)) {
     int wg[4];   // {warpgroups a block, blocks, blocks per SM, waves}
-    if ((e = D == 2 ? sm90::choose<true>(B, Lq, wg)
-                    : sm90::choose<false>(B, Lq, wg)))
-      return e;
+    if (bias)
+      e = p2 ? sm90::choose<true, true>(B, Lq, wg)
+             : sm90::choose<false, true>(B, Lq, wg);
+    else
+      e = p2 ? sm90::choose<true, false>(B, Lq, wg)
+             : sm90::choose<false, false>(B, Lq, wg);
+    if (e) return e;
     const int got[7] = {WGMMA, wg[0] * sm90::TILE, sm90::TILE, wg[1], wg[2],
                         wg[3], 1};
     for (int i = 0; i < 7; ++i) plan[i] = got[i];
-    return 0;
+    kern = wgmma_kernel(wg[0], p2, bias);
+  } else {
+    const int rows = is_bf16 ? BQ : F32_BQ;
+    chunks = is_bf16 ? d_chunks(D) : 1;
+    const long long n = (long long)B * ((Lq + rows - 1) / rows) * chunks;
+    kern = is_bf16 ? FwdKernel{(const void*)bf16_kernel(C, D, bias),
+                               bf16_smem(C, D), WARPS * 32}
+                   : FwdKernel{(const void*)f32_kernel(bias), f32_smem(C, D),
+                               F32_BQ};
+    // raised as the launch raises it, never lowered: one kernel serves
+    // every width, and a launch below the default limit does not set it
+    if (kern.smem > SMEM_DEFAULT &&
+        (e = (int)cudaFuncSetAttribute(
+             kern.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)kern.smem)))
+      return e;
+    if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kern.fn, kern.threads, kern.smem)))
+      return e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const int got[7] = {
+        is_bf16 ? MMA_SYNC : F32, rows, is_bf16 ? BK : F32_BK, (int)n, per_sm,
+        (int)((n + (long long)per_sm * sms - 1) / ((long long)per_sm * sms)),
+        1};
+    for (int i = 0; i < 7; ++i) plan[i] = got[i];
   }
-  const int rows = is_bf16 ? BQ : F32_BQ;
-  const long long n = (long long)B * ((Lq + rows - 1) / rows);
-  if (is_bf16)
-    e = D == 2 ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &per_sm, flash_fwd_bf16<128, 16, true>, WARPS * 32,
-                     bf16_smem(C, D))
-               : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &per_sm, flash_fwd_bf16<128, 128, false>, WARPS * 32,
-                     bf16_smem(C, D));
-  else
-    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_fwd_f32, F32_BQ, f32_smem(C, D));
-  if (e) return e;
-  if (per_sm < 1) per_sm = 1;
-  const int got[7] = {
-      is_bf16 ? MMA_SYNC : F32, rows, is_bf16 ? BK : F32_BK, (int)n, per_sm,
-      (int)((n + (long long)per_sm * sms - 1) / ((long long)per_sm * sms)),
-      1};
-  for (int i = 0; i < 7; ++i) plan[i] = got[i];
+  cudaFuncAttributes attr;
+  if ((e = (int)cudaFuncGetAttributes(&attr, kern.fn))) return e;
+  const int more[6] = {chunks, (int)kern.smem, (int)attr.sharedSizeBytes,
+                       kern.threads, attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 6; ++i) plan[7 + i] = more[i];
   return 0;
 }

@@ -67,10 +67,15 @@
 // b * L), and dP and dv run on the CUDA cores in f32 (the tensor cores
 // would waste 63/64 of their work on padding D).
 //
-// Other bf16 widths (C % 16 == 0, C <= 128; D = 2 or D % 16 == 0): the
+// Other bf16 widths (C % 16 == 0, C <= 256; D = 2 or D % 16 == 0, D <=
+// 256; ops/flash_bwd.py pads other widths with zero columns): the
 // mma.sync route, mma.sync m16n8k16 with 4 warps a block, each owning 16
 // rows of the output; synchronous staging through registers, shared rows
-// padded by 8 bf16. No GMFlow call takes it.
+// padded by 8 bf16. A block takes 128 columns of its outputs (a grid axis:
+// dq's chunks of C, dk/dv's of C and D together), so its accumulators stay
+// at 64 + 64 registers at any width; each chunk's blocks recompute S and
+// dP over all of C and D. No GMFlow call at 128 channels takes it; GMFlow
+// at 256 channels takes it for every call.
 //   dq: Q and G tiles staged once; per 64-key tile K and V staged; S = Q
 //   K^T and dP = G V^T, then p and ds per element in registers; ds rounded
 //   to bf16 and its accumulator fragments used directly as the A
@@ -111,10 +116,12 @@
 // no spills. Shared memory a block: dq 102,400 / 202,752 bytes, dk/dv
 // 103,424 / 203,264: two blocks an SM at D = 2, one at D = 128.
 //
-// Other f32 widths (C % 16 == 0, C <= 128; D = 2 or D % 16 == 0): f32 FMA
-// on the CUDA cores, no TF32: one thread per output row (64 a block), its
-// row's accumulators in shared memory, the other side's tiles read by
-// every thread at the same address (broadcast).
+// Other f32 widths (C % 16 == 0; D = 2 or D % 16 == 0; up to 256): f32 FMA
+// on the CUDA cores, no TF32: one thread per output row (64 a block, 32
+// where 64 rows' shared memory would pass 227 KB: dq at C = D = 256, dk/dv
+// from C + 2 D of about 640 on), its row's accumulators in shared memory,
+// the other side's tiles read by every thread at the same address
+// (broadcast).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,9 +134,13 @@
 #define BK 64         // keys per tile of the dq sweep
 #define QT 32         // queries per tile of the dk/dv sweep
 #define PAD 8         // bf16 elements appended to each shared row
-#define CMAX 128
-#define DMAX 128
-#define F32_ROWS 64   // output rows (= threads) per block, f32 path
+#define CHUNK 128     // output columns a block takes (bf16 path; a grid axis)
+#define F32_ROWS 64   // output rows (= threads) per block at most, f32 path
+#define F32_SMEM_MAX (232448 - 1024)  // dynamic shared memory, f32 path
+// Dynamic shared memory above which a launch must raise the kernel's limit
+// first: the default 48 KB holds the static shared memory too (under 1 KB
+// in these kernels).
+#define SMEM_DEFAULT (48 * 1024 - 1024)
 #define F32_T 32      // other-side rows per tile, f32 path
 
 // Copy rows [r0, r0 + n) of a [L, W] bf16 matrix (W % 8 == 0) into an
@@ -175,7 +186,10 @@ __device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile,
 // dq, bf16 operands
 // ---------------------------------------------------------------------------
 
-template <bool PAYLOAD2>
+// One block per (64 query rows, batch entry, chunk of CHUNK columns of dq:
+// blockIdx.z); each chunk's blocks recompute S and dP over all of C and
+// D (CMAX, DMAX: the widths they are unrolled for, 128 or 256).
+template <int CMAX, int DMAX, bool PAYLOAD2>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -191,7 +205,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float2* V2 = reinterpret_cast<float2*>(Gs);               // [BK] (D == 2)
   __shared__ int kreg_s[BK];          // Swin region of each key of the tile
 
-  const int b = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int b = blockIdx.y, q0 = blockIdx.x * ROWS, c0 = blockIdx.z * CHUNK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gi = lane >> 2, t = lane & 3;
   const int rows[2] = {q0 + warp * 16 + gi, q0 + warp * 16 + gi + 8};
@@ -218,9 +232,9 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   stage_rows(Qs, qb, q0, ROWS, Lq, C);
   if (!PAYLOAD2) stage_rows(Gs, gb, q0, ROWS, Lq, D);
 
-  float acc[CMAX / 8][4];
+  float acc[CHUNK / 8][4];
 #pragma unroll
-  for (int i = 0; i < CMAX / 8; ++i)
+  for (int i = 0; i < CHUNK / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
@@ -301,10 +315,10 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              pack_f32(s[2 * ks][2], s[2 * ks][3]),
                              pack_f32(s[2 * ks + 1][0], s[2 * ks + 1][1]),
                              pack_f32(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-      const bf16* kr = Ks + (ks * 16 + 2 * t) * cs + gi;
+      const bf16* kr = Ks + (ks * 16 + 2 * t) * cs + c0 + gi;
 #pragma unroll
-      for (int nt = 0; nt < CMAX / 8; ++nt) {
-        if (nt * 8 < C) {
+      for (int nt = 0; nt < CHUNK / 8; ++nt) {
+        if (c0 + nt * 8 < C) {
           const bf16* p = kr + nt * 8;
           mma_bf16(acc[nt], a, pack_bf16(p[0], p[cs]),
                    pack_bf16(p[8 * cs], p[9 * cs]));
@@ -313,10 +327,10 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  float* dqb = dq + (long long)b * Lq * C;
+  float* dqb = dq + (long long)b * Lq * C + c0;
 #pragma unroll
-  for (int nt = 0; nt < CMAX / 8; ++nt) {
-    if (nt * 8 < C) {
+  for (int nt = 0; nt < CHUNK / 8; ++nt) {
+    if (c0 + nt * 8 < C) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         if (rows[r] < Lq)
@@ -331,7 +345,10 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // dk and dv, bf16 operands
 // ---------------------------------------------------------------------------
 
-template <bool PAYLOAD2>
+// One block per (64 key rows, batch entry, chunk z of CHUNK columns: dk's
+// columns [z CHUNK, (z + 1) CHUNK) and dv's the same); each chunk's blocks
+// recompute S^T and dP^T over all of C and D.
+template <int CMAX, int DMAX, bool PAYLOAD2>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -349,7 +366,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ float lse_s[QT], delta_s[QT];
   __shared__ int qreg_s[QT];
 
-  const int b = blockIdx.y, k0 = blockIdx.x * ROWS;
+  const int b = blockIdx.y, k0 = blockIdx.x * ROWS, c0 = blockIdx.z * CHUNK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gi = lane >> 2, t = lane & 3;
   const int rows[2] = {k0 + warp * 16 + gi, k0 + warp * 16 + gi + 8};
@@ -372,10 +389,10 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   stage_rows(Ks, kb, k0, ROWS, Lk, C);
   if (!PAYLOAD2) stage_rows(Vs, vb, k0, ROWS, Lk, D);
 
-  constexpr int DT = PAYLOAD2 ? 1 : DMAX / 8;
-  float dka[CMAX / 8][4], dva[DT][4];
+  constexpr int DT = PAYLOAD2 ? 1 : CHUNK / 8;
+  float dka[CHUNK / 8][4], dva[DT][4];
 #pragma unroll
-  for (int i = 0; i < CMAX / 8; ++i)
+  for (int i = 0; i < CHUNK / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[i][e] = 0.f;
 #pragma unroll
@@ -476,10 +493,10 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                pack_f32(s[2 * ks][2], s[2 * ks][3]),
                                pack_f32(s[2 * ks + 1][0], s[2 * ks + 1][1]),
                                pack_f32(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-        const bf16* gr = Gs + (ks * 16 + 2 * t) * dst + gi;
+        const bf16* gr = Gs + (ks * 16 + 2 * t) * dst + c0 + gi;
 #pragma unroll
         for (int nt = 0; nt < DT; ++nt) {
-          if (nt * 8 < D) {
+          if (c0 + nt * 8 < D) {
             const bf16* p = gr + nt * 8;
             mma_bf16(dva[nt], a, pack_bf16(p[0], p[dst]),
                      pack_bf16(p[8 * dst], p[9 * dst]));
@@ -490,10 +507,10 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              pack_f32(dp[2 * ks][2], dp[2 * ks][3]),
                              pack_f32(dp[2 * ks + 1][0], dp[2 * ks + 1][1]),
                              pack_f32(dp[2 * ks + 1][2], dp[2 * ks + 1][3])};
-      const bf16* qr = Qs + (ks * 16 + 2 * t) * cs + gi;
+      const bf16* qr = Qs + (ks * 16 + 2 * t) * cs + c0 + gi;
 #pragma unroll
-      for (int nt = 0; nt < CMAX / 8; ++nt) {
-        if (nt * 8 < C) {
+      for (int nt = 0; nt < CHUNK / 8; ++nt) {
+        if (c0 + nt * 8 < C) {
           const bf16* p = qr + nt * 8;
           mma_bf16(dka[nt], a, pack_bf16(p[0], p[cs]),
                    pack_bf16(p[8 * cs], p[9 * cs]));
@@ -502,11 +519,11 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  float* dkb = dk + (long long)b * Lk * C;
-  float* dvb = dv + (long long)b * Lk * D;
+  float* dkb = dk + (long long)b * Lk * C + c0;
+  float* dvb = dv + (long long)b * Lk * D + c0;
 #pragma unroll
-  for (int nt = 0; nt < CMAX / 8; ++nt) {
-    if (nt * 8 < C) {
+  for (int nt = 0; nt < CHUNK / 8; ++nt) {
+    if (c0 + nt * 8 < C) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         if (rows[r] < Lk)
@@ -521,7 +538,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dva[0][e] += __shfl_xor_sync(0xffffffffu, dva[0][e], 1);
       dva[0][e] += __shfl_xor_sync(0xffffffffu, dva[0][e], 2);
     }
-    if (t == 0) {
+    if (t == 0 && c0 == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         if (rows[r] < Lk)
@@ -531,7 +548,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   } else {
 #pragma unroll
     for (int nt = 0; nt < DT; ++nt) {
-      if (nt * 8 < D) {
+      if (c0 + nt * 8 < D) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           if (rows[r] < Lk)
@@ -1392,32 +1409,35 @@ static int launch_dkv(const void* q, const void* k, const void* v,
 // f32 operands: one thread per output row
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(F32_ROWS)
+// R output rows (= threads) a block: 64, or 32 where 64 rows' shared
+// memory would not fit (f32_rows)
+template <int R>
+__global__ void __launch_bounds__(R)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ g,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq,
                  int Lq, int Lk, int C, int D, float scale, Swin sw) {
   extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                              // [F32_ROWS][C + 1]
-  float* Gs = Qs + F32_ROWS * (C + 1);          // [F32_ROWS][D + 1]
-  float* As = Gs + F32_ROWS * (D + 1);          // [F32_ROWS][C + 1] dq sums
-  float* Ks = As + F32_ROWS * (C + 1);          // [F32_T][C]
+  float* Qs = fsm;                              // [R][C + 1]
+  float* Gs = Qs + R * (C + 1);          // [R][D + 1]
+  float* As = Gs + R * (D + 1);          // [R][C + 1] dq sums
+  float* Ks = As + R * (C + 1);          // [F32_T][C]
   float* Vs = Ks + F32_T * C;                   // [F32_T][D]
   __shared__ int kreg_s[F32_T];
   const int b = blockIdx.y, tid = threadIdx.x;
-  const int q0 = blockIdx.x * F32_ROWS, row = q0 + tid;
+  const int q0 = blockIdx.x * R, row = q0 + tid;
   const float* qb = q + (long long)b * Lq * C;
   const float* kb = k + (long long)b * Lk * C;
   const float* vb = v + (long long)b * Lk * D;
   const float* gb = g + (long long)b * Lq * D;
 
-  for (int i = tid; i < F32_ROWS * C; i += F32_ROWS) {
+  for (int i = tid; i < R * C; i += R) {
     const int r = i / C, c = i - r * C;
     Qs[r * (C + 1) + c] = q0 + r < Lq ? qb[(long long)(q0 + r) * C + c] : 0.f;
     As[r * (C + 1) + c] = 0.f;
   }
-  for (int i = tid; i < F32_ROWS * D; i += F32_ROWS) {
+  for (int i = tid; i < R * D; i += R) {
     const int r = i / D, c = i - r * D;
     Gs[r * (D + 1) + c] = q0 + r < Lq ? gb[(long long)(q0 + r) * D + c] : 0.f;
   }
@@ -1433,9 +1453,9 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < Lk; k0 += F32_T) {
     __syncthreads();
-    for (int i = tid; i < F32_T * C; i += F32_ROWS)
+    for (int i = tid; i < F32_T * C; i += R)
       Ks[i] = k0 + i / C < Lk ? kb[(long long)k0 * C + i] : 0.f;
-    for (int i = tid; i < F32_T * D; i += F32_ROWS)
+    for (int i = tid; i < F32_T * D; i += R)
       Vs[i] = k0 + i / D < Lk ? vb[(long long)k0 * D + i] : 0.f;
     if (masked && tid < F32_T)
       kreg_s[tid] = swin_region(sw, last_y, last_x, k0 + tid);
@@ -1478,7 +1498,8 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-__global__ void __launch_bounds__(F32_ROWS)
+template <int R>
+__global__ void __launch_bounds__(R)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ g,
                   const float* __restrict__ lse,
@@ -1486,27 +1507,27 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   float* __restrict__ dv, int Lq, int Lk, int C, int D,
                   float scale, Swin sw) {
   extern __shared__ __align__(16) float fsm[];
-  float* Ks = fsm;                              // [F32_ROWS][C + 1]
-  float* Vs = Ks + F32_ROWS * (C + 1);          // [F32_ROWS][D + 1]
-  float* DK = Vs + F32_ROWS * (D + 1);          // [F32_ROWS][C + 1] sums
-  float* DV = DK + F32_ROWS * (C + 1);          // [F32_ROWS][D + 1] sums
-  float* Qs = DV + F32_ROWS * (D + 1);          // [F32_T][C]
+  float* Ks = fsm;                              // [R][C + 1]
+  float* Vs = Ks + R * (C + 1);          // [R][D + 1]
+  float* DK = Vs + R * (D + 1);          // [R][C + 1] sums
+  float* DV = DK + R * (C + 1);          // [R][D + 1] sums
+  float* Qs = DV + R * (D + 1);          // [F32_T][C]
   float* Gs = Qs + F32_T * C;                   // [F32_T][D]
   __shared__ float lse_s[F32_T], delta_s[F32_T];
   __shared__ int qreg_s[F32_T];
   const int b = blockIdx.y, tid = threadIdx.x;
-  const int k0 = blockIdx.x * F32_ROWS, row = k0 + tid;
+  const int k0 = blockIdx.x * R, row = k0 + tid;
   const float* qb = q + (long long)b * Lq * C;
   const float* kb = k + (long long)b * Lk * C;
   const float* vb = v + (long long)b * Lk * D;
   const float* gb = g + (long long)b * Lq * D;
 
-  for (int i = tid; i < F32_ROWS * C; i += F32_ROWS) {
+  for (int i = tid; i < R * C; i += R) {
     const int r = i / C, c = i - r * C;
     Ks[r * (C + 1) + c] = k0 + r < Lk ? kb[(long long)(k0 + r) * C + c] : 0.f;
     DK[r * (C + 1) + c] = 0.f;
   }
-  for (int i = tid; i < F32_ROWS * D; i += F32_ROWS) {
+  for (int i = tid; i < R * D; i += R) {
     const int r = i / D, c = i - r * D;
     Vs[r * (D + 1) + c] = k0 + r < Lk ? vb[(long long)(k0 + r) * D + c] : 0.f;
     DV[r * (D + 1) + c] = 0.f;
@@ -1521,9 +1542,9 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int q0 = 0; q0 < Lq; q0 += F32_T) {
     __syncthreads();
-    for (int i = tid; i < F32_T * C; i += F32_ROWS)
+    for (int i = tid; i < F32_T * C; i += R)
       Qs[i] = q0 + i / C < Lq ? qb[(long long)q0 * C + i] : 0.f;
-    for (int i = tid; i < F32_T * D; i += F32_ROWS)
+    for (int i = tid; i < F32_T * D; i += R)
       Gs[i] = q0 + i / D < Lq ? gb[(long long)q0 * D + i] : 0.f;
     if (tid < F32_T) {
       const bool ok = q0 + tid < Lq;
@@ -1583,24 +1604,130 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename K>
-static int launch(K kern, dim3 grid, int threads, size_t smem,
+static int launch(const void* kern, dim3 grid, int threads, size_t smem,
                   cudaStream_t st, void** args) {
-  if (smem > 48 * 1024) {
+  if (smem > SMEM_DEFAULT) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const cudaError_t e = cudaLaunchKernel((const void*)kern, grid, dim3(threads),
-                                         args, smem, st);
+  const cudaError_t e =
+      cudaLaunchKernel(kern, grid, dim3(threads), args, smem, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 static bool valid(int B, int Lq, int Lk, int C, int D, int swin_k) {
   return B >= 1 && B <= 65535 && Lq >= 1 && Lk >= 1 && C >= 16 &&
-         C <= CMAX && C % 16 == 0 &&
-         (D == 2 || (D % 16 == 0 && D >= 16 && D <= DMAX)) && swin_k >= 0;
+         C <= 256 && C % 16 == 0 &&
+         (D == 2 || (D % 16 == 0 && D >= 16 && D <= 256)) && swin_k >= 0;
+}
+
+// The CUDA-core kernels' dynamic shared memory at `rows` output rows: the
+// rows' C + 1 and D + 1 wide operands and accumulators (dq: Q, dq, G; dk/dv:
+// K, dk, V, dv) and a 32-row tile of the other side (ops/flash_bwd.py:
+// f32_dynamic_smem).
+static size_t f32_smem(int C, int D, bool dkv, int rows) {
+  return sizeof(float) * ((size_t)rows * (2 * (C + 1) + (dkv ? 2 : 1) *
+                                                             (D + 1)) +
+                          (size_t)F32_T * (C + D));
+}
+
+// 64 output rows a block where their shared memory fits, else 32
+static int f32_rows(int C, int D, bool dkv) {
+  return f32_smem(C, D, dkv, F32_ROWS) <= F32_SMEM_MAX ? F32_ROWS : 32;
+}
+
+typedef void (*DqKernel)(const bf16*, const bf16*, const bf16*, const bf16*,
+                         const float*, const float*, float*, int, int, int,
+                         int, float, Swin);
+typedef void (*DkvKernel)(const bf16*, const bf16*, const bf16*,
+                          const bf16*, const float*, const float*, float*,
+                          float*, int, int, int, int, float, Swin);
+
+// The mma.sync instantiations for these widths: S's and dP's products
+// unrolled to 128 or 256 columns, D = 2 apart.
+static DqKernel dq_kernel(int C, int D) {
+  if (D == 2)
+    return C <= 128 ? flash_bwd_dq_bf16<128, 128, true>
+                    : flash_bwd_dq_bf16<256, 128, true>;
+  if (C <= 128)
+    return D <= 128 ? flash_bwd_dq_bf16<128, 128, false>
+                    : flash_bwd_dq_bf16<128, 256, false>;
+  return D <= 128 ? flash_bwd_dq_bf16<256, 128, false>
+                  : flash_bwd_dq_bf16<256, 256, false>;
+}
+
+static DkvKernel dkv_kernel(int C, int D) {
+  if (D == 2)
+    return C <= 128 ? flash_bwd_dkv_bf16<128, 128, true>
+                    : flash_bwd_dkv_bf16<256, 128, true>;
+  if (C <= 128)
+    return D <= 128 ? flash_bwd_dkv_bf16<128, 128, false>
+                    : flash_bwd_dkv_bf16<128, 256, false>;
+  return D <= 128 ? flash_bwd_dkv_bf16<256, 128, false>
+                  : flash_bwd_dkv_bf16<256, 256, false>;
+}
+
+static unsigned chunks(int W) { return (unsigned)((W + CHUNK - 1) / CHUNK); }
+
+// One backward kernel as it launches on a route at these widths: the
+// kernel, its output rows and threads a block, its column chunks (a grid
+// axis of the mma.sync route: dq's of C, dk/dv's of C or D, whichever has
+// more; 1 elsewhere) and its dynamic shared memory. The entry points
+// launch the CUDA-core and mma.sync routes from it, and ofd_flash_bwd_plan
+// reports it for every route.
+struct Kernel {
+  const void* fn;
+  int rows, threads;
+  unsigned chunks;
+  size_t smem;
+};
+
+template <bool P2>
+static Kernel wgmma_kernel(bool dkv) {
+  return {dkv ? (const void*)sm90::flash_bwd_dkv_wgmma<P2>
+              : (const void*)sm90::flash_bwd_dq_wgmma<P2>,
+          sm90::WG * sm90::TILE, sm90::THREADS, 1, sm90::smem_bytes<P2>()};
+}
+
+template <bool P2>
+static Kernel tf32_kernel(bool dkv) {
+  using K = tf32x3::Cfg<P2>;
+  return {dkv ? (const void*)tf32x3::flash_bwd_dkv_tf32<P2>
+              : (const void*)tf32x3::flash_bwd_dq_tf32<P2>,
+          K::BROWS, K::THREADS, 1, dkv ? K::SMEM_DKV : K::SMEM_DQ};
+}
+
+static Kernel kernel_of(int route, bool dkv, int C, int D) {
+  switch (route) {
+    case WGMMA:
+      return D == 2 ? wgmma_kernel<true>(dkv) : wgmma_kernel<false>(dkv);
+    case TF32X3:
+      return D == 2 ? tf32_kernel<true>(dkv) : tf32_kernel<false>(dkv);
+    case F32: {
+      const int rows = f32_rows(C, D, dkv);
+      const bool wide = rows == F32_ROWS;
+      const void* fn =
+          dkv ? (wide ? (const void*)flash_bwd_dkv_f32<F32_ROWS>
+                      : (const void*)flash_bwd_dkv_f32<32>)
+              : (wide ? (const void*)flash_bwd_dq_f32<F32_ROWS>
+                      : (const void*)flash_bwd_dq_f32<32>);
+      return {fn, rows, rows, 1, f32_smem(C, D, dkv, rows)};
+    }
+    default: {  // MMA_SYNC: the resident rows and a tile of the other side
+      const int tile = dkv ? QT : BK;
+      const unsigned z =
+          dkv && D != 2 && chunks(D) > chunks(C) ? chunks(D) : chunks(C);
+      const size_t rows = (size_t)(ROWS + tile) * (C + PAD) * sizeof(bf16);
+      return {dkv ? (const void*)dkv_kernel(C, D)
+                  : (const void*)dq_kernel(C, D),
+              ROWS, WARPS * 32, z,
+              rows + (D == 2 ? tile * sizeof(float2)
+                             : (size_t)(ROWS + tile) * (D + PAD) *
+                                   sizeof(bf16))};
+    }
+  }
 }
 
 // Whether `route` takes these operands (bf16 or f32) and widths.
@@ -1618,8 +1745,9 @@ static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
 // q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], g [B, Lq, D]: all bf16 or all
 // f32, contiguous, 16-byte aligned; lse and delta [B, Lq] f32; dq [B, Lq, C]
 // f32. swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the
-// forward's. Takes C % 16 == 0, C <= 128, and D == 2 or D % 16 == 0,
-// D <= 128, on the route the caller names (enum Route; the tf32x3 route
+// forward's. Takes C % 16 == 0, C <= 256, and D == 2 or D % 16 == 0,
+// D <= 256 (ops/flash_bwd.py pads other widths), on the route the caller
+// names (enum Route; the tf32x3 route
 // C = 128 and D = 128 or 2, the wgmma route the same in bf16). splits > 1
 // (the tf32x3 route only) cuts the key sweep into that many runs of whole
 // tiles: dq is then a [splits, B, Lq, C] scratch of unscaled partial
@@ -1646,26 +1774,15 @@ extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                             Lq, Lk, scale, sw, splits, st)
                   : tf32x3::launch_dq<false>(q, k, v, g, lse, delta, dq, B,
                                              Lq, Lk, scale, sw, splits, st);
-  if (route == F32) {
-    const size_t smem = sizeof(float) * ((size_t)F32_ROWS * (2 * (C + 1) +
-                                                             (D + 1)) +
-                                         (size_t)F32_T * (C + D));
-    const dim3 grid((unsigned)((Lq + F32_ROWS - 1) / F32_ROWS), (unsigned)B);
-    return launch(flash_bwd_dq_f32, grid, F32_ROWS, smem, st, args);
-  }
   if (route == WGMMA)
     return D == 2 ? sm90::launch_dq<true>(q, k, v, g, lse, delta, dq, B, Lq,
                                           Lk, scale, sw, st)
                   : sm90::launch_dq<false>(q, k, v, g, lse, delta, dq, B, Lq,
                                            Lk, scale, sw, st);
-  const dim3 grid((unsigned)((Lq + ROWS - 1) / ROWS), (unsigned)B);
-  const size_t tiles = (size_t)(ROWS + BK) * (C + PAD) * sizeof(bf16);
-  if (D == 2)
-    return launch(flash_bwd_dq_bf16<true>, grid, WARPS * 32,
-                  tiles + BK * sizeof(float2), st, args);
-  return launch(flash_bwd_dq_bf16<false>, grid, WARPS * 32,
-                tiles + (size_t)(ROWS + BK) * (D + PAD) * sizeof(bf16), st,
-                args);
+  const Kernel kn = kernel_of(route, false, C, D);
+  const dim3 grid((unsigned)((Lq + kn.rows - 1) / kn.rows), (unsigned)B,
+                  kn.chunks);
+  return launch(kn.fn, grid, kn.threads, kn.smem, st, args);
 }
 
 // As ofd_flash_bwd_dq; dk [B, Lk, C] and dv [B, Lk, D] f32. splits > 1 cuts
@@ -1694,26 +1811,54 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                   : tf32x3::launch_dkv<false>(q, k, v, g, lse, delta, dk, dv,
                                               B, Lq, Lk, scale, sw, splits,
                                               st);
-  if (route == F32) {
-    const size_t smem = sizeof(float) * ((size_t)F32_ROWS * (2 * (C + 1) +
-                                                             2 * (D + 1)) +
-                                         (size_t)F32_T * (C + D));
-    const dim3 grid((unsigned)((Lk + F32_ROWS - 1) / F32_ROWS), (unsigned)B);
-    return launch(flash_bwd_dkv_f32, grid, F32_ROWS, smem, st, args);
-  }
   if (route == WGMMA)
     return D == 2 ? sm90::launch_dkv<true>(q, k, v, g, lse, delta, dk, dv, B,
                                            Lq, Lk, scale, sw, st)
                   : sm90::launch_dkv<false>(q, k, v, g, lse, delta, dk, dv, B,
                                             Lq, Lk, scale, sw, st);
-  const dim3 grid((unsigned)((Lk + ROWS - 1) / ROWS), (unsigned)B);
-  const size_t tiles = (size_t)(ROWS + QT) * (C + PAD) * sizeof(bf16);
-  if (D == 2)
-    return launch(flash_bwd_dkv_bf16<true>, grid, WARPS * 32,
-                  tiles + QT * sizeof(float2), st, args);
-  return launch(flash_bwd_dkv_bf16<false>, grid, WARPS * 32,
-                tiles + (size_t)(ROWS + QT) * (D + PAD) * sizeof(bf16), st,
-                args);
+  const Kernel kn = kernel_of(route, true, C, D);
+  const dim3 grid((unsigned)((Lk + kn.rows - 1) / kn.rows), (unsigned)B,
+                  kn.chunks);
+  return launch(kn.fn, grid, kn.threads, kn.smem, st, args);
+}
+
+// What ofd_flash_bwd_dq (dkv = 0) or ofd_flash_bwd_dkv (dkv = 1) launches
+// for these operands (padded widths) on the route of the wrapper's rule
+// (ops/flash_bwd.py:plan): bf16 at C = 128 and D = 128 or 2 the wgmma
+// route, other bf16 the mma.sync route; f32 at those widths the tf32x3
+// route, other f32 the CUDA-core route. plan = {route (enum Route), output
+// rows a block, threads a block, blocks of one run (row blocks x B x
+// column chunks), column chunks, dynamic shared memory, static shared
+// memory (bytes), blocks resident per SM, registers a thread, local memory
+// a thread (bytes: spills and stack)}. Returns a cudaError_t (0 on
+// success): a block the SM cannot hold fails here.
+extern "C" int ofd_flash_bwd_plan(int B, int Lq, int Lk, int C, int D,
+                                  int is_bf16, int dkv, int* plan) {
+  if (!valid(B, Lq, Lk, C, D, 0)) return (int)cudaErrorInvalidValue;
+  const int route =
+      is_bf16 ? (sm90::takes(B, Lq, Lk, C, D) ? WGMMA : MMA_SYNC)
+              : (tf32x3::takes(B, Lq, Lk, C, D) ? TF32X3 : F32);
+  const Kernel kn = kernel_of(route, dkv != 0, C, D);
+  cudaFuncAttributes attr;
+  int per_sm = 0, e;
+  if ((e = (int)cudaFuncGetAttributes(&attr, kn.fn))) return e;
+  // raised as the launch raises it, never lowered: one kernel serves
+  // every width, and a launch below the default limit does not set it
+  if (kn.smem > SMEM_DEFAULT &&
+      (e = (int)cudaFuncSetAttribute(
+           kn.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kn.smem)))
+    return e;
+  if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kn.fn, kn.threads, kn.smem)))
+    return e;
+  const int L = dkv ? Lk : Lq;
+  const int got[10] = {route, kn.rows, kn.threads,
+                       B * ((L + kn.rows - 1) / kn.rows) * (int)kn.chunks,
+                       (int)kn.chunks, (int)kn.smem,
+                       (int)attr.sharedSizeBytes, per_sm, attr.numRegs,
+                       (int)attr.localSizeBytes};
+  for (int i = 0; i < 10; ++i) plan[i] = got[i];
+  return 0;
 }
 
 // out [n] = mult * the sum over the `splits` partials of part [splits, n],

@@ -71,6 +71,30 @@ __device__ __forceinline__ uint32_t load_u32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The dense bias of columns c and c + 1 of one query row (0 past Lk): one
+// 8-byte load where Lk is even (every row then starts 8-byte aligned, the
+// wrapper aligning the base to 16 bytes), two 4-byte loads where it is
+// odd. In the mma fragments a lane holds columns 8j + 2t and 8j + 2t + 1,
+// so a quad reads 32 bytes of a row: whole sectors.
+__device__ __forceinline__ float2 bias_pair(const float* __restrict__ row,
+                                            int c, int Lk) {
+  if ((Lk & 1) == 0)
+    return c < Lk ? __ldg(reinterpret_cast<const float2*>(row + c))
+                  : make_float2(0.f, 0.f);
+  return make_float2(c < Lk ? __ldg(row + c) : 0.f,
+                     c + 1 < Lk ? __ldg(row + c + 1) : 0.f);
+}
+
+// The running max a row's exponentials are taken against: m itself, or 0
+// while the row has met no finite score (m = -inf, every score so far
+// -inf), so that exp(x - m) never meets (-inf) - (-inf). The running max
+// starts at -inf and the key padding is -inf, so a row that a bias masks
+// whole (-1e30 on every key, -1.44e30 once folded into base 2) still has
+// its own max and gives the mean of v over the real keys.
+__device__ __forceinline__ float max_offset(float m) {
+  return m == -INFINITY ? 0.f : m;
+}
+
 namespace sm90 {
 
 using namespace hopper;

@@ -15,20 +15,38 @@ casts every operand to bf16; v is cast here, so an f32 flow payload is
 rounded exactly as the TPU kernel rounds it) or f32 (f32 models keep f32
 operands, as the JAX dense path on the CPU does; every sequence-parallel
 ring step is f32). The output is f32. The routes: bf16 at GMFlow's widths
-(C = 128, D = 128 or 2) ``wgmma``, other bf16 ``mma_sync``; f32 at
-GMFlow's widths ``tf32x3``, whose products run on the tensor cores in
+(C padded to 128, D = 128 or 2) ``wgmma``, other bf16 ``mma_sync``; f32
+at GMFlow's widths ``tf32x3``, whose products run on the tensor cores in
 split TF32 (three TF32 products for each f32 one, within f32's tolerance:
 :func:`flash_softmax_matmul_tf32` repeats their rounding) and whose key
 sweep is split where its blocks would fill less than one wave of the
 card (the runs' partials merged in a fixed order by a second launch);
 other f32 widths ``f32``, on the CUDA cores.
 
+An optional dense additive ``bias`` ``[B, Lq, Lk]`` (read as f32) joins the
+scores inside every route, in the TPU kernel's order: ``s * scale +
+bias``, then the Swin mask, then the key padding. A row whose every key
+the bias masks (-1e30) gives the mean of v over the real keys and the LSE
+``-1e30 + log(Lk)``, as JAX's dense oracle does (the TPU kernel, whose
+padded keys enter the denominator, gives ``sum(v) / Lk_padded`` where Lk
+is not a multiple of its key block).
+
+Widths: the kernels' tiles take C % 16 == 0 and D == 2 or D % 16 == 0, up
+to 256 (:data:`MAX_WIDTH`); :func:`pad_widths` appends zero columns to q
+and k (the dot products do not change; ``scale`` stays ``1/sqrt(C)`` of
+the unpadded C) and to v, and the result is sliced back. Past 256 a CUDA
+call raises.
+
 A call whose inputs require grad goes through an autograd Function, as
 the JAX package's ``custom_vjp``: its forward also emits the LSE and saves
 q, k, v, the f32 output and the LSE; its backward is
 ``ops.flash_bwd.flash_backward`` (the two backward kernels on the card,
-their plain version on the CPU). The TPU kernel's optional dense ``bias``
-operand is not ported: no caller passes one.
+their plain version on the CPU). With a bias the backward is JAX's dense
+recompute (``_flash_vjp_bwd``) in plain PyTorch on both devices
+(``ops.flash_bwd.flash_backward_with_bias``), and the bias's gradient is
+zeros. One known difference: JAX's dense backward rounds q, k and ds to
+bf16 even for f32 operands; the port keeps f32 operands in f32 there, as
+everywhere.
 """
 
 from __future__ import annotations
@@ -43,9 +61,9 @@ import torch
 
 from .. import _build
 
-NEG_INF = -1e30
 KERNEL_BLOCK_K = 64          # keys per tile of csrc/flash.cu's bf16 routes
 LOG2E = 1.4426950408889634
+MAX_WIDTH = 256              # the widest C and D the kernels take
 
 Swin = Tuple[int, int, int, int, int]
 
@@ -72,23 +90,28 @@ def flash_softmax_matmul_plain(q: torch.Tensor, k: torch.Tensor,
                                swin: Optional[Swin] = None,
                                with_lse: bool = False,
                                block_k: Optional[int] = KERNEL_BLOCK_K,
-                               exp2: bool = False
+                               exp2: bool = False,
+                               bias: Optional[torch.Tensor] = None
                                ) -> Union[torch.Tensor,
                                           Tuple[torch.Tensor, torch.Tensor]]:
     """Plain PyTorch version with the kernel's arithmetic: scores
     ``(q . k) * scale`` in f32 from the operands (k and v cast to q's
-    dtype), the Swin mask added, then the online softmax over
-    key blocks of ``block_k`` (running max from -1e30, rescaled
-    denominator and accumulator). In bf16 the unnormalized P of each block
+    dtype), the bias (f32) added, then the Swin mask, then the online
+    softmax over key blocks of ``block_k`` (running max from -inf, taken
+    as 0 while a row has no finite score; rescaled denominator and
+    accumulator). In bf16 the unnormalized P of each block
     is rounded to bf16 before P . v, as the TPU and the CUDA kernel round
     it (relative to the running max of the blocks swept so far, so
     ``block_k`` chooses which kernel's rounding is repeated; None: one
     block). In f32 nothing is rounded and the blocks do not matter.
-    ``exp2=True`` repeats the base-2 form of the kernel's wgmma route
-    (bf16, C = 128): the scores times ``scale * log2(e)`` (rounded to f32),
+    ``exp2=True`` repeats the base-2 form of the kernel's wgmma and tf32x3
+    routes: the scores times ``f32(scale * log2(e))``, plus the bias
+    times ``f32(log2(e))`` (each product rounded to f32, then the sum),
     the Swin mask's -100 times ``log2(e)``, the running max in base 2 and
-    ``p = 2^(x - m)``; the LSE is then ``m ln 2 + log(den)``.
-    Returns out ``[B, Lq, D]`` f32 (and the LSE ``[B, Lq]`` f32)."""
+    ``p = 2^(x - m)``; the LSE is then ``m ln 2 + log(den)``. A row the
+    bias masks whole (-1e30 on every key) gives the mean of v and the LSE
+    ``-1e30 + log(Lk)``. Returns out ``[B, Lq, D]`` f32 (and the LSE
+    ``[B, Lq]`` f32)."""
     b, lq, c = q.shape
     lk = k.shape[1]
     if scale is None:
@@ -97,19 +120,23 @@ def flash_softmax_matmul_plain(q: torch.Tensor, k: torch.Tensor,
     base = LOG2E if exp2 else 1.0
     s = torch.matmul(q.float(), k.to(q.dtype).float().transpose(1, 2)) \
         * float(np.float32(scale) * np.float32(base))
+    if bias is not None:
+        s = s + (bias.float() * float(np.float32(base)) if exp2
+                 else bias.float())
     if swin is not None:
         s = s + swin_mask_dense(lk, swin, b, q.device) * base
     exp = torch.exp2 if exp2 else torch.exp
     vf = v.to(q.dtype).float()
     step = lk if block_k is None or not bf16 else block_k
-    m = torch.full((b, lq, 1), NEG_INF, device=q.device)
+    m = torch.full((b, lq, 1), -math.inf, device=q.device)
     den = torch.zeros(b, lq, 1, device=q.device)
     acc = torch.zeros(b, lq, v.shape[2], device=q.device)
     for k0 in range(0, lk, step):
         sb = s[:, :, k0:k0 + step]
         m_new = torch.maximum(m, sb.amax(-1, keepdim=True))
-        alpha = exp(m - m_new)
-        p = exp(sb - m_new)
+        ms = torch.where(m_new == -math.inf, 0.0, m_new)
+        alpha = exp(m - ms)
+        p = exp(sb - ms)
         den = den * alpha + p.sum(-1, keepdim=True)
         if bf16:
             p = p.to(torch.bfloat16).float()
@@ -125,20 +152,24 @@ def flash_softmax_matmul_plain(q: torch.Tensor, k: torch.Tensor,
 
 def bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: Optional[float] = None,
-                   swin: Optional[Swin] = None) -> torch.Tensor:
+                   swin: Optional[Swin] = None,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[B, Lq, 1]``: how far, row by row, the kernel's bf16 output may lie
     from :func:`flash_softmax_matmul_plain`'s. Both round the same
     unnormalized P to bf16 at the same key blocks, but a P whose f32 value
     differs in its last bits (scores summed in another order, another
     ``exp``) can round to the neighbouring bf16 value. That moves the row
     by at most a bf16 step, 2^-7 of the term ``pi_i |v_i|`` (``pi`` the
-    softmax probability, ``|v_i|`` the largest of key i's payload). Allowed:
-    two such steps of the row's largest term, 2^-16 of ``sum_i pi_i
-    |v_i|`` for the f32 sums, and 1e-6."""
+    softmax probability of ``s * scale + bias`` with the Swin mask,
+    ``|v_i|`` the largest of key i's payload). Allowed: two such steps of
+    the row's largest term, 2^-16 of ``sum_i pi_i |v_i|`` for the f32
+    sums, and 1e-6."""
     b, _, c = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(c)
     s = torch.matmul(q.float(), k.to(q.dtype).float().transpose(1, 2)) * scale
+    if bias is not None:
+        s = s + bias.float()
     if swin is not None:
         s = s + swin_mask_dense(k.shape[1], swin, b, q.device)
     w = torch.softmax(s, -1) * v.to(q.dtype).float().abs().amax(-1)[:, None]
@@ -174,22 +205,26 @@ def matmul_tf32(a: torch.Tensor, b: torch.Tensor,
 def flash_softmax_matmul_tf32(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, scale: Optional[float] = None,
                               swin: Optional[Swin] = None,
-                              with_lse: bool = False, terms: int = 3
+                              with_lse: bool = False, terms: int = 3,
+                              bias: Optional[torch.Tensor] = None
                               ) -> Union[torch.Tensor,
                                          Tuple[torch.Tensor, torch.Tensor]]:
     """The tf32x3 route's arithmetic in plain PyTorch (f32 operands, C =
     128, D = 128 or 2): S = q k^T through :func:`matmul_tf32` (``terms``
     pieces), then the base-2 softmax of the wgmma route (the scores times
-    ``scale * log2(e)``, the Swin mask's -100 times ``log2(e)``, ``p =
-    2^(x - m)``) and ``P V`` through :func:`matmul_tf32` at D = 128, in
-    plain f32 at D = 2 (the kernel takes it on the CUDA cores); the LSE is
-    ``m ln 2 + log(den)``. ``terms=1`` shows what plain TF32 products
-    would lose. For tests and readings only: no path calls it."""
+    ``scale * log2(e)``, the bias times ``log2(e)``, the Swin mask's -100
+    times ``log2(e)``, ``p = 2^(x - m)``) and ``P V`` through
+    :func:`matmul_tf32` at D = 128, in plain f32 at D = 2 (the kernel
+    takes it on the CUDA cores); the LSE is ``m ln 2 + log(den)``.
+    ``terms=1`` shows what plain TF32 products would lose. For tests and
+    readings only: no path calls it."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[2])
     b = q.shape[0]
     s = matmul_tf32(q.float(), k.float().transpose(1, 2), terms) \
         * float(np.float32(scale) * np.float32(LOG2E))
+    if bias is not None:
+        s = s + bias.float() * float(np.float32(LOG2E))
     if swin is not None:
         s = s + swin_mask_dense(k.shape[1], swin, b, q.device) * LOG2E
     m = s.amax(-1, keepdim=True)
@@ -216,10 +251,36 @@ RUN_OVERHEAD = 2        # a block's fixed work (its resident rows, its
 TF32_STRIDE = 132       # floats a shared row of the tf32x3 routes
 
 
+def padded_widths(c: int, d: int) -> Tuple[int, int]:
+    """The widths the kernels' tiles take for C = c and D = d: C to the
+    next multiple of 16, D to 2 or the next multiple of 16. Past
+    :data:`MAX_WIDTH` (or below 1) raises ``ValueError``."""
+    if not (1 <= c <= MAX_WIDTH and 1 <= d <= MAX_WIDTH):
+        raise ValueError(f"the flash kernels take C and D from 1 to "
+                         f"{MAX_WIDTH}, got C={c}, D={d}")
+    return -(-c // 16) * 16, (2 if d <= 2 else -(-d // 16) * 16)
+
+
+def _pad_last(x: torch.Tensor, width: int) -> torch.Tensor:
+    if x.shape[-1] == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def pad_widths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k and v with zero columns appended to :func:`padded_widths`
+    (the same tensors where nothing is appended): q . k and P . v keep
+    their values in the real columns."""
+    cp, dp = padded_widths(q.shape[2], v.shape[2])
+    return _pad_last(q, cp), _pad_last(k, cp), _pad_last(v, dp)
+
+
 def gmflow_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
-    """GMFlow's widths, which the wgmma and tf32x3 routes take: C = 128, D
-    = 128 or 2, the rows of every batch entry within int32."""
-    return c == 128 and d in (2, 128) and b * max(lq, lk) < 2 ** 31
+    """GMFlow's widths, which the wgmma and tf32x3 routes take: C padded to
+    128, D = 128 or 2, the rows of every batch entry within int32."""
+    cp, dp = padded_widths(c, d)
+    return cp == 128 and dp in (2, 128) and b * max(lq, lk) < 2 ** 31
 
 
 def split_count(blocks: int, tiles: int, slots: int) -> int:
@@ -250,7 +311,9 @@ class FwdPlan(NamedTuple):
     B)), and where it is split the f32 scratch shapes of the runs'
     partials (``scratch_out`` ``[splits, B, Lq, D]``, the unnormalised
     outputs; ``scratch_ml`` ``[splits, B, Lq, 2]``, each row's running max
-    in base 2 and denominator; None where not)."""
+    in base 2 and denominator; None where not); the padded widths
+    (``c_pad``, ``d_pad``). The other routes' blocks are the C side's to
+    choose: :func:`kernel_plan` reports them."""
     route: str
     rows: int = 0
     tile: int = 0
@@ -259,6 +322,8 @@ class FwdPlan(NamedTuple):
     splits: int = 1
     scratch_out: Optional[Tuple[int, ...]] = None
     scratch_ml: Optional[Tuple[int, ...]] = None
+    c_pad: int = 0
+    d_pad: int = 0
 
 
 def tf32_blocks(d: int) -> Tuple[int, int, int]:
@@ -281,22 +346,24 @@ def tf32_smem(d: int) -> int:
 def plan(b: int, lq: int, lk: int, c: int, d: int,
          dtype: torch.dtype = torch.float32, sms: int = H100_SMS) -> FwdPlan:
     """The forward's route and its parameters for q ``[b, lq, c]``, k ``[b,
-    lk, c]``, v ``[b, lk, d]`` of ``dtype``; pure host arithmetic. bf16 at
+    lk, c]``, v ``[b, lk, d]`` of ``dtype``; pure host arithmetic, on the
+    widths :func:`padded_widths` gives (C and D past 256 raise). bf16 at
     GMFlow's widths takes the wgmma route, other bf16 the mma.sync route;
     f32 at GMFlow's widths the tf32x3 route, other f32 the CUDA-core
     route."""
+    cp, dp = padded_widths(c, d)
     gmflow = gmflow_widths(b, lq, lk, c, d)
     if dtype == torch.bfloat16:
-        return FwdPlan("wgmma" if gmflow else "mma_sync")
+        return FwdPlan("wgmma" if gmflow else "mma_sync", c_pad=cp, d_pad=dp)
     if not gmflow:
-        return FwdPlan("f32")
-    rows, tile, per_sm = tf32_blocks(d)
-    smem = tf32_smem(d)
+        return FwdPlan("f32", c_pad=cp, d_pad=dp)
+    rows, tile, per_sm = tf32_blocks(dp)
+    smem = tf32_smem(dp)
     per_sm = min(per_sm, SMEM_SM // (smem + SMEM_RESERVED))
     splits = split_count(b * -(-lq // rows), -(-lk // tile), sms * per_sm)
     return FwdPlan("tf32x3", rows, tile, smem, per_sm, splits,
-                   (splits, b, lq, d) if splits > 1 else None,
-                   (splits, b, lq, 2) if splits > 1 else None)
+                   (splits, b, lq, dp) if splits > 1 else None,
+                   (splits, b, lq, 2) if splits > 1 else None, cp, dp)
 
 
 @functools.lru_cache(maxsize=None)
@@ -305,7 +372,7 @@ def _kernel_fns():
     runs."""
     lib = _build.load("flash")
     fn = lib.ofd_flash_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_float] + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -320,7 +387,7 @@ def _kernel_fns():
 @functools.lru_cache(maxsize=None)
 def _plan_fn():
     fn = _build.load("flash").ofd_flash_fwd_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 
@@ -331,22 +398,28 @@ def _sms(index: int) -> int:
 
 
 def kernel_plan(b: int, lq: int, lk: int, c: int, d: int,
-                bf16: bool) -> dict:
-    """What the forward kernel launches for these operands on the current
-    CUDA device by the C side's own rule: its route (a key of ROUTES),
-    query rows a block, keys a tile, blocks (every run's), blocks resident
-    per SM, waves over the SMs, and the runs of its key sweep (tf32x3: the
-    split :func:`plan` must name too)."""
-    out = (ctypes.c_int * 7)()
-    err = _plan_fn()(b, lq, lk, c, d, int(bf16), out)
+                bf16: bool, bias: bool = False) -> dict:
+    """What the forward kernel launches for these operands (at their
+    padded widths, with a bias or without) on the current CUDA device by
+    the C side's own rule: its route (a key of ROUTES), query rows a
+    block, keys a tile, blocks (every run's and D chunk's), blocks resident
+    per SM, waves over the SMs, the runs of its key sweep (tf32x3: the
+    split :func:`plan` must name too), D chunks (mma.sync), shared memory
+    a block (bytes, static included), threads a block, registers and local
+    memory (bytes) a thread. Raises where the card cannot hold a block."""
+    cp, dp = padded_widths(c, d)
+    out = (ctypes.c_int * 13)()
+    err = _plan_fn()(b, lq, lk, cp, dp, int(bf16), int(bias), out)
     if err:
         raise RuntimeError(f"flash kernel plan failed: CUDA error {err}")
     route = {code: name for name, code in ROUTES.items()}[out[0]]
     return dict(route=route, rows=out[1], tile=out[2], blocks=out[3],
-                per_sm=out[4], waves=out[5], splits=out[6])
+                per_sm=out[4], waves=out[5], splits=out[6], chunks=out[7],
+                smem=out[8] + out[9], threads=out[10], regs=out[11],
+                local=out[12])
 
 
-def _check_shapes(q, k, v, swin):
+def _check_shapes(q, k, v, swin, bias=None):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 \
             or k.shape[0] != q.shape[0] or v.shape[0] != q.shape[0] \
             or k.shape[2] != q.shape[2] or v.shape[1] != k.shape[1]:
@@ -360,13 +433,20 @@ def _check_shapes(q, k, v, swin):
                 or not (0 <= sh < wh and 0 <= sw < ww):
             raise ValueError(f"flash_softmax_matmul: swin={swin} does not fit "
                              f"q {tuple(q.shape)}, k {tuple(k.shape)}")
+    # JAX's BlockSpec indexes the bias (ib, iq, ik) and never broadcasts
+    if bias is not None and (tuple(bias.shape) != (q.shape[0], q.shape[1],
+                                                   k.shape[1])
+                             or not bias.dtype.is_floating_point):
+        raise ValueError(f"flash_softmax_matmul: bias must be a float [B, Lq, "
+                         f"Lk] = {[q.shape[0], q.shape[1], k.shape[1]]}, got "
+                         f"{bias.dtype} {list(bias.shape)}")
 
 
 def check_kernel_operands(q, k, v, tensors, what: str) -> None:
     """What the forward and the backward kernels take: every tensor on
-    one CUDA device, q/k both bf16 or both f32, C % 16 == 0 up to 128, D
-    == 2 or a multiple of 16 up to 128, B <= 65535, L >= 1; raises
-    otherwise."""
+    one CUDA device, q/k both bf16 or both f32, C and D from 1 to
+    MAX_WIDTH (padded to the kernels' widths by the caller), B <= 65535, L
+    >= 1; raises otherwise."""
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError(f"{what}: the tensors must all lie on the CPU or "
                          f"all on one CUDA device, got "
@@ -376,12 +456,10 @@ def check_kernel_operands(q, k, v, tensors, what: str) -> None:
                          f"{q.dtype}/{k.dtype}")
     b, lq, c = q.shape
     lk, d = v.shape[1], v.shape[2]
-    if c % 16 or not 16 <= c <= 128 \
-            or not (d == 2 or (d % 16 == 0 and 16 <= d <= 128)) \
-            or b > 65535 or lq < 1 or lk < 1:
-        raise ValueError(f"{what} takes C % 16 == 0, C <= 128, D == 2 or D "
-                         f"% 16 == 0 <= 128, B <= 65535, L >= 1; got B={b}, "
-                         f"Lq={lq}, Lk={lk}, C={c}, D={d}")
+    padded_widths(c, d)
+    if b > 65535 or lq < 1 or lk < 1:
+        raise ValueError(f"{what} takes B <= 65535, L >= 1; got B={b}, "
+                         f"Lq={lq}, Lk={lk}")
 
 
 def _check(err: int, what: str) -> None:
@@ -389,34 +467,46 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"flash {what} launch failed: CUDA error {err}")
 
 
+def kernel_bias(bias: torch.Tensor) -> torch.Tensor:
+    """The bias as the kernels read it: f32, contiguous, 16-byte aligned
+    (rows of an even Lk are then 8-byte aligned, for their float2 loads)."""
+    bias = bias.float().contiguous()
+    return bias.clone() if bias.data_ptr() % 16 else bias
+
+
 def launcher(q, k, v, scale=None, swin=None, with_lse=False,
-             route: Optional[str] = None):
+             route: Optional[str] = None, bias=None):
     """The kernel's launch for one call on CUDA tensors, without the
     count: ``((out, lse), launch, plan)``, the launch filling out (and lse
     with ``with_lse``, else None) on the current stream, a split sweep's
-    runs merged into them. ``route`` forces another route of the same
-    dtype unsplit (to time it beside the planned one); by default
-    :func:`plan` picks it."""
-    check_kernel_operands(q, k, v, (q, k, v), "flash kernel")
+    runs merged into them. q, k and v are padded to the kernels' widths
+    (:func:`pad_widths`) and out is the real columns of the padded
+    output. ``route`` forces another route of the same dtype unsplit (to
+    time it beside the planned one); by default :func:`plan` picks it."""
+    tensors = (q, k, v) if bias is None else (q, k, v, bias)
+    check_kernel_operands(q, k, v, tensors, "flash kernel")
     b, lq, c = q.shape
     lk, d = v.shape[1], v.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(c)
     p = plan(b, lq, lk, c, d, q.dtype, _sms(q.device.index))
     if route is not None:
-        p = FwdPlan(route)
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.to(q.dtype).contiguous()
+        p = FwdPlan(route, c_pad=p.c_pad, d_pad=p.d_pad)
+    qc, kc, vc = (t.contiguous()
+                  for t in pad_widths(q, k, v.to(q.dtype)))
+    bc = None if bias is None else kernel_bias(bias)
     if any(t.data_ptr() % 16 for t in (qc, kc, vc)):
         raise ValueError("flash kernel needs 16-byte aligned q, k and v")
     dev = q.device
-    out = torch.empty(b, lq, d, dtype=torch.float32, device=dev)
+    cp, dp = p.c_pad, p.d_pad
+    out = torch.empty(b, lq, dp, dtype=torch.float32, device=dev)
     lse = torch.empty(b, lq, dtype=torch.float32, device=dev) \
         if with_lse else None
     parts = None if p.splits == 1 else tuple(
         torch.empty(s, dtype=torch.float32, device=dev)
         for s in (p.scratch_out, p.scratch_ml))
     sw = swin if swin is not None else (0, 0, 0, 0, 0)
-    dims = (b, lq, lk, c, d, float(scale), *sw,
+    dims = (b, lq, lk, cp, dp, float(scale), *sw,
             int(q.dtype == torch.bfloat16), ROUTES[p.route], p.splits)
     fn, merge = _kernel_fns()
 
@@ -428,17 +518,18 @@ def launcher(q, k, v, scale=None, swin=None, with_lse=False,
     def launch():
         stream = torch.cuda.current_stream(dev).cuda_stream
         o, l = parts if parts is not None else (out, lse)
-        _check(fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), o.data_ptr(),
-                  ptr(l), *dims, stream), "kernel")
+        _check(fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), ptr(bc),
+                  o.data_ptr(), ptr(l), *dims, stream), "kernel")
         if parts is not None:
             _check(merge(o.data_ptr(), l.data_ptr(), out.data_ptr(), ptr(lse),
-                         b * lq, d, p.splits, stream), "merge")
+                         b * lq, dp, p.splits, stream), "merge")
 
-    return (out, lse), launch, p
+    return (out[..., :d] if dp != d else out, lse), launch, p
 
 
-def _flash_cuda(q, k, v, scale, swin, with_lse):
-    (out, lse), launch, _ = launcher(q, k, v, scale, swin, with_lse)
+def _flash_cuda(q, k, v, scale, swin, with_lse, bias):
+    (out, lse), launch, _ = launcher(q, k, v, scale, swin, with_lse,
+                                     bias=bias)
     launch()
     flash_softmax_matmul.launches += 1
     return (out, lse) if with_lse else out
@@ -446,60 +537,74 @@ def _flash_cuda(q, k, v, scale, swin, with_lse):
 
 def flash_softmax_matmul(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None,
+                         bias: Optional[torch.Tensor] = None,
                          swin: Optional[Swin] = None,
                          with_lse: bool = False
                          ) -> Union[torch.Tensor,
                                     Tuple[torch.Tensor, torch.Tensor]]:
-    """``softmax(q @ k^T * scale [+ Swin mask]) @ v`` without the
+    """``softmax(q @ k^T * scale [+ bias] [+ Swin mask]) @ v`` without the
     ``[Lq, Lk]`` scores in device memory: q ``[B, Lq, C]``, k ``[B, Lk,
-    C]``, v ``[B, Lk, D]`` -> ``[B, Lq, D]`` f32 (and the LSE ``[B, Lq]``
-    f32 with ``with_lse``). ``scale`` defaults to ``1/sqrt(C)``.
+    C]``, v ``[B, Lk, D]``, an optional additive ``bias`` of exactly ``[B,
+    Lq, Lk]`` (any float dtype, read as f32; other shapes raise) -> ``[B,
+    Lq, D]`` f32 (and the LSE ``[B, Lq]`` f32 with ``with_lse``).
+    ``scale`` defaults to ``1/sqrt(C)``.
 
     CPU tensors take :func:`flash_softmax_matmul_plain`; CUDA tensors
     launch the kernel on the route :func:`plan` names
     (``flash_softmax_matmul.launches`` counts those calls, a split sweep's
-    merge included), which takes bf16 or f32 q/k, C % 16 == 0 up to 128
-    (GMFlow's width), and D == 2 or a multiple of 16 up to 128. f32 at C =
-    128 and D = 128 or 2 runs its products in split TF32 on the tensor
-    cores (within f32's tolerance; :func:`flash_softmax_matmul_tf32`), its
-    key sweep split at small batches. Differentiable in q, k and v (not in
-    ``lse``); the gradients come back in their dtypes."""
-    _check_shapes(q, k, v, swin)
+    merge included), which takes bf16 or f32 q/k and any C and D from 1 to
+    256 (padded to the kernels' widths; wider raises). f32 at C = 128 and
+    D = 128 or 2 runs its products in split TF32 on the tensor cores
+    (within f32's tolerance; :func:`flash_softmax_matmul_tf32`), its key
+    sweep split at small batches. Differentiable in q, k and v (not in
+    ``lse``); the gradients come back in their dtypes; the bias's is
+    zeros."""
+    _check_shapes(q, k, v, swin, bias)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[2])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out, lse = _FlashFunction.apply(q, k, v, float(scale), swin)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        out, lse = _FlashFunction.apply(q, k, v, bias, float(scale), swin)
         return (out, lse) if with_lse else out
-    return _forward(q, k, v, scale, swin, with_lse)
+    return _forward(q, k, v, scale, swin, with_lse, bias)
 
 
-def _forward(q, k, v, scale, swin, with_lse):
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_softmax_matmul_plain(q, k, v, scale, swin, with_lse)
-    return _flash_cuda(q, k, v, scale, swin, with_lse)
+def _forward(q, k, v, scale, swin, with_lse, bias=None):
+    tensors = (q, k, v) if bias is None else (q, k, v, bias)
+    if all(t.device.type == "cpu" for t in tensors):
+        return flash_softmax_matmul_plain(q, k, v, scale, swin, with_lse,
+                                          bias=bias)
+    return _flash_cuda(q, k, v, scale, swin, with_lse, bias)
 
 
 class _FlashFunction(torch.autograd.Function):
     """The forward with its LSE; the backward from the saved f32 output and
-    LSE (`flash.py:_flash_vjp_fwd/_flash_vjp_bwd`)."""
+    LSE, or with a bias JAX's dense recompute
+    (`flash.py:_flash_vjp_fwd/_flash_vjp_bwd`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, swin):
-        out, lse = _forward(q, k, v, scale, swin, True)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, bias, scale, swin):
+        out, lse = _forward(q, k, v, scale, swin, True, bias)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.scale, ctx.swin = scale, swin
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, g, _g_lse):
-        from .flash_bwd import flash_backward
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, g, ctx.scale, ctx.swin)
+        from .flash_bwd import flash_backward, flash_backward_with_bias
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        if bias is None:
+            dq, dk, dv = flash_backward(q, k, v, out, lse, g, ctx.scale,
+                                        ctx.swin)
+        else:
+            dq, dk, dv = flash_backward_with_bias(q, k, v, bias, g, ctx.scale,
+                                                  ctx.swin)
         need = ctx.needs_input_grad
         return (dq.to(q.dtype) if need[0] else None,
                 dk.to(k.dtype) if need[1] else None,
-                dv.to(v.dtype) if need[2] else None, None, None)
+                dv.to(v.dtype) if need[2] else None,
+                torch.zeros_like(bias) if need[3] else None, None, None)
 
 
 flash_softmax_matmul.launches = 0

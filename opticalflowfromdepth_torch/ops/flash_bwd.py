@@ -28,7 +28,16 @@ The operand dtype is q's, as in the forward: bf16 rounds what the TPU
 kernels round (q, k, v, g to bf16, ``p`` to bf16 before ``p^T g`` and
 ``ds`` to bf16 before both of its products), f32 rounds nothing but what
 the split-TF32 products drop (:func:`flash_backward_tf32` repeats them).
-The gradients come back in f32.
+The gradients come back in f32. Widths are the forward's: C and D from 1
+to 256, padded to the kernels' tiles (q, k with zero columns to C % 16 ==
+0, v and g to D = 2 or D % 16 == 0) and dq, dk, dv sliced back; the
+mma.sync and CUDA-core kernels take C, D up to 256 (C, or C and D, split
+over a grid axis in 128-column chunks on the mma.sync route, S and dP
+recomputed by each chunk's blocks).
+
+With a dense ``bias`` the backward is JAX's ``_flash_vjp_bwd``: a dense
+recompute outside any kernel (:func:`flash_backward_with_bias`, plain
+PyTorch on both devices; JAX computes it in XLA, not in Pallas).
 """
 
 from __future__ import annotations
@@ -44,9 +53,9 @@ from .. import _build
 # the plan's constants, the split count and the split-TF32 products are
 # the forward's too
 from .flash import (
-    H100_SMS, ROUTES, SMEM_RESERVED, SMEM_SM, TF32_STRIDE, Swin, _sms,
-    check_kernel_operands, gmflow_widths, matmul_tf32, split_count,
-    swin_mask_dense)
+    H100_SMS, ROUTES, SMEM_RESERVED, SMEM_SM, TF32_STRIDE, Swin, _pad_last,
+    _sms, check_kernel_operands, gmflow_widths, matmul_tf32, padded_widths,
+    split_count, swin_mask_dense)
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -122,6 +131,42 @@ def flash_backward_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def flash_backward_with_bias(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, bias: torch.Tensor,
+                             g: torch.Tensor, scale: Optional[float] = None,
+                             swin: Optional[Swin] = None) -> Grads:
+    """(dq, dk, dv) of ``flash_softmax_matmul(q, k, v, scale, bias, swin)``
+    for the output gradient ``g``, as JAX's ``_flash_vjp_bwd`` computes
+    them with a bias (`flash.py:278-300`): the softmax recomputed densely
+    from ``s = q k^T * scale + bias [+ Swin]``, ``dv = p^T g``, ``dp = g
+    v^T``, ``ds = p (dp - sum(dp p))``, ``dq = ds k * scale``, ``dk = ds^T
+    q * scale``, in plain PyTorch on either device. bf16 operands are cast
+    as JAX casts them: q, k and ds rounded to bf16 (the products summed in
+    f32), p, g and v in f32. f32 operands stay f32 (JAX rounds q, k and ds
+    to bf16 even then; the port keeps f32 wherever its operands are f32).
+    Returns f32; the caller casts each to its operand's dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[2])
+    if q.dtype == torch.bfloat16:
+        def cast(t):
+            return t.to(torch.bfloat16).float()
+    else:
+        def cast(t):
+            return t.float()
+    qf, kf = cast(q), cast(k)
+    s = torch.matmul(qf, kf.transpose(1, 2)) * scale + bias.float()
+    if swin is not None:
+        s = s + swin_mask_dense(k.shape[1], swin, q.shape[0], q.device)
+    p = torch.softmax(s, -1)
+    gf = g.float()
+    dv = torch.matmul(p.transpose(1, 2), gf)
+    dp = torch.matmul(gf, v.float().transpose(1, 2))
+    ds = cast(p * (dp - (dp * p).sum(-1, keepdim=True)))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(1, 2), qf) * scale
+    return dq, dk, dv
+
+
 def bwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
                        scale: Optional[float] = None,
@@ -184,7 +229,9 @@ class BwdPlan(NamedTuple):
     the queries; each kernel's grid is (row blocks, splits, B)), and the
     f32 scratch shapes of the partial sums where a sweep is split (dq
     ``[splits, B, Lq, C]``, dk ``[splits, B, Lk, C]``, dv ``[splits, B,
-    Lk, D]``; None where not)."""
+    Lk, D]``; None where not); the padded widths (``c_pad``, ``d_pad``).
+    The other routes' blocks are the C side's to choose:
+    :func:`kernel_plan` reports them."""
     route: str
     rows: int = 0
     tile: int = 0
@@ -195,6 +242,8 @@ class BwdPlan(NamedTuple):
     scratch_dq: Optional[Tuple[int, ...]] = None
     scratch_dk: Optional[Tuple[int, ...]] = None
     scratch_dv: Optional[Tuple[int, ...]] = None
+    c_pad: int = 0
+    d_pad: int = 0
 
 
 def tf32_blocks(d: int) -> Tuple[int, int, int]:
@@ -219,26 +268,28 @@ def tf32_smem(d: int, dkv: bool) -> int:
 def plan(b: int, lq: int, lk: int, c: int, d: int,
          dtype: torch.dtype = torch.float32, sms: int = H100_SMS) -> BwdPlan:
     """The route and its parameters for q ``[b, lq, c]``, k ``[b, lk, c]``,
-    v ``[b, lk, d]`` of ``dtype``; pure host arithmetic. bf16 at C = 128
-    with D = 128 or 2 takes the wgmma route, other bf16 the mma.sync route;
-    f32 at those widths the tf32x3 route, other f32 the CUDA-core route
-    (the widths within int32 rows, as the C side checks)."""
+    v ``[b, lk, d]`` of ``dtype``, at the widths ``padded_widths`` gives
+    (past 256 raises); pure host arithmetic. bf16 at C = 128 with D = 128
+    or 2 takes the wgmma route, other bf16 the mma.sync route; f32 at
+    those widths the tf32x3 route, other f32 the CUDA-core route (the
+    widths within int32 rows, as the C side checks)."""
+    cp, dp = padded_widths(c, d)
     gmflow = gmflow_widths(b, lq, lk, c, d)
     if dtype == torch.bfloat16:
-        return BwdPlan("wgmma" if gmflow else "mma_sync")
+        return BwdPlan("wgmma" if gmflow else "mma_sync", c_pad=cp, d_pad=dp)
     if not gmflow:
-        return BwdPlan("f32")
-    rows, tile, per_sm = tf32_blocks(d)
-    smem = (tf32_smem(d, False), tf32_smem(d, True))
+        return BwdPlan("f32", c_pad=cp, d_pad=dp)
+    rows, tile, per_sm = tf32_blocks(dp)
+    smem = (tf32_smem(dp, False), tf32_smem(dp, True))
     per_sm = min(per_sm, SMEM_SM // (max(smem) + SMEM_RESERVED))
     slots = sms * per_sm
     s_dq = split_count(b * -(-lq // rows), -(-lk // tile), slots)
     s_dkv = split_count(b * -(-lk // rows), -(-lq // tile), slots)
     return BwdPlan(
         "tf32x3", rows, tile, smem, per_sm, s_dq, s_dkv,
-        (s_dq, b, lq, c) if s_dq > 1 else None,
-        (s_dkv, b, lk, c) if s_dkv > 1 else None,
-        (s_dkv, b, lk, d) if s_dkv > 1 else None)
+        (s_dq, b, lq, cp) if s_dq > 1 else None,
+        (s_dkv, b, lk, cp) if s_dkv > 1 else None,
+        (s_dkv, b, lk, dp) if s_dkv > 1 else None, cp, dp)
 
 
 @functools.lru_cache(maxsize=None)
@@ -260,6 +311,39 @@ def _kernel_fns():
     fn.restype = ctypes.c_int
     fns.append(fn)
     return tuple(fns)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_fn():
+    fn = _build.load("flash_bwd").ofd_flash_bwd_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_plan(b: int, lq: int, lk: int, c: int, d: int,
+                bf16: bool) -> dict:
+    """What the two kernels launch for these operands (at their padded
+    widths) on the current CUDA device by the C side's own rule: for
+    ``"dq"`` and ``"dkv"`` the route (a key of ROUTES), output rows and
+    threads a block, blocks of one run, column chunks (mma.sync), shared
+    memory a block (bytes, static included), blocks resident per SM,
+    registers and local memory (bytes) a thread. Raises where the card
+    cannot hold a block."""
+    cp, dp = padded_widths(c, d)
+    plans = {}
+    for key in ("dq", "dkv"):
+        out = (ctypes.c_int * 10)()
+        err = _plan_fn()(b, lq, lk, cp, dp, int(bf16), int(key == "dkv"),
+                         out)
+        if err:
+            raise RuntimeError(f"flash backward {key} kernel plan failed: "
+                               f"CUDA error {err}")
+        plans[key] = dict(
+            route={code: name for name, code in ROUTES.items()}[out[0]],
+            rows=out[1], threads=out[2], blocks=out[3], chunks=out[4],
+            smem=out[5] + out[6], per_sm=out[7], regs=out[8], local=out[9])
+    return plans
 
 
 def _check(err: int, what: str) -> None:
@@ -289,22 +373,23 @@ def launchers(q, k, v, out, lse, g, scale=None, swin=None,
                          f"{tuple(lse.shape)}")
     p = plan(b, lq, lk, c, d, q.dtype, _sms(q.device.index))
     if route is not None:
-        p = BwdPlan(route)
+        p = BwdPlan(route, c_pad=p.c_pad, d_pad=p.d_pad)
+    cp, dp = p.c_pad, p.d_pad
     delta = (g.float() * out.float()).sum(-1)
-    qc, kc = q.contiguous(), k.contiguous()
-    vc, gc = v.to(q.dtype).contiguous(), g.to(q.dtype).contiguous()
+    qc, kc = (_pad_last(t, cp).contiguous() for t in (q, k))
+    vc, gc = (_pad_last(t.to(q.dtype), dp).contiguous() for t in (v, g))
     lc = lse.float().contiguous()
     if any(t.data_ptr() % 16 for t in (qc, kc, vc, gc)):
         raise ValueError("flash backward kernels need 16-byte aligned q, k, "
                          "v and g")
     dev = q.device
-    dq = torch.empty(b, lq, c, dtype=torch.float32, device=dev)
-    dk = torch.empty(b, lk, c, dtype=torch.float32, device=dev)
-    dv = torch.empty(b, lk, d, dtype=torch.float32, device=dev)
+    dq = torch.empty(b, lq, cp, dtype=torch.float32, device=dev)
+    dk = torch.empty(b, lk, cp, dtype=torch.float32, device=dev)
+    dv = torch.empty(b, lk, dp, dtype=torch.float32, device=dev)
     parts = [torch.empty(s, dtype=torch.float32, device=dev) if s else None
              for s in (p.scratch_dq, p.scratch_dk, p.scratch_dv)]
     sw = swin if swin is not None else (0, 0, 0, 0, 0)
-    dims = (b, lq, lk, c, d, float(scale), *sw,
+    dims = (b, lq, lk, cp, dp, float(scale), *sw,
             int(q.dtype == torch.bfloat16), ROUTES[p.route])
     fn_dq, fn_dkv, fn_reduce = _kernel_fns()
     # the launches hold the operands (delta and any copies live nowhere
@@ -335,7 +420,9 @@ def launchers(q, k, v, out, lse, g, scale=None, swin=None,
             reduce(pk, dk, p.splits_dkv, scale)
             reduce(pv, dv, p.splits_dkv, 1.0)
 
-    return (dq, dk, dv), launch_dq, launch_dkv, p
+    grads = (dq[..., :c], dk[..., :c], dv[..., :d]) if (cp, dp) != (c, d) \
+        else (dq, dk, dv)
+    return grads, launch_dq, launch_dkv, p
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, g, scale, swin) -> Grads:
@@ -358,7 +445,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch the dq kernel and then the dk/dv kernel on the
     route :func:`plan` picks (``flash_backward.launches_dq`` and
     ``.launches_dkv`` count them, a split sweep's reduction included);
-    they take what the forward kernel takes."""
+    they take what the forward kernel takes (C and D up to 256). A call
+    with a dense bias takes :func:`flash_backward_with_bias` instead."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[2])
     if all(t.device.type == "cpu" for t in (q, k, v, out, lse, g)):

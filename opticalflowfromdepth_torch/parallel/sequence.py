@@ -185,7 +185,7 @@ class Steps(NamedTuple):
 # looked up at the call, as the flash modules hold them
 KERNELS = Steps(
     lambda q, k, v, scale, swin: flash.flash_softmax_matmul(
-        q, k, v, scale, swin, with_lse=True),
+        q, k, v, scale, swin=swin, with_lse=True),
     lambda *args: flash_bwd.flash_backward(*args))
 PLAIN = Steps(
     lambda q, k, v, scale, swin: flash.flash_softmax_matmul_plain(

@@ -157,8 +157,9 @@ def classifier_state_dict_from_flax(params: Mapping,
     return _state_dict_from_flax(pairs(), params, batch_stats)
 
 
-def _gmflow_pairs(num_scales: int) -> Iterator[tuple]:
-    """``port_gmflow``'s map, flax path -> torch prefix."""
+def _gmflow_pairs(num_scales: int, num_layers: int = 6) -> Iterator[tuple]:
+    """``port_gmflow``'s map, flax path -> torch prefix, for
+    ``num_layers`` transformer blocks."""
     yield ("conv_nobias", "backbone/Conv_0", "backbone.conv1")
     for i in range(6):
         layer, sub = 1 + i // 2, i % 2
@@ -171,7 +172,7 @@ def _gmflow_pairs(num_scales: int) -> Iterator[tuple]:
     if num_scales > 1:
         yield ("kernel", "backbone/trident_kernel",
                "backbone.trident_conv.weight")
-    for i in range(6):
+    for i in range(num_layers):
         for attn in ("self_attn", "cross_attn_ffn"):
             src = f"transformer.layers.{i}.{attn}"
             dst = f"transformer/block_{i}/{attn}"
@@ -190,7 +191,9 @@ def _gmflow_pairs(num_scales: int) -> Iterator[tuple]:
 
 def gmflow_state_dict_from_flax(params: Mapping, num_scales: int = 1
                                 ) -> "OrderedDict[str, torch.Tensor]":
-    """JAX ``GMFlow`` ``params`` (6 transformer blocks) -> the port's
-    ``state_dict`` (``port_gmflow``'s inverse; GMFlow has no batch
-    statistics)."""
-    return _state_dict_from_flax(_gmflow_pairs(num_scales), params, None)
+    """JAX ``GMFlow`` ``params`` -> the port's ``state_dict``
+    (``port_gmflow``'s inverse; GMFlow has no batch statistics). The
+    number of transformer blocks and every width come from the tree."""
+    blocks = [k for k in params["transformer"] if k.startswith("block_")]
+    return _state_dict_from_flax(_gmflow_pairs(num_scales, len(blocks)),
+                                 params, None)

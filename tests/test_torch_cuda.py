@@ -478,19 +478,145 @@ def test_flash_forced_cuda_core_route_matches_plain(card):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(card):
-    q = torch.randn(2, 32, 24, device=card)
-    with pytest.raises(ValueError, match="C % 16"):
-        fl.flash_softmax_matmul(q, q, torch.randn(2, 32, 2, device=card))
-    q = torch.randn(2, 32, 256, device=card)
-    with pytest.raises(ValueError, match="C <= 128"):
-        fl.flash_softmax_matmul(q, q, torch.randn(2, 32, 2, device=card))
+    """What the kernels still refuse: mixed dtypes, tensors on two devices,
+    B > 65535, C or D past 256, a bias of another shape than [B, Lq, Lk]
+    (JAX's never broadcasts). C = 24 / 256 and D = 256, refused before
+    widths were padded, run now: test_flash_kernel_takes_every_width."""
     q = torch.randn(2, 32, 64, device=card)
-    with pytest.raises(ValueError, match="D % 16"):
-        fl.flash_softmax_matmul(q, q, torch.randn(2, 32, 256, device=card))
-    q = torch.randn(2, 32, 24, device=card)
-    g = torch.randn(2, 32, 2, device=card)
-    with pytest.raises(ValueError, match="C % 16"):
-        fb.flash_backward(q, q, g, g, torch.zeros(2, 32, device=card), g)
+    with pytest.raises(ValueError, match="bf16 or both f32"):
+        fl.flash_softmax_matmul(q, q.bfloat16(), torch.randn(2, 32, 2,
+                                                             device=card))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fl.flash_softmax_matmul(q, q, torch.randn(2, 32, 2))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fl.flash_softmax_matmul(q, q, q[..., :2],
+                                bias=torch.zeros(2, 32, 32))
+    big = torch.randn(65536, 1, 16, device=card)
+    with pytest.raises(ValueError, match="65535"):
+        fl.flash_softmax_matmul(big, big, big[..., :2])
+    for c, d in ((257, 2), (64, 257)):
+        qc = torch.randn(2, 32, c, device=card)
+        with pytest.raises(ValueError, match="256"):
+            fl.flash_softmax_matmul(qc, qc, torch.randn(2, 32, d,
+                                                        device=card))
+        with pytest.raises(ValueError, match="256"):
+            fb.flash_backward(qc, qc, torch.randn(2, 32, d, device=card),
+                              torch.zeros(2, 32, d, device=card),
+                              torch.zeros(2, 32, device=card),
+                              torch.zeros(2, 32, d, device=card))
+    for shape in ((1, 32, 32), (2, 32, 31), (32, 32)):
+        with pytest.raises(ValueError, match="bias"):
+            fl.flash_softmax_matmul(q, q, q[..., :2],
+                                    bias=torch.zeros(shape, device=card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_plans_at_every_width(card, dtype):
+    """Every padded width the wrappers hand the kernels (C = 16..256 in
+    16s, D = 2 or 16..256 in 16s: every C, D in 1..256): the C side's own
+    plans of the forward (with a bias and without) and of the backward's
+    dq and dk/dv name the wrappers' route, fit a block within 227 KB of
+    shared memory with at least one block an SM, and on the mma.sync route
+    take D (forward) or the wider of C and D (dk/dv; dq: C) in 128-column
+    chunks; asking for a plan leaves later launches able to run."""
+    bf16 = dtype == torch.bfloat16
+    for cp in range(16, 257, 16):
+        for dp in [2] + list(range(16, 257, 16)):
+            route = fl.plan(4, 300, 300, cp, dp, dtype).route
+            for bias in (False, True):
+                k = fl.kernel_plan(4, 300, 300, cp, dp, bf16, bias)
+                assert k["route"] == route, (cp, dp, bias)
+                assert 0 < k["smem"] <= 232448 and k["per_sm"] >= 1
+                assert k["chunks"] == (-(-dp // 128) if route == "mma_sync"
+                                       and dp != 2 else 1)
+            kb = fb.kernel_plan(4, 300, 300, cp, dp, bf16)
+            cc = -(-cp // 128)
+            for key, chunks in (("dq", cc), ("dkv", cc if dp == 2 else
+                                             max(cc, -(-dp // 128)))):
+                assert kb[key]["route"] == route, (cp, dp, key)
+                assert 0 < kb[key]["smem"] <= 232448, (cp, dp, key)
+                assert kb[key]["per_sm"] >= 1
+                assert kb[key]["chunks"] == (chunks if route == "mma_sync"
+                                             else 1)
+    # a plan lowers no kernel's shared-memory limit: after the narrowest
+    # width's plans, calls at a wider width (more shared memory, still
+    # under the default 48 KB) launch
+    fl.kernel_plan(2, 100, 100, 16, 2, bf16)
+    fb.kernel_plan(2, 100, 100, 16, 2, bf16)
+    q = torch.randn(2, 100, 64, device=card).to(dtype)
+    v = torch.randn(2, 100, 16, device=card).to(dtype)
+    out, lse = fl.flash_softmax_matmul(q, q, v, with_lse=True)
+    grads = fb.flash_backward(q, q, v, out, lse, torch.randn_like(out))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,d", [(24, 2), (24, 256), (256, 2), (256, 256),
+                                 (100, 130)])
+def test_flash_kernel_takes_every_width(card, dtype, c, d):
+    """C and D up to 256, padded to the kernels' tiles and sliced back:
+    forward and backward kernels against the plain versions (forward: f32
+    1e-4 of max|v|, bf16 ``bf16_tolerance``; backward: f32 1e-4 of each
+    gradient's max, bf16 ``bwd_bf16_tolerance``), with a dense bias too."""
+    g_ = torch.Generator().manual_seed(c + d)
+    q = torch.randn(2, 150, c, generator=g_).to(card, dtype)
+    k = torch.randn(2, 130, c, generator=g_).to(card, dtype)
+    v = torch.randn(2, 130, d, generator=g_).to(card, dtype)
+    g = torch.randn(2, 150, d, generator=g_).to(card)
+    bias = torch.randn(2, 150, 130, generator=g_).to(card)
+    for b_ in (None, bias):
+        out, lse = fl.flash_softmax_matmul(q, k, v, bias=b_, with_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = fl.flash_softmax_matmul_plain(q, k, v, with_lse=True,
+                                                     bias=b_)
+        assert out.shape == (2, 150, d)
+        tol = 1e-4 * float(v.float().abs().max()) \
+            if dtype == torch.float32 else \
+            fl.bf16_tolerance(q, k, v, bias=b_)
+        assert float(((out - ref).abs() / tol).max()) <= 1.0
+        assert float((lse - ref_lse).abs().max()) <= 1e-4
+    out, lse = fl.flash_softmax_matmul(q, k, v, with_lse=True)
+    got = fb.flash_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    want = fb.flash_backward_plain(q, k, v, out, lse, g)
+    tols = [1e-4 * float(w.abs().max()) for w in want] \
+        if dtype == torch.float32 else \
+        fb.bwd_bf16_tolerance(q, k, v, out, lse, g)
+    for x, w, t in zip(got, want, tols):
+        assert x.shape == w.shape
+        assert float(((x - w).abs() / t).max()) <= 1.0
+
+
+@pytest.mark.parametrize("dtype,c,d,b", [
+    (torch.bfloat16, 128, 128, 8),      # wgmma
+    (torch.bfloat16, 128, 2, 1),
+    (torch.bfloat16, 64, 16, 2),        # mma.sync
+    (torch.float32, 128, 2, 1),         # tf32x3, key sweep split
+    (torch.float32, 128, 128, 8),       # tf32x3
+    (torch.float32, 64, 16, 2)])        # CUDA cores
+def test_flash_kernel_bias_matches_plain(card, dtype, c, d, b):
+    """A dense bias on every forward route, Lk ragged (odd: the scalar bias
+    loads), rows the bias masks whole (-1e30: the mean of v, as JAX's dense
+    oracle), two launches bit-equal."""
+    g_ = torch.Generator().manual_seed(b * c + d)
+    lq, lk = 333, 301
+    q = torch.randn(b, lq, c, generator=g_).to(card, dtype)
+    k = torch.randn(b, lk, c, generator=g_).to(card, dtype)
+    v = torch.randn(b, lk, d, generator=g_).to(card, dtype)
+    bias = torch.randn(b, lq, lk, generator=g_).to(card)
+    bias[0, :3] = -1e30
+    out = fl.flash_softmax_matmul(q, k, v, bias=bias)
+    again = fl.flash_softmax_matmul(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = fl.flash_softmax_matmul_plain(q, k, v, bias=bias)
+    tol = 1e-4 * float(v.float().abs().max()) if dtype == torch.float32 \
+        else fl.bf16_tolerance(q, k, v, bias=bias)
+    assert float(((out - ref).abs() / tol).max()) <= 1.0
+    mean = v[0].float().mean(0)
+    assert float((out[0, :3] - mean).abs().max()) <= 1e-4 * float(
+        v.float().abs().max()) + 1e-6
 
 
 @pytest.mark.parametrize("num_scales", [1, 2])
