@@ -68,7 +68,9 @@ Run from the repository root on a host with one CUDA card. Phases:
    fail the tolerance (three where the tf32x3 route splits a sweep: its
    reduction leaving the last partial out), what hi-only TF32 products
    would give (for information), and two launches that must give the same
-   bits, the autograd Function against a dense softmax, timed in bf16 and
+   bits, the C = 128 bf16 route's bits against recorded digests
+   (``C128_BWD_DIGESTS``, by nvcc release), the autograd Function against
+   a dense softmax, timed in bf16 and
    in f32 (the 14 + 14 launches of a training step each) against their
    bounds (TFLOP/s, share of the bound; f32 at the split-TF32 and at the
    CUDA cores' f32 peak), the plain version and SDPA's backward; [3g]
@@ -244,9 +246,13 @@ Run from the repository root on a host with one CUDA card. Phases:
    the serving and the training shapes ([21]'s and [22]'s), bf16: the
    forward at each class and the backward at each training class against
    the plain versions as [3e] and [3f] hold the 128-channel classes (two
-   launches bit-equal, the planted faults; their largest errors join the
+   launches bit-equal, the planted faults, and for the backward (the
+   wgmma route at C = 256) q and k's upper 128 columns zeroed, which must
+   fail; then the backward at its edges: ragged 65, 129 and 200 rows, D =
+   256 and 2, a Swin edge inside a tile; the largest errors join the
    flash rows' ``max_abs_err``), then timed against their bounds, the
-   plain versions and SDPA;
+   plain versions and SDPA, the backward also beside the mma.sync route
+   forced on the same inputs (it must lose at every class);
 20. GMFlow at ``feature_channels = 256``, f32 64x96, 1 scale: card vs CPU
    ([9]'s 1-scale limits), 14 flash and 15 instance-norm launches;
 21. GMFlow at 256 channels serving: bf16, 3 pairs of 436x1024 after a
@@ -256,11 +262,14 @@ Run from the repository root on a host with one CUDA card. Phases:
    16 of 368x560, 1 scale, classifier on) on a resident batch, a warm-up
    step and 2 steps with 14 + 14 + 14 flash launches and 15 instance
    norms a step, no plain version called, finite losses, ms a step, peak
-   memory;
+   memory, a profile of one more step (the flash forward's and backward's
+   device ms);
 23. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
    [18]'s, [21]'s and [22]'s launches too; the flash row also carries the
    f32 route's times at an f32 pair, ``f32_ms`` and the rest, and the
-   dense bias's at GMFlow's four classes, ``bias_ms`` and the rest), the
+   dense bias's at GMFlow's four classes, ``bias_ms`` and the rest; the
+   backward's rows the 256-channel step's, ``c256_ms`` and the rest with
+   ``c256_mma_sync_ms``), the
    card line, and last the line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
@@ -1560,6 +1569,50 @@ def flash_bwd_compare(fl, fb, what, q, k, v, g, swin) -> float:
     return max(errs)
 
 
+# The bf16 backward's bits at C = 128 (the wgmma route's first width) on
+# two fixed-seed inputs, as the kernels gave them before the route took C =
+# 256: sha256 of dq, dk and dv (first 16 hex digits), by the nvcc release
+# that built the kernels.
+C128_BWD_DIGESTS = {"12.9": ("dcf4718e1dac69d5", "4d617edf4f662b03")}
+
+
+def c128_bwd_digests(fl, fb) -> tuple:
+    """The digests of :data:`C128_BWD_DIGESTS`: windows with a Swin region
+    edge inside a tile [8,130,128]x[..,128], and ragged [2,129,128]x
+    [2,65,2], from a generator of their own (the forward kernel's out and
+    LSE, then the backward kernels)."""
+    import hashlib
+
+    import torch
+    gen = torch.Generator().manual_seed(78)
+    digests = []
+    for b, lq, lk, d, payload, swin in (
+            (8, 130, 130, 128, "normal", (2, 10, 13, 5, 6)),
+            (2, 129, 65, 2, "flow", None)):
+        q, _, _ = flash_inputs(gen, b, lq, lq, 128, d, torch.bfloat16,
+                               payload)
+        _, k, v = flash_inputs(gen, b, lk, lk, 128, d, torch.bfloat16,
+                               payload)
+        g = torch.randn(b, lq, d, generator=gen).cuda()
+        out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
+        h = hashlib.sha256()
+        for t in fb.flash_backward(q, k, v, out, lse, g, swin=swin):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        digests.append(h.hexdigest()[:16])
+    return tuple(digests)
+
+
+def nvcc_release() -> str:
+    """The release of the nvcc that builds the kernels ("12.9")."""
+    import re
+
+    from opticalflowfromdepth_torch import _build
+    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                         text=True).stdout
+    found = re.search(r"release (\d+\.\d+)", out)
+    return found.group(1) if found else "unknown"
+
+
 def flash_bwd_phase(gen):
     import torch
     import torch.nn.functional as F
@@ -1615,6 +1668,21 @@ def flash_bwd_phase(gen):
                           v, torch.randn(2, 100, 16, generator=gen).cuda(),
                           None)
 
+    # the C = 128 wgmma route's bits, against the recorded ones
+    got, release = c128_bwd_digests(fl, fb), nvcc_release()
+    want = C128_BWD_DIGESTS.get(release)
+    if want is None:
+        print(f"  the C = 128 bf16 backward's bits (sha256 of dq, dk, dv): "
+              f"{got}, not compared: recorded with nvcc "
+              f"{', '.join(C128_BWD_DIGESTS)}, built with {release}",
+              flush=True)
+    else:
+        print(f"  the C = 128 bf16 backward's bits (sha256 of dq, dk, dv): "
+              f"{got}, recorded {want} (nvcc {release})", flush=True)
+        if got != want:
+            fail(f"the C = 128 bf16 backward's bits changed: {got}, "
+                 f"recorded {want}")
+
     # the autograd Function in f32 against autograd through a dense softmax
     x = [torch.randn(s, generator=gen).cuda()
          for s in ((8, 24, 32), (8, 24, 32), (8, 24, 32), (8, 24, 32))]
@@ -1645,20 +1713,23 @@ def flash_bwd_phase(gen):
     return records
 
 
-def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES):
+def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES,
+                     old_route=None):
     """Each backward kernel launched alone at the training shapes (per
     launch, and the 14 + 14 launches of one step), against its bound,
     the plain backward and SDPA's backward asked for its outputs; returns
     the kernels line's records of the step (bf16). In f32 each bound is
     printed twice: at the split-TF32 peak (the tf32x3 route) and at the
-    CUDA cores' f32 peak (the route before it)."""
+    CUDA cores' f32 peak (the route before it). ``old_route``: that route
+    forced on the same inputs is timed beside each kernel (the records'
+    ``old_ms``), and each kernel must beat it at every shape."""
     import torch
     bf16 = dtype == torch.bfloat16
     esize = 2 if bf16 else 4
     peaks = ((BF16_FLOP_PER_S, "bf16"),) if bf16 else (
         (TF32X3_FLOP_PER_S, "split TF32"), (FP32_FLOP_PER_S, "f32"))
     step = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0,
-                    exps=0.0, bytes=0.0) for k in ("dq", "dkv")}
+                    exps=0.0, bytes=0.0, old_ms=0.0) for k in ("dq", "dkv")}
     lib_whole = 0.0
     for name, (b, l, c, d, payload, swin), n in shapes:
         q, k, v = flash_inputs(gen, b, l, l, c, d, dtype, payload,
@@ -1671,6 +1742,21 @@ def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES):
         torch.cuda.synchronize()
         if not bool(torch.isfinite(dq).all() & torch.isfinite(dk).all()):
             fail(f"flash backward timing {name}: non-finite gradients")
+        old = ""
+        if old_route is not None:
+            _, old_dq, old_dkv, _ = fb.launchers(q, k, v, out, lse, g,
+                                                 swin=swin, route=old_route)
+            o_dq, o_dkv = cuda_ms(old_dq), cuda_ms(old_dkv)
+            step["dq"]["old_ms"] += n * o_dq
+            step["dkv"]["old_ms"] += n * o_dkv
+            old = (f"; the {old_route} route forced: dq {o_dq * 1e3:.1f} us "
+                   f"({o_dq / t_dq:.2f}x), dk/dv {o_dkv * 1e3:.1f} us "
+                   f"({o_dkv / t_dkv:.2f}x)")
+            if not (t_dq < o_dq and t_dkv < o_dkv):
+                fail(f"flash backward {name}: the {plan.route} route "
+                     f"({t_dq * 1e3:.1f} / {t_dkv * 1e3:.1f} us) loses to "
+                     f"the {old_route} route ({o_dq * 1e3:.1f} / "
+                     f"{o_dkv * 1e3:.1f} us)")
         t_wrap = cuda_ms(lambda: fb.flash_backward(q, k, v, out, lse, g,
                                                    swin=swin), reps=10)
         t_plain = cuda_ms(lambda: fb.flash_backward_plain(
@@ -1723,7 +1809,7 @@ def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES):
               f"{splits}): " + "; ".join(line) + f"; the wrapper (delta, "
               f"casts, both) {t_wrap * 1e3:.1f} us, SDPA's whole backward "
               f"{lib_all * 1e3:.1f} us; plain {t_plain * 1e3:.1f} us; {n} "
-              f"per step", flush=True)
+              f"per step{old}", flush=True)
         del q, k, v, g, out, lse, qs, ks, vs, o, mask, dq, dk, dv
         torch.cuda.empty_cache()
     records = []
@@ -1741,7 +1827,10 @@ def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES):
               f"{rec['plain_ms'] * 1e3:.1f} us, SDPA for its outputs "
               f"{rec['library_ms'] * 1e3:.1f} us ({rec['ops'] / 1e9:.1f} "
               f"GFLOP, {rec['exps'] / 1e6:.1f} M exp, "
-              f"{rec['bytes'] / 1e6:.1f} MB) [{kernel}]", flush=True)
+              f"{rec['bytes'] / 1e6:.1f} MB) [{kernel}]"
+              + (f"; the {old_route} route forced {rec['old_ms'] * 1e3:.1f} "
+                 f"us ({rec['old_ms'] / rec['ms']:.2f}x)"
+                 if old_route is not None else ""), flush=True)
         records.append(dict(
             name=f"flash_bwd_{key}", route="cuda",
             source="opticalflowfromdepth_torch/csrc/flash_bwd.cu",
@@ -1749,6 +1838,8 @@ def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES):
             max_abs_err=0.0, ms=rec["ms"], plain_ms=rec["plain_ms"],
             bound_ms=bounds[0][0], bound_by=bounds[0][1],
             library_ms=rec["library_ms"]))
+        if old_route is not None:
+            records[-1]["old_ms"] = rec["old_ms"]
     print(f"  one {dtype} step's 14 + 14 launches: "
           f"{(step['dq']['ms'] + step['dkv']['ms']) * 1e3:.1f} us; SDPA's "
           f"whole backward at the same 14 calls {lib_whole * 1e3:.1f} us",
@@ -2098,9 +2189,9 @@ def profile(run, unprofiled_ms: float, what: str, named=None) -> None:
     """Device time by kernel over one more ``run()``, and the busy share of
     an unprofiled run's time (the profiler's own start-up inflates its
     wall clock, so that is not the denominator); returns the busy ms.
-    ``named``: (label, key substrings): those kernels' summed device time,
-    launches and share of the busy time, printed on a line of their
-    own."""
+    ``named``: a list of (label, key substrings): those kernels' summed
+    device time, launches and share of the busy time, each printed on a
+    line of its own."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -2135,8 +2226,7 @@ def profile(run, unprofiled_ms: float, what: str, named=None) -> None:
         if any(k in e.key for k in PORT_KERNELS):
             print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
                   f"{e.key[:90]} (the port's)", flush=True)
-    if named is not None:
-        label, keys = named
+    for label, keys in named or ():
         hits = [e for e in rows if any(k in e.key for k in keys)]
         ms = sum(dev_us(e) for e in hits) / 1e3
         print(f"  {label}: {ms:.3f} ms a {what}, "
@@ -4619,8 +4709,8 @@ def sequence_parallel_phase(alone_12: float):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
     profile(lambda: step(state, batch), step_ms, "step",
-            named=("the f32 forward (tf32x3 kernel and its merge)",
-                   ("flash_fwd_tf32", "merge_splits")))
+            named=[("the f32 forward (tf32x3 kernel and its merge)",
+                    ("flash_fwd_tf32", "merge_splits"))])
     return launches
 
 
@@ -4648,6 +4738,45 @@ BIAS_SHAPES = (
     ("serving matching", (1, H8 * W8, 2, "grid"), 2),
     ("training matching", (GM_BATCH, GH8 * GW8, 2, "grid"), 2),
 )
+
+
+# the backward's wgmma route's edges at C = 256: name, (B, Lq, Lk, D,
+# payload, swin)
+WIDE_EDGES = (
+    ("ragged 65x129", (1, 65, 129, 256, "normal", None)),
+    ("ragged 129x65", (2, 129, 65, 256, "normal", None)),
+    ("ragged 200x129", (1, 200, 129, 256, "normal", None)),
+    ("ragged 65x200 D=2", (2, 65, 200, 2, "flow", None)),
+    ("ragged 129x65 D=2", (1, 129, 65, 2, "flow", None)),
+    ("ragged 200x200 D=2", (2, 200, 200, 2, "flow", None)),
+    ("swin edge inside a tile", (8, 130, 130, 256, "normal",
+                                 (2, 10, 13, 5, 6))),
+    ("swin edge inside a tile D=2", (8, 130, 130, 2, "flow",
+                                     (2, 10, 13, 5, 6))),
+)
+
+
+def upper_columns_fault(fl, fb, q, k, v, g, swin) -> None:
+    """A fault only a 256-wide kernel can have: the backward kernels
+    launched on q and k whose upper 128 columns are zeroed (a kernel that
+    read two of its four panels), held against the plain backward of the
+    full operands from the full forward's out and LSE. Each gradient must
+    land over ``bwd_bf16_tolerance``; prints how far."""
+    import torch
+    out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
+    ref = fb.flash_backward_plain(q, k, v, out, lse, g, swin=swin)
+    tols = fb.bwd_bf16_tolerance(q, k, v, out, lse, g, swin=swin)
+    qz, kz = (torch.cat([t[..., :128], torch.zeros_like(t[..., 128:])], -1)
+              for t in (q, k))
+    cut = fb.flash_backward(qz, kz, v, out, lse, g, swin=swin)
+    ratios = [float(((x - r).abs() / t).max())
+              for x, r, t in zip(cut, ref, tols)]
+    print(f"    planted fault, q and k's upper 128 columns zeroed, |d| / "
+          f"tolerance (each must exceed 1): dq {ratios[0]:.2f}, dk "
+          f"{ratios[1]:.2f}, dv {ratios[2]:.2f}", flush=True)
+    if not min(ratios) > 1.0:
+        fail(f"flash backward at C = 256: the zeroed upper columns pass "
+             f"{ratios}")
 
 
 def flash_tolerance(fl, q, k, v, bias=None, swin=None):
@@ -4977,8 +5106,9 @@ def flash_bias_width_phase(gen):
           f"{total['plain_ms'] * 1e3:.1f} us", flush=True)
 
     # GMFlow at 256 channels: its flash calls at the serving and the
-    # training shapes (C = 256, windows D = 256: the mma.sync routes, D in
-    # two chunks), forward and backward, as [3e] and [3f] hold the 128
+    # training shapes (C = 256, windows D = 256: the forward's mma.sync
+    # route, D in two chunks; the backward's wgmma route), forward and
+    # backward, as [3e] and [3f] hold the 128
     # channels' classes (two launches bit-equal, the planted faults); then
     # against their bounds and SDPA
     cmp_gen = torch.Generator().manual_seed(76)
@@ -4997,19 +5127,43 @@ def flash_bias_width_phase(gen):
                 route = fb.plan(b, l, l, c, d, torch.bfloat16).route
                 err_bwd = max(err_bwd, flash_bwd_compare(
                     fl, fb, f"{case} ({route})", q, k, v, g, swin))
+                upper_columns_fault(fl, fb, q, k, v, g, swin)
                 del g
             del q, k, v
             torch.cuda.empty_cache()
+    # the backward's wgmma route at its edges at C = 256: Lq and Lk of 65,
+    # 129 and 200 against dq's 32-key tiles (64 at D = 2) and 128-query
+    # blocks and dk/dv's 64-query tiles and 64-key blocks (128 at D = 2),
+    # D = 256 and 2, a Swin region edge inside a tile (window 10x13 shifted
+    # 5 and 6); a generator of their own
+    edge_gen = torch.Generator().manual_seed(77)
+    for name, (b, lq, lk, d, payload, swin) in WIDE_EDGES:
+        q, _, _ = flash_inputs(edge_gen, b, lq, lq, 256, d, torch.bfloat16,
+                               payload)
+        _, k, v = flash_inputs(edge_gen, b, lk, lk, 256, d, torch.bfloat16,
+                               payload)
+        g = torch.randn(b, lq, d, generator=edge_gen).cuda()
+        route = fb.plan(b, lq, lk, 256, d, torch.bfloat16).route
+        err_bwd = max(err_bwd, flash_bwd_compare(
+            fl, fb, f"256-channel {name} bf16 [{b},{lq},256]x[{b},{lk},{d}] "
+            f"({route})", q, k, v, g, swin))
+        del q, k, v, g
     worst = dict(flash=err_fwd, flash_bwd_dq=err_bwd, flash_bwd_dkv=err_bwd)
     flash_timing(fl, torch.Generator().manual_seed(73), FLASH256_SHAPES, W8,
                  "256-channel pair", plain=True)
     flash_timing(fl, torch.Generator().manual_seed(74),
                  FLASH256_TRAIN_SHAPES, GW8, "256-channel step", plain=False)
-    flash_bwd_timing(fl, fb, F, torch.Generator().manual_seed(75),
-                     torch.bfloat16, FLASH256_TRAIN_SHAPES)
+    wide = flash_bwd_timing(fl, fb, F, torch.Generator().manual_seed(75),
+                            torch.bfloat16, FLASH256_TRAIN_SHAPES,
+                            old_route="mma_sync")
+    # the kernels line's flash_bwd rows carry the 256-channel step's numbers
+    # as c256_*, the forced mma.sync route's as c256_mma_sync_ms
+    wide = {rec["name"]: {f"c256_{key}": rec[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        | {"c256_mma_sync_ms": rec["old_ms"]} for rec in wide}
     return dict(bias_ms=total["ms"], bias_plain_ms=total["plain_ms"],
                 bias_bound_ms=bound, bias_bound_by=bound_by,
-                bias_library_ms=total["library_ms"]), worst
+                bias_library_ms=total["library_ms"]), worst, wide
 
 
 def gmflow256_parity_phase():
@@ -5143,6 +5297,13 @@ def gmflow256_train_phase():
         fail(f"GMFlow-256 training launch counts {launches}, want {want}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"GMFlow-256 training loss not finite: {losses}")
+    # one more step under the profiler (after the counts are read): the
+    # step's busy time and its flash kernels' share, on the card's clock
+    profile(lambda: step(state, batch, None), sum(times) / len(times),
+            "step", named=[
+                ("the flash backward kernels (14 dq + 14 dk/dv)",
+                 ("flash_bwd_",)),
+                ("the flash forward kernels (14)", ("flash_fwd_",))])
     return launches
 
 
@@ -5253,9 +5414,11 @@ def main() -> None:
     tmp_12.cleanup()
     # slice 15: the flash kernels' dense bias and widths up to 256, then
     # GMFlow at 256 channels, after every earlier path
-    bias, worst = timed("3j", flash_bias_width_phase,
-                        torch.Generator().manual_seed(70))
+    bias, worst, wide = timed("3j", flash_bias_width_phase,
+                              torch.Generator().manual_seed(70))
     flash.update(bias)
+    for k in flash_bwd:
+        k.update(wide[k["name"]])
     timed("20", gmflow256_parity_phase)
     served = timed("21", gmflow256_serving_phase)
     trained = timed("22", gmflow256_train_phase)
@@ -5271,11 +5434,12 @@ def main() -> None:
     print(f"seconds per phase: {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     # the flash row also carries the f32 route's numbers (f32_*) and the
-    # dense bias's (bias_*)
+    # dense bias's (bias_*); the backward's rows the 256-channel step's
+    # (c256_*)
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in order},
          **{k: v for k, v in kern.items()
-            if k.startswith(("f32_", "bias_"))}}
+            if k.startswith(("f32_", "bias_", "c256_"))}}
         for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -762,7 +762,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     } else {
       float sa[32];
       wgmma_fence();
-      product_c128(sa, qres, sm.k[s][0]);  // S = Q K^T, 64 x 64
+      product_c<128, 64>(sa, qres, sm.k[s][0]);  // S = Q K^T, 64 x 64
       wgmma_commit();
       if (WGS == 2 && pass) turn_pass(wg);
       wgmma_wait<0>();

@@ -19,19 +19,21 @@
 // the forward's analytic one (window id = batch index mod K^2, batches
 // ordered [b, wy, wx]), the regions computed per row and per column.
 //
-// What bounds it on this card: at GMFlow's widths (C = 128, D = 128 or 2)
-// the products, 2 * B * Lq * Lk * (3C + 2D) operations over both kernels
-// (each recomputes S; dq adds dP and dS . K, dk/dv add dP, P^T . G and
+// What bounds it on this card: at GMFlow's widths (C = 128 or 256, D = C
+// or 2) the products, 2 * B * Lq * Lk * (4C + 3D) operations over both
+// kernels (each recomputes S and dP; dq adds dS . K, dk/dv P^T . G and
 // dS^T . Q), over the tensor cores, and the B * Lq * Lk exponentials of
 // each pass over the special-function units; the bytes (q, k, v, g, lse,
 // delta read, dq, dk, dv written) are ~1000x less. So each kernel keeps
 // the [Lq, Lk] tiles out of device memory, and four routes feed it (the
 // caller, ops/flash_bwd.py:plan, names the route):
 //
-// bf16 at C = 128 and D = 128 or 2 (every GMFlow call): the wgmma route,
-// namespace sm90. One block of two warpgroups (256 threads) per (batch
-// entry, 128 rows of the output side), 64 rows each. The resident side (K
-// and V for dk/dv; Q and G for dq) is loaded once by TMA; the other side
+// bf16 at C = 128 and D = 128 or 2 (every GMFlow call), and at C = 256 and
+// D = 256 or 2 (GMFlow at 256 channels): the wgmma route, namespace sm90,
+// its kernels templated on the width W = C. At C = 128: one block of two
+// warpgroups (256 threads) per (batch entry, 128 rows of the output
+// side), 64 rows each. The resident side (K and V for dk/dv; Q and G for
+// dq) is loaded once by TMA; the other side
 // streams in 64-row tiles through a 2-stage ring under mbarriers (full:
 // the TMA bytes and the loading warp's 32 cp.async arrivals; empty: every
 // thread). TMA boxes of [64 rows][64 columns] land 128-byte swizzled, as
@@ -67,6 +69,31 @@
 // b * L), and dP and dv run on the CUDA cores in f32 (the tensor cores
 // would waste 63/64 of their work on padding D).
 //
+// At C = 256 the same kernels (two warpgroups, TMA boxes of 64 columns,
+// four panels a row, a 2-stage ring under mbarriers, the turns,
+// ex2.approx, dS and P^T rounded to bf16 into A fragments) take other
+// tiles, since the C = 128 layout would not fit: two warpgroups' resident
+// rows and two 64-row ring stages of both operands take 256 KB, and dK and
+// dV of 256 columns would take 256 accumulator registers. So:
+//   dq: each warpgroup keeps its 64 queries' Q (and G) resident and its
+//   64 x 256 dQ in two 64 x 128 accumulators (128 registers); keys stream
+//   in tiles of 32 at D = 256 (S and dP on wgmma m64n32k16, 16 k-steps
+//   each; 198,656 bytes a block) and of 64 at D = 2 (m64n64; 135,168);
+//   dQ += dS K as two m64n128 products a k16 step, K read MN-major with
+//   its 64-column groups one ring panel (32 or 64 rows x 128 bytes) apart.
+//   204 registers at D = 256, 214 at D = 2, no spills.
+//   dk/dv at D = 256: a block of 64 keys whose K and V both warpgroups
+//   share; warpgroup w holds columns [128 w, 128 w + 128) of dK and of dV
+//   (64 + 64 registers, as at C = 128), so each computes S^T and dP^T whole
+//   over C and D (1.5x the useful products; a build that takes them over
+//   half of C and D, tools/flash_bwd_variants.py, runs 10% faster at the
+//   windows: the kernel is not bound by the tensor cores, PERF.md);
+//   queries stream in 64-row tiles; 199,680 bytes a block, 232
+//   registers, no spills.
+//   dk/dv at D = 2: a block of 128 keys, 64 a warpgroup, each holding all
+//   256 columns of dK (two m64n128 accumulators), dv on the CUDA cores;
+//   135,168 bytes, 214 registers, no spills.
+//
 // Other bf16 widths (C % 16 == 0, C <= 256; D = 2 or D % 16 == 0, D <=
 // 256; ops/flash_bwd.py pads other widths with zero columns): the
 // mma.sync route, mma.sync m16n8k16 with 4 warps a block, each owning 16
@@ -74,8 +101,9 @@
 // padded by 8 bf16. A block takes 128 columns of its outputs (a grid axis:
 // dq's chunks of C, dk/dv's of C and D together), so its accumulators stay
 // at 64 + 64 registers at any width; each chunk's blocks recompute S and
-// dP over all of C and D. No GMFlow call at 128 channels takes it; GMFlow
-// at 256 channels takes it for every call.
+// dP over all of C and D. No GMFlow call takes it (at 256 channels the
+// wgmma route replaced it; launchers(route="mma_sync") still
+// forces it, to time it beside that route).
 //   dq: Q and G tiles staged once; per 64-key tile K and V staged; S = Q
 //   K^T and dP = G V^T, then p and ds per element in registers; ds rounded
 //   to bf16 and its accumulator fragments used directly as the A
@@ -561,7 +589,8 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands at C = 128 and D = 128 or 2: the wgmma route
+// bf16 operands at C = 128 and D = 128 or 2, and at C = 256 and D = 256 or
+// 2: the wgmma route
 // ---------------------------------------------------------------------------
 
 namespace sm90 {
@@ -574,39 +603,59 @@ constexpr int STAGES = 2;
 constexpr int LOADER = 4;  // the warp that refills the ring: warpgroup 1's
                            // first, as warpgroup 1 takes its turns second
 
-// One block's shared memory. The resident side (64 rows per warpgroup;
-// the C-wide operand in two 64-column panels, and the D-wide one when D =
-// 128) is loaded once; the streamed side goes through a ring of STAGES
-// tiles of 64 rows: the C-wide operand, the D-wide one (two panels, or 64
-// bf16 pairs when D = 2) and, for dk/dv, lse and delta.
-// Every panel is a TMA box in the 128-byte swizzle that wgmma reads; the
-// pairs, lse and delta are rows of 4 bytes, whose tiles start wherever
-// b * L puts them (TMA wants 16-byte aligned boxes), so the loading warp
-// copies them itself.
-template <bool P2>
+// One block's shared memory: RG resident groups of 64 rows (the C-wide
+// operand in CP 64-column panels, and the D-wide one when D = C) loaded
+// once, and a ring of STAGES tiles of ST streamed rows (the C-wide operand,
+// the D-wide one or its bf16 pairs at D = 2, and for dk/dv lse and delta).
+// Every panel is a TMA box in the 128-byte swizzle that wgmma reads; a
+// ring panel is [ST rows][64], so its 64-column groups lie ST * 128 bytes
+// apart. The pairs, lse and delta are rows of 4 bytes, whose tiles start
+// wherever b * L puts them (TMA wants 16-byte aligned boxes), so the
+// loading warp copies them itself.
+template <int RG, int ST, int CP, bool P2>
 struct Smem {
-  alignas(1024) bf16 rc[WG * 2][PANEL];
-  alignas(1024) bf16 rd[P2 ? 1 : WG * 2][P2 ? 8 : PANEL];
-  alignas(1024) bf16 sc[STAGES][2][PANEL];
-  alignas(1024) bf16 sd[STAGES][P2 ? 1 : 2][P2 ? 2 * TILE : PANEL];
-  float lse[STAGES][TILE], delta[STAGES][TILE];
+  alignas(1024) bf16 rc[RG][CP][PANEL];
+  alignas(1024) bf16 rd[P2 ? 1 : RG][P2 ? 1 : CP][P2 ? 8 : PANEL];
+  alignas(1024) bf16 sc[STAGES][CP][ST * 64];
+  alignas(1024) bf16 sd[STAGES][P2 ? 1 : CP][P2 ? 2 * ST : ST * 64];
+  float lse[STAGES][ST], delta[STAGES][ST];
   uint64_t res_full, full[STAGES], empty[STAGES];
 };
 
-template <bool P2>
+// The kernels' layouts at width W = C (128 or 256). dq: two warpgroups'
+// 64 queries resident, the keys streamed in tiles of KT; at W = 256, D =
+// 256 tiles of 32 (64-row tiles would put the block past 227 KB). dk/dv:
+// the queries streamed in tiles of 64; the resident keys two groups of 64,
+// one a warpgroup with all W columns of dK and dV, except at W = 256, D =
+// 256 (SPLIT): one group of 64 keys that both warpgroups share, warpgroup w
+// holding columns [128 w, 128 w + 128) of dK and of dV.
+template <bool P2, int W>
+struct Dq {
+  static constexpr int KT = W == 256 && !P2 ? 32 : 64;
+  using SM = Smem<2, KT, W / 64, P2>;
+};
+
+template <bool P2, int W>
+struct Dkv {
+  static constexpr bool SPLIT = W == 256 && !P2;
+  static constexpr int RG = SPLIT ? 1 : 2;
+  using SM = Smem<RG, TILE, W / 64, P2>;
+};
+
+template <class SM>
 constexpr size_t smem_bytes() {
-  return sizeof(Smem<P2>) + 1024;  // + the slack to align the base to 1 KB
+  return sizeof(SM) + 1024;  // + the slack to align the base to 1 KB
 }
 
-template <bool P2>
-__device__ __forceinline__ Smem<P2>& shared_storage() {
+template <class SM>
+__device__ __forceinline__ SM& shared_storage() {
   extern __shared__ unsigned char smem_raw[];
-  return *reinterpret_cast<Smem<P2>*>(
+  return *reinterpret_cast<SM*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
 }
 
-template <bool P2>
-__device__ __forceinline__ void init_barriers(Smem<P2>& sm) {
+template <class SM>
+__device__ __forceinline__ void init_barriers(SM& sm) {
   if (threadIdx.x == 0) {
     mbar_init(&sm.res_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -624,31 +673,30 @@ __device__ __forceinline__ void init_barriers(Smem<P2>& sm) {
 // and delta for dk/dv, the bf16 pairs at D = 2; zeros past Ls) with
 // cp.async, each lane's arrival on the stage's barrier made when its
 // copies land; the barrier also waits for the TMA bytes.
-template <bool P2, bool DKV>
+template <int RG, int ST, int CP, bool P2, bool DKV>
 struct Loads {
+  using SM = Smem<RG, ST, CP, P2>;
   const CUtensorMap *rc, *rd, *sc, *sd;  // resident, then streamed, maps
   const uint32_t* pairs;
   const float *lse, *delta;
   int b, r0, Ls;  // batch entry, first resident row, streamed length
 
-  __device__ __forceinline__ void resident(Smem<P2>& sm) const {
-    mbar_expect_tx(&sm.res_full, (P2 ? 1 : 2) * WG * 2 * PANEL_BYTES);
-    for (int w = 0; w < WG; ++w)
-      for (int p = 0; p < 2; ++p) {
-        tma_load_3d(sm.rc[w * 2 + p], rc, &sm.res_full, p * 64,
-                    r0 + w * TILE, b);
+  __device__ __forceinline__ void resident(SM& sm) const {
+    mbar_expect_tx(&sm.res_full, (P2 ? 1 : 2) * RG * CP * PANEL_BYTES);
+    for (int w = 0; w < RG; ++w)
+      for (int p = 0; p < CP; ++p) {
+        tma_load_3d(sm.rc[w][p], rc, &sm.res_full, p * 64, r0 + w * TILE, b);
         if constexpr (!P2)
-          tma_load_3d(sm.rd[w * 2 + p], rd, &sm.res_full, p * 64,
-                      r0 + w * TILE, b);
+          tma_load_3d(sm.rd[w][p], rd, &sm.res_full, p * 64, r0 + w * TILE,
+                      b);
       }
   }
 
-  __device__ __forceinline__ void stage(Smem<P2>& sm, int it,
-                                        int lane) const {
-    const int s = it % STAGES, s0 = it * TILE;
+  __device__ __forceinline__ void stage(SM& sm, int it, int lane) const {
+    const int s = it % STAGES, s0 = it * ST;
     if (lane == 0) {
-      mbar_expect_tx_only(&sm.full[s], (P2 ? 2 : 4) * PANEL_BYTES);
-      for (int p = 0; p < 2; ++p) {
+      mbar_expect_tx_only(&sm.full[s], (P2 ? 1 : 2) * CP * ST * 128);
+      for (int p = 0; p < CP; ++p) {
         tma_load_3d(sm.sc[s][p], sc, &sm.full[s], p * 64, s0, b);
         if constexpr (!P2)
           tma_load_3d(sm.sd[s][p], sd, &sm.full[s], p * 64, s0, b);
@@ -657,7 +705,7 @@ struct Loads {
     __syncwarp();  // the bytes are expected before any lane can arrive
     const long long base = (long long)b * Ls + s0;
 #pragma unroll
-    for (int i = lane; i < TILE; i += 32) {
+    for (int i = lane; i < ST; i += 32) {
       const long long at = s0 + i < Ls ? base + i : 0;  // row, or zeros
       const uint32_t n = s0 + i < Ls ? 4 : 0;
       if constexpr (P2) cp_async_4(&sm.sd[s][0][2 * i], pairs + at, n);
@@ -670,7 +718,7 @@ struct Loads {
   }
 
   // the resident tiles and the first ring stages, before the sweep
-  __device__ __forceinline__ void start(Smem<P2>& sm, int n_tiles) const {
+  __device__ __forceinline__ void start(SM& sm, int n_tiles) const {
     if (threadIdx.x == 0) resident(sm);
     if (threadIdx.x / 32 == LOADER)
       for (int it = 0; it < STAGES && it < n_tiles; ++it)
@@ -679,8 +727,7 @@ struct Loads {
 
   // after tile `it` is released: once every thread has released it, the
   // loading warp refills its stage with tile it + STAGES
-  __device__ __forceinline__ void refill(Smem<P2>& sm, int it,
-                                         int n_tiles) const {
+  __device__ __forceinline__ void refill(SM& sm, int it, int n_tiles) const {
     if (threadIdx.x / 32 == LOADER && it + STAGES < n_tiles) {
       mbar_wait(&sm.empty[it % STAGES], (it / STAGES) & 1);
       stage(sm, it + STAGES, threadIdx.x & 31);
@@ -688,11 +735,11 @@ struct Loads {
   }
 };
 
-// dk/dv: one block per (batch entry, 128 keys), 64 keys per warpgroup;
-// the query side streams. tm_q, tm_k and (at D = 128) tm_v and tm_g are
-// 3-D maps of [B, L, 128] in [1, 64, 64] boxes; at D = 2 the pairs of v
-// and g are read from the pointers.
-template <bool P2>
+// dk/dv: one block per (batch entry, 64 RG keys); the query side streams
+// in tiles of 64. tm_q, tm_k and (at D = C) tm_v and tm_g are 3-D maps of
+// [B, L, W] in [1, 64, 64] boxes; at D = 2 the pairs of v and g are read
+// from the pointers.
+template <bool P2, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -703,19 +750,25 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, int Lq, int Lk, float scale,
                     Swin sw) {
-  Smem<P2>& sm = shared_storage<P2>();
-  const int b = blockIdx.y, k0 = blockIdx.x * WG * TILE;
+  using K = Dkv<P2, W>;
+  constexpr int RG = K::RG;
+  constexpr int DKH = K::SPLIT ? 1 : W / 128;  // 128-column parts of dK held
+  using SM = typename K::SM;
+  SM& sm = shared_storage<SM>();
+  const int b = blockIdx.y, k0 = blockIdx.x * RG * TILE;
   const int n_tiles = (Lq + TILE - 1) / TILE;
   const int wg = threadIdx.x / 128;
   init_barriers(sm);
-  const Loads<P2, true> loads{&tm_k, &tm_v, &tm_q, &tm_g,
-                              reinterpret_cast<const uint32_t*>(g), lse,
-                              delta, b, k0, Lq};
+  const Loads<RG, TILE, W / 64, P2, true> loads{
+      &tm_k, &tm_v, &tm_q, &tm_g, reinterpret_cast<const uint32_t*>(g), lse,
+      delta, b, k0, Lq};
   loads.start(sm, n_tiles);
+  const int kg = K::SPLIT ? 0 : wg;        // the warpgroup's group of keys
+  const int c0 = K::SPLIT ? 128 * wg : 0;  // its first column of dK and dV
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3;
-  const int row0 = k0 + wg * TILE + warp * 16 + gq;  // keys row0, row0 + 8
-  const bool idle = k0 + wg * TILE >= Lk;
+  const int row0 = k0 + kg * TILE + warp * 16 + gq;  // keys row0, row0 + 8
+  const bool idle = k0 + kg * TILE >= Lk;
   bool last_y, last_x;
   const bool masked = swin_window(sw, b, &last_y, &last_x);
   int kreg[2] = {0, 0};
@@ -730,13 +783,15 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
       v2[r] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
           v + ((long long)b * Lk + key) * 2));
   }
-  float dka[64], dva[P2 ? 4 : 64];
+  float dka[DKH][64], dva[P2 ? 4 : 64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dka[i] = 0.f;
+  for (int h = 0; h < DKH; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dka[h][i] = 0.f;
 #pragma unroll
   for (int i = 0; i < (P2 ? 4 : 64); ++i) dva[i] = 0.f;
-  const bf16* kres = sm.rc[wg * 2];
-  const bf16* vres = sm.rd[P2 ? 0 : wg * 2];
+  const bf16* kres = sm.rc[kg][0];
+  const bf16* vres = sm.rd[P2 ? 0 : kg][0];
   mbar_wait(&sm.res_full, 0);
   if (wg == 1) turn_pass(1);  // warpgroup 0 goes first
 
@@ -751,8 +806,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     } else {
       float st[32], dpt[32];
       wgmma_fence();
-      product_c128(st, kres, sm.sc[s][0]);
-      if constexpr (!P2) product_c128(dpt, vres, sm.sd[s][0]);
+      product_c<W, TILE>(st, kres, sm.sc[s][0]);
+      if constexpr (!P2) product_c<W, TILE>(dpt, vres, sm.sd[s][0]);
       wgmma_commit();
       if (pass) turn_pass(wg);
       wgmma_wait<0>();
@@ -806,13 +861,17 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
       }
 
       // dv += P^T G and dk += dS^T Q, P^T and dS^T rounded to bf16 in
-      // registers, G and Q the same ring tiles read MN-major
+      // registers, G and Q the same ring tiles read MN-major, 128 columns
+      // a product
       wgmma_fence();
-      if constexpr (!P2) product_rs(dva, pa, sm.sd[s][0]);
-      product_rs(dka, da, sm.sc[s][0]);
+      if constexpr (!P2) product_rs(dva, pa, sm.sd[s][c0 / 64]);
+#pragma unroll
+      for (int h = 0; h < DKH; ++h)
+        product_rs(dka[h], da, sm.sc[s][c0 / 64 + 2 * h]);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(dka);
+#pragma unroll
+      for (int h = 0; h < DKH; ++h) fence_regs(dka[h]);
       if constexpr (!P2) fence_regs(dva);
     }
     mbar_arrive(&sm.empty[s]);
@@ -832,10 +891,13 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
       if (!kok[r]) continue;
       const long long row = (long long)b * Lk + row0 + 8 * r;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        *reinterpret_cast<float2*>(dk + row * 128 + 8 * j + 2 * t) =
-            make_float2(dka[4 * j + 2 * r] * scale,
-                        dka[4 * j + 2 * r + 1] * scale);
+      for (int h = 0; h < DKH; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(dk + row * W + c0 + 128 * h + 8 * j +
+                                     2 * t) =
+              make_float2(dka[h][4 * j + 2 * r] * scale,
+                          dka[h][4 * j + 2 * r + 1] * scale);
       if constexpr (P2) {
         if (t == 0)
           *reinterpret_cast<float2*>(dv + row * 2) =
@@ -843,18 +905,19 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
       } else {
 #pragma unroll
         for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<float2*>(dv + row * 128 + 8 * j + 2 * t) =
+          *reinterpret_cast<float2*>(dv + row * W + c0 + 8 * j + 2 * t) =
               make_float2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
       }
     }
   }
 }
 
-// dq: one block per (batch entry, 128 queries), 64 queries per
-// warpgroup; the key side streams. The maps as for flash_bwd_dkv_wgmma;
-// each thread reads lse, delta and (at D = 2) g's pair for its two rows
-// itself.
-template <bool P2>
+// dq: one block per (batch entry, 128 queries), 64 queries per warpgroup,
+// each holding its rows' W columns of dQ (W / 128 accumulators of 64 x
+// 128); the key side streams in tiles of KT. tm_q and tm_g are 3-D maps of
+// [B, L, W] in [1, 64, 64] boxes, tm_k and tm_v in [1, KT, 64] boxes; each
+// thread reads lse, delta and (at D = 2) g's pair for its two rows itself.
+template <bool P2, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -864,14 +927,16 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dq,
                    int Lq, int Lk, float scale, Swin sw) {
-  Smem<P2>& sm = shared_storage<P2>();
+  constexpr int KT = Dq<P2, W>::KT, H = W / 128;
+  using SM = typename Dq<P2, W>::SM;
+  SM& sm = shared_storage<SM>();
   const int b = blockIdx.y, q0 = blockIdx.x * WG * TILE;
-  const int n_tiles = (Lk + TILE - 1) / TILE;
+  const int n_tiles = (Lk + KT - 1) / KT;
   const int wg = threadIdx.x / 128;
   init_barriers(sm);
-  const Loads<P2, false> loads{&tm_q, &tm_g, &tm_k, &tm_v,
-                               reinterpret_cast<const uint32_t*>(v), nullptr,
-                               nullptr, b, q0, Lk};
+  const Loads<2, KT, W / 64, P2, false> loads{
+      &tm_q, &tm_g, &tm_k, &tm_v, reinterpret_cast<const uint32_t*>(v),
+      nullptr, nullptr, b, q0, Lk};
   loads.start(sm, n_tiles);
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3;
@@ -896,27 +961,29 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
             g + ((long long)b * Lq + row) * 2));
     }
   }
-  float dqa[64];
+  float dqa[H][64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dqa[i] = 0.f;
-  const bf16* qres = sm.rc[wg * 2];
-  const bf16* gres = sm.rd[P2 ? 0 : wg * 2];
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dqa[h][i] = 0.f;
+  const bf16* qres = sm.rc[wg][0];
+  const bf16* gres = sm.rd[P2 ? 0 : wg][0];
   mbar_wait(&sm.res_full, 0);
   if (wg == 1) turn_pass(1);  // warpgroup 0 goes first
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % STAGES, k0 = it * TILE;
+    const int s = it % STAGES, k0 = it * KT;
     mbar_wait(&sm.full[s], (it / STAGES) & 1);
-    // S = Q K^T and dP = G V^T: 64 queries x 64 keys
+    // S = Q K^T and dP = G V^T: 64 queries x KT keys
     const bool pass = wg == 0 || it + 1 < n_tiles;  // matched by a wait
     turn_wait(wg);
     if (idle) {
       if (pass) turn_pass(wg);
     } else {
-      float sa[32], dp[32];
+      float sa[KT / 2], dp[KT / 2];
       wgmma_fence();
-      product_c128(sa, qres, sm.sc[s][0]);
-      if constexpr (!P2) product_c128(dp, gres, sm.sd[s][0]);
+      product_c<W, KT>(sa, qres, sm.sc[s][0]);
+      if constexpr (!P2) product_c<W, KT>(dp, gres, sm.sd[s][0]);
       wgmma_commit();
       if (pass) turn_pass(wg);
       wgmma_wait<0>();
@@ -925,12 +992,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
       // ds = p (dp - delta) into sa
       const uint32_t cregs =
-          masked ? col_regions(sw, last_y, last_x, k0, t) : 0u;
+          masked ? col_regions<KT / 8>(sw, last_y, last_x, k0, t) : 0u;
       const __nv_bfloat162* v2 =
           reinterpret_cast<const __nv_bfloat162*>(sm.sd[s][0]);
-      uint32_t da[16];
+      uint32_t da[KT / 4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < KT / 8; ++j) {
         const int c = 8 * j + 2 * t;
         float2 vp[2];
         if constexpr (P2) {
@@ -957,12 +1024,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       }
 
       // dq += dS K: dS rounded to bf16 in registers, K the ring tile
-      // read MN-major
+      // read MN-major, 128 columns a product
       wgmma_fence();
-      product_rs(dqa, da, sm.sc[s][0]);
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        product_rs<KT>(dqa[h], da, sm.sc[s][2 * h]);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(dqa);
+#pragma unroll
+      for (int h = 0; h < H; ++h) fence_regs(dqa[h]);
     }
     mbar_arrive(&sm.empty[s]);
     loads.refill(sm, it, n_tiles);
@@ -974,81 +1044,115 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       if (!qok[r]) continue;
       const long long row = (long long)b * Lq + row0 + 8 * r;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        *reinterpret_cast<float2*>(dq + row * 128 + 8 * j + 2 * t) =
-            make_float2(dqa[4 * j + 2 * r] * scale,
-                        dqa[4 * j + 2 * r + 1] * scale);
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(dq + row * W + 128 * h + 8 * j +
+                                     2 * t) =
+              make_float2(dqa[h][4 * j + 2 * r] * scale,
+                          dqa[h][4 * j + 2 * r + 1] * scale);
     }
   }
 }
 
 // The widths this route takes: GMFlow's (C = 128; D = 128, or 2 for the
-// matching grid and the propagated flow), with B * L within TMA's int32
-// coordinates.
+// matching grid and the propagated flow) and GMFlow at 256 channels' (C =
+// 256; D = 256 or 2), with B * L within TMA's int32 coordinates.
 static bool takes(int B, int Lq, int Lk, int C, int D) {
-  return C == 128 && (D == 128 || D == 2) &&
+  return (C == 128 || C == 256) && (D == C || D == 2) &&
          (long long)B * (Lq > Lk ? Lq : Lk) < (1ll << 31);
 }
 
-// The 3-D maps of q and k and, at D = 128, of v and g ([B, L, 128] bf16
-// in [1, 64, 64] boxes); at D = 2 the maps of v and g are copies of k's
-// and q's that the kernels do not read.
+// The 3-D maps of q, k and, at D = W, of v and g ([B, L, W] bf16 in [1,
+// rows, 64] boxes: q and g 64 rows, k and v `krows`); at D = 2 the maps of
+// v and g are copies of k's and q's that the kernels do not read.
 static int tensor_maps(CUtensorMap (&m)[4], const void* q, const void* k,
                        const void* v, const void* g, int B, int Lq, int Lk,
-                       int D) {
+                       int W, int D, int krows) {
   int e;
-  if ((e = tensor_map_bf16_3d(&m[0], q, 128, Lq, B, TILE))) return e;
-  if ((e = tensor_map_bf16_3d(&m[1], k, 128, Lk, B, TILE))) return e;
+  if ((e = tensor_map_bf16_3d(&m[0], q, W, Lq, B, TILE))) return e;
+  if ((e = tensor_map_bf16_3d(&m[1], k, W, Lk, B, krows))) return e;
   if (D == 2) {
     m[2] = m[1];
     m[3] = m[0];
     return 0;
   }
-  if ((e = tensor_map_bf16_3d(&m[2], v, 128, Lk, B, TILE))) return e;
-  return tensor_map_bf16_3d(&m[3], g, 128, Lq, B, TILE);
+  if ((e = tensor_map_bf16_3d(&m[2], v, W, Lk, B, krows))) return e;
+  return tensor_map_bf16_3d(&m[3], g, W, Lq, B, TILE);
 }
 
-template <bool P2>
+template <bool P2, int W>
 static int launch_dkv(const void* q, const void* k, const void* v,
                       const void* g, const void* lse, const void* delta,
                       void* dk, void* dv, int B, int Lq, int Lk, float scale,
                       Swin sw, cudaStream_t st) {
   CUtensorMap m[4];
   int e;
-  if ((e = tensor_maps(m, q, k, v, g, B, Lq, Lk, P2 ? 2 : 128))) return e;
-  const size_t smem = smem_bytes<P2>();
+  if ((e = tensor_maps(m, q, k, v, g, B, Lq, Lk, W, P2 ? 2 : W, TILE)))
+    return e;
+  const size_t smem = smem_bytes<typename Dkv<P2, W>::SM>();
   if ((e = (int)cudaFuncSetAttribute(
-           flash_bwd_dkv_wgmma<P2>,
+           flash_bwd_dkv_wgmma<P2, W>,
            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return e;
-  const dim3 grid((unsigned)((Lk + WG * TILE - 1) / (WG * TILE)),
-                  (unsigned)B);
-  flash_bwd_dkv_wgmma<P2><<<grid, THREADS, smem, st>>>(
+  const int rows = Dkv<P2, W>::RG * TILE;
+  const dim3 grid((unsigned)((Lk + rows - 1) / rows), (unsigned)B);
+  flash_bwd_dkv_wgmma<P2, W><<<grid, THREADS, smem, st>>>(
       m[0], m[1], m[2], m[3], (const bf16*)v, (const bf16*)g,
       (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, Lq, Lk,
       scale, sw);
   return (int)cudaGetLastError();
 }
 
-template <bool P2>
+template <bool P2, int W>
 static int launch_dq(const void* q, const void* k, const void* v,
                      const void* g, const void* lse, const void* delta,
                      void* dq, int B, int Lq, int Lk, float scale, Swin sw,
                      cudaStream_t st) {
   CUtensorMap m[4];
   int e;
-  if ((e = tensor_maps(m, q, k, v, g, B, Lq, Lk, P2 ? 2 : 128))) return e;
-  const size_t smem = smem_bytes<P2>();
+  if ((e = tensor_maps(m, q, k, v, g, B, Lq, Lk, W, P2 ? 2 : W,
+                       Dq<P2, W>::KT)))
+    return e;
+  const size_t smem = smem_bytes<typename Dq<P2, W>::SM>();
   if ((e = (int)cudaFuncSetAttribute(
-           flash_bwd_dq_wgmma<P2>,
+           flash_bwd_dq_wgmma<P2, W>,
            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return e;
   const dim3 grid((unsigned)((Lq + WG * TILE - 1) / (WG * TILE)),
                   (unsigned)B);
-  flash_bwd_dq_wgmma<P2><<<grid, THREADS, smem, st>>>(
+  flash_bwd_dq_wgmma<P2, W><<<grid, THREADS, smem, st>>>(
       m[0], m[1], m[2], m[3], (const bf16*)v, (const bf16*)g,
       (const float*)lse, (const float*)delta, (float*)dq, Lq, Lk, scale, sw);
   return (int)cudaGetLastError();
+}
+
+// One kernel's launch at these widths (C = 128 or 256; D = C or 2): dk/dv
+// (out0 = dk, out1 = dv) or dq (out0).
+template <bool P2, int W>
+static int launch_at(bool dkv, const void* q, const void* k, const void* v,
+                     const void* g, const void* lse, const void* delta,
+                     void* out0, void* out1, int B, int Lq, int Lk,
+                     float scale, Swin sw, cudaStream_t st) {
+  return dkv ? launch_dkv<P2, W>(q, k, v, g, lse, delta, out0, out1, B, Lq,
+                                 Lk, scale, sw, st)
+             : launch_dq<P2, W>(q, k, v, g, lse, delta, out0, B, Lq, Lk,
+                                scale, sw, st);
+}
+
+static int launch(bool dkv, const void* q, const void* k, const void* v,
+                  const void* g, const void* lse, const void* delta,
+                  void* out0, void* out1, int B, int Lq, int Lk, int C, int D,
+                  float scale, Swin sw, cudaStream_t st) {
+  if (C == 256)
+    return D == 2 ? launch_at<true, 256>(dkv, q, k, v, g, lse, delta, out0,
+                                         out1, B, Lq, Lk, scale, sw, st)
+                  : launch_at<false, 256>(dkv, q, k, v, g, lse, delta, out0,
+                                          out1, B, Lq, Lk, scale, sw, st);
+  return D == 2 ? launch_at<true, 128>(dkv, q, k, v, g, lse, delta, out0,
+                                       out1, B, Lq, Lk, scale, sw, st)
+                : launch_at<false, 128>(dkv, q, k, v, g, lse, delta, out0,
+                                        out1, B, Lq, Lk, scale, sw, st);
 }
 
 }  // namespace sm90
@@ -1684,11 +1788,14 @@ struct Kernel {
   size_t smem;
 };
 
-template <bool P2>
+template <bool P2, int W>
 static Kernel wgmma_kernel(bool dkv) {
-  return {dkv ? (const void*)sm90::flash_bwd_dkv_wgmma<P2>
-              : (const void*)sm90::flash_bwd_dq_wgmma<P2>,
-          sm90::WG * sm90::TILE, sm90::THREADS, 1, sm90::smem_bytes<P2>()};
+  using namespace sm90;
+  if (dkv)
+    return {(const void*)flash_bwd_dkv_wgmma<P2, W>, Dkv<P2, W>::RG * TILE,
+            THREADS, 1, smem_bytes<typename Dkv<P2, W>::SM>()};
+  return {(const void*)flash_bwd_dq_wgmma<P2, W>, WG * TILE, THREADS, 1,
+          smem_bytes<typename Dq<P2, W>::SM>()};
 }
 
 template <bool P2>
@@ -1702,7 +1809,11 @@ static Kernel tf32_kernel(bool dkv) {
 static Kernel kernel_of(int route, bool dkv, int C, int D) {
   switch (route) {
     case WGMMA:
-      return D == 2 ? wgmma_kernel<true>(dkv) : wgmma_kernel<false>(dkv);
+      if (C == 256)
+        return D == 2 ? wgmma_kernel<true, 256>(dkv)
+                      : wgmma_kernel<false, 256>(dkv);
+      return D == 2 ? wgmma_kernel<true, 128>(dkv)
+                    : wgmma_kernel<false, 128>(dkv);
     case TF32X3:
       return D == 2 ? tf32_kernel<true>(dkv) : tf32_kernel<false>(dkv);
     case F32: {
@@ -1748,7 +1859,8 @@ static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
 // forward's. Takes C % 16 == 0, C <= 256, and D == 2 or D % 16 == 0,
 // D <= 256 (ops/flash_bwd.py pads other widths), on the route the caller
 // names (enum Route; the tf32x3 route
-// C = 128 and D = 128 or 2, the wgmma route the same in bf16). splits > 1
+// C = 128 and D = 128 or 2, the wgmma route the same in bf16 and C = 256
+// with D = 256 or 2). splits > 1
 // (the tf32x3 route only) cuts the key sweep into that many runs of whole
 // tiles: dq is then a [splits, B, Lq, C] scratch of unscaled partial
 // sums, for ofd_flash_bwd_reduce. Returns cudaGetLastError() after the
@@ -1775,10 +1887,8 @@ extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
                   : tf32x3::launch_dq<false>(q, k, v, g, lse, delta, dq, B,
                                              Lq, Lk, scale, sw, splits, st);
   if (route == WGMMA)
-    return D == 2 ? sm90::launch_dq<true>(q, k, v, g, lse, delta, dq, B, Lq,
-                                          Lk, scale, sw, st)
-                  : sm90::launch_dq<false>(q, k, v, g, lse, delta, dq, B, Lq,
-                                           Lk, scale, sw, st);
+    return sm90::launch(false, q, k, v, g, lse, delta, dq, nullptr, B, Lq,
+                        Lk, C, D, scale, sw, st);
   const Kernel kn = kernel_of(route, false, C, D);
   const dim3 grid((unsigned)((Lq + kn.rows - 1) / kn.rows), (unsigned)B,
                   kn.chunks);
@@ -1812,10 +1922,8 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                               B, Lq, Lk, scale, sw, splits,
                                               st);
   if (route == WGMMA)
-    return D == 2 ? sm90::launch_dkv<true>(q, k, v, g, lse, delta, dk, dv, B,
-                                           Lq, Lk, scale, sw, st)
-                  : sm90::launch_dkv<false>(q, k, v, g, lse, delta, dk, dv, B,
-                                            Lq, Lk, scale, sw, st);
+    return sm90::launch(true, q, k, v, g, lse, delta, dk, dv, B, Lq, Lk, C, D,
+                        scale, sw, st);
   const Kernel kn = kernel_of(route, true, C, D);
   const dim3 grid((unsigned)((Lk + kn.rows - 1) / kn.rows), (unsigned)B,
                   kn.chunks);
@@ -1824,8 +1932,9 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // What ofd_flash_bwd_dq (dkv = 0) or ofd_flash_bwd_dkv (dkv = 1) launches
 // for these operands (padded widths) on the route of the wrapper's rule
-// (ops/flash_bwd.py:plan): bf16 at C = 128 and D = 128 or 2 the wgmma
-// route, other bf16 the mma.sync route; f32 at those widths the tf32x3
+// (ops/flash_bwd.py:plan): bf16 at C = 128 and D = 128 or 2, or C = 256 and
+// D = 256 or 2, the wgmma route, other bf16 the mma.sync route; f32 at C =
+// 128 and D = 128 or 2 the tf32x3
 // route, other f32 the CUDA-core route. plan = {route (enum Route), output
 // rows a block, threads a block, blocks of one run (row blocks x B x
 // column chunks), column chunks, dynamic shared memory, static shared
@@ -1836,7 +1945,7 @@ extern "C" int ofd_flash_bwd_plan(int B, int Lq, int Lk, int C, int D,
                                   int is_bf16, int dkv, int* plan) {
   if (!valid(B, Lq, Lk, C, D, 0)) return (int)cudaErrorInvalidValue;
   const int route =
-      is_bf16 ? (sm90::takes(B, Lq, Lk, C, D) ? WGMMA : MMA_SYNC)
+      is_bf16 ? (route_takes(WGMMA, 1, B, Lq, Lk, C, D) ? WGMMA : MMA_SYNC)
               : (tf32x3::takes(B, Lq, Lk, C, D) ? TF32X3 : F32);
   const Kernel kn = kernel_of(route, dkv != 0, C, D);
   cudaFuncAttributes attr;

@@ -2,8 +2,8 @@
 // forward; flash_bwd.cu, the backward): the routes' codes, the analytic
 // Swin mask, the mma.sync helpers of the narrow-width routes, and, in
 // namespace sm90, the tile products, fragment conversions and warpgroup
-// turns of the wgmma routes (C = 128; 64-row tiles of two
-// 128-byte-swizzled 64-column panels, as hopper.cuh's tensor maps lay
+// turns of the wgmma routes (C = 128, and 256 in the backward; row tiles
+// of 128-byte-swizzled 64-column panels, as hopper.cuh's tensor maps lay
 // them out).
 
 #pragma once
@@ -103,50 +103,60 @@ constexpr int TILE = 64;                  // rows per warpgroup and ring tile
 constexpr int PANEL = 64 * 64;            // bf16 of a [64 rows][64] panel
 constexpr uint32_t PANEL_BYTES = PANEL * 2;
 
-// acc[64 x 64] = A . B^T over C = 128 (eight k16 steps): A the warpgroup's
-// resident [64][128] rows at `a`, B the ring's [64][128] rows at `b`, both
-// K-major. Within a 128-byte swizzle atom a k16 step is 32 bytes on.
-__device__ __forceinline__ void product_c128(float (&acc)[32], const bf16* a,
-                                             const bf16* b) {
+// acc[64 x N] = A . B^T over C = W (W / 16 k16 steps): A the warpgroup's
+// resident [64][W] rows at `a`, B the ring's [N][W] rows at `b` (N = 64 or
+// 32), both K-major in 64-column panels ([64][64] and [N][64]). Within a
+// 128-byte swizzle atom a k16 step is 32 bytes on.
+template <int W, int N>
+__device__ __forceinline__ void product_c(float (&acc)[N / 2], const bf16* a,
+                                          const bf16* b) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const int off = (kk >> 2) * PANEL + (kk & 3) * 16;
-    wgmma_m64n64_ss(acc, desc_sw128(a + off, 16, 1024),
-                    desc_sw128(b + off, 16, 1024), kk > 0);
+  for (int kk = 0; kk < W / 16; ++kk) {
+    const int in = (kk & 3) * 16;
+    const uint64_t da = desc_sw128(a + (kk >> 2) * PANEL + in, 16, 1024);
+    const uint64_t db = desc_sw128(b + (kk >> 2) * N * 64 + in, 16, 1024);
+    if constexpr (N == 64)
+      wgmma_m64n64_ss(acc, da, db, kk > 0);
+    else
+      wgmma_m64n32_ss(acc, da, db, kk > 0);
   }
 }
 
-// acc[64 x 128] += F . B: F the bf16 A fragments of a [64][64] tile (four
-// k16 steps), B the ring's [64][128] rows read MN-major, 16 rows a step.
+// acc[64 x 128] += F . B: F the bf16 A fragments of a [64][N] tile (N / 16
+// k16 steps), B 128 columns (the two panels from `b` on) of the ring's [N]
+// rows read MN-major, 16 rows a step; a panel is N rows of 128 bytes.
+template <int N = 64>
 __device__ __forceinline__ void product_rs(float (&acc)[64],
-                                           const uint32_t (&f)[16],
+                                           const uint32_t (&f)[N / 4],
                                            const bf16* b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < N / 16; ++kk)
     wgmma_m64n128_rs_tb(acc, &f[4 * kk],
-                        desc_sw128(b + kk * 16 * 64, PANEL_BYTES, 1024));
+                        desc_sw128(b + kk * 16 * 64, N * 128, 1024));
 }
 
-// Columns 16kk..16kk+15 of a 64-column accumulator (d[4j + e]: row g + 8
-// (e >> 1), column 8j + 2t + (e & 1)) rounded to bf16 as the A fragment of
-// k16 step kk.
-__device__ __forceinline__ void to_a_frag(const float (&d)[32],
-                                          uint32_t (&f)[16], int kk) {
+// Columns 16kk..16kk+15 of an N / 2-column accumulator (d[4j + e]: row g
+// + 8 (e >> 1), column 8j + 2t + (e & 1)) rounded to bf16 as the A
+// fragment of k16 step kk.
+template <int N>
+__device__ __forceinline__ void to_a_frag(const float (&d)[N],
+                                          uint32_t (&f)[N / 2], int kk) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     f[4 * kk + i] = pack_f32(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
 }
 
-// The 2-bit Swin regions of the 16 columns c0 + 8j + 2t + e (j < 8, e < 2)
-// of a 64-column accumulator, bit pair 2j + e; idx % ww carried along
-// instead of divided per column.
+// The 2-bit Swin regions of the 2J columns c0 + 8j + 2t + e (j < J <= 8,
+// e < 2) of an 8J-column accumulator, bit pair 2j + e; idx % ww carried
+// along instead of divided per column.
+template <int J = 8>
 __device__ __forceinline__ uint32_t col_regions(const Swin& s, bool last_y,
                                                 bool last_x, int c0, int t) {
   const int ylim = (s.wh - s.sh) * s.ww, xlim = s.ww - s.sw;
   int m = (c0 + 2 * t) % s.ww;
   uint32_t regs = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < J; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       int mx = m + e;

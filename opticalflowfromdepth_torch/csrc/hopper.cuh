@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in raw PTX, for the kernels of this
 // directory: mbarriers, TMA tile loads (3-D and 4-D), bulk copies, 4-byte
 // cp.async copies counted on an mbarrier, the async-proxy fence, wgmma
-// shared-memory descriptors and instructions, and the host-side
-// tensor-map encoders.
+// shared-memory descriptors and instructions (m64n32, m64n64, m64n128,
+// m64n144), and the host-side tensor-map encoders.
 //
 // cuTensorMapEncodeTiled is a driver function; it is reached through the
 // runtime's cudaGetDriverEntryPoint, so a library built from these sources
@@ -277,6 +277,22 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= A[64 x 16] . B[16 x 32]^T, bf16 in, f32 accumulate; A
+// and B in shared memory, both K-major. accumulate == 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -15,14 +15,15 @@ CUDA tensors launch the two hand-written kernels of ``csrc/flash_bwd.cu``
 blocks over (batch, key rows) sweeping the query tiles; no atomics, so
 every gradient is bit-reproducible); CPU tensors take
 :func:`flash_backward_plain`. :func:`plan` picks the route from the dtype
-and widths: bf16 at C = 128 with D = 128 or 2 (GMFlow's widths) the
-``wgmma`` route (TMA, a ring of tiles, two warpgroups); other bf16 widths
-the ``mma.sync`` route; f32 at the same widths (every sequence-parallel
-ring step, every f32 GMFlow call) the ``tf32x3`` route (split-TF32
-``mma.sync`` products, whose sweep it splits where the card would
-otherwise hold less than one wave of blocks, the partial sums reduced in
-a fixed order); other f32 widths the CUDA-core kernels. Nothing falls
-back: a CUDA input that no route takes raises.
+and widths: bf16 at C = 128 with D = 128 or 2 (GMFlow's widths) and at C =
+256 with D = 256 or 2 (GMFlow at 256 channels) the ``wgmma`` route (TMA, a
+ring of tiles, two warpgroups; :func:`wgmma_widths`); other bf16 widths
+the ``mma.sync`` route; f32 at C = 128 with D = 128 or 2 (every
+sequence-parallel ring step, every f32 GMFlow call) the ``tf32x3`` route
+(split-TF32 ``mma.sync`` products, whose sweep it splits where the card
+would otherwise hold less than one wave of blocks, the partial sums
+reduced in a fixed order); other f32 widths the CUDA-core kernels.
+Nothing falls back: a CUDA input that no route takes raises.
 
 The operand dtype is q's, as in the forward: bf16 rounds what the TPU
 kernels round (q, k, v, g to bf16, ``p`` to bf16 before ``p^T g`` and
@@ -33,7 +34,8 @@ to 256, padded to the kernels' tiles (q, k with zero columns to C % 16 ==
 0, v and g to D = 2 or D % 16 == 0) and dq, dk, dv sliced back; the
 mma.sync and CUDA-core kernels take C, D up to 256 (C, or C and D, split
 over a grid axis in 128-column chunks on the mma.sync route, S and dP
-recomputed by each chunk's blocks).
+recomputed by each chunk's blocks). The forward keeps its own routes
+(``ops/flash.py:plan``): at C = 256 it takes mma.sync.
 
 With a dense ``bias`` the backward is JAX's ``_flash_vjp_bwd``: a dense
 recompute outside any kernel (:func:`flash_backward_with_bias`, plain
@@ -221,7 +223,9 @@ def bwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class BwdPlan(NamedTuple):
-    """How the two kernels run one call: the ``route``; for the tf32x3
+    """How the two kernels run one call: the ``route`` (:func:`plan`'s
+    rule: bf16 ``wgmma`` at :func:`wgmma_widths`, else ``mma_sync``; f32
+    ``tf32x3`` at C = 128 with D = 128 or 2, else ``f32``); for the tf32x3
     route the output rows a block (``rows``), the other side's rows a
     ring tile (``tile``), each kernel's shared memory a block
     (``smem``: dq, dk/dv, bytes) and blocks an SM, the runs that each
@@ -265,19 +269,31 @@ def tf32_smem(d: int, dkv: bool) -> int:
     return 4 * (res + 2 * (stage + (2 * tile if dkv else 0)))
 
 
+def wgmma_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
+    """The widths the backward's bf16 wgmma route takes: C padded to 128
+    with D = 128 or 2 (GMFlow's), or C padded to 256 with D = 256 or 2
+    (GMFlow at 256 channels), the rows of every batch entry within int32
+    (``csrc/flash_bwd.cu:sm90::takes``). The forward's wgmma route keeps
+    :func:`gmflow_widths`."""
+    cp, dp = padded_widths(c, d)
+    return (cp, dp) in ((128, 2), (128, 128), (256, 2), (256, 256)) \
+        and b * max(lq, lk) < 2 ** 31
+
+
 def plan(b: int, lq: int, lk: int, c: int, d: int,
          dtype: torch.dtype = torch.float32, sms: int = H100_SMS) -> BwdPlan:
     """The route and its parameters for q ``[b, lq, c]``, k ``[b, lk, c]``,
     v ``[b, lk, d]`` of ``dtype``, at the widths ``padded_widths`` gives
     (past 256 raises); pure host arithmetic. bf16 at C = 128 with D = 128
-    or 2 takes the wgmma route, other bf16 the mma.sync route; f32 at
-    those widths the tf32x3 route, other f32 the CUDA-core route (the
-    widths within int32 rows, as the C side checks)."""
+    or 2 and at C = 256 with D = 256 or 2 (:func:`wgmma_widths`) takes the
+    wgmma route, other bf16 the mma.sync route; f32 at C = 128 with D =
+    128 or 2 the tf32x3 route, other f32 the CUDA-core route (the widths
+    within int32 rows, as the C side checks)."""
     cp, dp = padded_widths(c, d)
-    gmflow = gmflow_widths(b, lq, lk, c, d)
     if dtype == torch.bfloat16:
-        return BwdPlan("wgmma" if gmflow else "mma_sync", c_pad=cp, d_pad=dp)
-    if not gmflow:
+        return BwdPlan("wgmma" if wgmma_widths(b, lq, lk, c, d)
+                       else "mma_sync", c_pad=cp, d_pad=dp)
+    if not gmflow_widths(b, lq, lk, c, d):
         return BwdPlan("f32", c_pad=cp, d_pad=dp)
     rows, tile, per_sm = tf32_blocks(dp)
     smem = (tf32_smem(dp, False), tf32_smem(dp, True))
@@ -292,11 +308,10 @@ def plan(b: int, lq: int, lk: int, c: int, d: int,
         (s_dkv, b, lk, dp) if s_dkv > 1 else None, cp, dp)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fns():
-    """The C entry points: the dq sweep, the dk/dv sweep and the reduction
-    of a split sweep's partial sums."""
-    lib = _build.load("flash_bwd")
+def bind(lib: ctypes.CDLL):
+    """The typed C entry points of a build of ``csrc/flash_bwd.cu``: the
+    dq sweep, the dk/dv sweep and the reduction of a split sweep's partial
+    sums."""
     fns = []
     for name, outputs in (("ofd_flash_bwd_dq", 1), ("ofd_flash_bwd_dkv", 2)):
         fn = getattr(lib, name)
@@ -311,6 +326,11 @@ def _kernel_fns():
     fn.restype = ctypes.c_int
     fns.append(fn)
     return tuple(fns)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    return bind(_build.load("flash_bwd"))
 
 
 @functools.lru_cache(maxsize=None)

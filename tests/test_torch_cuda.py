@@ -515,14 +515,17 @@ def test_flash_kernel_plans_at_every_width(card, dtype):
     """Every padded width the wrappers hand the kernels (C = 16..256 in
     16s, D = 2 or 16..256 in 16s: every C, D in 1..256): the C side's own
     plans of the forward (with a bias and without) and of the backward's
-    dq and dk/dv name the wrappers' route, fit a block within 227 KB of
-    shared memory with at least one block an SM, and on the mma.sync route
-    take D (forward) or the wider of C and D (dk/dv; dq: C) in 128-column
-    chunks; asking for a plan leaves later launches able to run."""
+    dq and dk/dv name the wrappers' route (each its own ``plan``'s: they
+    differ at C = 256 with D = 256 or 2, where the backward takes wgmma),
+    fit a block within 227 KB of shared memory with at least one block an
+    SM, and on the mma.sync route take D (forward) or the wider of C and D
+    (dk/dv; dq: C) in 128-column chunks; asking for a plan leaves later
+    launches able to run."""
     bf16 = dtype == torch.bfloat16
     for cp in range(16, 257, 16):
         for dp in [2] + list(range(16, 257, 16)):
             route = fl.plan(4, 300, 300, cp, dp, dtype).route
+            route_b = fb.plan(4, 300, 300, cp, dp, dtype).route
             for bias in (False, True):
                 k = fl.kernel_plan(4, 300, 300, cp, dp, bf16, bias)
                 assert k["route"] == route, (cp, dp, bias)
@@ -533,10 +536,10 @@ def test_flash_kernel_plans_at_every_width(card, dtype):
             cc = -(-cp // 128)
             for key, chunks in (("dq", cc), ("dkv", cc if dp == 2 else
                                              max(cc, -(-dp // 128)))):
-                assert kb[key]["route"] == route, (cp, dp, key)
+                assert kb[key]["route"] == route_b, (cp, dp, key)
                 assert 0 < kb[key]["smem"] <= 232448, (cp, dp, key)
                 assert kb[key]["per_sm"] >= 1
-                assert kb[key]["chunks"] == (chunks if route == "mma_sync"
+                assert kb[key]["chunks"] == (chunks if route_b == "mma_sync"
                                              else 1)
     # a plan lowers no kernel's shared-memory limit: after the narrowest
     # width's plans, calls at a wider width (more shared memory, still
@@ -659,9 +662,11 @@ def test_gmflow_on_card_matches_cpu(card, num_scales):
 
 
 # bf16 at C = 128 with D = 128 or 2 takes the wgmma route (64-row tiles,
-# 128 rows a block), other widths the mma.sync route; f32 at C = 128 with
-# D = 128 or 2 the tf32x3 route (64-row tiles at D = 2, 32 at D = 128;
-# 64 and 128 rows a block), other widths the f32 CUDA-core route
+# 128 rows a block), and so does C = 256 with D = 256 or 2 (dq: 32-key
+# tiles at D = 256; dk/dv: 64 keys a block shared by both warpgroups at D
+# = 256), other widths the mma.sync route; f32 at C = 128 with D = 128 or
+# 2 the tf32x3 route (64-row tiles at D = 2, 32 at D = 128; 64 and 128
+# rows a block), other widths the f32 CUDA-core route
 FLASH_BWD_CASES = [
     (8, 24, 24, 128, 128, (2, 4, 6, 2, 3)),      # [2B] windows, shifted
     (2, 100, 63, 64, 16, None),                  # ragged (mma.sync, f32)
@@ -674,7 +679,13 @@ FLASH_BWD_CASES = [
     (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),  # region edge inside tiles
     (8, 130, 130, 128, 2, (2, 10, 13, 5, 6)),
     (1, 2000, 2000, 128, 2, None),               # B = 1: split sweeps
-    (2, 1001, 1001, 128, 128, None)]
+    (2, 1001, 1001, 128, 128, None),
+    (8, 130, 130, 256, 256, (2, 10, 13, 5, 6)),  # C = 256: windows, Swin
+    (1, 65, 129, 256, 256, None),                # ragged keys, D = 256
+    (2, 129, 65, 256, 256, None),
+    (1, 65, 129, 256, 2, None),                  # ragged keys, D = 2
+    (2, 129, 65, 256, 2, None),
+    (2, 300, 300, 256, 2, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -716,7 +727,10 @@ def test_flash_bwd_kernels_match_plain(card, dtype, b, lq, lk, c, d, swin):
     (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),   # wgmma / tf32x3 route
     (2, 129, 65, 128, 2, None),                   # the same, D = 2
     (1, 2000, 2000, 128, 2, None),                # split sweeps (f32)
-    (2, 100, 63, 64, 16, None)])                  # mma.sync / f32 route
+    (2, 100, 63, 64, 16, None),                   # mma.sync / f32 route
+    (8, 130, 130, 256, 256, (2, 10, 13, 5, 6)),   # bf16 C = 256: wgmma
+    (2, 129, 65, 256, 2, None),
+    (2, 300, 300, 256, 2, None)])
 def test_flash_bwd_kernels_bit_reproducible(card, dtype, b, lq, lk, c, d,
                                             swin):
     """No atomics: two launches on the same inputs give the same bits,
@@ -767,11 +781,13 @@ def test_flash_bwd_tf32x3_split_sweep(card, monkeypatch, b, l, d, splits):
 
 def test_flash_bwd_plan_routes_on_card(card):
     """The wrapper launches the route plan names: tf32x3 for f32 at C =
-    128 and D = 128 or 2, the CUDA-core route for other f32 widths; forcing
-    the other route on the same inputs gives gradients within the same
+    128 and D = 128 or 2, the CUDA-core route for other f32 widths, wgmma
+    for bf16 at C = 256 and D = 256 or 2; forcing the other route on the
+    same inputs (f32; mma.sync for bf16) gives gradients within the same
     tolerance (both against the plain backward). The launches hold their
     operands: blocks of delta's size filled with NaN between building
-    and running them change nothing."""
+    and running them change nothing. The C = 256 kernels keep no local
+    memory and fit a block's 227 KB."""
     g_ = torch.Generator().manual_seed(13)
     for c, d, route in ((128, 2, "tf32x3"), (128, 128, "tf32x3"),
                         (64, 16, "f32")):
@@ -793,6 +809,26 @@ def test_flash_bwd_plan_routes_on_card(card):
             for x, r in zip(grads, ref):
                 assert float((x - r).abs().max()) <= \
                     1e-4 * float(r.abs().max())
+    for d in (256, 2):
+        q, k = (torch.randn(2, 130, 256, generator=g_).to(card, torch.bfloat16)
+                for _ in range(2))
+        v = torch.randn(2, 130, d, generator=g_).to(card, torch.bfloat16)
+        gout = torch.randn(2, 130, d, generator=g_).to(card)
+        out, lse = fl.flash_softmax_matmul(q, k, v, with_lse=True)
+        ref = fb.flash_backward_plain(q, k, v, out, lse, gout)
+        tols = fb.bwd_bf16_tolerance(q, k, v, out, lse, gout)
+        for forced in (None, "mma_sync"):
+            grads, launch_dq, launch_dkv, plan = fb.launchers(
+                q, k, v, out, lse, gout, route=forced)
+            assert plan.route == (forced or "wgmma")
+            launch_dq()
+            launch_dkv()
+            torch.cuda.synchronize()
+            for x, r, tol in zip(grads, ref, tols):
+                assert float(((x - r).abs() / tol).max()) <= 1.0
+        for key, p in fb.kernel_plan(2, 130, 130, 256, d, True).items():
+            assert p["route"] == "wgmma" and p["local"] == 0 \
+                and p["smem"] <= 232448 and p["per_sm"] >= 1, (key, p)
 
 
 def test_flash_function_f32_grads_on_card_match_dense(card):

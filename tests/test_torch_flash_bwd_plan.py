@@ -30,6 +30,18 @@ torch.set_num_threads(2)
     (torch.bfloat16, 128, 2, "wgmma"),
     (torch.bfloat16, 64, 16, "mma_sync"),
     (torch.bfloat16, 128, 16, "mma_sync"),
+    # C = 256: the wgmma route where the widths pad to C = 256 and D = 256
+    # or 2, mma.sync at every other width
+    (torch.bfloat16, 256, 256, "wgmma"),
+    (torch.bfloat16, 256, 2, "wgmma"),
+    (torch.bfloat16, 250, 1, "wgmma"),          # pads to 256 x 2
+    (torch.bfloat16, 241, 250, "wgmma"),        # pads to 256 x 256
+    (torch.bfloat16, 256, 128, "mma_sync"),
+    (torch.bfloat16, 192, 256, "mma_sync"),
+    (torch.bfloat16, 240, 2, "mma_sync"),
+    (torch.bfloat16, 256, 16, "mma_sync"),
+    (torch.float32, 256, 256, "f32"),
+    (torch.float32, 256, 2, "f32"),
     (torch.float32, 128, 128, "tf32x3"),
     (torch.float32, 128, 2, "tf32x3"),
     (torch.float32, 64, 16, "f32"),
@@ -178,3 +190,26 @@ def test_tf32x3_arithmetic_matches_jax_dense_vjp(d):
         w = np.asarray(w)
         np.testing.assert_allclose(x.numpy(), w, rtol=0,
                                    atol=1e-4 * np.abs(w).max(), err_msg=name)
+
+
+def test_flash_bwd_variants_change_only_the_recompute():
+    """``tools/flash_bwd_variants.py``'s sources: ``as_is`` is the kernel's
+    source; ``half_s`` differs from it in the dk/dv kernel's S^T and dP^T
+    products alone, each taken over half of C and D; another name
+    raises."""
+    import difflib
+
+    from opticalflowfromdepth_torch import _build
+    from opticalflowfromdepth_torch.tools import flash_bwd_variants as fv
+
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert fv.variant_source(src, "as_is") == src
+    half = fv.variant_source(src, "half_s")
+    changed = [line for line in difflib.unified_diff(
+        src.splitlines(), half.splitlines(), lineterm="", n=0)
+        if line[:1] in "+-" and line[:3] not in ("+++", "---")]
+    assert changed == ["-" + line.rstrip("\n") for line in fv.PRODUCTS] + [
+        "+" + line.rstrip("\n").replace("product_c<W, ", "product_c<W / 2, ")
+        for line in fv.PRODUCTS]
+    with pytest.raises(ValueError):
+        fv.variant_source(src, "half")
