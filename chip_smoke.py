@@ -68,8 +68,9 @@ Run from the repository root on a host with one CUDA card. Phases:
    fail the tolerance (three where the tf32x3 route splits a sweep: its
    reduction leaving the last partial out), what hi-only TF32 products
    would give (for information), and two launches that must give the same
-   bits, the C = 128 bf16 route's bits against recorded digests
-   (``C128_BWD_DIGESTS``, by nvcc release), the autograd Function against
+   bits, the C = 128 bf16 routes' bits (the forward's out and LSE, the
+   backward's gradients) against recorded digests (``C128_DIGESTS``, by
+   nvcc release), the autograd Function against
    a dense softmax, timed in bf16 and
    in f32 (the 14 + 14 launches of a training step each) against their
    bounds (TFLOP/s, share of the bound; f32 at the split-TF32 and at the
@@ -229,8 +230,9 @@ Run from the repository root on a host with one CUDA card. Phases:
    [128, 805, 128], bf16 and f32, against the plain version and the
    in-kernel ``swin=`` call; a random-normal and a -100 block bias at the
    matching shapes [1, 7168, 128] x D = 2 (f32: the key sweep split) and
-   [16, 3220, 128] x D = 2; every route (wgmma, mma.sync at C = 64 and
-   256, tf32x3 split and unsplit, the CUDA cores) with rows the bias
+   [16, 3220, 128] x D = 2; every route (wgmma at C = 128 and 256,
+   mma.sync at C = 64 and forced at 256, tf32x3 split and unsplit, the
+   CUDA cores) with rows the bias
    masks whole (-1e30: the mean of v over the real keys), Lk ragged and a
    multiple of the key tile, bias with ``swin``; two launches bit-equal;
    planted faults that must fail (the bias's last key column dropped, and
@@ -244,30 +246,34 @@ Run from the repository root on a host with one CUDA card. Phases:
    bound (the bias's bytes) and SDPA with the bias as ``attn_mask``; then
    GMFlow at 256 channels' flash calls (C = 256, the windows' D = 256) at
    the serving and the training shapes ([21]'s and [22]'s), bf16: the
-   forward at each class and the backward at each training class against
-   the plain versions as [3e] and [3f] hold the 128-channel classes (two
-   launches bit-equal, the planted faults, and for the backward (the
-   wgmma route at C = 256) q and k's upper 128 columns zeroed, which must
-   fail; then the backward at its edges: ragged 65, 129 and 200 rows, D =
+   forward at each class (the wgmma route) and the backward at each
+   training class against the plain versions as [3e] and [3f] hold the
+   128-channel classes (two launches bit-equal, the planted faults, and
+   q and k's upper 128 columns zeroed, which must fail forward and
+   backward; then both at the edges: ragged 65, 129 and 200 rows, D =
    256 and 2, a Swin edge inside a tile; the largest errors join the
    flash rows' ``max_abs_err``), then timed against their bounds, the
-   plain versions and SDPA, the backward also beside the mma.sync route
-   forced on the same inputs (it must lose at every class);
+   plain versions and SDPA, each beside the mma.sync route forced on the
+   same inputs (it must lose at every class);
 20. GMFlow at ``feature_channels = 256``, f32 64x96, 1 scale: card vs CPU
    ([9]'s 1-scale limits), 14 flash and 15 instance-norm launches;
 21. GMFlow at 256 channels serving: bf16, 3 pairs of 436x1024 after a
-   warm-up, 14 flash + 15 instance norms a pair, no plain version
-   called, ms a pair, peak memory, a profile of one pair;
+   warm-up, 14 flash + 15 instance norms a pair, every flash forward on
+   the wgmma route, no plain version called, ms a pair, peak memory, a
+   profile of one pair (the forward's wgmma and mma.sync kernels' ms);
 22. GMFlow at 256 channels training: the reference's recipe (bf16, batch
    16 of 368x560, 1 scale, classifier on) on a resident batch, a warm-up
    step and 2 steps with 14 + 14 + 14 flash launches and 15 instance
-   norms a step, no plain version called, finite losses, ms a step, peak
-   memory, a profile of one more step (the flash forward's and backward's
-   device ms);
+   norms a step, every flash forward on the wgmma route, no plain version
+   called, finite losses, ms a step, peak memory, a profile of one more
+   step (the flash forward's and backward's device ms, the forward's
+   wgmma and mma.sync kernels');
 23. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
    [18]'s, [21]'s and [22]'s launches too; the flash row also carries the
    f32 route's times at an f32 pair, ``f32_ms`` and the rest, and the
-   dense bias's at GMFlow's four classes, ``bias_ms`` and the rest; the
+   dense bias's at GMFlow's four classes, ``bias_ms`` and the rest, and
+   the 256-channel pair's 14 calls, ``c256_ms`` and the rest with
+   ``c256_mma_sync_ms`` (the step's 14 as ``c256_step_*``); the
    backward's rows the 256-channel step's, ``c256_ms`` and the rest with
    ``c256_mma_sync_ms``), the
    card line, and last the line ``{"ok": true, "device": {...}}``.
@@ -1344,18 +1350,31 @@ def plan_tag(fl, q, k, v, bias=None) -> str:
                           if p["splits"] > 1 else "") + ")")
 
 
-def flash_timing(fl, gen, shapes, grid_w, what, plain):
+def flash_timing(fl, gen, shapes, grid_w, what, plain, old_route=None):
     """Kernel, SDPA and bound times of each bf16 shape class, its TFLOP/s
     and share of the bound, and the totals over the calls of ``what``
-    (``plain``: the plain version timed too)."""
+    (``plain``: the plain version timed too; ``old_route``: that route
+    forced on the same inputs (``fl.launcher(route=...)``, its launch
+    alone) timed beside the planned one, which must beat it at every
+    class; its totals as ``old_ms``)."""
     import torch
     import torch.nn.functional as F
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 old_ms=0.0)
     flops = exps = nbytes = 0.0
     for name, (b, l, c, d, payload, swin), n in shapes:
         q, k, v = flash_inputs(gen, b, l, l, c, d, torch.bfloat16, payload,
                                grid_w=grid_w)
         ms = cuda_ms(lambda: fl.flash_softmax_matmul(q, k, v, swin=swin))
+        old_ms = 0.0
+        if old_route is not None:
+            _, launch_old, _ = fl.launcher(q, k, v, swin=swin,
+                                           route=old_route)
+            old_ms = cuda_ms(launch_old, reps=5, warm=1)
+            if not ms < old_ms:
+                fail(f"flash {what} {name}: the planned route "
+                     f"({ms * 1e3:.1f} us) does not beat the forced "
+                     f"{old_route} route ({old_ms * 1e3:.1f} us)")
         plain_ms = cuda_ms(lambda: fl.flash_softmax_matmul_plain(
             q, k, v, swin=swin), reps=3, warm=1) if plain else 0.0
         vb = v.to(torch.bfloat16)
@@ -1376,9 +1395,12 @@ def flash_timing(fl, gen, shapes, grid_w, what, plain):
                              else "") + f"SDPA {lib_ms * 1e3:.1f} us, bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}: {f / 1e9:.2f} GFLOP, "
               f"{e / 1e6:.1f} M exp, {by / 1e6:.2f} MB); {n} per "
-              f"{what.split()[-1]}", flush=True)
+              f"{what.split()[-1]}"
+              + (f"; the {old_route} route forced {old_ms * 1e3:.1f} us "
+                 f"({old_ms / ms:.2f}x)" if old_route else ""), flush=True)
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", lib_ms), ("bound_ms", bound_ms)):
+                         ("library_ms", lib_ms), ("bound_ms", bound_ms),
+                         ("old_ms", old_ms)):
             total[key] += n * val
         flops, exps, nbytes = flops + n * f, exps + n * e, nbytes + n * by
         del q, k, v, vb, mask
@@ -1394,7 +1416,12 @@ def flash_timing(fl, gen, shapes, grid_w, what, plain):
           + f"SDPA {total['library_ms'] * 1e3:.1f} us, bound "
           f"{total['bound_ms'] * 1e3:.1f} us ({bound_by}: "
           f"{flops / 1e9:.1f} GFLOP, {exps / 1e6:.1f} M exp, "
-          f"{nbytes / 1e6:.1f} MB)", flush=True)
+          f"{nbytes / 1e6:.1f} MB)"
+          + (f"; the {old_route} route forced {total['old_ms'] * 1e3:.1f} "
+             f"us ({total['old_ms'] / total['ms']:.2f}x)" if old_route
+             else ""), flush=True)
+    if old_route is None:
+        del total["old_ms"]
     return dict(total, bound_by=bound_by), calls
 
 
@@ -1573,19 +1600,26 @@ def flash_bwd_compare(fl, fb, what, q, k, v, g, swin) -> float:
 # two fixed-seed inputs, as the kernels gave them before the route took C =
 # 256: sha256 of dq, dk and dv (first 16 hex digits), by the nvcc release
 # that built the kernels.
-C128_BWD_DIGESTS = {"12.9": ("dcf4718e1dac69d5", "4d617edf4f662b03")}
+# sha256 prefixes of the C = 128 bf16 wgmma routes' outputs on
+# :func:`c128_digests`'s inputs, by nvcc release: the forward's out and LSE
+# and the backward's dq, dk, dv, each recorded from the tree before its
+# wgmma route took C = 256 as well
+C128_DIGESTS = {"12.9": {"forward": ("f85cf99233e7b8b9", "014e7f5e48a0fbbe"),
+                         "backward": ("dcf4718e1dac69d5",
+                                      "4d617edf4f662b03")}}
 
 
-def c128_bwd_digests(fl, fb) -> tuple:
-    """The digests of :data:`C128_BWD_DIGESTS`: windows with a Swin region
+def c128_digests(fl, fb) -> dict:
+    """The digests of :data:`C128_DIGESTS`: windows with a Swin region
     edge inside a tile [8,130,128]x[..,128], and ragged [2,129,128]x
-    [2,65,2], from a generator of their own (the forward kernel's out and
-    LSE, then the backward kernels)."""
+    [2,65,2], from a generator of their own: "forward" hashes the forward
+    kernel's out and LSE, "backward" the backward kernels' dq, dk, dv from
+    them."""
     import hashlib
 
     import torch
     gen = torch.Generator().manual_seed(78)
-    digests = []
+    digests = {"forward": [], "backward": []}
     for b, lq, lk, d, payload, swin in (
             (8, 130, 130, 128, "normal", (2, 10, 13, 5, 6)),
             (2, 129, 65, 2, "flow", None)):
@@ -1595,11 +1629,15 @@ def c128_bwd_digests(fl, fb) -> tuple:
                                payload)
         g = torch.randn(b, lq, d, generator=gen).cuda()
         out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
-        h = hashlib.sha256()
-        for t in fb.flash_backward(q, k, v, out, lse, g, swin=swin):
-            h.update(t.contiguous().cpu().numpy().tobytes())
-        digests.append(h.hexdigest()[:16])
-    return tuple(digests)
+        for key, tensors in (
+                ("forward", (out, lse)),
+                ("backward", fb.flash_backward(q, k, v, out, lse, g,
+                                               swin=swin))):
+            h = hashlib.sha256()
+            for t in tensors:
+                h.update(t.contiguous().cpu().numpy().tobytes())
+            digests[key].append(h.hexdigest()[:16])
+    return {key: tuple(val) for key, val in digests.items()}
 
 
 def nvcc_release() -> str:
@@ -1668,20 +1706,22 @@ def flash_bwd_phase(gen):
                           v, torch.randn(2, 100, 16, generator=gen).cuda(),
                           None)
 
-    # the C = 128 wgmma route's bits, against the recorded ones
-    got, release = c128_bwd_digests(fl, fb), nvcc_release()
-    want = C128_BWD_DIGESTS.get(release)
-    if want is None:
-        print(f"  the C = 128 bf16 backward's bits (sha256 of dq, dk, dv): "
-              f"{got}, not compared: recorded with nvcc "
-              f"{', '.join(C128_BWD_DIGESTS)}, built with {release}",
-              flush=True)
-    else:
-        print(f"  the C = 128 bf16 backward's bits (sha256 of dq, dk, dv): "
-              f"{got}, recorded {want} (nvcc {release})", flush=True)
-        if got != want:
-            fail(f"the C = 128 bf16 backward's bits changed: {got}, "
-                 f"recorded {want}")
+    # the C = 128 wgmma routes' bits, against the recorded ones
+    got, release = c128_digests(fl, fb), nvcc_release()
+    want = C128_DIGESTS.get(release)
+    for key, what in (("forward", "forward's (out, LSE)"),
+                      ("backward", "backward's (dq, dk, dv)")):
+        if want is None:
+            print(f"  the C = 128 bf16 {what} bits (sha256): {got[key]}, not "
+                  f"compared: recorded with nvcc "
+                  f"{', '.join(C128_DIGESTS)}, built with {release}",
+                  flush=True)
+            continue
+        print(f"  the C = 128 bf16 {what} bits (sha256): {got[key]}, "
+              f"recorded {want[key]} (nvcc {release})", flush=True)
+        if got[key] != want[key]:
+            fail(f"the C = 128 bf16 {what} bits changed: {got[key]}, "
+                 f"recorded {want[key]}")
 
     # the autograd Function in f32 against autograd through a dense softmax
     x = [torch.randn(s, generator=gen).cuda()
@@ -3994,6 +4034,37 @@ class PlainCalls:
             fail(f"{what}: plain versions called {self.calls}")
 
 
+class FlashRoutes:
+    """Counts the flash forward's launches by route while entered
+    (``ops/flash.py:launcher`` names each call's route)."""
+
+    def __enter__(self):
+        from opticalflowfromdepth_torch.ops import flash as fl
+        self.fl, self.real, self.routes = fl, fl.launcher, {}
+
+        def counting(*args, **kw):
+            res = self.real(*args, **kw)
+            self.routes[res[2].route] = self.routes.get(res[2].route, 0) + 1
+            return res
+        fl.launcher = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.fl.launcher = self.real
+
+    def check(self, what: str, want: dict) -> None:
+        print(f"  the flash forward's routes: {self.routes}", flush=True)
+        if self.routes != want:
+            fail(f"{what}: flash forward routes {self.routes}, want {want}")
+
+
+# the flash forward's kernels in a profile: the wgmma route's (both widths)
+# and the mma.sync route's
+FLASH_FWD_NAMED = [("the flash forward's wgmma kernels", ("flash_fwd_wgmma",)),
+                   ("the flash forward's mma.sync kernels",
+                    ("flash_fwd_bf16",))]
+
+
 def train_cli_phase(tmp: str, outs: dict) -> None:
     import math
 
@@ -4757,22 +4828,34 @@ WIDE_EDGES = (
 
 
 def upper_columns_fault(fl, fb, q, k, v, g, swin) -> None:
-    """A fault only a 256-wide kernel can have: the backward kernels
-    launched on q and k whose upper 128 columns are zeroed (a kernel that
-    read two of its four panels), held against the plain backward of the
-    full operands from the full forward's out and LSE. Each gradient must
-    land over ``bwd_bf16_tolerance``; prints how far."""
+    """A fault only a 256-wide kernel can have: the kernels launched on q
+    and k whose upper 128 columns are zeroed (a kernel that read two of
+    its four panels). The forward's out, held against the plain forward of
+    the full operands, must land over ``bf16_tolerance``; with ``g`` (not
+    None) the backward's gradients, held against the plain backward of the
+    full operands from the full forward's out and LSE, each over
+    ``bwd_bf16_tolerance``. Prints how far."""
     import torch
+    qz, kz = (torch.cat([t[..., :128], torch.zeros_like(t[..., 128:])], -1)
+              for t in (q, k))
+    ref_out = fl.flash_softmax_matmul_plain(q, k, v, swin=swin)
+    fwd = float(((fl.flash_softmax_matmul(qz, kz, v, swin=swin) - ref_out)
+                 .abs() / fl.bf16_tolerance(q, k, v, swin=swin)).max())
+    print(f"    planted fault, q and k's upper 128 columns zeroed, forward: "
+          f"out |d| / tolerance {fwd:.2f} (must exceed 1)", flush=True)
+    if not fwd > 1.0:
+        fail(f"flash forward at C = 256: the zeroed upper columns pass {fwd}")
+    if g is None:
+        return
     out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
     ref = fb.flash_backward_plain(q, k, v, out, lse, g, swin=swin)
     tols = fb.bwd_bf16_tolerance(q, k, v, out, lse, g, swin=swin)
-    qz, kz = (torch.cat([t[..., :128], torch.zeros_like(t[..., 128:])], -1)
-              for t in (q, k))
     cut = fb.flash_backward(qz, kz, v, out, lse, g, swin=swin)
     ratios = [float(((x - r).abs() / t).max())
               for x, r, t in zip(cut, ref, tols)]
-    print(f"    planted fault, q and k's upper 128 columns zeroed, |d| / "
-          f"tolerance (each must exceed 1): dq {ratios[0]:.2f}, dk "
+    print(f"    planted fault, q and k's upper 128 columns zeroed, "
+          f"backward: |d| / tolerance (each must exceed 1): dq "
+          f"{ratios[0]:.2f}, dk "
           f"{ratios[1]:.2f}, dv {ratios[2]:.2f}", flush=True)
     if not min(ratios) > 1.0:
         fail(f"flash backward at C = 256: the zeroed upper columns pass "
@@ -4790,7 +4873,7 @@ def flash_tolerance(fl, q, k, v, bias=None, swin=None):
 
 
 def flash_bias_compare(fl, what, q, k, v, bias, swin=None, plant=False,
-                       masked_rows=None) -> float:
+                       masked_rows=None, route=None) -> float:
     """The kernel with a dense bias against the plain version with it on
     the same inputs (out within :func:`flash_tolerance`, the LSE within 1e-4
     + 1e-6 |ref|), two launches bit-equal; returns the out's max abs diff.
@@ -4800,14 +4883,22 @@ def flash_bias_compare(fl, what, q, k, v, bias, swin=None, plant=False,
     tolerance: the bias's last key column dropped (zeroed; the case's bias
     weighs that column +8), and on a base-2 route (wgmma, tf32x3) the bias
     added to the base-2 scores unscaled by log2(e) (the kernel handed bias
-    / log2(e))."""
+    / log2(e)). ``route``: that route forced (``fl.launcher(route=...)``)
+    instead of the planned one."""
     import math
 
     import torch
-    got, lse = fl.flash_softmax_matmul(q, k, v, bias=bias, swin=swin,
-                                       with_lse=True)
-    again, again_lse = fl.flash_softmax_matmul(q, k, v, bias=bias, swin=swin,
-                                               with_lse=True)
+
+    def call(bias_, with_lse=False):
+        if route is None:
+            return fl.flash_softmax_matmul(q, k, v, bias=bias_, swin=swin,
+                                           with_lse=with_lse)
+        res, launch, _ = fl.launcher(q, k, v, swin=swin, with_lse=with_lse,
+                                     route=route, bias=bias_)
+        launch()
+        return res if with_lse else res[0]
+    got, lse = call(bias, True)
+    again, again_lse = call(bias, True)
     torch.cuda.synchronize()
     ref, ref_lse = fl.flash_softmax_matmul_plain(q, k, v, swin=swin,
                                                  with_lse=True, bias=bias)
@@ -4819,7 +4910,9 @@ def flash_bias_compare(fl, what, q, k, v, bias, swin=None, plant=False,
         fail(f"flash bias {what}: two launches on the same inputs differ")
     tol = flash_tolerance(fl, q, k, v, bias, swin)
     err = float((got - ref).abs().max())
-    line = (f"  {what}{plan_tag(fl, q, k, v, bias)}: max |d| {err:.3e}, "
+    tag = plan_tag(fl, q, k, v, bias) if route is None else \
+        f" ({route}, forced)"
+    line = (f"  {what}{tag}: max |d| {err:.3e}, "
             f"|d| / tolerance {float(((got - ref).abs() / tol).max()):.3f}, "
             f"lse {max_rel_excess(lse, ref_lse, 1e-6, 1e-4):.3f}")
     if masked_rows is not None:
@@ -4838,13 +4931,12 @@ def flash_bias_compare(fl, what, q, k, v, bias, swin=None, plant=False,
     if plant:
         cut = bias.clone()
         cut[..., -1] = 0
-        faults = [fl.flash_softmax_matmul(q, k, v, bias=cut, swin=swin)]
+        faults = [call(cut)]
         names = ["the bias's last key column dropped"]
-        route = fl.plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                        v.shape[2], q.dtype).route
-        if route in ("wgmma", "tf32x3"):
-            faults.append(fl.flash_softmax_matmul(
-                q, k, v, bias=bias / fl.LOG2E, swin=swin))
+        ran = route or fl.plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                               v.shape[2], q.dtype).route
+        if ran in ("wgmma", "tf32x3"):
+            faults.append(call(bias / fl.LOG2E))
             names.append("the bias unscaled by log2(e)")
         ratios = [float(((f - ref).abs() / tol).max()) for f in faults]
         line += ("; planted faults, |d| / tolerance (each must exceed 1): "
@@ -4961,6 +5053,7 @@ def flash_bias_width_phase(gen):
             (torch.bfloat16, 64, 16, 2, 100, 128, None),
             (torch.bfloat16, 64, 2, 2, 100, 100, None),
             (torch.bfloat16, 256, 256, 8, 130, 130, (2, 10, 13, 5, 6)),
+            (torch.bfloat16, 256, 2, 2, 333, 301, None),
             (torch.float32, 128, 2, 1, 2000, 2000, None),      # split sweep
             (torch.float32, 128, 128, 2, 1001, 1001, None),    # split sweep
             (torch.float32, 128, 2, 16, 100, 128, None),       # unsplit
@@ -4974,10 +5067,16 @@ def flash_bias_width_phase(gen):
         bias[..., -1] += 8.0
         rows = [0, lq // 2, lq - 1]
         bias[b - 1, rows] = -1e30
-        flash_bias_compare(fl, f"route case {dtype} [{b},{lq},{c}]x[{b},{lk},"
-                           f"{d}]" + (f" swin {swin}" if swin else ""), q, k,
-                           v, bias, swin=swin, plant=True,
+        case = f"route case {dtype} [{b},{lq},{c}]x[{b},{lk},{d}]" + (
+            f" swin {swin}" if swin else "")
+        flash_bias_compare(fl, case, q, k, v, bias, swin=swin, plant=True,
                            masked_rows=(b - 1, rows))
+        if dtype == torch.bfloat16 and c == 256:
+            # the mma.sync route that C = 256 took before the wgmma one,
+            # forced: its bias stays covered
+            flash_bias_compare(fl, case, q, k, v, bias, swin=swin,
+                               plant=True, masked_rows=(b - 1, rows),
+                               route="mma_sync")
     # the Function with a bias on the card: JAX's dense backward in plain
     # PyTorch, the same on both devices; the bias's gradient zeros
     q, k, v = (t.requires_grad_() for t in flash_inputs(
@@ -5106,11 +5205,11 @@ def flash_bias_width_phase(gen):
           f"{total['plain_ms'] * 1e3:.1f} us", flush=True)
 
     # GMFlow at 256 channels: its flash calls at the serving and the
-    # training shapes (C = 256, windows D = 256: the forward's mma.sync
-    # route, D in two chunks; the backward's wgmma route), forward and
-    # backward, as [3e] and [3f] hold the 128
-    # channels' classes (two launches bit-equal, the planted faults); then
-    # against their bounds and SDPA
+    # training shapes (C = 256, windows D = 256: the wgmma routes, forward
+    # and backward), forward and backward, as [3e] and [3f] hold the 128
+    # channels' classes (two launches bit-equal, the planted faults, and
+    # q and k's upper 128 columns zeroed); then against their bounds, SDPA
+    # and the mma.sync routes forced
     cmp_gen = torch.Generator().manual_seed(76)
     err_fwd = err_bwd = 0.0
     for what, shapes, grid_w in (("serving", FLASH256_SHAPES, W8),
@@ -5122,20 +5221,25 @@ def flash_bias_width_phase(gen):
                     f"[{b},{l},{d}]")
             err_fwd = max(err_fwd, flash_compare(
                 fl, case + plan_tag(fl, q, k, v), q, k, v, swin))
+            if fl.plan(b, l, l, c, d, torch.bfloat16).route != "wgmma":
+                fail(f"[3j] {case}: the forward does not take the wgmma "
+                     f"route")
+            g = None
             if what == "training":
                 g = torch.randn(b, l, d, generator=cmp_gen).cuda()
                 route = fb.plan(b, l, l, c, d, torch.bfloat16).route
                 err_bwd = max(err_bwd, flash_bwd_compare(
                     fl, fb, f"{case} ({route})", q, k, v, g, swin))
-                upper_columns_fault(fl, fb, q, k, v, g, swin)
-                del g
+            upper_columns_fault(fl, fb, q, k, v, g, swin)
+            del g
             del q, k, v
             torch.cuda.empty_cache()
-    # the backward's wgmma route at its edges at C = 256: Lq and Lk of 65,
-    # 129 and 200 against dq's 32-key tiles (64 at D = 2) and 128-query
-    # blocks and dk/dv's 64-query tiles and 64-key blocks (128 at D = 2),
-    # D = 256 and 2, a Swin region edge inside a tile (window 10x13 shifted
-    # 5 and 6); a generator of their own
+    # the wgmma routes at their edges at C = 256: Lq and Lk of 65, 129 and
+    # 200 against the forward's 64-key tiles and 128-query (64 at D = 2)
+    # blocks, dq's 32-key tiles (64 at D = 2) and 128-query blocks and
+    # dk/dv's 64-query tiles and 64-key blocks (128 at D = 2), D = 256 and
+    # 2, a Swin region edge inside a tile (window 10x13 shifted 5 and 6);
+    # a generator of their own
     edge_gen = torch.Generator().manual_seed(77)
     for name, (b, lq, lk, d, payload, swin) in WIDE_EDGES:
         q, _, _ = flash_inputs(edge_gen, b, lq, lq, 256, d, torch.bfloat16,
@@ -5143,16 +5247,22 @@ def flash_bias_width_phase(gen):
         _, k, v = flash_inputs(edge_gen, b, lk, lk, 256, d, torch.bfloat16,
                                payload)
         g = torch.randn(b, lq, d, generator=edge_gen).cuda()
+        flash_compare(fl, f"256-channel forward {name} bf16 [{b},{lq},256]x"
+                      f"[{b},{lk},{d}]{plan_tag(fl, q, k, v)}", q, k, v, swin)
         route = fb.plan(b, lq, lk, 256, d, torch.bfloat16).route
         err_bwd = max(err_bwd, flash_bwd_compare(
             fl, fb, f"256-channel {name} bf16 [{b},{lq},256]x[{b},{lk},{d}] "
             f"({route})", q, k, v, g, swin))
         del q, k, v, g
     worst = dict(flash=err_fwd, flash_bwd_dq=err_bwd, flash_bwd_dkv=err_bwd)
-    flash_timing(fl, torch.Generator().manual_seed(73), FLASH256_SHAPES, W8,
-                 "256-channel pair", plain=True)
-    flash_timing(fl, torch.Generator().manual_seed(74),
-                 FLASH256_TRAIN_SHAPES, GW8, "256-channel step", plain=False)
+    # the forward at every class beside the mma.sync route forced on the
+    # same inputs (the route C = 256 took before; it must lose at each)
+    pair, _ = flash_timing(fl, torch.Generator().manual_seed(73),
+                           FLASH256_SHAPES, W8, "256-channel pair",
+                           plain=True, old_route="mma_sync")
+    step, _ = flash_timing(fl, torch.Generator().manual_seed(74),
+                           FLASH256_TRAIN_SHAPES, GW8, "256-channel step",
+                           plain=False, old_route="mma_sync")
     wide = flash_bwd_timing(fl, fb, F, torch.Generator().manual_seed(75),
                             torch.bfloat16, FLASH256_TRAIN_SHAPES,
                             old_route="mma_sync")
@@ -5161,9 +5271,18 @@ def flash_bias_width_phase(gen):
     wide = {rec["name"]: {f"c256_{key}": rec[key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         | {"c256_mma_sync_ms": rec["old_ms"]} for rec in wide}
+    # the kernels line's flash row: the 256-channel pair's 14 forward calls
+    # as c256_*, the forced mma.sync route's as c256_mma_sync_ms, and the
+    # step's 14 as c256_step_*
+    c256 = {f"c256_{key}": pair[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    c256 |= {f"c256_step_{key}": step[key] for key in (
+        "ms", "bound_ms", "bound_by", "library_ms")}
+    c256 |= {"c256_mma_sync_ms": pair["old_ms"],
+             "c256_step_mma_sync_ms": step["old_ms"]}
     return dict(bias_ms=total["ms"], bias_plain_ms=total["plain_ms"],
                 bias_bound_ms=bound, bias_bound_by=bound_by,
-                bias_library_ms=total["library_ms"]), worst, wide
+                bias_library_ms=total["library_ms"], **c256), worst, wide
 
 
 def gmflow256_parity_phase():
@@ -5223,7 +5342,7 @@ def gmflow256_serving_phase():
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
     times = []
-    with PlainCalls() as plain:
+    with PlainCalls() as plain, FlashRoutes() as routes:
         for i1, i2 in pairs[1:]:
             t = time.perf_counter()
             flow = serve(i1, i2)
@@ -5235,6 +5354,7 @@ def gmflow256_serving_phase():
     plain.check("GMFlow-256 serving")
     launches = launch_counts()
     n = len(times)
+    routes.check("GMFlow-256 serving", {"wgmma": 14 * n})
     print(f"  launches over {n} pairs: {launches}", flush=True)
     if launches != want_launches(flash=14 * n, instance_norm=15 * n):
         fail(f"GMFlow-256 serving launch counts {launches}")
@@ -5242,7 +5362,8 @@ def gmflow256_serving_phase():
           f"{sum(times) / n:.3f}); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; |flow| "
           f"max {np.abs(flow).max():.3f} px", flush=True)
-    profile(lambda: serve(*pairs[1]), sum(times) / n, "pair")
+    profile(lambda: serve(*pairs[1]), sum(times) / n, "pair",
+            named=FLASH_FWD_NAMED)
     return launches
 
 
@@ -5278,13 +5399,14 @@ def gmflow256_train_phase():
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
     losses, times = [], []
-    with PlainCalls() as plain:
+    with PlainCalls() as plain, FlashRoutes() as routes:
         for _ in range(2):
             t = time.perf_counter()
             state, m = step(state, batch, None)
             losses.append(float(m["total_loss"]))        # waits for the card
             times.append((time.perf_counter() - t) * 1e3)
     plain.check("GMFlow-256 training")
+    routes.check("GMFlow-256 training", {"wgmma": 28})
     launches = launch_counts()
     want = want_launches(flash=28, flash_bwd_dq=28, flash_bwd_dkv=28,
                          instance_norm=30)
@@ -5303,7 +5425,8 @@ def gmflow256_train_phase():
             "step", named=[
                 ("the flash backward kernels (14 dq + 14 dk/dv)",
                  ("flash_bwd_",)),
-                ("the flash forward kernels (14)", ("flash_fwd_",))])
+                ("the flash forward kernels (14)", ("flash_fwd_",))]
+            + FLASH_FWD_NAMED)
     return launches
 
 

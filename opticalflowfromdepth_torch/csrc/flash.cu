@@ -23,7 +23,8 @@
 //
 // Widths: C % 16 == 0 and D == 2 or D % 16 == 0, up to 256 each
 // (ops/flash.py pads other widths with zero columns and slices the output
-// back). Only C = 128, D = 128 or 2 take the wgmma and tf32x3 routes.
+// back). Only C = 128 with D = 128 or 2 takes the tf32x3 route, and only
+// that and C = 256 with D = 256 or 2 the wgmma route.
 //
 // The Swin shifted-window mask is computed from the global query and key
 // indices, as the TPU kernel does: the window id is the batch index mod
@@ -40,42 +41,53 @@
 // scores out of device memory, and four feed it (the caller,
 // ops/flash.py:plan, names the route; the C side checks it again):
 //
-// bf16 at C = 128 and D = 128 or 2 (every GMFlow call): the wgmma route,
-// namespace sm90. A block holds warpgroups of 64 queries each: at D = 128
-// three where the blocks then fill every SM twice, else two; at D = 2 one,
-// whose small blocks fit four a SM (batch-1 matching: 112 blocks of 64
-// queries, against 56 of 128, for 132 SMs). Q
-// is resident, loaded once by TMA; K and V stream in tiles of 64 keys
-// through a 2-stage ring under mbarriers (full: the TMA bytes and the
-// loading warp's 32 cp.async arrivals; empty: every thread). TMA boxes of
-// [64 rows][64 columns] land 128-byte swizzled, as wgmma's descriptors
-// read them, and zero-fill the rows past L, so Lq and Lk need no padding
-// copy. Per tile a warpgroup computes S = Q K^T with wgmma m64n64k16, both
+// bf16 at C = 128 with D = 128 or 2 (every GMFlow call) and at C = 256 with
+// D = 256 or 2 (every call of GMFlow at 256 channels): the wgmma route,
+// namespace sm90, one kernel templated on the width W = C. A block holds
+// warpgroups of 64 queries each: at D = 128 three where the blocks then
+// fill every SM twice, else two; at D = 256 two (O's 128 registers a thread
+// leave three warpgroups' cap of 168 no room); at D = 2 one, whose small
+// blocks fit four a SM at C = 128 and two at C = 256 (batch-1 matching: 112
+// blocks of 64 queries, against 56 of 128, for 132 SMs). Q is resident,
+// loaded once by TMA; K and V stream in tiles of 64 keys through a 2-stage
+// ring under mbarriers (full: the TMA bytes and the loading warp's 32
+// cp.async arrivals; empty: every thread). TMA boxes of [64 rows][64
+// columns] land 128-byte swizzled, as wgmma's descriptors read them, and
+// zero-fill the rows past L, so Lq and Lk need no padding copy. Per tile a
+// warpgroup computes S = Q K^T with wgmma m64n64k16 (W / 16 k-steps), both
 // operands from shared memory, K-major; then the online softmax in
-// registers, in base 2: log2(e) is folded into the scale (and into the
-// Swin mask's -100), and p = ex2.approx(x - m), which differs from expf
-// in the last bits of p only, inside ops/flash.py:bf16_tolerance's
-// allowance for another exp (ops/flash.py:flash_softmax_matmul_plain with
-// exp2=True repeats the base-2 form); the Swin mask is applied only where
-// a column's region differs from a row's, the key padding only in the
-// last tile. P is rounded to bf16 straight into the A fragments, as the
-// TPU kernel rounds it per 64-key block (the denominator sums the
-// unrounded P), and O += P V is wgmma m64n128k16, A from registers, V read
-// MN-major through the transpose bit. Two warpgroups of a block take
-// turns (named barriers) to issue their S products, so that one's
-// exponentials overlap the other's products; three run free (pipelining S
-// of tile j with P V of tile j - 1 inside a warpgroup measured slower:
-// PERF.md, PR 7); there is no producer
-// warpgroup (PERF.md, section 6: setmaxnreg did not raise ptxas's
-// budget). At D = 2 (the matching grid and the propagated flow) V's rows
-// are 4 bytes, below TMA's 16-byte box: the loading warp copies them into
-// the ring with cp.async, counted on the stage's barrier, and P . V runs
-// on the CUDA cores in f32 (the tensor cores would waste 63/64 of their
-// work on padding D). What it does about the
-// mma.sync route's limits: every C- and D-wide product is a wgmma; no B
-// fragment is built from 16-bit shared loads; no synchronous staging.
-// Its limits: a warpgroup's S, softmax and P . V follow each other, and
-// the key sweep is not split, so batch-1 matching fills 112 of 132 SMs.
+// registers, in base 2: log2(e) is folded into the scale (and into the Swin
+// mask's -100), and p = ex2.approx(x - m), which differs from expf in the
+// last bits of p only, inside ops/flash.py:bf16_tolerance's allowance for
+// another exp (ops/flash.py:flash_softmax_matmul_plain with exp2=True
+// repeats the base-2 form); the Swin mask is applied only where a column's
+// region differs from a row's, the key padding only in the last tile. P is
+// rounded to bf16 straight into the A fragments, as the TPU kernel rounds
+// it per 64-key block (the denominator sums the unrounded P), and O += P V
+// is wgmma m64n128k16, A from registers, V read MN-major through the
+// transpose bit; at D = 256 O is two 64 x 128 accumulators (128 registers a
+// thread), each over two of V's four panels from the same P fragments, so S
+// and its exponentials are computed once for all 256 columns (the mma.sync
+// route computes them once for each 128-column chunk). At C = 256, D = 256
+// a block's shared memory is two warpgroups' Q (64 KB) and two ring stages
+// of K and V (64 KB each): 198,656 bytes, one block an SM; at D = 2,
+// 100,352 bytes (ptxas, nvcc 12.9: 208 registers at D = 256, 213 with a
+// bias; 109 and 117 at D = 2; no spills, no stack). Two warpgroups of a
+// block take turns (named barriers) to issue their S products, so that
+// one's exponentials overlap the other's products; three run free
+// (pipelining S of tile j with P V of tile j - 1 inside a warpgroup
+// measured slower: PERF.md, section 6); there is no producer warpgroup
+// (PERF.md, section 6: setmaxnreg did not raise ptxas's budget). At D = 2 (the
+// matching grid and the propagated flow) V's rows are 4 bytes, below TMA's
+// 16-byte box: the loading warp copies them into the ring with cp.async,
+// counted on the stage's barrier, and P . V runs on the CUDA cores in f32
+// (the tensor cores would waste 63/64 of their work on padding D). What it
+// does about the mma.sync route's limits: every C- and D-wide product is a
+// wgmma; no B fragment is built from 16-bit shared loads; no synchronous
+// staging. Its limits: a warpgroup's S, softmax and P . V follow each
+// other, and the key sweep is not split, so batch-1 matching fills 112 of
+// 132 SMs (and at C = 256, D = 256 the serving windows' 112 blocks of 128
+// queries fill 112 of 132 SMs once).
 //
 // Other bf16 widths (C % 16 == 0, C <= 256; D = 2 or D % 16 == 0, D <=
 // 256): the mma.sync route, one block of 4 warps per (batch entry,
@@ -90,7 +102,9 @@
 // denominator per row, reduced over the 4 lanes that share a row with
 // shuffles; P rounded to bf16 as above. D % 16 == 0: P . V on the tensor
 // cores too, S's accumulator fragments being P's A fragments; D == 2: P .
-// V on the CUDA cores in f32. No GMFlow call takes it.
+// V on the CUDA cores in f32. No GMFlow call takes it (at 256 channels
+// the wgmma route replaced it; ops/flash.py:launcher(route="mma_sync")
+// still forces it, to time it beside that route).
 //
 // f32 at C = 128 and D = 128 or 2 (every sequence-parallel ring step,
 // whatever the model's dtype, and every flash call of an f32 GMFlow): the
@@ -524,7 +538,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands at C = 128 and D = 128 or 2: the wgmma route
+// bf16 operands at C = 128 or 256 with D = C or 2: the wgmma route
 // ---------------------------------------------------------------------------
 
 namespace sm90 {
@@ -533,22 +547,24 @@ constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// One block's shared memory: Q resident (two 64-column panels a
-// warpgroup), K and V streamed through a ring of STAGES tiles of 64 keys
-// (V as two panels, or as 64 bf16 pairs when D = 2, which the loading
-// warp copies with cp.async: rows of 4 bytes start wherever b * Lk puts
-// them, and TMA wants 16-byte aligned boxes).
-template <int WGS, bool P2>
+// One block's shared memory at width W = C (128 or 256): Q resident (W /
+// 64 64-column panels a warpgroup), K and V streamed through a ring of
+// STAGES tiles of 64 keys (V as W / 64 panels, D = W, or as 64 bf16 pairs
+// when D = 2, which the loading warp copies with cp.async: rows of 4
+// bytes start wherever b * Lk puts them, and TMA wants 16-byte aligned
+// boxes).
+template <int WGS, bool P2, int W>
 struct FwdSmem {
-  alignas(1024) bf16 q[WGS * 2][PANEL];
-  alignas(1024) bf16 k[STAGES][2][PANEL];
-  alignas(1024) bf16 v[STAGES][P2 ? 1 : 2][P2 ? 2 * TILE : PANEL];
+  static constexpr int CP = W / 64;
+  alignas(1024) bf16 q[WGS * CP][PANEL];
+  alignas(1024) bf16 k[STAGES][CP][PANEL];
+  alignas(1024) bf16 v[STAGES][P2 ? 1 : CP][P2 ? 2 * TILE : PANEL];
   uint64_t q_full, full[STAGES], empty[STAGES];
 };
 
-template <int WGS, bool P2>
+template <int WGS, bool P2, int W>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(FwdSmem<WGS, P2>) + 1024;  // + the slack to align to 1 KB
+  return sizeof(FwdSmem<WGS, P2, W>) + 1024;  // + the slack to align to 1 KB
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -562,19 +578,20 @@ __device__ __forceinline__ float ex2(float x) {
 // fills ring stages: lane 0 issues the TMA loads of K's (and V's) panels;
 // at D = 2 the 32 lanes copy V's pairs with cp.async (zeros past Lk), each
 // lane's arrival on the stage's barrier made when its copies land.
-template <int WGS, bool P2>
+template <int WGS, bool P2, int W>
 struct FwdLoads {
+  using SM = FwdSmem<WGS, P2, W>;
+  static constexpr int CP = SM::CP;
   const CUtensorMap *q, *k, *v;
   const uint32_t* pairs;
   int b, q0, Lk;
   static constexpr int LOADER = (WGS - 1) * 4;
 
-  __device__ __forceinline__ void stage(FwdSmem<WGS, P2>& sm, int it,
-                                        int lane) const {
+  __device__ __forceinline__ void stage(SM& sm, int it, int lane) const {
     const int s = it % STAGES, k0 = it * TILE;
     if (lane == 0) {
-      mbar_expect_tx_only(&sm.full[s], (P2 ? 2 : 4) * PANEL_BYTES);
-      for (int p = 0; p < 2; ++p) {
+      mbar_expect_tx_only(&sm.full[s], (P2 ? 1 : 2) * CP * PANEL_BYTES);
+      for (int p = 0; p < CP; ++p) {
         tma_load_3d(sm.k[s][p], k, &sm.full[s], p * 64, k0, b);
         if constexpr (!P2) tma_load_3d(sm.v[s][p], v, &sm.full[s], p * 64, k0, b);
       }
@@ -591,13 +608,12 @@ struct FwdLoads {
     cp_async_arrive(&sm.full[s]);
   }
 
-  __device__ __forceinline__ void start(FwdSmem<WGS, P2>& sm,
-                                        int n_tiles) const {
+  __device__ __forceinline__ void start(SM& sm, int n_tiles) const {
     if (threadIdx.x == 0) {
-      mbar_expect_tx(&sm.q_full, WGS * 2 * PANEL_BYTES);
+      mbar_expect_tx(&sm.q_full, WGS * CP * PANEL_BYTES);
       for (int w = 0; w < WGS; ++w)
-        for (int p = 0; p < 2; ++p)
-          tma_load_3d(sm.q[w * 2 + p], q, &sm.q_full, p * 64, q0 + w * TILE, b);
+        for (int p = 0; p < CP; ++p)
+          tma_load_3d(sm.q[w * CP + p], q, &sm.q_full, p * 64, q0 + w * TILE, b);
     }
     if (threadIdx.x / 32 == LOADER)
       for (int it = 0; it < STAGES && it < n_tiles; ++it)
@@ -606,8 +622,7 @@ struct FwdLoads {
 
   // after tile `it` is released: once every thread has released it, the
   // loading warp refills its stage with tile it + STAGES
-  __device__ __forceinline__ void refill(FwdSmem<WGS, P2>& sm, int it,
-                                         int n_tiles) const {
+  __device__ __forceinline__ void refill(SM& sm, int it, int n_tiles) const {
     if (threadIdx.x / 32 == LOADER && it + STAGES < n_tiles) {
       mbar_wait(&sm.empty[it % STAGES], (it / STAGES) & 1);
       stage(sm, it + STAGES, threadIdx.x & 31);
@@ -616,12 +631,16 @@ struct FwdLoads {
 };
 
 // One block per (batch entry, 64 * WGS queries), 64 queries per
-// warpgroup; the keys stream. tm_q, tm_k and (at D = 128) tm_v are 3-D
-// maps of [B, L, 128] in [1, 64, 64] boxes; at D = 2 v's pairs are read
-// from the pointer. scale2 = scale * log2(e): the scores, the Swin mask's
-// -100 and the running max are kept in base 2, so p = ex2(x - m); with
-// a bias, x = s * scale2 + bias * f32(log2(e)), each product rounded.
-template <int WGS, bool P2, bool BIAS>
+// warpgroup; the keys stream. tm_q, tm_k and (at D = W) tm_v are 3-D maps
+// of [B, L, W] in [1, 64, 64] boxes; at D = 2 v's pairs are read from the
+// pointer. scale2 = scale * log2(e): the scores, the Swin mask's -100 and
+// the running max are kept in base 2, so p = ex2(x - m); with a bias, x =
+// s * scale2 + bias * f32(log2(e)), each product rounded. At D = W a
+// warpgroup's O is W / 128 accumulators of 64 x 128 (o[h]: columns [128
+// h, 128 h + 128)), each a product_rs over two of V's panels from the same
+// P fragments, so S and its exponentials are computed once for every
+// column of O.
+template <int WGS, bool P2, bool BIAS, int W>
 __global__ void __launch_bounds__(WGS * 128, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -629,8 +648,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const bf16* __restrict__ v, const float* __restrict__ bias,
                 float* __restrict__ out, float* __restrict__ lse, int Lq,
                 int Lk, float scale2, Swin sw) {
+  using SM = FwdSmem<WGS, P2, W>;
+  constexpr int CP = SM::CP;
+  constexpr int OH = P2 ? 1 : W / 128;   // O's 64 x 128 accumulators
+  constexpr int ON = P2 ? 4 : 64;        // registers of each
   extern __shared__ unsigned char smem_raw[];
-  FwdSmem<WGS, P2>& sm = *reinterpret_cast<FwdSmem<WGS, P2>*>(
+  SM& sm = *reinterpret_cast<SM*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   const int b = blockIdx.y, q0 = blockIdx.x * WGS * TILE;
   const int n_tiles = (Lk + TILE - 1) / TILE;
@@ -644,9 +667,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     mbar_fence_init();
   }
   __syncthreads();
-  const FwdLoads<WGS, P2> loads{&tm_q, &tm_k, &tm_v,
-                                reinterpret_cast<const uint32_t*>(v), b, q0,
-                                Lk};
+  const FwdLoads<WGS, P2, W> loads{&tm_q, &tm_k, &tm_v,
+                                   reinterpret_cast<const uint32_t*>(v), b,
+                                   q0, Lk};
   loads.start(sm, n_tiles);
 
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
@@ -670,12 +693,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       if (row0 + 8 * r < Lq)
         brow[r] = bias + ((long long)b * Lq + row0 + 8 * r) * Lk;
 
-  float o[P2 ? 4 : 64];
+  float o[OH][ON];
 #pragma unroll
-  for (int i = 0; i < (P2 ? 4 : 64); ++i) o[i] = 0.f;
+  for (int h = 0; h < OH; ++h)
+#pragma unroll
+    for (int i = 0; i < ON; ++i) o[h][i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's share of each row's denominator
-  const bf16* qres = sm.q[wg * 2];
+  const bf16* qres = sm.q[wg * CP];
 
   // A tile's base-2 scores in sa -> p = ex2(x - m) in sa, with the bias,
   // the Swin mask only where a column's region differs from a row's and
@@ -728,8 +753,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
   };
   // D = 2: O += P V on the CUDA cores in f32, P rounded to bf16; this
-  // lane's keys only (o = {row 0 d0, d1, row 1 d0, d1}), summed over the
-  // quad at the end
+  // lane's keys only (o[0] = {row 0 d0, d1, row 1 d0, d1}), summed over
+  // the quad at the end
   auto pv_cuda = [&](const float (&p)[32], int stage) {
     const __nv_bfloat162* v2 =
         reinterpret_cast<const __nv_bfloat162*>(sm.v[stage][0]);
@@ -740,8 +765,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int r = e >> 1;
         const float2 vv = __bfloat1622float2(v2[8 * j + 2 * t + (e & 1)]);
         const float pb = __bfloat162float(__float2bfloat16(p[4 * j + e]));
-        o[2 * r] = fmaf(pb, vv.x, o[2 * r]);
-        o[2 * r + 1] = fmaf(pb, vv.y, o[2 * r + 1]);
+        o[0][2 * r] = fmaf(pb, vv.x, o[0][2 * r]);
+        o[0][2 * r + 1] = fmaf(pb, vv.y, o[0][2 * r + 1]);
       }
     }
   };
@@ -762,7 +787,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     } else {
       float sa[32];
       wgmma_fence();
-      product_c<128, 64>(sa, qres, sm.k[s][0]);  // S = Q K^T, 64 x 64
+      product_c<W, 64>(sa, qres, sm.k[s][0]);  // S = Q K^T, 64 x 64
       wgmma_commit();
       if (WGS == 2 && pass) turn_pass(wg);
       wgmma_wait<0>();
@@ -770,22 +795,26 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       float alpha[2], ls[2];
       softmax_tile(sa, it * TILE, alpha, ls);
 #pragma unroll
-      for (int i = 0; i < (P2 ? 4 : 64); ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int h = 0; h < OH; ++h)
+#pragma unroll
+        for (int i = 0; i < ON; ++i) o[h][i] *= alpha[(i >> 1) & 1];
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
       if constexpr (P2) {
         pv_cuda(sa, s);
       } else {
         // O += P V: P rounded to bf16 into the A fragments, V the ring
-        // tile read MN-major
+        // tile read MN-major, 128 columns (two panels) an accumulator
         uint32_t pa[16];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) to_a_frag(sa, pa, kk);
         wgmma_fence();
-        product_rs(o, pa, sm.v[s][0]);
+#pragma unroll
+        for (int h = 0; h < OH; ++h) product_rs(o[h], pa, sm.v[s][2 * h]);
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs(o);
+#pragma unroll
+        for (int h = 0; h < OH; ++h) fence_regs(o[h]);
       }
     }
     mbar_arrive(&sm.empty[s]);
@@ -801,8 +830,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   if constexpr (P2) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      o[e] += __shfl_xor_sync(0xffffffffu, o[e], 1);
-      o[e] += __shfl_xor_sync(0xffffffffu, o[e], 2);
+      o[0][e] += __shfl_xor_sync(0xffffffffu, o[0][e], 1);
+      o[0][e] += __shfl_xor_sync(0xffffffffu, o[0][e], 2);
     }
   }
 #pragma unroll
@@ -814,41 +843,44 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if constexpr (P2) {
       if (t == 0)
         *reinterpret_cast<float2*>(out + at * 2) =
-            make_float2(o[2 * r] / den, o[2 * r + 1] / den);
+            make_float2(o[0][2 * r] / den, o[0][2 * r + 1] / den);
     } else {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        *reinterpret_cast<float2*>(out + at * 128 + 8 * j + 2 * t) =
-            make_float2(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+      for (int h = 0; h < OH; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(out + at * W + 128 * h + 8 * j + 2 * t) =
+              make_float2(o[h][4 * j + 2 * r] / den,
+                          o[h][4 * j + 2 * r + 1] / den);
     }
     if (lse != nullptr && t == 0) lse[at] = m[r] * LN2 + logf(den);
   }
 }
 
 // The widths this route takes: GMFlow's (C = 128; D = 128, or 2 for the
-// matching grid and the propagated flow), with B * L within TMA's int32
-// coordinates.
+// matching grid and the propagated flow) and GMFlow at 256 channels' (C =
+// 256; D = 256 or 2), with B * L within TMA's int32 coordinates.
 static bool takes(int B, int Lq, int Lk, int C, int D) {
-  return C == 128 && (D == 128 || D == 2) &&
+  return (C == 128 || C == 256) && (D == C || D == 2) &&
          (long long)B * (Lq > Lk ? Lq : Lk) < (1ll << 31);
 }
 
 // Blocks of this instantiation that fit an SM (its shared-memory limit
 // set first); looked up once per device.
-template <int WGS, bool P2, bool BIAS>
+template <int WGS, bool P2, bool BIAS, int W>
 static int occupancy(int dev, int* per_sm) {
   static int cached[16] = {0};
   if (dev >= 0 && dev < 16 && cached[dev] > 0) {
     *per_sm = cached[dev];
     return 0;
   }
-  const size_t smem = fwd_smem_bytes<WGS, P2>();
+  const size_t smem = fwd_smem_bytes<WGS, P2, W>();
   int e = (int)cudaFuncSetAttribute(
-      flash_fwd_wgmma<WGS, P2, BIAS>,
+      flash_fwd_wgmma<WGS, P2, BIAS, W>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e) return e;
   if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           per_sm, flash_fwd_wgmma<WGS, P2, BIAS>, WGS * 128, smem)))
+           per_sm, flash_fwd_wgmma<WGS, P2, BIAS, W>, WGS * 128, smem)))
     return e;
   if (*per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   if (dev >= 0 && dev < 16) cached[dev] = *per_sm;
@@ -856,15 +888,15 @@ static int occupancy(int dev, int* per_sm) {
 }
 
 // The query tile. D = 2: one warpgroup (64 queries) a block, whose small
-// blocks fit up to four a SM. D = 128: three warpgroups (192 queries,
-// sharing the key stream) where such blocks fill every SM at least twice
-// (the training and refinement windows), else two (128 queries, taking
-// turns), which leave fewer SMs idle on small batches (the serving
-// windows: 80 blocks of three against 112 of two for 132 SMs). With a
-// bias always two: the bias loads need registers that three warpgroups'
-// cap of 168 may not hold. plan = {warpgroups a block, blocks, blocks per
-// SM, waves}.
-template <bool P2, bool BIAS>
+// blocks fit up to four a SM at W = 128 and two at W = 256. D = 128: three
+// warpgroups (192 queries, sharing the key stream) where such blocks fill
+// every SM at least twice (the training and refinement windows), else two
+// (128 queries, taking turns), which leave fewer SMs idle on small batches
+// (the serving windows: 80 blocks of three against 112 of two for 132
+// SMs). With a bias, and at D = 256, always two: the bias loads and O's
+// 128 registers a thread need more than three warpgroups' cap of 168.
+// plan = {warpgroups a block, blocks, blocks per SM, waves}.
+template <bool P2, bool BIAS, int W>
 static int choose(int B, int Lq, int* plan) {
   int dev, sms, per_sm, e;
   if ((e = (int)cudaGetDevice(&dev))) return e;
@@ -877,14 +909,14 @@ static int choose(int B, int Lq, int* plan) {
   int wgs;
   if constexpr (P2) {
     wgs = 1;
-    e = occupancy<1, true, BIAS>(dev, &per_sm);
-  } else if constexpr (BIAS) {
+    e = occupancy<1, true, BIAS, W>(dev, &per_sm);
+  } else if constexpr (BIAS || W == 256) {
     wgs = 2;
-    e = occupancy<2, false, true>(dev, &per_sm);
+    e = occupancy<2, false, BIAS, W>(dev, &per_sm);
   } else {
     wgs = blocks(3) >= 2ll * sms ? 3 : 2;
-    e = wgs == 3 ? occupancy<3, false, false>(dev, &per_sm)
-                 : occupancy<2, false, false>(dev, &per_sm);
+    e = wgs == 3 ? occupancy<3, false, false, W>(dev, &per_sm)
+                 : occupancy<2, false, false, W>(dev, &per_sm);
   }
   if (e) return e;
   const long long n = blocks(wgs);
@@ -895,44 +927,63 @@ static int choose(int B, int Lq, int* plan) {
   return 0;
 }
 
-template <int WGS, bool P2, bool BIAS>
+template <int WGS, bool P2, bool BIAS, int W>
 static int launch(const CUtensorMap (&m)[3], const void* v, const void* bias,
                   void* out, void* lse, int B, int Lq, int Lk, float scale,
                   Swin sw, cudaStream_t st) {
   const dim3 grid((unsigned)((Lq + WGS * TILE - 1) / (WGS * TILE)),
                   (unsigned)B);
-  flash_fwd_wgmma<WGS, P2, BIAS>
-      <<<grid, WGS * 128, fwd_smem_bytes<WGS, P2>(), st>>>(
+  flash_fwd_wgmma<WGS, P2, BIAS, W>
+      <<<grid, WGS * 128, fwd_smem_bytes<WGS, P2, W>(), st>>>(
           m[0], m[1], m[2], (const bf16*)v, (const float*)bias, (float*)out,
           (float*)lse, Lq, Lk, scale * LOG2E, sw);
   return (int)cudaGetLastError();
 }
 
-template <bool P2, bool BIAS>
+template <bool P2, bool BIAS, int W>
 static int forward(const void* q, const void* k, const void* v,
                    const void* bias, void* out, void* lse, int B, int Lq,
                    int Lk, float scale, Swin sw, cudaStream_t st) {
   int plan[4], e;
-  if ((e = choose<P2, BIAS>(B, Lq, plan))) return e;  // sets smem limits
+  if ((e = choose<P2, BIAS, W>(B, Lq, plan))) return e;  // sets smem limits
   CUtensorMap m[3];
-  if ((e = tensor_map_bf16_3d(&m[0], q, 128, Lq, B, TILE))) return e;
-  if ((e = tensor_map_bf16_3d(&m[1], k, 128, Lk, B, TILE))) return e;
+  if ((e = tensor_map_bf16_3d(&m[0], q, W, Lq, B, TILE))) return e;
+  if ((e = tensor_map_bf16_3d(&m[1], k, W, Lk, B, TILE))) return e;
   if (P2)
     m[2] = m[1];  // not read: v's pairs come from the pointer
-  else if ((e = tensor_map_bf16_3d(&m[2], v, 128, Lk, B, TILE)))
+  else if ((e = tensor_map_bf16_3d(&m[2], v, W, Lk, B, TILE)))
     return e;
   if constexpr (P2)
-    return launch<1, true, BIAS>(m, v, bias, out, lse, B, Lq, Lk, scale, sw,
-                                 st);
-  else if constexpr (BIAS)
-    return launch<2, false, true>(m, v, bias, out, lse, B, Lq, Lk, scale, sw,
-                                  st);
+    return launch<1, true, BIAS, W>(m, v, bias, out, lse, B, Lq, Lk, scale,
+                                    sw, st);
+  else if constexpr (BIAS || W == 256)
+    return launch<2, false, BIAS, W>(m, v, bias, out, lse, B, Lq, Lk, scale,
+                                     sw, st);
   else
     return plan[0] == 3
-               ? launch<3, false, false>(m, v, bias, out, lse, B, Lq, Lk,
-                                         scale, sw, st)
-               : launch<2, false, false>(m, v, bias, out, lse, B, Lq, Lk,
+               ? launch<3, false, false, W>(m, v, bias, out, lse, B, Lq, Lk,
+                                            scale, sw, st)
+               : launch<2, false, false, W>(m, v, bias, out, lse, B, Lq, Lk,
+                                            scale, sw, st);
+}
+
+// The launch of ofd_flash_fwd's wgmma route at C = W (D = W or 2), with a
+// bias or none.
+template <int W>
+static int forward_at(const void* q, const void* k, const void* v,
+                      const void* bias, void* out, void* lse, int B, int Lq,
+                      int Lk, int D, float scale, Swin sw, cudaStream_t st) {
+  if (D == 2)
+    return bias != nullptr
+               ? forward<true, true, W>(q, k, v, bias, out, lse, B, Lq, Lk,
+                                        scale, sw, st)
+               : forward<true, false, W>(q, k, v, bias, out, lse, B, Lq, Lk,
                                          scale, sw, st);
+  return bias != nullptr
+             ? forward<false, true, W>(q, k, v, bias, out, lse, B, Lq, Lk,
+                                       scale, sw, st)
+             : forward<false, false, W>(q, k, v, bias, out, lse, B, Lq, Lk,
+                                        scale, sw, st);
 }
 
 }  // namespace sm90
@@ -1365,17 +1416,11 @@ extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
                   : tf32x3::launch<false, false>(q, k, v, bias, out, lse, B,
                                                  Lq, Lk, scale, sw, splits, st);
   }
-  if (route == WGMMA) {
-    if (has_bias)
-      return D == 2 ? sm90::forward<true, true>(q, k, v, bias, out, lse, B,
-                                                Lq, Lk, scale, sw, st)
-                    : sm90::forward<false, true>(q, k, v, bias, out, lse, B,
-                                                 Lq, Lk, scale, sw, st);
-    return D == 2 ? sm90::forward<true, false>(q, k, v, bias, out, lse, B, Lq,
-                                               Lk, scale, sw, st)
-                  : sm90::forward<false, false>(q, k, v, bias, out, lse, B,
-                                                Lq, Lk, scale, sw, st);
-  }
+  if (route == WGMMA)
+    return C == 256 ? sm90::forward_at<256>(q, k, v, bias, out, lse, B, Lq,
+                                            Lk, D, scale, sw, st)
+                    : sm90::forward_at<128>(q, k, v, bias, out, lse, B, Lq,
+                                            Lk, D, scale, sw, st);
   if (route == F32) {
     const F32Kernel kern = f32_kernel(has_bias);
     const size_t smem = f32_smem(C, D);
@@ -1434,18 +1479,35 @@ static FwdKernel tf32_kernel() {
   return {(const void*)tf32x3::flash_fwd_tf32<P2, BIAS>, K::SMEM, K::THREADS};
 }
 
-template <int WGS, bool P2, bool BIAS>
+template <int WGS, bool P2, bool BIAS, int W>
 static FwdKernel wgmma_kernel() {
-  return {(const void*)sm90::flash_fwd_wgmma<WGS, P2, BIAS>,
-          sm90::fwd_smem_bytes<WGS, P2>(), WGS * 128};
+  return {(const void*)sm90::flash_fwd_wgmma<WGS, P2, BIAS, W>,
+          sm90::fwd_smem_bytes<WGS, P2, W>(), WGS * 128};
 }
 
+template <int W>
 static FwdKernel wgmma_kernel(int wgs, bool p2, bool bias) {
   if (p2)
-    return bias ? wgmma_kernel<1, true, true>() : wgmma_kernel<1, true, false>();
-  if (bias) return wgmma_kernel<2, false, true>();
-  return wgs == 3 ? wgmma_kernel<3, false, false>()
-                  : wgmma_kernel<2, false, false>();
+    return bias ? wgmma_kernel<1, true, true, W>()
+                : wgmma_kernel<1, true, false, W>();
+  if (bias) return wgmma_kernel<2, false, true, W>();
+  if constexpr (W == 256)
+    return wgmma_kernel<2, false, false, W>();
+  else
+    return wgs == 3 ? wgmma_kernel<3, false, false, W>()
+                    : wgmma_kernel<2, false, false, W>();
+}
+
+// The wgmma route's plan (sm90::choose's) and kernel at C = W.
+template <int W>
+static int wgmma_plan(int B, int Lq, bool p2, bool bias, int* wg,
+                      FwdKernel* kern) {
+  const int e = p2 ? (bias ? sm90::choose<true, true, W>(B, Lq, wg)
+                           : sm90::choose<true, false, W>(B, Lq, wg))
+                   : (bias ? sm90::choose<false, true, W>(B, Lq, wg)
+                           : sm90::choose<false, false, W>(B, Lq, wg));
+  if (!e) *kern = wgmma_kernel<W>(wg[0], p2, bias);
+  return e;
 }
 
 // What ofd_flash_fwd would launch for these operands (padded widths, with
@@ -1484,17 +1546,12 @@ extern "C" int ofd_flash_fwd_plan(int B, int Lq, int Lk, int C, int D,
                       : tf32_kernel<false, false>());
   } else if (is_bf16 && sm90::takes(B, Lq, Lk, C, D)) {
     int wg[4];   // {warpgroups a block, blocks, blocks per SM, waves}
-    if (bias)
-      e = p2 ? sm90::choose<true, true>(B, Lq, wg)
-             : sm90::choose<false, true>(B, Lq, wg);
-    else
-      e = p2 ? sm90::choose<true, false>(B, Lq, wg)
-             : sm90::choose<false, false>(B, Lq, wg);
+    e = C == 256 ? wgmma_plan<256>(B, Lq, p2, bias, wg, &kern)
+                 : wgmma_plan<128>(B, Lq, p2, bias, wg, &kern);
     if (e) return e;
     const int got[7] = {WGMMA, wg[0] * sm90::TILE, sm90::TILE, wg[1], wg[2],
                         wg[3], 1};
     for (int i = 0; i < 7; ++i) plan[i] = got[i];
-    kern = wgmma_kernel(wg[0], p2, bias);
   } else {
     const int rows = is_bf16 ? BQ : F32_BQ;
     chunks = is_bf16 ? d_chunks(D) : 1;

@@ -15,9 +15,11 @@ casts every operand to bf16; v is cast here, so an f32 flow payload is
 rounded exactly as the TPU kernel rounds it) or f32 (f32 models keep f32
 operands, as the JAX dense path on the CPU does; every sequence-parallel
 ring step is f32). The output is f32. The routes: bf16 at GMFlow's widths
-(C padded to 128, D = 128 or 2) ``wgmma``, other bf16 ``mma_sync``; f32
-at GMFlow's widths ``tf32x3``, whose products run on the tensor cores in
-split TF32 (three TF32 products for each f32 one, within f32's tolerance:
+(C padded to 128, D = 128 or 2) and at GMFlow at 256 channels' (C padded
+to 256, D = 256 or 2) ``wgmma`` (:func:`wgmma_widths`, the backward's
+predicate too), other bf16 ``mma_sync``; f32 at GMFlow's widths
+``tf32x3``, whose products run on the tensor cores in split TF32 (three
+TF32 products for each f32 one, within f32's tolerance:
 :func:`flash_softmax_matmul_tf32` repeats their rounding) and whose key
 sweep is split where its blocks would fill less than one wave of the
 card (the runs' partials merged in a fixed order by a second launch);
@@ -277,10 +279,21 @@ def pad_widths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def gmflow_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
-    """GMFlow's widths, which the wgmma and tf32x3 routes take: C padded to
-    128, D = 128 or 2, the rows of every batch entry within int32."""
+    """GMFlow's widths, which the tf32x3 routes take: C padded to 128, D =
+    128 or 2, the rows of every batch entry within int32."""
     cp, dp = padded_widths(c, d)
     return cp == 128 and dp in (2, 128) and b * max(lq, lk) < 2 ** 31
+
+
+def wgmma_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
+    """The widths the bf16 wgmma routes take, forward and backward: C
+    padded to 128 with D = 128 or 2 (GMFlow's), or C padded to 256 with D
+    = 256 or 2 (GMFlow at 256 channels), the rows of every batch entry
+    within int32 (``sm90::takes`` in ``csrc/flash.cu`` and
+    ``csrc/flash_bwd.cu``)."""
+    cp, dp = padded_widths(c, d)
+    return (cp, dp) in ((128, 2), (128, 128), (256, 2), (256, 256)) \
+        and b * max(lq, lk) < 2 ** 31
 
 
 def split_count(blocks: int, tiles: int, slots: int) -> int:
@@ -311,9 +324,12 @@ class FwdPlan(NamedTuple):
     B)), and where it is split the f32 scratch shapes of the runs'
     partials (``scratch_out`` ``[splits, B, Lq, D]``, the unnormalised
     outputs; ``scratch_ml`` ``[splits, B, Lq, 2]``, each row's running max
-    in base 2 and denominator; None where not); the padded widths
+    in base 2 and denominator; None where not); for the wgmma route its
+    query rows a block, keys a tile and shared memory (``sm90::choose``'s,
+    mirrored by :func:`wgmma_warpgroups` and :func:`wgmma_smem`; blocks an
+    SM, which ptxas's registers also bound, stay 0); the padded widths
     (``c_pad``, ``d_pad``). The other routes' blocks are the C side's to
-    choose: :func:`kernel_plan` reports them."""
+    choose: :func:`kernel_plan` reports them, every route's."""
     route: str
     rows: int = 0
     tile: int = 0
@@ -343,19 +359,52 @@ def tf32_smem(d: int) -> int:
     return 4 * (rows * TF32_STRIDE + 2 * stage)
 
 
+WGMMA_PANEL_BYTES = 64 * 64 * 2   # a [64 rows][64] bf16 panel
+
+
+def wgmma_smem(c: int, d: int, warpgroups: int) -> int:
+    """Shared memory of a forward wgmma block (``sm90::fwd_smem_bytes``) at
+    padded widths C = c (128 or 256) and D = d (c or 2): each warpgroup's
+    64 queries resident in c / 64 panels, two ring stages of K's c / 64
+    panels and of V's (D = c) or its 64 bf16 pairs (D = 2), then the five
+    mbarriers, the struct rounded up to its 1 KB alignment, and 1 KB of
+    slack to align the base."""
+    cp = c // 64
+    v = 2 * (2 * 64 * 2 if d == 2 else cp * WGMMA_PANEL_BYTES)
+    return ((warpgroups + 2) * cp * WGMMA_PANEL_BYTES
+            + -(-(v + 5 * 8) // 1024) * 1024 + 1024)
+
+
+def wgmma_warpgroups(b: int, lq: int, c: int, d: int, bias: bool = False,
+                     sms: int = H100_SMS) -> int:
+    """Warpgroups (64 queries each) of a forward wgmma block
+    (``sm90::choose``) at padded widths C = c, D = d: one at D = 2; two
+    with a bias or at D = 256 (O's 128 registers a thread); at C = D = 128
+    three where such blocks fill every SM at least twice, else two."""
+    if d == 2:
+        return 1
+    if bias or c == 256:
+        return 2
+    return 3 if b * -(-lq // 192) >= 2 * sms else 2
+
+
 def plan(b: int, lq: int, lk: int, c: int, d: int,
-         dtype: torch.dtype = torch.float32, sms: int = H100_SMS) -> FwdPlan:
+         dtype: torch.dtype = torch.float32, sms: int = H100_SMS,
+         bias: bool = False) -> FwdPlan:
     """The forward's route and its parameters for q ``[b, lq, c]``, k ``[b,
-    lk, c]``, v ``[b, lk, d]`` of ``dtype``; pure host arithmetic, on the
-    widths :func:`padded_widths` gives (C and D past 256 raise). bf16 at
-    GMFlow's widths takes the wgmma route, other bf16 the mma.sync route;
-    f32 at GMFlow's widths the tf32x3 route, other f32 the CUDA-core
-    route."""
+    lk, c]``, v ``[b, lk, d]`` of ``dtype`` (with a dense bias or
+    without); pure host arithmetic, on the widths :func:`padded_widths`
+    gives (C and D past 256 raise). bf16 at :func:`wgmma_widths` takes the
+    wgmma route, other bf16 the mma.sync route; f32 at GMFlow's widths the
+    tf32x3 route, other f32 the CUDA-core route."""
     cp, dp = padded_widths(c, d)
-    gmflow = gmflow_widths(b, lq, lk, c, d)
     if dtype == torch.bfloat16:
-        return FwdPlan("wgmma" if gmflow else "mma_sync", c_pad=cp, d_pad=dp)
-    if not gmflow:
+        if not wgmma_widths(b, lq, lk, c, d):
+            return FwdPlan("mma_sync", c_pad=cp, d_pad=dp)
+        wgs = wgmma_warpgroups(b, lq, cp, dp, bias, sms)
+        return FwdPlan("wgmma", 64 * wgs, 64, wgmma_smem(cp, dp, wgs),
+                       c_pad=cp, d_pad=dp)
+    if not gmflow_widths(b, lq, lk, c, d):
         return FwdPlan("f32", c_pad=cp, d_pad=dp)
     rows, tile, per_sm = tf32_blocks(dp)
     smem = tf32_smem(dp)
@@ -489,7 +538,7 @@ def launcher(q, k, v, scale=None, swin=None, with_lse=False,
     lk, d = v.shape[1], v.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(c)
-    p = plan(b, lq, lk, c, d, q.dtype, _sms(q.device.index))
+    p = plan(b, lq, lk, c, d, q.dtype, _sms(q.device.index), bias is not None)
     if route is not None:
         p = FwdPlan(route, c_pad=p.c_pad, d_pad=p.d_pad)
     qc, kc, vc = (t.contiguous()
@@ -556,7 +605,8 @@ def flash_softmax_matmul(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     256 (padded to the kernels' widths; wider raises). f32 at C = 128 and
     D = 128 or 2 runs its products in split TF32 on the tensor cores
     (within f32's tolerance; :func:`flash_softmax_matmul_tf32`), its key
-    sweep split at small batches. Differentiable in q, k and v (not in
+    sweep split at small batches; bf16 at C = 128 and 256 (with D = C or
+    2) runs on wgmma. Differentiable in q, k and v (not in
     ``lse``); the gradients come back in their dtypes; the bias's is
     zeros."""
     _check_shapes(q, k, v, swin, bias)

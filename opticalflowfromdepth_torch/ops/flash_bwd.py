@@ -34,8 +34,8 @@ to 256, padded to the kernels' tiles (q, k with zero columns to C % 16 ==
 0, v and g to D = 2 or D % 16 == 0) and dq, dk, dv sliced back; the
 mma.sync and CUDA-core kernels take C, D up to 256 (C, or C and D, split
 over a grid axis in 128-column chunks on the mma.sync route, S and dP
-recomputed by each chunk's blocks). The forward keeps its own routes
-(``ops/flash.py:plan``): at C = 256 it takes mma.sync.
+recomputed by each chunk's blocks). The forward takes its wgmma route at
+the same widths (one predicate, ``ops/flash.py:wgmma_widths``).
 
 With a dense ``bias`` the backward is JAX's ``_flash_vjp_bwd``: a dense
 recompute outside any kernel (:func:`flash_backward_with_bias`, plain
@@ -52,12 +52,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
-# the plan's constants, the split count and the split-TF32 products are
-# the forward's too
+# the plan's constants, the width predicates, the split count and the
+# split-TF32 products are the forward's too
 from .flash import (
     H100_SMS, ROUTES, SMEM_RESERVED, SMEM_SM, TF32_STRIDE, Swin, _pad_last,
     _sms, check_kernel_operands, gmflow_widths, matmul_tf32, padded_widths,
-    split_count, swin_mask_dense)
+    split_count, swin_mask_dense, wgmma_widths)
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -267,17 +267,6 @@ def tf32_smem(d: int, dkv: bool) -> int:
     res = rows * TF32_STRIDE * (1 if d == 2 else 2)
     stage = tile * TF32_STRIDE + (2 * tile if d == 2 else tile * TF32_STRIDE)
     return 4 * (res + 2 * (stage + (2 * tile if dkv else 0)))
-
-
-def wgmma_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
-    """The widths the backward's bf16 wgmma route takes: C padded to 128
-    with D = 128 or 2 (GMFlow's), or C padded to 256 with D = 256 or 2
-    (GMFlow at 256 channels), the rows of every batch entry within int32
-    (``csrc/flash_bwd.cu:sm90::takes``). The forward's wgmma route keeps
-    :func:`gmflow_widths`."""
-    cp, dp = padded_widths(c, d)
-    return (cp, dp) in ((128, 2), (128, 128), (256, 2), (256, 256)) \
-        and b * max(lq, lk) < 2 ** 31
 
 
 def plan(b: int, lq: int, lk: int, c: int, d: int,

@@ -387,7 +387,9 @@ def test_flash_kernel_matches_plain(card, dtype, b, lq, lk, c, d, swin):
     (8, 130, 130, 128, 128, (2, 10, 13, 5, 6)),   # wgmma / tf32x3 route
     (2, 129, 65, 128, 2, None),                   # the same, D = 2
     (1, 2000, 2000, 128, 2, None),                # split sweep (f32)
-    (2, 100, 63, 64, 16, None)])                  # mma.sync / f32 route
+    (2, 100, 63, 64, 16, None),                   # mma.sync / f32 route
+    (8, 130, 130, 256, 256, (2, 10, 13, 5, 6)),   # bf16 C = 256: wgmma
+    (2, 129, 65, 256, 2, None)])
 def test_flash_kernel_bit_reproducible(card, dtype, b, lq, lk, c, d, swin):
     """Two launches on the same inputs give the same bits, out and LSE,
     split sweeps included (no atomics: the runs merged in a fixed
@@ -435,23 +437,114 @@ def test_flash_tf32x3_split_sweep(card, monkeypatch, b, l, d, splits):
 
 def test_flash_plan_matches_kernel_plan(card):
     """The Python plan (route, rows a block, keys a tile, blocks an SM,
-    runs of the key sweep) is what the C side reports it launches."""
+    runs of the key sweep; on the wgmma route rows, tile and shared
+    memory, with a bias and without) is what the C side reports it
+    launches."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, lq, lk, c, d in ((16, 3220, 3220, 128, 2), (1, 7168, 7168, 128, 2),
                             (1, 3584, 3584, 128, 2), (1, 1792, 1792, 128, 2),
                             (128, 805, 805, 128, 128),
                             (2, 1001, 1001, 128, 128), (1, 65, 129, 128, 128),
-                            (2, 100, 63, 64, 16)):
+                            (2, 100, 63, 64, 16), (8, 1792, 1792, 256, 256),
+                            (128, 805, 805, 256, 256),
+                            (1, 7168, 7168, 256, 2), (16, 3220, 3220, 256, 2)):
         for dtype in (torch.float32, torch.bfloat16):
-            p = fl.plan(b, lq, lk, c, d, dtype, sms)
-            k = fl.kernel_plan(b, lq, lk, c, d, dtype == torch.bfloat16)
-            assert k["route"] == p.route
-            if p.route == "tf32x3":
-                assert (k["rows"], k["tile"], k["per_sm"], k["splits"]) == \
-                    (p.rows, p.tile, p.blocks_per_sm, p.splits)
-                assert k["blocks"] == b * -(-lq // p.rows) * p.splits
-            else:
-                assert k["splits"] == 1
+            for bias in (False, True):
+                p = fl.plan(b, lq, lk, c, d, dtype, sms, bias)
+                k = fl.kernel_plan(b, lq, lk, c, d, dtype == torch.bfloat16,
+                                   bias)
+                assert k["route"] == p.route
+                if p.route == "tf32x3":
+                    assert (k["rows"], k["tile"], k["per_sm"],
+                            k["splits"]) == (p.rows, p.tile, p.blocks_per_sm,
+                                             p.splits)
+                    assert k["blocks"] == b * -(-lq // p.rows) * p.splits
+                else:
+                    assert k["splits"] == 1
+                if p.route == "wgmma":
+                    assert (k["rows"], k["tile"], k["smem"]) == \
+                        (p.rows, p.tile, p.smem), (b, lq, c, d, bias)
+                    assert k["blocks"] == b * -(-lq // p.rows)
+
+
+# bf16 at C = 256 with D = 256 or 2 (GMFlow at 256 channels) takes the
+# forward's wgmma route too: two warpgroups of 64 queries a block at D =
+# 256, one at D = 2, 64-key tiles; lengths of a tile + 1, two tiles + 1
+# and past three, a Swin region edge inside a key tile
+FLASH256_FWD_CASES = [
+    (1, 65, 129, 256, None),
+    (2, 129, 65, 256, None),
+    (1, 200, 129, 256, None),
+    (2, 65, 200, 2, None),
+    (1, 129, 65, 2, None),
+    (2, 200, 200, 2, None),
+    (8, 130, 130, 256, (2, 10, 13, 5, 6)),
+    (8, 130, 130, 2, (2, 10, 13, 5, 6))]
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("b,lq,lk,d,swin", FLASH256_FWD_CASES)
+def test_flash_wgmma_c256_matches_plain(card, b, lq, lk, d, swin, with_bias):
+    """The wgmma route at C = 256 (the route its plan and the C side name)
+    against the plain version, out within ``bf16_tolerance`` row by row
+    (which the output scaled by 0.98 does not meet) and the LSE within
+    1e-4 + 1e-5 |ref|; with a dense bias (its last key column weighed
+    +8, rows it masks whole) and without; against the mma.sync route
+    forced on the same inputs, within the same tolerance; two launches
+    bit-equal."""
+    g_ = torch.Generator().manual_seed(b * lq + lk + d)
+    q = torch.randn(b, lq, 256, generator=g_).to(card, torch.bfloat16)
+    k = torch.randn(b, lk, 256, generator=g_).to(card, torch.bfloat16)
+    v = (torch.randn(b, lk, d, generator=g_) * (30 if d == 2 else 1)).to(card)
+    bias = None
+    if with_bias:
+        bias = torch.randn(b, lq, lk, generator=g_).to(card)
+        bias[..., -1] += 8.0
+        bias[b - 1, :3] = -1e30
+    assert fl.plan(b, lq, lk, 256, d, torch.bfloat16).route == "wgmma"
+    assert fl.kernel_plan(b, lq, lk, 256, d, True, with_bias)["route"] == \
+        "wgmma"
+    before = fl.flash_softmax_matmul.launches
+    out, lse = fl.flash_softmax_matmul(q, k, v, bias=bias, swin=swin,
+                                       with_lse=True)
+    again = fl.flash_softmax_matmul(q, k, v, bias=bias, swin=swin,
+                                    with_lse=True)
+    (old, old_lse), launch, plan = fl.launcher(q, k, v, swin=swin,
+                                               with_lse=True,
+                                               route="mma_sync", bias=bias)
+    launch()
+    torch.cuda.synchronize()
+    assert plan.route == "mma_sync"
+    assert fl.flash_softmax_matmul.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = fl.flash_softmax_matmul_plain(q, k, v, swin=swin,
+                                                 with_lse=True, bias=bias)
+    tol = fl.bf16_tolerance(q, k, v, swin=swin, bias=bias)
+    assert out.shape == (b, lq, d) and out.dtype == torch.float32
+    for got, got_lse in ((out, lse), (old, old_lse)):
+        assert float(((got - ref).abs() / tol).max()) <= 1.0
+        np.testing.assert_allclose(got_lse.cpu().numpy(),
+                                   ref_lse.cpu().numpy(), atol=1e-4,
+                                   rtol=1e-5)
+    assert float(((out * 0.98 - ref).abs() / tol).max()) > 1.0
+    if with_bias:
+        mean = v[b - 1].to(torch.bfloat16).float().mean(0)
+        assert float((out[b - 1, :3] - mean).abs().max()) <= 1e-4 * float(
+            v.abs().max()) + 1e-6
+
+
+def test_flash_wgmma_c256_kernel_plan(card):
+    """The C side's plan of the wgmma route at C = 256, with a bias and
+    without: no local memory (no spills, no stack), a block within 227 KB
+    of shared memory, the blocks an SM the route counts on (one at D =
+    256, two at D = 2), 256 threads at D = 256 and 128 at D = 2."""
+    for d, per_sm, threads in ((256, 1, 256), (2, 2, 128)):
+        for bias in (False, True):
+            p = fl.kernel_plan(16, 3220, 3220, 256, d, True, bias)
+            assert p["route"] == "wgmma" and p["local"] == 0, (d, bias, p)
+            assert p["smem"] == fl.wgmma_smem(256, d, threads // 128)
+            assert p["smem"] <= 232448 and p["per_sm"] >= per_sm, (d, p)
+            assert p["threads"] == threads and p["regs"] <= 255
 
 
 def test_flash_forced_cuda_core_route_matches_plain(card):

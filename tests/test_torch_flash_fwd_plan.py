@@ -33,6 +33,15 @@ torch.set_num_threads(2)
     (torch.bfloat16, 128, 2, "wgmma"),
     (torch.bfloat16, 64, 16, "mma_sync"),
     (torch.bfloat16, 128, 16, "mma_sync"),
+    # C = 256: the wgmma route where the widths pad to C = 256 and D = 256
+    # or 2 (GMFlow at 256 channels), mma.sync at every other width
+    (torch.bfloat16, 256, 256, "wgmma"),
+    (torch.bfloat16, 256, 2, "wgmma"),
+    (torch.bfloat16, 250, 1, "wgmma"),          # pads to 256 x 2
+    (torch.bfloat16, 241, 250, "wgmma"),        # pads to 256 x 256
+    (torch.bfloat16, 256, 128, "mma_sync"),
+    (torch.bfloat16, 192, 256, "mma_sync"),
+    (torch.float32, 256, 256, "f32"),
     (torch.float32, 128, 128, "tf32x3"),
     (torch.float32, 128, 2, "tf32x3"),
     (torch.float32, 64, 16, "f32"),
@@ -112,6 +121,81 @@ def test_shared_memory_fits_the_blocks_an_sm(d):
     # the C side's FwdCfg: 64 rows + 2 stages of 64 keys (D = 2), 128 + 2
     # x 32 with V's rows (D = 128), rows of 132 floats
     assert p.smem == (102400 if d == 2 else 135168)
+
+
+# GMFlow at 256 channels' eight flash classes (``chip_smoke.py``'s
+# FLASH256_SHAPES and FLASH256_TRAIN_SHAPES: Sintel serving 448x1024 at
+# 1/8, the training recipe's batch 16 of 368x560): name, (B, L, D)
+GMFLOW256_CLASSES = [
+    ("serving windows", (8, 1792, 256)),
+    ("serving windows + Swin", (8, 1792, 256)),
+    ("serving matching", (1, 7168, 2)),
+    ("serving propagation", (1, 7168, 2)),
+    ("training windows", (128, 805, 256)),
+    ("training windows + Swin", (128, 805, 256)),
+    ("training matching", (16, 3220, 2)),
+    ("training propagation", (16, 3220, 2))]
+
+
+@pytest.mark.parametrize("name,shape", GMFLOW256_CLASSES)
+def test_gmflow256_classes_take_wgmma_unsplit(name, shape):
+    """Every flash call of GMFlow at 256 channels takes the wgmma route,
+    unsplit, forward and backward: two warpgroups (128 queries) a block at
+    D = 256, one (64) at D = 2, 64-key tiles, the blocks' shared memory
+    :func:`wgmma_smem`'s."""
+    b, l, d = shape
+    p = tf.plan(b, l, l, 256, d, torch.bfloat16)
+    assert (p.route, p.splits, p.c_pad, p.d_pad) == ("wgmma", 1, 256, d)
+    assert p.scratch_out is p.scratch_ml is None
+    wgs = 2 if d == 256 else 1
+    assert (p.rows, p.tile) == (64 * wgs, 64)
+    assert p.smem == tf.wgmma_smem(256, d, wgs)
+    assert tb.plan(b, l, l, 256, d, torch.bfloat16).route == "wgmma"
+    # the same with a dense bias: two warpgroups at D = 256 either way
+    assert tf.plan(b, l, l, 256, d, torch.bfloat16, bias=True) == p
+
+
+def test_forward_and_backward_share_one_width_predicate():
+    """One predicate names the wgmma widths of both passes, and at every
+    C, D in 1..256 (steps of 5, and every padded edge) both passes name
+    the same bf16 route."""
+    assert tb.wgmma_widths is tf.wgmma_widths
+    widths = sorted(set(range(1, 257, 5)) | {2, 16, 17, 128, 129, 240, 241,
+                                              255, 256})
+    for c in widths:
+        for d in widths:
+            f = tf.plan(3, 200, 200, c, d, torch.bfloat16).route
+            assert f == tb.plan(3, 200, 200, c, d, torch.bfloat16).route
+            assert (f == "wgmma") == tf.wgmma_widths(3, 200, 200, c, d)
+    # rows past int32 in TMA's coordinates leave the route
+    assert not tf.wgmma_widths(2 ** 16, 2 ** 15, 2 ** 15, 256, 256)
+
+
+@pytest.mark.parametrize("w,d", [(128, 128), (128, 2), (256, 256),
+                                 (256, 2)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_wgmma_blocks_fit_an_sm(w, d, bias):
+    """The forward's wgmma blocks (``sm90::FwdSmem``, mirrored by
+    :func:`wgmma_smem`) at every (W, D, bias) instance: within a block's
+    227 KB, and as many blocks an SM as the route counts on (one at D = W,
+    two at W = 256 with D = 2, four at W = 128 with D = 2). The byte
+    counts, from the layout: per warpgroup Q's W / 64 panels of 8 KB, two
+    ring stages of K's and of V's panels (V's 64 bf16 pairs at D = 2, 256
+    bytes a stage), the 40 bytes of mbarriers rounded with the pairs to 1
+    KB, 1 KB of slack."""
+    for b, l in ((8, 1792), (128, 805), (1, 7168), (16, 3220)):
+        wgs = tf.wgmma_warpgroups(b, l, w, d, bias)
+        smem = tf.wgmma_smem(w, d, wgs)
+        assert tf.plan(b, l, l, w, d, torch.bfloat16, bias=bias).smem == smem
+        assert smem <= 232448
+        per_sm = {(128, 2): 4, (256, 2): 2}.get((w, d), 1)
+        assert per_sm * (smem + tf.SMEM_RESERVED) <= tf.SMEM_SM
+        panels = w // 64 * 8192
+        ring_v = 2 * panels if d != 2 else 0
+        assert smem == (wgs + 2) * panels + ring_v + 1024 + 1024
+    assert tf.wgmma_smem(256, 256, 2) == 198656
+    assert tf.wgmma_smem(256, 2, 1) == 100352
+    assert tf.wgmma_smem(128, 128, 3) == 116736
 
 
 def test_split_count_and_tf32_products_are_shared_with_the_backward():

@@ -123,12 +123,12 @@ def test_padding_keeps_the_function_and_its_gradients(c, d):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_plans_at_every_width(dtype):
-    """Every C, D in 1..256: the forward's route (bf16 at widths that pad
-    to C = 128 and D = 2 or 128 the wgmma route, else mma.sync; f32
-    tf32x3, else the CUDA cores), the backward's (the same, but bf16 also
-    takes the wgmma route where the widths pad to C = 256 and D = 2 or
-    256) and the padded widths; the tf32x3 blocks (whose shared memory
-    sets the split) within 227 KB."""
+    """Every C, D in 1..256: the forward's route and the backward's (bf16
+    at widths that pad to C = 128 and D = 2 or 128, or to C = 256 and D =
+    2 or 256, the wgmma route, else mma.sync; f32 at C = 128 and D = 2 or
+    128 tf32x3, else the CUDA cores) and the padded widths; the tf32x3
+    blocks (whose shared memory sets the split) and the forward's wgmma
+    blocks within 227 KB."""
     bf16 = dtype == torch.bfloat16
     for c in range(1, 257):
         for d in range(1, 257):
@@ -137,14 +137,14 @@ def test_plans_at_every_width(dtype):
             wide = cp == 256 and dp in (2, 256)
             f = tf.plan(4, 300, 300, c, d, dtype)
             b = tb.plan(4, 300, 300, c, d, dtype)
-            want_f = (("wgmma" if fast else "mma_sync") if bf16
-                      else ("tf32x3" if fast else "f32"))
-            want_b = (("wgmma" if fast or wide else "mma_sync") if bf16
-                      else ("tf32x3" if fast else "f32"))
-            assert f.route == want_f, (c, d)
-            assert b.route == want_b, (c, d)
+            want = (("wgmma" if fast or wide else "mma_sync") if bf16
+                    else ("tf32x3" if fast else "f32"))
+            assert f.route == want, (c, d)
+            assert b.route == want, (c, d)
             assert (f.c_pad, f.d_pad, b.c_pad, b.d_pad) == (cp, dp, cp, dp)
-            if want_f == "tf32x3":
+            if want == "wgmma":
+                assert 0 < f.smem <= SMEM_BLOCK
+            if want == "tf32x3":
                 assert 0 < f.smem <= SMEM_BLOCK
                 assert 0 < max(b.smem) <= SMEM_BLOCK
 
