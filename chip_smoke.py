@@ -68,10 +68,10 @@ Run from the repository root on a host with one CUDA card. Phases:
    fail the tolerance (three where the tf32x3 route splits a sweep: its
    reduction leaving the last partial out), what hi-only TF32 products
    would give (for information), and two launches that must give the same
-   bits, the C = 128 bf16 routes' bits (the forward's out and LSE, the
-   backward's gradients) against recorded digests (``C128_DIGESTS``, by
-   nvcc release), the autograd Function against
-   a dense softmax, timed in bf16 and
+   bits, the C = 128 and 256 bf16 wgmma routes' bits (the forward's out
+   and LSE, the backward's gradients) against recorded digests
+   (``C128_DIGESTS``, ``C256_DIGESTS``, by nvcc release), the autograd
+   Function against a dense softmax, timed in bf16 and
    in f32 (the 14 + 14 launches of a training step each) against their
    bounds (TFLOP/s, share of the bound; f32 at the split-TF32 and at the
    CUDA cores' f32 peak), the plain version and SDPA's backward; [3g]
@@ -241,7 +241,8 @@ Run from the repository root on a host with one CUDA card. Phases:
    100, 200, 256} x D in {1, 3, 24, 130, 256}, bf16 and f32, forward and
    backward against the plain versions, two launches bit-equal; the C
    side's plans (``kernel_plan``) at every padded width, each block
-   within an SM; widths past 256 and a bias of the wrong shape raise;
+   within an SM; C = 257 and D = 257 (f32) each launching the forward,
+   dq and dk/dv within tolerance; a bias of the wrong shape raises;
    times with a bias at GMFlow's four shape classes (bf16) against the
    bound (the bias's bytes) and SDPA with the bias as ``attn_mask``; then
    GMFlow at 256 channels' flash calls (C = 256, the windows' D = 256) at
@@ -260,23 +261,50 @@ Run from the repository root on a host with one CUDA card. Phases:
 21. GMFlow at 256 channels serving: bf16, 3 pairs of 436x1024 after a
    warm-up, 14 flash + 15 instance norms a pair, every flash forward on
    the wgmma route, no plain version called, ms a pair, peak memory, a
-   profile of one pair (the forward's wgmma and mma.sync kernels' ms);
+   profile of one pair (device busy ms; the forward's wgmma and mma.sync
+   kernels' ms);
 22. GMFlow at 256 channels training: the reference's recipe (bf16, batch
    16 of 368x560, 1 scale, classifier on) on a resident batch, a warm-up
    step and 2 steps with 14 + 14 + 14 flash launches and 15 instance
    norms a step, every flash forward on the wgmma route, no plain version
    called, finite losses, ms a step, peak memory, a profile of one more
-   step (the flash forward's and backward's device ms, the forward's
-   wgmma and mma.sync kernels');
-23. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
-   [18]'s, [21]'s and [22]'s launches too; the flash row also carries the
-   f32 route's times at an f32 pair, ``f32_ms`` and the rest, and the
-   dense bias's at GMFlow's four classes, ``bias_ms`` and the rest, and
-   the 256-channel pair's 14 calls, ``c256_ms`` and the rest with
-   ``c256_mma_sync_ms`` (the step's 14 as ``c256_step_*``); the
-   backward's rows the 256-channel step's, ``c256_ms`` and the rest with
-   ``c256_mma_sync_ms``), the
-   card line, and last the line ``{"ok": true, "device": {...}}``.
+   step (device busy ms; the flash forward's and backward's device ms,
+   dq's and dk/dv's apart, the forward's wgmma and mma.sync kernels');
+3k. (after [22]) the flash kernels past 256: the mma.sync route (bf16)
+   and the CUDA-core route (f32), whose blocks stage C in 128-column
+   panels (Q's, or the backward's resident side's, rows whole where they
+   fit a block) and take D (dq: C; dk/dv: C and D) in 128-column chunks
+   on a grid axis: C in {264, 384, 512, 1000} x D in {2, 3, 384, 512,
+   600} and C = 2000 with D = 2 and 600 (Q's rows a panel at a time),
+   both dtypes, forward and backward against the plain versions, two
+   launches bit-equal, each call's C-side plan (the route, its shared
+   memory the Python mirror's plus the static, no local memory); the
+   Swin mask at C = D = 512 and C = 1000, D = 600 with [3e]'s and [3f]'s
+   planted faults, and in bf16 q's columns past 256 zeroed and v's
+   columns past 256 zeroed, which must fail; a dense bias on both routes
+   (ragged Lk, rows masked whole, its planted faults; with the Swin mask
+   once); the C side's plans from C = 272 to 1024 in steps of 48, each
+   block within an SM; then GMFlow at 512 channels' flash calls (C =
+   512, the windows' D = 512) timed at the serving and the training
+   shapes ([24]'s and [25]'s) against their bounds, the plain versions
+   and SDPA (the backend it ran named, forward and backward);
+23. GMFlow at ``feature_channels = 512``, f32 64x96, 1 scale: card vs CPU
+   ([9]'s 1-scale limits), 14 flash and 15 instance-norm launches;
+24. GMFlow at 512 channels serving, as [21], every flash forward on the
+   mma.sync route;
+25. GMFlow at 512 channels training, as [22], every flash forward on the
+   mma.sync route;
+26. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
+   [18]'s, [21]'s, [22]'s, [24]'s and [25]'s launches too; the flash row
+   also carries the f32 route's times at an f32 pair, ``f32_ms`` and the
+   rest, and the dense bias's at GMFlow's four classes, ``bias_ms`` and
+   the rest, and the 256-channel pair's 14 calls, ``c256_ms`` and the
+   rest with ``c256_mma_sync_ms`` (the step's 14 as ``c256_step_*``), and
+   the 512-channel pair's, ``c512_ms`` and the rest (the step's 14 as
+   ``c512_step_*``); the backward's rows the 256-channel step's,
+   ``c256_ms`` and the rest with ``c256_mma_sync_ms``, and the
+   512-channel step's, ``c512_ms`` and the rest), the card line, and
+   last the line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the package beside this file, it exits non-zero and
@@ -1350,6 +1378,29 @@ def plan_tag(fl, q, k, v, bias=None) -> str:
                           if p["splits"] > 1 else "") + ")")
 
 
+def sdpa_backend(run) -> str:
+    """Which of ``F.scaled_dot_product_attention``'s backends ``run`` (a
+    call of it, or its backward) went through, from the ATen ops it ran:
+    "flash", "cudnn", "efficient" (the CUTLASS memory-efficient kernels)
+    or "math" (plain products and a softmax); "unknown" if none shows."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = " ".join(e.key.lower() for e in prof.key_averages())
+    for backend, keys in (("flash", ("_flash_attention",)),
+                          ("cudnn", ("_cudnn_attention",)),
+                          ("efficient", ("_efficient_attention",)),
+                          ("math", ("_scaled_dot_product_attention_math",
+                                    "_softmax"))):
+        if any(key in names for key in keys):
+            return backend
+    return "unknown"
+
+
 def flash_timing(fl, gen, shapes, grid_w, what, plain, old_route=None):
     """Kernel, SDPA and bound times of each bf16 shape class, its TFLOP/s
     and share of the bound, and the totals over the calls of ``what``
@@ -1382,6 +1433,8 @@ def flash_timing(fl, gen, shapes, grid_w, what, plain, old_route=None):
             l, swin, b, "cuda").to(torch.bfloat16)[:, None]
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q[:, None], k[:, None], vb[:, None], attn_mask=mask))
+        backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], vb[:, None], attn_mask=mask))
         f, e = 2.0 * b * l * l * (c + d), float(b * l * l)
         by = (q.numel() + k.numel() + vb.numel()) * 2 + b * l * d * 4
         t_ops = max(f / BF16_FLOP_PER_S, e / SFU_PER_S)
@@ -1392,7 +1445,8 @@ def flash_timing(fl, gen, shapes, grid_w, what, plain, old_route=None):
               f"{plan_tag(fl, q, k, v)}: kernel {ms * 1e3:.1f} us "
               f"({f / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of its "
               f"bound), " + (f"plain {plain_ms * 1e3:.1f} us, " if plain
-                             else "") + f"SDPA {lib_ms * 1e3:.1f} us, bound "
+                             else "") + f"SDPA ({backend}) {lib_ms * 1e3:.1f} us, "
+              f"bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}: {f / 1e9:.2f} GFLOP, "
               f"{e / 1e6:.1f} M exp, {by / 1e6:.2f} MB); {n} per "
               f"{what.split()[-1]}"
@@ -1596,36 +1650,38 @@ def flash_bwd_compare(fl, fb, what, q, k, v, g, swin) -> float:
     return max(errs)
 
 
-# The bf16 backward's bits at C = 128 (the wgmma route's first width) on
-# two fixed-seed inputs, as the kernels gave them before the route took C =
-# 256: sha256 of dq, dk and dv (first 16 hex digits), by the nvcc release
-# that built the kernels.
 # sha256 prefixes of the C = 128 bf16 wgmma routes' outputs on
-# :func:`c128_digests`'s inputs, by nvcc release: the forward's out and LSE
+# :func:`wgmma_digests`'s inputs, by nvcc release: the forward's out and LSE
 # and the backward's dq, dk, dv, each recorded from the tree before its
 # wgmma route took C = 256 as well
 C128_DIGESTS = {"12.9": {"forward": ("f85cf99233e7b8b9", "014e7f5e48a0fbbe"),
                          "backward": ("dcf4718e1dac69d5",
                                       "4d617edf4f662b03")}}
+# and the C = 256 wgmma routes', recorded from the tree before the
+# mma.sync and CUDA-core kernels took widths past 256
+C256_DIGESTS = {"12.9": {"forward": ("de87da402f7afd75", "0b8c79e72fc87db3"),
+                         "backward": ("595b973e9536bb9a",
+                                      "1c4a235bba5009bb")}}
+WGMMA_DIGESTS = {128: C128_DIGESTS, 256: C256_DIGESTS}
 
 
-def c128_digests(fl, fb) -> dict:
-    """The digests of :data:`C128_DIGESTS`: windows with a Swin region
-    edge inside a tile [8,130,128]x[..,128], and ragged [2,129,128]x
-    [2,65,2], from a generator of their own: "forward" hashes the forward
-    kernel's out and LSE, "backward" the backward kernels' dq, dk, dv from
-    them."""
+def wgmma_digests(fl, fb, c: int = 128) -> dict:
+    """The digests of :data:`WGMMA_DIGESTS` at C = ``c`` (128 or 256):
+    windows with a Swin region edge inside a tile [8,130,c]x[..,c], and
+    ragged [2,129,c]x[2,65,2], from a generator of their own: "forward"
+    hashes the forward kernel's out and LSE, "backward" the backward
+    kernels' dq, dk, dv from them."""
     import hashlib
 
     import torch
     gen = torch.Generator().manual_seed(78)
     digests = {"forward": [], "backward": []}
     for b, lq, lk, d, payload, swin in (
-            (8, 130, 130, 128, "normal", (2, 10, 13, 5, 6)),
+            (8, 130, 130, c, "normal", (2, 10, 13, 5, 6)),
             (2, 129, 65, 2, "flow", None)):
-        q, _, _ = flash_inputs(gen, b, lq, lq, 128, d, torch.bfloat16,
+        q, _, _ = flash_inputs(gen, b, lq, lq, c, d, torch.bfloat16,
                                payload)
-        _, k, v = flash_inputs(gen, b, lk, lk, 128, d, torch.bfloat16,
+        _, k, v = flash_inputs(gen, b, lk, lk, c, d, torch.bfloat16,
                                payload)
         g = torch.randn(b, lq, d, generator=gen).cuda()
         out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
@@ -1706,22 +1762,23 @@ def flash_bwd_phase(gen):
                           v, torch.randn(2, 100, 16, generator=gen).cuda(),
                           None)
 
-    # the C = 128 wgmma routes' bits, against the recorded ones
-    got, release = c128_digests(fl, fb), nvcc_release()
-    want = C128_DIGESTS.get(release)
-    for key, what in (("forward", "forward's (out, LSE)"),
-                      ("backward", "backward's (dq, dk, dv)")):
-        if want is None:
-            print(f"  the C = 128 bf16 {what} bits (sha256): {got[key]}, not "
-                  f"compared: recorded with nvcc "
-                  f"{', '.join(C128_DIGESTS)}, built with {release}",
-                  flush=True)
-            continue
-        print(f"  the C = 128 bf16 {what} bits (sha256): {got[key]}, "
-              f"recorded {want[key]} (nvcc {release})", flush=True)
-        if got[key] != want[key]:
-            fail(f"the C = 128 bf16 {what} bits changed: {got[key]}, "
-                 f"recorded {want[key]}")
+    # the C = 128 and 256 wgmma routes' bits, against the recorded ones
+    release = nvcc_release()
+    for c, recorded in WGMMA_DIGESTS.items():
+        got, want = wgmma_digests(fl, fb, c), recorded.get(release)
+        for key, what in (("forward", "forward's (out, LSE)"),
+                          ("backward", "backward's (dq, dk, dv)")):
+            if want is None:
+                print(f"  the C = {c} bf16 {what} bits (sha256): {got[key]}, "
+                      f"not compared: recorded with nvcc "
+                      f"{', '.join(recorded)}, built with {release}",
+                      flush=True)
+                continue
+            print(f"  the C = {c} bf16 {what} bits (sha256): {got[key]}, "
+                  f"recorded {want[key]} (nvcc {release})", flush=True)
+            if got[key] != want[key]:
+                fail(f"the C = {c} bf16 {what} bits changed: {got[key]}, "
+                     f"recorded {want[key]}")
 
     # the autograd Function in f32 against autograd through a dense softmax
     x = [torch.randn(s, generator=gen).cuda()
@@ -1816,6 +1873,8 @@ def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES,
             o, (ks, vs), go, retain_graph=True), reps=10)
         lib_all = cuda_ms(lambda: torch.autograd.grad(
             o, (qs, ks, vs), go, retain_graph=True), reps=10)
+        backend = sdpa_backend(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), go, retain_graph=True))
         lib_whole += n * lib_all
         # the work each kernel's function needs: dq recomputes S and dP and
         # takes dS . K; dk/dv recomputes S and dP and takes P^T . G and
@@ -1848,7 +1907,8 @@ def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES,
         print(f"  {name} {dtype} [{b},{l},{c}]x[{b},{l},{d}] ({plan.route}"
               f"{splits}): " + "; ".join(line) + f"; the wrapper (delta, "
               f"casts, both) {t_wrap * 1e3:.1f} us, SDPA's whole backward "
-              f"{lib_all * 1e3:.1f} us; plain {t_plain * 1e3:.1f} us; {n} "
+              f"({backend}) {lib_all * 1e3:.1f} us; plain "
+              f"{t_plain * 1e3:.1f} us; {n} "
               f"per step{old}", flush=True)
         del q, k, v, g, out, lse, qs, ks, vs, o, mask, dq, dk, dv
         torch.cuda.empty_cache()
@@ -4792,17 +4852,22 @@ def sequence_parallel_phase(alone_12: float):
 
 BIAS_WIDTHS_C = (1, 8, 24, 100, 200, 256)
 BIAS_WIDTHS_D = (1, 3, 24, 130, 256)
-# GMFlow's four flash shape classes with a dense [B, L, L] bias: name, (B,
-# L, D, payload), calls of the bias-free shape per 1-scale pair or step
+
+
+def wide_shapes(shapes, c: int):
+    """``shapes`` (FLASH_SHAPES or FLASH_TRAIN_SHAPES) at C = c, the
+    windows' D = c, the classes a path calls."""
+    return tuple((name, (b, l, c, c if d == 128 else d, payload, swin), n)
+                 for name, (b, l, _, d, payload, swin), n in shapes if n)
+
+
 # GMFlow at feature_channels = 256: its flash calls at Sintel serving (a
 # 1-scale pair) and at the training recipe (a step), as FLASH_SHAPES and
 # FLASH_TRAIN_SHAPES with C = 256 and the windows' D = 256
-FLASH256_SHAPES = tuple(
-    (name, (b, l, 256, 256 if d == 128 else d, payload, swin), n)
-    for name, (b, l, c, d, payload, swin), n in FLASH_SHAPES if n)
-FLASH256_TRAIN_SHAPES = tuple(
-    (name, (b, l, 256, 256 if d == 128 else d, payload, swin), n)
-    for name, (b, l, c, d, payload, swin), n in FLASH_TRAIN_SHAPES)
+FLASH256_SHAPES = wide_shapes(FLASH_SHAPES, 256)
+FLASH256_TRAIN_SHAPES = wide_shapes(FLASH_TRAIN_SHAPES, 256)
+# GMFlow's four flash shape classes with a dense [B, L, L] bias: name, (B,
+# L, D, payload), calls of the bias-free shape per 1-scale pair or step
 BIAS_SHAPES = (
     ("serving windows", (8, H8 * W8 // 4, 128, "normal"), 12),
     ("training windows", (8 * GM_BATCH, GH8 * GW8 // 4, 128, "normal"), 12),
@@ -4827,38 +4892,44 @@ WIDE_EDGES = (
 )
 
 
-def upper_columns_fault(fl, fb, q, k, v, g, swin) -> None:
-    """A fault only a 256-wide kernel can have: the kernels launched on q
-    and k whose upper 128 columns are zeroed (a kernel that read two of
-    its four panels). The forward's out, held against the plain forward of
-    the full operands, must land over ``bf16_tolerance``; with ``g`` (not
-    None) the backward's gradients, held against the plain backward of the
-    full operands from the full forward's out and LSE, each over
+def upper_columns_fault(fl, fb, q, k, v, g, swin, keep: int = 128,
+                        both: bool = True) -> None:
+    """A fault only a kernel wider than ``keep`` columns can have: the
+    kernels launched on q (and, with ``both``, k) whose columns past
+    ``keep`` are zeroed (at C = 256 and ``keep`` = 128: a kernel that read
+    two of its four panels; at C = 512 and ``keep`` = 256: two of its four
+    128-column panels). The forward's out, held against the plain forward
+    of the full operands, must land over ``bf16_tolerance``; with ``g``
+    (not None) the backward's gradients, held against the plain backward
+    of the full operands from the full forward's out and LSE, each over
     ``bwd_bf16_tolerance``. Prints how far."""
     import torch
-    qz, kz = (torch.cat([t[..., :128], torch.zeros_like(t[..., 128:])], -1)
-              for t in (q, k))
+
+    def cut(t):
+        return torch.cat([t[..., :keep], torch.zeros_like(t[..., keep:])], -1)
+    qz, kz = cut(q), (cut(k) if both else k)
+    what = (f"q and k's columns past {keep}" if both
+            else f"q's columns past {keep}")
     ref_out = fl.flash_softmax_matmul_plain(q, k, v, swin=swin)
     fwd = float(((fl.flash_softmax_matmul(qz, kz, v, swin=swin) - ref_out)
                  .abs() / fl.bf16_tolerance(q, k, v, swin=swin)).max())
-    print(f"    planted fault, q and k's upper 128 columns zeroed, forward: "
-          f"out |d| / tolerance {fwd:.2f} (must exceed 1)", flush=True)
+    print(f"    planted fault, {what} zeroed, forward: out |d| / tolerance "
+          f"{fwd:.2f} (must exceed 1)", flush=True)
     if not fwd > 1.0:
-        fail(f"flash forward at C = 256: the zeroed upper columns pass {fwd}")
+        fail(f"flash forward at C = {q.shape[2]}: {what} zeroed pass {fwd}")
     if g is None:
         return
     out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
     ref = fb.flash_backward_plain(q, k, v, out, lse, g, swin=swin)
     tols = fb.bwd_bf16_tolerance(q, k, v, out, lse, g, swin=swin)
-    cut = fb.flash_backward(qz, kz, v, out, lse, g, swin=swin)
+    got = fb.flash_backward(qz, kz, v, out, lse, g, swin=swin)
     ratios = [float(((x - r).abs() / t).max())
-              for x, r, t in zip(cut, ref, tols)]
-    print(f"    planted fault, q and k's upper 128 columns zeroed, "
-          f"backward: |d| / tolerance (each must exceed 1): dq "
-          f"{ratios[0]:.2f}, dk "
-          f"{ratios[1]:.2f}, dv {ratios[2]:.2f}", flush=True)
+              for x, r, t in zip(got, ref, tols)]
+    print(f"    planted fault, {what} zeroed, backward: |d| / tolerance "
+          f"(each must exceed 1): dq {ratios[0]:.2f}, dk {ratios[1]:.2f}, "
+          f"dv {ratios[2]:.2f}", flush=True)
     if not min(ratios) > 1.0:
-        fail(f"flash backward at C = 256: the zeroed upper columns pass "
+        fail(f"flash backward at C = {q.shape[2]}: {what} zeroed pass "
              f"{ratios}")
 
 
@@ -5148,18 +5219,31 @@ def flash_bias_width_phase(gen):
           "bytes: " + ", ".join(f"{r} {'bf16' if b else 'f32'} {n}"
                                 for (r, b), n in sorted(largest.items())),
           flush=True)
-    # widths past 256 raise, as a bias of another shape does
-    q = torch.randn(1, 8, 257, device="cuda")
-    for call in (lambda: fl.flash_softmax_matmul(q, q, q[..., :8]),
-                 lambda: fl.flash_softmax_matmul(q[..., :8], q[..., :8], q),
-                 lambda: fl.flash_softmax_matmul(
-                     q[..., :8], q[..., :8], q[..., :8],
-                     bias=torch.zeros(1, 8, device="cuda"))):
-        try:
-            call()
-        except ValueError:
-            continue
-        fail("[3j] a width past 256 or a bias of the wrong shape ran")
+    # widths past 256 run the kernels (C = 257 with D = 8, C = 8 with D =
+    # 257: forward, dq and dk/dv each launched once, within tolerance of
+    # the plain versions; [3k] holds them at every width); a bias of
+    # another shape raises
+    past_gen = torch.Generator().manual_seed(86)
+    for c, d in ((257, 8), (8, 257)):
+        q, k, v = flash_inputs(past_gen, 1, 8, 8, c, d, torch.float32)
+        before = launch_counts()
+        r = flash_width_compare(fl, fb, f"C={c} D={d}", q, k, v,
+                                torch.randn_like(v))
+        ran = {key: launch_counts()[key] - before[key]
+               for key in ("flash", "flash_bwd_dq", "flash_bwd_dkv")}
+        print(f"  C={c} D={d} f32 (past 256): launches {ran}; |d| / "
+              f"tolerance out {r[0]:.3f}, lse {r[1]:.3f}, dq {r[2]:.3f}, dk "
+              f"{r[3]:.3f}, dv {r[4]:.3f}", flush=True)
+        if ran != dict(flash=2, flash_bwd_dq=2, flash_bwd_dkv=2) \
+                or not max(r) <= 1.0:
+            fail(f"[3j] C={c} D={d}: launches {ran}, |d| / tolerance {r}")
+    q = torch.randn(1, 8, 8, device="cuda")
+    try:
+        fl.flash_softmax_matmul(q, q, q, bias=torch.zeros(1, 8, device="cuda"))
+    except ValueError:
+        pass
+    else:
+        fail("[3j] a bias of the wrong shape ran")
 
     # times with a bias at GMFlow's shape classes (bf16), against the
     # bound (the bias's bytes read once set it) and SDPA with the bias as
@@ -5285,7 +5369,19 @@ def flash_bias_width_phase(gen):
                 bias_library_ms=total["library_ms"], **c256), worst, wide
 
 
-def gmflow256_parity_phase():
+# GMFlow at feature_channels = 256 ([20]-[22]; the wgmma routes) and 512
+# ([23]-[25]; the mma.sync route): the phases' numbers, the route every
+# flash forward of the bf16 paths takes, and the flash kernels by name in
+# their profiles
+WIDE_GMFLOW = {256: ((20, 21, 22), "wgmma"), 512: ((23, 24, 25), "mma_sync")}
+FLASH_BWD_NAMED = [("the flash backward kernels (14 dq + 14 dk/dv)",
+                    ("flash_bwd_",)),
+                   ("the flash backward's dq kernels", ("flash_bwd_dq_",)),
+                   ("the flash backward's dk/dv kernels", ("flash_bwd_dkv_",)),
+                   ("the flash forward kernels (14)", ("flash_fwd_",))]
+
+
+def gmflow_wide_parity_phase(channels: int):
     import copy
 
     import numpy as np
@@ -5293,11 +5389,12 @@ def gmflow256_parity_phase():
     from opticalflowfromdepth_torch.eval.infer import gmflow_infer_fn
     from opticalflowfromdepth_torch.models.gmflow import GMFlow
 
-    print("[20] GMFlow at 256 channels, 64x96, f32, 1 scale: card vs CPU",
-          flush=True)
+    phase = WIDE_GMFLOW[channels][0][0]
+    print(f"[{phase}] GMFlow at {channels} channels, 64x96, f32, 1 scale: "
+          f"card vs CPU", flush=True)
     rng = np.random.default_rng(19)
     i1, i2 = smooth_pairs(rng, 1, 64, 96)
-    model = GMFlow(feature_channels=256,
+    model = GMFlow(feature_channels=channels,
                    generator=torch.Generator().manual_seed(20))
     sp, cr, pr = GMFLOW_RECIPES[1]
     cpu = gmflow_infer_fn(copy.deepcopy(model), sp, cr, pr,
@@ -5306,28 +5403,29 @@ def gmflow256_parity_phase():
     gpu = gmflow_infer_fn(model, sp, cr, pr, device="cuda")(i1, i2)
     got = launch_counts()
     if got != want_launches(flash=14, instance_norm=15):
-        fail(f"GMFlow-256 64x96 launch counts {got}")
+        fail(f"GMFlow-{channels} 64x96 launch counts {got}")
     d = np.abs(gpu - cpu)
     print(f"  |flow| max {np.abs(cpu).max():.3f} px; launches {got}",
           flush=True)
     # f32 both sides (TF32 off): [9]'s 1-scale limits
-    check("256-channel flow card vs CPU (px)", float(d.max()), 2e-2)
+    check(f"{channels}-channel flow card vs CPU (px)", float(d.max()), 2e-2)
     check("  median (px)", float(np.median(d)), 1e-2)
 
 
-def gmflow256_serving_phase():
+def gmflow_wide_serving_phase(channels: int):
     import numpy as np
     import torch
     from opticalflowfromdepth_torch.eval.infer import gmflow_infer_fn
     from opticalflowfromdepth_torch.eval.padder import InputPadder
     from opticalflowfromdepth_torch.models.gmflow import GMFlow
 
-    print(f"[21] GMFlow at 256 channels serving: bf16, 1 scale, 3 pairs of "
-          f"{SINTEL[0]}x{SINTEL[1]} (padding factor 16)", flush=True)
+    (_, phase, _), route = WIDE_GMFLOW[channels]
+    print(f"[{phase}] GMFlow at {channels} channels serving: bf16, 1 scale, 3 "
+          f"pairs of {SINTEL[0]}x{SINTEL[1]} (padding factor 16)", flush=True)
     rng = np.random.default_rng(21)
     pairs = [[rng.uniform(0, 255, (1,) + SINTEL + (3,)).astype(np.float32)
               for _ in range(2)] for _ in range(4)]
-    model = GMFlow(feature_channels=256, dtype=torch.bfloat16,
+    model = GMFlow(feature_channels=channels, dtype=torch.bfloat16,
                    generator=torch.Generator().manual_seed(22))
     infer = gmflow_infer_fn(model, *GMFLOW_RECIPES[1], device="cuda")
     padder = InputPadder(pairs[0][0].shape, padding_factor=16)
@@ -5349,15 +5447,15 @@ def gmflow256_serving_phase():
             times.append((time.perf_counter() - t) * 1e3)
             if flow.shape != (1,) + SINTEL + (2,) \
                     or not np.isfinite(flow).all():
-                fail(f"GMFlow-256 serving flow {flow.shape}, finite="
+                fail(f"GMFlow-{channels} serving flow {flow.shape}, finite="
                      f"{bool(np.isfinite(flow).all())}")
-    plain.check("GMFlow-256 serving")
+    plain.check(f"GMFlow-{channels} serving")
     launches = launch_counts()
     n = len(times)
-    routes.check("GMFlow-256 serving", {"wgmma": 14 * n})
+    routes.check(f"GMFlow-{channels} serving", {route: 14 * n})
     print(f"  launches over {n} pairs: {launches}", flush=True)
     if launches != want_launches(flash=14 * n, instance_norm=15 * n):
-        fail(f"GMFlow-256 serving launch counts {launches}")
+        fail(f"GMFlow-{channels} serving launch counts {launches}")
     print(f"  ms per pair: {[round(x, 3) for x in times]} (mean "
           f"{sum(times) / n:.3f}); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; |flow| "
@@ -5367,7 +5465,7 @@ def gmflow256_serving_phase():
     return launches
 
 
-def gmflow256_train_phase():
+def gmflow_wide_train_phase(channels: int):
     import math
 
     import numpy as np
@@ -5375,10 +5473,11 @@ def gmflow256_train_phase():
     from opticalflowfromdepth_torch.data.loader import to_device
     from opticalflowfromdepth_torch.train import gmflow_train as gt
 
+    (_, _, phase), route = WIDE_GMFLOW[channels]
     b, (h, w) = GM_BATCH, GM_CROP
-    print(f"[22] GMFlow at 256 channels training: 2 steps of the reference "
-          f"recipe (batch {b} of {h}x{w}, bf16, 1 scale, classifier on) on a "
-          "resident batch", flush=True)
+    print(f"[{phase}] GMFlow at {channels} channels training: 2 steps of the "
+          f"reference recipe (batch {b} of {h}x{w}, bf16, 1 scale, classifier "
+          f"on) on a resident batch", flush=True)
     rng = np.random.default_rng(23)
     i1, i2 = smooth_pairs(rng, b, h, w)
     batch = to_device(dict(
@@ -5388,7 +5487,7 @@ def gmflow256_train_phase():
         label=np.eye(4, dtype=np.float32)[rng.integers(0, 4, b)]), "cuda")
     cfg = gt.GMFlowTrainConfig(batch_size=b, image_size=GM_CROP,
                                mixed_precision=True, add_classifier=True,
-                               feature_channels=256)
+                               feature_channels=channels)
     state = gt.init_state(cfg, seed=3)
     step = gt.make_train_step(cfg, seeded_classifier(4, torch.bfloat16))
     t = time.perf_counter()
@@ -5405,8 +5504,8 @@ def gmflow256_train_phase():
             state, m = step(state, batch, None)
             losses.append(float(m["total_loss"]))        # waits for the card
             times.append((time.perf_counter() - t) * 1e3)
-    plain.check("GMFlow-256 training")
-    routes.check("GMFlow-256 training", {"wgmma": 28})
+    plain.check(f"GMFlow-{channels} training")
+    routes.check(f"GMFlow-{channels} training", {route: 28})
     launches = launch_counts()
     want = want_launches(flash=28, flash_bwd_dq=28, flash_bwd_dkv=28,
                          instance_norm=30)
@@ -5416,18 +5515,178 @@ def gmflow256_train_phase():
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
     if launches != want:
-        fail(f"GMFlow-256 training launch counts {launches}, want {want}")
+        fail(f"GMFlow-{channels} training launch counts {launches}, want "
+             f"{want}")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"GMFlow-256 training loss not finite: {losses}")
+        fail(f"GMFlow-{channels} training loss not finite: {losses}")
     # one more step under the profiler (after the counts are read): the
     # step's busy time and its flash kernels' share, on the card's clock
     profile(lambda: step(state, batch, None), sum(times) / len(times),
-            "step", named=[
-                ("the flash backward kernels (14 dq + 14 dk/dv)",
-                 ("flash_bwd_",)),
-                ("the flash forward kernels (14)", ("flash_fwd_",))]
-            + FLASH_FWD_NAMED)
+            "step", named=FLASH_BWD_NAMED + FLASH_FWD_NAMED)
     return launches
+
+
+# --------------------------------------------------------------------------
+# slice 18: the flash kernels past 256 ([3k]); GMFlow at 512 channels
+# ([23], [24], [25])
+# --------------------------------------------------------------------------
+
+WIDE_C = (264, 384, 512, 1000)
+WIDE_D = (2, 3, 384, 512, 600)
+# GMFlow at feature_channels = 512: its flash calls at Sintel serving and
+# at the training recipe, C = 512 and the windows' D = 512
+FLASH512_SHAPES = wide_shapes(FLASH_SHAPES, 512)
+FLASH512_TRAIN_SHAPES = wide_shapes(FLASH_TRAIN_SHAPES, 512)
+WIDE_SWIN = (2, 10, 13, 5, 6)      # a region edge inside a key tile
+
+
+def flash_wide_phase(gen):
+    import torch
+    import torch.nn.functional as F
+    from opticalflowfromdepth_torch.ops import flash as fl
+    from opticalflowfromdepth_torch.ops import flash_bwd as fb
+
+    print("[3k] flash past 256: the mma.sync (bf16) and CUDA-core (f32) "
+          "routes at C and D past 256, forward and backward, CUDA kernels "
+          "vs plain", flush=True)
+    # every C x D of WIDE_C x WIDE_D and C = 2000 (Q's rows staged a panel
+    # at a time), both dtypes: forward and backward against the plain
+    # versions, each twice, bit-equal; the C side's plan of each (the
+    # route, the Python mirror's shared memory plus the static, no local
+    # memory, a block an SM at least)
+    width_gen = torch.Generator().manual_seed(80)
+    worst = []
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        route = "mma_sync" if bf16 else "f32"
+        for c, d in [(c, d) for c in WIDE_C for d in WIDE_D] + [
+                (2000, 2), (2000, 600)]:
+            q, _, _ = flash_inputs(width_gen, 2, 150, 150, c, d, dtype)
+            _, k, v = flash_inputs(width_gen, 2, 130, 130, c, d, dtype)
+            g = torch.randn(2, 150, d, generator=width_gen).cuda()
+            r = flash_width_compare(fl, fb, f"C={c} D={d} {dtype}", q, k, v,
+                                    g)
+            worst.append(max(r))
+            cp, dp = fl.padded_widths(c, d)
+            plans = dict(forward=(fl.kernel_plan(2, 150, 130, c, d, bf16),
+                                  fl.plan(2, 150, 130, c, d, dtype).smem),
+                         **{key: (p, mirror) for (key, p), mirror in zip(
+                             fb.kernel_plan(2, 150, 130, c, d, bf16).items(),
+                             fb.plan(2, 150, 130, c, d, dtype).smem)})
+            for key, (p, mirror) in plans.items():
+                if p["route"] != route or not 0 <= p["smem"] - mirror < 1024 \
+                        or p["local"] or p["per_sm"] < 1:
+                    fail(f"[3k] C={c} D={d} {dtype} {key}: plan {p}, the "
+                         f"Python mirror's shared memory {mirror}")
+            print(f"  widths {dtype} C={c} D={d} (padded {cp}x{dp}; "
+                  + "; ".join(f"{key} {p['route']}, {p['chunks']} chunk(s), "
+                              f"{p['smem']} B shared, {p['regs']} registers, "
+                              f"{p['per_sm']} a SM"
+                              for key, (p, _) in plans.items())
+                  + f"): |d| / tolerance out {r[0]:.3f}, lse {r[1]:.3f}, dq "
+                  f"{r[2]:.3f}, dk {r[3]:.3f}, dv {r[4]:.3f}; two launches "
+                  f"bit-equal", flush=True)
+            del q, k, v, g
+    check("every width past 256, forward and backward, |d| / tolerance",
+          max(worst), 1.0)
+    # the Swin mask at C = D = 512 and C = 1000, D = 600 ([3e]'s and
+    # [3f]'s checks: the planted faults, two launches bit-equal); in bf16
+    # q's columns past 256 zeroed (the kernels must read every panel) and
+    # v's columns past 256 zeroed (every D chunk), which must fail
+    swin_gen = torch.Generator().manual_seed(81)
+    err_fwd = err_bwd = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, d in ((512, 512), (1000, 600)):
+            q, _, _ = flash_inputs(swin_gen, 8, 130, 130, c, d, dtype)
+            _, k, v = flash_inputs(swin_gen, 8, 130, 130, c, d, dtype)
+            g = torch.randn(8, 130, d, generator=swin_gen).cuda()
+            case = f"wide Swin {dtype} [8,130,{c}]x[8,130,{d}]"
+            err_fwd = max(err_fwd, flash_compare(
+                fl, case + plan_tag(fl, q, k, v), q, k, v, WIDE_SWIN))
+            route = fb.plan(8, 130, 130, c, d, dtype).route
+            err_bwd = max(err_bwd, flash_bwd_compare(
+                fl, fb, f"{case} ({route})", q, k, v, g, WIDE_SWIN))
+            if dtype == torch.bfloat16:
+                upper_columns_fault(fl, fb, q, k, v, g, WIDE_SWIN, keep=256,
+                                    both=False)
+                vz = torch.cat([v[..., :256], torch.zeros_like(v[..., 256:])],
+                               -1)
+                ref = fl.flash_softmax_matmul_plain(q, k, v, swin=WIDE_SWIN)
+                cut = float(((fl.flash_softmax_matmul(
+                    q, k, vz, swin=WIDE_SWIN) - ref).abs()
+                    / fl.bf16_tolerance(q, k, v, swin=WIDE_SWIN)).max())
+                print(f"    planted fault, v's columns past 256 zeroed, "
+                      f"forward: out |d| / tolerance {cut:.2f} (must exceed "
+                      f"1)", flush=True)
+                if not cut > 1.0:
+                    fail(f"[3k] {case}: v's columns past 256 zeroed pass")
+            del q, k, v, g
+    # a dense bias on both routes past 256: Lk ragged, rows the bias masks
+    # whole, the planted faults (its last key column dropped)
+    bias_gen = torch.Generator().manual_seed(82)
+    for dtype, c, d, b, lq, lk, swin in (
+            (torch.bfloat16, 512, 512, 2, 333, 301, None),
+            (torch.bfloat16, 512, 2, 2, 333, 301, None),
+            (torch.bfloat16, 1000, 600, 2, 333, 301, None),
+            (torch.bfloat16, 512, 512, 8, 130, 130, WIDE_SWIN),
+            (torch.float32, 512, 512, 2, 333, 301, None),
+            (torch.float32, 1000, 3, 2, 333, 301, None)):
+        q, _, _ = flash_inputs(bias_gen, b, lq, lq, c, d, dtype)
+        _, k, v = flash_inputs(bias_gen, b, lk, lk, c, d, dtype)
+        bias = torch.randn(b, lq, lk, generator=bias_gen).cuda()
+        bias[..., -1] += 8.0
+        rows = [0, lq // 2, lq - 1]
+        bias[b - 1, rows] = -1e30
+        err_fwd = max(err_fwd, flash_bias_compare(
+            fl, f"wide bias {dtype} [{b},{lq},{c}]x[{b},{lk},{d}]"
+            + (f" swin {swin}" if swin else ""), q, k, v, bias, swin=swin,
+            plant=True, masked_rows=(b - 1, rows)))
+        del q, k, v, bias
+    # the C side's plans past 256 (C 272..1024 and D 2 or 272..1024, in
+    # steps of 48; both dtypes; forward with a bias and without, dq,
+    # dk/dv): every block fits an SM
+    largest = {}
+    for bf16 in (True, False):
+        for cp in range(272, 1025, 48):
+            for dp in [2] + list(range(272, 1025, 48)):
+                plans = [fl.kernel_plan(4, 300, 300, cp, dp, bf16, bias)
+                         for bias in (False, True)]
+                plans += list(fb.kernel_plan(4, 300, 300, cp, dp,
+                                             bf16).values())
+                for p in plans:
+                    if p["per_sm"] < 1 or p["smem"] > 232448:
+                        fail(f"[3k] C={cp} D={dp} bf16={bf16}: a block the "
+                             f"card cannot hold: {p}")
+                    key = (p["route"], bf16)
+                    largest[key] = max(largest.get(key, 0), p["smem"])
+    print("  the C side's plans past 256 (C 272..1024, D 2 or 272..1024, "
+          "steps of 48, both dtypes): every block fits an SM; the largest a "
+          "route takes, bytes: " + ", ".join(
+              f"{r} {'bf16' if b else 'f32'} {n}"
+              for (r, b), n in sorted(largest.items())), flush=True)
+    # GMFlow at 512 channels' flash calls, timed against their bounds, the
+    # plain versions and SDPA (its backend named): a serving pair's 14
+    # forwards, a training step's 14 forwards, 14 dq and 14 dk/dv
+    pair, _ = flash_timing(fl, torch.Generator().manual_seed(83),
+                           FLASH512_SHAPES, W8, "512-channel pair",
+                           plain=True)
+    step, _ = flash_timing(fl, torch.Generator().manual_seed(84),
+                           FLASH512_TRAIN_SHAPES, GW8, "512-channel step",
+                           plain=False)
+    wide = flash_bwd_timing(fl, fb, F, torch.Generator().manual_seed(85),
+                            torch.bfloat16, FLASH512_TRAIN_SHAPES)
+    # the kernels line's rows: the flash row carries the 512-channel pair's
+    # 14 forwards as c512_* and the step's 14 as c512_step_*; the
+    # backward's rows the step's 14 launches as c512_*
+    c512 = {f"c512_{key}": pair[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    c512 |= {f"c512_step_{key}": step[key] for key in (
+        "ms", "bound_ms", "bound_by", "library_ms")}
+    wide = {rec["name"]: {f"c512_{key}": rec[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for rec in wide}
+    worst = dict(flash=err_fwd, flash_bwd_dq=err_bwd, flash_bwd_dkv=err_bwd)
+    return c512, worst, wide
 
 
 def main() -> None:
@@ -5542,11 +5801,26 @@ def main() -> None:
     flash.update(bias)
     for k in flash_bwd:
         k.update(wide[k["name"]])
-    timed("20", gmflow256_parity_phase)
-    served = timed("21", gmflow256_serving_phase)
-    trained = timed("22", gmflow256_train_phase)
+    timed("20", gmflow_wide_parity_phase, 256)
+    served = timed("21", gmflow_wide_serving_phase, 256)
+    trained = timed("22", gmflow_wide_train_phase, 256)
     # the flash rows gain the launches of [21]'s and [22]'s paths, and the
     # largest error of [3j]'s comparisons at those paths' shapes
+    for k in kernels:
+        if k["name"] in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
+            k["launches"] += served[k["name"]] + trained[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], worst[k["name"]])
+    # slice 18: the flash kernels past 256, then GMFlow at 512 channels
+    c512, worst, wide = timed("3k", flash_wide_phase,
+                              torch.Generator().manual_seed(79))
+    flash.update(c512)
+    for k in flash_bwd:
+        k.update(wide[k["name"]])
+    timed("23", gmflow_wide_parity_phase, 512)
+    served = timed("24", gmflow_wide_serving_phase, 512)
+    trained = timed("25", gmflow_wide_train_phase, 512)
+    # the flash rows gain the launches of [24]'s and [25]'s paths, and the
+    # largest error of [3k]'s comparisons
     for k in kernels:
         if k["name"] in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
             k["launches"] += served[k["name"]] + trained[k["name"]]
@@ -5556,13 +5830,14 @@ def main() -> None:
              "library_ms")
     print(f"seconds per phase: {seconds}", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
-    # the flash row also carries the f32 route's numbers (f32_*) and the
-    # dense bias's (bias_*); the backward's rows the 256-channel step's
-    # (c256_*)
+    # the flash row also carries the f32 route's numbers (f32_*), the
+    # dense bias's (bias_*) and the 256- and 512-channel pair's and step's
+    # (c256_*, c512_*); the backward's rows the 256- and 512-channel
+    # step's (c256_*, c512_*)
     print(json.dumps({"kernels": [
         {**{k: kern[k] for k in order},
          **{k: v for k, v in kern.items()
-            if k.startswith(("f32_", "bias_", "c256_"))}}
+            if k.startswith(("f32_", "bias_", "c256_", "c512_"))}}
         for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,12 @@
 // copy of the bias is made (flash_common.cuh:bias_pair). With a bias the
 // scores' bound is its bytes, B Lq Lk 4, read once at 3.35 TB/s.
 //
-// Widths: C % 16 == 0 and D == 2 or D % 16 == 0, up to 256 each
-// (ops/flash.py pads other widths with zero columns and slices the output
-// back). Only C = 128 with D = 128 or 2 takes the tf32x3 route, and only
-// that and C = 256 with D = 256 or 2 the wgmma route.
+// Widths: C % 16 == 0 and D == 2 or D % 16 == 0, any width up to MAX_WIDTH
+// (65,535 chunks of 128 columns on a grid axis; ops/flash.py pads other
+// widths with zero columns and slices the output back). Only C = 128 with
+// D = 128 or 2 takes the tf32x3 route, and only that and C = 256 with D =
+// 256 or 2 the wgmma route; every other width the mma.sync route (bf16) or
+// the CUDA-core route (f32).
 //
 // The Swin shifted-window mask is computed from the global query and key
 // indices, as the TPU kernel does: the window id is the batch index mod
@@ -89,22 +91,29 @@
 // 132 SMs (and at C = 256, D = 256 the serving windows' 112 blocks of 128
 // queries fill 112 of 132 SMs once).
 //
-// Other bf16 widths (C % 16 == 0, C <= 256; D = 2 or D % 16 == 0, D <=
-// 256): the mma.sync route, one block of 4 warps per (batch entry,
-// 64-query tile, chunk of 128 output columns: at D > 128 each chunk's
-// blocks recompute S, which keeps the accumulators at 64 registers); each
-// warp owns 16 query rows, whose Q fragments stay in registers for the
-// whole key sweep at C <= 128 and are loaded from the block's Q rows in
-// shared memory per k-step at C > 128. Per 64-key tile, K (and V) are staged in shared
-// memory (rows padded by 8 bf16, so the fragment loads hit 32 distinct
-// banks); S = Q K^T with mma.sync m16n8k16 (bf16 in, f32 accumulate); the
+// Other bf16 widths (C % 16 == 0; D = 2 or D % 16 == 0; any width, GMFlow
+// at 512 channels' C = 512 with D = 512 or 2 among them): the mma.sync
+// route, one block of 4 warps per (batch entry, 64-query tile, chunk of 128
+// output columns: at D > 128 each chunk's blocks recompute S, which keeps
+// the accumulators at 64 registers at any D); each warp owns 16 query rows,
+// whose Q fragments stay in registers for the whole key sweep at C <= 128
+// and are loaded per k-step from the block's Q rows in shared memory at C >
+// 128: resident for the sweep where they fit a block (C up to about 1,500),
+// else staged a 128-column panel at a time beside K's. Per 64-key tile, K
+// is staged in panels of 128 columns (so a block's shared memory stays
+// within 227 KB at any C: 101 KB at C = D = 512, Q resident) and V's chunk
+// with the first, by 16-byte cp.async (rows padded by 8 bf16, so the
+// fragment loads hit 32 distinct banks); S = Q K^T with mma.sync m16n8k16
+// (bf16 in, f32 accumulate, k-step after k-step in C's order at any width); the
 // scale, the Swin mask and the key padding; the running max and
 // denominator per row, reduced over the 4 lanes that share a row with
 // shuffles; P rounded to bf16 as above. D % 16 == 0: P . V on the tensor
 // cores too, S's accumulator fragments being P's A fragments; D == 2: P .
-// V on the CUDA cores in f32. No GMFlow call takes it (at 256 channels
-// the wgmma route replaced it; ops/flash.py:launcher(route="mma_sync")
-// still forces it, to time it beside that route).
+// V on the CUDA cores in f32. Every call of GMFlow at 512 channels takes
+// it (at 256 channels the wgmma route replaced it;
+// ops/flash.py:launcher(route="mma_sync") still forces it there, to time
+// it beside that route). Its limits: K's panels are staged synchronously
+// (no ring), and at D > 128 each chunk recomputes S over all of C.
 //
 // f32 at C = 128 and D = 128 or 2 (every sequence-parallel ring step,
 // whatever the model's dtype, and every flash call of an f32 GMFlow): the
@@ -133,12 +142,16 @@
 // tf32 operands are read K-major only, so P . V would need V transposed,
 // in hi and lo pieces, in shared memory.
 //
-// Other f32 widths (C % 16 == 0; D = 2 or D % 16 == 0; up to 256, where
-// its shared memory is 197 KB; and the route that GMFlow's widths took
-// before the tf32x3 one, when a caller forces it): f32 FMA on the CUDA
-// cores, no TF32: one thread per query row (64 a block), the query tile
-// and the row accumulators in shared memory, K and V in 32-key tiles read
-// by every thread at the same address (broadcast).
+// Other f32 widths (C % 16 == 0; D = 2 or D % 16 == 0; any width; and the
+// route that GMFlow's widths took before the tf32x3 one, when a caller
+// forces it): f32 FMA on the CUDA cores, no TF32: one thread per query row
+// (64 a block), one block per chunk of 128 output columns (a grid axis;
+// each chunk's blocks recompute S), the query tile (resident where it fits,
+// else a 128-column panel at a time) and the row accumulators in shared
+// memory, K in 32-key tiles of 128-column panels and V's chunk read by
+// every thread at the same address (broadcast), staged by 4-byte cp.async.
+// A block's shared memory stays within 227 KB at any width (197 KB at C =
+// D = 512, Q resident; 99 KB where Q is staged in panels).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,50 +164,76 @@
 #define BK 64         // keys per tile (both bf16 routes)
 #define WARPS 4
 #define PAD 8         // bf16 elements appended to each shared row
+#define PCOLS 128     // columns of C a panel (mma.sync and CUDA-core routes)
 #define F32_BQ 64     // query rows (= threads) per block (f32 path)
 #define F32_BK 32     // keys per tile (f32 path)
+#define F32_DC 128    // output columns a block (f32 path; a grid axis)
 // Dynamic shared memory above which a launch must raise the kernel's limit
 // first: the default 48 KB holds the static shared memory too (under 1 KB
 // in these kernels).
 #define SMEM_DEFAULT (48 * 1024 - 1024)
+// Dynamic shared memory a block of the mma.sync and CUDA-core routes may
+// take: 227 KB less 1 KB for its static shared memory.
+#define SMEM_BLOCK (232448 - 1024)
 
-// Copy rows [r0, r0 + BK) of the first W columns of a bf16 matrix whose
-// rows are `stride` apart into a [BK, W + PAD] shared tile with 16-byte
-// vectors; rows >= L are zero.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+using hopper::cp_async_4;
+using hopper::cp_async_16;
+using hopper::cp_async_wait_all;
+
+// Copy rows [r0, r0 + BK) of W columns (W % 8 == 0) of a bf16 matrix whose
+// rows are `stride` apart into [BK][ld] shared rows by 16-byte cp.async
+// copies; rows >= L are zeros. The caller waits and syncs.
+__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src,
                                            int r0, int L, int W, int stride) {
   const int vecs = W / 8;
-  const int ld = W + PAD;
   for (int i = threadIdx.x; i < BK * vecs; i += WARPS * 32) {
     const int r = i / vecs, c = (i - r * vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * stride +
-                                            c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    const bool ok = r0 + r < L;
+    cp_async_16(dst + r * ld + c,
+                ok ? src + (long long)(r0 + r) * stride + c : src,
+                ok ? 16u : 0u);
+  }
+}
+
+// Rows [r0, r0 + n) of W columns of an f32 matrix whose rows are `stride`
+// apart into [n][ld] shared rows by 4-byte cp.async copies (any ld, so rows
+// may be padded to an odd count of floats); rows >= L are zeros. The caller
+// waits and syncs.
+__device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
+                                          int r0, int n, int L, int W,
+                                          int stride) {
+  for (int i = threadIdx.x; i < n * W; i += blockDim.x) {
+    const int r = i / W, c = i - r * W;
+    const bool ok = r0 + r < L;
+    cp_async_4(dst + r * ld + c,
+               ok ? src + (long long)(r0 + r) * stride + c : src,
+               ok ? 4u : 0u);
   }
 }
 
 // The mma.sync route. One block per (64 query rows, batch entry, chunk of
-// DMAX output columns: blockIdx.z; each chunk's blocks recompute S).
-// C <= 128 (CMAX 128): Q's A fragments stay in registers for the sweep;
-// C <= 256 (CMAX 256): the block's Q rows wait in shared memory and each
-// k-step loads its fragments, which keeps the registers of C = 128.
-template <int CMAX, int DMAX, bool PAYLOAD2, bool BIAS>
+// DMAX output columns: blockIdx.z; each chunk's blocks recompute S). S =
+// Q K^T is summed over C in panels of PCOLS columns, each key tile's K staged
+// a panel at a time, k-step after k-step in the order of C at any width.
+// QREG (C <= 128): Q's A fragments stay in registers for the sweep. Else
+// each k-step loads them from Q's rows in shared memory: resident for the
+// sweep where they fit (qres: [BQ][C + PAD], staged once), else staged a
+// panel at a time beside K's ([BQ][PCOLS + PAD]).
+template <bool QREG, int DMAX, bool PAYLOAD2, bool BIAS>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const float* __restrict__ bias,
                float* __restrict__ out, float* __restrict__ lse, int Lq,
-               int Lk, int C, int D, float scale, Swin sw) {
-  constexpr bool QSHARED = CMAX > 128;
+               int Lk, int C, int D, float scale, Swin sw, int qres) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int d0 = PAYLOAD2 ? 0 : blockIdx.z * DMAX;
   const int Dc = PAYLOAD2 ? 2 : min(DMAX, D - d0);  // this chunk's columns
-  const int cs = C + PAD, ds = Dc + PAD;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);                 // [BK][cs]
-  bf16* Vs = Ks + BK * cs;                                  // [BK][ds]
+  const int ks = min(C, PCOLS) + PAD, ds = Dc + PAD;
+  const int qs = qres ? C + PAD : PCOLS + PAD;         // a shared row of Q
+  bf16* Ks = reinterpret_cast<bf16*>(smem);                 // [BK][ks]
+  bf16* Vs = Ks + BK * ks;                                  // [BK][ds]
   float2* V2 = reinterpret_cast<float2*>(Vs);               // [BK] (D == 2)
-  bf16* Qs = Vs + (PAYLOAD2 ? 4 * BK : BK * ds);            // [BQ][cs]
+  bf16* Qs = Vs + (PAYLOAD2 ? 4 * BK : BK * (min(D, DMAX) + PAD));  // [BQ][qs]
   __shared__ int kreg_s[BK];          // Swin region of each key of the tile
 
   const int b = blockIdx.y;
@@ -225,13 +264,11 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool masked = sw.k && (last_y || last_x);
 
   // Q's A fragments (16 rows x 16 channels per k-step), kept for the sweep
-  // (C <= 128), or Q's rows staged once (C > 128; the first tile's
-  // barrier publishes them)
-  constexpr int KSTEPS = CMAX / 16;
-  uint32_t qa[QSHARED ? 1 : KSTEPS][4];
-  if constexpr (QSHARED) {
-    stage_rows(Qs, qb, q0, Lq, C, C);
-  } else {
+  // (C <= 128), or Q's resident rows staged once (the first panel's wait
+  // and barrier publish them)
+  constexpr int KSTEPS = PCOLS / 16;
+  uint32_t qa[QREG ? KSTEPS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
 #pragma unroll
@@ -250,6 +287,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
+  } else if (qres) {
+    stage_rows(Qs, qs, qb, q0, Lq, C, C);
   }
 
   constexpr int DTILES = PAYLOAD2 ? 1 : DMAX / 8;
@@ -262,50 +301,58 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float l[2] = {0.f, 0.f};  // this lane's share of each row's denominator
 
   for (int k0 = 0; k0 < Lk; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    stage_rows(Ks, kb, k0, Lk, C, C);
-    if (PAYLOAD2) {
-      for (int r = threadIdx.x; r < BK; r += WARPS * 32) {
-        float2 val = make_float2(0.f, 0.f);
-        if (k0 + r < Lk) {
-          const __nv_bfloat162 x =
-              *reinterpret_cast<const __nv_bfloat162*>(vb + (k0 + r) * 2LL);
-          val = __bfloat1622float2(x);
-        }
-        V2[r] = val;
-      }
-    } else {
-      stage_rows(Vs, vb + d0, k0, Lk, Dc, D);
-    }
-    if (masked)
-      for (int r = threadIdx.x; r < BK; r += WARPS * 32)
-        kreg_s[r] = swin_region(sw, last_y, last_x, k0 + r);
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys, over the
+    // panels of C; the tile's V (and the keys' regions) with the first
     float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      if (kk * 16 < C) {
-        uint32_t a[4];
-        if constexpr (QSHARED) {
-          const bf16* p = Qs + (warp * 16 + g) * cs + kk * 16 + 2 * t;
-          a[0] = load_u32(p);
-          a[1] = load_u32(p + 8 * cs);
-          a[2] = load_u32(p + 8);
-          a[3] = load_u32(p + 8 * cs + 8);
+    for (int c0 = 0; c0 < C; c0 += PCOLS) {
+      const int cw = min(PCOLS, C - c0);
+      __syncthreads();  // the previous panel (and tile) is consumed
+      stage_rows(Ks, ks, kb + c0, k0, Lk, cw, C);
+      if (!QREG && !qres) stage_rows(Qs, qs, qb + c0, q0, Lq, cw, C);
+      if (c0 == 0) {
+        if (PAYLOAD2) {
+          for (int r = threadIdx.x; r < BK; r += WARPS * 32) {
+            float2 val = make_float2(0.f, 0.f);
+            if (k0 + r < Lk) {
+              const __nv_bfloat162 x = *reinterpret_cast<
+                  const __nv_bfloat162*>(vb + (k0 + r) * 2LL);
+              val = __bfloat1622float2(x);
+            }
+            V2[r] = val;
+          }
         } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = qa[kk][i];
+          stage_rows(Vs, ds, vb + d0, k0, Lk, Dc, D);
         }
+        if (masked)
+          for (int r = threadIdx.x; r < BK; r += WARPS * 32)
+            kreg_s[r] = swin_region(sw, last_y, last_x, k0 + r);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      const bf16* qp = Qs + (qres ? c0 : 0) + (warp * 16 + g) * qs + 2 * t;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const bf16* kr = Ks + (nt * 8 + g) * cs + kk * 16 + 2 * t;
-          mma_bf16(s[nt], a, load_u32(kr), load_u32(kr + 8));
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        if (kk * 16 < cw) {
+          uint32_t a[4];
+          if constexpr (QREG) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = qa[kk][i];
+          } else {
+            const bf16* p = qp + kk * 16;
+            a[0] = load_u32(p);
+            a[1] = load_u32(p + 8 * qs);
+            a[2] = load_u32(p + 8);
+            a[3] = load_u32(p + 8 * qs + 8);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const bf16* kr = Ks + (nt * 8 + g) * ks + kk * 16 + 2 * t;
+            mma_bf16(s[nt], a, load_u32(kr), load_u32(kr + 8));
+          }
         }
       }
     }
@@ -376,12 +423,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     } else {
       // P . V on the tensor cores: S's fragments are P's A fragments
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const uint32_t a[4] = {pack_f32(s[2 * ks][0], s[2 * ks][1]),
-                               pack_f32(s[2 * ks][2], s[2 * ks][3]),
-                               pack_f32(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                               pack_f32(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-        const bf16* vr = Vs + (ks * 16 + 2 * t) * ds + g;
+      for (int kst = 0; kst < 4; ++kst) {
+        const uint32_t a[4] = {pack_f32(s[2 * kst][0], s[2 * kst][1]),
+                               pack_f32(s[2 * kst][2], s[2 * kst][3]),
+                               pack_f32(s[2 * kst + 1][0], s[2 * kst + 1][1]),
+                               pack_f32(s[2 * kst + 1][2], s[2 * kst + 1][3])};
+        const bf16* vr = Vs + (kst * 16 + 2 * t) * ds + g;
 #pragma unroll
         for (int dt = 0; dt < DTILES; ++dt) {
           if (dt * 8 < Dc) {
@@ -436,18 +483,27 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The CUDA-core route: one thread per query row (F32_BQ a block), one
+// block per (query rows, batch entry, chunk of F32_DC output columns:
+// blockIdx.z; each chunk's blocks recompute S), the row accumulators in
+// shared memory. S is summed over C in panels of PCOLS columns, each key
+// tile's K staged a panel at a time, in the order of C at any width; Q's
+// rows resident for the sweep where they fit (qres: [F32_BQ][C + 1]),
+// else staged a panel at a time beside K's ([F32_BQ][PCOLS + 1]).
 template <bool BIAS>
 __global__ void __launch_bounds__(F32_BQ)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
               float* __restrict__ out, float* __restrict__ lse, int Lq,
-              int Lk, int C, int D, float scale, Swin sw) {
+              int Lk, int C, int D, float scale, Swin sw, int qres) {
   extern __shared__ __align__(16) float fsm[];
   __shared__ int kreg_s[F32_BK];      // Swin region of each key of the tile
-  float* Qs = fsm;                           // [F32_BQ][C + 1]
-  float* Ks = Qs + F32_BQ * (C + 1);         // [F32_BK][C]
-  float* Vs = Ks + F32_BK * C;               // [F32_BK][D]
-  float* As = Vs + F32_BK * D;               // [F32_BQ][D + 1] accumulators
+  const int d0 = blockIdx.z * F32_DC, Dc = min(F32_DC, D - d0);
+  const int kw = min(C, PCOLS), qw = qres ? C : kw;
+  float* Qs = fsm;                            // [F32_BQ][qw + 1]
+  float* Ks = Qs + F32_BQ * (qw + 1);         // [F32_BK][kw]
+  float* Vs = Ks + F32_BK * kw;               // [F32_BK][Dc]
+  float* As = Vs + F32_BK * min(D, F32_DC);   // [F32_BQ][Dc + 1] sums
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * F32_BQ;
@@ -456,13 +512,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (long long)b * Lk * C;
   const float* vb = v + (long long)b * Lk * D;
 
-  for (int i = tid; i < F32_BQ * C; i += F32_BQ) {
-    const int r = i / C, c = i - r * C;
-    Qs[r * (C + 1) + c] = q0 + r < Lq ? qb[(long long)(q0 + r) * C + c] : 0.f;
-  }
-  float* acc = As + tid * (D + 1);
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  const float* qr = Qs + tid * (C + 1);
+  if (qres) stage_f32(Qs, qw + 1, qb, q0, F32_BQ, Lq, C, C);
+  float* acc = As + tid * (Dc + 1);
+  for (int d = 0; d < Dc; ++d) acc[d] = 0.f;
 
   bool last_y = false, last_x = false;
   int qreg = 0;
@@ -478,26 +530,27 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float m = -INFINITY, l = 0.f;
 
   for (int k0 = 0; k0 < Lk; k0 += F32_BK) {
-    __syncthreads();
-    for (int i = tid; i < F32_BK * C; i += F32_BQ) {
-      const int r = i / C;
-      Ks[i] = k0 + r < Lk ? kb[(long long)k0 * C + i] : 0.f;
-    }
-    for (int i = tid; i < F32_BK * D; i += F32_BQ) {
-      const int r = i / D;
-      Vs[i] = k0 + r < Lk ? vb[(long long)k0 * D + i] : 0.f;
-    }
-    if (masked && tid < F32_BK)
-      kreg_s[tid] = swin_region(sw, last_y, last_x, k0 + tid);
-    __syncthreads();
-
     float s[F32_BK];
 #pragma unroll
     for (int j = 0; j < F32_BK; ++j) s[j] = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float qv = qr[c];
+    for (int c0 = 0; c0 < C; c0 += PCOLS) {
+      const int cw = min(PCOLS, C - c0);
+      __syncthreads();  // the previous panel (and tile) is consumed
+      stage_f32(Ks, kw, kb + c0, k0, F32_BK, Lk, cw, C);
+      if (!qres) stage_f32(Qs, qw + 1, qb + c0, q0, F32_BQ, Lq, cw, C);
+      if (c0 == 0) {
+        stage_f32(Vs, Dc, vb + d0, k0, F32_BK, Lk, Dc, D);
+        if (masked && tid < F32_BK)
+          kreg_s[tid] = swin_region(sw, last_y, last_x, k0 + tid);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      const float* qr = Qs + tid * (qw + 1) + (qres ? c0 : 0);
+      for (int c = 0; c < cw; ++c) {
+        const float qv = qr[c];
 #pragma unroll
-      for (int j = 0; j < F32_BK; ++j) s[j] = fmaf(qv, Ks[j * C + c], s[j]);
+        for (int j = 0; j < F32_BK; ++j) s[j] = fmaf(qv, Ks[j * kw + c], s[j]);
+      }
     }
     float mx = -INFINITY;
 #pragma unroll
@@ -521,19 +574,20 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       ls += s[j];
     }
     l = l * alpha + ls;
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < Dc; ++d) {
       float a = acc[d] * alpha;
 #pragma unroll
-      for (int j = 0; j < F32_BK; ++j) a = fmaf(s[j], Vs[j * D + d], a);
+      for (int j = 0; j < F32_BK; ++j) a = fmaf(s[j], Vs[j * Dc + d], a);
       acc[d] = a;
     }
   }
 
   if (row < Lq) {
     const float den = fmaxf(l, 1e-30f);
-    float* orow = out + ((long long)b * Lq + row) * D;
-    for (int d = 0; d < D; ++d) orow[d] = acc[d] / den;
-    if (lse != nullptr) lse[(long long)b * Lq + row] = m + logf(den);
+    float* orow = out + ((long long)b * Lq + row) * D + d0;
+    for (int d = 0; d < Dc; ++d) orow[d] = acc[d] / den;
+    if (lse != nullptr && blockIdx.z == 0)
+      lse[(long long)b * Lq + row] = m + logf(den);
   }
 }
 
@@ -1322,47 +1376,65 @@ static int launch(const void* q, const void* k, const void* v,
 
 }  // namespace tf32x3
 
-static size_t f32_smem(int C, int D) {
-  return sizeof(float) * ((size_t)F32_BQ * (C + 1) + (size_t)F32_BK * (C + D) +
-                          (size_t)F32_BQ * (D + 1));
-}
-
-// The K tile (and at C > 128 the block's Q rows), and V's tile of a D chunk
-// of at most DCHUNK columns or its 64 pairs
+// Output columns a block of the mma.sync route takes (a grid axis)
 #define DCHUNK 128
-static size_t bf16_smem(int C, int D) {
-  const size_t rows = (size_t)BK * (C + PAD) * sizeof(bf16);
-  const int dc = D < DCHUNK ? D : DCHUNK;
-  return rows * (C > 128 ? 2 : 1) +
-         (D == 2 ? BK * sizeof(float2) : (size_t)BK * (dc + PAD) * sizeof(bf16));
+
+// The shared memory of a block of the CUDA-core route (Q's rows, resident
+// or a panel; K's panel; V's chunk; the row sums) and of the mma.sync route
+// (K's panel, V's chunk or its 64 pairs, Q's rows past C = 128, resident or
+// a panel), bytes.
+static size_t f32_smem(int C, int D, bool qres) {
+  const size_t kw = C < PCOLS ? C : PCOLS, qw = qres ? C : kw;
+  const size_t dc = D < F32_DC ? D : F32_DC;
+  return sizeof(float) * (F32_BQ * (qw + 1) + F32_BK * kw + F32_BK * dc +
+                          F32_BQ * (dc + 1));
 }
 
-typedef void (*Bf16Kernel)(const bf16*, const bf16*, const bf16*,
-                           const float*, float*, float*, int, int, int, int,
-                           float, Swin);
-typedef void (*F32Kernel)(const float*, const float*, const float*,
-                          const float*, float*, float*, int, int, int, int,
-                          float, Swin);
+static size_t bf16_smem(int C, int D, bool qres) {
+  const size_t ks = (C < PCOLS ? C : PCOLS) + PAD;
+  const size_t dc = D < DCHUNK ? D : DCHUNK;
+  const size_t v =
+      D == 2 ? BK * sizeof(float2) : BK * (dc + PAD) * sizeof(bf16);
+  const size_t qs = C <= PCOLS ? 0 : (size_t)BQ * ((qres ? C : PCOLS) + PAD);
+  return BK * ks * sizeof(bf16) + v + qs * sizeof(bf16);
+}
 
-// The mma.sync instantiation for these widths: CMAX 128 or 256, D = 2 or
-// chunks of DCHUNK columns.
-static Bf16Kernel bf16_kernel(int C, int D, bool bias) {
+// The mma.sync or CUDA-core route's launch at these widths: the kernel
+// (the mma.sync instantiation: Q in registers at C <= 128, D = 2 apart),
+// its dynamic shared memory, whether Q's rows stay resident (where they
+// fit a block), rows and threads a block, keys a tile, D chunks (the
+// grid's z).
+struct Narrow {
+  const void* fn;
+  size_t smem;
+  int qres, rows, threads, keys, chunks;
+};
+
+static Narrow narrow(bool is_bf16, int C, int D, bool bias) {
+  if (!is_bf16) {
+    const bool qres = C <= PCOLS || f32_smem(C, D, true) <= SMEM_BLOCK;
+    return {bias ? (const void*)flash_fwd_f32<true>
+                 : (const void*)flash_fwd_f32<false>,
+            f32_smem(C, D, qres), qres, F32_BQ, F32_BQ, F32_BK,
+            (D + F32_DC - 1) / F32_DC};
+  }
+  const bool qreg = C <= PCOLS, p2 = D == 2;
+  const bool qres = !qreg && bf16_smem(C, D, true) <= SMEM_BLOCK;
+  const void* fn;
   if (bias)
-    return C <= 128 ? (D == 2 ? flash_fwd_bf16<128, 16, true, true>
-                              : flash_fwd_bf16<128, DCHUNK, false, true>)
-                    : (D == 2 ? flash_fwd_bf16<256, 16, true, true>
-                              : flash_fwd_bf16<256, DCHUNK, false, true>);
-  return C <= 128 ? (D == 2 ? flash_fwd_bf16<128, 16, true, false>
-                            : flash_fwd_bf16<128, DCHUNK, false, false>)
-                  : (D == 2 ? flash_fwd_bf16<256, 16, true, false>
-                            : flash_fwd_bf16<256, DCHUNK, false, false>);
+    fn = qreg ? (p2 ? (const void*)flash_fwd_bf16<true, 16, true, true>
+                    : (const void*)flash_fwd_bf16<true, DCHUNK, false, true>)
+              : (p2 ? (const void*)flash_fwd_bf16<false, 16, true, true>
+                    : (const void*)flash_fwd_bf16<false, DCHUNK, false, true>);
+  else
+    fn = qreg ? (p2 ? (const void*)flash_fwd_bf16<true, 16, true, false>
+                    : (const void*)flash_fwd_bf16<true, DCHUNK, false, false>)
+              : (p2 ? (const void*)flash_fwd_bf16<false, 16, true, false>
+                    : (const void*)flash_fwd_bf16<false, DCHUNK, false,
+                                                  false>);
+  return {fn, bf16_smem(C, D, qres), qres, BQ, WARPS * 32, BK,
+          p2 ? 1 : (D + DCHUNK - 1) / DCHUNK};
 }
-
-static F32Kernel f32_kernel(bool bias) {
-  return bias ? flash_fwd_f32<true> : flash_fwd_f32<false>;
-}
-
-static int d_chunks(int D) { return D == 2 ? 1 : (D + DCHUNK - 1) / DCHUNK; }
 
 // Whether `route` takes these operands (bf16 or f32) and widths.
 static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
@@ -1376,15 +1448,26 @@ static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
   }
 }
 
+// The widths every route's checks start from: C % 16 == 0, D == 2 or D %
+// 16 == 0, and at most 65,535 chunks of 128 columns on the grid's z axis
+// (the mma.sync and CUDA-core routes' D chunks; the backward's C and D
+// chunks), so C and D <= 65535 * 128.
+#define MAX_WIDTH (65535 * 128)
+static bool widths_ok(int C, int D) {
+  return C >= 16 && C <= MAX_WIDTH && C % 16 == 0 &&
+         (D == 2 || (D >= 16 && D <= MAX_WIDTH && D % 16 == 0));
+}
+
 // q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], all bf16 or all f32,
 // contiguous, 16-byte aligned; bias [B, Lq, Lk] f32, contiguous, 16-byte
 // aligned, or null (no bias); out [B, Lq, D] f32; lse [B, Lq] f32 or null.
 // swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the TPU
-// kernel's `swin`. Takes C % 16 == 0, C <= 256, and D == 2 or D % 16 == 0,
-// D <= 256 (ops/flash.py pads other widths with zero columns), on the
+// kernel's `swin`. Takes C % 16 == 0 and D == 2 or D % 16 == 0, up to
+// MAX_WIDTH (ops/flash.py pads other widths with zero columns), on the
 // route the caller names (enum Route; ops/flash.py:plan names bf16 at C =
-// 128 and D = 128 or 2 the wgmma route, other bf16 the mma.sync route, f32
-// at those widths the tf32x3 route, other f32 the CUDA-core route).
+// 128 and D = 128 or 2, and at C = 256 and D = 256 or 2, the wgmma route,
+// other bf16 the mma.sync route, f32 at C = 128 and D = 128 or 2 the
+// tf32x3 route, other f32 the CUDA-core route).
 // splits > 1 (the tf32x3 route only) cuts the key sweep into that many
 // runs of whole tiles: out is then a [splits, B, Lq, D] scratch of the
 // runs' unnormalised outputs and lse a [splits, B, Lq] scratch of their
@@ -1396,12 +1479,11 @@ extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
                              int swin_k, int wh, int ww, int sh, int swd,
                              int is_bf16, int route, int splits,
                              void* stream) {
-  if (B < 1 || B > 65535 || Lq < 1 || Lk < 1 || C < 16 || C > 256 ||
-      C % 16 || !(D == 2 || (D % 16 == 0 && D >= 16 && D <= 256)) ||
+  if (B < 1 || B > 65535 || Lq < 1 || Lk < 1 || !widths_ok(C, D) ||
       swin_k < 0 || !route_takes(route, is_bf16, B, Lq, Lk, C, D) ||
       (splits != 1 && route != TF32X3) || (splits > 1 && lse == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Swin sw{swin_k, wh, ww, sh, swd};
+  Swin sw{swin_k, wh, ww, sh, swd};
   cudaStream_t st = (cudaStream_t)stream;
   const bool has_bias = bias != nullptr;
   if (route == TF32X3) {
@@ -1421,32 +1503,21 @@ extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
                                             Lk, D, scale, sw, st)
                     : sm90::forward_at<128>(q, k, v, bias, out, lse, B, Lq,
                                             Lk, D, scale, sw, st);
-  if (route == F32) {
-    const F32Kernel kern = f32_kernel(has_bias);
-    const size_t smem = f32_smem(C, D);
-    if (smem > SMEM_DEFAULT) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    const dim3 grid((unsigned)((Lq + F32_BQ - 1) / F32_BQ), (unsigned)B);
-    kern<<<grid, F32_BQ, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
-        (float*)out, (float*)lse, Lq, Lk, C, D, scale, sw);
-    return (int)cudaGetLastError();
-  }
-  const Bf16Kernel kern = bf16_kernel(C, D, has_bias);
-  const size_t smem = bf16_smem(C, D);
-  if (smem > SMEM_DEFAULT) {
+  Narrow kn = narrow(is_bf16 != 0, C, D, has_bias);
+  if (kn.smem > SMEM_DEFAULT) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kn.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kn.smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((unsigned)((Lq + BQ - 1) / BQ), (unsigned)B,
-                  (unsigned)d_chunks(D));
-  kern<<<grid, WARPS * 32, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-      (float*)out, (float*)lse, Lq, Lk, C, D, scale, sw);
+  void* args[] = {(void*)&q,  (void*)&k,     (void*)&v,  (void*)&bias,
+                  (void*)&out, (void*)&lse,  (void*)&Lq, (void*)&Lk,
+                  (void*)&C,  (void*)&D,     (void*)&scale, (void*)&sw,
+                  (void*)&kn.qres};
+  const dim3 grid((unsigned)((Lq + kn.rows - 1) / kn.rows), (unsigned)B,
+                  (unsigned)kn.chunks);
+  const cudaError_t e =
+      cudaLaunchKernel(kn.fn, grid, dim3(kn.threads), args, kn.smem, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -1514,16 +1585,15 @@ static int wgmma_plan(int B, int Lq, bool p2, bool bias, int* wg,
 // a bias or without) on the route C picks by the rule above: plan =
 // {route (enum Route), query rows a block, keys a tile, blocks (every
 // run's and D chunk's), blocks per SM, waves over the card's SMs, runs of
-// the key sweep, D chunks (a grid axis of the mma.sync route; 1
-// elsewhere), dynamic shared memory, static shared memory (bytes), threads
-// a block, registers a thread, local memory a thread (bytes: spills and
-// stack)}. Returns a cudaError_t (0 on success): a block the SM cannot
-// hold fails here.
+// the key sweep, D chunks (a grid axis of the mma.sync and CUDA-core
+// routes; 1 elsewhere), dynamic shared memory, static shared memory
+// (bytes), threads a block, registers a thread, local memory a thread
+// (bytes: spills and stack)}. Returns a cudaError_t (0 on success): a
+// block the SM cannot hold fails here.
 extern "C" int ofd_flash_fwd_plan(int B, int Lq, int Lk, int C, int D,
                                   int is_bf16, int has_bias, int* plan) {
   int dev, sms, per_sm = 0, e;
-  if (B < 1 || Lq < 1 || Lk < 1 || C < 16 || C > 256 || C % 16 ||
-      !(D == 2 || (D % 16 == 0 && D >= 16 && D <= 256)))
+  if (B < 1 || Lq < 1 || Lk < 1 || !widths_ok(C, D))
     return (int)cudaErrorInvalidValue;
   if ((e = (int)cudaGetDevice(&dev))) return e;
   if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
@@ -1553,13 +1623,11 @@ extern "C" int ofd_flash_fwd_plan(int B, int Lq, int Lk, int C, int D,
                         wg[3], 1};
     for (int i = 0; i < 7; ++i) plan[i] = got[i];
   } else {
-    const int rows = is_bf16 ? BQ : F32_BQ;
-    chunks = is_bf16 ? d_chunks(D) : 1;
-    const long long n = (long long)B * ((Lq + rows - 1) / rows) * chunks;
-    kern = is_bf16 ? FwdKernel{(const void*)bf16_kernel(C, D, bias),
-                               bf16_smem(C, D), WARPS * 32}
-                   : FwdKernel{(const void*)f32_kernel(bias), f32_smem(C, D),
-                               F32_BQ};
+    const Narrow kn = narrow(is_bf16 != 0, C, D, bias);
+    kern = FwdKernel{kn.fn, kn.smem, kn.threads};
+    chunks = kn.chunks;
+    const long long n =
+        (long long)B * ((Lq + kn.rows - 1) / kn.rows) * kn.chunks;
     // raised as the launch raises it, never lowered: one kernel serves
     // every width, and a launch below the default limit does not set it
     if (kern.smem > SMEM_DEFAULT &&
@@ -1572,7 +1640,7 @@ extern "C" int ofd_flash_fwd_plan(int B, int Lq, int Lk, int C, int D,
       return e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     const int got[7] = {
-        is_bf16 ? MMA_SYNC : F32, rows, is_bf16 ? BK : F32_BK, (int)n, per_sm,
+        is_bf16 ? MMA_SYNC : F32, kn.rows, kn.keys, (int)n, per_sm,
         (int)((n + (long long)per_sm * sms - 1) / ((long long)per_sm * sms)),
         1};
     for (int i = 0; i < 7; ++i) plan[i] = got[i];

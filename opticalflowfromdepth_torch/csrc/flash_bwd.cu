@@ -94,24 +94,32 @@
 //   256 columns of dK (two m64n128 accumulators), dv on the CUDA cores;
 //   135,168 bytes, 214 registers, no spills.
 //
-// Other bf16 widths (C % 16 == 0, C <= 256; D = 2 or D % 16 == 0, D <=
-// 256; ops/flash_bwd.py pads other widths with zero columns): the
-// mma.sync route, mma.sync m16n8k16 with 4 warps a block, each owning 16
-// rows of the output; synchronous staging through registers, shared rows
-// padded by 8 bf16. A block takes 128 columns of its outputs (a grid axis:
-// dq's chunks of C, dk/dv's of C and D together), so its accumulators stay
-// at 64 + 64 registers at any width; each chunk's blocks recompute S and
-// dP over all of C and D. No GMFlow call takes it (at 256 channels the
-// wgmma route replaced it; launchers(route="mma_sync") still
-// forces it, to time it beside that route).
-//   dq: Q and G tiles staged once; per 64-key tile K and V staged; S = Q
-//   K^T and dP = G V^T, then p and ds per element in registers; ds rounded
-//   to bf16 and its accumulator fragments used directly as the A
+// Other bf16 widths (C % 16 == 0; D = 2 or D % 16 == 0; any width up to
+// MAX_WIDTH, GMFlow at 512 channels' C = 512 with D = 512 or 2 among them;
+// ops/flash_bwd.py pads other widths with zero columns): the mma.sync
+// route, mma.sync m16n8k16 with 4 warps a block, each owning 16 rows of
+// the output; staging by 16-byte cp.async, each stage waited for before a
+// barrier (no ring), shared rows padded by 8 bf16. A block takes 128
+// columns of its outputs (a grid axis: dq's chunks of C, dk/dv's of C and
+// D together), so its accumulators stay at 64 + 64 registers at any width;
+// each chunk's blocks recompute S and dP, summed over C and D in panels of
+// 128 columns, k-step after k-step in their order at any width. The
+// resident side's rows stay in shared memory whole where they fit a block
+// (C = D = 512: dq 185,344 bytes, dk/dv 167,936), else a panel at a time
+// beside the other side's, so a block fits 227 KB at any width. Every call
+// of GMFlow at 512 channels takes it (at 256 channels the wgmma route
+// replaced it; launchers(route="mma_sync") still forces it there, to time
+// it beside that route).
+//   dq: Q and G rows resident (or a panel a time); per 64-key tile K and V
+//   a panel at a time, and past C = 128 the tile's 128 chunk columns of K;
+//   S = Q K^T and dP = G V^T, then p and ds per element in registers; ds
+//   rounded to bf16 and its accumulator fragments used directly as the A
 //   fragments of dq += dS . K, so dS never leaves registers.
-//   dk/dv: K and V of the block's 64 keys staged once; per 32-query tile
-//   Q, G, lse, delta staged; S^T = K Q^T and dP^T = V G^T computed
-//   directly, so P^T (bf16) and dS^T (bf16) are A fragments of dv += P^T .
-//   G and dk += dS^T . Q. D == 2: dP and dv on the CUDA cores.
+//   dk/dv: K and V of the block's 64 keys resident (or a panel a time); per
+//   32-query tile Q and G a panel at a time, their chunk columns past 128,
+//   lse and delta; S^T = K Q^T and dP^T = V G^T computed directly, so P^T
+//   (bf16) and dS^T (bf16) are A fragments of dv += P^T . G and dk += dS^T
+//   . Q. D == 2: dP and dv on the CUDA cores.
 //
 // f32 at C = 128 and D = 128 or 2 (every sequence-parallel ring step, and
 // every flash call of an f32 GMFlow): the tf32x3 route, namespace tf32x3
@@ -144,12 +152,14 @@
 // no spills. Shared memory a block: dq 102,400 / 202,752 bytes, dk/dv
 // 103,424 / 203,264: two blocks an SM at D = 2, one at D = 128.
 //
-// Other f32 widths (C % 16 == 0; D = 2 or D % 16 == 0; up to 256): f32 FMA
-// on the CUDA cores, no TF32: one thread per output row (64 a block, 32
-// where 64 rows' shared memory would pass 227 KB: dq at C = D = 256, dk/dv
-// from C + 2 D of about 640 on), its row's accumulators in shared memory,
-// the other side's tiles read by every thread at the same address
-// (broadcast).
+// Other f32 widths (C % 16 == 0; D = 2 or D % 16 == 0; any width up to
+// MAX_WIDTH): f32 FMA on the CUDA cores, no TF32: one thread per output
+// row, 64 a block, each block one chunk of 128 output columns (a grid
+// axis, as the mma.sync route's; its row sums in shared memory), S and dP
+// recomputed per chunk over panels of 128 columns of C and D, the resident
+// side whole where it fits a block, else a panel at a time (C = D = 512:
+// dq 148,224 bytes, dk/dv 197,632), the other side's tiles read by every
+// thread at the same address (broadcast), staged by 4-byte cp.async.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -162,27 +172,35 @@
 #define BK 64         // keys per tile of the dq sweep
 #define QT 32         // queries per tile of the dk/dv sweep
 #define PAD 8         // bf16 elements appended to each shared row
-#define CHUNK 128     // output columns a block takes (bf16 path; a grid axis)
-#define F32_ROWS 64   // output rows (= threads) per block at most, f32 path
-#define F32_SMEM_MAX (232448 - 1024)  // dynamic shared memory, f32 path
+#define CHUNK 128     // output columns a block takes (a grid axis)
+#define PCOLS 128     // columns of C and of D a panel
+#define F32_ROWS 64   // output rows (= threads) per block, f32 path
+#define F32_T 32      // other-side rows per tile, f32 path
 // Dynamic shared memory above which a launch must raise the kernel's limit
 // first: the default 48 KB holds the static shared memory too (under 1 KB
 // in these kernels).
 #define SMEM_DEFAULT (48 * 1024 - 1024)
-#define F32_T 32      // other-side rows per tile, f32 path
+// Dynamic shared memory a block of the mma.sync and CUDA-core routes may
+// take: 227 KB less 1 KB for its static shared memory.
+#define SMEM_BLOCK (232448 - 1024)
 
-// Copy rows [r0, r0 + n) of a [L, W] bf16 matrix (W % 8 == 0) into an
-// [n, W + PAD] shared tile with 16-byte vectors; rows >= L are zero.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int r0, int n, int L, int W) {
+using hopper::cp_async_4;
+using hopper::cp_async_16;
+using hopper::cp_async_wait_all;
+
+// Copy rows [r0, r0 + n) of W columns (W % 8 == 0) of a bf16 matrix whose
+// rows are `stride` apart into [n][ld] shared rows by 16-byte cp.async
+// copies; rows >= L are zeros. The caller waits and syncs.
+__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src,
+                                           int r0, int n, int L, int W,
+                                           int stride) {
   const int vecs = W / 8;
-  const int stride = W + PAD;
   for (int i = threadIdx.x; i < n * vecs; i += WARPS * 32) {
     const int r = i / vecs, c = (i - r * vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * W + c);
-    *reinterpret_cast<uint4*>(dst + r * stride + c) = val;
+    const bool ok = r0 + r < L;
+    cp_async_16(dst + r * ld + c,
+                ok ? src + (long long)(r0 + r) * stride + c : src,
+                ok ? 16u : 0u);
   }
 }
 
@@ -210,30 +228,64 @@ __device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile,
   a[3] = load_u32(p + 8 * stride + 8);
 }
 
+// acc[16 x 8NT] += A . B^T over one panel of `w` <= PCOLS columns: A the
+// warp's 16 rows of a shared tile (row stride sa) from row `row0`, B the
+// 8NT rows of another (row stride sb), both from the panel's first column
+template <int NT>
+__device__ __forceinline__ void panel_product(float (&acc)[NT][4],
+                                              const bf16* a_tile, int sa,
+                                              int row0, const bf16* b_tile,
+                                              int sb, int w, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < PCOLS / 16; ++kk) {
+    if (kk * 16 < w) {
+      uint32_t a[4];
+      load_a(a, a_tile, sa, row0, kk, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const bf16* br = b_tile + (nt * 8 + g) * sb + kk * 16 + 2 * t;
+        mma_bf16(acc[nt], a, load_u32(br), load_u32(br + 8));
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // dq, bf16 operands
 // ---------------------------------------------------------------------------
 
 // One block per (64 query rows, batch entry, chunk of CHUNK columns of dq:
-// blockIdx.z); each chunk's blocks recompute S and dP over all of C and
-// D (CMAX, DMAX: the widths they are unrolled for, 128 or 256).
-template <int CMAX, int DMAX, bool PAYLOAD2>
+// blockIdx.z); each chunk's blocks recompute S and dP. S = Q K^T and dP =
+// G V^T are summed over C and D in panels of PCOLS columns (k-step after
+// k-step in the order of C and of D at any width): each key tile's K and V
+// are staged a panel at a time, with the tile's CHUNK columns of K that
+// dS . K reads (past C = PCOLS; within it the one panel is those columns).
+// Q's and G's rows are resident for the sweep where they fit a block (res:
+// [ROWS][C + PAD] and [ROWS][D + PAD]), else staged a panel at a time
+// beside K's and V's.
+template <bool PAYLOAD2>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ g,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dq,
-                  int Lq, int Lk, int C, int D, float scale, Swin sw) {
+                  int Lq, int Lk, int C, int D, float scale, Swin sw,
+                  int res) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int cs = C + PAD, dst = D + PAD;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);                 // [ROWS][cs]
-  bf16* Ks = Qs + ROWS * cs;                                // [BK][cs]
-  bf16* Gs = Ks + BK * cs;                                  // [ROWS][dst]
-  bf16* Vs = Gs + ROWS * dst;                               // [BK][dst]
-  float2* V2 = reinterpret_cast<float2*>(Gs);               // [BK] (D == 2)
+  const int kps = min(C, PCOLS) + PAD, vps = min(D, PCOLS) + PAD;  // panel rows
+  const int qs = res ? C + PAD : kps, gs = res ? D + PAD : vps;
+  const bool kc_own = C > PCOLS;        // K's chunk apart from its panels
+  bf16* Kp = reinterpret_cast<bf16*>(smem);                 // [BK][kps]
+  bf16* Vp = Kp + BK * kps;                                 // [BK][vps]
+  float2* V2 = reinterpret_cast<float2*>(Vp);               // [BK] (D == 2)
+  bf16* Kc = Vp + (PAYLOAD2 ? 4 * BK : BK * vps);           // [BK][kps]
+  bf16* Qs = Kc + (kc_own ? BK * kps : 0);                  // [ROWS][qs]
+  bf16* Gs = Qs + ROWS * qs;                                // [ROWS][gs]
+  if (!kc_own) Kc = Kp;
   __shared__ int kreg_s[BK];          // Swin region of each key of the tile
 
   const int b = blockIdx.y, q0 = blockIdx.x * ROWS, c0 = blockIdx.z * CHUNK;
+  const int cwc = min(CHUNK, C - c0);                 // the chunk's columns
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gi = lane >> 2, t = lane & 3;
   const int rows[2] = {q0 + warp * 16 + gi, q0 + warp * 16 + gi + 8};
@@ -257,8 +309,13 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       g2[r] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
           gb + (long long)rows[r] * 2));
   }
-  stage_rows(Qs, qb, q0, ROWS, Lq, C);
-  if (!PAYLOAD2) stage_rows(Gs, gb, q0, ROWS, Lq, D);
+  if (res) {   // published by the first panel's wait and barrier
+    stage_rows(Qs, qs, qb, q0, ROWS, Lq, C, C);
+    if (!PAYLOAD2) stage_rows(Gs, gs, gb, q0, ROWS, Lq, D, D);
+  }
+  const int npc = (C + PCOLS - 1) / PCOLS;
+  const int npd = PAYLOAD2 ? 0 : (D + PCOLS - 1) / PCOLS;
+  const int np = max(npc, npd);
 
   float acc[CHUNK / 8][4];
 #pragma unroll
@@ -267,34 +324,40 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
   for (int k0 = 0; k0 < Lk; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed (and Q, G staged)
-    stage_rows(Ks, kb, k0, BK, Lk, C);
-    if (PAYLOAD2)
-      stage_pairs(V2, vb, k0, BK, Lk);
-    else
-      stage_rows(Vs, vb, k0, BK, Lk, D);
-    if (masked)
-      for (int r = threadIdx.x; r < BK; r += WARPS * 32)
-        kreg_s[r] = swin_region(sw, last_y, last_x, k0 + r);
-    __syncthreads();
-
-    // S = Q K^T and dP = G V^T: 16 rows x 64 keys per warp
+    // S = Q K^T and dP = G V^T: 16 rows x 64 keys per warp, a panel of C
+    // and one of D at a time
     float s[8][4], dp[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < CMAX / 16; ++kk) {
-      if (kk * 16 < C) {
-        uint32_t a[4];
-        load_a(a, Qs, cs, warp * 16, kk, gi, t);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const bf16* kr = Ks + (nt * 8 + gi) * cs + kk * 16 + 2 * t;
-          mma_bf16(s[nt], a, load_u32(kr), load_u32(kr + 8));
-        }
+    for (int p = 0; p < np; ++p) {
+      const int p0 = p * PCOLS, cw = min(PCOLS, C - p0);
+      const int dw = min(PCOLS, D - p0);
+      __syncthreads();  // the previous panel (and tile) is consumed
+      if (p < npc) {
+        stage_rows(Kp, kps, kb + p0, k0, BK, Lk, cw, C);
+        if (!res) stage_rows(Qs, qs, qb + p0, q0, ROWS, Lq, cw, C);
       }
+      if (p < npd) {
+        stage_rows(Vp, vps, vb + p0, k0, BK, Lk, dw, D);
+        if (!res) stage_rows(Gs, gs, gb + p0, q0, ROWS, Lq, dw, D);
+      }
+      if (p == 0) {
+        if (PAYLOAD2) stage_pairs(V2, vb, k0, BK, Lk);
+        if (kc_own) stage_rows(Kc, kps, kb + c0, k0, BK, Lk, cwc, C);
+        if (masked)
+          for (int r = threadIdx.x; r < BK; r += WARPS * 32)
+            kreg_s[r] = swin_region(sw, last_y, last_x, k0 + r);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (p < npc)
+        panel_product(s, Qs + (res ? p0 : 0), qs, warp * 16, Kp, kps, cw, gi,
+                      t);
+      if (p < npd)
+        panel_product(dp, Gs + (res ? p0 : 0), gs, warp * 16, Vp, vps, dw,
+                      gi, t);
     }
     if (PAYLOAD2) {
 #pragma unroll
@@ -305,19 +368,6 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const float2 gg = g2[e >> 1];
           dp[nt][e] = fmaf(gg.x, vv.x, gg.y * vv.y);
         }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < DMAX / 16; ++kk) {
-        if (kk * 16 < D) {
-          uint32_t a[4];
-          load_a(a, Gs, dst, warp * 16, kk, gi, t);
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            const bf16* vr = Vs + (nt * 8 + gi) * dst + kk * 16 + 2 * t;
-            mma_bf16(dp[nt], a, load_u32(vr), load_u32(vr + 8));
-          }
-        }
-      }
     }
 
     // p = exp(s - lse) with the scale, the Swin mask and the key padding;
@@ -343,13 +393,13 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              pack_f32(s[2 * ks][2], s[2 * ks][3]),
                              pack_f32(s[2 * ks + 1][0], s[2 * ks + 1][1]),
                              pack_f32(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-      const bf16* kr = Ks + (ks * 16 + 2 * t) * cs + c0 + gi;
+      const bf16* kr = Kc + (ks * 16 + 2 * t) * kps + gi;
 #pragma unroll
       for (int nt = 0; nt < CHUNK / 8; ++nt) {
-        if (c0 + nt * 8 < C) {
+        if (nt * 8 < cwc) {
           const bf16* p = kr + nt * 8;
-          mma_bf16(acc[nt], a, pack_bf16(p[0], p[cs]),
-                   pack_bf16(p[8 * cs], p[9 * cs]));
+          mma_bf16(acc[nt], a, pack_bf16(p[0], p[kps]),
+                   pack_bf16(p[8 * kps], p[9 * kps]));
         }
       }
     }
@@ -358,7 +408,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* dqb = dq + (long long)b * Lq * C + c0;
 #pragma unroll
   for (int nt = 0; nt < CHUNK / 8; ++nt) {
-    if (c0 + nt * 8 < C) {
+    if (nt * 8 < cwc) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         if (rows[r] < Lq)
@@ -375,26 +425,37 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // One block per (64 key rows, batch entry, chunk z of CHUNK columns: dk's
 // columns [z CHUNK, (z + 1) CHUNK) and dv's the same); each chunk's blocks
-// recompute S^T and dP^T over all of C and D.
-template <int CMAX, int DMAX, bool PAYLOAD2>
+// recompute S^T and dP^T, summed over C and D in panels of PCOLS columns:
+// each query tile's Q and G are staged a panel at a time, with the tile's
+// chunk columns of Q (for dS^T . Q) and of G (for P^T . G) past C or D =
+// PCOLS. K's and V's rows are resident for the sweep where they fit a block
+// (res), else staged a panel at a time beside Q's and G's.
+template <bool PAYLOAD2>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ g,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dk,
                    float* __restrict__ dv, int Lq, int Lk, int C, int D,
-                   float scale, Swin sw) {
+                   float scale, Swin sw, int res) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int cs = C + PAD, dst = D + PAD;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);                 // [ROWS][cs]
-  bf16* Qs = Ks + ROWS * cs;                                // [QT][cs]
-  bf16* Vs = Qs + QT * cs;                                  // [ROWS][dst]
-  bf16* Gs = Vs + ROWS * dst;                               // [QT][dst]
-  float2* G2 = reinterpret_cast<float2*>(Vs);               // [QT] (D == 2)
+  const int kps = min(C, PCOLS) + PAD, vps = min(D, PCOLS) + PAD;  // panel rows
+  const int ks_ = res ? C + PAD : kps, vs_ = res ? D + PAD : vps;
+  const bool qc_own = C > PCOLS, gc_own = !PAYLOAD2 && D > PCOLS;
+  bf16* Qp = reinterpret_cast<bf16*>(smem);                 // [QT][kps]
+  bf16* Gp = Qp + QT * kps;                                 // [QT][vps]
+  float2* G2 = reinterpret_cast<float2*>(Gp);               // [QT] (D == 2)
+  bf16* Qc = Gp + (PAYLOAD2 ? 4 * QT : QT * vps);           // [QT][kps]
+  bf16* Gc = Qc + (qc_own ? QT * kps : 0);                  // [QT][vps]
+  bf16* Ks = Gc + (gc_own ? QT * vps : 0);                  // [ROWS][ks_]
+  bf16* Vs = Ks + ROWS * ks_;                               // [ROWS][vs_]
+  if (!qc_own) Qc = Qp;
+  if (!gc_own) Gc = Gp;
   __shared__ float lse_s[QT], delta_s[QT];
   __shared__ int qreg_s[QT];
 
   const int b = blockIdx.y, k0 = blockIdx.x * ROWS, c0 = blockIdx.z * CHUNK;
+  const int cwk = min(CHUNK, C - c0), cwv = min(CHUNK, D - c0);  // may be <= 0
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gi = lane >> 2, t = lane & 3;
   const int rows[2] = {k0 + warp * 16 + gi, k0 + warp * 16 + gi + 8};
@@ -414,8 +475,13 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       v2[r] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
           vb + (long long)rows[r] * 2));
   }
-  stage_rows(Ks, kb, k0, ROWS, Lk, C);
-  if (!PAYLOAD2) stage_rows(Vs, vb, k0, ROWS, Lk, D);
+  if (res) {   // published by the first panel's wait and barrier
+    stage_rows(Ks, ks_, kb, k0, ROWS, Lk, C, C);
+    if (!PAYLOAD2) stage_rows(Vs, vs_, vb, k0, ROWS, Lk, D, D);
+  }
+  const int npc = (C + PCOLS - 1) / PCOLS;
+  const int npd = PAYLOAD2 ? 0 : (D + PCOLS - 1) / PCOLS;
+  const int np = max(npc, npd);
 
   constexpr int DT = PAYLOAD2 ? 1 : CHUNK / 8;
   float dka[CHUNK / 8][4], dva[DT][4];
@@ -429,37 +495,44 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) dva[i][e] = 0.f;
 
   for (int q0 = 0; q0 < Lq; q0 += QT) {
-    __syncthreads();  // the previous tile is consumed (and K, V staged)
-    stage_rows(Qs, qb, q0, QT, Lq, C);
-    if (PAYLOAD2)
-      stage_pairs(G2, gb, q0, QT, Lq);
-    else
-      stage_rows(Gs, gb, q0, QT, Lq, D);
-    for (int r = threadIdx.x; r < QT; r += WARPS * 32) {
-      const bool ok = q0 + r < Lq;
-      lse_s[r] = ok ? lse[(long long)b * Lq + q0 + r] : 0.f;
-      delta_s[r] = ok ? delta[(long long)b * Lq + q0 + r] : 0.f;
-      if (masked) qreg_s[r] = swin_region(sw, last_y, last_x, q0 + r);
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V G^T: 16 keys x 32 queries per warp
+    // S^T = K Q^T and dP^T = V G^T: 16 keys x 32 queries per warp, a panel
+    // of C and one of D at a time
     float s[QT / 8][4], dp[QT / 8][4];
 #pragma unroll
     for (int nt = 0; nt < QT / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < CMAX / 16; ++kk) {
-      if (kk * 16 < C) {
-        uint32_t a[4];
-        load_a(a, Ks, cs, warp * 16, kk, gi, t);
-#pragma unroll
-        for (int nt = 0; nt < QT / 8; ++nt) {
-          const bf16* qr = Qs + (nt * 8 + gi) * cs + kk * 16 + 2 * t;
-          mma_bf16(s[nt], a, load_u32(qr), load_u32(qr + 8));
+    for (int p = 0; p < np; ++p) {
+      const int p0 = p * PCOLS, cw = min(PCOLS, C - p0);
+      const int dw = min(PCOLS, D - p0);
+      __syncthreads();  // the previous panel (and tile) is consumed
+      if (p < npc) {
+        stage_rows(Qp, kps, qb + p0, q0, QT, Lq, cw, C);
+        if (!res) stage_rows(Ks, ks_, kb + p0, k0, ROWS, Lk, cw, C);
+      }
+      if (p < npd) {
+        stage_rows(Gp, vps, gb + p0, q0, QT, Lq, dw, D);
+        if (!res) stage_rows(Vs, vs_, vb + p0, k0, ROWS, Lk, dw, D);
+      }
+      if (p == 0) {
+        if (PAYLOAD2) stage_pairs(G2, gb, q0, QT, Lq);
+        if (qc_own && cwk > 0) stage_rows(Qc, kps, qb + c0, q0, QT, Lq, cwk, C);
+        if (gc_own && cwv > 0) stage_rows(Gc, vps, gb + c0, q0, QT, Lq, cwv, D);
+        for (int r = threadIdx.x; r < QT; r += WARPS * 32) {
+          const bool ok = q0 + r < Lq;
+          lse_s[r] = ok ? lse[(long long)b * Lq + q0 + r] : 0.f;
+          delta_s[r] = ok ? delta[(long long)b * Lq + q0 + r] : 0.f;
+          if (masked) qreg_s[r] = swin_region(sw, last_y, last_x, q0 + r);
         }
       }
+      cp_async_wait_all();
+      __syncthreads();
+      if (p < npc)
+        panel_product(s, Ks + (res ? p0 : 0), ks_, warp * 16, Qp, kps, cw,
+                      gi, t);
+      if (p < npd)
+        panel_product(dp, Vs + (res ? p0 : 0), vs_, warp * 16, Gp, vps, dw,
+                      gi, t);
     }
     if (PAYLOAD2) {
 #pragma unroll
@@ -470,19 +543,6 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const float2 vv = v2[e >> 1];
           dp[nt][e] = fmaf(gg.x, vv.x, gg.y * vv.y);
         }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < DMAX / 16; ++kk) {
-        if (kk * 16 < D) {
-          uint32_t a[4];
-          load_a(a, Vs, dst, warp * 16, kk, gi, t);
-#pragma unroll
-          for (int nt = 0; nt < QT / 8; ++nt) {
-            const bf16* gr = Gs + (nt * 8 + gi) * dst + kk * 16 + 2 * t;
-            mma_bf16(dp[nt], a, load_u32(gr), load_u32(gr + 8));
-          }
-        }
-      }
     }
 
     // p^T in s, ds^T in dp
@@ -521,13 +581,13 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                pack_f32(s[2 * ks][2], s[2 * ks][3]),
                                pack_f32(s[2 * ks + 1][0], s[2 * ks + 1][1]),
                                pack_f32(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-        const bf16* gr = Gs + (ks * 16 + 2 * t) * dst + c0 + gi;
+        const bf16* gr = Gc + (ks * 16 + 2 * t) * vps + gi;
 #pragma unroll
         for (int nt = 0; nt < DT; ++nt) {
-          if (c0 + nt * 8 < D) {
+          if (nt * 8 < cwv) {
             const bf16* p = gr + nt * 8;
-            mma_bf16(dva[nt], a, pack_bf16(p[0], p[dst]),
-                     pack_bf16(p[8 * dst], p[9 * dst]));
+            mma_bf16(dva[nt], a, pack_bf16(p[0], p[vps]),
+                     pack_bf16(p[8 * vps], p[9 * vps]));
           }
         }
       }
@@ -535,13 +595,13 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              pack_f32(dp[2 * ks][2], dp[2 * ks][3]),
                              pack_f32(dp[2 * ks + 1][0], dp[2 * ks + 1][1]),
                              pack_f32(dp[2 * ks + 1][2], dp[2 * ks + 1][3])};
-      const bf16* qr = Qs + (ks * 16 + 2 * t) * cs + c0 + gi;
+      const bf16* qr = Qc + (ks * 16 + 2 * t) * kps + gi;
 #pragma unroll
       for (int nt = 0; nt < CHUNK / 8; ++nt) {
-        if (c0 + nt * 8 < C) {
+        if (nt * 8 < cwk) {
           const bf16* p = qr + nt * 8;
-          mma_bf16(dka[nt], a, pack_bf16(p[0], p[cs]),
-                   pack_bf16(p[8 * cs], p[9 * cs]));
+          mma_bf16(dka[nt], a, pack_bf16(p[0], p[kps]),
+                   pack_bf16(p[8 * kps], p[9 * kps]));
         }
       }
     }
@@ -551,7 +611,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* dvb = dv + (long long)b * Lk * D + c0;
 #pragma unroll
   for (int nt = 0; nt < CHUNK / 8; ++nt) {
-    if (c0 + nt * 8 < C) {
+    if (nt * 8 < cwk) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         if (rows[r] < Lk)
@@ -576,7 +636,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   } else {
 #pragma unroll
     for (int nt = 0; nt < DT; ++nt) {
-      if (c0 + nt * 8 < D) {
+      if (nt * 8 < cwv) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           if (rows[r] < Lk)
@@ -1513,73 +1573,110 @@ static int launch_dkv(const void* q, const void* k, const void* v,
 // f32 operands: one thread per output row
 // ---------------------------------------------------------------------------
 
-// R output rows (= threads) a block: 64, or 32 where 64 rows' shared
-// memory would not fit (f32_rows)
-template <int R>
-__global__ void __launch_bounds__(R)
+// Rows [r0, r0 + n) of W columns of an f32 matrix whose rows are `stride`
+// apart into [n][ld] shared rows by 4-byte cp.async copies (rows padded to
+// an odd count of floats keep a thread's row on its own bank); rows >= L
+// are zeros. The caller waits and syncs.
+__device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
+                                          int r0, int n, int L, int W,
+                                          int stride) {
+  for (int i = threadIdx.x; i < n * W; i += F32_ROWS) {
+    const int r = i / W, c = i - r * W;
+    const bool ok = r0 + r < L;
+    cp_async_4(dst + r * ld + c,
+               ok ? src + (long long)(r0 + r) * stride + c : src,
+               ok ? 4u : 0u);
+  }
+}
+
+// dq: one block per (F32_ROWS query rows, batch entry, chunk of CHUNK
+// columns of dq: blockIdx.z; each chunk's blocks recompute S and dP). S =
+// Q K^T and dP = G V^T are summed over C and D in panels of PCOLS columns, in
+// the order of C and of D at any width: each key tile's K and V are staged
+// a panel at a time, with the tile's chunk columns of K past C = PCOLS; Q's
+// and G's rows resident where they fit a block (res), else staged a panel
+// at a time beside K's and V's. The chunk's row sums in shared memory.
+__global__ void __launch_bounds__(F32_ROWS)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ g,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq,
-                 int Lq, int Lk, int C, int D, float scale, Swin sw) {
+                 int Lq, int Lk, int C, int D, float scale, Swin sw,
+                 int res) {
+  constexpr int R = F32_ROWS;
   extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                              // [R][C + 1]
-  float* Gs = Qs + R * (C + 1);          // [R][D + 1]
-  float* As = Gs + R * (D + 1);          // [R][C + 1] dq sums
-  float* Ks = As + R * (C + 1);          // [F32_T][C]
-  float* Vs = Ks + F32_T * C;                   // [F32_T][D]
+  const int kw = min(C, PCOLS), vw = min(D, PCOLS);
+  const int qs = (res ? C : kw) + 1, gs = (res ? D : vw) + 1;
+  const int as = min(C, CHUNK) + 1;
+  float* Qs = fsm;                              // [R][qs]
+  float* Gs = Qs + R * qs;                      // [R][gs]
+  float* As = Gs + R * gs;                      // [R][as] dq sums
+  float* Kp = As + R * as;                      // [F32_T][kw]
+  float* Vp = Kp + F32_T * kw;                  // [F32_T][vw]
+  float* Kc = C > PCOLS ? Vp + F32_T * vw : Kp;    // [F32_T][kw]
   __shared__ int kreg_s[F32_T];
-  const int b = blockIdx.y, tid = threadIdx.x;
+  const int b = blockIdx.y, tid = threadIdx.x, c0 = blockIdx.z * CHUNK;
   const int q0 = blockIdx.x * R, row = q0 + tid;
+  const int cwc = min(CHUNK, C - c0);
   const float* qb = q + (long long)b * Lq * C;
   const float* kb = k + (long long)b * Lk * C;
   const float* vb = v + (long long)b * Lk * D;
   const float* gb = g + (long long)b * Lq * D;
 
-  for (int i = tid; i < R * C; i += R) {
-    const int r = i / C, c = i - r * C;
-    Qs[r * (C + 1) + c] = q0 + r < Lq ? qb[(long long)(q0 + r) * C + c] : 0.f;
-    As[r * (C + 1) + c] = 0.f;
+  if (res) {   // published by the first panel's wait and barrier
+    stage_f32(Qs, qs, qb, q0, R, Lq, C, C);
+    stage_f32(Gs, gs, gb, q0, R, Lq, D, D);
   }
-  for (int i = tid; i < R * D; i += R) {
-    const int r = i / D, c = i - r * D;
-    Gs[r * (D + 1) + c] = q0 + r < Lq ? gb[(long long)(q0 + r) * D + c] : 0.f;
-  }
+  float* acc = As + tid * as;
+  for (int c = 0; c < cwc; ++c) acc[c] = 0.f;
   const bool ok = row < Lq;
   const float lse_r = ok ? lse[(long long)b * Lq + row] : 0.f;
   const float delta_r = ok ? delta[(long long)b * Lq + row] : 0.f;
   bool last_y, last_x;
   const bool masked = swin_window(sw, b, &last_y, &last_x);
   const int qreg = masked ? swin_region(sw, last_y, last_x, row) : 0;
-  const float* qr = Qs + tid * (C + 1);
-  const float* gr = Gs + tid * (D + 1);
-  float* acc = As + tid * (C + 1);
+  const int npc = (C + PCOLS - 1) / PCOLS, npd = (D + PCOLS - 1) / PCOLS;
 
   for (int k0 = 0; k0 < Lk; k0 += F32_T) {
-    __syncthreads();
-    for (int i = tid; i < F32_T * C; i += R)
-      Ks[i] = k0 + i / C < Lk ? kb[(long long)k0 * C + i] : 0.f;
-    for (int i = tid; i < F32_T * D; i += R)
-      Vs[i] = k0 + i / D < Lk ? vb[(long long)k0 * D + i] : 0.f;
-    if (masked && tid < F32_T)
-      kreg_s[tid] = swin_region(sw, last_y, last_x, k0 + tid);
-    __syncthreads();
-
-    float s[F32_T];
+    float s[F32_T], dp[F32_T];
 #pragma unroll
-    for (int j = 0; j < F32_T; ++j) s[j] = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float qv = qr[c];
+    for (int j = 0; j < F32_T; ++j) s[j] = dp[j] = 0.f;
+    for (int p = 0; p < max(npc, npd); ++p) {
+      const int p0 = p * PCOLS, cw = min(PCOLS, C - p0);
+      const int dw = min(PCOLS, D - p0);
+      __syncthreads();  // the previous panel (and tile) is consumed
+      if (p < npc) {
+        stage_f32(Kp, kw, kb + p0, k0, F32_T, Lk, cw, C);
+        if (!res) stage_f32(Qs, qs, qb + p0, q0, R, Lq, cw, C);
+      }
+      if (p < npd) {
+        stage_f32(Vp, vw, vb + p0, k0, F32_T, Lk, dw, D);
+        if (!res) stage_f32(Gs, gs, gb + p0, q0, R, Lq, dw, D);
+      }
+      if (p == 0) {
+        if (C > PCOLS) stage_f32(Kc, kw, kb + c0, k0, F32_T, Lk, cwc, C);
+        if (masked && tid < F32_T)
+          kreg_s[tid] = swin_region(sw, last_y, last_x, k0 + tid);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (p < npc) {
+        const float* qr = Qs + tid * qs + (res ? p0 : 0);
+        for (int c = 0; c < cw; ++c) {
+          const float qv = qr[c];
 #pragma unroll
-      for (int j = 0; j < F32_T; ++j) s[j] = fmaf(qv, Ks[j * C + c], s[j]);
-    }
-    float dp[F32_T];
+          for (int j = 0; j < F32_T; ++j) s[j] = fmaf(qv, Kp[j * kw + c], s[j]);
+        }
+      }
+      if (p < npd) {
+        const float* gr = Gs + tid * gs + (res ? p0 : 0);
+        for (int d = 0; d < dw; ++d) {
+          const float gv = gr[d];
 #pragma unroll
-    for (int j = 0; j < F32_T; ++j) dp[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float gv = gr[d];
-#pragma unroll
-      for (int j = 0; j < F32_T; ++j) dp[j] = fmaf(gv, Vs[j * D + d], dp[j]);
+          for (int j = 0; j < F32_T; ++j)
+            dp[j] = fmaf(gv, Vp[j * vw + d], dp[j]);
+        }
+      }
     }
 #pragma unroll
     for (int j = 0; j < F32_T; ++j) {
@@ -1589,90 +1686,116 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float p = ok ? expf(x - lse_r) : 0.f;
       s[j] = p * (dp[j] - delta_r);
     }
-    for (int c = 0; c < C; ++c) {
+    for (int c = 0; c < cwc; ++c) {
       float a = acc[c];
 #pragma unroll
-      for (int j = 0; j < F32_T; ++j) a = fmaf(s[j], Ks[j * C + c], a);
+      for (int j = 0; j < F32_T; ++j) a = fmaf(s[j], Kc[j * kw + c], a);
       acc[c] = a;
     }
   }
   if (ok) {
-    float* out = dq + ((long long)b * Lq + row) * C;
-    for (int c = 0; c < C; ++c) out[c] = acc[c] * scale;
+    float* out = dq + ((long long)b * Lq + row) * C + c0;
+    for (int c = 0; c < cwc; ++c) out[c] = acc[c] * scale;
   }
 }
 
-template <int R>
-__global__ void __launch_bounds__(R)
+// dk and dv: one block per (F32_ROWS key rows, batch entry, chunk z of
+// CHUNK columns: dk's and dv's columns [z CHUNK, (z + 1) CHUNK)), as dq
+// with the sides swapped: S^T and dP^T over panels of C and D, each query
+// tile's Q and G staged a panel at a time with the tile's chunk columns of
+// Q and G past C or D = PCOLS; K's and V's rows resident where they fit.
+__global__ void __launch_bounds__(F32_ROWS)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ g,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dk,
                   float* __restrict__ dv, int Lq, int Lk, int C, int D,
-                  float scale, Swin sw) {
+                  float scale, Swin sw, int res) {
+  constexpr int R = F32_ROWS;
   extern __shared__ __align__(16) float fsm[];
-  float* Ks = fsm;                              // [R][C + 1]
-  float* Vs = Ks + R * (C + 1);          // [R][D + 1]
-  float* DK = Vs + R * (D + 1);          // [R][C + 1] sums
-  float* DV = DK + R * (C + 1);          // [R][D + 1] sums
-  float* Qs = DV + R * (D + 1);          // [F32_T][C]
-  float* Gs = Qs + F32_T * C;                   // [F32_T][D]
+  const int kw = min(C, PCOLS), vw = min(D, PCOLS);
+  const int ks_ = (res ? C : kw) + 1, vs_ = (res ? D : vw) + 1;
+  const int as_k = min(C, CHUNK) + 1, as_v = min(D, CHUNK) + 1;
+  float* Ks = fsm;                              // [R][ks_]
+  float* Vs = Ks + R * ks_;                     // [R][vs_]
+  float* DK = Vs + R * vs_;                     // [R][as_k] sums
+  float* DV = DK + R * as_k;                    // [R][as_v] sums
+  float* Qp = DV + R * as_v;                    // [F32_T][kw]
+  float* Gp = Qp + F32_T * kw;                  // [F32_T][vw]
+  float* Qc = Gp + F32_T * vw;                  // [F32_T][kw] (C > PCOLS)
+  float* Gc = Qc + (C > PCOLS ? F32_T * kw : 0);   // [F32_T][vw] (D > PCOLS)
+  if (C <= PCOLS) Qc = Qp;
+  if (D <= PCOLS) Gc = Gp;
   __shared__ float lse_s[F32_T], delta_s[F32_T];
   __shared__ int qreg_s[F32_T];
-  const int b = blockIdx.y, tid = threadIdx.x;
+  const int b = blockIdx.y, tid = threadIdx.x, c0 = blockIdx.z * CHUNK;
   const int k0 = blockIdx.x * R, row = k0 + tid;
+  const int cwk = min(CHUNK, C - c0), cwv = min(CHUNK, D - c0);  // may be <= 0
   const float* qb = q + (long long)b * Lq * C;
   const float* kb = k + (long long)b * Lk * C;
   const float* vb = v + (long long)b * Lk * D;
   const float* gb = g + (long long)b * Lq * D;
 
-  for (int i = tid; i < R * C; i += R) {
-    const int r = i / C, c = i - r * C;
-    Ks[r * (C + 1) + c] = k0 + r < Lk ? kb[(long long)(k0 + r) * C + c] : 0.f;
-    DK[r * (C + 1) + c] = 0.f;
+  if (res) {   // published by the first panel's wait and barrier
+    stage_f32(Ks, ks_, kb, k0, R, Lk, C, C);
+    stage_f32(Vs, vs_, vb, k0, R, Lk, D, D);
   }
-  for (int i = tid; i < R * D; i += R) {
-    const int r = i / D, c = i - r * D;
-    Vs[r * (D + 1) + c] = k0 + r < Lk ? vb[(long long)(k0 + r) * D + c] : 0.f;
-    DV[r * (D + 1) + c] = 0.f;
-  }
+  float* dka = DK + tid * as_k;
+  float* dva = DV + tid * as_v;
+  for (int c = 0; c < cwk; ++c) dka[c] = 0.f;
+  for (int d = 0; d < cwv; ++d) dva[d] = 0.f;
   bool last_y, last_x;
   const bool masked = swin_window(sw, b, &last_y, &last_x);
   const int kreg = masked ? swin_region(sw, last_y, last_x, row) : 0;
-  const float* kr = Ks + tid * (C + 1);
-  const float* vr = Vs + tid * (D + 1);
-  float* dka = DK + tid * (C + 1);
-  float* dva = DV + tid * (D + 1);
+  const int npc = (C + PCOLS - 1) / PCOLS, npd = (D + PCOLS - 1) / PCOLS;
 
   for (int q0 = 0; q0 < Lq; q0 += F32_T) {
-    __syncthreads();
-    for (int i = tid; i < F32_T * C; i += R)
-      Qs[i] = q0 + i / C < Lq ? qb[(long long)q0 * C + i] : 0.f;
-    for (int i = tid; i < F32_T * D; i += R)
-      Gs[i] = q0 + i / D < Lq ? gb[(long long)q0 * D + i] : 0.f;
-    if (tid < F32_T) {
-      const bool ok = q0 + tid < Lq;
-      lse_s[tid] = ok ? lse[(long long)b * Lq + q0 + tid] : 0.f;
-      delta_s[tid] = ok ? delta[(long long)b * Lq + q0 + tid] : 0.f;
-      if (masked) qreg_s[tid] = swin_region(sw, last_y, last_x, q0 + tid);
-    }
-    __syncthreads();
-
-    float s[F32_T];
+    float s[F32_T], dp[F32_T];
 #pragma unroll
-    for (int j = 0; j < F32_T; ++j) s[j] = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float kv = kr[c];
+    for (int j = 0; j < F32_T; ++j) s[j] = dp[j] = 0.f;
+    for (int p = 0; p < max(npc, npd); ++p) {
+      const int p0 = p * PCOLS, cw = min(PCOLS, C - p0);
+      const int dw = min(PCOLS, D - p0);
+      __syncthreads();  // the previous panel (and tile) is consumed
+      if (p < npc) {
+        stage_f32(Qp, kw, qb + p0, q0, F32_T, Lq, cw, C);
+        if (!res) stage_f32(Ks, ks_, kb + p0, k0, R, Lk, cw, C);
+      }
+      if (p < npd) {
+        stage_f32(Gp, vw, gb + p0, q0, F32_T, Lq, dw, D);
+        if (!res) stage_f32(Vs, vs_, vb + p0, k0, R, Lk, dw, D);
+      }
+      if (p == 0) {
+        if (C > PCOLS && cwk > 0)
+          stage_f32(Qc, kw, qb + c0, q0, F32_T, Lq, cwk, C);
+        if (D > PCOLS && cwv > 0)
+          stage_f32(Gc, vw, gb + c0, q0, F32_T, Lq, cwv, D);
+        if (tid < F32_T) {
+          const bool ok = q0 + tid < Lq;
+          lse_s[tid] = ok ? lse[(long long)b * Lq + q0 + tid] : 0.f;
+          delta_s[tid] = ok ? delta[(long long)b * Lq + q0 + tid] : 0.f;
+          if (masked) qreg_s[tid] = swin_region(sw, last_y, last_x, q0 + tid);
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (p < npc) {
+        const float* kr = Ks + tid * ks_ + (res ? p0 : 0);
+        for (int c = 0; c < cw; ++c) {
+          const float kv = kr[c];
 #pragma unroll
-      for (int j = 0; j < F32_T; ++j) s[j] = fmaf(Qs[j * C + c], kv, s[j]);
-    }
-    float dp[F32_T];
+          for (int j = 0; j < F32_T; ++j) s[j] = fmaf(Qp[j * kw + c], kv, s[j]);
+        }
+      }
+      if (p < npd) {
+        const float* vr = Vs + tid * vs_ + (res ? p0 : 0);
+        for (int d = 0; d < dw; ++d) {
+          const float vv = vr[d];
 #pragma unroll
-    for (int j = 0; j < F32_T; ++j) dp[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float vv = vr[d];
-#pragma unroll
-      for (int j = 0; j < F32_T; ++j) dp[j] = fmaf(Gs[j * D + d], vv, dp[j]);
+          for (int j = 0; j < F32_T; ++j)
+            dp[j] = fmaf(Gp[j * vw + d], vv, dp[j]);
+        }
+      }
     }
 #pragma unroll
     for (int j = 0; j < F32_T; ++j) {
@@ -1683,24 +1806,24 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
       s[j] = p;
       dp[j] = p * (dp[j] - delta_s[j]);
     }
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < cwv; ++d) {
       float a = dva[d];
 #pragma unroll
-      for (int j = 0; j < F32_T; ++j) a = fmaf(s[j], Gs[j * D + d], a);
+      for (int j = 0; j < F32_T; ++j) a = fmaf(s[j], Gc[j * vw + d], a);
       dva[d] = a;
     }
-    for (int c = 0; c < C; ++c) {
+    for (int c = 0; c < cwk; ++c) {
       float a = dka[c];
 #pragma unroll
-      for (int j = 0; j < F32_T; ++j) a = fmaf(dp[j], Qs[j * C + c], a);
+      for (int j = 0; j < F32_T; ++j) a = fmaf(dp[j], Qc[j * kw + c], a);
       dka[c] = a;
     }
   }
   if (row < Lk) {
-    float* outk = dk + ((long long)b * Lk + row) * C;
-    float* outv = dv + ((long long)b * Lk + row) * D;
-    for (int c = 0; c < C; ++c) outk[c] = dka[c] * scale;
-    for (int d = 0; d < D; ++d) outv[d] = dva[d];
+    float* outk = dk + ((long long)b * Lk + row) * C + c0;
+    float* outv = dv + ((long long)b * Lk + row) * D + c0;
+    for (int c = 0; c < cwk; ++c) outk[c] = dka[c] * scale;
+    for (int d = 0; d < cwv; ++d) outv[d] = dva[d];
   }
 }
 
@@ -1721,71 +1844,67 @@ static int launch(const void* kern, dim3 grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// The widths every route's checks start from: C % 16 == 0, D == 2 or D %
+// 16 == 0, and at most 65,535 chunks of CHUNK columns on the grid's z axis
+// (dq's chunks of C, dk/dv's of C or D), so C and D <= 65535 * 128.
+#define MAX_WIDTH (65535 * CHUNK)
 static bool valid(int B, int Lq, int Lk, int C, int D, int swin_k) {
   return B >= 1 && B <= 65535 && Lq >= 1 && Lk >= 1 && C >= 16 &&
-         C <= 256 && C % 16 == 0 &&
-         (D == 2 || (D % 16 == 0 && D >= 16 && D <= 256)) && swin_k >= 0;
+         C <= MAX_WIDTH && C % 16 == 0 &&
+         (D == 2 || (D % 16 == 0 && D >= 16 && D <= MAX_WIDTH)) &&
+         swin_k >= 0;
 }
 
-// The CUDA-core kernels' dynamic shared memory at `rows` output rows: the
-// rows' C + 1 and D + 1 wide operands and accumulators (dq: Q, dq, G; dk/dv:
-// K, dk, V, dv) and a 32-row tile of the other side (ops/flash_bwd.py:
-// f32_dynamic_smem).
-static size_t f32_smem(int C, int D, bool dkv, int rows) {
-  return sizeof(float) * ((size_t)rows * (2 * (C + 1) + (dkv ? 2 : 1) *
-                                                             (D + 1)) +
-                          (size_t)F32_T * (C + D));
+// The CUDA-core kernels' dynamic shared memory (floats): dq the rows' Q and
+// G (resident, or a panel of PCOLS columns, each padded by one float) and
+// their chunk's sums, the tile's panels of K and V and, past C = PCOLS, its
+// chunk columns of K; dk/dv the rows' K and V, their chunk's dk and dv
+// sums, the tile's panels of Q and G and, past C or D = PCOLS, their chunk
+// columns.
+static size_t f32_smem(int C, int D, bool dkv, bool res) {
+  const size_t kw = C < PCOLS ? C : PCOLS, vw = D < PCOLS ? D : PCOLS;
+  const size_t ac = (C < CHUNK ? C : CHUNK) + 1;
+  const size_t av = (D < CHUNK ? D : CHUNK) + 1;
+  const size_t rows = F32_ROWS * ((res ? C : kw) + 1 + (res ? D : vw) + 1 +
+                                  ac + (dkv ? av : 0));
+  const size_t tile = F32_T * (kw + vw + (C > PCOLS ? kw : 0) +
+                               (dkv && D > PCOLS ? vw : 0));
+  return sizeof(float) * (rows + tile);
 }
 
-// 64 output rows a block where their shared memory fits, else 32
-static int f32_rows(int C, int D, bool dkv) {
-  return f32_smem(C, D, dkv, F32_ROWS) <= F32_SMEM_MAX ? F32_ROWS : 32;
-}
-
-typedef void (*DqKernel)(const bf16*, const bf16*, const bf16*, const bf16*,
-                         const float*, const float*, float*, int, int, int,
-                         int, float, Swin);
-typedef void (*DkvKernel)(const bf16*, const bf16*, const bf16*,
-                          const bf16*, const float*, const float*, float*,
-                          float*, int, int, int, int, float, Swin);
-
-// The mma.sync instantiations for these widths: S's and dP's products
-// unrolled to 128 or 256 columns, D = 2 apart.
-static DqKernel dq_kernel(int C, int D) {
-  if (D == 2)
-    return C <= 128 ? flash_bwd_dq_bf16<128, 128, true>
-                    : flash_bwd_dq_bf16<256, 128, true>;
-  if (C <= 128)
-    return D <= 128 ? flash_bwd_dq_bf16<128, 128, false>
-                    : flash_bwd_dq_bf16<128, 256, false>;
-  return D <= 128 ? flash_bwd_dq_bf16<256, 128, false>
-                  : flash_bwd_dq_bf16<256, 256, false>;
-}
-
-static DkvKernel dkv_kernel(int C, int D) {
-  if (D == 2)
-    return C <= 128 ? flash_bwd_dkv_bf16<128, 128, true>
-                    : flash_bwd_dkv_bf16<256, 128, true>;
-  if (C <= 128)
-    return D <= 128 ? flash_bwd_dkv_bf16<128, 128, false>
-                    : flash_bwd_dkv_bf16<128, 256, false>;
-  return D <= 128 ? flash_bwd_dkv_bf16<256, 128, false>
-                  : flash_bwd_dkv_bf16<256, 256, false>;
+// The mma.sync kernels' dynamic shared memory (bf16): the resident side's
+// rows (Q and G for dq, K and V for dk/dv: whole, or a panel of PCOLS
+// columns, each row padded by PAD), the other side's tile of a panel of
+// each (V's or G's 2-wide rows as float2s at D = 2) and, past C or D = PCOLS,
+// its chunk columns (dq: of K; dk/dv: of Q and G).
+static size_t bf16_smem(int C, int D, bool dkv, bool res) {
+  const bool p2 = D == 2;
+  const size_t kps = (C < PCOLS ? C : PCOLS) + PAD;
+  const size_t vps = (D < PCOLS ? D : PCOLS) + PAD;
+  const size_t tile = dkv ? QT : BK;
+  const size_t rows = ROWS * ((res ? C + PAD : kps) +
+                              (p2 ? 0 : (res ? D + PAD : vps)));
+  const size_t other = tile * (kps + (p2 ? 4 : vps) + (C > PCOLS ? kps : 0) +
+                               (dkv && !p2 && D > PCOLS ? vps : 0));
+  return sizeof(bf16) * (rows + other);
 }
 
 static unsigned chunks(int W) { return (unsigned)((W + CHUNK - 1) / CHUNK); }
 
 // One backward kernel as it launches on a route at these widths: the
 // kernel, its output rows and threads a block, its column chunks (a grid
-// axis of the mma.sync route: dq's of C, dk/dv's of C or D, whichever has
-// more; 1 elsewhere) and its dynamic shared memory. The entry points
-// launch the CUDA-core and mma.sync routes from it, and ofd_flash_bwd_plan
-// reports it for every route.
+// axis of the mma.sync and CUDA-core routes: dq's of C, dk/dv's of C or D,
+// whichever has more; 1 elsewhere), its dynamic shared memory and, on the
+// mma.sync and CUDA-core routes, whether the resident side's rows stay in
+// shared memory whole (where they fit a block) or come a panel at a time.
+// The entry points launch the CUDA-core and mma.sync routes from it, and
+// ofd_flash_bwd_plan reports it for every route.
 struct Kernel {
   const void* fn;
   int rows, threads;
   unsigned chunks;
   size_t smem;
+  int res;
 };
 
 template <bool P2, int W>
@@ -1793,9 +1912,9 @@ static Kernel wgmma_kernel(bool dkv) {
   using namespace sm90;
   if (dkv)
     return {(const void*)flash_bwd_dkv_wgmma<P2, W>, Dkv<P2, W>::RG * TILE,
-            THREADS, 1, smem_bytes<typename Dkv<P2, W>::SM>()};
+            THREADS, 1, smem_bytes<typename Dkv<P2, W>::SM>(), 0};
   return {(const void*)flash_bwd_dq_wgmma<P2, W>, WG * TILE, THREADS, 1,
-          smem_bytes<typename Dq<P2, W>::SM>()};
+          smem_bytes<typename Dq<P2, W>::SM>(), 0};
 }
 
 template <bool P2>
@@ -1803,10 +1922,12 @@ static Kernel tf32_kernel(bool dkv) {
   using K = tf32x3::Cfg<P2>;
   return {dkv ? (const void*)tf32x3::flash_bwd_dkv_tf32<P2>
               : (const void*)tf32x3::flash_bwd_dq_tf32<P2>,
-          K::BROWS, K::THREADS, 1, dkv ? K::SMEM_DKV : K::SMEM_DQ};
+          K::BROWS, K::THREADS, 1, dkv ? K::SMEM_DKV : K::SMEM_DQ, 0};
 }
 
 static Kernel kernel_of(int route, bool dkv, int C, int D) {
+  const unsigned z =
+      dkv && D != 2 && chunks(D) > chunks(C) ? chunks(D) : chunks(C);
   switch (route) {
     case WGMMA:
       if (C == 256)
@@ -1817,26 +1938,19 @@ static Kernel kernel_of(int route, bool dkv, int C, int D) {
     case TF32X3:
       return D == 2 ? tf32_kernel<true>(dkv) : tf32_kernel<false>(dkv);
     case F32: {
-      const int rows = f32_rows(C, D, dkv);
-      const bool wide = rows == F32_ROWS;
-      const void* fn =
-          dkv ? (wide ? (const void*)flash_bwd_dkv_f32<F32_ROWS>
-                      : (const void*)flash_bwd_dkv_f32<32>)
-              : (wide ? (const void*)flash_bwd_dq_f32<F32_ROWS>
-                      : (const void*)flash_bwd_dq_f32<32>);
-      return {fn, rows, rows, 1, f32_smem(C, D, dkv, rows)};
+      const bool res = f32_smem(C, D, dkv, true) <= SMEM_BLOCK;
+      return {dkv ? (const void*)flash_bwd_dkv_f32
+                  : (const void*)flash_bwd_dq_f32,
+              F32_ROWS, F32_ROWS, z, f32_smem(C, D, dkv, res), res};
     }
-    default: {  // MMA_SYNC: the resident rows and a tile of the other side
-      const int tile = dkv ? QT : BK;
-      const unsigned z =
-          dkv && D != 2 && chunks(D) > chunks(C) ? chunks(D) : chunks(C);
-      const size_t rows = (size_t)(ROWS + tile) * (C + PAD) * sizeof(bf16);
-      return {dkv ? (const void*)dkv_kernel(C, D)
-                  : (const void*)dq_kernel(C, D),
-              ROWS, WARPS * 32, z,
-              rows + (D == 2 ? tile * sizeof(float2)
-                             : (size_t)(ROWS + tile) * (D + PAD) *
-                                   sizeof(bf16))};
+    default: {  // MMA_SYNC
+      const bool res = bf16_smem(C, D, dkv, true) <= SMEM_BLOCK;
+      const void* fn =
+          dkv ? (D == 2 ? (const void*)flash_bwd_dkv_bf16<true>
+                        : (const void*)flash_bwd_dkv_bf16<false>)
+              : (D == 2 ? (const void*)flash_bwd_dq_bf16<true>
+                        : (const void*)flash_bwd_dq_bf16<false>);
+      return {fn, ROWS, WARPS * 32, z, bf16_smem(C, D, dkv, res), res};
     }
   }
 }
@@ -1856,8 +1970,8 @@ static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
 // q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], g [B, Lq, D]: all bf16 or all
 // f32, contiguous, 16-byte aligned; lse and delta [B, Lq] f32; dq [B, Lq, C]
 // f32. swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the
-// forward's. Takes C % 16 == 0, C <= 256, and D == 2 or D % 16 == 0,
-// D <= 256 (ops/flash_bwd.py pads other widths), on the route the caller
+// forward's. Takes C % 16 == 0 and D == 2 or D % 16 == 0, up to MAX_WIDTH
+// (ops/flash_bwd.py pads other widths), on the route the caller
 // names (enum Route; the tf32x3 route
 // C = 128 and D = 128 or 2, the wgmma route the same in bf16 and C = 256
 // with D = 256 or 2). splits > 1
@@ -1876,10 +1990,6 @@ extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
       (splits != 1 && route != TF32X3))
     return (int)cudaErrorInvalidValue;
   Swin sw{swin_k, wh, ww, sh, swd};
-  void* args[] = {(void*)&q,  (void*)&k,  (void*)&v, (void*)&g,
-                  (void*)&lse, (void*)&delta, (void*)&dq, (void*)&Lq,
-                  (void*)&Lk, (void*)&C,  (void*)&D, (void*)&scale,
-                  (void*)&sw};
   cudaStream_t st = (cudaStream_t)stream;
   if (route == TF32X3)
     return D == 2 ? tf32x3::launch_dq<true>(q, k, v, g, lse, delta, dq, B,
@@ -1889,7 +1999,11 @@ extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (route == WGMMA)
     return sm90::launch(false, q, k, v, g, lse, delta, dq, nullptr, B, Lq,
                         Lk, C, D, scale, sw, st);
-  const Kernel kn = kernel_of(route, false, C, D);
+  Kernel kn = kernel_of(route, false, C, D);
+  void* args[] = {(void*)&q,  (void*)&k,  (void*)&v, (void*)&g,
+                  (void*)&lse, (void*)&delta, (void*)&dq, (void*)&Lq,
+                  (void*)&Lk, (void*)&C,  (void*)&D, (void*)&scale,
+                  (void*)&sw, (void*)&kn.res};
   const dim3 grid((unsigned)((Lq + kn.rows - 1) / kn.rows), (unsigned)B,
                   kn.chunks);
   return launch(kn.fn, grid, kn.threads, kn.smem, st, args);
@@ -1910,10 +2024,6 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
       (splits != 1 && route != TF32X3))
     return (int)cudaErrorInvalidValue;
   Swin sw{swin_k, wh, ww, sh, swd};
-  void* args[] = {(void*)&q,  (void*)&k,     (void*)&v,  (void*)&g,
-                  (void*)&lse, (void*)&delta, (void*)&dk, (void*)&dv,
-                  (void*)&Lq, (void*)&Lk,    (void*)&C,  (void*)&D,
-                  (void*)&scale, (void*)&sw};
   cudaStream_t st = (cudaStream_t)stream;
   if (route == TF32X3)
     return D == 2 ? tf32x3::launch_dkv<true>(q, k, v, g, lse, delta, dk, dv,
@@ -1924,7 +2034,11 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (route == WGMMA)
     return sm90::launch(true, q, k, v, g, lse, delta, dk, dv, B, Lq, Lk, C, D,
                         scale, sw, st);
-  const Kernel kn = kernel_of(route, true, C, D);
+  Kernel kn = kernel_of(route, true, C, D);
+  void* args[] = {(void*)&q,  (void*)&k,     (void*)&v,  (void*)&g,
+                  (void*)&lse, (void*)&delta, (void*)&dk, (void*)&dv,
+                  (void*)&Lq, (void*)&Lk,    (void*)&C,  (void*)&D,
+                  (void*)&scale, (void*)&sw, (void*)&kn.res};
   const dim3 grid((unsigned)((Lk + kn.rows - 1) / kn.rows), (unsigned)B,
                   kn.chunks);
   return launch(kn.fn, grid, kn.threads, kn.smem, st, args);

@@ -33,11 +33,16 @@ the bias masks (-1e30) gives the mean of v over the real keys and the LSE
 padded keys enter the denominator, gives ``sum(v) / Lk_padded`` where Lk
 is not a multiple of its key block).
 
-Widths: the kernels' tiles take C % 16 == 0 and D == 2 or D % 16 == 0, up
-to 256 (:data:`MAX_WIDTH`); :func:`pad_widths` appends zero columns to q
-and k (the dot products do not change; ``scale`` stays ``1/sqrt(C)`` of
-the unpadded C) and to v, and the result is sliced back. Past 256 a CUDA
-call raises.
+Widths: the kernels' tiles take C % 16 == 0 and D == 2 or D % 16 == 0, at
+any width up to :data:`MAX_WIDTH` (65,535 chunks of 128 columns on a grid
+axis); :func:`pad_widths` appends zero columns to q and k (the dot
+products do not change; ``scale`` stays ``1/sqrt(C)`` of the unpadded C)
+and to v, and the result is sliced back. Every width but the wgmma and
+tf32x3 routes' (every width past 256 among them) takes the mma.sync route
+(bf16) or the CUDA-core route (f32): S summed over C in panels of 128
+columns, D in chunks of 128 columns on a grid axis, each block within 227
+KB of shared memory at any width (:func:`mma_sync_smem`,
+:func:`cuda_core_smem`). Past :data:`MAX_WIDTH` a CUDA call raises.
 
 A call whose inputs require grad goes through an autograd Function, as
 the JAX package's ``custom_vjp``: its forward also emits the LSE and saves
@@ -65,7 +70,11 @@ from .. import _build
 
 KERNEL_BLOCK_K = 64          # keys per tile of csrc/flash.cu's bf16 routes
 LOG2E = 1.4426950408889634
-MAX_WIDTH = 256              # the widest C and D the kernels take
+PANEL = 128       # columns of C (and of D, backward) a panel of the mma.sync
+                  # and CUDA-core routes
+CHUNK = 128       # output columns a block of those routes takes (a grid axis)
+MAX_WIDTH = 65535 * CHUNK    # the widest C and D: the grid's z axis holds
+                             # at most 65,535 chunks
 
 Swin = Tuple[int, int, int, int, int]
 
@@ -255,12 +264,15 @@ TF32_STRIDE = 132       # floats a shared row of the tf32x3 routes
 
 def padded_widths(c: int, d: int) -> Tuple[int, int]:
     """The widths the kernels' tiles take for C = c and D = d: C to the
-    next multiple of 16, D to 2 or the next multiple of 16. Past
-    :data:`MAX_WIDTH` (or below 1) raises ``ValueError``."""
-    if not (1 <= c <= MAX_WIDTH and 1 <= d <= MAX_WIDTH):
+    next multiple of 16, D to 2 or the next multiple of 16. Below 1, or
+    padded past :data:`MAX_WIDTH` (the grid axis of 128-column chunks),
+    raises ``ValueError``."""
+    cp, dp = -(-c // 16) * 16, (2 if d <= 2 else -(-d // 16) * 16)
+    if not (c >= 1 and d >= 1 and cp <= MAX_WIDTH and dp <= MAX_WIDTH):
         raise ValueError(f"the flash kernels take C and D from 1 to "
-                         f"{MAX_WIDTH}, got C={c}, D={d}")
-    return -(-c // 16) * 16, (2 if d <= 2 else -(-d // 16) * 16)
+                         f"{MAX_WIDTH} (65535 chunks of {CHUNK} columns on "
+                         f"the grid's z axis), got C={c}, D={d}")
+    return cp, dp
 
 
 def _pad_last(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -324,12 +336,14 @@ class FwdPlan(NamedTuple):
     B)), and where it is split the f32 scratch shapes of the runs'
     partials (``scratch_out`` ``[splits, B, Lq, D]``, the unnormalised
     outputs; ``scratch_ml`` ``[splits, B, Lq, 2]``, each row's running max
-    in base 2 and denominator; None where not); for the wgmma route its
-    query rows a block, keys a tile and shared memory (``sm90::choose``'s,
-    mirrored by :func:`wgmma_warpgroups` and :func:`wgmma_smem`; blocks an
-    SM, which ptxas's registers also bound, stay 0); the padded widths
-    (``c_pad``, ``d_pad``). The other routes' blocks are the C side's to
-    choose: :func:`kernel_plan` reports them, every route's."""
+    in base 2 and denominator; None where not); for the other routes their
+    query rows a block, keys a tile and shared memory (the wgmma route's
+    ``sm90::choose``'s, mirrored by :func:`wgmma_warpgroups` and
+    :func:`wgmma_smem`; the mma.sync route's :func:`mma_sync_smem`, the
+    CUDA-core route's :func:`cuda_core_smem`; blocks an SM, which ptxas's
+    registers also bound, stay 0); the padded widths (``c_pad``,
+    ``d_pad``). :func:`kernel_plan` reports what the C side launches,
+    every route's."""
     route: str
     rows: int = 0
     tile: int = 0
@@ -375,6 +389,40 @@ def wgmma_smem(c: int, d: int, warpgroups: int) -> int:
             + -(-(v + 5 * 8) // 1024) * 1024 + 1024)
 
 
+SMEM_BLOCK = 232448 - 1024   # dynamic shared memory a block of the
+                             # mma.sync and CUDA-core routes may take
+
+
+def mma_sync_smem(c: int, d: int) -> int:
+    """Shared memory of a forward mma.sync block (``csrc/flash.cu``:
+    ``bf16_smem``) at padded widths C = c and D = d, bytes: a 64-key tile
+    of K's 128-column panel, of V's 128-column chunk (its 64 float2 pairs
+    at D = 2), and past C = 128 the block's 64 rows of Q, resident where
+    the whole block then fits :data:`SMEM_BLOCK`, else a panel; rows
+    padded by 8 bf16."""
+    ks = min(c, PANEL) + 8
+    v = 64 * 8 if d == 2 else 64 * (min(d, CHUNK) + 8) * 2
+
+    def total(resident):
+        q = 0 if c <= PANEL else 64 * ((c if resident else PANEL) + 8) * 2
+        return 64 * ks * 2 + v + q
+    return total(True) if total(True) <= SMEM_BLOCK else total(False)
+
+
+def cuda_core_smem(c: int, d: int) -> int:
+    """Shared memory of a forward CUDA-core block (``csrc/flash.cu``:
+    ``f32_smem``) at padded widths, bytes: 64 query rows of Q, resident
+    where the block then fits :data:`SMEM_BLOCK` (C <= 128 always), else
+    a 128-column panel, rows padded by one float; a 32-key tile of K's
+    panel and of V's 128-column chunk; the rows' sums of that chunk."""
+    kw, dc = min(c, PANEL), min(d, CHUNK)
+
+    def total(resident):
+        return 4 * (64 * ((c if resident else kw) + 1) + 32 * kw + 32 * dc
+                    + 64 * (dc + 1))
+    return total(True) if total(True) <= SMEM_BLOCK else total(False)
+
+
 def wgmma_warpgroups(b: int, lq: int, c: int, d: int, bias: bool = False,
                      sms: int = H100_SMS) -> int:
     """Warpgroups (64 queries each) of a forward wgmma block
@@ -394,18 +442,22 @@ def plan(b: int, lq: int, lk: int, c: int, d: int,
     """The forward's route and its parameters for q ``[b, lq, c]``, k ``[b,
     lk, c]``, v ``[b, lk, d]`` of ``dtype`` (with a dense bias or
     without); pure host arithmetic, on the widths :func:`padded_widths`
-    gives (C and D past 256 raise). bf16 at :func:`wgmma_widths` takes the
-    wgmma route, other bf16 the mma.sync route; f32 at GMFlow's widths the
-    tf32x3 route, other f32 the CUDA-core route."""
+    gives (past :data:`MAX_WIDTH` raises). bf16 at :func:`wgmma_widths`
+    takes the wgmma route, other bf16 the mma.sync route (64 query rows a
+    block, 64-key tiles, :func:`mma_sync_smem`); f32 at GMFlow's widths
+    the tf32x3 route, other f32 the CUDA-core route (64 rows, 32-key
+    tiles, :func:`cuda_core_smem`)."""
     cp, dp = padded_widths(c, d)
     if dtype == torch.bfloat16:
         if not wgmma_widths(b, lq, lk, c, d):
-            return FwdPlan("mma_sync", c_pad=cp, d_pad=dp)
+            return FwdPlan("mma_sync", 64, 64, mma_sync_smem(cp, dp),
+                           c_pad=cp, d_pad=dp)
         wgs = wgmma_warpgroups(b, lq, cp, dp, bias, sms)
         return FwdPlan("wgmma", 64 * wgs, 64, wgmma_smem(cp, dp, wgs),
                        c_pad=cp, d_pad=dp)
     if not gmflow_widths(b, lq, lk, c, d):
-        return FwdPlan("f32", c_pad=cp, d_pad=dp)
+        return FwdPlan("f32", 64, 32, cuda_core_smem(cp, dp), c_pad=cp,
+                       d_pad=dp)
     rows, tile, per_sm = tf32_blocks(dp)
     smem = tf32_smem(dp)
     per_sm = min(per_sm, SMEM_SM // (smem + SMEM_RESERVED))
@@ -494,8 +546,8 @@ def _check_shapes(q, k, v, swin, bias=None):
 def check_kernel_operands(q, k, v, tensors, what: str) -> None:
     """What the forward and the backward kernels take: every tensor on
     one CUDA device, q/k both bf16 or both f32, C and D from 1 to
-    MAX_WIDTH (padded to the kernels' widths by the caller), B <= 65535, L
-    >= 1; raises otherwise."""
+    :data:`MAX_WIDTH` (padded to the kernels' widths by the caller), B <=
+    65535, L >= 1; raises otherwise."""
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError(f"{what}: the tensors must all lie on the CPU or "
                          f"all on one CUDA device, got "
@@ -602,7 +654,8 @@ def flash_softmax_matmul(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch the kernel on the route :func:`plan` names
     (``flash_softmax_matmul.launches`` counts those calls, a split sweep's
     merge included), which takes bf16 or f32 q/k and any C and D from 1 to
-    256 (padded to the kernels' widths; wider raises). f32 at C = 128 and
+    :data:`MAX_WIDTH` (padded to the kernels' widths; wider raises; past
+    256 on the mma.sync and CUDA-core routes). f32 at C = 128 and
     D = 128 or 2 runs its products in split TF32 on the tensor cores
     (within f32's tolerance; :func:`flash_softmax_matmul_tf32`), its key
     sweep split at small batches; bf16 at C = 128 and 256 (with D = C or

@@ -389,7 +389,9 @@ def test_flash_kernel_matches_plain(card, dtype, b, lq, lk, c, d, swin):
     (1, 2000, 2000, 128, 2, None),                # split sweep (f32)
     (2, 100, 63, 64, 16, None),                   # mma.sync / f32 route
     (8, 130, 130, 256, 256, (2, 10, 13, 5, 6)),   # bf16 C = 256: wgmma
-    (2, 129, 65, 256, 2, None)])
+    (2, 129, 65, 256, 2, None),
+    (8, 130, 130, 512, 512, (2, 10, 13, 5, 6)),   # past 256: mma.sync / f32
+    (2, 129, 65, 1000, 600, None)])
 def test_flash_kernel_bit_reproducible(card, dtype, b, lq, lk, c, d, swin):
     """Two launches on the same inputs give the same bits, out and LSE,
     split sweeps included (no atomics: the runs merged in a fixed
@@ -438,7 +440,9 @@ def test_flash_tf32x3_split_sweep(card, monkeypatch, b, l, d, splits):
 def test_flash_plan_matches_kernel_plan(card):
     """The Python plan (route, rows a block, keys a tile, blocks an SM,
     runs of the key sweep; on the wgmma route rows, tile and shared
-    memory, with a bias and without) is what the C side reports it
+    memory; on the mma.sync and CUDA-core routes rows, tile and the
+    dynamic shared memory, which the C side reports with the static under
+    1 KB added; with a bias and without) is what the C side reports it
     launches."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, lq, lk, c, d in ((16, 3220, 3220, 128, 2), (1, 7168, 7168, 128, 2),
@@ -447,7 +451,10 @@ def test_flash_plan_matches_kernel_plan(card):
                             (2, 1001, 1001, 128, 128), (1, 65, 129, 128, 128),
                             (2, 100, 63, 64, 16), (8, 1792, 1792, 256, 256),
                             (128, 805, 805, 256, 256),
-                            (1, 7168, 7168, 256, 2), (16, 3220, 3220, 256, 2)):
+                            (1, 7168, 7168, 256, 2), (16, 3220, 3220, 256, 2),
+                            (8, 1792, 1792, 512, 512),
+                            (16, 3220, 3220, 512, 2),
+                            (2, 150, 130, 2000, 600)):
         for dtype in (torch.float32, torch.bfloat16):
             for bias in (False, True):
                 p = fl.plan(b, lq, lk, c, d, dtype, sms, bias)
@@ -465,6 +472,15 @@ def test_flash_plan_matches_kernel_plan(card):
                     assert (k["rows"], k["tile"], k["smem"]) == \
                         (p.rows, p.tile, p.smem), (b, lq, c, d, bias)
                     assert k["blocks"] == b * -(-lq // p.rows)
+                if p.route in ("mma_sync", "f32"):
+                    assert (k["rows"], k["tile"]) == (p.rows, p.tile)
+                    assert 0 <= k["smem"] - p.smem < 1024, (b, lq, c, d)
+            if p.route in ("mma_sync", "f32"):    # the backward's mirrors
+                for key, mirror in zip(("dq", "dkv"), fb.plan(
+                        b, lq, lk, c, d, dtype).smem):
+                    got = fb.kernel_plan(b, lq, lk, c, d, dtype ==
+                                         torch.bfloat16)[key]["smem"]
+                    assert 0 <= got - mirror < 1024, (b, lq, c, d, key)
 
 
 # bf16 at C = 256 with D = 256 or 2 (GMFlow at 256 channels) takes the
@@ -572,9 +588,11 @@ def test_flash_forced_cuda_core_route_matches_plain(card):
 
 def test_flash_kernel_refuses_what_it_does_not_take(card):
     """What the kernels still refuse: mixed dtypes, tensors on two devices,
-    B > 65535, C or D past 256, a bias of another shape than [B, Lq, Lk]
-    (JAX's never broadcasts). C = 24 / 256 and D = 256, refused before
-    widths were padded, run now: test_flash_kernel_takes_every_width."""
+    B > 65535, C or D past ``MAX_WIDTH`` (65,535 chunks of 128 columns on
+    the grid's z axis), a bias of another shape than [B, Lq, Lk] (JAX's
+    never broadcasts). C = 24 / 256 and D = 256, refused before widths
+    were padded, and C, D past 256, refused before the kernels staged C
+    in panels, run now: test_flash_kernel_takes_every_width."""
     q = torch.randn(2, 32, 64, device=card)
     with pytest.raises(ValueError, match="bf16 or both f32"):
         fl.flash_softmax_matmul(q, q.bfloat16(), torch.randn(2, 32, 2,
@@ -587,16 +605,16 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     big = torch.randn(65536, 1, 16, device=card)
     with pytest.raises(ValueError, match="65535"):
         fl.flash_softmax_matmul(big, big, big[..., :2])
-    for c, d in ((257, 2), (64, 257)):
-        qc = torch.randn(2, 32, c, device=card)
-        with pytest.raises(ValueError, match="256"):
-            fl.flash_softmax_matmul(qc, qc, torch.randn(2, 32, d,
+    for c, d in ((fl.MAX_WIDTH + 1, 2), (64, fl.MAX_WIDTH + 1)):
+        qc = torch.randn(1, 1, c, device=card)
+        with pytest.raises(ValueError, match="65535 chunks"):
+            fl.flash_softmax_matmul(qc, qc, torch.randn(1, 1, d,
                                                         device=card))
-        with pytest.raises(ValueError, match="256"):
-            fb.flash_backward(qc, qc, torch.randn(2, 32, d, device=card),
-                              torch.zeros(2, 32, d, device=card),
-                              torch.zeros(2, 32, device=card),
-                              torch.zeros(2, 32, d, device=card))
+        with pytest.raises(ValueError, match="65535 chunks"):
+            fb.flash_backward(qc, qc, torch.randn(1, 1, d, device=card),
+                              torch.zeros(1, 1, d, device=card),
+                              torch.zeros(1, 1, device=card),
+                              torch.zeros(1, 1, d, device=card))
     for shape in ((1, 32, 32), (2, 32, 31), (32, 32)):
         with pytest.raises(ValueError, match="bias"):
             fl.flash_softmax_matmul(q, q, q[..., :2],
@@ -611,9 +629,9 @@ def test_flash_kernel_plans_at_every_width(card, dtype):
     dq and dk/dv name the wrappers' route (each its own ``plan``'s: they
     differ at C = 256 with D = 256 or 2, where the backward takes wgmma),
     fit a block within 227 KB of shared memory with at least one block an
-    SM, and on the mma.sync route take D (forward) or the wider of C and D
-    (dk/dv; dq: C) in 128-column chunks; asking for a plan leaves later
-    launches able to run."""
+    SM, and on the mma.sync and CUDA-core routes take D (forward) or the
+    wider of C and D (dk/dv; dq: C) in 128-column chunks; asking for a
+    plan leaves later launches able to run."""
     bf16 = dtype == torch.bfloat16
     for cp in range(16, 257, 16):
         for dp in [2] + list(range(16, 257, 16)):
@@ -623,8 +641,8 @@ def test_flash_kernel_plans_at_every_width(card, dtype):
                 k = fl.kernel_plan(4, 300, 300, cp, dp, bf16, bias)
                 assert k["route"] == route, (cp, dp, bias)
                 assert 0 < k["smem"] <= 232448 and k["per_sm"] >= 1
-                assert k["chunks"] == (-(-dp // 128) if route == "mma_sync"
-                                       and dp != 2 else 1)
+                assert k["chunks"] == (-(-dp // 128) if route in (
+                    "mma_sync", "f32") and dp != 2 else 1)
             kb = fb.kernel_plan(4, 300, 300, cp, dp, bf16)
             cc = -(-cp // 128)
             for key, chunks in (("dq", cc), ("dkv", cc if dp == 2 else
@@ -632,8 +650,8 @@ def test_flash_kernel_plans_at_every_width(card, dtype):
                 assert kb[key]["route"] == route_b, (cp, dp, key)
                 assert 0 < kb[key]["smem"] <= 232448, (cp, dp, key)
                 assert kb[key]["per_sm"] >= 1
-                assert kb[key]["chunks"] == (chunks if route_b == "mma_sync"
-                                             else 1)
+                assert kb[key]["chunks"] == (chunks if route_b in (
+                    "mma_sync", "f32") else 1)
     # a plan lowers no kernel's shared-memory limit: after the narrowest
     # width's plans, calls at a wider width (more shared memory, still
     # under the default 48 KB) launch
@@ -649,9 +667,10 @@ def test_flash_kernel_plans_at_every_width(card, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,d", [(24, 2), (24, 256), (256, 2), (256, 256),
-                                 (100, 130)])
+                                 (100, 130), (264, 3), (512, 512), (512, 2),
+                                 (1000, 600), (64, 600)])
 def test_flash_kernel_takes_every_width(card, dtype, c, d):
-    """C and D up to 256, padded to the kernels' tiles and sliced back:
+    """C and D at any width, padded to the kernels' tiles and sliced back:
     forward and backward kernels against the plain versions (forward: f32
     1e-4 of max|v|, bf16 ``bf16_tolerance``; backward: f32 1e-4 of each
     gradient's max, bf16 ``bwd_bf16_tolerance``), with a dense bias too."""

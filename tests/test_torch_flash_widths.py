@@ -1,17 +1,20 @@
 """The flash kernels' widths (``ops/flash.py``, ``ops/flash_bwd.py``) on the
 CPU, and GMFlow at 256 channels against the JAX model.
 
-The kernels take C and D from 1 to 256: ``pad_widths`` appends zero
-columns to the widths their tiles need (C to a multiple of 16, D to 2 or
-a multiple of 16) and the results are sliced back. Here: the port's CPU
-path against JAX's kernel in interpret mode at C in {1, 24, 200, 256} x
-D in {1, 3, 130, 256}; the padding against the unpadded call (forward and
-gradients); the forward's and the backward's ``plan`` for every C, D in
-1..256 (route and padded widths; the blocks the C side launches at each
-width are checked on the card, ``test_torch_cuda.py``); ``GMFlow
-(feature_channels=256)`` against the JAX model with the same weights
-through ``gmflow_state_dict_from_flax`` (2 transformer blocks, 64x96), and
-one training step of it (``slow``). Inputs come from numpy seeds.
+The kernels take C and D from 1 to ``MAX_WIDTH``: ``pad_widths`` appends
+zero columns to the widths their tiles need (C to a multiple of 16, D to
+2 or a multiple of 16) and the results are sliced back. Here: the port's
+CPU path against JAX's kernel in interpret mode at C in {1, 24, 200, 256}
+x D in {1, 3, 130, 256}; the padding against the unpadded call (forward
+and gradients); the forward's and the backward's ``plan`` for every C, D
+in 1..256 and in steps to 1024 (route, padded widths, every block's
+shared memory; the blocks the C side launches at each width are checked
+on the card, ``test_torch_cuda.py``); the zero widths and those past
+``MAX_WIDTH`` raising; ``GMFlow(feature_channels=256)`` against the JAX
+model with the same weights through ``gmflow_state_dict_from_flax`` (2
+transformer blocks, 64x96), and one training step of it (``slow``). The
+widths past 256 and GMFlow at 512 channels: ``test_torch_flash_wide.py``.
+Inputs come from numpy seeds.
 """
 
 import functools
@@ -77,12 +80,30 @@ def test_padded_widths(c, d, want):
 
 @pytest.mark.parametrize("c,d", [(0, 4), (4, 0), (257, 4), (4, 257)])
 def test_widths_past_the_limit_raise(c, d):
-    """Past 256 (or below 1) the widths raise, naming the limit; so do
-    both plans."""
-    for fn in (tf.padded_widths, lambda c_, d_: tf.plan(1, 8, 8, c_, d_),
-               lambda c_, d_: tb.plan(1, 8, 8, c_, d_)):
-        with pytest.raises(ValueError, match="256"):
-            fn(c, d)
+    """Below 1 the widths raise, naming the limit, and so do both plans;
+    past 256 they plan (bf16 on the mma.sync route, f32 on the CUDA-core
+    route, forward and backward) with every block within 227 KB; padded
+    past ``MAX_WIDTH`` (65,535 chunks of 128 columns on the grid's z
+    axis) they raise again, naming it."""
+    fns = (tf.padded_widths, lambda c_, d_: tf.plan(1, 8, 8, c_, d_),
+           lambda c_, d_: tb.plan(1, 8, 8, c_, d_))
+    if min(c, d) < 1:
+        for fn in fns:
+            with pytest.raises(ValueError, match="from 1 to 8388480"):
+                fn(c, d)
+        return
+    for dtype, route in ((torch.bfloat16, "mma_sync"),
+                         (torch.float32, "f32")):
+        f = tf.plan(1, 8, 8, c, d, dtype)
+        b = tb.plan(1, 8, 8, c, d, dtype)
+        assert f.route == b.route == route
+        assert 0 < f.smem <= SMEM_BLOCK
+        assert 0 < min(b.smem) and max(b.smem) <= SMEM_BLOCK
+    past = (tf.MAX_WIDTH + 1, d) if c > d else (c, tf.MAX_WIDTH + 1)
+    assert tf.MAX_WIDTH == 65535 * 128
+    for fn in fns:
+        with pytest.raises(ValueError, match="65535 chunks"):
+            fn(*past)
 
 
 @pytest.mark.parametrize("c,d", [(1, 1), (24, 3), (100, 130), (200, 256)])
@@ -121,17 +142,24 @@ def test_padding_keeps_the_function_and_its_gradients(c, d):
         np.testing.assert_allclose(x.numpy(), w.numpy(), rtol=0, atol=1e-6)
 
 
+# every width to 256; past it to 1024 in steps, with the padded edges
+WIDTHS = sorted(set(range(1, 257)) | set(range(257, 1025, 29))
+                | {272, 384, 511, 512, 513, 600, 1000, 1008, 1009, 1024})
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_plans_at_every_width(dtype):
-    """Every C, D in 1..256: the forward's route and the backward's (bf16
-    at widths that pad to C = 128 and D = 2 or 128, or to C = 256 and D =
-    2 or 256, the wgmma route, else mma.sync; f32 at C = 128 and D = 2 or
-    128 tf32x3, else the CUDA cores) and the padded widths; the tf32x3
-    blocks (whose shared memory sets the split) and the forward's wgmma
-    blocks within 227 KB."""
+    """Every C, D in 1..256, and past it to 1024 in steps: the forward's
+    route and the backward's (bf16 at widths that pad to C = 128 and D = 2
+    or 128, or to C = 256 and D = 2 or 256, the wgmma route, else
+    mma.sync; f32 at C = 128 and D = 2 or 128 tf32x3, else the CUDA
+    cores) and the padded widths; every route's blocks within 227 KB (the
+    tf32x3 blocks, whose shared memory sets the split, the forward's wgmma
+    blocks, and the mma.sync and CUDA-core blocks, forward, dq and
+    dk/dv)."""
     bf16 = dtype == torch.bfloat16
-    for c in range(1, 257):
-        for d in range(1, 257):
+    for c in WIDTHS:
+        for d in (WIDTHS if c <= 256 else WIDTHS[::7] + [1024]):
             cp, dp = tf.padded_widths(c, d)
             fast = cp == 128 and dp in (2, 128)
             wide = cp == 256 and dp in (2, 256)
@@ -142,11 +170,9 @@ def test_plans_at_every_width(dtype):
             assert f.route == want, (c, d)
             assert b.route == want, (c, d)
             assert (f.c_pad, f.d_pad, b.c_pad, b.d_pad) == (cp, dp, cp, dp)
-            if want == "wgmma":
-                assert 0 < f.smem <= SMEM_BLOCK
-            if want == "tf32x3":
-                assert 0 < f.smem <= SMEM_BLOCK
-                assert 0 < max(b.smem) <= SMEM_BLOCK
+            if want != "wgmma":
+                assert 0 < max(b.smem) <= SMEM_BLOCK, (c, d)
+            assert 0 < f.smem <= SMEM_BLOCK, (c, d)
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +195,10 @@ def _images(seed=0, b=1):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax256():
-    model = J.GMFlow(feature_channels=256, num_transformer_layers=2)
+def _jax_gmflow(channels: int):
+    """The JAX GMFlow at ``feature_channels=channels``, 2 transformer
+    blocks, and its seeded variables (numpy)."""
+    model = J.GMFlow(feature_channels=channels, num_transformer_layers=2)
     dummy = jnp.zeros((1, H, W, 3), jnp.float32)
     v = jax.jit(functools.partial(
         model.init, attn_splits_list=RECIPE[0], corr_radius_list=RECIPE[1],
@@ -182,7 +210,7 @@ def test_weights_of_a_256_channel_tree_load_strictly():
     """``gmflow_state_dict_from_flax`` takes the block count and every
     width from the tree: a 2-block, 256-channel flax tree loads into the
     port's model with ``strict=True``, every tensor at its shape."""
-    _, v = _jax256()
+    _, v = _jax_gmflow(256)
     sd = gmflow_state_dict_from_flax(v["params"])
     model = T.GMFlow(feature_channels=256, num_transformer_layers=2)
     model.load_state_dict(sd, strict=True)
@@ -199,7 +227,7 @@ def test_gmflow_256_matches_jax(training):
     are C = 256 wide (the windows' values D = 256 too); on the CPU both
     sides run them densely, on the card the port takes the CUDA-core
     route (``chip_smoke.py`` [20] holds card against CPU)."""
-    model, v = _jax256()
+    model, v = _jax_gmflow(256)
     i1, i2 = _images(1)
     want = model.apply(v, jnp.asarray(i1), jnp.asarray(i2),
                        attn_splits_list=RECIPE[0],
@@ -227,6 +255,14 @@ def test_gmflow_256_train_step_matches_jax():
     same weights: the checks of ``test_torch_gmflow_train.py``'s step
     (metrics 1e-4 relative, raw gradients 2e-4 of the global norm, 1e-3
     for the first conv, Adam's moments, the parameters)."""
+    train_step_against_jax(256)
+
+
+def train_step_against_jax(channels: int) -> None:
+    """One f32 training step of the 2-block GMFlow at ``feature_channels
+    = channels`` (64x96, batch 2, classifier on) on the CPU against JAX's
+    ``make_train_step`` from the same weights, held by
+    ``test_torch_gmflow_train.py``'s ``_check_step``."""
     import optax
     from test_torch_gmflow_train import (
         CFG, _batch, _check_step, _classifier)
@@ -242,7 +278,7 @@ def test_gmflow_256_train_step_matches_jax():
     from opticalflowfromdepth_tpu.train import optim as joptim
     from opticalflowfromdepth_tpu.train.state import create_train_state
 
-    extra = dict(feature_channels=256, num_transformer_layers=2)
+    extra = dict(feature_channels=channels, num_transformer_layers=2)
     jcfg = jgt.GMFlowTrainConfig(**CFG, **extra)
     tcfg = tgt.GMFlowTrainConfig(**CFG, **extra)
     jmodel = jgt.build_model(jcfg)
