@@ -5552,8 +5552,8 @@ def flash_wide_phase(gen):
     # every C x D of WIDE_C x WIDE_D and C = 2000 (Q's rows staged a panel
     # at a time), both dtypes: forward and backward against the plain
     # versions, each twice, bit-equal; the C side's plan of each (the
-    # route, the Python mirror's shared memory plus the static, no local
-    # memory, a block an SM at least)
+    # route, a block within 227 KB of shared memory, no local memory, a
+    # block an SM at least)
     width_gen = torch.Generator().manual_seed(80)
     worst = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -5568,33 +5568,58 @@ def flash_wide_phase(gen):
                                     g)
             worst.append(max(r))
             cp, dp = fl.padded_widths(c, d)
-            plans = dict(forward=(fl.kernel_plan(2, 150, 130, c, d, bf16),
-                                  fl.plan(2, 150, 130, c, d, dtype).smem),
-                         **{key: (p, mirror) for (key, p), mirror in zip(
-                             fb.kernel_plan(2, 150, 130, c, d, bf16).items(),
-                             fb.plan(2, 150, 130, c, d, dtype).smem)})
-            for key, (p, mirror) in plans.items():
-                if p["route"] != route or not 0 <= p["smem"] - mirror < 1024 \
+            plans = dict(forward=fl.kernel_plan(2, 150, 130, c, d, bf16),
+                         **fb.kernel_plan(2, 150, 130, c, d, bf16))
+            for key, p in plans.items():
+                if p["route"] != route or not 0 < p["smem"] <= 232448 \
                         or p["local"] or p["per_sm"] < 1:
-                    fail(f"[3k] C={c} D={d} {dtype} {key}: plan {p}, the "
-                         f"Python mirror's shared memory {mirror}")
+                    fail(f"[3k] C={c} D={d} {dtype} {key}: plan {p}")
             print(f"  widths {dtype} C={c} D={d} (padded {cp}x{dp}; "
                   + "; ".join(f"{key} {p['route']}, {p['chunks']} chunk(s), "
                               f"{p['smem']} B shared, {p['regs']} registers, "
                               f"{p['per_sm']} a SM"
-                              for key, (p, _) in plans.items())
+                              for key, p in plans.items())
                   + f"): |d| / tolerance out {r[0]:.3f}, lse {r[1]:.3f}, dq "
                   f"{r[2]:.3f}, dk {r[3]:.3f}, dv {r[4]:.3f}; two launches "
                   f"bit-equal", flush=True)
             del q, k, v, g
     check("every width past 256, forward and backward, |d| / tolerance",
           max(worst), 1.0)
+    # GMFlow at 512 channels: its flash calls at the serving and the
+    # training shapes (C = 512, windows D = 512: the mma.sync routes),
+    # forward at every class and backward at the training classes, as [3j]
+    # holds the 256 channels' (two launches bit-equal, [3e]'s and [3f]'s
+    # planted faults, and q's columns past 256 zeroed: the long key sweeps,
+    # the D chunks on the grid and the resident Q rows at these sizes)
+    cmp_gen = torch.Generator().manual_seed(87)
+    err_fwd = err_bwd = 0.0
+    for what, shapes, grid_w in (("serving", FLASH512_SHAPES, W8),
+                                 ("training", FLASH512_TRAIN_SHAPES, GW8)):
+        for name, (b, l, c, d, payload, swin), _ in shapes:
+            q, k, v = flash_inputs(cmp_gen, b, l, l, c, d, torch.bfloat16,
+                                   payload, grid_w=grid_w)
+            case = (f"512-channel {what} {name} bf16 [{b},{l},{c}]x"
+                    f"[{b},{l},{d}]")
+            if fl.plan(b, l, l, c, d, torch.bfloat16).route != "mma_sync" \
+                    or fb.plan(b, l, l, c, d, torch.bfloat16).route \
+                    != "mma_sync":
+                fail(f"[3k] {case}: not the mma.sync route")
+            err_fwd = max(err_fwd, flash_compare(
+                fl, case + plan_tag(fl, q, k, v), q, k, v, swin))
+            g = None
+            if what == "training":
+                g = torch.randn(b, l, d, generator=cmp_gen).cuda()
+                err_bwd = max(err_bwd, flash_bwd_compare(
+                    fl, fb, f"{case} (mma_sync)", q, k, v, g, swin))
+            upper_columns_fault(fl, fb, q, k, v, g, swin, keep=256,
+                                both=False)
+            del q, k, v, g
+            torch.cuda.empty_cache()
     # the Swin mask at C = D = 512 and C = 1000, D = 600 ([3e]'s and
     # [3f]'s checks: the planted faults, two launches bit-equal); in bf16
     # q's columns past 256 zeroed (the kernels must read every panel) and
     # v's columns past 256 zeroed (every D chunk), which must fail
     swin_gen = torch.Generator().manual_seed(81)
-    err_fwd = err_bwd = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for c, d in ((512, 512), (1000, 600)):
             q, _, _ = flash_inputs(swin_gen, 8, 130, 130, c, d, dtype)

@@ -41,8 +41,8 @@ and to v, and the result is sliced back. Every width but the wgmma and
 tf32x3 routes' (every width past 256 among them) takes the mma.sync route
 (bf16) or the CUDA-core route (f32): S summed over C in panels of 128
 columns, D in chunks of 128 columns on a grid axis, each block within 227
-KB of shared memory at any width (:func:`mma_sync_smem`,
-:func:`cuda_core_smem`). Past :data:`MAX_WIDTH` a CUDA call raises.
+KB of shared memory at any width (the C side's layout; :func:`kernel_plan`
+reports it). Past :data:`MAX_WIDTH` a CUDA call raises.
 
 A call whose inputs require grad goes through an autograd Function, as
 the JAX package's ``custom_vjp``: its forward also emits the LSE and saves
@@ -70,9 +70,8 @@ from .. import _build
 
 KERNEL_BLOCK_K = 64          # keys per tile of csrc/flash.cu's bf16 routes
 LOG2E = 1.4426950408889634
-PANEL = 128       # columns of C (and of D, backward) a panel of the mma.sync
-                  # and CUDA-core routes
-CHUNK = 128       # output columns a block of those routes takes (a grid axis)
+CHUNK = 128       # output columns a block of the mma.sync and CUDA-core
+                  # routes takes (a grid axis)
 MAX_WIDTH = 65535 * CHUNK    # the widest C and D: the grid's z axis holds
                              # at most 65,535 chunks
 
@@ -336,14 +335,12 @@ class FwdPlan(NamedTuple):
     B)), and where it is split the f32 scratch shapes of the runs'
     partials (``scratch_out`` ``[splits, B, Lq, D]``, the unnormalised
     outputs; ``scratch_ml`` ``[splits, B, Lq, 2]``, each row's running max
-    in base 2 and denominator; None where not); for the other routes their
-    query rows a block, keys a tile and shared memory (the wgmma route's
-    ``sm90::choose``'s, mirrored by :func:`wgmma_warpgroups` and
-    :func:`wgmma_smem`; the mma.sync route's :func:`mma_sync_smem`, the
-    CUDA-core route's :func:`cuda_core_smem`; blocks an SM, which ptxas's
-    registers also bound, stay 0); the padded widths (``c_pad``,
-    ``d_pad``). :func:`kernel_plan` reports what the C side launches,
-    every route's."""
+    in base 2 and denominator; None where not); for the wgmma route its
+    query rows a block, keys a tile and shared memory (``sm90::choose``'s,
+    mirrored by :func:`wgmma_warpgroups` and :func:`wgmma_smem`; blocks an
+    SM, which ptxas's registers also bound, stay 0); the padded widths
+    (``c_pad``, ``d_pad``). The other routes' blocks are the C side's to
+    choose: :func:`kernel_plan` reports them, every route's."""
     route: str
     rows: int = 0
     tile: int = 0
@@ -389,40 +386,6 @@ def wgmma_smem(c: int, d: int, warpgroups: int) -> int:
             + -(-(v + 5 * 8) // 1024) * 1024 + 1024)
 
 
-SMEM_BLOCK = 232448 - 1024   # dynamic shared memory a block of the
-                             # mma.sync and CUDA-core routes may take
-
-
-def mma_sync_smem(c: int, d: int) -> int:
-    """Shared memory of a forward mma.sync block (``csrc/flash.cu``:
-    ``bf16_smem``) at padded widths C = c and D = d, bytes: a 64-key tile
-    of K's 128-column panel, of V's 128-column chunk (its 64 float2 pairs
-    at D = 2), and past C = 128 the block's 64 rows of Q, resident where
-    the whole block then fits :data:`SMEM_BLOCK`, else a panel; rows
-    padded by 8 bf16."""
-    ks = min(c, PANEL) + 8
-    v = 64 * 8 if d == 2 else 64 * (min(d, CHUNK) + 8) * 2
-
-    def total(resident):
-        q = 0 if c <= PANEL else 64 * ((c if resident else PANEL) + 8) * 2
-        return 64 * ks * 2 + v + q
-    return total(True) if total(True) <= SMEM_BLOCK else total(False)
-
-
-def cuda_core_smem(c: int, d: int) -> int:
-    """Shared memory of a forward CUDA-core block (``csrc/flash.cu``:
-    ``f32_smem``) at padded widths, bytes: 64 query rows of Q, resident
-    where the block then fits :data:`SMEM_BLOCK` (C <= 128 always), else
-    a 128-column panel, rows padded by one float; a 32-key tile of K's
-    panel and of V's 128-column chunk; the rows' sums of that chunk."""
-    kw, dc = min(c, PANEL), min(d, CHUNK)
-
-    def total(resident):
-        return 4 * (64 * ((c if resident else kw) + 1) + 32 * kw + 32 * dc
-                    + 64 * (dc + 1))
-    return total(True) if total(True) <= SMEM_BLOCK else total(False)
-
-
 def wgmma_warpgroups(b: int, lq: int, c: int, d: int, bias: bool = False,
                      sms: int = H100_SMS) -> int:
     """Warpgroups (64 queries each) of a forward wgmma block
@@ -443,21 +406,17 @@ def plan(b: int, lq: int, lk: int, c: int, d: int,
     lk, c]``, v ``[b, lk, d]`` of ``dtype`` (with a dense bias or
     without); pure host arithmetic, on the widths :func:`padded_widths`
     gives (past :data:`MAX_WIDTH` raises). bf16 at :func:`wgmma_widths`
-    takes the wgmma route, other bf16 the mma.sync route (64 query rows a
-    block, 64-key tiles, :func:`mma_sync_smem`); f32 at GMFlow's widths
-    the tf32x3 route, other f32 the CUDA-core route (64 rows, 32-key
-    tiles, :func:`cuda_core_smem`)."""
+    takes the wgmma route, other bf16 the mma.sync route; f32 at GMFlow's
+    widths the tf32x3 route, other f32 the CUDA-core route."""
     cp, dp = padded_widths(c, d)
     if dtype == torch.bfloat16:
         if not wgmma_widths(b, lq, lk, c, d):
-            return FwdPlan("mma_sync", 64, 64, mma_sync_smem(cp, dp),
-                           c_pad=cp, d_pad=dp)
+            return FwdPlan("mma_sync", c_pad=cp, d_pad=dp)
         wgs = wgmma_warpgroups(b, lq, cp, dp, bias, sms)
         return FwdPlan("wgmma", 64 * wgs, 64, wgmma_smem(cp, dp, wgs),
                        c_pad=cp, d_pad=dp)
     if not gmflow_widths(b, lq, lk, c, d):
-        return FwdPlan("f32", 64, 32, cuda_core_smem(cp, dp), c_pad=cp,
-                       d_pad=dp)
+        return FwdPlan("f32", c_pad=cp, d_pad=dp)
     rows, tile, per_sm = tf32_blocks(dp)
     smem = tf32_smem(dp)
     per_sm = min(per_sm, SMEM_SM // (smem + SMEM_RESERVED))

@@ -35,7 +35,7 @@ C % 16 == 0, v and g to D = 2 or D % 16 == 0) and dq, dk, dv sliced back;
 the mma.sync and CUDA-core kernels take every width (C, or C and D, split
 over a grid axis in 128-column chunks, S and dP recomputed by each
 chunk's blocks over panels of 128 columns of C and D; each block within
-227 KB of shared memory, :func:`mma_sync_smem`, :func:`cuda_core_smem`).
+227 KB of shared memory, as :func:`kernel_plan` reports).
 The forward takes its wgmma route at the same widths (one predicate,
 ``ops/flash.py:wgmma_widths``).
 
@@ -57,9 +57,9 @@ from .. import _build
 # the plan's constants, the width predicates, the split count and the
 # split-TF32 products are the forward's too
 from .flash import (
-    CHUNK, H100_SMS, PANEL, ROUTES, SMEM_BLOCK, SMEM_RESERVED, SMEM_SM,
-    TF32_STRIDE, Swin, _pad_last, _sms, check_kernel_operands, gmflow_widths,
-    matmul_tf32, padded_widths, split_count, swin_mask_dense, wgmma_widths)
+    H100_SMS, ROUTES, SMEM_RESERVED, SMEM_SM, TF32_STRIDE, Swin, _pad_last,
+    _sms, check_kernel_operands, gmflow_widths, matmul_tf32, padded_widths,
+    split_count, swin_mask_dense, wgmma_widths)
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -185,7 +185,8 @@ def bwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     summed in another order (at most ``2^-20`` of ``scale sum |q||k|`` and
     of ``sum |g||v|``, derived for C, D <= 128; the kernels stay within
     the allowance at the widths past 256 that ``chip_smoke.py`` [3k]
-    tries, C up to 2000 and D up to 600) and ``exp`` and
+    tries, C up to 2000 and D up to 600, and at GMFlow-512's training
+    shapes, 3220 keys) and ``exp`` and
     ``s - lse`` differ by an ulp or two (``2^-18``), so ``p`` may differ
     by ``p eps_s``, ``eps_s = 2^-20 (scale sum |q||k| + 4)``, and ``ds`` by
     ``eps_s p |dp - delta| + p eps_dp``. That moves each term of a sum
@@ -238,10 +239,8 @@ class BwdPlan(NamedTuple):
     f32 scratch shapes of the partial sums where a sweep is split (dq
     ``[splits, B, Lq, C]``, dk ``[splits, B, Lk, C]``, dv ``[splits, B,
     Lk, D]``; None where not); the padded widths (``c_pad``, ``d_pad``).
-    The mma.sync and CUDA-core routes: 64 output rows a block and each
-    kernel's shared memory (:func:`mma_sync_smem`,
-    :func:`cuda_core_smem`). The wgmma route's blocks are the C side's to
-    choose: :func:`kernel_plan` reports them, every route's."""
+    The other routes' blocks are the C side's to choose:
+    :func:`kernel_plan` reports them."""
     route: str
     rows: int = 0
     tile: int = 0
@@ -275,46 +274,6 @@ def tf32_smem(d: int, dkv: bool) -> int:
     return 4 * (res + 2 * (stage + (2 * tile if dkv else 0)))
 
 
-def mma_sync_smem(c: int, d: int, dkv: bool) -> int:
-    """Shared memory of a backward mma.sync block (``csrc/flash_bwd.cu``:
-    ``bf16_smem``) at padded widths C = c and D = d, bytes: the 64 resident
-    rows (dq: Q and G; dk/dv: K and V; at D = 2 G's or V's pairs stay in
-    registers), whole where the block then fits ``SMEM_BLOCK``, else a
-    128-column panel each; the other side's tile (dq 64 keys, dk/dv 32
-    queries) of a panel of each (the 2-wide rows as float2s at D = 2) and,
-    past 128 columns, its chunk columns (dq: K's; dk/dv: Q's and G's);
-    rows padded by 8 bf16."""
-    kps, vps = min(c, PANEL) + 8, min(d, PANEL) + 8
-    p2 = d == 2
-    other = (32 if dkv else 64) * (
-        kps + (4 if p2 else vps) + (kps if c > PANEL else 0)
-        + (vps if dkv and not p2 and d > PANEL else 0))
-
-    def total(resident):
-        rows = (c + 8 if resident else kps) + (
-            0 if p2 else (d + 8 if resident else vps))
-        return 2 * (64 * rows + other)
-    return total(True) if total(True) <= SMEM_BLOCK else total(False)
-
-
-def cuda_core_smem(c: int, d: int, dkv: bool) -> int:
-    """Shared memory of a backward CUDA-core block (``csrc/flash_bwd.cu``:
-    ``f32_smem``) at padded widths, bytes: the 64 resident rows (dq: Q and
-    G; dk/dv: K and V), whole where the block then fits ``SMEM_BLOCK``,
-    else a 128-column panel each, rows padded by one float; the rows' sums
-    of their 128-column chunk (dq; dk and dv); the other side's 32-row tile
-    of a panel of each and, past 128 columns, its chunk columns."""
-    kw, vw = min(c, PANEL), min(d, PANEL)
-    sums = min(c, CHUNK) + 1 + (min(d, CHUNK) + 1 if dkv else 0)
-    tile = 32 * (kw + vw + (kw if c > PANEL else 0)
-                 + (vw if dkv and d > PANEL else 0))
-
-    def total(resident):
-        rows = (c if resident else kw) + 1 + (d if resident else vw) + 1
-        return 4 * (64 * (rows + sums) + tile)
-    return total(True) if total(True) <= SMEM_BLOCK else total(False)
-
-
 def plan(b: int, lq: int, lk: int, c: int, d: int,
          dtype: torch.dtype = torch.float32, sms: int = H100_SMS) -> BwdPlan:
     """The route and its parameters for q ``[b, lq, c]``, k ``[b, lk, c]``,
@@ -326,15 +285,10 @@ def plan(b: int, lq: int, lk: int, c: int, d: int,
     widths within int32 rows, as the C side checks)."""
     cp, dp = padded_widths(c, d)
     if dtype == torch.bfloat16:
-        if wgmma_widths(b, lq, lk, c, d):
-            return BwdPlan("wgmma", c_pad=cp, d_pad=dp)
-        return BwdPlan("mma_sync", 64, smem=(mma_sync_smem(cp, dp, False),
-                                             mma_sync_smem(cp, dp, True)),
-                       c_pad=cp, d_pad=dp)
+        return BwdPlan("wgmma" if wgmma_widths(b, lq, lk, c, d)
+                       else "mma_sync", c_pad=cp, d_pad=dp)
     if not gmflow_widths(b, lq, lk, c, d):
-        return BwdPlan("f32", 64, smem=(cuda_core_smem(cp, dp, False),
-                                        cuda_core_smem(cp, dp, True)),
-                       c_pad=cp, d_pad=dp)
+        return BwdPlan("f32", c_pad=cp, d_pad=dp)
     rows, tile, per_sm = tf32_blocks(dp)
     smem = (tf32_smem(dp, False), tf32_smem(dp, True))
     per_sm = min(per_sm, SMEM_SM // (max(smem) + SMEM_RESERVED))

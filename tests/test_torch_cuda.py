@@ -440,10 +440,9 @@ def test_flash_tf32x3_split_sweep(card, monkeypatch, b, l, d, splits):
 def test_flash_plan_matches_kernel_plan(card):
     """The Python plan (route, rows a block, keys a tile, blocks an SM,
     runs of the key sweep; on the wgmma route rows, tile and shared
-    memory; on the mma.sync and CUDA-core routes rows, tile and the
-    dynamic shared memory, which the C side reports with the static under
-    1 KB added; with a bias and without) is what the C side reports it
-    launches."""
+    memory, with a bias and without) is what the C side reports it
+    launches; the mma.sync and CUDA-core routes' blocks, which only the C
+    side plans, fit an SM."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, lq, lk, c, d in ((16, 3220, 3220, 128, 2), (1, 7168, 7168, 128, 2),
                             (1, 3584, 3584, 128, 2), (1, 1792, 1792, 128, 2),
@@ -473,14 +472,7 @@ def test_flash_plan_matches_kernel_plan(card):
                         (p.rows, p.tile, p.smem), (b, lq, c, d, bias)
                     assert k["blocks"] == b * -(-lq // p.rows)
                 if p.route in ("mma_sync", "f32"):
-                    assert (k["rows"], k["tile"]) == (p.rows, p.tile)
-                    assert 0 <= k["smem"] - p.smem < 1024, (b, lq, c, d)
-            if p.route in ("mma_sync", "f32"):    # the backward's mirrors
-                for key, mirror in zip(("dq", "dkv"), fb.plan(
-                        b, lq, lk, c, d, dtype).smem):
-                    got = fb.kernel_plan(b, lq, lk, c, d, dtype ==
-                                         torch.bfloat16)[key]["smem"]
-                    assert 0 <= got - mirror < 1024, (b, lq, c, d, key)
+                    assert 0 < k["smem"] <= 232448 and k["per_sm"] >= 1
 
 
 # bf16 at C = 256 with D = 256 or 2 (GMFlow at 256 channels) takes the
@@ -623,8 +615,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_plans_at_every_width(card, dtype):
-    """Every padded width the wrappers hand the kernels (C = 16..256 in
-    16s, D = 2 or 16..256 in 16s: every C, D in 1..256): the C side's own
+    """Every padded width the wrappers hand the kernels up to 256 (C =
+    16..256 in 16s, D = 2 or 16..256 in 16s: every C, D in 1..256), and
+    past it to 1024 in steps of 48, C, D or both: the C side's own
     plans of the forward (with a bias and without) and of the backward's
     dq and dk/dv name the wrappers' route (each its own ``plan``'s: they
     differ at C = 256 with D = 256 or 2, where the backward takes wgmma),
@@ -633,8 +626,9 @@ def test_flash_kernel_plans_at_every_width(card, dtype):
     wider of C and D (dk/dv; dq: C) in 128-column chunks; asking for a
     plan leaves later launches able to run."""
     bf16 = dtype == torch.bfloat16
-    for cp in range(16, 257, 16):
-        for dp in [2] + list(range(16, 257, 16)):
+    widths = list(range(16, 257, 16)) + list(range(272, 1025, 48))
+    for cp in widths:
+        for dp in [2] + widths:
             route = fl.plan(4, 300, 300, cp, dp, dtype).route
             route_b = fb.plan(4, 300, 300, cp, dp, dtype).route
             for bias in (False, True):
