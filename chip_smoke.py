@@ -68,9 +68,10 @@ Run from the repository root on a host with one CUDA card. Phases:
    fail the tolerance (three where the tf32x3 route splits a sweep: its
    reduction leaving the last partial out), what hi-only TF32 products
    would give (for information), and two launches that must give the same
-   bits, the C = 128 and 256 bf16 wgmma routes' bits (the forward's out
-   and LSE, the backward's gradients) against recorded digests
-   (``C128_DIGESTS``, ``C256_DIGESTS``, by nvcc release), the autograd
+   bits, the C = 128, 256 and 512 bf16 wgmma routes' bits (the forward's
+   out and LSE, the backward's gradients; at 512 dq's mma.sync) against
+   recorded digests (``C128_DIGESTS``, ``C256_DIGESTS``,
+   ``C512_DIGESTS``, by nvcc release), the autograd
    Function against a dense softmax, timed in bf16 and
    in f32 (the 14 + 14 launches of a training step each) against their
    bounds (TFLOP/s, share of the bound; f32 at the split-TF32 and at the
@@ -270,41 +271,57 @@ Run from the repository root on a host with one CUDA card. Phases:
    called, finite losses, ms a step, peak memory, a profile of one more
    step (device busy ms; the flash forward's and backward's device ms,
    dq's and dk/dv's apart, the forward's wgmma and mma.sync kernels');
-3k. (after [22]) the flash kernels past 256: the mma.sync route (bf16)
-   and the CUDA-core route (f32), whose blocks stage C in 128-column
-   panels (Q's, or the backward's resident side's, rows whole where they
-   fit a block) and take D (dq: C; dk/dv: C and D) in 128-column chunks
-   on a grid axis: C in {264, 384, 512, 1000} x D in {2, 3, 384, 512,
-   600} and C = 2000 with D = 2 and 600 (Q's rows a panel at a time),
-   both dtypes, forward and backward against the plain versions, two
-   launches bit-equal, each call's C-side plan (the route, its shared
-   memory the Python mirror's plus the static, no local memory); the
-   Swin mask at C = D = 512 and C = 1000, D = 600 with [3e]'s and [3f]'s
-   planted faults, and in bf16 q's columns past 256 zeroed and v's
-   columns past 256 zeroed, which must fail; a dense bias on both routes
-   (ragged Lk, rows masked whole, its planted faults; with the Swin mask
-   once); the C side's plans from C = 272 to 1024 in steps of 48, each
-   block within an SM; then GMFlow at 512 channels' flash calls (C =
-   512, the windows' D = 512) timed at the serving and the training
-   shapes ([24]'s and [25]'s) against their bounds, the plain versions
-   and SDPA (the backend it ran named, forward and backward);
+3k. (after [22]) the flash kernels past 256: at C = 512 with D = 512 or
+   2 the forward's and dk/dv's wgmma routes (the forward's blocks of 128
+   queries with K a panel at a time beside the resident Q, the output in
+   two 256-column chunks on the grid at D = 512; dk/dv's blocks of 64
+   keys, the queries through a ring of 128-column units of 32-row tiles,
+   dK and dV in two 256-column chunks at D = 512) and dq's mma.sync
+   route; elsewhere the mma.sync route (bf16) and the CUDA-core route
+   (f32), whose blocks stage C in 128-column panels (Q's, or the
+   backward's resident side's, rows whole where they fit a block) and
+   take D (dq: C; dk/dv: C and D) in 128-column chunks on a grid axis: C
+   in {264, 384, 512, 1000} x D in {2, 3, 384, 512, 600} and C = 2000
+   with D = 2 and 600 (Q's rows a panel at a time), both dtypes, forward
+   and backward against the plain versions, two launches bit-equal, each
+   call's C-side plan (the route each kernel's Python plan names, no
+   local memory), the backward tolerance's score-sum term at each case's
+   C and D; GMFlow at 512 channels' eight classes (forward) and four
+   training classes (dq and dk/dv) at their own shapes with the routes
+   each kernel plans, [3e]'s and [3f]'s planted faults and q's columns
+   past 256 zeroed; [3j]'s edges at C = 512; the bits of the routes C =
+   512 left as they were (mma.sync forced at a GMFlow-512 window class
+   and a D = 2 class, mma.sync and the CUDA cores at C = 64) against
+   ``NARROW_DIGESTS``; the Swin mask at C = D = 512 and C = 1000, D =
+   600 with the planted faults, and in bf16 q's columns past 256 zeroed
+   and v's columns past 256 zeroed, which must fail; a dense bias on
+   every route (ragged Lk, rows masked whole, its planted faults; with
+   the Swin mask once); the C side's plans from C = 272 to 1024 in steps
+   of 48, each block within an SM (the wgmma blocks with no local
+   memory); then GMFlow at 512 channels' flash calls (C = 512, the
+   windows' D = 512) timed at the serving and the training shapes
+   ([24]'s and [25]'s) against their bounds, the plain versions, SDPA
+   (the backend it ran named, forward and backward) and the mma.sync
+   routes forced on the same inputs, which the new routes must beat at
+   every class;
 23. GMFlow at ``feature_channels = 512``, f32 64x96, 1 scale: card vs CPU
    ([9]'s 1-scale limits), 14 flash and 15 instance-norm launches;
 24. GMFlow at 512 channels serving, as [21], every flash forward on the
-   mma.sync route;
-25. GMFlow at 512 channels training, as [22], every flash forward on the
-   mma.sync route;
+   wgmma route;
+25. GMFlow at 512 channels training, as [22], every flash forward and
+   dk/dv on the wgmma route, every dq on the mma.sync route;
 26. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
    [18]'s, [21]'s, [22]'s, [24]'s and [25]'s launches too; the flash row
    also carries the f32 route's times at an f32 pair, ``f32_ms`` and the
    rest, and the dense bias's at GMFlow's four classes, ``bias_ms`` and
    the rest, and the 256-channel pair's 14 calls, ``c256_ms`` and the
    rest with ``c256_mma_sync_ms`` (the step's 14 as ``c256_step_*``), and
-   the 512-channel pair's, ``c512_ms`` and the rest (the step's 14 as
-   ``c512_step_*``); the backward's rows the 256-channel step's,
-   ``c256_ms`` and the rest with ``c256_mma_sync_ms``, and the
-   512-channel step's, ``c512_ms`` and the rest), the card line, and
-   last the line ``{"ok": true, "device": {...}}``.
+   the 512-channel pair's, ``c512_ms`` and the rest with
+   ``c512_mma_sync_ms`` (the step's 14 as ``c512_step_*``); the
+   backward's rows the 256-channel step's, ``c256_ms`` and the rest with
+   ``c256_mma_sync_ms``, and the 512-channel step's, ``c512_ms`` and the
+   rest with ``c512_mma_sync_ms``), the card line, and last the line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA
 device, or without the package beside this file, it exits non-zero and
@@ -1378,6 +1395,13 @@ def plan_tag(fl, q, k, v, bias=None) -> str:
                           if p["splits"] > 1 else "") + ")")
 
 
+def bwd_routes(p) -> str:
+    """The backward plan ``p``'s routes: one name where dq and dk/dv take
+    the same route, else both."""
+    return p.route_dq if p.route_dq == p.route_dkv else \
+        f"dq {p.route_dq}, dk/dv {p.route_dkv}"
+
+
 def sdpa_backend(run) -> str:
     """Which of ``F.scaled_dot_product_attention``'s backends ``run`` (a
     call of it, or its backward) went through, from the ATen ops it ran:
@@ -1628,7 +1652,7 @@ def flash_bwd_compare(fl, fb, what, q, k, v, g, swin) -> float:
         fail(f"flash backward {what}: a planted fault passes {faults}")
     p = fb.plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2],
                 q.dtype)
-    if p.route == "tf32x3":
+    if p.route_dq == "tf32x3":
         hi = fb.flash_backward_tf32(q, k, v, out, lse, g, swin=swin, terms=1)
         hi_ratio = max(float(((x - r).abs() / t).max())
                        for x, r, t in zip(hi, ref, tols))
@@ -1662,11 +1686,16 @@ C128_DIGESTS = {"12.9": {"forward": ("f85cf99233e7b8b9", "014e7f5e48a0fbbe"),
 C256_DIGESTS = {"12.9": {"forward": ("de87da402f7afd75", "0b8c79e72fc87db3"),
                          "backward": ("595b973e9536bb9a",
                                       "1c4a235bba5009bb")}}
-WGMMA_DIGESTS = {128: C128_DIGESTS, 256: C256_DIGESTS}
+# and the C = 512 routes' (the forward's and dk/dv's wgmma, dq's
+# mma.sync), recorded from their first tree that passed [3k]
+C512_DIGESTS = {"12.9": {"forward": ("61bf7aa445287928", "a360f64f4c5c0165"),
+                         "backward": ("900902847e1bbcbc",
+                                      "a38f181a3452f417")}}
+WGMMA_DIGESTS = {128: C128_DIGESTS, 256: C256_DIGESTS, 512: C512_DIGESTS}
 
 
 def wgmma_digests(fl, fb, c: int = 128) -> dict:
-    """The digests of :data:`WGMMA_DIGESTS` at C = ``c`` (128 or 256):
+    """The digests of :data:`WGMMA_DIGESTS` at C = ``c`` (128, 256 or 512):
     windows with a Swin region edge inside a tile [8,130,c]x[..,c], and
     ragged [2,129,c]x[2,65,2], from a generator of their own: "forward"
     hashes the forward kernel's out and LSE, "backward" the backward
@@ -1747,7 +1776,7 @@ def flash_bwd_phase(gen):
                                    30.0 if name == "extreme logits" else 1.0,
                                    grid_w=GW8)
             g = torch.randn(b, lq, d, generator=draw).cuda()
-            route = fb.plan(b, lq, lk, c, d, dtype).route
+            route = bwd_routes(fb.plan(b, lq, lk, c, d, dtype))
             err = flash_bwd_compare(fl, fb, f"{name} {dtype} [{b},{lq},{c}]"
                                     f"x[{b},{lk},{d}] ({route})", q, k, v, g,
                                     swin)
@@ -1762,7 +1791,7 @@ def flash_bwd_phase(gen):
                           v, torch.randn(2, 100, 16, generator=gen).cuda(),
                           None)
 
-    # the C = 128 and 256 wgmma routes' bits, against the recorded ones
+    # the C = 128, 256 and 512 wgmma routes' bits, against the recorded ones
     release = nvcc_release()
     for c, recorded in WGMMA_DIGESTS.items():
         got, want = wgmma_digests(fl, fb, c), recorded.get(release)
@@ -1819,7 +1848,8 @@ def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES,
     printed twice: at the split-TF32 peak (the tf32x3 route) and at the
     CUDA cores' f32 peak (the route before it). ``old_route``: that route
     forced on the same inputs is timed beside each kernel (the records'
-    ``old_ms``), and each kernel must beat it at every shape."""
+    ``old_ms``), and each kernel whose plan names another route must beat
+    it at every shape."""
     import torch
     bf16 = dtype == torch.bfloat16
     esize = 2 if bf16 else 4
@@ -1849,11 +1879,13 @@ def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES,
             old = (f"; the {old_route} route forced: dq {o_dq * 1e3:.1f} us "
                    f"({o_dq / t_dq:.2f}x), dk/dv {o_dkv * 1e3:.1f} us "
                    f"({o_dkv / t_dkv:.2f}x)")
-            if not (t_dq < o_dq and t_dkv < o_dkv):
-                fail(f"flash backward {name}: the {plan.route} route "
-                     f"({t_dq * 1e3:.1f} / {t_dkv * 1e3:.1f} us) loses to "
-                     f"the {old_route} route ({o_dq * 1e3:.1f} / "
-                     f"{o_dkv * 1e3:.1f} us)")
+            for key, route, t, o in (("dq", plan.route_dq, t_dq, o_dq),
+                                     ("dk/dv", plan.route_dkv, t_dkv,
+                                      o_dkv)):
+                if route != old_route and not t < o:
+                    fail(f"flash backward {name}: {key}'s {route} route "
+                         f"({t * 1e3:.1f} us) loses to the {old_route} "
+                         f"route ({o * 1e3:.1f} us)")
         t_wrap = cuda_ms(lambda: fb.flash_backward(q, k, v, out, lse, g,
                                                    swin=swin), reps=10)
         t_plain = cuda_ms(lambda: fb.flash_backward_plain(
@@ -1903,8 +1935,10 @@ def flash_bwd_timing(fl, fb, F, gen, dtype, shapes=FLASH_TRAIN_SHAPES,
                         f"{ops / times[key][0] / 1e9:.1f} TFLOP/s, {bounds} "
                         f"(SDPA for its outputs {times[key][1] * 1e3:.1f} us)")
         splits = f", splits {plan.splits_dq}/{plan.splits_dkv}" \
-            if plan.route == "tf32x3" else ""
-        print(f"  {name} {dtype} [{b},{l},{c}]x[{b},{l},{d}] ({plan.route}"
+            if plan.route_dq == "tf32x3" else ""
+        routes = plan.route_dq if plan.route_dq == plan.route_dkv else \
+            f"dq {plan.route_dq}, dk/dv {plan.route_dkv}"
+        print(f"  {name} {dtype} [{b},{l},{c}]x[{b},{l},{d}] ({routes}"
               f"{splits}): " + "; ".join(line) + f"; the wrapper (delta, "
               f"casts, both) {t_wrap * 1e3:.1f} us, SDPA's whole backward "
               f"({backend}) {lib_all * 1e3:.1f} us; plain "
@@ -4095,30 +4129,47 @@ class PlainCalls:
 
 
 class FlashRoutes:
-    """Counts the flash forward's launches by route while entered
-    (``ops/flash.py:launcher`` names each call's route)."""
+    """Counts the flash kernels' launches by kernel and route while entered
+    (``ops/flash.py:launcher`` and ``ops/flash_bwd.py:launchers`` name each
+    call's routes): ``routes["forward"]``, ``["dq"]`` and ``["dkv"]``, each
+    {route: calls}."""
 
     def __enter__(self):
         from opticalflowfromdepth_torch.ops import flash as fl
-        self.fl, self.real, self.routes = fl, fl.launcher, {}
+        from opticalflowfromdepth_torch.ops import flash_bwd as fb
+        self.fl, self.fb = fl, fb
+        self.real, self.real_bwd = fl.launcher, fb.launchers
+        self.routes = {"forward": {}, "dq": {}, "dkv": {}}
+
+        def count(kernel, route):
+            self.routes[kernel][route] = self.routes[kernel].get(route, 0) + 1
 
         def counting(*args, **kw):
             res = self.real(*args, **kw)
-            self.routes[res[2].route] = self.routes.get(res[2].route, 0) + 1
+            count("forward", res[2].route)
             return res
-        fl.launcher = counting
+
+        def counting_bwd(*args, **kw):
+            res = self.real_bwd(*args, **kw)
+            count("dq", res[3].route_dq)
+            count("dkv", res[3].route_dkv)
+            return res
+        fl.launcher, fb.launchers = counting, counting_bwd
         return self
 
     def __exit__(self, *exc):
-        self.fl.launcher = self.real
+        self.fl.launcher, self.fb.launchers = self.real, self.real_bwd
 
     def check(self, what: str, want: dict) -> None:
-        print(f"  the flash forward's routes: {self.routes}", flush=True)
-        if self.routes != want:
-            fail(f"{what}: flash forward routes {self.routes}, want {want}")
+        """``want``: {kernel: {route: calls}} for the kernels named; the
+        others must not have run."""
+        got = {k: r for k, r in self.routes.items() if r}
+        print(f"  the flash kernels' routes: {got}", flush=True)
+        if got != want:
+            fail(f"{what}: flash kernel routes {got}, want {want}")
 
 
-# the flash forward's kernels in a profile: the wgmma route's (both widths)
+# the flash forward's kernels in a profile: the wgmma route's (every width)
 # and the mma.sync route's
 FLASH_FWD_NAMED = [("the flash forward's wgmma kernels", ("flash_fwd_wgmma",)),
                    ("the flash forward's mma.sync kernels",
@@ -4554,7 +4605,7 @@ def ring_phase(gen):
                     f"CUDA-core route: {t_old * 1e3:.1f} us)")
             print(f"    the f32 kernels at one step's shape [{b},{lq},{c}]"
                   f"x[{b},{lq},{d}] (forward {fplan.route}, key sweep in "
-                  f"{fplan.splits}; backward {plan.route}, splits dq "
+                  f"{fplan.splits}; backward {bwd_routes(plan)}, splits dq "
                   f"{plan.splits_dq}, dk/dv {plan.splits_dkv}): "
                   + "; ".join(line), flush=True)
             ring_ops = [o * n * n for o in f32_work(b, l / n, l / n, c, d)[0]]
@@ -5311,7 +5362,7 @@ def flash_bias_width_phase(gen):
             g = None
             if what == "training":
                 g = torch.randn(b, l, d, generator=cmp_gen).cuda()
-                route = fb.plan(b, l, l, c, d, torch.bfloat16).route
+                route = bwd_routes(fb.plan(b, l, l, c, d, torch.bfloat16))
                 err_bwd = max(err_bwd, flash_bwd_compare(
                     fl, fb, f"{case} ({route})", q, k, v, g, swin))
             upper_columns_fault(fl, fb, q, k, v, g, swin)
@@ -5333,7 +5384,7 @@ def flash_bias_width_phase(gen):
         g = torch.randn(b, lq, d, generator=edge_gen).cuda()
         flash_compare(fl, f"256-channel forward {name} bf16 [{b},{lq},256]x"
                       f"[{b},{lk},{d}]{plan_tag(fl, q, k, v)}", q, k, v, swin)
-        route = fb.plan(b, lq, lk, 256, d, torch.bfloat16).route
+        route = bwd_routes(fb.plan(b, lq, lk, 256, d, torch.bfloat16))
         err_bwd = max(err_bwd, flash_bwd_compare(
             fl, fb, f"256-channel {name} bf16 [{b},{lq},256]x[{b},{lk},{d}] "
             f"({route})", q, k, v, g, swin))
@@ -5370,10 +5421,13 @@ def flash_bias_width_phase(gen):
 
 
 # GMFlow at feature_channels = 256 ([20]-[22]; the wgmma routes) and 512
-# ([23]-[25]; the mma.sync route): the phases' numbers, the route every
-# flash forward of the bf16 paths takes, and the flash kernels by name in
-# their profiles
-WIDE_GMFLOW = {256: ((20, 21, 22), "wgmma"), 512: ((23, 24, 25), "mma_sync")}
+# ([23]-[25]; the wgmma routes but dq's mma.sync): the phases' numbers,
+# the route each flash kernel of the bf16 paths takes, and the flash
+# kernels by name in their profiles
+WIDE_GMFLOW = {256: ((20, 21, 22), dict(forward="wgmma", dq="wgmma",
+                                          dkv="wgmma")),
+               512: ((23, 24, 25), dict(forward="wgmma", dq="mma_sync",
+                                        dkv="wgmma"))}
 FLASH_BWD_NAMED = [("the flash backward kernels (14 dq + 14 dk/dv)",
                     ("flash_bwd_",)),
                    ("the flash backward's dq kernels", ("flash_bwd_dq_",)),
@@ -5419,7 +5473,7 @@ def gmflow_wide_serving_phase(channels: int):
     from opticalflowfromdepth_torch.eval.padder import InputPadder
     from opticalflowfromdepth_torch.models.gmflow import GMFlow
 
-    (_, phase, _), route = WIDE_GMFLOW[channels]
+    (_, phase, _), routes = WIDE_GMFLOW[channels]
     print(f"[{phase}] GMFlow at {channels} channels serving: bf16, 1 scale, 3 "
           f"pairs of {SINTEL[0]}x{SINTEL[1]} (padding factor 16)", flush=True)
     rng = np.random.default_rng(21)
@@ -5440,7 +5494,7 @@ def gmflow_wide_serving_phase(channels: int):
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
     times = []
-    with PlainCalls() as plain, FlashRoutes() as routes:
+    with PlainCalls() as plain, FlashRoutes() as counted:
         for i1, i2 in pairs[1:]:
             t = time.perf_counter()
             flow = serve(i1, i2)
@@ -5452,7 +5506,8 @@ def gmflow_wide_serving_phase(channels: int):
     plain.check(f"GMFlow-{channels} serving")
     launches = launch_counts()
     n = len(times)
-    routes.check(f"GMFlow-{channels} serving", {route: 14 * n})
+    counted.check(f"GMFlow-{channels} serving",
+                  {"forward": {routes["forward"]: 14 * n}})
     print(f"  launches over {n} pairs: {launches}", flush=True)
     if launches != want_launches(flash=14 * n, instance_norm=15 * n):
         fail(f"GMFlow-{channels} serving launch counts {launches}")
@@ -5473,7 +5528,7 @@ def gmflow_wide_train_phase(channels: int):
     from opticalflowfromdepth_torch.data.loader import to_device
     from opticalflowfromdepth_torch.train import gmflow_train as gt
 
-    (_, _, phase), route = WIDE_GMFLOW[channels]
+    (_, _, phase), routes = WIDE_GMFLOW[channels]
     b, (h, w) = GM_BATCH, GM_CROP
     print(f"[{phase}] GMFlow at {channels} channels training: 2 steps of the "
           f"reference recipe (batch {b} of {h}x{w}, bf16, 1 scale, classifier "
@@ -5498,14 +5553,15 @@ def gmflow_wide_train_phase(channels: int):
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
     losses, times = [], []
-    with PlainCalls() as plain, FlashRoutes() as routes:
+    with PlainCalls() as plain, FlashRoutes() as counted:
         for _ in range(2):
             t = time.perf_counter()
             state, m = step(state, batch, None)
             losses.append(float(m["total_loss"]))        # waits for the card
             times.append((time.perf_counter() - t) * 1e3)
     plain.check(f"GMFlow-{channels} training")
-    routes.check(f"GMFlow-{channels} training", {route: 28})
+    counted.check(f"GMFlow-{channels} training",
+                  {kernel: {route: 28} for kernel, route in routes.items()})
     launches = launch_counts()
     want = want_launches(flash=28, flash_bwd_dq=28, flash_bwd_dkv=28,
                          instance_norm=30)
@@ -5528,7 +5584,8 @@ def gmflow_wide_train_phase(channels: int):
 
 # --------------------------------------------------------------------------
 # slice 18: the flash kernels past 256 ([3k]); GMFlow at 512 channels
-# ([23], [24], [25])
+# ([23], [24], [25]); slice 19: the wgmma routes of the forward and of
+# dk/dv at C = 512
 # --------------------------------------------------------------------------
 
 WIDE_C = (264, 384, 512, 1000)
@@ -5539,6 +5596,65 @@ FLASH512_SHAPES = wide_shapes(FLASH_SHAPES, 512)
 FLASH512_TRAIN_SHAPES = wide_shapes(FLASH_TRAIN_SHAPES, 512)
 WIDE_SWIN = (2, 10, 13, 5, 6)      # a region edge inside a key tile
 
+# the routes that C = 512 leaves as they were, forced on these inputs:
+# name, (B, Lq, Lk, C, D, payload, swin), dtype, route
+NARROW_CASES = (
+    ("GMFlow-512 serving windows", (8, 1792, 1792, 512, 512, "normal",
+                                    None), "bf16", "mma_sync"),
+    ("GMFlow-512 serving matching", (1, 7168, 7168, 512, 2, "grid", None),
+     "bf16", "mma_sync"),
+    ("C = 64, D = 16", (2, 100, 63, 64, 16, "normal", None), "bf16",
+     "mma_sync"),
+    ("C = 64, D = 16", (2, 100, 63, 64, 16, "normal", None), "f32", "f32"))
+# sha256 prefixes of those routes' outputs on :func:`narrow_digests`'s
+# inputs, by nvcc release, recorded from the tree before the wgmma routes
+# took C = 512: each case's forward (out, LSE) and backward (dq, dk, dv)
+NARROW_DIGESTS = {"12.9": {
+    "GMFlow-512 serving windows bf16 (mma_sync)": ("38695ada415ffcf6",
+                                                   "f1a5a9197c822fda"),
+    "GMFlow-512 serving matching bf16 (mma_sync)": ("49f2ceadca7cd293",
+                                                    "23bf8c88d6e21ebc"),
+    "C = 64, D = 16 bf16 (mma_sync)": ("3ca81922700ee03d",
+                                       "76fbcbc4d11cd18c"),
+    "C = 64, D = 16 f32 (f32)": ("23e77fe17033adba", "7c873c3d5fb97e6a")}}
+
+
+def narrow_digests(fl, fb) -> dict:
+    """{case: (forward digest, backward digest)} of :data:`NARROW_CASES`,
+    each route forced (``fl.launcher(route=...)``, ``fb.launchers(route=
+    ...)``, the backward from the forced forward's out and LSE), from a
+    generator of its own."""
+    import hashlib
+
+    import torch
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+    gen = torch.Generator().manual_seed(88)
+    got = {}
+    for name, (b, lq, lk, c, d, payload, swin), dt, route in NARROW_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, _, _ = flash_inputs(gen, b, lq, lq, c, d, dtype, payload,
+                               grid_w=W8)
+        _, k, v = flash_inputs(gen, b, lk, lk, c, d, dtype, payload,
+                               grid_w=W8)
+        g = torch.randn(b, lq, d, generator=gen).cuda()
+        (out, lse), launch, _ = fl.launcher(q, k, v, swin=swin,
+                                            with_lse=True, route=route)
+        launch()
+        grads, launch_dq, launch_dkv, _ = fb.launchers(
+            q, k, v, out, lse, g, swin=swin, route=route)
+        launch_dq()
+        launch_dkv()
+        torch.cuda.synchronize()
+        got[f"{name} {dt} ({route})"] = (digest(out, lse), digest(*grads))
+        del q, k, v, g, out, lse, grads
+        torch.cuda.empty_cache()
+    return got
+
 
 def flash_wide_phase(gen):
     import torch
@@ -5546,19 +5662,21 @@ def flash_wide_phase(gen):
     from opticalflowfromdepth_torch.ops import flash as fl
     from opticalflowfromdepth_torch.ops import flash_bwd as fb
 
-    print("[3k] flash past 256: the mma.sync (bf16) and CUDA-core (f32) "
-          "routes at C and D past 256, forward and backward, CUDA kernels "
-          "vs plain", flush=True)
+    print("[3k] flash past 256: the wgmma routes of the forward and dk/dv "
+          "at C = 512 (D = 512 or 2; dq mma.sync), the mma.sync (bf16) and "
+          "CUDA-core (f32) routes at the other widths past 256, forward and "
+          "backward, CUDA kernels vs plain", flush=True)
     # every C x D of WIDE_C x WIDE_D and C = 2000 (Q's rows staged a panel
     # at a time), both dtypes: forward and backward against the plain
     # versions, each twice, bit-equal; the C side's plan of each (the
-    # route, a block within 227 KB of shared memory, no local memory, a
-    # block an SM at least)
+    # route the Python plan names, a block within 227 KB of shared memory,
+    # no local memory, a block an SM at least); with the backward
+    # tolerance's score-sum term at the case's C and D
+    # (``ops/flash_bwd.py:sum_term``, 2^-20 times the factor printed)
     width_gen = torch.Generator().manual_seed(80)
     worst = []
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = dtype == torch.bfloat16
-        route = "mma_sync" if bf16 else "f32"
         for c, d in [(c, d) for c in WIDE_C for d in WIDE_D] + [
                 (2000, 2), (2000, 600)]:
             q, _, _ = flash_inputs(width_gen, 2, 150, 150, c, d, dtype)
@@ -5568,29 +5686,38 @@ def flash_wide_phase(gen):
                                     g)
             worst.append(max(r))
             cp, dp = fl.padded_widths(c, d)
+            pb = fb.plan(2, 150, 130, c, d, dtype)
+            routes = dict(forward=fl.plan(2, 150, 130, c, d, dtype).route,
+                          dq=pb.route_dq, dkv=pb.route_dkv)
             plans = dict(forward=fl.kernel_plan(2, 150, 130, c, d, bf16),
                          **fb.kernel_plan(2, 150, 130, c, d, bf16))
             for key, p in plans.items():
-                if p["route"] != route or not 0 < p["smem"] <= 232448 \
+                if p["route"] != routes[key] \
+                        or not 0 < p["smem"] <= 232448 \
                         or p["local"] or p["per_sm"] < 1:
-                    fail(f"[3k] C={c} D={d} {dtype} {key}: plan {p}")
+                    fail(f"[3k] C={c} D={d} {dtype} {key}: plan {p}, want "
+                         f"the {routes[key]} route")
+            terms = (fb.sum_term(c) * 2 ** 20, fb.sum_term(d) * 2 ** 20)
             print(f"  widths {dtype} C={c} D={d} (padded {cp}x{dp}; "
                   + "; ".join(f"{key} {p['route']}, {p['chunks']} chunk(s), "
                               f"{p['smem']} B shared, {p['regs']} registers, "
                               f"{p['per_sm']} a SM"
                               for key, p in plans.items())
                   + f"): |d| / tolerance out {r[0]:.3f}, lse {r[1]:.3f}, dq "
-                  f"{r[2]:.3f}, dk {r[3]:.3f}, dv {r[4]:.3f}; two launches "
-                  f"bit-equal", flush=True)
+                  f"{r[2]:.3f}, dk {r[3]:.3f}, dv {r[4]:.3f} (the "
+                  f"backward's score-sum terms 2^-20 x {terms[0]:.3f} at C, "
+                  f"x {terms[1]:.3f} at D); two launches bit-equal",
+                  flush=True)
             del q, k, v, g
     check("every width past 256, forward and backward, |d| / tolerance",
           max(worst), 1.0)
     # GMFlow at 512 channels: its flash calls at the serving and the
-    # training shapes (C = 512, windows D = 512: the mma.sync routes),
-    # forward at every class and backward at the training classes, as [3j]
-    # holds the 256 channels' (two launches bit-equal, [3e]'s and [3f]'s
-    # planted faults, and q's columns past 256 zeroed: the long key sweeps,
-    # the D chunks on the grid and the resident Q rows at these sizes)
+    # training shapes (C = 512, windows D = 512: the forward's and dk/dv's
+    # wgmma routes, dq's mma.sync route, as the plans name them), forward
+    # at every class and backward at the training classes, as [3j] holds
+    # the 256 channels' (two launches bit-equal, [3e]'s and [3f]'s planted
+    # faults, and q's columns past 256 zeroed: the long key sweeps, the
+    # output chunks on the grid and the ring of panels at these sizes)
     cmp_gen = torch.Generator().manual_seed(87)
     err_fwd = err_bwd = 0.0
     for what, shapes, grid_w in (("serving", FLASH512_SHAPES, W8),
@@ -5600,21 +5727,60 @@ def flash_wide_phase(gen):
                                    payload, grid_w=grid_w)
             case = (f"512-channel {what} {name} bf16 [{b},{l},{c}]x"
                     f"[{b},{l},{d}]")
-            if fl.plan(b, l, l, c, d, torch.bfloat16).route != "mma_sync" \
-                    or fb.plan(b, l, l, c, d, torch.bfloat16).route \
-                    != "mma_sync":
-                fail(f"[3k] {case}: not the mma.sync route")
+            pb = fb.plan(b, l, l, c, d, torch.bfloat16)
+            got = (fl.plan(b, l, l, c, d, torch.bfloat16).route,
+                   pb.route_dq, pb.route_dkv)
+            if got != ("wgmma", "mma_sync", "wgmma"):
+                fail(f"[3k] {case}: routes (forward, dq, dk/dv) {got}, want "
+                     f"wgmma, mma_sync, wgmma")
             err_fwd = max(err_fwd, flash_compare(
                 fl, case + plan_tag(fl, q, k, v), q, k, v, swin))
             g = None
             if what == "training":
                 g = torch.randn(b, l, d, generator=cmp_gen).cuda()
                 err_bwd = max(err_bwd, flash_bwd_compare(
-                    fl, fb, f"{case} (mma_sync)", q, k, v, g, swin))
+                    fl, fb, f"{case} ({bwd_routes(pb)})", q, k, v, g, swin))
             upper_columns_fault(fl, fb, q, k, v, g, swin, keep=256,
                                 both=False)
             del q, k, v, g
             torch.cuda.empty_cache()
+    # the wgmma routes at their edges at C = 512 ([3j]'s WIDE_EDGES): Lq
+    # and Lk of 65, 129 and 200 against the forward's 64-key tiles and
+    # 128-query (64 at D = 2) blocks and dk/dv's 32-query ring tiles (64
+    # at D = 2) and 64-key blocks, D = 512 and 2, a Swin region edge
+    # inside a tile; a generator of their own
+    edge_gen = torch.Generator().manual_seed(89)
+    for name, (b, lq, lk, d, payload, swin) in WIDE_EDGES:
+        d = 512 if d == 256 else d
+        q, _, _ = flash_inputs(edge_gen, b, lq, lq, 512, d, torch.bfloat16,
+                               payload)
+        _, k, v = flash_inputs(edge_gen, b, lk, lk, 512, d, torch.bfloat16,
+                               payload)
+        g = torch.randn(b, lq, d, generator=edge_gen).cuda()
+        flash_compare(fl, f"512-channel forward {name} bf16 [{b},{lq},512]x"
+                      f"[{b},{lk},{d}]{plan_tag(fl, q, k, v)}", q, k, v, swin)
+        route = bwd_routes(fb.plan(b, lq, lk, 512, d, torch.bfloat16))
+        err_bwd = max(err_bwd, flash_bwd_compare(
+            fl, fb, f"512-channel {name} bf16 [{b},{lq},512]x[{b},{lk},{d}] "
+            f"({route})", q, k, v, g, swin))
+        del q, k, v, g
+    # the routes C = 512 left as they were (mma.sync, forced, at a
+    # GMFlow-512 window class and a D = 2 class; mma.sync and the CUDA
+    # cores at C = 64): their bits against the recorded ones
+    release = nvcc_release()
+    want = NARROW_DIGESTS.get(release)
+    for case, digests in narrow_digests(fl, fb).items():
+        if want is None:
+            print(f"  {case} bits (sha256, forward and backward): {digests}, "
+                  f"not compared: recorded with nvcc "
+                  f"{', '.join(NARROW_DIGESTS) or 'none'}, built with "
+                  f"{release}", flush=True)
+            continue
+        print(f"  {case} bits (sha256, forward and backward): {digests}, "
+              f"recorded {want[case]} (nvcc {release})", flush=True)
+        if tuple(digests) != tuple(want[case]):
+            fail(f"[3k] {case}: bits changed: {digests}, recorded "
+                 f"{want[case]}")
     # the Swin mask at C = D = 512 and C = 1000, D = 600 ([3e]'s and
     # [3f]'s checks: the planted faults, two launches bit-equal); in bf16
     # q's columns past 256 zeroed (the kernels must read every panel) and
@@ -5628,7 +5794,7 @@ def flash_wide_phase(gen):
             case = f"wide Swin {dtype} [8,130,{c}]x[8,130,{d}]"
             err_fwd = max(err_fwd, flash_compare(
                 fl, case + plan_tag(fl, q, k, v), q, k, v, WIDE_SWIN))
-            route = fb.plan(8, 130, 130, c, d, dtype).route
+            route = bwd_routes(fb.plan(8, 130, 130, c, d, dtype))
             err_bwd = max(err_bwd, flash_bwd_compare(
                 fl, fb, f"{case} ({route})", q, k, v, g, WIDE_SWIN))
             if dtype == torch.bfloat16:
@@ -5679,9 +5845,10 @@ def flash_wide_phase(gen):
                 plans += list(fb.kernel_plan(4, 300, 300, cp, dp,
                                              bf16).values())
                 for p in plans:
-                    if p["per_sm"] < 1 or p["smem"] > 232448:
+                    if p["per_sm"] < 1 or p["smem"] > 232448 or (
+                            p["route"] == "wgmma" and p["local"]):
                         fail(f"[3k] C={cp} D={dp} bf16={bf16}: a block the "
-                             f"card cannot hold: {p}")
+                             f"card cannot hold, or local memory: {p}")
                     key = (p["route"], bf16)
                     largest[key] = max(largest.get(key, 0), p["smem"])
     print("  the C side's plans past 256 (C 272..1024, D 2 or 272..1024, "
@@ -5690,26 +5857,33 @@ def flash_wide_phase(gen):
               f"{r} {'bf16' if b else 'f32'} {n}"
               for (r, b), n in sorted(largest.items())), flush=True)
     # GMFlow at 512 channels' flash calls, timed against their bounds, the
-    # plain versions and SDPA (its backend named): a serving pair's 14
-    # forwards, a training step's 14 forwards, 14 dq and 14 dk/dv
+    # plain versions, SDPA (its backend named) and the mma.sync routes
+    # forced on the same inputs (the routes C = 512 took before; the new
+    # ones must beat them at every class): a serving pair's 14 forwards, a
+    # training step's 14 forwards, 14 dq and 14 dk/dv
     pair, _ = flash_timing(fl, torch.Generator().manual_seed(83),
                            FLASH512_SHAPES, W8, "512-channel pair",
-                           plain=True)
+                           plain=True, old_route="mma_sync")
     step, _ = flash_timing(fl, torch.Generator().manual_seed(84),
                            FLASH512_TRAIN_SHAPES, GW8, "512-channel step",
-                           plain=False)
+                           plain=False, old_route="mma_sync")
     wide = flash_bwd_timing(fl, fb, F, torch.Generator().manual_seed(85),
-                            torch.bfloat16, FLASH512_TRAIN_SHAPES)
+                            torch.bfloat16, FLASH512_TRAIN_SHAPES,
+                            old_route="mma_sync")
     # the kernels line's rows: the flash row carries the 512-channel pair's
-    # 14 forwards as c512_* and the step's 14 as c512_step_*; the
-    # backward's rows the step's 14 launches as c512_*
+    # 14 forwards as c512_* and the step's 14 as c512_step_*, the forced
+    # mma.sync route's as c512_mma_sync_ms and c512_step_mma_sync_ms; the
+    # backward's rows the step's 14 launches as c512_* and
+    # c512_mma_sync_ms
     c512 = {f"c512_{key}": pair[key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     c512 |= {f"c512_step_{key}": step[key] for key in (
         "ms", "bound_ms", "bound_by", "library_ms")}
+    c512 |= {"c512_mma_sync_ms": pair["old_ms"],
+             "c512_step_mma_sync_ms": step["old_ms"]}
     wide = {rec["name"]: {f"c512_{key}": rec[key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for rec in wide}
+        | {"c512_mma_sync_ms": rec["old_ms"]} for rec in wide}
     worst = dict(flash=err_fwd, flash_bwd_dq=err_bwd, flash_bwd_dkv=err_bwd)
     return c512, worst, wide
 

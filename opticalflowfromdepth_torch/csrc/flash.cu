@@ -24,9 +24,9 @@
 // Widths: C % 16 == 0 and D == 2 or D % 16 == 0, any width up to MAX_WIDTH
 // (65,535 chunks of 128 columns on a grid axis; ops/flash.py pads other
 // widths with zero columns and slices the output back). Only C = 128 with
-// D = 128 or 2 takes the tf32x3 route, and only that and C = 256 with D =
-// 256 or 2 the wgmma route; every other width the mma.sync route (bf16) or
-// the CUDA-core route (f32).
+// D = 128 or 2 takes the tf32x3 route, and only that and C = 256 or 512
+// with D = C or 2 the wgmma route; every other width the mma.sync route
+// (bf16) or the CUDA-core route (f32).
 //
 // The Swin shifted-window mask is computed from the global query and key
 // indices, as the TPU kernel does: the window id is the batch index mod
@@ -43,13 +43,14 @@
 // scores out of device memory, and four feed it (the caller,
 // ops/flash.py:plan, names the route; the C side checks it again):
 //
-// bf16 at C = 128 with D = 128 or 2 (every GMFlow call) and at C = 256 with
-// D = 256 or 2 (every call of GMFlow at 256 channels): the wgmma route,
-// namespace sm90, one kernel templated on the width W = C. A block holds
-// warpgroups of 64 queries each: at D = 128 three where the blocks then
-// fill every SM twice, else two; at D = 256 two (O's 128 registers a thread
-// leave three warpgroups' cap of 168 no room); at D = 2 one, whose small
-// blocks fit four a SM at C = 128 and two at C = 256 (batch-1 matching: 112
+// bf16 at C = 128 with D = 128 or 2 (every GMFlow call) and at C = 256 or
+// 512 with D = C or 2 (every call of GMFlow at 256 and 512 channels): the
+// wgmma route, namespace sm90, one kernel templated on the width W = C. A
+// block holds warpgroups of 64 queries each: at D = 128 three where the
+// blocks then fill every SM twice, else two; at D = 256 and 512 two (O's
+// 128 registers a thread leave three warpgroups' cap of 168 no room); at
+// D = 2 one, whose small blocks fit four a SM at C = 128, two at C = 256
+// and one at C = 512 (batch-1 matching: 112
 // blocks of 64 queries, against 56 of 128, for 132 SMs). Q is resident,
 // loaded once by TMA; K and V stream in tiles of 64 keys through a 2-stage
 // ring under mbarriers (full: the TMA bytes and the loading warp's 32
@@ -74,7 +75,22 @@
 // a block's shared memory is two warpgroups' Q (64 KB) and two ring stages
 // of K and V (64 KB each): 198,656 bytes, one block an SM; at D = 2,
 // 100,352 bytes (ptxas, nvcc 12.9: 208 registers at D = 256, 213 with a
-// bias; 109 and 117 at D = 2; no spills, no stack). Two warpgroups of a
+// bias; 109 and 117 at D = 2; no spills, no stack). At C = 512 (CHUNKED at
+// D = 512): two warpgroups' Q take 128 KB, so a 64-key tile of K (64 KB)
+// and V (64 KB) through a 2-stage ring would not fit beside them, and one
+// warpgroup's 64 x 512 f32 O would take 256 registers a thread. So the
+// output's columns go to the grid's z axis in chunks of OCOLS = 256 (two
+// warpgroups each holding the chunk's 256 columns of its 64 queries, as at
+// C = 256: each chunk's blocks compute S, 1.5x the useful products against
+// the mma.sync route's 2.5x), and K and V's chunk come one stage each
+// (8 + 4 panels; 231,424 bytes a block with Q; 200 registers, 205 with a
+// bias, at D = 2 127 and 143, no spills), K released on its barrier
+// once S is taken (its next tile loads during the softmax and P V) and V
+// on its own after P V. The chunked layout is a
+// compile-time branch of the same template (FwdSmem::CHUNKED), which
+// leaves C = 128 and 256 as they were. At D = 2 the C = 256 layout holds:
+// one warpgroup, Q (64 KB) and two stages of K (64 KB each), 198,656
+// bytes, one block an SM. Two warpgroups of a
 // block take turns (named barriers) to issue their S products, so that
 // one's exponentials overlap the other's products; three run free
 // (pipelining S of tile j with P V of tile j - 1 inside a warpgroup
@@ -89,14 +105,16 @@
 // staging. Its limits: a warpgroup's S, softmax and P . V follow each
 // other, and the key sweep is not split, so batch-1 matching fills 112 of
 // 132 SMs (and at C = 256, D = 256 the serving windows' 112 blocks of 128
-// queries fill 112 of 132 SMs once).
+// queries fill 112 of 132 SMs once); at C = D = 512 each chunk recomputes
+// S, and the next tile's K loads only once the slower warpgroup's S is
+// taken.
 //
-// Other bf16 widths (C % 16 == 0; D = 2 or D % 16 == 0; any width, GMFlow
-// at 512 channels' C = 512 with D = 512 or 2 among them): the mma.sync
-// route, one block of 4 warps per (batch entry, 64-query tile, chunk of 128
-// output columns: at D > 128 each chunk's blocks recompute S, which keeps
-// the accumulators at 64 registers at any D); each warp owns 16 query rows,
-// whose Q fragments stay in registers for the whole key sweep at C <= 128
+// Other bf16 widths (C % 16 == 0; D = 2 or D % 16 == 0; any width): the
+// mma.sync route, one block of 4 warps per (batch entry, 64-query tile,
+// chunk of 128 output columns: at D > 128 each chunk's blocks recompute S,
+// which keeps the accumulators at 64 registers at any D); each warp owns 16
+// query rows, whose Q fragments stay in registers for the whole key sweep
+// at C <= 128
 // and are loaded per k-step from the block's Q rows in shared memory at C >
 // 128: resident for the sweep where they fit a block (C up to about 1,500),
 // else staged a 128-column panel at a time beside K's. Per 64-key tile, K
@@ -109,11 +127,11 @@
 // denominator per row, reduced over the 4 lanes that share a row with
 // shuffles; P rounded to bf16 as above. D % 16 == 0: P . V on the tensor
 // cores too, S's accumulator fragments being P's A fragments; D == 2: P .
-// V on the CUDA cores in f32. Every call of GMFlow at 512 channels takes
-// it (at 256 channels the wgmma route replaced it;
-// ops/flash.py:launcher(route="mma_sync") still forces it there, to time
-// it beside that route). Its limits: K's panels are staged synchronously
-// (no ring), and at D > 128 each chunk recomputes S over all of C.
+// V on the CUDA cores in f32. No model's call takes it since the wgmma
+// route took C = 256 and 512 (ops/flash.py:launcher(route="mma_sync")
+// still forces it there, to time it beside that route). Its limits: K's
+// panels are staged synchronously (no ring), and at D > 128 each chunk
+// recomputes S over all of C.
 //
 // f32 at C = 128 and D = 128 or 2 (every sequence-parallel ring step,
 // whatever the model's dtype, and every flash call of an f32 GMFlow): the
@@ -601,18 +619,27 @@ constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// One block's shared memory at width W = C (128 or 256): Q resident (W /
-// 64 64-column panels a warpgroup), K and V streamed through a ring of
+constexpr int OCOLS = 256;  // output columns a block holds (a grid axis past)
+
+// One block's shared memory at width W = C (128, 256 or 512): Q resident
+// (W / 64 64-column panels a warpgroup), K and V streamed through a ring of
 // STAGES tiles of 64 keys (V as W / 64 panels, D = W, or as 64 bf16 pairs
 // when D = 2, which the loading warp copies with cp.async: rows of 4
 // bytes start wherever b * Lk puts them, and TMA wants 16-byte aligned
-// boxes).
+// boxes). CHUNKED (W = 512, D = 512): two warpgroups' Q take 128 KB, so
+// one stage of K (8 panels) and one of V's OCOLS columns of the block's
+// chunk (4 panels), each on barriers of its own (full[0] and empty[0] K's,
+// full[1] and empty[1] V's), so that K's next tile loads while V's is
+// read and the other way round.
 template <int WGS, bool P2, int W>
 struct FwdSmem {
   static constexpr int CP = W / 64;
+  static constexpr bool CHUNKED = W > OCOLS && !P2;
+  static constexpr int NST = CHUNKED ? 1 : STAGES;
+  static constexpr int VP = P2 ? 1 : (CHUNKED ? OCOLS / 64 : CP);
   alignas(1024) bf16 q[WGS * CP][PANEL];
-  alignas(1024) bf16 k[STAGES][CP][PANEL];
-  alignas(1024) bf16 v[STAGES][P2 ? 1 : CP][P2 ? 2 * TILE : PANEL];
+  alignas(1024) bf16 k[NST][CP][PANEL];
+  alignas(1024) bf16 v[NST][VP][P2 ? 2 * TILE : PANEL];
   uint64_t q_full, full[STAGES], empty[STAGES];
 };
 
@@ -632,14 +659,45 @@ __device__ __forceinline__ float ex2(float x) {
 // fills ring stages: lane 0 issues the TMA loads of K's (and V's) panels;
 // at D = 2 the 32 lanes copy V's pairs with cp.async (zeros past Lk), each
 // lane's arrival on the stage's barrier made when its copies land.
+// CHUNKED: lane 0 loads K's panels of a tile once every thread has
+// released K's stage (refill_k), and V's OCOLS columns from d0 on once
+// every thread has released V's (refill_v).
 template <int WGS, bool P2, int W>
 struct FwdLoads {
   using SM = FwdSmem<WGS, P2, W>;
   static constexpr int CP = SM::CP;
   const CUtensorMap *q, *k, *v;
   const uint32_t* pairs;
-  int b, q0, Lk;
+  int b, q0, Lk, d0;
   static constexpr int LOADER = (WGS - 1) * 4;
+
+  __device__ __forceinline__ void load_k(SM& sm, int it) const {
+    mbar_expect_tx(&sm.full[0], CP * PANEL_BYTES);
+#pragma unroll
+    for (int p = 0; p < CP; ++p)
+      tma_load_3d(sm.k[0][p], k, &sm.full[0], p * 64, it * TILE, b);
+  }
+
+  __device__ __forceinline__ void load_v(SM& sm, int it) const {
+    mbar_expect_tx(&sm.full[1], SM::VP * PANEL_BYTES);
+#pragma unroll
+    for (int p = 0; p < SM::VP; ++p)
+      tma_load_3d(sm.v[0][p], v, &sm.full[1], d0 + p * 64, it * TILE, b);
+  }
+
+  __device__ __forceinline__ void refill_k(SM& sm, int it, int n_tiles) const {
+    if (threadIdx.x / 32 == LOADER && it + 1 < n_tiles) {
+      mbar_wait(&sm.empty[0], it & 1);
+      if ((threadIdx.x & 31) == 0) load_k(sm, it + 1);
+    }
+  }
+
+  __device__ __forceinline__ void refill_v(SM& sm, int it, int n_tiles) const {
+    if (threadIdx.x / 32 == LOADER && it + 1 < n_tiles) {
+      mbar_wait(&sm.empty[1], it & 1);
+      if ((threadIdx.x & 31) == 0) load_v(sm, it + 1);
+    }
+  }
 
   __device__ __forceinline__ void stage(SM& sm, int it, int lane) const {
     const int s = it % STAGES, k0 = it * TILE;
@@ -669,9 +727,15 @@ struct FwdLoads {
         for (int p = 0; p < CP; ++p)
           tma_load_3d(sm.q[w * CP + p], q, &sm.q_full, p * 64, q0 + w * TILE, b);
     }
-    if (threadIdx.x / 32 == LOADER)
+    if constexpr (SM::CHUNKED) {
+      if (threadIdx.x == LOADER * 32) {
+        load_k(sm, 0);
+        load_v(sm, 0);
+      }
+    } else if (threadIdx.x / 32 == LOADER) {
       for (int it = 0; it < STAGES && it < n_tiles; ++it)
         stage(sm, it, threadIdx.x & 31);
+    }
   }
 
   // after tile `it` is released: once every thread has released it, the
@@ -693,7 +757,11 @@ struct FwdLoads {
 // warpgroup's O is W / 128 accumulators of 64 x 128 (o[h]: columns [128
 // h, 128 h + 128)), each a product_rs over two of V's panels from the same
 // P fragments, so S and its exponentials are computed once for every
-// column of O.
+// column of O. CHUNKED (W = 512, D = 512): a block holds OCOLS columns of
+// O (its chunk, blockIdx.z: columns [OCOLS z, OCOLS z + OCOLS)), each
+// chunk's blocks computing S whole. Every barrier wait comes before the
+// wgmma batch that reads the tile (a wait between a batch's wgmmas makes
+// ptxas serialise them: C7520).
 template <int WGS, bool P2, bool BIAS, int W>
 __global__ void __launch_bounds__(WGS * 128, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -704,18 +772,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 int Lk, float scale2, Swin sw) {
   using SM = FwdSmem<WGS, P2, W>;
   constexpr int CP = SM::CP;
-  constexpr int OH = P2 ? 1 : W / 128;   // O's 64 x 128 accumulators
+  constexpr int OH = P2 ? 1 : (SM::CHUNKED ? OCOLS : W) / 128;  // O's 64 x 128
   constexpr int ON = P2 ? 4 : 64;        // registers of each
   extern __shared__ unsigned char smem_raw[];
   SM& sm = *reinterpret_cast<SM*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   const int b = blockIdx.y, q0 = blockIdx.x * WGS * TILE;
+  const int d0 = SM::CHUNKED ? blockIdx.z * OCOLS : 0;  // O's first column
   const int n_tiles = (Lk + TILE - 1) / TILE;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&sm.full[s], 32);          // every loading lane arrives
+      // every loading lane arrives (CHUNKED: lane 0, TMA bytes alone)
+      mbar_init(&sm.full[s], SM::CHUNKED ? 1 : 32);
       mbar_init(&sm.empty[s], WGS * 128);  // every thread arrives
     }
     mbar_fence_init();
@@ -723,7 +793,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
   const FwdLoads<WGS, P2, W> loads{&tm_q, &tm_k, &tm_v,
                                    reinterpret_cast<const uint32_t*>(v), b,
-                                   q0, Lk};
+                                   q0, Lk, d0};
   loads.start(sm, n_tiles);
 
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
@@ -831,13 +901,26 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   mbar_wait(&sm.q_full, 0);
   if (WGS == 2 && wg == 1) turn_pass(1);  // warpgroup 0 goes first
 
+  // CHUNKED: K's stage released as soon as S is taken (its next tile then
+  // loads during the softmax and P V), V's after P V
+  const auto release_k = [&](int it) {
+    if constexpr (SM::CHUNKED) {
+      mbar_arrive(&sm.empty[0]);
+      loads.refill_k(sm, it, n_tiles);
+    }
+  };
   for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % STAGES;
-    mbar_wait(&sm.full[s], (it / STAGES) & 1);
+    const int s = it % SM::NST;
+    if constexpr (SM::CHUNKED) {
+      if (!idle) mbar_wait(&sm.full[0], it & 1);   // K's tile
+    } else {
+      mbar_wait(&sm.full[s], (it / STAGES) & 1);
+    }
     const bool pass = wg == 0 || it + 1 < n_tiles;  // matched by a wait
     if (WGS == 2) turn_wait(wg);
     if (idle) {
       if (WGS == 2 && pass) turn_pass(wg);
+      release_k(it);
     } else {
       float sa[32];
       wgmma_fence();
@@ -846,6 +929,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       if (WGS == 2 && pass) turn_pass(wg);
       wgmma_wait<0>();
       fence_regs(sa);
+      release_k(it);
       float alpha[2], ls[2];
       softmax_tile(sa, it * TILE, alpha, ls);
 #pragma unroll
@@ -862,6 +946,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         uint32_t pa[16];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) to_a_frag(sa, pa, kk);
+        if constexpr (SM::CHUNKED) mbar_wait(&sm.full[1], it & 1);  // V
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < OH; ++h) product_rs(o[h], pa, sm.v[s][2 * h]);
@@ -871,8 +956,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         for (int h = 0; h < OH; ++h) fence_regs(o[h]);
       }
     }
-    mbar_arrive(&sm.empty[s]);
-    loads.refill(sm, it, n_tiles);
+    if constexpr (SM::CHUNKED) {
+      mbar_arrive(&sm.empty[1]);
+      loads.refill_v(sm, it, n_tiles);
+    } else {
+      mbar_arrive(&sm.empty[s]);
+      loads.refill(sm, it, n_tiles);
+    }
   }
 
   if (idle) return;
@@ -903,20 +993,30 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int h = 0; h < OH; ++h)
 #pragma unroll
         for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<float2*>(out + at * W + 128 * h + 8 * j + 2 * t) =
+          *reinterpret_cast<float2*>(out + at * W + d0 + 128 * h + 8 * j +
+                                     2 * t) =
               make_float2(o[h][4 * j + 2 * r] / den,
                           o[h][4 * j + 2 * r + 1] / den);
     }
-    if (lse != nullptr && t == 0) lse[at] = m[r] * LN2 + logf(den);
+    if (lse != nullptr && t == 0 && d0 == 0)
+      lse[at] = m[r] * LN2 + logf(den);
   }
 }
 
 // The widths this route takes: GMFlow's (C = 128; D = 128, or 2 for the
-// matching grid and the propagated flow) and GMFlow at 256 channels' (C =
-// 256; D = 256 or 2), with B * L within TMA's int32 coordinates.
+// matching grid and the propagated flow) and GMFlow at 256 and 512
+// channels' (C = 256 or 512; D = C or 2), with B * L within TMA's int32
+// coordinates. The same rule as the backward's dk/dv route
+// (flash_bwd.cu:sm90::takes, ops/flash.py:wgmma_widths).
 static bool takes(int B, int Lq, int Lk, int C, int D) {
-  return (C == 128 || C == 256) && (D == C || D == 2) &&
+  return (C == 128 || C == 256 || C == 512) && (D == C || D == 2) &&
          (long long)B * (Lq > Lk ? Lq : Lk) < (1ll << 31);
+}
+
+// O's column chunks a block of this instantiation holds (a grid axis).
+template <bool P2, int W>
+constexpr int out_chunks() {
+  return FwdSmem<2, P2, W>::CHUNKED ? W / OCOLS : 1;
 }
 
 // Blocks of this instantiation that fit an SM (its shared-memory limit
@@ -947,8 +1047,9 @@ static int occupancy(int dev, int* per_sm) {
 // every SM at least twice (the training and refinement windows), else two
 // (128 queries, taking turns), which leave fewer SMs idle on small batches
 // (the serving windows: 80 blocks of three against 112 of two for 132
-// SMs). With a bias, and at D = 256, always two: the bias loads and O's
-// 128 registers a thread need more than three warpgroups' cap of 168.
+// SMs). With a bias, and at D = 256 or 512, always two: the bias loads and
+// O's 128 registers a thread need more than three warpgroups' cap of 168.
+// At D = 512 each query tile's blocks are out_chunks() (a grid axis).
 // plan = {warpgroups a block, blocks, blocks per SM, waves}.
 template <bool P2, bool BIAS, int W>
 static int choose(int B, int Lq, int* plan) {
@@ -958,13 +1059,14 @@ static int choose(int B, int Lq, int* plan) {
                                        dev)))
     return e;
   const auto blocks = [&](int wgs) {
-    return (long long)B * ((Lq + wgs * TILE - 1) / (wgs * TILE));
+    return (long long)B * ((Lq + wgs * TILE - 1) / (wgs * TILE)) *
+           out_chunks<P2, W>();
   };
   int wgs;
   if constexpr (P2) {
     wgs = 1;
     e = occupancy<1, true, BIAS, W>(dev, &per_sm);
-  } else if constexpr (BIAS || W == 256) {
+  } else if constexpr (BIAS || W >= 256) {
     wgs = 2;
     e = occupancy<2, false, BIAS, W>(dev, &per_sm);
   } else {
@@ -986,7 +1088,7 @@ static int launch(const CUtensorMap (&m)[3], const void* v, const void* bias,
                   void* out, void* lse, int B, int Lq, int Lk, float scale,
                   Swin sw, cudaStream_t st) {
   const dim3 grid((unsigned)((Lq + WGS * TILE - 1) / (WGS * TILE)),
-                  (unsigned)B);
+                  (unsigned)B, (unsigned)out_chunks<P2, W>());
   flash_fwd_wgmma<WGS, P2, BIAS, W>
       <<<grid, WGS * 128, fwd_smem_bytes<WGS, P2, W>(), st>>>(
           m[0], m[1], m[2], (const bf16*)v, (const float*)bias, (float*)out,
@@ -1010,7 +1112,7 @@ static int forward(const void* q, const void* k, const void* v,
   if constexpr (P2)
     return launch<1, true, BIAS, W>(m, v, bias, out, lse, B, Lq, Lk, scale,
                                     sw, st);
-  else if constexpr (BIAS || W == 256)
+  else if constexpr (BIAS || W >= 256)
     return launch<2, false, BIAS, W>(m, v, bias, out, lse, B, Lq, Lk, scale,
                                      sw, st);
   else
@@ -1465,9 +1567,9 @@ static bool widths_ok(int C, int D) {
 // kernel's `swin`. Takes C % 16 == 0 and D == 2 or D % 16 == 0, up to
 // MAX_WIDTH (ops/flash.py pads other widths with zero columns), on the
 // route the caller names (enum Route; ops/flash.py:plan names bf16 at C =
-// 128 and D = 128 or 2, and at C = 256 and D = 256 or 2, the wgmma route,
-// other bf16 the mma.sync route, f32 at C = 128 and D = 128 or 2 the
-// tf32x3 route, other f32 the CUDA-core route).
+// 128, 256 or 512 with D = C or 2 the wgmma route, other bf16 the
+// mma.sync route, f32 at C = 128 and D = 128 or 2 the tf32x3 route, other
+// f32 the CUDA-core route).
 // splits > 1 (the tf32x3 route only) cuts the key sweep into that many
 // runs of whole tiles: out is then a [splits, B, Lq, D] scratch of the
 // runs' unnormalised outputs and lse a [splits, B, Lq] scratch of their
@@ -1499,10 +1601,12 @@ extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
                                                  Lq, Lk, scale, sw, splits, st);
   }
   if (route == WGMMA)
-    return C == 256 ? sm90::forward_at<256>(q, k, v, bias, out, lse, B, Lq,
-                                            Lk, D, scale, sw, st)
-                    : sm90::forward_at<128>(q, k, v, bias, out, lse, B, Lq,
-                                            Lk, D, scale, sw, st);
+    return C == 512   ? sm90::forward_at<512>(q, k, v, bias, out, lse, B,
+                                              Lq, Lk, D, scale, sw, st)
+           : C == 256 ? sm90::forward_at<256>(q, k, v, bias, out, lse, B,
+                                              Lq, Lk, D, scale, sw, st)
+                      : sm90::forward_at<128>(q, k, v, bias, out, lse, B,
+                                              Lq, Lk, D, scale, sw, st);
   Narrow kn = narrow(is_bf16 != 0, C, D, has_bias);
   if (kn.smem > SMEM_DEFAULT) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1562,7 +1666,7 @@ static FwdKernel wgmma_kernel(int wgs, bool p2, bool bias) {
     return bias ? wgmma_kernel<1, true, true, W>()
                 : wgmma_kernel<1, true, false, W>();
   if (bias) return wgmma_kernel<2, false, true, W>();
-  if constexpr (W == 256)
+  if constexpr (W >= 256)
     return wgmma_kernel<2, false, false, W>();
   else
     return wgs == 3 ? wgmma_kernel<3, false, false, W>()
@@ -1586,7 +1690,8 @@ static int wgmma_plan(int B, int Lq, bool p2, bool bias, int* wg,
 // {route (enum Route), query rows a block, keys a tile, blocks (every
 // run's and D chunk's), blocks per SM, waves over the card's SMs, runs of
 // the key sweep, D chunks (a grid axis of the mma.sync and CUDA-core
-// routes; 1 elsewhere), dynamic shared memory, static shared memory
+// routes and of the wgmma route at C = D = 512; 1 elsewhere), dynamic
+// shared memory, static shared memory
 // (bytes), threads a block, registers a thread, local memory a thread
 // (bytes: spills and stack)}. Returns a cudaError_t (0 on success): a
 // block the SM cannot hold fails here.
@@ -1616,9 +1721,11 @@ extern "C" int ofd_flash_fwd_plan(int B, int Lq, int Lk, int C, int D,
                       : tf32_kernel<false, false>());
   } else if (is_bf16 && sm90::takes(B, Lq, Lk, C, D)) {
     int wg[4];   // {warpgroups a block, blocks, blocks per SM, waves}
-    e = C == 256 ? wgmma_plan<256>(B, Lq, p2, bias, wg, &kern)
-                 : wgmma_plan<128>(B, Lq, p2, bias, wg, &kern);
+    e = C == 512   ? wgmma_plan<512>(B, Lq, p2, bias, wg, &kern)
+        : C == 256 ? wgmma_plan<256>(B, Lq, p2, bias, wg, &kern)
+                   : wgmma_plan<128>(B, Lq, p2, bias, wg, &kern);
     if (e) return e;
+    if (C == 512 && !p2) chunks = sm90::out_chunks<false, 512>();
     const int got[7] = {WGMMA, wg[0] * sm90::TILE, sm90::TILE, wg[1], wg[2],
                         wg[3], 1};
     for (int i = 0; i < 7; ++i) plan[i] = got[i];

@@ -28,9 +28,10 @@
 // the [Lq, Lk] tiles out of device memory, and four routes feed it (the
 // caller, ops/flash_bwd.py:plan, names the route):
 //
-// bf16 at C = 128 and D = 128 or 2 (every GMFlow call), and at C = 256 and
-// D = 256 or 2 (GMFlow at 256 channels): the wgmma route, namespace sm90,
-// its kernels templated on the width W = C. At C = 128: one block of two
+// bf16 at C = 128 and D = 128 or 2 (every GMFlow call), at C = 256 and D =
+// 256 or 2 (GMFlow at 256 channels), and for dk/dv alone at C = 512 and D
+// = 512 or 2 (GMFlow at 512 channels): the wgmma route, namespace sm90, its
+// kernels templated on the width W = C. At C = 128: one block of two
 // warpgroups (256 threads) per (batch entry, 128 rows of the output
 // side), 64 rows each. The resident side (K and V for dk/dv; Q and G for
 // dq) is loaded once by TMA; the other side
@@ -94,6 +95,31 @@
 //   256 columns of dK (two m64n128 accumulators), dv on the CUDA cores;
 //   135,168 bytes, 214 registers, no spills.
 //
+// At C = 512, dk/dv alone (dq keeps the mma.sync route; its wgmma kernel
+// has no instance there), in the same template (Dkv::CHUNKED and a ring
+// of its own, compile-time branches that leave C = 128 and 256 as they
+// were):
+//   dk/dv at D = 512: the 64 keys' K and V resident take 128 KB, so a
+//   64-row query tile's Q and G (128 KB) do not fit beside them, nor two
+//   stages of 32-row tiles; and dK and dV of 512 columns would take 512
+//   accumulator registers a warpgroup. So the grid's z axis takes 256
+//   columns of dK and of dV (two chunks), warpgroup w holding 128 of each
+//   (from 256 z + 128 w). Warpgroup 0 computes S^T over C, warpgroup 1
+//   dP^T over D, and they swap the f32 accumulators through shared memory
+//   (16 KB), so each block computes them once (1.5x the useful products
+//   over the two chunks, against 2.5x were each warpgroup to compute
+//   both, as the mma.sync route's chunks do); the queries stream in 32-row
+//   tiles (S^T and dP^T on m64n32k16) as units of 128 columns, Q's and
+//   G's in turn, the chunk's own columns last, through a ring of 10 slots
+//   of 8 KB (1.25 tiles, each slot on its own full and empty barriers; the
+//   other chunk's units released, and their slots refilled, once S^T and
+//   dP^T have read them), lse and delta read by each thread for its own
+//   columns; 231,424 bytes, 221 registers.
+//   dk/dv at D = 2: 64 keys that both warpgroups share, each holding 256
+//   columns of dK (two m64n128 accumulators), dv on the CUDA cores in both
+//   (warpgroup 0 writes it); queries in 64-row tiles through the 2-stage
+//   ring; 200,704 bytes, 214 registers; no spills at either D.
+//
 // Other bf16 widths (C % 16 == 0; D = 2 or D % 16 == 0; any width up to
 // MAX_WIDTH, GMFlow at 512 channels' C = 512 with D = 512 or 2 among them;
 // ops/flash_bwd.py pads other widths with zero columns): the mma.sync
@@ -106,10 +132,10 @@
 // 128 columns, k-step after k-step in their order at any width. The
 // resident side's rows stay in shared memory whole where they fit a block
 // (C = D = 512: dq 185,344 bytes, dk/dv 167,936), else a panel at a time
-// beside the other side's, so a block fits 227 KB at any width. Every call
-// of GMFlow at 512 channels takes it (at 256 channels the wgmma route
-// replaced it; launchers(route="mma_sync") still forces it there, to time
-// it beside that route).
+// beside the other side's, so a block fits 227 KB at any width. GMFlow at
+// 512 channels' dq calls take it (its dk/dv calls and every call at 256
+// channels the wgmma route; launchers(route="mma_sync") still forces it
+// there, to time it beside that route).
 //   dq: Q and G rows resident (or a panel a time); per 64-key tile K and V
 //   a panel at a time, and past C = 128 the tile's 128 chunk columns of K;
 //   S = Q K^T and dP = G V^T, then p and ds per element in registers; ds
@@ -164,6 +190,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "tf32x3.cuh"
@@ -682,24 +710,65 @@ struct Smem {
   uint64_t res_full, full[STAGES], empty[STAGES];
 };
 
-// The kernels' layouts at width W = C (128 or 256). dq: two warpgroups'
-// 64 queries resident, the keys streamed in tiles of KT; at W = 256, D =
-// 256 tiles of 32 (64-row tiles would put the block past 227 KB). dk/dv:
-// the queries streamed in tiles of 64; the resident keys two groups of 64,
-// one a warpgroup with all W columns of dK and dV, except at W = 256, D =
-// 256 (SPLIT): one group of 64 keys that both warpgroups share, warpgroup w
-// holding columns [128 w, 128 w + 128) of dK and of dV.
+// The kernels' layouts at width W = C (128, 256, and 512 for dk/dv). dq:
+// two warpgroups' 64 queries resident, the keys streamed in tiles of KT;
+// at W = 256, D = 256 tiles of 32 (64-row tiles would put the block past
+// 227 KB). dk/dv: the queries streamed in tiles of 64; the resident keys
+// two groups of 64, one a warpgroup with all W columns of dK and dV,
+// except (SPLIT) at W = 256, D = 256 and at W = 512: one group of 64 keys
+// that both warpgroups share, warpgroup w holding DKH 64 x 128
+// accumulators of dK from column c0 (at W = 256, D = 256: columns [128 w,
+// 128 w + 128) of dK and of dV; at W = 512, D = 2: [256 w, 256 w + 256)
+// of dK, dv on the CUDA cores in both, written by warpgroup 0). CHUNKED
+// (W = D = 512): the grid's z axis takes 256 columns of dK and of dV
+// (warpgroup w's 128 from 256 z + 128 w), the queries stream through
+// RingSmem's ring in tiles of RT, and warpgroup 0 takes S^T, warpgroup 1
+// dP^T, swapped through shared memory.
 template <bool P2, int W>
 struct Dq {
   static constexpr int KT = W == 256 && !P2 ? 32 : 64;
   using SM = Smem<2, KT, W / 64, P2>;
 };
 
+constexpr int RT = 32;     // queries a tile of the dk/dv ring (CHUNKED)
+constexpr int RING = 10;   // its slots, each two [RT][64] panels
+
+// dk/dv at W = D = 512 (CHUNKED): K and V of the block's 64 keys resident
+// (CP panels each, 128 KB), so a 64-row query tile's Q and G (128 KB more)
+// do not fit beside them, nor two stages of 32-row tiles. The queries come
+// in tiles of RT = 32 as units of 128 columns (two [RT][64] TMA boxes, 8
+// KB), a tile's CP units in the order Q's columns [0, 128), G's [0, 128),
+// Q's [128, 256), ..., rotated so that the block's chunk's columns come
+// last (ring_pair), through a ring of RING slots, each with its full
+// barrier (the TMA bytes) and its empty one (a warp's lane 0 each): 1.25
+// tiles; the units of the other chunk's columns are released once S^T
+// and dP^T have read them, so the loads of most of the next tile are in
+// flight while a tile's dK and dV are computed. A slot's two panels lie
+// RT * 128 bytes apart, as product_rs<RT> reads them. `swap`: each
+// warpgroup's f32 S^T or dP^T accumulator (64 x RT), to the other.
+template <int CP>
+struct RingSmem {
+  alignas(1024) bf16 rc[1][CP][PANEL];
+  alignas(1024) bf16 rd[1][CP][PANEL];
+  alignas(1024) bf16 ring[RING][2 * RT * 64];
+  float swap[2][RT / 2 * 128];
+  uint64_t res_full, full[RING], empty[RING];
+};
+
+// Both warpgroups at a point of the swap (named barrier 3, 256 threads).
+__device__ __forceinline__ void swap_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
 template <bool P2, int W>
 struct Dkv {
-  static constexpr bool SPLIT = W == 256 && !P2;
+  static constexpr bool SPLIT = (W == 256 && !P2) || W == 512;
+  static constexpr bool CHUNKED = W == 512 && !P2;
   static constexpr int RG = SPLIT ? 1 : 2;
-  using SM = Smem<RG, TILE, W / 64, P2>;
+  static constexpr int DKH = SPLIT ? (P2 ? W / 256 : 1) : W / 128;
+  static constexpr int CHUNKS = CHUNKED ? W / 256 : 1;  // the grid's z
+  using SM = typename std::conditional<CHUNKED, RingSmem<W / 64>,
+                                       Smem<RG, TILE, W / 64, P2>>::type;
 };
 
 template <class SM>
@@ -795,10 +864,79 @@ struct Loads {
   }
 };
 
-// dk/dv: one block per (batch entry, 64 RG keys); the query side streams
-// in tiles of 64. tm_q, tm_k and (at D = C) tm_v and tm_g are 3-D maps of
-// [B, L, W] in [1, 64, 64] boxes; at D = 2 the pairs of v and g are read
-// from the pointers.
+// The position in C (and D) of a tile's h-th pair of units (128 columns
+// of Q and of G), in chunk z of a block: the pairs rotated by rot = 2 z +
+// 2, so that the chunk's own two pairs, which dK += dS^T Q and dV += P^T G
+// read too, come last and the others can be released as soon as S^T and
+// dP^T have read them.
+__device__ __forceinline__ int ring_pair(int h, int rot, int cp) {
+  return (h + rot) % (cp / 2);
+}
+
+// The loads of a CHUNKED dk/dv block. Thread 0 issues K's and V's TMA
+// loads once; the loading warp's lane 0 issues the ring's units: the first
+// RING before the sweep, and as a tile's units are released (every warp's
+// lane 0 arrives on each one's empty barrier; the first half after S^T and
+// dP^T, the rest at the tile's end) the units that their slots free.
+template <int CP>
+struct RingLoads {
+  using SM = RingSmem<CP>;
+  const CUtensorMap *k, *v, *q, *g;
+  int b, r0, n_units, rot;  // rot: the pairs' rotation (ring_pair)
+
+  __device__ __forceinline__ void unit(SM& sm, int u) const {
+    const int slot = u % RING, it = u / CP, j = u % CP;
+    const CUtensorMap* map = (j & 1) ? g : q;
+    const int c0 = ring_pair(j >> 1, rot, CP) * 128;
+    mbar_expect_tx(&sm.full[slot], 2 * RT * 128);
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      tma_load_3d(sm.ring[slot] + p * RT * 64, map, &sm.full[slot],
+                  c0 + p * 64, it * RT, b);
+  }
+
+  __device__ __forceinline__ void start(SM& sm) const {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&sm.res_full, 2 * CP * PANEL_BYTES);
+      for (int p = 0; p < CP; ++p) {
+        tma_load_3d(sm.rc[0][p], k, &sm.res_full, p * 64, r0, b);
+        tma_load_3d(sm.rd[0][p], v, &sm.res_full, p * 64, r0, b);
+      }
+    }
+    if (threadIdx.x == LOADER * 32)
+      for (int u = 0; u < RING && u < n_units; ++u) unit(sm, u);
+  }
+
+  // units [from, to) once the ones RING before them are released
+  __device__ __forceinline__ void refill(SM& sm, int from, int to) const {
+    if (threadIdx.x == LOADER * 32)
+      for (int u = from; u < to && u < n_units; ++u) {
+        mbar_wait(&sm.empty[u % RING], ((u - RING) / RING) & 1);
+        unit(sm, u);
+      }
+  }
+};
+
+// acc[64 x RT] (+)= A . B^T over one ring unit (128 columns, 8 k16
+// steps): A the 64 resident rows' two panels from `a`, B the unit's two
+// [RT][64] panels; `first` overwrites acc at the unit's first step.
+__device__ __forceinline__ void unit_product(float (&acc)[RT / 2],
+                                             const bf16* a, const bf16* b,
+                                             bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int in = (kk & 3) * 16;
+    wgmma_m64n32_ss(acc, desc_sw128(a + (kk >> 2) * PANEL + in, 16, 1024),
+                    desc_sw128(b + (kk >> 2) * RT * 64 + in, 16, 1024),
+                    !first || kk > 0);
+  }
+}
+
+// dk/dv: one block per (batch entry, 64 RG keys, CHUNKS column chunk); the
+// query side streams in tiles of 64 (CHUNKED: RT, through the ring). tm_q,
+// tm_k and (at D = C) tm_v and tm_g are 3-D maps of [B, L, W] in [1, 64,
+// 64] boxes (CHUNKED: q's and g's [1, RT, 64]); at D = 2 the pairs of v and
+// g are read from the pointers.
 template <bool P2, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -812,19 +950,14 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     Swin sw) {
   using K = Dkv<P2, W>;
   constexpr int RG = K::RG;
-  constexpr int DKH = K::SPLIT ? 1 : W / 128;  // 128-column parts of dK held
+  constexpr int DKH = K::DKH;                  // 128-column parts of dK held
   using SM = typename K::SM;
   SM& sm = shared_storage<SM>();
   const int b = blockIdx.y, k0 = blockIdx.x * RG * TILE;
-  const int n_tiles = (Lq + TILE - 1) / TILE;
   const int wg = threadIdx.x / 128;
-  init_barriers(sm);
-  const Loads<RG, TILE, W / 64, P2, true> loads{
-      &tm_k, &tm_v, &tm_q, &tm_g, reinterpret_cast<const uint32_t*>(g), lse,
-      delta, b, k0, Lq};
-  loads.start(sm, n_tiles);
   const int kg = K::SPLIT ? 0 : wg;        // the warpgroup's group of keys
-  const int c0 = K::SPLIT ? 128 * wg : 0;  // its first column of dK and dV
+  // its first column of dK and (D = W) of dV
+  const int c0 = K::SPLIT ? 256 * blockIdx.z + DKH * 128 * wg : 0;
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3;
   const int row0 = k0 + kg * TILE + warp * 16 + gq;  // keys row0, row0 + 8
@@ -850,50 +983,104 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < 64; ++i) dka[h][i] = 0.f;
 #pragma unroll
   for (int i = 0; i < (P2 ? 4 : 64); ++i) dva[i] = 0.f;
-  const bf16* kres = sm.rc[kg][0];
-  const bf16* vres = sm.rd[P2 ? 0 : kg][0];
-  mbar_wait(&sm.res_full, 0);
-  if (wg == 1) turn_pass(1);  // warpgroup 0 goes first
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % STAGES, q0 = it * TILE;
-    mbar_wait(&sm.full[s], (it / STAGES) & 1);
-    // S^T = K Q^T and dP^T = V G^T: 64 keys x 64 queries
-    const bool pass = wg == 0 || it + 1 < n_tiles;  // matched by a wait
-    turn_wait(wg);
-    if (idle) {
-      if (pass) turn_pass(wg);
-    } else {
-      float st[32], dpt[32];
+  if constexpr (K::CHUNKED) {
+    // the ring's sweep: per 32-query tile warpgroup 0 takes S^T = K Q^T
+    // and warpgroup 1 dP^T = V G^T (m64n32, unit after unit; the operands
+    // chosen by data, not by a branch around the wgmmas, which made ptxas
+    // serialise them); the two swap their f32 accumulators through shared
+    // memory, then each has both and takes p and ds in registers, as one
+    // warpgroup would, and dV += P^T G and dK += dS^T Q over its 128
+    // columns (the units of its columns, read MN-major). No warpgroup is
+    // idle: both hold the block's 64 keys.
+    constexpr int CP = W / 64;
+    const int n_tiles = (Lq + RT - 1) / RT;
+    if (threadIdx.x == 0) {
+      mbar_init(&sm.res_full, 1);
+      for (int s = 0; s < RING; ++s) {
+        mbar_init(&sm.full[s], 1);               // the loading lane arrives
+        mbar_init(&sm.empty[s], THREADS / 32);   // every warp's lane 0
+      }
+      mbar_fence_init();
+    }
+    __syncthreads();
+    const int rot = 2 * blockIdx.z + 2;
+    const RingLoads<CP> loads{&tm_k, &tm_v, &tm_q, &tm_g, b, k0,
+                              n_tiles * CP, rot};
+    loads.start(sm);
+    const bf16* res = wg ? sm.rd[0][0] : sm.rc[0][0];  // V (dP^T) or K (S^T)
+    // the warpgroup's own pair of units (its 128 columns of Q and G) is the
+    // tile's (CP / 2 - 2 + wg)-th: ring_pair puts the chunk's two last
+    const int own = CP / 2 - 2 + wg;
+    float* mine = sm.swap[wg];
+    const float* theirs = sm.swap[1 - wg];
+    mbar_wait(&sm.res_full, 0);
+
+    // S^T (warpgroup 0) or dP^T (1) over the tile's pairs [h0, h1), each
+    // unit waited for before the batch (a wait between its wgmmas made
+    // ptxas serialise them: C7520)
+    const auto products = [&](float (&acc)[RT / 2], int u0, int h0, int h1) {
+      for (int j = 2 * h0; j < 2 * h1; ++j)
+        mbar_wait(&sm.full[(u0 + j) % RING], ((u0 + j) / RING) & 1);
       wgmma_fence();
-      product_c<W, TILE>(st, kres, sm.sc[s][0]);
-      if constexpr (!P2) product_c<W, TILE>(dpt, vres, sm.sd[s][0]);
+#pragma unroll
+      for (int h = h0; h < h1; ++h)
+        unit_product(acc, res + 2 * ring_pair(h, rot, CP) * PANEL,
+                     sm.ring[(u0 + 2 * h + wg) % RING], h == 0);
       wgmma_commit();
-      if (pass) turn_pass(wg);
       wgmma_wait<0>();
-      fence_regs(st);
-      if constexpr (!P2) fence_regs(dpt);
+      fence_regs(acc);
+    };
+    // units [u0 + j0, u0 + j1) released, one arrival a warp (its lanes'
+    // reads done)
+    const auto release = [&](int u0, int j0, int j1) {
+      __syncwarp();
+      if (lane == 0)
+        for (int j = j0; j < j1; ++j) mbar_arrive(&sm.empty[(u0 + j) % RING]);
+    };
 
-      // p^T into st, ds^T into dpt; at D = 2, dP^T and dv on the CUDA
-      // cores from the pairs
+    for (int it = 0; it < n_tiles; ++it) {
+      const int q0 = it * RT, u0 = it * CP;
+      // this thread's columns' lse and delta (8j + 2t + e), read before the
+      // products so that the loads overlap them
+      float lsev[RT / 4], delv[RT / 4];
+#pragma unroll
+      for (int i = 0; i < RT / 4; ++i) {
+        const int q = q0 + 8 * (i >> 1) + 2 * t + (i & 1);
+        const bool ok = q < Lq;
+        lsev[i] = ok ? __ldg(lse + (long long)b * Lq + q) : 0.f;
+        delv[i] = ok ? __ldg(delta + (long long)b * Lq + q) : 0.f;
+      }
+      // the pairs of the other chunk's columns, then, once their units
+      // are released and the loads that free their slots issued, the
+      // chunk's own
+      float acc[RT / 2];
+      products(acc, u0, 0, CP / 2 - 2);
+      release(u0, 0, CP - 4);
+      loads.refill(sm, u0 + RING, u0 + RING + CP - 4);
+      products(acc, u0, CP / 2 - 2, CP / 2);
+      // the swap (element-major, so a warp's stores and loads hit 32
+      // banks), and the other's stores done before the next tile's
+#pragma unroll
+      for (int i = 0; i < RT / 2; ++i) mine[i * 128 + tid] = acc[i];
+      swap_sync();
+      float st[RT / 2], dpt[RT / 2];
+#pragma unroll
+      for (int i = 0; i < RT / 2; ++i) {
+        const float other = theirs[i * 128 + tid];
+        st[i] = wg ? other : acc[i];
+        dpt[i] = wg ? acc[i] : other;
+      }
+      swap_sync();
+
+      // p^T into st, ds^T into dpt, each k16 step rounded into its
+      // fragments once final
       const uint32_t cregs =
-          masked ? col_regions(sw, last_y, last_x, q0, t) : 0u;
-      const float2* lse2 = reinterpret_cast<const float2*>(sm.lse[s]);
-      const float2* del2 = reinterpret_cast<const float2*>(sm.delta[s]);
-      const __nv_bfloat162* g2 =
-          reinterpret_cast<const __nv_bfloat162*>(sm.sd[s][0]);
-      uint32_t pa[16], da[16];
+          masked ? col_regions<RT / 8>(sw, last_y, last_x, q0, t) : 0u;
+      uint32_t pa[RT / 4], da[RT / 4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < RT / 8; ++j) {
         const int c = 8 * j + 2 * t;
-        const float2 l = lse2[c >> 1], dl = del2[c >> 1];
-        float2 gp[2];
-        if constexpr (P2) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            gp[e] = q0 + c + e < Lq ? __bfloat1622float2(g2[c + e])
-                                    : make_float2(0.f, 0.f);
-        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int ce = e & 1, r = e >> 1, i = 4 * j + e;
@@ -901,41 +1088,120 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
           float x = st[i] * scale;
           if (masked && other_region(cregs, j, e, kreg[r])) x = x - 100.f;
           if (!kok[r]) x = NEG_INF;
-          const float p = qok ? __expf(x - (ce ? l.y : l.x)) : 0.f;
-          float dp;
-          if constexpr (P2) {
-            dp = fmaf(gp[ce].x, v2[r].x, gp[ce].y * v2[r].y);
-            const float pb = __bfloat162float(__float2bfloat16(p));
-            dva[2 * r] = fmaf(pb, gp[ce].x, dva[2 * r]);
-            dva[2 * r + 1] = fmaf(pb, gp[ce].y, dva[2 * r + 1]);
-          } else {
-            dp = dpt[i];
-          }
+          const float p = qok ? __expf(x - lsev[2 * j + ce]) : 0.f;
           st[i] = p;
-          dpt[i] = qok ? p * (dp - (ce ? dl.y : dl.x)) : 0.f;
+          dpt[i] = qok ? p * (dpt[i] - delv[2 * j + ce]) : 0.f;
         }
-        if (j & 1) {  // a k16 step done: round it into its fragments
+        if (j & 1) {
           to_a_frag(dpt, da, j >> 1);
-          if constexpr (!P2) to_a_frag(st, pa, j >> 1);
+          to_a_frag(st, pa, j >> 1);
         }
       }
 
-      // dv += P^T G and dk += dS^T Q, P^T and dS^T rounded to bf16 in
-      // registers, G and Q the same ring tiles read MN-major, 128 columns
-      // a product
       wgmma_fence();
-      if constexpr (!P2) product_rs(dva, pa, sm.sd[s][c0 / 64]);
-#pragma unroll
-      for (int h = 0; h < DKH; ++h)
-        product_rs(dka[h], da, sm.sc[s][c0 / 64 + 2 * h]);
+      product_rs<RT>(dva, pa, sm.ring[(u0 + 2 * own + 1) % RING]);
+      product_rs<RT>(dka[0], da, sm.ring[(u0 + 2 * own) % RING]);
       wgmma_commit();
       wgmma_wait<0>();
-#pragma unroll
-      for (int h = 0; h < DKH; ++h) fence_regs(dka[h]);
-      if constexpr (!P2) fence_regs(dva);
+      fence_regs(dka[0]);
+      fence_regs(dva);
+      release(u0, CP - 4, CP);
+      loads.refill(sm, u0 + RING + CP - 4, u0 + RING + CP);
     }
-    mbar_arrive(&sm.empty[s]);
-    loads.refill(sm, it, n_tiles);
+  } else {
+    const int n_tiles = (Lq + TILE - 1) / TILE;
+    init_barriers(sm);
+    const Loads<RG, TILE, W / 64, P2, true> loads{
+        &tm_k, &tm_v, &tm_q, &tm_g, reinterpret_cast<const uint32_t*>(g),
+        lse, delta, b, k0, Lq};
+    loads.start(sm, n_tiles);
+    const bf16* kres = sm.rc[kg][0];
+    const bf16* vres = sm.rd[P2 ? 0 : kg][0];
+    mbar_wait(&sm.res_full, 0);
+    if (wg == 1) turn_pass(1);  // warpgroup 0 goes first
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES, q0 = it * TILE;
+      mbar_wait(&sm.full[s], (it / STAGES) & 1);
+      // S^T = K Q^T and dP^T = V G^T: 64 keys x 64 queries
+      const bool pass = wg == 0 || it + 1 < n_tiles;  // matched by a wait
+      turn_wait(wg);
+      if (idle) {
+        if (pass) turn_pass(wg);
+      } else {
+        float st[32], dpt[32];
+        wgmma_fence();
+        product_c<W, TILE>(st, kres, sm.sc[s][0]);
+        if constexpr (!P2) product_c<W, TILE>(dpt, vres, sm.sd[s][0]);
+        wgmma_commit();
+        if (pass) turn_pass(wg);
+        wgmma_wait<0>();
+        fence_regs(st);
+        if constexpr (!P2) fence_regs(dpt);
+
+        // p^T into st, ds^T into dpt; at D = 2, dP^T and dv on the CUDA
+        // cores from the pairs
+        const uint32_t cregs =
+            masked ? col_regions(sw, last_y, last_x, q0, t) : 0u;
+        const float2* lse2 = reinterpret_cast<const float2*>(sm.lse[s]);
+        const float2* del2 = reinterpret_cast<const float2*>(sm.delta[s]);
+        const __nv_bfloat162* g2 =
+            reinterpret_cast<const __nv_bfloat162*>(sm.sd[s][0]);
+        uint32_t pa[16], da[16];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float2 l = lse2[c >> 1], dl = del2[c >> 1];
+          float2 gp[2];
+          if constexpr (P2) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              gp[e] = q0 + c + e < Lq ? __bfloat1622float2(g2[c + e])
+                                      : make_float2(0.f, 0.f);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ce = e & 1, r = e >> 1, i = 4 * j + e;
+            const bool qok = q0 + c + ce < Lq;
+            float x = st[i] * scale;
+            if (masked && other_region(cregs, j, e, kreg[r])) x = x - 100.f;
+            if (!kok[r]) x = NEG_INF;
+            const float p = qok ? __expf(x - (ce ? l.y : l.x)) : 0.f;
+            float dp;
+            if constexpr (P2) {
+              dp = fmaf(gp[ce].x, v2[r].x, gp[ce].y * v2[r].y);
+              const float pb = __bfloat162float(__float2bfloat16(p));
+              dva[2 * r] = fmaf(pb, gp[ce].x, dva[2 * r]);
+              dva[2 * r + 1] = fmaf(pb, gp[ce].y, dva[2 * r + 1]);
+            } else {
+              dp = dpt[i];
+            }
+            st[i] = p;
+            dpt[i] = qok ? p * (dp - (ce ? dl.y : dl.x)) : 0.f;
+          }
+          if (j & 1) {  // a k16 step done: round it into its fragments
+            to_a_frag(dpt, da, j >> 1);
+            if constexpr (!P2) to_a_frag(st, pa, j >> 1);
+          }
+        }
+
+        // dv += P^T G and dk += dS^T Q, P^T and dS^T rounded to bf16 in
+        // registers, G and Q the same ring tiles read MN-major, 128
+        // columns a product
+        wgmma_fence();
+        if constexpr (!P2) product_rs(dva, pa, sm.sd[s][c0 / 64]);
+#pragma unroll
+        for (int h = 0; h < DKH; ++h)
+          product_rs(dka[h], da, sm.sc[s][c0 / 64 + 2 * h]);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int h = 0; h < DKH; ++h) fence_regs(dka[h]);
+        if constexpr (!P2) fence_regs(dva);
+      }
+      mbar_arrive(&sm.empty[s]);
+      loads.refill(sm, it, n_tiles);
+    }
   }
 
   if (!idle) {
@@ -959,7 +1225,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
               make_float2(dka[h][4 * j + 2 * r] * scale,
                           dka[h][4 * j + 2 * r + 1] * scale);
       if constexpr (P2) {
-        if (t == 0)
+        // at W = 512 both warpgroups hold the same keys' dv
+        if (t == 0 && (!K::SPLIT || wg == 0))
           *reinterpret_cast<float2*>(dv + row * 2) =
               make_float2(dva[2 * r], dva[2 * r + 1]);
       } else {
@@ -1117,20 +1384,24 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
 // The widths this route takes: GMFlow's (C = 128; D = 128, or 2 for the
 // matching grid and the propagated flow) and GMFlow at 256 channels' (C =
-// 256; D = 256 or 2), with B * L within TMA's int32 coordinates.
-static bool takes(int B, int Lq, int Lk, int C, int D) {
-  return (C == 128 || C == 256) && (D == C || D == 2) &&
+// 256; D = 256 or 2), and for dk/dv alone GMFlow at 512 channels' (C =
+// 512; D = 512 or 2: dq keeps the mma.sync route there), with B * L within
+// TMA's int32 coordinates. dk/dv's rule is the forward's
+// (flash.cu:sm90::takes, ops/flash.py:wgmma_widths; dq's
+// ops/flash_bwd.py:dq_wgmma_widths).
+static bool takes(bool dkv, int B, int Lq, int Lk, int C, int D) {
+  return (C == 128 || C == 256 || (dkv && C == 512)) && (D == C || D == 2) &&
          (long long)B * (Lq > Lk ? Lq : Lk) < (1ll << 31);
 }
 
 // The 3-D maps of q, k and, at D = W, of v and g ([B, L, W] bf16 in [1,
-// rows, 64] boxes: q and g 64 rows, k and v `krows`); at D = 2 the maps of
+// rows, 64] boxes: q and g `qrows`, k and v `krows`); at D = 2 the maps of
 // v and g are copies of k's and q's that the kernels do not read.
 static int tensor_maps(CUtensorMap (&m)[4], const void* q, const void* k,
                        const void* v, const void* g, int B, int Lq, int Lk,
-                       int W, int D, int krows) {
+                       int W, int D, int krows, int qrows = TILE) {
   int e;
-  if ((e = tensor_map_bf16_3d(&m[0], q, W, Lq, B, TILE))) return e;
+  if ((e = tensor_map_bf16_3d(&m[0], q, W, Lq, B, qrows))) return e;
   if ((e = tensor_map_bf16_3d(&m[1], k, W, Lk, B, krows))) return e;
   if (D == 2) {
     m[2] = m[1];
@@ -1138,7 +1409,7 @@ static int tensor_maps(CUtensorMap (&m)[4], const void* q, const void* k,
     return 0;
   }
   if ((e = tensor_map_bf16_3d(&m[2], v, W, Lk, B, krows))) return e;
-  return tensor_map_bf16_3d(&m[3], g, W, Lq, B, TILE);
+  return tensor_map_bf16_3d(&m[3], g, W, Lq, B, qrows);
 }
 
 template <bool P2, int W>
@@ -1146,17 +1417,20 @@ static int launch_dkv(const void* q, const void* k, const void* v,
                       const void* g, const void* lse, const void* delta,
                       void* dk, void* dv, int B, int Lq, int Lk, float scale,
                       Swin sw, cudaStream_t st) {
+  using K = Dkv<P2, W>;
   CUtensorMap m[4];
   int e;
-  if ((e = tensor_maps(m, q, k, v, g, B, Lq, Lk, W, P2 ? 2 : W, TILE)))
+  if ((e = tensor_maps(m, q, k, v, g, B, Lq, Lk, W, P2 ? 2 : W, TILE,
+                       K::CHUNKED ? RT : TILE)))
     return e;
-  const size_t smem = smem_bytes<typename Dkv<P2, W>::SM>();
+  const size_t smem = smem_bytes<typename K::SM>();
   if ((e = (int)cudaFuncSetAttribute(
            flash_bwd_dkv_wgmma<P2, W>,
            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return e;
-  const int rows = Dkv<P2, W>::RG * TILE;
-  const dim3 grid((unsigned)((Lk + rows - 1) / rows), (unsigned)B);
+  const int rows = K::RG * TILE;
+  const dim3 grid((unsigned)((Lk + rows - 1) / rows), (unsigned)B,
+                  (unsigned)K::CHUNKS);
   flash_bwd_dkv_wgmma<P2, W><<<grid, THREADS, smem, st>>>(
       m[0], m[1], m[2], m[3], (const bf16*)v, (const bf16*)g,
       (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, Lq, Lk,
@@ -1200,10 +1474,18 @@ static int launch_at(bool dkv, const void* q, const void* k, const void* v,
                                 scale, sw, st);
 }
 
+// The launch of a kernel the route takes (takes(dkv, ...)): at C = 512
+// only dk/dv's, whose dq has no instance.
 static int launch(bool dkv, const void* q, const void* k, const void* v,
                   const void* g, const void* lse, const void* delta,
                   void* out0, void* out1, int B, int Lq, int Lk, int C, int D,
                   float scale, Swin sw, cudaStream_t st) {
+  if (C == 512 && !dkv) return (int)cudaErrorInvalidValue;
+  if (C == 512)
+    return D == 2 ? launch_dkv<true, 512>(q, k, v, g, lse, delta, out0, out1,
+                                          B, Lq, Lk, scale, sw, st)
+                  : launch_dkv<false, 512>(q, k, v, g, lse, delta, out0,
+                                           out1, B, Lq, Lk, scale, sw, st);
   if (C == 256)
     return D == 2 ? launch_at<true, 256>(dkv, q, k, v, g, lse, delta, out0,
                                          out1, B, Lq, Lk, scale, sw, st)
@@ -1908,11 +2190,17 @@ struct Kernel {
 };
 
 template <bool P2, int W>
+static Kernel wgmma_dkv() {
+  using namespace sm90;
+  using K = Dkv<P2, W>;
+  return {(const void*)flash_bwd_dkv_wgmma<P2, W>, K::RG * TILE, THREADS,
+          (unsigned)K::CHUNKS, smem_bytes<typename K::SM>(), 0};
+}
+
+template <bool P2, int W>
 static Kernel wgmma_kernel(bool dkv) {
   using namespace sm90;
-  if (dkv)
-    return {(const void*)flash_bwd_dkv_wgmma<P2, W>, Dkv<P2, W>::RG * TILE,
-            THREADS, 1, smem_bytes<typename Dkv<P2, W>::SM>(), 0};
+  if (dkv) return wgmma_dkv<P2, W>();
   return {(const void*)flash_bwd_dq_wgmma<P2, W>, WG * TILE, THREADS, 1,
           smem_bytes<typename Dq<P2, W>::SM>(), 0};
 }
@@ -1929,7 +2217,9 @@ static Kernel kernel_of(int route, bool dkv, int C, int D) {
   const unsigned z =
       dkv && D != 2 && chunks(D) > chunks(C) ? chunks(D) : chunks(C);
   switch (route) {
-    case WGMMA:
+    case WGMMA:   // dk/dv's alone at C = 512 (route_takes)
+      if (C == 512)
+        return D == 2 ? wgmma_dkv<true, 512>() : wgmma_dkv<false, 512>();
       if (C == 256)
         return D == 2 ? wgmma_kernel<true, 256>(dkv)
                       : wgmma_kernel<false, 256>(dkv);
@@ -1955,14 +2245,15 @@ static Kernel kernel_of(int route, bool dkv, int C, int D) {
   }
 }
 
-// Whether `route` takes these operands (bf16 or f32) and widths.
+// Whether `route` takes these operands (bf16 or f32) and widths for dk/dv
+// (dkv) or dq.
 static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
-                        int D) {
+                        int D, bool dkv) {
   switch (route) {
     case F32: return !is_bf16;
     case TF32X3: return !is_bf16 && tf32x3::takes(B, Lq, Lk, C, D);
     case MMA_SYNC: return is_bf16;
-    case WGMMA: return is_bf16 && sm90::takes(B, Lq, Lk, C, D);
+    case WGMMA: return is_bf16 && sm90::takes(dkv, B, Lq, Lk, C, D);
     default: return false;
   }
 }
@@ -1972,9 +2263,9 @@ static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
 // f32. swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the
 // forward's. Takes C % 16 == 0 and D == 2 or D % 16 == 0, up to MAX_WIDTH
 // (ops/flash_bwd.py pads other widths), on the route the caller
-// names (enum Route; the tf32x3 route
-// C = 128 and D = 128 or 2, the wgmma route the same in bf16 and C = 256
-// with D = 256 or 2). splits > 1
+// names (enum Route; the tf32x3 route C = 128 and D = 128 or 2, the wgmma
+// route the same in bf16 and C = 256 with D = 256 or 2, and for dk/dv C =
+// 512 with D = 512 or 2: sm90::takes). splits > 1
 // (the tf32x3 route only) cuts the key sweep into that many runs of whole
 // tiles: dq is then a [splits, B, Lq, C] scratch of unscaled partial
 // sums, for ofd_flash_bwd_reduce. Returns cudaGetLastError() after the
@@ -1986,7 +2277,7 @@ extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int wh, int ww, int sh, int swd, int is_bf16,
                                 int route, int splits, void* stream) {
   if (!valid(B, Lq, Lk, C, D, swin_k) ||
-      !route_takes(route, is_bf16, B, Lq, Lk, C, D) ||
+      !route_takes(route, is_bf16, B, Lq, Lk, C, D, false) ||
       (splits != 1 && route != TF32X3))
     return (int)cudaErrorInvalidValue;
   Swin sw{swin_k, wh, ww, sh, swd};
@@ -2020,7 +2311,7 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int is_bf16, int route, int splits,
                                  void* stream) {
   if (!valid(B, Lq, Lk, C, D, swin_k) ||
-      !route_takes(route, is_bf16, B, Lq, Lk, C, D) ||
+      !route_takes(route, is_bf16, B, Lq, Lk, C, D, true) ||
       (splits != 1 && route != TF32X3))
     return (int)cudaErrorInvalidValue;
   Swin sw{swin_k, wh, ww, sh, swd};
@@ -2047,20 +2338,22 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // What ofd_flash_bwd_dq (dkv = 0) or ofd_flash_bwd_dkv (dkv = 1) launches
 // for these operands (padded widths) on the route of the wrapper's rule
 // (ops/flash_bwd.py:plan): bf16 at C = 128 and D = 128 or 2, or C = 256 and
-// D = 256 or 2, the wgmma route, other bf16 the mma.sync route; f32 at C =
-// 128 and D = 128 or 2 the tf32x3
-// route, other f32 the CUDA-core route. plan = {route (enum Route), output
-// rows a block, threads a block, blocks of one run (row blocks x B x
-// column chunks), column chunks, dynamic shared memory, static shared
-// memory (bytes), blocks resident per SM, registers a thread, local memory
-// a thread (bytes: spills and stack)}. Returns a cudaError_t (0 on
+// D = 256 or 2, and for dk/dv also at C = 512 and D = 512 or 2, the wgmma
+// route, other bf16 the mma.sync route; f32 at C = 128 and D = 128 or 2
+// the tf32x3 route, other f32 the CUDA-core route. plan = {route (enum
+// Route), output rows a block, threads a block, blocks of one run (row
+// blocks x B x column chunks), column chunks, dynamic shared memory,
+// static shared memory (bytes), blocks resident per SM, registers a
+// thread, local memory a thread (bytes: spills and stack)}. Returns a cudaError_t (0 on
 // success): a block the SM cannot hold fails here.
 extern "C" int ofd_flash_bwd_plan(int B, int Lq, int Lk, int C, int D,
                                   int is_bf16, int dkv, int* plan) {
   if (!valid(B, Lq, Lk, C, D, 0)) return (int)cudaErrorInvalidValue;
   const int route =
-      is_bf16 ? (route_takes(WGMMA, 1, B, Lq, Lk, C, D) ? WGMMA : MMA_SYNC)
-              : (tf32x3::takes(B, Lq, Lk, C, D) ? TF32X3 : F32);
+      is_bf16
+          ? (route_takes(WGMMA, 1, B, Lq, Lk, C, D, dkv != 0) ? WGMMA
+                                                              : MMA_SYNC)
+          : (tf32x3::takes(B, Lq, Lk, C, D) ? TF32X3 : F32);
   const Kernel kn = kernel_of(route, dkv != 0, C, D);
   cudaFuncAttributes attr;
   int per_sm = 0, e;

@@ -2,8 +2,8 @@
 // forward; flash_bwd.cu, the backward): the routes' codes, the analytic
 // Swin mask, the mma.sync helpers of the narrow-width routes, and, in
 // namespace sm90, the tile products, fragment conversions and warpgroup
-// turns of the wgmma routes (C = 128, and 256 in the backward; row tiles
-// of 128-byte-swizzled 64-column panels, as hopper.cuh's tensor maps lay
+// turns of the wgmma routes (C = 128, 256 and 512; row tiles of
+// 128-byte-swizzled 64-column panels, as hopper.cuh's tensor maps lay
 // them out).
 
 #pragma once

@@ -15,11 +15,11 @@ casts every operand to bf16; v is cast here, so an f32 flow payload is
 rounded exactly as the TPU kernel rounds it) or f32 (f32 models keep f32
 operands, as the JAX dense path on the CPU does; every sequence-parallel
 ring step is f32). The output is f32. The routes: bf16 at GMFlow's widths
-(C padded to 128, D = 128 or 2) and at GMFlow at 256 channels' (C padded
-to 256, D = 256 or 2) ``wgmma`` (:func:`wgmma_widths`, the backward's
-predicate too), other bf16 ``mma_sync``; f32 at GMFlow's widths
-``tf32x3``, whose products run on the tensor cores in split TF32 (three
-TF32 products for each f32 one, within f32's tolerance:
+(C padded to 128, D = 128 or 2) and at GMFlow at 256 and 512 channels' (C
+padded to 256 or 512, D = C or 2) ``wgmma`` (:func:`wgmma_widths`, the
+backward dk/dv kernel's predicate too), other bf16 ``mma_sync``; f32 at
+GMFlow's widths ``tf32x3``, whose products run on the tensor cores in
+split TF32 (three TF32 products for each f32 one, within f32's tolerance:
 :func:`flash_softmax_matmul_tf32` repeats their rounding) and whose key
 sweep is split where its blocks would fill less than one wave of the
 card (the runs' partials merged in a fixed order by a second launch);
@@ -38,8 +38,9 @@ any width up to :data:`MAX_WIDTH` (65,535 chunks of 128 columns on a grid
 axis); :func:`pad_widths` appends zero columns to q and k (the dot
 products do not change; ``scale`` stays ``1/sqrt(C)`` of the unpadded C)
 and to v, and the result is sliced back. Every width but the wgmma and
-tf32x3 routes' (every width past 256 among them) takes the mma.sync route
-(bf16) or the CUDA-core route (f32): S summed over C in panels of 128
+tf32x3 routes' (every width past 256 but C = 512 with D = 512 or 2 among
+them) takes the mma.sync route (bf16) or the CUDA-core route (f32): S
+summed over C in panels of 128
 columns, D in chunks of 128 columns on a grid axis, each block within 227
 KB of shared memory at any width (the C side's layout; :func:`kernel_plan`
 reports it). Past :data:`MAX_WIDTH` a CUDA call raises.
@@ -297,13 +298,15 @@ def gmflow_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
 
 
 def wgmma_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
-    """The widths the bf16 wgmma routes take, forward and backward: C
-    padded to 128 with D = 128 or 2 (GMFlow's), or C padded to 256 with D
-    = 256 or 2 (GMFlow at 256 channels), the rows of every batch entry
-    within int32 (``sm90::takes`` in ``csrc/flash.cu`` and
-    ``csrc/flash_bwd.cu``)."""
+    """The widths the bf16 wgmma routes of the forward and of the
+    backward's dk/dv kernel take: C padded to 128 with D = 128 or 2
+    (GMFlow's), or C padded to 256 or 512 with D = C or 2 (GMFlow at 256
+    and 512 channels), the rows of every batch entry within int32
+    (``sm90::takes`` in ``csrc/flash.cu`` and, for dk/dv, in
+    ``csrc/flash_bwd.cu``; the backward's dq kernel takes its own,
+    ``ops/flash_bwd.py:dq_wgmma_widths``)."""
     cp, dp = padded_widths(c, d)
-    return (cp, dp) in ((128, 2), (128, 128), (256, 2), (256, 256)) \
+    return cp in (128, 256, 512) and dp in (2, cp) \
         and b * max(lq, lk) < 2 ** 31
 
 
@@ -339,8 +342,10 @@ class FwdPlan(NamedTuple):
     query rows a block, keys a tile and shared memory (``sm90::choose``'s,
     mirrored by :func:`wgmma_warpgroups` and :func:`wgmma_smem`; blocks an
     SM, which ptxas's registers also bound, stay 0); the padded widths
-    (``c_pad``, ``d_pad``). The other routes' blocks are the C side's to
-    choose: :func:`kernel_plan` reports them, every route's."""
+    (``c_pad``, ``d_pad``); the wgmma route's output column chunks (a grid
+    axis: 2 at C = D = 512, whose blocks hold 256 columns each; 1
+    elsewhere). The other routes' blocks are the C side's to choose:
+    :func:`kernel_plan` reports them, every route's."""
     route: str
     rows: int = 0
     tile: int = 0
@@ -351,6 +356,7 @@ class FwdPlan(NamedTuple):
     scratch_ml: Optional[Tuple[int, ...]] = None
     c_pad: int = 0
     d_pad: int = 0
+    chunks: int = 1
 
 
 def tf32_blocks(d: int) -> Tuple[int, int, int]:
@@ -371,16 +377,23 @@ def tf32_smem(d: int) -> int:
 
 
 WGMMA_PANEL_BYTES = 64 * 64 * 2   # a [64 rows][64] bf16 panel
+WGMMA_OCOLS = 256   # output columns a forward wgmma block holds (a grid
+                    # axis of chunks past it: C = D = 512)
 
 
 def wgmma_smem(c: int, d: int, warpgroups: int) -> int:
     """Shared memory of a forward wgmma block (``sm90::fwd_smem_bytes``) at
-    padded widths C = c (128 or 256) and D = d (c or 2): each warpgroup's
-    64 queries resident in c / 64 panels, two ring stages of K's c / 64
-    panels and of V's (D = c) or its 64 bf16 pairs (D = 2), then the five
-    mbarriers, the struct rounded up to its 1 KB alignment, and 1 KB of
-    slack to align the base."""
+    padded widths C = c (128, 256 or 512) and D = d (c or 2): each
+    warpgroup's 64 queries resident in c / 64 panels, two ring stages of
+    K's c / 64 panels and of V's (D = c) or its 64 bf16 pairs (D = 2),
+    then the five mbarriers, the struct rounded up to its 1 KB alignment,
+    and 1 KB of slack to align the base. At C = D = 512 (a block holds
+    WGMMA_OCOLS columns of the output) one stage of K's c / 64 panels and
+    one of the chunk's 4 of V, and the five mbarriers."""
     cp = c // 64
+    if d != 2 and c > WGMMA_OCOLS:
+        panels = (warpgroups + 1) * cp + WGMMA_OCOLS // 64
+        return panels * WGMMA_PANEL_BYTES + 1024 + 1024
     v = 2 * (2 * 64 * 2 if d == 2 else cp * WGMMA_PANEL_BYTES)
     return ((warpgroups + 2) * cp * WGMMA_PANEL_BYTES
             + -(-(v + 5 * 8) // 1024) * 1024 + 1024)
@@ -390,11 +403,12 @@ def wgmma_warpgroups(b: int, lq: int, c: int, d: int, bias: bool = False,
                      sms: int = H100_SMS) -> int:
     """Warpgroups (64 queries each) of a forward wgmma block
     (``sm90::choose``) at padded widths C = c, D = d: one at D = 2; two
-    with a bias or at D = 256 (O's 128 registers a thread); at C = D = 128
-    three where such blocks fill every SM at least twice, else two."""
+    with a bias or at D = 256 or 512 (O's 128 registers a thread); at C = D
+    = 128 three where such blocks fill every SM at least twice, else
+    two."""
     if d == 2:
         return 1
-    if bias or c == 256:
+    if bias or c >= 256:
         return 2
     return 3 if b * -(-lq // 192) >= 2 * sms else 2
 
@@ -413,8 +427,9 @@ def plan(b: int, lq: int, lk: int, c: int, d: int,
         if not wgmma_widths(b, lq, lk, c, d):
             return FwdPlan("mma_sync", c_pad=cp, d_pad=dp)
         wgs = wgmma_warpgroups(b, lq, cp, dp, bias, sms)
+        chunks = dp // WGMMA_OCOLS if dp > WGMMA_OCOLS else 1
         return FwdPlan("wgmma", 64 * wgs, 64, wgmma_smem(cp, dp, wgs),
-                       c_pad=cp, d_pad=dp)
+                       c_pad=cp, d_pad=dp, chunks=chunks)
     if not gmflow_widths(b, lq, lk, c, d):
         return FwdPlan("f32", c_pad=cp, d_pad=dp)
     rows, tile, per_sm = tf32_blocks(dp)
@@ -614,11 +629,12 @@ def flash_softmax_matmul(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``flash_softmax_matmul.launches`` counts those calls, a split sweep's
     merge included), which takes bf16 or f32 q/k and any C and D from 1 to
     :data:`MAX_WIDTH` (padded to the kernels' widths; wider raises; past
-    256 on the mma.sync and CUDA-core routes). f32 at C = 128 and
-    D = 128 or 2 runs its products in split TF32 on the tensor cores
-    (within f32's tolerance; :func:`flash_softmax_matmul_tf32`), its key
-    sweep split at small batches; bf16 at C = 128 and 256 (with D = C or
-    2) runs on wgmma. Differentiable in q, k and v (not in
+    256 on the mma.sync and CUDA-core routes but bf16 at C = 512 with D =
+    512 or 2). f32 at C = 128 and D = 128 or 2 runs its products in split
+    TF32 on the tensor cores (within f32's tolerance;
+    :func:`flash_softmax_matmul_tf32`), its key sweep split at small
+    batches; bf16 at C = 128, 256 and 512 (with D = C or 2) runs on
+    wgmma. Differentiable in q, k and v (not in
     ``lse``); the gradients come back in their dtypes; the bias's is
     zeros."""
     _check_shapes(q, k, v, swin, bias)

@@ -14,10 +14,12 @@ CUDA tensors launch the two hand-written kernels of ``csrc/flash_bwd.cu``
 (dq: blocks over (batch, query rows) sweeping the key tiles; dk and dv:
 blocks over (batch, key rows) sweeping the query tiles; no atomics, so
 every gradient is bit-reproducible); CPU tensors take
-:func:`flash_backward_plain`. :func:`plan` picks the route from the dtype
-and widths: bf16 at C = 128 with D = 128 or 2 (GMFlow's widths) and at C =
-256 with D = 256 or 2 (GMFlow at 256 channels) the ``wgmma`` route (TMA, a
-ring of tiles, two warpgroups; :func:`wgmma_widths`); other bf16 widths
+:func:`flash_backward_plain`. :func:`plan` picks each kernel's route from
+the dtype and widths: bf16 at C = 128 with D = 128 or 2 (GMFlow's widths)
+and at C = 256 with D = 256 or 2 (GMFlow at 256 channels) the ``wgmma``
+route for both kernels (TMA, a ring of tiles, two warpgroups), and at C =
+512 with D = 512 or 2 (GMFlow at 512 channels) for dk/dv alone
+(:func:`wgmma_widths`; dq's :func:`dq_wgmma_widths`); other bf16 widths
 the ``mma.sync`` route; f32 at C = 128 with D = 128 or 2 (every
 sequence-parallel ring step, every f32 GMFlow call) the ``tf32x3`` route
 (split-TF32 ``mma.sync`` products, whose sweep it splits where the card
@@ -36,7 +38,7 @@ the mma.sync and CUDA-core kernels take every width (C, or C and D, split
 over a grid axis in 128-column chunks, S and dP recomputed by each
 chunk's blocks over panels of 128 columns of C and D; each block within
 227 KB of shared memory, as :func:`kernel_plan` reports).
-The forward takes its wgmma route at the same widths (one predicate,
+The forward takes its wgmma route at dk/dv's widths (one predicate,
 ``ops/flash.py:wgmma_widths``).
 
 With a dense ``bias`` the backward is JAX's ``_flash_vjp_bwd``: a dense
@@ -60,6 +62,13 @@ from .flash import (
     H100_SMS, ROUTES, SMEM_RESERVED, SMEM_SM, TF32_STRIDE, Swin, _pad_last,
     _sms, check_kernel_operands, gmflow_widths, matmul_tf32, padded_widths,
     split_count, swin_mask_dense, wgmma_widths)
+
+
+def dq_wgmma_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
+    """The widths the dq kernel's wgmma route takes: :func:`wgmma_widths`
+    up to C = 256 (``sm90::takes`` in ``csrc/flash_bwd.cu``). At C = 512
+    dq keeps the mma.sync route while the forward and dk/dv take wgmma."""
+    return wgmma_widths(b, lq, lk, c, d) and padded_widths(c, d)[0] <= 256
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -171,6 +180,25 @@ def flash_backward_with_bias(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
+def sum_term(width: int) -> float:
+    """The share of ``sum |a||b|`` by which a kernel's f32 sum of ``width``
+    bf16 products (a score over C, a ``dp`` over D) may differ from the
+    plain version's: ``2^-20 max(1, width / 256)``.
+
+    Derivation: every kernel takes such a sum k16 step after k16 step
+    (``wgmma`` or ``mma.sync``; over 64- or 128-column panels of C and D,
+    the panels in the order of C, so the panels do not change the order),
+    each step adding 16 exact bf16 products to the f32 accumulator with
+    one rounding, at most 2^-24 of the partial sum's size, which is at
+    most ``sum |a||b|``. ``width / 16`` steps so lie within ``width
+    2^-28 sum |a||b|`` of the exact sum. At C, D <= 256 (16 steps) that
+    is at most 2^-20, the term used since the first backward kernel,
+    which also covers the plain version's own f32 sums (the kernels met
+    it within 0.47 of the tolerance at every width ``chip_smoke.py``
+    tries); past 256 the step count's ``width 2^-28`` grows past it."""
+    return 2.0 ** -20 * max(1.0, width / 256)
+
+
 def bwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
                        scale: Optional[float] = None,
@@ -182,14 +210,12 @@ def bwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Both round the same ``p`` and ``ds`` to bf16 at the same places, but
     their f32 values differ in the last bits: the scores and ``dp`` are
-    summed in another order (at most ``2^-20`` of ``scale sum |q||k|`` and
-    of ``sum |g||v|``, derived for C, D <= 128; the kernels stay within
-    the allowance at the widths past 256 that ``chip_smoke.py`` [3k]
-    tries, C up to 2000 and D up to 600, and at GMFlow-512's training
-    shapes, 3220 keys) and ``exp`` and
-    ``s - lse`` differ by an ulp or two (``2^-18``), so ``p`` may differ
-    by ``p eps_s``, ``eps_s = 2^-20 (scale sum |q||k| + 4)``, and ``ds`` by
-    ``eps_s p |dp - delta| + p eps_dp``. That moves each term of a sum
+    summed in another order (:func:`sum_term` of C and of D: at most
+    ``2^-20 max(1, C / 256)`` of ``scale sum |q||k|`` and ``2^-20 max(1,
+    D / 256)`` of ``sum |g||v|``) and ``exp`` and ``s - lse`` differ by an
+    ulp or two (``2^-18``), so ``p`` may differ by ``p eps_s``, ``eps_s =
+    sum_term(C) scale sum |q||k| + 2^-18``, and ``ds`` by ``eps_s p |dp -
+    delta| + p eps_dp``, ``eps_dp = sum_term(D) sum |g||v|``. That moves each term of a sum
     by as much, and a value that then rounds to the neighbouring bf16
     number moves its term by at most 2^-7 of it. Allowed for each output
     row: the summed f32 differences of its terms, two bf16 steps of its
@@ -204,9 +230,10 @@ def bwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(_scores(qf, kf, scale, swin) - lse.float()[..., None])
     dp = torch.matmul(gf, vf.transpose(1, 2))
     ds = p * (dp - delta)
-    eps_s = 2.0 ** -20 * (torch.matmul(qf.abs(), kf.abs().transpose(1, 2))
-                          * scale + 4.0)
-    eps_dp = 2.0 ** -20 * torch.matmul(gf.abs(), vf.abs().transpose(1, 2))
+    eps_s = (sum_term(q.shape[2]) * scale
+             * torch.matmul(qf.abs(), kf.abs().transpose(1, 2)) + 2.0 ** -18)
+    eps_dp = sum_term(v.shape[2]) * torch.matmul(gf.abs(),
+                                                 vf.abs().transpose(1, 2))
     d_p = p * eps_s
     d_ds = d_p * (dp - delta).abs() + p * eps_dp
     qm, km, gm = (t.abs().amax(-1)[:, None, :] for t in (qf, kf, gf))
@@ -228,9 +255,11 @@ def bwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class BwdPlan(NamedTuple):
-    """How the two kernels run one call: the ``route`` (:func:`plan`'s
-    rule: bf16 ``wgmma`` at :func:`wgmma_widths`, else ``mma_sync``; f32
-    ``tf32x3`` at C = 128 with D = 128 or 2, else ``f32``); for the tf32x3
+    """How the two kernels run one call: each kernel's route
+    (``route_dq``, ``route_dkv``; :func:`plan`'s rule: bf16 ``wgmma`` at
+    :func:`dq_wgmma_widths` for dq and at :func:`wgmma_widths` for dk/dv,
+    else ``mma_sync``; f32 ``tf32x3`` at C = 128 with D = 128 or 2 for
+    both, else ``f32``); for the tf32x3
     route the output rows a block (``rows``), the other side's rows a
     ring tile (``tile``), each kernel's shared memory a block
     (``smem``: dq, dk/dv, bytes) and blocks an SM, the runs that each
@@ -241,7 +270,8 @@ class BwdPlan(NamedTuple):
     Lk, D]``; None where not); the padded widths (``c_pad``, ``d_pad``).
     The other routes' blocks are the C side's to choose:
     :func:`kernel_plan` reports them."""
-    route: str
+    route_dq: str
+    route_dkv: str
     rows: int = 0
     tile: int = 0
     smem: Tuple[int, int] = (0, 0)
@@ -276,19 +306,23 @@ def tf32_smem(d: int, dkv: bool) -> int:
 
 def plan(b: int, lq: int, lk: int, c: int, d: int,
          dtype: torch.dtype = torch.float32, sms: int = H100_SMS) -> BwdPlan:
-    """The route and its parameters for q ``[b, lq, c]``, k ``[b, lk, c]``,
-    v ``[b, lk, d]`` of ``dtype``, at the widths ``padded_widths`` gives
-    (past ``MAX_WIDTH`` raises); pure host arithmetic. bf16 at C = 128 with
-    D = 128 or 2 and at C = 256 with D = 256 or 2 (:func:`wgmma_widths`)
-    takes the wgmma route, other bf16 the mma.sync route; f32 at C = 128
-    with D = 128 or 2 the tf32x3 route, other f32 the CUDA-core route (the
-    widths within int32 rows, as the C side checks)."""
+    """Each kernel's route and its parameters for q ``[b, lq, c]``, k
+    ``[b, lk, c]``, v ``[b, lk, d]`` of ``dtype``, at the widths
+    ``padded_widths`` gives (past ``MAX_WIDTH`` raises); pure host
+    arithmetic. bf16 at C = 128 with D = 128 or 2 and at C = 256 with D =
+    256 or 2 takes the wgmma route for both kernels, at C = 512 with D =
+    512 or 2 for dk/dv while dq takes mma.sync (:func:`wgmma_widths`,
+    :func:`dq_wgmma_widths`), other bf16 the mma.sync route; f32 at C =
+    128 with D = 128 or 2 the tf32x3 route, other f32 the CUDA-core route
+    (the widths within int32 rows, as the C side checks)."""
     cp, dp = padded_widths(c, d)
     if dtype == torch.bfloat16:
-        return BwdPlan("wgmma" if wgmma_widths(b, lq, lk, c, d)
-                       else "mma_sync", c_pad=cp, d_pad=dp)
+        def route(wide):
+            return "wgmma" if wide(b, lq, lk, c, d) else "mma_sync"
+        return BwdPlan(route(dq_wgmma_widths), route(wgmma_widths),
+                       c_pad=cp, d_pad=dp)
     if not gmflow_widths(b, lq, lk, c, d):
-        return BwdPlan("f32", c_pad=cp, d_pad=dp)
+        return BwdPlan("f32", "f32", c_pad=cp, d_pad=dp)
     rows, tile, per_sm = tf32_blocks(dp)
     smem = (tf32_smem(dp, False), tf32_smem(dp, True))
     per_sm = min(per_sm, SMEM_SM // (max(smem) + SMEM_RESERVED))
@@ -296,7 +330,7 @@ def plan(b: int, lq: int, lk: int, c: int, d: int,
     s_dq = split_count(b * -(-lq // rows), -(-lk // tile), slots)
     s_dkv = split_count(b * -(-lk // rows), -(-lq // tile), slots)
     return BwdPlan(
-        "tf32x3", rows, tile, smem, per_sm, s_dq, s_dkv,
+        "tf32x3", "tf32x3", rows, tile, smem, per_sm, s_dq, s_dkv,
         (s_dq, b, lq, cp) if s_dq > 1 else None,
         (s_dkv, b, lk, cp) if s_dkv > 1 else None,
         (s_dkv, b, lk, dp) if s_dkv > 1 else None, cp, dp)
@@ -373,7 +407,7 @@ def launchers(q, k, v, out, lse, g, scale=None, swin=None,
     filling its outputs (a split sweep's partial sums reduced into them)
     on the current stream. ``route`` forces another route of the same
     dtype unsplit (to time it beside the planned one); by default
-    :func:`plan` picks it."""
+    :func:`plan` picks each kernel's."""
     check_kernel_operands(q, k, v, (q, k, v, out, lse, g),
                           "flash backward kernels")
     if scale is None:
@@ -387,7 +421,7 @@ def launchers(q, k, v, out, lse, g, scale=None, swin=None,
                          f"{tuple(lse.shape)}")
     p = plan(b, lq, lk, c, d, q.dtype, _sms(q.device.index))
     if route is not None:
-        p = BwdPlan(route, c_pad=p.c_pad, d_pad=p.d_pad)
+        p = BwdPlan(route, route, c_pad=p.c_pad, d_pad=p.d_pad)
     cp, dp = p.c_pad, p.d_pad
     delta = (g.float() * out.float()).sum(-1)
     qc, kc = (_pad_last(t, cp).contiguous() for t in (q, k))
@@ -404,7 +438,7 @@ def launchers(q, k, v, out, lse, g, scale=None, swin=None,
              for s in (p.scratch_dq, p.scratch_dk, p.scratch_dv)]
     sw = swin if swin is not None else (0, 0, 0, 0, 0)
     dims = (b, lq, lk, cp, dp, float(scale), *sw,
-            int(q.dtype == torch.bfloat16), ROUTES[p.route])
+            int(q.dtype == torch.bfloat16))
     fn_dq, fn_dkv, fn_reduce = _kernel_fns()
     # the launches hold the operands (delta and any copies live nowhere
     # else) for as long as they may be called
@@ -420,7 +454,7 @@ def launchers(q, k, v, out, lse, g, scale=None, swin=None,
     def launch_dq():
         part = parts[0] if parts[0] is not None else dq
         _check(fn_dq(*(t.data_ptr() for t in operands), part.data_ptr(),
-                     *dims, p.splits_dq, stream()), "dq")
+                     *dims, ROUTES[p.route_dq], p.splits_dq, stream()), "dq")
         if parts[0] is not None:
             reduce(part, dq, p.splits_dq, scale)
 
@@ -428,8 +462,8 @@ def launchers(q, k, v, out, lse, g, scale=None, swin=None,
         pk = parts[1] if parts[1] is not None else dk
         pv = parts[2] if parts[2] is not None else dv
         _check(fn_dkv(*(t.data_ptr() for t in operands), pk.data_ptr(),
-                      pv.data_ptr(), *dims, p.splits_dkv, stream()),
-               "dk/dv")
+                      pv.data_ptr(), *dims, ROUTES[p.route_dkv], p.splits_dkv,
+                      stream()), "dk/dv")
         if parts[1] is not None:
             reduce(pk, dk, p.splits_dkv, scale)
             reduce(pv, dv, p.splits_dkv, 1.0)

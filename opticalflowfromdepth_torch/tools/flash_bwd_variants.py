@@ -33,8 +33,8 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 # the two products of the dk/dv kernel that recompute S^T and dP^T
-PRODUCTS = ("      product_c<W, TILE>(st, kres, sm.sc[s][0]);\n",
-            "      if constexpr (!P2) product_c<W, TILE>(dpt, vres, "
+PRODUCTS = ("        product_c<W, TILE>(st, kres, sm.sc[s][0]);\n",
+            "        if constexpr (!P2) product_c<W, TILE>(dpt, vres, "
             "sm.sd[s][0]);\n")
 
 

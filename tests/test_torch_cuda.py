@@ -390,8 +390,9 @@ def test_flash_kernel_matches_plain(card, dtype, b, lq, lk, c, d, swin):
     (2, 100, 63, 64, 16, None),                   # mma.sync / f32 route
     (8, 130, 130, 256, 256, (2, 10, 13, 5, 6)),   # bf16 C = 256: wgmma
     (2, 129, 65, 256, 2, None),
-    (8, 130, 130, 512, 512, (2, 10, 13, 5, 6)),   # past 256: mma.sync / f32
-    (2, 129, 65, 1000, 600, None)])
+    (8, 130, 130, 512, 512, (2, 10, 13, 5, 6)),   # bf16 C = 512: wgmma
+    (2, 129, 65, 512, 2, None),                   # (f32: CUDA cores)
+    (2, 129, 65, 1000, 600, None)])               # mma.sync / f32
 def test_flash_kernel_bit_reproducible(card, dtype, b, lq, lk, c, d, swin):
     """Two launches on the same inputs give the same bits, out and LSE,
     split sweeps included (no atomics: the runs merged in a fixed
@@ -468,11 +469,21 @@ def test_flash_plan_matches_kernel_plan(card):
                 else:
                     assert k["splits"] == 1
                 if p.route == "wgmma":
-                    assert (k["rows"], k["tile"], k["smem"]) == \
-                        (p.rows, p.tile, p.smem), (b, lq, c, d, bias)
-                    assert k["blocks"] == b * -(-lq // p.rows)
+                    assert (k["rows"], k["tile"], k["smem"], k["chunks"]) \
+                        == (p.rows, p.tile, p.smem, p.chunks), \
+                        (b, lq, c, d, bias)
+                    assert k["blocks"] == b * -(-lq // p.rows) * p.chunks
                 if p.route in ("mma_sync", "f32"):
                     assert 0 < k["smem"] <= 232448 and k["per_sm"] >= 1
+            # the backward's kernels: each the route its plan names (at C =
+            # 512 dk/dv wgmma, dq mma.sync), within an SM
+            pb = fb.plan(b, lq, lk, c, d, dtype, sms)
+            kb = fb.kernel_plan(b, lq, lk, c, d, dtype == torch.bfloat16)
+            assert (kb["dq"]["route"], kb["dkv"]["route"]) == \
+                (pb.route_dq, pb.route_dkv), (b, lq, c, d, dtype)
+            for key in ("dq", "dkv"):
+                assert 0 < kb[key]["smem"] <= 232448 and kb[key]["per_sm"] >= 1
+                assert kb[key]["local"] == 0 or kb[key]["route"] != "wgmma"
 
 
 # bf16 at C = 256 with D = 256 or 2 (GMFlow at 256 channels) takes the
@@ -627,25 +638,31 @@ def test_flash_kernel_plans_at_every_width(card, dtype):
     plan leaves later launches able to run."""
     bf16 = dtype == torch.bfloat16
     widths = list(range(16, 257, 16)) + list(range(272, 1025, 48))
+    assert 512 in widths
     for cp in widths:
         for dp in [2] + widths:
-            route = fl.plan(4, 300, 300, cp, dp, dtype).route
-            route_b = fb.plan(4, 300, 300, cp, dp, dtype).route
+            p = fl.plan(4, 300, 300, cp, dp, dtype)
+            pb = fb.plan(4, 300, 300, cp, dp, dtype)
             for bias in (False, True):
                 k = fl.kernel_plan(4, 300, 300, cp, dp, bf16, bias)
-                assert k["route"] == route, (cp, dp, bias)
+                assert k["route"] == p.route, (cp, dp, bias)
                 assert 0 < k["smem"] <= 232448 and k["per_sm"] >= 1
-                assert k["chunks"] == (-(-dp // 128) if route in (
-                    "mma_sync", "f32") and dp != 2 else 1)
+                assert k["chunks"] == (-(-dp // 128) if p.route in (
+                    "mma_sync", "f32") and dp != 2 else p.chunks)
             kb = fb.kernel_plan(4, 300, 300, cp, dp, bf16)
             cc = -(-cp // 128)
-            for key, chunks in (("dq", cc), ("dkv", cc if dp == 2 else
-                                             max(cc, -(-dp // 128)))):
+            for key, route_b, chunks in (
+                    ("dq", pb.route_dq, cc),
+                    ("dkv", pb.route_dkv,
+                     cc if dp == 2 else max(cc, -(-dp // 128)))):
                 assert kb[key]["route"] == route_b, (cp, dp, key)
                 assert 0 < kb[key]["smem"] <= 232448, (cp, dp, key)
                 assert kb[key]["per_sm"] >= 1
+                # the wgmma route's dk/dv at C = D = 512: two 256-column
+                # chunks of dK and dV
+                wide = 2 if (cp, dp) == (512, 512) else 1
                 assert kb[key]["chunks"] == (chunks if route_b in (
-                    "mma_sync", "f32") else 1)
+                    "mma_sync", "f32") else wide)
     # a plan lowers no kernel's shared-memory limit: after the narrowest
     # width's plans, calls at a wider width (more shared memory, still
     # under the default 48 KB) launch
@@ -836,7 +853,9 @@ def test_flash_bwd_kernels_match_plain(card, dtype, b, lq, lk, c, d, swin):
     (2, 100, 63, 64, 16, None),                   # mma.sync / f32 route
     (8, 130, 130, 256, 256, (2, 10, 13, 5, 6)),   # bf16 C = 256: wgmma
     (2, 129, 65, 256, 2, None),
-    (2, 300, 300, 256, 2, None)])
+    (2, 300, 300, 256, 2, None),
+    (8, 130, 130, 512, 512, (2, 10, 13, 5, 6)),   # bf16 C = 512: dk/dv
+    (2, 129, 65, 512, 2, None)])                  # wgmma, dq mma.sync
 def test_flash_bwd_kernels_bit_reproducible(card, dtype, b, lq, lk, c, d,
                                             swin):
     """No atomics: two launches on the same inputs give the same bits,
@@ -866,8 +885,8 @@ def test_flash_bwd_tf32x3_split_sweep(card, monkeypatch, b, l, d, splits):
     v = torch.randn(b, l, d, generator=g_).to(card) * (30 if d == 2 else 1)
     gout = torch.randn(b, l, d, generator=g_).to(card)
     plan = fb.plan(b, l, l, 128, d, torch.float32)
-    assert (plan.route, plan.splits_dq, plan.splits_dkv) == \
-        ("tf32x3", splits, splits)
+    assert (plan.route_dq, plan.route_dkv, plan.splits_dq,
+            plan.splits_dkv) == ("tf32x3", "tf32x3", splits, splits)
     assert plan.scratch_dq == (splits, b, l, 128)
     out, lse = fl.flash_softmax_matmul(q, k, v, with_lse=True)
     ref = fb.flash_backward_plain(q, k, v, out, lse, gout)
@@ -906,7 +925,7 @@ def test_flash_bwd_plan_routes_on_card(card):
         for forced in (None, "f32"):
             grads, launch_dq, launch_dkv, plan = fb.launchers(
                 q, k, v, out, lse, gout, route=forced)
-            assert plan.route == (forced or route)
+            assert plan.route_dq == plan.route_dkv == (forced or route)
             junk = [torch.full_like(lse, float("nan")) for _ in range(4)]
             launch_dq()
             launch_dkv()
@@ -926,7 +945,7 @@ def test_flash_bwd_plan_routes_on_card(card):
         for forced in (None, "mma_sync"):
             grads, launch_dq, launch_dkv, plan = fb.launchers(
                 q, k, v, out, lse, gout, route=forced)
-            assert plan.route == (forced or "wgmma")
+            assert plan.route_dq == plan.route_dkv == (forced or "wgmma")
             launch_dq()
             launch_dkv()
             torch.cuda.synchronize()

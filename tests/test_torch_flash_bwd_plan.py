@@ -40,6 +40,14 @@ torch.set_num_threads(2)
     (torch.bfloat16, 192, 256, "mma_sync"),
     (torch.bfloat16, 240, 2, "mma_sync"),
     (torch.bfloat16, 256, 16, "mma_sync"),
+    # C = 512: dk/dv's wgmma route where the widths pad to C = 512 and D =
+    # 512 or 2 (GMFlow at 512 channels); dq's mma.sync
+    (torch.bfloat16, 512, 512, "wgmma"),
+    (torch.bfloat16, 512, 2, "wgmma"),
+    (torch.bfloat16, 511, 2, "wgmma"),          # pads to 512 x 2
+    (torch.bfloat16, 512, 256, "mma_sync"),
+    (torch.bfloat16, 384, 384, "mma_sync"),
+    (torch.float32, 512, 512, "f32"),
     (torch.float32, 256, 256, "f32"),
     (torch.float32, 256, 2, "f32"),
     (torch.float32, 128, 128, "tf32x3"),
@@ -48,8 +56,12 @@ torch.set_num_threads(2)
     (torch.float32, 128, 64, "f32"),
     (torch.float32, 32, 2, "f32")])
 def test_route_by_dtype_and_width(dtype, c, d, route):
+    """``route`` is dk/dv's; dq's is the same but at C = 512, where dq
+    keeps the mma.sync route."""
     p = tb.plan(2, 300, 300, c, d, dtype)
-    assert p.route == route
+    assert p.route_dkv == route
+    assert p.route_dq == ("mma_sync" if route == "wgmma" and p.c_pad == 512
+                          else route)
     assert route in tb.ROUTES
     if route != "tf32x3":       # only the tf32x3 route splits its sweeps
         assert (p.splits_dq, p.splits_dkv) == (1, 1)
@@ -77,7 +89,8 @@ SPLITS = [
 def test_split_count_and_scratch(shape, splits):
     b, lq, lk, d = shape
     p = tb.plan(b, lq, lk, 128, d, torch.float32)
-    assert (p.route, p.splits_dq, p.splits_dkv) == ("tf32x3", *splits)
+    assert (p.route_dq, p.route_dkv, p.splits_dq, p.splits_dkv) == (
+        "tf32x3", "tf32x3", *splits)
     rows, tile, _ = tb.tf32_blocks(d)
     assert (p.rows, p.tile) == (rows, tile)
     s_dq, s_dkv = splits

@@ -41,6 +41,16 @@ torch.set_num_threads(2)
     (torch.bfloat16, 241, 250, "wgmma"),        # pads to 256 x 256
     (torch.bfloat16, 256, 128, "mma_sync"),
     (torch.bfloat16, 192, 256, "mma_sync"),
+    # C = 512: the wgmma route where the widths pad to C = 512 and D = 512
+    # or 2 (GMFlow at 512 channels), forward and dk/dv; dq stays mma.sync
+    (torch.bfloat16, 512, 512, "wgmma"),
+    (torch.bfloat16, 512, 2, "wgmma"),
+    (torch.bfloat16, 500, 1, "wgmma"),          # pads to 512 x 2
+    (torch.bfloat16, 497, 510, "wgmma"),        # pads to 512 x 512
+    (torch.bfloat16, 512, 256, "mma_sync"),
+    (torch.bfloat16, 384, 384, "mma_sync"),
+    (torch.bfloat16, 1000, 2, "mma_sync"),
+    (torch.float32, 512, 512, "f32"),
     (torch.float32, 256, 256, "f32"),
     (torch.float32, 128, 128, "tf32x3"),
     (torch.float32, 128, 2, "tf32x3"),
@@ -48,9 +58,14 @@ torch.set_num_threads(2)
     (torch.float32, 128, 64, "f32"),
     (torch.float32, 32, 2, "f32")])
 def test_route_by_dtype_and_width(dtype, c, d, route):
-    """The forward names the backward's routes for the same operands."""
+    """The forward names the backward dk/dv kernel's route for the same
+    operands, and dq's but at C = 512 (there dq takes mma.sync)."""
     p = tf.plan(2, 300, 300, c, d, dtype)
-    assert p.route == route == tb.plan(2, 300, 300, c, d, dtype).route
+    pb = tb.plan(2, 300, 300, c, d, dtype)
+    assert p.route == route == pb.route_dkv
+    wide = route == "wgmma" and p.c_pad == 512
+    assert pb.route_dq == ("mma_sync" if wide else route)
+    assert p.chunks == (2 if wide and p.d_pad == 512 else 1)
     assert route in tf.ROUTES
     if route != "tf32x3":       # only the tf32x3 route splits its sweep
         assert p.splits == 1
@@ -150,39 +165,81 @@ def test_gmflow256_classes_take_wgmma_unsplit(name, shape):
     wgs = 2 if d == 256 else 1
     assert (p.rows, p.tile) == (64 * wgs, 64)
     assert p.smem == tf.wgmma_smem(256, d, wgs)
-    assert tb.plan(b, l, l, 256, d, torch.bfloat16).route == "wgmma"
+    pb = tb.plan(b, l, l, 256, d, torch.bfloat16)
+    assert pb.route_dq == pb.route_dkv == "wgmma"
     # the same with a dense bias: two warpgroups at D = 256 either way
     assert tf.plan(b, l, l, 256, d, torch.bfloat16, bias=True) == p
 
 
+# GMFlow at 512 channels' classes, as GMFLOW256_CLASSES (``chip_smoke.py``'s
+# FLASH512_SHAPES and FLASH512_TRAIN_SHAPES)
+GMFLOW512_CLASSES = [(name, (b, l, 512 if d == 256 else d))
+                     for name, (b, l, d) in GMFLOW256_CLASSES]
+
+
+@pytest.mark.parametrize("name,shape", GMFLOW512_CLASSES)
+def test_gmflow512_classes_take_wgmma_unsplit(name, shape):
+    """GMFlow at 512 channels' twelve classes of the two wgmma kernels
+    take that route, unsplit: the forward at all eight (two warpgroups of
+    64 queries a block and two 256-column chunks of the output at D = 512,
+    one warpgroup at D = 2; 64-key tiles; the blocks' shared memory
+    :func:`wgmma_smem`'s), dk/dv at the training four (and at the serving
+    ones, which no path differentiates); dq keeps the mma.sync route."""
+    b, l, d = shape
+    p = tf.plan(b, l, l, 512, d, torch.bfloat16)
+    assert (p.route, p.splits, p.c_pad, p.d_pad) == ("wgmma", 1, 512, d)
+    assert p.scratch_out is p.scratch_ml is None
+    wgs = 2 if d == 512 else 1
+    assert (p.rows, p.tile, p.chunks) == (64 * wgs, 64, 2 if d == 512 else 1)
+    assert p.smem == tf.wgmma_smem(512, d, wgs)
+    pb = tb.plan(b, l, l, 512, d, torch.bfloat16)
+    assert (pb.route_dq, pb.route_dkv) == ("mma_sync", "wgmma")
+    assert (pb.splits_dq, pb.splits_dkv) == (1, 1)
+    assert tf.plan(b, l, l, 512, d, torch.bfloat16, bias=True) == p
+
+
 def test_forward_and_backward_share_one_width_predicate():
-    """One predicate names the wgmma widths of both passes, and at every
-    C, D in 1..256 (steps of 5, and every padded edge) both passes name
-    the same bf16 route."""
+    """One predicate names the wgmma widths of the forward and of dk/dv,
+    and at every C, D in 1..256 (steps of 5, and every padded edge) and at
+    the edges of 512 both name the same bf16 route; dq's predicate is that
+    one but for C = 512, where dq takes mma.sync."""
     assert tb.wgmma_widths is tf.wgmma_widths
     widths = sorted(set(range(1, 257, 5)) | {2, 16, 17, 128, 129, 240, 241,
-                                              255, 256})
+                                              255, 256, 497, 512, 513})
     for c in widths:
         for d in widths:
             f = tf.plan(3, 200, 200, c, d, torch.bfloat16).route
-            assert f == tb.plan(3, 200, 200, c, d, torch.bfloat16).route
+            pb = tb.plan(3, 200, 200, c, d, torch.bfloat16)
+            assert f == pb.route_dkv
             assert (f == "wgmma") == tf.wgmma_widths(3, 200, 200, c, d)
+            assert (pb.route_dq == "wgmma") == tb.dq_wgmma_widths(
+                3, 200, 200, c, d)
+            assert pb.route_dq == (f if tf.padded_widths(c, d)[0] <= 256
+                                   else "mma_sync")
+    assert tf.wgmma_widths(3, 200, 200, 512, 512)
+    assert tf.wgmma_widths(3, 200, 200, 512, 2)
+    assert not tb.dq_wgmma_widths(3, 200, 200, 512, 512)
+    assert not tb.dq_wgmma_widths(3, 200, 200, 512, 2)
+    assert tb.dq_wgmma_widths(3, 200, 200, 256, 256)
     # rows past int32 in TMA's coordinates leave the route
     assert not tf.wgmma_widths(2 ** 16, 2 ** 15, 2 ** 15, 256, 256)
+    assert not tf.wgmma_widths(2 ** 16, 2 ** 15, 2 ** 15, 512, 512)
 
 
 @pytest.mark.parametrize("w,d", [(128, 128), (128, 2), (256, 256),
-                                 (256, 2)])
+                                 (256, 2), (512, 512), (512, 2)])
 @pytest.mark.parametrize("bias", [False, True])
 def test_wgmma_blocks_fit_an_sm(w, d, bias):
     """The forward's wgmma blocks (``sm90::FwdSmem``, mirrored by
     :func:`wgmma_smem`) at every (W, D, bias) instance: within a block's
     227 KB, and as many blocks an SM as the route counts on (one at D = W,
-    two at W = 256 with D = 2, four at W = 128 with D = 2). The byte
-    counts, from the layout: per warpgroup Q's W / 64 panels of 8 KB, two
-    ring stages of K's and of V's panels (V's 64 bf16 pairs at D = 2, 256
-    bytes a stage), the 40 bytes of mbarriers rounded with the pairs to 1
-    KB, 1 KB of slack."""
+    two at W = 256 with D = 2, four at W = 128 with D = 2, one at W = 512
+    with D = 2). The byte counts, from the layout: per warpgroup Q's W /
+    64 panels of 8 KB, two ring stages of K's and of V's panels (V's 64
+    bf16 pairs at D = 2, 256 bytes a stage), the 40 bytes of mbarriers
+    rounded with the pairs to 1 KB, 1 KB of slack; at W = D = 512 one
+    stage of K's 8 panels and of V's chunk's 4, the 40 bytes of mbarriers
+    rounded to 1 KB."""
     for b, l in ((8, 1792), (128, 805), (1, 7168), (16, 3220)):
         wgs = tf.wgmma_warpgroups(b, l, w, d, bias)
         smem = tf.wgmma_smem(w, d, wgs)
@@ -191,11 +248,17 @@ def test_wgmma_blocks_fit_an_sm(w, d, bias):
         per_sm = {(128, 2): 4, (256, 2): 2}.get((w, d), 1)
         assert per_sm * (smem + tf.SMEM_RESERVED) <= tf.SMEM_SM
         panels = w // 64 * 8192
+        if (w, d) == (512, 512):
+            assert wgs == 2
+            assert smem == (wgs + 1) * panels + 4 * 8192 + 1024 + 1024
+            continue
         ring_v = 2 * panels if d != 2 else 0
         assert smem == (wgs + 2) * panels + ring_v + 1024 + 1024
     assert tf.wgmma_smem(256, 256, 2) == 198656
     assert tf.wgmma_smem(256, 2, 1) == 100352
     assert tf.wgmma_smem(128, 128, 3) == 116736
+    assert tf.wgmma_smem(512, 512, 2) == 231424
+    assert tf.wgmma_smem(512, 2, 1) == 198656
 
 
 def test_split_count_and_tf32_products_are_shared_with_the_backward():

@@ -99,7 +99,7 @@ def test_widths_past_the_limit_raise(c, d):
                          (torch.float32, "f32")):
         f = tf.plan(1, 8, 8, c, d, dtype)
         b = tb.plan(1, 8, 8, c, d, dtype)
-        assert f.route == b.route == route
+        assert f.route == b.route_dq == b.route_dkv == route
         assert (f.c_pad, f.d_pad) == (b.c_pad, b.d_pad) == \
             tf.padded_widths(c, d)
     past = (tf.MAX_WIDTH + 1, d) if c > d else (c, tf.MAX_WIDTH + 1)
@@ -153,8 +153,9 @@ WIDTHS = sorted(set(range(1, 257)) | set(range(257, 1025, 29))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_plans_at_every_width(dtype):
     """Every C, D in 1..256, and past it to 1024 in steps: the forward's
-    route and the backward's (bf16 at widths that pad to C = 128 and D = 2
-    or 128, or to C = 256 and D = 2 or 256, the wgmma route, else
+    route and the backward kernels' (bf16 at widths that pad to C = 128
+    and D = 2 or 128, or to C = 256 and D = 2 or 256, the wgmma route for
+    all three, at C = 512 and D = 2 or 512 for the forward and dk/dv, else
     mma.sync; f32 at C = 128 and D = 2 or 128 tf32x3, else the CUDA
     cores) and the padded widths; the tf32x3 blocks (whose shared memory
     sets the split) and the forward's wgmma blocks within 227 KB (the
@@ -162,16 +163,19 @@ def test_plans_at_every_width(dtype):
     card)."""
     bf16 = dtype == torch.bfloat16
     for c in WIDTHS:
-        for d in (WIDTHS if c <= 256 else WIDTHS[::7] + [1024]):
+        for d in (WIDTHS if c <= 256 else WIDTHS[::7] + [1024, 2, 512]):
             cp, dp = tf.padded_widths(c, d)
             fast = cp == 128 and dp in (2, 128)
             wide = cp == 256 and dp in (2, 256)
+            widest = cp == 512 and dp in (2, 512)
             f = tf.plan(4, 300, 300, c, d, dtype)
             b = tb.plan(4, 300, 300, c, d, dtype)
-            want = (("wgmma" if fast or wide else "mma_sync") if bf16
-                    else ("tf32x3" if fast else "f32"))
+            want = (("wgmma" if fast or wide or widest else "mma_sync")
+                    if bf16 else ("tf32x3" if fast else "f32"))
             assert f.route == want, (c, d)
-            assert b.route == want, (c, d)
+            assert b.route_dkv == want, (c, d)
+            assert b.route_dq == ("mma_sync" if bf16 and widest else want), \
+                (c, d)
             assert (f.c_pad, f.d_pad, b.c_pad, b.d_pad) == (cp, dp, cp, dp)
             if want == "wgmma":
                 assert 0 < f.smem <= SMEM_BLOCK, (c, d)
