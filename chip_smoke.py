@@ -69,8 +69,8 @@ Run from the repository root on a host with one CUDA card. Phases:
    reduction leaving the last partial out), what hi-only TF32 products
    would give (for information), and two launches that must give the same
    bits, the C = 128, 256 and 512 bf16 wgmma routes' bits (the forward's
-   out and LSE, the backward's gradients; at 512 dq's mma.sync) against
-   recorded digests (``C128_DIGESTS``, ``C256_DIGESTS``,
+   out and LSE, the backward's gradients; at 512 dq's apart from dk's and
+   dv's) against recorded digests (``C128_DIGESTS``, ``C256_DIGESTS``,
    ``C512_DIGESTS``, by nvcc release), the autograd
    Function against a dense softmax, timed in bf16 and
    in f32 (the 14 + 14 launches of a training step each) against their
@@ -272,12 +272,14 @@ Run from the repository root on a host with one CUDA card. Phases:
    step (device busy ms; the flash forward's and backward's device ms,
    dq's and dk/dv's apart, the forward's wgmma and mma.sync kernels');
 3k. (after [22]) the flash kernels past 256: at C = 512 with D = 512 or
-   2 the forward's and dk/dv's wgmma routes (the forward's blocks of 128
-   queries with K a panel at a time beside the resident Q, the output in
-   two 256-column chunks on the grid at D = 512; dk/dv's blocks of 64
-   keys, the queries through a ring of 128-column units of 32-row tiles,
-   dK and dV in two 256-column chunks at D = 512) and dq's mma.sync
-   route; elsewhere the mma.sync route (bf16) and the CUDA-core route
+   2 the wgmma routes of the forward, dq and dk/dv (the forward's blocks
+   of 128 queries with K a panel at a time beside the resident Q, the
+   output in two 256-column chunks on the grid at D = 512; dk/dv's blocks
+   of 64 keys, the queries through a ring of 128-column units of 32-row
+   tiles, dK and dV in two 256-column chunks at D = 512; dq's blocks of
+   64 queries that both warpgroups share, 256 of dQ's columns each, the
+   keys through the ring of units of 32-row tiles at D = 512, in 64-row
+   tiles through a 2-stage ring at D = 2); elsewhere the mma.sync route (bf16) and the CUDA-core route
    (f32), whose blocks stage C in 128-column panels (Q's, or the
    backward's resident side's, rows whole where they fit a block) and
    take D (dq: C; dk/dv: C and D) in 128-column chunks on a grid axis: C
@@ -289,8 +291,8 @@ Run from the repository root on a host with one CUDA card. Phases:
    C and D; GMFlow at 512 channels' eight classes (forward) and four
    training classes (dq and dk/dv) at their own shapes with the routes
    each kernel plans, [3e]'s and [3f]'s planted faults and q's columns
-   past 256 zeroed; [3j]'s edges at C = 512; the bits of the routes C =
-   512 left as they were (mma.sync forced at a GMFlow-512 window class
+   past 256 zeroed (dq's too); [3j]'s edges at C = 512; the bits of the
+   routes C = 512 left as they were (mma.sync forced at a GMFlow-512 window class
    and a D = 2 class, mma.sync and the CUDA cores at C = 64) against
    ``NARROW_DIGESTS``; the Swin mask at C = D = 512 and C = 1000, D =
    600 with the planted faults, and in bf16 q's columns past 256 zeroed
@@ -308,8 +310,8 @@ Run from the repository root on a host with one CUDA card. Phases:
    ([9]'s 1-scale limits), 14 flash and 15 instance-norm launches;
 24. GMFlow at 512 channels serving, as [21], every flash forward on the
    wgmma route;
-25. GMFlow at 512 channels training, as [22], every flash forward and
-   dk/dv on the wgmma route, every dq on the mma.sync route;
+25. GMFlow at 512 channels training, as [22], every flash forward, dq and
+   dk/dv on the wgmma route;
 26. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
    [18]'s, [21]'s, [22]'s, [24]'s and [25]'s launches too; the flash row
    also carries the f32 route's times at an f32 pair, ``f32_ms`` and the
@@ -1686,11 +1688,12 @@ C128_DIGESTS = {"12.9": {"forward": ("f85cf99233e7b8b9", "014e7f5e48a0fbbe"),
 C256_DIGESTS = {"12.9": {"forward": ("de87da402f7afd75", "0b8c79e72fc87db3"),
                          "backward": ("595b973e9536bb9a",
                                       "1c4a235bba5009bb")}}
-# and the C = 512 routes' (the forward's and dk/dv's wgmma, dq's
-# mma.sync), recorded from their first tree that passed [3k]
+# and the C = 512 wgmma routes' (the backward's dq apart from its dk and
+# dv, each hashed alone), the forward's and dk/dv's recorded from their
+# first tree that passed [3k], dq's from its wgmma route's
 C512_DIGESTS = {"12.9": {"forward": ("61bf7aa445287928", "a360f64f4c5c0165"),
-                         "backward": ("900902847e1bbcbc",
-                                      "a38f181a3452f417")}}
+                         "dq": ("d36ef2bbbde35be6", "bb830783d315484e"),
+                         "dkv": ("49fca6077c9813eb", "e4f4ddd07d49f0fe")}}
 WGMMA_DIGESTS = {128: C128_DIGESTS, 256: C256_DIGESTS, 512: C512_DIGESTS}
 
 
@@ -1699,12 +1702,12 @@ def wgmma_digests(fl, fb, c: int = 128) -> dict:
     windows with a Swin region edge inside a tile [8,130,c]x[..,c], and
     ragged [2,129,c]x[2,65,2], from a generator of their own: "forward"
     hashes the forward kernel's out and LSE, "backward" the backward
-    kernels' dq, dk, dv from them."""
+    kernels' dq, dk, dv from them, "dq" dq alone and "dkv" dk and dv."""
     import hashlib
 
     import torch
     gen = torch.Generator().manual_seed(78)
-    digests = {"forward": [], "backward": []}
+    digests = {"forward": [], "backward": [], "dq": [], "dkv": []}
     for b, lq, lk, d, payload, swin in (
             (8, 130, 130, c, "normal", (2, 10, 13, 5, 6)),
             (2, 129, 65, 2, "flow", None)):
@@ -1714,10 +1717,9 @@ def wgmma_digests(fl, fb, c: int = 128) -> dict:
                                payload)
         g = torch.randn(b, lq, d, generator=gen).cuda()
         out, lse = fl.flash_softmax_matmul(q, k, v, swin=swin, with_lse=True)
-        for key, tensors in (
-                ("forward", (out, lse)),
-                ("backward", fb.flash_backward(q, k, v, out, lse, g,
-                                               swin=swin))):
+        grads = fb.flash_backward(q, k, v, out, lse, g, swin=swin)
+        for key, tensors in (("forward", (out, lse)), ("backward", grads),
+                             ("dq", grads[:1]), ("dkv", grads[1:])):
             h = hashlib.sha256()
             for t in tensors:
                 h.update(t.contiguous().cpu().numpy().tobytes())
@@ -1795,8 +1797,13 @@ def flash_bwd_phase(gen):
     release = nvcc_release()
     for c, recorded in WGMMA_DIGESTS.items():
         got, want = wgmma_digests(fl, fb, c), recorded.get(release)
+        keys = next(iter(recorded.values()))
         for key, what in (("forward", "forward's (out, LSE)"),
-                          ("backward", "backward's (dq, dk, dv)")):
+                          ("backward", "backward's (dq, dk, dv)"),
+                          ("dq", "backward's dq"),
+                          ("dkv", "backward's (dk, dv)")):
+            if key not in keys:
+                continue
             if want is None:
                 print(f"  the C = {c} bf16 {what} bits (sha256): {got[key]}, "
                       f"not compared: recorded with nvcc "
@@ -5420,13 +5427,13 @@ def flash_bias_width_phase(gen):
                 bias_library_ms=total["library_ms"], **c256), worst, wide
 
 
-# GMFlow at feature_channels = 256 ([20]-[22]; the wgmma routes) and 512
-# ([23]-[25]; the wgmma routes but dq's mma.sync): the phases' numbers,
+# GMFlow at feature_channels = 256 ([20]-[22]) and 512 ([23]-[25]), the
+# wgmma routes of every flash kernel at both: the phases' numbers,
 # the route each flash kernel of the bf16 paths takes, and the flash
 # kernels by name in their profiles
 WIDE_GMFLOW = {256: ((20, 21, 22), dict(forward="wgmma", dq="wgmma",
                                           dkv="wgmma")),
-               512: ((23, 24, 25), dict(forward="wgmma", dq="mma_sync",
+               512: ((23, 24, 25), dict(forward="wgmma", dq="wgmma",
                                         dkv="wgmma"))}
 FLASH_BWD_NAMED = [("the flash backward kernels (14 dq + 14 dk/dv)",
                     ("flash_bwd_",)),
@@ -5662,8 +5669,8 @@ def flash_wide_phase(gen):
     from opticalflowfromdepth_torch.ops import flash as fl
     from opticalflowfromdepth_torch.ops import flash_bwd as fb
 
-    print("[3k] flash past 256: the wgmma routes of the forward and dk/dv "
-          "at C = 512 (D = 512 or 2; dq mma.sync), the mma.sync (bf16) and "
+    print("[3k] flash past 256: the wgmma routes of the forward, dq and "
+          "dk/dv at C = 512 (D = 512 or 2), the mma.sync (bf16) and "
           "CUDA-core (f32) routes at the other widths past 256, forward and "
           "backward, CUDA kernels vs plain", flush=True)
     # every C x D of WIDE_C x WIDE_D and C = 2000 (Q's rows staged a panel
@@ -5712,8 +5719,8 @@ def flash_wide_phase(gen):
     check("every width past 256, forward and backward, |d| / tolerance",
           max(worst), 1.0)
     # GMFlow at 512 channels: its flash calls at the serving and the
-    # training shapes (C = 512, windows D = 512: the forward's and dk/dv's
-    # wgmma routes, dq's mma.sync route, as the plans name them), forward
+    # training shapes (C = 512, windows D = 512: the wgmma routes of the
+    # forward, dq and dk/dv, as the plans name them), forward
     # at every class and backward at the training classes, as [3j] holds
     # the 256 channels' (two launches bit-equal, [3e]'s and [3f]'s planted
     # faults, and q's columns past 256 zeroed: the long key sweeps, the
@@ -5730,9 +5737,9 @@ def flash_wide_phase(gen):
             pb = fb.plan(b, l, l, c, d, torch.bfloat16)
             got = (fl.plan(b, l, l, c, d, torch.bfloat16).route,
                    pb.route_dq, pb.route_dkv)
-            if got != ("wgmma", "mma_sync", "wgmma"):
+            if got != ("wgmma", "wgmma", "wgmma"):
                 fail(f"[3k] {case}: routes (forward, dq, dk/dv) {got}, want "
-                     f"wgmma, mma_sync, wgmma")
+                     f"wgmma for all three")
             err_fwd = max(err_fwd, flash_compare(
                 fl, case + plan_tag(fl, q, k, v), q, k, v, swin))
             g = None
@@ -5856,6 +5863,22 @@ def flash_wide_phase(gen):
           "route takes, bytes: " + ", ".join(
               f"{r} {'bf16' if b else 'f32'} {n}"
               for (r, b), n in sorted(largest.items())), flush=True)
+    # the wgmma blocks at C = 512 of all three kernels: one an SM, within
+    # 232,448 bytes, no local memory (dq's 64 queries both warpgroups
+    # share: the ring of units at D = 512, the 2-stage ring at D = 2)
+    for d in (512, 2):
+        plans = dict(forward=fl.kernel_plan(16, 3220, 3220, 512, d, True),
+                     **fb.kernel_plan(16, 3220, 3220, 512, d, True))
+        for key, p in plans.items():
+            if p["route"] != "wgmma" or p["per_sm"] != 1 \
+                    or not 0 < p["smem"] <= 232448 or p["local"]:
+                fail(f"[3k] C=512 D={d} {key}: plan {p}, want the wgmma "
+                     f"route, one block an SM within 232,448 bytes, no "
+                     f"local memory")
+        print(f"  the wgmma blocks at C = 512, D = {d}: " + "; ".join(
+            f"{key} {p['rows']} rows, {p['chunks']} chunk(s), {p['smem']} B "
+            f"shared, {p['regs']} registers, {p['local']} B local, "
+            f"{p['per_sm']} a SM" for key, p in plans.items()), flush=True)
     # GMFlow at 512 channels' flash calls, timed against their bounds, the
     # plain versions, SDPA (its backend named) and the mma.sync routes
     # forced on the same inputs (the routes C = 512 took before; the new

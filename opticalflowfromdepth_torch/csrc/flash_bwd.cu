@@ -19,8 +19,8 @@
 // the forward's analytic one (window id = batch index mod K^2, batches
 // ordered [b, wy, wx]), the regions computed per row and per column.
 //
-// What bounds it on this card: at GMFlow's widths (C = 128 or 256, D = C
-// or 2) the products, 2 * B * Lq * Lk * (4C + 3D) operations over both
+// What bounds it on this card: at GMFlow's widths (C = 128, 256 or 512, D
+// = C or 2) the products, 2 * B * Lq * Lk * (4C + 3D) operations over both
 // kernels (each recomputes S and dP; dq adds dS . K, dk/dv P^T . G and
 // dS^T . Q), over the tensor cores, and the B * Lq * Lk exponentials of
 // each pass over the special-function units; the bytes (q, k, v, g, lse,
@@ -28,10 +28,9 @@
 // the [Lq, Lk] tiles out of device memory, and four routes feed it (the
 // caller, ops/flash_bwd.py:plan, names the route):
 //
-// bf16 at C = 128 and D = 128 or 2 (every GMFlow call), at C = 256 and D =
-// 256 or 2 (GMFlow at 256 channels), and for dk/dv alone at C = 512 and D
-// = 512 or 2 (GMFlow at 512 channels): the wgmma route, namespace sm90, its
-// kernels templated on the width W = C. At C = 128: one block of two
+// bf16 at C = 128 and D = 128 or 2 (every GMFlow call), and at C = 256 or
+// 512 and D = C or 2 (GMFlow at 256 and 512 channels): the wgmma route,
+// namespace sm90, both kernels templated on the width W = C. At C = 128: one block of two
 // warpgroups (256 threads) per (batch entry, 128 rows of the output
 // side), 64 rows each. The resident side (K and V for dk/dv; Q and G for
 // dq) is loaded once by TMA; the other side
@@ -95,10 +94,9 @@
 //   256 columns of dK (two m64n128 accumulators), dv on the CUDA cores;
 //   135,168 bytes, 214 registers, no spills.
 //
-// At C = 512, dk/dv alone (dq keeps the mma.sync route; its wgmma kernel
-// has no instance there), in the same template (Dkv::CHUNKED and a ring
-// of its own, compile-time branches that leave C = 128 and 256 as they
-// were):
+// At C = 512, in the same templates (Dkv::CHUNKED, Dq::SHARED and
+// Dq::RINGED, and a ring of units of their own: compile-time branches that
+// leave C = 128 and 256 as they were):
 //   dk/dv at D = 512: the 64 keys' K and V resident take 128 KB, so a
 //   64-row query tile's Q and G (128 KB) do not fit beside them, nor two
 //   stages of 32-row tiles; and dK and dV of 512 columns would take 512
@@ -114,15 +112,50 @@
 //   of 8 KB (1.25 tiles, each slot on its own full and empty barriers; the
 //   other chunk's units released, and their slots refilled, once S^T and
 //   dP^T have read them), lse and delta read by each thread for its own
-//   columns; 231,424 bytes, 221 registers.
+//   columns; 231,424 bytes, 219 registers.
 //   dk/dv at D = 2: 64 keys that both warpgroups share, each holding 256
 //   columns of dK (two m64n128 accumulators), dv on the CUDA cores in both
 //   (warpgroup 0 writes it); queries in 64-row tiles through the 2-stage
 //   ring; 200,704 bytes, 214 registers; no spills at either D.
+//   dq: two groups of 64 queries with Q and G resident take 256 KB, and
+//   dQ's 512 columns 256 accumulator registers a thread, so a block takes
+//   64 queries that both warpgroups share (SHARED), warpgroup w holding
+//   dQ's columns [256 w, 256 w + 256) in two m64n128 accumulators; all 512
+//   columns in one block, so nothing is recomputed across blocks (the
+//   mma.sync route's four chunks each recompute S and dP).
+//   dq at D = 512 (RINGED): Q and G resident (128 KB); the keys stream in
+//   32-row tiles as 128-column units (dk/dv's units) through a ring of 12
+//   slots of 8 KB (1.5 tiles), V's four units then K's four; warpgroup 0
+//   computes S = Q K^T over C, warpgroup 1 dP = G V^T over D (m64n32k16,
+//   each in two batches, the first running while the second's units land),
+//   so the block computes each product once (1.0x the useful products,
+//   against the mma.sync route's 3.0x). Warpgroup w then forms p and ds
+//   for the tile's keys [16 w, 16 w + 16) (one k16 step: each exponential
+//   once) from its accumulator's half and the other's, and the two swap
+//   those steps' bf16 fragments, all through two of the tile's V slots
+//   once dP has read them (no swap buffer, so the ring has 12 slots where
+//   dk/dv's has 10); each takes dQ += dS K over K's two units of its
+//   columns (MN-major), faster at the windows than each warpgroup taking
+//   the f32 accumulators whole and all of p and ds (PERF.md). The
+//   next tile's V units are in flight a tile ahead; its K units go into
+//   this tile's V slots as dP and the swap free them; each K unit is held
+//   until S has read it and the dQ product that reads it is done, its slot
+//   then taking a V unit of the tile after next, issued by the first lane
+//   of the warpgroup that released it last; 231,424 bytes, 201 registers.
+//   dq at D = 2 (KEYS): Q resident (64 KB), the keys in 64-row tiles
+//   through the 2-stage ring (K's eight panels and V's pairs); warpgroup w
+//   takes the tile's keys [32 w, 32 w + 32): S over C (m64n32k16), dP on
+//   the CUDA cores from g's pairs, p and ds, so each product and each
+//   exponential is taken once; the two swap the bf16 A fragments of their
+//   halves of dS (8 KB a tile, double-buffered by tile parity: one barrier
+//   a tile), and each takes dQ += dS K over all 64 keys in key order.
+//   20% faster than each warpgroup computing S whole over all 64 keys
+//   (1.5x the products, twice the exponentials; PERF.md); 217,088 bytes,
+//   191 registers; no spills at either D.
 //
 // Other bf16 widths (C % 16 == 0; D = 2 or D % 16 == 0; any width up to
-// MAX_WIDTH, GMFlow at 512 channels' C = 512 with D = 512 or 2 among them;
-// ops/flash_bwd.py pads other widths with zero columns): the mma.sync
+// MAX_WIDTH; ops/flash_bwd.py pads other widths with zero columns): the
+// mma.sync
 // route, mma.sync m16n8k16 with 4 warps a block, each owning 16 rows of
 // the output; staging by 16-byte cp.async, each stage waited for before a
 // barrier (no ring), shared rows padded by 8 bf16. A block takes 128
@@ -132,10 +165,10 @@
 // 128 columns, k-step after k-step in their order at any width. The
 // resident side's rows stay in shared memory whole where they fit a block
 // (C = D = 512: dq 185,344 bytes, dk/dv 167,936), else a panel at a time
-// beside the other side's, so a block fits 227 KB at any width. GMFlow at
-// 512 channels' dq calls take it (its dk/dv calls and every call at 256
-// channels the wgmma route; launchers(route="mma_sync") still forces it
-// there, to time it beside that route).
+// beside the other side's, so a block fits 227 KB at any width. No GMFlow
+// call takes it (at 128, 256 and 512 channels the wgmma route);
+// launchers(route="mma_sync") still forces it there, to time it beside
+// that route.
 //   dq: Q and G rows resident (or a panel a time); per 64-key tile K and V
 //   a panel at a time, and past C = 128 the tile's 128 chunk columns of K;
 //   S = Q K^T and dP = G V^T, then p and ds per element in registers; ds
@@ -710,10 +743,78 @@ struct Smem {
   uint64_t res_full, full[STAGES], empty[STAGES];
 };
 
-// The kernels' layouts at width W = C (128, 256, and 512 for dk/dv). dq:
-// two warpgroups' 64 queries resident, the keys streamed in tiles of KT;
-// at W = 256, D = 256 tiles of 32 (64-row tiles would put the block past
-// 227 KB). dk/dv: the queries streamed in tiles of 64; the resident keys
+constexpr int RT = 32;     // rows a tile of the ring of units (W = D = 512)
+constexpr int RING = 10;   // its slots, each two [RT][64] panels (dk/dv)
+constexpr int DQ_RING = 12;  // dq's: no swap buffer beside them
+
+// The ring of units at W = D = 512 (dk/dv's CHUNKED, dq's RINGED): the
+// block's 64 resident rows of both C-wide and D-wide operands (K and V for
+// dk/dv, Q and G for dq: CP panels each, 128 KB), so a 64-row tile of the
+// other side (128 KB more) does not fit beside them, nor two stages of
+// 32-row tiles. The other side comes in tiles of RT = 32 rows as units of
+// 128 columns (two [RT][64] TMA boxes, 8 KB) through a ring of slots, each
+// with its full barrier (the TMA bytes) and its empty one (a warp's lane 0
+// each). dk/dv (RingSmem): RING slots, 1.25 tiles; a tile's CP units in
+// the order Q's columns [0, 128), G's [0, 128), Q's [128, 256), ...,
+// rotated so that the block's chunk's columns come last (ring_pair); the
+// units of the other chunk's columns are released once S^T and dP^T have
+// read them, so the loads of most of the next tile are in flight while a
+// tile's dK and dV are computed; `swap`: each warpgroup's f32 accumulator
+// of S^T or dP^T (64 x RT), to the other. dq (DqRingSmem): DQ_RING slots,
+// 1.5 tiles; V's CP / 2 units, then K's (RingLoads); V's are released once
+// dP and the swap have read them, each of K's once the dQ product that
+// reads it is done. A slot's two panels lie RT * 128 bytes apart, as
+// product_rs<RT> reads them.
+template <int CP>
+struct RingSmem {
+  static constexpr int N = RING;
+  alignas(1024) bf16 rc[1][CP][PANEL];
+  alignas(1024) bf16 rd[1][CP][PANEL];
+  alignas(1024) bf16 ring[N][2 * RT * 64];
+  float swap[2][RT / 2 * 128];
+  uint64_t res_full, full[N], empty[N];
+};
+
+// dq's ring (RINGED): DQ_RING slots and no swap buffer; the accumulators
+// swap through two slots of the tile's V units once dP has read them.
+template <int CP>
+struct DqRingSmem {
+  static constexpr int N = DQ_RING;
+  alignas(1024) bf16 rc[1][CP][PANEL];
+  alignas(1024) bf16 rd[1][CP][PANEL];
+  alignas(1024) bf16 ring[N][2 * RT * 64];
+  uint64_t res_full, full[N], empty[N];
+};
+
+// Both warpgroups at a point of the swap (named barrier 3, 256 threads).
+__device__ __forceinline__ void swap_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+// A one-way hand-off between the warpgroups (named barrier 4, 256
+// threads): the writer arrives once its stores are made, the reader waits.
+__device__ __forceinline__ void handoff_arrive() {
+  asm volatile("bar.arrive 4, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void handoff_wait() {
+  asm volatile("bar.sync 4, 256;\n" ::: "memory");
+}
+
+// The kernels' layouts at width W = C (128, 256 and 512). dq: two
+// warpgroups' 64 queries resident, each with all W columns of dQ, the keys
+// streamed in tiles of KT; at W = 256, D = 256 tiles of 32 (64-row tiles
+// would put the block past 227 KB). SHARED (W = 512): one group of 64
+// queries that both warpgroups share, warpgroup w holding dQ's columns
+// [256 w, 256 w + 256) in H = 2 accumulators of 64 x 128 (two groups' Q
+// and G would take 256 KB, and all 512 columns of dQ 256 registers a
+// thread); KEYS (D = 2): the keys in 64-row tiles through the 2-stage
+// ring, each warpgroup taking S, p and ds for half of a tile's keys, the
+// halves of dS swapped as bf16 fragments (KeysSmem); RINGED (D = 512): the
+// keys stream through DqRingSmem's ring in tiles of RT, warpgroup 0 takes
+// S and warpgroup 1 dP, swapped through shared memory. Either way the
+// block computes each product once. dk/dv: the queries streamed in tiles
+// of 64; the resident keys
 // two groups of 64, one a warpgroup with all W columns of dK and dV,
 // except (SPLIT) at W = 256, D = 256 and at W = 512: one group of 64 keys
 // that both warpgroups share, warpgroup w holding DKH 64 x 128
@@ -724,41 +825,27 @@ struct Smem {
 // (warpgroup w's 128 from 256 z + 128 w), the queries stream through
 // RingSmem's ring in tiles of RT, and warpgroup 0 takes S^T, warpgroup 1
 // dP^T, swapped through shared memory.
+// dq at W = 512, D = 2 (KEYS): the 2-stage ring's Smem and, by tile
+// parity, each warpgroup's bf16 A fragments of dS for its half of the
+// tile's keys, for the other's dQ product.
+template <int ST, int CP>
+struct KeysSmem : Smem<1, ST, CP, true> {
+  uint32_t xchg[2][WG][ST / 8 * 128];
+};
+
 template <bool P2, int W>
 struct Dq {
-  static constexpr int KT = W == 256 && !P2 ? 32 : 64;
-  using SM = Smem<2, KT, W / 64, P2>;
+  static constexpr bool SHARED = W == 512;
+  static constexpr bool RINGED = SHARED && !P2;
+  static constexpr bool KEYS = SHARED && P2;
+  static constexpr int RG = SHARED ? 1 : 2;         // groups of 64 queries
+  static constexpr int H = SHARED ? 2 : W / 128;    // dQ's 64 x 128 parts held
+  static constexpr int KT = RINGED ? RT : (W == 256 && !P2 ? 32 : 64);
+  using SM = typename std::conditional<
+      RINGED, DqRingSmem<W / 64>,
+      typename std::conditional<KEYS, KeysSmem<KT, W / 64>,
+                                Smem<RG, KT, W / 64, P2>>::type>::type;
 };
-
-constexpr int RT = 32;     // queries a tile of the dk/dv ring (CHUNKED)
-constexpr int RING = 10;   // its slots, each two [RT][64] panels
-
-// dk/dv at W = D = 512 (CHUNKED): K and V of the block's 64 keys resident
-// (CP panels each, 128 KB), so a 64-row query tile's Q and G (128 KB more)
-// do not fit beside them, nor two stages of 32-row tiles. The queries come
-// in tiles of RT = 32 as units of 128 columns (two [RT][64] TMA boxes, 8
-// KB), a tile's CP units in the order Q's columns [0, 128), G's [0, 128),
-// Q's [128, 256), ..., rotated so that the block's chunk's columns come
-// last (ring_pair), through a ring of RING slots, each with its full
-// barrier (the TMA bytes) and its empty one (a warp's lane 0 each): 1.25
-// tiles; the units of the other chunk's columns are released once S^T
-// and dP^T have read them, so the loads of most of the next tile are in
-// flight while a tile's dK and dV are computed. A slot's two panels lie
-// RT * 128 bytes apart, as product_rs<RT> reads them. `swap`: each
-// warpgroup's f32 S^T or dP^T accumulator (64 x RT), to the other.
-template <int CP>
-struct RingSmem {
-  alignas(1024) bf16 rc[1][CP][PANEL];
-  alignas(1024) bf16 rd[1][CP][PANEL];
-  alignas(1024) bf16 ring[RING][2 * RT * 64];
-  float swap[2][RT / 2 * 128];
-  uint64_t res_full, full[RING], empty[RING];
-};
-
-// Both warpgroups at a point of the swap (named barrier 3, 256 threads).
-__device__ __forceinline__ void swap_sync() {
-  asm volatile("bar.sync 3, 256;\n" ::: "memory");
-}
 
 template <bool P2, int W>
 struct Dkv {
@@ -790,6 +877,22 @@ __device__ __forceinline__ void init_barriers(SM& sm) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&sm.full[s], 32);         // every loading lane arrives
       mbar_init(&sm.empty[s], THREADS);   // every thread arrives
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// The barriers of a ring (RingSmem, DqRingSmem): the resident rows' and
+// each slot's full (the loading lane arrives) and empty (every warp's lane
+// 0) barriers.
+template <class SM>
+__device__ __forceinline__ void init_ring(SM& sm) {
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.res_full, 1);
+    for (int s = 0; s < SM::N; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], THREADS / 32);
     }
     mbar_fence_init();
   }
@@ -873,21 +976,38 @@ __device__ __forceinline__ int ring_pair(int h, int rot, int cp) {
   return (h + rot) % (cp / 2);
 }
 
-// The loads of a CHUNKED dk/dv block. Thread 0 issues K's and V's TMA
-// loads once; the loading warp's lane 0 issues the ring's units: the first
-// RING before the sweep, and as a tile's units are released (every warp's
-// lane 0 arrives on each one's empty barrier; the first half after S^T and
-// dP^T, the rest at the tile's end) the units that their slots free.
-template <int CP>
+// The loads of a block on the ring (dk/dv's CHUNKED, dq's RINGED, DQ).
+// Thread 0 issues the resident rows' TMA loads once (K and V for dk/dv, Q
+// and G for dq); the loading warp's lane 0 issues the ring's first N (its
+// slots) units before the sweep. Later units are issued as the units N before
+// them are released (every warp's lane 0 arrives on each one's empty
+// barrier): dk/dv's by the loading lane, the first half after S^T and
+// dP^T, the rest at the tile's end; dq's by the lane that sees their slot
+// freed (unit).
+template <int CP, bool DQ = false>
 struct RingLoads {
-  using SM = RingSmem<CP>;
-  const CUtensorMap *k, *v, *q, *g;
-  int b, r0, n_units, rot;  // rot: the pairs' rotation (ring_pair)
+  using SM = typename std::conditional<DQ, DqRingSmem<CP>,
+                                       RingSmem<CP>>::type;
+  static constexpr int N = SM::N;
+  const CUtensorMap *ra, *rb, *sa, *sb;  // resident, then streamed, maps
+  int b, r0, n_units, rot;  // rot: dk/dv's pairs' rotation (ring_pair)
 
+  // unit u (after the unit N before it is released, if any): a tile's
+  // j-th unit is dk/dv's pair ring_pair(j / 2) of Q (even j) or G (odd j);
+  // dq's V's columns [128 j, 128 j + 128) for j < CP / 2, then K's
   __device__ __forceinline__ void unit(SM& sm, int u) const {
-    const int slot = u % RING, it = u / CP, j = u % CP;
-    const CUtensorMap* map = (j & 1) ? g : q;
-    const int c0 = ring_pair(j >> 1, rot, CP) * 128;
+    if (u >= n_units) return;
+    const int slot = u % N, it = u / CP, j = u % CP;
+    if (u >= N) mbar_wait(&sm.empty[slot], ((u - N) / N) & 1);
+    const CUtensorMap* map;
+    int c0;
+    if constexpr (DQ) {
+      map = j < CP / 2 ? sb : sa;
+      c0 = (j % (CP / 2)) * 128;
+    } else {
+      map = (j & 1) ? sb : sa;
+      c0 = ring_pair(j >> 1, rot, CP) * 128;
+    }
     mbar_expect_tx(&sm.full[slot], 2 * RT * 128);
 #pragma unroll
     for (int p = 0; p < 2; ++p)
@@ -899,21 +1019,18 @@ struct RingLoads {
     if (threadIdx.x == 0) {
       mbar_expect_tx(&sm.res_full, 2 * CP * PANEL_BYTES);
       for (int p = 0; p < CP; ++p) {
-        tma_load_3d(sm.rc[0][p], k, &sm.res_full, p * 64, r0, b);
-        tma_load_3d(sm.rd[0][p], v, &sm.res_full, p * 64, r0, b);
+        tma_load_3d(sm.rc[0][p], ra, &sm.res_full, p * 64, r0, b);
+        tma_load_3d(sm.rd[0][p], rb, &sm.res_full, p * 64, r0, b);
       }
     }
     if (threadIdx.x == LOADER * 32)
-      for (int u = 0; u < RING && u < n_units; ++u) unit(sm, u);
+      for (int u = 0; u < N; ++u) unit(sm, u);
   }
 
-  // units [from, to) once the ones RING before them are released
+  // units [from, to), by the loading lane
   __device__ __forceinline__ void refill(SM& sm, int from, int to) const {
     if (threadIdx.x == LOADER * 32)
-      for (int u = from; u < to && u < n_units; ++u) {
-        mbar_wait(&sm.empty[u % RING], ((u - RING) / RING) & 1);
-        unit(sm, u);
-      }
+      for (int u = from; u < to; ++u) unit(sm, u);
   }
 };
 
@@ -995,15 +1112,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     // idle: both hold the block's 64 keys.
     constexpr int CP = W / 64;
     const int n_tiles = (Lq + RT - 1) / RT;
-    if (threadIdx.x == 0) {
-      mbar_init(&sm.res_full, 1);
-      for (int s = 0; s < RING; ++s) {
-        mbar_init(&sm.full[s], 1);               // the loading lane arrives
-        mbar_init(&sm.empty[s], THREADS / 32);   // every warp's lane 0
-      }
-      mbar_fence_init();
-    }
-    __syncthreads();
+    init_ring(sm);
     const int rot = 2 * blockIdx.z + 2;
     const RingLoads<CP> loads{&tm_k, &tm_v, &tm_q, &tm_g, b, k0,
                               n_tiles * CP, rot};
@@ -1241,9 +1350,11 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
 // dq: one block per (batch entry, 128 queries), 64 queries per warpgroup,
 // each holding its rows' W columns of dQ (W / 128 accumulators of 64 x
-// 128); the key side streams in tiles of KT. tm_q and tm_g are 3-D maps of
-// [B, L, W] in [1, 64, 64] boxes, tm_k and tm_v in [1, KT, 64] boxes; each
-// thread reads lse, delta and (at D = 2) g's pair for its two rows itself.
+// 128); SHARED (W = 512): per 64 queries that both warpgroups share, each
+// holding 256 of dQ's columns. The key side streams in tiles of KT. tm_q
+// and tm_g are 3-D maps of [B, L, W] in [1, 64, 64] boxes, tm_k and tm_v
+// in [1, KT, 64] boxes; each thread reads lse, delta and (at D = 2) g's
+// pair for its two rows itself.
 template <bool P2, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -1254,21 +1365,31 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dq,
                    int Lq, int Lk, float scale, Swin sw) {
-  constexpr int KT = Dq<P2, W>::KT, H = W / 128;
-  using SM = typename Dq<P2, W>::SM;
+  using Q = Dq<P2, W>;
+  constexpr int KT = Q::KT, H = Q::H, CP = W / 64;
+  using SM = typename Q::SM;
   SM& sm = shared_storage<SM>();
-  const int b = blockIdx.y, q0 = blockIdx.x * WG * TILE;
+  const int b = blockIdx.y, q0 = blockIdx.x * Q::RG * TILE;
   const int n_tiles = (Lk + KT - 1) / KT;
   const int wg = threadIdx.x / 128;
-  init_barriers(sm);
-  const Loads<2, KT, W / 64, P2, false> loads{
+  const int qg = Q::SHARED ? 0 : wg;        // the warpgroup's group of queries
+  const int c0 = Q::SHARED ? 256 * wg : 0;  // its first column of dQ
+  const RingLoads<CP, true> ring{&tm_q, &tm_g, &tm_k, &tm_v, b, q0,
+                                 n_tiles * CP, 0};
+  const Loads<Q::RG, KT, CP, P2, false> loads{
       &tm_q, &tm_g, &tm_k, &tm_v, reinterpret_cast<const uint32_t*>(v),
       nullptr, nullptr, b, q0, Lk};
-  loads.start(sm, n_tiles);
+  if constexpr (Q::RINGED) {
+    init_ring(sm);
+    ring.start(sm);
+  } else {
+    init_barriers(sm);
+    loads.start(sm, n_tiles);
+  }
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3;
-  const int row0 = q0 + wg * TILE + warp * 16 + gq;  // rows row0, row0 + 8
-  const bool idle = q0 + wg * TILE >= Lq;
+  const int row0 = q0 + qg * TILE + warp * 16 + gq;  // rows row0, row0 + 8
+  const bool idle = q0 + qg * TILE >= Lq;
   bool last_y, last_x;
   const bool masked = swin_window(sw, b, &last_y, &last_x);
   int qreg[2] = {0, 0};
@@ -1293,76 +1414,304 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   for (int h = 0; h < H; ++h)
 #pragma unroll
     for (int i = 0; i < 64; ++i) dqa[h][i] = 0.f;
-  const bf16* qres = sm.rc[wg][0];
-  const bf16* gres = sm.rd[P2 ? 0 : wg][0];
-  mbar_wait(&sm.res_full, 0);
-  if (wg == 1) turn_pass(1);  // warpgroup 0 goes first
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % STAGES, k0 = it * KT;
-    mbar_wait(&sm.full[s], (it / STAGES) & 1);
-    // S = Q K^T and dP = G V^T: 64 queries x KT keys
-    const bool pass = wg == 0 || it + 1 < n_tiles;  // matched by a wait
-    turn_wait(wg);
-    if (idle) {
-      if (pass) turn_pass(wg);
-    } else {
-      float sa[KT / 2], dp[KT / 2];
+  if constexpr (Q::RINGED) {
+    // the ring's sweep: per 32-key tile warpgroup 0 takes S = Q K^T and
+    // warpgroup 1 dP = G V^T (m64n32, unit after unit, in two batches so
+    // that the first runs while the second's units land; the operands
+    // chosen by data, each wait before its batch: C7520); each takes p
+    // and ds for one k16 step of the keys, the two swapping the f32
+    // halves they need and then the steps' bf16 fragments, and dQ += dS K
+    // over its 256 columns (K's two units of them, read MN-major). A
+    // tile's units: V's NU, then K's NU (RingLoads<CP, true>), through NR
+    // slots: the next tile's V units were issued during the last one, its
+    // K units are issued into this tile's V slots as dP and the swap free
+    // them, and K's slots take the V units of the tile after next, each
+    // once S has read it and the dQ product that reads it (warpgroup w's
+    // for K's units 2 w and 2 w + 1) is done.
+    constexpr int NU = CP / 2, NR = SM::N;
+    const bf16* res = wg ? sm.rd[0][0] : sm.rc[0][0];  // G (dP) or Q (S)
+    const int first = wg ? 0 : NU;    // its operand's first unit of a tile
+    const int own = NU + 2 * wg;      // the first of its dQ columns' K units
+    mbar_wait(&sm.res_full, 0);
+
+    // S (warpgroup 0) or dP (1) over the tile's units [h0, h1) of C or D
+    const auto products = [&](float (&acc)[RT / 2], int u0, int h0, int h1) {
+      for (int h = h0; h < h1; ++h) {
+        const int u = u0 + first + h;
+        mbar_wait(&sm.full[u % NR], (u / NR) & 1);
+      }
       wgmma_fence();
-      product_c<W, KT>(sa, qres, sm.sc[s][0]);
-      if constexpr (!P2) product_c<W, KT>(dp, gres, sm.sd[s][0]);
+#pragma unroll
+      for (int h = h0; h < h1; ++h)
+        unit_product(acc, res + 2 * h * PANEL,
+                     sm.ring[(u0 + first + h) % NR], h == 0);
       wgmma_commit();
-      if (pass) turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(acc);
+    };
+    // one arrival a warp (its lanes' accesses done) on unit u0 + j's slot
+    const auto release = [&](int u0, int j) {
+      if (lane == 0) mbar_arrive(&sm.empty[(u0 + j) % NR]);
+    };
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * RT, u0 = it * CP;
+      float acc[RT / 2];
+      products(acc, u0, 0, NU / 2);
+      products(acc, u0, NU / 2, NU);
+      // V's first two units, and K's two that the other warpgroup's dQ
+      // reads, are done with
+      __syncwarp();
+      release(u0, 0);
+      release(u0, 1);
+      release(u0, NU + 2 - 2 * wg);
+      release(u0, NU + 3 - 2 * wg);
+      // each warpgroup forms dS for one k16 step of the tile's keys
+      // (warpgroup w: keys [16 w, 16 w + 16)) from its accumulator's half
+      // and the other's, swapped through V's last two slots (element-major,
+      // so a warp's stores and loads hit 32 banks): warpgroup 1's dP of
+      // keys [0, 16) into unit 3's, at once; warpgroup 0's S of keys [16,
+      // 32) into unit 2's once dP has read it (the swap barrier), handed
+      // to warpgroup 1 by barrier 4
+      float* sbuf = reinterpret_cast<float*>(sm.ring[(u0 + 2) % NR]);
+      float* pbuf = reinterpret_cast<float*>(sm.ring[(u0 + 3) % NR]);
+      if (wg)
+#pragma unroll
+        for (int i = 0; i < RT / 4; ++i) pbuf[i * 128 + tid] = acc[i];
+      swap_sync();
+      // V's first two slots take the next tile's first two K units
+      ring.refill(sm, u0 + NR, u0 + NR + 2);
+      if (wg) {
+        handoff_wait();
+      } else {
+#pragma unroll
+        for (int i = 0; i < RT / 4; ++i)
+          sbuf[i * 128 + tid] = acc[RT / 4 + i];
+        handoff_arrive();
+      }
+      float st[RT / 4], dpt[RT / 4];
+#pragma unroll
+      for (int i = 0; i < RT / 4; ++i) {
+        const float other = (wg ? sbuf : pbuf)[i * 128 + tid];
+        st[i] = wg ? other : acc[i];
+        dpt[i] = wg ? acc[RT / 4 + i] : other;
+      }
+
+      // ds = p (dp - delta) for its 16 keys into st, rounded into its k16
+      // step's fragments
+      const int kh = k0 + 16 * wg;
+      const uint32_t cregs =
+          masked ? col_regions<2>(sw, last_y, last_x, kh, t) : 0u;
+      uint32_t half[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = 8 * j + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ce = e & 1, r = e >> 1, i = 4 * j + e;
+          float x = st[i] * scale;
+          if (masked && other_region(cregs, j, e, qreg[r])) x = x - 100.f;
+          if (kh + c + ce >= Lk) x = NEG_INF;
+          const float p = qok[r] ? __expf(x - lse_r[r]) : 0.f;
+          st[i] = qok[r] ? p * (dpt[i] - delta_r[r]) : 0.f;
+        }
+      }
+      to_a_frag(st, half, 0);
+      // the two steps' fragments swap through the slots' upper halves
+      uint32_t* fmine = reinterpret_cast<uint32_t*>(wg ? pbuf : sbuf);
+      const uint32_t* ftheirs =
+          reinterpret_cast<const uint32_t*>(wg ? sbuf : pbuf);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fmine[(RT / 4 + i) * 128 + tid] = half[i];
+      swap_sync();
+      uint32_t da[RT / 4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t other = ftheirs[(RT / 4 + i) * 128 + tid];
+        da[i] = wg ? other : half[i];
+        da[4 + i] = wg ? half[i] : other;
+      }
+      // the swap's plain loads and stores before the slots' TMA refill
+      fence_proxy_async();
+      __syncwarp();
+      release(u0, 2);
+      release(u0, 3);
+      // warpgroup 1's loading lane refills them with the next tile's last
+      // two K units
+      ring.refill(sm, u0 + NR + 2, u0 + NR + 4);
+
+      // dQ[:, c0 + 128 h ...] += dS K: K's units own + h read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        product_rs<RT>(dqa[h], da, sm.ring[(u0 + own + h) % NR]);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < H; ++h) fence_regs(dqa[h]);
+      __syncwarp();
+      release(u0, own);
+      release(u0, own + 1);
+      // their slots take the units NR on (V's of the tile after next),
+      // issued by the warpgroup's first lane once the other's arrivals
+      // (after its products) and its own warps' are in
+      if (tid == 0)
+        for (int u = u0 + NR + own; u < u0 + NR + own + 2; ++u)
+          ring.unit(sm, u);
+    }
+  } else if constexpr (Q::KEYS) {
+    // D = 2: per 64-key tile warpgroup w takes its 32 keys [32 w, 32 w +
+    // 32): S over C from the resident Q (m64n32k16, B the tile's rows from
+    // 32 w), dP from g's and v's pairs on the CUDA cores, p and ds in
+    // registers; the two swap the bf16 A fragments of their halves of dS
+    // (by tile parity, so one barrier a tile), and each takes dQ += dS K
+    // over all 64 keys, in key order, for its 256 columns. Each product
+    // once, each exponential once.
+    constexpr int HK = KT / 2;                 // keys a warpgroup
+    const bf16* qres = sm.rc[0][0];
+    mbar_wait(&sm.res_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES, k0 = it * KT, kw = k0 + HK * wg;
+      mbar_wait(&sm.full[s], (it / STAGES) & 1);
+      float sa[HK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < W / 16; ++kk) {
+        const int in = (kk & 3) * 16;
+        wgmma_m64n32_ss(
+            sa, desc_sw128(qres + (kk >> 2) * PANEL + in, 16, 1024),
+            desc_sw128(sm.sc[s][kk >> 2] + HK * wg * 64 + in, 16, 1024),
+            kk > 0);
+      }
+      wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sa);
-      if constexpr (!P2) fence_regs(dp);
 
-      // ds = p (dp - delta) into sa
+      // ds = p (dp - delta) into sa, dp from the pairs
       const uint32_t cregs =
-          masked ? col_regions<KT / 8>(sw, last_y, last_x, k0, t) : 0u;
+          masked ? col_regions<HK / 8>(sw, last_y, last_x, kw, t) : 0u;
       const __nv_bfloat162* v2 =
-          reinterpret_cast<const __nv_bfloat162*>(sm.sd[s][0]);
-      uint32_t da[KT / 4];
+          reinterpret_cast<const __nv_bfloat162*>(sm.sd[s][0]) + HK * wg;
+      uint32_t own[HK / 4];
 #pragma unroll
-      for (int j = 0; j < KT / 8; ++j) {
+      for (int j = 0; j < HK / 8; ++j) {
         const int c = 8 * j + 2 * t;
         float2 vp[2];
-        if constexpr (P2) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            vp[e] = k0 + c + e < Lk ? __bfloat1622float2(v2[c + e])
-                                    : make_float2(0.f, 0.f);
-        }
+        for (int e = 0; e < 2; ++e)
+          vp[e] = kw + c + e < Lk ? __bfloat1622float2(v2[c + e])
+                                  : make_float2(0.f, 0.f);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int ce = e & 1, r = e >> 1, i = 4 * j + e;
           float x = sa[i] * scale;
           if (masked && other_region(cregs, j, e, qreg[r])) x = x - 100.f;
-          if (k0 + c + ce >= Lk) x = NEG_INF;
+          if (kw + c + ce >= Lk) x = NEG_INF;
           const float p = qok[r] ? __expf(x - lse_r[r]) : 0.f;
-          float dpv;
-          if constexpr (P2)
-            dpv = fmaf(g2[r].x, vp[ce].x, g2[r].y * vp[ce].y);
-          else
-            dpv = dp[i];
+          const float dpv = fmaf(g2[r].x, vp[ce].x, g2[r].y * vp[ce].y);
           sa[i] = qok[r] ? p * (dpv - delta_r[r]) : 0.f;
         }
-        if (j & 1) to_a_frag(sa, da, j >> 1);
+        if (j & 1) to_a_frag(sa, own, j >> 1);
+      }
+      // the halves swap (element-major: a warp's 32 stores hit 32 banks)
+      uint32_t* mine = sm.xchg[it & 1][wg];
+      const uint32_t* theirs = sm.xchg[it & 1][1 - wg];
+#pragma unroll
+      for (int i = 0; i < HK / 4; ++i) mine[i * 128 + tid] = own[i];
+      swap_sync();
+      uint32_t da[KT / 4];
+#pragma unroll
+      for (int i = 0; i < HK / 4; ++i) {
+        const uint32_t other = theirs[i * 128 + tid];
+        da[i] = wg ? other : own[i];
+        da[HK / 4 + i] = wg ? own[i] : other;
       }
 
-      // dq += dS K: dS rounded to bf16 in registers, K the ring tile
-      // read MN-major, 128 columns a product
+      // dq += dS K over the tile's keys, K read MN-major, from column c0
       wgmma_fence();
 #pragma unroll
       for (int h = 0; h < H; ++h)
-        product_rs<KT>(dqa[h], da, sm.sc[s][2 * h]);
+        product_rs<KT>(dqa[h], da, sm.sc[s][c0 / 64 + 2 * h]);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
       for (int h = 0; h < H; ++h) fence_regs(dqa[h]);
+      mbar_arrive(&sm.empty[s]);
+      loads.refill(sm, it, n_tiles);
     }
-    mbar_arrive(&sm.empty[s]);
-    loads.refill(sm, it, n_tiles);
+  } else {
+    const bf16* qres = sm.rc[wg][0];
+    const bf16* gres = sm.rd[P2 ? 0 : wg][0];
+    mbar_wait(&sm.res_full, 0);
+    if (wg == 1) turn_pass(1);  // warpgroup 0 goes first
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES, k0 = it * KT;
+      mbar_wait(&sm.full[s], (it / STAGES) & 1);
+      // S = Q K^T and dP = G V^T: 64 queries x KT keys
+      const bool pass = wg == 0 || it + 1 < n_tiles;  // matched by a wait
+      turn_wait(wg);
+      if (idle) {
+        if (pass) turn_pass(wg);
+      } else {
+        float sa[KT / 2], dp[KT / 2];
+        wgmma_fence();
+        product_c<W, KT>(sa, qres, sm.sc[s][0]);
+        if constexpr (!P2) product_c<W, KT>(dp, gres, sm.sd[s][0]);
+        wgmma_commit();
+        if (pass) turn_pass(wg);
+        wgmma_wait<0>();
+        fence_regs(sa);
+        if constexpr (!P2) fence_regs(dp);
+
+        // ds = p (dp - delta) into sa
+        const uint32_t cregs =
+            masked ? col_regions<KT / 8>(sw, last_y, last_x, k0, t) : 0u;
+        const __nv_bfloat162* v2 =
+            reinterpret_cast<const __nv_bfloat162*>(sm.sd[s][0]);
+        uint32_t da[KT / 4];
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          float2 vp[2];
+          if constexpr (P2) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              vp[e] = k0 + c + e < Lk ? __bfloat1622float2(v2[c + e])
+                                      : make_float2(0.f, 0.f);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ce = e & 1, r = e >> 1, i = 4 * j + e;
+            float x = sa[i] * scale;
+            if (masked && other_region(cregs, j, e, qreg[r])) x = x - 100.f;
+            if (k0 + c + ce >= Lk) x = NEG_INF;
+            const float p = qok[r] ? __expf(x - lse_r[r]) : 0.f;
+            float dpv;
+            if constexpr (P2)
+              dpv = fmaf(g2[r].x, vp[ce].x, g2[r].y * vp[ce].y);
+            else
+              dpv = dp[i];
+            sa[i] = qok[r] ? p * (dpv - delta_r[r]) : 0.f;
+          }
+          if (j & 1) to_a_frag(sa, da, j >> 1);
+        }
+
+        // dq += dS K: dS rounded to bf16 in registers, K the ring tile
+        // read MN-major, 128 columns a product
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          product_rs<KT>(dqa[h], da, sm.sc[s][2 * h]);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int h = 0; h < H; ++h) fence_regs(dqa[h]);
+      }
+      mbar_arrive(&sm.empty[s]);
+      loads.refill(sm, it, n_tiles);
+    }
   }
 
   if (!idle) {
@@ -1374,7 +1723,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int h = 0; h < H; ++h)
 #pragma unroll
         for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<float2*>(dq + row * W + 128 * h + 8 * j +
+          *reinterpret_cast<float2*>(dq + row * W + c0 + 128 * h + 8 * j +
                                      2 * t) =
               make_float2(dqa[h][4 * j + 2 * r] * scale,
                           dqa[h][4 * j + 2 * r + 1] * scale);
@@ -1382,15 +1731,13 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// The widths this route takes: GMFlow's (C = 128; D = 128, or 2 for the
-// matching grid and the propagated flow) and GMFlow at 256 channels' (C =
-// 256; D = 256 or 2), and for dk/dv alone GMFlow at 512 channels' (C =
-// 512; D = 512 or 2: dq keeps the mma.sync route there), with B * L within
-// TMA's int32 coordinates. dk/dv's rule is the forward's
-// (flash.cu:sm90::takes, ops/flash.py:wgmma_widths; dq's
-// ops/flash_bwd.py:dq_wgmma_widths).
-static bool takes(bool dkv, int B, int Lq, int Lk, int C, int D) {
-  return (C == 128 || C == 256 || (dkv && C == 512)) && (D == C || D == 2) &&
+// The widths this route takes, for both kernels: GMFlow's (C = 128; D =
+// 128, or 2 for the matching grid and the propagated flow) and GMFlow at
+// 256 and 512 channels' (C = 256 or 512; D = C or 2), with B * L within
+// TMA's int32 coordinates. The forward's rule (flash.cu:sm90::takes,
+// ops/flash.py:wgmma_widths).
+static bool takes(int B, int Lq, int Lk, int C, int D) {
+  return (C == 128 || C == 256 || C == 512) && (D == C || D == 2) &&
          (long long)B * (Lq > Lk ? Lq : Lk) < (1ll << 31);
 }
 
@@ -1453,16 +1800,16 @@ static int launch_dq(const void* q, const void* k, const void* v,
            flash_bwd_dq_wgmma<P2, W>,
            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return e;
-  const dim3 grid((unsigned)((Lq + WG * TILE - 1) / (WG * TILE)),
-                  (unsigned)B);
+  const int rows = Dq<P2, W>::RG * TILE;
+  const dim3 grid((unsigned)((Lq + rows - 1) / rows), (unsigned)B);
   flash_bwd_dq_wgmma<P2, W><<<grid, THREADS, smem, st>>>(
       m[0], m[1], m[2], m[3], (const bf16*)v, (const bf16*)g,
       (const float*)lse, (const float*)delta, (float*)dq, Lq, Lk, scale, sw);
   return (int)cudaGetLastError();
 }
 
-// One kernel's launch at these widths (C = 128 or 256; D = C or 2): dk/dv
-// (out0 = dk, out1 = dv) or dq (out0).
+// One kernel's launch at these widths (C = W; D = C or 2): dk/dv (out0 =
+// dk, out1 = dv) or dq (out0).
 template <bool P2, int W>
 static int launch_at(bool dkv, const void* q, const void* k, const void* v,
                      const void* g, const void* lse, const void* delta,
@@ -1474,18 +1821,16 @@ static int launch_at(bool dkv, const void* q, const void* k, const void* v,
                                 scale, sw, st);
 }
 
-// The launch of a kernel the route takes (takes(dkv, ...)): at C = 512
-// only dk/dv's, whose dq has no instance.
+// The launch of a kernel at widths the route takes (takes).
 static int launch(bool dkv, const void* q, const void* k, const void* v,
                   const void* g, const void* lse, const void* delta,
                   void* out0, void* out1, int B, int Lq, int Lk, int C, int D,
                   float scale, Swin sw, cudaStream_t st) {
-  if (C == 512 && !dkv) return (int)cudaErrorInvalidValue;
   if (C == 512)
-    return D == 2 ? launch_dkv<true, 512>(q, k, v, g, lse, delta, out0, out1,
-                                          B, Lq, Lk, scale, sw, st)
-                  : launch_dkv<false, 512>(q, k, v, g, lse, delta, out0,
-                                           out1, B, Lq, Lk, scale, sw, st);
+    return D == 2 ? launch_at<true, 512>(dkv, q, k, v, g, lse, delta, out0,
+                                         out1, B, Lq, Lk, scale, sw, st)
+                  : launch_at<false, 512>(dkv, q, k, v, g, lse, delta, out0,
+                                          out1, B, Lq, Lk, scale, sw, st);
   if (C == 256)
     return D == 2 ? launch_at<true, 256>(dkv, q, k, v, g, lse, delta, out0,
                                          out1, B, Lq, Lk, scale, sw, st)
@@ -2190,19 +2535,15 @@ struct Kernel {
 };
 
 template <bool P2, int W>
-static Kernel wgmma_dkv() {
-  using namespace sm90;
-  using K = Dkv<P2, W>;
-  return {(const void*)flash_bwd_dkv_wgmma<P2, W>, K::RG * TILE, THREADS,
-          (unsigned)K::CHUNKS, smem_bytes<typename K::SM>(), 0};
-}
-
-template <bool P2, int W>
 static Kernel wgmma_kernel(bool dkv) {
   using namespace sm90;
-  if (dkv) return wgmma_dkv<P2, W>();
-  return {(const void*)flash_bwd_dq_wgmma<P2, W>, WG * TILE, THREADS, 1,
-          smem_bytes<typename Dq<P2, W>::SM>(), 0};
+  using K = Dkv<P2, W>;
+  using Q = Dq<P2, W>;
+  if (dkv)
+    return {(const void*)flash_bwd_dkv_wgmma<P2, W>, K::RG * TILE, THREADS,
+            (unsigned)K::CHUNKS, smem_bytes<typename K::SM>(), 0};
+  return {(const void*)flash_bwd_dq_wgmma<P2, W>, Q::RG * TILE, THREADS, 1,
+          smem_bytes<typename Q::SM>(), 0};
 }
 
 template <bool P2>
@@ -2217,9 +2558,10 @@ static Kernel kernel_of(int route, bool dkv, int C, int D) {
   const unsigned z =
       dkv && D != 2 && chunks(D) > chunks(C) ? chunks(D) : chunks(C);
   switch (route) {
-    case WGMMA:   // dk/dv's alone at C = 512 (route_takes)
+    case WGMMA:
       if (C == 512)
-        return D == 2 ? wgmma_dkv<true, 512>() : wgmma_dkv<false, 512>();
+        return D == 2 ? wgmma_kernel<true, 512>(dkv)
+                      : wgmma_kernel<false, 512>(dkv);
       if (C == 256)
         return D == 2 ? wgmma_kernel<true, 256>(dkv)
                       : wgmma_kernel<false, 256>(dkv);
@@ -2245,15 +2587,15 @@ static Kernel kernel_of(int route, bool dkv, int C, int D) {
   }
 }
 
-// Whether `route` takes these operands (bf16 or f32) and widths for dk/dv
-// (dkv) or dq.
+// Whether `route` takes these operands (bf16 or f32) and widths (both
+// kernels alike).
 static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
-                        int D, bool dkv) {
+                        int D) {
   switch (route) {
     case F32: return !is_bf16;
     case TF32X3: return !is_bf16 && tf32x3::takes(B, Lq, Lk, C, D);
     case MMA_SYNC: return is_bf16;
-    case WGMMA: return is_bf16 && sm90::takes(dkv, B, Lq, Lk, C, D);
+    case WGMMA: return is_bf16 && sm90::takes(B, Lq, Lk, C, D);
     default: return false;
   }
 }
@@ -2264,8 +2606,8 @@ static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
 // forward's. Takes C % 16 == 0 and D == 2 or D % 16 == 0, up to MAX_WIDTH
 // (ops/flash_bwd.py pads other widths), on the route the caller
 // names (enum Route; the tf32x3 route C = 128 and D = 128 or 2, the wgmma
-// route the same in bf16 and C = 256 with D = 256 or 2, and for dk/dv C =
-// 512 with D = 512 or 2: sm90::takes). splits > 1
+// route the same in bf16 and C = 256 or 512 with D = C or 2:
+// sm90::takes). splits > 1
 // (the tf32x3 route only) cuts the key sweep into that many runs of whole
 // tiles: dq is then a [splits, B, Lq, C] scratch of unscaled partial
 // sums, for ofd_flash_bwd_reduce. Returns cudaGetLastError() after the
@@ -2277,7 +2619,7 @@ extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int wh, int ww, int sh, int swd, int is_bf16,
                                 int route, int splits, void* stream) {
   if (!valid(B, Lq, Lk, C, D, swin_k) ||
-      !route_takes(route, is_bf16, B, Lq, Lk, C, D, false) ||
+      !route_takes(route, is_bf16, B, Lq, Lk, C, D) ||
       (splits != 1 && route != TF32X3))
     return (int)cudaErrorInvalidValue;
   Swin sw{swin_k, wh, ww, sh, swd};
@@ -2311,7 +2653,7 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int is_bf16, int route, int splits,
                                  void* stream) {
   if (!valid(B, Lq, Lk, C, D, swin_k) ||
-      !route_takes(route, is_bf16, B, Lq, Lk, C, D, true) ||
+      !route_takes(route, is_bf16, B, Lq, Lk, C, D) ||
       (splits != 1 && route != TF32X3))
     return (int)cudaErrorInvalidValue;
   Swin sw{swin_k, wh, ww, sh, swd};
@@ -2337,9 +2679,8 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // What ofd_flash_bwd_dq (dkv = 0) or ofd_flash_bwd_dkv (dkv = 1) launches
 // for these operands (padded widths) on the route of the wrapper's rule
-// (ops/flash_bwd.py:plan): bf16 at C = 128 and D = 128 or 2, or C = 256 and
-// D = 256 or 2, and for dk/dv also at C = 512 and D = 512 or 2, the wgmma
-// route, other bf16 the mma.sync route; f32 at C = 128 and D = 128 or 2
+// (ops/flash_bwd.py:plan): bf16 at C = 128, 256 or 512 and D = C or 2 the
+// wgmma route, other bf16 the mma.sync route; f32 at C = 128 and D = 128 or 2
 // the tf32x3 route, other f32 the CUDA-core route. plan = {route (enum
 // Route), output rows a block, threads a block, blocks of one run (row
 // blocks x B x column chunks), column chunks, dynamic shared memory,
@@ -2351,8 +2692,7 @@ extern "C" int ofd_flash_bwd_plan(int B, int Lq, int Lk, int C, int D,
   if (!valid(B, Lq, Lk, C, D, 0)) return (int)cudaErrorInvalidValue;
   const int route =
       is_bf16
-          ? (route_takes(WGMMA, 1, B, Lq, Lk, C, D, dkv != 0) ? WGMMA
-                                                              : MMA_SYNC)
+          ? (route_takes(WGMMA, 1, B, Lq, Lk, C, D) ? WGMMA : MMA_SYNC)
           : (tf32x3::takes(B, Lq, Lk, C, D) ? TF32X3 : F32);
   const Kernel kn = kernel_of(route, dkv != 0, C, D);
   cudaFuncAttributes attr;

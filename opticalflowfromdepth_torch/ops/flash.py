@@ -298,13 +298,11 @@ def gmflow_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
 
 
 def wgmma_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
-    """The widths the bf16 wgmma routes of the forward and of the
-    backward's dk/dv kernel take: C padded to 128 with D = 128 or 2
+    """The widths the bf16 wgmma routes of the forward and of both
+    backward kernels (dq, dk/dv) take: C padded to 128 with D = 128 or 2
     (GMFlow's), or C padded to 256 or 512 with D = C or 2 (GMFlow at 256
     and 512 channels), the rows of every batch entry within int32
-    (``sm90::takes`` in ``csrc/flash.cu`` and, for dk/dv, in
-    ``csrc/flash_bwd.cu``; the backward's dq kernel takes its own,
-    ``ops/flash_bwd.py:dq_wgmma_widths``)."""
+    (``sm90::takes`` in ``csrc/flash.cu`` and in ``csrc/flash_bwd.cu``)."""
     cp, dp = padded_widths(c, d)
     return cp in (128, 256, 512) and dp in (2, cp) \
         and b * max(lq, lk) < 2 ** 31

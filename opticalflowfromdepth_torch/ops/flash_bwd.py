@@ -16,11 +16,10 @@ blocks over (batch, key rows) sweeping the query tiles; no atomics, so
 every gradient is bit-reproducible); CPU tensors take
 :func:`flash_backward_plain`. :func:`plan` picks each kernel's route from
 the dtype and widths: bf16 at C = 128 with D = 128 or 2 (GMFlow's widths)
-and at C = 256 with D = 256 or 2 (GMFlow at 256 channels) the ``wgmma``
-route for both kernels (TMA, a ring of tiles, two warpgroups), and at C =
-512 with D = 512 or 2 (GMFlow at 512 channels) for dk/dv alone
-(:func:`wgmma_widths`; dq's :func:`dq_wgmma_widths`); other bf16 widths
-the ``mma.sync`` route; f32 at C = 128 with D = 128 or 2 (every
+and at C = 256 or 512 with D = C or 2 (GMFlow at 256 and 512 channels)
+the ``wgmma`` route for both kernels (TMA, a ring of tiles, two
+warpgroups; :func:`wgmma_widths`); other bf16 widths the ``mma.sync``
+route; f32 at C = 128 with D = 128 or 2 (every
 sequence-parallel ring step, every f32 GMFlow call) the ``tf32x3`` route
 (split-TF32 ``mma.sync`` products, whose sweep it splits where the card
 would otherwise hold less than one wave of blocks, the partial sums
@@ -38,8 +37,8 @@ the mma.sync and CUDA-core kernels take every width (C, or C and D, split
 over a grid axis in 128-column chunks, S and dP recomputed by each
 chunk's blocks over panels of 128 columns of C and D; each block within
 227 KB of shared memory, as :func:`kernel_plan` reports).
-The forward takes its wgmma route at dk/dv's widths (one predicate,
-``ops/flash.py:wgmma_widths``).
+The forward takes its wgmma route at the same widths (one predicate for
+the forward, dq and dk/dv: ``ops/flash.py:wgmma_widths``).
 
 With a dense ``bias`` the backward is JAX's ``_flash_vjp_bwd``: a dense
 recompute outside any kernel (:func:`flash_backward_with_bias`, plain
@@ -62,13 +61,6 @@ from .flash import (
     H100_SMS, ROUTES, SMEM_RESERVED, SMEM_SM, TF32_STRIDE, Swin, _pad_last,
     _sms, check_kernel_operands, gmflow_widths, matmul_tf32, padded_widths,
     split_count, swin_mask_dense, wgmma_widths)
-
-
-def dq_wgmma_widths(b: int, lq: int, lk: int, c: int, d: int) -> bool:
-    """The widths the dq kernel's wgmma route takes: :func:`wgmma_widths`
-    up to C = 256 (``sm90::takes`` in ``csrc/flash_bwd.cu``). At C = 512
-    dq keeps the mma.sync route while the forward and dk/dv take wgmma."""
-    return wgmma_widths(b, lq, lk, c, d) and padded_widths(c, d)[0] <= 256
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -257,9 +249,9 @@ def bwd_bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class BwdPlan(NamedTuple):
     """How the two kernels run one call: each kernel's route
     (``route_dq``, ``route_dkv``; :func:`plan`'s rule: bf16 ``wgmma`` at
-    :func:`dq_wgmma_widths` for dq and at :func:`wgmma_widths` for dk/dv,
-    else ``mma_sync``; f32 ``tf32x3`` at C = 128 with D = 128 or 2 for
-    both, else ``f32``); for the tf32x3
+    :func:`wgmma_widths`, else ``mma_sync``; f32 ``tf32x3`` at C = 128
+    with D = 128 or 2, else ``f32``; the same for both kernels, unless
+    :func:`launchers` forces one); for the tf32x3
     route the output rows a block (``rows``), the other side's rows a
     ring tile (``tile``), each kernel's shared memory a block
     (``smem``: dq, dk/dv, bytes) and blocks an SM, the runs that each
@@ -309,18 +301,15 @@ def plan(b: int, lq: int, lk: int, c: int, d: int,
     """Each kernel's route and its parameters for q ``[b, lq, c]``, k
     ``[b, lk, c]``, v ``[b, lk, d]`` of ``dtype``, at the widths
     ``padded_widths`` gives (past ``MAX_WIDTH`` raises); pure host
-    arithmetic. bf16 at C = 128 with D = 128 or 2 and at C = 256 with D =
-    256 or 2 takes the wgmma route for both kernels, at C = 512 with D =
-    512 or 2 for dk/dv while dq takes mma.sync (:func:`wgmma_widths`,
-    :func:`dq_wgmma_widths`), other bf16 the mma.sync route; f32 at C =
+    arithmetic. bf16 at C = 128 with D = 128 or 2 and at C = 256 or 512
+    with D = C or 2 takes the wgmma route for both kernels
+    (:func:`wgmma_widths`), other bf16 the mma.sync route; f32 at C =
     128 with D = 128 or 2 the tf32x3 route, other f32 the CUDA-core route
     (the widths within int32 rows, as the C side checks)."""
     cp, dp = padded_widths(c, d)
     if dtype == torch.bfloat16:
-        def route(wide):
-            return "wgmma" if wide(b, lq, lk, c, d) else "mma_sync"
-        return BwdPlan(route(dq_wgmma_widths), route(wgmma_widths),
-                       c_pad=cp, d_pad=dp)
+        route = "wgmma" if wgmma_widths(b, lq, lk, c, d) else "mma_sync"
+        return BwdPlan(route, route, c_pad=cp, d_pad=dp)
     if not gmflow_widths(b, lq, lk, c, d):
         return BwdPlan("f32", "f32", c_pad=cp, d_pad=dp)
     rows, tile, per_sm = tf32_blocks(dp)

@@ -1,6 +1,6 @@
-"""Time the flash backward's wgmma route at C = 256 against a variant.
+"""Time the flash backward's wgmma route at C = 256 or 512 against variants.
 
-The dk/dv kernel at C = D = 256 lets both warpgroups share a block's 64
+At C = 256 (``--width 256``, the default): the dk/dv kernel at C = D = 256 lets both warpgroups share a block's 64
 keys, each holding 128 columns of dK and of dV, so each computes S^T = K
 Q^T and dP^T = V G^T over all of C and D: 1.5x the products the
 gradients need. The variant ``half_s`` takes those two products over half
@@ -14,13 +14,26 @@ cuda_ms``) at ``chip_smoke.py:FLASH256_TRAIN_SHAPES``, GMFlow-256's
 training classes, in turns: as it stands, the variant, the variant, as it
 stands.
 
+At C = 512 (``--width 512``): the dq kernel without a share of its work,
+each variant's time saved the cost of that share, at
+``chip_smoke.py:FLASH512_TRAIN_SHAPES`` (GMFlow-512's training classes):
+``dq_half_s`` takes S = Q K^T and dP = G V^T over half of C and D (at D
+= 2, where each warpgroup computes S whole, half of S's products: what
+splitting S between the warpgroups would save before its swap);
+``dq_no_dq`` leaves out the dQ += dS K products (dS is still formed and
+kept);
+``dq_no_exp`` takes p = s - lse for exp(s - lse) (the special-function
+units' share). Their gradients are wrong by design.
+
 Run from the root of the repository, on a machine with a CUDA card and
 ``nvcc``::
 
-    python -m opticalflowfromdepth_torch.tools.flash_bwd_variants
+    python -m opticalflowfromdepth_torch.tools.flash_bwd_variants \
+        [--width 512]
 
 It prints the card, each build's registers and spills, and per class the
-dq and dk/dv times of each build (``a/b`` us, the two turns).
+dq and dk/dv times of each build (``a/b`` us, the turns: every build in
+order, then in reverse).
 """
 
 from __future__ import annotations
@@ -36,12 +49,48 @@ REPO = pathlib.Path(__file__).resolve().parents[2]
 PRODUCTS = ("        product_c<W, TILE>(st, kres, sm.sc[s][0]);\n",
             "        if constexpr (!P2) product_c<W, TILE>(dpt, vres, "
             "sm.sd[s][0]);\n")
+# the dq kernel's lines each C = 512 variant changes: (line, replacement,
+# times it occurs): its ring sweep's S or dP over a batch of units (D =
+# 512), its S over C (D = 2), its dQ products (both), its exponential
+# (each sweep's, C = 128 and 256's too)
+DQ_VARIANTS = {
+    "dq_half_s": (
+        ("      for (int h = h0; h < h1; ++h)\n"
+         "        unit_product(acc, res + 2 * h * PANEL,\n",
+         "      for (int h = h0; h < h0 + 1; ++h)\n"
+         "        unit_product(acc, res + 2 * h * PANEL,\n", 1),
+        ("      for (int kk = 0; kk < W / 16; ++kk) {\n"
+         "        const int in = (kk & 3) * 16;\n"
+         "        wgmma_m64n32_ss(\n",
+         "      for (int kk = 0; kk < W / 32; ++kk) {\n"
+         "        const int in = (kk & 3) * 16;\n"
+         "        wgmma_m64n32_ss(\n", 1)),
+    # (dS folded into dQ's accumulators element by element, so that ptxas
+    # keeps the products and the exponentials that form it)
+    "dq_no_dq": (
+        ("        product_rs<RT>(dqa[h], da, sm.ring[(u0 + own + h) % NR]);\n",
+         "        for (int i = 0; i < RT / 4; ++i) "
+         "dqa[h][i] += __uint_as_float(da[i]);\n", 1),
+        ("        product_rs<KT>(dqa[h], da, sm.sc[s][c0 / 64 + 2 * h]);\n",
+         "        for (int i = 0; i < KT / 4; ++i) "
+         "dqa[h][i] += __uint_as_float(da[i]);\n", 1)),
+    "dq_no_exp": (
+        ("const float p = qok[r] ? __expf(x - lse_r[r]) : 0.f;",
+         "const float p = qok[r] ? (x - lse_r[r]) : 0.f;", 3),),
+}
+VARIANTS = {256: ("as_is", "half_s"), 512: ("as_is",) + tuple(DQ_VARIANTS)}
 
 
 def variant_source(src: str, name: str) -> str:
-    """``csrc/flash_bwd.cu`` as it stands (``as_is``) or with the dk/dv
-    kernel's S^T and dP^T over half of C and D (``half_s``)."""
+    """``csrc/flash_bwd.cu`` as it stands (``as_is``), with the dk/dv
+    kernel's S^T and dP^T over half of C and D (``half_s``), or changed
+    as a key of :data:`DQ_VARIANTS` says."""
     if name == "as_is":
+        return src
+    if name in DQ_VARIANTS:
+        for line, new, count in DQ_VARIANTS[name]:
+            assert src.count(line) == count, line
+            src = src.replace(line, new)
         return src
     if name != "half_s":
         raise ValueError(f"variant {name!r}")
@@ -88,6 +137,7 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out",
                    default=str(REPO / "build" / "flash_bwd_variants"))
+    p.add_argument("--width", type=int, default=256, choices=(256, 512))
     args = p.parse_args(argv)
     sys.path.insert(0, str(REPO))
     import torch
@@ -97,15 +147,16 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_variants: no CUDA device")
     print(cs.card_line(), torch.__version__, flush=True)
-    names = ("as_is", "half_s")
+    names = VARIANTS[args.width]
+    shapes = (cs.FLASH256_TRAIN_SHAPES if args.width == 256
+              else cs.FLASH512_TRAIN_SHAPES)
     built = build(names, pathlib.Path(args.out))
     for name in names:
         print(f"{name}: " + " | ".join(built[name][1]), flush=True)
     real = fb._kernel_fns
     gen = torch.Generator().manual_seed(75)
     try:
-        for label, (b, l, c, d, payload, swin), n in \
-                cs.FLASH256_TRAIN_SHAPES:
+        for label, (b, l, c, d, payload, swin), n in shapes:
             q, k, v = cs.flash_inputs(gen, b, l, l, c, d, torch.bfloat16,
                                       payload, grid_w=cs.GW8)
             g = torch.randn(b, l, d, generator=gen).cuda()

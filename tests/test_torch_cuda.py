@@ -453,7 +453,9 @@ def test_flash_plan_matches_kernel_plan(card):
                             (128, 805, 805, 256, 256),
                             (1, 7168, 7168, 256, 2), (16, 3220, 3220, 256, 2),
                             (8, 1792, 1792, 512, 512),
+                            (128, 805, 805, 512, 512),
                             (16, 3220, 3220, 512, 2),
+                            (1, 7168, 7168, 512, 2),
                             (2, 150, 130, 2000, 600)):
         for dtype in (torch.float32, torch.bfloat16):
             for bias in (False, True):
@@ -476,7 +478,8 @@ def test_flash_plan_matches_kernel_plan(card):
                 if p.route in ("mma_sync", "f32"):
                     assert 0 < k["smem"] <= 232448 and k["per_sm"] >= 1
             # the backward's kernels: each the route its plan names (at C =
-            # 512 dk/dv wgmma, dq mma.sync), within an SM
+            # 512 wgmma for both), within an SM; dq's wgmma blocks at C =
+            # 512 are 64 queries that both warpgroups share, one an SM
             pb = fb.plan(b, lq, lk, c, d, dtype, sms)
             kb = fb.kernel_plan(b, lq, lk, c, d, dtype == torch.bfloat16)
             assert (kb["dq"]["route"], kb["dkv"]["route"]) == \
@@ -484,6 +487,10 @@ def test_flash_plan_matches_kernel_plan(card):
             for key in ("dq", "dkv"):
                 assert 0 < kb[key]["smem"] <= 232448 and kb[key]["per_sm"] >= 1
                 assert kb[key]["local"] == 0 or kb[key]["route"] != "wgmma"
+            if pb.route_dq == "wgmma" and c == 512:
+                assert (kb["dq"]["rows"], kb["dq"]["chunks"],
+                        kb["dq"]["per_sm"]) == (64, 1, 1), (b, lq, d)
+                assert kb["dq"]["blocks"] == b * -(-lq // 64)
 
 
 # bf16 at C = 256 with D = 256 or 2 (GMFlow at 256 channels) takes the
@@ -630,9 +637,9 @@ def test_flash_kernel_plans_at_every_width(card, dtype):
     16..256 in 16s, D = 2 or 16..256 in 16s: every C, D in 1..256), and
     past it to 1024 in steps of 48, C, D or both: the C side's own
     plans of the forward (with a bias and without) and of the backward's
-    dq and dk/dv name the wrappers' route (each its own ``plan``'s: they
-    differ at C = 256 with D = 256 or 2, where the backward takes wgmma),
-    fit a block within 227 KB of shared memory with at least one block an
+    dq and dk/dv name the wrappers' route (each its own ``plan``'s; one
+    predicate for all three, wgmma at C = 128, 256 and 512 with D = C or
+    2), fit a block within 227 KB of shared memory with at least one block an
     SM, and on the mma.sync and CUDA-core routes take D (forward) or the
     wider of C and D (dk/dv; dq: C) in 128-column chunks; asking for a
     plan leaves later launches able to run."""
@@ -659,8 +666,9 @@ def test_flash_kernel_plans_at_every_width(card, dtype):
                 assert 0 < kb[key]["smem"] <= 232448, (cp, dp, key)
                 assert kb[key]["per_sm"] >= 1
                 # the wgmma route's dk/dv at C = D = 512: two 256-column
-                # chunks of dK and dV
-                wide = 2 if (cp, dp) == (512, 512) else 1
+                # chunks of dK and dV (dq: one block takes all of dQ's
+                # columns)
+                wide = 2 if key == "dkv" and (cp, dp) == (512, 512) else 1
                 assert kb[key]["chunks"] == (chunks if route_b in (
                     "mma_sync", "f32") else wide)
     # a plan lowers no kernel's shared-memory limit: after the narrowest
@@ -808,7 +816,10 @@ FLASH_BWD_CASES = [
     (2, 129, 65, 256, 256, None),
     (1, 65, 129, 256, 2, None),                  # ragged keys, D = 2
     (2, 129, 65, 256, 2, None),
-    (2, 300, 300, 256, 2, None)]
+    (2, 300, 300, 256, 2, None),
+    (8, 130, 130, 512, 512, (2, 10, 13, 5, 6)),  # C = 512: windows, Swin
+    (1, 65, 129, 512, 512, None),                # ragged keys, D = 512
+    (2, 129, 65, 512, 2, None)]                  # ragged keys, D = 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -854,8 +865,10 @@ def test_flash_bwd_kernels_match_plain(card, dtype, b, lq, lk, c, d, swin):
     (8, 130, 130, 256, 256, (2, 10, 13, 5, 6)),   # bf16 C = 256: wgmma
     (2, 129, 65, 256, 2, None),
     (2, 300, 300, 256, 2, None),
-    (8, 130, 130, 512, 512, (2, 10, 13, 5, 6)),   # bf16 C = 512: dk/dv
-    (2, 129, 65, 512, 2, None)])                  # wgmma, dq mma.sync
+    (8, 130, 130, 512, 512, (2, 10, 13, 5, 6)),   # bf16 C = 512: wgmma
+    (2, 129, 65, 512, 2, None),
+    (2, 200, 333, 512, 512, None),                # dq's ring of units
+    (1, 300, 200, 512, 2, None)])                 # dq's halves of the keys
 def test_flash_bwd_kernels_bit_reproducible(card, dtype, b, lq, lk, c, d,
                                             swin):
     """No atomics: two launches on the same inputs give the same bits,
@@ -907,12 +920,13 @@ def test_flash_bwd_tf32x3_split_sweep(card, monkeypatch, b, l, d, splits):
 def test_flash_bwd_plan_routes_on_card(card):
     """The wrapper launches the route plan names: tf32x3 for f32 at C =
     128 and D = 128 or 2, the CUDA-core route for other f32 widths, wgmma
-    for bf16 at C = 256 and D = 256 or 2; forcing the other route on the
-    same inputs (f32; mma.sync for bf16) gives gradients within the same
-    tolerance (both against the plain backward). The launches hold their
-    operands: blocks of delta's size filled with NaN between building
-    and running them change nothing. The C = 256 kernels keep no local
-    memory and fit a block's 227 KB."""
+    for bf16 at C = 256 or 512 and D = C or 2, dq's and dk/dv's alike;
+    forcing the other route on the same inputs (f32; mma.sync for bf16)
+    gives gradients within the same tolerance (both against the plain
+    backward). The launches hold their operands: blocks of delta's size
+    filled with NaN between building and running them change nothing.
+    The C = 256 and 512 kernels keep no local memory and fit a block's
+    227 KB."""
     g_ = torch.Generator().manual_seed(13)
     for c, d, route in ((128, 2, "tf32x3"), (128, 128, "tf32x3"),
                         (64, 16, "f32")):
@@ -934,8 +948,8 @@ def test_flash_bwd_plan_routes_on_card(card):
             for x, r in zip(grads, ref):
                 assert float((x - r).abs().max()) <= \
                     1e-4 * float(r.abs().max())
-    for d in (256, 2):
-        q, k = (torch.randn(2, 130, 256, generator=g_).to(card, torch.bfloat16)
+    for c, d in ((256, 256), (256, 2), (512, 512), (512, 2)):
+        q, k = (torch.randn(2, 130, c, generator=g_).to(card, torch.bfloat16)
                 for _ in range(2))
         v = torch.randn(2, 130, d, generator=g_).to(card, torch.bfloat16)
         gout = torch.randn(2, 130, d, generator=g_).to(card)
@@ -951,7 +965,7 @@ def test_flash_bwd_plan_routes_on_card(card):
             torch.cuda.synchronize()
             for x, r, tol in zip(grads, ref, tols):
                 assert float(((x - r).abs() / tol).max()) <= 1.0
-        for key, p in fb.kernel_plan(2, 130, 130, 256, d, True).items():
+        for key, p in fb.kernel_plan(2, 130, 130, c, d, True).items():
             assert p["route"] == "wgmma" and p["local"] == 0 \
                 and p["smem"] <= 232448 and p["per_sm"] >= 1, (key, p)
 

@@ -40,11 +40,13 @@ torch.set_num_threads(2)
     (torch.bfloat16, 192, 256, "mma_sync"),
     (torch.bfloat16, 240, 2, "mma_sync"),
     (torch.bfloat16, 256, 16, "mma_sync"),
-    # C = 512: dk/dv's wgmma route where the widths pad to C = 512 and D =
-    # 512 or 2 (GMFlow at 512 channels); dq's mma.sync
+    # C = 512: the wgmma route of both kernels where the widths pad to C =
+    # 512 and D = 512 or 2 (GMFlow at 512 channels)
     (torch.bfloat16, 512, 512, "wgmma"),
     (torch.bfloat16, 512, 2, "wgmma"),
     (torch.bfloat16, 511, 2, "wgmma"),          # pads to 512 x 2
+    (torch.bfloat16, 511, 512, "wgmma"),        # pads to 512 x 512
+    (torch.bfloat16, 497, 500, "wgmma"),        # pads to 512 x 512
     (torch.bfloat16, 512, 256, "mma_sync"),
     (torch.bfloat16, 384, 384, "mma_sync"),
     (torch.float32, 512, 512, "f32"),
@@ -56,16 +58,54 @@ torch.set_num_threads(2)
     (torch.float32, 128, 64, "f32"),
     (torch.float32, 32, 2, "f32")])
 def test_route_by_dtype_and_width(dtype, c, d, route):
-    """``route`` is dk/dv's; dq's is the same but at C = 512, where dq
-    keeps the mma.sync route."""
+    """``route`` is both kernels': dq's and dk/dv's, at every width."""
     p = tb.plan(2, 300, 300, c, d, dtype)
     assert p.route_dkv == route
-    assert p.route_dq == ("mma_sync" if route == "wgmma" and p.c_pad == 512
-                          else route)
+    assert p.route_dq == route
     assert route in tb.ROUTES
     if route != "tf32x3":       # only the tf32x3 route splits its sweeps
         assert (p.splits_dq, p.splits_dkv) == (1, 1)
         assert p.scratch_dq is p.scratch_dk is p.scratch_dv is None
+
+
+@pytest.mark.parametrize("c,d", [(511, 2), (512, 2), (511, 512),
+                                 (512, 512)])
+def test_dq_takes_wgmma_at_512(c, d):
+    """bf16 widths that pad to C = 512 with D = 512 or 2 put dq on the
+    wgmma route, as dk/dv, unsplit, at the padded widths."""
+    p = tb.plan(3, 200, 200, c, d, torch.bfloat16)
+    assert (p.route_dq, p.route_dkv) == ("wgmma", "wgmma")
+    assert (p.c_pad, p.d_pad) == (512, d)
+    assert (p.splits_dq, p.splits_dkv) == (1, 1)
+    assert p.scratch_dq is None
+
+
+@pytest.mark.parametrize("c,d", [(512, 256), (384, 384), (384, 2),
+                                 (512, 384)])
+def test_other_wide_widths_stay_on_mma_sync(c, d):
+    """Past 256, only C = 512 with D = 512 or 2 takes wgmma: C = 512 with
+    D = 256 or 384 and C = 384 keep the mma.sync route for both kernels."""
+    p = tb.plan(3, 200, 200, c, d, torch.bfloat16)
+    assert (p.route_dq, p.route_dkv) == ("mma_sync", "mma_sync")
+
+
+# GMFlow at 512 channels' training step (batch 16 of 368x560): its four
+# classes of flash backward calls (B, L, D)
+GMFLOW512_TRAIN = [("windows", (128, 805, 512)),
+                   ("windows + Swin", (128, 805, 512)),
+                   ("matching", (16, 3220, 2)),
+                   ("propagation", (16, 3220, 2))]
+
+
+@pytest.mark.parametrize("name,shape", GMFLOW512_TRAIN)
+def test_gmflow512_training_classes_plan_wgmma_for_both_kernels(name, shape):
+    """Every flash backward call of GMFlow-512's training step plans the
+    wgmma route for dq and for dk/dv, unsplit, at its own widths."""
+    b, l, d = shape
+    p = tb.plan(b, l, l, 512, d, torch.bfloat16)
+    assert (p.route_dq, p.route_dkv) == ("wgmma", "wgmma")
+    assert (p.splits_dq, p.splits_dkv, p.c_pad, p.d_pad) == (1, 1, 512, d)
+    assert p.scratch_dq is p.scratch_dk is p.scratch_dv is None
 
 
 # (B, Lq, Lk, D): splits (dq, dk/dv) the plan gives on 132 SMs. B = 16 at
@@ -226,3 +266,37 @@ def test_flash_bwd_variants_change_only_the_recompute():
         for line in fv.PRODUCTS]
     with pytest.raises(ValueError):
         fv.variant_source(src, "half")
+
+
+@pytest.mark.parametrize("name", ["dq_half_s", "dq_no_dq", "dq_no_exp"])
+def test_flash_bwd_dq_variants_change_only_their_lines(name):
+    """``tools/flash_bwd_variants.py``'s C = 512 variants of the dq kernel:
+    each differs from the kernel's source in its own lines alone (each
+    found as often as it says), and the tool names them at ``--width
+    512`` after ``as_is``."""
+    import difflib
+
+    from opticalflowfromdepth_torch import _build
+    from opticalflowfromdepth_torch.tools import flash_bwd_variants as fv
+
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert fv.VARIANTS[512] == ("as_is", "dq_half_s", "dq_no_dq",
+                                "dq_no_exp")
+    got = fv.variant_source(src, name)
+    removed = [line[1:] for line in difflib.unified_diff(
+        src.splitlines(), got.splitlines(), lineterm="", n=0)
+        if line[:1] == "-" and line[:3] != "---"]
+    added = [line[1:] for line in difflib.unified_diff(
+        src.splitlines(), got.splitlines(), lineterm="", n=0)
+        if line[:1] == "+" and line[:3] != "+++"]
+    # each changed line is a line of the source with one piece of a
+    # variant's lines put for another
+    pieces = []
+    for old, new, count in fv.DQ_VARIANTS[name]:
+        assert src.count(old) == count
+        pieces += [(a, b) for a, b in zip(old.split("\n"), new.split("\n"))
+                   if a != b] * count
+    assert len(removed) == len(added) == len(pieces)
+    for line, new_line in zip(removed, added):
+        assert any(a in line and line.replace(a, b) == new_line
+                   for a, b in pieces), (line, new_line)

@@ -42,7 +42,7 @@ torch.set_num_threads(2)
     (torch.bfloat16, 256, 128, "mma_sync"),
     (torch.bfloat16, 192, 256, "mma_sync"),
     # C = 512: the wgmma route where the widths pad to C = 512 and D = 512
-    # or 2 (GMFlow at 512 channels), forward and dk/dv; dq stays mma.sync
+    # or 2 (GMFlow at 512 channels), forward, dq and dk/dv
     (torch.bfloat16, 512, 512, "wgmma"),
     (torch.bfloat16, 512, 2, "wgmma"),
     (torch.bfloat16, 500, 1, "wgmma"),          # pads to 512 x 2
@@ -58,13 +58,12 @@ torch.set_num_threads(2)
     (torch.float32, 128, 64, "f32"),
     (torch.float32, 32, 2, "f32")])
 def test_route_by_dtype_and_width(dtype, c, d, route):
-    """The forward names the backward dk/dv kernel's route for the same
-    operands, and dq's but at C = 512 (there dq takes mma.sync)."""
+    """The forward names the backward kernels' route (dq's and dk/dv's)
+    for the same operands."""
     p = tf.plan(2, 300, 300, c, d, dtype)
     pb = tb.plan(2, 300, 300, c, d, dtype)
-    assert p.route == route == pb.route_dkv
+    assert p.route == route == pb.route_dkv == pb.route_dq
     wide = route == "wgmma" and p.c_pad == 512
-    assert pb.route_dq == ("mma_sync" if wide else route)
     assert p.chunks == (2 if wide and p.d_pad == 512 else 1)
     assert route in tf.ROUTES
     if route != "tf32x3":       # only the tf32x3 route splits its sweep
@@ -183,8 +182,8 @@ def test_gmflow512_classes_take_wgmma_unsplit(name, shape):
     take that route, unsplit: the forward at all eight (two warpgroups of
     64 queries a block and two 256-column chunks of the output at D = 512,
     one warpgroup at D = 2; 64-key tiles; the blocks' shared memory
-    :func:`wgmma_smem`'s), dk/dv at the training four (and at the serving
-    ones, which no path differentiates); dq keeps the mma.sync route."""
+    :func:`wgmma_smem`'s), dq and dk/dv at the training four (and at the
+    serving ones, which no path differentiates)."""
     b, l, d = shape
     p = tf.plan(b, l, l, 512, d, torch.bfloat16)
     assert (p.route, p.splits, p.c_pad, p.d_pad) == ("wgmma", 1, 512, d)
@@ -193,34 +192,28 @@ def test_gmflow512_classes_take_wgmma_unsplit(name, shape):
     assert (p.rows, p.tile, p.chunks) == (64 * wgs, 64, 2 if d == 512 else 1)
     assert p.smem == tf.wgmma_smem(512, d, wgs)
     pb = tb.plan(b, l, l, 512, d, torch.bfloat16)
-    assert (pb.route_dq, pb.route_dkv) == ("mma_sync", "wgmma")
+    assert (pb.route_dq, pb.route_dkv) == ("wgmma", "wgmma")
     assert (pb.splits_dq, pb.splits_dkv) == (1, 1)
     assert tf.plan(b, l, l, 512, d, torch.bfloat16, bias=True) == p
 
 
 def test_forward_and_backward_share_one_width_predicate():
-    """One predicate names the wgmma widths of the forward and of dk/dv,
+    """One predicate names the wgmma widths of the forward, dq and dk/dv,
     and at every C, D in 1..256 (steps of 5, and every padded edge) and at
-    the edges of 512 both name the same bf16 route; dq's predicate is that
-    one but for C = 512, where dq takes mma.sync."""
+    the edges of 512 all three name the same bf16 route."""
     assert tb.wgmma_widths is tf.wgmma_widths
+    assert not hasattr(tb, "dq_wgmma_widths")
     widths = sorted(set(range(1, 257, 5)) | {2, 16, 17, 128, 129, 240, 241,
                                               255, 256, 497, 512, 513})
     for c in widths:
         for d in widths:
             f = tf.plan(3, 200, 200, c, d, torch.bfloat16).route
             pb = tb.plan(3, 200, 200, c, d, torch.bfloat16)
-            assert f == pb.route_dkv
+            assert f == pb.route_dkv == pb.route_dq
             assert (f == "wgmma") == tf.wgmma_widths(3, 200, 200, c, d)
-            assert (pb.route_dq == "wgmma") == tb.dq_wgmma_widths(
-                3, 200, 200, c, d)
-            assert pb.route_dq == (f if tf.padded_widths(c, d)[0] <= 256
-                                   else "mma_sync")
     assert tf.wgmma_widths(3, 200, 200, 512, 512)
     assert tf.wgmma_widths(3, 200, 200, 512, 2)
-    assert not tb.dq_wgmma_widths(3, 200, 200, 512, 512)
-    assert not tb.dq_wgmma_widths(3, 200, 200, 512, 2)
-    assert tb.dq_wgmma_widths(3, 200, 200, 256, 256)
+    assert tf.wgmma_widths(3, 200, 200, 256, 256)
     # rows past int32 in TMA's coordinates leave the route
     assert not tf.wgmma_widths(2 ** 16, 2 ** 15, 2 ** 15, 256, 256)
     assert not tf.wgmma_widths(2 ** 16, 2 ** 15, 2 ** 15, 512, 512)
