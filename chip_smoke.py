@@ -279,8 +279,9 @@ Run from the repository root on a host with one CUDA card. Phases:
    tiles, dK and dV in two 256-column chunks at D = 512; dq's blocks of
    64 queries that both warpgroups share, 256 of dQ's columns each, the
    keys through the ring of units of 32-row tiles at D = 512, in 64-row
-   tiles through a 2-stage ring at D = 2); elsewhere the mma.sync route (bf16) and the CUDA-core route
-   (f32), whose blocks stage C in 128-column panels (Q's, or the
+   tiles through a 2-stage ring at D = 2, half of each tile's keys a
+   warpgroup); elsewhere the mma.sync route (bf16) and the CUDA-core
+   route (f32), whose blocks stage C in 128-column panels (Q's, or the
    backward's resident side's, rows whole where they fit a block) and
    take D (dq: C; dk/dv: C and D) in 128-column chunks on a grid axis: C
    in {264, 384, 512, 1000} x D in {2, 3, 384, 512, 600} and C = 2000
@@ -292,9 +293,9 @@ Run from the repository root on a host with one CUDA card. Phases:
    training classes (dq and dk/dv) at their own shapes with the routes
    each kernel plans, [3e]'s and [3f]'s planted faults and q's columns
    past 256 zeroed (dq's too); [3j]'s edges at C = 512; the bits of the
-   routes C = 512 left as they were (mma.sync forced at a GMFlow-512 window class
-   and a D = 2 class, mma.sync and the CUDA cores at C = 64) against
-   ``NARROW_DIGESTS``; the Swin mask at C = D = 512 and C = 1000, D =
+   routes C = 512 left as they were (mma.sync forced at a GMFlow-512
+   window class and a D = 2 class, mma.sync and the CUDA cores at C = 64)
+   against ``NARROW_DIGESTS``; the Swin mask at C = D = 512 and C = 1000, D =
    600 with the planted faults, and in bf16 q's columns past 256 zeroed
    and v's columns past 256 zeroed, which must fail; a dense bias on
    every route (ragged Lk, rows masked whole, its planted faults; with

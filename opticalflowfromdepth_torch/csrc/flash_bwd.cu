@@ -30,9 +30,9 @@
 //
 // bf16 at C = 128 and D = 128 or 2 (every GMFlow call), and at C = 256 or
 // 512 and D = C or 2 (GMFlow at 256 and 512 channels): the wgmma route,
-// namespace sm90, both kernels templated on the width W = C. At C = 128: one block of two
-// warpgroups (256 threads) per (batch entry, 128 rows of the output
-// side), 64 rows each. The resident side (K and V for dk/dv; Q and G for
+// namespace sm90, both kernels templated on the width W = C. At C =
+// 128: one block of two warpgroups (256 threads) per (batch entry, 128
+// rows of the output side), 64 rows each. The resident side (K and V for dk/dv; Q and G for
 // dq) is loaded once by TMA; the other side
 // streams in 64-row tiles through a 2-stage ring under mbarriers (full:
 // the TMA bytes and the loading warp's 32 cp.async arrivals; empty: every

@@ -1,34 +1,31 @@
 """Time the flash backward's wgmma route at C = 256 or 512 against variants.
 
-At C = 256 (``--width 256``, the default): the dk/dv kernel at C = D = 256 lets both warpgroups share a block's 64
-keys, each holding 128 columns of dK and of dV, so each computes S^T = K
-Q^T and dP^T = V G^T over all of C and D: 1.5x the products the
-gradients need. The variant ``half_s`` takes those two products over half
-of C and D (``product_c<W / 2, ...>``): the volume of products a design
-without the recompute would launch, at the same tiles, turns and loads.
-Its gradients are wrong by design; the time it saves bounds what a
-design without the recompute could gain. The kernel as it stands is first
-held against ``flash_backward_plain`` (``bwd_bf16_tolerance``) at each
-class; then both builds are timed (CUDA events, ``chip_smoke.py:
-cuda_ms``) at ``chip_smoke.py:FLASH256_TRAIN_SHAPES``, GMFlow-256's
-training classes, in turns: as it stands, the variant, the variant, as it
-stands.
+At C = 256 (``--width 256``, the default): the dk/dv kernel at C = D =
+256 lets both warpgroups share a block's 64 keys, each holding 128
+columns of dK and of dV, so each computes S^T = K Q^T and dP^T = V G^T
+over all of C and D: 1.5x the products the gradients need. The variant
+``half_s`` takes those two products over half of C and D
+(``product_c<W / 2, ...>``): the volume of products a design without the
+recompute would launch, at the same tiles, turns and loads. Its
+gradients are wrong by design; the time it saves bounds what a design
+without the recompute could gain. The kernel as it stands is first held
+against ``flash_backward_plain`` (``bwd_bf16_tolerance``) at each class;
+then both builds are timed (CUDA events, ``chip_smoke.py:cuda_ms``) at
+``chip_smoke.py:FLASH256_TRAIN_SHAPES``, GMFlow-256's training classes,
+in turns: as it stands, the variant, the variant, as it stands.
 
 At C = 512 (``--width 512``): the dq kernel without a share of its work,
 each variant's time saved the cost of that share, at
 ``chip_smoke.py:FLASH512_TRAIN_SHAPES`` (GMFlow-512's training classes):
-``dq_half_s`` takes S = Q K^T and dP = G V^T over half of C and D (at D
-= 2, where each warpgroup computes S whole, half of S's products: what
-splitting S between the warpgroups would save before its swap);
-``dq_no_dq`` leaves out the dQ += dS K products (dS is still formed and
-kept);
-``dq_no_exp`` takes p = s - lse for exp(s - lse) (the special-function
-units' share). Their gradients are wrong by design.
+``dq_half_s`` takes S = Q K^T (and at D = 512 dP = G V^T) over half of C
+(and D); ``dq_no_dq`` leaves out the dQ += dS K products (dS is still
+formed and kept); ``dq_no_exp`` takes p = s - lse for exp(s - lse) (the
+special-function units' share). Their gradients are wrong by design.
 
 Run from the root of the repository, on a machine with a CUDA card and
 ``nvcc``::
 
-    python -m opticalflowfromdepth_torch.tools.flash_bwd_variants \
+    python -m opticalflowfromdepth_torch.tools.flash_bwd_variants \\
         [--width 512]
 
 It prints the card, each build's registers and spills, and per class the
