@@ -33,7 +33,22 @@ Run from the repository root on a host with one CUDA card. Phases:
    route) and bf16 (tensor-core route), with two launches that must give
    the same bits and two planted faults (df2cat x 0.98, the first query
    tile left out) that must fail the tolerance, and RAFT-small's radius-3
-   cases on both routes with the same checks; [3d] instance norm's
+   cases on both routes with the same checks; [3l] the lookup past the
+   tensor-core routes' operands: first the tensor-core routes' bits
+   (bf16, C = 128 and 256, radius 3 and 4, 4 levels) against digests
+   recorded from the tree before the kernels took every operand
+   (``LOOKUP_DIGESTS``), then at the training shape (batch 8 of 46x62) C in
+   {4, 36, 520, 1024} at radius 4 and 4 levels (f32 and bf16), bf16 C =
+   256 at radius 0, 5 and 6, 9 and 12 levels (bf16 C = 256 and f32 C =
+   128), and the 1/8 map of a 2160x3840 frame (B = 1, 270x480, 9
+   non-empty levels, bf16 C = 256), forward and backward within [3a]'s
+   and [3c]'s tolerances of the plain versions (over chunks of queries
+   where the dense correlation would not fit), each case's route, two
+   launches bit-equal, the levels pooled to nothing 0, planted faults
+   that must fail (the last 256-column chunk zeroed at C = 1024, the taps
+   past 81 dropped at radius 5, level 8's rows dropped), and times by
+   CUDA events beside the plain versions and the bounds; [3d] instance
+   norm's
    gradient at the training shapes (where the kernel's and the plain
    forward fall on opposite sides of the ReLU, |g| rstd allowed on top);
    [3e] the flash streaming-softmax kernel at
@@ -313,7 +328,18 @@ Run from the repository root on a host with one CUDA card. Phases:
    wgmma route;
 25. GMFlow at 512 channels training, as [22], every flash forward, dq and
    dk/dv on the wgmma route;
-26. a ``{"kernels": [...]}`` line (eight kernels; the flash rows count
+26. RAFT-basic training under each of the JAX package's scheduling
+   options at [7]'s shape (bf16, 12 iterations, classifier on, batch 8
+   of 368x496), from one seeded state and batch, cuDNN deterministic:
+   the default, ``remat="dots"``, ``remat="full"``, ``unroll=4`` and
+   ``blocked_supervision=True``, 3 steps each with exact launch counts
+   (12 lookups forward a step, 24 under "full", 12 backward, 15 instance
+   norms), the losses and metrics against the default's (``unroll``
+   bit-equal, the others within [6]'s tolerances), peak memory, ms a step
+   and the busy ms of one more step;
+27. a ``{"kernels": [...]}`` line (eight kernels; the lookup rows count
+   [26]'s launches too and carry [3l]'s largest errors at the training
+   shape; the flash rows count
    [18]'s, [21]'s, [22]'s, [24]'s and [25]'s launches too; the flash row
    also carries the f32 route's times at an f32 pair, ``f32_ms`` and the
    rest, and the dense bias's at GMFlow's four classes, ``bias_ms`` and
@@ -460,13 +486,19 @@ def valid_taps(coords, meta, radius: int) -> int:
     return total
 
 
-def corr_inputs(gen, b, h, w, dtype, spread, shift=0.0, c=256, levels=4):
+def corr_inputs(gen, b, h, w, dtype, spread, shift=0.0, c=256, levels=4,
+                offset=False):
     """Seeded f1 ``[B, N, C]``, packed f2cat and coordinates around the
-    identity grid (+- spread px, moved by shift) on the card."""
+    identity grid (+- spread px, moved by shift) on the card. ``offset``
+    adds a normal constant per (batch entry, channel) to f2, which the
+    pooling keeps: the coarse levels' lookups are then as large as the
+    fine ones', not the mean of thousands of i.i.d. values."""
     import torch
     from opticalflowfromdepth_torch.ops import fused_corr as fc
     f1 = torch.randn(b, h, w, c, generator=gen).cuda()
     f2 = torch.randn(b, h, w, c, generator=gen).cuda()
+    if offset:
+        f2 = f2 + torch.randn(b, 1, 1, c, generator=gen).cuda()
     yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
     base = torch.stack([xx, yy], -1).float()[None].repeat(b, 1, 1, 1)
     coords = base + (torch.rand(b, h, w, 2, generator=gen) * 2 - 1) \
@@ -1110,6 +1142,302 @@ def padded_rows(meta):
     rows = [off + x * hp + y for (hl, wl, hp, off) in meta
             for x in range(wl) for y in range(hl, hp)]
     return torch.tensor(rows, dtype=torch.long, device="cuda")
+
+
+# sha256 prefixes of the lookup's tensor-core routes (bf16, C = 128 and
+# 256, radius 3 and 4, 4 levels) on :func:`lookup_digests`'s inputs, by
+# nvcc release: the forward's out and the backward's (df1, df2cat),
+# recorded from the tree before the kernels took every C, radius and level
+# count
+LOOKUP_DIGESTS = {"12.9": {
+    "train 46x62 B=8 C=256 r=4": ("f98b65ba11e1da97", "72c273e2fb6a4b2a"),
+    "smooth 46x62 B=2 C=256 r=4": ("a4d42a0121f80429", "b6b0715efe735b6a"),
+    "ragged 13x21 B=2 C=256 r=4": ("5c0f38b3a0a7b006", "5bb39911c7891d88"),
+    "pooled 5x6 B=2 C=256 r=3": ("6de2ed982732a1f4", "e8e2631dc1a0c006"),
+    "pooled 3x40 B=2 C=256 r=4": ("376ee08f76b863b7", "8de56482c77a06ee"),
+    "small 12x16 B=4 C=128 r=3": ("9ccc572292705f98", "6fc26f6343a3f554"),
+    "smooth 46x62 B=2 C=128 r=4": ("b5cf67015fca565f", "a5b3438bf4ff0483"),
+    "ragged 11x19 B=3 C=128 r=3": ("71ea749a433ee575", "d9590eee3542ee5f")}}
+LOOKUP_DIGEST_CASES = (
+    # label, (b, h, w, c, radius, coordinates: +- px i.i.d., or "smooth")
+    ("train 46x62 B=8 C=256 r=4", (8, 46, 62, 256, 4, 20.0)),
+    ("smooth 46x62 B=2 C=256 r=4", (2, 46, 62, 256, 4, "smooth")),
+    ("ragged 13x21 B=2 C=256 r=4", (2, 13, 21, 256, 4, "smooth")),
+    ("pooled 5x6 B=2 C=256 r=3", (2, 5, 6, 256, 3, 3.0)),
+    ("pooled 3x40 B=2 C=256 r=4", (2, 3, 40, 256, 4, 6.0)),
+    ("small 12x16 B=4 C=128 r=3", (4, 12, 16, 128, 3, 6.0)),
+    ("smooth 46x62 B=2 C=128 r=4", (2, 46, 62, 128, 4, "smooth")),
+    ("ragged 11x19 B=3 C=128 r=3", (3, 11, 19, 128, 3, "smooth")))
+
+
+def lookup_digests(fc) -> dict:
+    """{case: (forward digest, backward digest)} of
+    :data:`LOOKUP_DIGEST_CASES` (4 levels, bf16), from a generator of its
+    own."""
+    import hashlib
+
+    import torch
+    gen = torch.Generator().manual_seed(23)
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().cpu().float().numpy().tobytes())
+        return h.hexdigest()[:16]
+    got = {}
+    for label, (b, h, w, c, radius, kind) in LOOKUP_DIGEST_CASES:
+        if kind == "smooth":
+            f1, f2cat, coords = smooth_corr_inputs(gen, b, h, w,
+                                                   torch.bfloat16, c)
+        else:
+            f1, f2cat, coords = corr_inputs(gen, b, h, w, torch.bfloat16,
+                                            kind, c=c)
+        k2 = (2 * radius + 1) ** 2
+        g = torch.randn(b, h * w, 4 * k2, generator=gen).cuda().bfloat16()
+        out = fc.fused_corr_lookup_cat(f1, f2cat, coords, h, w, 4, radius)
+        grads = fc.fused_corr_lookup_cat_bwd(g, f1, f2cat, coords, h, w, 4,
+                                             radius)
+        torch.cuda.synchronize()
+        got[label] = (digest(out), digest(*grads))
+    return got
+
+
+def dropped_taps_lookup(fc, f1, f2cat, coords, h, w, levels, radius, keep):
+    """The planted fault of the taps past ``keep``: the plain window form
+    (f32, differentiable in f1 and f2cat) with the dot products of the
+    integer taps ``x * (2r+2) + y >= keep`` of every level read as 0, as a
+    kernel whose tap table held ``keep`` taps would compute them."""
+    import torch
+    b, n, c = f1.shape
+    k = 2 * radius + 1
+    corr = torch.matmul(f1.float(), f2cat.float().transpose(1, 2)) \
+        * (1.0 / (c ** 0.5))
+    d = torch.arange(k + 1, dtype=torch.float32, device=f1.device) - radius
+    t = torch.arange((k + 1) ** 2, device=f1.device).reshape(k + 1, k + 1)
+    outs = []
+    for li, (hl, wl, hp, off) in enumerate(fc.cat_meta(h, w, levels)):
+        if hl == 0 or wl == 0:
+            outs.append(torch.zeros(b, n, k * k, device=f1.device))
+            continue
+        cl = coords.float() * (1.0 / 2.0 ** li)
+        x0, y0 = torch.floor(cl[..., 0]), torch.floor(cl[..., 1])
+        fx = (cl[..., 0] - x0)[..., None, None]
+        fy = (cl[..., 1] - y0)[..., None, None]
+        xs, ys = x0[..., None] + d, y0[..., None] + d
+        inb = (((xs >= 0) & (xs < wl))[..., :, None]
+               & ((ys >= 0) & (ys < hl))[..., None, :]) & (t < keep)
+        idx = off + xs.clamp(0, wl - 1).long()[..., :, None] * hp \
+            + ys.clamp(0, hl - 1).long()[..., None, :]
+        dots = torch.gather(corr, 2, idx.reshape(b, n, -1)).reshape(idx.shape)
+        dots = torch.where(inb, dots, torch.zeros((), device=f1.device))
+        ty = (1.0 - fy) * dots[..., :, :k] + fy * dots[..., :, 1:]
+        outs.append(((1.0 - fx) * ty[..., :k, :] + fx * ty[..., 1:, :])
+                    .reshape(b, n, k * k))
+    return torch.cat(outs, dim=-1)
+
+
+def chunked_plain(fc, f1, f2cat, coords, h, w, levels, radius, g=None,
+                  chunk=8192):
+    """The plain forward (``g`` None) or backward, over chunks of
+    ``chunk`` queries where the dense [B, N, R] correlation would not fit
+    the card at once: the queries are independent, and df2cat is the sum
+    of the chunks' in f32. There the backward keeps ``d_corr`` in f32 (one
+    product a chunk); the tensor-core route's hi + lo split is within
+    2^-16 of it, far inside [3c]'s tolerance."""
+    import torch
+    n = f1.shape[1]
+    if n <= chunk:
+        if g is None:
+            return fc.fused_corr_lookup_cat_plain(f1, f2cat, coords, h, w,
+                                                  levels, radius)
+        return fc.fused_corr_lookup_cat_bwd_plain(g, f1, f2cat, coords, h,
+                                                  w, levels, radius)
+    if g is None:
+        return torch.cat([fc.fused_corr_lookup_cat_plain(
+            f1[:, s:s + chunk], f2cat, coords[:, s:s + chunk], h, w, levels,
+            radius) for s in range(0, n, chunk)], dim=1)
+    df1, df2 = [], torch.zeros(f2cat.shape, device=f2cat.device)
+    for s in range(0, n, chunk):
+        a, b = fc.fused_corr_lookup_cat_bwd_plain(
+            g[:, s:s + chunk].float(), f1[:, s:s + chunk].float(),
+            f2cat.float(), coords[:, s:s + chunk], h, w, levels, radius,
+            d_corr_rounding="none")
+        df1.append(a.to(f1.dtype))
+        df2 += b
+    return torch.cat(df1, dim=1), df2.to(f2cat.dtype)
+
+
+# the lookup past the tensor-core routes' operands, at RAFT-basic training's
+# shape (batch 8 of 368x496, so 46x62 at 1/8) and at the 1/8 map of a
+# 2160x3840 frame: label, (b, h, w, C, radius, levels, dtype)
+SURFACE_HW = (TRAIN_CROP[0] // 8, TRAIN_CROP[1] // 8)
+LOOKUP_SURFACE = tuple(
+    (f"C={c} r=4 L=4 {dt}", (TRAIN_BATCH, *SURFACE_HW, c, 4, 4, dt))
+    for c in (4, 36, 520, 1024) for dt in ("f32", "bf16")) + tuple(
+    (f"C=256 r={r} L=4 bf16", (TRAIN_BATCH, *SURFACE_HW, 256, r, 4, "bf16"))
+    for r in (0, 5, 6)) + tuple(
+    (f"C={c} r=4 L={lv} {dt}", (TRAIN_BATCH, *SURFACE_HW, c, 4, lv, dt))
+    for lv in (9, 12) for c, dt in ((256, "bf16"), (128, "f32"))) + (
+    ("2160x3840's 1/8 map 270x480 B=1 C=256 r=4 L=9 bf16",
+     (1, 270, 480, 256, 4, 9, "bf16")),)
+
+
+def lookup_surface_phase():
+    """[3l]: the tensor-core routes' recorded bits, then every
+    :data:`LOOKUP_SURFACE` case forward and backward against the plain
+    versions within [3a]'s and [3c]'s tolerances, two launches bit-equal,
+    the planted faults, and times beside the plain versions and the
+    bounds. Returns the largest error at the training classes (forward,
+    backward)."""
+    import torch
+    from opticalflowfromdepth_torch.ops import fused_corr as fc
+
+    print("[3l] the fused lookup past the tensor-core routes' operands: "
+          "every C, radius and level count, forward and backward, CUDA "
+          "kernels vs plain", flush=True)
+    release = nvcc_release()
+    got, want = lookup_digests(fc), LOOKUP_DIGESTS.get(release)
+    for label, (_b, _h, _w, c, radius, _kind) in LOOKUP_DIGEST_CASES:
+        fwd, bwd = got[label]
+        line = (f"  {label} ({fc.route(torch.bfloat16, c, radius)}): bits "
+                f"(sha256) forward {fwd}, backward {bwd}")
+        if want is None:
+            print(f"{line}, not compared: recorded with nvcc "
+                  f"{', '.join(LOOKUP_DIGESTS)}, built with {release}",
+                  flush=True)
+            continue
+        print(f"{line}, recorded {want[label][0]}, {want[label][1]} (nvcc "
+              f"{release})", flush=True)
+        if (fwd, bwd) != want[label]:
+            fail(f"[3l] the lookup's tensor-core bits changed at {label}")
+
+    sgen = torch.Generator().manual_seed(2160)
+    worst = [0.0, 0.0]
+    for label, (b, h, w, c, radius, levels, dt) in LOOKUP_SURFACE:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        # [3a]'s and [3c]'s tolerances
+        ftol = (2e-2, 2e-2) if dt == "bf16" else (0.0, 1e-4)
+        btol = (2 ** -7, 1e-3) if dt == "bf16" else (0.0, 1e-4)
+        meta = fc.cat_meta(h, w, levels)
+        live = fc.live_levels(meta)
+        rt = fc.route(dtype, c, radius, live)
+        k2 = (2 * radius + 1) ** 2
+        f1, f2cat, coords = corr_inputs(sgen, b, h, w, dtype, 20.0, c=c,
+                                        levels=levels, offset=True)
+        g = torch.randn(b, h * w, levels * k2, generator=sgen).cuda() \
+            .to(dtype)
+        big = b * h * w > 8192
+        got = fc.fused_corr_lookup_cat(f1, f2cat, coords, h, w, levels,
+                                       radius)
+        again = fc.fused_corr_lookup_cat(f1, f2cat, coords, h, w, levels,
+                                         radius)
+        grads = fc.fused_corr_lookup_cat_bwd(g, f1, f2cat, coords, h, w,
+                                             levels, radius)
+        grads2 = fc.fused_corr_lookup_cat_bwd(g, f1, f2cat, coords, h, w,
+                                              levels, radius)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again)
+                and all(torch.equal(x, y) for x, y in zip(grads, grads2))):
+            fail(f"[3l] {label}: two launches on the same inputs differ")
+        ref = chunked_plain(fc, f1, f2cat, coords, h, w, levels, radius)
+        ref_b = chunked_plain(fc, f1, f2cat, coords, h, w, levels, radius, g)
+        if got.shape != ref.shape or got.dtype != dtype or any(
+                x.shape != y.shape or x.dtype != dtype
+                for x, y in zip(grads, (f1, f2cat))):
+            fail(f"[3l] {label}: shapes or dtypes {got.shape}/{got.dtype}")
+        errs = [max_rel_excess(got, ref, *ftol)] + [
+            max_rel_excess(x, r, *btol) for x, r in zip(grads, ref_b)]
+        print(f"  {label}: {live} non-empty levels of {levels}, R = "
+              f"{f2cat.shape[1]}, route {rt}; |d| / tolerance forward "
+              f"{errs[0]:.3f}, df1 {errs[1]:.3f}, df2cat {errs[2]:.3f} (each "
+              f"<= 1); two launches bit-equal", flush=True)
+        if not max(errs) <= 1.0:
+            fail(f"[3l] {label}: beyond the tolerance {errs}")
+        if torch.count_nonzero(grads[1][:, padded_rows(meta)]) \
+                or torch.count_nonzero(got[..., live * k2:]):
+            fail(f"[3l] {label}: padded rows or pooled levels not 0")
+        if b == TRAIN_BATCH:
+            worst[0] = max(worst[0], float((got.float() - ref.float())
+                                           .abs().max()))
+            worst[1] = max(worst[1], max(float((x.float() - r.float())
+                                               .abs().max())
+                                         for x, r in zip(grads, ref_b)))
+
+        # the planted faults, each of which must fail the tolerance
+        faults = {}
+        if c == 1024:
+            cut = f1.clone()
+            cut[..., -256:] = 0
+            faults["forward, f1's last 256-column chunk zeroed"] = \
+                max_rel_excess(fc.fused_corr_lookup_cat(
+                    cut, f2cat, coords, h, w, levels, radius), ref, *ftol)
+            for i, name in enumerate(("df1", "df2cat")):
+                bad = grads[i].clone()
+                bad[..., -256:] = 0
+                faults[f"{name}'s last 256-column chunk zeroed"] = \
+                    max_rel_excess(bad, ref_b[i], *btol)
+        if radius == 5:
+            f1r = f1.float().requires_grad_()
+            f2r = f2cat.float().requires_grad_()
+            bad = dropped_taps_lookup(fc, f1r, f2r, coords, h, w, levels,
+                                      radius, 81)
+            faults["forward, the taps past 81 dropped"] = max_rel_excess(
+                bad.detach().to(dtype), ref, *ftol)
+            bad1, bad2 = torch.autograd.grad(bad, (f1r, f2r), g.float())
+            for name, x, r in (("df1", bad1, ref_b[0]),
+                               ("df2cat", bad2, ref_b[1])):
+                faults[f"{name}, the taps past 81 dropped"] = \
+                    max_rel_excess(x.to(dtype), r, *btol)
+        if live > 8:
+            _hl, wl8, hp8, off8 = meta[8]
+            cut = f2cat.clone()
+            cut[:, off8:off8 + wl8 * hp8] = 0
+            faults["forward, level 8's rows dropped"] = max_rel_excess(
+                fc.fused_corr_lookup_cat(f1, cut, coords, h, w, levels,
+                                         radius), ref, *ftol)
+            df1_cut = fc.fused_corr_lookup_cat_bwd(g, f1, cut, coords, h, w,
+                                                   levels, radius)[0]
+            faults["df1, level 8's rows dropped"] = max_rel_excess(
+                df1_cut, ref_b[0], *btol)
+            bad = grads[1].clone()
+            bad[:, off8:off8 + wl8 * hp8] = 0
+            faults["df2cat, level 8's rows dropped"] = max_rel_excess(
+                bad, ref_b[1], *btol)
+        if faults:
+            print("    planted faults, |d| / tolerance (each must exceed 1): "
+                  + "; ".join(f"{k} {v:.2f}" for k, v in faults.items()),
+                  flush=True)
+            if not min(faults.values()) > 1.0:
+                fail(f"[3l] {label}: a planted fault passes {faults}")
+
+        # times (CUDA events) beside the plain versions and the bounds
+        reps = 3 if big else 10
+        ms = cuda_ms(lambda: fc.fused_corr_lookup_cat(
+            f1, f2cat, coords, h, w, levels, radius), reps=reps, warm=1)
+        ms_b = cuda_ms(lambda: fc.fused_corr_lookup_cat_bwd(
+            g, f1, f2cat, coords, h, w, levels, radius), reps=reps, warm=1)
+        plain = cuda_ms(lambda: chunked_plain(
+            fc, f1, f2cat, coords, h, w, levels, radius), reps=1, warm=0)
+        plain_b = cuda_ms(lambda: chunked_plain(
+            fc, f1, f2cat, coords, h, w, levels, radius, g), reps=1, warm=0)
+        n, es = b * h * w, f1.element_size()
+        taps = valid_taps(coords, meta, radius)
+        peak = BF16_FLOP_PER_S if dt == "bf16" else FP32_FLOP_PER_S
+        fb, fby = bound_ms(
+            2 * c * taps + 10 * n * live * k2, 0,
+            (f1.numel() + f2cat.numel() + n * levels * k2) * es
+            + coords.numel() * 4, peak)
+        bb, bby = bound_ms(
+            4 * c * taps + 8 * n * live * (2 * radius + 2) ** 2, 0,
+            (g.numel() + 2 * f1.numel() + 2 * f2cat.numel()) * es
+            + coords.numel() * 4, peak)
+        print(f"    forward {ms * 1e3:.1f} us (plain {plain * 1e3:.1f}, "
+              f"bound {fb * 1e3:.2f} us, {fby}); backward {ms_b * 1e3:.1f} "
+              f"us (plain {plain_b * 1e3:.1f}, bound {bb * 1e3:.2f} us, "
+              f"{bby})", flush=True)
+        del f1, f2cat, coords, g, got, again, grads, grads2, ref, ref_b
+        torch.cuda.empty_cache()
+    return worst
 
 
 def instance_norm_grad_phase(gen):
@@ -5912,6 +6240,117 @@ def flash_wide_phase(gen):
     return c512, worst, wide
 
 
+RAFT_OPTIONS = (("default", {}), ("remat=dots", dict(remat="dots")),
+                ("remat=full", dict(remat="full")),
+                ("unroll=4", dict(unroll=4)),
+                ("blocked_supervision", dict(blocked_supervision=True)))
+
+
+def raft_options_phase(card: str) -> dict:
+    """[26]: RAFT-basic training at [7]'s shape under each of the JAX
+    package's scheduling options, from one seeded state and batch: 3 steps
+    each with the launch counts checked, losses and metrics against the
+    default's, peak memory, ms a step and the busy ms of one more step.
+    Returns the summed launch counts of the options' steps."""
+    import torch
+    from opticalflowfromdepth_torch.train import raft_train as rt
+
+    b, (ch, cw), iters = TRAIN_BATCH, TRAIN_CROP, TRAIN_ITERS
+    steps = 3
+    print(f"[26] RAFT-basic training under each scheduling option ({card}): "
+          f"bf16, fused corr, {iters} iters, classifier on, batch {b} of "
+          f"{ch}x{cw}, {steps} steps from one seeded state and batch, cuDNN "
+          "deterministic", flush=True)
+    batch = smooth_batch(26, b, ch, cw)
+    total = dict.fromkeys(launch_counts(), 0)
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    # cuDNN's own algorithms may add in another order from run to run;
+    # every kernel of the port is deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, option in RAFT_OPTIONS:
+            cfg = rt.RAFTTrainConfig(batch_size=b, image_size=TRAIN_CROP,
+                                     iters=iters, mixed_precision=True,
+                                     corr_impl="fused", add_classifier=True,
+                                     **option)
+            state = rt.init_state(cfg, seed=0)
+            step = rt.make_train_step(cfg, seeded_classifier(
+                4, torch.bfloat16))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()
+            metrics, times = [], []
+            for i in range(steps):
+                t = time.perf_counter()
+                state, m = step(state, batch,
+                                torch.Generator(device="cuda").manual_seed(i))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            fwd = (2 if name == "remat=full" else 1) * iters * steps
+            want = want_launches(fused_corr_lookup=fwd,
+                                 fused_corr_lookup_bwd=iters * steps,
+                                 instance_norm=15 * steps)
+            if launches != want:
+                fail(f"[26] {name}: launch counts {launches}, want {want}")
+            for k, v in launches.items():
+                total[k] += v
+            ms = sum(times[1:]) / (steps - 1)
+            params = {k: v.clone() for k, v in
+                      state.model.state_dict().items()}
+            losses = [round(x["total_loss"], 6) for x in metrics]
+            print(f"  {name}: losses {losses}; lookups "
+                  f"{launches['fused_corr_lookup']} forward, "
+                  f"{launches['fused_corr_lookup_bwd']} backward over "
+                  f"{steps} steps; peak device memory {peak:.2f} GiB; ms a "
+                  f"step {[round(x, 3) for x in times]} (steps 2-{steps} "
+                  f"{ms:.3f})", flush=True)
+            busy = profile(lambda: step(
+                state, batch, torch.Generator(device="cuda").manual_seed(9)),
+                ms, f"step ({name})")
+            runs[name] = dict(metrics=metrics, peak=peak, ms=ms, busy=busy,
+                              params=params)
+            del state, step
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    ref = runs["default"]
+    for name, run in runs.items():
+        if name == "default":
+            continue
+        rel = max(abs(m[k] - r[k]) / max(abs(r[k]), 1e-6)
+                  for m, r in zip(run["metrics"], ref["metrics"]) for k in r)
+        same = sum(torch.equal(v, ref["params"][k])
+                   for k, v in run["params"].items())
+        diff = max(float((v.float() - ref["params"][k].float()).abs().max())
+                   for k, v in run["params"].items())
+        print(f"  {name} against the default after {steps} steps: losses "
+              f"and metrics within {rel:.3e} relative; {same} of "
+              f"{len(ref['params'])} parameters and buffers bit-equal, "
+              f"largest difference {diff:.3e}; peak {run['peak']:.2f} GiB "
+              f"(default {ref['peak']:.2f}); {run['ms']:.3f} ms a step, busy "
+              f"{run['busy']:.3f} ms ({card})", flush=True)
+        if name == "unroll=4":
+            if rel != 0.0 or same != len(ref["params"]):
+                fail("[26] unroll=4 is not bit-equal to the default")
+        else:
+            # [6]'s tolerances: the loss and metrics 1e-4 relative, the
+            # parameters after the updates 2e-4
+            check(f"{name}: losses and metrics, relative", rel, 1e-4)
+            check(f"{name}: parameters and statistics", diff, 2e-4)
+    peaks = {k: runs[k]["peak"] for k in ("remat=full", "remat=dots",
+                                          "default")}
+    print(f"  peak memory full {peaks['remat=full']:.2f} <= dots "
+          f"{peaks['remat=dots']:.2f} <= none {peaks['default']:.2f} GiB: "
+          f"{peaks['remat=full'] <= peaks['remat=dots'] <= peaks['default']}",
+          flush=True)
+    return total
+
+
 def main() -> None:
     try:
         import torch
@@ -5961,6 +6400,11 @@ def main() -> None:
     kernels = [timed("3a", fused_corr_phase, gen),
                timed("3b", instance_norm_phase, gen),
                timed("3c", fused_corr_bwd_phase, gen)]
+    # the lookup past the tensor-core routes' operands, from
+    # generators of its own
+    worst = timed("3l", lookup_surface_phase)
+    for k, err in zip((kernels[0], kernels[2]), worst):
+        k["max_abs_err"] = max(k["max_abs_err"], err)
     timed("3d", instance_norm_grad_phase, gen)
     flash = timed("3e", flash_phase, gen)
     flash_bwd = timed("3f", flash_bwd_phase, gen)
@@ -6048,6 +6492,12 @@ def main() -> None:
         if k["name"] in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
             k["launches"] += served[k["name"]] + trained[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], worst[k["name"]])
+    # RAFT-basic training under each scheduling option; the
+    # lookup rows gain its launches
+    launches = timed("26", raft_options_phase, card)
+    for k in kernels:
+        if k["name"] in ("fused_corr_lookup", "fused_corr_lookup_bwd"):
+            k["launches"] += launches[k["name"]]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -17,7 +17,8 @@
 // y padded to hp, so a column's rows are contiguous. Accumulation is f32;
 // the output is written in f1's dtype.
 //
-// bf16 at C = 128 or 256 (RAFT-basic's 256), the tensor-core route: one
+// bf16 at C = 128 or 256 and radius <= 4 (RAFT's 256 or 128 and 4 or
+// 3), the tensor-core route: one
 // block of one warpgroup per (8x8 query tile of the query image, batch
 // entry, level). Neighbouring queries' windows overlap almost entirely
 // (the coordinates are the pixel grid plus a smooth flow), so the block
@@ -46,9 +47,17 @@
 // Every launch on the same inputs gives the same bits (fixed orders, no
 // atomics on floats).
 //
-// f32, and bf16 at other widths (C % 8 == 0 up to 512), the CUDA-core
-// route: one warp per query walks every level's taps as the per-query
-// path does, f1[q] in registers.
+// f32, and every other operand (any C, any radius, any level count),
+// the CUDA-core route: one warp per query walks every level's taps as the
+// per-query path does. Lane `lane` takes columns [8 (32 k + lane), +8) of
+// each 256-column chunk k; f1's first two chunks (C <= 512) stay in its
+// registers and the rest is read again per tap (L1); C % 8 != 0 takes
+// scalar loads. The taps come in blocks of at most 17 x 17 (16 x 16
+// window outputs), so any radius fits a warp's table; up to r = 7 one
+// block holds the whole window. The levels come from a table of
+// MAX_LEVELS, which holds every non-empty level of any map (level l has h
+// >> l rows); the levels past them are pooled to nothing, and
+// zero_levels writes their lookups as 0 on either route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,11 +68,12 @@
 
 typedef __nv_bfloat16 bf16;
 
-#define MAX_LEVELS 8
+// the non-empty levels a map can have: h >> 31 == 0 for any int h
+#define MAX_LEVELS 32
 #define WARPS 8
 #define VEC 8
-#define MAX_CHUNKS 2            // C <= MAX_CHUNKS * 32 * VEC = 512
-#define MAX_TAPS 128            // (2r+2)^2, so r <= 4
+#define MAX_CHUNKS 2            // f1's columns in registers: 512
+#define TB 16                   // a tap block's window outputs a side
 
 struct Meta {
   int hl[MAX_LEVELS], wl[MAX_LEVELS], hp[MAX_LEVELS], off[MAX_LEVELS];
@@ -87,10 +97,39 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
   }
 }
 
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+
+// The 8 columns [c, c + 8) of a row, zeros past C: one 16-byte load where
+// C % 8 == 0 (V8; the wrapper hands 16-byte aligned tensors), else one
+// load a column.
+template <bool V8, typename T>
+__device__ __forceinline__ void load_cols(const T* row, int c, int C,
+                                          float (&v)[VEC]) {
+  if (V8 && c < C) {
+    load8(row + c, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = c + i < C ? load1(row + c + i) : 0.f;
+  }
+}
+
+// The 8 columns [c, c + 8) of acc into a row, none past C.
+template <bool V8, typename T>
+__device__ __forceinline__ void store_cols(T* row, int c, int C,
+                                           const float (&acc)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i)
+    if (V8 || c + i < C) store1(row + c + i, acc[i]);
 }
 
 // The window origin of a query at level l: the first integer tap (ix0,
@@ -109,25 +148,52 @@ __device__ __forceinline__ void window_at(float cx, float cy, int l, int hl,
   *iy0 = (int)fminf(fmaxf(y0, -radius - 2.f), (float)(hl + radius)) - radius;
 }
 
-// The lane's channels of one f1 row: 8 per 256-channel chunk, zeros past C.
-template <typename T>
+// The lane's registered columns of one f1 row: 8 per 256-column chunk of
+// the first MAX_CHUNKS, zeros past C.
+template <bool V8, typename T>
 __device__ __forceinline__ void load_f1_row(const T* f1q, int C, int lane,
                                             float (&f1r)[MAX_CHUNKS][VEC]) {
+#pragma unroll
+  for (int ch = 0; ch < MAX_CHUNKS; ++ch)
+    load_cols<V8>(f1q, (ch * 32 + lane) * VEC, C, f1r[ch]);
+}
+
+// One warp: the dot product of f1's row (its first MAX_CHUNKS chunks in
+// f1r, the rest read from f1q) with one f2 row, each lane summing its
+// columns chunk by chunk, then reduced with warp shuffles; every lane
+// gets it.
+template <bool V8, typename T>
+__device__ __forceinline__ float row_dot(const float (&f1r)[MAX_CHUNKS][VEC],
+                                         const T* __restrict__ f1q,
+                                         const T* __restrict__ row, int C,
+                                         int lane) {
+  float acc = 0.f;
 #pragma unroll
   for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
     const int c = (ch * 32 + lane) * VEC;
     if (c < C) {
-      load8(f1q + c, f1r[ch]);
-    } else {
+      float v[VEC];
+      load_cols<V8>(row, c, C, v);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) f1r[ch][i] = 0.f;
+      for (int i = 0; i < VEC; ++i) acc = fmaf(f1r[ch][i], v[i], acc);
     }
   }
+  for (int c = (MAX_CHUNKS * 32 + lane) * VEC; c < C; c += 32 * VEC) {
+    float u[VEC], v[VEC];
+    load_cols<V8>(f1q, c, C, u);
+    load_cols<V8>(row, c, C, v);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc = fmaf(u[i], v[i], acc);
+  }
+#pragma unroll
+  for (int m = 16; m; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  return acc;
 }
 
 // One warp: the (2r+2)^2 dot products of a query's window at one level,
-// tap by tap, each reduced with warp shuffles and times `scale`, 0 outside
-// the level; lane 0 writes dq[t]. f2l is the level's first packed row.
+// tap by tap, times `scale`, 0 outside the level; lane 0 writes dq[t].
+// f2l is the level's first packed row. (The tensor-core route's per-query
+// path, C = 128 or 256.)
 template <typename T>
 __device__ __forceinline__ void window_dots(
     const float (&f1r)[MAX_CHUNKS][VEC], const T* __restrict__ f2l, int C,
@@ -139,90 +205,120 @@ __device__ __forceinline__ void window_dots(
     const int xx = ix0 + t / K1;
     const int yy = iy0 + t % K1;
     float d = 0.f;
-    if (xx >= 0 && xx < wl && yy >= 0 && yy < hl) {  // uniform branch
-      const T* row = f2l + ((long long)xx * hp + yy) * C;
-      float acc = 0.f;
-#pragma unroll
-      for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
-        const int c = (ch * 32 + lane) * VEC;
-        if (c < C) {
-          float v[VEC];
-          load8(row + c, v);
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) acc = fmaf(f1r[ch][i], v[i], acc);
-        }
-      }
-#pragma unroll
-      for (int m = 16; m; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-      d = acc * scale;
-    }
+    if (xx >= 0 && xx < wl && yy >= 0 && yy < hl)  // uniform branch
+      d = row_dot<true>(f1r, (const T*)nullptr,
+                        f2l + ((long long)xx * hp + yy) * C, C, lane) * scale;
     if (lane == 0) dq[t] = d;
   }
 }
 
-// The CUDA-core route (f32, and bf16 at widths other than 128 and 256):
-// one warp per query, every level.
-template <typename T>
+// The CUDA-core route: one warp per query, every non-empty level (L of
+// them; the output has Lout levels a query). Per level the window in tap
+// blocks: window outputs [a, a + nb) x [b0, b0 + mb) from the dot
+// products at the (nb + 1) x (mb + 1) taps under them, y first, then x
+// (the TPU kernel's stage order).
+template <bool V8, typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 fused_corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2cat,
                       const float* __restrict__ coords, T* __restrict__ out,
-                      int B, int N, int C, int R, int L, Meta meta,
+                      int B, int N, int C, int R, int L, int Lout, Meta meta,
                       int radius, float scale) {
-  __shared__ float dots[WARPS][MAX_TAPS];
+  __shared__ float dots[WARPS][(TB + 1) * (TB + 1)];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long q = (long long)blockIdx.x * WARPS + warp;  // flat (b, n)
   if (q >= (long long)B * N) return;  // uniform over the warp
   const int b = (int)(q / N);
   const int K = 2 * radius + 1;
-  const int K1 = K + 1;
+  const long long KK = (long long)K * K;
 
+  const T* f1q = f1 + q * C;
   float f1r[MAX_CHUNKS][VEC];
-  load_f1_row(f1 + q * C, C, lane, f1r);
+  load_f1_row<V8>(f1q, C, lane, f1r);
   const float cx = coords[2 * q];
   const float cy = coords[2 * q + 1];
   const T* f2b = f2cat + (long long)b * R * C;
-  T* outq = out + q * (long long)(L * K * K);
+  T* outq = out + q * (Lout * KK);
   float* dq = dots[warp];
 
   for (int l = 0; l < L; ++l) {
     const int hl = meta.hl[l], wl = meta.wl[l], hp = meta.hp[l];
-    T* o = outq + l * K * K;
-    if (hl == 0 || wl == 0) {  // level pooled away: zero lookups
-      for (int t = lane; t < K * K; t += 32) store1(o + t, 0.f);
-      continue;
-    }
+    const T* f2l = f2b + (long long)meta.off[l] * C;
+    T* o = outq + l * KK;
     int ix0, iy0;
     float fx, fy;
     window_at(cx, cy, l, hl, wl, radius, &ix0, &iy0, &fx, &fy);
-    window_dots(f1r, f2b + (long long)meta.off[l] * C, C, hl, wl, hp, ix0,
-                iy0, K1, scale, dq, lane);
-    __syncwarp();
-    // y first, then x: the TPU kernel's stage order
-    for (int t = lane; t < K * K; t += 32) {
-      const int kx = t / K, ky = t % K;
-      const float* d0 = dq + kx * K1 + ky;
-      const float* d1 = d0 + K1;
-      const float v = (1.f - fx) * ((1.f - fy) * d0[0] + fy * d0[1]) +
-                      fx * ((1.f - fy) * d1[0] + fy * d1[1]);
-      store1(o + t, v);
+    for (int a = 0; a < K; a += TB) {
+      for (int b0 = 0; b0 < K; b0 += TB) {
+        const int nb = min(TB, K - a), mb = min(TB, K - b0), m1 = mb + 1;
+        const int taps = (nb + 1) * m1;
+#pragma unroll 4
+        for (int t = 0; t < taps; ++t) {
+          const int xx = ix0 + a + t / m1;
+          const int yy = iy0 + b0 + t % m1;
+          float d = 0.f;
+          if (xx >= 0 && xx < wl && yy >= 0 && yy < hl)  // uniform branch
+            d = row_dot<V8>(f1r, f1q, f2l + ((long long)xx * hp + yy) * C,
+                            C, lane) * scale;
+          if (lane == 0) dq[t] = d;
+        }
+        __syncwarp();
+        for (int t = lane; t < nb * mb; t += 32) {
+          const int kx = t / mb, ky = t - kx * mb;
+          const float* d0 = dq + kx * m1 + ky;
+          const float* d1 = d0 + m1;
+          const float v = (1.f - fx) * ((1.f - fy) * d0[0] + fy * d0[1]) +
+                          fx * ((1.f - fy) * d1[0] + fy * d1[1]);
+          store1(o + (long long)(a + kx) * K + b0 + ky, v);
+        }
+        __syncwarp();
+      }
     }
-    __syncwarp();
   }
 }
 
+// The lookups of the levels past the non-empty ones: out[q, from:stride]
+// = 0 for every query (rows of `stride` values).
+template <typename T>
+__global__ void __launch_bounds__(256)
+zero_levels(T* __restrict__ out, long long rows, long long stride,
+            long long from) {
+  const long long per = stride - from;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < rows * per;
+       i += (long long)gridDim.x * 256)
+    store1(out + (i / per) * stride + from + i % per, 0.f);
+}
+
+template <typename T>
+static int zero_levels_launch(void* out, long long rows, long long stride,
+                              long long from, cudaStream_t st) {
+  const long long n = rows * (stride - from);
+  if (n <= 0) return 0;
+  const long long blocks = (n + 255) / 256;
+  zero_levels<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(
+      (T*)out, rows, stride, from);
+  return (int)cudaGetLastError();
+}
+
+// The table of the L non-empty levels: 4 ints each (hl, wl, hp,
+// row_offset), as cat_meta.
 static bool unpack_meta(int L, int C, int radius, const int* meta, Meta* m) {
-  if (L < 0 || L > MAX_LEVELS || C % VEC != 0 || C > MAX_CHUNKS * 32 * VEC ||
-      (2 * radius + 2) * (2 * radius + 2) > MAX_TAPS || radius < 0)
-    return false;
+  if (L < 0 || L > MAX_LEVELS || C < 1 || radius < 0) return false;
   *m = Meta{};
   for (int l = 0; l < L; ++l) {
     m->hl[l] = meta[4 * l];
     m->wl[l] = meta[4 * l + 1];
     m->hp[l] = meta[4 * l + 2];
     m->off[l] = meta[4 * l + 3];
+    if (m->hl[l] < 1 || m->wl[l] < 1) return false;
   }
   return true;
+}
+
+// The tensor-core routes take bf16 at C = 128 or 256, radius <= 4 (their
+// tap tables hold (2r + 2)^2 <= 100) and at least one non-empty level.
+static bool tensor_cores_take(int is_bf16, int C, int radius, int L) {
+  return is_bf16 && (C == 128 || C == 256) && radius <= 4 && L >= 1;
 }
 
 // Backward of the lookup, for Hopper (sm_90a).
@@ -242,13 +338,14 @@ static bool unpack_meta(int L, int C, int radius, const int* meta, Meta* m) {
 // matmuls; this design does the same in three passes, in the image of the
 // flash backward's two, with no float atomics anywhere, so every launch on
 // the same inputs gives the same bits:
-//   (a) corr_bwd_taps, one warp per query: per level the window origin
-//       (ix0, iy0) and the (2r+2)^2 tap gradients, s folded in, into a
-//       scratch dtap [B, L, Npad, taps] f32 and orig [B, L, Npad] int2
-//       (queries N..Npad and levels pooled away get an origin that no row
-//       matches); and the row table tab [T * 64]: the packed rows cut into
-//       T tiles of 64 that never straddle a level, each row's (x << 16 | y)
-//       in its level, -1 for a padded row, -2 past the level's end.
+//   (a) corr_bwd_taps, one warp per query: per non-empty level the
+//       window origin (ix0, iy0) and the (2r+2)^2 tap gradients, s folded
+//       in, into a scratch dtap [B, L, Npad, taps] f32 and orig [B, L,
+//       Npad] int2 (queries N..Npad get an origin that no row matches;
+//       the levels pooled to nothing have no rows and no scratch); and
+//       the row table tab [T * 64]: the packed rows cut into T tiles of
+//       64 that never straddle a level, each row's (x << 16 | y) in its
+//       level, -1 for a padded row, -2 past the level's end.
 //       d_corr[q, row] is then one look-up: a row of the tile's level is
 //       tap (x - ix0, y - iy0) of q if both lie in [0, 2r+2), else 0.
 //   (b) df1: one block per (batch entry, 128 queries) sweeps the T row
@@ -259,12 +356,13 @@ static bool unpack_meta(int L, int C, int radius, const int* meta, Meta* m) {
 //       blocks of each fill the other's tail wave.
 // Each output is written once, in its input's dtype.
 //
-// bf16 at C = 128 or 256 (RAFT-basic's 256): (b) and (c) on the tensor
-// cores, two warpgroups a block, 64 output rows each. The streamed side
-// (f2cat row tiles in (b); f1 query tiles, with their dtap slab and
-// origins, in (c)) comes in by TMA and bulk copies through a 2-stage ring
-// under mbarriers; (b) keeps the dtap slab of its 128 queries for the
-// current level in shared memory, reloaded when the sweep enters a level.
+// bf16 at C = 128 or 256 and radius <= 4 (as the forward): (b) and (c)
+// on the tensor cores, two warpgroups a block, 64 output rows each. The
+// streamed side (f2cat row tiles in (b); f1 query tiles, with their dtap
+// slab and origins, in (c)) comes in by TMA and bulk copies through a
+// 2-stage ring under mbarriers; (b) keeps the dtap slab of its 128
+// queries for the current level in shared memory, reloaded when the sweep
+// enters a level.
 // Each thread forms its own elements of the d_corr tile straight into
 // wgmma A fragments (registers), split into bf16 hi + lo (lo the bf16
 // rounding of d - hi): one bf16 rounding of d_corr is too coarse for the
@@ -278,11 +376,13 @@ static bool unpack_meta(int L, int C, int radius, const int* meta, Meta* m) {
 // and read twice. Tiles that no window touches are not skipped: a query
 // tile of image rows spans every column of the x-major levels.
 //
-// Other widths and f32 operands (f32 models, the parity runs): the same
-// passes on the CUDA cores in f32: (b) one warp per query sums its
-// in-range taps in tap order; (c) one warp per packed row scans the
-// queries in order (their origins staged in shared memory per chunk).
-// C % 8 == 0 up to 512.
+// Every other operand (f32 models, the parity runs, any C, radius or
+// level count): the same passes on the CUDA cores in f32: (b) one warp
+// per query sums its in-range taps in tap order; (c) one warp per packed
+// row scans the queries in order (their origins staged in shared memory
+// per chunk); both take C in passes of 512 columns. The tap pass reads
+// each level's cotangent from global memory, so it holds no per-level
+// buffer; the scratch follows the taps, (2r + 2)^2 a query and level.
 
 namespace corr_sm90 {
 
@@ -296,6 +396,13 @@ constexpr int TAPS_MAX = 100;             // (2r + 2)^2 at r <= 4
 constexpr int THREADS = 256;              // two warpgroups
 constexpr int LOADER = 4;                 // warpgroup 1's first warp
 constexpr int FAR = -(1 << 20);           // an origin that no row matches
+// a df2cat sweep of up to SWEEP_TILES query tiles sums in the wgmma
+// accumulator alone; a longer one adds the accumulator into an f32
+// scratch every FLUSH_TILES tiles (the tensor cores add into it with
+// less than f32's rounding, which a coarse level's rows, each a sum over
+// every query, show once the sweep is long)
+constexpr int SWEEP_TILES = 64;
+constexpr int FLUSH_TILES = 16;
 
 }  // namespace corr_sm90
 
@@ -306,7 +413,6 @@ __host__ __device__ __forceinline__ bool level_tile(const Meta& m, int L,
                                                     int tile, int* level,
                                                     int* row0, int* rows) {
   for (int l = 0; l < L; ++l) {
-    if (m.hl[l] == 0 || m.wl[l] == 0) continue;
     const int n = m.wl[l] * m.hp[l];
     const int tiles = (n + corr_sm90::TILE - 1) / corr_sm90::TILE;
     if (tile < tiles) {
@@ -323,27 +429,21 @@ __host__ __device__ __forceinline__ bool level_tile(const Meta& m, int L,
 static int count_tiles(const Meta& m, int L) {
   int t = 0;
   for (int l = 0; l < L; ++l)
-    if (m.hl[l] && m.wl[l])
-      t += (m.wl[l] * m.hp[l] + corr_sm90::TILE - 1) / corr_sm90::TILE;
+    t += (m.wl[l] * m.hp[l] + corr_sm90::TILE - 1) / corr_sm90::TILE;
   return t;
 }
 
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
 // (a) One warp per (batch entry, query < Npad); the grid's threads also
-// fill the row table. The warp loads the query's whole cotangent (every
-// level) into shared memory at once, then writes each level's taps.
+// fill the row table. Per level the warp writes the window origin and the
+// taps' gradients, reading the query's cotangent of the level (gstride
+// values a query) from global memory, each value by up to four taps.
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 corr_bwd_taps(const T* __restrict__ g, const float* __restrict__ coords,
               float* __restrict__ dtap, int2* __restrict__ orig,
-              int* __restrict__ tab, int B, int N, int Npad, int L, int n_tab,
-              Meta meta, int radius, float scale) {
-  __shared__ float gs[WARPS][MAX_LEVELS * 81];
+              int* __restrict__ tab, int B, int N, int Npad, int L,
+              long long gstride, int n_tab, Meta meta, int radius,
+              float scale) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_tab;
        i += gridDim.x * blockDim.x) {
@@ -362,21 +462,13 @@ corr_bwd_taps(const T* __restrict__ g, const float* __restrict__ coords,
   if (w >= (long long)B * Npad) return;  // uniform over the warp
   const int b = (int)(w / Npad), q = (int)(w - (long long)b * Npad);
   const int K = 2 * radius + 1, K1 = K + 1, taps = K1 * K1;
-  // t / K1 for t < 128 as (t * inv) >> 16, exact for K1 <= 10
-  const int inv = (65536 + K1 - 1) / K1;
-  float* gw = gs[warp];
   const long long qi = (long long)b * N + q;
-  if (q < N) {
-    const T* gq = g + qi * (long long)(L * K * K);
-    for (int t = lane; t < L * K * K; t += 32) gw[t] = load1(gq + t);
-  }
   const float cx = q < N ? coords[2 * qi] : 0.f;
   const float cy = q < N ? coords[2 * qi + 1] : 0.f;
-  __syncwarp();
   for (int l = 0; l < L; ++l) {
     const long long at = ((long long)b * L + l) * Npad + q;
     const int hl = meta.hl[l], wl = meta.wl[l];
-    if (q >= N || hl == 0 || wl == 0) {
+    if (q >= N) {
       if (lane == 0) orig[at] = make_int2(corr_sm90::FAR, corr_sm90::FAR);
       continue;
     }
@@ -392,18 +484,18 @@ corr_bwd_taps(const T* __restrict__ g, const float* __restrict__ coords,
     // transpose of the forward's two stages: tap (i, j) takes window
     // (kx, ky) = (i, j) with weights (1-fx)(1-fy), (i-1, j) with fx(1-fy),
     // (i, j-1) with (1-fx)fy and (i-1, j-1) with fx fy
-    const float* gl = gw + l * K * K;
+    const T* gl = g + qi * gstride + (long long)l * K * K;
     float* dq = dtap + at * taps;
     for (int t = lane; t < taps; t += 32) {
-      const int i = (t * inv) >> 16, j = t - i * K1;
+      const int i = t / K1, j = t - i * K1;
       float v = 0.f;
       if (i < K) {
-        if (j < K) v += (1.f - fx) * (1.f - fy) * gl[i * K + j];
-        if (j > 0) v += (1.f - fx) * fy * gl[i * K + j - 1];
+        if (j < K) v += (1.f - fx) * (1.f - fy) * load1(gl + i * K + j);
+        if (j > 0) v += (1.f - fx) * fy * load1(gl + i * K + j - 1);
       }
       if (i > 0) {
-        if (j < K) v += fx * (1.f - fy) * gl[(i - 1) * K + j];
-        if (j > 0) v += fx * fy * gl[(i - 1) * K + j - 1];
+        if (j < K) v += fx * (1.f - fy) * load1(gl + (i - 1) * K + j);
+        if (j > 0) v += fx * fy * load1(gl + (i - 1) * K + j - 1);
       }
       dq[t] = v * scale;
     }
@@ -607,7 +699,6 @@ __device__ __forceinline__ void row_block(const Meta& m, int L, int blk,
                                           int* tiles_left) {
   int base = 0;
   for (int l = 0; l < L; ++l) {
-    if (m.hl[l] == 0 || m.wl[l] == 0) continue;
     const int tiles = (m.wl[l] * m.hp[l] + TILE - 1) / TILE;
     const int pairs = (tiles + 1) / 2;
     if (blk < pairs) {
@@ -627,13 +718,17 @@ __device__ __forceinline__ void row_block(const Meta& m, int L, int blk,
 // (c) df2cat [B, R, C] bf16: block (two row tiles of one level, batch
 // entry); warpgroup wg owns tile tile0 + wg. tm_f1 maps f1 [B, N, C] in
 // [1, 64, 64] boxes; each query tile's dtap slab and origins at the
-// block's level come in by bulk copies on the same barrier.
-template <int NP>
+// block's level come in by bulk copies on the same barrier. FLUSH (the
+// sweeps past SWEEP_TILES, a kernel of their own so that the others keep
+// their registers): the accumulator goes into part, the f32 scratch [B,
+// R, C] (each row only its block's), every FLUSH_TILES query tiles.
+template <int NP, bool FLUSH>
 __device__ __forceinline__ void corr_bwd_df2(
     int bx, int b, const CUtensorMap& tm_f1, const float* __restrict__ dtap,
     const int2* __restrict__ orig, const int* __restrict__ tab,
-    bf16* __restrict__ df2, int N, int Npad, int R, int L, const Meta& meta,
-    int K1) {
+    bf16* __restrict__ df2, float* __restrict__ part, int N, int Npad,
+    int R, int L, const Meta& meta, int K1) {
+  constexpr int C = NP * 64;
   Df2Smem<NP>& sm = aligned_smem<Df2Smem<NP>>();
   const int taps = K1 * K1;
   int level, tile0, tiles_left;
@@ -668,6 +763,39 @@ __device__ __forceinline__ void corr_bwd_df2(
   for (int h = 0; h < NP / 2; ++h)
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  // this thread's output rows (rl, rl + 8 of the tile): their offsets in
+  // df2 / part, -1 past the level's end or R
+  long long rowoff[2] = {-1, -1};
+  auto row_offsets = [&]() {
+    int lv, row0, rows;
+    level_tile(meta, L, tile0 + wg, &lv, &row0, &rows);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long row = row0 + rl + 8 * r;
+      if (entry[r] != -2 && row < R) rowoff[r] = ((long long)b * R + row) * C;
+    }
+  };
+  if (FLUSH && !idle) row_offsets();
+  // the accumulator added into part (the first time stored) and zeroed
+  auto add_to_part = [&](bool first) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int h = 0; h < NP / 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int i = 4 * j + 2 * r;
+          if (rowoff[r] >= 0) {
+            float2* p = reinterpret_cast<float2*>(part + rowoff[r] + h * 128 +
+                                                  8 * j + 2 * t);
+            float2 v = first ? make_float2(0.f, 0.f) : *p;
+            v.x += acc[h][i];
+            v.y += acc[h][i + 1];
+            *p = v;
+          }
+          acc[h][i] = acc[h][i + 1] = 0.f;
+        }
+  };
 
   // the A fragments of query tile it's d_corr^T (hi, lo): rows the
   // warpgroup's tile's, columns the tile's queries
@@ -711,6 +839,8 @@ __device__ __forceinline__ void corr_bwd_df2(
         hi[i] = hi_n[i];
         lo[i] = lo_n[i];
       }
+      if (FLUSH && (it + 1) % FLUSH_TILES == 0 && it + 1 < n_q)
+        add_to_part(it + 1 == FLUSH_TILES);
     }
     mbar_arrive(&sm.empty[s]);
     if (threadIdx.x == LOADER * 32 && it + STAGES < n_q) {
@@ -720,37 +850,41 @@ __device__ __forceinline__ void corr_bwd_df2(
   }
 
   if (idle) return;
-  constexpr int C = NP * 64;
-  int lv, row0, rows;
-  level_tile(meta, L, tile0 + wg, &lv, &row0, &rows);
+  if (!FLUSH) row_offsets();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (entry[r] == -2) continue;  // past the level's end
-    const long long row = row0 + rl + 8 * r;
-    if (row >= R) continue;
-    bf16* out = df2 + ((long long)b * R + row) * C;
+    if (rowoff[r] < 0) continue;  // past the level's end or R
+    bf16* out = df2 + rowoff[r];
 #pragma unroll
     for (int h = 0; h < NP / 2; ++h)
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < 16; ++j) {
+        float2 v = make_float2(acc[h][4 * j + 2 * r],
+                               acc[h][4 * j + 2 * r + 1]);
+        if (FLUSH) {
+          const float2 p = *reinterpret_cast<const float2*>(
+              part + rowoff[r] + h * 128 + 8 * j + 2 * t);
+          v.x = p.x + v.x;
+          v.y = p.y + v.y;
+        }
         *reinterpret_cast<__nv_bfloat162*>(out + h * 128 + 8 * j + 2 * t) =
-            __floats2bfloat162_rn(acc[h][4 * j + 2 * r],
-                                  acc[h][4 * j + 2 * r + 1]);
+            __floats2bfloat162_rn(v.x, v.y);
+      }
   }
 }
 
 // (b) and (c) in one launch, so that the blocks of each fill the other's
 // tail wave: blocks [0, n1) take df1 (the longer sweeps, dispatched
 // first), the rest df2cat; n1 = B * Npad / 128.
-template <int NP>
+template <int NP, bool FLUSH>
 __global__ void __launch_bounds__(THREADS, 1)
 corr_bwd_products(const __grid_constant__ CUtensorMap tm_f1,
                   const __grid_constant__ CUtensorMap tm_f2,
                   const float* __restrict__ dtap,
                   const int2* __restrict__ orig, const int* __restrict__ tab,
-                  bf16* __restrict__ df1, bf16* __restrict__ df2, int N,
-                  int Npad, int R, int L, int n_tiles, int n1, Meta meta,
-                  int K1) {
+                  bf16* __restrict__ df1, bf16* __restrict__ df2,
+                  float* __restrict__ part, int N, int Npad, int R, int L,
+                  int n_tiles, int n1, Meta meta, int K1) {
   const int per_b1 = Npad / (2 * TILE);
   if ((int)blockIdx.x < n1) {
     corr_bwd_df1<NP>(blockIdx.x % per_b1, blockIdx.x / per_b1, tm_f2, dtap,
@@ -758,43 +892,45 @@ corr_bwd_products(const __grid_constant__ CUtensorMap tm_f1,
   } else {
     const int n2_b = (gridDim.x - n1) / (n1 / per_b1);  // row blocks an entry
     const int i = blockIdx.x - n1;
-    corr_bwd_df2<NP>(i % n2_b, i / n2_b, tm_f1, dtap, orig, tab, df2, N, Npad,
-                     R, L, meta, K1);
+    corr_bwd_df2<NP, FLUSH>(i % n2_b, i / n2_b, tm_f1, dtap, orig, tab, df2,
+                            part, N, Npad, R, L, meta, K1);
   }
 }
 
 template <int NP>
 static int launch(const void* f1, const void* f2cat, const float* dtap,
                   const int2* orig, const int* tab, void* df1, void* df2,
-                  int B, int N, int Npad, int R, int L, int n_tiles,
-                  const Meta& meta, int K1, cudaStream_t st) {
+                  float* part, int B, int N, int Npad, int R, int L,
+                  int n_tiles, const Meta& meta, int K1, cudaStream_t st) {
   CUtensorMap m_f1, m_f2;
   int e;
   if ((e = tensor_map_bf16_3d(&m_f1, f1, NP * 64, N, B, TILE))) return e;
   if ((e = tensor_map_bf16_3d(&m_f2, f2cat, NP * 64, R, B, TILE))) return e;
   const size_t s1 = sizeof(Df1Smem<NP>), s2 = sizeof(Df2Smem<NP>);
   const size_t smem = (s1 > s2 ? s1 : s2) + 1024;
-  if ((e = (int)cudaFuncSetAttribute(corr_bwd_products<NP>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem)))
+  const bool flush = (N + TILE - 1) / TILE > SWEEP_TILES;
+  const auto kernel = flush ? corr_bwd_products<NP, true>
+                            : corr_bwd_products<NP, false>;
+  if ((e = (int)cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return e;
   int row_blocks = 0;
   for (int l = 0; l < L; ++l)
-    if (meta.hl[l] && meta.wl[l])
-      row_blocks += ((meta.wl[l] * meta.hp[l] + TILE - 1) / TILE + 1) / 2;
+    row_blocks += ((meta.wl[l] * meta.hp[l] + TILE - 1) / TILE + 1) / 2;
   const int n1 = B * (Npad / (2 * TILE));
-  corr_bwd_products<NP><<<(unsigned)(n1 + B * row_blocks), THREADS, smem,
-                          st>>>(m_f1, m_f2, dtap, orig, tab, (bf16*)df1,
-                                (bf16*)df2, N, Npad, R, L, n_tiles, n1, meta,
-                                K1);
+  kernel<<<(unsigned)(n1 + B * row_blocks), THREADS, smem, st>>>(
+      m_f1, m_f2, dtap, orig, tab, (bf16*)df1, (bf16*)df2, part, N, Npad, R,
+      L, n_tiles, n1, meta, K1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace corr_sm90
 
 // (b) on the CUDA cores: one warp per query sums d_tap * f2cat[row] over
-// its in-range taps, level by level in tap order; df1 in T.
-template <typename T>
+// its in-range taps, level by level in tap order; df1 in T. C in passes
+// of MAX_CHUNKS chunks of 256 columns (one pass up to 512), each pass
+// walking the taps again.
+template <bool V8, typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 corr_bwd_df1_cc(const T* __restrict__ f2cat, const float* __restrict__ dtap,
                 const int2* __restrict__ orig, T* __restrict__ df1, int B,
@@ -804,42 +940,43 @@ corr_bwd_df1_cc(const T* __restrict__ f2cat, const float* __restrict__ dtap,
   if (q >= (long long)B * N) return;  // uniform over the warp
   const int b = (int)(q / N), n = (int)(q - (long long)b * N);
   const int taps = K1 * K1;
-  float acc[MAX_CHUNKS][VEC];
-#pragma unroll
-  for (int ch = 0; ch < MAX_CHUNKS; ++ch)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[ch][i] = 0.f;
   const T* f2b = f2cat + (long long)b * R * C;
-  for (int l = 0; l < L; ++l) {
-    const int hl = meta.hl[l], wl = meta.wl[l], hp = meta.hp[l];
-    if (hl == 0 || wl == 0) continue;
-    const long long at = ((long long)b * L + l) * Npad + n;
-    const int2 o = orig[at];
-    const float* dt = dtap + at * taps;
-    for (int t = 0; t < taps; ++t) {
-      const int xx = o.x + t / K1, yy = o.y + t % K1;
-      if (xx < 0 || xx >= wl || yy < 0 || yy >= hl) continue;  // uniform
-      const float d = dt[t];
-      const T* f2row = f2b + ((long long)meta.off[l] + (long long)xx * hp + yy) * C;
+  T* out = df1 + q * C;
+  for (int c0 = 0; c0 < C; c0 += MAX_CHUNKS * 32 * VEC) {
+    float acc[MAX_CHUNKS][VEC];
 #pragma unroll
-      for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
-        const int c = (ch * 32 + lane) * VEC;
-        if (c < C) {
-          float v[VEC];
-          load8(f2row + c, v);
+    for (int ch = 0; ch < MAX_CHUNKS; ++ch)
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[ch][i] = fmaf(d, v[i], acc[ch][i]);
+      for (int i = 0; i < VEC; ++i) acc[ch][i] = 0.f;
+    for (int l = 0; l < L; ++l) {
+      const int hl = meta.hl[l], wl = meta.wl[l], hp = meta.hp[l];
+      const long long at = ((long long)b * L + l) * Npad + n;
+      const int2 o = orig[at];
+      const float* dt = dtap + at * taps;
+      for (int t = 0; t < taps; ++t) {
+        const int xx = o.x + t / K1, yy = o.y + t % K1;
+        if (xx < 0 || xx >= wl || yy < 0 || yy >= hl) continue;  // uniform
+        const float d = dt[t];
+        const T* f2row =
+            f2b + ((long long)meta.off[l] + (long long)xx * hp + yy) * C;
+#pragma unroll
+        for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
+          const int c = c0 + (ch * 32 + lane) * VEC;
+          if (c < C) {
+            float v[VEC];
+            load_cols<V8>(f2row, c, C, v);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i)
+              acc[ch][i] = fmaf(d, v[i], acc[ch][i]);
+          }
         }
       }
     }
-  }
-  T* out = df1 + q * C;
 #pragma unroll
-  for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
-    const int c = (ch * 32 + lane) * VEC;
-    if (c < C)
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) store1(out + c + i, acc[ch][i]);
+    for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
+      const int c = c0 + (ch * 32 + lane) * VEC;
+      if (c < C) store_cols<V8>(out, c, C, acc[ch]);
+    }
   }
 }
 
@@ -847,7 +984,8 @@ corr_bwd_df1_cc(const T* __restrict__ f2cat, const float* __restrict__ dtap,
 
 // (c) on the CUDA cores: one warp per packed row (8 rows of one tile a
 // block) scans the queries in order and sums d_corr * f1[q]; df2cat in T.
-template <typename T>
+// C in passes as in (b), each scanning the queries again.
+template <bool V8, typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 corr_bwd_df2_cc(const T* __restrict__ f1, const float* __restrict__ dtap,
                 const int2* __restrict__ orig, const int* __restrict__ tab,
@@ -863,64 +1001,92 @@ corr_bwd_df2_cc(const T* __restrict__ f1, const float* __restrict__ dtap,
   const int entry = tab[(long long)tile * corr_sm90::TILE + rl];
   const int taps = K1 * K1;
   const long long slab = ((long long)b * L + level) * Npad;
-  float acc[MAX_CHUNKS][VEC];
+  T* out = df2 + ((long long)b * R + row0 + rl) * C;
+  for (int c0 = 0; c0 < C; c0 += MAX_CHUNKS * 32 * VEC) {  // uniform
+    float acc[MAX_CHUNKS][VEC];
 #pragma unroll
-  for (int ch = 0; ch < MAX_CHUNKS; ++ch)
+    for (int ch = 0; ch < MAX_CHUNKS; ++ch)
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[ch][i] = 0.f;
-  for (int c0 = 0; c0 < N; c0 += CC_CHUNK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < CC_CHUNK; i += WARPS * 32)
-      os[i] = orig[slab + (c0 + i < Npad ? c0 + i : 0)];
-    __syncthreads();
-    if (entry < 0) continue;  // uniform over the warp
-    const int n_end = N - c0 < CC_CHUNK ? N - c0 : CC_CHUNK;
-    for (int i = 0; i < n_end; ++i) {
-      const float d = dcorr(entry, os[i], dtap + (slab + c0 + i) * taps, K1);
-      if (d == 0.f) continue;  // uniform: one row, one query
-      const T* f1row = f1 + ((long long)b * N + c0 + i) * C;
+      for (int i = 0; i < VEC; ++i) acc[ch][i] = 0.f;
+    for (int q0 = 0; q0 < N; q0 += CC_CHUNK) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < CC_CHUNK; i += WARPS * 32)
+        os[i] = orig[slab + (q0 + i < Npad ? q0 + i : 0)];
+      __syncthreads();
+      if (entry < 0) continue;  // uniform over the warp
+      const int n_end = N - q0 < CC_CHUNK ? N - q0 : CC_CHUNK;
+      for (int i = 0; i < n_end; ++i) {
+        const float d =
+            dcorr(entry, os[i], dtap + (slab + q0 + i) * taps, K1);
+        if (d == 0.f) continue;  // uniform: one row, one query
+        const T* f1row = f1 + ((long long)b * N + q0 + i) * C;
 #pragma unroll
-      for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
-        const int c = (ch * 32 + lane) * VEC;
-        if (c < C) {
-          float v[VEC];
-          load8(f1row + c, v);
+        for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
+          const int c = c0 + (ch * 32 + lane) * VEC;
+          if (c < C) {
+            float v[VEC];
+            load_cols<V8>(f1row, c, C, v);
 #pragma unroll
-          for (int k = 0; k < VEC; ++k) acc[ch][k] = fmaf(d, v[k], acc[ch][k]);
+            for (int k = 0; k < VEC; ++k)
+              acc[ch][k] = fmaf(d, v[k], acc[ch][k]);
+          }
         }
       }
     }
-  }
-  if (entry == -2) return;  // past the level's end: another tile's row
-  T* out = df2 + ((long long)b * R + row0 + rl) * C;
+    if (entry == -2) continue;  // past the level's end: another tile's row
 #pragma unroll
-  for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
-    const int c = (ch * 32 + lane) * VEC;
-    if (c < C)
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) store1(out + c + i, acc[ch][i]);
+    for (int ch = 0; ch < MAX_CHUNKS; ++ch) {
+      const int c = c0 + (ch * 32 + lane) * VEC;
+      if (c < C) store_cols<V8>(out, c, C, acc[ch]);
+    }
   }
 }
 
-// g: [B, N, L*(2r+1)^2] in the features' dtype; df1 [B, N, C] and df2
-// [B, R, C] in that dtype, each written in full. Scratch from the caller:
-// dtap [B, L, Npad, (2r+2)^2] f32, orig [B, L, Npad] int2 and tab [T * 64]
-// int32, with Npad = N rounded up to a multiple of 128 and T the 64-row
-// tiles of the levels (each level's wl * hp rows rounded up to 64). bf16
-// at C = 128 or 256 takes the tensor-core route, everything else the
-// CUDA-core one. Returns the first CUDA error of the three launches (0 on
-// success).
+template <bool V8, typename T>
+static int products_cc(const void* f1, const void* f2cat, const float* dt,
+                       const int2* og, const int* tb, void* df1, void* df2,
+                       int B, int N, int Npad, int C, int R, int L,
+                       int n_tiles, const Meta& m, int K1, cudaStream_t st) {
+  const dim3 grid_b((unsigned)(((long long)B * N + WARPS - 1) / WARPS));
+  corr_bwd_df1_cc<V8, T><<<grid_b, WARPS * 32, 0, st>>>(
+      (const T*)f2cat, dt, og, (T*)df1, B, N, Npad, C, R, L, m, K1);
+  int e = (int)cudaGetLastError();
+  if (e || n_tiles == 0) return e;
+  const dim3 grid_c((unsigned)(n_tiles * (corr_sm90::TILE / WARPS)),
+                    (unsigned)B);
+  corr_bwd_df2_cc<V8, T><<<grid_c, WARPS * 32, 0, st>>>(
+      (const T*)f1, dt, og, tb, (T*)df2, N, Npad, C, R, L, m, K1);
+  return (int)cudaGetLastError();
+}
+
+// g: [B, N, Lout*(2r+1)^2] in the features' dtype; df1 [B, N, C] and df2
+// [B, R, C] in that dtype, each written in full. meta: the L non-empty
+// levels (4 ints each, as cat_meta; the Lout - L levels past them are
+// pooled to nothing, their cotangent reaches nothing). Scratch from the
+// caller: dtap [B, L, Npad, (2r+2)^2] f32, orig [B, L, Npad] int2 and tab
+// [T * 64] int32, with Npad = N rounded up to a multiple of 128 and T the
+// 64-row tiles of the levels (each level's wl * hp rows rounded up to
+// 64); on the tensor cores with more than SWEEP_TILES query tiles of 64,
+// part [B, R, C] f32 (else it may be null). tensor_cores: the tensor-core route (bf16, C = 128 or 256, radius
+// <= 4, L >= 1; anything else it refuses), else the CUDA-core one. Row
+// table entries pack (x << 16 | y): the caller keeps wl < 2^15 and hp <
+// 2^16. Returns the first CUDA error of the launches (0 on success).
 extern "C" int ofd_fused_corr_bwd(const void* g, const void* f1,
                                   const void* f2cat, const void* coords,
                                   void* df1, void* df2, void* dtap,
-                                  void* orig, void* tab, int B, int N, int C,
-                                  int R, int L, const int* meta, int radius,
-                                  float scale, int is_bf16, void* stream) {
+                                  void* orig, void* tab, void* part, int B,
+                                  int N, int C, int R, int L, int Lout,
+                                  const int* meta, int radius, float scale,
+                                  int is_bf16, int tensor_cores,
+                                  void* stream) {
   Meta m;
-  if (!unpack_meta(L, C, radius, meta, &m) || B < 1 || B > 65535)
+  if (!unpack_meta(L, C, radius, meta, &m) || B < 1 || B > 65535 ||
+      Lout < L ||
+      (tensor_cores && (!tensor_cores_take(is_bf16, C, radius, L) ||
+                        ((N + 63) / 64 > corr_sm90::SWEEP_TILES && !part))))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  const int Npad = (N + 127) / 128 * 128, K1 = 2 * radius + 2;
+  const int Npad = (N + 127) / 128 * 128, K = 2 * radius + 1, K1 = K + 1;
   const int n_tiles = count_tiles(m, L);
   cudaStream_t st = (cudaStream_t)stream;
   float* dt = (float*)dtap;
@@ -928,41 +1094,35 @@ extern "C" int ofd_fused_corr_bwd(const void* g, const void* f1,
   int* tb = (int*)tab;
   const long long warps = (long long)B * Npad;
   const dim3 grid_a((unsigned)((warps + WARPS - 1) / WARPS));
+  const long long gstride = (long long)Lout * K * K;
   if (is_bf16)
     corr_bwd_taps<__nv_bfloat16><<<grid_a, WARPS * 32, 0, st>>>(
         (const __nv_bfloat16*)g, (const float*)coords, dt, og, tb, B, N, Npad,
-        L, n_tiles * corr_sm90::TILE, m, radius, scale);
+        L, gstride, n_tiles * corr_sm90::TILE, m, radius, scale);
   else
     corr_bwd_taps<float><<<grid_a, WARPS * 32, 0, st>>>(
         (const float*)g, (const float*)coords, dt, og, tb, B, N, Npad, L,
-        n_tiles * corr_sm90::TILE, m, radius, scale);
+        gstride, n_tiles * corr_sm90::TILE, m, radius, scale);
   int e = (int)cudaGetLastError();
   if (e) return e;
-  if (is_bf16 && (C == 128 || C == 256) &&
-      (long long)B * (N > R ? N : R) < (1ll << 31))
-    return C == 256 ? corr_sm90::launch<4>(f1, f2cat, dt, og, tb, df1, df2, B,
-                                           N, Npad, R, L, n_tiles, m, K1, st)
-                    : corr_sm90::launch<2>(f1, f2cat, dt, og, tb, df1, df2, B,
-                                           N, Npad, R, L, n_tiles, m, K1, st);
-  const dim3 grid_b((unsigned)(((long long)B * N + WARPS - 1) / WARPS));
-  const dim3 grid_c((unsigned)(n_tiles * (corr_sm90::TILE / WARPS)),
-                    (unsigned)B);
-  if (is_bf16) {
-    corr_bwd_df1_cc<__nv_bfloat16><<<grid_b, WARPS * 32, 0, st>>>(
-        (const __nv_bfloat16*)f2cat, dt, og, (__nv_bfloat16*)df1, B, N, Npad,
-        C, R, L, m, K1);
-    if ((e = (int)cudaGetLastError()) || n_tiles == 0) return e;
-    corr_bwd_df2_cc<__nv_bfloat16><<<grid_c, WARPS * 32, 0, st>>>(
-        (const __nv_bfloat16*)f1, dt, og, tb, (__nv_bfloat16*)df2, N, Npad, C,
-        R, L, m, K1);
-  } else {
-    corr_bwd_df1_cc<float><<<grid_b, WARPS * 32, 0, st>>>(
-        (const float*)f2cat, dt, og, (float*)df1, B, N, Npad, C, R, L, m, K1);
-    if ((e = (int)cudaGetLastError()) || n_tiles == 0) return e;
-    corr_bwd_df2_cc<float><<<grid_c, WARPS * 32, 0, st>>>(
-        (const float*)f1, dt, og, tb, (float*)df2, N, Npad, C, R, L, m, K1);
-  }
-  return (int)cudaGetLastError();
+  if (tensor_cores)
+    return C == 256
+               ? corr_sm90::launch<4>(f1, f2cat, dt, og, tb, df1, df2,
+                                      (float*)part, B, N, Npad, R, L, n_tiles,
+                                      m, K1, st)
+               : corr_sm90::launch<2>(f1, f2cat, dt, og, tb, df1, df2,
+                                      (float*)part, B, N, Npad, R, L, n_tiles,
+                                      m, K1, st);
+  const bool v8 = C % VEC == 0;
+  if (is_bf16)
+    return v8 ? products_cc<true, bf16>(f1, f2cat, dt, og, tb, df1, df2, B, N,
+                                        Npad, C, R, L, n_tiles, m, K1, st)
+              : products_cc<false, bf16>(f1, f2cat, dt, og, tb, df1, df2, B,
+                                         N, Npad, C, R, L, n_tiles, m, K1, st);
+  return v8 ? products_cc<true, float>(f1, f2cat, dt, og, tb, df1, df2, B, N,
+                                       Npad, C, R, L, n_tiles, m, K1, st)
+            : products_cc<false, float>(f1, f2cat, dt, og, tb, df1, df2, B, N,
+                                        Npad, C, R, L, n_tiles, m, K1, st);
 }
 
 namespace fwd_sm90 {
@@ -1023,8 +1183,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 corr_fwd_tiles(const bf16* __restrict__ f1, const bf16* __restrict__ f2cat,
                const float* __restrict__ coords, bf16* __restrict__ out,
                const __grid_constant__ RowMaps maps, int B, int N, int R,
-               int L, int wq, int tiles_x, int tiles, Meta meta, int radius,
-               float scale, int* n_slow_total) {
+               int Lout, int wq, int tiles_x, int tiles, Meta meta,
+               int radius, float scale, int* n_slow_total) {
   constexpr int C = NP * 64;
   extern __shared__ unsigned char smem_raw[];
   // 1024-aligned by an offset (so the accesses stay in the shared space)
@@ -1038,7 +1198,7 @@ corr_fwd_tiles(const bf16* __restrict__ f1, const bf16* __restrict__ f2cat,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int K = 2 * radius + 1, K1 = K + 1, taps = K1 * K1, KK = K * K;
   const int hl = meta.hl[l], wl = meta.wl[l], hp = meta.hp[l];
-  const long long ostride = (long long)L * KK;
+  const long long ostride = (long long)Lout * KK;
   if (tid == 0) {
     mbar_init(&sm.full[0], 1);
     mbar_init(&sm.full[1], 1);
@@ -1052,7 +1212,7 @@ corr_fwd_tiles(const bf16* __restrict__ f1, const bf16* __restrict__ f2cat,
     const int n = (ty * QT + tid / QT) * wq + qx;
     const bool ok = qx < wq && n < N;
     sm.n[tid] = ok ? n : -1;
-    if (ok && hl > 0 && wl > 0) {
+    if (ok) {
       const long long qi = (long long)b * N + n;
       int ix0, iy0;
       float fx, fy;
@@ -1068,16 +1228,6 @@ corr_fwd_tiles(const bf16* __restrict__ f1, const bf16* __restrict__ f2cat,
       ye = min(iy0 + K1, hl);
       if (xs >= xe || ys >= ye) xs = xe = ys = ye = 0;  // nothing in range
     }
-  }
-  if (hl == 0 || wl == 0) {  // level pooled away: zero lookups
-    __syncthreads();
-    for (int i = tid; i < Q * KK; i += THREADS) {
-      const int n = sm.n[i / KK];
-      if (n >= 0)
-        out[((long long)b * N + n) * ostride + l * KK + i % KK] =
-            __float2bfloat16(0.f);
-    }
-    return;
   }
   const bool live = ye > ys;
 
@@ -1232,7 +1382,7 @@ corr_fwd_tiles(const bf16* __restrict__ f1, const bf16* __restrict__ f2cat,
   for (int i = warp; i < n_slow; i += THREADS / 32) {
     const int q = sm.slow[i];
     float f1r[MAX_CHUNKS][VEC];
-    load_f1_row(f1 + ((long long)b * N + sm.n[q]) * C, C, lane, f1r);
+    load_f1_row<true>(f1 + ((long long)b * N + sm.n[q]) * C, C, lane, f1r);
     window_dots(f1r, f2cat + ((long long)b * R + meta.off[l]) * C, C, hl,
                 wl, hp, sm.ox[q], sm.oy[q], K1, scale,
                 sm.dots + q * taps, lane);
@@ -1260,9 +1410,10 @@ corr_fwd_tiles(const bf16* __restrict__ f1, const bf16* __restrict__ f2cat,
   }
 }
 
+// Blocks for the L non-empty levels; the output has Lout levels a query.
 template <int NP>
 static int launch(const void* f1, const void* f2cat, const void* coords,
-                  void* out, int B, int N, int R, int L, int wq,
+                  void* out, int B, int N, int R, int L, int Lout, int wq,
                   const Meta& meta, int radius, float scale, int* n_slow,
                   cudaStream_t st) {
   const size_t smem = sizeof(Smem<NP>) + 1024;
@@ -1290,46 +1441,68 @@ static int launch(const void* f1, const void* f2cat, const void* coords,
   if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   corr_fwd_tiles<NP><<<(unsigned)blocks, THREADS, smem, st>>>(
       (const bf16*)f1, (const bf16*)f2cat, (const float*)coords, (bf16*)out,
-      maps, B, N, R, L, wq, tiles_x, tiles, meta, radius, scale, n_slow);
+      maps, B, N, R, Lout, wq, tiles_x, tiles, meta, radius, scale,
+      n_slow);
   return (int)cudaGetLastError();
 }
 
 }  // namespace fwd_sm90
 
-// meta: 4*L host ints (hl, wl, hp, row_offset) per level, as cat_meta.
-// wq: the query image's width (queries n = y * wq + x), which sets the
-// tensor-core route's query tiles. n_slow: null, or an int on the card to
-// which the tensor-core route adds the count of (query, level) pairs that
-// took its per-query path. bf16 at C = 128
-// or 256 takes the tensor-core route, everything else the CUDA-core one.
-// Returns cudaGetLastError() after the launch (0 on success).
+// meta: the L non-empty levels, 4 host ints each (hl, wl, hp,
+// row_offset), as cat_meta; the output has Lout levels a query, those
+// past the L pooled to nothing (written 0). wq: the query image's width
+// (queries n = y * wq + x), which sets the tensor-core route's query
+// tiles. n_slow: null, or an int on the card to which the tensor-core
+// route adds the count of (query, level) pairs that took its per-query
+// path. tensor_cores: the tensor-core route (bf16, C = 128 or 256, radius
+// <= 4, L >= 1; anything else it refuses), else the CUDA-core one.
+// Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int ofd_fused_corr_fwd(const void* f1, const void* f2cat,
                                   const void* coords, void* out, int B, int N,
-                                  int C, int R, int L, const int* meta,
-                                  int radius, float scale, int is_bf16,
-                                  int wq, int* n_slow,
-                                  void* stream) {
+                                  int C, int R, int L, int Lout,
+                                  const int* meta, int radius, float scale,
+                                  int is_bf16, int tensor_cores, int wq,
+                                  int* n_slow, void* stream) {
   Meta m;
-  if (!unpack_meta(L, C, radius, meta, &m) || wq < 1)
+  if (!unpack_meta(L, C, radius, meta, &m) || wq < 1 || Lout < L ||
+      (tensor_cores && !tensor_cores_take(is_bf16, C, radius, L)))
     return (int)cudaErrorInvalidValue;
   const long long total = (long long)B * N;
   if (total == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16 && (C == 128 || C == 256))
+  const long long KK = (long long)(2 * radius + 1) * (2 * radius + 1);
+  int e = is_bf16 ? zero_levels_launch<bf16>(out, total, Lout * KK, L * KK,
+                                             st)
+                  : zero_levels_launch<float>(out, total, Lout * KK, L * KK,
+                                              st);
+  if (e || L == 0) return e;
+  if (tensor_cores)
     return C == 256 ? fwd_sm90::launch<4>(f1, f2cat, coords, out, B, N, R, L,
-                                          wq, m, radius, scale, n_slow, st)
+                                          Lout, wq, m, radius, scale, n_slow,
+                                          st)
                     : fwd_sm90::launch<2>(f1, f2cat, coords, out, B, N, R, L,
-                                          wq, m, radius, scale, n_slow, st);
+                                          Lout, wq, m, radius, scale, n_slow,
+                                          st);
   const dim3 grid((unsigned)((total + WARPS - 1) / WARPS));
+  const bool v8 = C % VEC == 0;
   if (is_bf16) {
-    fused_corr_fwd_kernel<__nv_bfloat16><<<grid, WARPS * 32, 0, st>>>(
-        (const __nv_bfloat16*)f1, (const __nv_bfloat16*)f2cat,
-        (const float*)coords, (__nv_bfloat16*)out, B, N, C, R, L, m, radius,
-        scale);
+    if (v8)
+      fused_corr_fwd_kernel<true, bf16><<<grid, WARPS * 32, 0, st>>>(
+          (const bf16*)f1, (const bf16*)f2cat, (const float*)coords,
+          (bf16*)out, B, N, C, R, L, Lout, m, radius, scale);
+    else
+      fused_corr_fwd_kernel<false, bf16><<<grid, WARPS * 32, 0, st>>>(
+          (const bf16*)f1, (const bf16*)f2cat, (const float*)coords,
+          (bf16*)out, B, N, C, R, L, Lout, m, radius, scale);
   } else {
-    fused_corr_fwd_kernel<float><<<grid, WARPS * 32, 0, st>>>(
-        (const float*)f1, (const float*)f2cat, (const float*)coords,
-        (float*)out, B, N, C, R, L, m, radius, scale);
+    if (v8)
+      fused_corr_fwd_kernel<true, float><<<grid, WARPS * 32, 0, st>>>(
+          (const float*)f1, (const float*)f2cat, (const float*)coords,
+          (float*)out, B, N, C, R, L, Lout, m, radius, scale);
+    else
+      fused_corr_fwd_kernel<false, float><<<grid, WARPS * 32, 0, st>>>(
+          (const float*)f1, (const float*)f2cat, (const float*)coords,
+          (float*)out, B, N, C, R, L, Lout, m, radius, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -7,10 +7,17 @@ the encoders and the update block (parameters stay f32); correlation
 features and the flow arithmetic stay f32, and in ``test_mode`` the final
 upsample runs once, in f32. ``train`` turns on the context encoder's batch
 statistics and the encoders' dropout.
+
+Blocked layout (training with ``blocked_supervision``): the NCHW
+counterpart of the JAX package's ``[B, h, w, f*f, C]`` is ``[B, f*f, C,
+h, w]`` (its axes in the order ``(0, 3, 4, 1, 2)``), sub-pixel ``(i, j)``
+of a block at ``i * f + j``; a mask or valid map ``[B, H, W]`` blocks to
+``[B, f*f, h, w]``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple, Union
 
 import torch
@@ -37,19 +44,37 @@ def upflow8(flow: torch.Tensor) -> torch.Tensor:
 
 
 def unblock_pixels(up: torch.Tensor, factor: int = 8) -> torch.Tensor:
-    """Blocked [B, f*f, C, h, w] -> full-res [B, C, h*f, w*f]."""
+    """Blocked [B, f*f, C, h, w] -> full-res [B, C, h*f, w*f]
+    (depth-to-space; the inverse of :func:`block_pixels`)."""
     b, _, c, h, w = up.shape
     f = factor
     up = up.reshape(b, f, f, c, h, w).permute(0, 3, 4, 1, 5, 2)
     return up.reshape(b, c, h * f, w * f)
 
 
+def block_pixels(x: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """Full-res [B, ..., H, W] -> blocked [B, f*f, ..., h, w]
+    (space-to-depth): flows [B, C, H, W] -> [B, f*f, C, h, w], valid maps
+    [B, H, W] -> [B, f*f, h, w]. Training supervision can run in this
+    layout (``RAFT(blocked_supervision=True)``): the ground truth and the
+    valid map are blocked once a step, and the loss and metrics see the
+    same values in blocked order."""
+    b, hh, ww = x.shape[0], x.shape[-2], x.shape[-1]
+    rest = tuple(x.shape[1:-2])
+    f, r = factor, len(rest)
+    x = x.reshape((b,) + rest + (hh // f, f, ww // f, f))
+    x = x.permute((0, r + 2, r + 4) + tuple(range(1, r + 1)) + (r + 1, r + 3))
+    return x.reshape((b, f * f) + rest + (hh // f, ww // f))
+
+
 def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int = 8,
-                    dtype=torch.float32) -> torch.Tensor:
+                    dtype=torch.float32, pixel_shuffle: bool = True
+                    ) -> torch.Tensor:
     """Convex-combination upsampling (`raft.py:72-83`): flow [B, 2, H, W],
-    mask [B, 9*f*f, H, W] -> [B, 2, f*H, f*W]. Softmax over the 9 taps in
-    f32; taps in (ky, kx) row-major order with zero padding (F.unfold's);
-    the combination runs in ``dtype``."""
+    mask [B, 9*f*f, H, W] -> [B, 2, f*H, f*W], or with ``pixel_shuffle``
+    off the blocked [B, f*f, 2, H, W]. Softmax over the 9 taps in f32;
+    taps in (ky, kx) row-major order with zero padding (F.unfold's); the
+    combination runs in ``dtype``."""
     b, _, h, w = flow.shape
     f = factor
     mask = torch.softmax(mask.float().reshape(b, 9, f * f, h, w), dim=1)
@@ -59,7 +84,17 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int = 8,
     for k in range(9):
         dy, dx = divmod(k, 3)
         up = up + mask[:, k, :, None] * fp[:, None, :, dy:dy + h, dx:dx + w]
-    return unblock_pixels(up, f)
+    return unblock_pixels(up, f) if pixel_shuffle else up
+
+
+# remat="dots": what each GRU iteration keeps for its backward (the JAX
+# package saves its dot products), the rest recomputed
+DOTS_SAVED = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+              torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+              torch.ops.ofd.fused_corr_lookup.default)
+_dots_contexts = functools.partial(
+    torch.utils.checkpoint.create_selective_checkpoint_contexts,
+    list(DOTS_SAVED))
 
 
 class FlowHead(nn.Module):
@@ -187,23 +222,41 @@ class RAFT(nn.Module):
     once, one fused lookup per iteration: the CUDA kernels on the card),
     ``"pyramid"`` (dense volume, plain PyTorch) or ``"alternate"``
     (on-demand lookup, plain PyTorch). ``dropout`` is the encoders' output
-    dropout in training. ``remat="full"`` recomputes each GRU iteration in
-    the backward (``torch.utils.checkpoint``) instead of keeping its
-    activations. ``generator`` seeds a random init.
+    dropout in training. ``generator`` seeds a random init.
+
+    The JAX package's scheduling options, which change no number:
+    ``remat`` ("none", "dots" or "full") runs each GRU iteration under
+    ``torch.utils.checkpoint`` (non-reentrant) in training: "full"
+    recomputes all of it in the backward; "dots" keeps the outputs of the
+    convolutions, matrix products and the lookup (:data:`DOTS_SAVED`,
+    a selective checkpoint policy) and recomputes the rest, as JAX's
+    ``dots_with_no_batch_dims_saveable``, so the lookup runs once forward
+    and once backward an iteration. ``unroll`` (an int >= 0) is the JAX
+    scan's unroll factor, kept so that a JAX configuration builds; the
+    eager loop runs one iteration at a time whatever it is.
+    ``blocked_supervision`` (the basic model, in training) returns the
+    per-iteration flows in the blocked layout (module docstring).
     """
 
     def __init__(self, small: bool = False, corr_levels: int = 4,
                  corr_impl: str = "pyramid", dtype=torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 dropout: float = 0.0, remat: str = "none"):
+                 dropout: float = 0.0, remat: str = "none", unroll: int = 1,
+                 blocked_supervision: bool = False):
         super().__init__()
         if corr_impl not in ("pyramid", "fused", "alternate"):
             raise ValueError(f"RAFT.corr_impl must be pyramid/fused/alternate,"
                              f" got {corr_impl!r}")
-        if remat not in ("none", "full"):
-            raise ValueError(f"RAFT.remat must be none/full (the JAX "
-                             f"package's 'dots' is not ported), got {remat!r}")
+        if remat not in ("none", "dots", "full"):
+            raise ValueError(f"RAFT.remat must be none/dots/full, got "
+                             f"{remat!r}")
+        if not isinstance(unroll, int) or isinstance(unroll, bool) \
+                or unroll < 0:
+            raise ValueError(f"RAFT.unroll must be an int >= 0, got "
+                             f"{unroll!r}")
         self.remat = remat
+        self.unroll = unroll
+        self.blocked_supervision = blocked_supervision
         self.small = small
         self.corr_levels = corr_levels
         self.corr_radius = 3 if small else 4
@@ -256,11 +309,12 @@ class RAFT(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Union[Tuple[torch.Tensor, torch.Tensor],
                            List[torch.Tensor]]:
-        """Per-iteration upsampled flows ``[B, 2, H, W]`` in the compute
-        dtype; with ``test_mode`` the pair (1/8-res flow, final upsampled
-        flow), both f32. ``train`` (default: the module's training flag)
-        uses and updates the batch statistics and applies dropout, drawn
-        from ``generator``."""
+        """Per-iteration upsampled flows ``[B, 2, H, W]`` (with
+        ``blocked_supervision``, the basic model's ``[B, 64, 2, h, w]``) in
+        the compute dtype; with ``test_mode`` the pair (1/8-res flow, final
+        upsampled flow), both f32. ``train`` (default: the module's
+        training flag) uses and updates the batch statistics and applies
+        dropout, drawn from ``generator``."""
         train = self.training if train is None else train
         dt = self.dtype
         image1 = (2.0 * (image1 / 255.0) - 1.0).to(dt)
@@ -288,13 +342,17 @@ class RAFT(nn.Module):
             net, up_mask, delta = self.update_block(net, inp, corr, flow)
             return net, up_mask, coords1 + delta.float()
 
+        remat = self.remat != "none" and torch.is_grad_enabled()
+        context_fn = _dots_contexts if self.remat == "dots" \
+            else torch.utils.checkpoint.noop_context_fn
         flow_ups = []
         mask = None
         for _ in range(iters):
             coords1 = coords1.detach()                       # `raft.py:123`
-            if self.remat == "full" and torch.is_grad_enabled():
+            if remat:
                 net, up_mask, coords1 = torch.utils.checkpoint.checkpoint(
-                    step, net, coords1, use_reentrant=False)
+                    step, net, coords1, use_reentrant=False,
+                    context_fn=context_fn)
             else:
                 net, up_mask, coords1 = step(net, coords1)
             if test_mode:
@@ -303,7 +361,8 @@ class RAFT(nn.Module):
                 flow_ups.append(upflow8(coords1 - coords0).to(dt))
             else:
                 flow_ups.append(convex_upsample(
-                    coords1 - coords0, up_mask.float(), dtype=dt).to(dt))
+                    coords1 - coords0, up_mask.float(), dtype=dt,
+                    pixel_shuffle=not self.blocked_supervision).to(dt))
 
         if test_mode:
             flow_lr = coords1 - coords0

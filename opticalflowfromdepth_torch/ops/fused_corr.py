@@ -4,12 +4,17 @@
 ``corr_levels_cat`` packs every pyramid level of the second feature map
 into one ``[B, R, C]`` tensor (per level: x-major rows, y zero-padded to a
 multiple of 8, see :func:`cat_meta`). ``fused_corr_lookup_cat`` then
-answers one GRU iteration's lookup from it. It is a
-``torch.autograd.Function``: on CUDA tensors its forward and its backward
-launch the hand-written kernels in ``csrc/fused_corr.cu``; on CPU tensors
-they run the plain PyTorch versions below. Both kernels take bf16 at C =
-128 or 256 on the tensor cores and everything else on the CUDA cores in
-f32 (:func:`route`). The forward computes the window form (dot products
+answers one GRU iteration's lookup from it. It is one operator,
+``torch.ops.ofd.fused_corr_lookup`` (a ``torch.library.custom_op`` with
+its backward registered), so that a selective checkpoint policy can name
+it and keep its output (``models/raft.py``, ``remat="dots"``): on CUDA
+tensors its forward and its backward launch the hand-written kernels in
+``csrc/fused_corr.cu``; on CPU tensors they run the plain PyTorch
+versions below. They take what the JAX function takes: any C >= 1, any
+radius >= 0, any level count (levels pooled to nothing, an ``f2cat`` of
+zero rows). Both kernels take bf16 at C = 128 or 256 and radius <= 4 on
+the tensor cores and everything else on the CUDA cores in f32
+(:func:`route`). The forward computes the window form (dot products
 at the integer neighbours, then the bilinear combination); on the tensor
 cores per 8x8 query tile and level, from the box of rows its windows
 cover (:func:`tile_plan` repeats the kernel's plan), the queries whose
@@ -17,9 +22,10 @@ windows overflow the box one by one. The backward forms the dense
 ``d_corr`` and takes its two products, as the TPU kernel does, without
 atomics (every launch on the same inputs gives the same bits), on the
 tensor cores with ``d_corr`` split into bf16 hi + lo; the plain backward
-repeats the route's arithmetic. Nothing falls back: a CUDA input
-that a kernel cannot take raises. Coordinates get no gradient, by
-contract (RAFT detaches them before every lookup).
+repeats the route's arithmetic. Nothing falls back: a CUDA input that
+no kernel takes (another device or dtype, or a map past the kernels'
+index types, :func:`_check_cuda`) raises. Coordinates get no gradient,
+by contract (RAFT detaches them before every lookup).
 """
 
 from __future__ import annotations
@@ -112,6 +118,9 @@ def fused_corr_lookup_cat_plain(f1: torch.Tensor, f2cat: torch.Tensor,
 
 
 KERNEL_TILE = 64      # rows of the backward kernels' tiles (both sides)
+# the tensor-core backward's df2cat sweeps over more query tiles than this
+# add their accumulator into an f32 scratch every 16 tiles
+SWEEP_TILES = 64
 QUERY_TILE = 8        # the forward's query tiles: 8x8 of the query image
 BOX = 64              # the forward's box: at most 64 columns and 64 rows
 
@@ -194,11 +203,22 @@ def tile_plan(coords: torch.Tensor, h2: int, w2: int, num_levels: int = 4,
     return plans
 
 
-def route(dtype, c: int) -> str:
-    """Which route of the kernels takes these operands: bf16 at C = 128
-    or 256 the tensor cores ("tensor_cores"; the backward splits
-    ``d_corr`` into bf16 hi + lo), everything else the CUDA cores in f32."""
-    return "tensor_cores" if dtype == torch.bfloat16 and c in (128, 256) \
+def live_levels(meta) -> int:
+    """The non-empty levels of :func:`cat_meta`'s table: a prefix, since a
+    level pooled to nothing leaves nothing to pool."""
+    return sum(1 for (hl, wl, _hp, _off) in meta if hl > 0 and wl > 0)
+
+
+def route(dtype, c: int, radius: int = 4, levels: int = 1) -> str:
+    """Which route of the kernels takes these operands (``levels``: the
+    non-empty levels). "tensor_cores": bf16 at C = 128 or 256, radius <= 4
+    (the routes' tap tables hold (2r+2)^2 <= 100) and at least one
+    non-empty level (their TMA maps need rows; every map's non-empty
+    levels fit the level table); the backward splits ``d_corr`` into bf16
+    hi + lo. "cuda_cores": everything else, in f32: any C, radius and
+    level count."""
+    return "tensor_cores" if (dtype == torch.bfloat16 and c in (128, 256)
+                              and radius <= 4 and levels >= 1) \
         else "cuda_cores"
 
 
@@ -250,8 +270,9 @@ def fused_corr_lookup_cat_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
     s = 1.0 / (c ** 0.5)
     meta = cat_meta(h2, w2, num_levels)
     if d_corr_rounding == "route":
-        d_corr_rounding = "hi_lo" if route(f1.dtype, c) == \
-            "tensor_cores" else "none"
+        d_corr_rounding = "hi_lo" if route(
+            f1.dtype, c, radius, live_levels(meta)) == "tensor_cores" \
+            else "none"
     if d_corr_rounding not in ("none", "hi_lo", "bf16"):
         raise ValueError(f"d_corr_rounding={d_corr_rounding!r}")
     gf = g.float().reshape(b, n, num_levels, k, k)           # (kx, ky)
@@ -306,47 +327,70 @@ def fused_corr_lookup_cat_bwd_plain(g: torch.Tensor, f1: torch.Tensor,
 def _kernel_fns():
     lib = _build.load("fused_corr")
     fwd, bwd = lib.ofd_fused_corr_fwd, lib.ofd_fused_corr_bwd
-    tail = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                                 ctypes.c_float, ctypes.c_int]
+    # B, N, C, R, the non-empty levels, the output's levels; the level
+    # table; radius, scale, is_bf16, tensor_cores
+    tail = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                 ctypes.c_float, ctypes.c_int, ctypes.c_int]
     # the forward also takes the query image's width and the per-query
     # path's counter
     fwd.argtypes = [ctypes.c_void_p] * 4 + tail + [ctypes.c_int,
                                                    ctypes.c_void_p,
                                                    ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 9 + tail + [ctypes.c_void_p]
+    # the backward also takes its f32 scratch of long sweeps
+    bwd.argtypes = [ctypes.c_void_p] * 10 + tail + [ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
 
-def _check_cuda(f1, f2cat, coords, meta, radius):
-    """Raise on what the kernels do not take; else the contiguous f32
-    coordinates and the flat level table."""
-    tensors = (f1, f2cat, coords)
-    if any(t.device.type != "cuda" or t.device != f1.device
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels' vector
+    and TMA loads), copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_devices(*tensors):
+    if any(t.device.type != "cuda" or t.device != tensors[0].device
            for t in tensors):
         raise ValueError("fused_corr_lookup_cat: f1, f2cat and coords must "
                          "all lie on the CPU or all on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
+
+
+def _check_cuda(f1, f2cat, coords, meta, radius):
+    """Raise on what no kernel takes; else the contiguous f32 coordinates,
+    the flat table of the non-empty levels, their count and the route.
+    JAX's only limit is VMEM; the kernels' are their index types: a row
+    table entry packs a level's column and row as (x << 16 | y), the
+    backward's grid takes the batch on its second axis, rows and queries
+    are int."""
+    _check_devices(f1, f2cat, coords)
     if f1.dtype not in (torch.float32, torch.bfloat16) \
             or f2cat.dtype != f1.dtype:
         raise ValueError(f"fused_corr_lookup_cat: f1/f2cat must share dtype "
                          f"float32 or bfloat16, got {f1.dtype}/{f2cat.dtype}")
-    c = f1.shape[2]
-    k = 2 * radius + 1
-    if c % 8 or c > 512 or (k + 1) ** 2 > 128 or len(meta) > 8:
-        raise ValueError(f"fused_corr kernel takes C % 8 == 0, C <= 512, "
-                         f"radius <= 4 and <= 8 levels, got C={c}, "
-                         f"radius={radius}, levels={len(meta)}")
-    if f1.data_ptr() % 16 or f2cat.data_ptr() % 16:
-        raise ValueError("fused_corr kernel needs 16-byte aligned f1/f2cat")
-    flat = [v for lvl in meta for v in lvl]
-    return coords.float().contiguous(), (ctypes.c_int * len(flat))(*flat)
-
-
-def _launch_tail(f1, f2cat, meta, flat, radius):
     b, n, c = f1.shape
-    return (b, n, c, f2cat.shape[1], len(meta), flat, radius,
-            1.0 / (c ** 0.5), int(f1.dtype == torch.bfloat16))
+    live = live_levels(meta)
+    if c < 1 or radius < 0:
+        raise ValueError(f"fused_corr_lookup_cat: C >= 1 and radius >= 0, "
+                         f"got C={c}, radius={radius}")
+    if b > 65535 or b * max(n, f2cat.shape[1]) >= 2 ** 31 or any(
+            wl >= 2 ** 15 or hp >= 2 ** 16 for (_, wl, hp, _) in meta[:live]):
+        raise ValueError(f"fused_corr kernel index types: B <= 65535, B * "
+                         f"max(N, R) < 2^31, each level < 2^15 columns and "
+                         f"< 2^16 padded rows; got B={b}, N={n}, R="
+                         f"{f2cat.shape[1]}, levels {meta[:live]}")
+    flat = [v for lvl in meta[:live] for v in lvl]
+    return (coords.float().contiguous(),
+            (ctypes.c_int * max(1, len(flat)))(*flat), live,
+            route(f1.dtype, c, radius, live))
+
+
+def _launch_tail(f1, f2cat, meta, flat, live, radius, rt):
+    b, n, c = f1.shape
+    return (b, n, c, f2cat.shape[1], live, len(meta), flat, radius,
+            1.0 / (c ** 0.5), int(f1.dtype == torch.bfloat16),
+            int(rt == "tensor_cores"))
 
 
 def _stream(t):
@@ -355,16 +399,17 @@ def _stream(t):
 
 def _lookup_cuda(f1, f2cat, coords, h2, w2, num_levels, radius,
                  n_slow=None):
-    f1, f2cat = f1.contiguous(), f2cat.contiguous()
     meta = cat_meta(h2, w2, num_levels)
-    cc, flat = _check_cuda(f1, f2cat, coords, meta, radius)
+    cc, flat, live, rt = _check_cuda(f1, f2cat, coords, meta, radius)
+    f1, f2cat = _aligned(f1), _aligned(f2cat)
     b, n, _ = f1.shape
     k = 2 * radius + 1
     out = torch.empty(b, n, len(meta) * k * k, dtype=f1.dtype,
                       device=f1.device)
     err = _kernel_fns()[0](f1.data_ptr(), f2cat.data_ptr(), cc.data_ptr(),
                            out.data_ptr(),
-                           *_launch_tail(f1, f2cat, meta, flat, radius),
+                           *_launch_tail(f1, f2cat, meta, flat, live, radius,
+                                         rt),
                            query_width(n, h2, w2),
                            0 if n_slow is None else n_slow.data_ptr(),
                            _stream(f1))
@@ -375,8 +420,8 @@ def _lookup_cuda(f1, f2cat, coords, h2, w2, num_levels, radius,
 
 
 def _lookup_bwd_cuda(g, f1, f2cat, coords, meta, radius):
-    f1, f2cat = f1.contiguous(), f2cat.contiguous()
-    cc, flat = _check_cuda(f1, f2cat, coords, meta, radius)
+    cc, flat, live, rt = _check_cuda(f1, f2cat, coords, meta, radius)
+    f1, f2cat = _aligned(f1), _aligned(f2cat)
     b, n, _ = f1.shape
     k = 2 * radius + 1
     if g.shape != (b, n, len(meta) * k * k) or g.device != f1.device:
@@ -385,18 +430,23 @@ def _lookup_bwd_cuda(g, f1, f2cat, coords, meta, radius):
                          f"{f1.device}")
     gc = g.to(f1.dtype).contiguous()
     df1, df2 = torch.empty_like(f1), torch.empty_like(f2cat)
-    # the kernels' scratch: per (query, level) the window origin and the
-    # tap gradients (queries padded to 128), and the row table
+    # the kernels' scratch: per (query, non-empty level) the window origin
+    # and the tap gradients (queries padded to 128), the row table, and
+    # the f32 partial sums of long df2cat sweeps
     npad = _ceil(max(n, 1), 128) * 128
     dev = f1.device
-    dtap = torch.empty(b, len(meta), npad, (k + 1) ** 2, device=dev)
-    orig = torch.empty(b, len(meta), npad, 2, dtype=torch.int32, device=dev)
+    dtap = torch.empty(b, live, npad, (k + 1) ** 2, device=dev)
+    orig = torch.empty(b, live, npad, 2, dtype=torch.int32, device=dev)
     tab = torch.empty(max(1, len(level_tiles(meta))) * KERNEL_TILE,
                       dtype=torch.int32, device=dev)
+    part = torch.empty(f2cat.shape, device=dev) if (
+        rt == "tensor_cores" and _ceil(n, KERNEL_TILE) > SWEEP_TILES) else None
     err = _kernel_fns()[1](gc.data_ptr(), f1.data_ptr(), f2cat.data_ptr(),
                            cc.data_ptr(), df1.data_ptr(), df2.data_ptr(),
                            dtap.data_ptr(), orig.data_ptr(), tab.data_ptr(),
-                           *_launch_tail(f1, f2cat, meta, flat, radius),
+                           0 if part is None else part.data_ptr(),
+                           *_launch_tail(f1, f2cat, meta, flat, live, radius,
+                                         rt),
                            _stream(f1))
     if err:
         raise RuntimeError(f"fused_corr backward kernel launch failed: CUDA "
@@ -425,24 +475,42 @@ def fused_corr_lookup_cat_bwd(g: torch.Tensor, f1: torch.Tensor,
                             cat_meta(h2, w2, num_levels), radius)
 
 
-class _FusedLookup(torch.autograd.Function):
-    """The lookup with its backward; coordinates get no gradient."""
+@torch.library.custom_op("ofd::fused_corr_lookup", mutates_args=())
+def _lookup_op(f1: torch.Tensor, f2cat: torch.Tensor, coords: torch.Tensor,
+               h2: int, w2: int, num_levels: int, radius: int
+               ) -> torch.Tensor:
+    """The lookup as one operator: the plain version on CPU tensors, the
+    kernel on CUDA tensors."""
+    if _on_cpu(f1, f2cat, coords):
+        return fused_corr_lookup_cat_plain(f1, f2cat, coords, h2, w2,
+                                           num_levels, radius)
+    return _lookup_cuda(f1, f2cat, coords, h2, w2, num_levels, radius)
 
-    @staticmethod
-    def forward(ctx, f1, f2cat, coords, h2, w2, num_levels, radius):
-        ctx.save_for_backward(f1, f2cat, coords)
-        ctx.shape_args = (h2, w2, num_levels, radius)
-        if _on_cpu(f1, f2cat, coords):
-            return fused_corr_lookup_cat_plain(f1, f2cat, coords, h2, w2,
-                                               num_levels, radius)
-        return _lookup_cuda(f1, f2cat, coords, h2, w2, num_levels, radius)
 
-    @staticmethod
-    def backward(ctx, g):
-        f1, f2cat, coords = ctx.saved_tensors
-        df1, df2 = fused_corr_lookup_cat_bwd(g, f1, f2cat, coords,
-                                             *ctx.shape_args)
-        return df1, df2, None, None, None, None, None
+def _lookup_setup(ctx, inputs, output):
+    f1, f2cat, coords, h2, w2, num_levels, radius = inputs
+    ctx.save_for_backward(f1, f2cat, coords)
+    ctx.shape_args = (h2, w2, num_levels, radius)
+
+
+def _lookup_vjp(ctx, g):
+    """The backward; coordinates get no gradient."""
+    f1, f2cat, coords = ctx.saved_tensors
+    df1, df2 = fused_corr_lookup_cat_bwd(g, f1, f2cat, coords,
+                                         *ctx.shape_args)
+    return df1, df2, None, None, None, None, None
+
+
+@_lookup_op.register_fake
+def _lookup_shape(f1, f2cat, coords, h2, w2, num_levels, radius):
+    """The output's shape and dtype, not computed; tensors on neither the
+    CPU nor one CUDA device (meta tensors) raise, as the wrapper does."""
+    _check_devices(f1, f2cat, coords)
+    k = 2 * radius + 1
+    return f1.new_empty(f1.shape[0], f1.shape[1], num_levels * k * k)
+
+
+_lookup_op.register_autograd(_lookup_vjp, setup_context=_lookup_setup)
 
 
 def fused_corr_lookup_cat(f1: torch.Tensor, f2cat: torch.Tensor,
@@ -465,7 +533,7 @@ def fused_corr_lookup_cat(f1: torch.Tensor, f2cat: torch.Tensor,
         raise ValueError(f"fused_corr_lookup_cat: shapes f1 {tuple(f1.shape)}"
                          f", f2cat {tuple(f2cat.shape)} (want {(b, rows, c)})"
                          f", coords {tuple(coords.shape)}")
-    return _FusedLookup.apply(f1, f2cat, coords, h2, w2, num_levels, radius)
+    return _lookup_op(f1, f2cat, coords, h2, w2, num_levels, radius)
 
 
 fused_corr_lookup_cat.launches = 0

@@ -8,9 +8,12 @@ the accuracy (``kpx_acc``, epe < k) and the outlier rate (``kpx_out``,
 epe > k). :func:`classifier_loss` is the cross-entropy of the frozen
 classifier on the final prediction (`train.py:196-203`).
 :func:`epe_metric` and :func:`fl_all_metric` are the eval metrics (EPE
-and KITTI Fl-all over valid pixels). Flows are NCHW ``[B, 2, H, W]``;
-every result is an f32 0-d tensor. :func:`global_metrics` turns one
-process's metrics into the whole batch's under data parallelism.
+and KITTI Fl-all over valid pixels). Flows are NCHW ``[B, 2, H, W]``
+(the supervision also takes the blocked ``[B, 64, 2, h, w]`` with valid
+maps ``[B, 64, h, w]``, ``models/raft.py:block_pixels``: the flow's two
+channels are the third axis from the end); every result is an f32 0-d
+tensor. :func:`global_metrics` turns one process's metrics into the
+whole batch's under data parallelism.
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ MASKED = ("epe", "1px_acc", "3px_acc", "5px_acc", "1px_out", "3px_out",
 
 def supervised_mask(flow_gt: torch.Tensor, valid: torch.Tensor,
                     max_flow: float = MAX_FLOW) -> torch.Tensor:
-    """``[B, H, W]``: the pixels the loss supervises (valid >= 0.5 and
-    |flow| < max_flow)."""
-    mag = torch.sqrt(torch.sum(flow_gt.float() ** 2, dim=1))
+    """``[B, H, W]`` (blocked: ``[B, 64, h, w]``): the pixels the loss
+    supervises (valid >= 0.5 and |flow| < max_flow)."""
+    mag = torch.sqrt(torch.sum(flow_gt.float() ** 2, dim=flow_gt.dim() - 3))
     return (valid >= 0.5) & (mag < max_flow)
 
 
@@ -39,11 +42,13 @@ def sequence_loss(flow_preds: Sequence[torch.Tensor], flow_gt: torch.Tensor,
                   max_flow: float = MAX_FLOW
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """flow_preds: list of ``[B, 2, H, W]``; flow_gt ``[B, 2, H, W]``;
-    valid ``[B, H, W]`` (>= 0.5 means supervised)."""
+    valid ``[B, H, W]`` (>= 0.5 means supervised); or all three blocked
+    (``[B, 64, 2, h, w]``, ``[B, 64, h, w]``)."""
     n = len(flow_preds)
     flow_gt = flow_gt.float()
+    cdim = flow_gt.dim() - 3                                 # the channels
     mask = supervised_mask(flow_gt, valid, max_flow)         # [B, H, W]
-    maskf = mask[:, None].float()
+    maskf = mask.unsqueeze(cdim).float()
 
     flow_loss = torch.zeros((), device=flow_gt.device)
     for i, pred in enumerate(flow_preds):
@@ -52,7 +57,7 @@ def sequence_loss(flow_preds: Sequence[torch.Tensor], flow_gt: torch.Tensor,
             maskf * torch.abs(pred.float() - flow_gt))
 
     epe_map = torch.sqrt(torch.sum((flow_preds[-1].float() - flow_gt) ** 2,
-                                   dim=1))
+                                   dim=cdim))
     denom = torch.clamp(mask.float().sum(), min=1.0)
 
     def masked_mean(x: torch.Tensor) -> torch.Tensor:

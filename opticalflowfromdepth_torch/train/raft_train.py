@@ -10,6 +10,15 @@ OneCycle-linear schedule. ``freeze_bn`` makes the context encoder's
 BatchNorm use its running statistics (`train.py:152-153`). Where JAX
 takes a key, the step takes a ``torch.Generator`` (noise and dropout).
 
+The JAX package's scheduling options build and train as there, with
+JAX's numbers: ``remat`` ("none", "dots", "full"; ``models/raft.py``),
+``unroll`` (an int >= 0, 0 meaning every iteration; kept on the model,
+the eager loop runs one iteration at a time) and ``blocked_supervision``
+(the basic model returns its flows blocked, ``[B, 64, 2, h, w]``; the
+step blocks the ground truth and the valid map once, runs the loss on the
+blocked flows and hands the classifier the unblocked final flow), e.g.
+``RAFTTrainConfig(remat="dots", unroll=4, blocked_supervision=True)``.
+
 A ``parallel.mesh.ProcessMesh`` made over a process group makes the step
 data parallel, each rank on its part of the batch, and the step what the
 JAX one computes on the whole batch: the gradients averaged over the
@@ -28,7 +37,7 @@ import torch
 
 from ..models.classifier import Classifier
 from ..models.layers import BatchNorm
-from ..models.raft import RAFT
+from ..models.raft import RAFT, block_pixels, unblock_pixels
 from ..parallel.mesh import ProcessMesh, all_reduce_mean_
 from ..utils.device import resolve_device
 from .loss import (classifier_loss, global_metrics, sequence_loss,
@@ -59,15 +68,20 @@ class RAFTTrainConfig:
     classify_loss_weight_increase: float = -2e-5
     max_classify_loss_weight: float = 1.0
     min_classify_loss_weight: float = 0.0
-    # "none" or "full" (models/raft.py:RAFT.remat); "dots" is not ported
+    # "none", "dots" or "full" (models/raft.py:RAFT.remat)
     remat: str = "none"
-    # the JAX scan's unroll factor; the eager loop runs one iteration at a
-    # time, so only 1 is accepted
+    # the JAX scan's unroll factor, 0 = every iteration; the eager loop
+    # runs one iteration at a time whatever it is (models/raft.py)
     unroll: int = 1
     # "fused": the CUDA lookup and its backward on the card
     corr_impl: str = "fused"
-    # not ported: supervision in the blocked layout
+    # supervise in the blocked [B, 64, 2, h, w] layout (basic model only;
+    # the ground truth blocked once a step)
     blocked_supervision: bool = False
+
+
+def _blocked(cfg: RAFTTrainConfig) -> bool:
+    return cfg.blocked_supervision and not cfg.small
 
 
 def build_model(cfg: RAFTTrainConfig,
@@ -75,12 +89,6 @@ def build_model(cfg: RAFTTrainConfig,
                 mesh: Optional[ProcessMesh] = None) -> RAFT:
     """The model of ``cfg``; with a ``mesh`` made over a process group its
     batch norms take the whole batch's statistics."""
-    if cfg.blocked_supervision:
-        raise ValueError("blocked_supervision is not ported; the port "
-                         "supervises at full resolution")
-    if cfg.unroll != 1:
-        raise ValueError(f"unroll={cfg.unroll} is not ported; the GRU loop "
-                         "runs one iteration at a time (unroll=1)")
     if cfg.dropout > 0 and mesh is not None and mesh.data_world > 1:
         raise ValueError("dropout with data parallelism is not ported: each "
                          "rank would draw its own mask, not its rows of the "
@@ -88,7 +96,8 @@ def build_model(cfg: RAFTTrainConfig,
     dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
     model = RAFT(small=cfg.small, dropout=cfg.dropout, dtype=dtype,
                  remat=cfg.remat, corr_impl=cfg.corr_impl,
-                 generator=generator)
+                 unroll=cfg.iters if cfg.unroll == 0 else cfg.unroll,
+                 blocked_supervision=_blocked(cfg), generator=generator)
     if mesh is not None and mesh.distributed:
         for m in model.modules():
             if isinstance(m, BatchNorm):
@@ -157,10 +166,15 @@ def make_train_step(cfg: RAFTTrainConfig,
 
         flow_preds = state.model(image1, image2, iters=cfg.iters,
                                  train=not cfg.freeze_bn, generator=generator)
-        loss, metrics = sequence_loss(flow_preds, batch["flow"],
-                                      batch["valid"], cfg.gamma)
+        flow_gt, valid = batch["flow"], batch["valid"]
+        if _blocked(cfg):
+            flow_gt, valid = block_pixels(flow_gt), block_pixels(valid)
+        loss, metrics = sequence_loss(flow_preds, flow_gt, valid, cfg.gamma)
         if cfg.add_classifier and classifier is not None:
-            logits = classifier(flow_preds[-1], train=False)
+            final = flow_preds[-1]
+            if _blocked(cfg):
+                final = unblock_pixels(final)
+            logits = classifier(final, train=False)
             c_loss = classifier_loss(logits, batch["label"])
             metrics["classify_loss"] = c_loss.detach()
             loss = loss + c_loss * classify_weight_at(cfg, state.step)

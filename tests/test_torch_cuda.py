@@ -141,6 +141,90 @@ def test_fused_corr_bwd_kernel_bit_reproducible(card, dtype, c, h, w):
         assert float((d / (atol + rtol * r.float().abs())).max()) <= 1.0
 
 
+
+@pytest.mark.parametrize("dtype,c,radius,levels,h,w", [
+    (torch.float32, 4, 4, 4, 12, 16),
+    (torch.bfloat16, 36, 4, 4, 12, 16),       # C % 8 != 0: scalar loads
+    (torch.float32, 520, 4, 4, 7, 9),         # f1 past its registers
+    (torch.bfloat16, 1024, 4, 4, 7, 9),
+    (torch.bfloat16, 256, 0, 4, 12, 16),      # tensor cores at radius 0
+    (torch.bfloat16, 256, 5, 4, 12, 16),      # past the tensor cores' taps
+    (torch.float32, 64, 6, 4, 12, 16),
+    (torch.bfloat16, 40, 9, 3, 20, 24),       # two tap blocks a side
+    (torch.bfloat16, 256, 4, 9, 12, 16),      # tensor cores, 7 levels empty
+    (torch.float32, 128, 4, 12, 12, 16)])
+def test_fused_corr_kernels_take_every_operand(card, dtype, c, radius,
+                                               levels, h, w):
+    """Every C, radius and level count on the route ``route`` names, forward
+    and backward within chip_smoke.py [3a]'s and [3c]'s tolerances of the
+    plain versions, one launch each, two launches bit-equal; the levels
+    pooled to nothing give 0."""
+    g = torch.Generator().manual_seed(c + radius + levels)
+    b = 2
+    f1 = torch.randn(b, h * w, c, generator=g).to(card, dtype)
+    f2cat = fc.corr_levels_cat(torch.randn(b, h, w, c, generator=g).to(card),
+                               levels, dtype)
+    coords = (torch.rand(b, h * w, 2, generator=g) * (w + 16) - 8).to(card)
+    k2 = (2 * radius + 1) ** 2
+    gout = torch.randn(b, h * w, levels * k2, generator=g).to(card, dtype)
+    live = fc.live_levels(fc.cat_meta(h, w, levels))
+    assert fc.route(dtype, c, radius, live) == (
+        "tensor_cores" if c == 256 and radius <= 4 else "cuda_cores")
+    before = (fc.fused_corr_lookup_cat.launches,
+              fc.fused_corr_lookup_cat.bwd_launches)
+    got = fc.fused_corr_lookup_cat(f1, f2cat, coords, h, w, levels, radius)
+    grads = fc.fused_corr_lookup_cat_bwd(gout, f1, f2cat, coords, h, w,
+                                         levels, radius)
+    assert (fc.fused_corr_lookup_cat.launches,
+            fc.fused_corr_lookup_cat.bwd_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    again = fc.fused_corr_lookup_cat(f1, f2cat, coords, h, w, levels, radius)
+    grads2 = fc.fused_corr_lookup_cat_bwd(gout, f1, f2cat, coords, h, w,
+                                          levels, radius)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads2))
+    assert torch.count_nonzero(got[..., live * k2:]) == 0
+    ref = fc.fused_corr_lookup_cat_plain(f1, f2cat, coords, h, w, levels,
+                                         radius)
+    ref_b = fc.fused_corr_lookup_cat_bwd_plain(gout, f1, f2cat, coords, h, w,
+                                               levels, radius)
+    f32 = dtype == torch.float32
+    for x, r, (rtol, atol) in ((got, ref, (0.0, 1e-4) if f32 else (2e-2,
+                                                                   2e-2)),
+                               *((x, r, (0.0, 1e-4) if f32 else (2 ** -7,
+                                                                 1e-3))
+                                 for x, r in zip(grads, ref_b))):
+        assert x.dtype == dtype and x.shape == r.shape
+        d = (x.float() - r.float()).abs()
+        assert float((d / (atol + rtol * r.float().abs())).max()) <= 1.0
+
+
+def test_fused_corr_kernels_take_zero_rows_and_unaligned_views(card):
+    """An f2cat of zero rows (every level pooled away) gives zero lookups
+    and a zero df1; features that start off a 16-byte boundary are
+    copied to one, not refused."""
+    f1 = torch.randn(1, 10, 8, device=card)
+    f2cat = fc.corr_levels_cat(torch.randn(1, 0, 5, 8, device=card), 3,
+                               torch.float32)
+    coords = torch.rand(1, 10, 2, device=card) * 4
+    out = fc.fused_corr_lookup_cat(f1, f2cat, coords, 0, 5, 3, 2)
+    df1, df2 = fc.fused_corr_lookup_cat_bwd(torch.randn_like(out), f1, f2cat,
+                                            coords, 0, 5, 3, 2)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 10, 75) and torch.count_nonzero(out) == 0
+    assert torch.count_nonzero(df1) == 0 and df2.shape == (1, 0, 8)
+    wide = torch.randn(2, 63, 257, device=card, dtype=torch.bfloat16)
+    f1 = wide[:, :, 1:]                     # 2 bytes past the boundary
+    assert f1.data_ptr() % 16
+    f2cat = fc.corr_levels_cat(torch.randn(2, 7, 9, 256, device=card), 4,
+                               torch.bfloat16)
+    coords = torch.rand(2, 63, 2, device=card) * 9
+    got = fc.fused_corr_lookup_cat(f1, f2cat, coords, 7, 9)
+    ref = fc.fused_corr_lookup_cat_plain(f1, f2cat, coords, 7, 9)
+    d = (got.float() - ref.float()).abs()
+    assert float((d / (2e-2 + 2e-2 * ref.float().abs())).max()) <= 1.0
+
 def _smooth_coords(g, b, h, w):
     """The grid plus a coarse 3x4 field of +- 20 px upsampled bilinearly,
     the columns right of 0.55 w moved 10 px further (chip_smoke.py)."""

@@ -268,8 +268,7 @@ def test_classifier_matches_jax(train):
 
 def test_remat_full_gives_the_same_flows_and_gradients():
     """remat="full" recomputes each GRU iteration in the backward: the
-    flows and every gradient equal those without it. "dots" and
-    blocked supervision are not ported and raise."""
+    flows and every gradient equal those without it."""
     i1, i2 = (_nchw(x) for x in _images(seed=7, b=2))
     sd = _port(False, "fused").state_dict()
     out = []
@@ -285,9 +284,3 @@ def test_remat_full_gives_the_same_flows_and_gradients():
     for n, g in out[0][1].items():
         torch.testing.assert_close(out[1][1][n], g, rtol=1e-5, atol=1e-7,
                                    msg=n)
-    with pytest.raises(ValueError, match="dots"):
-        TRAFT(remat="dots")
-    from opticalflowfromdepth_torch.train.raft_train import (RAFTTrainConfig,
-                                                             build_model)
-    with pytest.raises(ValueError, match="blocked_supervision"):
-        build_model(RAFTTrainConfig(blocked_supervision=True))

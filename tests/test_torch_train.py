@@ -95,12 +95,14 @@ def _np_tree(t):
 
 
 @functools.lru_cache(maxsize=None)
-def _two_steps():
-    """Both frameworks, two steps from the same state on the same batches;
-    per step the JAX trees mapped to the port's names, and the port's."""
+def _two_steps(option=()):
+    """Both frameworks, two steps from the same state on the same batches,
+    each with the config's ``option`` (``(name, value)`` pairs); per step
+    the JAX trees mapped to the port's names, and the port's."""
     model, cls = _models()
     sd0 = {k: v.clone() for k, v in model.state_dict().items()}
-    jcfg, tcfg = jrt.RAFTTrainConfig(**CFG), trt.RAFTTrainConfig(**CFG)
+    jcfg = jrt.RAFTTrainConfig(**dict(CFG, **dict(option)))
+    tcfg = trt.RAFTTrainConfig(**dict(CFG, **dict(option)))
 
     params, stats = port_raft(sd0)
     cparams, cstats = port_classifier(cls.state_dict())
@@ -162,7 +164,13 @@ def _max_diff(got, ref, keys):
 
 @pytest.mark.parametrize("n", [1, 2])
 def test_train_step_matches_jax(n):
-    ref, got = _two_steps()[n - 1]
+    check_step_against_jax(n)
+
+
+def check_step_against_jax(n, option=()):
+    """Step ``n`` of :func:`_two_steps` with ``option``: the port's against
+    JAX's at RAFT's tolerances."""
+    ref, got = _two_steps(option)[n - 1]
     assert set(got["metrics"]) == set(ref["metrics"])
     for k, v in ref["metrics"].items():
         np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-4,
@@ -192,7 +200,7 @@ def test_train_step_matches_jax(n):
                                    atol=1e-5, err_msg=k)
     if n == 2:      # the running statistics really moved, twice
         moved = got["state"]["cnet.norm1.running_var"]
-        first = _two_steps()[0][1]["state"]["cnet.norm1.running_var"]
+        first = _two_steps(option)[0][1]["state"]["cnet.norm1.running_var"]
         assert not torch.allclose(moved, first)
 
 
@@ -364,13 +372,6 @@ def test_train_runner_from_shards(tmp_path):
                         device="cpu")
     assert again.state.step == 2
     assert again.run().step == 3
-
-
-@pytest.mark.parametrize("option", [dict(blocked_supervision=True),
-                                    dict(unroll=2), dict(remat="dots")])
-def test_unported_options_raise(option):
-    with pytest.raises(ValueError, match="not ported"):
-        trt.build_model(_small_cfg(**option))
 
 
 def test_entry_points_default_to_the_card():
