@@ -1,0 +1,7 @@
+"""Kernel launches an inferred pair."""
+
+from harness import readers
+
+
+def read(r):
+    return readers.launches_per_pair(r)
