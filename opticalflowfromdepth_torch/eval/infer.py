@@ -1,6 +1,9 @@
 """Inference functions for the eval plane (port of
 ``opticalflowfromdepth_tpu/eval/infer.py``): ``raft_infer_fn`` and
-``gmflow_infer_fn``."""
+``gmflow_infer_fn``. A call runs in the span ``ofd.infer.call`` of the
+trace (``utils/profiling.annotate``), in three stages: ``ofd.infer.upload``
+(the images to the card), ``ofd.infer.model`` and ``ofd.sync.download``
+(the flow back, which waits for the model's kernels)."""
 
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate, spanned
 
 
 def _to_nchw(a, device) -> torch.Tensor:
@@ -28,14 +32,20 @@ def raft_infer_fn(model, iters: int = 24, with_low_res: bool = False,
     device = resolve_device(device)
     model = model.to(device).eval()
 
+    @spanned("ofd.infer.call")
     def infer(image1, image2, flow_init=None):
         with torch.inference_mode():
-            fi = None if flow_init is None else _to_nchw(flow_init, device)
-            low, up = model(_to_nchw(image1, device), _to_nchw(image2, device),
-                            iters=iters, flow_init=fi, test_mode=True)
-            up = up.permute(0, 2, 3, 1).cpu().numpy()
-            if with_low_res:
-                return low.permute(0, 2, 3, 1).cpu().numpy(), up
+            with annotate("ofd.infer.upload"):
+                fi = None if flow_init is None \
+                    else _to_nchw(flow_init, device)
+                i1, i2 = _to_nchw(image1, device), _to_nchw(image2, device)
+            with annotate("ofd.infer.model"):
+                low, up = model(i1, i2, iters=iters, flow_init=fi,
+                                test_mode=True)
+            with annotate("ofd.sync.download"):
+                up = up.permute(0, 2, 3, 1).cpu().numpy()
+                if with_low_res:
+                    return low.permute(0, 2, 3, 1).cpu().numpy(), up
             return up
 
     return infer
@@ -55,13 +65,18 @@ def gmflow_infer_fn(model, attn_splits_list: Sequence[int] = (2,),
     device = resolve_device(device)
     model = model.to(device).eval()
 
+    @spanned("ofd.infer.call")
     def infer(image1, image2):
         with torch.inference_mode():
-            out = model(_to_nchw(image1, device), _to_nchw(image2, device),
-                        attn_splits_list=tuple(attn_splits_list),
-                        corr_radius_list=tuple(corr_radius_list),
-                        prop_radius_list=tuple(prop_radius_list),
-                        pred_bidir_flow=pred_bidir_flow, training=False)
-            return out["flow_preds"][-1].permute(0, 2, 3, 1).cpu().numpy()
+            with annotate("ofd.infer.upload"):
+                i1, i2 = _to_nchw(image1, device), _to_nchw(image2, device)
+            with annotate("ofd.infer.model"):
+                out = model(i1, i2, attn_splits_list=tuple(attn_splits_list),
+                            corr_radius_list=tuple(corr_radius_list),
+                            prop_radius_list=tuple(prop_radius_list),
+                            pred_bidir_flow=pred_bidir_flow, training=False)
+            with annotate("ofd.sync.download"):
+                return out["flow_preds"][-1].permute(0, 2, 3, 1).cpu() \
+                    .numpy()
 
     return infer

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..utils.profiling import spanned
 from .layers import BasicEncoder, SmallEncoder, dropout
 
 NUM_CLASSES = 1 + 3  # `classifier.py:5`
@@ -44,6 +45,7 @@ class Classifier(nn.Module):
         self.classify = nn.ModuleDict(
             {self.linear_key: nn.Linear(output_dim, NUM_CLASSES)})
 
+    @spanned("ofd.classifier")
     def forward(self, flow: torch.Tensor, train: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         train = self.training if train is None else train

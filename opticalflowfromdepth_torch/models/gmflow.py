@@ -43,6 +43,7 @@ from ..ops.sampling import flow_warp, resize_bilinear_align_corners
 from ..parallel.sequence import (group_size, ring_softmax_matmul,
                                  sharded_global_matching,
                                  sharded_window_attention, window_shards)
+from ..utils.profiling import annotate
 from .layers import Conv, InstanceNorm, init_weights_
 from .raft import convex_upsample
 
@@ -533,8 +534,9 @@ class GMFlow(nn.Module):
                              f"entry per scale in attn_splits_list, "
                              f"corr_radius_list and prop_radius_list")
         dt = self.dtype
-        img0, img1 = normalize_img(img0, img1)
-        features = self.backbone(torch.cat([img0, img1], dim=0).to(dt))
+        with annotate("ofd.gmflow.backbone"):
+            img0, img1 = normalize_img(img0, img1)
+            features = self.backbone(torch.cat([img0, img1], dim=0).to(dt))
         features = features[::-1]                      # low -> high res
 
         flow_preds: List[torch.Tensor] = []
@@ -559,36 +561,42 @@ class GMFlow(nn.Module):
             corr_radius = corr_radius_list[scale_idx]
             prop_radius = prop_radius_list[scale_idx]
 
-            feature0, feature1 = feature_add_position(
-                feature0, feature1, splits, self.feature_channels)
-            feature0, feature1 = self.transformer(
-                feature0.to(dt), feature1.to(dt), splits)
-            feature0, feature1 = feature0.float(), feature1.float()
+            with annotate("ofd.gmflow.transformer"):
+                feature0, feature1 = feature_add_position(
+                    feature0, feature1, splits, self.feature_channels)
+                feature0, feature1 = self.transformer(
+                    feature0.to(dt), feature1.to(dt), splits)
+                feature0, feature1 = feature0.float(), feature1.float()
 
-            if corr_radius == -1:
-                flow_pred = global_correlation_softmax(
-                    feature0, feature1, pred_bidir_flow, dtype=dt,
-                    group=self.group)[0]
-            else:
-                flow_pred = local_correlation_softmax(feature0, feature1,
-                                                      corr_radius)[0]
-            flow = flow_pred if flow is None else flow + flow_pred
+            with annotate("ofd.gmflow.matching"):
+                if corr_radius == -1:
+                    flow_pred = global_correlation_softmax(
+                        feature0, feature1, pred_bidir_flow, dtype=dt,
+                        group=self.group)[0]
+                else:
+                    flow_pred = local_correlation_softmax(
+                        feature0, feature1, corr_radius)[0]
+                flow = flow_pred if flow is None else flow + flow_pred
             if training:
-                flow_preds.append(_upsample_bilinear(flow, factor))
+                with annotate("ofd.gmflow.upsample"):
+                    flow_preds.append(_upsample_bilinear(flow, factor))
 
-            if pred_bidir_flow and scale_idx == 0:
-                feature0 = torch.cat([feature0, feature1], dim=0)
-            flow = self.feature_flow_attn(feature0.to(dt), flow.detach(),
-                                          prop_radius > 0, prop_radius)
+            with annotate("ofd.gmflow.propagation"):
+                if pred_bidir_flow and scale_idx == 0:
+                    feature0 = torch.cat([feature0, feature1], dim=0)
+                flow = self.feature_flow_attn(feature0.to(dt), flow.detach(),
+                                              prop_radius > 0, prop_radius)
             if training and scale_idx < self.num_scales - 1:
-                flow_preds.append(_upsample_bilinear(flow, factor))
+                with annotate("ofd.gmflow.upsample"):
+                    flow_preds.append(_upsample_bilinear(flow, factor))
 
             if scale_idx == self.num_scales - 1:
-                concat = torch.cat([flow.to(dt), feature0.to(dt)], dim=-1)
-                mask = self.upsampler(concat.permute(0, 3, 1, 2)).float()
-                flow_preds.append(convex_upsample(
-                    flow.permute(0, 3, 1, 2), mask,
-                    factor=self.upsample_factor))
+                with annotate("ofd.gmflow.upsample"):
+                    concat = torch.cat([flow.to(dt), feature0.to(dt)], dim=-1)
+                    mask = self.upsampler(concat.permute(0, 3, 1, 2)).float()
+                    flow_preds.append(convex_upsample(
+                        flow.permute(0, 3, 1, 2), mask,
+                        factor=self.upsample_factor))
         return {"flow_preds": flow_preds}
 
 

@@ -28,6 +28,7 @@ from ..core.geometry import pixel_grid
 from ..ops.correlation import CorrPyramid, on_demand_corr
 from ..ops.fused_corr import corr_levels_cat, fused_corr_lookup_cat
 from ..ops.sampling import resize_bilinear_align_corners
+from ..utils.profiling import annotate
 from .layers import BasicEncoder, Conv, SmallEncoder, init_weights_
 
 
@@ -320,21 +321,24 @@ class RAFT(nn.Module):
         image1 = (2.0 * (image1 / 255.0) - 1.0).to(dt)
         image2 = (2.0 * (image2 / 255.0) - 1.0).to(dt)
 
-        fmaps = self.fnet(torch.cat([image1, image2], dim=0), train,
-                          generator).float()
-        fmap1, fmap2 = fmaps.chunk(2, dim=0)
-        cnet = self.cnet(image1, train, generator)
-        net, inp = torch.split(cnet, [self.hidden_dim, self.context_dim],
-                               dim=1)
-        net = torch.tanh(net)
-        inp = torch.relu(inp)
+        with annotate("ofd.raft.fnet"):
+            fmaps = self.fnet(torch.cat([image1, image2], dim=0), train,
+                              generator).float()
+            fmap1, fmap2 = fmaps.chunk(2, dim=0)
+        with annotate("ofd.raft.cnet"):
+            cnet = self.cnet(image1, train, generator)
+            net, inp = torch.split(cnet, [self.hidden_dim,
+                                          self.context_dim], dim=1)
+            net = torch.tanh(net)
+            inp = torch.relu(inp)
 
         b, _, h8, w8 = fmap1.shape
         coords0 = coords_grid(b, h8, w8, fmap1.device)
         coords1 = coords0.clone()
         if flow_init is not None:
             coords1 = coords1 + flow_init
-        corr_fn = self._corr_fn(fmap1, fmap2)
+        with annotate("ofd.raft.corr_pyramid"):
+            corr_fn = self._corr_fn(fmap1, fmap2)
 
         def step(net, coords1):
             corr = corr_fn(coords1).to(dt)
@@ -349,24 +353,28 @@ class RAFT(nn.Module):
         mask = None
         for _ in range(iters):
             coords1 = coords1.detach()                       # `raft.py:123`
-            if remat:
-                net, up_mask, coords1 = torch.utils.checkpoint.checkpoint(
-                    step, net, coords1, use_reentrant=False,
-                    context_fn=context_fn)
-            else:
-                net, up_mask, coords1 = step(net, coords1)
-            if test_mode:
-                mask = None if up_mask is None else up_mask.float()
-            elif up_mask is None:
-                flow_ups.append(upflow8(coords1 - coords0).to(dt))
-            else:
-                flow_ups.append(convex_upsample(
-                    coords1 - coords0, up_mask.float(), dtype=dt,
-                    pixel_shuffle=not self.blocked_supervision).to(dt))
+            with annotate("ofd.raft.update"):
+                if remat:
+                    net, up_mask, coords1 = torch.utils.checkpoint.checkpoint(
+                        step, net, coords1, use_reentrant=False,
+                        context_fn=context_fn)
+                else:
+                    net, up_mask, coords1 = step(net, coords1)
+                if test_mode:
+                    mask = None if up_mask is None else up_mask.float()
+                    continue
+            with annotate("ofd.raft.upsample"):
+                if up_mask is None:
+                    flow_ups.append(upflow8(coords1 - coords0).to(dt))
+                else:
+                    flow_ups.append(convex_upsample(
+                        coords1 - coords0, up_mask.float(), dtype=dt,
+                        pixel_shuffle=not self.blocked_supervision).to(dt))
 
         if test_mode:
-            flow_lr = coords1 - coords0
-            if self.small:
-                return flow_lr, upflow8(flow_lr)
-            return flow_lr, convex_upsample(flow_lr, mask)
+            with annotate("ofd.raft.upsample"):
+                flow_lr = coords1 - coords0
+                if self.small:
+                    return flow_lr, upflow8(flow_lr)
+                return flow_lr, convex_upsample(flow_lr, mask)
         return flow_ups

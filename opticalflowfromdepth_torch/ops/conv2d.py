@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils.profiling import spanned
 
 KERNEL_TILE_H = 16   # output rows per tile of every route (a band)
 
@@ -221,6 +222,7 @@ class _Conv3x3(torch.autograd.Function):
         return _forward(x, w)
 
     @staticmethod
+    @spanned("ofd.op.conv3x3")
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         g = g.to(x.dtype).contiguous()
@@ -233,6 +235,7 @@ class _Conv3x3(torch.autograd.Function):
         return dx, dw
 
 
+@spanned("ofd.op.conv3x3")
 def conv3x3_s1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 SAME convolution: x ``[B, H, W, C]``, w ``[3, 3, C,
     CO]`` -> ``[B, H, W, CO]`` in x's dtype, accumulated in f32;

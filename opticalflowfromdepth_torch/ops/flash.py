@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import spanned
 
 KERNEL_BLOCK_K = 64          # keys per tile of csrc/flash.cu's bf16 routes
 LOG2E = 1.4426950408889634
@@ -608,6 +609,7 @@ def _flash_cuda(q, k, v, scale, swin, with_lse, bias):
     return (out, lse) if with_lse else out
 
 
+@spanned("ofd.op.flash_fwd")
 def flash_softmax_matmul(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None,
                          bias: Optional[torch.Tensor] = None,

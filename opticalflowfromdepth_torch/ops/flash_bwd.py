@@ -55,6 +55,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
+from ..utils.profiling import spanned
 # the plan's constants, the width predicates, the split count and the
 # split-TF32 products are the forward's too
 from .flash import (
@@ -136,6 +137,7 @@ def flash_backward_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+@spanned("ofd.op.flash_bwd")
 def flash_backward_with_bias(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, bias: torch.Tensor,
                              g: torch.Tensor, scale: Optional[float] = None,
@@ -472,6 +474,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, g, scale, swin) -> Grads:
     return grads
 
 
+@spanned("ofd.op.flash_bwd")
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
                    scale: Optional[float] = None,

@@ -39,6 +39,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from ..utils.profiling import spanned
 from ..core.geometry import pixel_grid
 
 ZBUF_INIT = 1000.0  # `fw_cuda.cpp:58`: the z-buffer's initial depth
@@ -160,6 +161,7 @@ def _forward_warp_cuda(obj: torch.Tensor, flow: torch.Tensor,
     return out, valid, collision
 
 
+@spanned("ofd.op.forward_warp")
 def forward_warp(obj: torch.Tensor, flow: torch.Tensor, depth: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward-warp ``obj`` along ``flow`` with a nearest-depth z-buffer.

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils.profiling import spanned
 from .correlation import _avg_pool2x2
 
 
@@ -459,6 +460,7 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+@spanned("ofd.op.corr_lookup_bwd")
 def fused_corr_lookup_cat_bwd(g: torch.Tensor, f1: torch.Tensor,
                               f2cat: torch.Tensor, coords: torch.Tensor,
                               h2: int, w2: int, num_levels: int = 4,
@@ -513,6 +515,7 @@ def _lookup_shape(f1, f2cat, coords, h2, w2, num_levels, radius):
 _lookup_op.register_autograd(_lookup_vjp, setup_context=_lookup_setup)
 
 
+@spanned("ofd.op.corr_lookup")
 def fused_corr_lookup_cat(f1: torch.Tensor, f2cat: torch.Tensor,
                           coords: torch.Tensor, h2: int, w2: int,
                           num_levels: int = 4,
@@ -540,6 +543,7 @@ fused_corr_lookup_cat.launches = 0
 fused_corr_lookup_cat.bwd_launches = 0
 
 
+@spanned("ofd.op.corr_lookup")
 def fused_corr_lookup_cat_slow_count(f1: torch.Tensor, f2cat: torch.Tensor,
                                      coords: torch.Tensor, h2: int, w2: int,
                                      num_levels: int = 4, radius: int = 4

@@ -31,6 +31,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from ..utils.profiling import spanned
 
 
 def instance_norm_plain(x: torch.Tensor, eps: float = 1e-5,
@@ -180,6 +181,7 @@ def _instance_norm_cuda(x: torch.Tensor, eps: float, relu: bool):
     return y, mean, rstd
 
 
+@spanned("ofd.op.instance_norm")
 def instance_norm_bwd(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                       rstd: torch.Tensor, y_relu=None) -> torch.Tensor:
     """Closed-form backward (``_in_bwd``): with the ReLU gate applied to
@@ -213,6 +215,7 @@ class _InstanceNorm(torch.autograd.Function):
         return instance_norm_bwd(g, x, mean, rstd, y), None, None
 
 
+@spanned("ofd.op.instance_norm")
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """InstanceNorm2d(affine=False) over (H, W) of NCHW ``x``, optional

@@ -14,6 +14,12 @@ Every softmax of the model goes through ``ops.flash.flash_softmax_matmul``
 and its autograd Function: on the card the forward kernel and the two
 backward kernels, on the CPU their plain versions.
 
+The step runs in the span ``ofd.train.step`` of the trace
+(``utils/profiling.annotate``; its autograd graph is freed inside it), each
+stage in its own: ``ofd.train.forward``, ``.loss``, ``.backward``,
+``.allreduce`` (data parallel only) and ``.optimizer``, and the host's two
+waits on the card, ``ofd.sync.nan_check`` and ``ofd.sync.skip_flag``.
+
 Parallelism comes from a ``parallel.mesh.ProcessMesh`` (the JAX
 ``mesh``): ``model_parallel > 1`` splits matching, full attention,
 propagation and the Swin windows over its model group (a process group,
@@ -36,6 +42,7 @@ from ..models.classifier import Classifier
 from ..models.gmflow import GMFlow
 from ..parallel.mesh import ProcessMesh, all_reduce_mean_
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate, spanned
 from .loss import (classifier_loss, global_metrics, sequence_loss,
                    supervised_mask)
 from .optim import make_optimizer
@@ -143,35 +150,44 @@ def make_train_step(cfg: GMFlowTrainConfig,
                   corr_radius_list=tuple(cfg.corr_radius_list),
                   prop_radius_list=tuple(cfg.prop_radius_list))
 
+    @spanned("ofd.train.step")
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         del generator
-        preds = state.model(batch["image1"], batch["image2"], **recipe,
-                            training=True)["flow_preds"]
-        loss, metrics = sequence_loss(preds, batch["flow"], batch["valid"],
-                                      cfg.gamma)
-        if cfg.add_classifier and classifier is not None:
-            logits = classifier(preds[-1], train=False)
-            c_loss = classifier_loss(logits, batch["label"])
-            metrics["classify_loss"] = c_loss.detach()
-            loss = loss + c_loss * classify_weight_at(cfg, state.step)
-        metrics["total_loss"] = loss.detach()
+        with annotate("ofd.train.forward"):
+            preds = state.model(batch["image1"], batch["image2"], **recipe,
+                                training=True)["flow_preds"]
+        with annotate("ofd.train.loss"):
+            loss, metrics = sequence_loss(preds, batch["flow"],
+                                          batch["valid"], cfg.gamma)
+            if cfg.add_classifier and classifier is not None:
+                logits = classifier(preds[-1], train=False)
+                c_loss = classifier_loss(logits, batch["label"])
+                metrics["classify_loss"] = c_loss.detach()
+                loss = loss + c_loss * classify_weight_at(cfg, state.step)
+            metrics["total_loss"] = loss.detach()
 
-        state.optimizer.zero_grad()
-        loss.backward()
-        if data_parallel:
-            all_reduce_mean_(state.optimizer.grads())
-            metrics = global_metrics(metrics, supervised_mask(
-                batch["flow"], batch["valid"]).sum())
-        ok = bool(torch.isfinite(metrics["total_loss"]))
-        if ok:
-            state.optimizer.step()
-            state.step += 1
-        else:
+        with annotate("ofd.train.backward"):
             state.optimizer.zero_grad()
-        metrics["skipped_nan"] = torch.tensor(0.0 if ok else 1.0,
-                                              device=loss.device)
+            loss.backward()
+        if data_parallel:
+            with annotate("ofd.train.allreduce"):
+                all_reduce_mean_(state.optimizer.grads())
+                metrics = global_metrics(metrics, supervised_mask(
+                    batch["flow"], batch["valid"]).sum())
+        with annotate("ofd.sync.nan_check"):
+            ok = bool(torch.isfinite(metrics["total_loss"]))
+        with annotate("ofd.train.optimizer"):
+            if ok:
+                state.optimizer.step()
+                state.step += 1
+            else:
+                state.optimizer.zero_grad()
+        # a blocking upload: the host waits here for the optimizer's kernels
+        with annotate("ofd.sync.skip_flag"):
+            metrics["skipped_nan"] = torch.tensor(0.0 if ok else 1.0,
+                                                  device=loss.device)
         return state, metrics
 
     return train_step

@@ -19,6 +19,10 @@ step blocks the ground truth and the valid map once, runs the loss on the
 blocked flows and hands the classifier the unblocked final flow), e.g.
 ``RAFTTrainConfig(remat="dots", unroll=4, blocked_supervision=True)``.
 
+The step runs in the span ``ofd.train.step`` (``utils/profiling.
+annotate``), its stages in ``ofd.train.forward``, ``.loss``, ``.backward``,
+``.allreduce`` (data parallel only) and ``.optimizer``.
+
 A ``parallel.mesh.ProcessMesh`` made over a process group makes the step
 data parallel, each rank on its part of the batch, and the step what the
 JAX one computes on the whole batch: the gradients averaged over the
@@ -40,6 +44,7 @@ from ..models.layers import BatchNorm
 from ..models.raft import RAFT, block_pixels, unblock_pixels
 from ..parallel.mesh import ProcessMesh, all_reduce_mean_
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate, spanned
 from .loss import (classifier_loss, global_metrics, sequence_loss,
                    supervised_mask)
 from .optim import make_optimizer
@@ -147,6 +152,7 @@ def make_train_step(cfg: RAFTTrainConfig,
     rank, world = (mesh.data_rank, mesh.data_world) if data_parallel \
         else (0, 1)
 
+    @spanned("ofd.train.step")
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -164,29 +170,36 @@ def make_train_step(cfg: RAFTTrainConfig,
             image2 = torch.clamp(image2 + (stdv * noise[1]).to(device),
                                  0.0, 255.0)
 
-        flow_preds = state.model(image1, image2, iters=cfg.iters,
-                                 train=not cfg.freeze_bn, generator=generator)
-        flow_gt, valid = batch["flow"], batch["valid"]
-        if _blocked(cfg):
-            flow_gt, valid = block_pixels(flow_gt), block_pixels(valid)
-        loss, metrics = sequence_loss(flow_preds, flow_gt, valid, cfg.gamma)
-        if cfg.add_classifier and classifier is not None:
-            final = flow_preds[-1]
+        with annotate("ofd.train.forward"):
+            flow_preds = state.model(image1, image2, iters=cfg.iters,
+                                     train=not cfg.freeze_bn,
+                                     generator=generator)
+        with annotate("ofd.train.loss"):
+            flow_gt, valid = batch["flow"], batch["valid"]
             if _blocked(cfg):
-                final = unblock_pixels(final)
-            logits = classifier(final, train=False)
-            c_loss = classifier_loss(logits, batch["label"])
-            metrics["classify_loss"] = c_loss.detach()
-            loss = loss + c_loss * classify_weight_at(cfg, state.step)
-        metrics["total_loss"] = loss.detach()
+                flow_gt, valid = block_pixels(flow_gt), block_pixels(valid)
+            loss, metrics = sequence_loss(flow_preds, flow_gt, valid,
+                                          cfg.gamma)
+            if cfg.add_classifier and classifier is not None:
+                final = flow_preds[-1]
+                if _blocked(cfg):
+                    final = unblock_pixels(final)
+                logits = classifier(final, train=False)
+                c_loss = classifier_loss(logits, batch["label"])
+                metrics["classify_loss"] = c_loss.detach()
+                loss = loss + c_loss * classify_weight_at(cfg, state.step)
+            metrics["total_loss"] = loss.detach()
 
-        state.optimizer.zero_grad()
-        loss.backward()
+        with annotate("ofd.train.backward"):
+            state.optimizer.zero_grad()
+            loss.backward()
         if data_parallel:
-            all_reduce_mean_(state.optimizer.grads())
-            metrics = global_metrics(metrics, supervised_mask(
-                batch["flow"], batch["valid"]).sum())
-        state.optimizer.step()
+            with annotate("ofd.train.allreduce"):
+                all_reduce_mean_(state.optimizer.grads())
+                metrics = global_metrics(metrics, supervised_mask(
+                    batch["flow"], batch["valid"]).sum())
+        with annotate("ofd.train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return state, metrics
 

@@ -7,7 +7,12 @@ The reference's only instrumentation is `count_time` wall-clock loops with
   * :func:`trace`: ``torch.profiler`` over a block, the CPU's activity and
     the card's, written as a Chrome trace (``chrome://tracing``, Perfetto)
     into ``log_dir``;
-  * :func:`annotate`: a named region in that trace;
+  * :func:`annotate` (and :func:`spanned`, its decorator form): a named
+    range in that trace. The program's spans are named ``ofd.<layer>.
+    <what>``, and ``ofd.sync.<what>`` where the host blocks on the card
+    (``PERF.md`` lists them and what reads them). With no
+    profiler recording, ``annotate`` returns one shared no-op, so a span
+    on the hot path costs one check;
   * :class:`StepTimer`: fenced step timing with running statistics (steps/s,
     frames/s, mean, p50, p90), the `count_time` counterpart.
 """
@@ -15,9 +20,10 @@ The reference's only instrumentation is `count_time` wall-clock loops with
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -39,9 +45,30 @@ def trace(log_dir: str, cuda: Optional[bool] = None):
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
 def annotate(name: str):
-    """A named region of the trace (use as a context manager)."""
+    """A named range of the trace (use as a context manager): a
+    ``record_function`` while a profiler records, on the clock of the
+    card's kernels in the same trace; otherwise the shared no-op
+    ``_OFF``, one check and no allocation (a bare ``record_function``
+    dispatches two operators even when nothing records)."""
+    if not _recording():
+        return _OFF
     return torch.profiler.record_function(name)
+
+
+def spanned(name: str) -> Callable:
+    """Decorator: every call of the function in ``annotate(name)``."""
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 class StepTimer:
