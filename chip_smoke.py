@@ -50,7 +50,12 @@ Run from the repository root on a host with one CUDA card. Phases:
    CUDA events beside the plain versions and the bounds; [3d] instance
    norm's
    gradient at the training shapes (where the kernel's and the plain
-   forward fall on opposite sides of the ReLU, |g| rstd allowed on top);
+   forward fall on opposite sides of the ReLU, |g| rstd allowed on top),
+   then the backward kernel at GMFlow's training step's 15 norms (bf16):
+   each dx against the closed form on the same operands (f32 within 1e-5
+   of the terms' size, then one bf16 step on at most 1% of the values, as
+   the card tests hold it), then timed beside its bound, the plain closed
+   form and ``F.instance_norm``'s autograd backward;
    [3e] the flash streaming-softmax kernel at
    GMFlow's Sintel shape classes (window attention [8, 1792, 128] with
    and without the Swin mask, global matching and global propagation
@@ -117,11 +122,11 @@ Run from the repository root on a host with one CUDA card. Phases:
    64x96, batch 2, on the card against the CPU, same weights and batch;
 7. the training path: seeded npz shards at 384x512 -> ``AugmentedShards``
    (crop 368x496) -> ``Loader`` (batch 8) -> ``TrainRunner`` over
-   ``make_train_step`` (RAFT-basic bf16, fused correlation, 12
-   iterations, frozen classifier): one warm-up step, 5 timed steps with
-   the launch counts checked (12 lookups, 12 lookup backwards and 15
-   instance norms per step) and a ``utils.profiling.StepTimer`` around
-   them, a profile of one step, then the ``latest`` and weights
+   ``make_train_step`` (RAFT-basic bf16, fused correlation, 12 iterations,
+   frozen classifier): one warm-up step, 5 timed steps with the launch
+   counts checked (12 lookups, 12 lookup backwards, 15 instance norms and
+   15 instance norm backwards per step) and a ``utils.profiling.StepTimer``
+   around them, a profile of one step, then the ``latest`` and weights
    checkpoints, the weights served by the serving model, and a
    ``utils.profiling.trace`` of one more step (read in [19]);
 8. a learning check: 30 steps on one fixed batch at 184x248, batch 4;
@@ -137,13 +142,13 @@ Run from the repository root on a host with one CUDA card. Phases:
    batch 2, 1 scale and refine, on the card against the CPU;
 12. the GMFlow training path: seeded npz shards at 384x576 ->
    ``AugmentedShards`` (crop 368x560) -> ``Loader`` (batch 16) ->
-   ``TrainRunner`` over ``gmflow_train.make_train_step`` (full width,
-   bf16, 1 scale, frozen classifier): one warm-up step, 5 timed steps
-   with the launch counts checked (14 flash forwards, 14 dq, 14 dk/dv, 15
-   instance norms, 0 lookups per step), a profile of one step, the
-   ``latest`` and weights checkpoints served by ``gmflow_infer_fn``, a
-   batch with a NaN skipped, and 30 steps on one fixed batch that must
-   lower the loss;
+   ``TrainRunner`` over ``gmflow_train.make_train_step`` (full width, bf16,
+   1 scale, frozen classifier): one warm-up step, 5 timed steps with the
+   launch counts checked (14 flash forwards, 14 dq, 14 dk/dv, 15 instance
+   norms, 15 instance norm backwards, 0 lookups per step), a profile of one
+   step, the ``latest`` and weights checkpoints served by
+   ``gmflow_infer_fn``, a batch with a NaN skipped, and 30 steps on one
+   fixed batch that must lower the loss;
 13. evaluation through ``eval.cli.main``, on seeded Sintel (436x1024)
    and KITTI (375x1242) trees written by the port's own writers: RAFT-basic
    ``--val sintel kitti --evaluate_matched_unmatched --with_speed_metric
@@ -190,18 +195,18 @@ Run from the repository root on a host with one CUDA card. Phases:
    directory per dataset, kept for [16]) through ``AugmentedShards``
    (crop 368x496) and ``Loader`` into 3 RAFT-basic training steps (bf16,
    fused correlation) with a finite loss;
-16. the training CLI: ``train.cli.main`` at its defaults (RAFT-basic,
-   batch 8 of 368x496, 12 iterations, bf16) on [15]'s ReDWeb and DIML
-   shards, ``--stage mixed`` (re-augmented), ``--add_classifier
-   --classifier_ckpt`` a seeded classifier saved as a ``.pth``: a warm-up
-   step, then 5 steps with exact launch counts (12 lookups, 12 lookup
-   backwards, 15 instance norms a step) and no plain version called; ms a
-   step, the step alone on a resident batch, the loader alone (ms a
-   batch); ``latest``, the weights, ``args.json`` and the ``_parameters``
-   sidecar; ``--resume`` for 2 more steps, the step's weights served by
+16. the training CLI: ``train.cli.main`` at its defaults (RAFT-basic, batch
+   8 of 368x496, 12 iterations, bf16) on [15]'s ReDWeb and DIML shards,
+   ``--stage mixed`` (re-augmented), ``--add_classifier --classifier_ckpt``
+   a seeded classifier saved as a ``.pth``: a warm-up step, then 5 steps
+   with exact launch counts (12 lookups, 12 lookup backwards, 15 instance
+   norms and 15 backwards a step) and no plain version called; ms a step,
+   the step alone on a resident batch, the loader alone (ms a batch);
+   ``latest``, the weights, ``args.json`` and the ``_parameters`` sidecar;
+   ``--resume`` for 2 more steps, the step's weights served by
    ``raft_infer_fn``; then ``--model gmflow`` (full width, batch 16 of
-   368x560), 2 steps with 14 + 14 + 14 flash launches and 15 instance
-   norms a step;
+   368x560), 2 steps with 14 + 14 + 14 flash launches and 15 + 15 instance
+   norm launches (forward, backward) a step;
 3i. (after [16]) the sequence-parallel ring (``parallel.sequence``) on
    the card: ``ring_softmax_matmul`` over ``LocalRing(n)``, n = 1, 2 and
    4, f32 (the flash kernels' f32 routes), at GMFlow's serving matching
@@ -229,9 +234,9 @@ Run from the repository root on a host with one CUDA card. Phases:
    reference's recipe at full width (bf16, batch 16 of 368x560, 1 scale,
    classifier on): a warm-up step and 3 timed steps on a resident batch
    with exact launch counts (32 flash forwards, 32 dq, 32 dk/dv, 15
-   instance norms a step), no plain version called, host ms beside [12]'s
-   step alone, peak memory, a profile of one step with the f32 forward's
-   device time and share (its tf32x3 kernel and merge);
+   instance norms and 15 backwards a step), no plain version called, host
+   ms beside [12]'s step alone, peak memory, a profile of one step with the
+   f32 forward's device time and share (its tf32x3 kernel and merge);
 19. the host's data plane and the last modules: g++'s and the codec's
    zlib versions and its build time; [12]'s loader alone (batch 16, 4
    threads) through the codec and through ``np.load`` on [12]'s shards,
@@ -279,13 +284,14 @@ Run from the repository root on a host with one CUDA card. Phases:
    the wgmma route, no plain version called, ms a pair, peak memory, a
    profile of one pair (device busy ms; the forward's wgmma and mma.sync
    kernels' ms);
-22. GMFlow at 256 channels training: the reference's recipe (bf16, batch
-   16 of 368x560, 1 scale, classifier on) on a resident batch, a warm-up
-   step and 2 steps with 14 + 14 + 14 flash launches and 15 instance
-   norms a step, every flash forward on the wgmma route, no plain version
-   called, finite losses, ms a step, peak memory, a profile of one more
-   step (device busy ms; the flash forward's and backward's device ms,
-   dq's and dk/dv's apart, the forward's wgmma and mma.sync kernels');
+22. GMFlow at 256 channels training: the reference's recipe (bf16, batch 16
+   of 368x560, 1 scale, classifier on) on a resident batch, a warm-up step
+   and 2 steps with 14 + 14 + 14 flash launches and 15 + 15 instance norm
+   launches (forward, backward) a step, every flash forward on the wgmma
+   route, no plain version called, finite losses, ms a step, peak memory, a
+   profile of one more step (device busy ms; the flash forward's and
+   backward's device ms, dq's and dk/dv's apart, the forward's wgmma and
+   mma.sync kernels');
 3k. (after [22]) the flash kernels past 256: at C = 512 with D = 512 or
    2 the wgmma routes of the forward, dq and dk/dv (the forward's blocks
    of 128 queries with K a panel at a time beside the resident Q, the
@@ -328,16 +334,18 @@ Run from the repository root on a host with one CUDA card. Phases:
    wgmma route;
 25. GMFlow at 512 channels training, as [22], every flash forward, dq and
    dk/dv on the wgmma route;
-26. RAFT-basic training under each of the JAX package's scheduling
-   options at [7]'s shape (bf16, 12 iterations, classifier on, batch 8
-   of 368x496), from one seeded state and batch, cuDNN deterministic:
-   the default, ``remat="dots"``, ``remat="full"``, ``unroll=4`` and
-   ``blocked_supervision=True``, 3 steps each with exact launch counts
-   (12 lookups forward a step, 24 under "full", 12 backward, 15 instance
-   norms), the losses and metrics against the default's (``unroll``
-   bit-equal, the others within [6]'s tolerances), peak memory, ms a step
-   and the busy ms of one more step;
-27. a ``{"kernels": [...]}`` line (eight kernels; the lookup rows count
+26. RAFT-basic training under each of the JAX package's scheduling options
+   at [7]'s shape (bf16, 12 iterations, classifier on, batch 8 of 368x496),
+   from one seeded state and batch, cuDNN deterministic: the default,
+   ``remat="dots"``, ``remat="full"``, ``unroll=4`` and
+   ``blocked_supervision=True``, 3 steps each with exact launch counts (12
+   lookups forward a step, 24 under "full", 12 backward, 15 instance norms
+   forward and 15 backward), the losses and metrics against the default's
+   (``unroll`` bit-equal, the others within [6]'s tolerances), peak memory,
+   ms a step and the busy ms of one more step;
+27. a ``{"kernels": [...]}`` line (nine kernels; the instance norm
+   backward's row counts [12]'s launches and carries [3d]'s errors and
+   times at GMFlow's training step; the lookup rows count
    [26]'s launches too and carry [3l]'s largest errors at the training
    shape; the flash rows count
    [18]'s, [21]'s, [22]'s, [24]'s and [25]'s launches too; the flash row
@@ -913,9 +921,9 @@ def instance_norm_phase(gen):
                 bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
 
 
-def in_plan_tag(inorm, x) -> str:
+def in_plan_tag(inorm, x, operands: int = 1) -> str:
     b, c, h, w = x.shape
-    p = inorm.plan(b * c, h * w, x.element_size())
+    p = inorm.plan(b * c, h * w, x.element_size(), operands)
     return (f"(cluster {p['cluster']}, {p['rows_per_block']} rows a block, "
             f"slice {p['slice']}, {'resident' if p['resident'] else 'streamed'}"
             f", {p['blocks']} blocks)")
@@ -1444,8 +1452,8 @@ def instance_norm_grad_phase(gen):
     import torch
     from opticalflowfromdepth_torch.ops import instance_norm as inorm
 
-    print("[3d] instance norm gradient: kernel forward + closed form vs "
-          "autograd through the plain version", flush=True)
+    print("[3d] instance norm gradient: the kernels forward and backward "
+          "vs autograd through the plain version", flush=True)
     for shape in TRAIN_FNET_SHAPES:
         x32 = (torch.randn(*shape, generator=gen) * 3 + 0.5).cuda()
         g32 = torch.randn(*shape, generator=gen).cuda()
@@ -1488,6 +1496,102 @@ def instance_norm_grad_phase(gen):
                 check(f"{list(shape)} {dtype} relu={relu} dx (ReLU ties "
                       f"allowed |g| rstd: {int(ties.sum())} elements)",
                       float((err / tol).max()), 1.0)
+
+    # from a generator of its own: the later phases keep their draws
+    return instance_norm_bwd_timing(torch.Generator().manual_seed(90))
+
+
+# GMFlow's training step's 15 instance norms: (shape, ReLU fused, count)
+GM_TRAIN_NORMS = tuple(
+    (shape, relu, count) for shape, counts in zip(
+        GM_TRAIN_FNET_SHAPES, ((4, 1), (4, 1), (4, 1)))
+    for relu, count in zip((True, False), counts))
+
+
+def in_bwd_excess(inorm, dx, g, x, m, r, y):
+    """The backward kernel's ``dx`` against the closed form on the same
+    operands, as ``tests/test_torch_cuda.py`` holds it: (the largest
+    ``|d|`` over its tolerance, f32 1e-5 of the terms' size plus, in bf16
+    and f16, one step of the dtype; the share of values off the closed
+    form's cast, at most 0.01; the largest ``|d|``)."""
+    import torch
+    ref = inorm.instance_norm_bwd(g.float(), x.float(), m, r,
+                                  None if y is None else y.float())
+    gp = g.float() if y is None else torch.where(y > 0, g.float(), 0.0)
+    yhat = (x.float() - m) * r
+    tol = 1e-5 * r * (gp.abs() + gp.abs().mean((2, 3), keepdim=True)
+                      + yhat.abs() * (gp * yhat).abs().mean((2, 3),
+                                                            keepdim=True))
+    if dx.dtype != torch.float32:
+        bits = {torch.bfloat16: 7, torch.float16: 10}[dx.dtype]
+        tol = tol + torch.exp2(torch.floor(torch.log2(ref.abs().clamp(
+            min=2 ** -14))) - bits)
+    d = (dx.float() - ref).abs()
+    moved = float((dx != ref.to(dx.dtype)).float().mean())
+    return float((d / tol).max()), moved, float(d.max())
+
+
+def instance_norm_bwd_timing(gen):
+    """The backward kernel at the 15 norms of GMFlow's training step, bf16:
+    each dx against the closed form (:func:`in_bwd_excess`), then device
+    time (CUDA events) of the kernel, the plain closed form and
+    ``F.instance_norm``'s autograd backward (+ ReLU where fused) against
+    the bound: g, x (and y) read once and dx written once. Returns the
+    kernels line's row."""
+    import torch
+    import torch.nn.functional as F
+    from opticalflowfromdepth_torch.ops import instance_norm as inorm
+    tot = dict(kernel=0.0, plain=0.0, library=0.0, bound=0.0)
+    worst = 0.0
+    for shape, relu, count in GM_TRAIN_NORMS:
+        x = (torch.randn(*shape, generator=gen) * 3 + 0.5).cuda().to(
+            torch.bfloat16)
+        y, m, r = inorm.instance_norm(x, 1e-5, relu)
+        y = y if relu else None
+        # g correlated with the normalised x, so that the yhat * mean(g'
+        # yhat) term matters
+        g = (torch.randn(*shape, generator=gen).cuda()
+             + 0.5 * (x.float() - m) * r).to(torch.bfloat16)
+        ops = 3 if relu else 2
+        dx = inorm._instance_norm_bwd_cuda(g, x, m, r, y)
+        excess, moved, err = in_bwd_excess(inorm, dx, g, x, m, r, y)
+        print(f"  backward, GMFlow training: bf16 {list(shape)} relu={relu} "
+              f"{in_plan_tag(inorm, x, ops)}: dx vs the closed form |d| / "
+              f"tolerance {excess:.3f} (must be <= 1), {moved:.5f} of the "
+              f"values off its cast (must be <= 0.01), max |d| {err:.3e}",
+              flush=True)
+        if not (excess <= 1.0 and moved <= 0.01):
+            fail(f"[3d] instance norm backward {list(shape)} relu={relu}: "
+                 f"|d| / tolerance {excess:.3f}, {moved:.5f} moved")
+        worst = max(worst, err)
+        del dx
+        xl = x.clone().requires_grad_()
+        out = F.instance_norm(xl, eps=1e-5)
+        out = F.relu(out) if relu else out
+        k_ms = cuda_ms(lambda: inorm._instance_norm_bwd_cuda(g, x, m, r, y))
+        p_ms = cuda_ms(lambda: inorm.instance_norm_bwd(g, x, m, r, y))
+        l_ms = cuda_ms(lambda: torch.autograd.grad(out, xl, g,
+                                                   retain_graph=True))
+        b_ms = (ops + 1) * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+        print(f"    x{count}: kernel {k_ms * 1e3:.1f} us ({b_ms / k_ms:.3f} "
+              f"of the bound), plain {p_ms * 1e3:.1f} us, F.instance_norm's "
+              f"backward {l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
+              f"(bytes)", flush=True)
+        for key, v in zip(tot, (k_ms, p_ms, l_ms, b_ms)):
+            tot[key] += count * v
+        del xl, out
+        torch.cuda.empty_cache()
+    print(f"  backward, the step's 15 norms: kernel {tot['kernel']:.4f} ms, "
+          f"plain {tot['plain']:.4f} ms, F.instance_norm's backward "
+          f"{tot['library']:.4f} ms, bound {tot['bound']:.4f} ms "
+          f"({tot['bound'] / tot['kernel']:.3f} of the bound)", flush=True)
+    return dict(name="instance_norm_bwd", route="cuda",
+                source="opticalflowfromdepth_torch/csrc/instance_norm.cu",
+                replaces="none: XLA computes _in_bwd, "
+                         "opticalflowfromdepth_tpu/ops/instance_norm.py:178",
+                max_abs_err=worst, ms=tot["kernel"], plain_ms=tot["plain"],
+                bound_ms=tot["bound"], bound_by="bytes",
+                library_ms=tot["library"])
 
 
 def flash_inputs(gen, b, lq, lk, c, d, dtype, payload="normal", mult=1.0,
@@ -2571,6 +2675,7 @@ def launch_counts():
     return {"fused_corr_lookup": fused_corr_lookup_cat.launches,
             "fused_corr_lookup_bwd": fused_corr_lookup_cat.bwd_launches,
             "instance_norm": instance_norm.launches,
+            "instance_norm_bwd": instance_norm.bwd_launches,
             "flash": flash_softmax_matmul.launches,
             "flash_bwd_dq": flash_backward.launches_dq,
             "flash_bwd_dkv": flash_backward.launches_dkv,
@@ -2587,7 +2692,8 @@ def zero_launch_counts() -> None:
     from opticalflowfromdepth_torch.ops.forward_warp import forward_warp
     from opticalflowfromdepth_torch.ops.instance_norm import instance_norm
     fused_corr_lookup_cat.launches = fused_corr_lookup_cat.bwd_launches = 0
-    instance_norm.launches = flash_softmax_matmul.launches = 0
+    instance_norm.launches = instance_norm.bwd_launches = 0
+    flash_softmax_matmul.launches = 0
     flash_backward.launches_dq = flash_backward.launches_dkv = 0
     conv3x3_s1.launches = forward_warp.launches = 0
 
@@ -2899,7 +3005,8 @@ def train_path_phase(tmp: str):
     print(f"  launches over {timed} steps: {launches}", flush=True)
     want = want_launches(fused_corr_lookup=iters * timed,
                          fused_corr_lookup_bwd=iters * timed,
-                         instance_norm=15 * timed)
+                         instance_norm=15 * timed,
+                         instance_norm_bwd=15 * timed)
     if launches != want:
         fail(f"training launch counts {launches}, want {want}")
     if not all(math.isfinite(x) for x in losses):
@@ -3333,7 +3440,8 @@ def gmflow_train_path_phase(tmp: str):
     launches = launch_counts()
     print(f"  launches over {timed} steps: {launches}", flush=True)
     want = want_launches(flash=14 * timed, flash_bwd_dq=14 * timed,
-                         flash_bwd_dkv=14 * timed, instance_norm=15 * timed)
+                         flash_bwd_dkv=14 * timed, instance_norm=15 * timed,
+                         instance_norm_bwd=15 * timed)
     if launches != want:
         fail(f"GMFlow training launch counts {launches}, want {want}")
     if not all(math.isfinite(x) for x in losses):
@@ -4428,6 +4536,7 @@ def synth_path_phase(tmp: str):
 PLAIN_VERSIONS = (("fused_corr", "fused_corr_lookup_cat_plain"),
                   ("fused_corr", "fused_corr_lookup_cat_bwd_plain"),
                   ("instance_norm", "instance_norm_plain"),
+                  ("instance_norm", "instance_norm_bwd"),
                   ("flash", "flash_softmax_matmul_plain"),
                   ("flash_bwd", "flash_backward_plain"),
                   ("conv2d", "conv3x3_s1_plain"),
@@ -4570,7 +4679,8 @@ def train_cli_phase(tmp: str, outs: dict) -> None:
     plain.check("the training CLI (RAFT)")
     want = want_launches(fused_corr_lookup=iters * timed,
                          fused_corr_lookup_bwd=iters * timed,
-                         instance_norm=15 * timed)
+                         instance_norm=15 * timed,
+                         instance_norm_bwd=15 * timed)
     if launches != want:
         fail(f"training CLI launch counts {launches}, want {want}")
     losses = record["losses"]
@@ -4658,14 +4768,15 @@ def train_cli_phase(tmp: str, outs: dict) -> None:
         launches = launch_counts()
     plain.check("the training CLI (GMFlow)")
     want = want_launches(flash=28, flash_bwd_dq=28, flash_bwd_dkv=28,
-                         instance_norm=30)
+                         instance_norm=30, instance_norm_bwd=30)
     if launches != want or state.step != 2:
         fail(f"training CLI (GMFlow) launch counts {launches}, want {want}; "
              f"step {state.step}")
     print(f"  --model gmflow (full width, batch {gb} of {GM_CROP[0]}x"
           f"{GM_CROP[1]}, bf16): 2 steps in {gm_s:.1f} s with model set-up "
           f"(host clock); launches {launches} (14 + 14 + 14 flash and 15 "
-          f"instance norms a step); plain versions called 0 times",
+          f"+ 15 instance norm launches a step); plain versions called 0 "
+          f"times",
           flush=True)
     return {"step_ms": step_ms, "loader_ms": loader_ms, "alone_ms": alone_ms}
 
@@ -5076,7 +5187,7 @@ def data_parallel_phase():
         launches = launch_counts()
         want = want_launches(fused_corr_lookup=2 * TRAIN_ITERS,
                              fused_corr_lookup_bwd=2 * TRAIN_ITERS,
-                             instance_norm=30)
+                             instance_norm=30, instance_norm_bwd=30)
         if launches != want:
             fail(f"[17] RAFT launches {launches}, want {want}")
         got["gmflow"] = run(gt, gm_cfg, "gmflow", mesh)
@@ -5210,7 +5321,8 @@ def sequence_parallel_phase(alone_12: float):
     # a step: 12 window calls, each split in two (24), and two rings of 4
     # steps (matching, propagation): 32 flash forwards, 32 dq, 32 dk/dv
     want = want_launches(flash=32 * timed, flash_bwd_dq=32 * timed,
-                         flash_bwd_dkv=32 * timed, instance_norm=15 * timed)
+                         flash_bwd_dkv=32 * timed, instance_norm=15 * timed,
+                         instance_norm_bwd=15 * timed)
     if launches != want:
         fail(f"[18] launch counts {launches}, want {want}")
     losses = [float(x) for x in losses]
@@ -5900,7 +6012,7 @@ def gmflow_wide_train_phase(channels: int):
                   {kernel: {route: 28} for kernel, route in routes.items()})
     launches = launch_counts()
     want = want_launches(flash=28, flash_bwd_dq=28, flash_bwd_dkv=28,
-                         instance_norm=30)
+                         instance_norm=30, instance_norm_bwd=30)
     print(f"  launches over 2 steps: {launches}; losses "
           f"{[round(x, 4) for x in losses]}; ms per step "
           f"{[round(x, 3) for x in times]}; peak device memory "
@@ -6294,7 +6406,8 @@ def raft_options_phase(card: str) -> dict:
             fwd = (2 if name == "remat=full" else 1) * iters * steps
             want = want_launches(fused_corr_lookup=fwd,
                                  fused_corr_lookup_bwd=iters * steps,
-                                 instance_norm=15 * steps)
+                                 instance_norm=15 * steps,
+                                 instance_norm_bwd=15 * steps)
             if launches != want:
                 fail(f"[26] {name}: launch counts {launches}, want {want}")
             for k, v in launches.items():
@@ -6405,7 +6518,7 @@ def main() -> None:
     worst = timed("3l", lookup_surface_phase)
     for k, err in zip((kernels[0], kernels[2]), worst):
         k["max_abs_err"] = max(k["max_abs_err"], err)
-    timed("3d", instance_norm_grad_phase, gen)
+    in_bwd = timed("3d", instance_norm_grad_phase, gen)
     flash = timed("3e", flash_phase, gen)
     flash_bwd = timed("3f", flash_bwd_phase, gen)
     timed("4", e2e_parity_phase)
@@ -6424,9 +6537,10 @@ def main() -> None:
     tmp_12 = tempfile.TemporaryDirectory()     # its shards, read in [19]
     launches, alone_12 = timed("12", gmflow_train_path_phase, tmp_12.name)
     timed("12 learning", gmflow_learning_phase)
-    for k in flash_bwd:        # launches on slice 4's main path
+    for k in flash_bwd + [in_bwd]:     # launches on GMFlow training's path
         k["launches"] = launches[k["name"]]
     kernels.extend(flash_bwd)
+    kernels.append(in_bwd)
     # run after the paths of slices 1-4, so that they meet the process as
     # before it (its f32 backward leaves PyTorch's cuBLAS workspaces for
     # the autograd thread allocated)

@@ -326,6 +326,166 @@ def test_instance_norm_grad_on_card_matches_cpu(card, relu):
     np.testing.assert_allclose(grads[1], grads[0], atol=1e-5, rtol=1e-4)
 
 
+def _bwd_inputs(card, shape, dtype, relu, seed=11, x=None):
+    """g (correlated with the normalised x, so that the ``yhat * mean(g'
+    yhat)`` term matters) and the forward kernel's y, mean and rstd on the
+    card; x drawn unless given."""
+    gen = torch.Generator().manual_seed(seed)
+    if x is None:
+        x = (torch.randn(*shape, generator=gen) * 3 + 0.5).to(card, dtype)
+    y, m, r = inorm.instance_norm(x, 1e-5, relu)
+    g = (torch.randn(*shape, generator=gen).to(card)
+         + 0.5 * (x.float() - m) * r).to(dtype)
+    return g, x, m, r, (y if relu else None)
+
+
+def _bwd_within(dx, g, x, m, r, y, ref=None):
+    """Whether the kernel's ``dx`` is the closed form's on the same
+    operands (or ``ref``, another f32 dx of them): its f32 value within
+    1e-5 of the terms' size (their sums taken in another order), then, in
+    bf16 and f16, at most one step of the dtype apart after the cast, on at
+    most 1% of the values (every other value the reference's cast)."""
+    if ref is None:
+        ref = inorm.instance_norm_bwd(g.float(), x.float(), m, r,
+                                      None if y is None else y.float())
+    gp = g.float() if y is None else torch.where(y > 0, g.float(), 0.0)
+    yhat = (x.float() - m) * r
+    mag = r * (gp.abs() + gp.abs().mean((2, 3), keepdim=True)
+               + yhat.abs() * (gp * yhat).abs().mean((2, 3), keepdim=True))
+    tol = 1e-5 * mag
+    d = (dx.float() - ref).abs()
+    if dx.dtype == torch.float32:
+        return bool((d <= tol).all())
+    bits = {torch.bfloat16: 7, torch.float16: 10}[dx.dtype]
+    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(
+        min=2 ** -14))) - bits)
+    moved = float((dx != ref.to(dx.dtype)).float().mean())
+    return bool((d <= tol + step).all()) and moved <= 0.01
+
+
+# the backward's plan classes (bf16; f32 and f16 cut the same shapes by
+# their own item sizes), then GMFlow's and RAFT training's norms
+BWD_SHAPES = [
+    (3, 5, 1, 37),              # short odd rows, several a block
+    (4, 96, 46, 70),            # short rows, 3 a block
+    (2, 96, 92, 140),           # a row a block (2 operands), clusters of 2
+    (1, 2, 211, 307),           # clusters of 8, the last slice ragged
+    (1, 3, 1024, 1024),         # streamed twice
+    (32, 64, 184, 280), (32, 96, 92, 140), (32, 128, 46, 70),
+    (16, 64, 184, 248), (16, 96, 92, 124), (16, 128, 46, 62)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_instance_norm_bwd_kernel_matches_closed_form(card, shape, relu,
+                                                      dtype):
+    g, x, m, r, y = _bwd_inputs(card, shape, dtype, relu)
+    launches = inorm.instance_norm.bwd_launches
+    dx = inorm._instance_norm_bwd_cuda(g, x, m, r, y)
+    torch.cuda.synchronize()
+    assert inorm.instance_norm.bwd_launches == launches + 1
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert _bwd_within(dx, g, x, m, r, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_instance_norm_bwd_kernel_matches_its_partition_of_the_sums(
+        card, shape, relu, dtype):
+    """The kernel against :func:`bwd_split_sum_plain` under the kernel's
+    own plan (its item size and 2 or 3 operands): the same partition of
+    the two row sums, so that only the order within a block differs."""
+    g, x, m, r, y = _bwd_inputs(card, shape, dtype, relu)
+    b, c, h, w = shape
+    p = inorm.plan(b * c, h * w, x.element_size(), 3 if relu else 2)
+    ref = inorm.bwd_split_sum_plain(g.float(), x.float(), m, r,
+                                    None if y is None else y.float(), p)
+    dx = inorm._instance_norm_bwd_cuda(g, x, m, r, y)
+    assert _bwd_within(dx, g, x, m, r, y, ref)
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 46, 70), (1, 2, 211, 307),
+                                   (32, 64, 184, 280)])
+def test_instance_norm_bwd_kernel_bit_reproducible(card, shape):
+    g, x, m, r, y = _bwd_inputs(card, shape, torch.bfloat16, True)
+    first = inorm._instance_norm_bwd_cuda(g, x, m, r, y)
+    second = inorm._instance_norm_bwd_cuda(g, x, m, r, y)
+    assert torch.equal(first, second)
+
+
+def test_instance_norm_bwd_kernel_takes_unaligned_and_strided_operands(
+        card):
+    """x off the 16-byte grid and a g that is not contiguous: each copied
+    once (counted), then the kernel."""
+    shape = (2, 64, 55, 128)
+    n = int(np.prod(shape))
+    buf = torch.empty(n + 8, dtype=torch.bfloat16, device=card)
+    x = buf[1:1 + n].view(shape)
+    x.copy_(torch.randn(shape, generator=torch.Generator().manual_seed(3)))
+    assert x.data_ptr() % 16
+    g, _, m, r, y = _bwd_inputs(card, shape, torch.bfloat16, True, x=x)
+    g = g.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not g.is_contiguous()
+    copies = inorm.instance_norm.bwd_copies
+    dx = inorm._instance_norm_bwd_cuda(g, x, m, r, y)
+    assert inorm.instance_norm.bwd_copies == copies + 2
+    assert dx.is_contiguous() and _bwd_within(dx, g, x, m, r, y)
+
+
+def test_instance_norm_bwd_kernel_refuses_what_it_does_not_take(card):
+    g, x, m, r, y = _bwd_inputs(card, (2, 8, 12, 10), torch.bfloat16, True)
+    with pytest.raises(ValueError):
+        inorm._instance_norm_bwd_cuda(g.float(), x, m, r, y)
+    with pytest.raises(ValueError):
+        inorm._instance_norm_bwd_cuda(g, x, m.to(torch.bfloat16), r, y)
+    with pytest.raises(ValueError):
+        inorm._instance_norm_bwd_cuda(g.cpu(), x, m, r, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_bwd_planted_faults_are_caught(card, dtype):
+    """The tolerance catches the ReLU gate dropped (the kernel run without
+    y) and the ``yhat * mean(g' yhat)`` term dropped (added back to the
+    kernel's dx)."""
+    g, x, m, r, y = _bwd_inputs(card, (16, 96, 92, 124), dtype, True)
+    dx = inorm._instance_norm_bwd_cuda(g, x, m, r, y)
+    assert _bwd_within(dx, g, x, m, r, y)
+    ungated = inorm._instance_norm_bwd_cuda(g, x, m, r, None)
+    assert not _bwd_within(ungated, g, x, m, r, y)
+    gp = torch.where(y > 0, g.float(), 0.0)
+    yhat = (x.float() - m) * r
+    dropped = dx.float() + r * yhat * (gp * yhat).mean((2, 3), keepdim=True)
+    assert not _bwd_within(dropped.to(dtype), g, x, m, r, y)
+
+
+def test_instance_norm_bwd_kernel_launches_15_a_gmflow_step(card):
+    """GMFlow's mixed-precision training step launches the backward kernel
+    once a norm, 15 times, and copies no operand."""
+    from opticalflowfromdepth_torch.data.loader import to_device
+    from opticalflowfromdepth_torch.train import gmflow_train as gt
+
+    cfg = gt.GMFlowTrainConfig(batch_size=2, image_size=(64, 96),
+                               num_steps=100)
+    state = gt.init_state(cfg, seed=8, device="cuda")
+    step = gt.make_train_step(cfg, device="cuda")
+    rng = np.random.default_rng(7)
+    batch = dict(
+        image1=rng.uniform(0, 255, (2, 64, 96, 3)).astype(np.float32),
+        image2=rng.uniform(0, 255, (2, 64, 96, 3)).astype(np.float32),
+        flow=rng.normal(0, 3, (2, 64, 96, 2)).astype(np.float32),
+        valid=np.ones((2, 64, 96), np.float32),
+        label=np.eye(4, dtype=np.float32)[[0, 2]])
+    launches = inorm.instance_norm.bwd_launches
+    copies = inorm.instance_norm.bwd_copies
+    step(state, to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    assert inorm.instance_norm.bwd_launches == launches + 15
+    assert inorm.instance_norm.bwd_copies == copies
+
+
 @pytest.mark.parametrize("head_seed", range(8))
 def test_train_step_on_card_matches_cpu(card, head_seed):
     """RAFT-basic, one f32 step of the training recipe (classifier on), on
