@@ -29,6 +29,7 @@ where ``window_shards`` allows. Every rank returns the whole result.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -43,7 +44,7 @@ from ..ops.sampling import flow_warp, resize_bilinear_align_corners
 from ..parallel.sequence import (group_size, ring_softmax_matmul,
                                  sharded_global_matching,
                                  sharded_window_attention, window_shards)
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, spanned
 from .layers import Conv, InstanceNorm, init_weights_
 from .raft import convex_upsample
 
@@ -386,20 +387,38 @@ class FeatureFlowAttention(nn.Module):
                 out = flash_softmax_matmul(query, key, value)
             return out.reshape(b, h, w, 2)
 
-        r = local_window_radius
-        ks = 2 * r + 1
         key = _linear(self.k_proj, feature0.reshape(b, h * w, c), dt)
-        kp = F.pad(key.reshape(b, h, w, c), (0, 0, r, r, r, r)).float()
-        fp = F.pad(flow, (0, 0, r, r, r, r)).float()
-        q = query.reshape(b, h, w, c).float()
-        shifts = [(dy, dx) for dy in range(ks) for dx in range(ks)]
-        scores = torch.stack([(q * kp[:, dy:dy + h, dx:dx + w]).sum(-1)
-                              for dy, dx in shifts], -1) / (c ** 0.5)
-        prob = torch.softmax(scores, dim=-1)
-        out = torch.zeros(b, h, w, 2, device=flow.device)
-        for i, (dy, dx) in enumerate(shifts):
-            out = out + prob[..., i:i + 1] * fp[:, dy:dy + h, dx:dx + w]
-        return out
+        return local_flow_propagation(query.reshape(b, h, w, c),
+                                      key.reshape(b, h, w, c), flow,
+                                      local_window_radius)
+
+
+@spanned("ofd.gmflow.local_propagation")
+def local_flow_propagation(query: torch.Tensor, key: torch.Tensor,
+                           flow: torch.Tensor, radius: int) -> torch.Tensor:
+    """Propagation inside a ``(2r+1)^2`` window (`transformer.py:368-409`):
+    each query ``[B, H, W, C]`` attends to the keys around it, zero-padded
+    past the image, as k^2 shifted dot products in f32, and takes that
+    softmax's mean of the zero-padded flow ``[B, H, W, 2]``.
+    ``local_flow_propagation.calls`` counts the calls."""
+    local_flow_propagation.calls += 1
+    b, h, w, c = query.shape
+    r = radius
+    ks = 2 * r + 1
+    kp = F.pad(key, (0, 0, r, r, r, r)).float()
+    fp = F.pad(flow, (0, 0, r, r, r, r)).float()
+    q = query.float()
+    shifts = [(dy, dx) for dy in range(ks) for dx in range(ks)]
+    scores = torch.stack([(q * kp[:, dy:dy + h, dx:dx + w]).sum(-1)
+                          for dy, dx in shifts], -1) / (c ** 0.5)
+    prob = torch.softmax(scores, dim=-1)
+    out = torch.zeros(b, h, w, 2, device=flow.device)
+    for i, (dy, dx) in enumerate(shifts):
+        out = out + prob[..., i:i + 1] * fp[:, dy:dy + h, dx:dx + w]
+    return out
+
+
+local_flow_propagation.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -435,12 +454,14 @@ def global_correlation_softmax(feature0: torch.Tensor,
     return corr.reshape(-1, h, w, 2) - grid[None], None
 
 
+@spanned("ofd.gmflow.local_matching")
 def local_correlation_softmax(feature0: torch.Tensor, feature1: torch.Tensor,
                               local_radius: int
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Matching inside a ``(2r+1)^2`` window, as k^2 shifted dot products;
     `matching.py:39-83`. Returns (flow ``[B, H, W, 2]``, prob ``[B, L,
-    k^2]``)."""
+    k^2]``). ``local_correlation_softmax.calls`` counts the calls."""
+    local_correlation_softmax.calls += 1
     b, h, w, c = feature0.shape
     r = local_radius
     k = 2 * r + 1
@@ -463,6 +484,9 @@ def local_correlation_softmax(feature0: torch.Tensor, feature1: torch.Tensor,
     correspondence = torch.einsum("blk,blkd->bld", prob,
                                   sample.expand(b, h * w, k * k, 2))
     return correspondence.reshape(b, h, w, 2) - coords[None], prob
+
+
+local_correlation_softmax.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -542,53 +566,60 @@ class GMFlow(nn.Module):
         flow_preds: List[torch.Tensor] = []
         flow: Optional[torch.Tensor] = None
         for scale_idx in range(self.num_scales):
-            feat = features[scale_idx].permute(0, 2, 3, 1).float()
-            feature0, feature1 = feat.chunk(2, dim=0)
-            if pred_bidir_flow and scale_idx > 0:
-                feature0, feature1 = (torch.cat([feature0, feature1], dim=0),
-                                      torch.cat([feature1, feature0], dim=0))
             factor = self.upsample_factor * 2 ** (self.num_scales - 1
                                                   - scale_idx)
-            if flow is not None:
-                _, fh, fw, _ = flow.shape
-                flow = resize_bilinear_align_corners(flow, 2 * fh,
-                                                     2 * fw) * 2.0
-                flow = flow.detach()
-                feature1 = flow_warp(feature1.permute(0, 3, 1, 2),
-                                     flow.permute(0, 3, 1, 2)
-                                     ).permute(0, 2, 3, 1)
-            splits = attn_splits_list[scale_idx]
-            corr_radius = corr_radius_list[scale_idx]
-            prop_radius = prop_radius_list[scale_idx]
+            # every scale after the first refines the flow so far
+            with (annotate("ofd.gmflow.refine") if scale_idx
+                  else contextlib.nullcontext()):
+                feat = features[scale_idx].permute(0, 2, 3, 1).float()
+                feature0, feature1 = feat.chunk(2, dim=0)
+                if pred_bidir_flow and scale_idx > 0:
+                    feature0, feature1 = (
+                        torch.cat([feature0, feature1], dim=0),
+                        torch.cat([feature1, feature0], dim=0))
+                if flow is not None:
+                    _, fh, fw, _ = flow.shape
+                    flow = resize_bilinear_align_corners(flow, 2 * fh,
+                                                         2 * fw) * 2.0
+                    flow = flow.detach()
+                    with annotate("ofd.gmflow.warp"):
+                        feature1 = flow_warp(feature1.permute(0, 3, 1, 2),
+                                             flow.permute(0, 3, 1, 2)
+                                             ).permute(0, 2, 3, 1)
+                splits = attn_splits_list[scale_idx]
+                corr_radius = corr_radius_list[scale_idx]
+                prop_radius = prop_radius_list[scale_idx]
 
-            with annotate("ofd.gmflow.transformer"):
-                feature0, feature1 = feature_add_position(
-                    feature0, feature1, splits, self.feature_channels)
-                feature0, feature1 = self.transformer(
-                    feature0.to(dt), feature1.to(dt), splits)
-                feature0, feature1 = feature0.float(), feature1.float()
+                with annotate("ofd.gmflow.transformer"):
+                    feature0, feature1 = feature_add_position(
+                        feature0, feature1, splits, self.feature_channels)
+                    feature0, feature1 = self.transformer(
+                        feature0.to(dt), feature1.to(dt), splits)
+                    feature0, feature1 = feature0.float(), feature1.float()
 
-            with annotate("ofd.gmflow.matching"):
-                if corr_radius == -1:
-                    flow_pred = global_correlation_softmax(
-                        feature0, feature1, pred_bidir_flow, dtype=dt,
-                        group=self.group)[0]
-                else:
-                    flow_pred = local_correlation_softmax(
-                        feature0, feature1, corr_radius)[0]
-                flow = flow_pred if flow is None else flow + flow_pred
-            if training:
-                with annotate("ofd.gmflow.upsample"):
-                    flow_preds.append(_upsample_bilinear(flow, factor))
+                with annotate("ofd.gmflow.matching"):
+                    if corr_radius == -1:
+                        flow_pred = global_correlation_softmax(
+                            feature0, feature1, pred_bidir_flow, dtype=dt,
+                            group=self.group)[0]
+                    else:
+                        flow_pred = local_correlation_softmax(
+                            feature0, feature1, corr_radius)[0]
+                    flow = flow_pred if flow is None else flow + flow_pred
+                if training:
+                    with annotate("ofd.gmflow.upsample"):
+                        flow_preds.append(_upsample_bilinear(flow, factor))
 
-            with annotate("ofd.gmflow.propagation"):
-                if pred_bidir_flow and scale_idx == 0:
-                    feature0 = torch.cat([feature0, feature1], dim=0)
-                flow = self.feature_flow_attn(feature0.to(dt), flow.detach(),
-                                              prop_radius > 0, prop_radius)
-            if training and scale_idx < self.num_scales - 1:
-                with annotate("ofd.gmflow.upsample"):
-                    flow_preds.append(_upsample_bilinear(flow, factor))
+                with annotate("ofd.gmflow.propagation"):
+                    if pred_bidir_flow and scale_idx == 0:
+                        feature0 = torch.cat([feature0, feature1], dim=0)
+                    flow = self.feature_flow_attn(feature0.to(dt),
+                                                  flow.detach(),
+                                                  prop_radius > 0,
+                                                  prop_radius)
+                if training and scale_idx < self.num_scales - 1:
+                    with annotate("ofd.gmflow.upsample"):
+                        flow_preds.append(_upsample_bilinear(flow, factor))
 
             if scale_idx == self.num_scales - 1:
                 with annotate("ofd.gmflow.upsample"):
@@ -598,6 +629,7 @@ class GMFlow(nn.Module):
                         flow.permute(0, 3, 1, 2), mask,
                         factor=self.upsample_factor))
         return {"flow_preds": flow_preds}
+
 
 
 def init_gmflow_weights_(model: GMFlow, generator: torch.Generator) -> None:
