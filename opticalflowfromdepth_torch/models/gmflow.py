@@ -18,6 +18,14 @@ for matching; bf16 q/k with the f32 flow, rounded by the kernel, for
 propagation); in f32 they stay f32, as on the JAX dense path. Parameters
 stay f32; each layer casts at the call.
 
+Token order: at ``attn_num_splits`` k > 1 the transformer keeps its
+tokens in the order of the windows the next block attends over (the
+plain window partition, or that of the image rolled by half a window in
+the shifted blocks): every op of a layer but the attention is per token,
+so the order changes only where the shift does, by one gather of the
+pair (:func:`reorder_tokens`; 7 a forward at 6 blocks), and each block's
+q, k and v are views of its windows. At k = 1 the order is raster.
+
 Sequence parallelism (the JAX modules' ``mesh`` / ``model_axis``): with
 a ``group`` of more than one rank (a process group or a
 ``parallel.sequence.LocalRing``), global matching, full attention and
@@ -30,6 +38,7 @@ where ``window_shards`` allows. Every rank returns the whole result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -187,20 +196,26 @@ def merge_splits(x: torch.Tensor, num_splits: int) -> torch.Tensor:
     return x.reshape(bk // (k * k), k * hk, k * wk, c)
 
 
+@functools.lru_cache(maxsize=None)
+def _position_tile(h: int, w: int, num_splits: int, channels: int,
+                   device: torch.device) -> torch.Tensor:
+    """``[H, W, C]``: the sine embedding of one window, tiled over the
+    image (made outside inference mode, so that training may use it)."""
+    k = num_splits
+    with torch.inference_mode(False):
+        return position_embedding_sine(h // k, w // k, channels // 2,
+                                       device=device).repeat(k, k, 1)
+
+
 def feature_add_position(feature0: torch.Tensor, feature1: torch.Tensor,
                          attn_splits: int, channels: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Add the sine position (inside each window when split);
-    `utils.py:66-86`."""
-    if attn_splits > 1:
-        f0s = split_feature(feature0, attn_splits)
-        f1s = split_feature(feature1, attn_splits)
-        pos = position_embedding_sine(f0s.shape[1], f0s.shape[2],
-                                      channels // 2, device=feature0.device)
-        return (merge_splits(f0s + pos, attn_splits),
-                merge_splits(f1s + pos, attn_splits))
-    pos = position_embedding_sine(feature0.shape[1], feature0.shape[2],
-                                  channels // 2, device=feature0.device)
+    `utils.py:66-86`. The window's embedding tiled over the image, cached
+    by shape and device, gives the reference's sums without splitting
+    the features into windows."""
+    _, h, w, _ = feature0.shape
+    pos = _position_tile(h, w, attn_splits, channels, feature0.device)
     return feature0 + pos, feature1 + pos
 
 
@@ -235,31 +250,107 @@ def _full_attention(q: torch.Tensor, k: torch.Tensor,
     return flash_softmax_matmul(q, k, v).to(v.dtype)
 
 
-def _split_window_attention(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, num_splits: int,
-                            with_shift: bool, h: int, w: int,
-                            group=None) -> torch.Tensor:
-    """Swin window attention; `transformer.py:46-105`. The windows are the
-    batch of one flash call (with a shift, the kernel generates the mask),
-    split over ``group``'s ranks where ``window_shards`` allows."""
+def _window_order(h: int, w: int, num_splits: int,
+                  order: Optional[bool]) -> torch.Tensor:
+    """The raster index ``[H*W]`` of each token in ``order``: None is
+    raster; False the window order, each window's tokens together and the
+    windows [wy, wx] (``split_feature``'s); True the same of the image
+    rolled by (-(wh // 2), -(ww // 2)), the shifted blocks' windows."""
+    if order is None:
+        return torch.arange(h * w)
+    k = num_splits
+    wh, ww = h // k, w // k
+    y = torch.arange(h).reshape(k, 1, wh, 1)             # [wy, ., ty, .]
+    x = torch.arange(w).reshape(1, k, 1, ww)             # [., wx, ., tx]
+    if order:
+        y, x = (y + wh // 2) % h, (x + ww // 2) % w
+    return (y * w + x).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def token_reorder(h: int, w: int, num_splits: int, src: Optional[bool],
+                  dst: Optional[bool], device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(index, inverse)`` on ``device``, cached: ``x[:, index]`` puts
+    tokens in order ``src`` into order ``dst``, ``y[:, inverse]`` puts
+    them back (made outside inference mode, as the position tile)."""
+    with torch.inference_mode(False):
+        arange = torch.arange(h * w)
+        at_src = torch.empty_like(arange)
+        at_src[_window_order(h, w, num_splits, src)] = arange
+        index = at_src[_window_order(h, w, num_splits, dst)]
+        inverse = torch.empty_like(index)
+        inverse[index] = arange
+        return index.to(device), inverse.to(device)
+
+
+def _gather(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[:, index]`` for ``[B, L, C]`` rows; rows of whole 8-byte words
+    are gathered as such (on the H100 twice the rate of 2-byte elements,
+    2.3-2.7 against 1.1-1.3 TB/s at GMFlow's token grids)."""
+    if (x.is_contiguous() and x.shape[2] * x.element_size() % 8 == 0
+            and x.storage_offset() * x.element_size() % 8 == 0):
+        return x.view(torch.int64).index_select(1, index).view(x.dtype)
+    return x.index_select(1, index)
+
+
+class _Gather(torch.autograd.Function):
+    """Tokens ``[B, L, C]`` gathered by a permutation; the backward
+    gathers by its inverse (deterministic, no scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, index, inverse):
+        ctx.inverse = inverse
+        return _gather(x, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.inverse), None, None
+
+
+@spanned("ofd.gmflow.reorder")
+def reorder_tokens(x: torch.Tensor, h: int, w: int, num_splits: int,
+                   src: Optional[bool], dst: Optional[bool]) -> torch.Tensor:
+    """``[B, H*W, C]`` tokens in order ``src`` -> the same in order ``dst``
+    (:func:`_window_order`): one gather. ``reorder_tokens.calls`` counts the
+    calls."""
+    reorder_tokens.calls += 1
+    return _Gather.apply(x, *token_reorder(h, w, num_splits, src, dst,
+                                           x.device))
+
+
+reorder_tokens.calls = 0
+
+
+def _window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      num_splits: int, with_shift: bool, h: int, w: int,
+                      group=None) -> torch.Tensor:
+    """Swin window attention (`transformer.py:46-105`) on ``[B, H*W, C]``
+    tokens in the window order of ``with_shift``, the result in the same
+    order. The windows (views) are the batch of one flash call (with a
+    shift, the kernel generates the mask), split over ``group``'s ranks
+    where ``window_shards`` allows."""
     b, _, c = q.shape
     wh, ww = h // num_splits, w // num_splits
-    q, k, v = (t.reshape(b, h, w, c) for t in (q, k, v))
-    if with_shift:
-        q, k, v = (torch.roll(t, (-(wh // 2), -(ww // 2)), (1, 2))
-                   for t in (q, k, v))
-    qs, ks, vs = (split_feature(t, num_splits).reshape(-1, wh * ww, c)
-                  for t in (q, k, v))
+    qs, ks, vs = (t.reshape(-1, wh * ww, c) for t in (q, k, v))
     swin = (num_splits, wh, ww, wh // 2, ww // 2) if with_shift else None
     if window_shards(group, b, qs.shape[0], with_shift):
         out = sharded_window_attention(qs, ks, vs, group, swin)
     else:
         out = flash_softmax_matmul(qs, ks, vs, swin=swin)
-    out = out.to(vs.dtype)
-    out = merge_splits(out.reshape(-1, wh, ww, c), num_splits)
-    if with_shift:
-        out = torch.roll(out, (wh // 2, ww // 2), (1, 2))
-    return out.reshape(b, h * w, c)
+    return out.to(vs.dtype).reshape(b, h * w, c)
+
+
+def _split_window_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, num_splits: int,
+                            with_shift: bool, h: int, w: int,
+                            group=None) -> torch.Tensor:
+    """:func:`_window_attention` on tokens in raster order: gathered into
+    the windows and back."""
+    q, k, v = (reorder_tokens(t, h, w, num_splits, None, with_shift)
+               for t in (q, k, v))
+    out = _window_attention(q, k, v, num_splits, with_shift, h, w, group)
+    return reorder_tokens(out, h, w, num_splits, with_shift, None)
 
 
 class TransformerLayer(nn.Module):
@@ -288,14 +379,26 @@ class TransformerLayer(nn.Module):
 
     def forward(self, source: torch.Tensor, target: torch.Tensor, h: int,
                 w: int, attn_num_splits: int) -> torch.Tensor:
+        """The layer on ``[B, H*W, C]`` tokens in raster order."""
+        k = attn_num_splits
+        if k <= 1:
+            return self.windowed(source, target, h, w, k)
+        source, target = (reorder_tokens(t, h, w, k, None, self.with_shift)
+                          for t in (source, target))
+        return reorder_tokens(self.windowed(source, target, h, w, k),
+                              h, w, k, self.with_shift, None)
+
+    def windowed(self, source: torch.Tensor, target: torch.Tensor, h: int,
+                 w: int, attn_num_splits: int) -> torch.Tensor:
+        """The layer on tokens in its window order (raster at one split),
+        the result in the same order."""
         dt = self.dtype
         q = _linear(self.q_proj, source, dt)
         k = _linear(self.k_proj, target, dt)
         v = _linear(self.v_proj, target, dt)
         if attn_num_splits > 1:
-            message = _split_window_attention(q, k, v, attn_num_splits,
-                                              self.with_shift, h, w,
-                                              self.group)
+            message = _window_attention(q, k, v, attn_num_splits,
+                                        self.with_shift, h, w, self.group)
         elif group_size(self.group) > 1:
             message = ring_softmax_matmul(q.float(), k.float(), v.float(),
                                           self.group).to(v.dtype)
@@ -316,6 +419,7 @@ class TransformerBlock(nn.Module):
     def __init__(self, d_model: int = 128, ffn_dim_expansion: int = 4,
                  with_shift: bool = False, dtype=torch.float32, group=None):
         super().__init__()
+        self.with_shift = with_shift
         self.self_attn = TransformerLayer(d_model, True, ffn_dim_expansion,
                                           with_shift, dtype, group)
         self.cross_attn_ffn = TransformerLayer(d_model, False,
@@ -323,8 +427,11 @@ class TransformerBlock(nn.Module):
                                                dtype, group)
 
     def forward(self, source, target, h, w, attn_num_splits):
-        source = self.self_attn(source, source, h, w, attn_num_splits)
-        return self.cross_attn_ffn(source, target, h, w, attn_num_splits)
+        """Tokens in the block's window order (raster at one split)."""
+        source = self.self_attn.windowed(source, source, h, w,
+                                         attn_num_splits)
+        return self.cross_attn_ffn.windowed(source, target, h, w,
+                                            attn_num_splits)
 
 
 class FeatureTransformer(nn.Module):
@@ -342,15 +449,24 @@ class FeatureTransformer(nn.Module):
 
     def forward(self, feature0: torch.Tensor, feature1: torch.Tensor,
                 attn_num_splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``[B, H, W, C]`` features in and out; in between the pair's
+        tokens are gathered into each block's window order where it
+        changes (module docstring), and back to raster at the end."""
         b, h, w, c = feature0.shape
-        f0 = feature0.reshape(b, h * w, c)
-        f1 = feature1.reshape(b, h * w, c)
-        concat0 = torch.cat([f0, f1], dim=0)
-        concat1 = torch.cat([f1, f0], dim=0)
+        k = attn_num_splits
+        concat0 = torch.cat([feature0.reshape(b, h * w, c),
+                             feature1.reshape(b, h * w, c)], dim=0)
+        order = None
         for block in self.layers:
-            concat0 = block(concat0, concat1, h, w, attn_num_splits)
+            if k > 1 and block.with_shift != order:
+                concat0 = reorder_tokens(concat0, h, w, k, order,
+                                         block.with_shift)
+                order = block.with_shift
             half0, half1 = concat0.chunk(2, dim=0)
-            concat1 = torch.cat([half1, half0], dim=0)
+            concat0 = block(concat0, torch.cat([half1, half0], dim=0), h, w,
+                            k)
+        if order is not None:
+            concat0 = reorder_tokens(concat0, h, w, k, order, None)
         f0, f1 = concat0.chunk(2, dim=0)
         return f0.reshape(b, h, w, c), f1.reshape(b, h, w, c)
 
