@@ -1817,9 +1817,9 @@ def flash_phase(gen):
 
 
 def plan_tag(fl, q, k, v, bias=None) -> str:
-    """The kernel's route for these operands (with a bias or without), with
-    its query rows a block, blocks, waves and the runs of a split key
-    sweep."""
+    """The route the host's plan names for these operands (with a bias or
+    without), with the C side's report of what it launches on it: query
+    rows a block, blocks, waves and the runs of a split key sweep."""
     import torch
     p = fl.kernel_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                        v.shape[2], q.dtype == torch.bfloat16,
@@ -1828,6 +1828,25 @@ def plan_tag(fl, q, k, v, bias=None) -> str:
             f"{p['blocks']} blocks, {p['per_sm']} a SM, {p['waves']} "
             f"wave(s)" + (f", key sweep split in {p['splits']}"
                           if p["splits"] > 1 else "") + ")")
+
+
+def c_side_reports(fl, fb, cp: int, dp: int, bf16: bool, what: str) -> list:
+    """The C side's reports of the host's plans (``kernel_plan``) at q, k
+    [4, 300] and padded widths cp x dp: the forward's without a bias and
+    with one, then dq's and dk/dv's. Fails where a forward wgmma or tf32x3
+    block's reported shared memory is not its plan's."""
+    import torch
+    plans = []
+    for bias in (False, True):
+        p = fl.kernel_plan(4, 300, 300, cp, dp, bf16, bias)
+        want = fl.plan(4, 300, 300, cp, dp,
+                       torch.bfloat16 if bf16 else torch.float32,
+                       bias=bias).smem
+        if want and p["smem"] != want:
+            fail(f"[{what}] C={cp} D={dp} bf16={bf16} bias={bias}: the C "
+                 f"side reports {p['smem']} B shared, the plan {want}")
+        plans.append(p)
+    return plans + list(fb.kernel_plan(4, 300, 300, cp, dp, bf16).values())
 
 
 def bwd_routes(p) -> str:
@@ -5696,17 +5715,14 @@ def flash_bias_width_phase(gen):
                       f"{r[4]:.3f}; two launches bit-equal", flush=True)
     check("every width, forward and backward, |d| / tolerance",
           max(max(r) for r in worst.values()), 1.0)
-    # the C side's plans at every padded width the wrappers hand the
-    # kernels (every C, D in 1..256): each block fits an SM
+    # the C side's reports of the host's plans at every padded width the
+    # wrappers hand the kernels (every C, D in 1..256): each block fits an
+    # SM
     largest = {}
     for bf16 in (True, False):
         for cp in range(16, 257, 16):
             for dp in [2] + list(range(16, 257, 16)):
-                plans = [fl.kernel_plan(4, 300, 300, cp, dp, bf16, bias)
-                         for bias in (False, True)]
-                plans += list(fb.kernel_plan(4, 300, 300, cp, dp,
-                                             bf16).values())
-                for p in plans:
+                for p in c_side_reports(fl, fb, cp, dp, bf16, "3j"):
                     if p["per_sm"] < 1 or p["smem"] > 232448:
                         fail(f"[3j] C={cp} D={dp} bf16={bf16}: a block the "
                              f"card cannot hold: {p}")
@@ -6281,18 +6297,14 @@ def flash_wide_phase(gen):
             + (f" swin {swin}" if swin else ""), q, k, v, bias, swin=swin,
             plant=True, masked_rows=(b - 1, rows)))
         del q, k, v, bias
-    # the C side's plans past 256 (C 272..1024 and D 2 or 272..1024, in
-    # steps of 48; both dtypes; forward with a bias and without, dq,
-    # dk/dv): every block fits an SM
+    # the C side's reports of the host's plans past 256 (C 272..1024 and D
+    # 2 or 272..1024, in steps of 48; both dtypes; forward with a bias and
+    # without, dq, dk/dv): every block fits an SM
     largest = {}
     for bf16 in (True, False):
         for cp in range(272, 1025, 48):
             for dp in [2] + list(range(272, 1025, 48)):
-                plans = [fl.kernel_plan(4, 300, 300, cp, dp, bf16, bias)
-                         for bias in (False, True)]
-                plans += list(fb.kernel_plan(4, 300, 300, cp, dp,
-                                             bf16).values())
-                for p in plans:
+                for p in c_side_reports(fl, fb, cp, dp, bf16, "3k"):
                     if p["per_sm"] < 1 or p["smem"] > 232448 or (
                             p["route"] == "wgmma" and p["local"]):
                         fail(f"[3k] C={cp} D={dp} bf16={bf16}: a block the "

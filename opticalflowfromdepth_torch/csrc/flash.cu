@@ -40,23 +40,25 @@
 // (bf16, or f32 in split TF32: three TF32 products each), and the B * Lq *
 // Lk exponentials over the special-function units; the bytes (q, k, v
 // once, out once) are ~1000x less. So every route keeps the [Lq, Lk]
-// scores out of device memory, and four feed it (the caller,
-// ops/flash.py:plan, names the route; the C side checks it again):
+// scores out of device memory, and four feed it. Which one, with its
+// warpgroups a block and its runs of the key sweep, is decided in one
+// place, the caller's plan (ops/flash.py:plan); the C side checks that an
+// instantiation serves it and launches it:
 //
 // bf16 at C = 128 with D = 128 or 2 (every GMFlow call) and at C = 256 or
 // 512 with D = C or 2 (every call of GMFlow at 256 and 512 channels): the
 // wgmma route, namespace sm90, one kernel templated on the width W = C. A
-// block holds warpgroups of 64 queries each: at D = 128 three where the
-// blocks then fill every SM twice, else two; at D = 256 and 512 two (O's
-// 128 registers a thread leave three warpgroups' cap of 168 no room); at
-// D = 2 one, whose small blocks fit four a SM at C = 128, two at C = 256
-// and one at C = 512 (batch-1 matching: 112
-// blocks of 64 queries, against 56 of 128, for 132 SMs). Q is resident,
-// loaded once by TMA; K and V stream in tiles of 64 keys through a 2-stage
-// ring under mbarriers (full: the TMA bytes and the loading warp's 32
-// cp.async arrivals; empty: every thread). TMA boxes of [64 rows][64
-// columns] land 128-byte swizzled, as wgmma's descriptors read them, and
-// zero-fill the rows past L, so Lq and Lk need no padding copy. Per tile a
+// block holds the plan's warpgroups of 64 queries each: two or three at D
+// = 128; two at D = 256 and 512 (O's 128 registers a thread leave three
+// warpgroups' cap of 168 no room); one at D = 2, whose small blocks fit
+// four a SM at C = 128, two at C = 256 and one at C = 512 (batch-1
+// matching: 112 blocks of 64 queries, against 56 of 128, for 132 SMs). Q
+// is resident, loaded once by TMA; K and V stream in tiles of 64 keys
+// through a 2-stage ring under mbarriers (full: the TMA bytes and the
+// loading warp's 32 cp.async arrivals; empty: every thread). TMA boxes of
+// [64 rows][64 columns] land 128-byte swizzled, as wgmma's descriptors
+// read them, and zero-fill the rows past L, so Lq and Lk need no padding
+// copy. Per tile a
 // warpgroup computes S = Q K^T with wgmma m64n64k16 (W / 16 k-steps), both
 // operands from shared memory, K-major; then the online softmax in
 // registers, in base 2: log2(e) is folded into the scale (and into the Swin
@@ -150,8 +152,8 @@
 // fragments being the A fragments (each k8 step's keys relabelled); at D
 // = 2 on the CUDA cores in f32, a lane's keys summed over its quad at the
 // end. Where B x row blocks fill less than one wave of the card (batch-1
-// matching, the ring's B = 1 slices) the key sweep is cut into runs of
-// whole tiles (plan's splits, the count from the shape alone): each run
+// matching, the ring's B = 1 slices) the key sweep is cut into the plan's
+// runs of whole tiles (ops/flash.py:plan, from the shape alone): each run
 // writes its f32 partials (the running max m in base 2, the denominator
 // l, the unnormalised O) to a scratch, and a second launch merges them in
 // run order, so no atomics and the same bits every launch. Its limits:
@@ -1041,67 +1043,58 @@ static int occupancy(int dev, int* per_sm) {
   return 0;
 }
 
-// The query tile. D = 2: one warpgroup (64 queries) a block, whose small
-// blocks fit up to four a SM at W = 128 and two at W = 256. D = 128: three
-// warpgroups (192 queries, sharing the key stream) where such blocks fill
-// every SM at least twice (the training and refinement windows), else two
-// (128 queries, taking turns), which leave fewer SMs idle on small batches
-// (the serving windows: 80 blocks of three against 112 of two for 132
-// SMs). With a bias, and at D = 256 or 512, always two: the bias loads and
-// O's 128 registers a thread need more than three warpgroups' cap of 168.
-// At D = 512 each query tile's blocks are out_chunks() (a grid axis).
-// plan = {warpgroups a block, blocks, blocks per SM, waves}.
-template <bool P2, bool BIAS, int W>
-static int choose(int B, int Lq, int* plan) {
-  int dev, sms, per_sm, e;
-  if ((e = (int)cudaGetDevice(&dev))) return e;
-  if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       dev)))
-    return e;
-  const auto blocks = [&](int wgs) {
-    return (long long)B * ((Lq + wgs * TILE - 1) / (wgs * TILE)) *
-           out_chunks<P2, W>();
-  };
-  int wgs;
+// One instantiation of the kernel: WGS warpgroups of 64 queries a block, D
+// = 2 (P2) or W, a bias or none, C = W.
+template <int WGS_, bool P2_, bool BIAS_, int W_>
+struct Inst {
+  static constexpr int WGS = WGS_, W = W_;
+  static constexpr bool P2 = P2_, BIAS = BIAS_;
+};
+
+// f(Inst<...>{}) for the instantiation at C = W with `wgs` warpgroups a
+// block, where one serves that count: one at D = 2; two with a bias and at
+// D = 256 or 512 (the bias loads and O's 128 registers a thread leave
+// three warpgroups' cap of 168 no room); else two or three. Any other
+// count gives cudaErrorInvalidValue. How many a call takes is the host's
+// choice (ops/flash.py:plan).
+template <int W, bool P2, bool BIAS, class F>
+static int at_count(int wgs, F& f) {
   if constexpr (P2) {
-    wgs = 1;
-    e = occupancy<1, true, BIAS, W>(dev, &per_sm);
-  } else if constexpr (BIAS || W >= 256) {
-    wgs = 2;
-    e = occupancy<2, false, BIAS, W>(dev, &per_sm);
+    if (wgs == 1) return f(Inst<1, true, BIAS, W>{});
   } else {
-    wgs = blocks(3) >= 2ll * sms ? 3 : 2;
-    e = wgs == 3 ? occupancy<3, false, false, W>(dev, &per_sm)
-                 : occupancy<2, false, false, W>(dev, &per_sm);
+    if (wgs == 2) return f(Inst<2, false, BIAS, W>{});
+    if constexpr (!BIAS && W < 256)
+      if (wgs == 3) return f(Inst<3, false, false, W>{});
   }
-  if (e) return e;
-  const long long n = blocks(wgs);
-  plan[0] = wgs;
-  plan[1] = (int)n;
-  plan[2] = per_sm;
-  plan[3] = (int)((n + (long long)per_sm * sms - 1) / ((long long)per_sm * sms));
-  return 0;
+  return (int)cudaErrorInvalidValue;
 }
 
+template <int W, class F>
+static int at_width(int D, bool bias, int wgs, F& f) {
+  if (D == 2)
+    return bias ? at_count<W, true, true>(wgs, f)
+                : at_count<W, true, false>(wgs, f);
+  return bias ? at_count<W, false, true>(wgs, f)
+              : at_count<W, false, false>(wgs, f);
+}
+
+// As above, at C = 128, 256 or 512 (takes).
+template <class F>
+static int with_instance(int C, int D, bool bias, int wgs, F&& f) {
+  return C == 512   ? at_width<512>(D, bias, wgs, f)
+         : C == 256 ? at_width<256>(D, bias, wgs, f)
+                    : at_width<128>(D, bias, wgs, f);
+}
+
+// The launch of ofd_flash_fwd's wgmma route on one instantiation.
 template <int WGS, bool P2, bool BIAS, int W>
-static int launch(const CUtensorMap (&m)[3], const void* v, const void* bias,
-                  void* out, void* lse, int B, int Lq, int Lk, float scale,
-                  Swin sw, cudaStream_t st) {
-  const dim3 grid((unsigned)((Lq + WGS * TILE - 1) / (WGS * TILE)),
-                  (unsigned)B, (unsigned)out_chunks<P2, W>());
-  flash_fwd_wgmma<WGS, P2, BIAS, W>
-      <<<grid, WGS * 128, fwd_smem_bytes<WGS, P2, W>(), st>>>(
-          m[0], m[1], m[2], (const bf16*)v, (const float*)bias, (float*)out,
-          (float*)lse, Lq, Lk, scale * LOG2E, sw);
-  return (int)cudaGetLastError();
-}
-
-template <bool P2, bool BIAS, int W>
 static int forward(const void* q, const void* k, const void* v,
                    const void* bias, void* out, void* lse, int B, int Lq,
                    int Lk, float scale, Swin sw, cudaStream_t st) {
-  int plan[4], e;
-  if ((e = choose<P2, BIAS, W>(B, Lq, plan))) return e;  // sets smem limits
+  int dev, per_sm, e;
+  if ((e = (int)cudaGetDevice(&dev))) return e;
+  // sets the shared-memory limit and checks that a block fits an SM
+  if ((e = occupancy<WGS, P2, BIAS, W>(dev, &per_sm))) return e;
   CUtensorMap m[3];
   if ((e = tensor_map_bf16_3d(&m[0], q, W, Lq, B, TILE))) return e;
   if ((e = tensor_map_bf16_3d(&m[1], k, W, Lk, B, TILE))) return e;
@@ -1109,37 +1102,13 @@ static int forward(const void* q, const void* k, const void* v,
     m[2] = m[1];  // not read: v's pairs come from the pointer
   else if ((e = tensor_map_bf16_3d(&m[2], v, W, Lk, B, TILE)))
     return e;
-  if constexpr (P2)
-    return launch<1, true, BIAS, W>(m, v, bias, out, lse, B, Lq, Lk, scale,
-                                    sw, st);
-  else if constexpr (BIAS || W >= 256)
-    return launch<2, false, BIAS, W>(m, v, bias, out, lse, B, Lq, Lk, scale,
-                                     sw, st);
-  else
-    return plan[0] == 3
-               ? launch<3, false, false, W>(m, v, bias, out, lse, B, Lq, Lk,
-                                            scale, sw, st)
-               : launch<2, false, false, W>(m, v, bias, out, lse, B, Lq, Lk,
-                                            scale, sw, st);
-}
-
-// The launch of ofd_flash_fwd's wgmma route at C = W (D = W or 2), with a
-// bias or none.
-template <int W>
-static int forward_at(const void* q, const void* k, const void* v,
-                      const void* bias, void* out, void* lse, int B, int Lq,
-                      int Lk, int D, float scale, Swin sw, cudaStream_t st) {
-  if (D == 2)
-    return bias != nullptr
-               ? forward<true, true, W>(q, k, v, bias, out, lse, B, Lq, Lk,
-                                        scale, sw, st)
-               : forward<true, false, W>(q, k, v, bias, out, lse, B, Lq, Lk,
-                                         scale, sw, st);
-  return bias != nullptr
-             ? forward<false, true, W>(q, k, v, bias, out, lse, B, Lq, Lk,
-                                       scale, sw, st)
-             : forward<false, false, W>(q, k, v, bias, out, lse, B, Lq, Lk,
-                                        scale, sw, st);
+  const dim3 grid((unsigned)((Lq + WGS * TILE - 1) / (WGS * TILE)),
+                  (unsigned)B, (unsigned)out_chunks<P2, W>());
+  flash_fwd_wgmma<WGS, P2, BIAS, W>
+      <<<grid, WGS * 128, fwd_smem_bytes<WGS, P2, W>(), st>>>(
+          m[0], m[1], m[2], (const bf16*)v, (const float*)bias, (float*)out,
+          (float*)lse, Lq, Lk, scale * LOG2E, sw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sm90
@@ -1151,8 +1120,6 @@ static int forward_at(const void* q, const void* k, const void* v,
 namespace tf32x3 {
 
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int MAX_SPLITS = 16;    // runs of a split sweep at most
-constexpr int RUN_OVERHEAD = 2;   // a block's fixed work, in tiles
 
 // The block of each width: warps (16 query rows each), keys a ring tile
 // and their 8-wide tiles of S, blocks an SM (the launch bounds), and the
@@ -1400,62 +1367,6 @@ merge_splits(const float* __restrict__ part_o,
   }
 }
 
-// How many runs to cut a sweep of `tiles` tiles into, for `blocks` blocks
-// on a card that holds `slots` at once (ops/flash.py:split_count): 1 if
-// the blocks fill the slots; else the count whose waves times a block's
-// work (its run's tiles and RUN_OVERHEAD) is least, the fewest runs among
-// equals, at most MAX_SPLITS, none empty.
-static int split_count(long long blocks, int tiles, long long slots) {
-  if (blocks >= slots) return 1;
-  int best = 1;
-  long long cost = ((blocks + slots - 1) / slots) * (tiles + RUN_OVERHEAD);
-  for (int s = 2; s <= (tiles < MAX_SPLITS ? tiles : MAX_SPLITS); ++s) {
-    const int per = (tiles + s - 1) / s;
-    if ((tiles + per - 1) / per != s) continue;   // a run would be empty
-    const long long c =
-        ((blocks * s + slots - 1) / slots) * (per + RUN_OVERHEAD);
-    if (c < cost) {
-      best = s;
-      cost = c;
-    }
-  }
-  return best;
-}
-
-// Blocks of the route's kernel at this width that fit an SM (its shared
-// memory limit set first).
-template <bool P2, bool BIAS>
-static int occupancy(int* per_sm) {
-  using K = FwdCfg<P2>;
-  int e = (int)cudaFuncSetAttribute(
-      flash_fwd_tf32<P2, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)K::SMEM);
-  if (e) return e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, flash_fwd_tf32<P2, BIAS>, K::THREADS, K::SMEM);
-}
-
-// plan = {rows a block, keys a tile, blocks (all runs), blocks per SM,
-// waves, runs of the key sweep}
-template <bool P2, bool BIAS>
-static int choose(int B, int Lq, int Lk, int sms, int* plan) {
-  using K = FwdCfg<P2>;
-  int per_sm, e;
-  if ((e = occupancy<P2, BIAS>(&per_sm))) return e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long blocks = (long long)B * ((Lq + K::BROWS - 1) / K::BROWS);
-  const long long slots = (long long)sms * per_sm;
-  const int splits = split_count(blocks, (Lk + K::TILE - 1) / K::TILE, slots);
-  const long long n = blocks * splits;
-  plan[0] = K::BROWS;
-  plan[1] = K::TILE;
-  plan[2] = (int)n;
-  plan[3] = per_sm;
-  plan[4] = (int)((n + slots - 1) / slots);
-  plan[5] = splits;
-  return 0;
-}
-
 template <bool P2, bool BIAS>
 static int launch(const void* q, const void* k, const void* v,
                   const void* bias, void* out, void* lse, int B, int Lq,
@@ -1560,30 +1471,42 @@ static bool widths_ok(int C, int D) {
          (D == 2 || (D >= 16 && D <= MAX_WIDTH && D % 16 == 0));
 }
 
+// Whether ofd_flash_fwd takes this plan for these operands: B, Lq and Lk
+// within the grid, the widths (widths_ok), a route that takes them
+// (route_takes), runs of the key sweep on the tf32x3 route alone and
+// warpgroups a block on the wgmma route alone (sm90::with_instance checks
+// their count). The plan is the caller's (ops/flash.py:plan).
+static bool plan_takes(int B, int Lq, int Lk, int C, int D, int is_bf16,
+                       int route, int warpgroups, int splits) {
+  return B >= 1 && B <= 65535 && Lq >= 1 && Lk >= 1 && widths_ok(C, D) &&
+         route_takes(route, is_bf16, B, Lq, Lk, C, D) &&
+         (splits == 1 || route == TF32X3) &&
+         (warpgroups != 0) == (route == WGMMA);
+}
+
 // q [B, Lq, C], k [B, Lk, C], v [B, Lk, D], all bf16 or all f32,
 // contiguous, 16-byte aligned; bias [B, Lq, Lk] f32, contiguous, 16-byte
 // aligned, or null (no bias); out [B, Lq, D] f32; lse [B, Lq] f32 or null.
 // swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the TPU
 // kernel's `swin`. Takes C % 16 == 0 and D == 2 or D % 16 == 0, up to
 // MAX_WIDTH (ops/flash.py pads other widths with zero columns), on the
-// route the caller names (enum Route; ops/flash.py:plan names bf16 at C =
-// 128, 256 or 512 with D = C or 2 the wgmma route, other bf16 the
-// mma.sync route, f32 at C = 128 and D = 128 or 2 the tf32x3 route, other
-// f32 the CUDA-core route).
-// splits > 1 (the tf32x3 route only) cuts the key sweep into that many
-// runs of whole tiles: out is then a [splits, B, Lq, D] scratch of the
-// runs' unnormalised outputs and lse a [splits, B, Lq] scratch of their
-// (m, l) float2s, for ofd_flash_fwd_merge. Returns cudaGetLastError()
-// after the launch (0 on success).
+// plan the caller names (ops/flash.py:plan, the one place it is decided;
+// plan_takes): the route (enum Route), the wgmma route's warpgroups of 64
+// queries a block (0 on the other routes), and the runs of the key sweep:
+// splits > 1 (the tf32x3 route only) cuts it into that many runs of whole
+// tiles, out then a [splits, B, Lq, D] scratch of the runs' unnormalised
+// outputs and lse a [splits, B, Lq] scratch of their (m, l) float2s, for
+// ofd_flash_fwd_merge. Returns cudaGetLastError() after the launch (0 on
+// success); cudaErrorInvalidValue, launching nothing, for a plan it does
+// not take.
 extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
                              const void* bias, void* out, void* lse, int B,
                              int Lq, int Lk, int C, int D, float scale,
                              int swin_k, int wh, int ww, int sh, int swd,
-                             int is_bf16, int route, int splits,
-                             void* stream) {
-  if (B < 1 || B > 65535 || Lq < 1 || Lk < 1 || !widths_ok(C, D) ||
-      swin_k < 0 || !route_takes(route, is_bf16, B, Lq, Lk, C, D) ||
-      (splits != 1 && route != TF32X3) || (splits > 1 && lse == nullptr))
+                             int is_bf16, int route, int warpgroups,
+                             int splits, void* stream) {
+  if (!plan_takes(B, Lq, Lk, C, D, is_bf16, route, warpgroups, splits) ||
+      swin_k < 0 || (splits > 1 && lse == nullptr))
     return (int)cudaErrorInvalidValue;
   Swin sw{swin_k, wh, ww, sh, swd};
   cudaStream_t st = (cudaStream_t)stream;
@@ -1601,12 +1524,11 @@ extern "C" int ofd_flash_fwd(const void* q, const void* k, const void* v,
                                                  Lq, Lk, scale, sw, splits, st);
   }
   if (route == WGMMA)
-    return C == 512   ? sm90::forward_at<512>(q, k, v, bias, out, lse, B,
-                                              Lq, Lk, D, scale, sw, st)
-           : C == 256 ? sm90::forward_at<256>(q, k, v, bias, out, lse, B,
-                                              Lq, Lk, D, scale, sw, st)
-                      : sm90::forward_at<128>(q, k, v, bias, out, lse, B,
-                                              Lq, Lk, D, scale, sw, st);
+    return sm90::with_instance(C, D, has_bias, warpgroups, [&](auto i) {
+      using I = decltype(i);
+      return sm90::forward<I::WGS, I::P2, I::BIAS, I::W>(
+          q, k, v, bias, out, lse, B, Lq, Lk, scale, sw, st);
+    });
   Narrow kn = narrow(is_bf16 != 0, C, D, has_bias);
   if (kn.smem > SMEM_DEFAULT) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1640,122 +1562,81 @@ extern "C" int ofd_flash_fwd_merge(const void* part_o, const void* part_ml,
   return (int)cudaGetLastError();
 }
 
-// A forward kernel as it launches: the kernel, its dynamic shared memory
-// and threads a block.
+// A forward kernel as it launches: the kernel, its dynamic shared memory,
+// threads, query rows a block, keys a tile and D chunks (the grid's z).
 struct FwdKernel {
   const void* fn;
   size_t smem;
-  int threads;
+  int threads, rows, keys, chunks;
 };
 
 template <bool P2, bool BIAS>
 static FwdKernel tf32_kernel() {
   using K = tf32x3::FwdCfg<P2>;
-  return {(const void*)tf32x3::flash_fwd_tf32<P2, BIAS>, K::SMEM, K::THREADS};
+  return {(const void*)tf32x3::flash_fwd_tf32<P2, BIAS>, K::SMEM, K::THREADS,
+          K::BROWS, K::TILE, 1};
 }
 
-template <int WGS, bool P2, bool BIAS, int W>
-static FwdKernel wgmma_kernel() {
-  return {(const void*)sm90::flash_fwd_wgmma<WGS, P2, BIAS, W>,
-          sm90::fwd_smem_bytes<WGS, P2, W>(), WGS * 128};
-}
-
-template <int W>
-static FwdKernel wgmma_kernel(int wgs, bool p2, bool bias) {
-  if (p2)
-    return bias ? wgmma_kernel<1, true, true, W>()
-                : wgmma_kernel<1, true, false, W>();
-  if (bias) return wgmma_kernel<2, false, true, W>();
-  if constexpr (W >= 256)
-    return wgmma_kernel<2, false, false, W>();
-  else
-    return wgs == 3 ? wgmma_kernel<3, false, false, W>()
-                    : wgmma_kernel<2, false, false, W>();
-}
-
-// The wgmma route's plan (sm90::choose's) and kernel at C = W.
-template <int W>
-static int wgmma_plan(int B, int Lq, bool p2, bool bias, int* wg,
-                      FwdKernel* kern) {
-  const int e = p2 ? (bias ? sm90::choose<true, true, W>(B, Lq, wg)
-                           : sm90::choose<true, false, W>(B, Lq, wg))
-                   : (bias ? sm90::choose<false, true, W>(B, Lq, wg)
-                           : sm90::choose<false, false, W>(B, Lq, wg));
-  if (!e) *kern = wgmma_kernel<W>(wg[0], p2, bias);
-  return e;
-}
-
-// What ofd_flash_fwd would launch for these operands (padded widths, with
-// a bias or without) on the route C picks by the rule above: plan =
-// {route (enum Route), query rows a block, keys a tile, blocks (every
-// run's and D chunk's), blocks per SM, waves over the card's SMs, runs of
-// the key sweep, D chunks (a grid axis of the mma.sync and CUDA-core
-// routes and of the wgmma route at C = D = 512; 1 elsewhere), dynamic
-// shared memory, static shared memory
+// What ofd_flash_fwd launches for these operands (padded widths, with a
+// bias or without) on the plan the caller hands it (route, warpgroups,
+// splits: ops/flash.py:plan), which it refuses as ofd_flash_fwd does
+// (plan_takes, sm90::with_instance): plan = {route (enum Route), query
+// rows a block, keys a tile, blocks (every run's and D chunk's), blocks
+// per SM, waves over the card's SMs, runs of the key sweep, D chunks (a
+// grid axis of the mma.sync and CUDA-core routes and of the wgmma route at
+// C = D = 512; 1 elsewhere), dynamic shared memory, static shared memory
 // (bytes), threads a block, registers a thread, local memory a thread
 // (bytes: spills and stack)}. Returns a cudaError_t (0 on success): a
 // block the SM cannot hold fails here.
 extern "C" int ofd_flash_fwd_plan(int B, int Lq, int Lk, int C, int D,
-                                  int is_bf16, int has_bias, int* plan) {
-  int dev, sms, per_sm = 0, e;
-  if (B < 1 || Lq < 1 || Lk < 1 || !widths_ok(C, D))
+                                  int is_bf16, int has_bias, int route,
+                                  int warpgroups, int splits, int* plan) {
+  if (!plan_takes(B, Lq, Lk, C, D, is_bf16, route, warpgroups, splits))
     return (int)cudaErrorInvalidValue;
+  int dev, sms, per_sm = 0, e;
   if ((e = (int)cudaGetDevice(&dev))) return e;
   if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                        dev)))
     return e;
   const bool p2 = D == 2, bias = has_bias != 0;
   FwdKernel kern;
-  int chunks = 1;
-  if (!is_bf16 && tf32x3::takes(B, Lq, Lk, C, D)) {
-    plan[0] = TF32X3;
-    if (bias)
-      e = p2 ? tf32x3::choose<true, true>(B, Lq, Lk, sms, plan + 1)
-             : tf32x3::choose<false, true>(B, Lq, Lk, sms, plan + 1);
-    else
-      e = p2 ? tf32x3::choose<true, false>(B, Lq, Lk, sms, plan + 1)
-             : tf32x3::choose<false, false>(B, Lq, Lk, sms, plan + 1);
-    if (e) return e;
+  if (route == TF32X3) {
     kern = p2 ? (bias ? tf32_kernel<true, true>() : tf32_kernel<true, false>())
               : (bias ? tf32_kernel<false, true>()
                       : tf32_kernel<false, false>());
-  } else if (is_bf16 && sm90::takes(B, Lq, Lk, C, D)) {
-    int wg[4];   // {warpgroups a block, blocks, blocks per SM, waves}
-    e = C == 512   ? wgmma_plan<512>(B, Lq, p2, bias, wg, &kern)
-        : C == 256 ? wgmma_plan<256>(B, Lq, p2, bias, wg, &kern)
-                   : wgmma_plan<128>(B, Lq, p2, bias, wg, &kern);
+  } else if (route == WGMMA) {
+    e = sm90::with_instance(C, D, bias, warpgroups, [&](auto i) {
+      using I = decltype(i);
+      kern = {(const void*)sm90::flash_fwd_wgmma<I::WGS, I::P2, I::BIAS, I::W>,
+              sm90::fwd_smem_bytes<I::WGS, I::P2, I::W>(), I::WGS * 128,
+              I::WGS * sm90::TILE, sm90::TILE, sm90::out_chunks<I::P2, I::W>()};
+      return 0;
+    });
     if (e) return e;
-    if (C == 512 && !p2) chunks = sm90::out_chunks<false, 512>();
-    const int got[7] = {WGMMA, wg[0] * sm90::TILE, sm90::TILE, wg[1], wg[2],
-                        wg[3], 1};
-    for (int i = 0; i < 7; ++i) plan[i] = got[i];
   } else {
     const Narrow kn = narrow(is_bf16 != 0, C, D, bias);
-    kern = FwdKernel{kn.fn, kn.smem, kn.threads};
-    chunks = kn.chunks;
-    const long long n =
-        (long long)B * ((Lq + kn.rows - 1) / kn.rows) * kn.chunks;
-    // raised as the launch raises it, never lowered: one kernel serves
-    // every width, and a launch below the default limit does not set it
-    if (kern.smem > SMEM_DEFAULT &&
-        (e = (int)cudaFuncSetAttribute(
-             kern.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)kern.smem)))
-      return e;
-    if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kern.fn, kern.threads, kern.smem)))
-      return e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const int got[7] = {
-        is_bf16 ? MMA_SYNC : F32, kn.rows, kn.keys, (int)n, per_sm,
-        (int)((n + (long long)per_sm * sms - 1) / ((long long)per_sm * sms)),
-        1};
-    for (int i = 0; i < 7; ++i) plan[i] = got[i];
+    kern = {kn.fn, kn.smem, kn.threads, kn.rows, kn.keys, kn.chunks};
   }
+  // raised as the launch raises it, never lowered: one kernel serves
+  // every width, and a launch below the default limit does not set it
+  if (kern.smem > SMEM_DEFAULT &&
+      (e = (int)cudaFuncSetAttribute(
+           kern.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)kern.smem)))
+    return e;
+  if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern.fn, kern.threads, kern.smem)))
+    return e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   cudaFuncAttributes attr;
   if ((e = (int)cudaFuncGetAttributes(&attr, kern.fn))) return e;
-  const int more[6] = {chunks, (int)kern.smem, (int)attr.sharedSizeBytes,
+  const long long n = (long long)B * ((Lq + kern.rows - 1) / kern.rows) *
+                      kern.chunks * splits;
+  const long long slots = (long long)per_sm * sms;
+  const int got[13] = {route, kern.rows, kern.keys, (int)n, per_sm,
+                       (int)((n + slots - 1) / slots), splits, kern.chunks,
+                       (int)kern.smem, (int)attr.sharedSizeBytes,
                        kern.threads, attr.numRegs, (int)attr.localSizeBytes};
-  for (int i = 0; i < 6; ++i) plan[7 + i] = more[i];
+  for (int i = 0; i < 13; ++i) plan[i] = got[i];
   return 0;
 }

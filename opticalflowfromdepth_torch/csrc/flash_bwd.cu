@@ -2604,12 +2604,11 @@ static bool route_takes(int route, int is_bf16, int B, int Lq, int Lk, int C,
 // f32, contiguous, 16-byte aligned; lse and delta [B, Lq] f32; dq [B, Lq, C]
 // f32. swin_k = 0: no Swin mask; else (swin_k, wh, ww, sh, sw) as the
 // forward's. Takes C % 16 == 0 and D == 2 or D % 16 == 0, up to MAX_WIDTH
-// (ops/flash_bwd.py pads other widths), on the route the caller
-// names (enum Route; the tf32x3 route C = 128 and D = 128 or 2, the wgmma
-// route the same in bf16 and C = 256 or 512 with D = C or 2:
-// sm90::takes). splits > 1
-// (the tf32x3 route only) cuts the key sweep into that many runs of whole
-// tiles: dq is then a [splits, B, Lq, C] scratch of unscaled partial
+// (ops/flash_bwd.py pads other widths), on the route and the runs of the
+// key sweep the caller names (ops/flash_bwd.py:plan, the one place they
+// are decided), where the route takes these widths (route_takes). splits
+// > 1 (the tf32x3 route only) cuts the key sweep into that many runs of
+// whole tiles: dq is then a [splits, B, Lq, C] scratch of unscaled partial
 // sums, for ofd_flash_bwd_reduce. Returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int ofd_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -2678,22 +2677,20 @@ extern "C" int ofd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // What ofd_flash_bwd_dq (dkv = 0) or ofd_flash_bwd_dkv (dkv = 1) launches
-// for these operands (padded widths) on the route of the wrapper's rule
-// (ops/flash_bwd.py:plan): bf16 at C = 128, 256 or 512 and D = C or 2 the
-// wgmma route, other bf16 the mma.sync route; f32 at C = 128 and D = 128 or 2
-// the tf32x3 route, other f32 the CUDA-core route. plan = {route (enum
-// Route), output rows a block, threads a block, blocks of one run (row
-// blocks x B x column chunks), column chunks, dynamic shared memory,
-// static shared memory (bytes), blocks resident per SM, registers a
-// thread, local memory a thread (bytes: spills and stack)}. Returns a cudaError_t (0 on
-// success): a block the SM cannot hold fails here.
+// for these operands (padded widths) on the route the caller hands it
+// (ops/flash_bwd.py:plan), which it refuses where the entry points would
+// (valid, route_takes): plan = {route (enum Route), output rows a block,
+// threads a block, blocks of one run (row blocks x B x column chunks),
+// column chunks, dynamic shared memory, static shared memory (bytes),
+// blocks resident per SM, registers a thread, local memory a thread
+// (bytes: spills and stack)}. Returns a cudaError_t (0 on success): a
+// block the SM cannot hold fails here.
 extern "C" int ofd_flash_bwd_plan(int B, int Lq, int Lk, int C, int D,
-                                  int is_bf16, int dkv, int* plan) {
-  if (!valid(B, Lq, Lk, C, D, 0)) return (int)cudaErrorInvalidValue;
-  const int route =
-      is_bf16
-          ? (route_takes(WGMMA, 1, B, Lq, Lk, C, D) ? WGMMA : MMA_SYNC)
-          : (tf32x3::takes(B, Lq, Lk, C, D) ? TF32X3 : F32);
+                                  int is_bf16, int dkv, int route,
+                                  int* plan) {
+  if (!valid(B, Lq, Lk, C, D, 0) ||
+      !route_takes(route, is_bf16, B, Lq, Lk, C, D))
+    return (int)cudaErrorInvalidValue;
   const Kernel kn = kernel_of(route, dkv != 0, C, D);
   cudaFuncAttributes attr;
   int per_sm = 0, e;

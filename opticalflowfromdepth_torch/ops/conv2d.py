@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils.device import sm_count
 from ..utils.profiling import spanned
 
 KERNEL_TILE_H = 16   # output rows per tile of every route (a band)
@@ -163,11 +164,6 @@ def _kernel_fn():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _conv_cuda(x: torch.Tensor, w: torch.Tensor,
                route: str = None) -> torch.Tensor:
     """The kernel on the route :func:`plan` picks; ``route="mma_sync"``
@@ -186,7 +182,7 @@ def _conv_cuda(x: torch.Tensor, w: torch.Tensor,
     if b > 65535:
         raise ValueError(f"conv3x3_s1 kernel takes B <= 65535, got B={b}")
     p = plan(b, h, wd, c, co, x.dtype, x.data_ptr() % 16 == 0,
-             w.data_ptr() % 16 == 0, _sms(x.device.index))
+             w.data_ptr() % 16 == 0, sm_count(x.device.index))
     if route is not None:
         if route != "mma_sync" or x.dtype != torch.bfloat16:
             raise ValueError(f"conv3x3_s1: route {route!r} is not forced "

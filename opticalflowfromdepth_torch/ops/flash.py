@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.device import sm_count
 from ..utils.profiling import spanned
 
 KERNEL_BLOCK_K = 64          # keys per tile of csrc/flash.cu's bf16 routes
@@ -330,21 +331,23 @@ def split_count(blocks: int, tiles: int, slots: int) -> int:
 
 
 class FwdPlan(NamedTuple):
-    """How the forward runs one call: the ``route``; for the tf32x3 route
-    the query rows a block (``rows``), keys a ring tile (``tile``), the
-    shared memory a block (``smem``, bytes) and blocks an SM, the runs the
-    key sweep is cut into (``splits``; the grid is (row blocks, splits,
+    """How the forward runs one call, decided here alone: ``csrc/flash.cu``
+    launches it after checking that it can. The ``route``; for the tf32x3
+    route the query rows a block (``rows``), keys a ring tile (``tile``),
+    the shared memory a block (``smem``, bytes) and blocks an SM, the runs
+    the key sweep is cut into (``splits``; the grid is (row blocks, splits,
     B)), and where it is split the f32 scratch shapes of the runs'
     partials (``scratch_out`` ``[splits, B, Lq, D]``, the unnormalised
     outputs; ``scratch_ml`` ``[splits, B, Lq, 2]``, each row's running max
     in base 2 and denominator; None where not); for the wgmma route its
-    query rows a block, keys a tile and shared memory (``sm90::choose``'s,
-    mirrored by :func:`wgmma_warpgroups` and :func:`wgmma_smem`; blocks an
-    SM, which ptxas's registers also bound, stay 0); the padded widths
-    (``c_pad``, ``d_pad``); the wgmma route's output column chunks (a grid
-    axis: 2 at C = D = 512, whose blocks hold 256 columns each; 1
-    elsewhere). The other routes' blocks are the C side's to choose:
-    :func:`kernel_plan` reports them, every route's."""
+    query rows a block (64 for each of :func:`wgmma_warpgroups`'s
+    warpgroups, which the launch passes), keys a tile and shared memory
+    (:func:`wgmma_smem`; blocks an SM, which ptxas's registers also bound,
+    stay 0); the padded widths (``c_pad``, ``d_pad``); the wgmma route's
+    output column chunks (a grid axis: 2 at C = D = 512, whose blocks hold
+    256 columns each; 1 elsewhere). The mma.sync and CUDA-core routes'
+    blocks follow from the widths alone: :func:`kernel_plan` reports them,
+    every route's."""
     route: str
     rows: int = 0
     tile: int = 0
@@ -357,12 +360,19 @@ class FwdPlan(NamedTuple):
     d_pad: int = 0
     chunks: int = 1
 
+    @property
+    def warpgroups(self) -> int:
+        """Warpgroups of 64 queries a block on the wgmma route, 0 on the
+        others (the C entry's argument)."""
+        return self.rows // 64 if self.route == "wgmma" else 0
+
 
 def tf32_blocks(d: int) -> Tuple[int, int, int]:
-    """The forward's tf32x3 block at D = d (``tf32x3::FwdCfg``): (query
-    rows, keys a tile, blocks an SM by its launch bounds). D = 2: 4 warps,
-    64-key tiles, two blocks an SM; D = 128: 8 warps (a tile's V shared
-    by more rows), 32-key tiles, one."""
+    """The tf32x3 routes' block at D = d, the forward's (``tf32x3::FwdCfg``)
+    and both backward kernels' (``tf32x3::Cfg``): (rows a block, the other
+    side's rows a tile, blocks an SM by its launch bounds). D = 2: 4 warps,
+    64-row tiles, two blocks an SM; D = 128: 8 warps (a tile shared by more
+    rows; the backward's dK and dV accumulators), 32-row tiles, one."""
     return (64, 64, 2) if d == 2 else (128, 32, 1)
 
 
@@ -400,11 +410,15 @@ def wgmma_smem(c: int, d: int, warpgroups: int) -> int:
 
 def wgmma_warpgroups(b: int, lq: int, c: int, d: int, bias: bool = False,
                      sms: int = H100_SMS) -> int:
-    """Warpgroups (64 queries each) of a forward wgmma block
-    (``sm90::choose``) at padded widths C = c, D = d: one at D = 2; two
-    with a bias or at D = 256 or 512 (O's 128 registers a thread); at C = D
-    = 128 three where such blocks fill every SM at least twice, else
-    two."""
+    """Warpgroups (64 queries each) of a forward wgmma block at padded
+    widths C = c, D = d: one at D = 2; two with a bias or at D = 256 or 512
+    (the bias loads and O's 128 registers a thread leave three warpgroups'
+    cap of 168 no room); at C = D = 128 three where such blocks fill every
+    SM at least twice (the training and refinement windows), else two
+    (128 queries taking turns, which leave fewer SMs idle on small
+    batches: the serving windows' 80 blocks of three against 112 of two
+    for 132 SMs). The C side serves each of these counts and refuses any
+    other (``sm90::with_instance``)."""
     if d == 2:
         return 1
     if bias or c >= 256:
@@ -447,7 +461,7 @@ def _kernel_fns():
     lib = _build.load("flash")
     fn = lib.ofd_flash_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     merge = lib.ofd_flash_fwd_merge
@@ -461,29 +475,27 @@ def _kernel_fns():
 @functools.lru_cache(maxsize=None)
 def _plan_fn():
     fn = _build.load("flash").ofd_flash_fwd_plan
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def kernel_plan(b: int, lq: int, lk: int, c: int, d: int,
                 bf16: bool, bias: bool = False) -> dict:
     """What the forward kernel launches for these operands (at their
-    padded widths, with a bias or without) on the current CUDA device by
-    the C side's own rule: its route (a key of ROUTES), query rows a
-    block, keys a tile, blocks (every run's and D chunk's), blocks resident
-    per SM, waves over the SMs, the runs of its key sweep (tf32x3: the
-    split :func:`plan` must name too), D chunks (mma.sync), shared memory
+    padded widths, with a bias or without) on the current CUDA device, on
+    :func:`plan`'s route, warpgroups and runs of the key sweep, as the C
+    side reports it: the route (a key of ROUTES), query rows a block, keys
+    a tile, blocks (every run's and D chunk's), blocks resident per SM,
+    waves over the SMs, the runs of the key sweep, D chunks, shared memory
     a block (bytes, static included), threads a block, registers and local
-    memory (bytes) a thread. Raises where the card cannot hold a block."""
-    cp, dp = padded_widths(c, d)
+    memory (bytes) a thread. Raises where the C side refuses the plan or
+    the card cannot hold a block."""
+    p = plan(b, lq, lk, c, d, torch.bfloat16 if bf16 else torch.float32,
+             sm_count(torch.cuda.current_device()), bias)
     out = (ctypes.c_int * 13)()
-    err = _plan_fn()(b, lq, lk, cp, dp, int(bf16), int(bias), out)
+    err = _plan_fn()(b, lq, lk, p.c_pad, p.d_pad, int(bf16), int(bias),
+                     ROUTES[p.route], p.warpgroups, p.splits, out)
     if err:
         raise RuntimeError(f"flash kernel plan failed: CUDA error {err}")
     route = {code: name for name, code in ROUTES.items()}[out[0]]
@@ -555,17 +567,20 @@ def launcher(q, k, v, scale=None, swin=None, with_lse=False,
     with ``with_lse``, else None) on the current stream, a split sweep's
     runs merged into them. q, k and v are padded to the kernels' widths
     (:func:`pad_widths`) and out is the real columns of the padded
-    output. ``route`` forces another route of the same dtype unsplit (to
-    time it beside the planned one); by default :func:`plan` picks it."""
+    output. ``route`` forces another route of the same dtype (to time it
+    beside the planned one: :func:`plan`'s plan with that route, the sweep
+    unsplit); by default :func:`plan` picks it."""
     tensors = (q, k, v) if bias is None else (q, k, v, bias)
     check_kernel_operands(q, k, v, tensors, "flash kernel")
     b, lq, c = q.shape
     lk, d = v.shape[1], v.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(c)
-    p = plan(b, lq, lk, c, d, q.dtype, _sms(q.device.index), bias is not None)
+    p = plan(b, lq, lk, c, d, q.dtype, sm_count(q.device.index),
+             bias is not None)
     if route is not None:
-        p = FwdPlan(route, c_pad=p.c_pad, d_pad=p.d_pad)
+        p = p._replace(route=route, splits=1, scratch_out=None,
+                       scratch_ml=None)
     qc, kc, vc = (t.contiguous()
                   for t in pad_widths(q, k, v.to(q.dtype)))
     bc = None if bias is None else kernel_bias(bias)
@@ -581,7 +596,8 @@ def launcher(q, k, v, scale=None, swin=None, with_lse=False,
         for s in (p.scratch_out, p.scratch_ml))
     sw = swin if swin is not None else (0, 0, 0, 0, 0)
     dims = (b, lq, lk, cp, dp, float(scale), *sw,
-            int(q.dtype == torch.bfloat16), ROUTES[p.route], p.splits)
+            int(q.dtype == torch.bfloat16), ROUTES[p.route], p.warpgroups,
+            p.splits)
     fn, merge = _kernel_fns()
 
     def ptr(t):

@@ -55,13 +55,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
+from ..utils.device import sm_count
 from ..utils.profiling import spanned
-# the plan's constants, the width predicates, the split count and the
-# split-TF32 products are the forward's too
+# the plan's constants, the width predicates, the tf32x3 blocks, the split
+# count and the split-TF32 products are the forward's too
 from .flash import (
     H100_SMS, ROUTES, SMEM_RESERVED, SMEM_SM, TF32_STRIDE, Swin, _pad_last,
-    _sms, check_kernel_operands, gmflow_widths, matmul_tf32, padded_widths,
-    split_count, swin_mask_dense, wgmma_widths)
+    check_kernel_operands, gmflow_widths, matmul_tf32, padded_widths,
+    split_count, swin_mask_dense, tf32_blocks, wgmma_widths)
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -279,16 +280,9 @@ class BwdPlan(NamedTuple):
     d_pad: int = 0
 
 
-def tf32_blocks(d: int) -> Tuple[int, int, int]:
-    """The tf32x3 route's block at D = d (``tf32x3::Cfg``): (output rows,
-    streamed rows a tile, blocks an SM by its launch bounds). D = 2: 4
-    warps, 64-row tiles, two blocks an SM; D = 128: 8 warps (dK's and
-    dV's accumulators), 32-row tiles, one."""
-    return (64, 64, 2) if d == 2 else (128, 32, 1)
-
-
 def tf32_smem(d: int, dkv: bool) -> int:
-    """Shared memory of a tf32x3 block (``Cfg::smem_bytes``): the resident
+    """Shared memory of a tf32x3 block (``Cfg::smem_bytes``; its rows, tile
+    and blocks an SM, the forward's :func:`tf32_blocks`): the resident
     rows (the C-wide side, and at D = 128 the D-wide one) and two ring
     stages (the streamed C-wide tile, its D-wide tile or pairs, and for
     dk/dv lse and delta), rows of TF32_STRIDE floats."""
@@ -355,7 +349,7 @@ def _kernel_fns():
 @functools.lru_cache(maxsize=None)
 def _plan_fn():
     fn = _build.load("flash_bwd").ofd_flash_bwd_plan
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 
@@ -363,18 +357,19 @@ def _plan_fn():
 def kernel_plan(b: int, lq: int, lk: int, c: int, d: int,
                 bf16: bool) -> dict:
     """What the two kernels launch for these operands (at their padded
-    widths) on the current CUDA device by the C side's own rule: for
-    ``"dq"`` and ``"dkv"`` the route (a key of ROUTES), output rows and
-    threads a block, blocks of one run, column chunks (mma.sync), shared
-    memory a block (bytes, static included), blocks resident per SM,
-    registers and local memory (bytes) a thread. Raises where the card
+    widths) on the current CUDA device, each on the route :func:`plan`
+    names, as the C side reports it: for ``"dq"`` and ``"dkv"`` the route
+    (a key of ROUTES), output rows and threads a block, blocks of one run,
+    column chunks (mma.sync), shared memory a block (bytes, static
+    included), blocks resident per SM, registers and local memory (bytes)
+    a thread. Raises where the C side refuses the route or the card
     cannot hold a block."""
-    cp, dp = padded_widths(c, d)
+    p = plan(b, lq, lk, c, d, torch.bfloat16 if bf16 else torch.float32)
     plans = {}
-    for key in ("dq", "dkv"):
+    for key, route in (("dq", p.route_dq), ("dkv", p.route_dkv)):
         out = (ctypes.c_int * 10)()
-        err = _plan_fn()(b, lq, lk, cp, dp, int(bf16), int(key == "dkv"),
-                         out)
+        err = _plan_fn()(b, lq, lk, p.c_pad, p.d_pad, int(bf16),
+                         int(key == "dkv"), ROUTES[route], out)
         if err:
             raise RuntimeError(f"flash backward {key} kernel plan failed: "
                                f"CUDA error {err}")
@@ -397,7 +392,8 @@ def launchers(q, k, v, out, lse, g, scale=None, swin=None,
     counts: ``((dq, dk, dv), launch_dq, launch_dkv, plan)``, each launch
     filling its outputs (a split sweep's partial sums reduced into them)
     on the current stream. ``route`` forces another route of the same
-    dtype unsplit (to time it beside the planned one); by default
+    dtype (to time it beside the planned one: :func:`plan`'s plan with
+    that route for both kernels, the sweeps unsplit); by default
     :func:`plan` picks each kernel's."""
     check_kernel_operands(q, k, v, (q, k, v, out, lse, g),
                           "flash backward kernels")
@@ -410,9 +406,11 @@ def launchers(q, k, v, out, lse, g, scale=None, swin=None,
         raise ValueError(f"flash_backward: out and g [B, Lq, D], lse [B, Lq];"
                          f" got {tuple(out.shape)}, {tuple(g.shape)}, "
                          f"{tuple(lse.shape)}")
-    p = plan(b, lq, lk, c, d, q.dtype, _sms(q.device.index))
+    p = plan(b, lq, lk, c, d, q.dtype, sm_count(q.device.index))
     if route is not None:
-        p = BwdPlan(route, route, c_pad=p.c_pad, d_pad=p.d_pad)
+        p = p._replace(route_dq=route, route_dkv=route, splits_dq=1,
+                       splits_dkv=1, scratch_dq=None, scratch_dk=None,
+                       scratch_dv=None)
     cp, dp = p.c_pad, p.d_pad
     delta = (g.float() * out.float()).sum(-1)
     qc, kc = (_pad_last(t, cp).contiguous() for t in (q, k))

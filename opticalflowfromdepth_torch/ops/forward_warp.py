@@ -39,6 +39,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from ..utils.device import sm_count
 from ..utils.profiling import spanned
 from ..core.geometry import pixel_grid
 
@@ -103,11 +104,6 @@ def plan(b: int, h: int, w: int, sms: int, vec: int = VEC,
     return max(1, min(sms * blocks_per_sm, -(-units // THREADS)))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def bind(lib: ctypes.CDLL):
     """The typed entry point ``ofd_forward_warp`` of a build of
     ``csrc/forward_warp.cu``."""
@@ -152,7 +148,7 @@ def _forward_warp_cuda(obj: torch.Tensor, flow: torch.Tensor,
         stream = torch.cuda.current_stream(obj.device).cuda_stream
         with torch.cuda.device(obj.device):
             err = _kernel_fn()(*ptrs, b, c, h, w,
-                               plan(b, h, w, _sm_count(obj.device.index)),
+                               plan(b, h, w, sm_count(obj.device.index)),
                                int(plant_fault), stream)
         if err:
             raise RuntimeError(f"forward_warp kernel launch failed: CUDA "

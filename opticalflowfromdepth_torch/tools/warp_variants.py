@@ -153,6 +153,7 @@ def main(argv=None) -> None:
     import torch
     import chip_smoke as cs
     from ..ops import forward_warp as fw
+    from ..utils.device import sm_count
     if not torch.cuda.is_available():
         raise SystemExit("warp_variants: no CUDA device")
     print(cs.card_line(), torch.__version__, flush=True)
@@ -161,7 +162,7 @@ def main(argv=None) -> None:
     built = build(names, pathlib.Path(args.out))
     for name in names:
         print(f"{name}: {' | '.join(built[name][3])}", flush=True)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = sm_count(0)
     runs = {name: launcher(e, vec, bps, sms)
             for name, (e, vec, bps, _) in built.items()}
 

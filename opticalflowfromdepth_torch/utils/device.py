@@ -1,6 +1,9 @@
-"""The device an entry point runs on."""
+"""The device an entry point runs on, and what the kernels' host plans
+read of it."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -14,3 +17,11 @@ def resolve_device(device) -> torch.device:
                            "is available; pass device='cpu' to run the "
                            "plain PyTorch path on the CPU")
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``, looked up
+    once a device: the hand-written kernels' host plans size their grids
+    and split their sweeps by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -10,6 +10,8 @@ they run without the JAX test setup:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -683,11 +685,16 @@ def test_flash_tf32x3_split_sweep(card, monkeypatch, b, l, d, splits):
 
 
 def test_flash_plan_matches_kernel_plan(card):
-    """The Python plan (route, rows a block, keys a tile, blocks an SM,
-    runs of the key sweep; on the wgmma route rows, tile and shared
-    memory, with a bias and without) is what the C side reports it
-    launches; the mma.sync and CUDA-core routes' blocks, which only the C
-    side plans, fit an SM."""
+    """The C side takes the host's plan (``plan``: the route, the wgmma
+    route's warpgroups, the tf32x3 route's runs of the key sweep) and
+    reports what it launches on it, with a bias and without: the route and
+    the runs are the plan's; on the tf32x3 and wgmma routes the rows a
+    block, keys a tile, D chunks, blocks (row blocks x chunks x runs),
+    shared memory (static included) and blocks an SM (tf32x3) are too;
+    every route's blocks fit an SM. The backward's kernels take their
+    plan's routes (tf32x3: its rows and each kernel's shared memory) and
+    fit an SM; dq's wgmma blocks at C = 512 are 64 queries that both
+    warpgroups share, one an SM."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, lq, lk, c, d in ((16, 3220, 3220, 128, 2), (1, 7168, 7168, 128, 2),
                             (1, 3584, 3584, 128, 2), (1, 1792, 1792, 128, 2),
@@ -706,35 +713,79 @@ def test_flash_plan_matches_kernel_plan(card):
                 p = fl.plan(b, lq, lk, c, d, dtype, sms, bias)
                 k = fl.kernel_plan(b, lq, lk, c, d, dtype == torch.bfloat16,
                                    bias)
-                assert k["route"] == p.route
-                if p.route == "tf32x3":
-                    assert (k["rows"], k["tile"], k["per_sm"],
-                            k["splits"]) == (p.rows, p.tile, p.blocks_per_sm,
-                                             p.splits)
-                    assert k["blocks"] == b * -(-lq // p.rows) * p.splits
-                else:
-                    assert k["splits"] == 1
-                if p.route == "wgmma":
-                    assert (k["rows"], k["tile"], k["smem"], k["chunks"]) \
-                        == (p.rows, p.tile, p.smem, p.chunks), \
+                assert (k["route"], k["splits"]) == (p.route, p.splits)
+                assert 0 < k["smem"] <= 232448 and k["per_sm"] >= 1
+                if p.route in ("tf32x3", "wgmma"):
+                    assert (k["rows"], k["tile"], k["chunks"], k["smem"]) \
+                        == (p.rows, p.tile, p.chunks, p.smem), \
                         (b, lq, c, d, bias)
-                    assert k["blocks"] == b * -(-lq // p.rows) * p.chunks
-                if p.route in ("mma_sync", "f32"):
-                    assert 0 < k["smem"] <= 232448 and k["per_sm"] >= 1
-            # the backward's kernels: each the route its plan names (at C =
-            # 512 wgmma for both), within an SM; dq's wgmma blocks at C =
-            # 512 are 64 queries that both warpgroups share, one an SM
+                    assert k["blocks"] == \
+                        b * -(-lq // p.rows) * p.chunks * p.splits
+                if p.route == "tf32x3":
+                    assert k["per_sm"] == p.blocks_per_sm
             pb = fb.plan(b, lq, lk, c, d, dtype, sms)
             kb = fb.kernel_plan(b, lq, lk, c, d, dtype == torch.bfloat16)
             assert (kb["dq"]["route"], kb["dkv"]["route"]) == \
                 (pb.route_dq, pb.route_dkv), (b, lq, c, d, dtype)
-            for key in ("dq", "dkv"):
+            for i, key in enumerate(("dq", "dkv")):
                 assert 0 < kb[key]["smem"] <= 232448 and kb[key]["per_sm"] >= 1
                 assert kb[key]["local"] == 0 or kb[key]["route"] != "wgmma"
+                if pb.route_dq == "tf32x3":
+                    assert (kb[key]["rows"], kb[key]["smem"]) == \
+                        (pb.rows, pb.smem[i])
+                    assert kb[key]["per_sm"] >= pb.blocks_per_sm
             if pb.route_dq == "wgmma" and c == 512:
                 assert (kb["dq"]["rows"], kb["dq"]["chunks"],
                         kb["dq"]["per_sm"]) == (64, 1, 1), (b, lq, d)
                 assert kb["dq"]["blocks"] == b * -(-lq // 64)
+
+
+def test_flash_kernel_refuses_a_plan_it_does_not_serve(card):
+    """A plan no instantiation serves is refused, not launched: warpgroup
+    counts the wgmma forward has no instance for (two at D = 2, three with
+    a bias or at C = 256, none, four), warpgroups off the wgmma route, a
+    route that does not take the dtype or the widths, a split sweep off
+    the tf32x3 route. Each returns cudaErrorInvalidValue (1) from the
+    launch, whose output keeps its NaNs, and from the reporter; the
+    backward's reporter refuses a route that does not take its widths."""
+    fn, _ = fl._kernel_fns()
+    routes = fl.ROUTES
+    b, l = 2, 130
+    for c, d, bias, bf16, route, wgs, splits in (
+            (128, 2, False, True, "wgmma", 2, 1),
+            (128, 128, True, True, "wgmma", 3, 1),
+            (256, 256, False, True, "wgmma", 3, 1),
+            (128, 128, False, True, "wgmma", 0, 1),
+            (128, 128, False, True, "wgmma", 4, 1),
+            (128, 128, False, True, "wgmma", 2, 2),
+            (128, 128, False, True, "mma_sync", 2, 1),
+            (128, 128, False, False, "wgmma", 2, 1),
+            (64, 64, False, False, "tf32x3", 0, 1),
+            (128, 128, False, False, "f32", 0, 2)):
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        q = torch.randn(b, l, c, device=card).to(dtype)
+        v = torch.randn(b, l, d, device=card).to(dtype)
+        bs = torch.zeros(b, l, l, device=card) if bias else None
+        out = torch.full((b, l, d), float("nan"), device=card)
+        lse = torch.full((b, l), float("nan"), device=card)
+        err = fn(q.data_ptr(), q.data_ptr(), v.data_ptr(),
+                 0 if bs is None else bs.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b, l, l, c, d, 1.0, 0, 0, 0, 0, 0, int(bf16),
+                 routes[route], wgs, splits,
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        case = (c, d, bias, bf16, route, wgs, splits)
+        assert err == 1, case
+        assert bool(out.isnan().all()) and bool(lse.isnan().all()), case
+        got = (ctypes.c_int * 13)()
+        assert fl._plan_fn()(b, l, l, c, d, int(bf16), int(bias),
+                             routes[route], wgs, splits, got) == 1, case
+    got = (ctypes.c_int * 10)()
+    for c, d, bf16, route in ((64, 64, True, "wgmma"),
+                              (64, 64, False, "tf32x3"),
+                              (128, 128, False, "mma_sync")):
+        assert fb._plan_fn()(b, l, l, c, d, int(bf16), 0, routes[route],
+                             got) == 1, (c, d, route)
 
 
 # bf16 at C = 256 with D = 256 or 2 (GMFlow at 256 channels) takes the
@@ -879,25 +930,27 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
 def test_flash_kernel_plans_at_every_width(card, dtype):
     """Every padded width the wrappers hand the kernels up to 256 (C =
     16..256 in 16s, D = 2 or 16..256 in 16s: every C, D in 1..256), and
-    past it to 1024 in steps of 48, C, D or both: the C side's own
-    plans of the forward (with a bias and without) and of the backward's
-    dq and dk/dv name the wrappers' route (each its own ``plan``'s; one
-    predicate for all three, wgmma at C = 128, 256 and 512 with D = C or
-    2), fit a block within 227 KB of shared memory with at least one block an
-    SM, and on the mma.sync and CUDA-core routes take D (forward) or the
-    wider of C and D (dk/dv; dq: C) in 128-column chunks; asking for a
-    plan leaves later launches able to run."""
+    past it to 1024 in steps of 48, C, D or both: the C side's reports
+    of the host's plans of the forward (with a bias and without) and of
+    the backward's dq and dk/dv name the wrappers' route (each its own
+    ``plan``'s; one predicate for all three, wgmma at C = 128, 256 and
+    512 with D = C or 2), fit a block within 227 KB of shared memory with
+    at least one block an SM (the forward's wgmma and tf32x3 blocks the
+    plan's shared memory), and on the mma.sync and CUDA-core routes take
+    D (forward) or the wider of C and D (dk/dv; dq: C) in 128-column
+    chunks; asking for a plan leaves later launches able to run."""
     bf16 = dtype == torch.bfloat16
     widths = list(range(16, 257, 16)) + list(range(272, 1025, 48))
     assert 512 in widths
     for cp in widths:
         for dp in [2] + widths:
-            p = fl.plan(4, 300, 300, cp, dp, dtype)
             pb = fb.plan(4, 300, 300, cp, dp, dtype)
             for bias in (False, True):
+                p = fl.plan(4, 300, 300, cp, dp, dtype, bias=bias)
                 k = fl.kernel_plan(4, 300, 300, cp, dp, bf16, bias)
                 assert k["route"] == p.route, (cp, dp, bias)
                 assert 0 < k["smem"] <= 232448 and k["per_sm"] >= 1
+                assert k["smem"] == p.smem or p.route in ("mma_sync", "f32")
                 assert k["chunks"] == (-(-dp // 128) if p.route in (
                     "mma_sync", "f32") and dp != 2 else p.chunks)
             kb = fb.kernel_plan(4, 300, 300, cp, dp, bf16)

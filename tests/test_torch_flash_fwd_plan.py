@@ -255,9 +255,10 @@ def test_wgmma_blocks_fit_an_sm(w, d, bias):
 
 
 def test_split_count_and_tf32_products_are_shared_with_the_backward():
-    """One copy of the split count, the split-TF32 products and the routes'
-    codes: the backward takes the forward's."""
+    """One copy of the split count, the tf32x3 blocks, the split-TF32
+    products and the routes' codes: the backward takes the forward's."""
     assert tb.split_count is tf.split_count
+    assert tb.tf32_blocks is tf.tf32_blocks
     assert tb.matmul_tf32 is tf.matmul_tf32
     assert tb.ROUTES is tf.ROUTES
 
