@@ -95,8 +95,16 @@ Run from the repository root on a host with one CUDA card. Phases:
    Function against a dense softmax, timed in bf16 and
    in f32 (the 14 + 14 launches of a training step each) against their
    bounds (TFLOP/s, share of the bound; f32 at the split-TF32 and at the
-   CUDA cores' f32 peak), the plain version and SDPA's backward; [3g]
-   (run after [12]) the 3x3 conv at
+   CUDA cores' f32 peak), the plain version and SDPA's backward; [3m]
+   the transformer's epilogue kernels (``ops/token_epilogue.py``) at the
+   refinement cell's 1/4 shapes (rows [458752, 128], hidden [458752,
+   1024], bf16): the layer norm with and without the residual within one
+   bf16 step of its op-by-op form (the share of values that differ
+   printed), the GELU bit-equal over every bf16 pattern (and a ragged
+   tail) and the hidden rows, two launches bit-equal, then each timed
+   beside its bytes bound, its op-by-op chain and PyTorch's one-call
+   ``F.layer_norm`` / ``F.gelu``, and a refined pair's epilogues summed;
+   [3g] (run after [12]) the 3x3 conv at
    RAFT-basic's stride-1 shapes at Sintel serving, the ragged [1, 33, 17,
    8] -> 8 and GMFlow's training
    [32, 184, 280, 64] -> 64, bf16 and f32, each shape's route and plan
@@ -137,7 +145,8 @@ Run from the repository root on a host with one CUDA card. Phases:
    436x1024 after a warm-up pair, with the launch counts checked (14
    flash, 15 instance norms, 0 lookups per pair) and a profile of one
    pair; one bidirectional pair with the occlusion check (15 flash); one
-   refine pair (padding factor 32, 26 flash);
+   refine pair (padding factor 32, 26 flash); every transformer epilogue
+   in one pass (none op by op; their launches go to [27]'s rows);
 11. GMFlow train-step parity: one f32 step with the classifier, 64x96,
    batch 2, 1 scale and refine, on the card against the CPU;
 12. the GMFlow training path: seeded npz shards at 384x576 ->
@@ -343,7 +352,9 @@ Run from the repository root on a host with one CUDA card. Phases:
    forward and 15 backward), the losses and metrics against the default's
    (``unroll`` bit-equal, the others within [6]'s tolerances), peak memory,
    ms a step and the busy ms of one more step;
-27. a ``{"kernels": [...]}`` line (nine kernels; the instance norm
+27. a ``{"kernels": [...]}`` line (eleven kernels; the epilogues'
+   rows count [10]'s launches, the norm's times those of the residual
+   form; the instance norm
    backward's row counts [12]'s launches and carries [3d]'s errors and
    times at GMFlow's training step; the lookup rows count
    [26]'s launches too and carry [3l]'s largest errors at the training
@@ -957,6 +968,135 @@ def instance_norm_timing(gen, shapes, what):
           f"bound {bound_ms * 1e3:.1f} us ({bound_ms / ms:.2f} of the bound)",
           flush=True)
     return ms, plain_ms, lib_ms, bound_ms
+
+
+# the refinement cell's 1/4 transformer: the stacked pair of 8 Sintel
+# pairs at 1/4 of 448x1024 (2 x 8 x 112 x 256 tokens), 128 channels and
+# the FFN's hidden width 1024; its 1/8 scale has a quarter of the tokens
+EPILOGUE_ROWS, EPILOGUE_C, EPILOGUE_HIDDEN = 2 * 8 * 112 * 256, 128, 1024
+
+
+def bf16_step(t):
+    import torch
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8)
+
+
+def norm_excess(got, want, norm, x, weight, bias):
+    """|got - want| over what the card test allows
+    (``tests/test_torch_cuda.py:_norm_allowed``): one bf16 step of the
+    layer norm's own output ``norm``, or near 0 2^-16 of its terms' size
+    (``weight * xhat`` and ``bias`` cancelling), plus with a residual one
+    step of ``want`` (the add's rounding): <= 1 means within."""
+    import torch.nn.functional as F
+    n32 = F.layer_norm(x.float(), (x.shape[-1],), weight, bias, 1e-5)
+    allowed = bf16_step(norm) + 2.0 ** -16 * ((n32 - bias).abs()
+                                              + bias.abs())
+    if want is not norm:
+        allowed = allowed + bf16_step(want)
+    return (got.float() - want.float()).abs() / allowed
+
+
+def epilogue_phase():
+    """[3m]: the transformer's epilogue kernels against their op-by-op
+    forms at the refinement cell's shapes, then timed beside the bytes
+    bound, the op-by-op chains and PyTorch's one-call forms."""
+    import torch
+    import torch.nn.functional as F
+    from opticalflowfromdepth_torch.ops import token_epilogue as te
+    from opticalflowfromdepth_torch.utils.device import sm_count
+
+    print("[3m] the transformer's epilogues: the layer norm (+ residual) "
+          "and exact GELU kernels vs their op-by-op forms", flush=True)
+    rows, c, hidden = EPILOGUE_ROWS, EPILOGUE_C, EPILOGUE_HIDDEN
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(31)
+    weight = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(c, device="cuda", generator=g)
+    x = (3 * torch.randn(rows, c, device="cuda", generator=g) + 0.5).to(bf16)
+    res = torch.randn(rows, c, device="cuda", generator=g).to(bf16)
+    hid = torch.randn(rows, hidden, device="cuda", generator=g).to(bf16)
+    every = torch.arange(-32768, 32768, dtype=torch.int32,
+                         device="cuda").to(torch.int16).view(bf16)
+    with torch.inference_mode():
+        launched = te.token_norm.launches, te.gelu.launches
+        worst = 0.0
+        for residual in (None, res):
+            got = te.token_norm(x, weight, bias, 1e-5, residual)
+            norm = te.token_norm_plain(x, weight, bias, 1e-5)
+            want = norm if residual is None else residual + norm
+            excess = float(norm_excess(got, want, norm, x, weight,
+                                       bias).max())
+            differ = float((got != want).float().mean())
+            past = float(((got.float() - want.float()).abs()
+                          > bf16_step(want)).float().mean())
+            worst = max(worst, float((got.float() - want.float()).abs()
+                                     .max()))
+            print(f"  token_norm [{rows}, {c}] bf16 residual="
+                  f"{residual is not None} "
+                  f"{te.plan(rows, c, 2, sm_count(0))}: {differ:.3e} of "
+                  f"the values differ, {past:.3e} by more than a step of "
+                  f"their own; {excess:.3f} of the tolerance", flush=True)
+            if not excess <= 1 or differ > 1e-2:
+                fail("[3m] token_norm beyond its tolerance")
+            if not torch.equal(got, te.token_norm(x, weight, bias, 1e-5,
+                                                  residual)):
+                fail("[3m] token_norm: two launches differ")
+        for what, t in (("every bf16 pattern", every),
+                        ("every bf16 pattern, a ragged tail", every[:-3]),
+                        (f"[{rows}, {hidden}] bf16", hid)):
+            got = te.gelu(t).view(torch.int16)
+            if not torch.equal(got, te.gelu_plain(t).view(torch.int16)):
+                fail(f"[3m] gelu: {what}: not bit-equal to the plain version")
+            print(f"  gelu {what}: bit-equal", flush=True)
+        if (te.token_norm.launches - launched[0],
+                te.gelu.launches - launched[1]) != (4, 3):
+            fail("[3m] a comparison did not take the kernels")
+
+        n = rows * c
+        norm_ms = graph_ms(lambda: te.token_norm(x, weight, bias, 1e-5))
+        res_ms = graph_ms(lambda: te.token_norm(x, weight, bias, 1e-5, res))
+        gelu_ms = graph_ms(lambda: te.gelu(hid))
+        norm_plain = cuda_ms(lambda: te.token_norm_plain(x, weight, bias,
+                                                         1e-5))
+        res_plain = cuda_ms(lambda: te.token_norm_plain(x, weight, bias,
+                                                        1e-5, res))
+        gelu_plain = cuda_ms(lambda: te.gelu_plain(hid))
+        w16, b16 = weight.to(bf16), bias.to(bf16)
+        norm_lib = graph_ms(lambda: F.layer_norm(x, (c,), w16, b16, 1e-5))
+        res_lib = graph_ms(lambda: res + F.layer_norm(x, (c,), w16, b16,
+                                                      1e-5))
+        gelu_lib = graph_ms(lambda: F.gelu(hid))
+    norm_bound = 4 * n / HBM_BYTES_PER_S * 1e3
+    res_bound = 6 * n / HBM_BYTES_PER_S * 1e3
+    gelu_bound = 4 * rows * hidden / HBM_BYTES_PER_S * 1e3
+    for what, k_ms, p_ms, l_ms, b_ms in (
+            ("token_norm", norm_ms, norm_plain, norm_lib, norm_bound),
+            ("token_norm + residual", res_ms, res_plain, res_lib, res_bound),
+            ("gelu", gelu_ms, gelu_plain, gelu_lib, gelu_bound)):
+        lib = f", PyTorch's F.layer_norm / F.gelu form {l_ms * 1e3:.1f} us"
+        print(f"  {what}: kernel {k_ms * 1e3:.1f} us ({b_ms / k_ms:.3f} of "
+              f"the bound {b_ms * 1e3:.1f} us, bytes), op by op "
+              f"{p_ms * 1e3:.1f} us{lib}", flush=True)
+    # a refined pair: 6 blocks of 2 norms with the residual, one without
+    # and a GELU, at 1/4 and at 1/8 (a quarter of the tokens), over the
+    # cell's 8 pairs
+    per_pair = 6 * 1.25 / 8
+    epi = (2 * res_ms + norm_ms + gelu_ms) * per_pair
+    epi_plain = (2 * res_plain + norm_plain + gelu_plain) * per_pair
+    epi_bound = (2 * res_bound + norm_bound + gelu_bound) * per_pair
+    print(f"  a refined pair's epilogues: kernels {epi:.3f} ms "
+          f"({epi_bound / epi:.3f} of the bound {epi_bound:.3f} ms), op by "
+          f"op {epi_plain:.3f} ms", flush=True)
+    source = "opticalflowfromdepth_torch/csrc/token_epilogue.cu"
+    return [dict(name="token_norm", route="cuda", source=source,
+                 replaces="none (XLA's LayerNorm)", max_abs_err=worst,
+                 ms=res_ms, plain_ms=res_plain, bound_ms=res_bound,
+                 bound_by="bytes", library_ms=res_lib),
+            dict(name="gelu_exact", route="cuda", source=source,
+                 replaces="none (XLA's exact GELU)", max_abs_err=0.0,
+                 ms=gelu_ms, plain_ms=gelu_plain, bound_ms=gelu_bound,
+                 bound_by="bytes", library_ms=gelu_lib)]
 
 
 def fused_corr_bwd_phase(gen):
@@ -6501,7 +6641,7 @@ def main() -> None:
     codec_s = time.perf_counter() - t if codec_built else float("nan")
     t = time.perf_counter()
     logs = _build.build(["fused_corr", "flash", "flash_bwd", "conv3x3",
-                         "instance_norm", "forward_warp"])
+                         "instance_norm", "forward_warp", "token_epilogue"])
     print(f"[2] g++ build of the npz codec {codec_s:.2f} s; nvcc build "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     for name, log in logs.items():
@@ -6533,6 +6673,7 @@ def main() -> None:
     in_bwd = timed("3d", instance_norm_grad_phase, gen)
     flash = timed("3e", flash_phase, gen)
     flash_bwd = timed("3f", flash_bwd_phase, gen)
+    epilogues = timed("3m", epilogue_phase)
     timed("4", e2e_parity_phase)
     timed("5", main_path_phase)
     timed("6", train_parity_phase)
@@ -6542,9 +6683,16 @@ def main() -> None:
     for k in kernels:          # launches on slice 2's main path, training
         k["launches"] = launches[k["name"]]
     timed("9", gmflow_parity_phase)
-    # flash's launches on slice 3's main path, GMFlow serving
+    # flash's and the epilogues' launches on slice 3's main path, GMFlow
+    # serving (every block's 3 norms and GELU launched, none op by op)
+    from opticalflowfromdepth_torch.ops import token_epilogue as te
+    before = te.token_norm.launches, te.gelu.launches
     flash["launches"] = timed("10", gmflow_serving_phase)["flash"]
     kernels.append(flash)
+    epilogues[0]["launches"] = te.token_norm.launches - before[0]
+    epilogues[1]["launches"] = te.gelu.launches - before[1]
+    if not 0 < 3 * epilogues[1]["launches"] == epilogues[0]["launches"]:
+        fail("[10] GMFlow serving took an epilogue op by op")
     timed("11", gmflow_train_parity_phase)
     tmp_12 = tempfile.TemporaryDirectory()     # its shards, read in [19]
     launches, alone_12 = timed("12", gmflow_train_path_phase, tmp_12.name)
@@ -6563,6 +6711,7 @@ def main() -> None:
     # JAX package no model calls it (checked on every path above)
     conv["launches"] = launches[conv["name"]]
     kernels.append(conv)
+    kernels.extend(epilogues)
     # slice 10: the synthesis engine, after every earlier path
     warp = timed("3h", forward_warp_phase, logs.get("forward_warp", ""))
     timed("14", synth_parity_phase)

@@ -16,7 +16,11 @@ model's ``dtype``: in bf16 they are those of the JAX TPU path (bf16 q/k/v
 for attention; bf16 features with the f32 grid, rounded by the kernel,
 for matching; bf16 q/k with the f32 flow, rounded by the kernel, for
 propagation); in f32 they stay f32, as on the JAX dense path. Parameters
-stay f32; each layer casts at the call.
+stay f32; each layer casts at the call. A transformer layer's layer norms
+(with their residual adds) and its GELU go through
+``ops/token_epilogue.py`` in one pass each where autograd records nothing;
+where it records (training), the layer runs that module's plain versions
+(:func:`_layer_norm` plus the add, :func:`_gelu`) op by op.
 
 Token order: at ``attn_num_splits`` k > 1 the transformer keeps its
 tokens in the order of the windows the next block attends over (the
@@ -50,6 +54,8 @@ from ..core.geometry import pixel_grid
 from ..ops.flash import flash_softmax_matmul
 from ..ops.instance_norm import instance_norm
 from ..ops.sampling import flow_warp, resize_bilinear_align_corners
+from ..ops.token_epilogue import (gelu, gelu_plain, records_graph,
+                                  token_norm, token_norm_plain)
 from ..parallel.sequence import (group_size, ring_softmax_matmul,
                                  sharded_global_matching,
                                  sharded_window_attention, window_shards)
@@ -65,18 +71,22 @@ def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
 
 def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """flax LayerNorm with a compute dtype: statistics and normalization in
-    f32, the result in the input's dtype."""
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
-                        norm.bias, norm.eps).to(x.dtype)
+    f32, the result in the input's dtype (:func:`token_norm_plain`)."""
+    return token_norm_plain(x, norm.weight, norm.bias, norm.eps)
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact GELU as ``jax.nn.gelu(approximate=False)`` computes it, in x's
-    dtype: ``0.5 x erfc(-x sqrt(1/2))`` with sqrt(1/2) and every product
-    rounded to that dtype (``F.gelu`` rounds once, and in bf16 the FFN
-    layer then leaves the JAX one by a step in many outputs)."""
-    half_sqrt = float(torch.tensor(math.sqrt(0.5), dtype=x.dtype))
-    return 0.5 * x * torch.erfc(x * -half_sqrt)
+_gelu = gelu_plain
+
+
+def _norm(norm: nn.LayerNorm, x: torch.Tensor,
+          residual: Optional[torch.Tensor], records: bool) -> torch.Tensor:
+    """``residual + _layer_norm(norm, x)`` (the norm alone without a
+    residual): op by op where autograd records a graph (the kernel has no
+    backward), else in one pass through :func:`token_norm`."""
+    if records:
+        return token_norm_plain(x, norm.weight, norm.bias, norm.eps,
+                                residual)
+    return token_norm(x, norm.weight, norm.bias, norm.eps, residual)
 
 
 # ---------------------------------------------------------------------------
@@ -404,12 +414,16 @@ class TransformerLayer(nn.Module):
                                           self.group).to(v.dtype)
         else:
             message = _full_attention(q, k, v)
-        message = _layer_norm(self.norm1, _linear(self.merge, message, dt))
-        if self.mlp is not None:
-            y = torch.cat([source.to(dt), message], dim=-1)
-            y = _gelu(_linear(self.mlp[0], y, dt))
-            message = _layer_norm(self.norm2, _linear(self.mlp[2], y, dt))
-        return source + message
+        message = _linear(self.merge, message, dt)
+        # training records a graph through the epilogues: op by op there
+        records = records_graph(message, source, *self.parameters())
+        if self.mlp is None:
+            return _norm(self.norm1, message, source, records)
+        y = torch.cat([source.to(dt), _norm(self.norm1, message, None,
+                                            records)], dim=-1)
+        y = _linear(self.mlp[0], y, dt)
+        y = gelu_plain(y) if records else gelu(y)
+        return _norm(self.norm2, _linear(self.mlp[2], y, dt), source, records)
 
 
 class TransformerBlock(nn.Module):

@@ -1698,3 +1698,181 @@ def test_trace_records_card_kernels(card, tmp_path):
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
     assert any(e.get("name") == "card_matmul" for e in events)
+
+
+# ---------------------------------------------------------------------------
+# the transformer's epilogues (ops/token_epilogue.py)
+# ---------------------------------------------------------------------------
+
+def _epilogue_counts():
+    from opticalflowfromdepth_torch.ops import token_epilogue as te
+    return (te.token_norm.launches, te.token_norm.plain, te.gelu.launches,
+            te.gelu.plain)
+
+
+def _bf16_step(t):
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8)
+
+
+def test_gelu_kernel_bit_equal_over_every_bf16_pattern_and_random_f32(card):
+    """The GELU kernel rounds where the op-by-op form rounds: every bf16
+    bit pattern (NaN and inf as the plain version gives them; a ragged
+    tail too) and random f32, bit for bit, on the card's own op-by-op
+    kernels and on the model's ``_gelu``; the bf16 erfc table is
+    ``torch.erfc`` of every pattern."""
+    from opticalflowfromdepth_torch.models.gmflow import _gelu
+    from opticalflowfromdepth_torch.ops import token_epilogue as te
+    every = torch.arange(-32768, 32768, dtype=torch.int32,
+                         device=card).to(torch.int16).view(torch.bfloat16)
+    g = torch.Generator(device=card).manual_seed(5)
+    f32 = torch.cat([6 * torch.randn(1 << 20, device=card, generator=g),
+                     torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                                   float("nan"), 1e-40, -1e-40, 9.5, -9.5],
+                                  device=card)])
+    by_bits = torch.cat([every[32768:], every[:32768]])    # bits 0, 1, ...
+    assert torch.equal(te.erfc_table(every.device),
+                       torch.erfc(by_bits).view(torch.int16))
+    with torch.inference_mode():
+        for x, view in ((every, torch.int16), (every[:-5], torch.int16),
+                        (f32, torch.int32)):
+            before = _epilogue_counts()
+            got = te.gelu(x)
+            assert _epilogue_counts()[2] == before[2] + 1
+            assert torch.equal(got.view(view), te.gelu_plain(x).view(view))
+            assert torch.equal(got.view(view), _gelu(x).view(view))
+            assert torch.equal(got.view(view), te.gelu(x).view(view))
+
+
+def _norm_allowed(x, weight, bias, norm, want):
+    """What the norm kernel may differ by from the op-by-op form: one bf16
+    step of the norm, or where the norm is near 0 (``weight * xhat`` and
+    ``bias`` cancelling) the f32 rounding of those terms, 2^-16 of their
+    size, which can be many steps of so small a value; with a residual,
+    plus one step of the sum (the add rounds that difference again)."""
+    n32 = torch.nn.functional.layer_norm(x.float(), (x.shape[-1],), weight,
+                                         bias, 1e-5)
+    terms = (n32 - bias).abs() + bias.abs()
+    allowed = _bf16_step(norm) + 2.0 ** -16 * terms
+    return allowed if want is norm else allowed + _bf16_step(want)
+
+
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("rows", [1, 7, 4097, 458752])
+@pytest.mark.parametrize("c", [128, 256, 512])
+def test_token_norm_kernel_within_one_bf16_step(card, c, rows,
+                                                with_residual):
+    """bf16 rows against the op-by-op form on the card: the kernel's
+    two-pass f32 statistics and PyTorch's Welford sums round apart, so the
+    norm may land one bf16 step off (or, near 0, the terms' f32 rounding
+    off: ``_norm_allowed``), and the residual add, the plain version's
+    own, carries that; run with ``-s`` for the share of values that
+    differ (at most 1%) and of those more than a step of their own off."""
+    from opticalflowfromdepth_torch.ops import token_epilogue as te
+    g = torch.Generator(device=card).manual_seed(c + rows)
+    weight = 1 + 0.1 * torch.randn(c, device=card, generator=g)
+    bias = 0.1 * torch.randn(c, device=card, generator=g)
+    x = (3 * torch.randn(rows, c, device=card, generator=g) + 0.5).to(
+        torch.bfloat16)
+    res = torch.randn(rows, c, device=card, generator=g).to(
+        torch.bfloat16) if with_residual else None
+    with torch.inference_mode():
+        before = _epilogue_counts()
+        got = te.token_norm(x, weight, bias, 1e-5, res)
+        assert _epilogue_counts()[:2] == (before[0] + 1, before[1])
+        norm = te.token_norm_plain(x, weight, bias, 1e-5)
+        want = norm if res is None else res + norm
+        again = te.token_norm(x, weight, bias, 1e-5, res)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    d = (got.float() - want.float()).abs()
+    allowed = _norm_allowed(x, weight, bias, norm, want)
+    differ = float((got != want).float().mean())
+    past = float((d > _bf16_step(want)).float().mean())
+    print(f"token_norm C={c} rows={rows} residual={with_residual}: "
+          f"{differ:.3e} of the values differ, {past:.3e} by more than a "
+          f"step of their own; at most {float((d / allowed).max()):.3f} of "
+          f"what is allowed")
+    assert bool((d <= allowed).all()) and differ <= 1e-2
+
+
+@pytest.mark.parametrize("c", [8, 24, 128, 264, 512])
+def test_token_norm_kernel_f32(card, c):
+    """f32 rows (the f32 model's path): the two summation orders agree to
+    f32 rounding."""
+    from opticalflowfromdepth_torch.ops import token_epilogue as te
+    g = torch.Generator(device=card).manual_seed(c)
+    weight = 1 + 0.1 * torch.randn(c, device=card, generator=g)
+    bias = 0.1 * torch.randn(c, device=card, generator=g)
+    x = 3 * torch.randn(1001, c, device=card, generator=g) + 0.5
+    res = torch.randn(1001, c, device=card, generator=g)
+    with torch.inference_mode():
+        before = _epilogue_counts()
+        got = te.token_norm(x, weight, bias, 1e-5, res)
+        assert _epilogue_counts()[:2] == (before[0] + 1, before[1])
+        want = te.token_norm_plain(x, weight, bias, 1e-5, res)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_epilogues_refuse_what_the_kernels_do_not_take(card):
+    """C not a multiple of 8 or over 512, f16, a residual of another
+    dtype, non-contiguous or misaligned operands, a graph that autograd
+    records: the op raises and launches nothing (no plain path on the
+    card). A cross layer with its FFN on the card launches its 2 norms
+    and its GELU where autograd records nothing, and none where it
+    records (its op-by-op forms then carry the gradient)."""
+    from opticalflowfromdepth_torch.models import gmflow as T
+    from opticalflowfromdepth_torch.ops import token_epilogue as te
+    g = torch.Generator(device=card).manual_seed(9)
+
+    def rows(n, c, dtype=torch.bfloat16):
+        return torch.randn(n, c, device=card, generator=g).to(dtype)
+
+    def params(c):
+        return (1 + 0.1 * torch.randn(c, device=card, generator=g),
+                0.1 * torch.randn(c, device=card, generator=g))
+
+    buf = rows(1, 64 * 129).view(-1)
+    misaligned = buf[1:1 + 64 * 128].view(64, 128)
+    assert misaligned.data_ptr() % 16
+    wide = rows(64, 256)
+    norm_cases = [(rows(64, 100), None), (rows(64, 520), None),
+                  (rows(64, 128, torch.float16), None),
+                  (rows(64, 128), rows(64, 128, torch.float32)),
+                  (wide[:, :128], None), (misaligned, None),
+                  (rows(64, 128), misaligned)]
+    with torch.inference_mode():
+        for x, res in norm_cases:
+            weight, bias = params(x.shape[-1])
+            before = _epilogue_counts()
+            with pytest.raises(ValueError, match="does not take"):
+                te.token_norm(x, weight, bias, 1e-5, res)
+            assert _epilogue_counts() == before
+        for x in (rows(64, 128, torch.float16), wide[:, :128], misaligned):
+            before = _epilogue_counts()
+            with pytest.raises(ValueError, match="kernel takes"):
+                te.gelu(x)
+            assert _epilogue_counts() == before
+    weight, bias = params(128)
+    weight.requires_grad_()
+    before = _epilogue_counts()
+    with pytest.raises(ValueError, match="records a graph"):
+        te.token_norm(rows(64, 128), weight, bias, 1e-5)
+    with pytest.raises(ValueError, match="records a graph"):
+        te.gelu(rows(64, 128).requires_grad_())
+    assert _epilogue_counts() == before
+
+    torch.manual_seed(0)
+    layer = T.TransformerLayer(128, False, 4, with_shift=True,
+                               dtype=torch.bfloat16).to(card)
+    src, tgt = rows(2 * 96, 128).view(2, 96, 128), rows(2 * 96, 128).view(
+        2, 96, 128)
+    for ctx, launches in ((torch.inference_mode(), (2, 0, 1, 0)),
+                          (torch.enable_grad(), (0, 0, 0, 0))):
+        before = _epilogue_counts()
+        with ctx:
+            y = layer(src, tgt, 8, 12, 2)
+        assert tuple(a - b for a, b in zip(_epilogue_counts(), before)) \
+            == launches
+        assert y.requires_grad == (launches[0] == 0)
+    y.float().sum().backward()
+    assert layer.norm2.weight.grad is not None
